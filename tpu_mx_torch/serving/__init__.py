@@ -1,0 +1,29 @@
+"""Inference serving on the card: paged KV cache, continuous batching.
+
+The port of ``tpu_mx/serving``'s main path, bottom up:
+
+- :mod:`.kv_cache` — block pools on the device + free-list allocator +
+  per-sequence block tables; exhaustion is backpressure
+  (:class:`CacheExhausted`), never OOM.
+- :mod:`.attention` — flash-kernel prefill, paged-kernel decode.
+- :mod:`.model` — :class:`TinyLM`, the seed-deterministic model, with
+  its whole decode step on the device.
+- :mod:`.scheduler` — admission, continuous batching, tenant fairness.
+- :mod:`.engine` — model + cache = prefill/decode compute.
+- :mod:`.server` — ``submit``/``step``/``run_until_idle``/``stream``.
+- :mod:`.tenancy`, :mod:`.timeline` — tenant policy, latency attribution.
+"""
+from .kv_cache import BlockAllocator, CacheExhausted, PagedKVCache
+from .tenancy import TenantConfig, TenantTable
+from .attention import decode_attention, dense_attention, prefill_attention
+from .model import TinyLM
+from .timeline import RequestTimeline
+from .scheduler import AdmissionReject, ContinuousBatchingScheduler, Request
+from .engine import EngineCore
+from .server import Server
+
+__all__ = ["BlockAllocator", "CacheExhausted", "PagedKVCache",
+           "TenantConfig", "TenantTable", "dense_attention",
+           "decode_attention", "prefill_attention", "TinyLM",
+           "RequestTimeline", "AdmissionReject",
+           "ContinuousBatchingScheduler", "Request", "EngineCore", "Server"]

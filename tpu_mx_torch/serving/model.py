@@ -1,0 +1,198 @@
+"""TinyLM: the deterministic attention decoder the serving runtime drives.
+
+The port of ``tpu_mx/serving/model.py`` (weights and forward) and of the
+whole-step decode of ``tpu_mx/serving/jax_model.py``.  TinyLM is a
+multi-layer attention decoder with seed-deterministic random weights,
+positional embeddings, residual connections and a bounded ``tanh``; it
+is not a trained model but the workload that makes the serving claims
+checkable.  Its constructor draws the **same** ``numpy.random.
+RandomState`` sequence as the reference, so one seed gives the same
+weights in both packages, and :meth:`TinyLM.from_numpy` carries the
+reference's weights over as they are.
+
+The weights are registered buffers on the model's device (``device=``,
+default ``"cuda"``), float32 throughout as the reference serves.  Two
+entry points run the model:
+
+- :meth:`TinyLM.prefill` — a whole prompt; returns every layer's K/V for
+  the cache bulk-fill and the last position's logits.  Attention goes
+  through the flash forward (``serving/attention.py``).
+- :meth:`TinyLM.decode_step` — one decode step for a batch with the
+  whole step on the device: token ids in, embed, then per layer the QKV
+  projections, the K/V write into the cache pool (``index_put_``), the
+  paged kernel and the residual combine, then logits and greedy argmax.
+  One host-to-device copy carries the step's integer operands in and one
+  device-to-host copy brings the sampled ids and the health scalar back.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import device as _device
+from . import attention as _attn
+
+__all__ = ["TinyLM"]
+
+
+class TinyLM(nn.Module):
+    """Seed-deterministic attention decoder (see module docstring)."""
+
+    def __init__(self, vocab_size=128, embed_dim=64, num_heads=4,
+                 num_layers=2, max_positions=4096, seed=0, device="cuda"):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} must divide by "
+                             f"num_heads {num_heads}")
+        dev = _device.resolve(device)
+        # the reference's draw order, one matrix at a time: each lands on
+        # the device before the next is drawn, so a wide model never holds
+        # two float64 copies of its weights on the host
+        rng = np.random.RandomState(seed)
+        scale = 1.0 / np.sqrt(embed_dim)
+
+        def mat(*shape):
+            return torch.from_numpy(
+                (rng.standard_normal(shape) * scale).astype(np.float32)
+            ).to(dev)
+
+        tok_emb = mat(vocab_size, embed_dim)
+        pos_emb = mat(max_positions, embed_dim)
+        layers = [{"wq": mat(embed_dim, embed_dim),
+                   "wk": mat(embed_dim, embed_dim),
+                   "wv": mat(embed_dim, embed_dim),
+                   "wo": mat(embed_dim, embed_dim)}
+                  for _ in range(num_layers)]
+        w_out = mat(embed_dim, vocab_size)
+        self._install(tok_emb, pos_emb, layers, w_out, num_heads, dev)
+
+    @classmethod
+    def from_numpy(cls, tok_emb, pos_emb, layers, w_out, *, num_heads,
+                   device="cuda"):
+        """A TinyLM holding the given weights: ``tok_emb`` ``(V, E)``,
+        ``pos_emb`` ``(P, E)``, ``layers`` a list of ``{"wq", "wk", "wv",
+        "wo"}`` ``(E, E)`` matrices and ``w_out`` ``(E, V)`` — the
+        reference TinyLM's attributes of the same names.  The sizes are
+        read off the arrays."""
+        dev = _device.resolve(device)
+        model = cls.__new__(cls)
+        nn.Module.__init__(model)
+        put = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                        device=dev)
+        model._install(put(tok_emb), put(pos_emb),
+                       [{n: put(lay[n]) for n in ("wq", "wk", "wv", "wo")}
+                        for lay in layers], put(w_out), num_heads, dev)
+        return model
+
+    def _install(self, tok_emb, pos_emb, layers, w_out, num_heads, dev):
+        self.vocab_size, self.embed_dim = tok_emb.shape
+        self.max_positions = pos_emb.shape[0]
+        self.num_heads = int(num_heads)
+        if self.embed_dim % self.num_heads:
+            raise ValueError(f"embed_dim {self.embed_dim} must divide by "
+                             f"num_heads {self.num_heads}")
+        self.head_dim = self.embed_dim // self.num_heads
+        self.num_layers = len(layers)
+        self.device = dev
+        self.register_buffer("tok_emb", tok_emb)
+        self.register_buffer("pos_emb", pos_emb)
+        for name in ("wq", "wk", "wv", "wo"):
+            # (layers, E, E): one buffer per projection, indexed per layer
+            self.register_buffer(name, torch.stack([l[name] for l in layers]))
+        self.register_buffer("w_out", w_out)
+
+    def to_numpy(self):
+        """The weights as the reference's numpy attributes: ``(tok_emb,
+        pos_emb, layers, w_out)`` — :meth:`from_numpy`'s arguments."""
+        host = lambda t: t.detach().cpu().numpy()
+        layers = [{n: host(getattr(self, n)[i])
+                   for n in ("wq", "wk", "wv", "wo")}
+                  for i in range(self.num_layers)]
+        return host(self.tok_emb), host(self.pos_emb), layers, \
+            host(self.w_out)
+
+    # -- shared projections ---------------------------------------------------
+    def _check_positions(self, top):
+        if top >= self.max_positions:
+            raise ValueError(
+                f"position {top} >= max_positions={self.max_positions} — "
+                "raise max_positions or cap prompt+generation length at "
+                "admission")
+
+    def _heads(self, x):
+        # (..., E) -> (..., H, D)
+        return x.reshape(x.shape[:-1] + (self.num_heads, self.head_dim))
+
+    def _embed(self, tokens, positions):
+        return self.tok_emb[tokens % self.vocab_size] + self.pos_emb[positions]
+
+    def _combine(self, i, h, attn):
+        """Residual + output projection + bounded nonlinearity (``tanh``
+        keeps untrained-weight generations finite, so the engine's NaN
+        check fires on real faults only)."""
+        flat = attn.reshape(attn.shape[0], self.embed_dim)
+        return torch.tanh(h + flat @ self.wo[i])
+
+    # -- prefill --------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """The whole prompt in one call.  ``tokens``: host ints ``(L,)``.
+        Returns ``(k, v, logits_last)`` on the device: ``k``/``v``
+        ``(num_layers, L, H, D)`` — the cache bulk-fill — and the last
+        position's ``(V,)`` logits."""
+        tokens = np.asarray(tokens, np.int64)
+        length = tokens.shape[0]
+        self._check_positions(length - 1)
+        h = self._embed(torch.as_tensor(tokens, device=self.device),
+                        torch.arange(length, device=self.device))
+        ks, vs = [], []
+        for i in range(self.num_layers):
+            q = self._heads(h @ self.wq[i])                 # (L, H, D)
+            k = self._heads(h @ self.wk[i])
+            v = self._heads(h @ self.wv[i])
+            ks.append(k)
+            vs.append(v)
+            h = self._combine(i, h, _attn.prefill_attention(q, k, v))
+        return torch.stack(ks), torch.stack(vs), (h[-1:] @ self.w_out)[0]
+
+    # -- decode ---------------------------------------------------------------
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, positions, tables, lengths, bids,
+                    offs):
+        """ONE decode step for a batch, on the device.
+
+        ``tokens``/``positions``/``bids``/``offs``: host ints ``(B,)`` —
+        each row's last token, its position, and the pool slot its K/V
+        goes to (``cache.window_slots``); ``tables``/``lengths``: the
+        batch's ``cache.batch_tables``.  Writes every layer's K/V into
+        ``cache``'s pools and returns ``(tokens, health)``: host int64
+        ``(B,)`` greedy ids and the step's max |logit| as a float."""
+        b = len(tokens)
+        self._check_positions(int(np.max(positions)))
+        tables = np.asarray(tables, np.int64)
+        # one host->device copy for all of the step's integer operands
+        ops = torch.from_numpy(np.concatenate([
+            np.asarray(tokens, np.int64), np.asarray(positions, np.int64),
+            np.asarray(lengths, np.int64), np.asarray(bids, np.int64),
+            np.asarray(offs, np.int64), tables.reshape(-1)])).to(self.device)
+        tok, pos, lens, bid, off = ops[:5 * b].view(5, b)
+        # the kernel's int32 operands, cast once per step, not per layer
+        tab = ops[5 * b:].view(tables.shape).to(torch.int32)
+        lens = lens.to(torch.int32)
+        h = self._embed(tok, pos)                           # (B, E)
+        for i in range(self.num_layers):
+            q = self._heads(h @ self.wq[i])                 # (B, H, D)
+            k = self._heads(h @ self.wk[i])
+            v = self._heads(h @ self.wv[i])
+            kp, vp = cache.pool(i)
+            kp.index_put_((bid, off), k.to(kp.dtype))
+            vp.index_put_((bid, off), v.to(vp.dtype))
+            attn = _attn.decode_attention(q, cache, i, tab, lens)
+            h = self._combine(i, h, attn)
+        logits = h @ self.w_out                             # (B, V)
+        # one device->host copy: the ids travel as float32, exact for any
+        # vocabulary below 2**24, beside the health scalar
+        back = torch.cat([logits.argmax(dim=-1).float(),
+                          logits.abs().amax().reshape(1)]).cpu().numpy()
+        return back[:b].astype(np.int64), float(back[b])
