@@ -13,18 +13,34 @@ line each:
                  ``nvcc`` per source, all started together), with each
                  kernel's register and shared-memory report;
 3. ``kernel``  — each CUDA kernel against its plain PyTorch version on
-                 the card, at the serving path's shapes: max abs error
-                 and its tolerance, median ms by CUDA events, the plain
-                 version's ms, one PyTorch library call's ms where one
-                 computes the same function, and the least time the card
-                 could take (bytes over 3.35 TB/s or operations over the
-                 67 TFLOP/s float32 rate, whichever is larger);
+                 the card: paged decode and the flash forward at the
+                 serving path's shapes; the flash forward, dq and dk/dv
+                 at BERT's training shapes (bf16, ragged ``kv_valid``,
+                 dropout 0 and 0.1) and at one float32 causal shape.
+                 Max abs error and its tolerance, median ms by CUDA
+                 events, the plain version's ms, one PyTorch library
+                 call's ms where one computes the same function, and the
+                 least time the card could take (bytes over 3.35 TB/s or
+                 operations over the 989 TFLOP/s bf16 tensor-core rate,
+                 67 TFLOP/s for float32 inputs, whichever is larger).
+                 The forward kernel's dropout mask is read out and held
+                 bit for bit against the plain mask;
 4. ``serve``   — the serving path at TinyLM width 4096 (32 heads of
                  128, vocabulary 32000 — Llama-2-7B's attention width),
                  depth cut to 4 layers: 8 requests through
                  ``Server.run_until_idle()``, launch counts proving both
                  kernels ran, and request 0 held against the port on the
-                 CPU (plain versions, same weights).
+                 CPU (plain versions, same weights);
+5. ``train_parity`` — one ``CompiledTrainStep`` LAMB step of BERT-base
+                 (12 layers, float32, dropout 0, batch 2 x 128) on the
+                 card and on the CPU from the same weights: losses and
+                 per-tensor weight updates agree;
+6. ``train``   — the training slice at full width: BERT-base in bf16
+                 with dropout 0.1, the benchmark's MLM loss and LAMB
+                 (f32 masters), batch 32 x 512 with ragged valid
+                 lengths, 1 warm-up and 5 timed steps; launch counts
+                 prove the flash forward, dq and dk/dv ran 12 times a
+                 step and the paged kernel not at all.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -42,9 +58,13 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 
 PAGED_ATOL = 1e-4   # f32 math in both; only the summation order differs
 FLASH_ATOL = 1e-4   # f32 FFMA kernel vs the f32 (non-TF32) plain matmuls
+BF16_REL = 2e-2     # bf16 operands: x max|ref| (outputs rounded once each)
+LOSS_RTOL = 1e-4    # BERT-base f32 loss, card vs host (summation order)
+UPDATE_RTOL = 1e-2  # per-tensor LAMB update, relative in norm
 LOGITS_ATOL = 2e-4  # 4 layers of f32 on card vs host BLAS, |logit| ~ 1
 NEAR_TIE = 1e-3     # a greedy split is accepted only at a top-2 gap below
 
@@ -52,6 +72,13 @@ SERVE = dict(vocab_size=32000, embed_dim=4096, num_heads=32, num_layers=4,
              max_positions=4096, seed=0)
 PROMPT_LENS = (77, 150, 233, 310, 401, 499, 587, 700)
 NEW_TOKENS = 32
+
+# the training slice: the reference benchmark's seq-512 BERT leg
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED = 32, 512, 76   # 15% of 512 masked
+TRAIN_VALID = (384, 512)
+TRAIN_STEPS = 5
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
 
 
 def emit(phase, **fields):
@@ -82,9 +109,9 @@ def cuda_ms(torch, fn, reps=20, warm=3):
     return statistics.median(times)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -192,14 +219,175 @@ def phase_kernels(ctx):
         worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"], err)
         if not ok:
             ctx["failures"].append(f"flash_attention_fwd {shape}: err {err}")
-        if t == 700:
-            entries["flash_attention_fwd"] = dict(
-                shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    flash_train_kernels(torch, fa, gen, ctx, entries, worst)
+    flash_mask_bits(torch, fa, ctx)
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
     ctx["kernels"] = entries
     emit("kernels", held=sorted(entries))
+
+
+def flash_work(bh, t, d, causal, valid, elt):
+    """(operations per product, bytes of (q or dO), of the valid k/v rows,
+    of the float32 per-row vectors) of one flash call: the work these
+    inputs need — keys past kv_valid and above the diagonal are none."""
+    if causal:
+        pairs = sum(sum(min(i + 1, n) for i in range(t)) for n in valid)
+    else:
+        pairs = t * sum(valid)
+    return 2 * pairs * d, bh * t * d * elt, sum(valid) * d * elt, bh * t * 4
+
+
+def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
+    """The forward, dq and dk/dv kernels against the plain forward and
+    backward at one shape; returns one record per kernel."""
+    dev = "cuda"
+    q, k, v, do = (torch.randn((bh, t, d), generator=gen).to(dev, dtype)
+                   for _ in range(4))
+    kv = torch.tensor(valid, dtype=torch.int32, device=dev)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                         dtype=torch.int32).to(dev)
+    scale = 1.0 / math.sqrt(d)
+    opts = dict(causal=causal, kv_valid=kv, dropout_rate=rate,
+                dropout_seed=seed)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **opts)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, scale, causal, kv,
+                                            rate, seed)
+    delta = fa.flash_attention_delta(do, ref)
+    args = (q, k, v, do, ref_lse, delta, scale, causal, kv, rate, seed)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+
+    f32 = dtype == torch.float32
+    tol = lambda ref_t: FLASH_ATOL if f32 else \
+        BF16_REL * float(ref_t.abs().max())
+    err = lambda a, b: float((a.float() - b.float()).abs().max())
+    lse_err = err(lse, ref_lse)   # float32 in both: the float32 tolerance
+    checks = {
+        "flash_attention_fwd": (err(out, ref), tol(ref),
+                                lse_err <= FLASH_ATOL),
+        "flash_attention_bwd_dq": (err(dq, want[0]), tol(want[0]), True),
+        "flash_attention_bwd_dkv": (max(err(dk, want[1]), err(dv, want[2])),
+                                    min(tol(want[1]), tol(want[2])), True),
+    }
+
+    ms = {"flash_attention_fwd": cuda_ms(torch, lambda: fa.flash_attention(
+              q, k, v, return_lse=True, **opts)),
+          "flash_attention_bwd_dq": cuda_ms(
+              torch, lambda: fa.flash_attention_bwd_dq(*args)),
+          "flash_attention_bwd_dkv": cuda_ms(
+              torch, lambda: fa.flash_attention_bwd_dkv(*args))}
+    plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, scale, causal, kv, rate, seed), reps=5, warm=1)
+    plain_bwd = cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(*args),
+                        reps=5, warm=1)
+
+    # the library yardstick: SDPA with a boolean key mask, no dropout
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = torch.arange(t, device=dev)[None, :] < kv[:, None].long()
+    mask = mask[None, :, None, :]                          # (1, BH, 1, T)
+    if causal:
+        mask = mask & torch.ones((t, t), dtype=torch.bool,
+                                 device=dev).tril()[None, None]
+    q4, k4, v4, do4 = (x.view(1, bh, t, d) for x in (q, k, v, do))
+    lib_fwd = cuda_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask))
+    leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+    lib_out = sdpa(*leaves, attn_mask=mask)
+    lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+        lib_out, leaves, do4, retain_graph=True))
+    lib_both = cuda_ms(torch, lambda: torch.autograd.grad(
+        sdpa(*leaves, attn_mask=mask), leaves, do4))
+    del lib_out
+
+    elt = q.element_size()
+    fpm, qb, kvb, rowb = flash_work(bh, t, d, causal, valid, elt)
+    rate_flops = F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
+    bounds = {
+        "flash_attention_fwd": bound(2 * qb + 2 * kvb + rowb + 4 * bh,
+                                     2 * fpm, rate_flops),
+        "flash_attention_bwd_dq": bound(3 * qb + 2 * kvb + 2 * rowb + 4 * bh,
+                                        3 * fpm, rate_flops),
+        "flash_attention_bwd_dkv": bound(2 * qb + 2 * kvb + 2 * rowb
+                                         + 2 * bh * t * d * elt + 4 * bh,
+                                         4 * fpm, rate_flops),
+    }
+    shape = (f"BH={bh} T={t} D={d} {str(dtype).split('.')[-1]} "
+             f"{'causal' if causal else 'non-causal'} kv_valid "
+             f"{min(valid)}-{max(valid)} dropout {rate}")
+    recs = {}
+    for name in FLASH_KERNELS:
+        e, atol, also = checks[name]
+        b_ms, b_by = bounds[name]
+        fwd = name == "flash_attention_fwd"
+        recs[name] = dict(
+            shape=shape, max_abs_err=e, atol=atol,
+            ok=math.isfinite(e) and e <= atol and also, ms=ms[name],
+            plain_ms=plain_fwd if fwd else plain_bwd,
+            library_ms=lib_fwd if fwd else lib_bwd,
+            library_fwd_bwd_ms=lib_both, bound_ms=b_ms, bound_by=b_by)
+    recs["flash_attention_fwd"]["lse_max_abs_err"] = lse_err
+    return recs
+
+
+def flash_train_kernels(torch, fa, gen, ctx, entries, worst):
+    """BERT's shapes (BH = 32 x 12, T = 512, D = 64, bf16, kv_valid per
+    batch row over 384-512, dropout 0 and 0.1) and a float32 causal case
+    with kv_valid (BH = 32, T = 700, D = 128, dropout 0 and 0.1)."""
+    b, h = TRAIN_BATCH, 12
+    rows = torch.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, (b,),
+                         generator=gen).repeat_interleave(h).tolist()
+    f32_valid = torch.randint(350, 701, (32,), generator=gen).tolist()
+    for dtype, bh, t, d, causal, valid in (
+            (torch.bfloat16, b * h, TRAIN_SEQ, 64, False, rows),
+            (torch.float32, 32, 700, 128, True, f32_valid)):
+        for rate in (0.0, 0.1):
+            recs = flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate,
+                              valid)
+            for name, r in recs.items():
+                emit("kernel", name=name, launches_per_train_step=12, **r)
+                if not r["ok"]:
+                    ctx["failures"].append(f"{name} {r['shape']}: err "
+                                           f"{r['max_abs_err']}")
+                worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
+                if dtype == torch.bfloat16 and rate > 0:
+                    entries[name] = {k: r[k] for k in (
+                        "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by")}
+            torch.cuda.empty_cache()
+
+
+def flash_mask_bits(torch, fa, ctx):
+    """The forward kernel's dropout mask, read out through its output at
+    BERT's shape, against ``dropout_keep_mask`` bit for bit, and its keep
+    rate: with q = 0 every probability is 1/T, and V one-hot over a chunk
+    of D keys puts each kept key in its own output column."""
+    bh, t, d, rate = TRAIN_BATCH * 12, TRAIN_SEQ, 64, 0.1
+    dev = "cuda"
+    seed = torch.tensor([20261016], dtype=torch.int32, device=dev)
+    q = torch.zeros((bh, t, d), dtype=torch.bfloat16, device=dev)
+    ar = lambda lo, hi, shape: torch.arange(lo, hi, device=dev).reshape(shape)
+    mismatched = kept = 0
+    for c in range(t // d):
+        v = torch.zeros((bh, t, d), dtype=torch.bfloat16, device=dev)
+        v[:, c * d:(c + 1) * d] = torch.eye(d, device=dev)
+        got = fa.flash_attention(q, q, v, dropout_rate=rate,
+                                 dropout_seed=seed) > 0
+        want = fa.dropout_keep_mask(seed, ar(0, bh, (bh, 1, 1)),
+                                    ar(0, t, (1, t, 1)),
+                                    ar(c * d, (c + 1) * d, (1, 1, d)), rate)
+        mismatched += int((got != want).sum())
+        kept += int(want.sum())
+    draws = bh * t * t
+    keep_rate = kept / draws
+    ok = mismatched == 0 and abs(keep_rate - (1 - rate)) <= 0.005
+    emit("dropout_mask", ok=ok, shape=f"BH={bh} T={t} bf16", rate=rate,
+         draws=draws, mismatched_bits=mismatched, keep_rate=keep_rate,
+         keep_rate_tolerance=0.005)
+    if not ok:
+        ctx["failures"].append(f"dropout mask: {mismatched} bits differ, "
+                               f"keep rate {keep_rate}")
 
 
 def top2_gap(logits):
@@ -288,6 +476,127 @@ def phase_serve(ctx):
             ctx["failures"].append(f"serve check {name} failed")
 
 
+def bert_batch(cfg, batch, seq, n_masked, valid, rng):
+    """Tokens, token types, valid lengths, masked positions (inside each
+    row's valid length) and their labels, as the benchmark draws them."""
+    tokens = rng.randint(4, cfg["vocab_size"], (batch, seq)).astype(np.int32)
+    types = np.zeros((batch, seq), np.int32)
+    valid = np.asarray(valid, np.int32)
+    positions = np.stack([rng.choice(n, n_masked, replace=False)
+                          for n in valid]).astype(np.int32)
+    labels = np.take_along_axis(tokens, positions, axis=1)
+    return tokens, types, valid, positions, labels
+
+
+def phase_train_parity(ctx):
+    """One LAMB step of BERT-base (12 layers, full width, float32, dropout
+    0) on the card and on the CPU from the same weights."""
+    import torch
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.models import BERTModel, MLMLoss, bert_base_config
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(bert_base_config(max_len=512), dropout=0.0)
+    t0 = time.perf_counter()
+    cpu = BERTModel(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    gpu = BERTModel.from_numpy(
+        {n: p.detach().numpy() for n, p in cpu.named_parameters()}, cfg,
+        device="cuda")
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    batch = bert_batch(cfg, 2, 128, 19, (128, 97), np.random.RandomState(2))
+    losses = {}
+    for name, net, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        opt = optimizer.create("lamb", learning_rate=1e-4)
+        step = CompiledTrainStep(net, MLMLoss(), opt, device=dev)
+        losses[name] = float(step.step(*batch))
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    worst, worst_name = 0.0, None
+    params_gpu = dict(gpu.named_parameters())
+    for n, p in cpu.named_parameters():
+        d_cpu = p.detach() - before[n]
+        d_gpu = params_gpu[n].detach().cpu() - before[n]
+        rel = float((d_gpu - d_cpu).norm() / d_cpu.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, n
+    checks = {"loss": loss_rel <= LOSS_RTOL, "updates": worst <= UPDATE_RTOL,
+              "finite": math.isfinite(losses["cuda"])}
+    emit("train_parity", ok=all(checks.values()), checks=checks,
+         config={**cfg, "dtype": "float32", "batch": 2, "seq": 128,
+                 "valid_length": [128, 97], "masked": 19},
+         losses=losses, loss_rel_err=loss_rel, loss_rtol=LOSS_RTOL,
+         worst_update_rel_err=worst, worst_update_param=worst_name,
+         update_rtol=UPDATE_RTOL, seconds=time.perf_counter() - t0)
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"train_parity check {name} failed")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def phase_train(ctx):
+    """The training slice at full width: BERT-base bf16, dropout 0.1,
+    MLM loss, LAMB with f32 masters, batch 32 x 512, on the card."""
+    import torch
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.kernels import paged_attention as pa
+    from tpu_mx_torch.models import BERTModel, MLMLoss, bert_base_config
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    rng = np.random.RandomState(0)
+    valid = rng.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, TRAIN_BATCH)
+    batch = bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED, valid, rng)
+    batch = tuple(torch.from_numpy(x).cuda() for x in batch)
+    t0 = time.perf_counter()
+    net = BERTModel(cfg, dtype="bfloat16", device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = optimizer.create("lamb", learning_rate=1e-4, multi_precision=True)
+    step = CompiledTrainStep(net, MLMLoss(), opt)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = [float(step.step(*batch))]          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv, pa.paged_attention)
+    for c in counters:
+        c.launches = 0
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        losses.append(float(step.step(*batch)))  # ends in a host read
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = dict(zip(FLASH_KERNELS + ("paged_attention",),
+                        (c.launches for c in counters)))
+    ctx["train_launches"] = launches
+    layers = cfg["num_layers"]
+    checks = {
+        "finite": all(math.isfinite(x) for x in losses),
+        "loss_falls": losses[-1] < losses[0],
+        "flash_launches": all(launches[k] == layers * TRAIN_STEPS
+                              for k in FLASH_KERNELS),
+        "paged_idle": launches["paged_attention"] == 0,
+    }
+    med = statistics.median(step_ms)
+    ctx["train_step_ms"] = med
+    emit("train", ok=all(checks.values()), checks=checks,
+         model={**cfg, "dtype": "bfloat16"},
+         batch=dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, masked=TRAIN_MASKED,
+                    valid_length=[int(x) for x in valid]),
+         optimizer="lamb lr=1e-4 multi_precision", setup_seconds=setup_s,
+         losses=losses, step_ms=step_ms, step_ms_median=med,
+         seq_per_sec=TRAIN_BATCH / med * 1e3,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches, launches_per_step={
+             k: launches[k] / TRAIN_STEPS for k in launches},
+         card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"train check {name} failed")
+
+
 def main():
     try:
         import torch
@@ -309,7 +618,9 @@ def main():
          count=torch.cuda.device_count(), nvcc=_build.nvcc_version().strip()
          .splitlines()[-1])
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
-                     ("serve", phase_serve)):
+                     ("serve", phase_serve),
+                     ("train_parity", phase_train_parity),
+                     ("train", phase_train)):
         try:
             fn(ctx)
         except Exception as e:  # noqa: BLE001 — reported, and the run fails
@@ -318,19 +629,28 @@ def main():
             ctx["failures"].append(f"phase {name}: {type(e).__name__}")
             if name == "build":
                 break
-    if ctx["failures"] or "kernels" not in ctx or "launches" not in ctx:
+    if ctx["failures"] or not {"kernels", "launches",
+                                "train_launches"} <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1
+    launches = {**ctx["train_launches"],
+                "paged_attention": ctx["launches"]["paged_attention"]}
     kernels = []
-    for name, source, replaces in (
+    for name, source, replaces, path in (
             ("flash_attention_fwd", "tpu_mx_torch/csrc/flash_attention_fwd.cu",
-             "tpu_mx/kernels/flash_attention.py:263"),
+             "tpu_mx/kernels/flash_attention.py:263", "train"),
+            ("flash_attention_bwd_dq",
+             "tpu_mx_torch/csrc/flash_attention_bwd.cu",
+             "tpu_mx/kernels/flash_attention.py:465", "train"),
+            ("flash_attention_bwd_dkv",
+             "tpu_mx_torch/csrc/flash_attention_bwd.cu",
+             "tpu_mx/kernels/flash_attention.py:499", "train"),
             ("paged_attention", "tpu_mx_torch/csrc/paged_attention.cu",
-             "tpu_mx/kernels/paged_attention.py:223")):
+             "tpu_mx/kernels/paged_attention.py:223", "serve")):
         e = ctx["kernels"][name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": ctx["launches"][name],
+                        "replaces": replaces, "launches": launches[name],
+                        "launches_path": path,
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                         "bound_by": e["bound_by"],

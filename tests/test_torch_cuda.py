@@ -112,10 +112,126 @@ def test_flash_kernel_matches_plain(d, t, causal):
     torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
 
 
-def test_flash_kernel_refuses_bf16():
-    q = torch.zeros((2, 64, 64), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(MXNetError, match="float32"):
+def test_flash_kernel_refuses_float16():
+    q = torch.zeros((2, 64, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
         fa.flash_attention(q, q, q)
+
+
+def _flash_case(seed, bh, t, d, dtype, tk=None):
+    g = torch.Generator().manual_seed(seed)
+    tk = t if tk is None else tk
+    q = torch.randn((bh, t, d), generator=g)
+    k, v = (torch.randn((bh, tk, d), generator=g) for _ in range(2))
+    do = torch.randn((bh, t, d), generator=g)
+    valid = torch.randint(1, tk + 1, (bh,), generator=g, dtype=torch.int32)
+    return [x.to("cuda", dt) for x, dt in
+            ((q, dtype), (k, dtype), (v, dtype), (do, dtype),
+             (valid, torch.int32))]
+
+
+def _tol(dtype, ref):
+    # float32: the kernels and the plain versions differ only in the order
+    # of their float32 sums; bfloat16: both read the same rounded inputs
+    # but round their outputs once each
+    return TOL if dtype == torch.float32 else 2e-2 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(77, 64), (128, 32), (200, 128)])
+def test_flash_forward_and_backward_kernels_match_plain(t, d, dtype, causal,
+                                                        rate):
+    """kv_valid ragged over the rows, dropout on and off, both types: the
+    forward, dq and dk/dv kernels against the plain forward and the plain
+    backward with the same seed."""
+    q, k, v, do, valid = _flash_case(t + d, 6, t, d, dtype)
+    seed = torch.tensor([1234 + t], dtype=torch.int32, device="cuda")
+    scale = 1 / math.sqrt(d)
+    opts = dict(causal=causal, kv_valid=valid, dropout_rate=rate,
+                dropout_seed=seed)
+    counts = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **opts)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, scale, causal, valid,
+                                            rate, seed)
+    delta = fa.flash_attention_delta(do, ref)
+    args = (q, k, v, do, ref_lse, delta, scale, causal, valid, rate, seed)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in
+                                                          counts)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+    for got, exp in zip((out, dq, dk, dv), (ref,) + want):
+        tol = _tol(dtype, exp)
+        torch.testing.assert_close(got.float(), exp.float(), rtol=0,
+                                   atol=tol)
+
+
+def test_flash_backward_zeroes_keys_past_kv_valid():
+    """dk/dv rows of keys past kv_valid — whole tiles and a partial one —
+    come out exactly 0 although the outputs start uninitialized."""
+    q, k, v, do, _ = _flash_case(3, 4, 300, 64, torch.float32)
+    valid = torch.tensor([300, 1, 64, 130], dtype=torch.int32, device="cuda")
+    for _ in range(2):   # the second run reuses the first's memory
+        out, lse = fa.flash_attention(q, k, v, kv_valid=valid,
+                                      return_lse=True)
+        args = (q, k, v, do, lse, fa.flash_attention_delta(do, out),
+                0.125, False, valid, 0.0, None)
+        dk, dv = fa.flash_attention_bwd_dkv(*args)
+    for row, n in enumerate(valid.tolist()):
+        assert torch.all(dk[row, n:] == 0) and torch.all(dv[row, n:] == 0)
+        assert torch.all(dv[row, :n].abs().sum(-1) > 0)
+
+
+def test_flash_dropout_mask_is_the_plain_mask_bit_for_bit():
+    """The forward kernel's keep mask, read out through its output: with
+    q = 0 every valid probability is 1/T, and V one-hot over a chunk of
+    D keys puts each kept key's scaled probability in its own output
+    column, so ``out > 0`` is the mask.  It equals
+    :func:`dropout_keep_mask`, and its keep rate is 1 - rate."""
+    bh, t, d, rate = 16, 256, 64, 0.1
+    seed = torch.tensor([-7], dtype=torch.int32, device="cuda")
+    q = torch.zeros((bh, t, d), device="cuda")
+    got = torch.empty((bh, t, t), dtype=torch.bool, device="cuda")
+    for c in range(t // d):
+        v = torch.zeros((bh, t, d), device="cuda")
+        v[:, c * d:(c + 1) * d] = torch.eye(d, device="cuda")
+        out = fa.flash_attention(q, q, v, dropout_rate=rate,
+                                 dropout_seed=seed)
+        got[:, :, c * d:(c + 1) * d] = out > 0
+    ar = lambda n, shape: torch.arange(n, device="cuda").reshape(shape)
+    want = fa.dropout_keep_mask(seed, ar(bh, (bh, 1, 1)), ar(t, (1, t, 1)),
+                                ar(t, (1, 1, t)), rate)
+    assert torch.equal(got, want)
+    assert abs(want.float().mean().item() - (1 - rate)) < 0.005
+
+
+def test_flash_autograd_function_runs_the_backward_kernels():
+    q, k, v, do, valid = _flash_case(5, 4, 96, 64, torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out = fa.mha_flash_attention(*(x.reshape(2, 2, 96, 64) for x in leaves),
+                                 valid_length=valid[::2], dropout_rate=0.1,
+                                 dropout_seed=3)
+    out.backward(do.reshape(2, 2, 96, 64))
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    kv = valid[::2].repeat_interleave(2)
+    seed = torch.tensor([3], dtype=torch.int32, device="cuda")
+    ref, lse = fa.flash_attention_plain(q, k, v, 0.125, False, kv, 0.1, seed)
+    want = fa.flash_attention_bwd_plain(
+        q, k, v, do, lse, fa.flash_attention_delta(do, ref), 0.125, False,
+        kv, 0.1, seed)
+    for leaf, exp in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad.float(), exp.float(), rtol=0,
+                                   atol=_tol(torch.bfloat16, exp))
 
 
 def test_cpu_and_card_serve_the_same_stream():
@@ -131,3 +247,35 @@ def test_cpu_and_card_serve_the_same_stream():
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
     np.testing.assert_array_equal(np.asarray(streams[0]).shape, (2, 8))
+
+
+def test_bert_train_step_on_the_card_matches_the_cpu():
+    """Two LAMB steps of a small BERT in float32 with valid lengths: the
+    card (flash kernels) and the CPU (dense plain version) agree."""
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.models import BERTModel, MLMLoss
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    cfg = dict(num_layers=2, units=128, hidden_size=256, num_heads=2,
+               vocab_size=300, max_length=128, dropout=0.0)
+    cpu = BERTModel(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    gpu = BERTModel.from_numpy(
+        {n: p.detach().numpy() for n, p in cpu.named_parameters()}, cfg)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, 300, (3, 100), generator=g)
+    valid = torch.tensor([100, 61, 7])
+    pos = torch.stack([torch.randperm(int(n), generator=g)[:5]
+                       for n in valid])
+    batch = (tokens, torch.zeros_like(tokens), valid, pos,
+             torch.gather(tokens, 1, pos))
+    losses = []
+    for net, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        step = CompiledTrainStep(net, MLMLoss(), optimizer.create(
+            "lamb", learning_rate=1e-3), device=dev)
+        losses.append([float(step.step(*(x.to(dev) for x in batch)))
+                       for _ in range(2)])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    for (name, a), (_, b) in zip(cpu.named_parameters(),
+                                 gpu.named_parameters()):
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), rtol=1e-4,
+                                   atol=1e-4, msg=name)

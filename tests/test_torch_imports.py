@@ -1,7 +1,8 @@
 """The PyTorch/CUDA port stands alone and defaults to the card.
 
 - No file of ``tpu_mx_torch/``, nor the scripts that drive it on the card
-  (``chip_smoke.py``, ``torch_serve_profile.py``), imports jax or
+  (``chip_smoke.py``, ``torch_serve_profile.py``,
+  ``torch_train_profile.py``, ``torch_flash_ab.py``), imports jax or
   the reference package ``tpu_mx`` (AST scan, and a fresh interpreter's
   ``sys.modules`` after importing the port).
 - No function of the port defaults ``device`` to the CPU; the entry
@@ -20,7 +21,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tpu_mx_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "torch_serve_profile.py"]
+    ROOT / "chip_smoke.py", ROOT / "torch_serve_profile.py",
+    ROOT / "torch_train_profile.py", ROOT / "torch_flash_ab.py"]
 
 
 def _forbidden(module):
@@ -63,17 +65,49 @@ def test_no_port_function_defaults_device_to_cpu():
 
 
 def test_entry_points_default_to_the_card():
-    from tpu_mx_torch import device
+    from tpu_mx_torch import device, random
+    from tpu_mx_torch.models import BERTModel
+    from tpu_mx_torch.parallel import CompiledTrainStep
     from tpu_mx_torch.serving import PagedKVCache, Server, TinyLM
     assert device.DEFAULT_DEVICE == "cuda"
     for fn in (TinyLM.__init__, TinyLM.from_numpy, Server.__init__,
-               PagedKVCache.__init__, device.resolve):
+               PagedKVCache.__init__, device.resolve, BERTModel.__init__,
+               BERTModel.from_numpy, CompiledTrainStep.__init__,
+               random.generator):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_training_entry_points_refuse_the_cpu_unless_asked():
+    """Without a card, ``BERTModel`` raises rather than build on the
+    host, and ``CompiledTrainStep`` refuses a host network unless it is
+    asked for the CPU; with ``device="cpu"`` both run."""
+    import torch
+    from tpu_mx_torch import MXNetError, optimizer
+    from tpu_mx_torch.models import BERTModel, MLMLoss
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    cfg = dict(num_layers=1, units=32, hidden_size=64, num_heads=2,
+               vocab_size=50, max_length=16, dropout=0.0)
+    net = BERTModel(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    opt = optimizer.create("lamb")
+    if not torch.cuda.is_available():
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            BERTModel(cfg)
+    with pytest.raises(MXNetError):
+        CompiledTrainStep(net, MLMLoss(), opt)
+    step = CompiledTrainStep(net, MLMLoss(), opt, device="cpu")
+    tokens = torch.randint(0, 50, (2, 16), generator=torch.Generator()
+                           .manual_seed(1))
+    loss = step.step(tokens, torch.zeros_like(tokens), None,
+                     torch.zeros((2, 3), dtype=torch.int64), tokens[:, :3])
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
     code = ("import sys, tpu_mx_torch, tpu_mx_torch.serving, "
-            "tpu_mx_torch.kernels; print(sorted(m for m in sys.modules "
+            "tpu_mx_torch.kernels, tpu_mx_torch.models, "
+            "tpu_mx_torch.parallel, tpu_mx_torch.optimizer, "
+            "tpu_mx_torch.gluon; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_mx')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

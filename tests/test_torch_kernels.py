@@ -206,3 +206,229 @@ def test_cpu_tensors_never_count_as_kernel_launches():
                        torch.from_numpy(v), causal=True)
     assert (pa.paged_attention.launches,
             fa.flash_attention.launches) == before
+
+
+# ----------------------------------------------------------------------------
+# the flash kernels' training options: kv_valid, the backward, dropout
+# ----------------------------------------------------------------------------
+def _valid(seed, bh, t):
+    return np.random.RandomState(seed).randint(1, t + 1, bh).astype(np.int32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [128, 256])
+def test_flash_plain_with_kv_valid_matches_jax_flash(t, causal):
+    q, k, v = _qkv(t + 1, 3, t, 64)
+    valid = _valid(t, 3, t)
+    ref = np.asarray(jfa.flash_attention(q, k, v, causal=causal,
+                                         kv_valid=valid))
+    out = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal,
+                             kv_valid=torch.from_numpy(valid))
+    np.testing.assert_allclose(out.detach().numpy(), ref, rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [128, 256])
+def test_flash_plain_backward_matches_jax_vjp(t, causal):
+    """dq, dk, dv of the port's plain backward (the flash formulas from
+    the saved lse) against ``jax.vjp`` of the interpret-mode kernels."""
+    import jax
+    q, k, v = _qkv(t + 2, 3, t, 64)
+    do = np.random.RandomState(t).randn(3, t, 64).astype(np.float32)
+    valid = _valid(t + 3, 3, t)
+    _, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, causal=causal, kv_valid=valid), q, k, v)
+    want = [np.asarray(g) for g in vjp(do)]
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    kv = torch.from_numpy(valid)
+    out, lse = fa.flash_attention_plain(tq, tk, tv, 0.125, causal, kv)
+    tdo = torch.from_numpy(do)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, tdo, lse,
+                                       fa.flash_attention_delta(tdo, out),
+                                       0.125, causal, kv)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-4)
+
+
+def _dense_with_mask(q, k, v, scale, valid, keep, rate):
+    """softmax attention with the key-padding mask, then inverted dropout
+    with a materialized keep mask: the function autograd differentiates."""
+    t, tk = q.shape[1], k.shape[1]
+    ok = torch.arange(tk)[None, None, :] < valid.long()[:, None, None]
+    s = (q @ k.transpose(1, 2) * scale).masked_fill(~ok, -1e30)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(keep, p / (1 - rate), 0.0)
+    return p @ v
+
+
+def _keep(seed, bh, t, tk, rate):
+    return fa.dropout_keep_mask(seed, torch.arange(bh).reshape(bh, 1, 1),
+                                torch.arange(t).reshape(1, t, 1),
+                                torch.arange(tk).reshape(1, 1, tk), rate)
+
+
+def test_flash_dropout_backward_is_autograd_of_the_dense_formula():
+    """With a fixed seed, the plain forward and backward equal the dense
+    formula and its torch.autograd gradients under the same mask."""
+    bh, t, d, rate = 3, 96, 32, 0.2
+    q, k, v = (torch.from_numpy(x).double() for x in _qkv(11, bh, t, d))
+    do = torch.from_numpy(np.random.RandomState(12).randn(bh, t, d))
+    valid = torch.tensor([96, 40, 65], dtype=torch.int32)
+    seed = torch.tensor([-123456], dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = _dense_with_mask(*leaves, d ** -0.5, valid,
+                           _keep(seed, bh, t, t, rate), rate)
+    ref.backward(do)
+    out, lse = fa.flash_attention_plain(q, k, v, d ** -0.5, False, valid,
+                                        rate, seed)
+    got = fa.flash_attention_bwd_plain(q, k, v, do, lse,
+                                       fa.flash_attention_delta(do, out),
+                                       d ** -0.5, False, valid, rate, seed)
+    # float32 math in the plain versions, float64 in the oracle
+    np.testing.assert_allclose(out.numpy(), ref.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for g, leaf in zip(got, leaves):
+        np.testing.assert_allclose(g.numpy(), leaf.grad.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flash_dropout_mask_does_not_depend_on_the_tiling():
+    bh, t, d, rate = 2, 200, 16, 0.3
+    q, k, v = (torch.from_numpy(x) for x in _qkv(13, bh, t, d))
+    do = torch.from_numpy(np.random.RandomState(14).randn(bh, t, d)
+                          .astype(np.float32))
+    seed = torch.tensor([99], dtype=torch.int32)
+    runs = []
+    for block_q in (7, 64, 200):
+        out, lse = fa.flash_attention_plain(q, k, v, 0.25, True, None, rate,
+                                            seed, block_q=block_q)
+        grads = fa.flash_attention_bwd_plain(
+            q, k, v, do, lse, fa.flash_attention_delta(do, out), 0.25, True,
+            None, rate, seed, block_q=block_q)
+        runs.append((out, lse) + grads)
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    # the mask of a block of rows is the same bits as those rows of the
+    # whole mask
+    whole = _keep(seed, bh, t, t, rate)
+    rows = fa.dropout_keep_mask(seed, torch.arange(bh).reshape(bh, 1, 1),
+                                torch.arange(50, 57).reshape(1, 7, 1),
+                                torch.arange(t).reshape(1, 1, t), rate)
+    assert torch.equal(rows, whole[:, 50:57])
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_flash_dropout_keep_rate(rate):
+    keep = _keep(torch.tensor([7], dtype=torch.int32), 16, 256, 256, rate)
+    assert abs(keep.float().mean().item() - (1 - rate)) < 0.01
+
+
+def test_flash_dropout_mask_hash_matches_its_word_arithmetic():
+    """The int64 tensor arithmetic equals the 32-bit formula computed with
+    Python integers (the kernels' uint32 arithmetic)."""
+    m = 0xFFFFFFFF
+
+    def fmix(h):
+        h ^= h >> 16
+        h = (h * 0x85EBCA6B) & m
+        h ^= h >> 13
+        h = (h * 0xC2B2AE35) & m
+        return h ^ (h >> 16)
+
+    seed, rate = -5, 0.25
+    for bh, qi, ki in ((0, 0, 0), (383, 511, 511), (7, 3, 100000),
+                       (65535, 70000, 9)):
+        row = fmix((seed & m) ^ fmix((bh + 0x9E3779B9) & m))
+        qkey = fmix(row ^ ((qi * 0x85EBCA77) & m))
+        bits = fmix(qkey ^ ((ki * 0xC2B2AE3D) & m))
+        got = fa.dropout_keep_mask(torch.tensor([seed], dtype=torch.int32),
+                                   torch.tensor(bh), torch.tensor(qi),
+                                   torch.tensor(ki), rate)
+        assert bool(got) == (bits >= int(rate * 2 ** 32))
+
+
+def test_flash_autograd_function_on_the_cpu_runs_the_plain_backward():
+    bh, t, d = 2, 70, 16
+    q, k, v = (torch.from_numpy(x) for x in _qkv(15, bh, t, d))
+    do = torch.from_numpy(np.random.RandomState(16).randn(bh, t, d)
+                          .astype(np.float32))
+    valid = torch.tensor([70, 33], dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out = fa.flash_attention(*leaves, kv_valid=valid, dropout_rate=0.1,
+                             dropout_seed=5)
+    out.backward(do)
+    seed = torch.tensor([5], dtype=torch.int32)
+    ref, lse = fa.flash_attention_plain(q, k, v, 0.25, False, valid, 0.1,
+                                        seed)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, lse,
+                                        fa.flash_attention_delta(do, ref),
+                                        0.25, False, valid, 0.1, seed)
+    assert torch.equal(out.detach(), ref)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == before
+
+
+def test_flash_rejects_bad_dropout_arguments():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(17, 1, 8, 16))
+    with pytest.raises(ValueError, match="dropout_rate"):
+        fa.flash_attention(q, k, v, dropout_rate=1.0, dropout_seed=1)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        fa.flash_attention(q, k, v, dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_flash_matches_jax_mha_with_valid_length(causal):
+    rng = np.random.RandomState(18)
+    q, k, v = (rng.randn(2, 3, 128, 64).astype(np.float32) for _ in range(3))
+    vl = np.array([128, 50], np.int32)
+    ref = np.asarray(jfa.mha_flash_attention(q, k, v, causal=causal,
+                                             valid_length=vl))
+    got = fa.mha_flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), causal=causal,
+                                 valid_length=torch.from_numpy(vl))
+    np.testing.assert_allclose(got.detach().numpy(), ref, rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+def test_cpu_attention_arm_is_the_kernels_function():
+    """``parallel.attention`` on the CPU (the dense arm, autograd) and the
+    flash plain versions (explicit backward) compute the same function,
+    dropout mask included — so a model trained on the CPU and on the card
+    sees the same masks."""
+    from tpu_mx_torch.parallel import ring_attention as ra
+    rng = np.random.RandomState(19)
+    q, k, v = (torch.from_numpy(rng.randn(2, 2, 40, 16).astype(np.float32))
+               for _ in range(3))
+    do = torch.from_numpy(rng.randn(2, 2, 40, 16).astype(np.float32))
+    vl = torch.tensor([40, 23], dtype=torch.int32)
+    seed = torch.tensor([77], dtype=torch.int32)
+    grads = []
+    for fn in (ra.attention, fa.mha_flash_attention):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, valid_length=vl, dropout_rate=0.1,
+                 dropout_seed=seed)
+        out.backward(do)
+        grads.append([out.detach()] + [x.grad for x in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_refuses_what_is_not_ported():
+    from tpu_mx_torch.parallel import attention
+
+    class Mesh:
+        axis_names = ("dp", "sp")
+        shape = {"dp": 1, "sp": 2}
+
+    q = torch.zeros((1, 1, 8, 16))
+    with pytest.raises(MXNetError, match="A16"):
+        attention(q, q, q, mesh=Mesh())
+    with pytest.raises(MXNetError, match="bias"):
+        attention(q, q, q, bias=torch.zeros((1, 1, 8, 8)))

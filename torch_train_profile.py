@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Where the port's BERT training step spends its time: a torch.profiler trace.
+
+    python3 torch_train_profile.py [--out DIR] [--steps N]
+
+Builds the training configuration of ``chip_smoke.py``'s train phase
+(BERT-base in bf16, dropout 0.1, LAMB with f32 masters, batch 32 x 512
+with ragged valid lengths), runs one warm-up step, then profiles N steps
+(default 2), each ending in a host read of its loss.  Prints one JSON
+line: the host wall time, the summed device time of every kernel (one
+stream, so the sum is the device's busy time), the idle share
+``1 - busy/wall``, the device time by group (the three flash kernels,
+matrix products, the rest) and the kernels with the most device time.
+The profiler's host cost lengthens the wall time, so the idle share is
+an upper bound on the unprofiled run's.  The Chrome trace goes to
+``DIR`` (default ``build/profile/``, git-ignored).  Needs one CUDA card.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+import chip_smoke
+
+# kernel-name fragments of each group (the flash kernels are the port's;
+# the matrix products are cuBLAS's: nvjet, xmma and CUTLASS kernels)
+GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
+          ("flash_dq", ("flash_dq_kernel",)),
+          ("flash_dkv", ("flash_dkv_kernel",)),
+          ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
+
+
+def group_of(name):
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join("build", "profile"))
+    ap.add_argument("--steps", type=int, default=2)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device available",
+              file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.models import BERTModel, MLMLoss, bert_base_config
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    os.makedirs(args.out, exist_ok=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    cfg = bert_base_config(max_len=chip_smoke.TRAIN_SEQ)
+    rng = np.random.RandomState(0)
+    lo, hi = chip_smoke.TRAIN_VALID
+    valid = rng.randint(lo, hi + 1, chip_smoke.TRAIN_BATCH)
+    batch = chip_smoke.bert_batch(cfg, chip_smoke.TRAIN_BATCH,
+                                  chip_smoke.TRAIN_SEQ,
+                                  chip_smoke.TRAIN_MASKED, valid, rng)
+    batch = tuple(torch.from_numpy(x).cuda() for x in batch)
+    net = BERTModel(cfg, dtype="bfloat16", device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    step = CompiledTrainStep(net, MLMLoss(), optimizer.create(
+        "lamb", learning_rate=1e-4, multi_precision=True))
+    float(step.step(*batch))                              # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses = [float(step.step(*batch)) for _ in range(args.steps)]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side rows only: a CPU op's row repeats its kernels' time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = {}
+    for e in kernels:
+        g = groups.setdefault(group_of(e.key), {"device_ms": 0.0,
+                                                "calls": 0})
+        g["device_ms"] += e.self_device_time_total / 1e3
+        g["calls"] += e.count
+    prof.export_chrome_trace(os.path.join(args.out, "train_steps.json"))
+    print(json.dumps({
+        "window": f"{args.steps} train steps", "losses": losses,
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / wall_ms,
+        "per_step": {k: {"device_ms": v["device_ms"] / args.steps,
+                         "calls": v["calls"] / args.steps}
+                     for k, v in sorted(groups.items())},
+        "kernels": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in kernels[:15]]}), flush=True)
+    if busy_ms <= 0:
+        raise SystemExit("torch_train_profile: no device time recorded")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

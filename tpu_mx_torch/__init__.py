@@ -1,10 +1,19 @@
 """tpu_mx_torch: the PyTorch/CUDA port of tpu_mx, for one NVIDIA H100.
 
 The JAX package ``tpu_mx`` beside it is the reference; this package
-imports nothing of it and nothing of jax.  The port goes slice by slice;
-this one is the serving path (:mod:`tpu_mx_torch.serving`) with its two
-hand-written Hopper kernels (:mod:`tpu_mx_torch.kernels`).  Entry points
-take ``device=`` and default to ``"cuda"`` (:mod:`tpu_mx_torch.device`).
+imports nothing of it and nothing of jax.  The port goes slice by slice:
+
+- serving (:mod:`tpu_mx_torch.serving`), over the flash forward and the
+  paged-decode kernels;
+- one BERT-base pretraining step (:mod:`tpu_mx_torch.models`,
+  :mod:`tpu_mx_torch.parallel`, :mod:`tpu_mx_torch.optimizer`,
+  :mod:`tpu_mx_torch.gluon`, :mod:`tpu_mx_torch.ndarray`), over the
+  flash forward with its training options and the flash backward
+  kernels.
+
+The hand-written Hopper kernels are in :mod:`tpu_mx_torch.kernels`.
+Entry points take ``device=`` and default to ``"cuda"``
+(:mod:`tpu_mx_torch.device`).
 """
 from .base import MXNetError, NumericDivergence
 

@@ -1,0 +1,95 @@
+// What the flash-attention forward and backward kernels share: element
+// loads and stores of float32 or bfloat16 operands, the masks, and the
+// dropout keep mask.
+//
+// The keep mask replaces the reference's TPU PRNG draw (_keep_mask in
+// tpu_mx/kernels/flash_attention.py), which cannot be reproduced off the
+// TPU.  Here the decision for one score element is a pure function of
+// (seed, bh, query index, key index), computed element by element, so it
+// does not depend on tile sizes and the three kernels regenerate the same
+// bits.  The hash is MurmurHash3's 32-bit finalizer, chained over the four
+// words (all arithmetic mod 2^32):
+//
+//   row  = fmix32(seed ^ fmix32(bh + 0x9E3779B9))
+//   qkey = fmix32(row ^ (q * 0x85EBCA77))
+//   bits = fmix32(qkey ^ (k * 0xC2B2AE3D))
+//   keep = bits >= threshold,  threshold = min(floor(rate * 2^32), 2^32 - 1)
+//
+// tpu_mx_torch/kernels/flash_attention.py::dropout_keep_mask computes the
+// same bits in PyTorch integer arithmetic.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tmx_flash {
+
+constexpr int kBq = 64;            // query rows of a tile
+constexpr int kBk = 64;            // key rows of a tile
+constexpr int kThreads = 256;      // 16 x 16 threads, each a 4 x 4 block
+constexpr float kNegInf = -1e30f;  // finite, as in the reference
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// The per-(seed, bh) stream key, then the per-query-row key.
+__device__ __forceinline__ uint32_t dropout_row_key(uint32_t seed, int bh) {
+  return fmix32(seed ^ fmix32(static_cast<uint32_t>(bh) + 0x9E3779B9u));
+}
+__device__ __forceinline__ uint32_t dropout_q_key(uint32_t row, int q) {
+  return fmix32(row ^ (static_cast<uint32_t>(q) * 0x85EBCA77u));
+}
+__device__ __forceinline__ bool dropout_keep(uint32_t qkey, int k,
+                                             uint32_t threshold) {
+  return fmix32(qkey ^ (static_cast<uint32_t>(k) * 0xC2B2AE3Du)) >= threshold;
+}
+
+// Number of valid keys of row bh: kv_valid[bh] clamped to [0, tk], or tk.
+__device__ __forceinline__ int valid_keys(const int* kv_valid, int bh,
+                                          int tk) {
+  if (kv_valid == nullptr) return tk;
+  return max(0, min(kv_valid[bh], tk));
+}
+
+// Copy rows [r0, r0 + kRows) of two (rows, D) operands into shared memory
+// as float32, with row strides sa and sb; rows past `rows` are zero.  Both
+// operands are staged in one unrolled loop so that many global loads are
+// in flight at once: one block runs per SM (shared memory is the limit),
+// and the tile's load latency is not hidden behind other blocks' work.
+template <int D, int kRows, typename T>
+__device__ __forceinline__ void stage_rows2(float* da, int sa, const T* a,
+                                            float* db, int sb, const T* b,
+                                            int r0, int rows) {
+  static_assert(kRows * D % kThreads == 0, "tile must split evenly");
+#pragma unroll 8
+  for (int it = 0; it < kRows * D / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / D, d = i % D;
+    const bool in = r0 + r < rows;
+    const long at = static_cast<long>(r0 + r) * D + d;
+    da[r * sa + d] = in ? to_f32(a[at]) : 0.f;
+    db[r * sb + d] = in ? to_f32(b[at]) : 0.f;
+  }
+}
+
+}  // namespace tmx_flash

@@ -1,0 +1,69 @@
+"""Losses from ``tpu_mx/gluon/loss.py``: ``Loss``, ``SoftmaxCrossEntropyLoss``
+and ``PassThrough``, as :class:`torch.nn.Module`s.
+
+A loss returns one value per example (the mean over every axis but
+``batch_axis``); ``CompiledTrainStep`` takes the mean of that.
+"""
+from __future__ import annotations
+
+from torch import nn
+
+from ..ndarray import ops
+
+__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss", "PassThrough"]
+
+
+def _apply_weighting(loss, weight=None, sample_weight=None):
+    if sample_weight is not None:
+        loss = loss * sample_weight
+    if weight is not None:
+        loss = loss * weight
+    return loss
+
+
+class Loss(nn.Module):
+    def __init__(self, weight, batch_axis):
+        super().__init__()
+        self._weight = weight
+        self._batch_axis = batch_axis
+
+    def _per_example(self, loss):
+        axes = tuple(i for i in range(loss.dim()) if i != self._batch_axis)
+        return loss.mean(dim=axes) if axes else loss
+
+    def extra_repr(self):
+        return f"batch_axis={self._batch_axis}, w={self._weight}"
+
+
+class SoftmaxCrossEntropyLoss(Loss):
+    """Log-softmax + pick: ``-log softmax(pred)[label]`` for sparse labels,
+    ``-sum(log softmax(pred) · label)`` for dense ones."""
+
+    def __init__(self, axis=-1, sparse_label=True, weight=None,
+                 batch_axis=0):
+        super().__init__(weight, batch_axis)
+        self._axis = axis
+        self._sparse_label = sparse_label
+
+    def forward(self, pred, label, sample_weight=None):
+        pred = ops.log_softmax(pred, axis=self._axis)
+        if self._sparse_label:
+            loss = -ops.pick(pred, label, axis=self._axis)
+        else:
+            loss = -(pred * label.reshape(pred.shape)).sum(dim=self._axis)
+        return self._per_example(_apply_weighting(loss, self._weight,
+                                                  sample_weight))
+
+
+SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class PassThrough(Loss):
+    """Identity loss for nets whose first output is the objective; extra
+    step arguments are ignored."""
+
+    def __init__(self):
+        super().__init__(weight=None, batch_axis=0)
+
+    def forward(self, loss, *_ignored):
+        return loss

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch twin.
 
-- :mod:`.flash_attention` — flash-attention forward (prefill);
+- :mod:`.flash_attention` — flash attention: the forward (prefill and
+  training, with ``kv_valid`` and dropout) and the backward (dq, dk/dv);
 - :mod:`.paged_attention` — paged-attention decode.
 
 Sources live in ``tpu_mx_torch/csrc`` and are built at first use

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` on its own into ``build/tpu_mx_torch/<name>-<hash>.so`` under
 the checkout's root, then loaded with :mod:`ctypes` — no PyTorch headers
 are compiled, which keeps a build to seconds.  ``<hash>`` covers the
-source, the ``nvcc`` flags and the ``nvcc`` version, so an edited source
-rebuilds at its next use and an unchanged one is loaded as it is.
+source, the shared headers (``csrc/*.cuh``), the ``nvcc`` flags and the
+``nvcc`` version, so an edited source rebuilds at its next use and an
+unchanged one is loaded as it is.
 
 Nothing here runs at import: a source is built at the first call of the
 kernel that needs it (or all at once, in parallel, by :func:`build_all`).
@@ -29,7 +30,7 @@ __all__ = ["SOURCES", "nvcc_path", "nvcc_version", "build", "build_all",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_mx_torch"
-SOURCES = ("paged_attention", "flash_attention_fwd")
+SOURCES = ("paged_attention", "flash_attention_fwd", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,6 +57,7 @@ def nvcc_version():
 
 def _target(name):
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
                          + nvcc_version().encode()).hexdigest()[:16]
     return CSRC / f"{name}.cu", BUILD_DIR / f"{name}-{key}.so"

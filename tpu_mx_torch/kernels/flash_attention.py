@@ -1,24 +1,43 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain twin.
+"""Flash attention: the hand-written CUDA kernels and their plain twins.
 
-The port of the forward half of ``tpu_mx/kernels/flash_attention.py``:
-``softmax(q·kᵀ·scale [causal])·v`` over ``(BH, T, D)`` tensors, with the
-per-row logsumexp the backward pass needs.  The causal mask is the
-reference's (query row ``i`` sees key columns ``j <= i``).  Unlike the
-TPU kernel, any ``T`` is taken: the ragged tail is masked in the kernel,
-not refused by a ``T % 128`` gate.
+The port of ``tpu_mx/kernels/flash_attention.py``:
+``softmax(q·kᵀ·scale [masks])·v`` over ``(BH, T, D)`` tensors, with the
+per-row logsumexp the backward pass reads, and the two backward kernels
+that recompute the probabilities from it.  Unlike the TPU kernel, any
+``T`` is taken: ragged tails are masked in the kernels, not refused by a
+``T % 128`` gate.
 
-- the kernel (``csrc/flash_attention_fwd.cu``), launched for CUDA
-  tensors: 64-row query tiles, a loop over 64-row K/V tiles that stops
-  at the causal diagonal, float32 throughout.  It takes float32 inputs
-  and head dims 16/32/64/128; anything else on the card raises;
-- :func:`flash_attention_plain`, the same function in PyTorch (the full
-  score matrix, softmax in float32), run for CPU tensors — and on the
-  card only to check the kernel.
+Masks and options, as in the reference:
 
-Not yet ported (ROADMAP): the backward kernels (dq, dk/dv), the
-``kv_valid`` key-padding mask, the additive bias and in-kernel dropout.
-:func:`flash_attention` counts its kernel launches in
-``flash_attention.launches`` (a plain int; set it to 0 to start a count).
+- ``causal``: query row ``i`` sees key columns ``j <= i``;
+- ``kv_valid``: ``(BH,)`` int32, the number of valid keys of each row;
+  key columns ``>= kv_valid[bh]`` are masked, and key tiles wholly past
+  it are never loaded (their dk/dv rows are written as zeros);
+- ``dropout_rate``/``dropout_seed``: attention-probability dropout
+  inside the kernels.  The softmax normalizer uses the un-dropped
+  probabilities and kept ones are scaled by ``1/(1-rate)``.  The keep
+  decision is a pure function of ``(seed, bh, query index, key index)``
+  (:func:`dropout_keep_mask`), so the forward and both backward kernels
+  regenerate the same mask whatever their tile sizes, and the plain
+  versions compute the same bits in integer arithmetic.  The TPU's PRNG
+  bits cannot be reproduced; the mask is not the reference's.
+- The additive bias (``bias``, ``bias_groups``, ``d_bias``) is not
+  ported yet (ROADMAP).
+
+Each kernel has a wrapper that launches it for CUDA tensors (or raises)
+and runs the plain PyTorch version for CPU tensors, and counts its
+launches in ``<wrapper>.launches`` (a plain int; set it to 0 to start a
+count):
+
+- :func:`flash_attention` — the forward (``csrc/flash_attention_fwd.cu``);
+- :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` —
+  the backward (``csrc/flash_attention_bwd.cu``).
+
+Gradients flow through :class:`FlashAttentionFunction`, whose backward
+calls the two backward wrappers.  The plain versions
+(:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`) work
+on ``block_q`` query rows at a time, so their memory stays bounded at
+BERT's shapes; the tiling changes no result bit of the mask.
 """
 from __future__ import annotations
 
@@ -31,92 +50,362 @@ from ..base import MXNetError
 from .. import device as _device
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "mha_flash_attention", "flash_attention_plain",
+           "flash_attention_bwd_plain", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "flash_attention_delta",
+           "dropout_keep_mask", "FlashAttentionFunction", "HEAD_DIMS"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PLAIN_BLOCK_Q = 128             # query rows per step of the plain versions
 
-_lib = None
+_M32 = 0xFFFFFFFF
+_ROW_SALT = 0x9E3779B9          # the constants of csrc/flash_common.cuh
+_Q_MULT = 0x85EBCA77
+_K_MULT = 0xC2B2AE3D
 
-
-def _kernel_lib():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attention_fwd")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tmx_flash_attention_fwd.argtypes = [
-            p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
-        lib.tmx_flash_attention_fwd.restype = i
-        _lib = lib
-    return _lib
+_libs = {}
 
 
-def flash_attention_plain(q, k, v, scale, causal=False):
-    """``(out, lse)`` for ``(BH, T, D)`` inputs, computed densely in
-    float32; ``out`` is in ``q.dtype``, ``lse`` is float32 ``(BH, T)``."""
-    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+def _lib(name):
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                      ctypes.c_float)
+        # (..., kv_valid, seed, bh, tq, tk, d, scale, causal, threshold,
+        #  keep_scale, dtype, stream)
+        tail = [p, p, i, i, i, i, f, i, u, f, i, p]
+        if name == "flash_attention_fwd":
+            lib.tmx_flash_attention_fwd.argtypes = [p] * 5 + tail
+            lib.tmx_flash_attention_fwd.restype = i
+        else:
+            lib.tmx_flash_attention_bwd_dq.argtypes = [p] * 7 + tail
+            lib.tmx_flash_attention_bwd_dq.restype = i
+            lib.tmx_flash_attention_bwd_dkv.argtypes = [p] * 8 + tail
+            lib.tmx_flash_attention_bwd_dkv.restype = i
+        _libs[name] = lib
+    return lib
+
+
+# ----------------------------------------------------------------------------
+# the dropout mask: a pure function of (seed, bh, query, key)
+# ----------------------------------------------------------------------------
+def _mul32(a, c):
+    """``a * c mod 2**32`` for int64 tensors ``a`` in [0, 2**32) and a
+    constant ``c`` < 2**32, without overflowing int64: ``a`` is split
+    into 16-bit halves."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    """MurmurHash3's 32-bit finalizer (a bijection of 32-bit words)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _threshold(rate):
+    """Keep iff the 32 bits are ``>=`` this: ``P(keep) = 1 - rate``."""
+    return min(int(rate * 2 ** 32), _M32)
+
+
+def dropout_keep_mask(seed, bh, q_idx, k_idx, rate):
+    """The keep mask the kernels draw, as a bool tensor broadcast over
+    ``bh``, ``q_idx`` and ``k_idx`` (int64 index tensors).  ``seed`` is
+    a ``(1,)`` int32 tensor, read as an unsigned 32-bit word::
+
+        row  = fmix32(seed ^ fmix32(bh + 0x9E3779B9))
+        qkey = fmix32(row ^ (q * 0x85EBCA77))
+        bits = fmix32(qkey ^ (k * 0xC2B2AE3D))       (all mod 2**32)
+        keep = bits >= min(floor(rate * 2**32), 2**32 - 1)
+    """
+    s = seed.reshape(()).to(torch.int64) & _M32
+    row = _fmix32(s ^ _fmix32((bh + _ROW_SALT) & _M32))
+    qkey = _fmix32(row ^ _mul32(q_idx, _Q_MULT))
+    bits = _fmix32(qkey ^ _mul32(k_idx, _K_MULT))
+    return bits >= _threshold(rate)
+
+
+# ----------------------------------------------------------------------------
+# plain versions (PyTorch, float32 math, block_q query rows at a time)
+# ----------------------------------------------------------------------------
+def _block_masks(bh, q0, bq, tk, causal, kv_valid, rate, seed, dev):
+    """(score mask, keep mask or None) of query rows [q0, q0+bq)."""
+    qi = torch.arange(q0, q0 + bq, device=dev).reshape(1, bq, 1)
+    ki = torch.arange(tk, device=dev).reshape(1, 1, tk)
+    ok = torch.ones((1, bq, tk), dtype=torch.bool, device=dev)
     if causal:
-        t, tk = s.shape[1], s.shape[2]
-        keep = (torch.arange(tk, device=s.device)[None, :]
-                <= torch.arange(t, device=s.device)[:, None])
-        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, v.float()) / l
-    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+        ok = ok & (ki <= qi)
+    if kv_valid is not None:
+        ok = ok & (ki < kv_valid.to(dev, torch.int64).reshape(bh, 1, 1))
+    keep = None
+    if rate > 0.0:
+        keep = dropout_keep_mask(seed.to(dev),
+                                 torch.arange(bh, device=dev).reshape(bh, 1, 1),
+                                 qi, ki, rate)
+    return ok, keep
 
 
-def _launch(q, k, v, scale, causal):
-    bh, t, d = q.shape
+def flash_attention_plain(q, k, v, scale, causal=False, kv_valid=None,
+                          dropout_rate=0.0, dropout_seed=None,
+                          block_q=PLAIN_BLOCK_Q):
+    """``(out, lse)`` for ``(BH, T, D)`` inputs in float32 math; ``out``
+    is in ``q.dtype``, ``lse`` is float32 ``(BH, T)``.  Masked scores get
+    probability exactly 0, as in the kernel; a row with no valid key
+    gets ``out = 0``."""
+    bh, t, _ = q.shape
     tk = k.shape[1]
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise MXNetError(f"flash_attention kernel: q/k/v must be float32, "
-                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in HEAD_DIMS:
-        raise MXNetError(f"flash_attention kernel: head_dim {d} not in "
-                         f"{HEAD_DIMS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    kf, vf = k.float(), v.float()
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
-    lib = _kernel_lib()
+    for q0 in range(0, t, block_q):
+        bq = min(block_q, t - q0)
+        ok, keep = _block_masks(bh, q0, bq, tk, causal, kv_valid,
+                                dropout_rate, dropout_seed, q.device)
+        s = torch.matmul(q[:, q0:q0 + bq].float(), kf.transpose(1, 2)) * scale
+        s = torch.where(ok, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(ok, torch.exp(s - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        if keep is not None:
+            p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+        out[:, q0:q0 + bq] = (torch.matmul(p, vf) / l).to(q.dtype)
+        lse[:, q0:q0 + bq] = (m + torch.log(l))[..., 0]
+    return out, lse
+
+
+def flash_attention_delta(do, out):
+    """``delta = rowsum(dO · O)`` in float32, ``(BH, T)`` — a PyTorch op
+    outside the kernels, as it is a ``jnp`` op outside them in the
+    reference (``_bwd``)."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale, causal=False,
+                              kv_valid=None, dropout_rate=0.0,
+                              dropout_seed=None, block_q=PLAIN_BLOCK_Q):
+    """``(dq, dk, dv)`` by the flash backward's formulas, with ``P``
+    recomputed from the saved ``lse`` (not autograd of the forward)::
+
+        p  = exp(s - lse)                 (0 where masked)
+        dp = dO · Vᵀ,  then z/(1-r) · dp  with the keep mask z
+        ds = p ∘ (dp - delta) · scale
+        dq = ds · K,   dk = dsᵀ · Q,   dv = (z/(1-r) · p)ᵀ · dO
+    """
+    bh, t, _ = q.shape
+    tk = k.shape[1]
+    kf, vf = k.float(), v.float()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, t, block_q):
+        bq = min(block_q, t - q0)
+        ok, keep = _block_masks(bh, q0, bq, tk, causal, kv_valid,
+                                dropout_rate, dropout_seed, q.device)
+        qf = q[:, q0:q0 + bq].float()
+        dof = do[:, q0:q0 + bq].float()
+        s = torch.matmul(qf, kf.transpose(1, 2)) * scale
+        p = torch.where(ok, torch.exp(s - lse[:, q0:q0 + bq, None]), 0.0)
+        dp = torch.matmul(dof, vf.transpose(1, 2))
+        p_drop = p
+        if keep is not None:
+            inv = 1.0 / (1.0 - dropout_rate)
+            dp = torch.where(keep, dp * inv, 0.0)
+            p_drop = torch.where(keep, p * inv, 0.0)
+        ds = p * (dp - delta[:, q0:q0 + bq, None]) * scale
+        dq[:, q0:q0 + bq] = torch.matmul(ds, kf).to(q.dtype)
+        dk += torch.matmul(ds.transpose(1, 2), qf)
+        dv += torch.matmul(p_drop.transpose(1, 2), dof)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----------------------------------------------------------------------------
+# kernel launches
+# ----------------------------------------------------------------------------
+def _check_kernel_operands(what, q, *rest):
+    if q.dtype not in _DTYPES:
+        raise MXNetError(f"{what} kernel: q/k/v must be float32 or "
+                         f"bfloat16, got {q.dtype}")
+    for x in rest:
+        if x.dtype != q.dtype:
+            raise MXNetError(f"{what} kernel: operands must share q's dtype "
+                             f"{q.dtype}, got {x.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise MXNetError(f"{what} kernel: head_dim {q.shape[-1]} not in "
+                         f"{HEAD_DIMS}")
+
+
+def _tail(q, k, kv_valid, rate, seed, scale, causal):
+    """The C entry points' shared trailing arguments."""
+    bh, t, d = q.shape
+    drop = rate > 0.0
+    return (kv_valid.data_ptr() if kv_valid is not None else None,
+            seed.data_ptr() if drop else None, bh, t, k.shape[1], d,
+            float(scale), int(bool(causal)), _threshold(rate) if drop else 0,
+            1.0 / (1.0 - rate), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _launch_fwd(q, k, v, scale, causal, kv_valid, rate, seed):
+    _check_kernel_operands("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    lib = _lib("flash_attention_fwd")
     code = lib.tmx_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, t, tk, d, float(scale), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), *_tail(q, k, kv_valid, rate, seed, scale, causal))
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
     return out, lse
 
 
-def flash_attention(q, k, v, scale=None, causal=False, return_lse=False,
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal=False,
+                           kv_valid=None, dropout_rate=0.0, dropout_seed=None):
+    """dq of the flash backward (``_bwd_dq_kernel``): the CUDA kernel for
+    CUDA tensors, the plain backward for CPU tensors.  Operands as
+    :func:`flash_attention_bwd_plain` takes them, already normalized by
+    :func:`flash_attention` (contiguous, ``kv_valid`` int32, seed a
+    ``(1,)`` int32 tensor)."""
+    if q.device.type != "cuda":
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta, scale,
+                                         causal, kv_valid, dropout_rate,
+                                         dropout_seed)[0]
+    _check_kernel_operands("flash_attention_bwd_dq", q, k, v, do)
+    dq = torch.empty_like(q)
+    lib = _lib("flash_attention_bwd")
+    code = lib.tmx_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_tail(q, k, kv_valid, dropout_rate, dropout_seed, scale, causal))
+    _build.check(lib, code, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal=False,
+                            kv_valid=None, dropout_rate=0.0,
+                            dropout_seed=None):
+    """``(dk, dv)`` of the flash backward (``_bwd_dkv_kernel``); see
+    :func:`flash_attention_bwd_dq`."""
+    if q.device.type != "cuda":
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta, scale,
+                                         causal, kv_valid, dropout_rate,
+                                         dropout_seed)[1:]
+    _check_kernel_operands("flash_attention_bwd_dkv", q, k, v, do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _lib("flash_attention_bwd")
+    code = lib.tmx_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_tail(q, k, kv_valid, dropout_rate, dropout_seed, scale, causal))
+    _build.check(lib, code, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _forward(q, k, v, scale, causal, kv_valid, rate, seed):
+    if q.device.type == "cuda":
+        return _launch_fwd(q, k, v, scale, causal, kv_valid, rate, seed)
+    return flash_attention_plain(q, k, v, scale, causal, kv_valid, rate,
+                                 seed)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The flash forward with the flash backward as its gradient (the
+    reference's ``jax.custom_vjp`` ``_flash_core``).  Saves ``(q, k, v,
+    kv_valid, seed, out, lse)``; the backward computes delta with a
+    PyTorch op and runs the dq and dk/dv wrappers."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, seed, scale, causal, rate):
+        out, lse = _forward(q, k, v, scale, causal, kv_valid, rate, seed)
+        ctx.save_for_backward(q, k, v, kv_valid, seed, out, lse)
+        ctx.args = (scale, causal, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_valid, seed, out, lse = ctx.saved_tensors
+        scale, causal, rate = ctx.args
+        do = do.to(q.dtype).contiguous()
+        delta = flash_attention_delta(do, out)
+        args = (q, k, v, do, lse, delta, scale, causal, kv_valid, rate, seed)
+        dq = flash_attention_bwd_dq(*args)
+        dk, dv = flash_attention_bwd_dkv(*args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, scale=None, causal=False, kv_valid=None,
+                    dropout_rate=0.0, dropout_seed=None, return_lse=False,
                     device=None):
     """Attention over ``(BH, T, D)`` q and ``(BH, Tk, D)`` k/v; returns
-    ``out`` ``(BH, T, D)``, or ``(out, lse)`` with ``return_lse=True``.
+    ``out`` ``(BH, T, D)`` in q's dtype, or ``(out, lse)`` with
+    ``return_lse=True`` (no gradient then: the serving prefill's call).
+
+    ``kv_valid``: optional ``(BH,)`` valid-key counts.  ``dropout_rate``
+    in [0, 1) with ``dropout_seed`` (an int or a ``(1,)`` int32 tensor,
+    e.g. from :func:`tpu_mx_torch.random.take_seed`).  Differentiable in
+    q, k and v through :class:`FlashAttentionFunction`.
 
     Runs where the operands live: ``device=None`` takes ``q``'s device
     when ``q`` is a tensor and ``"cuda"`` otherwise; host data (numpy)
     is copied to that device, a tensor on another device raises.  CUDA
-    operands launch the kernel or raise; CPU operands run
-    :func:`flash_attention_plain`."""
+    operands launch the kernels or raise; CPU operands run the plain
+    versions."""
     if device is None:
         device = q.device if isinstance(q, torch.Tensor) \
             else _device.DEFAULT_DEVICE
     dev = _device.resolve(device)
-    q = _device.as_tensor(q, dev)
-    k = _device.as_tensor(k, dev)
-    v = _device.as_tensor(v, dev)
+    q, k, v = (_device.as_tensor(x, dev).contiguous() for x in (q, k, v))
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention: q must be (BH, T, D) and k/v "
                          f"(BH, Tk, D); got {tuple(q.shape)} / "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    if dev.type == "cuda":
-        out, lse = _launch(q, k, v, scale, causal)
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1): {dropout_rate}")
+    rate = float(dropout_rate)
+    if rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+        dropout_seed = _device.as_tensor(dropout_seed, dev,
+                                         torch.int32).reshape(1)
     else:
-        out, lse = flash_attention_plain(q, k, v, scale, causal)
-    return (out, lse) if return_lse else out
+        dropout_seed = None
+    if kv_valid is not None:
+        kv_valid = _device.as_tensor(kv_valid, dev, torch.int32) \
+            .reshape(q.shape[0]).contiguous()
+    if return_lse:
+        return _forward(q, k, v, scale, causal, kv_valid, rate, dropout_seed)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, kv_valid, dropout_seed,
+                                            scale, causal, rate)
+    return _forward(q, k, v, scale, causal, kv_valid, rate, dropout_seed)[0]
+
+
+def mha_flash_attention(q, k, v, causal=False, valid_length=None,
+                        dropout_rate=0.0, dropout_seed=None):
+    """Multi-head wrapper: q/k/v are ``(B, H, T, D)``; batch and heads are
+    folded for the kernels and the layout restored.  ``valid_length`` is
+    per batch row ``(B,)`` and is repeated over the heads."""
+    b, h, t, d = q.shape
+    fold = lambda x: x.reshape(b * h, x.shape[2], d)
+    kv_valid = None
+    if valid_length is not None:
+        kv_valid = torch.as_tensor(valid_length, device=q.device) \
+            .to(torch.int32).repeat_interleave(h)
+    out = flash_attention(fold(q), fold(k), fold(v), None, causal, kv_valid,
+                          dropout_rate, dropout_seed)
+    return out.reshape(b, h, t, d)
 
 
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

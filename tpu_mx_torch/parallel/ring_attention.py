@@ -1,0 +1,125 @@
+"""Attention dispatch: the mesh-less arms of ``tpu_mx/parallel/ring_attention.py``.
+
+``attention`` is what models call.  On the card it launches the flash
+kernels for every shape (``kernels/flash_attention.py``: they mask
+ragged tails, so there is no ``supported()`` gate, and gradients flow
+through their backward kernels).  On the CPU it runs the dense plain
+version (``_dense_mask`` + ``_block_attn``), the reference's XLA-dense
+arm, with the kernels' dropout mask so both devices compute the same
+function.  The reference's dense arm on the TPU and its crossover table
+(``TPUMX_ATTENTION``, ``TPUMX_DENSE_MAX_KV``) are not ported: that table
+was measured on a TPU, and a dense↔flash crossover for the H100 is open
+work (ROADMAP).  Sequence parallelism over a mesh's ``sp`` axis (ring,
+Ulysses) and the additive bias are not ported yet either.
+"""
+from __future__ import annotations
+
+import logging
+import math
+
+import torch
+
+from ..base import MXNetError
+from ..kernels import flash_attention as _fa
+
+__all__ = ["attention", "local_flash_attention", "dispatch_counts"]
+
+_logger = logging.getLogger(__name__)
+
+# Which attention path each distinct call signature took, deduplicated by
+# (path, detail) as in the reference: a new shape or dtype counts once.
+dispatch_counts = {"flash_kernel": 0, "dense": 0}
+_seen_signatures = set()
+
+
+def _count(path, detail):
+    sig = (path, detail)
+    if sig in _seen_signatures:
+        return
+    _seen_signatures.add(sig)
+    dispatch_counts[path] += 1
+    _logger.info("attention dispatch: %s %s", path, detail)
+
+
+def _dense_mask(t, tk, causal, valid_length, device):
+    """Combined causal + key-padding mask ``(B|1, 1, T|1, Tk)``, or None.
+    True = attend."""
+    mask = None
+    if causal:
+        mask = (torch.arange(t, device=device)[:, None]
+                >= torch.arange(tk, device=device)[None, :])[None, None]
+    if valid_length is not None:
+        km = (torch.arange(tk, device=device)[None, None, None, :]
+              < torch.as_tensor(valid_length, device=device)
+              .long()[:, None, None, None])
+        mask = km if mask is None else mask & km
+    return mask
+
+
+def _block_attn(q, k, v, mask=None, scale=1.0, dropout_rate=0.0,
+                dropout_seed=None):
+    """One q-block × k-block attention: ``(l, o)`` statistics, float32
+    (the reference also returns the row max ``m`` for the ring's merge,
+    which the port does not have).
+    q: (B, H, Tq, D), k/v: (B, H, Tk, D); mask: bool, True = attend.
+    Dropout hits only the V-accumulation (the denominator ``l`` stays
+    un-dropped); its mask is the flash kernels' (row ``bh = b*H + h``).
+    Unlike the reference's dense arm the probabilities stay float32 for
+    the PV product, as in the port's kernels."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        s = s.masked_fill(~mask, -math.inf)
+    m_safe = s.amax(dim=-1).clamp_min(-1e30)   # fully masked: exp(-inf) = 0
+    p = torch.exp(s - m_safe[..., None])
+    l = p.sum(dim=-1)
+    if dropout_rate > 0.0 and dropout_seed is not None:
+        b, h, t, tk = p.shape
+        dev = p.device
+        keep = _fa.dropout_keep_mask(
+            torch.as_tensor(dropout_seed, device=dev).reshape(1),
+            torch.arange(b * h, device=dev).reshape(b, h, 1, 1),
+            torch.arange(t, device=dev).reshape(1, 1, t, 1),
+            torch.arange(tk, device=dev).reshape(1, 1, 1, tk), dropout_rate)
+        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return l, o
+
+
+def local_flash_attention(q, k, v, causal=False, valid_length=None,
+                          dropout_rate=0.0, dropout_seed=None, bias=None):
+    """Single-device attention over ``(B, H, T, D)``: the flash kernels
+    for CUDA tensors, the dense plain version for CPU tensors.
+    ``dropout_seed`` is a ``(1,)`` int32 tensor (``random.take_seed``);
+    pass ``dropout_rate > 0`` only in training."""
+    if bias is not None:
+        raise MXNetError("attention: the additive bias is not ported yet "
+                         "(ROADMAP B1, the flash forward's bias option)")
+    rate = float(dropout_rate) if dropout_seed is not None else 0.0
+    if q.device.type == "cuda":
+        _count("flash_kernel", f"shape={tuple(q.shape)} dtype={q.dtype}")
+        return _fa.mha_flash_attention(q, k, v, causal=causal,
+                                       valid_length=valid_length,
+                                       dropout_rate=rate,
+                                       dropout_seed=dropout_seed)
+    _count("dense", f"shape={tuple(q.shape)} dtype={q.dtype}")
+    mask = _dense_mask(q.shape[2], k.shape[2], causal, valid_length,
+                       q.device)
+    l, o = _block_attn(q, k, v, mask=mask,
+                          scale=1.0 / math.sqrt(q.shape[-1]),
+                          dropout_rate=rate, dropout_seed=dropout_seed)
+    return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def attention(q, k, v, mesh=None, causal=False, valid_length=None,
+              dropout_rate=0.0, dropout_seed=None, bias=None):
+    """Dispatch: local attention (:func:`local_flash_attention`).  A mesh
+    with an ``sp`` axis longer than 1 — sequence parallelism — raises:
+    ring and Ulysses attention are not ported yet (ROADMAP A16)."""
+    if mesh is not None and "sp" in getattr(mesh, "axis_names", ()) \
+            and mesh.shape["sp"] > 1:
+        raise MXNetError("attention: sequence parallelism over a mesh's "
+                         "'sp' axis is not ported yet (ROADMAP A16)")
+    return local_flash_attention(q, k, v, causal=causal,
+                                 valid_length=valid_length,
+                                 dropout_rate=dropout_rate,
+                                 dropout_seed=dropout_seed, bias=bias)
