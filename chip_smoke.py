@@ -40,7 +40,28 @@ line each:
                  (f32 masters), batch 32 x 512 with ragged valid
                  lengths, 1 warm-up and 5 timed steps; launch counts
                  prove the flash forward, dq and dk/dv ran 12 times a
-                 step and the paged kernel not at all.
+                 step and the paged kernel not at all;
+7. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
+                 backward at BERT-base's attention width (B=32, H=12,
+                 T=512, D=64, bf16, ragged ``valid_length``, dropout
+                 0.1) for four float32 bias layouts: per head
+                 (1,12,512,512), per row (32,12,512,512), shared
+                 (1,1,512,512) and ALiBi (1,12,1,512); and one float32
+                 causal case (BH=32, T=700, D=128, bias (1,32,700,700)).
+                 Launch counts prove the three flash kernels ran with
+                 the bias; each kernel is held against its plain version
+                 (out, lse, dq, dk, dv, the reduced d_bias), d_bias is
+                 checked to be written everywhere over NaN-filled
+                 memory, and ms with and without the bias, the bound,
+                 the plain version's ms and SDPA's with the bias as a
+                 float mask are recorded;
+8. ``rtc``     — the reference's rtc test kernels (``scale``, ``addmul``)
+                 as CUDA source compiled at run time by
+                 ``tpu_mx_torch.rtc`` and run on 2**26 float32 elements:
+                 ``scale`` equals ``x * 3.0`` bit for bit, ``addmul``
+                 equals ``a * b + a`` within 1e-6 of ``|a*b| + |a|``
+                 (nvcc may contract it to one FMA); nvcc's log reaches
+                 the error of bad source.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -80,6 +101,28 @@ TRAIN_STEPS = 5
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 
+# the bias phase: BERT-base's attention width, four float32 bias layouts
+BIAS_LAYOUTS = (("per_head", (1, 12, 512, 512)),
+                ("per_row", (TRAIN_BATCH, 12, 512, 512)),
+                ("shared", (1, 1, 512, 512)),
+                ("alibi", (1, 12, 1, 512)))
+
+RTC_N = 1 << 26     # float32 elements: 256 MB an operand
+RTC_SOURCE = r'''
+extern "C" __global__ void scale(const float* __restrict__ x,
+                                 float* __restrict__ y, float alpha, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] * alpha;
+}
+
+extern "C" __global__ void addmul(const float* __restrict__ a,
+                                  const float* __restrict__ b,
+                                  float* __restrict__ o, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = a[i] * b[i] + a[i];
+}
+'''
+
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -92,8 +135,11 @@ def smi_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps=20, warm=3):
-    """Median milliseconds of ``fn`` by CUDA events."""
+def cuda_ms(torch, fn, reps=20, warm=3, queued=False):
+    """Median milliseconds of ``fn`` by CUDA events.  With ``queued``
+    the card first sleeps ~1 ms, so that ``fn``'s launches are queued
+    before the start event runs and its host path stays out of the
+    window (for kernels shorter than the host's launch path)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -101,6 +147,8 @@ def cuda_ms(torch, fn, reps=20, warm=3):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)      # cycles: ~1 ms at 1.98 GHz
         start.record()
         fn()
         end.record()
@@ -597,6 +645,259 @@ def phase_train(ctx):
             ctx["failures"].append(f"train check {name} failed")
 
 
+def sum_to(x, shape):
+    """``x`` summed over the axes where ``shape`` is 1 (a broadcast's
+    gradient)."""
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and x.shape[i] != 1)
+    return x.sum(dim=dims, keepdim=True) if dims else x
+
+
+def bias_case(torch, fa, gen, b, h, t, d, dtype, causal, valid, bias_shape):
+    """``parallel.attention(bias=)`` forward and backward (the main path,
+    counted), then each flash kernel with the folded bias against its
+    plain version; ms with and without the bias, the plain versions' ms
+    and SDPA's with the bias in a float mask."""
+    from tpu_mx_torch.parallel import attention
+    dev, rate = "cuda", 0.1
+    bh, scale = b * h, 1.0 / math.sqrt(d)
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen).to(dev, dtype)
+                   for _ in range(4))
+    bias = torch.randn(bias_shape, generator=gen).to(dev)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                         dtype=torch.int32).to(dev)
+    vl = torch.tensor(valid, dtype=torch.int32, device=dev)
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
+    for c in counters:
+        c.launches = 0
+    out = attention(*leaves[:3], causal=causal, valid_length=vl,
+                    dropout_rate=rate, dropout_seed=seed, bias=leaves[3])
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = dict(zip(FLASH_KERNELS, (c.launches for c in counters)))
+
+    # the kernels with the bias folded as mha_flash_attention folds it
+    kb = bias.expand(b, h, t, t) if bias_shape[2] == 1 else bias
+    kb = kb.reshape(-1, t, t)
+    fold = lambda x: x.reshape(bh, t, d)
+    qf, kf, vf, dof = (fold(x) for x in (q, k, v, do))
+    kv = vl.repeat_interleave(h)
+    opts = dict(causal=causal, kv_valid=kv, dropout_rate=rate,
+                dropout_seed=seed, bias=kb, bias_groups=kb.shape[0])
+    got, lse = fa.flash_attention(qf, kf, vf, return_lse=True, **opts)
+    ref, ref_lse = fa.flash_attention_plain(qf, kf, vf, scale, causal, kv,
+                                            rate, seed, kb)
+    delta = fa.flash_attention_delta(dof, ref)
+    args = (qf, kf, vf, dof, ref_lse, delta, scale, causal, kv, rate, seed,
+            kb)
+    want = fa.flash_attention_bwd_plain(*args)
+    want_db = sum_to(want[3].reshape(b, h, t, t), bias_shape)
+    # d_bias over memory filled with NaN by the call before: every
+    # element must be written (masked ones as 0)
+    poison = torch.full((bh, t, t), math.nan, device=dev)
+    at = poison.data_ptr()
+    del poison
+    dq, db_full = fa.flash_attention_bwd_dq(*args, want_d_bias=True)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    cols = torch.arange(t, device=dev)
+    masked = cols[None, None, :] >= kv[:, None, None].long()
+    if causal:
+        masked = masked | (cols[None, None, :] > cols[None, :, None])
+    poison_ok = (db_full.data_ptr() == at and bool(torch.isfinite(db_full)
+                                                   .all())
+                 and bool((db_full[masked.expand_as(db_full)] == 0).all()))
+    del db_full
+
+    f32 = dtype == torch.float32
+    tol = lambda r: FLASH_ATOL if f32 else BF16_REL * float(r.abs().max())
+    err = lambda a, r: float((a.float() - r.float()).abs().max())
+    errors = {"out": (err(got, ref), tol(ref)),
+              "lse": (err(lse, ref_lse), FLASH_ATOL),
+              "dq": (err(dq, want[0]), tol(want[0])),
+              "dk": (err(dk, want[1]), tol(want[1])),
+              "dv": (err(dv, want[2]), tol(want[2])),
+              "d_bias": (err(leaves[3].grad, want_db), tol(want_db)),
+              # the main path ran the same kernels on the same inputs
+              "attention_out": (err(out.detach().reshape(bh, t, d), got),
+                                0.0)}
+    rec = dict(shape=f"B={b} H={h} T={t} D={d} "
+                     f"{str(dtype).split('.')[-1]} "
+                     f"{'causal' if causal else 'non-causal'} valid "
+                     f"{min(valid)}-{max(valid)} dropout {rate}",
+               bias_shape=list(bias_shape), bias_dtype="float32",
+               launches=launches,
+               max_abs_err={n: e for n, (e, _) in errors.items()},
+               atol={n: a for n, (_, a) in errors.items()},
+               d_bias_poison_ok=poison_ok)
+    ok = (all(math.isfinite(e) and e <= a for e, a in errors.values())
+          and poison_ok and all(n > 0 for n in launches.values()))
+    rec["ok"] = ok
+
+    plain_opts = dict(causal=causal, kv_valid=kv, dropout_rate=rate,
+                      dropout_seed=seed)
+    no_bias = args[:-1]
+    rec["ms"] = {
+        "flash_attention_fwd": cuda_ms(torch, lambda: fa.flash_attention(
+            qf, kf, vf, return_lse=True, **opts)),
+        "flash_attention_bwd_dq": cuda_ms(
+            torch, lambda: fa.flash_attention_bwd_dq(*args,
+                                                     want_d_bias=True)),
+        "flash_attention_bwd_dkv": cuda_ms(
+            torch, lambda: fa.flash_attention_bwd_dkv(*args))}
+    rec["ms_no_bias"] = {
+        "flash_attention_fwd": cuda_ms(torch, lambda: fa.flash_attention(
+            qf, kf, vf, return_lse=True, **plain_opts)),
+        "flash_attention_bwd_dq": cuda_ms(
+            torch, lambda: fa.flash_attention_bwd_dq(*no_bias)),
+        "flash_attention_bwd_dkv": cuda_ms(
+            torch, lambda: fa.flash_attention_bwd_dkv(*no_bias))}
+    rec["plain_ms"] = {
+        "forward": cuda_ms(torch, lambda: fa.flash_attention_plain(
+            qf, kf, vf, scale, causal, kv, rate, seed, kb), reps=3, warm=1),
+        "backward": cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            *args), reps=3, warm=1)}
+
+    # the library yardstick: SDPA with the bias in a float mask, -inf
+    # past valid_length (and above the diagonal), no dropout
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pad = torch.zeros((b, 1, 1, t), dtype=dtype, device=dev)
+    pad.masked_fill_(cols[None, None, None, :] >= vl[:, None, None, None]
+                     .long(), -math.inf)
+    mask = bias.to(dtype) + pad
+    if causal:
+        mask = mask.masked_fill(cols[None, :] > cols[:, None], -math.inf)
+    lib = {"forward": cuda_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask)),
+           "backward": None}
+    lib_error = None
+    try:
+        lv = [x.detach().requires_grad_() for x in (q, k, v, mask)]
+        lout = sdpa(*lv[:3], attn_mask=lv[3])
+        lib["backward"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            lout, lv, do, retain_graph=True))
+        del lout, lv
+    except RuntimeError as e:   # SDPA may refuse a gradient for the mask
+        lib_error = f"{type(e).__name__}: {e}"[:300]
+    rec["library_ms"], rec["library_error"] = lib, lib_error
+
+    elt = q.element_size()
+    fpm, qb, kvb, rowb = flash_work(bh, t, d, causal, kv.tolist(), elt)
+    bias_b = kb.numel() * kb.element_size()
+    db_b = bh * t * t * 4
+    rate_flops = F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
+    rec["bound"] = {n: bound(nbytes, flops, rate_flops) for n, (nbytes, flops)
+                    in {"flash_attention_fwd": (2 * qb + 2 * kvb + rowb
+                                                + 4 * bh + bias_b, 2 * fpm),
+                        "flash_attention_bwd_dq": (3 * qb + 2 * kvb + 2 * rowb
+                                                   + 4 * bh + bias_b + db_b,
+                                                   3 * fpm),
+                        "flash_attention_bwd_dkv": (2 * qb + 2 * kvb + 2 * rowb
+                                                    + 2 * bh * t * d * elt
+                                                    + 4 * bh + bias_b,
+                                                    4 * fpm)}.items()}
+    return rec
+
+
+def phase_attention_bias(ctx):
+    import torch
+    from tpu_mx_torch.kernels import flash_attention as fa
+    gen = torch.Generator().manual_seed(3)
+    b, h = TRAIN_BATCH, 12
+    valid = torch.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, (b,),
+                          generator=gen).tolist()
+    f32_valid = torch.randint(350, 701, (1,), generator=gen).tolist()
+    cases = [(name, b, h, TRAIN_SEQ, 64, torch.bfloat16, False, valid, shape)
+             for name, shape in BIAS_LAYOUTS]
+    cases.append(("f32_causal", 1, 32, 700, 128, torch.float32, True,
+                  f32_valid, (1, 32, 700, 700)))
+    recs = {}
+    for name, *case in cases:
+        rec = bias_case(torch, fa, gen, *case)
+        emit("attention_bias", layout=name, card=ctx["smi"], **rec)
+        if not rec["ok"]:
+            ctx["failures"].append(f"attention_bias {name}: "
+                                   f"{rec['max_abs_err']}")
+        recs[name] = rec
+        torch.cuda.empty_cache()
+    ctx["bias"] = recs
+
+
+def phase_rtc(ctx):
+    """The reference's rtc kernels as CUDA source, compiled at run time,
+    on 2**26 float32 elements."""
+    import torch
+    from tpu_mx_torch import rtc
+    from tpu_mx_torch.base import MXNetError
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x, a, b = (torch.randn(RTC_N, device="cuda", generator=gen)
+               for _ in range(3))
+    mod = rtc.CudaModule(RTC_SOURCE)
+    scale, addmul = mod.get_kernel("scale", alpha=3.0), \
+        mod.get_kernel("addmul")
+    t0 = time.perf_counter()
+    mod.cubin()
+    build_s = time.perf_counter() - t0
+
+    rtc.Kernel.launches = 0
+    y = scale.launch((x,))
+    o = addmul((a, b))
+    torch.cuda.synchronize()
+    launches = rtc.Kernel.launches
+    want_y, want_o = x * 3.0, a * b + a
+    terms = (a * b).abs() + a.abs()
+    addmul_rel = float(((o - want_o).abs() / terms.clamp_min(1e-30)).max())
+    errs = {"scale": float((y - want_y).abs().max()),
+            "addmul": float((o - want_o).abs().max())}
+    checks = {"scale_bit_equal": torch.equal(y, want_y),
+              "addmul_rel": addmul_rel <= 1e-6, "launches": launches == 2}
+    del y, o, want_y, want_o, terms
+
+    buf = torch.empty_like(x)
+    nbytes = {"scale": 2 * 4 * RTC_N, "addmul": 3 * 4 * RTC_N}
+    flops = {"scale": RTC_N, "addmul": 2 * RTC_N}
+    timed = {
+        "scale": (lambda: scale.launch((x,)), lambda: x * 3.0,
+                  lambda: torch.mul(x, 3.0, out=buf)),
+        "addmul": (lambda: addmul((a, b)), lambda: a * b + a,
+                   lambda: torch.addcmul(a, a, b, out=buf))}
+    kernels = {}
+    for name, (kern, plain, lib) in timed.items():
+        b_ms, b_by = bound(nbytes[name], flops[name])
+        kernels[name] = dict(
+            ms=cuda_ms(torch, kern, queued=True),
+            ms_with_host=cuda_ms(torch, kern),
+            plain_ms=cuda_ms(torch, plain, queued=True),
+            library_ms=cuda_ms(torch, lib, queued=True), bound_ms=b_ms,
+            bound_by=b_by, max_abs_err=errs[name])
+
+    refusals = {}
+    bad = rtc.CudaModule('extern "C" __global__ void bad(const float* x, '
+                         'float* y, int n) { y[0] = undefined_name; }')
+    try:
+        bad.get_kernel("bad").launch((x[:8],))
+        refusals["nvcc_error"] = "no error"
+    except MXNetError as e:
+        refusals["nvcc_error"] = str(e)[-400:]
+    checks["nvcc_log_in_error"] = "undefined_name" in refusals["nvcc_error"]
+    try:
+        mod.get_kernel("scal")
+        refusals["unknown_kernel"] = "no error"
+    except MXNetError as e:
+        refusals["unknown_kernel"] = str(e)
+    checks["unknown_kernel"] = "not found" in refusals["unknown_kernel"]
+    ctx["rtc"] = dict(kernels["scale"], launches=launches,
+                      shape=f"{RTC_N} float32 elements, scale alpha=3.0",
+                      addmul=kernels["addmul"])
+    emit("rtc", ok=all(checks.values()), checks=checks, n=RTC_N,
+         build_seconds=build_s, launches=launches,
+         addmul_max_rel_err_of_terms=addmul_rel, kernels=kernels,
+         refusals=refusals, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"rtc check {name} failed")
+
+
 def main():
     try:
         import torch
@@ -620,7 +921,9 @@ def main():
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
                      ("serve", phase_serve),
                      ("train_parity", phase_train_parity),
-                     ("train", phase_train)):
+                     ("train", phase_train),
+                     ("attention_bias", phase_attention_bias),
+                     ("rtc", phase_rtc)):
         try:
             fn(ctx)
         except Exception as e:  # noqa: BLE001 — reported, and the run fails
@@ -629,8 +932,8 @@ def main():
             ctx["failures"].append(f"phase {name}: {type(e).__name__}")
             if name == "build":
                 break
-    if ctx["failures"] or not {"kernels", "launches",
-                                "train_launches"} <= ctx.keys():
+    if ctx["failures"] or not {"kernels", "launches", "train_launches",
+                                "bias", "rtc"} <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1
     launches = {**ctx["train_launches"],
@@ -648,13 +951,36 @@ def main():
             ("paged_attention", "tpu_mx_torch/csrc/paged_attention.cu",
              "tpu_mx/kernels/paged_attention.py:223", "serve")):
         e = ctx["kernels"][name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "launches_path": path,
-                        "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-                        "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                        "bound_by": e["bound_by"],
-                        "library_ms": e["library_ms"], "shape": e["shape"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "launches_path": path, "max_abs_err": e["max_abs_err"],
+               "ms": e["ms"], "plain_ms": e["plain_ms"],
+               "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+               "library_ms": e["library_ms"], "shape": e["shape"]}
+        if name in FLASH_KERNELS:    # with the per-head bias, same shape
+            bias = ctx["bias"]["per_head"]
+            row["bias"] = {
+                "shape": bias["shape"], "bias_shape": bias["bias_shape"],
+                "launches": bias["launches"][name],
+                "ms": bias["ms"][name], "ms_no_bias": bias["ms_no_bias"][name],
+                "bound_ms": bias["bound"][name][0],
+                "bound_by": bias["bound"][name][1],
+                "plain_ms": bias["plain_ms"]["forward" if name ==
+                                             "flash_attention_fwd"
+                                             else "backward"],
+                "library_ms": bias["library_ms"]["forward" if name ==
+                                                 "flash_attention_fwd"
+                                                 else "backward"]}
+        kernels.append(row)
+    r = ctx["rtc"]
+    kernels.append({"name": "rtc", "route": "cuda",
+                    "source": "tpu_mx_torch/rtc.py",
+                    "replaces": "tpu_mx/rtc.py:59", "launches": r["launches"],
+                    "launches_path": "rtc", "max_abs_err": r["max_abs_err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"], "shape": r["shape"],
+                    "addmul": r["addmul"]})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

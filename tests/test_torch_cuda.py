@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_mx_torch import rtc
 from tpu_mx_torch.base import MXNetError
 from tpu_mx_torch.kernels import flash_attention as fa
 from tpu_mx_torch.kernels import paged_attention as pa
@@ -279,3 +280,209 @@ def test_bert_train_step_on_the_card_matches_the_cpu():
                                  gpu.named_parameters()):
         torch.testing.assert_close(b.detach().cpu(), a.detach(), rtol=1e-4,
                                    atol=1e-4, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the additive bias and d_bias
+# ---------------------------------------------------------------------------
+def _bias(seed, planes, t, tk, dtype):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((planes, t, tk), generator=g).to("cuda", dtype)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("planes,bias_dtype", [
+    (6, torch.float32), (1, torch.float32), (3, torch.bfloat16),
+    (6, torch.float16)])
+@pytest.mark.parametrize("t,d", [(77, 64), (200, 128)])
+def test_flash_bias_kernels_match_plain(t, d, planes, bias_dtype, dtype,
+                                        causal, rate):
+    """The three kernels with a bias of 6 (per row), 1 (shared) or 3
+    (groups) planes, in float32, bfloat16 or float16, against the plain
+    forward and backward: out, lse, dq, dk, dv and the unreduced
+    d_bias."""
+    q, k, v, do, valid = _flash_case(t + d + planes, 6, t, d, dtype)
+    bias = _bias(t + planes, planes, t, t, bias_dtype)
+    seed = torch.tensor([99 + t], dtype=torch.int32, device="cuda")
+    scale = 1 / math.sqrt(d)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, kv_valid=valid,
+                                  dropout_rate=rate, dropout_seed=seed,
+                                  bias=bias, bias_groups=planes,
+                                  return_lse=True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, scale, causal, valid,
+                                            rate, seed, bias)
+    delta = fa.flash_attention_delta(do, ref)
+    args = (q, k, v, do, ref_lse, delta, scale, causal, valid, rate, seed,
+            bias)
+    dq, db = fa.flash_attention_bwd_dq(*args, want_d_bias=True)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+    for got, exp in zip((out, dq, dk, dv), (ref,) + want[:3]):
+        torch.testing.assert_close(got.float(), exp.float(), rtol=0,
+                                   atol=_tol(dtype, exp))
+    assert db.dtype == torch.float32 and db.shape == (6, t, t)
+    torch.testing.assert_close(db, want[3], rtol=0, atol=_tol(dtype, want[3]))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_d_bias_is_written_everywhere_on_poisoned_memory(causal):
+    """d_bias comes from torch.empty: the dq kernel writes every element
+    — masked columns, key tiles past kv_valid and above the diagonal
+    that it never visits get 0 — over memory a previous call filled with
+    NaN."""
+    t = 300
+    q, k, v, do, _ = _flash_case(8, 4, t, 64, torch.float32)
+    valid = torch.tensor([t, 1, 64, 130], dtype=torch.int32, device="cuda")
+    bias = _bias(9, 1, t, t, torch.float32)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, kv_valid=valid,
+                                  bias=bias, return_lse=True)
+    args = (q, k, v, do, lse, fa.flash_attention_delta(do, out), 0.125,
+            causal, valid, 0.0, None, bias)
+    poison = torch.full((4, t, t), float("nan"), device="cuda")
+    at = poison.data_ptr()
+    del poison
+    _, db = fa.flash_attention_bwd_dq(*args, want_d_bias=True)
+    torch.cuda.synchronize()
+    assert db.data_ptr() == at          # the poisoned block, reused
+    assert torch.isfinite(db).all()
+    for row, n in enumerate(valid.tolist()):
+        assert torch.all(db[row, :, n:] == 0)
+        assert torch.any(db[row, :, :n] != 0)
+    if causal:
+        assert torch.all(db[:, torch.ones((t, t), dtype=torch.bool,
+                                          device="cuda").triu(1)] == 0)
+    torch.testing.assert_close(db, fa.flash_attention_bwd_plain(*args)[3],
+                               rtol=TOL, atol=TOL)
+
+
+def test_flash_minus_inf_bias_gives_zero_rows_not_nans():
+    """-inf bias entries get p = 0; a row that is -inf everywhere gets
+    out = 0 and zero gradients, in the kernels as in the plain
+    versions."""
+    q, k, v, do, valid = _flash_case(10, 2, 96, 32, torch.float32)
+    bias = torch.zeros((2, 96, 96), device="cuda")
+    bias[:, :, ::3] = -math.inf
+    bias[1, 5] = -math.inf
+    for causal, kv in ((False, None), (True, valid)):
+        out, lse = fa.flash_attention(q, k, v, causal=causal, kv_valid=kv,
+                                      bias=bias, return_lse=True)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, 32 ** -0.5, causal,
+                                                kv, bias=bias)
+        args = (q, k, v, do, lse, fa.flash_attention_delta(do, out),
+                32 ** -0.5, causal, kv, 0.0, None, bias)
+        dq, db = fa.flash_attention_bwd_dq(*args, want_d_bias=True)
+        dk, dv = fa.flash_attention_bwd_dkv(*args)
+        want = fa.flash_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        for got, exp in zip((out, lse, dq, dk, dv, db), (ref, ref_lse) + want):
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got, exp, rtol=TOL, atol=TOL)
+        assert torch.all(out[1, 5] == 0) and torch.all(dq[1, 5] == 0)
+        assert torch.all(db[:, :, ::3] == 0) and torch.all(db[1, 5] == 0)
+
+
+@pytest.mark.parametrize("bias_shape", [(2, 3, 80, 80), (1, 3, 80, 80),
+                                        (1, 1, 80, 80), (1, 3, 1, 80)])
+def test_flash_bias_autograd_on_the_card_matches_the_cpu(bias_shape):
+    """``mha_flash_attention(bias=)`` with gradients for q, k, v and the
+    bias: the card's kernels and the CPU's plain versions agree, for the
+    per-row, per-head, shared and ALiBi layouts."""
+    g = torch.Generator().manual_seed(sum(bias_shape))
+    q, k, v, do = (torch.randn((2, 3, 80, 32), generator=g) for _ in range(4))
+    bias = torch.randn(bias_shape, generator=g)
+    valid = torch.tensor([80, 41])
+    grads = []
+    for dev in ("cpu", "cuda"):
+        leaves = [x.to(dev, copy=True).requires_grad_()
+                  for x in (q, k, v, bias)]
+        before = fa.flash_attention_bwd_dq.launches
+        out = fa.mha_flash_attention(*leaves[:3], causal=True,
+                                     valid_length=valid.to(dev),
+                                     bias=leaves[3])
+        out.backward(do.to(dev))
+        assert fa.flash_attention_bwd_dq.launches == before + (dev == "cuda")
+        grads.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    for a, b in zip(*grads):
+        assert a.shape == b.shape
+        torch.testing.assert_close(b, a, rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# rtc: runtime-compiled CUDA user kernels
+# ---------------------------------------------------------------------------
+RTC_SOURCE = r'''
+extern "C" __global__ void scale(const float* __restrict__ x,
+                                 float* __restrict__ y, float alpha, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] * alpha;
+}
+
+extern "C" __global__ void __launch_bounds__(256)
+addmul(const float* a, const float* b, float* o, long long n) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) o[i] = a[i] * b[i] + a[i];
+}
+'''
+
+
+def test_rtc_scale_and_addmul_on_the_card():
+    """``scale`` is ``x * 3.0`` bit for bit; ``addmul`` is ``a * b + a``
+    within 1e-6 of the terms (nvcc may contract it to one FMA)."""
+    mod = rtc.CudaModule(RTC_SOURCE)
+    g = torch.Generator().manual_seed(0)
+    x, a, b = (torch.randn(1_000_003, generator=g).cuda() for _ in range(3))
+    before = rtc.Kernel.launches
+    y = mod.get_kernel("scale", alpha=3.0).launch((x,))
+    y2 = mod.get_kernel("scale", alpha=3.0)(x, block=128,
+                                            grid=-(-x.numel() // 128))
+    o = mod.get_kernel("addmul")((a, b))
+    torch.cuda.synchronize()
+    assert rtc.Kernel.launches == before + 3
+    assert torch.equal(y, x * 3.0) and torch.equal(y2, y)
+    assert torch.all((o - (a * b + a)).abs()
+                     <= 1e-6 * ((a * b).abs() + a.abs()))
+    two_d = mod.get_kernel("scale", alpha=-1.0).launch(
+        (x[:1_000_000].reshape(1000, 1000),))
+    assert two_d.shape == (1000, 1000)
+    assert torch.equal(two_d, -x[:1_000_000].reshape(1000, 1000))
+
+
+def test_rtc_nvcc_error_carries_its_log():
+    mod = rtc.CudaModule('extern "C" __global__ void bad(const float* x, '
+                         'float* y, int n) { y[0] = undefined_name; }')
+    with pytest.raises(MXNetError, match="undefined_name"):
+        mod.get_kernel("bad").launch((torch.ones(4, device="cuda"),))
+
+
+def test_rtc_same_source_is_built_once_and_loaded_once():
+    dev = torch.device("cuda", torch.cuda.current_device())
+    first = rtc.CudaModule(RTC_SOURCE)
+    first.get_kernel("scale", alpha=2.0)(torch.ones(8, device="cuda"))
+    path = first.cubin()
+    stamp = path.stat().st_mtime_ns
+    second = rtc.CudaModule(RTC_SOURCE)
+    y = second.get_kernel("scale", alpha=2.0)(torch.ones(8, device="cuda"))
+    assert second.cubin() == path and path.stat().st_mtime_ns == stamp
+    assert second.function(dev, "scale").value == \
+        first.function(dev, "scale").value
+    assert torch.equal(y, torch.full((8,), 2.0, device="cuda"))
+    other = rtc.CudaModule(RTC_SOURCE, options=("-DUNUSED=1",))
+    assert other.cubin() != path
+
+
+def test_rtc_launch_refuses_what_it_cannot_pass():
+    mod = rtc.CudaModule(RTC_SOURCE)
+    k = mod.get_kernel("scale", alpha=1.0)
+    x = torch.ones((8, 8), device="cuda")
+    with pytest.raises(MXNetError, match="contiguous"):
+        k((x.t(),))
+    with pytest.raises(MXNetError, match="takes 2 pointers"):
+        k((x, x))
+    with pytest.raises(MXNetError, match="out_dtype"):
+        k((x,), out_dtype="float33")
+    with pytest.raises(MXNetError, match="not found/exported"):
+        mod.get_kernel("scal")

@@ -107,7 +107,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     code = ("import sys, tpu_mx_torch, tpu_mx_torch.serving, "
             "tpu_mx_torch.kernels, tpu_mx_torch.models, "
             "tpu_mx_torch.parallel, tpu_mx_torch.optimizer, "
-            "tpu_mx_torch.gluon; print(sorted(m for m in sys.modules "
+            "tpu_mx_torch.gluon, tpu_mx_torch.rtc; "
+            "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_mx')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

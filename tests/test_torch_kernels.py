@@ -6,6 +6,7 @@ its Pallas kernels in interpret mode (as tests/test_kernels.py does) and
 its XLA/dense references.  The CUDA kernels themselves are checked on
 the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
+import importlib
 import math
 
 import numpy as np
@@ -420,15 +421,207 @@ def test_cpu_attention_arm_is_the_kernels_function():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+class _SpMesh:
+    axis_names = ("dp", "sp")
+    shape = {"dp": 1, "sp": 2}
+
+
 def test_attention_refuses_what_is_not_ported():
+    """Sequence parallelism over an ``sp`` mesh axis still raises; the
+    additive bias, once refused here, is now taken (a zero bias changes
+    nothing)."""
     from tpu_mx_torch.parallel import attention
-
-    class Mesh:
-        axis_names = ("dp", "sp")
-        shape = {"dp": 1, "sp": 2}
-
-    q = torch.zeros((1, 1, 8, 16))
+    q = torch.from_numpy(np.random.RandomState(20).randn(1, 1, 8, 16)
+                         .astype(np.float32))
     with pytest.raises(MXNetError, match="A16"):
-        attention(q, q, q, mesh=Mesh())
-    with pytest.raises(MXNetError, match="bias"):
-        attention(q, q, q, bias=torch.zeros((1, 1, 8, 8)))
+        attention(q, q, q, mesh=_SpMesh())
+    for strategy in ("ring", "ulysses"):
+        with pytest.raises(MXNetError, match="A16"):
+            attention(q, q, q, mesh=_SpMesh(), sp_strategy=strategy)
+    out = attention(q, q, q, bias=torch.zeros((1, 1, 8, 8)))
+    assert torch.equal(out, attention(q, q, q))
+
+
+def test_attention_checks_sp_strategy_on_every_call():
+    """An unknown ``sp_strategy`` is a ValueError with no mesh at all, as
+    in the reference; the known ones take the local path."""
+    import jax.numpy as jnp
+    jra = importlib.import_module("tpu_mx.parallel.ring_attention")
+    from tpu_mx_torch.parallel import attention
+    q = np.random.RandomState(21).randn(1, 2, 8, 16).astype(np.float32)
+    tq = torch.from_numpy(q)
+    with pytest.raises(ValueError, match="sp_strategy"):
+        attention(tq, tq, tq, sp_strategy="rnig")
+    with pytest.raises(ValueError, match="sp_strategy"):
+        jra.attention(jnp.asarray(q), jnp.asarray(q), jnp.asarray(q),
+                      sp_strategy="rnig")
+    for strategy in (None, "ring", "ulysses"):
+        assert torch.equal(attention(tq, tq, tq, sp_strategy=strategy),
+                           attention(tq, tq, tq))
+
+
+# ----------------------------------------------------------------------------
+# the additive bias and its gradient d_bias
+# ----------------------------------------------------------------------------
+BIAS_B, BIAS_H, BIAS_T, BIAS_D = 2, 2, 128, 32
+BIAS_SHAPES = [(BIAS_B, BIAS_H, BIAS_T, BIAS_T),   # one plane per row
+               (1, BIAS_H, BIAS_T, BIAS_T),        # per head: bias_groups=H
+               (1, 1, BIAS_T, BIAS_T),             # one shared plane
+               (1, BIAS_H, 1, BIAS_T)]             # ALiBi: expanded
+BIAS_VALID = np.array([BIAS_T, 77], np.int32)
+
+
+def _bias_case(seed, bias_shape):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (rng.randn(BIAS_B, BIAS_H, BIAS_T, BIAS_D)
+                   .astype(np.float32) for _ in range(4))
+    return q, k, v, do, rng.randn(*bias_shape).astype(np.float32)
+
+
+def _jax_mha_vjp(q, k, v, do, bias, causal, valid):
+    """The reference's interpret-mode kernels and ``jax.vjp`` of them."""
+    import jax
+    f = lambda a, b, c, e: jfa.mha_flash_attention(
+        a, b, c, causal=causal, valid_length=valid, bias=e, block_q=64,
+        block_k=64)
+    out, vjp = jax.vjp(f, q, k, v, bias)
+    return np.asarray(out), [np.asarray(g) for g in vjp(do)]
+
+
+def _port_mha_grads(fn, q, k, v, do, bias, causal, valid, **kw):
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, bias)]
+    out = fn(*leaves[:3], causal=causal, bias=leaves[3],
+             valid_length=None if valid is None else torch.from_numpy(valid),
+             **kw)
+    out.backward(torch.from_numpy(do))
+    return out.detach().numpy(), [x.grad.numpy() for x in leaves]
+
+
+def _assert_bias_parity(got, want):
+    """The reference's own tolerances (tests/test_kernels.py)."""
+    (out, grads), (ref, ref_grads) = got, want
+    np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-5)
+    for g, w, name in zip(grads, ref_grads, ("q", "k", "v", "bias")):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=3e-4, atol=3e-5,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal,valid", [(False, None), (False, BIAS_VALID),
+                                          (True, BIAS_VALID)],
+                         ids=["plain", "valid", "causal-valid"])
+@pytest.mark.parametrize("bias_shape", BIAS_SHAPES,
+                         ids=["per-row", "per-head", "shared", "alibi"])
+def test_flash_bias_forward_and_gradients_match_jax(bias_shape, causal,
+                                                    valid):
+    """Forward, dq, dk, dv and d_bias of the port's plain bias path
+    (autograd through ``FlashAttentionFunction``) against the reference's
+    interpret-mode kernels, on the same numpy inputs."""
+    q, k, v, do, bias = _bias_case(len(bias_shape) + bias_shape[0]
+                                   + bias_shape[2], bias_shape)
+    want = _jax_mha_vjp(q, k, v, do, bias, causal, valid)
+    got = _port_mha_grads(fa.mha_flash_attention, q, k, v, do, bias, causal,
+                          valid)
+    _assert_bias_parity(got, want)
+
+
+def test_flash_bias_with_minus_inf_entries_and_rows():
+    """-inf bias entries get probability 0; a row whose bias is -inf
+    everywhere gets out = 0 and zero gradients — as in the reference."""
+    q, k, v, do, bias = _bias_case(22, (1, BIAS_H, BIAS_T, BIAS_T))
+    bias[0, 0, :, ::3] = -np.inf
+    bias[0, 1, 5] = -np.inf
+    want = _jax_mha_vjp(q, k, v, do, bias, False, None)
+    got = _port_mha_grads(fa.mha_flash_attention, q, k, v, do, bias, False,
+                          None)
+    _assert_bias_parity(got, want)
+    out, (dq, _, _, db) = got
+    assert np.all(out[:, 1, 5] == 0) and np.all(dq[:, 1, 5] == 0)
+    assert np.all(db[0, 0, :, ::3] == 0) and np.all(db[0, 1, 5] == 0)
+    assert all(np.isfinite(g).all() for g in got[1])
+
+
+def test_flash_bias_groups_match_jax():
+    """``(G, T, Tk)`` with ``bias_groups=G``: row ``bh`` reads plane
+    ``bh % G``; the gradient sums the rows that share a plane."""
+    import jax
+    rng = np.random.RandomState(23)
+    q, k, v, do = (rng.randn(4, BIAS_T, BIAS_D).astype(np.float32)
+                   for _ in range(4))
+    bias = rng.randn(2, BIAS_T, BIAS_T).astype(np.float32)
+    f = lambda a, b, c, e: jfa.flash_attention(a, b, c, bias=e, bias_groups=2,
+                                               block_q=64, block_k=64)
+    ref, vjp = jax.vjp(f, q, k, v, bias)
+    want = (np.asarray(ref), [np.asarray(g) for g in vjp(do)])
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, bias)]
+    out = fa.flash_attention(*leaves[:3], bias=leaves[3], bias_groups=2)
+    out.backward(torch.from_numpy(do))
+    _assert_bias_parity((out.detach().numpy(),
+                         [x.grad.numpy() for x in leaves]), want)
+
+
+def test_flash_bias_refusals_match_the_reference():
+    import jax.numpy as jnp
+    t = BIAS_T
+    q = torch.ones((4, t, BIAS_D))
+    jq = jnp.ones((4, t, BIAS_D), jnp.float32)
+    for shape, match in (((3, t, t), "bias shape"), ((2, t, t), "ambiguous"),
+                         ((4, t, 64), "bias shape"), ((t, t), "bias shape")):
+        with pytest.raises(ValueError, match=match):
+            fa.flash_attention(q, q, q, bias=torch.ones(shape))
+        with pytest.raises(ValueError, match=match):
+            jfa.flash_attention(jq, jq, jq, bias=jnp.ones(shape))
+    with pytest.raises(ValueError, match="bias_groups"):   # 3 does not
+        fa.flash_attention(q, q, q, bias=torch.ones((3, t, t)),   # divide 4
+                           bias_groups=3)
+    q4 = q.reshape(2, 2, t, BIAS_D)
+    with pytest.raises(ValueError, match="bias shape"):
+        fa.mha_flash_attention(q4, q4, q4, bias=torch.ones((3, 2, t, t)))
+
+
+def test_flash_plain_backward_returns_the_unreduced_d_bias():
+    """The plain backward's fourth result is ``(BH, T, Tk)`` float32 with
+    zeros wherever the score is masked; ``reduce_d_bias`` sums it to the
+    bias's layout and dtype."""
+    bh, t, d = 4, 70, 16
+    q, k, v = (torch.from_numpy(x) for x in _qkv(24, bh, t, d))
+    do = torch.from_numpy(np.random.RandomState(25).randn(bh, t, d)
+                          .astype(np.float32))
+    valid = torch.tensor([70, 33, 1, 64], dtype=torch.int32)
+    bias = torch.from_numpy(np.random.RandomState(26).randn(2, t, t)
+                            .astype(np.float32))
+    out, lse = fa.flash_attention_plain(q, k, v, 0.25, True, valid,
+                                        bias=bias)
+    grads = fa.flash_attention_bwd_plain(q, k, v, do, lse,
+                                         fa.flash_attention_delta(do, out),
+                                         0.25, True, valid, bias=bias)
+    db = grads[3]
+    assert db.shape == (bh, t, t) and db.dtype == torch.float32
+    upper = torch.ones((t, t), dtype=torch.bool).triu(1)
+    assert torch.all(db[:, upper] == 0)
+    for row, n in enumerate(valid.tolist()):
+        assert torch.all(db[row, :, n:] == 0)
+    red = fa.reduce_d_bias(db, bias.to(torch.bfloat16))
+    assert red.dtype == torch.bfloat16 and red.shape == bias.shape
+    # rows 0 and 2 read plane 0, rows 1 and 3 plane 1
+    torch.testing.assert_close(red.float(), (db[:2] + db[2:])
+                               .to(torch.bfloat16).float())
+    assert fa.reduce_d_bias(db, bias[:1]).shape == (1, t, t)
+
+
+@pytest.mark.parametrize("bias_shape", BIAS_SHAPES,
+                         ids=["per-row", "per-head", "shared", "alibi"])
+def test_cpu_attention_with_bias_matches_jax_local_attention(bias_shape):
+    """``parallel.attention(bias=)`` on the CPU (the dense arm) against
+    the reference's CPU ``local_flash_attention(bias=)`` (its XLA dense
+    arm), forward and ``jax.vjp``."""
+    import jax
+    jra = importlib.import_module("tpu_mx.parallel.ring_attention")
+    from tpu_mx_torch.parallel import attention
+    q, k, v, do, bias = _bias_case(27, bias_shape)
+    f = lambda a, b, c, e: jra.local_flash_attention(
+        a, b, c, causal=True, valid_length=BIAS_VALID, bias=e)
+    ref, vjp = jax.vjp(f, q, k, v, bias)
+    want = (np.asarray(ref), [np.asarray(g) for g in vjp(do)])
+    got = _port_mha_grads(attention, q, k, v, do, bias, True, BIAS_VALID)
+    _assert_bias_parity(got, want)

@@ -9,7 +9,10 @@ imports nothing of it and nothing of jax.  The port goes slice by slice:
   :mod:`tpu_mx_torch.parallel`, :mod:`tpu_mx_torch.optimizer`,
   :mod:`tpu_mx_torch.gluon`, :mod:`tpu_mx_torch.ndarray`), over the
   flash forward with its training options and the flash backward
-  kernels.
+  kernels;
+- the flash kernels' additive bias with its gradient
+  (``parallel.attention(..., bias=)``), and runtime-compiled CUDA user
+  kernels (:mod:`tpu_mx_torch.rtc`).
 
 The hand-written Hopper kernels are in :mod:`tpu_mx_torch.kernels`.
 Entry points take ``device=`` and default to ``"cuda"``

@@ -13,8 +13,14 @@
 // those of the forward (flash_common.cuh), so the three kernels agree bit
 // for bit on which probabilities were dropped.  Inputs are float32 or
 // bfloat16, converted to float32 on load; accumulators are float32; dq,
-// dk and dv are written in q's type.  The additive bias and its d_bias are
-// not ported yet.
+// dk and dv are written in q's type.
+// With an additive bias (flash_common.cuh) both kernels add it to the
+// scaled scores before the masks, as the forward does, and the dq kernel
+// can also write d_bias = p o (dp - delta) (_bwd_dq_kernel: ds before its
+// scale), a (BH, T, Tk) float32 array that the caller reduces to the
+// bias's shape.  d_bias is not pre-zeroed, so the dq kernel writes every
+// element of its rows: masked columns and the key tiles it never visits
+// (past kv_valid, above the causal diagonal) get 0.
 //
 // Bound on the H100: operations.  Non-causal, dq does 3 products of
 // 2*T*Tk_valid*D operations per head (QK^T, dO V^T, dS K) and dk/dv 4
@@ -28,6 +34,8 @@
 //     to ceil(valid/64) (and the causal diagonal).  Each thread computes a
 //     4x4 block of s and dp, writes ds to shared memory, and accumulates a
 //     4 x D/16 block of dq in registers;
+//     With a bias, its tile is staged into the ds tile with K and V, and
+//     d_bias is written from registers (16 consecutive keys a half-warp);
 //   - dk/dv: grid (ceil(Tk/64), BH); 256 threads own 64 key rows, with
 //     their k and v staged, and loop over 64-row Q tiles (from the
 //     diagonal when causal).  They compute the transposed scores, write
@@ -35,7 +43,8 @@
 //     accumulate 4 x D/16 blocks of dk and dv.  Key tiles wholly past
 //     kv_valid run no Q tile and write zeros; key rows past kv_valid in a
 //     partial tile get p = ds = 0, hence zeros too (the outputs are not
-//     pre-zeroed).
+//     pre-zeroed).  With a bias, its tile is staged transposed into the p
+//     tile, read along the key axis so that the loads coalesce.
 #include "flash_common.cuh"
 
 namespace {
@@ -44,12 +53,14 @@ using namespace tmx_flash;
 
 constexpr int kPs = kBk + 1;  // padded row stride of the ds / p tiles
 
-template <int D, typename T>
+// kBias: a bias (bias.ptr != null); d_bias may then be null (not wanted).
+template <int D, typename T, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
+                    Bias bias, float* __restrict__ d_bias,
                     const int* __restrict__ kv_valid,
                     const int* __restrict__ seed, int tq, int tk, float scale,
                     int causal, uint32_t threshold, float keep_scale) {
@@ -100,6 +111,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous tile's readers are done
     stage_rows2<D, kBk>(k_s, QS, k + koff * D, v_s, QS, v + koff * D, k0,
                         tk);
+    if (kBias) stage_bias<false>(ds_s, kPs, bias, bh, q0, k0, tq, tk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -134,11 +146,18 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j, kpos = k0 + c;
         const bool ok = kpos < valid && (!causal || kpos <= q0 + r);
-        const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        float p;
+        if (kBias)
+          p = ok ? expf(s[i][j] * scale + ds_s[r * kPs + c] - lse_s[r]) : 0.f;
+        else
+          p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
         float g = dp[i][j];
         if (drop) g = dropout_keep(qkey[i], kpos, threshold) ? g * keep_scale
                                                              : 0.f;
-        ds_s[r * kPs + c] = p * (g - dl_s[r]) * scale;
+        const float db = p * (g - dl_s[r]);
+        if (kBias && d_bias != nullptr && q0 + r < tq && kpos < tk)
+          d_bias[(qoff + q0 + r) * tk + kpos] = ok ? db : 0.f;
+        ds_s[r * kPs + c] = db * scale;
       }
     }
     __syncthreads();
@@ -155,6 +174,13 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < CPT; ++j) acc[i][j] += dv[i] * kv[j];
     }
   }
+  if (kBias && d_bias != nullptr) {  // the key tiles the loop never visited
+    const int c0 = n_tiles * kBk, nc = tk - c0, nr = min(kBq, tq - q0);
+    for (long i = tid; i < static_cast<long>(nr) * nc; i += kThreads) {
+      const int r = static_cast<int>(i / nc), c = static_cast<int>(i % nc);
+      d_bias[(qoff + q0 + r) * tk + c0 + c] = 0.f;
+    }
+  }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -167,13 +193,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, typename T>
+template <int D, typename T, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, const int* __restrict__ kv_valid,
+                     T* __restrict__ dv, Bias bias,
+                     const int* __restrict__ kv_valid,
                      const int* __restrict__ seed, int tq, int tk,
                      float scale, int causal, uint32_t threshold,
                      float keep_scale) {
@@ -216,6 +243,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous tile's readers are done
     stage_rows2<D, kBq>(q_s, QS, q + qoff * D, do_s, QS, dout + qoff * D,
                         q0, tq);
+    if (kBias) stage_bias<true>(pt_s, kPs, bias, bh, q0, k0, tq, tk);
     if (tid < kBq) {
       const bool in = q0 + tid < tq;
       lse_s[tid] = in ? lse[qoff + q0 + tid] : 0.f;
@@ -258,7 +286,12 @@ __global__ void __launch_bounds__(kThreads)
         const int r = ty * 4 + i, kpos = k0 + r;
         const bool ok =
             qpos < tq && kpos < valid && (!causal || kpos <= qpos);
-        const float p = ok ? expf(st[i][j] * scale - lse_s[c]) : 0.f;
+        float p;
+        if (kBias)  // pt_s holds the bias, transposed: [key][query]
+          p = ok ? expf(st[i][j] * scale + pt_s[r * kPs + c] - lse_s[c])
+                 : 0.f;
+        else
+          p = ok ? expf(st[i][j] * scale - lse_s[c]) : 0.f;
         float pd = p, g = dpt[i][j];
         if (drop) {
           const bool keep = dropout_keep(qkey, kpos, threshold);
@@ -319,6 +352,8 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *dq, *dk, *dv;
+  Bias bias;
+  float* d_bias;
   const int *kv_valid, *seed;
   int bh, tq, tk;
   float scale;
@@ -328,67 +363,91 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, typename T>
+template <int D, typename T, bool kBias>
 cudaError_t launch_dq(const Args& a) {
   const size_t smem =
       sizeof(float) * (4 * kBq * (D + 1) + kBq * kPs + 2 * kBq);
-  auto kernel = flash_dq_kernel<D, T>;
+  auto kernel = flash_dq_kernel<D, T, kBias>;
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.tq + kBq - 1) / kBq, a.bh), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dq), a.kv_valid, a.seed, a.tq, a.tk,
-      a.scale, a.causal, a.threshold, a.keep_scale);
+      a.delta, static_cast<T*>(a.dq), a.bias, a.d_bias, a.kv_valid, a.seed,
+      a.tq, a.tk, a.scale, a.causal, a.threshold, a.keep_scale);
   return cudaGetLastError();
 }
 
-template <int D, typename T>
+template <int D, typename T, bool kBias>
 cudaError_t launch_dkv(const Args& a) {
   const size_t smem =
       sizeof(float) * (4 * kBk * (D + 1) + 2 * kBk * kPs + 2 * kBq);
-  auto kernel = flash_dkv_kernel<D, T>;
+  auto kernel = flash_dkv_kernel<D, T, kBias>;
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.tk + kBk - 1) / kBk, a.bh), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.kv_valid,
-      a.seed, a.tq, a.tk, a.scale, a.causal, a.threshold, a.keep_scale);
+      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.bias,
+      a.kv_valid, a.seed, a.tq, a.tk, a.scale, a.causal, a.threshold,
+      a.keep_scale);
   return cudaGetLastError();
 }
 
-template <bool kDq, typename T>
+template <bool kDq, typename T, bool kBias>
 cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 16: return kDq ? launch_dq<16, T>(a) : launch_dkv<16, T>(a);
-    case 32: return kDq ? launch_dq<32, T>(a) : launch_dkv<32, T>(a);
-    case 64: return kDq ? launch_dq<64, T>(a) : launch_dkv<64, T>(a);
-    case 128: return kDq ? launch_dq<128, T>(a) : launch_dkv<128, T>(a);
-    default: return cudaErrorInvalidValue;
+    case 16:
+      return kDq ? launch_dq<16, T, kBias>(a) : launch_dkv<16, T, kBias>(a);
+    case 32:
+      return kDq ? launch_dq<32, T, kBias>(a) : launch_dkv<32, T, kBias>(a);
+    case 64:
+      return kDq ? launch_dq<64, T, kBias>(a) : launch_dkv<64, T, kBias>(a);
+    case 128:
+      return kDq ? launch_dq<128, T, kBias>(a) : launch_dkv<128, T, kBias>(a);
+    default:
+      return cudaErrorInvalidValue;
   }
+}
+
+template <bool kDq, typename T>
+cudaError_t dispatch_bias(int d, const Args& a) {
+  if (a.bias.ptr != nullptr) return dispatch_d<kDq, T, true>(d, a);
+  return dispatch_d<kDq, T, false>(d, a);
 }
 
 template <bool kDq>
 int dispatch(int d, int dtype, const Args& a) {
   if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.bh > 65535)
     return cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch_d<kDq, float>(d, a);
-  if (dtype == 1) return dispatch_d<kDq, __nv_bfloat16>(d, a);
+  if (a.bias.ptr != nullptr &&
+      (a.bias.planes < 1 || a.bh % a.bias.planes != 0 || a.bias.dtype < 0 ||
+       a.bias.dtype > 2))
+    return cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_bias<kDq, float>(d, a);
+  if (dtype == 1) return dispatch_bias<kDq, __nv_bfloat16>(d, a);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  kv_valid and seed may be null (no
-// key-padding mask; no dropout).  lse and delta are float32 (BH, T).
+// dtype: 0 float32, 1 bfloat16.  kv_valid, seed and bias may be null (no
+// key-padding mask; no dropout; no bias).  lse and delta are float32
+// (BH, T).  bias is (bias_planes, tq, tk) of bias_dtype (0 float32,
+// 1 bfloat16, 2 float16); row bh reads plane bh % bias_planes.  d_bias,
+// float32 (BH, tq, tk), may be null when there is a bias and its gradient
+// is not wanted.
 extern "C" int tmx_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, const int* kv_valid,
+    const float* lse, const float* delta, void* dq, const void* bias,
+    int bias_planes, int bias_dtype, float* d_bias, const int* kv_valid,
     const int* seed, int bh, int tq, int tk, int d, float scale, int causal,
     uint32_t threshold, float keep_scale, int dtype, void* stream) {
-  Args a{q,        k,    v,  dout, lse, delta, dq,     nullptr,
-         nullptr,  kv_valid, seed, bh, tq,  tk,    scale,  causal,
+  Args a{q,         k,          v,       dout,
+         lse,       delta,      dq,      nullptr,
+         nullptr,   {bias, bias_planes, bias_dtype},
+         d_bias,    kv_valid,   seed,    bh,
+         tq,        tk,         scale,   causal,
          threshold, keep_scale, static_cast<cudaStream_t>(stream)};
   return dispatch<true>(d, dtype, a);
 }
@@ -396,11 +455,14 @@ extern "C" int tmx_flash_attention_bwd_dq(
 extern "C" int tmx_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
-    const int* kv_valid, const int* seed, int bh, int tq, int tk, int d,
-    float scale, int causal, uint32_t threshold, float keep_scale, int dtype,
-    void* stream) {
-  Args a{q,        k,    v,  dout, lse, delta, nullptr, dk,
-         dv,       kv_valid, seed, bh, tq,  tk,    scale,   causal,
+    const void* bias, int bias_planes, int bias_dtype, const int* kv_valid,
+    const int* seed, int bh, int tq, int tk, int d, float scale, int causal,
+    uint32_t threshold, float keep_scale, int dtype, void* stream) {
+  Args a{q,         k,          v,       dout,
+         lse,       delta,      nullptr, dk,
+         dv,        {bias, bias_planes, bias_dtype},
+         nullptr,   kv_valid,   seed,    bh,
+         tq,        tk,         scale,   causal,
          threshold, keep_scale, static_cast<cudaStream_t>(stream)};
   return dispatch<false>(d, dtype, a);
 }

@@ -13,6 +13,8 @@
 //     from (seed, bh, q, k).  The normalizer l sums the un-dropped
 //     probabilities; kept ones are scaled by 1/(1-rate) before they
 //     multiply V (_block_attn / _fwd_kernel).
+//   - bias: an additive (planes, T, Tk) bias (flash_common.cuh), added to
+//     the scaled scores before the masks (_fwd_kernel: s * scale + bias).
 // q/k/v are float32 or bfloat16, converted to float32 on load; statistics
 // and the accumulator stay float32; O is written in q's type, lse in
 // float32.
@@ -25,7 +27,9 @@
 // about 20) for any prompt longer than ~40.  This first version runs them
 // as plain float32 FFMA (no tensor cores, no TMA), so its ceiling is the
 // 67 TFLOP/s float32 rate, and it stays within float32 rounding of the
-// plain version.
+// plain version.  A bias adds its planes*T*Tk elements, read once: a
+// float32 bias with a plane per row is 402.7 MB at BERT's shape (BH=384,
+// T=512), 0.12 ms of device memory, which then bounds the call by bytes.
 // Design:
 //   - grid (ceil(T/64), BH); 256 threads own a 64-row query tile.  The TPU
 //     grid's sequential K axis becomes a loop over 64-row K/V tiles; tiles
@@ -35,7 +39,11 @@
 //     thread computes a 4x4 block of scores and a 4 x D/16 block of the
 //     output;
 //   - the running (m, l) of each row live in shared memory, the output
-//     accumulator in registers; ragged tails are masked, so any T is taken.
+//     accumulator in registers; ragged tails are masked, so any T is taken;
+//   - the bias tile is staged into the score tile with the K/V tile, so its
+//     loads are in flight together with theirs; each thread then adds the
+//     elements it owns.  A bias may make real scores -inf, so masked
+//     scores are -inf there (not the finite kNegInf) and still get p = 0.
 #include "flash_common.cuh"
 
 namespace {
@@ -44,15 +52,16 @@ using namespace tmx_flash;
 
 constexpr int kPs = kBk + 1;  // padded probability-row stride
 
-// kDrop: dropout on (seed != null); a template parameter, so the serving
-// prefill's instance carries no per-element dropout code.
-template <int D, typename T, bool kDrop>
+// kDrop: dropout on (seed != null); kBias: a bias (bias.ptr != null).
+// Template parameters, so the serving prefill's instance carries neither.
+template <int D, typename T, bool kDrop, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, const int* __restrict__ kv_valid,
-                     const int* __restrict__ seed, int tq, int tk, float scale,
-                     int causal, uint32_t threshold, float keep_scale) {
+                     const int* __restrict__ seed, Bias bias, int tq, int tk,
+                     float scale, int causal, uint32_t threshold,
+                     float keep_scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int QS = D + 1;     // padded q/k row stride
   constexpr int CPT = D / 16;   // output columns per thread
@@ -100,6 +109,7 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = kt * kBk;
     __syncthreads();  // the previous tile's readers are done
     stage_rows2<D, kBk>(k_s, QS, kb, v_s, D, vb, k0, tk);
+    if (kBias) stage_bias<false>(p_s, kPs, bias, bh, q0, k0, tq, tk);
     __syncthreads();
 
     float s[4][4];
@@ -125,14 +135,19 @@ __global__ void __launch_bounds__(kThreads)
         const int r = ty * 4 + i, c = tx + 16 * j;
         const int kpos = k0 + c;
         const bool ok = kpos < valid && (!causal || kpos <= q0 + r);
-        p_s[r * kPs + c] = ok ? s[i][j] * scale : kNegInf;
+        if (kBias)
+          p_s[r * kPs + c] = ok ? s[i][j] * scale + p_s[r * kPs + c]
+                                : -INFINITY;
+        else
+          p_s[r * kPs + c] = ok ? s[i][j] * scale : kNegInf;
       }
     }
     __syncthreads();
 
-    {  // online softmax over row srow.  Masked scores (kNegInf) get
-       // p = exp(kNegInf - m) = 0 exactly: every row's m is finite from
-       // the first tile on, which always holds key 0 (kv_valid >= 1).
+    {  // online softmax over row srow.  m starts at the finite kNegInf, so
+       // m_new is finite and masked scores get p = 0 exactly: -inf ones
+       // always; kNegInf ones (no bias) because every row's m is far above
+       // kNegInf from the first tile on, which holds key 0 (kv_valid >= 1).
       float* prow = p_s + srow * kPs;
       float mx = kNegInf;
       for (int j = 0; j < kBk / 4; ++j) mx = fmaxf(mx, prow[part + 4 * j]);
@@ -198,84 +213,84 @@ __global__ void __launch_bounds__(kThreads)
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-template <int D, typename T, bool kDrop>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, const int* kv_valid, const int* seed, int bh,
-                   int tq, int tk, float scale, int causal, uint32_t threshold,
-                   float keep_scale, cudaStream_t stream) {
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  const int *kv_valid, *seed;
+  Bias bias;
+  int bh, tq, tk;
+  float scale;
+  int causal;
+  uint32_t threshold;
+  float keep_scale;
+  cudaStream_t stream;
+};
+
+template <int D, typename T, bool kDrop, bool kBias>
+cudaError_t launch(const Args& a) {
   const size_t smem = sizeof(float) * (kBq * (D + 1) + kBk * (D + 1) +
                                        kBk * D + kBq * kPs + 3 * kBq);
-  auto kernel = flash_fwd_kernel<D, T, kDrop>;
+  auto kernel = flash_fwd_kernel<D, T, kDrop, kBias>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3((tq + kBq - 1) / kBq, bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, kv_valid, seed, tq,
-      tk, scale, causal, threshold, keep_scale);
+  kernel<<<dim3((a.tq + kBq - 1) / kBq, a.bh), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.kv_valid,
+      a.seed, a.bias, a.tq, a.tk, a.scale, a.causal, a.threshold,
+      a.keep_scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool kDrop>
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* o, float* lse, const int* kv_valid, const int* seed,
-                     int bh, int tq, int tk, float scale, int causal,
-                     uint32_t threshold, float keep_scale, cudaStream_t s) {
+template <typename T, bool kDrop, bool kBias>
+cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 16:
-      return launch<16, T, kDrop>(q, k, v, o, lse, kv_valid, seed, bh, tq, tk,
-                                  scale, causal, threshold, keep_scale, s);
-    case 32:
-      return launch<32, T, kDrop>(q, k, v, o, lse, kv_valid, seed, bh, tq, tk,
-                                  scale, causal, threshold, keep_scale, s);
-    case 64:
-      return launch<64, T, kDrop>(q, k, v, o, lse, kv_valid, seed, bh, tq, tk,
-                                  scale, causal, threshold, keep_scale, s);
-    case 128:
-      return launch<128, T, kDrop>(q, k, v, o, lse, kv_valid, seed, bh, tq,
-                                   tk, scale, causal, threshold, keep_scale,
-                                   s);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return launch<16, T, kDrop, kBias>(a);
+    case 32: return launch<32, T, kDrop, kBias>(a);
+    case 64: return launch<64, T, kDrop, kBias>(a);
+    case 128: return launch<128, T, kDrop, kBias>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t dispatch_drop(int d, const void* q, const void* k, const void* v,
-                          void* o, float* lse, const int* kv_valid,
-                          const int* seed, int bh, int tq, int tk,
-                          float scale, int causal, uint32_t threshold,
-                          float keep_scale, cudaStream_t s) {
-  if (seed != nullptr)
-    return dispatch<T, true>(d, q, k, v, o, lse, kv_valid, seed, bh, tq, tk,
-                             scale, causal, threshold, keep_scale, s);
-  return dispatch<T, false>(d, q, k, v, o, lse, kv_valid, seed, bh, tq, tk,
-                            scale, causal, threshold, keep_scale, s);
+cudaError_t dispatch(int d, const Args& a) {
+  const bool drop = a.seed != nullptr, biased = a.bias.ptr != nullptr;
+  if (drop && biased) return dispatch_d<T, true, true>(d, a);
+  if (drop) return dispatch_d<T, true, false>(d, a);
+  if (biased) return dispatch_d<T, false, true>(d, a);
+  return dispatch_d<T, false, false>(d, a);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  kv_valid and seed may be null (no
-// key-padding mask; no dropout).
+// dtype: 0 float32, 1 bfloat16.  kv_valid, seed and bias may be null (no
+// key-padding mask; no dropout; no bias).  bias is (bias_planes, tq, tk)
+// of bias_dtype (0 float32, 1 bfloat16, 2 float16); row bh reads plane
+// bh % bias_planes.
 extern "C" int tmx_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, float* lse,
-                                       const int* kv_valid, const int* seed,
-                                       int bh, int tq, int tk, int d,
-                                       float scale, int causal,
+                                       const void* bias, int bias_planes,
+                                       int bias_dtype, const int* kv_valid,
+                                       const int* seed, int bh, int tq,
+                                       int tk, int d, float scale, int causal,
                                        uint32_t threshold, float keep_scale,
                                        int dtype, void* stream) {
   if (bh < 1 || tq < 1 || tk < 1 || bh > 65535) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_drop<float>(d, q, k, v, o, lse, kv_valid, seed, bh, tq,
-                                tk, scale, causal, threshold, keep_scale, s);
-  if (dtype == 1)
-    return dispatch_drop<__nv_bfloat16>(d, q, k, v, o, lse, kv_valid, seed,
-                                        bh, tq, tk, scale, causal, threshold,
-                                        keep_scale, s);
+  if (bias != nullptr && (bias_planes < 1 || bh % bias_planes != 0 ||
+                          bias_dtype < 0 || bias_dtype > 2))
+    return cudaErrorInvalidValue;
+  Args a{q,         k,          v,     o,
+         lse,       kv_valid,   seed,  {bias, bias_planes, bias_dtype},
+         bh,        tq,         tk,    scale,
+         causal,    threshold,  keep_scale,
+         static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch<float>(d, a);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(d, a);
   return cudaErrorInvalidValue;
 }
 

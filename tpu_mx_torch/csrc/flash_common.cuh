@@ -17,10 +17,18 @@
 //
 // tpu_mx_torch/kernels/flash_attention.py::dropout_keep_mask computes the
 // same bits in PyTorch integer arithmetic.
+//
+// The additive bias (_bias_spec in the reference) is a (planes, T, Tk)
+// tensor of float32, bfloat16 or float16; row bh reads plane bh % planes
+// (planes = BH: one plane per row, 1: shared, G: one per head).  A kernel
+// stages the (kBq x kBk) tile it needs in shared memory, read along the
+// key axis so that the loads coalesce.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace tmx_flash {
@@ -89,6 +97,46 @@ __device__ __forceinline__ void stage_rows2(float* da, int sa, const T* a,
     const long at = static_cast<long>(r0 + r) * D + d;
     da[r * sa + d] = in ? to_f32(a[at]) : 0.f;
     db[r * sb + d] = in ? to_f32(b[at]) : 0.f;
+  }
+}
+
+// The bias: a pointer to its first element, its element type (0 float32,
+// 1 bfloat16, 2 float16) and its number of planes.
+struct Bias {
+  const void* ptr;
+  int planes;
+  int dtype;
+};
+
+__device__ __forceinline__ float bias_at(const Bias& b, long i) {
+  if (b.dtype == 1)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(b.ptr)[i]);
+  if (b.dtype == 2) return __half2float(static_cast<const __half*>(b.ptr)[i]);
+  return static_cast<const float*>(b.ptr)[i];
+}
+
+// Stage the bias tile of query rows [q0, q0 + kBq) and key columns
+// [k0, k0 + kBk) of row bh into dst as float32: dst[r * ld + c], or
+// dst[c * ld + r] when kTrans (the dk/dv kernel's transposed scores).
+// Consecutive threads read consecutive keys; elements past (tq, tk) are 0.
+template <bool kTrans>
+__device__ __forceinline__ void stage_bias(float* dst, int ld, const Bias& b,
+                                           int bh, int q0, int k0, int tq,
+                                           int tk) {
+  const long plane =
+      static_cast<long>(bh % b.planes) * tq * static_cast<long>(tk);
+#pragma unroll 4
+  for (int it = 0; it < kBq * kBk / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kBk, c = i % kBk;
+    const bool in = q0 + r < tq && k0 + c < tk;
+    const float x =
+        in ? bias_at(b, plane + static_cast<long>(q0 + r) * tk + k0 + c)
+           : 0.f;
+    if (kTrans)
+      dst[c * ld + r] = x;
+    else
+      dst[r * ld + c] = x;
   }
 }
 

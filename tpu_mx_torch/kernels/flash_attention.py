@@ -21,8 +21,14 @@ Masks and options, as in the reference:
   regenerate the same mask whatever their tile sizes, and the plain
   versions compute the same bits in integer arithmetic.  The TPU's PRNG
   bits cannot be reproduced; the mask is not the reference's.
-- The additive bias (``bias``, ``bias_groups``, ``d_bias``) is not
-  ported yet (ROADMAP).
+- ``bias``: an additive bias ``(planes, T, Tk)``, added to the scaled
+  scores before the masks.  ``planes`` is BH (one plane per row), 1
+  (shared by every row) or G with ``bias_groups=G`` dividing BH (row
+  ``bh`` reads plane ``bh % G``: one plane per head, shared over the
+  batch).  Its gradient is the dq kernel's ``d_bias = p∘(dp − δ)``, a
+  ``(BH, T, Tk)`` float32 array summed to the bias's shape outside the
+  kernel, as in the reference.  A row whose scores are all ``-inf`` (or
+  all masked) gets ``out = 0`` and zero gradients.
 
 Each kernel has a wrapper that launches it for CUDA tensors (or raises)
 and runs the plain PyTorch version for CPU tensors, and counts its
@@ -53,11 +59,13 @@ from . import _build
 __all__ = ["flash_attention", "mha_flash_attention", "flash_attention_plain",
            "flash_attention_bwd_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_delta",
+           "reduce_d_bias",
            "dropout_keep_mask", "FlashAttentionFunction", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 PLAIN_BLOCK_Q = 128             # query rows per step of the plain versions
 
 _M32 = 0xFFFFFFFF
@@ -77,13 +85,16 @@ def _lib(name):
         # (..., kv_valid, seed, bh, tq, tk, d, scale, causal, threshold,
         #  keep_scale, dtype, stream)
         tail = [p, p, i, i, i, i, f, i, u, f, i, p]
+        bias = [p, i, i]    # bias, bias_planes, bias_dtype
         if name == "flash_attention_fwd":
-            lib.tmx_flash_attention_fwd.argtypes = [p] * 5 + tail
+            lib.tmx_flash_attention_fwd.argtypes = [p] * 5 + bias + tail
             lib.tmx_flash_attention_fwd.restype = i
         else:
-            lib.tmx_flash_attention_bwd_dq.argtypes = [p] * 7 + tail
+            d_bias = [p]
+            lib.tmx_flash_attention_bwd_dq.argtypes = [p] * 7 + bias \
+                + d_bias + tail
             lib.tmx_flash_attention_bwd_dq.restype = i
-            lib.tmx_flash_attention_bwd_dkv.argtypes = [p] * 8 + tail
+            lib.tmx_flash_attention_bwd_dkv.argtypes = [p] * 8 + bias + tail
             lib.tmx_flash_attention_bwd_dkv.restype = i
         _libs[name] = lib
     return lib
@@ -134,6 +145,15 @@ def dropout_keep_mask(seed, bh, q_idx, k_idx, rate):
 # ----------------------------------------------------------------------------
 # plain versions (PyTorch, float32 math, block_q query rows at a time)
 # ----------------------------------------------------------------------------
+def _bias_rows(bias, bh, q0, bq):
+    """Float32 bias of query rows [q0, q0+bq) for every row: ``(BH|1, bq,
+    Tk)``, plane ``bh % planes`` for row ``bh``."""
+    b = bias[:, q0:q0 + bq].float()
+    if b.shape[0] not in (1, bh):
+        b = b.repeat(bh // b.shape[0], 1, 1)
+    return b
+
+
 def _block_masks(bh, q0, bq, tk, causal, kv_valid, rate, seed, dev):
     """(score mask, keep mask or None) of query rows [q0, q0+bq)."""
     qi = torch.arange(q0, q0 + bq, device=dev).reshape(1, bq, 1)
@@ -152,12 +172,13 @@ def _block_masks(bh, q0, bq, tk, causal, kv_valid, rate, seed, dev):
 
 
 def flash_attention_plain(q, k, v, scale, causal=False, kv_valid=None,
-                          dropout_rate=0.0, dropout_seed=None,
+                          dropout_rate=0.0, dropout_seed=None, bias=None,
                           block_q=PLAIN_BLOCK_Q):
     """``(out, lse)`` for ``(BH, T, D)`` inputs in float32 math; ``out``
-    is in ``q.dtype``, ``lse`` is float32 ``(BH, T)``.  Masked scores get
-    probability exactly 0, as in the kernel; a row with no valid key
-    gets ``out = 0``."""
+    is in ``q.dtype``, ``lse`` is float32 ``(BH, T)``.  ``bias`` is
+    ``(BH|1|G, T, Tk)`` (see the module docstring).  Masked scores get
+    probability exactly 0, as in the kernel; a row with no valid key, or
+    no finite score, gets ``out = 0``."""
     bh, t, _ = q.shape
     tk = k.shape[1]
     kf, vf = k.float(), v.float()
@@ -168,8 +189,10 @@ def flash_attention_plain(q, k, v, scale, causal=False, kv_valid=None,
         ok, keep = _block_masks(bh, q0, bq, tk, causal, kv_valid,
                                 dropout_rate, dropout_seed, q.device)
         s = torch.matmul(q[:, q0:q0 + bq].float(), kf.transpose(1, 2)) * scale
+        if bias is not None:
+            s = s + _bias_rows(bias, bh, q0, bq)
         s = torch.where(ok, s, NEG_INF)
-        m = s.amax(dim=-1, keepdim=True)
+        m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
         p = torch.where(ok, torch.exp(s - m), 0.0)
         l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         if keep is not None:
@@ -188,13 +211,17 @@ def flash_attention_delta(do, out):
 
 def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale, causal=False,
                               kv_valid=None, dropout_rate=0.0,
-                              dropout_seed=None, block_q=PLAIN_BLOCK_Q):
-    """``(dq, dk, dv)`` by the flash backward's formulas, with ``P``
-    recomputed from the saved ``lse`` (not autograd of the forward)::
+                              dropout_seed=None, bias=None,
+                              block_q=PLAIN_BLOCK_Q):
+    """``(dq, dk, dv)``, and with a ``bias`` ``(dq, dk, dv, d_bias)``, by
+    the flash backward's formulas, with ``P`` recomputed from the saved
+    ``lse`` (not autograd of the forward)::
 
+        s  = q · kᵀ · scale + bias
         p  = exp(s - lse)                 (0 where masked)
         dp = dO · Vᵀ,  then z/(1-r) · dp  with the keep mask z
-        ds = p ∘ (dp - delta) · scale
+        d_bias = p ∘ (dp - delta)         (BH, T, Tk) float32
+        ds = d_bias · scale
         dq = ds · K,   dk = dsᵀ · Q,   dv = (z/(1-r) · p)ᵀ · dO
     """
     bh, t, _ = q.shape
@@ -203,6 +230,8 @@ def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale, causal=False,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    d_bias = None if bias is None else torch.empty(
+        (bh, t, tk), dtype=torch.float32, device=q.device)
     for q0 in range(0, t, block_q):
         bq = min(block_q, t - q0)
         ok, keep = _block_masks(bh, q0, bq, tk, causal, kv_valid,
@@ -210,6 +239,8 @@ def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale, causal=False,
         qf = q[:, q0:q0 + bq].float()
         dof = do[:, q0:q0 + bq].float()
         s = torch.matmul(qf, kf.transpose(1, 2)) * scale
+        if bias is not None:
+            s = s + _bias_rows(bias, bh, q0, bq)
         p = torch.where(ok, torch.exp(s - lse[:, q0:q0 + bq, None]), 0.0)
         dp = torch.matmul(dof, vf.transpose(1, 2))
         p_drop = p
@@ -217,11 +248,28 @@ def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale, causal=False,
             inv = 1.0 / (1.0 - dropout_rate)
             dp = torch.where(keep, dp * inv, 0.0)
             p_drop = torch.where(keep, p * inv, 0.0)
-        ds = p * (dp - delta[:, q0:q0 + bq, None]) * scale
+        ds = p * (dp - delta[:, q0:q0 + bq, None])
+        if d_bias is not None:
+            d_bias[:, q0:q0 + bq] = ds
+        ds = ds * scale
         dq[:, q0:q0 + bq] = torch.matmul(ds, kf).to(q.dtype)
         dk += torch.matmul(ds.transpose(1, 2), qf)
         dv += torch.matmul(p_drop.transpose(1, 2), dof)
-    return dq, dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq, dk.to(k.dtype), dv.to(v.dtype))
+    return grads if bias is None else grads + (d_bias,)
+
+
+def reduce_d_bias(d_bias, bias):
+    """The ``(BH, T, Tk)`` float32 ``d_bias`` summed to ``bias``'s shape
+    (``(BH|1|G, T, Tk)``) and cast to its dtype — a PyTorch op outside
+    the kernels, as ``jnp.sum`` is outside them in the reference."""
+    bh, planes = d_bias.shape[0], bias.shape[0]
+    if planes == 1:
+        d_bias = d_bias.sum(dim=0, keepdim=True)
+    elif planes != bh:
+        d_bias = d_bias.reshape(bh // planes, planes,
+                                *d_bias.shape[1:]).sum(dim=0)
+    return d_bias.to(bias.dtype)
 
 
 # ----------------------------------------------------------------------------
@@ -251,106 +299,138 @@ def _tail(q, k, kv_valid, rate, seed, scale, causal):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _launch_fwd(q, k, v, scale, causal, kv_valid, rate, seed):
+def _bias_abi(bias):
+    """The C entry points' (bias, bias_planes, bias_dtype) arguments."""
+    if bias is None:
+        return None, 0, 0
+    return bias.data_ptr(), bias.shape[0], _BIAS_DTYPES[bias.dtype]
+
+
+def _launch_fwd(q, k, v, scale, causal, kv_valid, rate, seed, bias=None):
     _check_kernel_operands("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     lib = _lib("flash_attention_fwd")
     code = lib.tmx_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *_tail(q, k, kv_valid, rate, seed, scale, causal))
+        lse.data_ptr(), *_bias_abi(bias),
+        *_tail(q, k, kv_valid, rate, seed, scale, causal))
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
     return out, lse
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal=False,
-                           kv_valid=None, dropout_rate=0.0, dropout_seed=None):
+                           kv_valid=None, dropout_rate=0.0, dropout_seed=None,
+                           bias=None, want_d_bias=False):
     """dq of the flash backward (``_bwd_dq_kernel``): the CUDA kernel for
     CUDA tensors, the plain backward for CPU tensors.  Operands as
     :func:`flash_attention_bwd_plain` takes them, already normalized by
     :func:`flash_attention` (contiguous, ``kv_valid`` int32, seed a
-    ``(1,)`` int32 tensor)."""
+    ``(1,)`` int32 tensor, bias contiguous).  With ``want_d_bias`` (and
+    a bias) returns ``(dq, d_bias)``, ``d_bias`` the ``(BH, T, Tk)``
+    float32 gradient before :func:`reduce_d_bias`."""
+    want_d_bias = want_d_bias and bias is not None
     if q.device.type != "cuda":
-        return flash_attention_bwd_plain(q, k, v, do, lse, delta, scale,
-                                         causal, kv_valid, dropout_rate,
-                                         dropout_seed)[0]
+        grads = flash_attention_bwd_plain(q, k, v, do, lse, delta, scale,
+                                          causal, kv_valid, dropout_rate,
+                                          dropout_seed, bias)
+        return (grads[0], grads[3]) if want_d_bias else grads[0]
     _check_kernel_operands("flash_attention_bwd_dq", q, k, v, do)
+    d_bias = torch.empty((q.shape[0], q.shape[1], k.shape[1]),
+                         dtype=torch.float32, device=q.device) \
+        if want_d_bias else None
     dq = torch.empty_like(q)
     lib = _lib("flash_attention_bwd")
     code = lib.tmx_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_bias_abi(bias),
+        d_bias.data_ptr() if want_d_bias else None,
         *_tail(q, k, kv_valid, dropout_rate, dropout_seed, scale, causal))
     _build.check(lib, code, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return (dq, d_bias) if want_d_bias else dq
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal=False,
                             kv_valid=None, dropout_rate=0.0,
-                            dropout_seed=None):
+                            dropout_seed=None, bias=None):
     """``(dk, dv)`` of the flash backward (``_bwd_dkv_kernel``); see
     :func:`flash_attention_bwd_dq`."""
     if q.device.type != "cuda":
         return flash_attention_bwd_plain(q, k, v, do, lse, delta, scale,
                                          causal, kv_valid, dropout_rate,
-                                         dropout_seed)[1:]
+                                         dropout_seed, bias)[1:3]
     _check_kernel_operands("flash_attention_bwd_dkv", q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _lib("flash_attention_bwd")
     code = lib.tmx_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_bias_abi(bias),
         *_tail(q, k, kv_valid, dropout_rate, dropout_seed, scale, causal))
     _build.check(lib, code, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
-def _forward(q, k, v, scale, causal, kv_valid, rate, seed):
+def _forward(q, k, v, scale, causal, kv_valid, rate, seed, bias=None):
     if q.device.type == "cuda":
-        return _launch_fwd(q, k, v, scale, causal, kv_valid, rate, seed)
+        return _launch_fwd(q, k, v, scale, causal, kv_valid, rate, seed,
+                           bias)
     return flash_attention_plain(q, k, v, scale, causal, kv_valid, rate,
-                                 seed)
+                                 seed, bias)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """The flash forward with the flash backward as its gradient (the
     reference's ``jax.custom_vjp`` ``_flash_core``).  Saves ``(q, k, v,
-    kv_valid, seed, out, lse)``; the backward computes delta with a
-    PyTorch op and runs the dq and dk/dv wrappers."""
+    bias, kv_valid, seed, out, lse)``; the backward computes delta with a
+    PyTorch op and runs the dq and dk/dv wrappers, and reduces the dq
+    kernel's ``d_bias`` to the bias's shape when the bias needs a
+    gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_valid, seed, scale, causal, rate):
-        out, lse = _forward(q, k, v, scale, causal, kv_valid, rate, seed)
-        ctx.save_for_backward(q, k, v, kv_valid, seed, out, lse)
+    def forward(ctx, q, k, v, bias, kv_valid, seed, scale, causal, rate):
+        out, lse = _forward(q, k, v, scale, causal, kv_valid, rate, seed,
+                            bias)
+        ctx.save_for_backward(q, k, v, bias, kv_valid, seed, out, lse)
         ctx.args = (scale, causal, rate)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, kv_valid, seed, out, lse = ctx.saved_tensors
+        q, k, v, bias, kv_valid, seed, out, lse = ctx.saved_tensors
         scale, causal, rate = ctx.args
         do = do.to(q.dtype).contiguous()
         delta = flash_attention_delta(do, out)
-        args = (q, k, v, do, lse, delta, scale, causal, kv_valid, rate, seed)
-        dq = flash_attention_bwd_dq(*args)
+        args = (q, k, v, do, lse, delta, scale, causal, kv_valid, rate, seed,
+                bias)
+        want_d_bias = ctx.needs_input_grad[3]
+        dq = flash_attention_bwd_dq(*args, want_d_bias=want_d_bias)
+        db = None
+        if want_d_bias:
+            dq, d_bias = dq
+            db = reduce_d_bias(d_bias, bias)
         dk, dv = flash_attention_bwd_dkv(*args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, db, None, None, None, None, None
 
 
 def flash_attention(q, k, v, scale=None, causal=False, kv_valid=None,
-                    dropout_rate=0.0, dropout_seed=None, return_lse=False,
-                    device=None):
+                    dropout_rate=0.0, dropout_seed=None, bias=None,
+                    bias_groups=None, return_lse=False, device=None):
     """Attention over ``(BH, T, D)`` q and ``(BH, Tk, D)`` k/v; returns
     ``out`` ``(BH, T, D)`` in q's dtype, or ``(out, lse)`` with
     ``return_lse=True`` (no gradient then: the serving prefill's call).
 
     ``kv_valid``: optional ``(BH,)`` valid-key counts.  ``dropout_rate``
     in [0, 1) with ``dropout_seed`` (an int or a ``(1,)`` int32 tensor,
-    e.g. from :func:`tpu_mx_torch.random.take_seed`).  Differentiable in
-    q, k and v through :class:`FlashAttentionFunction`.
+    e.g. from :func:`tpu_mx_torch.random.take_seed`).  ``bias``: an
+    additive ``(BH, T, Tk)``, ``(1, T, Tk)`` or ``(G, T, Tk)`` bias, G
+    passed as ``bias_groups`` and dividing BH (a bare divisor is
+    ambiguous between per-head and per-batch); float32, bfloat16 or
+    float16 (another float type is read as float32).  Differentiable in
+    q, k, v and the bias through :class:`FlashAttentionFunction`.
 
     Runs where the operands live: ``device=None`` takes ``q``'s device
     when ``q`` is a tensor and ``"cuda"`` otherwise; host data (numpy)
@@ -381,28 +461,73 @@ def flash_attention(q, k, v, scale=None, causal=False, kv_valid=None,
     if kv_valid is not None:
         kv_valid = _device.as_tensor(kv_valid, dev, torch.int32) \
             .reshape(q.shape[0]).contiguous()
+    if bias is not None:
+        bias = _check_bias(_device.as_tensor(bias, dev), q.shape[0],
+                           q.shape[1], k.shape[1], bias_groups)
     if return_lse:
-        return _forward(q, k, v, scale, causal, kv_valid, rate, dropout_seed)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return FlashAttentionFunction.apply(q, k, v, kv_valid, dropout_seed,
-                                            scale, causal, rate)
-    return _forward(q, k, v, scale, causal, kv_valid, rate, dropout_seed)[0]
+        return _forward(q, k, v, scale, causal, kv_valid, rate, dropout_seed,
+                        bias)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (q, k, v, bias)):
+        return FlashAttentionFunction.apply(q, k, v, bias, kv_valid,
+                                            dropout_seed, scale, causal, rate)
+    return _forward(q, k, v, scale, causal, kv_valid, rate, dropout_seed,
+                    bias)[0]
+
+
+def _check_bias(bias, bh, t, tk, bias_groups):
+    """The reference's bias validation; returns the bias contiguous, in
+    a type the kernels read (another float type becomes float32)."""
+    lead = bias.shape[0] if bias.dim() == 3 else None
+    ok_lead = lead in (bh, 1) or (bias_groups is not None and
+                                  lead == bias_groups and
+                                  bh % bias_groups == 0)
+    if lead is None or tuple(bias.shape[1:]) != (t, tk) or not ok_lead:
+        raise ValueError(
+            f"bias shape {tuple(bias.shape)} must be (BH, {t}, {tk}), "
+            f"(1, {t}, {tk}), or (G, {t}, {tk}) with G passed as "
+            f"bias_groups and dividing BH={bh} — a bare divisor is "
+            "ambiguous between per-head and per-batch")
+    if bias.dtype not in _BIAS_DTYPES:
+        bias = bias.float()
+    return bias.contiguous()
 
 
 def mha_flash_attention(q, k, v, causal=False, valid_length=None,
-                        dropout_rate=0.0, dropout_seed=None):
+                        dropout_rate=0.0, dropout_seed=None, bias=None):
     """Multi-head wrapper: q/k/v are ``(B, H, T, D)``; batch and heads are
     folded for the kernels and the layout restored.  ``valid_length`` is
-    per batch row ``(B,)`` and is repeated over the heads."""
+    per batch row ``(B,)`` and is repeated over the heads.  ``bias``
+    broadcasts to ``(B, H, T, Tk)`` and is folded as the reference folds
+    it: ``(B, H, T, Tk)`` one plane per row, ``(1, H, T, Tk)`` one per
+    head (``bias_groups=H``), ``(1, 1, T, Tk)`` one shared plane; any
+    other layout (e.g. ALiBi's ``(1, H, 1, Tk)``) is expanded to a plane
+    per row, and autograd sums its gradient back."""
     b, h, t, d = q.shape
     fold = lambda x: x.reshape(b * h, x.shape[2], d)
     kv_valid = None
     if valid_length is not None:
         kv_valid = torch.as_tensor(valid_length, device=q.device) \
             .to(torch.int32).repeat_interleave(h)
+    kbias, groups = None, None
+    if bias is not None:
+        tk = k.shape[2]
+        full = (b, h, t, tk)
+        if bias.dim() != 4 or any(n not in (1, f)
+                                  for n, f in zip(bias.shape, full)):
+            raise ValueError(f"bias shape {tuple(bias.shape)} does not "
+                             f"broadcast to (B, H, T, Tk) = {full}")
+        lead, full_t = tuple(bias.shape[:2]), tuple(bias.shape[2:]) == (t, tk)
+        if full_t and lead == (b, h):
+            kbias = bias.reshape(b * h, t, tk)
+        elif full_t and lead == (1, h):
+            kbias, groups = bias.reshape(h, t, tk), h
+        elif full_t and lead == (1, 1):
+            kbias = bias.reshape(1, t, tk)
+        else:
+            kbias = bias.expand(full).reshape(b * h, t, tk)
     out = flash_attention(fold(q), fold(k), fold(v), None, causal, kv_valid,
-                          dropout_rate, dropout_seed)
+                          dropout_rate, dropout_seed, kbias, groups)
     return out.reshape(b, h, t, d)
 
 

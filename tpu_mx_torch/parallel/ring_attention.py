@@ -9,8 +9,9 @@ arm, with the kernels' dropout mask so both devices compute the same
 function.  The reference's dense arm on the TPU and its crossover table
 (``TPUMX_ATTENTION``, ``TPUMX_DENSE_MAX_KV``) are not ported: that table
 was measured on a TPU, and a dense↔flash crossover for the H100 is open
-work (ROADMAP).  Sequence parallelism over a mesh's ``sp`` axis (ring,
-Ulysses) and the additive bias are not ported yet either.
+work (ROADMAP).  Both arms take the additive ``(B|1, H|1, T|1, Tk)``
+bias (ALiBi, relative positions), with its gradient.  Sequence
+parallelism over a mesh's ``sp`` axis (ring, Ulysses) is not ported yet.
 """
 from __future__ import annotations
 
@@ -56,17 +57,20 @@ def _dense_mask(t, tk, causal, valid_length, device):
     return mask
 
 
-def _block_attn(q, k, v, mask=None, scale=1.0, dropout_rate=0.0,
+def _block_attn(q, k, v, bias=None, mask=None, scale=1.0, dropout_rate=0.0,
                 dropout_seed=None):
     """One q-block × k-block attention: ``(l, o)`` statistics, float32
     (the reference also returns the row max ``m`` for the ring's merge,
     which the port does not have).
-    q: (B, H, Tq, D), k/v: (B, H, Tk, D); mask: bool, True = attend.
+    q: (B, H, Tq, D), k/v: (B, H, Tk, D); bias: added (in float32) to the
+    scaled scores before the mask; mask: bool, True = attend.
     Dropout hits only the V-accumulation (the denominator ``l`` stays
     un-dropped); its mask is the flash kernels' (row ``bh = b*H + h``).
     Unlike the reference's dense arm the probabilities stay float32 for
     the PV product, as in the port's kernels."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
     if mask is not None:
         s = s.masked_fill(~mask, -math.inf)
     m_safe = s.amax(dim=-1).clamp_min(-1e30)   # fully masked: exp(-inf) = 0
@@ -90,31 +94,36 @@ def local_flash_attention(q, k, v, causal=False, valid_length=None,
     """Single-device attention over ``(B, H, T, D)``: the flash kernels
     for CUDA tensors, the dense plain version for CPU tensors.
     ``dropout_seed`` is a ``(1,)`` int32 tensor (``random.take_seed``);
-    pass ``dropout_rate > 0`` only in training."""
-    if bias is not None:
-        raise MXNetError("attention: the additive bias is not ported yet "
-                         "(ROADMAP B1, the flash forward's bias option)")
+    pass ``dropout_rate > 0`` only in training.  ``bias`` is an additive
+    ``(B|1, H|1, T|1, Tk)`` attention bias."""
     rate = float(dropout_rate) if dropout_seed is not None else 0.0
     if q.device.type == "cuda":
         _count("flash_kernel", f"shape={tuple(q.shape)} dtype={q.dtype}")
         return _fa.mha_flash_attention(q, k, v, causal=causal,
                                        valid_length=valid_length,
                                        dropout_rate=rate,
-                                       dropout_seed=dropout_seed)
+                                       dropout_seed=dropout_seed, bias=bias)
     _count("dense", f"shape={tuple(q.shape)} dtype={q.dtype}")
     mask = _dense_mask(q.shape[2], k.shape[2], causal, valid_length,
                        q.device)
-    l, o = _block_attn(q, k, v, mask=mask,
+    l, o = _block_attn(q, k, v, bias=bias, mask=mask,
                           scale=1.0 / math.sqrt(q.shape[-1]),
                           dropout_rate=rate, dropout_seed=dropout_seed)
     return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def attention(q, k, v, mesh=None, causal=False, valid_length=None,
-              dropout_rate=0.0, dropout_seed=None, bias=None):
-    """Dispatch: local attention (:func:`local_flash_attention`).  A mesh
-    with an ``sp`` axis longer than 1 — sequence parallelism — raises:
-    ring and Ulysses attention are not ported yet (ROADMAP A16)."""
+              dropout_rate=0.0, dropout_seed=None, bias=None,
+              sp_strategy=None):
+    """Dispatch: local attention (:func:`local_flash_attention`).
+    ``sp_strategy`` (``"ring"``, ``"ulysses"`` or None) is checked on
+    every call, mesh or not, so a typo never selects the local path
+    silently.  A mesh with an ``sp`` axis longer than 1 — sequence
+    parallelism — raises: ring and Ulysses attention are not ported yet
+    (ROADMAP A16)."""
+    if sp_strategy is not None and sp_strategy not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sp_strategy {sp_strategy!r}; use 'ring' "
+                         "or 'ulysses'")
     if mesh is not None and "sp" in getattr(mesh, "axis_names", ()) \
             and mesh.shape["sp"] > 1:
         raise MXNetError("attention: sequence parallelism over a mesh's "
