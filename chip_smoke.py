@@ -11,18 +11,27 @@ line each:
                  ``nvcc`` versions;
 2. ``build``   — the kernels are built from ``tpu_mx_torch/csrc`` (one
                  ``nvcc`` per source, all started together), with each
-                 kernel's register and shared-memory report;
+                 kernel's register and spill report and its count of
+                 ``HGMMA`` (tensor-core) instructions in ``cuobjdump
+                 --dump-sass``: the bf16 forward and dk/dv instances must
+                 have them, the float32 instances, dq and paged none;
 3. ``kernel``  — each CUDA kernel against its plain PyTorch version on
                  the card: paged decode and the flash forward at the
                  serving path's shapes; the flash forward, dq and dk/dv
                  at BERT's training shapes (bf16, ragged ``kv_valid``,
                  dropout 0 and 0.1) and at one float32 causal shape.
                  Max abs error and its tolerance, median ms by CUDA
-                 events, the plain version's ms, one PyTorch library
+                 events (the window holds the wrapper's host path too;
+                 the BERT-shape kernels also queued behind a ~1 ms sleep
+                 of the card, ``ms_queued``: the device time alone),
+                 the plain version's ms, one PyTorch library
                  call's ms where one computes the same function, and the
                  least time the card could take (bytes over 3.35 TB/s or
                  operations over the 989 TFLOP/s bf16 tensor-core rate,
-                 67 TFLOP/s for float32 inputs, whichever is larger).
+                 67 TFLOP/s for float32 inputs, whichever is larger),
+                 the achieved TFLOP/s and bound_ms / ms, and the route
+                 the C entry points reported for the timed calls
+                 (``wgmma`` or ``ffma``).
                  The forward kernel's dropout mask is read out and held
                  bit for bit against the plain mask;
 4. ``serve``   — the serving path at TinyLM width 4096 (32 heads of
@@ -40,7 +49,8 @@ line each:
                  (f32 masters), batch 32 x 512 with ragged valid
                  lengths, 1 warm-up and 5 timed steps; launch counts
                  prove the flash forward, dq and dk/dv ran 12 times a
-                 step and the paged kernel not at all;
+                 step (the forward and dk/dv on the ``wgmma`` route the
+                 C entry points report) and the paged kernel not at all;
 7. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
                  backward at BERT-base's attention width (B=32, H=12,
                  T=512, D=64, bf16, ragged ``valid_length``, dropout
@@ -163,18 +173,70 @@ def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rates(flops, ms, bound_ms):
+    """Achieved TFLOP/s and the share of the bound (bound_ms / ms)."""
+    return dict(tflops=flops / (ms * 1e-3) / 1e12, bound_over_ms=bound_ms / ms)
+
+
+def demangle(names):
+    """Kernel names as ``cu++filt`` prints them, without the namespace."""
+    from tpu_mx_torch.kernels import _build
+    tool = _build.nvcc_path()[:-len("nvcc")] + "cu++filt"
+    out = subprocess.run([tool, *names], capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    return [n.split("(anonymous namespace)::")[-1] for n in out]
+
+
+def hgmma_counts(lib):
+    """``{kernel: number of HGMMA instructions}`` in the library's SASS
+    (``cuobjdump --dump-sass``): the tensor-core products that ran."""
+    from tpu_mx_torch.kernels import _build
+    tool = _build.nvcc_path()[:-len("nvcc")] + "cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    names, counts = [], []
+    for line in sass.splitlines():
+        if "Function : " in line:
+            names.append(line.split("Function : ")[1].strip())
+            counts.append(0)
+        elif names and "HGMMA" in line:
+            counts[-1] += 1
+    return dict(zip(demangle(names), counts)) if names else {}
+
+
 def phase_build(ctx):
+    """Build every source; report ptxas's registers and spills per kernel
+    and the HGMMA count per kernel.  The bf16 forward and dk/dv instances
+    (``*_tc_kernel``) must hold HGMMA instructions, every other kernel
+    (float32 FFMA, dq, paged) none."""
     from tpu_mx_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    report = {}
+    report, hgmma, wrong = {}, {}, []
     for name, lib in libs.items():
         log = lib.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
-        report[name] = [l.strip() for l in lines
-                        if "registers" in l or "spill" in l]
-    emit("build", ok=True, seconds=secs, ptxas=report)
+        entries, kernel = [], None
+        for line in lines:
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif kernel and ("registers" in line or "spill" in line):
+                entries.append((kernel, line.strip()))
+        pretty = dict(zip(sorted({k for k, _ in entries}),
+                          demangle(sorted({k for k, _ in entries}))))
+        report[name] = [f"{pretty[k]}: {l}" for k, l in entries]
+        counts = hgmma_counts(lib)
+        hgmma[name] = {"total": sum(counts.values()), "kernels": counts}
+        for kernel, n in counts.items():
+            if ("_tc_kernel" in kernel) != (n > 0):
+                wrong.append(f"{kernel}: {n} HGMMA")
+    ok = not wrong
+    emit("build", ok=ok, seconds=secs, ptxas=report, hgmma=hgmma,
+         hgmma_wrong=wrong)
+    if not ok:
+        ctx["failures"].append(f"build: HGMMA where not expected or missing: "
+                               f"{wrong[:4]}")
 
 
 def paged_case(torch, gen, tq, pool_dtype):
@@ -230,14 +292,14 @@ def phase_kernels(ctx):
             emit("kernel", name="paged_attention", shape=shape,
                  max_abs_err=err, atol=PAGED_ATOL, ok=ok, ms=ms,
                  plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                 bound_by=b_by)
+                 bound_by=b_by, **rates(flops, ms, b_ms))
             worst["paged_attention"] = max(worst["paged_attention"], err)
             if not ok:
                 ctx["failures"].append(f"paged_attention {shape}: err {err}")
             if tq == 1 and dtype == torch.float32:
                 entries["paged_attention"] = dict(
                     shape=shape, ms=ms, plain_ms=plain_ms, library_ms=None,
-                    bound_ms=b_ms, bound_by=b_by)
+                    bound_ms=b_ms, bound_by=b_by, **rates(flops, ms, b_ms))
 
     bh, d = 32, 128
     for t in (128, 700, 2048):
@@ -249,7 +311,9 @@ def phase_kernels(ctx):
         torch.cuda.synchronize()
         err = float(max((out - ref).abs().max(), (lse - ref_lse).abs().max()))
         ok = math.isfinite(err) and err <= FLASH_ATOL
+        before = routes_of(fa)
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
+        route = route_since(fa, "flash_attention_fwd", before)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, scale, causal=True), reps=5)
         q4, k4, v4 = (x.view(1, bh, t, d) for x in (q, k, v))
@@ -263,7 +327,7 @@ def phase_kernels(ctx):
         emit("kernel", name="flash_attention_fwd", shape=shape,
              max_abs_err=err, atol=FLASH_ATOL, ok=ok, ms=ms,
              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-             bound_by=b_by)
+             bound_by=b_by, math_route=route, **rates(flops, ms, b_ms))
         worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"], err)
         if not ok:
             ctx["failures"].append(f"flash_attention_fwd {shape}: err {err}")
@@ -284,6 +348,27 @@ def flash_work(bh, t, d, causal, valid, elt):
     else:
         pairs = t * sum(valid)
     return 2 * pairs * d, bh * t * d * elt, sum(valid) * d * elt, bh * t * 4
+
+
+# the wrappers whose C entry point reports the kernel it launched
+ROUTED = {"flash_attention_fwd": "flash_attention",
+          "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
+
+
+def routes_of(fa):
+    """Copies of the route counts of the wrappers that report one."""
+    return {name: dict(getattr(fa, w).routes) for name, w in ROUTED.items()}
+
+
+def route_since(fa, name, before):
+    """The routes (``wgmma``, ``ffma``, joined by ``+`` if both) that the
+    C entry point reported for ``name``'s launches since ``before``; dq's
+    entry point has one kernel, FFMA."""
+    if name not in ROUTED:
+        return "ffma"
+    now = getattr(fa, ROUTED[name]).routes
+    return "+".join(r for r in fa.ROUTES if now[r] > before[name][r]) or \
+        "none"
 
 
 def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
@@ -321,12 +406,17 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
                                     min(tol(want[1]), tol(want[2])), True),
     }
 
-    ms = {"flash_attention_fwd": cuda_ms(torch, lambda: fa.flash_attention(
-              q, k, v, return_lse=True, **opts)),
-          "flash_attention_bwd_dq": cuda_ms(
-              torch, lambda: fa.flash_attention_bwd_dq(*args)),
-          "flash_attention_bwd_dkv": cuda_ms(
-              torch, lambda: fa.flash_attention_bwd_dkv(*args))}
+    calls = {"flash_attention_fwd": lambda: fa.flash_attention(
+                 q, k, v, return_lse=True, **opts),
+             "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+                 *args),
+             "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+                 *args)}
+    before = routes_of(fa)
+    ms = {name: cuda_ms(torch, call) for name, call in calls.items()}
+    queued = {name: cuda_ms(torch, call, queued=True)
+              for name, call in calls.items()}
+    routes = {name: route_since(fa, name, before) for name in calls}
     plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_plain(
         q, k, v, scale, causal, kv, rate, seed), reps=5, warm=1)
     plain_bwd = cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(*args),
@@ -352,6 +442,8 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
     elt = q.element_size()
     fpm, qb, kvb, rowb = flash_work(bh, t, d, causal, valid, elt)
     rate_flops = F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
+    flops = {"flash_attention_fwd": 2 * fpm, "flash_attention_bwd_dq": 3 * fpm,
+             "flash_attention_bwd_dkv": 4 * fpm}
     bounds = {
         "flash_attention_fwd": bound(2 * qb + 2 * kvb + rowb + 4 * bh,
                                      2 * fpm, rate_flops),
@@ -372,9 +464,12 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
         recs[name] = dict(
             shape=shape, max_abs_err=e, atol=atol,
             ok=math.isfinite(e) and e <= atol and also, ms=ms[name],
+            ms_queued=queued[name],
             plain_ms=plain_fwd if fwd else plain_bwd,
             library_ms=lib_fwd if fwd else lib_bwd,
-            library_fwd_bwd_ms=lib_both, bound_ms=b_ms, bound_by=b_by)
+            library_fwd_bwd_ms=lib_both, bound_ms=b_ms, bound_by=b_by,
+            math_route=routes[name],
+            **rates(flops[name], ms[name], b_ms))
     recs["flash_attention_fwd"]["lse_max_abs_err"] = lse_err
     return recs
 
@@ -402,7 +497,7 @@ def flash_train_kernels(torch, fa, gen, ctx, entries, worst):
                 if dtype == torch.bfloat16 and rate > 0:
                     entries[name] = {k: r[k] for k in (
                         "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_by")}
+                        "bound_by", "tflops", "bound_over_ms", "math_route")}
             torch.cuda.empty_cache()
 
 
@@ -611,6 +706,8 @@ def phase_train(ctx):
                 fa.flash_attention_bwd_dkv, pa.paged_attention)
     for c in counters:
         c.launches = 0
+    for c in (fa.flash_attention, fa.flash_attention_bwd_dkv):
+        c.routes = dict.fromkeys(fa.ROUTES, 0)
     step_ms = []
     for _ in range(TRAIN_STEPS):
         t1 = time.perf_counter()
@@ -619,8 +716,15 @@ def phase_train(ctx):
     launches = dict(zip(FLASH_KERNELS + ("paged_attention",),
                         (c.launches for c in counters)))
     ctx["train_launches"] = launches
+    routes = {"flash_attention_fwd": dict(fa.flash_attention.routes),
+              "flash_attention_bwd_dkv": dict(fa.flash_attention_bwd_dkv
+                                              .routes)}
+    ctx["train_routes"] = routes
     layers = cfg["num_layers"]
     checks = {
+        # the bf16 step's forward and dk/dv ran on the tensor cores only
+        "wgmma_routes": all(r == {"ffma": 0, "wgmma": layers * TRAIN_STEPS}
+                            for r in routes.values()),
         "finite": all(math.isfinite(x) for x in losses),
         "loss_falls": losses[-1] < losses[0],
         "flash_launches": all(launches[k] == layers * TRAIN_STEPS
@@ -638,7 +742,7 @@ def phase_train(ctx):
          seq_per_sec=TRAIN_BATCH / med * 1e3,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          launches=launches, launches_per_step={
-             k: launches[k] / TRAIN_STEPS for k in launches},
+             k: launches[k] / TRAIN_STEPS for k in launches}, routes=routes,
          card=ctx["smi"])
     for name, ok in checks.items():
         if not ok:
@@ -870,6 +974,7 @@ def phase_rtc(ctx):
             plain_ms=cuda_ms(torch, plain, queued=True),
             library_ms=cuda_ms(torch, lib, queued=True), bound_ms=b_ms,
             bound_by=b_by, max_abs_err=errs[name])
+        kernels[name].update(rates(flops[name], kernels[name]["ms"], b_ms))
 
     refusals = {}
     bad = rtc.CudaModule('extern "C" __global__ void bad(const float* x, '
@@ -956,7 +1061,12 @@ def main():
                "launches_path": path, "max_abs_err": e["max_abs_err"],
                "ms": e["ms"], "plain_ms": e["plain_ms"],
                "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
-               "library_ms": e["library_ms"], "shape": e["shape"]}
+               "library_ms": e["library_ms"], "shape": e["shape"],
+               "tflops": e["tflops"], "bound_over_ms": e["bound_over_ms"],
+               "math_route": "ffma"}
+        if name in ctx["train_routes"]:   # as the main path's run reported
+            row["math_route"] = "+".join(
+                r for r, n in ctx["train_routes"][name].items() if n) or "none"
         if name in FLASH_KERNELS:    # with the per-head bias, same shape
             bias = ctx["bias"]["per_head"]
             row["bias"] = {
@@ -980,7 +1090,8 @@ def main():
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"], "shape": r["shape"],
-                    "addmul": r["addmul"]})
+                    "tflops": r["tflops"], "bound_over_ms": r["bound_over_ms"],
+                    "math_route": "ffma", "addmul": r["addmul"]})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

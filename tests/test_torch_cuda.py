@@ -283,6 +283,110 @@ def test_bert_train_step_on_the_card_matches_the_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 tensor-core instances (forward, dk/dv) and the routes by dtype
+# ---------------------------------------------------------------------------
+def _tc_tol(ref):
+    # the kernels round P and dS to bf16 before their products, the plain
+    # versions do not; dk of a row with a single valid key is a float32
+    # cancellation (p = 1, dP = delta) of ~1e-6, hence the absolute floor
+    return 2e-2 * float(ref.abs().max()) + 1e-4
+
+
+def _tc_run(t, d, causal, valid, rate=0.0, bias=None, planes=None):
+    q, k, v, do, _ = _flash_case(7 * t + d, len(valid), t, d, torch.bfloat16)
+    kv = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    seed = torch.tensor([31 + t], dtype=torch.int32, device="cuda")
+    scale = 1 / math.sqrt(d)
+    before = (dict(fa.flash_attention.routes),
+              dict(fa.flash_attention_bwd_dkv.routes))
+    out, lse = fa.flash_attention(q, k, v, causal=causal, kv_valid=kv,
+                                  dropout_rate=rate, dropout_seed=seed,
+                                  bias=bias, bias_groups=planes,
+                                  return_lse=True)
+    seed = seed if rate else None
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, scale, causal, kv, rate,
+                                            seed, bias)
+    args = (q, k, v, do, ref_lse, fa.flash_attention_delta(do, ref), scale,
+            causal, kv, rate, seed, bias)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for wrapper, was in zip((fa.flash_attention, fa.flash_attention_bwd_dkv),
+                            before):
+        assert wrapper.routes == dict(was, wgmma=was["wgmma"] + 1)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+    for got, exp in ((out, ref), (dk, want[1]), (dv, want[2])):
+        torch.testing.assert_close(got.float(), exp.float(), rtol=0,
+                                   atol=_tc_tol(exp))
+    return out, dk, dv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 63, 65, 129, 700])
+def test_tc_forward_and_dkv_match_plain(t, d, causal):
+    """The bf16 wgmma forward and dk/dv against the float32 plain versions
+    over ragged T (tiles of 64 and 128 keys cut anywhere) and every head
+    dim, with kv_valid holding a full row, a row of 1 key and a partial
+    tile; dk/dv rows past kv_valid come out exactly 0."""
+    valid = [t, 1, max(1, (2 * t) // 3)]
+    _, dk, dv = _tc_run(t, d, causal, valid)
+    for row, n in enumerate(valid):
+        assert torch.all(dk[row, n:] == 0) and torch.all(dv[row, n:] == 0)
+
+
+@pytest.mark.parametrize("t,d,causal", [(129, 32, False), (700, 128, True),
+                                        (200, 16, True)])
+def test_tc_kernels_with_dropout_match_plain(t, d, causal):
+    _tc_run(t, d, causal, [t, 1, t // 2, 65], rate=0.1)
+
+
+@pytest.mark.parametrize("planes,bias_dtype", [
+    (4, torch.float32), (1, torch.bfloat16), (2, torch.float16)])
+@pytest.mark.parametrize("t,d,causal", [(129, 32, False), (700, 128, True),
+                                        (256, 64, False)])
+def test_tc_kernels_with_every_bias_layout_match_plain(t, d, causal, planes,
+                                                       bias_dtype):
+    """A plane per row, one shared plane and one per head (G=2), in float32,
+    bfloat16 and float16, with dropout.  The kernels copy the bias tile in
+    16-byte chunks where its rows start 16-byte aligned (T=256 in every
+    type, T=700 in float32) and element by element elsewhere."""
+    bias = _bias(t + planes, planes, t, t, bias_dtype)
+    _tc_run(t, d, causal, [t, 1, t // 2, 65], rate=0.1, bias=bias,
+            planes=planes)
+
+
+def test_routes_follow_the_dtype():
+    """bf16 runs the tensor-core forward and dk/dv, float32 the FFMA ones,
+    as the C entry points report; dq is FFMA for both and has no other
+    route."""
+    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "ffma")):
+        q, k, v, do, valid = _flash_case(2, 2, 96, 64, dtype)
+        before = (dict(fa.flash_attention.routes),
+                  dict(fa.flash_attention_bwd_dkv.routes))
+        out, lse = fa.flash_attention(q, k, v, kv_valid=valid,
+                                      return_lse=True)
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                   fa.flash_attention_delta(do, out), 0.125,
+                                   False, valid)
+        for wrapper, was in zip((fa.flash_attention,
+                                 fa.flash_attention_bwd_dkv), before):
+            assert wrapper.routes == dict(was, **{route: was[route] + 1})
+    assert not hasattr(fa.flash_attention_bwd_dq, "routes")
+
+
+def test_tc_kernels_refuse_unaligned_bf16():
+    """The tensor-core kernels copy 16-byte chunks: a bf16 view that does
+    not start 16-byte aligned is refused, not run on another kernel."""
+    base = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16, device="cuda")
+    q = base[1:].view(2, 64, 64)
+    before = fa.flash_attention.launches
+    with pytest.raises(MXNetError, match="16-byte aligned"):
+        fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
 # the additive bias and d_bias
 # ---------------------------------------------------------------------------
 def _bias(seed, planes, t, tk, dtype):

@@ -625,3 +625,144 @@ def test_cpu_attention_with_bias_matches_jax_local_attention(bias_shape):
     want = (np.asarray(ref), [np.asarray(g) for g in vjp(do)])
     got = _port_mha_grads(attention, q, k, v, do, bias, True, BIAS_VALID)
     _assert_bias_parity(got, want)
+
+
+# ----------------------------------------------------------------------------
+# the bf16 tensor-core kernels' rounding, modelled on the CPU
+# ----------------------------------------------------------------------------
+TC_KEY_TILE = 64   # keys of the forward kernel's K/V tile
+TC_REL = 2e-2      # x max|ref|: the card's bf16 tolerance (chip_smoke.py)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tc_masks(bh, t, k0, kn, causal, valid, rate, seed):
+    qi = torch.arange(t).reshape(1, t, 1)
+    ki = torch.arange(k0, k0 + kn).reshape(1, 1, kn)
+    ok = (ki < torch.from_numpy(valid).long().reshape(bh, 1, 1)) \
+        .expand(bh, t, kn)
+    if causal:
+        ok = ok & (ki <= qi)
+    keep = None if rate == 0.0 else fa.dropout_keep_mask(
+        seed, torch.arange(bh).reshape(bh, 1, 1), qi, ki, rate)
+    return ok, keep
+
+
+def _tc_model(q, k, v, do, scale, causal, valid, rate=0.0, seed=None,
+              bias=None, lse_delta=None):
+    """The bf16 forward and dk/dv kernels' arithmetic in float32 torch:
+    bf16 q, k, v, dO; float32 scores and statistics (an online softmax over
+    key tiles, as the forward runs it); P rounded to bf16 before P·V, P and
+    dS rounded to bf16 before Pᵀ·dO and dSᵀ·Q; float32 sums.  The backward
+    reads ``lse_delta`` (``(BH, T)`` each) where given, as the dk/dv kernel
+    reads its caller's, else the model forward's.  Returns ``(out, dk,
+    dv)``, out in bf16 as the kernel writes it."""
+    bh, t, d = q.shape
+    tk = k.shape[1]
+    masked = -math.inf if bias is not None else fa.NEG_INF
+    m = torch.full((bh, t, 1), fa.NEG_INF)
+    l = torch.zeros((bh, t, 1))
+    acc = torch.zeros((bh, t, d))
+    for k0 in range(0, tk, TC_KEY_TILE):
+        kn = min(TC_KEY_TILE, tk - k0)
+        ok, keep = _tc_masks(bh, t, k0, kn, causal, valid, rate, seed)
+        s = q @ k[:, k0:k0 + kn].transpose(1, 2) * scale
+        if bias is not None:
+            s = s + bias[:, :, k0:k0 + kn]
+        s = torch.where(ok, s, masked)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if keep is not None:
+            p = torch.where(keep, p / (1 - rate), 0.0)
+        acc = acc * alpha + _bf16(p) @ v[:, k0:k0 + kn]
+        m = m_new
+    out = _bf16(acc / l.clamp_min(1e-30))
+    lse = m + torch.log(l.clamp_min(1e-30))
+
+    delta = (do * out).sum(-1, keepdim=True)
+    if lse_delta is not None:
+        lse, delta = (x[..., None] for x in lse_delta)
+    ok, keep = _tc_masks(bh, t, 0, tk, causal, valid, rate, seed)
+    s = q @ k.transpose(1, 2) * scale
+    if bias is not None:
+        s = s + bias
+    p = torch.where(ok, torch.exp(s - lse), 0.0)
+    dp = do @ v.transpose(1, 2)
+    pd, g = p, dp
+    if keep is not None:
+        pd = torch.where(keep, p / (1 - rate), 0.0)
+        g = torch.where(keep, dp / (1 - rate), 0.0)
+    ds = p * (g - delta) * scale
+    dv = _bf16(pd).transpose(1, 2) @ do
+    dk = _bf16(ds).transpose(1, 2) @ q
+    return out, dk, dv
+
+
+def _tc_case(seed, t, d, bias):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (_bf16(torch.from_numpy(rng.randn(4, t, d)
+                                          .astype(np.float32)))
+                   for _ in range(4))
+    valid = np.array([t, 1, t // 2 + 3, min(65, t)], np.int32)
+    b = None if not bias else torch.from_numpy(
+        rng.randn(2, t, t).astype(np.float32))   # per head: H=2, B=2
+    return q, k, v, do, valid, b
+
+
+def _assert_within(got, want, names):
+    for g, w, name in zip(got, want, names):
+        w = np.asarray(w, np.float32)
+        tol = TC_REL * float(np.abs(w).max())
+        np.testing.assert_allclose(np.asarray(g, np.float32), w, rtol=0,
+                                   atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no-bias", "per-head"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", [77, 200])
+def test_tc_rounding_model_matches_jax_vjp(t, d, causal, bias):
+    """The bf16 tensor-core kernels' rounding (P and dS in bf16 before the
+    products) stays within the card's tolerance of the reference's
+    interpret-mode kernels and ``jax.vjp`` of them, on the same
+    bf16-rounded inputs: out, dk and dv within 2e-2·max|ref|."""
+    import jax
+    q, k, v, do, valid, b = _tc_case(t + d + causal, t, d, bias)
+    scale = d ** -0.5
+    kw = dict(causal=causal, kv_valid=valid)
+    if b is not None:
+        kw.update(bias=b.numpy(), bias_groups=2)
+    ref, vjp = jax.vjp(lambda a, c, e: jfa.flash_attention(a, c, e, **kw),
+                       q.numpy(), k.numpy(), v.numpy())
+    _, ref_dk, ref_dv = vjp(do.numpy())
+    bias_rows = None if b is None else b.repeat(2, 1, 1)
+    out, dk, dv = _tc_model(q, k, v, do, scale, causal, valid,
+                            bias=bias_rows)
+    _assert_within((out, dk, dv), (ref, ref_dk, ref_dv), ("out", "dk", "dv"))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", [77, 200])
+def test_tc_rounding_model_with_dropout_matches_plain(t, d, causal):
+    """Dropout 0.1 with the port's keep mask (the reference's TPU mask
+    cannot be drawn off the TPU): the rounding model against the port's
+    float32 plain forward and backward, within 2e-2·max|ref|; the model's
+    backward reads the plain forward's lse and delta, as the kernels are
+    held against the plain versions on the card."""
+    q, k, v, do, valid, _ = _tc_case(t * d + causal, t, d, False)
+    scale, rate = d ** -0.5, 0.1
+    seed = torch.tensor([t + d], dtype=torch.int32)
+    kv = torch.from_numpy(valid)
+    ref, lse = fa.flash_attention_plain(q, k, v, scale, causal, kv, rate,
+                                        seed)
+    delta = fa.flash_attention_delta(do, ref)
+    _, ref_dk, ref_dv = fa.flash_attention_bwd_plain(
+        q, k, v, do, lse, delta, scale, causal, kv, rate, seed)
+    out, dk, dv = _tc_model(q, k, v, do, scale, causal, valid, rate, seed,
+                            lse_delta=(lse, delta))
+    _assert_within((out, dk, dv), (ref, ref_dk, ref_dv), ("out", "dk", "dv"))

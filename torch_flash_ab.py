@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Time the flash kernels of this tree against another tree's, on one card.
+"""Time the flash kernels of this tree against other trees', on one card.
 
-    python3 torch_flash_ab.py OTHER_TREE [--rounds N]
+    python3 torch_flash_ab.py OTHER_TREE [OTHER_TREE ...] [--rounds N]
 
-OTHER_TREE is another checkout of the repository (for example the parent
-commit, unpacked with ``git archive``).  Each tree's kernels are built
-and timed in a fresh process, the trees in turns (other, this, this,
-other, ... N rounds of two pairs), so both sides see the same card in
-the same call.  Timed, by CUDA events (median of 50 after 5 warm-ups),
-through each tree's public wrappers:
+An OTHER_TREE is another checkout of the repository (for example the
+parent commit, unpacked with ``git archive``).  Each tree's kernels are
+built and timed in a fresh process, the trees in turns (for each other
+tree: other, this, this, other; N rounds), so all of them see the same
+card in the same call.  Timed, by CUDA events (median of 50 after 5 warm-ups),
+through each tree's public wrappers: ``<name>`` with the wrapper's host
+path in the window, ``<name>_queued`` with each call queued behind a
+~1 ms sleep of the card, so that the window holds the device time alone:
 
 - the forward at the serving prefill's shapes: BH=32, D=128, causal,
   float32, T = 128, 700, 2048;
 - where the tree has them, the forward, dq and dk/dv at BERT's training
   shape: BH=384, T=512, D=64, bf16, ``kv_valid`` over 384-512, dropout
-  0.1.
+  0.1; and the forward and dk/dv there with a per-head float32 bias
+  (12 planes of 512 x 512, ``*_bias``).
 
-Prints one JSON line per run and the card's ``name, power.limit``.
+Prints one JSON line per run (``tree`` is ``this`` or the other tree's
+path as given) and the card's ``name, power.limit``.
 Needs one CUDA card.
 """
 import argparse
@@ -29,7 +33,7 @@ CHILD = r'''
 import json, statistics, torch
 from tpu_mx_torch.kernels import flash_attention as fa
 
-def cuda_ms(fn, reps=50, warm=5):
+def cuda_ms(fn, reps=50, warm=5, queued=False):
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -37,17 +41,22 @@ def cuda_ms(fn, reps=50, warm=5):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)   # ~1 ms: the launch is queued first
         a.record(); fn(); b.record(); b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
 
-g = torch.Generator().manual_seed(0)
 res = {}
+def timed(name, fn):
+    res[name] = cuda_ms(fn)
+    res[name + "_queued"] = cuda_ms(fn, queued=True)
+
+g = torch.Generator().manual_seed(0)
 for t in (128, 700, 2048):
     q, k, v = (torch.randn((32, t, 128), generator=g).cuda()
                for _ in range(3))
-    res[f"fwd_serve_T{t}"] = cuda_ms(
-        lambda: fa.flash_attention(q, k, v, causal=True))
+    timed(f"fwd_serve_T{t}", lambda: fa.flash_attention(q, k, v, causal=True))
 if hasattr(fa, "flash_attention_bwd_dq"):
     bh, t, d = 384, 512, 64
     q, k, v, do = (torch.randn((bh, t, d), generator=g)
@@ -59,17 +68,22 @@ if hasattr(fa, "flash_attention_bwd_dq"):
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **opts)
     args = (q, k, v, do, lse, fa.flash_attention_delta(do, out), 0.125,
             False, kv, 0.1, seed)
-    res["fwd_bert"] = cuda_ms(
-        lambda: fa.flash_attention(q, k, v, return_lse=True, **opts))
-    res["dq_bert"] = cuda_ms(lambda: fa.flash_attention_bwd_dq(*args))
-    res["dkv_bert"] = cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args))
+    timed("fwd_bert",
+          lambda: fa.flash_attention(q, k, v, return_lse=True, **opts))
+    timed("dq_bert", lambda: fa.flash_attention_bwd_dq(*args))
+    timed("dkv_bert", lambda: fa.flash_attention_bwd_dkv(*args))
+if hasattr(fa, "reduce_d_bias"):
+    bias = torch.randn((12, t, t), generator=g).cuda()
+    timed("fwd_bert_bias", lambda: fa.flash_attention(
+        q, k, v, return_lse=True, bias=bias, bias_groups=12, **opts))
+    timed("dkv_bert_bias", lambda: fa.flash_attention_bwd_dkv(*args, bias))
 print(json.dumps(res))
 '''
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("other", help="path of the other tree")
+    ap.add_argument("others", nargs="+", help="paths of the other trees")
     ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args()
     import torch
@@ -80,17 +94,17 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
-    trees = {"other": os.path.abspath(args.other), "this": here}
     for _ in range(args.rounds):
-        for side in ("other", "this", "this", "other"):
-            run = subprocess.run([sys.executable, "-c", CHILD],
-                                 cwd=trees[side], capture_output=True,
-                                 text=True)
-            if run.returncode:
-                print(run.stderr[-3000:], file=sys.stderr)
-                return 1
-            print(json.dumps({"tree": side, **json.loads(
-                run.stdout.strip().splitlines()[-1])}), flush=True)
+        for other in args.others:
+            for side in (other, "this", "this", other):
+                cwd = here if side == "this" else os.path.abspath(side)
+                run = subprocess.run([sys.executable, "-c", CHILD], cwd=cwd,
+                                     capture_output=True, text=True)
+                if run.returncode:
+                    print(run.stderr[-3000:], file=sys.stderr)
+                    return 1
+                print(json.dumps({"tree": side, **json.loads(
+                    run.stdout.strip().splitlines()[-1])}), flush=True)
     return 0
 
 

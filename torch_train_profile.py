@@ -26,11 +26,12 @@ import numpy as np
 
 import chip_smoke
 
-# kernel-name fragments of each group (the flash kernels are the port's;
-# the matrix products are cuBLAS's: nvjet, xmma and CUTLASS kernels)
-GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
+# kernel-name fragments of each group (the flash kernels are the port's,
+# FFMA or tensor-core instances; the matrix products are cuBLAS's: nvjet,
+# xmma and CUTLASS kernels)
+GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
           ("flash_dq", ("flash_dq_kernel",)),
-          ("flash_dkv", ("flash_dkv_kernel",)),
+          ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_tc_kernel")),
           ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
 
 

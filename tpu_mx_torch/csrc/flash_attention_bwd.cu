@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), float32 FFMA: two kernels.
+// Flash-attention backward for Hopper (sm_90a): two kernels, dk/dv in bf16
+// on the tensor cores (wgmma), dq and float32 dk/dv on FFMA.
 //
 // Replaces the backward Pallas TPU kernels of tpu_mx/kernels/
 // flash_attention.py, both launched by _bwd:
@@ -6,14 +7,13 @@
 //       s  = q k^T * scale (masked),  p = exp(s - lse),  dp = dO V^T,
 //       dp <- z/(1-r) * dp  (the regenerated keep mask z),
 //       ds = p o (dp - delta) * scale;
-//   - flash_dkv_kernel <- _bwd_dkv_kernel: dv = (z/(1-r) * p)^T dO and
-//       dk = ds^T q.
+//   - flash_dkv_tc_kernel (bf16) and flash_dkv_kernel (float32)
+//       <- _bwd_dkv_kernel: dv = (z/(1-r) * p)^T dO and dk = ds^T q.
 // delta = rowsum(dO o O) (float32, (BH, T)) and lse come from the caller,
 // as in the reference.  The masks (causal, kv_valid) and the keep mask are
 // those of the forward (flash_common.cuh), so the three kernels agree bit
-// for bit on which probabilities were dropped.  Inputs are float32 or
-// bfloat16, converted to float32 on load; accumulators are float32; dq,
-// dk and dv are written in q's type.
+// for bit on which probabilities were dropped.  Accumulators are float32;
+// dq, dk and dv are written in q's type.
 // With an additive bias (flash_common.cuh) both kernels add it to the
 // scaled scores before the masks, as the forward does, and the dq kernel
 // can also write d_bias = p o (dp - delta) (_bwd_dq_kernel: ds before its
@@ -24,11 +24,48 @@
 //
 // Bound on the H100: operations.  Non-causal, dq does 3 products of
 // 2*T*Tk_valid*D operations per head (QK^T, dO V^T, dS K) and dk/dv 4
-// (QK^T, dO V^T, P^T dO, dS^T Q), against a few bytes per element of
-// q, k, v, dO, dq, dk, dv: far above the float32 line (about 20 operations
-// per byte) at BERT's T = 512.  As in the forward, this first version
-// runs them as plain float32 FFMA, so its ceiling is 67 TFLOP/s.
-// Design:
+// (QK^T, dO V^T, P^T dO, dS^T Q), against a few bytes per element of q, k,
+// v, dO, dq, dk, dv.  At BERT's shape (BH=384, T=512, D=64, kv_valid
+// 384-512) dk/dv is 45.9 GFLOP: 0.046 ms at the 989 TFLOP/s bf16
+// tensor-core rate, 0.69 ms at the 67 TFLOP/s float32 FFMA rate.  In
+// practice the bf16 kernel (about 0.34 ms there on an H100) is held back
+// by its registers: 167 a thread at D=64 (dk, dv, S^T and dP^T alone are
+// 128), so one block of two warpgroups runs per SM, and each warpgroup's
+// products wait
+// for its own element-wise work (exp2, the masks, the dropout hash).
+//
+// dk/dv bf16 design (flash_dkv_tc_kernel):
+//   - grid (ceil(Tk/128), BH); 256 threads, two warpgroups of 64 key rows
+//     (wgmma's M).  The block's K and V tiles are copied into shared
+//     memory once;
+//   - Q and dO tiles of 64 queries, with their lse and delta rows, flow
+//     through a 2-stage ring in shared memory: the copy of tile j+1
+//     (cp.async, zero-filled past T) is issued before tile j is computed.
+//     The loop starts at the diagonal tile when causal; a warpgroup skips a
+//     tile wholly below its first key, and a warpgroup (or block) wholly
+//     past kv_valid computes nothing and writes zeros;
+//   - S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with both operands
+//     in shared memory (swizzled, hopper.cuh), 2*D/16 instructions;
+//   - P^T = exp(S^T * scale + bias^T - lse), the keep bits and
+//     dS^T = P^T o (z/(1-r) dP^T - delta) * scale are computed on the
+//     accumulator registers; the query index is the column here, so lse,
+//     delta and the keep hash are taken per column (16 a thread); key rows
+//     past kv_valid get p = ds = 0;
+//   - the bias tile (64 queries x the block's 128 keys, in its own type, a
+//     template parameter) is staged with Q/dO into the same ring stage, as
+//     the forward stages it (flash_common.cuh: cp.async when its rows
+//     start 16-byte aligned), and read from shared memory, one element a
+//     register;
+//   - dV += (z/(1-r) P^T) dO and dK += dS^T Q: the A operands are the
+//     registers rounded to bf16, B = dO or Q read MN-major from the same
+//     shared-memory tiles (bf16 wgmma takes the transposed B); dk and dv
+//     accumulate in float32 registers and are written once in bf16.
+//   The products round P and dS to bf16; the plain version keeps them in
+//   float32 (tolerance 2e-2 * max|ref| on the card).
+// dq stays the FFMA design below, for both types: the tensor-core
+// redesign went first to the two kernels furthest from one library call's
+// time (forward and dk/dv); dq, nearer, reuses this design next.
+// FFMA designs:
 //   - dq: grid (ceil(T/64), BH); 256 threads own 64 query rows, with their
 //     q and dO staged in shared memory, and loop over 64-row K/V tiles up
 //     to ceil(valid/64) (and the causal diagonal).  Each thread computes a
@@ -36,8 +73,8 @@
 //     4 x D/16 block of dq in registers;
 //     With a bias, its tile is staged into the ds tile with K and V, and
 //     d_bias is written from registers (16 consecutive keys a half-warp);
-//   - dk/dv: grid (ceil(Tk/64), BH); 256 threads own 64 key rows, with
-//     their k and v staged, and loop over 64-row Q tiles (from the
+//   - dk/dv, float32: grid (ceil(Tk/64), BH); 256 threads own 64 key rows,
+//     with their k and v staged, and loop over 64-row Q tiles (from the
 //     diagonal when causal).  They compute the transposed scores, write
 //     the dropped probabilities and ds transposed to shared memory, and
 //     accumulate 4 x D/16 blocks of dk and dv.  Key tiles wholly past
@@ -46,6 +83,7 @@
 //     pre-zeroed).  With a bias, its tile is staged transposed into the p
 //     tile, read along the key axis so that the loads coalesce.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -193,13 +231,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, typename T, bool kBias>
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, Bias bias,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, Bias bias,
                      const int* __restrict__ kv_valid,
                      const int* __restrict__ seed, int tq, int tk,
                      float scale, int causal, uint32_t threshold,
@@ -330,14 +369,235 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (k0 + r < tk) {
-      T* krow = dk + (koff + k0 + r) * D;
-      T* vrow = dv + (koff + k0 + r) * D;
+      float* krow = dk + (koff + k0 + r) * D;
+      float* vrow = dv + (koff + k0 + r) * D;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        krow[tx + 16 * j] = from_f32<T>(dk_acc[i][j]);
-        vrow[tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
+        krow[tx + 16 * j] = dk_acc[i][j];
+        vrow[tx + 16 * j] = dv_acc[i][j];
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv in bf16: tensor cores
+// ---------------------------------------------------------------------------
+namespace hp = tmx_hopper;
+
+constexpr int kTcKeys = 128;    // key rows of a block: 2 warpgroups of 64
+constexpr int kTcQ = 64;        // query rows of a Q/dO tile
+constexpr int kTcThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+// A staged bias row (one query, 128 keys) is 528 bytes in float32 and 272
+// in 16-bit types: a pad after the keys, so that the 8 keys x 4 queries a
+// warp reads at once fall in different banks.
+constexpr int kBiasRow32 = 528, kBiasRow16 = 272;
+constexpr int kBiasStage = kTcQ * kBiasRow32;  // bytes
+
+// K and V (128 rows each), 2 stages of Q and dO (64 rows each), bf16; then
+// 2 stages of lse and delta (64 floats each) and with a bias 2 stages of
+// its (64 x 128) tile; 1024 bytes of slack to align the tiles to the
+// swizzle atom.
+template <int D, bool kBias>
+constexpr size_t dkv_tc_smem_bytes() {
+  return 1024 + 2 * D * (2 * kTcKeys + 4 * kTcQ) + 4 * 4 * kTcQ +
+         (kBias ? 2 * kBiasStage : 0);
+}
+
+// BT: the bias element type (flash_common.cuh), NoBias without a bias.
+template <int D, typename BT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, Bias bias,
+                        const int* __restrict__ kv_valid,
+                        const int* __restrict__ seed, int tq, int tk,
+                        float scale, int causal, uint32_t threshold,
+                        float keep_scale) {
+  using S = hp::TileShape<D>;
+  constexpr bool kBias = kHasBias<BT>;
+  constexpr int kKvBytes = kTcKeys * D * 2, kQBytes = kTcQ * D * 2;
+  constexpr int kBElt = sizeof(BT);
+  constexpr int kBStride = kBElt == 4 ? kBiasRow32 : kBiasRow16;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + (((hp::smem_addr(smem_raw) + 1023) & ~1023u) -
+                              hp::smem_addr(smem_raw));
+  const uint32_t k_s = hp::smem_addr(smem);     // [128][D], swizzled
+  const uint32_t v_s = k_s + kKvBytes;          // [128][D]
+  const uint32_t q_s = v_s + kKvBytes;          // [2][64][D]
+  const uint32_t do_s = q_s + 2 * kQBytes;      // [2][64][D]
+  const float* lse_s =                          // [2][64]
+      reinterpret_cast<const float*>(smem + 2 * kKvBytes + 4 * kQBytes);
+  const float* dl_s = lse_s + 2 * kTcQ;         // [2][64]
+  const uint32_t b_s = do_s + 2 * kQBytes + 4 * 4 * kTcQ;  // [2][64] rows
+  const uint8_t* b_g = smem + (b_s - k_s);
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int bh = blockIdx.y, k0 = blockIdx.x * kTcKeys, kw0 = k0 + 64 * wg;
+  const long qoff = static_cast<long>(bh) * tq;
+  const long koff = static_cast<long>(bh) * tk;
+  const int valid = valid_keys(kv_valid, bh, tk);
+  // the two key rows of this thread's accumulator registers
+  const int krow[2] = {kw0 + 16 * ((tid % 128) / 32) + lane / 4,
+                       kw0 + 16 * ((tid % 128) / 32) + lane / 4 + 8};
+  const uint32_t row_key =
+      seed != nullptr ? dropout_row_key(static_cast<uint32_t>(seed[0]), bh)
+                      : 0u;
+  const long plane =
+      kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
+            : 0;
+  const bool b_chunks = kBias && bias_rows_aligned<BT>(bias, tk);
+
+  // a key tile wholly past kv_valid runs no Q tile and writes zeros
+  const int n_qt = k0 < valid ? (tq + kTcQ - 1) / kTcQ : 0;
+  const int qt0 = causal ? k0 / kTcQ : 0;
+  auto copy_q = [&](int qt, int st) {
+    hp::copy_tile<D, kTcQ, kTcThreads>(q_s + st * kQBytes, q + qoff * D,
+                                       qt * kTcQ, tq, tid);
+    hp::copy_tile<D, kTcQ, kTcThreads>(do_s + st * kQBytes, dout + qoff * D,
+                                       qt * kTcQ, tq, tid);
+    const uint32_t rows = hp::smem_addr(lse_s + st * kTcQ);
+    hp::copy_floats(rows, lse + qoff + qt * kTcQ, kTcQ, tq - qt * kTcQ, tid);
+    hp::copy_floats(rows + 4 * 2 * kTcQ, delta + qoff + qt * kTcQ, kTcQ,
+                    tq - qt * kTcQ, tid - kTcQ);
+    if constexpr (kBias)  // bias[q][k] of these queries and the block's keys
+      stage_bias_async<kTcQ, kTcKeys, kTcThreads, BT>(
+          b_s + st * kBiasStage, kBStride, bias, plane, qt * kTcQ, k0, tq, tk,
+          b_chunks, tid);
+  };
+  if (qt0 < n_qt) {
+    hp::copy_tile<D, kTcKeys, kTcThreads>(k_s, k + koff * D, k0, tk, tid);
+    hp::copy_tile<D, kTcKeys, kTcThreads>(v_s, v + koff * D, k0, tk, tid);
+    copy_q(qt0, 0);
+  }
+  hp::cp_async_commit();
+
+  float dk_acc[S::kBlocks][S::kCols / 2], dv_acc[S::kBlocks][S::kCols / 2];
+#pragma unroll
+  for (int b = 0; b < S::kBlocks; ++b)
+#pragma unroll
+    for (int i = 0; i < S::kCols / 2; ++i) dk_acc[b][i] = dv_acc[b][i] = 0.f;
+  const bool keys_in = kw0 < valid;  // the warpgroup holds a valid key
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * kTcQ, st = (qt - qt0) & 1;
+    if (qt + 1 < n_qt) {  // the next tile's copy, into the other stage
+      copy_q(qt + 1, st ^ 1);
+      hp::cp_async_commit();
+      hp::cp_async_wait<1>();
+    } else {
+      hp::cp_async_wait<0>();
+    }
+    hp::fence_async_smem();
+    __syncthreads();  // tile qt (and K, V) is in shared memory
+
+    if (keys_in && (!causal || q0 + kTcQ - 1 >= kw0)) {
+      const uint32_t qst = q_s + st * kQBytes, dost = do_s + st * kQBytes;
+      // transposed scores: key rows, query columns
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hp::wgmma_ss(s, hp::desc_k_major<D, kTcKeys>(k_s, 64 * wg, kk),
+                         hp::desc_k_major<D, kTcQ>(qst, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hp::wgmma_ss(dp, hp::desc_k_major<D, kTcKeys>(v_s, 64 * wg, kk),
+                         hp::desc_k_major<D, kTcQ>(dost, 0, kk), kk > 0);
+      hp::wgmma_commit();
+      hp::wgmma_wait();
+      hp::fence_regs(s);
+      hp::fence_regs(dp);
+
+      const float* lrow = lse_s + st * kTcQ;
+      const float* drow = dl_s + st * kTcQ;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * (lane % 4) + e, qp = q0 + c;
+          const float lse2 = lrow[c] * kLog2e, dl = drow[c];
+          const uint32_t qkey =
+              seed != nullptr ? dropout_q_key(row_key, qp) : 0u;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e, kp = krow[h];
+            const bool ok =
+                qp < tq && kp < valid && (!causal || kp <= qp);
+            float x = s[i] * scale;
+            if constexpr (kBias)
+              x += lds_bias<BT>(b_g + st * kBiasStage + c * kBStride +
+                                (kp - k0) * kBElt);
+            const float p = ok ? exp2f(fmaf(x, kLog2e, -lse2)) : 0.f;
+            float pd = p, g = dp[i];
+            if (seed != nullptr) {
+              const bool keep = dropout_keep(qkey, kp, threshold);
+              pd = keep ? p * keep_scale : 0.f;
+              g = keep ? g * keep_scale : 0.f;
+            }
+            s[i] = pd;                         // dropped p^T
+            dp[i] = p * (g - dl) * scale;      // ds^T
+          }
+        }
+
+      // dV += P^T dO and dK += dS^T Q: A from registers (bf16), B = dO or Q
+      // read MN-major from shared memory.  Both A operands are built before
+      // the products: an in-flight product's registers are not rewritten.
+      uint32_t ap[kTcQ / 16][4], ad[kTcQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < kTcQ / 16; ++j) {
+        hp::to_a_frag(s, j, ap[j]);
+        hp::to_a_frag(dp, j, ad[j]);
+      }
+#pragma unroll
+      for (int b = 0; b < S::kBlocks; ++b) {
+        hp::fence_regs(dv_acc[b]);
+        hp::fence_regs(dk_acc[b]);
+      }
+      hp::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kTcQ / 16; ++j)
+#pragma unroll
+        for (int b = 0; b < S::kBlocks; ++b) {
+          hp::wgmma_rs(dv_acc[b], ap[j],
+                       hp::desc_mn_major<D, kTcQ>(dost, b, j));
+          hp::wgmma_rs(dk_acc[b], ad[j],
+                       hp::desc_mn_major<D, kTcQ>(qst, b, j));
+        }
+      hp::wgmma_commit();
+      hp::wgmma_wait();
+#pragma unroll
+      for (int b = 0; b < S::kBlocks; ++b) {
+        hp::fence_regs(dv_acc[b]);
+        hp::fence_regs(dk_acc[b]);
+      }
+    }
+    __syncthreads();  // stage st is free for the copy of tile qt + 2
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (krow[h] >= tk) continue;
+    __nv_bfloat16* krow_o = dk + (koff + krow[h]) * D;
+    __nv_bfloat16* vrow_o = dv + (koff + krow[h]) * D;
+#pragma unroll
+    for (int b = 0; b < S::kBlocks; ++b)
+#pragma unroll
+      for (int i = 0; i < S::kCols / 2; i += 4) {
+        const int c = b * S::kCols + 8 * (i / 4) + 2 * (lane % 4);
+        *reinterpret_cast<uint32_t*>(krow_o + c) =
+            hp::pack_bf16(dk_acc[b][i + 2 * h], dk_acc[b][i + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(vrow_o + c) =
+            hp::pack_bf16(dv_acc[b][i + 2 * h], dv_acc[b][i + 2 * h + 1]);
+      }
   }
 }
 
@@ -378,60 +638,106 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D, typename T, bool kBias>
+template <int D, bool kBias>
 cudaError_t launch_dkv(const Args& a) {
   const size_t smem =
       sizeof(float) * (4 * kBk * (D + 1) + 2 * kBk * kPs + 2 * kBq);
-  auto kernel = flash_dkv_kernel<D, T, kBias>;
+  auto kernel = flash_dkv_kernel<D, kBias>;
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.tk + kBk - 1) / kBk, a.bh), kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.bias,
-      a.kv_valid, a.seed, a.tq, a.tk, a.scale, a.causal, a.threshold,
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.bias, a.kv_valid, a.seed, a.tq, a.tk, a.scale, a.causal,
+      a.threshold, a.keep_scale);
+  return cudaGetLastError();
+}
+
+template <int D, typename BT>
+cudaError_t launch_dkv_tc(const Args& a) {
+  const size_t smem = dkv_tc_smem_bytes<D, kHasBias<BT>>();
+  auto kernel = flash_dkv_tc_kernel<D, BT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.tk + kTcKeys - 1) / kTcKeys, a.bh), kTcThreads, smem,
+           a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta,
+      static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
+      a.bias, a.kv_valid, a.seed, a.tq, a.tk, a.scale, a.causal, a.threshold,
       a.keep_scale);
   return cudaGetLastError();
 }
 
-template <bool kDq, typename T, bool kBias>
+// kKind: 0 dq (FFMA, T = float or bf16), 1 dk/dv FFMA (float32; T unused).
+template <int kKind, typename T, bool kBias, int D>
+cudaError_t launch_kind(const Args& a) {
+  if constexpr (kKind == 0) return launch_dq<D, T, kBias>(a);
+  else return launch_dkv<D, kBias>(a);
+}
+
+template <int kKind, typename T, bool kBias>
 cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 16:
-      return kDq ? launch_dq<16, T, kBias>(a) : launch_dkv<16, T, kBias>(a);
-    case 32:
-      return kDq ? launch_dq<32, T, kBias>(a) : launch_dkv<32, T, kBias>(a);
-    case 64:
-      return kDq ? launch_dq<64, T, kBias>(a) : launch_dkv<64, T, kBias>(a);
-    case 128:
-      return kDq ? launch_dq<128, T, kBias>(a) : launch_dkv<128, T, kBias>(a);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return launch_kind<kKind, T, kBias, 16>(a);
+    case 32: return launch_kind<kKind, T, kBias, 32>(a);
+    case 64: return launch_kind<kKind, T, kBias, 64>(a);
+    case 128: return launch_kind<kKind, T, kBias, 128>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kDq, typename T>
+template <int kKind, typename T>
 cudaError_t dispatch_bias(int d, const Args& a) {
-  if (a.bias.ptr != nullptr) return dispatch_d<kDq, T, true>(d, a);
-  return dispatch_d<kDq, T, false>(d, a);
+  if (a.bias.ptr != nullptr) return dispatch_d<kKind, T, true>(d, a);
+  return dispatch_d<kKind, T, false>(d, a);
 }
 
-template <bool kDq>
-int dispatch(int d, int dtype, const Args& a) {
+// dk/dv on the tensor cores: the bias element type is a template parameter.
+template <typename BT>
+cudaError_t dispatch_dkv_tc_d(int d, const Args& a) {
+  switch (d) {
+    case 16: return launch_dkv_tc<16, BT>(a);
+    case 32: return launch_dkv_tc<32, BT>(a);
+    case 64: return launch_dkv_tc<64, BT>(a);
+    case 128: return launch_dkv_tc<128, BT>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_dkv_tc(int d, const Args& a) {
+  if (a.bias.ptr == nullptr) return dispatch_dkv_tc_d<NoBias>(d, a);
+  if (a.bias.dtype == 1) return dispatch_dkv_tc_d<__nv_bfloat16>(d, a);
+  if (a.bias.dtype == 2) return dispatch_dkv_tc_d<__half>(d, a);
+  return dispatch_dkv_tc_d<float>(d, a);
+}
+
+int check_args(const Args& a) {
   if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.bh > 65535)
     return cudaErrorInvalidValue;
   if (a.bias.ptr != nullptr &&
       (a.bias.planes < 1 || a.bh % a.bias.planes != 0 || a.bias.dtype < 0 ||
        a.bias.dtype > 2))
     return cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch_bias<kDq, float>(d, a);
-  if (dtype == 1) return dispatch_bias<kDq, __nv_bfloat16>(d, a);
-  return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  kv_valid, seed and bias may be null (no
+// dtype: 0 float32, 1 bfloat16.  dq runs the FFMA kernel in both; dk/dv
+// runs the FFMA kernel for float32 and the tensor-core kernel for bfloat16
+// (q, k, v, dout, dk and dv 16-byte aligned), and sets *route to the
+// kernel launched: 0 FFMA, 1 wgmma (left as it is when nothing is
+// launched).  kv_valid, seed and bias may be null (no
 // key-padding mask; no dropout; no bias).  lse and delta are float32
 // (BH, T).  bias is (bias_planes, tq, tk) of bias_dtype (0 float32,
 // 1 bfloat16, 2 float16); row bh reads plane bh % bias_planes.  d_bias,
@@ -449,7 +755,10 @@ extern "C" int tmx_flash_attention_bwd_dq(
          d_bias,    kv_valid,   seed,    bh,
          tq,        tk,         scale,   causal,
          threshold, keep_scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(d, dtype, a);
+  if (int err = check_args(a)) return err;
+  if (dtype == 0) return dispatch_bias<0, float>(d, a);
+  if (dtype == 1) return dispatch_bias<0, __nv_bfloat16>(d, a);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int tmx_flash_attention_bwd_dkv(
@@ -457,14 +766,27 @@ extern "C" int tmx_flash_attention_bwd_dkv(
     const float* lse, const float* delta, void* dk, void* dv,
     const void* bias, int bias_planes, int bias_dtype, const int* kv_valid,
     const int* seed, int bh, int tq, int tk, int d, float scale, int causal,
-    uint32_t threshold, float keep_scale, int dtype, void* stream) {
+    uint32_t threshold, float keep_scale, int dtype, void* stream,
+    int* route) {
   Args a{q,         k,          v,       dout,
          lse,       delta,      nullptr, dk,
          dv,        {bias, bias_planes, bias_dtype},
          nullptr,   kv_valid,   seed,    bh,
          tq,        tk,         scale,   causal,
          threshold, keep_scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(d, dtype, a);
+  if (int err = check_args(a)) return err;
+  if (dtype == 0) {
+    *route = 0;
+    return dispatch_bias<1, float>(d, a);
+  }
+  if (dtype == 1) {
+    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+        !aligned16(dk) || !aligned16(dv))
+      return cudaErrorInvalidValue;
+    *route = 1;
+    return dispatch_dkv_tc(d, a);
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* tmx_error_string(int code) {

@@ -31,6 +31,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tmx_flash {
 
 constexpr int kBq = 64;            // query rows of a tile
@@ -138,6 +140,101 @@ __device__ __forceinline__ void stage_bias(float* dst, int ld, const Bias& b,
     else
       dst[r * ld + c] = x;
   }
+}
+
+// --- the bias in the tensor-core kernels ------------------------------------
+// Their bias element type BT is a template parameter (float, __nv_bfloat16
+// or __half; NoBias without a bias): the bias tile is staged in shared
+// memory in that type, rows `stride` bytes apart, next to the K/V
+// (forward) or Q/dO (dk/dv) tiles of the same ring stage, and read back
+// with no branch on the type (a run-time branch per element cost dk/dv
+// more than the bias itself on an H100).
+struct NoBias {};
+template <typename BT>
+constexpr bool kHasBias = !std::is_same_v<BT, NoBias>;
+
+// Every row of the bias starts 16-byte aligned: the tile can be copied in
+// 16-byte chunks.
+template <typename BT>
+__device__ __forceinline__ bool bias_rows_aligned(const Bias& b, int tk) {
+  return (reinterpret_cast<uintptr_t>(b.ptr) & 15) == 0 &&
+         (tk * sizeof(BT)) % 16 == 0;
+}
+
+// Stage the bias of query rows [q0, q0 + R) and key columns [k0, k0 + C)
+// of the plane starting at element `plane` into shared memory at `dst`;
+// elements past (tq, tk) are 0.  With 16-byte aligned rows (`chunks`) the
+// copy is cp.async, in the caller's commit group; otherwise the threads
+// load and store it element by element.
+template <int R, int C, int kThreads, typename BT>
+__device__ __forceinline__ void stage_bias_async(uint32_t dst, int stride,
+                                                 const Bias& b, long plane,
+                                                 int q0, int k0, int tq,
+                                                 int tk, bool chunks,
+                                                 int tid) {
+  constexpr int kElt = sizeof(BT);
+  const BT* base = static_cast<const BT*>(b.ptr);
+  if (chunks) {
+    constexpr int kPer = 16 / kElt, kRow = C / kPer;
+#pragma unroll 4
+    for (int i = tid; i < R * kRow; i += kThreads) {
+      const int r = i / kRow, c = (i % kRow) * kPer;
+      const bool in = q0 + r < tq && k0 + c < tk;
+      const BT* from =
+          base + (in ? plane + static_cast<long>(q0 + r) * tk + k0 + c : 0);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       dst + r * stride + c * kElt),
+                   "l"(from), "r"(in ? 16 : 0)
+                   : "memory");
+    }
+    return;
+  }
+#pragma unroll 8
+  for (int i = tid; i < R * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    const bool in = q0 + r < tq && k0 + c < tk;
+    const long at = plane + static_cast<long>(q0 + r) * tk + k0 + c;
+    const uint32_t to = dst + r * stride + c * kElt;
+    if constexpr (kElt == 4) {
+      const uint32_t x = in ? reinterpret_cast<const uint32_t*>(base)[at] : 0u;
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(to), "r"(x) : "memory");
+    } else {
+      const unsigned short x =
+          in ? reinterpret_cast<const unsigned short*>(base)[at] : 0;
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(to), "h"(x) : "memory");
+    }
+  }
+}
+
+// One staged bias element, or two adjacent ones (keys c and c + 1), at `p`
+// in shared memory, as float32.
+template <typename BT>
+__device__ __forceinline__ float lds_bias(const uint8_t* p);
+template <>
+__device__ __forceinline__ float lds_bias<float>(const uint8_t* p) {
+  return *reinterpret_cast<const float*>(p);
+}
+template <>
+__device__ __forceinline__ float lds_bias<__nv_bfloat16>(const uint8_t* p) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+}
+template <>
+__device__ __forceinline__ float lds_bias<__half>(const uint8_t* p) {
+  return __half2float(*reinterpret_cast<const __half*>(p));
+}
+template <typename BT>
+__device__ __forceinline__ float2 lds_bias2(const uint8_t* p);
+template <>
+__device__ __forceinline__ float2 lds_bias2<float>(const uint8_t* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <>
+__device__ __forceinline__ float2 lds_bias2<__nv_bfloat16>(const uint8_t* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+template <>
+__device__ __forceinline__ float2 lds_bias2<__half>(const uint8_t* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 
 }  // namespace tmx_flash

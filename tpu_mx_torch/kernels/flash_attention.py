@@ -39,6 +39,13 @@ count):
 - :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` —
   the backward (``csrc/flash_attention_bwd.cu``).
 
+The kernel is chosen by dtype: bfloat16 runs on the tensor cores
+(``wgmma``) in the forward and dk/dv, float32 runs the FFMA kernels
+(exact to float32 rounding, as the serving path needs), and dq is FFMA
+for both.  The forward and dk/dv wrappers also count their launches by
+the route the C entry point reports, in ``<wrapper>.routes``
+(``{"ffma": n, "wgmma": n}``); there is no fallback between the two.
+
 Gradients flow through :class:`FlashAttentionFunction`, whose backward
 calls the two backward wrappers.  The plain versions
 (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`) work
@@ -67,6 +74,7 @@ HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 PLAIN_BLOCK_Q = 128             # query rows per step of the plain versions
+ROUTES = ("ffma", "wgmma")      # the kernels a C entry point reports
 
 _M32 = 0xFFFFFFFF
 _ROW_SALT = 0x9E3779B9          # the constants of csrc/flash_common.cuh
@@ -86,15 +94,18 @@ def _lib(name):
         #  keep_scale, dtype, stream)
         tail = [p, p, i, i, i, i, f, i, u, f, i, p]
         bias = [p, i, i]    # bias, bias_planes, bias_dtype
+        route = [ctypes.POINTER(i)]   # out: the kernel launched
         if name == "flash_attention_fwd":
-            lib.tmx_flash_attention_fwd.argtypes = [p] * 5 + bias + tail
+            lib.tmx_flash_attention_fwd.argtypes = [p] * 5 + bias + tail \
+                + route
             lib.tmx_flash_attention_fwd.restype = i
         else:
             d_bias = [p]
             lib.tmx_flash_attention_bwd_dq.argtypes = [p] * 7 + bias \
                 + d_bias + tail
             lib.tmx_flash_attention_bwd_dq.restype = i
-            lib.tmx_flash_attention_bwd_dkv.argtypes = [p] * 8 + bias + tail
+            lib.tmx_flash_attention_bwd_dkv.argtypes = [p] * 8 + bias + tail \
+                + route
             lib.tmx_flash_attention_bwd_dkv.restype = i
         _libs[name] = lib
     return lib
@@ -306,17 +317,36 @@ def _bias_abi(bias):
     return bias.data_ptr(), bias.shape[0], _BIAS_DTYPES[bias.dtype]
 
 
+def _check_aligned(what, *tensors):
+    """The tensor-core kernels copy 16-byte chunks: bf16 operands must
+    start 16-byte aligned (a fresh or contiguous-copied tensor does)."""
+    if tensors[0].dtype == torch.bfloat16 and any(
+            x.data_ptr() % 16 for x in tensors):
+        raise MXNetError(f"{what} kernel: bfloat16 operands must start "
+                         "16-byte aligned")
+
+
+def _count(wrapper, route):
+    """One launch of ``wrapper``'s kernel, on the route the C entry point
+    reported (1: the bf16 tensor-core kernel, 0: the FFMA kernel)."""
+    wrapper.launches += 1
+    wrapper.routes[ROUTES[route.value]] += 1
+
+
 def _launch_fwd(q, k, v, scale, causal, kv_valid, rate, seed, bias=None):
     _check_kernel_operands("flash_attention", q, k, v)
     out = torch.empty_like(q)
+    _check_aligned("flash_attention", q, k, v, out)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     lib = _lib("flash_attention_fwd")
+    route = ctypes.c_int(-1)
     code = lib.tmx_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *_bias_abi(bias),
-        *_tail(q, k, kv_valid, rate, seed, scale, causal))
+        *_tail(q, k, kv_valid, rate, seed, scale, causal),
+        ctypes.byref(route))
     _build.check(lib, code, "flash_attention")
-    flash_attention.launches += 1
+    _count(flash_attention, route)
     return out, lse
 
 
@@ -363,14 +393,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal=False,
                                          dropout_seed, bias)[1:3]
     _check_kernel_operands("flash_attention_bwd_dkv", q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _check_aligned("flash_attention_bwd_dkv", q, k, v, do, dk, dv)
     lib = _lib("flash_attention_bwd")
+    route = ctypes.c_int(-1)
     code = lib.tmx_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_bias_abi(bias),
-        *_tail(q, k, kv_valid, dropout_rate, dropout_seed, scale, causal))
+        *_tail(q, k, kv_valid, dropout_rate, dropout_seed, scale, causal),
+        ctypes.byref(route))
     _build.check(lib, code, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, route)
     return dk, dv
 
 
@@ -534,3 +567,5 @@ def mha_flash_attention(q, k, v, causal=False, valid_length=None,
 flash_attention.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention.routes = dict.fromkeys(ROUTES, 0)
+flash_attention_bwd_dkv.routes = dict.fromkeys(ROUTES, 0)
