@@ -13,8 +13,9 @@ line each:
                  ``nvcc`` per source, all started together), with each
                  kernel's register and spill report and its count of
                  ``HGMMA`` (tensor-core) instructions in ``cuobjdump
-                 --dump-sass``: the bf16 forward and dk/dv instances must
-                 have them, the float32 instances, dq and paged none;
+                 --dump-sass``: the bf16 forward, dq and dk/dv instances
+                 (``*_tc_kernel``) must have them and spill nothing, the
+                 float32 instances and paged none;
 3. ``kernel``  — each CUDA kernel against its plain PyTorch version on
                  the card: paged decode and the flash forward at the
                  serving path's shapes; the flash forward, dq and dk/dv
@@ -49,8 +50,8 @@ line each:
                  (f32 masters), batch 32 x 512 with ragged valid
                  lengths, 1 warm-up and 5 timed steps; launch counts
                  prove the flash forward, dq and dk/dv ran 12 times a
-                 step (the forward and dk/dv on the ``wgmma`` route the
-                 C entry points report) and the paged kernel not at all;
+                 step (all three on the ``wgmma`` route the C entry
+                 points report) and the paged kernel not at all;
 7. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
                  backward at BERT-base's attention width (B=32, H=12,
                  T=512, D=64, bf16, ragged ``valid_length``, dropout
@@ -59,7 +60,8 @@ line each:
                  (1,1,512,512) and ALiBi (1,12,1,512); and one float32
                  causal case (BH=32, T=700, D=128, bias (1,32,700,700)).
                  Launch counts prove the three flash kernels ran with
-                 the bias; each kernel is held against its plain version
+                 the bias (bf16 on the ``wgmma`` route, the float32 case
+                 on ``ffma``); each kernel is held against its plain version
                  (out, lse, dq, dk, dv, the reduced d_bias), d_bias is
                  checked to be written everywhere over NaN-filled
                  memory, and ms with and without the bias, the bound,
@@ -79,6 +81,7 @@ prints no result, if any phase fails or there is no card.
 """
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -206,9 +209,9 @@ def hgmma_counts(lib):
 
 def phase_build(ctx):
     """Build every source; report ptxas's registers and spills per kernel
-    and the HGMMA count per kernel.  The bf16 forward and dk/dv instances
-    (``*_tc_kernel``) must hold HGMMA instructions, every other kernel
-    (float32 FFMA, dq, paged) none."""
+    and the HGMMA count per kernel.  The bf16 forward, dq and dk/dv
+    instances (``*_tc_kernel``) must hold HGMMA instructions and spill
+    nothing, every other kernel (float32 FFMA, paged) none."""
     from tpu_mx_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -231,12 +234,18 @@ def phase_build(ctx):
         for kernel, n in counts.items():
             if ("_tc_kernel" in kernel) != (n > 0):
                 wrong.append(f"{kernel}: {n} HGMMA")
+        for kernel, line in entries:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if "_tc_kernel" in pretty[kernel] and m and m.group(1, 2) != \
+                    ("0", "0"):
+                wrong.append(f"{pretty[kernel]}: {line}")
     ok = not wrong
     emit("build", ok=ok, seconds=secs, ptxas=report, hgmma=hgmma,
          hgmma_wrong=wrong)
     if not ok:
-        ctx["failures"].append(f"build: HGMMA where not expected or missing: "
-                               f"{wrong[:4]}")
+        ctx["failures"].append(f"build: HGMMA where not expected or missing, "
+                               f"or a tensor-core kernel spills: {wrong[:4]}")
 
 
 def paged_case(torch, gen, tq, pool_dtype):
@@ -350,8 +359,10 @@ def flash_work(bh, t, d, causal, valid, elt):
     return 2 * pairs * d, bh * t * d * elt, sum(valid) * d * elt, bh * t * 4
 
 
-# the wrappers whose C entry point reports the kernel it launched
+# the wrapper of each flash kernel; its C entry point reports the kernel
+# it launched
 ROUTED = {"flash_attention_fwd": "flash_attention",
+          "flash_attention_bwd_dq": "flash_attention_bwd_dq",
           "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
 
 
@@ -362,10 +373,7 @@ def routes_of(fa):
 
 def route_since(fa, name, before):
     """The routes (``wgmma``, ``ffma``, joined by ``+`` if both) that the
-    C entry point reported for ``name``'s launches since ``before``; dq's
-    entry point has one kernel, FFMA."""
-    if name not in ROUTED:
-        return "ffma"
+    C entry point reported for ``name``'s launches since ``before``."""
     now = getattr(fa, ROUTED[name]).routes
     return "+".join(r for r in fa.ROUTES if now[r] > before[name][r]) or \
         "none"
@@ -706,7 +714,7 @@ def phase_train(ctx):
                 fa.flash_attention_bwd_dkv, pa.paged_attention)
     for c in counters:
         c.launches = 0
-    for c in (fa.flash_attention, fa.flash_attention_bwd_dkv):
+    for c in counters[:3]:
         c.routes = dict.fromkeys(fa.ROUTES, 0)
     step_ms = []
     for _ in range(TRAIN_STEPS):
@@ -716,13 +724,12 @@ def phase_train(ctx):
     launches = dict(zip(FLASH_KERNELS + ("paged_attention",),
                         (c.launches for c in counters)))
     ctx["train_launches"] = launches
-    routes = {"flash_attention_fwd": dict(fa.flash_attention.routes),
-              "flash_attention_bwd_dkv": dict(fa.flash_attention_bwd_dkv
-                                              .routes)}
+    routes = {name: dict(c.routes) for name, c in zip(FLASH_KERNELS,
+                                                      counters)}
     ctx["train_routes"] = routes
     layers = cfg["num_layers"]
     checks = {
-        # the bf16 step's forward and dk/dv ran on the tensor cores only
+        # the bf16 step's three flash kernels ran on the tensor cores only
         "wgmma_routes": all(r == {"ffma": 0, "wgmma": layers * TRAIN_STEPS}
                             for r in routes.values()),
         "finite": all(math.isfinite(x) for x in losses),
@@ -764,6 +771,7 @@ def bias_case(torch, fa, gen, b, h, t, d, dtype, causal, valid, bias_shape):
     from tpu_mx_torch.parallel import attention
     dev, rate = "cuda", 0.1
     bh, scale = b * h, 1.0 / math.sqrt(d)
+    f32 = dtype == torch.float32
     q, k, v, do = (torch.randn((b, h, t, d), generator=gen).to(dev, dtype)
                    for _ in range(4))
     bias = torch.randn(bias_shape, generator=gen).to(dev)
@@ -775,6 +783,7 @@ def bias_case(torch, fa, gen, b, h, t, d, dtype, causal, valid, bias_shape):
     leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
     for c in counters:
         c.launches = 0
+    before = routes_of(fa)
     out = attention(*leaves[:3], causal=causal, valid_length=vl,
                     dropout_rate=rate, dropout_seed=seed, bias=leaves[3])
     out.backward(do)
@@ -805,6 +814,8 @@ def bias_case(torch, fa, gen, b, h, t, d, dtype, causal, valid, bias_shape):
     dq, db_full = fa.flash_attention_bwd_dq(*args, want_d_bias=True)
     dk, dv = fa.flash_attention_bwd_dkv(*args)
     torch.cuda.synchronize()
+    # the main path and the checked calls: bf16 on the tensor cores only
+    routes = {name: route_since(fa, name, before) for name in FLASH_KERNELS}
     cols = torch.arange(t, device=dev)
     masked = cols[None, None, :] >= kv[:, None, None].long()
     if causal:
@@ -814,7 +825,6 @@ def bias_case(torch, fa, gen, b, h, t, d, dtype, causal, valid, bias_shape):
                  and bool((db_full[masked.expand_as(db_full)] == 0).all()))
     del db_full
 
-    f32 = dtype == torch.float32
     tol = lambda r: FLASH_ATOL if f32 else BF16_REL * float(r.abs().max())
     err = lambda a, r: float((a.float() - r.float()).abs().max())
     errors = {"out": (err(got, ref), tol(ref)),
@@ -831,12 +841,13 @@ def bias_case(torch, fa, gen, b, h, t, d, dtype, causal, valid, bias_shape):
                      f"{'causal' if causal else 'non-causal'} valid "
                      f"{min(valid)}-{max(valid)} dropout {rate}",
                bias_shape=list(bias_shape), bias_dtype="float32",
-               launches=launches,
+               launches=launches, routes=routes,
                max_abs_err={n: e for n, (e, _) in errors.items()},
                atol={n: a for n, (_, a) in errors.items()},
                d_bias_poison_ok=poison_ok)
     ok = (all(math.isfinite(e) and e <= a for e, a in errors.values())
-          and poison_ok and all(n > 0 for n in launches.values()))
+          and poison_ok and all(n > 0 for n in launches.values())
+          and all(r == ("ffma" if f32 else "wgmma") for r in routes.values()))
     rec["ok"] = ok
 
     plain_opts = dict(causal=causal, kv_valid=kv, dropout_rate=rate,
@@ -1063,7 +1074,7 @@ def main():
                "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
                "library_ms": e["library_ms"], "shape": e["shape"],
                "tflops": e["tflops"], "bound_over_ms": e["bound_over_ms"],
-               "math_route": "ffma"}
+               "math_route": "ffma"}     # the paged kernel: FFMA only
         if name in ctx["train_routes"]:   # as the main path's run reported
             row["math_route"] = "+".join(
                 r for r, n in ctx["train_routes"][name].items() if n) or "none"

@@ -283,7 +283,7 @@ def test_bert_train_step_on_the_card_matches_the_cpu():
 
 
 # ---------------------------------------------------------------------------
-# the bf16 tensor-core instances (forward, dk/dv) and the routes by dtype
+# the bf16 tensor-core instances (forward, dq, dk/dv) and the routes by dtype
 # ---------------------------------------------------------------------------
 def _tc_tol(ref):
     # the kernels round P and dS to bf16 before their products, the plain
@@ -297,8 +297,9 @@ def _tc_run(t, d, causal, valid, rate=0.0, bias=None, planes=None):
     kv = torch.tensor(valid, dtype=torch.int32, device="cuda")
     seed = torch.tensor([31 + t], dtype=torch.int32, device="cuda")
     scale = 1 / math.sqrt(d)
-    before = (dict(fa.flash_attention.routes),
-              dict(fa.flash_attention_bwd_dkv.routes))
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = [dict(w.routes) for w in wrappers]
     out, lse = fa.flash_attention(q, k, v, causal=causal, kv_valid=kv,
                                   dropout_rate=rate, dropout_seed=seed,
                                   bias=bias, bias_groups=planes,
@@ -308,15 +309,20 @@ def _tc_run(t, d, causal, valid, rate=0.0, bias=None, planes=None):
                                             seed, bias)
     args = (q, k, v, do, ref_lse, fa.flash_attention_delta(do, ref), scale,
             causal, kv, rate, seed, bias)
+    dq = fa.flash_attention_bwd_dq(*args, want_d_bias=bias is not None)
     dk, dv = fa.flash_attention_bwd_dkv(*args)
     want = fa.flash_attention_bwd_plain(*args)
     torch.cuda.synchronize()
-    for wrapper, was in zip((fa.flash_attention, fa.flash_attention_bwd_dkv),
-                            before):
+    for wrapper, was in zip(wrappers, before):
         assert wrapper.routes == dict(was, wgmma=was["wgmma"] + 1)
     torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
-    for got, exp in ((out, ref), (dk, want[1]), (dv, want[2])):
-        torch.testing.assert_close(got.float(), exp.float(), rtol=0,
+    got = [(out, ref), (dk, want[1]), (dv, want[2])]
+    if bias is None:
+        got.append((dq, want[0]))
+    else:    # d_bias: float32, before the rounding of dS
+        got += [(dq[0], want[0]), (dq[1], want[3])]
+    for g, exp in got:
+        torch.testing.assert_close(g.float(), exp.float(), rtol=0,
                                    atol=_tc_tol(exp))
     return out, dk, dv
 
@@ -325,10 +331,10 @@ def _tc_run(t, d, causal, valid, rate=0.0, bias=None, planes=None):
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("t", [1, 63, 65, 129, 700])
 def test_tc_forward_and_dkv_match_plain(t, d, causal):
-    """The bf16 wgmma forward and dk/dv against the float32 plain versions
-    over ragged T (tiles of 64 and 128 keys cut anywhere) and every head
-    dim, with kv_valid holding a full row, a row of 1 key and a partial
-    tile; dk/dv rows past kv_valid come out exactly 0."""
+    """The bf16 wgmma forward, dq and dk/dv against the float32 plain
+    versions over ragged T (tiles of 64 and 128 keys cut anywhere) and
+    every head dim, with kv_valid holding a full row, a row of 1 key and a
+    partial tile; dk/dv rows past kv_valid come out exactly 0."""
     valid = [t, 1, max(1, (2 * t) // 3)]
     _, dk, dv = _tc_run(t, d, causal, valid)
     for row, n in enumerate(valid):
@@ -357,22 +363,21 @@ def test_tc_kernels_with_every_bias_layout_match_plain(t, d, causal, planes,
 
 
 def test_routes_follow_the_dtype():
-    """bf16 runs the tensor-core forward and dk/dv, float32 the FFMA ones,
-    as the C entry points report; dq is FFMA for both and has no other
-    route."""
+    """bf16 runs the tensor-core forward, dq and dk/dv, float32 the FFMA
+    ones, as the C entry points report."""
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
     for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "ffma")):
         q, k, v, do, valid = _flash_case(2, 2, 96, 64, dtype)
-        before = (dict(fa.flash_attention.routes),
-                  dict(fa.flash_attention_bwd_dkv.routes))
+        before = [dict(w.routes) for w in wrappers]
         out, lse = fa.flash_attention(q, k, v, kv_valid=valid,
                                       return_lse=True)
-        fa.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                   fa.flash_attention_delta(do, out), 0.125,
-                                   False, valid)
-        for wrapper, was in zip((fa.flash_attention,
-                                 fa.flash_attention_bwd_dkv), before):
+        args = (q, k, v, do, lse, fa.flash_attention_delta(do, out), 0.125,
+                False, valid)
+        fa.flash_attention_bwd_dq(*args)
+        fa.flash_attention_bwd_dkv(*args)
+        for wrapper, was in zip(wrappers, before):
             assert wrapper.routes == dict(was, **{route: was[route] + 1})
-    assert not hasattr(fa.flash_attention_bwd_dq, "routes")
 
 
 def test_tc_kernels_refuse_unaligned_bf16():
@@ -384,6 +389,13 @@ def test_tc_kernels_refuse_unaligned_bf16():
     with pytest.raises(MXNetError, match="16-byte aligned"):
         fa.flash_attention(q, q, q)
     assert fa.flash_attention.launches == before
+    lse = torch.zeros((2, 64), device="cuda")
+    before = (fa.flash_attention_bwd_dq.launches,
+              dict(fa.flash_attention_bwd_dq.routes))
+    with pytest.raises(MXNetError, match="16-byte aligned"):
+        fa.flash_attention_bwd_dq(q, q, q, q, lse, lse, 0.125)
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dq.routes) == before
 
 
 # ---------------------------------------------------------------------------
@@ -433,13 +445,14 @@ def test_flash_bias_kernels_match_plain(t, d, planes, bias_dtype, dtype,
 
 
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_d_bias_is_written_everywhere_on_poisoned_memory(causal):
-    """d_bias comes from torch.empty: the dq kernel writes every element
-    — masked columns, key tiles past kv_valid and above the diagonal
-    that it never visits get 0 — over memory a previous call filled with
-    NaN."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_d_bias_is_written_everywhere_on_poisoned_memory(dtype, causal):
+    """d_bias comes from torch.empty: the dq kernels (FFMA and tensor
+    cores) write every element — masked columns, key tiles past kv_valid
+    and above the diagonal that they never visit get 0 — over memory a
+    previous call filled with NaN."""
     t = 300
-    q, k, v, do, _ = _flash_case(8, 4, t, 64, torch.float32)
+    q, k, v, do, _ = _flash_case(8, 4, t, 64, dtype)
     valid = torch.tensor([t, 1, 64, 130], dtype=torch.int32, device="cuda")
     bias = _bias(9, 1, t, t, torch.float32)
     out, lse = fa.flash_attention(q, k, v, causal=causal, kv_valid=valid,
@@ -459,15 +472,16 @@ def test_flash_d_bias_is_written_everywhere_on_poisoned_memory(causal):
     if causal:
         assert torch.all(db[:, torch.ones((t, t), dtype=torch.bool,
                                           device="cuda").triu(1)] == 0)
-    torch.testing.assert_close(db, fa.flash_attention_bwd_plain(*args)[3],
-                               rtol=TOL, atol=TOL)
+    want = fa.flash_attention_bwd_plain(*args)[3]
+    torch.testing.assert_close(db, want, rtol=TOL, atol=_tol(dtype, want))
 
 
-def test_flash_minus_inf_bias_gives_zero_rows_not_nans():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_minus_inf_bias_gives_zero_rows_not_nans(dtype):
     """-inf bias entries get p = 0; a row that is -inf everywhere gets
-    out = 0 and zero gradients, in the kernels as in the plain
-    versions."""
-    q, k, v, do, valid = _flash_case(10, 2, 96, 32, torch.float32)
+    out = 0 and zero gradients, in the kernels (FFMA and tensor cores) as
+    in the plain versions."""
+    q, k, v, do, valid = _flash_case(10, 2, 96, 32, dtype)
     bias = torch.zeros((2, 96, 96), device="cuda")
     bias[:, :, ::3] = -math.inf
     bias[1, 5] = -math.inf
@@ -484,7 +498,9 @@ def test_flash_minus_inf_bias_gives_zero_rows_not_nans():
         torch.cuda.synchronize()
         for got, exp in zip((out, lse, dq, dk, dv, db), (ref, ref_lse) + want):
             assert torch.isfinite(got).all()
-            torch.testing.assert_close(got, exp, rtol=TOL, atol=TOL)
+            atol = TOL if got is lse else _tol(dtype, exp)
+            torch.testing.assert_close(got.float(), exp.float(), rtol=TOL,
+                                       atol=atol)
         assert torch.all(out[1, 5] == 0) and torch.all(dq[1, 5] == 0)
         assert torch.all(db[:, :, ::3] == 0) and torch.all(db[1, 5] == 0)
 

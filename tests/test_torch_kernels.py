@@ -376,6 +376,30 @@ def test_flash_autograd_function_on_the_cpu_runs_the_plain_backward():
             fa.flash_attention_bwd_dkv.launches) == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensors_never_count_a_kernel_route(dtype):
+    """The plain backward, in either type, with and without ``d_bias``,
+    counts no launch and no route of the dq (or dk/dv) kernel: routes are
+    what a C entry point reports, and CPU tensors reach none."""
+    bh, t, d = 2, 40, 16
+    q, k, v, do = (torch.from_numpy(x).to(dtype)
+                   for x in _qkv(17, bh, t, d) + (
+                       np.random.RandomState(18).randn(bh, t, d)
+                       .astype(np.float32),))
+    bias = torch.from_numpy(np.random.RandomState(19).randn(1, t, t)
+                            .astype(np.float32))
+    wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [(w.launches, dict(w.routes)) for w in wrappers]
+    out, lse = fa.flash_attention_plain(q, k, v, 0.25, bias=bias)
+    args = (q, k, v, do, lse, fa.flash_attention_delta(do, out), 0.25)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dq_b, d_bias = fa.flash_attention_bwd_dq(*args, bias=bias,
+                                             want_d_bias=True)
+    fa.flash_attention_bwd_dkv(*args)
+    assert dq.dtype == dq_b.dtype == dtype and d_bias.shape == (bh, t, t)
+    assert [(w.launches, w.routes) for w in wrappers] == before
+
+
 def test_flash_rejects_bad_dropout_arguments():
     q, k, v = (torch.from_numpy(x) for x in _qkv(17, 1, 8, 16))
     with pytest.raises(ValueError, match="dropout_rate"):
@@ -652,13 +676,15 @@ def _tc_masks(bh, t, k0, kn, causal, valid, rate, seed):
 
 def _tc_model(q, k, v, do, scale, causal, valid, rate=0.0, seed=None,
               bias=None, lse_delta=None):
-    """The bf16 forward and dk/dv kernels' arithmetic in float32 torch:
-    bf16 q, k, v, dO; float32 scores and statistics (an online softmax over
-    key tiles, as the forward runs it); P rounded to bf16 before P·V, P and
-    dS rounded to bf16 before Pᵀ·dO and dSᵀ·Q; float32 sums.  The backward
-    reads ``lse_delta`` (``(BH, T)`` each) where given, as the dk/dv kernel
-    reads its caller's, else the model forward's.  Returns ``(out, dk,
-    dv)``, out in bf16 as the kernel writes it."""
+    """The bf16 tensor-core kernels' arithmetic in float32 torch: bf16 q,
+    k, v, dO; float32 scores and statistics (an online softmax over key
+    tiles, as the forward runs it); P rounded to bf16 before P·V, P and
+    dS rounded to bf16 before Pᵀ·dO, dSᵀ·Q and dS·K, dS after its
+    ``* scale`` as the dq and dk/dv kernels round it; float32 sums over
+    keys and queries.  The backward reads ``lse_delta`` (``(BH, T)``
+    each) where given, as the backward kernels read their caller's, else
+    the model forward's.  Returns ``(out, dq, dk, dv)``, out in bf16 as
+    the kernel writes it."""
     bh, t, d = q.shape
     tk = k.shape[1]
     masked = -math.inf if bias is not None else fa.NEG_INF
@@ -696,10 +722,11 @@ def _tc_model(q, k, v, do, scale, causal, valid, rate=0.0, seed=None,
     if keep is not None:
         pd = torch.where(keep, p / (1 - rate), 0.0)
         g = torch.where(keep, dp / (1 - rate), 0.0)
-    ds = p * (g - delta) * scale
+    ds = _bf16(p * (g - delta) * scale)
+    dq = ds @ k
     dv = _bf16(pd).transpose(1, 2) @ do
-    dk = _bf16(ds).transpose(1, 2) @ q
-    return out, dk, dv
+    dk = ds.transpose(1, 2) @ q
+    return out, dq, dk, dv
 
 
 def _tc_case(seed, t, d, bias):
@@ -729,7 +756,7 @@ def test_tc_rounding_model_matches_jax_vjp(t, d, causal, bias):
     """The bf16 tensor-core kernels' rounding (P and dS in bf16 before the
     products) stays within the card's tolerance of the reference's
     interpret-mode kernels and ``jax.vjp`` of them, on the same
-    bf16-rounded inputs: out, dk and dv within 2e-2·max|ref|."""
+    bf16-rounded inputs: out, dq, dk and dv within 2e-2·max|ref|."""
     import jax
     q, k, v, do, valid, b = _tc_case(t + d + causal, t, d, bias)
     scale = d ** -0.5
@@ -738,11 +765,11 @@ def test_tc_rounding_model_matches_jax_vjp(t, d, causal, bias):
         kw.update(bias=b.numpy(), bias_groups=2)
     ref, vjp = jax.vjp(lambda a, c, e: jfa.flash_attention(a, c, e, **kw),
                        q.numpy(), k.numpy(), v.numpy())
-    _, ref_dk, ref_dv = vjp(do.numpy())
+    ref_dq, ref_dk, ref_dv = vjp(do.numpy())
     bias_rows = None if b is None else b.repeat(2, 1, 1)
-    out, dk, dv = _tc_model(q, k, v, do, scale, causal, valid,
-                            bias=bias_rows)
-    _assert_within((out, dk, dv), (ref, ref_dk, ref_dv), ("out", "dk", "dv"))
+    got = _tc_model(q, k, v, do, scale, causal, valid, bias=bias_rows)
+    _assert_within(got, (ref, ref_dq, ref_dk, ref_dv),
+                   ("out", "dq", "dk", "dv"))
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -761,8 +788,9 @@ def test_tc_rounding_model_with_dropout_matches_plain(t, d, causal):
     ref, lse = fa.flash_attention_plain(q, k, v, scale, causal, kv, rate,
                                         seed)
     delta = fa.flash_attention_delta(do, ref)
-    _, ref_dk, ref_dv = fa.flash_attention_bwd_plain(
+    ref_dq, ref_dk, ref_dv = fa.flash_attention_bwd_plain(
         q, k, v, do, lse, delta, scale, causal, kv, rate, seed)
-    out, dk, dv = _tc_model(q, k, v, do, scale, causal, valid, rate, seed,
-                            lse_delta=(lse, delta))
-    _assert_within((out, dk, dv), (ref, ref_dk, ref_dv), ("out", "dk", "dv"))
+    got = _tc_model(q, k, v, do, scale, causal, valid, rate, seed,
+                    lse_delta=(lse, delta))
+    _assert_within(got, (ref, ref_dq, ref_dk, ref_dv),
+                   ("out", "dq", "dk", "dv"))

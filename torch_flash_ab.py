@@ -16,8 +16,8 @@ path in the window, ``<name>_queued`` with each call queued behind a
   float32, T = 128, 700, 2048;
 - where the tree has them, the forward, dq and dk/dv at BERT's training
   shape: BH=384, T=512, D=64, bf16, ``kv_valid`` over 384-512, dropout
-  0.1; and the forward and dk/dv there with a per-head float32 bias
-  (12 planes of 512 x 512, ``*_bias``).
+  0.1; and the forward, dq (with ``d_bias``) and dk/dv there with a
+  per-head float32 bias (12 planes of 512 x 512, ``*_bias``).
 
 Prints one JSON line per run (``tree`` is ``this`` or the other tree's
 path as given) and the card's ``name, power.limit``.
@@ -76,6 +76,8 @@ if hasattr(fa, "reduce_d_bias"):
     bias = torch.randn((12, t, t), generator=g).cuda()
     timed("fwd_bert_bias", lambda: fa.flash_attention(
         q, k, v, return_lse=True, bias=bias, bias_groups=12, **opts))
+    timed("dq_bert_bias", lambda: fa.flash_attention_bwd_dq(
+        *args, bias, want_d_bias=True))
     timed("dkv_bert_bias", lambda: fa.flash_attention_bwd_dkv(*args, bias))
 print(json.dumps(res))
 '''

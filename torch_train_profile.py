@@ -30,7 +30,7 @@ import chip_smoke
 # FFMA or tensor-core instances; the matrix products are cuBLAS's: nvjet,
 # xmma and CUTLASS kernels)
 GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
-          ("flash_dq", ("flash_dq_kernel",)),
+          ("flash_dq", ("flash_dq_kernel", "flash_dq_tc_kernel")),
           ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_tc_kernel")),
           ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
 

@@ -1,9 +1,10 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, dk/dv in bf16
-// on the tensor cores (wgmma), dq and float32 dk/dv on FFMA.
+// Flash-attention backward for Hopper (sm_90a): two kernels, dq and dk/dv,
+// each in bf16 on the tensor cores (wgmma) and in float32 on FFMA.
 //
 // Replaces the backward Pallas TPU kernels of tpu_mx/kernels/
 // flash_attention.py, both launched by _bwd:
-//   - flash_dq_kernel  <- _bwd_dq_kernel:  dq = ds K, with
+//   - flash_dq_tc_kernel (bf16) and flash_dq_kernel (float32)
+//       <- _bwd_dq_kernel:  dq = ds K, with
 //       s  = q k^T * scale (masked),  p = exp(s - lse),  dp = dO V^T,
 //       dp <- z/(1-r) * dp  (the regenerated keep mask z),
 //       ds = p o (dp - delta) * scale;
@@ -11,15 +12,16 @@
 //       <- _bwd_dkv_kernel: dv = (z/(1-r) * p)^T dO and dk = ds^T q.
 // delta = rowsum(dO o O) (float32, (BH, T)) and lse come from the caller,
 // as in the reference.  The masks (causal, kv_valid) and the keep mask are
-// those of the forward (flash_common.cuh), so the three kernels agree bit
-// for bit on which probabilities were dropped.  Accumulators are float32;
-// dq, dk and dv are written in q's type.
+// those of the forward (flash_common.cuh), so the kernels agree bit for
+// bit on which probabilities were dropped.  Accumulators are float32; dq,
+// dk and dv are written in q's type.  dq stays a kernel of its own, with
+// no atomics, so its result does not depend on the order blocks run in.
 // With an additive bias (flash_common.cuh) both kernels add it to the
-// scaled scores before the masks, as the forward does, and the dq kernel
+// scaled scores before the masks, as the forward does, and the dq kernels
 // can also write d_bias = p o (dp - delta) (_bwd_dq_kernel: ds before its
 // scale), a (BH, T, Tk) float32 array that the caller reduces to the
-// bias's shape.  d_bias is not pre-zeroed, so the dq kernel writes every
-// element of its rows: masked columns and the key tiles it never visits
+// bias's shape.  d_bias is not pre-zeroed, so the dq kernels write every
+// element of their rows: masked columns and the key tiles they never visit
 // (past kv_valid, above the causal diagonal) get 0.
 //
 // Bound on the H100: operations.  Non-causal, dq does 3 products of
@@ -27,12 +29,17 @@
 // (QK^T, dO V^T, P^T dO, dS^T Q), against a few bytes per element of q, k,
 // v, dO, dq, dk, dv.  At BERT's shape (BH=384, T=512, D=64, kv_valid
 // 384-512) dk/dv is 45.9 GFLOP: 0.046 ms at the 989 TFLOP/s bf16
-// tensor-core rate, 0.69 ms at the 67 TFLOP/s float32 FFMA rate.  In
-// practice the bf16 kernel (about 0.34 ms there on an H100) is held back
-// by its registers: 167 a thread at D=64 (dk, dv, S^T and dP^T alone are
-// 128), so one block of two warpgroups runs per SM, and each warpgroup's
-// products wait
-// for its own element-wise work (exp2, the masks, the dropout hash).
+// tensor-core rate, 0.69 ms at the 67 TFLOP/s float32 FFMA rate; dq's
+// three products take 0.035 ms, just under the 0.036 ms its bytes take.
+// In practice the bf16 kernels are held back by their registers and by
+// the element-wise work between the products (exp2, the masks, the
+// dropout hash): dk/dv (about 0.33 ms there on an H100) needs 167
+// registers a thread at D=64 (dk, dv, S^T and dP^T alone are 128), so one
+// block of two warpgroups runs per SM and each warpgroup's products wait
+// for its own element-wise work; dq (about 0.24 ms) fits in 128 at D<=64
+// without a bias (S, dP and dQ are 96), so two blocks share an SM.  ptxas
+// (CUDA 12.9): dq 106-179 registers without a bias, 160-236 with one,
+// no spill.
 //
 // dk/dv bf16 design (flash_dkv_tc_kernel):
 //   - grid (ceil(Tk/128), BH); 256 threads, two warpgroups of 64 key rows
@@ -62,10 +69,29 @@
 //     accumulate in float32 registers and are written once in bf16.
 //   The products round P and dS to bf16; the plain version keeps them in
 //   float32 (tolerance 2e-2 * max|ref| on the card).
-// dq stays the FFMA design below, for both types: the tensor-core
-// redesign went first to the two kernels furthest from one library call's
-// time (forward and dk/dv); dq, nearer, reuses this design next.
-// FFMA designs:
+// dq bf16 design (flash_dq_tc_kernel), the forward's orientation: query
+// rows own the block, keys are the inner loop, the bias is read [q][k]:
+//   - grid (ceil(T/128), BH); 256 threads, two warpgroups of 64 query rows.
+//     The block's Q and dO tiles are copied into shared memory once; lse
+//     and delta are per query row and live in registers (2 rows a thread,
+//     as the accumulator fragment holds them);
+//   - K and V tiles of 64 keys, with the bias's (128 queries x 64 keys)
+//     tile, flow through a 2-stage cp.async ring (zero-filled past Tk); the
+//     copy of tile j+1 is issued before tile j is computed.  The loop stops
+//     at ceil(kv_valid/64) and, causal, at the diagonal; a warpgroup
+//     computes the prefix of those tiles its own rows need;
+//   - S = Q K^T and dP = dO V^T are wgmma m64n64k16 with both operands in
+//     shared memory, K and V read K-major;
+//   - P = exp2(S scale log2e + bias log2e - lse log2e), the masks, the keep
+//     bits and dS = P o (z/(1-r) dP - delta) * scale on the accumulator
+//     registers.  d_bias is written from there in float32, before the bf16
+//     rounding and the scale: a quad of lanes holds 8 consecutive keys of
+//     a row, so every 32-byte sector is written whole; the key tiles a
+//     warpgroup never computes get zeros after the loop;
+//   - dQ += dS K: A = dS rounded to bf16 from the registers, B = K read
+//     MN-major from the same tile; dq accumulates in float32 registers and
+//     is written once in bf16.
+// FFMA designs (float32):
 //   - dq: grid (ceil(T/64), BH); 256 threads own 64 query rows, with their
 //     q and dO staged in shared memory, and loop over 64-row K/V tiles up
 //     to ceil(valid/64) (and the causal diagonal).  Each thread computes a
@@ -92,12 +118,13 @@ using namespace tmx_flash;
 constexpr int kPs = kBk + 1;  // padded row stride of the ds / p tiles
 
 // kBias: a bias (bias.ptr != null); d_bias may then be null (not wanted).
-template <int D, typename T, bool kBias>
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     Bias bias, float* __restrict__ d_bias,
                     const int* __restrict__ kv_valid,
                     const int* __restrict__ seed, int tq, int tk, float scale,
@@ -224,9 +251,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (q0 + r < tq) {
-      T* row = dq + (qoff + q0 + r) * D;
+      float* row = dq + (qoff + q0 + r) * D;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) row[tx + 16 * j] = from_f32<T>(acc[i][j]);
+      for (int j = 0; j < CPT; ++j) row[tx + 16 * j] = acc[i][j];
     }
   }
 }
@@ -601,6 +628,244 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// dq in bf16: tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kDqRows = 128;  // query rows of a block: 2 warpgroups of 64
+constexpr int kDqKeys = 64;   // keys of a K/V tile
+// A staged bias row holds 72 elements: 64 keys and a pad, so that the 8
+// rows a warp reads at once fall in different banks (as in the forward).
+constexpr int kDqBiasLd = 72;
+constexpr int kDqBiasStage = kDqRows * kDqBiasLd * 4;  // bytes
+
+// Q and dO (128 rows each), 2 stages of K and V (64 rows each), bf16; then
+// with a bias 2 stages of its (128 x 64) tile; 1024 bytes of slack to align
+// the tiles to the swizzle atom.
+template <int D, bool kBias>
+constexpr size_t dq_tc_smem_bytes() {
+  return 1024 + 2 * D * (2 * kDqRows + 4 * kDqKeys) +
+         (kBias ? 2 * kDqBiasStage : 0);
+}
+
+// BT: the bias element type (flash_common.cuh), NoBias without a bias.
+// Two blocks a SM where they fit, D <= 64 without a bias (128 registers a
+// thread, no spill; 66.5 KB of shared memory): one block's products then
+// run under the other's element-wise work, 0.238 against 0.348 ms of
+// device time at BERT's shape on an H100 (torch_flash_ab.py).
+template <int D, typename BT>
+__global__ void __launch_bounds__(kTcThreads,
+                                  D <= 64 && !kHasBias<BT> ? 2 : 1)
+    flash_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, Bias bias,
+                       float* __restrict__ d_bias,
+                       const int* __restrict__ kv_valid,
+                       const int* __restrict__ seed, int tq, int tk,
+                       float scale, int causal, uint32_t threshold,
+                       float keep_scale) {
+  using S = hp::TileShape<D>;
+  constexpr bool kBias = kHasBias<BT>;
+  constexpr int kQBytes = kDqRows * D * 2, kKvBytes = kDqKeys * D * 2;
+  constexpr int kBElt = sizeof(BT), kBStride = kDqBiasLd * kBElt;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (hp::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + kQBytes;       // [128][D], swizzled, as q_s
+  const uint32_t k_s = do_s + kQBytes;       // [2][64][D], swizzled
+  const uint32_t v_s = k_s + 2 * kKvBytes;   // [2][64][D], swizzled
+  const uint32_t b_s = v_s + 2 * kKvBytes;   // [2][128][kDqBiasLd] bias
+  const uint8_t* b_g = smem_raw + (b_s - hp::smem_addr(smem_raw));
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kDqRows, qw0 = q0 + 64 * wg;
+  const long qoff = static_cast<long>(bh) * tq;
+  const long koff = static_cast<long>(bh) * tk;
+  const int valid = valid_keys(kv_valid, bh, tk);
+  // the two query rows of this thread's accumulator registers, with their
+  // lse (in log2 units), delta and dropout key.  A row past T, or one that
+  // the forward masked whole (lse -1e30), takes lse = +inf: p = exp2(-inf)
+  // = 0 there, and so is ds, with no exp2 of a garbage -lse.
+  const int qrow[2] = {qw0 + 16 * ((tid % 128) / 32) + lane / 4,
+                       qw0 + 16 * ((tid % 128) / 32) + lane / 4 + 8};
+  const bool drop = seed != nullptr;
+  const uint32_t row_key =
+      drop ? dropout_row_key(static_cast<uint32_t>(seed[0]), bh) : 0u;
+  float lse2[2], dl[2];
+  uint32_t qkey[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = qrow[h] < tq;
+    const float l = in ? lse[qoff + qrow[h]] : kNegInf;
+    lse2[h] = l > kNegInf ? l * kLog2e : INFINITY;
+    dl[h] = in ? delta[qoff + qrow[h]] : 0.f;
+    qkey[h] = drop ? dropout_q_key(row_key, qrow[h]) : 0u;
+  }
+  const long plane =
+      kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
+            : 0;
+  const bool b_chunks = kBias && bias_rows_aligned<BT>(bias, tk);
+  // d_bias rows written in pairs of keys (8 bytes) when they can be
+  const bool db_pairs = kBias && d_bias != nullptr && tk % 2 == 0 &&
+                        (reinterpret_cast<uintptr_t>(d_bias) & 7) == 0;
+  // tile kt's K, V and bias into ring stage st
+  auto copy_kv = [&](int kt, int st) {
+    hp::copy_tile<D, kDqKeys, kTcThreads>(k_s + st * kKvBytes, k + koff * D,
+                                          kt * kDqKeys, tk, tid);
+    hp::copy_tile<D, kDqKeys, kTcThreads>(v_s + st * kKvBytes, v + koff * D,
+                                          kt * kDqKeys, tk, tid);
+    if constexpr (kBias)
+      stage_bias_async<kDqRows, kDqKeys, kTcThreads, BT>(
+          b_s + st * kDqBiasStage, kBStride, bias, plane, q0, kt * kDqKeys,
+          tq, tk, b_chunks, tid);
+  };
+
+  // the key tiles of rows below `end`: up to kv_valid, and to the diagonal
+  // when causal.  A warpgroup computes a prefix of the block's tiles.
+  const int n_valid = (valid + kDqKeys - 1) / kDqKeys;
+  auto tiles_below = [&](int end) {
+    return causal ? min(n_valid, (end - 1) / kDqKeys + 1) : n_valid;
+  };
+  const int n_tiles = tiles_below(min(q0 + kDqRows, tq));
+  const int n_wg = qw0 < tq ? tiles_below(min(qw0 + 64, tq)) : 0;
+  if (n_tiles > 0) {
+    hp::copy_tile<D, kDqRows, kTcThreads>(q_s, q + qoff * D, q0, tq, tid);
+    hp::copy_tile<D, kDqRows, kTcThreads>(do_s, dout + qoff * D, q0, tq,
+                                          tid);
+    copy_kv(0, 0);
+  }
+  hp::cp_async_commit();
+
+  float acc[S::kBlocks][S::kCols / 2];
+#pragma unroll
+  for (int b = 0; b < S::kBlocks; ++b)
+#pragma unroll
+    for (int i = 0; i < S::kCols / 2; ++i) acc[b][i] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kDqKeys, st = kt & 1;
+    const uint32_t kst = k_s + st * kKvBytes, vst = v_s + st * kKvBytes;
+    if (kt + 1 < n_tiles) {  // the next tile's copy, into the other stage
+      copy_kv(kt + 1, st ^ 1);
+      hp::cp_async_commit();
+      hp::cp_async_wait<1>();
+    } else {
+      hp::cp_async_wait<0>();
+    }
+    hp::fence_async_smem();
+    __syncthreads();  // tile kt (and Q, dO) is in shared memory
+
+    if (kt < n_wg) {
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hp::wgmma_ss(s, hp::desc_k_major<D, kDqRows>(q_s, 64 * wg, kk),
+                         hp::desc_k_major<D, kDqKeys>(kst, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hp::wgmma_ss(dp, hp::desc_k_major<D, kDqRows>(do_s, 64 * wg, kk),
+                         hp::desc_k_major<D, kDqKeys>(vst, 0, kk), kk > 0);
+      hp::wgmma_commit();
+      hp::wgmma_wait();
+      hp::fence_regs(s);
+      hp::fence_regs(dp);
+
+      // s <- d_bias = p (z/(1-r) dp - delta), dp <- ds = d_bias * scale
+      float2 bv = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i / 2) % 2;
+        const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const bool ok = kp < valid && (!causal || kp <= qrow[h]);
+        float x = s[i] * scale;
+        if constexpr (kBias) {
+          if (i % 2 == 0)  // the pair of keys (kp, kp + 1) of row qrow[h]
+            bv = lds_bias2<BT>(b_g + st * kDqBiasStage +
+                               ((qrow[h] - q0) * kDqBiasLd + kp - k0) * kBElt);
+          x += i % 2 ? bv.y : bv.x;
+        }
+        const float p = ok ? exp2f(fmaf(x, kLog2e, -lse2[h])) : 0.f;
+        float g = dp[i];
+        if (drop)
+          g = dropout_keep(qkey[h], kp, threshold) ? g * keep_scale : 0.f;
+        s[i] = p * (g - dl[h]);
+        dp[i] = s[i] * scale;
+      }
+      // d_bias from the float32 registers: a quad of lanes holds 8
+      // consecutive keys of a row, 32 bytes
+      if constexpr (kBias) {
+        if (d_bias != nullptr) {
+#pragma unroll
+          for (int i = 0; i < 32; i += 2) {
+            const int h = (i / 2) % 2;
+            const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4);
+            if (qrow[h] >= tq || kp >= tk) continue;
+            float* row = d_bias + (qoff + qrow[h]) * tk;
+            if (db_pairs) {
+              *reinterpret_cast<float2*>(row + kp) =
+                  make_float2(s[i], s[i + 1]);
+            } else {
+              row[kp] = s[i];
+              if (kp + 1 < tk) row[kp + 1] = s[i + 1];
+            }
+          }
+          __syncwarp();  // converged again before the warpgroup's wgmma
+        }
+      }
+
+      // dQ += dS K: A = dS from registers (bf16), B = K read MN-major from
+      // the same shared-memory tile
+      uint32_t a[kDqKeys / 16][4];
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 16; ++j) hp::to_a_frag(dp, j, a[j]);
+#pragma unroll
+      for (int b = 0; b < S::kBlocks; ++b) hp::fence_regs(acc[b]);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 16; ++j)
+#pragma unroll
+        for (int b = 0; b < S::kBlocks; ++b)
+          hp::wgmma_rs(acc[b], a[j], hp::desc_mn_major<D, kDqKeys>(kst, b, j));
+      hp::wgmma_commit();
+      hp::wgmma_wait();
+#pragma unroll
+      for (int b = 0; b < S::kBlocks; ++b) hp::fence_regs(acc[b]);
+    }
+    __syncthreads();  // stage st is free for the copy of tile kt + 2
+  }
+
+  // d_bias of the key tiles the warpgroup never computed (past kv_valid,
+  // above the diagonal): zeros, a warp a row
+  if constexpr (kBias) {
+    if (d_bias != nullptr && qw0 < tq) {
+      const int nr = min(64, tq - qw0), warp = (tid % 128) / 32;
+      for (int r = warp; r < nr; r += 4) {
+        float* row = d_bias + (qoff + qw0 + r) * tk;
+        for (int c = n_wg * kDqKeys + lane; c < tk; c += 32) row[c] = 0.f;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (qrow[h] >= tq) continue;
+    __nv_bfloat16* row = dq + (qoff + qrow[h]) * D;
+#pragma unroll
+    for (int b = 0; b < S::kBlocks; ++b)
+#pragma unroll
+      for (int i = 0; i < S::kCols / 2; i += 4) {
+        const int c = b * S::kCols + 8 * (i / 4) + 2 * (lane % 4);
+        *reinterpret_cast<uint32_t*>(row + c) =
+            hp::pack_bf16(acc[b][i + 2 * h], acc[b][i + 2 * h + 1]);
+      }
+  }
+}
+
 cudaError_t allow_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
@@ -623,18 +888,19 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, typename T, bool kBias>
+template <int D, bool kBias>
 cudaError_t launch_dq(const Args& a) {
   const size_t smem =
       sizeof(float) * (4 * kBq * (D + 1) + kBq * kPs + 2 * kBq);
-  auto kernel = flash_dq_kernel<D, T, kBias>;
+  auto kernel = flash_dq_kernel<D, kBias>;
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.tq + kBq - 1) / kBq, a.bh), kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dq), a.bias, a.d_bias, a.kv_valid, a.seed,
-      a.tq, a.tk, a.scale, a.causal, a.threshold, a.keep_scale);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.bias, a.d_bias,
+      a.kv_valid, a.seed, a.tq, a.tk, a.scale, a.causal, a.threshold,
+      a.keep_scale);
   return cudaGetLastError();
 }
 
@@ -651,6 +917,25 @@ cudaError_t launch_dkv(const Args& a) {
       a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.bias, a.kv_valid, a.seed, a.tq, a.tk, a.scale, a.causal,
       a.threshold, a.keep_scale);
+  return cudaGetLastError();
+}
+
+template <int D, typename BT>
+cudaError_t launch_dq_tc(const Args& a) {
+  const size_t smem = dq_tc_smem_bytes<D, kHasBias<BT>>();
+  auto kernel = flash_dq_tc_kernel<D, BT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.tq + kDqRows - 1) / kDqRows, a.bh), kTcThreads, smem,
+           a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta,
+      static_cast<__nv_bfloat16*>(a.dq), a.bias, a.d_bias, a.kv_valid,
+      a.seed, a.tq, a.tk, a.scale, a.causal, a.threshold, a.keep_scale);
   return cudaGetLastError();
 }
 
@@ -674,91 +959,104 @@ cudaError_t launch_dkv_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-// kKind: 0 dq (FFMA, T = float or bf16), 1 dk/dv FFMA (float32; T unused).
-template <int kKind, typename T, bool kBias, int D>
-cudaError_t launch_kind(const Args& a) {
-  if constexpr (kKind == 0) return launch_dq<D, T, kBias>(a);
+// kKind: 0 dq, 1 dk/dv.  The FFMA kernels (float32) take the bias type at
+// run time; the tensor-core kernels (bf16) as a template parameter.
+template <int kKind, bool kBias, int D>
+cudaError_t launch_ffma(const Args& a) {
+  if constexpr (kKind == 0) return launch_dq<D, kBias>(a);
   else return launch_dkv<D, kBias>(a);
 }
 
-template <int kKind, typename T, bool kBias>
-cudaError_t dispatch_d(int d, const Args& a) {
+template <int kKind, typename BT, int D>
+cudaError_t launch_tc(const Args& a) {
+  if constexpr (kKind == 0) return launch_dq_tc<D, BT>(a);
+  else return launch_dkv_tc<D, BT>(a);
+}
+
+template <int kKind, bool kBias>
+cudaError_t dispatch_ffma_d(int d, const Args& a) {
   switch (d) {
-    case 16: return launch_kind<kKind, T, kBias, 16>(a);
-    case 32: return launch_kind<kKind, T, kBias, 32>(a);
-    case 64: return launch_kind<kKind, T, kBias, 64>(a);
-    case 128: return launch_kind<kKind, T, kBias, 128>(a);
+    case 16: return launch_ffma<kKind, kBias, 16>(a);
+    case 32: return launch_ffma<kKind, kBias, 32>(a);
+    case 64: return launch_ffma<kKind, kBias, 64>(a);
+    case 128: return launch_ffma<kKind, kBias, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int kKind, typename T>
-cudaError_t dispatch_bias(int d, const Args& a) {
-  if (a.bias.ptr != nullptr) return dispatch_d<kKind, T, true>(d, a);
-  return dispatch_d<kKind, T, false>(d, a);
-}
-
-// dk/dv on the tensor cores: the bias element type is a template parameter.
-template <typename BT>
-cudaError_t dispatch_dkv_tc_d(int d, const Args& a) {
+template <int kKind, typename BT>
+cudaError_t dispatch_tc_d(int d, const Args& a) {
   switch (d) {
-    case 16: return launch_dkv_tc<16, BT>(a);
-    case 32: return launch_dkv_tc<32, BT>(a);
-    case 64: return launch_dkv_tc<64, BT>(a);
-    case 128: return launch_dkv_tc<128, BT>(a);
+    case 16: return launch_tc<kKind, BT, 16>(a);
+    case 32: return launch_tc<kKind, BT, 32>(a);
+    case 64: return launch_tc<kKind, BT, 64>(a);
+    case 128: return launch_tc<kKind, BT, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dispatch_dkv_tc(int d, const Args& a) {
-  if (a.bias.ptr == nullptr) return dispatch_dkv_tc_d<NoBias>(d, a);
-  if (a.bias.dtype == 1) return dispatch_dkv_tc_d<__nv_bfloat16>(d, a);
-  if (a.bias.dtype == 2) return dispatch_dkv_tc_d<__half>(d, a);
-  return dispatch_dkv_tc_d<float>(d, a);
-}
-
-int check_args(const Args& a) {
-  if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.bh > 65535)
-    return cudaErrorInvalidValue;
-  if (a.bias.ptr != nullptr &&
-      (a.bias.planes < 1 || a.bh % a.bias.planes != 0 || a.bias.dtype < 0 ||
-       a.bias.dtype > 2))
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
+template <int kKind>
+cudaError_t dispatch_tc(int d, const Args& a) {
+  if (a.bias.ptr == nullptr) return dispatch_tc_d<kKind, NoBias>(d, a);
+  if (a.bias.dtype == 1) return dispatch_tc_d<kKind, __nv_bfloat16>(d, a);
+  if (a.bias.dtype == 2) return dispatch_tc_d<kKind, __half>(d, a);
+  return dispatch_tc_d<kKind, float>(d, a);
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// float32 runs the FFMA kernel, bfloat16 the tensor-core one (its q, k, v,
+// dout and outputs 16-byte aligned); *route is set to the kernel launched.
+template <int kKind>
+int run(const Args& a, int d, int dtype, const void* out0, const void* out1,
+        int* route) {
+  if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.bh > 65535)
+    return cudaErrorInvalidValue;
+  if (a.bias.ptr != nullptr &&
+      (a.bias.planes < 1 || a.bh % a.bias.planes != 0 || a.bias.dtype < 0 ||
+       a.bias.dtype > 2))
+    return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    *route = 0;
+    return a.bias.ptr != nullptr ? dispatch_ffma_d<kKind, true>(d, a)
+                                 : dispatch_ffma_d<kKind, false>(d, a);
+  }
+  if (dtype == 1) {
+    if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
+        !aligned16(a.dout) || !aligned16(out0) || !aligned16(out1))
+      return cudaErrorInvalidValue;
+    *route = 1;
+    return dispatch_tc<kKind>(d, a);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  dq runs the FFMA kernel in both; dk/dv
-// runs the FFMA kernel for float32 and the tensor-core kernel for bfloat16
-// (q, k, v, dout, dk and dv 16-byte aligned), and sets *route to the
-// kernel launched: 0 FFMA, 1 wgmma (left as it is when nothing is
-// launched).  kv_valid, seed and bias may be null (no
-// key-padding mask; no dropout; no bias).  lse and delta are float32
-// (BH, T).  bias is (bias_planes, tq, tk) of bias_dtype (0 float32,
-// 1 bfloat16, 2 float16); row bh reads plane bh % bias_planes.  d_bias,
-// float32 (BH, tq, tk), may be null when there is a bias and its gradient
-// is not wanted.
+// dtype: 0 float32 (the FFMA kernels), 1 bfloat16 (the tensor-core
+// kernels; q, k, v, dout and the outputs 16-byte aligned).  *route is set
+// to the kernel launched: 0 FFMA, 1 wgmma (left as it is when nothing is
+// launched).  kv_valid, seed and bias may be null (no key-padding mask; no
+// dropout; no bias).  lse and delta are float32 (BH, T).  bias is
+// (bias_planes, tq, tk) of bias_dtype (0 float32, 1 bfloat16, 2 float16);
+// row bh reads plane bh % bias_planes.  d_bias, float32 (BH, tq, tk), may
+// be null when there is a bias and its gradient is not wanted.
 extern "C" int tmx_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, const void* bias,
     int bias_planes, int bias_dtype, float* d_bias, const int* kv_valid,
     const int* seed, int bh, int tq, int tk, int d, float scale, int causal,
-    uint32_t threshold, float keep_scale, int dtype, void* stream) {
+    uint32_t threshold, float keep_scale, int dtype, void* stream,
+    int* route) {
   Args a{q,         k,          v,       dout,
          lse,       delta,      dq,      nullptr,
          nullptr,   {bias, bias_planes, bias_dtype},
          d_bias,    kv_valid,   seed,    bh,
          tq,        tk,         scale,   causal,
          threshold, keep_scale, static_cast<cudaStream_t>(stream)};
-  if (int err = check_args(a)) return err;
-  if (dtype == 0) return dispatch_bias<0, float>(d, a);
-  if (dtype == 1) return dispatch_bias<0, __nv_bfloat16>(d, a);
-  return cudaErrorInvalidValue;
+  return run<0>(a, d, dtype, dq, dq, route);
 }
 
 extern "C" int tmx_flash_attention_bwd_dkv(
@@ -774,19 +1072,7 @@ extern "C" int tmx_flash_attention_bwd_dkv(
          nullptr,   kv_valid,   seed,    bh,
          tq,        tk,         scale,   causal,
          threshold, keep_scale, static_cast<cudaStream_t>(stream)};
-  if (int err = check_args(a)) return err;
-  if (dtype == 0) {
-    *route = 0;
-    return dispatch_bias<1, float>(d, a);
-  }
-  if (dtype == 1) {
-    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
-        !aligned16(dk) || !aligned16(dv))
-      return cudaErrorInvalidValue;
-    *route = 1;
-    return dispatch_dkv_tc(d, a);
-  }
-  return cudaErrorInvalidValue;
+  return run<1>(a, d, dtype, dk, dv, route);
 }
 
 extern "C" const char* tmx_error_string(int code) {

@@ -1,6 +1,6 @@
-// What the flash-attention forward and backward kernels share: element
-// loads and stores of float32 or bfloat16 operands, the masks, and the
-// dropout keep mask.
+// What the flash-attention forward and backward kernels share: the
+// staging of float32 tiles and of the bias, the masks, and the dropout
+// keep mask.
 //
 // The keep mask replaces the reference's TPU PRNG draw (_keep_mask in
 // tpu_mx/kernels/flash_attention.py), which cannot be reproduced off the
@@ -40,19 +40,6 @@ constexpr int kBk = 64;            // key rows of a tile
 constexpr int kThreads = 256;      // 16 x 16 threads, each a 4 x 4 block
 constexpr float kNegInf = -1e30f;  // finite, as in the reference
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
@@ -81,14 +68,14 @@ __device__ __forceinline__ int valid_keys(const int* kv_valid, int bh,
   return max(0, min(kv_valid[bh], tk));
 }
 
-// Copy rows [r0, r0 + kRows) of two (rows, D) operands into shared memory
-// as float32, with row strides sa and sb; rows past `rows` are zero.  Both
+// Copy rows [r0, r0 + kRows) of two float32 (rows, D) operands into shared
+// memory, with row strides sa and sb; rows past `rows` are zero.  Both
 // operands are staged in one unrolled loop so that many global loads are
 // in flight at once: one block runs per SM (shared memory is the limit),
 // and the tile's load latency is not hidden behind other blocks' work.
-template <int D, int kRows, typename T>
-__device__ __forceinline__ void stage_rows2(float* da, int sa, const T* a,
-                                            float* db, int sb, const T* b,
+template <int D, int kRows>
+__device__ __forceinline__ void stage_rows2(float* da, int sa, const float* a,
+                                            float* db, int sb, const float* b,
                                             int r0, int rows) {
   static_assert(kRows * D % kThreads == 0, "tile must split evenly");
 #pragma unroll 8
@@ -97,8 +84,8 @@ __device__ __forceinline__ void stage_rows2(float* da, int sa, const T* a,
     const int r = i / D, d = i % D;
     const bool in = r0 + r < rows;
     const long at = static_cast<long>(r0 + r) * D + d;
-    da[r * sa + d] = in ? to_f32(a[at]) : 0.f;
-    db[r * sb + d] = in ? to_f32(b[at]) : 0.f;
+    da[r * sa + d] = in ? a[at] : 0.f;
+    db[r * sb + d] = in ? b[at] : 0.f;
   }
 }
 

@@ -40,11 +40,11 @@ count):
   the backward (``csrc/flash_attention_bwd.cu``).
 
 The kernel is chosen by dtype: bfloat16 runs on the tensor cores
-(``wgmma``) in the forward and dk/dv, float32 runs the FFMA kernels
-(exact to float32 rounding, as the serving path needs), and dq is FFMA
-for both.  The forward and dk/dv wrappers also count their launches by
-the route the C entry point reports, in ``<wrapper>.routes``
-(``{"ffma": n, "wgmma": n}``); there is no fallback between the two.
+(``wgmma``) in all three, float32 runs the FFMA kernels (exact to
+float32 rounding, as the serving path needs).  Each wrapper also counts
+its launches by the route the C entry point reports, in
+``<wrapper>.routes`` (``{"ffma": n, "wgmma": n}``); there is no fallback
+between the two.
 
 Gradients flow through :class:`FlashAttentionFunction`, whose backward
 calls the two backward wrappers.  The plain versions
@@ -102,7 +102,7 @@ def _lib(name):
         else:
             d_bias = [p]
             lib.tmx_flash_attention_bwd_dq.argtypes = [p] * 7 + bias \
-                + d_bias + tail
+                + d_bias + tail + route
             lib.tmx_flash_attention_bwd_dq.restype = i
             lib.tmx_flash_attention_bwd_dkv.argtypes = [p] * 8 + bias + tail \
                 + route
@@ -371,14 +371,17 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal=False,
                          dtype=torch.float32, device=q.device) \
         if want_d_bias else None
     dq = torch.empty_like(q)
+    _check_aligned("flash_attention_bwd_dq", q, k, v, do, dq)
     lib = _lib("flash_attention_bwd")
+    route = ctypes.c_int(-1)
     code = lib.tmx_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_bias_abi(bias),
         d_bias.data_ptr() if want_d_bias else None,
-        *_tail(q, k, kv_valid, dropout_rate, dropout_seed, scale, causal))
+        *_tail(q, k, kv_valid, dropout_rate, dropout_seed, scale, causal),
+        ctypes.byref(route))
     _build.check(lib, code, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, route)
     return (dq, d_bias) if want_d_bias else dq
 
 
@@ -568,4 +571,5 @@ flash_attention.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention.routes = dict.fromkeys(ROUTES, 0)
+flash_attention_bwd_dq.routes = dict.fromkeys(ROUTES, 0)
 flash_attention_bwd_dkv.routes = dict.fromkeys(ROUTES, 0)
