@@ -11,11 +11,13 @@ line each:
                  ``nvcc`` versions;
 2. ``build``   — the kernels are built from ``tpu_mx_torch/csrc`` (one
                  ``nvcc`` per source, all started together), with each
-                 kernel's register and spill report and its count of
-                 ``HGMMA`` (tensor-core) instructions in ``cuobjdump
-                 --dump-sass``: the bf16 forward, dq and dk/dv instances
-                 (``*_tc_kernel``) must have them and spill nothing, the
-                 float32 instances and paged none;
+                 kernel's register and spill report and its counts of
+                 ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync) tensor-core
+                 instructions in ``cuobjdump --dump-sass``: the bf16
+                 forward, dq and dk/dv instances (``*_tc_kernel``) must
+                 have HGMMA, the float32 forward's (``*_tf32x3_kernel``)
+                 HMMA, and both spill nothing; the float32 backward and
+                 paged instances have neither;
 3. ``kernel``  — each CUDA kernel against its plain PyTorch version on
                  the card: paged decode and the flash forward at the
                  serving path's shapes; the flash forward, dq and dk/dv
@@ -23,24 +25,33 @@ line each:
                  dropout 0 and 0.1) and at one float32 causal shape.
                  Max abs error and its tolerance, median ms by CUDA
                  events (the window holds the wrapper's host path too;
-                 the BERT-shape kernels also queued behind a ~1 ms sleep
-                 of the card, ``ms_queued``: the device time alone),
-                 the plain version's ms, one PyTorch library
-                 call's ms where one computes the same function, and the
-                 least time the card could take (bytes over 3.35 TB/s or
-                 operations over the 989 TFLOP/s bf16 tensor-core rate,
-                 67 TFLOP/s for float32 inputs, whichever is larger),
-                 the achieved TFLOP/s and bound_ms / ms, and the route
-                 the C entry points reported for the timed calls
-                 (``wgmma`` or ``ffma``).
-                 The forward kernel's dropout mask is read out and held
-                 bit for bit against the plain mask;
+                 the serving and BERT-shape kernels also queued behind a
+                 ~1 ms sleep of the card, ``ms_queued``: the device time
+                 alone, with SDPA's beside the serving forwards), the
+                 plain version's ms, one PyTorch library call's ms where
+                 one computes the same function, and the least time the
+                 card could take (bytes over 3.35 TB/s or operations
+                 over the 989 TFLOP/s bf16 tensor-core rate; for float32
+                 inputs the forward's three TF32 products over 495
+                 TFLOP/s, with the 67 TFLOP/s FFMA bound beside it, and
+                 67 TFLOP/s for the FFMA backward; whichever of bytes and
+                 operations is larger), the achieved TFLOP/s and
+                 bound_ms / ms, and the route the C entry points
+                 reported for the timed calls (``wgmma``, ``tf32x3`` or
+                 ``ffma``; ``split_k`` for paged decode).
+                 The float32 forward at large scores is held to float64
+                 within the bounds of its split-precision arithmetic
+                 (``f32_precision``), and the forward kernel's dropout
+                 mask is read out and held bit for bit against the
+                 plain mask;
 4. ``serve``   — the serving path at TinyLM width 4096 (32 heads of
                  128, vocabulary 32000 — Llama-2-7B's attention width),
                  depth cut to 4 layers: 8 requests through
                  ``Server.run_until_idle()``, launch counts proving both
-                 kernels ran, and request 0 held against the port on the
-                 CPU (plain versions, same weights);
+                 kernels ran (every prefill on the ``tf32x3`` route,
+                 every decode on ``split_k``), and
+                 request 0 held against the port on the CPU (plain
+                 versions, same weights);
 5. ``train_parity`` — one ``CompiledTrainStep`` LAMB step of BERT-base
                  (12 layers, float32, dropout 0, batch 2 x 128) on the
                  card and on the CPU from the same weights: losses and
@@ -60,8 +71,9 @@ line each:
                  (1,1,512,512) and ALiBi (1,12,1,512); and one float32
                  causal case (BH=32, T=700, D=128, bias (1,32,700,700)).
                  Launch counts prove the three flash kernels ran with
-                 the bias (bf16 on the ``wgmma`` route, the float32 case
-                 on ``ffma``); each kernel is held against its plain version
+                 the bias (bf16 on the ``wgmma`` route, the float32 case's
+                 forward on ``tf32x3`` and its backward on ``ffma``); each
+                 kernel is held against its plain version
                  (out, lse, dq, dk, dv, the reduced d_bias), d_bias is
                  checked to be written everywhere over NaN-filled
                  memory, and ms with and without the bias, the bound,
@@ -92,10 +104,13 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+TF32_PASSES = 3                # the float32 forward's split-precision products
 
 PAGED_ATOL = 1e-4   # f32 math in both; only the summation order differs
-FLASH_ATOL = 1e-4   # f32 FFMA kernel vs the f32 (non-TF32) plain matmuls
+FLASH_ATOL = 1e-4   # f32 kernels (3xTF32 forward: ~2^-21 a product; FFMA
+                    # backward) vs the f32 (non-TF32) plain matmuls
 BF16_REL = 2e-2     # bf16 operands: x max|ref| (outputs rounded once each)
 LOSS_RTOL = 1e-4    # BERT-base f32 loss, card vs host (summation order)
 UPDATE_RTOL = 1e-2  # per-tensor LAMB update, relative in norm
@@ -106,6 +121,8 @@ SERVE = dict(vocab_size=32000, embed_dim=4096, num_heads=32, num_layers=4,
              max_positions=4096, seed=0)
 PROMPT_LENS = (77, 150, 233, 310, 401, 499, 587, 700)
 NEW_TOKENS = 32
+SERVE_FWD_T = (128, 700, 2048)   # the serving forward's timed prompt lengths
+SERVE_FWD_ENTRY = 700            # the one in the kernels line
 
 # the training slice: the reference benchmark's seq-512 BERT leg
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED = 32, 512, 76   # 15% of 512 masked
@@ -113,6 +130,9 @@ TRAIN_VALID = (384, 512)
 TRAIN_STEPS = 5
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+# the route each flash kernel takes per dtype, as the C entry points report
+BF16_ROUTES = dict.fromkeys(FLASH_KERNELS, "wgmma")
+F32_ROUTES = dict(zip(FLASH_KERNELS, ("tf32x3", "ffma", "ffma")))
 
 # the bias phase: BERT-base's attention width, four float32 bias layouts
 BIAS_LAYOUTS = (("per_head", (1, 12, 512, 512)),
@@ -190,9 +210,10 @@ def demangle(names):
     return [n.split("(anonymous namespace)::")[-1] for n in out]
 
 
-def hgmma_counts(lib):
-    """``{kernel: number of HGMMA instructions}`` in the library's SASS
-    (``cuobjdump --dump-sass``): the tensor-core products that ran."""
+def mma_counts(lib):
+    """``{kernel: [HGMMA, HMMA]}``, the numbers of wgmma and mma.sync
+    tensor-core instructions in the library's SASS (``cuobjdump
+    --dump-sass``)."""
     from tpu_mx_torch.kernels import _build
     tool = _build.nvcc_path()[:-len("nvcc")] + "cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
@@ -201,22 +222,35 @@ def hgmma_counts(lib):
     for line in sass.splitlines():
         if "Function : " in line:
             names.append(line.split("Function : ")[1].strip())
-            counts.append(0)
+            counts.append([0, 0])
         elif names and "HGMMA" in line:
-            counts[-1] += 1
+            counts[-1][0] += 1
+        elif names and "HMMA" in line:
+            counts[-1][1] += 1
     return dict(zip(demangle(names), counts)) if names else {}
+
+
+def tensor_core_kind(kernel):
+    """Which tensor-core instruction an instance must hold: 0 HGMMA (the
+    bf16 ``*_tc_kernel``s), 1 HMMA (the float32 forward), None neither."""
+    if "_tc_kernel" in kernel:
+        return 0
+    if "_tf32x3_kernel" in kernel:
+        return 1
+    return None
 
 
 def phase_build(ctx):
     """Build every source; report ptxas's registers and spills per kernel
-    and the HGMMA count per kernel.  The bf16 forward, dq and dk/dv
-    instances (``*_tc_kernel``) must hold HGMMA instructions and spill
-    nothing, every other kernel (float32 FFMA, paged) none."""
+    and the HGMMA and HMMA counts per kernel.  The bf16 forward, dq and
+    dk/dv instances (``*_tc_kernel``) must hold HGMMA instructions, the
+    float32 forward's (``*_tf32x3_kernel``) HMMA, and neither may spill;
+    every other kernel (float32 FFMA backward, paged) holds neither."""
     from tpu_mx_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    report, hgmma, wrong = {}, {}, []
+    report, mma, wrong = {}, {}, []
     for name, lib in libs.items():
         log = lib.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -229,23 +263,27 @@ def phase_build(ctx):
         pretty = dict(zip(sorted({k for k, _ in entries}),
                           demangle(sorted({k for k, _ in entries}))))
         report[name] = [f"{pretty[k]}: {l}" for k, l in entries]
-        counts = hgmma_counts(lib)
-        hgmma[name] = {"total": sum(counts.values()), "kernels": counts}
-        for kernel, n in counts.items():
-            if ("_tc_kernel" in kernel) != (n > 0):
-                wrong.append(f"{kernel}: {n} HGMMA")
+        counts = mma_counts(lib)
+        mma[name] = {"hgmma_total": sum(c[0] for c in counts.values()),
+                     "hmma_total": sum(c[1] for c in counts.values()),
+                     "kernels": counts}
+        for kernel, c in counts.items():
+            kind = tensor_core_kind(kernel)
+            if [n > 0 for n in c] != [kind == 0, kind == 1]:
+                wrong.append(f"{kernel}: {c[0]} HGMMA, {c[1]} HMMA")
         for kernel, line in entries:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
-            if "_tc_kernel" in pretty[kernel] and m and m.group(1, 2) != \
-                    ("0", "0"):
+            if tensor_core_kind(pretty[kernel]) is not None and m and \
+                    m.group(1, 2) != ("0", "0"):
                 wrong.append(f"{pretty[kernel]}: {line}")
     ok = not wrong
-    emit("build", ok=ok, seconds=secs, ptxas=report, hgmma=hgmma,
-         hgmma_wrong=wrong)
+    emit("build", ok=ok, seconds=secs, ptxas=report, mma=mma,
+         mma_wrong=wrong)
     if not ok:
-        ctx["failures"].append(f"build: HGMMA where not expected or missing, "
-                               f"or a tensor-core kernel spills: {wrong[:4]}")
+        ctx["failures"].append(f"build: tensor-core instructions where not "
+                               f"expected or missing, or a tensor-core "
+                               f"kernel spills: {wrong[:4]}")
 
 
 def paged_case(torch, gen, tq, pool_dtype):
@@ -280,13 +318,17 @@ def phase_kernels(ctx):
         for dtype in (torch.float32, torch.bfloat16):
             q, kp, vp, tab, lens, nblk = paged_case(torch, gen, tq, dtype)
             scale = 1.0 / math.sqrt(q.shape[-1])
+            before = dict(pa.paged_attention.routes)
             out = pa.paged_attention(q, kp, vp, tab, lens)
+            route = "+".join(r for r, n in pa.paged_attention.routes.items()
+                             if n > before[r]) or "none"
             ref = pa.paged_attention_plain(q, kp, vp, tab, lens, scale)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             ok = math.isfinite(err) and err <= PAGED_ATOL
-            ms = cuda_ms(torch, lambda: pa.paged_attention(
-                q, kp, vp, tab, lens))
+            call = lambda: pa.paged_attention(q, kp, vp, tab, lens)
+            ms = cuda_ms(torch, call)
+            ms_queued = cuda_ms(torch, call, queued=True)
             plain_ms = cuda_ms(torch, lambda: pa.paged_attention_plain(
                 q, kp, vp, tab, lens, scale), reps=5)
             h, d = q.shape[2], q.shape[3]
@@ -298,20 +340,20 @@ def phase_kernels(ctx):
             shape = (f"B=8 Tq={tq} H=32 D=128 BS=16 pool="
                      f"{str(dtype).split('.')[-1]} lengths="
                      f"{lens.tolist()}")
-            emit("kernel", name="paged_attention", shape=shape,
-                 max_abs_err=err, atol=PAGED_ATOL, ok=ok, ms=ms,
-                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                 bound_by=b_by, **rates(flops, ms, b_ms))
+            rec = dict(shape=shape, ms=ms, ms_queued=ms_queued,
+                       plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                       bound_by=b_by, math_route=route,
+                       **rates(flops, ms, b_ms))
+            emit("kernel", name="paged_attention", max_abs_err=err,
+                 atol=PAGED_ATOL, ok=ok, **rec)
             worst["paged_attention"] = max(worst["paged_attention"], err)
             if not ok:
                 ctx["failures"].append(f"paged_attention {shape}: err {err}")
             if tq == 1 and dtype == torch.float32:
-                entries["paged_attention"] = dict(
-                    shape=shape, ms=ms, plain_ms=plain_ms, library_ms=None,
-                    bound_ms=b_ms, bound_by=b_by, **rates(flops, ms, b_ms))
+                entries["paged_attention"] = rec
 
     bh, d = 32, 128
-    for t in (128, 700, 2048):
+    for t in SERVE_FWD_T:
         q, k, v = (torch.randn((bh, t, d), generator=gen).cuda()
                    for _ in range(3))
         scale = 1.0 / math.sqrt(d)
@@ -321,31 +363,83 @@ def phase_kernels(ctx):
         err = float(max((out - ref).abs().max(), (lse - ref_lse).abs().max()))
         ok = math.isfinite(err) and err <= FLASH_ATOL
         before = routes_of(fa)
-        ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
+        call = lambda: fa.flash_attention(q, k, v, causal=True)
+        ms = cuda_ms(torch, call)
+        ms_queued = cuda_ms(torch, call, queued=True)
         route = route_since(fa, "flash_attention_fwd", before)
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, scale, causal=True), reps=5)
         q4, k4, v4 = (x.view(1, bh, t, d) for x in (q, k, v))
-        lib_ms = cuda_ms(torch, lambda: torch.nn.functional.
-                         scaled_dot_product_attention(q4, k4, v4,
-                                                      is_causal=True))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)
+        lib_ms = cuda_ms(torch, sdpa)
+        lib_queued = cuda_ms(torch, sdpa, queued=True)
         nbytes = 4 * bh * t * d * 4 + bh * t * 4
         flops = 2 * t * (t + 1) * d * bh
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOP_PER_S)
+        ffma_ms, ffma_by = bound(nbytes, flops)
         shape = f"BH=32 T={t} D=128 causal f32"
-        emit("kernel", name="flash_attention_fwd", shape=shape,
-             max_abs_err=err, atol=FLASH_ATOL, ok=ok, ms=ms,
-             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-             bound_by=b_by, math_route=route, **rates(flops, ms, b_ms))
+        rec = dict(shape=shape, ms=ms, ms_queued=ms_queued,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   library_ms_queued=lib_queued, bound_ms=b_ms,
+                   bound_by=b_by, bound_ms_ffma=ffma_ms,
+                   bound_by_ffma=ffma_by, math_route=route,
+                   **rates(flops, ms, b_ms))
+        emit("kernel", name="flash_attention_fwd", max_abs_err=err,
+             atol=FLASH_ATOL, ok=ok, **rec)
         worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"], err)
-        if not ok:
-            ctx["failures"].append(f"flash_attention_fwd {shape}: err {err}")
+        if not ok or route != "tf32x3":
+            ctx["failures"].append(f"flash_attention_fwd {shape}: err {err}, "
+                                   f"route {route}")
+        if t == SERVE_FWD_ENTRY:
+            ctx["serve_fwd"] = rec
+    flash_f32_precision(torch, fa, ctx)
     flash_train_kernels(torch, fa, gen, ctx, entries, worst)
     flash_mask_bits(torch, fa, ctx)
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
     ctx["kernels"] = entries
     emit("kernels", held=sorted(entries))
+
+
+def flash_f32_precision(torch, fa, ctx):
+    """The float32 forward at large scores (|q.k| up to ~400 at scale 1)
+    against float64: within the bounds of its arithmetic (derived in
+    ``tests/test_torch_cuda.py::test_f32_forward_is_not_one_tf32_pass``,
+    the same inputs), and one TF32 pass at least 50 times further off."""
+    gen = torch.Generator().manual_seed(9)
+    q, k = ((torch.randn((2, 96, 128), generator=gen) * 3).cuda()
+            for _ in range(2))
+    v = torch.randn((2, 96, 128), generator=gen).cuda()
+    d, tk = q.shape[-1], k.shape[1]
+    s = q.double() @ k.double().transpose(1, 2)
+    exact = (torch.softmax(s, -1) @ v.double(), torch.logsumexp(s, -1))
+    tf32 = lambda x: ((x.view(torch.int32) + 0x1000) & -0x2000) \
+        .view(torch.float32)
+    err = lambda got: [float((a.double() - b).abs().max())
+                       for a, b in zip(got, exact)]
+    kernel = err(fa.flash_attention(q, k, v, scale=1.0, return_lse=True))
+    one_pass = err(fa.flash_attention_plain(tf32(q), tf32(k), tf32(v), 1.0))
+    plain = err(fa.flash_attention_plain(q, k, v, 1.0))
+    big = float((q.abs() @ k.abs().transpose(1, 2)).max())
+    e_s = (3 * 2 ** -22 + 3 * d / 8 * 2 ** -23) * big
+    e_pv = 3 * 2 ** -22 + 3 * tk / 8 * 2 ** -23 + tk * 2 ** -23
+    bounds = [(2 * e_s + e_pv) * float(v.abs().max()), e_s + tk * 2 ** -23]
+    ok = all(e <= b and o >= 50 * e
+             for e, b, o in zip(kernel, bounds, one_pass))
+    emit("f32_precision", ok=ok, shape="BH=2 T=96 D=128 f32 scale 1",
+         error_out_lse=kernel, bound_out_lse=bounds,
+         one_pass_out_lse=one_pass, plain_f32_out_lse=plain)
+    if not ok:
+        ctx["failures"].append(f"f32 forward precision: {kernel} against "
+                               f"bounds {bounds}, one pass {one_pass}")
+
+
+def fwd_work(flops, f32):
+    """(operations, rate) of the flash forward's bound: the float32
+    forward's three TF32 products on the tensor cores, else bf16."""
+    return (TF32_PASSES * flops, TF32_FLOP_PER_S) if f32 else \
+        (flops, BF16_FLOP_PER_S)
 
 
 def flash_work(bh, t, d, causal, valid, elt):
@@ -454,7 +548,7 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
              "flash_attention_bwd_dkv": 4 * fpm}
     bounds = {
         "flash_attention_fwd": bound(2 * qb + 2 * kvb + rowb + 4 * bh,
-                                     2 * fpm, rate_flops),
+                                     *fwd_work(2 * fpm, f32)),
         "flash_attention_bwd_dq": bound(3 * qb + 2 * kvb + 2 * rowb + 4 * bh,
                                         3 * fpm, rate_flops),
         "flash_attention_bwd_dkv": bound(2 * qb + 2 * kvb + 2 * rowb
@@ -504,8 +598,9 @@ def flash_train_kernels(torch, fa, gen, ctx, entries, worst):
                 worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
                 if dtype == torch.bfloat16 and rate > 0:
                     entries[name] = {k: r[k] for k in (
-                        "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_by", "tflops", "bound_over_ms", "math_route")}
+                        "shape", "ms", "ms_queued", "plain_ms", "library_ms",
+                        "bound_ms", "bound_by", "tflops", "bound_over_ms",
+                        "math_route")}
             torch.cuda.empty_cache()
 
 
@@ -565,7 +660,9 @@ def phase_serve(ctx):
     srv.run_until_idle()
 
     fa.flash_attention.launches = 0
+    fa.flash_attention.routes = dict.fromkeys(fa.ROUTES, 0)
     pa.paged_attention.launches = 0
+    pa.paged_attention.routes = dict.fromkeys(pa.ROUTES, 0)
     tracing.reset()
     reqs = [srv.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
     t1 = time.perf_counter()
@@ -574,6 +671,8 @@ def phase_serve(ctx):
     wall = time.perf_counter() - t1
     flash_n = fa.flash_attention.launches
     paged_n = pa.paged_attention.launches
+    prefill_routes = dict(fa.flash_attention.routes)
+    ctx["decode_routes"] = decode_routes = dict(pa.paged_attention.routes)
     ctx["launches"] = {"flash_attention_fwd": flash_n,
                        "paged_attention": paged_n}
 
@@ -589,6 +688,11 @@ def phase_serve(ctx):
         "flash_launches": flash_n == layers * len(prefill_s),
         "paged_launches": paged_n == layers * len(decode_s),
         "both_ran": flash_n > 0 and paged_n > 0,
+        # every prefill ran the float32 forward on the tensor cores
+        "prefill_tf32x3": prefill_routes == dict(
+            dict.fromkeys(fa.ROUTES, 0), tf32x3=flash_n),
+        # and every decode step the paged kernel split over the keys
+        "decode_split_k": decode_routes == {"split_k": paged_n},
     }
 
     # request 0 against the port on the CPU: same weights, plain versions
@@ -618,7 +722,9 @@ def phase_serve(ctx):
          prefill_ms=[s * 1e3 for s in prefill_s],
          decode_step_ms_median=statistics.median(decode_s) * 1e3,
          decode_step_ms_max=max(decode_s) * 1e3,
-         launches=ctx["launches"], prefill_logits_max_abs_err=logits_err,
+         launches=ctx["launches"], prefill_routes=prefill_routes,
+         decode_routes=decode_routes,
+         prefill_logits_max_abs_err=logits_err,
          logits_atol=LOGITS_ATOL, stream_equal=split is None,
          stream_split_at=split, top2_gap_at_split=gap, near_tie=NEAR_TIE,
          card=ctx["smi"])
@@ -730,7 +836,8 @@ def phase_train(ctx):
     layers = cfg["num_layers"]
     checks = {
         # the bf16 step's three flash kernels ran on the tensor cores only
-        "wgmma_routes": all(r == {"ffma": 0, "wgmma": layers * TRAIN_STEPS}
+        "wgmma_routes": all(r == dict(dict.fromkeys(fa.ROUTES, 0),
+                                      wgmma=layers * TRAIN_STEPS)
                             for r in routes.values()),
         "finite": all(math.isfinite(x) for x in losses),
         "loss_falls": losses[-1] < losses[0],
@@ -847,7 +954,7 @@ def bias_case(torch, fa, gen, b, h, t, d, dtype, causal, valid, bias_shape):
                d_bias_poison_ok=poison_ok)
     ok = (all(math.isfinite(e) and e <= a for e, a in errors.values())
           and poison_ok and all(n > 0 for n in launches.values())
-          and all(r == ("ffma" if f32 else "wgmma") for r in routes.values()))
+          and routes == (F32_ROUTES if f32 else BF16_ROUTES))
     rec["ok"] = ok
 
     plain_opts = dict(causal=causal, kv_valid=kv, dropout_rate=rate,
@@ -901,16 +1008,18 @@ def bias_case(torch, fa, gen, b, h, t, d, dtype, causal, valid, bias_shape):
     bias_b = kb.numel() * kb.element_size()
     db_b = bh * t * t * 4
     rate_flops = F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
-    rec["bound"] = {n: bound(nbytes, flops, rate_flops) for n, (nbytes, flops)
+    rec["bound"] = {n: bound(nbytes, *work) for n, (nbytes, work)
                     in {"flash_attention_fwd": (2 * qb + 2 * kvb + rowb
-                                                + 4 * bh + bias_b, 2 * fpm),
+                                                + 4 * bh + bias_b,
+                                                fwd_work(2 * fpm, f32)),
                         "flash_attention_bwd_dq": (3 * qb + 2 * kvb + 2 * rowb
                                                    + 4 * bh + bias_b + db_b,
-                                                   3 * fpm),
+                                                   (3 * fpm, rate_flops)),
                         "flash_attention_bwd_dkv": (2 * qb + 2 * kvb + 2 * rowb
                                                     + 2 * bh * t * d * elt
                                                     + 4 * bh + bias_b,
-                                                    4 * fpm)}.items()}
+                                                    (4 * fpm, rate_flops))
+                        }.items()}
     return rec
 
 
@@ -1074,10 +1183,21 @@ def main():
                "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
                "library_ms": e["library_ms"], "shape": e["shape"],
                "tflops": e["tflops"], "bound_over_ms": e["bound_over_ms"],
-               "math_route": "ffma"}     # the paged kernel: FFMA only
-        if name in ctx["train_routes"]:   # as the main path's run reported
+               "math_route": e["math_route"]}
+        if "ms_queued" in e:
+            row["ms_queued"] = e["ms_queued"]
+        path_routes = (ctx["decode_routes"] if name == "paged_attention"
+                       else ctx["train_routes"].get(name))
+        if path_routes is not None:   # as the main path's run reported
             row["math_route"] = "+".join(
-                r for r, n in ctx["train_routes"][name].items() if n) or "none"
+                r for r, n in path_routes.items() if n) or "none"
+        if name == "flash_attention_fwd":   # the serving prefill, float32
+            s = ctx["serve_fwd"]
+            row["serve"] = {k: s[k] for k in (
+                "shape", "ms", "ms_queued", "library_ms", "library_ms_queued",
+                "plain_ms", "bound_ms", "bound_by", "bound_ms_ffma",
+                "math_route")}
+            row["serve"]["launches"] = ctx["launches"]["flash_attention_fwd"]
         if name in FLASH_KERNELS:    # with the per-head bias, same shape
             bias = ctx["bias"]["per_head"]
             row["bias"] = {

@@ -16,6 +16,7 @@ from tpu_mx_torch import rtc
 from tpu_mx_torch.base import MXNetError
 from tpu_mx_torch.kernels import flash_attention as fa
 from tpu_mx_torch.kernels import paged_attention as pa
+from tpu_mx_torch.serving import attention as sattn
 
 pytestmark = pytest.mark.cuda
 
@@ -363,11 +364,13 @@ def test_tc_kernels_with_every_bias_layout_match_plain(t, d, causal, planes,
 
 
 def test_routes_follow_the_dtype():
-    """bf16 runs the tensor-core forward, dq and dk/dv, float32 the FFMA
-    ones, as the C entry points report."""
+    """bf16 runs the tensor-core forward, dq and dk/dv; float32 the
+    split-precision tensor-core forward and the FFMA dq and dk/dv, as
+    the C entry points report."""
     wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv)
-    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "ffma")):
+    for dtype, routes in ((torch.bfloat16, ("wgmma",) * 3),
+                          (torch.float32, ("tf32x3", "ffma", "ffma"))):
         q, k, v, do, valid = _flash_case(2, 2, 96, 64, dtype)
         before = [dict(w.routes) for w in wrappers]
         out, lse = fa.flash_attention(q, k, v, kv_valid=valid,
@@ -376,7 +379,7 @@ def test_routes_follow_the_dtype():
                 False, valid)
         fa.flash_attention_bwd_dq(*args)
         fa.flash_attention_bwd_dkv(*args)
-        for wrapper, was in zip(wrappers, before):
+        for wrapper, was, route in zip(wrappers, before, routes):
             assert wrapper.routes == dict(was, **{route: was[route] + 1})
 
 
@@ -606,3 +609,208 @@ def test_rtc_launch_refuses_what_it_cannot_pass():
         k((x,), out_dtype="float33")
     with pytest.raises(MXNetError, match="not found/exported"):
         mod.get_kernel("scal")
+
+
+# ---------------------------------------------------------------------------
+# the float32 forward on the tensor cores (3xTF32)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t,tk", [(1, 1), (33, 33), (64, 64), (65, 65),
+                                  (700, 700), (40, 77)])
+def test_f32_forward_matches_plain_at_every_head_dim(t, tk, d, causal):
+    """Every float32 forward runs the 3xTF32 kernel and stays within the
+    float32 tolerance of the plain version (ragged T, Tk != T, kv_valid
+    with an empty row)."""
+    g = torch.Generator().manual_seed(t * d + causal)
+    bh = 3
+    q = torch.randn((bh, t, d), generator=g).cuda()
+    k, v = (torch.randn((bh, tk, d), generator=g).cuda() for _ in range(2))
+    kv = torch.tensor([tk, 0, (tk + 1) // 2], dtype=torch.int32,
+                      device="cuda")
+    before = dict(fa.flash_attention.routes)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, kv_valid=kv,
+                                  return_lse=True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, 1 / math.sqrt(d),
+                                            causal, kv)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.routes == dict(
+        before, tf32x3=before["tf32x3"] + 1)
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+
+
+def test_f32_forward_is_not_one_tf32_pass():
+    """Large scores (|q.k| up to ~400 at scale 1) magnify the rounding of
+    the operands.  The kernel is held to a float64 reference within the
+    bounds of its arithmetic, with S the largest sum |q_i||k_i| of a
+    score, D the head dim and Tk the keys:
+
+    - a product a*b kept as a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, with
+      hi = rna_tf32(x) and lo = rna_tf32(x - hi), is off by at most
+      |a_lo b_lo| + |a_hi||b - b_hi - b_lo| + |b_hi||a - a_hi - a_lo|,
+      under 3 * 2^-22 |a b|: a score by 3 * 2^-22 S;
+    - its 3 D / 8 float32 accumulations on the tensor cores (truncated:
+      a whole unit in the last place, not half) each lose at most
+      2^-23 of a partial sum no larger than S;
+    - the softmax's float32 sum over Tk keys adds Tk * 2^-23 to the lse,
+      which is thus within e_s + Tk * 2^-23, e_s the score bound;
+    - a score error of e_s moves the probabilities by at most 2 e_s in
+      sum, hence the output by 2 e_s max|v|; P V adds its own split and
+      3 Tk / 8 accumulations and the normalizer's Tk * 2^-23, times
+      max|v|.
+
+    One TF32 pass (q, k and v rounded to 10 mantissa bits) must err at
+    least 50 times more than the kernel, so the test tells the two
+    apart."""
+    g = torch.Generator().manual_seed(9)
+    q = (torch.randn((2, 96, 128), generator=g) * 3).cuda()
+    k = (torch.randn((2, 96, 128), generator=g) * 3).cuda()
+    v = torch.randn((2, 96, 128), generator=g).cuda()
+    d, tk = q.shape[-1], k.shape[1]
+    s = q.double() @ k.double().transpose(1, 2)
+    exact = (torch.softmax(s, -1) @ v.double(), torch.logsumexp(s, -1))
+    tf32 = lambda x: ((x.view(torch.int32) + 0x1000) & -0x2000) \
+        .view(torch.float32)
+    err = lambda got: [float((a.double() - b).abs().max())
+                       for a, b in zip(got, exact)]
+    kernel = err(fa.flash_attention(q, k, v, scale=1.0, return_lse=True))
+    one_pass = err(fa.flash_attention_plain(tf32(q), tf32(k), tf32(v), 1.0))
+    big = float((q.abs() @ k.abs().transpose(1, 2)).max())
+    e_s = (3 * 2 ** -22 + 3 * d / 8 * 2 ** -23) * big
+    e_pv = 3 * 2 ** -22 + 3 * tk / 8 * 2 ** -23 + tk * 2 ** -23
+    bounds = ((2 * e_s + e_pv) * float(v.abs().max()), e_s + tk * 2 ** -23)
+    for name, e_kernel, bound_, e_one in zip(("out", "lse"), kernel, bounds,
+                                             one_pass):
+        assert e_kernel <= bound_, (name, e_kernel, bound_)
+        assert e_one >= 50 * e_kernel, (name, e_one, e_kernel)
+
+
+def test_f32_forward_refuses_unaligned_operands():
+    base = torch.zeros(2 * 64 * 64 + 1, device="cuda")
+    q = base[1:].view(2, 64, 64)
+    before = fa.flash_attention.launches
+    with pytest.raises(MXNetError, match="16-byte aligned"):
+        fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# paged decode split over the keys
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [1, 4, 16, 48])
+def test_paged_kernel_splits_at_every_block_size(bs, pool):
+    """Splits of 64 keys over pool blocks of any size: rows whose keys
+    end inside the first split (every other split empty), rows spanning
+    many splits, and a padded table tail."""
+    lengths = (4, 300, 65, 64)
+    g = torch.Generator().manual_seed(bs)
+    nblk = [-(-x // bs) for x in lengths]
+    n = sum(nblk) + 1
+    tables = torch.zeros((len(lengths), max(nblk) + 2), dtype=torch.int32)
+    perm = torch.randperm(n - 1, generator=g) + 1
+    at = 0
+    for i, k in enumerate(nblk):
+        tables[i, :k] = perm[at:at + k]
+        at += k
+    kp, vp = (torch.randn((n, bs, 2, 64), generator=g).to("cuda", pool)
+              for _ in range(2))
+    q = torch.randn((len(lengths), 4, 2, 64), generator=g).cuda()
+    tab = tables.cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = pa.paged_attention.routes["split_k"]
+    out = pa.paged_attention(q, kp, vp, tab, lens)
+    ref = pa.paged_attention_plain(q, kp, vp, tab, lens, 1 / 8)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.routes == {"split_k": before + 1}
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("tq", [1, 4])
+def test_paged_kernel_replays_in_a_cuda_graph(tq):
+    """The kernel reads nothing back to the host: captured once in a CUDA
+    graph, it replays with the lengths and the tables' contents changed
+    in place and matches the plain version on the new operands."""
+    q, kp, vp, tab, lens = _paged(seed=3, d=128, tq=tq,
+                                  lengths=(37, 9, 130, 16))
+    pa.paged_attention(q, kp, vp, tab, lens)          # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = pa.paged_attention.launches
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(q, kp, vp, tab, lens)
+    assert pa.paged_attention.launches == before + 1
+    for new_lens in ((100, 33, 7, 61), (4, 130, 130, 17)):
+        lens.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        tab.copy_(torch.roll(tab, 1, dims=0))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_plain(q, kp, vp, tab, lens, 128 ** -0.5)
+        torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# the dense arm for shapes the kernels do not instantiate
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("d,dtype", [(80, torch.float32), (96, torch.float32),
+                                     (64, torch.float16)])
+def test_attention_dense_arm_on_the_card_matches_the_cpu(d, dtype, caplog):
+    from tpu_mx_torch.parallel import attention, dispatch_counts
+    g = torch.Generator().manual_seed(d)
+    q, k, v, do = (torch.randn((2, 3, 50, d), generator=g).to(dtype)
+                   for _ in range(4))
+    vl = torch.tensor([50, 21], dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        leaves = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        launches = fa.flash_attention.launches
+        out = attention(*leaves, causal=True, valid_length=vl.to(dev))
+        out.backward(do.to(dev))
+        assert fa.flash_attention.launches == launches    # no kernel
+        outs.append([x.detach().float().cpu()
+                     for x in [out] + [x.grad for x in leaves]])
+    assert dispatch_counts["dense"] > 0
+    # the card's dense arm is a slow path, and says so as the reference's
+    assert any("dense O(T^2) arm on the card" in r.getMessage()
+               for r in caplog.records if r.levelname == "WARNING")
+    tol = 1e-4 if dtype == torch.float32 else 2e-3
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_card_refuses_head_dims_the_reference_kernel_takes(d):
+    """The reference's kernel takes these head dims; the port has no
+    instance, and refuses them on the card rather than run its plain
+    version in the kernel's place."""
+    from tpu_mx_torch.parallel import attention
+    q = torch.randn((1, 2, 128, d), device="cuda")
+    launches = fa.flash_attention.launches
+    with pytest.raises(MXNetError, match="ROADMAP B item 8"):
+        attention(q, q, q)
+    with pytest.raises(MXNetError, match="ROADMAP B item 8"):
+        sattn.prefill_attention(q[0].transpose(0, 1), q[0].transpose(0, 1),
+                                q[0].transpose(0, 1))
+    assert fa.flash_attention.launches == launches
+
+
+def test_serving_at_head_dim_80_takes_the_dense_arms_on_the_card():
+    from tpu_mx_torch import telemetry
+    from tpu_mx_torch.serving import Server, TinyLM
+    kw = dict(vocab_size=64, embed_dim=320, num_heads=4, num_layers=2,
+              seed=0)
+    streams = []
+    for dev in ("cpu", "cuda"):
+        telemetry.reset()
+        flash, paged = fa.flash_attention.launches, pa.paged_attention.launches
+        srv = Server(TinyLM(**kw, device=dev), num_blocks=64, device=dev)
+        req = srv.submit(list(range(3, 40)), max_new_tokens=8)
+        srv.run_until_idle()
+        streams.append(req.tokens)
+        assert (fa.flash_attention.launches, pa.paged_attention.launches) \
+            == (flash, paged)
+        assert telemetry.get("serve.decode_attention", kind="dense").value \
+            == 2 * telemetry.get("serve.decode_steps").value
+    assert streams[0] == streams[1]

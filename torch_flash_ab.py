@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the flash kernels of this tree against other trees', on one card.
+"""Time the attention kernels of this tree against other trees', on one card.
 
     python3 torch_flash_ab.py OTHER_TREE [OTHER_TREE ...] [--rounds N]
 
@@ -13,7 +13,12 @@ path in the window, ``<name>_queued`` with each call queued behind a
 ~1 ms sleep of the card, so that the window holds the device time alone:
 
 - the forward at the serving prefill's shapes: BH=32, D=128, causal,
-  float32, T = 128, 700, 2048;
+  float32, T = 128, 700, 2048, with a digest of its output
+  (``fwd_serve_T<n>_sha``: trees whose kernels compute the same bits
+  print the same digest);
+- paged decode at the serving decode's shape: B=8, H=32, D=128, BS=16,
+  lengths 100-800 over a 1024-block pool, Tq = 1 and 4, float32 and
+  bfloat16 pools (``paged_Tq<n>_<pool>``);
 - where the tree has them, the forward, dq and dk/dv at BERT's training
   shape: BH=384, T=512, D=64, bf16, ``kv_valid`` over 384-512, dropout
   0.1; and the forward, dq (with ``d_bias``) and dk/dv there with a
@@ -30,8 +35,9 @@ import subprocess
 import sys
 
 CHILD = r'''
-import json, statistics, torch
+import hashlib, json, statistics, torch
 from tpu_mx_torch.kernels import flash_attention as fa
+from tpu_mx_torch.kernels import paged_attention as pa
 
 def cuda_ms(fn, reps=50, warm=5, queued=False):
     for _ in range(warm):
@@ -57,6 +63,26 @@ for t in (128, 700, 2048):
     q, k, v = (torch.randn((32, t, 128), generator=g).cuda()
                for _ in range(3))
     timed(f"fwd_serve_T{t}", lambda: fa.flash_attention(q, k, v, causal=True))
+    res[f"fwd_serve_T{t}_sha"] = hashlib.sha256(fa.flash_attention(
+        q, k, v, causal=True).cpu().numpy().tobytes()).hexdigest()[:16]
+b, h, d, bs, n = 8, 32, 128, 16, 1024
+for tq in (1, 4):
+    for pool in (torch.float32, torch.bfloat16):
+        lens = torch.randint(100, 801, (b,), generator=g, dtype=torch.int32)
+        nblk = [-(-int(x) // bs) for x in lens]
+        perm = torch.randperm(n, generator=g)
+        tab = torch.zeros((b, -(-max(nblk) // 4) * 4), dtype=torch.int32)
+        at = 0
+        for i, c in enumerate(nblk):
+            tab[i, :c] = perm[at:at + c]
+            at += c
+        kp, vp = (torch.randn((n, bs, h, d), generator=g).to("cuda", pool)
+                  for _ in range(2))
+        q = torch.randn((b, tq, h, d), generator=g).cuda()
+        tab, lens = tab.cuda(), lens.cuda()
+        timed(f"paged_Tq{tq}_{str(pool).split('.')[-1]}",
+              lambda: pa.paged_attention(q, kp, vp, tab, lens))
+        del kp, vp
 if hasattr(fa, "flash_attention_bwd_dq"):
     bh, t, d = 384, 512, 64
     q, k, v, do = (torch.randn((bh, t, d), generator=g)

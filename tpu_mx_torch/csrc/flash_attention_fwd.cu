@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 on the tensor cores
-// (wgmma), float32 on FFMA.
+// Flash-attention forward for Hopper (sm_90a), on the tensor cores: bf16
+// with wgmma, float32 with split-precision (3xTF32) mma.sync.
 //
 // Replaces the forward Pallas TPU kernel tpu_mx/kernels/flash_attention.py::
 // _fwd_kernel (launched by _fwd): O = softmax(q k^T * scale [masks]) v over
@@ -8,8 +8,8 @@
 // Options, as in the reference:
 //   - causal: query row i sees key columns j <= i (_score_mask);
 //   - kv_valid (BH,) int32: key columns >= kv_valid[bh] are masked and the
-//     K-tile loop stops at ceil(valid / 64), as _run_cond skips whole
-//     blocks;
+//     K-tile loop stops at the last tile holding a valid key, as _run_cond
+//     skips whole blocks;
 //   - dropout: the keep mask of flash_common.cuh, drawn element by element
 //     from (seed, bh, q, k).  The normalizer l sums the un-dropped
 //     probabilities; kept ones are scaled by 1/(1-rate) before they
@@ -27,13 +27,15 @@
 // bytes of bf16 q, k, v and o: T operations per byte at T = Tk.  At BERT's
 // shape (BH=384, T=512, D=64, kv_valid 384-512) that is 22.5 GFLOP and
 // 100 MB: 0.023 ms at the 989 TFLOP/s bf16 tensor-core rate, 0.030 ms of
-// device memory, so the call is bound by bytes at the roofline; at the
-// float32 FFMA rate (67 TFLOP/s) the same work takes 0.34 ms.  In practice
-// the per-element work on the scores bounds it: exp2, the masks and, with
-// dropout, the integer hash of every (q, k) (on an H100 at that shape the
-// kernel takes about 0.11 ms without dropout and 0.16 ms with it).  A bias
-// adds planes*T*Tk elements read once (a float32 plane per row is 402.7 MB
-// at BERT's shape).
+// device memory, so the call is bound by bytes at the roofline.  In
+// practice the per-element work on the scores bounds it: exp2, the masks
+// and, with dropout, the integer hash of every (q, k) (on an H100 at that
+// shape the kernel takes about 0.11 ms without dropout and 0.16 ms with
+// it).  A bias adds planes*T*Tk elements read once (a float32 plane per row
+// is 402.7 MB at BERT's shape).  The float32 serving prefill (BH=32,
+// D=128, causal) is bound by operations at every prompt length past a few
+// hundred tokens: 3 TF32 products per product at 495 TFLOP/s (0.208 ms at
+// T=2048), against 0.513 ms for one product at the 67 TFLOP/s FFMA rate.
 //
 // bf16 design (flash_fwd_tc_kernel):
 //   - grid (ceil(T/128), BH); 256 threads, two warpgroups of 64 query rows
@@ -65,200 +67,331 @@
 //   The products round only P to bf16 (q, k, v are bf16 already); the
 //   plain version keeps P in float32, so outputs differ by about one bf16
 //   rounding of P (tolerance 2e-2 * max|ref| on the card).
-// float32 design (flash_fwd_kernel), kept exact to float32 rounding for the
-// serving prefill, whose gates are logits within 2e-4 of the CPU with TF32
-// off (tensor cores would round its operands):
-//   - grid (ceil(T/64), BH); 256 threads own a 64-row query tile and loop
-//     over 64-row K/V tiles; Q, K and V are staged in shared memory as
-//     float32 (rows padded to D+1 floats so the 16 columns a warp reads
-//     fall in 16 banks); each thread computes a 4x4 block of scores and a
-//     4 x D/16 block of the output with FFMA;
-//   - the running (m, l) of each row live in shared memory, the output
-//     accumulator in registers; the bias tile is staged into the score
-//     tile with the K/V tile.
-// The C entry point sends bfloat16 to the tensor-core kernel and float32 to
-// the FFMA kernel, and reports which through *route; nothing else falls
-// back.
+// float32 design (flash_fwd_tf32x3_kernel), for the serving prefill, whose
+// gates are logits within 2e-4 of the CPU and the kernel within 1e-4 of
+// the plain version with TF32 off: one TF32 pass would round q, k, v and
+// P to 10 mantissa bits (a different result, not a faster one), so every
+// operand x is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi) and
+// each product is a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, accumulated in
+// float32.  hi + lo is within 2^-22 of |x|, and the omitted a_lo*b_lo
+// is under 2^-22 of |a b|, so a product keeps about 21 bits before the
+// float32 sums.  Both roundings are two integer operations on the bit
+// pattern (a cvt.rna.tf32.f32 instruction took 30% more device time on
+// an H100):
+//   - mma.sync.m16n8k8 TF32, not wgmma: TF32 wgmma reads B only K-major
+//     from shared memory, so O += P V would need a transposed copy of every
+//     V tile, and the lo halves a second copy of K and V (4 x 32 KB a stage
+//     at D=128, no room for two stages beside Q).  With mma.sync the
+//     threads load their own fragments with ld.shared from padded rows and
+//     split them in registers: shared memory holds one float32 copy of
+//     each tile and V needs no transpose;
+//   - grid (ceil(T/64), BH); 128 threads, 4 warps of 16 query rows; Q is
+//     copied into shared memory once and split at fragment load;
+//   - K and V tiles of 32 keys flow through a 2-stage cp.async ring (16
+//     bytes a thread, zero-filled past Tk); the copy of tile j+1 is issued
+//     right after the one barrier of tile j, so it runs under tile j's
+//     products.  Tiles past kv_valid or above the block's causal diagonal
+//     are never copied, and a warp skips a tile above its own diagonal.
+//     32-key tiles keep a block at 103 KB of shared memory at D=128, so two
+//     blocks (8 warps) share an SM;
+//   - inside an instruction the order of the 8 reduction elements is free
+//     as long as A and B agree, so a thread's pair (2t, 2t+1) of them is
+//     read as one float2: Q and K rows are D+8 floats apart (each 16-lane
+//     phase of a 64-bit load hits 32 distinct banks), and the S fragment
+//     (keys 2t, 2t+1 of a row) is the A fragment of P V as it stands, with
+//     V's rows 2t and 2t+1 as B (V rows D+4 floats apart: the 4 rows and 8
+//     columns a warp reads fall in distinct banks).  No shuffle, no shared
+//     memory between S and P V;
+//   - the online softmax runs on the accumulator registers: (row, key) of
+//     each register from the m16n8 layout, the row max and sum reduced
+//     over the quad with two __shfl_xor_sync each, (m, l) in registers;
+//     masks, the dropout keep bit and the bias (read from device memory in
+//     its own type, a template parameter) apply per register.
+// The C entry point sends bfloat16 to the wgmma kernel and float32 to the
+// 3xTF32 kernel, and reports which through *route; nothing else falls back.
 #include "flash_common.cuh"
 #include "hopper.cuh"
+
+namespace hp = tmx_hopper;
 
 namespace {
 
 using namespace tmx_flash;
 
-constexpr int kPs = kBk + 1;  // padded probability-row stride
+// ---------------------------------------------------------------------------
+// float32: split-precision TF32 on the tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+constexpr int kF32Warps = 4;
+constexpr int kF32Rows = 16 * kF32Warps;  // query rows of a block
+constexpr int kF32Keys = 32;              // keys of a K/V tile
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// kDrop: dropout on (seed != null); kBias: a bias (bias.ptr != null).
-// Template parameters, so the serving prefill's instance carries neither.
-template <int D, bool kDrop, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, const int* __restrict__ kv_valid,
-                     const int* __restrict__ seed, Bias bias, int tq, int tk,
-                     float scale, int causal, uint32_t threshold,
-                     float keep_scale) {
+template <int D>
+constexpr size_t f32tc_smem_bytes() {
+  // Q [64][D+8], then 2 stages of K [32][D+8] and V [32][D+4], float32
+  return sizeof(float) *
+         (kF32Rows * (D + 8) + 2 * kF32Keys * (D + 8) + 2 * kF32Keys * (D + 4));
+}
+
+// x split into hi, x rounded to TF32 (10 mantissa bits) to nearest with
+// ties away from zero (the bit pattern's low 13 bits rounded on the
+// magnitude, as cvt.rna.tf32.f32 rounds), and lo, the exact x - hi
+// rounded the same way.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in three TF32 products, the small ones first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// Issue the copy of rows [r0, r0 + R) of a (rows, D) float32 operand into
+// shared memory at `dst`, rows kLd floats apart, 16 bytes a thread; rows
+// past `rows` are zero-filled (source size 0, address clamped to row 0).
+template <int D, int R, int kLd>
+__device__ __forceinline__ void copy_rows_f32(uint32_t dst, const float* src,
+                                              int r0, int rows, int tid) {
+  constexpr int kChunks = D / 4, kN = R * kChunks;
+#pragma unroll
+  for (int it = 0; it < (kN + kF32Threads - 1) / kF32Threads; ++it) {
+    const int i = tid + it * kF32Threads;
+    if (kN % kF32Threads != 0 && i >= kN) break;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool in = r0 + r < rows;
+    const float* from = src + (in ? static_cast<long>(r0 + r) * D + c : 0);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     dst + 4 * (r * kLd + c)),
+                 "l"(from), "r"(in ? 16 : 0)
+                 : "memory");
+  }
+}
+
+template <typename BT>
+__device__ __forceinline__ float bias_value(const void* base, long i) {
+  if constexpr (std::is_same_v<BT, float>)
+    return __ldg(static_cast<const float*>(base) + i);
+  else if constexpr (std::is_same_v<BT, __nv_bfloat16>)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i]);
+  else
+    return __half2float(static_cast<const __half*>(base)[i]);
+}
+
+// BT: the bias element type (flash_common.cuh), NoBias without a bias.
+template <int D, bool kDrop, typename BT>
+__global__ void __launch_bounds__(kF32Threads, 2)
+    flash_fwd_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse,
+                            const int* __restrict__ kv_valid,
+                            const int* __restrict__ seed, Bias bias, int tq,
+                            int tk, float scale, int causal,
+                            uint32_t threshold, float keep_scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int QS = D + 1;     // padded q/k row stride
-  constexpr int CPT = D / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;               // [kBq][QS]
-  float* k_s = q_s + kBq * QS;     // [kBk][QS]
-  float* v_s = k_s + kBk * QS;     // [kBk][D]
-  float* p_s = v_s + kBk * D;      // [kBq][kPs] scores, then probs
-  float* m_s = p_s + kBq * kPs;    // [kBq] running max
-  float* l_s = m_s + kBq;          // [kBq] running denominator
-  float* a_s = l_s + kBq;          // [kBq] this tile's rescale
+  constexpr bool kBias = kHasBias<BT>;
+  constexpr int QL = D + 8, KL = D + 8, VL = D + 4;  // row strides, floats
+  constexpr int NT = kF32Keys / 8;  // 8-key tiles of S, k-steps of P V
+  constexpr int DT = D / 8;         // k-steps of S, 8-column tiles of O
+  extern __shared__ float4 smem_f4[];
+  float* q_s = reinterpret_cast<float*>(smem_f4);  // [64][QL]
+  float* k_s = q_s + kF32Rows * QL;                // [2][32][KL]
+  float* v_s = k_s + 2 * kF32Keys * KL;            // [2][32][VL]
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBq, tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // the m16n8 fragment coordinates
+  const int bh = blockIdx.y, q0 = blockIdx.x * kF32Rows, qw0 = q0 + 16 * warp;
+  // the two query rows of this thread's accumulator registers
+  const int qrow[2] = {qw0 + g, qw0 + g + 8};
   const float* qb = q + static_cast<long>(bh) * tq * D;
   const float* kb = k + static_cast<long>(bh) * tk * D;
   const float* vb = v + static_cast<long>(bh) * tk * D;
   const int valid = valid_keys(kv_valid, bh, tk);
-  // the softmax lanes: 4 neighbouring threads share one query row
-  const int srow = tid / 4, part = tid % 4;
-  const uint32_t qkey =
-      kDrop ? dropout_q_key(
-                  dropout_row_key(static_cast<uint32_t>(seed[0]), bh),
-                  q0 + srow)
-            : 0u;
-
-  for (int i = tid; i < kBq * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    q_s[r * QS + d] =
-        q0 + r < tq ? qb[static_cast<long>(q0 + r) * D + d] : 0.f;
+  uint32_t qkey[2] = {0u, 0u};
+  if (kDrop) {
+    const uint32_t row = dropout_row_key(static_cast<uint32_t>(seed[0]), bh);
+    qkey[0] = dropout_q_key(row, qrow[0]);
+    qkey[1] = dropout_q_key(row, qrow[1]);
   }
-  if (tid < kBq) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+  const long plane =
+      kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
+            : 0;
+  const uint32_t q_a = hp::smem_addr(q_s), k_a = hp::smem_addr(k_s),
+                 v_a = hp::smem_addr(v_s);
+  auto copy_kv = [&](int kt, int st) {
+    copy_rows_f32<D, kF32Keys, KL>(k_a + 4 * st * kF32Keys * KL, kb,
+                                   kt * kF32Keys, tk, tid);
+    copy_rows_f32<D, kF32Keys, VL>(v_a + 4 * st * kF32Keys * VL, vb,
+                                   kt * kF32Keys, tk, tid);
+  };
 
-  int n_tiles = (valid + kBk - 1) / kBk;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBq - 1) / kBk + 1);
+  int n_tiles = (valid + kF32Keys - 1) / kF32Keys;
+  if (causal)
+    n_tiles = min(n_tiles, (min(q0 + kF32Rows, tq) - 1) / kF32Keys + 1);
+  copy_rows_f32<D, kF32Rows, QL>(q_a, qb, q0, tq, tid);
+  if (n_tiles > 0) copy_kv(0, 0);
+  hp::cp_async_commit();
+
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const bool rows_in = qw0 < tq;  // the warp holds rows below T
+  const float* qw = q_s + 16 * warp * QL;
+
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBk;
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows2<D, kBk>(k_s, QS, kb, v_s, D, vb, k0, tk);
-    if (kBias) stage_bias<false>(p_s, kPs, bias, bh, q0, k0, tq, tk);
+    const int k0 = kt * kF32Keys, st = kt & 1;
+    hp::cp_async_wait<0>();
+    // tile kt (and Q) is in shared memory, and every warp is done with
+    // tile kt - 1, whose stage the next copy overwrites
     __syncthreads();
+    if (kt + 1 < n_tiles) copy_kv(kt + 1, st ^ 1);
+    hp::cp_async_commit();
+    if (!rows_in || (causal && k0 > qw0 + 15)) continue;
 
-    float s[4][4];
+    const float* ks = k_s + st * kF32Keys * KL;
+    const float* vs = v_s + st * kF32Keys * VL;
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty * 4 + i) * QS + d];
+    for (int kk = 0; kk < DT; ++kk) {
+      // A: rows g and g + 8, reduction elements (2t, 2t + 1) of the step
+      const float2 x0 =
+          *reinterpret_cast<const float2*>(qw + g * QL + 8 * kk + 2 * t);
+      const float2 x1 =
+          *reinterpret_cast<const float2*>(qw + (g + 8) * QL + 8 * kk + 2 * t);
+      uint32_t ah[4], al[4];
+      split_tf32(x0.x, ah[0], al[0]);
+      split_tf32(x1.x, ah[1], al[1]);
+      split_tf32(x0.y, ah[2], al[2]);
+      split_tf32(x1.y, ah[3], al[3]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = k_s[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty * 4 + i, c = tx + 16 * j;
-        const int kpos = k0 + c;
-        const bool ok = kpos < valid && (!causal || kpos <= q0 + r);
-        if (kBias)
-          p_s[r * kPs + c] = ok ? s[i][j] * scale + p_s[r * kPs + c]
-                                : -INFINITY;
-        else
-          p_s[r * kPs + c] = ok ? s[i][j] * scale : kNegInf;
+      for (int j = 0; j < NT; ++j) {  // B: key 8j + g, the same elements
+        const float2 y = *reinterpret_cast<const float2*>(
+            ks + (8 * j + g) * KL + 8 * kk + 2 * t);
+        mma_3xtf32(s[j], ah, al, y.x, y.y);
       }
     }
-    __syncthreads();
 
-    {  // online softmax over row srow.  m starts at the finite kNegInf, so
-       // m_new is finite and masked scores get p = 0 exactly: -inf ones
-       // always; kNegInf ones (no bias) because every row's m is far above
-       // kNegInf from the first tile on, which holds key 0 (kv_valid >= 1).
-      float* prow = p_s + srow * kPs;
-      float mx = kNegInf;
-      for (int j = 0; j < kBk / 4; ++j) mx = fmaxf(mx, prow[part + 4 * j]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[srow];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = 0; j < kBk / 4; ++j) {
-        const int c = part + 4 * j;
-        const float p = expf(prow[c] - m_new);
-        sum += p;  // the normalizer uses the un-dropped probability
-        if (kDrop)
-          prow[c] = dropout_keep(qkey, k0 + c, threshold) ? p * keep_scale
-                                                          : 0.f;
-        else
-          prow[c] = p;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i / 2;
+        const int kp = k0 + 8 * j + 2 * t + (i & 1);
+        const bool ok = kp < valid && (!causal || kp <= qrow[h]);
+        if constexpr (kBias) {
+          const float b =
+              ok && qrow[h] < tq
+                  ? bias_value<BT>(bias.ptr,
+                                   plane + static_cast<long>(qrow[h]) * tk + kp)
+                  : 0.f;
+          s[j][i] = ok ? s[j][i] * scale + b : -INFINITY;
+        } else {
+          s[j][i] = ok ? s[j][i] * scale : kNegInf;
+        }
+        mx[h] = fmaxf(mx[h], s[j][i]);
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[srow] = alpha;
-        l_s[srow] = l_s[srow] * alpha + sum;
-        m_s[srow] = m_new;
-      }
+    float alpha[2], mneg[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);  // finite: m starts finite
+      alpha[h] = exp2f((m[h] - m_new) * kLog2e);
+      mneg[h] = -m_new * kLog2e;
+      m[h] = m_new;
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i / 2;
+        const float p = exp2f(fmaf(s[j][i], kLog2e, mneg[h]));
+        sum[h] += p;  // the normalizer uses the un-dropped probability
+        if (kDrop) {
+          const int kp = k0 + 8 * j + 2 * t + (i & 1);
+          s[j][i] = dropout_keep(qkey[h], kp, threshold) ? p * keep_scale : 0.f;
+        } else {
+          s[j][i] = p;
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = l[h] * alpha[h] + sum[h];
+    }
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i / 2];
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = a_s[ty * 4 + i];
+    for (int j = 0; j < NT; ++j) {
+      // A: P's registers as they stand (rows g, g + 8; keys 8j + 2t and
+      // 8j + 2t + 1 as reduction elements t and t + 4)
+      uint32_t ph[4], pl[4];
+      split_tf32(s[j][0], ph[0], pl[0]);
+      split_tf32(s[j][2], ph[1], pl[1]);
+      split_tf32(s[j][1], ph[2], pl[2]);
+      split_tf32(s[j][3], ph[3], pl[3]);
+      const float* v0 = vs + (8 * j + 2 * t) * VL + g;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] *= a;
-    }
-    for (int kk = 0; kk < kBk; ++kk) {
-      float pv[4], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty * 4 + i) * kPs + kk];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) vv[j] = v_s[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] += pv[i] * vv[j];
+      for (int n = 0; n < DT; ++n)  // B: V rows 8j + 2t, 8j + 2t + 1
+        mma_3xtf32(acc[n], ph, pl, v0[8 * n], v0[VL + 8 * n]);
     }
   }
-  __syncthreads();
 
+  if (!rows_in) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r < tq) {
-      const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
-      float* orow = o + (static_cast<long>(bh) * tq + q0 + r) * D;
+  for (int h = 0; h < 2; ++h) {
+    if (qrow[h] >= tq) continue;
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    float* orow = o + (static_cast<long>(bh) * tq + qrow[h]) * D;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
-    }
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+    if (t == 0)
+      lse[static_cast<long>(bh) * tq + qrow[h]] =
+          m[h] + logf(fmaxf(l[h], 1e-30f));
   }
-  if (tid < kBq && q0 + tid < tq)
-    lse[static_cast<long>(bh) * tq + q0 + tid] =
-        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
-namespace hp = tmx_hopper;
-
 constexpr int kTcBq = 128;      // query rows of a block: 2 warpgroups of 64
 // keys of a K/V tile: 64 and 128 measured within the calls' spread of each
 // other (each faster in one call), so the smaller tile stays
 constexpr int kTcBk = 64;
 constexpr int kTcThreads = 256;
-constexpr float kLog2e = 1.4426950408889634f;
 // A staged bias row holds 72 elements: 64 keys and a pad, so that the 8
 // rows a warp reads at once fall in different banks.
 constexpr int kBiasLd = 72;
@@ -472,84 +605,64 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, bool kDrop, bool kBias>
+// kF32: the float32 3xTF32 kernel, else the bf16 wgmma one.
+template <bool kF32, int D, bool kDrop, typename BT>
 cudaError_t launch(const Args& a) {
-  const size_t smem = sizeof(float) * (kBq * (D + 1) + kBk * (D + 1) +
-                                       kBk * D + kBq * kPs + 3 * kBq);
-  auto kernel = flash_fwd_kernel<D, kDrop, kBias>;
-  if (smem > 48 * 1024) {
+  if constexpr (kF32) {
+    const size_t smem = f32tc_smem_bytes<D>();
+    auto kernel = flash_fwd_tf32x3_kernel<D, kDrop, BT>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
+    kernel<<<dim3((a.tq + kF32Rows - 1) / kF32Rows, a.bh), kF32Threads, smem,
+             a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
+        a.kv_valid, a.seed, a.bias, a.tq, a.tk, a.scale, a.causal,
+        a.threshold, a.keep_scale);
+  } else {
+    const size_t smem = tc_smem_bytes<D, kHasBias<BT>>();
+    auto kernel = flash_fwd_tc_kernel<D, kDrop, BT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((a.tq + kTcBq - 1) / kTcBq, a.bh), kTcThreads, smem,
+             a.stream>>>(
+        static_cast<const __nv_bfloat16*>(a.q),
+        static_cast<const __nv_bfloat16*>(a.k),
+        static_cast<const __nv_bfloat16*>(a.v),
+        static_cast<__nv_bfloat16*>(a.o), a.lse, a.kv_valid, a.seed, a.bias,
+        a.tq, a.tk, a.scale, a.causal, a.threshold, a.keep_scale);
   }
-  kernel<<<dim3((a.tq + kBq - 1) / kBq, a.bh), kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
-      a.kv_valid,
-      a.seed, a.bias, a.tq, a.tk, a.scale, a.causal, a.threshold,
-      a.keep_scale);
   return cudaGetLastError();
 }
 
-template <bool kDrop, bool kBias>
+template <bool kF32, bool kDrop, typename BT>
 cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 16: return launch<16, kDrop, kBias>(a);
-    case 32: return launch<32, kDrop, kBias>(a);
-    case 64: return launch<64, kDrop, kBias>(a);
-    case 128: return launch<128, kDrop, kBias>(a);
+    case 16: return launch<kF32, 16, kDrop, BT>(a);
+    case 32: return launch<kF32, 32, kDrop, BT>(a);
+    case 64: return launch<kF32, 64, kDrop, BT>(a);
+    case 128: return launch<kF32, 128, kDrop, BT>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int D, bool kDrop, typename BT>
-cudaError_t launch_tc(const Args& a) {
-  const size_t smem = tc_smem_bytes<D, kHasBias<BT>>();
-  auto kernel = flash_fwd_tc_kernel<D, kDrop, BT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.tq + kTcBq - 1) / kTcBq, a.bh), kTcThreads, smem,
-           a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.o), a.lse, a.kv_valid, a.seed, a.bias,
-      a.tq, a.tk, a.scale, a.causal, a.threshold, a.keep_scale);
-  return cudaGetLastError();
+template <bool kF32, bool kDrop>
+cudaError_t dispatch_bias(int d, const Args& a) {
+  if (a.bias.ptr == nullptr) return dispatch_d<kF32, kDrop, NoBias>(d, a);
+  if (a.bias.dtype == 1)
+    return dispatch_d<kF32, kDrop, __nv_bfloat16>(d, a);
+  if (a.bias.dtype == 2) return dispatch_d<kF32, kDrop, __half>(d, a);
+  return dispatch_d<kF32, kDrop, float>(d, a);
 }
 
-template <bool kDrop, typename BT>
-cudaError_t dispatch_tc_d(int d, const Args& a) {
-  switch (d) {
-    case 16: return launch_tc<16, kDrop, BT>(a);
-    case 32: return launch_tc<32, kDrop, BT>(a);
-    case 64: return launch_tc<64, kDrop, BT>(a);
-    case 128: return launch_tc<128, kDrop, BT>(a);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <bool kDrop>
-cudaError_t dispatch_tc_bias(int d, const Args& a) {
-  if (a.bias.ptr == nullptr) return dispatch_tc_d<kDrop, NoBias>(d, a);
-  if (a.bias.dtype == 1) return dispatch_tc_d<kDrop, __nv_bfloat16>(d, a);
-  if (a.bias.dtype == 2) return dispatch_tc_d<kDrop, __half>(d, a);
-  return dispatch_tc_d<kDrop, float>(d, a);
-}
-
-// float32 runs the FFMA kernel, bfloat16 the tensor-core one.
-template <bool kTc>
+template <bool kF32>
 cudaError_t dispatch(int d, const Args& a) {
-  const bool drop = a.seed != nullptr, biased = a.bias.ptr != nullptr;
-  if (kTc) return drop ? dispatch_tc_bias<true>(d, a)
-                       : dispatch_tc_bias<false>(d, a);
-  if (drop && biased) return dispatch_d<true, true>(d, a);
-  if (drop) return dispatch_d<true, false>(d, a);
-  if (biased) return dispatch_d<false, true>(d, a);
-  return dispatch_d<false, false>(d, a);
+  return a.seed != nullptr ? dispatch_bias<kF32, true>(d, a)
+                           : dispatch_bias<kF32, false>(d, a);
 }
 
 bool aligned16(const void* p) {
@@ -558,12 +671,13 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// dtype: 0 float32 (FFMA kernel), 1 bfloat16 (tensor-core kernel; q, k, v
-// and o 16-byte aligned).  kv_valid, seed and bias may be null (no
+// dtype: 0 float32 (3xTF32 kernel), 1 bfloat16 (wgmma kernel); q, k, v
+// and o 16-byte aligned.  kv_valid, seed and bias may be null (no
 // key-padding mask; no dropout; no bias).  bias is (bias_planes, tq, tk)
 // of bias_dtype (0 float32, 1 bfloat16, 2 float16); row bh reads plane
-// bh % bias_planes.  *route is set to the kernel launched: 0 FFMA,
-// 1 wgmma (left as it is when nothing is launched).
+// bh % bias_planes.  *route is set to the kernel launched: 1 wgmma,
+// 2 3xTF32 (left as it is when nothing is launched; 0, FFMA, is the
+// backward's float32 route).
 extern "C" int tmx_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, float* lse,
                                        const void* bias, int bias_planes,
@@ -581,17 +695,11 @@ extern "C" int tmx_flash_attention_fwd(const void* q, const void* k,
          bh,        tq,         tk,    scale,
          causal,    threshold,  keep_scale,
          static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) {
-    *route = 0;
-    return dispatch<false>(d, a);
-  }
-  if (dtype == 1) {
-    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
-      return cudaErrorInvalidValue;
-    *route = 1;
-    return dispatch<true>(d, a);
-  }
-  return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
+    return cudaErrorInvalidValue;
+  *route = dtype == 0 ? 2 : 1;
+  return dtype == 0 ? dispatch<true>(d, a) : dispatch<false>(d, a);
 }
 
 extern "C" const char* tmx_error_string(int code) {

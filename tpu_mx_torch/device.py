@@ -17,7 +17,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["DEFAULT_DEVICE", "resolve", "as_tensor"]
+__all__ = ["DEFAULT_DEVICE", "resolve", "of", "as_tensor"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -38,6 +38,17 @@ def resolve(device=DEFAULT_DEVICE):
         raise MXNetError(f"device={str(device)!r}: the port runs on 'cuda' "
                          "or 'cpu' only")
     return dev
+
+
+def of(x, device=None):
+    """Where a kernel wrapper runs for operand ``x``: ``device`` resolved,
+    or with ``device=None`` the tensor ``x``'s own device (a CUDA tensor
+    proves the card is there, so the per-call checks of :func:`resolve`
+    are skipped) and the default for host data."""
+    if device is None and isinstance(x, torch.Tensor) \
+            and x.device.type in ("cuda", "cpu"):
+        return x.device
+    return resolve(DEFAULT_DEVICE if device is None else device)
 
 
 def as_tensor(x, device, dtype=None):

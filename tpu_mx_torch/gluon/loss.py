@@ -22,10 +22,16 @@ def _apply_weighting(loss, weight=None, sample_weight=None):
 
 
 class Loss(nn.Module):
-    def __init__(self, weight, batch_axis):
+    """Base of the losses.  ``**kwargs`` are the reference's block
+    arguments: ``prefix`` names the loss; ``params`` (a parameter dict
+    to share) is ignored, as a loss holds no parameters."""
+
+    def __init__(self, weight, batch_axis, prefix=None, params=None):
         super().__init__()
         self._weight = weight
         self._batch_axis = batch_axis
+        self.prefix = prefix if prefix is not None else \
+            type(self).__name__.lower() + "_"
 
     def _per_example(self, loss):
         axes = tuple(i for i in range(loss.dim()) if i != self._batch_axis)
@@ -37,16 +43,20 @@ class Loss(nn.Module):
 
 class SoftmaxCrossEntropyLoss(Loss):
     """Log-softmax + pick: ``-log softmax(pred)[label]`` for sparse labels,
-    ``-sum(log softmax(pred) · label)`` for dense ones."""
+    ``-sum(log softmax(pred) · label)`` for dense ones.  With
+    ``from_logits=True`` ``pred`` is taken as log-probabilities already
+    and the log-softmax is skipped."""
 
-    def __init__(self, axis=-1, sparse_label=True, weight=None,
-                 batch_axis=0):
-        super().__init__(weight, batch_axis)
+    def __init__(self, axis=-1, sparse_label=True, from_logits=False,
+                 weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
         self._axis = axis
         self._sparse_label = sparse_label
+        self._from_logits = from_logits
 
     def forward(self, pred, label, sample_weight=None):
-        pred = ops.log_softmax(pred, axis=self._axis)
+        if not self._from_logits:
+            pred = ops.log_softmax(pred, axis=self._axis)
         if self._sparse_label:
             loss = -ops.pick(pred, label, axis=self._axis)
         else:
@@ -62,8 +72,8 @@ class PassThrough(Loss):
     """Identity loss for nets whose first output is the objective; extra
     step arguments are ignored."""
 
-    def __init__(self):
-        super().__init__(weight=None, batch_axis=0)
+    def __init__(self, **kwargs):
+        super().__init__(weight=None, batch_axis=0, **kwargs)
 
     def forward(self, loss, *_ignored):
         return loss

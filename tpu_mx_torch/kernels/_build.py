@@ -23,10 +23,12 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 from ..base import MXNetError
 
 __all__ = ["SOURCES", "nvcc_path", "nvcc_version", "build", "build_all",
-           "load", "check", "BUILD_DIR"]
+           "load", "check", "stream", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_mx_torch"
@@ -124,3 +126,11 @@ def check(lib, code, what):
         lib.tmx_error_string.argtypes = [ctypes.c_int]
         msg = lib.tmx_error_string(code).decode()
         raise MXNetError(f"{what}: CUDA error {code} ({msg}) at launch")
+
+
+def stream(t):
+    """The raw handle of the current CUDA stream of CUDA tensor ``t``'s
+    device, for a C entry point (what ``torch.cuda.current_stream(
+    t.device).cuda_stream`` returns, without building a Stream object on
+    every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

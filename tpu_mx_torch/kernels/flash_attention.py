@@ -40,11 +40,13 @@ count):
   the backward (``csrc/flash_attention_bwd.cu``).
 
 The kernel is chosen by dtype: bfloat16 runs on the tensor cores
-(``wgmma``) in all three, float32 runs the FFMA kernels (exact to
-float32 rounding, as the serving path needs).  Each wrapper also counts
-its launches by the route the C entry point reports, in
-``<wrapper>.routes`` (``{"ffma": n, "wgmma": n}``); there is no fallback
-between the two.
+(``wgmma``) in all three; the float32 forward runs on the tensor cores
+in split precision (``tf32x3``: each operand split into two TF32
+halves, three products, float32 sums — within float32 rounding of the
+plain version, as the serving path needs), the float32 backward on FFMA
+(``ffma``).  Each wrapper also counts its launches by the route the C
+entry point reports, in ``<wrapper>.routes`` (``{"ffma": n, "wgmma": n,
+"tf32x3": n}``); there is no fallback between them.
 
 Gradients flow through :class:`FlashAttentionFunction`, whose backward
 calls the two backward wrappers.  The plain versions
@@ -66,7 +68,7 @@ from . import _build
 __all__ = ["flash_attention", "mha_flash_attention", "flash_attention_plain",
            "flash_attention_bwd_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_delta",
-           "reduce_d_bias",
+           "reduce_d_bias", "kernel_takes", "card_dense_arm",
            "dropout_keep_mask", "FlashAttentionFunction", "HEAD_DIMS"]
 
 NEG_INF = -1e30
@@ -74,7 +76,7 @@ HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 PLAIN_BLOCK_Q = 128             # query rows per step of the plain versions
-ROUTES = ("ffma", "wgmma")      # the kernels a C entry point reports
+ROUTES = ("ffma", "wgmma", "tf32x3")   # the kernels a C entry point reports
 
 _M32 = 0xFFFFFFFF
 _ROW_SALT = 0x9E3779B9          # the constants of csrc/flash_common.cuh
@@ -286,6 +288,29 @@ def reduce_d_bias(d_bias, bias):
 # ----------------------------------------------------------------------------
 # kernel launches
 # ----------------------------------------------------------------------------
+def kernel_takes(head_dim, dtype):
+    """Whether the kernels have an instance for q/k/v of this head dim and
+    dtype (the wrappers raise on the card for anything else; callers with
+    a dense arm dispatch on this, a pure function of shape and dtype)."""
+    return head_dim in HEAD_DIMS and dtype in _DTYPES
+
+
+def card_dense_arm(what, head_dim, dtype, detail=""):
+    """``"dense"`` for a caller whose kernel has no instance for this head
+    dim and (query) dtype on the card, where the reference's own gate
+    (``supported()`` of its flash and paged kernels: a head dim that is a
+    multiple of 64, float32 or bfloat16) sends the shape dense too.  A
+    shape the reference's kernel takes raises instead (head dims 192,
+    256, ...): the port does not put a plain version on the card in a
+    kernel's place."""
+    if head_dim % 64 == 0 and dtype in _DTYPES:
+        raise MXNetError(
+            f"{what}: no kernel instance for head dim {head_dim}, {dtype}"
+            f"{detail}, a shape the reference's kernel takes; the port's "
+            f"instances are head dims {HEAD_DIMS} (ROADMAP B item 8)")
+    return "dense"
+
+
 def _check_kernel_operands(what, q, *rest):
     if q.dtype not in _DTYPES:
         raise MXNetError(f"{what} kernel: q/k/v must be float32 or "
@@ -307,7 +332,7 @@ def _tail(q, k, kv_valid, rate, seed, scale, causal):
             seed.data_ptr() if drop else None, bh, t, k.shape[1], d,
             float(scale), int(bool(causal)), _threshold(rate) if drop else 0,
             1.0 / (1.0 - rate), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _build.stream(q))
 
 
 def _bias_abi(bias):
@@ -317,18 +342,19 @@ def _bias_abi(bias):
     return bias.data_ptr(), bias.shape[0], _BIAS_DTYPES[bias.dtype]
 
 
-def _check_aligned(what, *tensors):
-    """The tensor-core kernels copy 16-byte chunks: bf16 operands must
-    start 16-byte aligned (a fresh or contiguous-copied tensor does)."""
-    if tensors[0].dtype == torch.bfloat16 and any(
+def _check_aligned(what, *tensors, any_dtype=False):
+    """The tensor-core kernels copy 16-byte chunks: their operands (bf16
+    ones, and with ``any_dtype`` the float32 forward's too) must start
+    16-byte aligned (a fresh or contiguous-copied tensor does)."""
+    if (any_dtype or tensors[0].dtype == torch.bfloat16) and any(
             x.data_ptr() % 16 for x in tensors):
-        raise MXNetError(f"{what} kernel: bfloat16 operands must start "
-                         "16-byte aligned")
+        raise MXNetError(f"{what} kernel: {tensors[0].dtype} operands "
+                         "must start 16-byte aligned")
 
 
 def _count(wrapper, route):
     """One launch of ``wrapper``'s kernel, on the route the C entry point
-    reported (1: the bf16 tensor-core kernel, 0: the FFMA kernel)."""
+    reported (an index into :data:`ROUTES`)."""
     wrapper.launches += 1
     wrapper.routes[ROUTES[route.value]] += 1
 
@@ -336,7 +362,7 @@ def _count(wrapper, route):
 def _launch_fwd(q, k, v, scale, causal, kv_valid, rate, seed, bias=None):
     _check_kernel_operands("flash_attention", q, k, v)
     out = torch.empty_like(q)
-    _check_aligned("flash_attention", q, k, v, out)
+    _check_aligned("flash_attention", q, k, v, out, any_dtype=True)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     lib = _lib("flash_attention_fwd")
     route = ctypes.c_int(-1)
@@ -454,7 +480,8 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def flash_attention(q, k, v, scale=None, causal=False, kv_valid=None,
                     dropout_rate=0.0, dropout_seed=None, bias=None,
-                    bias_groups=None, return_lse=False, device=None):
+                    bias_groups=None, block_q=None, block_k=None,
+                    return_lse=False, device=None):
     """Attention over ``(BH, T, D)`` q and ``(BH, Tk, D)`` k/v; returns
     ``out`` ``(BH, T, D)`` in q's dtype, or ``(out, lse)`` with
     ``return_lse=True`` (no gradient then: the serving prefill's call).
@@ -467,16 +494,15 @@ def flash_attention(q, k, v, scale=None, causal=False, kv_valid=None,
     ambiguous between per-head and per-batch); float32, bfloat16 or
     float16 (another float type is read as float32).  Differentiable in
     q, k, v and the bias through :class:`FlashAttentionFunction`.
+    ``block_q``/``block_k`` (the TPU kernel's block sizes) are accepted
+    and ignored: the CUDA kernels' tiles are fixed per instance.
 
     Runs where the operands live: ``device=None`` takes ``q``'s device
     when ``q`` is a tensor and ``"cuda"`` otherwise; host data (numpy)
     is copied to that device, a tensor on another device raises.  CUDA
     operands launch the kernels or raise; CPU operands run the plain
     versions."""
-    if device is None:
-        device = q.device if isinstance(q, torch.Tensor) \
-            else _device.DEFAULT_DEVICE
-    dev = _device.resolve(device)
+    dev = _device.of(q, device)
     q, k, v = (_device.as_tensor(x, dev).contiguous() for x in (q, k, v))
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
@@ -530,7 +556,8 @@ def _check_bias(bias, bh, t, tk, bias_groups):
 
 
 def mha_flash_attention(q, k, v, causal=False, valid_length=None,
-                        dropout_rate=0.0, dropout_seed=None, bias=None):
+                        dropout_rate=0.0, dropout_seed=None, bias=None,
+                        block_q=None, block_k=None):
     """Multi-head wrapper: q/k/v are ``(B, H, T, D)``; batch and heads are
     folded for the kernels and the layout restored.  ``valid_length`` is
     per batch row ``(B,)`` and is repeated over the heads.  ``bias``
@@ -538,7 +565,8 @@ def mha_flash_attention(q, k, v, causal=False, valid_length=None,
     it: ``(B, H, T, Tk)`` one plane per row, ``(1, H, T, Tk)`` one per
     head (``bias_groups=H``), ``(1, 1, T, Tk)`` one shared plane; any
     other layout (e.g. ALiBi's ``(1, H, 1, Tk)``) is expanded to a plane
-    per row, and autograd sums its gradient back."""
+    per row, and autograd sums its gradient back.  ``block_q``/
+    ``block_k`` are ignored, as in :func:`flash_attention`."""
     b, h, t, d = q.shape
     fold = lambda x: x.reshape(b * h, x.shape[2], d)
     kv_valid = None

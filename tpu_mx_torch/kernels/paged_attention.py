@@ -17,15 +17,20 @@ shape contract is the reference's:
 Two versions share that contract:
 
 - the kernel (``csrc/paged_attention.cu``), launched for CUDA tensors:
-  grid ``(B, H)``, one block per sequence and head walking only the
-  blocks the sequence owns.  It takes float32 queries, head dims
-  16/32/64/128 and windows up to :data:`MAX_WINDOW`; anything else on
-  the card raises;
+  split over the keys (flash-decoding), grid ``(B, H, S)`` with ``S``
+  splits of 64 keys from the table's width, then a merge launch of grid
+  ``(B, H)`` over the float32 partials, which the wrapper allocates.
+  Nothing is read back to the host, so a call can be captured in a CUDA
+  graph and replayed after the tables and lengths change in place.  It
+  takes float32 queries, head dims 16/32/64/128 and windows up to
+  :data:`MAX_WINDOW`; anything else on the card raises;
 - :func:`paged_attention_plain`, the same block walk written in PyTorch,
   run for CPU tensors — and on the card only to check the kernel.
 
 :func:`paged_attention` counts its kernel launches in
-``paged_attention.launches`` (a plain int; set it to 0 to start a count).
+``paged_attention.launches`` (a plain int; set it to 0 to start a count)
+and, by the route the C entry point reports, in
+``paged_attention.routes`` (``{"split_k": n}``).
 """
 from __future__ import annotations
 
@@ -38,12 +43,14 @@ from ..base import MXNetError
 from .. import device as _device
 from . import _build
 
-__all__ = ["paged_attention", "paged_attention_plain", "MAX_WINDOW",
-           "HEAD_DIMS"]
+__all__ = ["paged_attention", "paged_attention_plain", "kernel_takes",
+           "MAX_WINDOW", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 MAX_WINDOW = 8                  # kTqMax in the kernel
 HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
+SPLIT_KEYS = 64                 # kSplitKeys: the keys of a split
+ROUTES = ("split_k",)           # the kernels the C entry point reports
 
 _lib = None
 
@@ -54,10 +61,21 @@ def _kernel_lib():
         lib = _build.load("paged_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tmx_paged_attention.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+            p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p, p, i,
+            p, ctypes.POINTER(i)]
         lib.tmx_paged_attention.restype = i
         _lib = lib
     return _lib
+
+
+def kernel_takes(head_dim, q_dtype, pool_dtype, window=1):
+    """Whether the kernel has an instance for this decode: head dim,
+    query and pool dtypes, window ``Tq`` (the wrapper raises on the card
+    for anything else; the serving decode dispatches on this, a pure
+    function of shape and dtype)."""
+    return (head_dim in HEAD_DIMS and q_dtype == torch.float32
+            and pool_dtype in (torch.float32, torch.bfloat16)
+            and 1 <= window <= MAX_WINDOW)
 
 
 def _normalize_q(q):
@@ -144,16 +162,30 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, scale):
     v_pool = v_pool.contiguous()
     tables = block_tables.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise MXNetError("paged_attention kernel: pools must start 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     lib = _kernel_lib()
+    bs, nb = k_pool.shape[1], tables.shape[1]
+    # the splits from the table's width, never from the lengths (no read
+    # back: the call stays capturable in a CUDA graph); their float32
+    # partials in one buffer: (m, l) (2, B, S, Tq, H), then acc
+    # (B, S, Tq, H, D)
+    splits = -(-nb * bs // SPLIT_KEYS)
+    rows = b * splits * tq * h
+    part = torch.empty(rows * (2 + d), dtype=torch.float32, device=q.device)
+    route = ctypes.c_int(-1)
     code = lib.tmx_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, tq, h, d, k_pool.shape[1], tables.shape[1], float(scale),
-        int(k_pool.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        b, tq, h, d, bs, nb, float(scale),
+        int(k_pool.dtype == torch.bfloat16), part.data_ptr(),
+        part.data_ptr() + 2 * rows * 4, splits, _build.stream(q),
+        ctypes.byref(route))
     _build.check(lib, code, "paged_attention")
     paged_attention.launches += 1
+    paged_attention.routes[ROUTES[route.value]] += 1
     return out
 
 
@@ -167,10 +199,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, scale=None,
     operands launch the kernel or raise; CPU operands run
     :func:`paged_attention_plain`.  Returns ``(B, H, D)`` (or
     ``(B, Tq, H, D)`` for a 4-d ``q``) in ``q.dtype``."""
-    if device is None:
-        device = q.device if isinstance(q, torch.Tensor) \
-            else _device.DEFAULT_DEVICE
-    dev = _device.resolve(device)
+    dev = _device.of(q, device)
     q = _device.as_tensor(q, dev)
     k_pool = _device.as_tensor(k_pool, dev)
     v_pool = _device.as_tensor(v_pool, dev)
@@ -188,3 +217,4 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, scale=None,
 
 
 paged_attention.launches = 0
+paged_attention.routes = dict.fromkeys(ROUTES, 0)

@@ -25,7 +25,7 @@ from torch import nn
 
 from .. import device as _device
 from .. import random as _random
-from ..base import MXNetError
+from ..base import MXNetError, refuse_unported
 from ..gluon import loss as _loss
 from ..gluon.nn import Dense, Dropout, LayerNorm, make_param
 from ..ndarray import ops
@@ -151,12 +151,14 @@ class BERTModel(nn.Module):
     the masked positions (``(B, T, V)`` without them)."""
 
     def __init__(self, config=None, mesh=None, dtype="float32", remat=False,
-                 remat_policy=None, moe_every=0, device="cuda",
-                 generator=None):
+                 remat_policy=None, moe_every=0, moe_experts=8, moe_top_k=2,
+                 device="cuda", generator=None):
         super().__init__()
         if moe_every:
             raise MXNetError("BERTModel: the MoE layers (moe_every) are not "
                              "ported yet (ROADMAP A7)")
+        refuse_unported("BERTModel", "A7", moe_experts=(moe_experts, 8),
+                        moe_top_k=(moe_top_k, 2))
         if remat or remat_policy is not None:
             raise MXNetError("BERTModel: remat is not ported yet (ROADMAP "
                              "A4: torch.utils.checkpoint)")

@@ -1,13 +1,26 @@
 """Attention dispatch: the mesh-less arms of ``tpu_mx/parallel/ring_attention.py``.
 
-``attention`` is what models call.  On the card it launches the flash
-kernels for every shape (``kernels/flash_attention.py``: they mask
-ragged tails, so there is no ``supported()`` gate, and gradients flow
-through their backward kernels).  On the CPU it runs the dense plain
-version (``_dense_mask`` + ``_block_attn``), the reference's XLA-dense
-arm, with the kernels' dropout mask so both devices compute the same
-function.  The reference's dense arm on the TPU and its crossover table
-(``TPUMX_ATTENTION``, ``TPUMX_DENSE_MAX_KV``) are not ported: that table
+``attention`` is what models call.  :func:`attention_arm` picks the arm,
+a pure function of the device type, head dim and dtype:
+
+- ``"flash_kernel"`` (the reference's ``pallas_flash``): on the card,
+  for every shape the kernels instantiate (head dims 16/32/64/128,
+  float32 or bfloat16; ``kernels/flash_attention.py``).  They mask
+  ragged tails, so there is no ``T`` gate, and gradients flow through
+  their backward kernels;
+- ``"dense"`` (the reference's ``xla_dense``): the dense plain version
+  (``_dense_mask`` + ``_block_attn``) on the CPU, and on the card for
+  the shapes that the reference's own gate sends dense too (a head dim
+  that is not a multiple of 64, such as 80 or 96; float16), with the
+  kernels' dropout mask so every arm computes the same function.  On
+  the card it logs a warning, as the reference's does on its chip.  A
+  shape the reference's kernel takes and the port has no instance for
+  (head dims 192, 256) raises on the card
+  (``kernels.flash_attention.card_dense_arm``).
+
+Each distinct call signature is counted once in ``dispatch_counts``
+under its arm.  The reference's crossover knobs
+(``TPUMX_ATTENTION``, ``TPUMX_DENSE_MAX_KV``) are not ported: its table
 was measured on a TPU, and a dense↔flash crossover for the H100 is open
 work (ROADMAP).  Both arms take the additive ``(B|1, H|1, T|1, Tk)``
 bias (ALiBi, relative positions), with its gradient.  Sequence
@@ -23,7 +36,8 @@ import torch
 from ..base import MXNetError
 from ..kernels import flash_attention as _fa
 
-__all__ = ["attention", "local_flash_attention", "dispatch_counts"]
+__all__ = ["attention", "local_flash_attention", "attention_arm",
+           "dispatch_counts"]
 
 _logger = logging.getLogger(__name__)
 
@@ -33,13 +47,29 @@ dispatch_counts = {"flash_kernel": 0, "dense": 0}
 _seen_signatures = set()
 
 
-def _count(path, detail):
+def attention_arm(device_type, head_dim, dtype):
+    """The arm :func:`local_flash_attention` takes for q/k/v of this head
+    dim and dtype on a ``device_type`` (``"cuda"`` or ``"cpu"``) device:
+    ``"flash_kernel"`` or ``"dense"`` (see the module docstring)."""
+    if device_type != "cuda":
+        return "dense"
+    if _fa.kernel_takes(head_dim, dtype):
+        return "flash_kernel"
+    return _fa.card_dense_arm("attention", head_dim, dtype)
+
+
+def _count(path, detail, warn=False):
     sig = (path, detail)
     if sig in _seen_signatures:
         return
     _seen_signatures.add(sig)
     dispatch_counts[path] += 1
-    _logger.info("attention dispatch: %s %s", path, detail)
+    if warn:
+        # the card wants the kernels: a dense arm there is a slow path
+        _logger.warning("attention: dense O(T^2) arm on the card (%s)",
+                        detail)
+    else:
+        _logger.info("attention dispatch: %s %s", path, detail)
 
 
 def _dense_mask(t, tk, causal, valid_length, device):
@@ -92,18 +122,21 @@ def _block_attn(q, k, v, bias=None, mask=None, scale=1.0, dropout_rate=0.0,
 def local_flash_attention(q, k, v, causal=False, valid_length=None,
                           dropout_rate=0.0, dropout_seed=None, bias=None):
     """Single-device attention over ``(B, H, T, D)``: the flash kernels
-    for CUDA tensors, the dense plain version for CPU tensors.
-    ``dropout_seed`` is a ``(1,)`` int32 tensor (``random.take_seed``);
-    pass ``dropout_rate > 0`` only in training.  ``bias`` is an additive
-    ``(B|1, H|1, T|1, Tk)`` attention bias."""
+    for CUDA tensors of a shape they take, the dense plain version
+    otherwise (:func:`attention_arm`).  ``dropout_seed`` is a ``(1,)``
+    int32 tensor (``random.take_seed``); pass ``dropout_rate > 0`` only
+    in training.  ``bias`` is an additive ``(B|1, H|1, T|1, Tk)``
+    attention bias."""
     rate = float(dropout_rate) if dropout_seed is not None else 0.0
-    if q.device.type == "cuda":
-        _count("flash_kernel", f"shape={tuple(q.shape)} dtype={q.dtype}")
+    arm = attention_arm(q.device.type, q.shape[-1], q.dtype)
+    _count(arm, f"shape={tuple(q.shape)} dtype={q.dtype} "
+                f"device={q.device.type}",
+           warn=arm == "dense" and q.device.type == "cuda")
+    if arm == "flash_kernel":
         return _fa.mha_flash_attention(q, k, v, causal=causal,
                                        valid_length=valid_length,
                                        dropout_rate=rate,
                                        dropout_seed=dropout_seed, bias=bias)
-    _count("dense", f"shape={tuple(q.shape)} dtype={q.dtype}")
     mask = _dense_mask(q.shape[2], k.shape[2], causal, valid_length,
                        q.device)
     l, o = _block_attn(q, k, v, bias=bias, mask=mask,

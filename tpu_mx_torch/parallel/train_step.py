@@ -36,7 +36,7 @@ import torch
 
 from .. import device as _device
 from .. import telemetry as _telemetry
-from ..base import MXNetError
+from ..base import MXNetError, refuse_unported
 
 __all__ = ["CompiledTrainStep"]
 
@@ -56,10 +56,19 @@ class CompiledTrainStep:
                   on another device raises
     n_loss_args — how many trailing ``step()`` arguments go to the loss
     accum_steps — gradient accumulation, as in the reference
+
+    ``donate`` is accepted and ignored: buffer donation is a JAX
+    compilation option with no PyTorch meaning.  ``rules``,
+    ``data_specs`` and ``gradient_compression`` must keep their
+    defaults (None): the mesh and compression are not ported yet.
     """
 
-    def __init__(self, net, loss_fn, optimizer, mesh=None, n_loss_args=1,
-                 accum_steps=1, device="cuda"):
+    def __init__(self, net, loss_fn, optimizer, mesh=None, rules=None,
+                 data_specs=None, donate=True, n_loss_args=1,
+                 gradient_compression=None, accum_steps=1, device="cuda"):
+        refuse_unported("CompiledTrainStep", "A8", rules=(rules, None),
+                        data_specs=(data_specs, None),
+                        gradient_compression=(gradient_compression, None))
         if mesh is not None:
             raise MXNetError("CompiledTrainStep: the mesh (and its sharding "
                              "rules, data specs and gradient compression) "
@@ -117,10 +126,15 @@ class CompiledTrainStep:
         return self._build_count
 
     # -- the step ---------------------------------------------------------------
-    def step(self, *batch, lr=None):
+    def step(self, *batch, lr=None, deadline=None, compile_grace=120.0):
         """Run one step; ``batch = (*data_args, *loss_args)`` as tensors on
         the step's device or host arrays (copied there).  Returns the
-        loss, a 0-d float32 tensor on the device (no host sync)."""
+        loss, a 0-d float32 tensor on the device (no host sync).
+        ``deadline``/``compile_grace`` (the reference's watchdog) must
+        keep their defaults: not ported yet."""
+        refuse_unported("CompiledTrainStep.step", "A8",
+                        deadline=(deadline, None),
+                        compile_grace=(compile_grace, 120.0))
         t_start = time.perf_counter()
         if self._build_count == 0:
             self._build()

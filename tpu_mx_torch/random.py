@@ -10,6 +10,13 @@ RNG.  :func:`take_seed` is the counterpart of ``take_key`` for the flash
 kernels: a fresh ``(1,)`` int32 seed drawn on the generator's device, so
 drawing it needs no device-to-host copy.
 
+The reference's seed contract holds: :func:`seed` also seeds numpy's
+global state (host-path initializers draw from it) and returns the
+prior state token, and :func:`get_state`/:func:`set_state` snapshot and
+restore every generator handed out plus numpy's global state bit for
+bit.  The token is plain JSON (lists and numbers), so a JSON round trip
+hands it back whole.
+
 The two packages give different numbers from the same seed; parity
 tests make their inputs with numpy and hand them to both.
 """
@@ -17,24 +24,63 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
-__all__ = ["seed", "generator", "take_seed"]
+__all__ = ["seed", "generator", "take_seed", "get_state", "set_state"]
 
 _lock = threading.Lock()
 _seed = 0
 _generators = {}
 
 
-def seed(seed_state):
-    """Reseed every device's generator (``mx.random.seed``): generators
-    handed out before keep their identity and restart their streams from
-    ``seed_state``; ones made later start from it too."""
+def get_state():
+    """Snapshot the port's generators and numpy's global state as a
+    JSON-ready token for :func:`set_state`: ``{"seed": int, "torch":
+    {device: [state bytes]}, "numpy": [name, keys, pos, has_gauss,
+    cached_gaussian]}``."""
+    name, keys, pos, has_gauss, cached = np.random.get_state()
+    with _lock:
+        gens = {str(dev): g.get_state().tolist()
+                for dev, g in _generators.items()}
+        return {"seed": _seed, "torch": gens,
+                "numpy": [str(name), keys.tolist(), int(pos),
+                          int(has_gauss), float(cached)]}
+
+
+def set_state(state):
+    """Restore a :func:`get_state` / :func:`seed` token bit for bit (also
+    after a JSON round trip).  A generator made after the snapshot
+    restarts from the token's seed, as it would have been made then."""
     global _seed
+    name, keys, pos, has_gauss, cached = state["numpy"]
+    np.random.set_state((str(name), np.asarray(keys, dtype=np.uint32),
+                         int(pos), int(has_gauss), float(cached)))
+    with _lock:
+        _seed = int(state["seed"])
+        for dev, g in _generators.items():
+            saved = state["torch"].get(str(dev))
+            if saved is None:
+                g.manual_seed(_seed)
+            else:
+                g.set_state(torch.tensor(saved, dtype=torch.uint8))
+
+
+def seed(seed_state, ctx="all"):
+    """Reseed every device's generator and numpy's global state
+    (``mx.random.seed``); returns the prior state token (see
+    :func:`get_state`).  Generators handed out before keep their
+    identity and restart their streams from ``seed_state``; ones made
+    later start from it too.  ``ctx`` is taken and, as in the
+    reference, every stream is reseeded whatever it names."""
+    global _seed
+    prior = get_state()
     with _lock:
         _seed = int(seed_state)
         for g in _generators.values():
             g.manual_seed(_seed)
+    np.random.seed(int(seed_state) % (2 ** 32))
+    return prior
 
 
 def generator(device="cuda"):

@@ -26,9 +26,10 @@ import time
 import numpy as np
 import torch
 
-from ..base import NumericDivergence
+from ..base import NumericDivergence, refuse_unported
 from .. import telemetry as _telemetry
 from .. import tracing as _tracing
+from .attention import decode_arm
 from .kv_cache import CacheExhausted, PagedKVCache
 
 __all__ = ["EngineCore"]
@@ -37,16 +38,27 @@ __all__ = ["EngineCore"]
 class EngineCore:
     """See module docstring.  ``model`` is a
     :class:`~tpu_mx_torch.serving.model.TinyLM`; the cache geometry and
-    device come from it.  ``dtype`` is the KV pool's storage type."""
+    device come from it.  ``dtype`` is the KV pool's storage type.
+    ``share_prefix``, ``forensics``, ``warm_batch`` and ``greedy`` must
+    keep the reference's defaults: prefix sharing, forensics, warm-up
+    and non-greedy sampling are not ported yet (ROADMAP A12)."""
 
     def __init__(self, model, block_size=16, num_blocks=256,
-                 dtype=torch.float32):
+                 dtype=torch.float32, share_prefix=None, forensics=None,
+                 warm_batch=None, greedy=True):
+        refuse_unported("EngineCore", "A12", share_prefix=(share_prefix, None),
+                        forensics=(forensics, None),
+                        warm_batch=(warm_batch, None), greedy=(greedy, True))
         self.model = model
         self.cache = PagedKVCache(
             model.num_layers, model.num_heads, model.head_dim,
             block_size=block_size, num_blocks=num_blocks, dtype=dtype,
             device=model.device)
-        _tracing.emit("serve.decode_path", path="paged",
+        _tracing.emit("serve.decode_path",
+                      path=decode_arm(model.head_dim, torch.float32,
+                                      self.cache.k_pool.dtype,
+                                      device_type=self.cache.k_pool.device
+                                      .type),
                       device=str(model.device), storage="device",
                       fused=True, spec_window=1, sampling="greedy")
 

@@ -28,7 +28,7 @@ import threading
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, refuse_unported
 from .. import device as _device
 from .. import telemetry as _telemetry
 
@@ -150,10 +150,20 @@ class PagedKVCache:
 
     ``dtype`` is the pool's storage type (float32, or bfloat16 to halve
     the decode kernel's bytes); values are computed in float32 and cast
-    on write."""
+    on write.  ``storage`` (the reference's ``"host"``/``"device"``) is
+    checked and otherwise ignored: the port's pools always live on
+    ``device``.  ``share_prefix``/``forensics`` must keep their defaults
+    (None): prefix sharing is not ported yet (ROADMAP A12)."""
 
     def __init__(self, num_layers, num_heads, head_dim, block_size=16,
-                 num_blocks=256, dtype=torch.float32, device="cuda"):
+                 num_blocks=256, dtype=torch.float32, storage="host",
+                 share_prefix=None, forensics=None, device="cuda"):
+        if storage not in ("host", "device"):
+            raise ValueError(f"storage must be 'host' or 'device', "
+                             f"got {storage!r}")
+        refuse_unported("PagedKVCache", "A12",
+                        share_prefix=(share_prefix, None),
+                        forensics=(forensics, None))
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)

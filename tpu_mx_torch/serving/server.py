@@ -27,7 +27,7 @@ import time
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, refuse_unported
 from .. import device as _device
 from .. import telemetry as _telemetry
 from .. import tracing as _tracing
@@ -47,12 +47,24 @@ class Server:
     ``max_pending``/``max_batch``/``max_tokens``/``tenants``;
     ``block_size``/``num_blocks``/``dtype`` size the paged cache;
     ``eos_id`` optionally ends generation early.  ``sampling`` must be
-    ``"greedy"``: top-k sampling is not ported yet."""
+    ``"greedy"``: top-k sampling is not ported yet.  The reference's
+    supervisor, black box, SLO, prefix-sharing, journal, sampling-seed
+    and replay arguments are accepted and must keep their defaults:
+    they are not ported yet (ROADMAP A10/A12)."""
 
     def __init__(self, model, *, scheduler=None, max_pending=64,
                  max_batch=8, max_tokens=8192, block_size=16,
-                 num_blocks=256, eos_id=None, tenants=None,
-                 dtype=torch.float32, sampling="greedy", device="cuda"):
+                 num_blocks=256, deadline=None, max_restarts=3,
+                 backoff=0.05, blackbox=None, eos_id=None, slo=None,
+                 tenants=None, prefix_sharing=None, dtype=torch.float32,
+                 journal=None, sampling="greedy", sampling_seed=0,
+                 replay=None, device="cuda"):
+        refuse_unported(
+            "Server", "A10/A12", deadline=(deadline, None),
+            max_restarts=(max_restarts, 3), backoff=(backoff, 0.05),
+            blackbox=(blackbox, None), slo=(slo, None),
+            prefix_sharing=(prefix_sharing, None), journal=(journal, None),
+            sampling_seed=(sampling_seed, 0), replay=(replay, None))
         dev = _device.resolve(device)
         if model.device.type != dev.type:
             raise MXNetError(f"Server(device={str(device)!r}): the model's "
