@@ -63,7 +63,32 @@ line each:
                  prove the flash forward, dq and dk/dv ran 12 times a
                  step (all three on the ``wgmma`` route the C entry
                  points report) and the paged kernel not at all;
-7. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
+7. ``resnet_parity`` — thin ResNetV1s (one block a stage; BasicBlock
+                 and Bottleneck, the classic and the space-to-depth
+                 stems; channels-last, float32) built on the card and on
+                 the CPU from one weight set: logits (eval mode) within
+                 2e-4, then three momentum-SGD steps through
+                 ``CompiledTrainStep`` whose losses agree within 1e-4
+                 and whose every weight and running statistic moves
+                 alike within 1e-2 in norm (a tensor that gets no
+                 gradient, a conv bias in front of a BatchNorm, within
+                 1e-5 absolute);
+8. ``resnet_train`` — the reference benchmark's ResNet-50 recipe
+                 (``bench.py::_resnet_once``) at full width:
+                 ``resnet50_v1(classes=1000, stem="s2d")`` built
+                 channels-last, Xavier, cast to bfloat16, softmax
+                 cross-entropy, SGD (lr 0.1, momentum 0.9, wd 1e-4,
+                 f32 masters) through ``CompiledTrainStep``, batch 256
+                 (128, said so, if 256 runs out of memory) of 224x224x3
+                 bfloat16 images, 1 warm-up and 5 timed steps (cuDNN
+                 autotuning on); step ms, images/s, peak memory and
+                 achieved TFLOP/s at 24.54 GFLOP an image against the
+                 989 TFLOP/s bf16 peak; checks that the losses are
+                 finite and fall, that the first convolution's input and
+                 weight are channels-last, and that no kernel of the
+                 port launched (the path is cuDNN, cuBLAS and PyTorch's
+                 own kernels);
+9. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
                  backward at BERT-base's attention width (B=32, H=12,
                  T=512, D=64, bf16, ragged ``valid_length``, dropout
                  0.1) for four float32 bias layouts: per head
@@ -79,7 +104,7 @@ line each:
                  memory, and ms with and without the bias, the bound,
                  the plain version's ms and SDPA's with the bias as a
                  float mask are recorded;
-8. ``rtc``     — the reference's rtc test kernels (``scale``, ``addmul``)
+10. ``rtc``    — the reference's rtc test kernels (``scale``, ``addmul``)
                  as CUDA source compiled at run time by
                  ``tpu_mx_torch.rtc`` and run on 2**26 float32 elements:
                  ``scale`` equals ``x * 3.0`` bit for bit, ``addmul``
@@ -139,6 +164,23 @@ BIAS_LAYOUTS = (("per_head", (1, 12, 512, 512)),
                 ("per_row", (TRAIN_BATCH, 12, 512, 512)),
                 ("shared", (1, 1, 512, 512)),
                 ("alibi", (1, 12, 1, 512)))
+
+# the ResNet slice: thin nets for parity, then the benchmark's recipe
+RESNET_THIN = {"basic": [8, 8, 16, 32, 64],
+               "bottleneck": [8, 16, 32, 64, 128]}
+# batch 8 at 64x64: there float32 on the CPU keeps to float64 within
+# 1.6e-5 in the losses over the three steps, in all four nets; at batch
+# 4 the classic-stem Bottleneck net's third loss moves 8.4e-3 between
+# the two (its max pools' near ties), beyond any float32 agreement
+RESNET_PARITY_BATCH, RESNET_PARITY_SIZE, RESNET_PARITY_STEPS = 8, 64, 3
+# the conv biases in front of a BatchNorm get no gradient in exact
+# arithmetic (the norm removes any per-channel shift): their change is
+# rounding, <= 3.4e-7 in norm at these shapes; the smallest real change
+# of a tensor is 0.033
+RESNET_UPDATE_ATOL = 1e-5
+RESNET_BATCHES = (256, 128)     # the reference's ladder, bench.py:490
+RESNET_SIZE, RESNET_CLASSES, RESNET_STEPS = 224, 1000, 5
+RESNET50_TRAIN_FLOPS_PER_IMG = 24.54e9   # bench.py:74: 3 x 2 x 4.09 GMAC
 
 RTC_N = 1 << 26     # float32 elements: 256 MB an operand
 RTC_SOURCE = r'''
@@ -863,6 +905,249 @@ def phase_train(ctx):
             ctx["failures"].append(f"train check {name} failed")
 
 
+def resnet_thin(block, stem, device, generator=None, params=None):
+    """A thin channels-last ResNetV1: Xavier-drawn from ``generator``, or
+    set from ``params`` (the reference's layout, conv weights OHWI)."""
+    from tpu_mx_torch import layout
+    from tpu_mx_torch.gluon.model_zoo import vision
+    cls = vision.BasicBlockV1 if block == "basic" else vision.BottleneckV1
+    args = (cls, [1, 1, 1, 1], RESNET_THIN[block])
+    if params is not None:
+        return vision.ResNetV1.from_numpy(params, *args, classes=10,
+                                          stem=stem, layout="NHWC",
+                                          device=device)
+    with layout.default_layout("NHWC"):
+        net = vision.ResNetV1(*args, classes=10, stem=stem, device=device,
+                              generator=generator)
+    return net.initialize("xavier", generator)
+
+
+def phase_resnet_parity(ctx):
+    """Thin channels-last ResNetV1s on the card against the CPU (float32):
+    logits, then three SGD steps' losses, weights and running stats."""
+    import torch
+
+    # PyTorch's oneDNN CPU convolution corrupts memory in the backward of
+    # a channels-last 1x1 stride-2 convolution at some small shapes (a
+    # segmentation fault, seen with torch 2.13 on the CPU); the host's
+    # half runs PyTorch's native CPU convolutions instead
+    prior = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        resnet_parity_cases(ctx, torch)
+    finally:
+        torch.backends.mkldnn.enabled = prior
+
+
+def resnet_parity_cases(ctx, torch):
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(3)
+    x = rng.rand(RESNET_PARITY_BATCH, RESNET_PARITY_SIZE, RESNET_PARITY_SIZE,
+                 3).astype(np.float32)
+    label = rng.randint(0, 10, RESNET_PARITY_BATCH).astype(np.float32)
+    cases, checks = {}, {}
+    for block in RESNET_THIN:
+        for stem in ("classic", "s2d"):
+            cpu = resnet_thin(block, stem, "cpu",
+                              torch.Generator().manual_seed(0))
+            params = {n: (t.permute(0, 2, 3, 1) if t.dim() == 4 else t)
+                      .detach().numpy()
+                      for n, t in cpu.collect_params().items()}
+            gpu = resnet_thin(block, stem, "cuda", params=params)
+            nets = {"cpu": cpu, "cuda": gpu}
+            with torch.no_grad():
+                logits = {d: n.eval()(torch.from_numpy(x).to(d)).cpu()
+                          for d, n in nets.items()}
+            logits_err = float((logits["cuda"] - logits["cpu"]).abs().max())
+            before = {n: t.detach().clone()
+                      for n, t in cpu.collect_params().items()}
+            losses = {}
+            for dev, net in nets.items():
+                step = CompiledTrainStep(
+                    net, loss.SoftmaxCrossEntropyLoss(),
+                    optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                                     wd=1e-4), device=dev)
+                data = torch.from_numpy(x).to(dev)
+                lab = torch.from_numpy(label).to(dev)
+                losses[dev] = [float(step.step(data, lab))
+                               for _ in range(RESNET_PARITY_STEPS)]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in
+                           zip(losses["cuda"], losses["cpu"]))
+            worst, worst_name, no_grad_diff, no_grad = 0.0, None, 0.0, 0
+            on_card = gpu.collect_params()
+            for n, t in cpu.collect_params().items():
+                d_cpu = t.detach() - before[n]
+                d_gpu = on_card[n].detach().cpu() - before[n]
+                diff, size = float((d_gpu - d_cpu).norm()), \
+                    float(d_cpu.norm())
+                if size <= RESNET_UPDATE_ATOL:
+                    no_grad += 1
+                    no_grad_diff = max(no_grad_diff, diff)
+                elif diff / size > worst:
+                    worst, worst_name = diff / size, n
+            name = f"{block}_{stem}"
+            cases[name] = dict(logits_max_abs_err=logits_err, losses=losses,
+                               loss_rel_err=loss_rel,
+                               worst_update_rel_err=worst,
+                               worst_update_tensor=worst_name,
+                               unmoved_tensors=no_grad,
+                               unmoved_max_abs_diff=no_grad_diff)
+            checks[f"{name}_logits"] = logits_err <= LOGITS_ATOL
+            checks[f"{name}_loss"] = loss_rel <= LOSS_RTOL
+            checks[f"{name}_updates"] = worst <= UPDATE_RTOL \
+                and no_grad_diff <= RESNET_UPDATE_ATOL
+            checks[f"{name}_finite"] = all(map(math.isfinite,
+                                               losses["cuda"]))
+    ctx["resnet_parity"] = cases
+    emit("resnet_parity", ok=all(checks.values()), checks=checks,
+         config=dict(layers=[1, 1, 1, 1], channels=RESNET_THIN,
+                     layout="NHWC", dtype="float32",
+                     batch=RESNET_PARITY_BATCH, size=RESNET_PARITY_SIZE,
+                     steps=RESNET_PARITY_STEPS,
+                     optimizer="sgd lr=0.1 momentum=0.9 wd=1e-4"),
+         cases=cases, logits_atol=LOGITS_ATOL, loss_rtol=LOSS_RTOL,
+         update_rtol=UPDATE_RTOL, update_atol=RESNET_UPDATE_ATOL,
+         seconds=time.perf_counter() - t0)
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"resnet_parity check {name} failed")
+
+
+def port_kernel_launches():
+    """The port's kernels' launch counters, by name (one count each)."""
+    from tpu_mx_torch import rtc
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.kernels import paged_attention as pa
+    return {"flash_attention_fwd": fa.flash_attention.launches,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+            "paged_attention": pa.paged_attention.launches,
+            "rtc": rtc.Kernel.launches}
+
+
+def reset_port_kernel_launches():
+    from tpu_mx_torch import rtc
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.kernels import paged_attention as pa
+    for c in (fa.flash_attention, fa.flash_attention_bwd_dq,
+              fa.flash_attention_bwd_dkv, pa.paged_attention, rtc.Kernel):
+        c.launches = 0
+
+
+def resnet_train_run(torch, batch):
+    """The recipe at ``batch``: setup, 1 warm-up and the timed steps."""
+    from tpu_mx_torch import layout, optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.gluon.model_zoo import vision
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with layout.default_layout("NHWC"):
+        net = vision.resnet50_v1(classes=RESNET_CLASSES, stem="s2d",
+                                 generator=gen)
+    net.initialize("xavier", gen)
+    net.cast("bfloat16")
+    step = CompiledTrainStep(net, loss.SoftmaxCrossEntropyLoss(),
+                             optimizer.create("sgd", learning_rate=0.1,
+                                              momentum=0.9, wd=1e-4,
+                                              multi_precision=True))
+    data = torch.rand((batch, RESNET_SIZE, RESNET_SIZE, 3), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    label = torch.randint(0, RESNET_CLASSES, (batch,), generator=gen,
+                          device="cuda").float()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    first = net.features[0].conv
+    seen = {"weight": first.weight.is_contiguous(
+        memory_format=torch.channels_last)}
+    hook = first.register_forward_pre_hook(lambda m, args: seen.update(
+        input=args[0].permute(0, 3, 1, 2).is_contiguous(
+            memory_format=torch.channels_last)))
+    t1 = time.perf_counter()
+    losses = [float(step.step(data, label))]     # warm-up: cuDNN autotunes
+    warmup_ms = (time.perf_counter() - t1) * 1e3
+    hook.remove()
+    torch.cuda.reset_peak_memory_stats()
+    reset_port_kernel_launches()
+    step_ms = []
+    for _ in range(RESNET_STEPS):
+        t1 = time.perf_counter()
+        losses.append(float(step.step(data, label)))   # ends in a host read
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = port_kernel_launches()
+    return dict(batch=batch, losses=losses, step_ms=step_ms,
+                warmup_ms=warmup_ms, setup_seconds=setup_s,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                channels_last=seen, launches=launches,
+                weight_dtype=str(first.weight.dtype),
+                running_var_dtype=str(net.features[0].bn.running_var.dtype))
+
+
+def phase_resnet_train(ctx):
+    """ResNet-50 v1 (s2d stem, channels-last, bf16, momentum SGD with f32
+    masters) at 224x224, batch 256, the reference benchmark's recipe."""
+    import torch
+
+    prior = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    fallback = []
+    try:
+        for batch in RESNET_BATCHES:
+            try:
+                rec = resnet_train_run(torch, batch)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                fallback.append(f"batch {batch}: {str(e)[:200]}")
+            torch.cuda.empty_cache()
+        else:
+            raise RuntimeError(f"resnet_train: every batch ran out of "
+                               f"memory: {fallback}")
+    finally:
+        torch.backends.cudnn.benchmark = prior
+    torch.cuda.empty_cache()
+    med = statistics.median(rec["step_ms"])
+    flops = RESNET50_TRAIN_FLOPS_PER_IMG * rec["batch"]
+    tflops = flops / (med * 1e-3) / 1e12
+    losses = rec["losses"]
+    checks = {
+        "finite": all(map(math.isfinite, losses)),
+        "loss_falls": losses[-1] < losses[0],
+        "first_conv_input_channels_last": rec["channels_last"].get("input",
+                                                                   False),
+        "first_conv_weight_channels_last": rec["channels_last"]["weight"],
+        "no_port_kernel_launched": not any(rec["launches"].values()),
+        "bf16_running_statistics": rec["running_var_dtype"]
+        == "torch.bfloat16",
+    }
+    ctx["resnet_launches"] = rec["launches"]
+    ctx["resnet_step_ms"] = med
+    emit("resnet_train", ok=all(checks.values()), checks=checks,
+         model=dict(factory="resnet50_v1", classes=RESNET_CLASSES,
+                    stem="s2d", layout="NHWC", dtype="bfloat16",
+                    init="xavier"),
+         optimizer="sgd lr=0.1 momentum=0.9 wd=1e-4 multi_precision",
+         batch=rec["batch"], batch_fallback=fallback, size=RESNET_SIZE,
+         reduced={"steps": f"1 warm-up + {RESNET_STEPS} timed (the "
+                           "reference's recipe: 3 + 30)"},
+         cudnn_benchmark=True, setup_seconds=rec["setup_seconds"],
+         warmup_ms=rec["warmup_ms"], losses=losses, step_ms=rec["step_ms"],
+         step_ms_median=med, images_per_sec=rec["batch"] / med * 1e3,
+         peak_memory_bytes=rec["peak_memory_bytes"],
+         flops_per_image=RESNET50_TRAIN_FLOPS_PER_IMG,
+         achieved_tflops=tflops, peak_tflops=BF16_FLOP_PER_S / 1e12,
+         share_of_peak=tflops * 1e12 / BF16_FLOP_PER_S,
+         launches=rec["launches"], channels_last=rec["channels_last"],
+         card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"resnet_train check {name} failed")
+
+
 def sum_to(x, shape):
     """``x`` summed over the axes where ``shape`` is 1 (a broadcast's
     gradient)."""
@@ -1147,6 +1432,8 @@ def main():
                      ("serve", phase_serve),
                      ("train_parity", phase_train_parity),
                      ("train", phase_train),
+                     ("resnet_parity", phase_resnet_parity),
+                     ("resnet_train", phase_resnet_train),
                      ("attention_bias", phase_attention_bias),
                      ("rtc", phase_rtc)):
         try:
@@ -1158,7 +1445,8 @@ def main():
             if name == "build":
                 break
     if ctx["failures"] or not {"kernels", "launches", "train_launches",
-                                "bias", "rtc"} <= ctx.keys():
+                                "resnet_parity", "resnet_launches", "bias",
+                                "rtc"} <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1
     launches = {**ctx["train_launches"],
@@ -1183,7 +1471,8 @@ def main():
                "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
                "library_ms": e["library_ms"], "shape": e["shape"],
                "tflops": e["tflops"], "bound_over_ms": e["bound_over_ms"],
-               "math_route": e["math_route"]}
+               "math_route": e["math_route"],
+               "launches_resnet": ctx["resnet_launches"][name]}
         if "ms_queued" in e:
             row["ms_queued"] = e["ms_queued"]
         path_routes = (ctx["decode_routes"] if name == "paged_attention"
@@ -1222,7 +1511,8 @@ def main():
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"], "shape": r["shape"],
                     "tflops": r["tflops"], "bound_over_ms": r["bound_over_ms"],
-                    "math_route": "ffma", "addmul": r["addmul"]})
+                    "math_route": "ffma", "addmul": r["addmul"],
+                    "launches_resnet": ctx["resnet_launches"]["rtc"]})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

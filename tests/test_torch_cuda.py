@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and
+the ResNet slice on the card against the CPU.
 
 Needs a CUDA card and ``nvcc``; every test here is marked ``cuda`` and
 skips without a card.  The file imports neither jax nor ``tpu_mx``, so
@@ -814,3 +815,110 @@ def test_serving_at_head_dim_80_takes_the_dense_arms_on_the_card():
         assert telemetry.get("serve.decode_attention", kind="dense").value \
             == 2 * telemetry.get("serve.decode_steps").value
     assert streams[0] == streams[1]
+
+
+# -- the ResNet slice on the card -------------------------------------------------
+def _thin_resnet(block, device, params=None):
+    from tpu_mx_torch import layout
+    from tpu_mx_torch.gluon.model_zoo import vision
+    cls = {"basic": vision.BasicBlockV1,
+           "bottleneck": vision.BottleneckV1}[block]
+    args = (cls, [1, 1, 1, 1], [8, 16, 32, 64, 128])
+    if params is not None:
+        return vision.ResNetV1.from_numpy(params, *args, classes=10,
+                                          stem="s2d", layout="NHWC",
+                                          device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    with layout.default_layout("NHWC"):
+        net = vision.ResNetV1(*args, classes=10, stem="s2d", device=device,
+                              generator=gen)
+    return net.initialize("xavier", gen)
+
+
+def _sgd_step(net, device, learning_rate=0.1, **kw):
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    return CompiledTrainStep(net, loss.SoftmaxCrossEntropyLoss(),
+                             optimizer.create("sgd",
+                                              learning_rate=learning_rate,
+                                              momentum=0.9, wd=1e-4, **kw),
+                             device=device)
+
+
+@pytest.mark.parametrize("block", ["basic", "bottleneck"])
+def test_thin_resnet_step_on_the_card_matches_the_cpu(block, monkeypatch):
+    """Three float32 SGD steps of a thin channels-last ResNetV1 on the
+    card and on the CPU from one weight set: losses within 1e-4, every
+    weight's and running statistic's change within 1e-2 in norm; a conv
+    bias in front of a BatchNorm gets no gradient in exact arithmetic,
+    so its change is rounding, held within 1e-5 absolute.  Batch 8:
+    there float32 keeps to float64 within 2e-5 in the losses."""
+    # the CPU's oneDNN channels-last 1x1 stride-2 backward corrupts
+    # memory at some small shapes (torch 2.13); use the native one
+    monkeypatch.setattr(torch.backends.mkldnn, "enabled", False)
+    cpu = _thin_resnet(block, "cpu")
+    before = {n: t.detach().clone() for n, t in cpu.collect_params().items()}
+    gpu = _thin_resnet(block, "cuda", params={
+        n: (t.permute(0, 2, 3, 1) if t.dim() == 4 else t).numpy()
+        for n, t in before.items()})
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.rand(8, 64, 64, 3).astype(np.float32))
+    label = torch.from_numpy(rng.randint(0, 10, 8).astype(np.float32))
+    losses = []
+    for net, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        step = _sgd_step(net, dev)
+        losses.append([float(step.step(x.to(dev), label.to(dev)))
+                       for _ in range(3)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    on_card = gpu.collect_params()
+    for n, t in cpu.collect_params().items():
+        d_cpu = t.detach() - before[n]
+        d_gpu = on_card[n].detach().cpu() - before[n]
+        assert float((d_gpu - d_cpu).norm()) \
+            <= 1e-2 * float(d_cpu.norm()) + 1e-5, n
+
+
+def test_resnet_activations_and_weights_stay_channels_last_on_the_card():
+    """Every convolution of a channels-last net sees and returns
+    channels-last tensors, and its weight keeps channels-last strides
+    through a bf16 step with float32 masters."""
+    from tpu_mx_torch.gluon import nn
+    net = _thin_resnet("bottleneck", "cuda").cast("bfloat16")
+    convs = [m for m in net.modules() if isinstance(m, nn.Conv2D)]
+    seen = []
+    hooks = [c.register_forward_hook(lambda m, args, out: seen.append((
+        args[0].permute(0, 3, 1, 2).is_contiguous(
+            memory_format=torch.channels_last),
+        out.permute(0, 3, 1, 2).is_contiguous(
+            memory_format=torch.channels_last)))) for c in convs]
+    step = _sgd_step(net, "cuda", multi_precision=True)
+    x = torch.rand((4, 64, 64, 3), device="cuda").to(torch.bfloat16)
+    step.step(x, torch.tensor([1.0, 2.0, 3.0, 4.0], device="cuda"))
+    for h in hooks:
+        h.remove()
+    assert len(seen) == len(convs) and all(a and b for a, b in seen)
+    for c in convs:
+        assert c.weight.is_contiguous(memory_format=torch.channels_last)
+    assert all(m.is_contiguous(memory_format=torch.channels_last)
+               for m in step.masters.values() if m.dim() == 4)
+
+
+def test_bf16_resnet18_step_at_64_is_finite_and_falls():
+    """The reference benchmark's smoke net (ResNet-18, 100 classes,
+    64x64): five bf16 SGD steps on one batch, losses finite and falling.
+    lr 0.01: at the recipe's 0.1 five steps on one small batch oscillate,
+    in float32 on the CPU as well."""
+    from tpu_mx_torch import layout
+    from tpu_mx_torch.gluon.model_zoo import vision
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with layout.default_layout("NHWC"):
+        net = vision.resnet18_v1(classes=100, stem="s2d", generator=gen)
+    net.initialize("xavier", gen).cast("bfloat16")
+    step = _sgd_step(net, "cuda", learning_rate=0.01, multi_precision=True)
+    x = torch.rand((16, 64, 64, 3), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    label = torch.randint(0, 100, (16,), generator=gen, device="cuda").float()
+    losses = [float(step.step(x, label)) for _ in range(5)]
+    assert all(math.isfinite(v) for v in losses)
+    assert losses[-1] < losses[0]

@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Where the port's BERT training step spends its time: a torch.profiler trace.
+"""Where the port's training step spends its time: a torch.profiler trace.
 
-    python3 torch_train_profile.py [--out DIR] [--steps N]
+    python3 torch_train_profile.py [--model bert|resnet50] [--out DIR]
+                                   [--steps N]
 
-Builds the training configuration of ``chip_smoke.py``'s train phase
-(BERT-base in bf16, dropout 0.1, LAMB with f32 masters, batch 32 x 512
-with ragged valid lengths), runs one warm-up step, then profiles N steps
-(default 2), each ending in a host read of its loss.  Prints one JSON
-line: the host wall time, the summed device time of every kernel (one
-stream, so the sum is the device's busy time), the idle share
-``1 - busy/wall``, the device time by group (the three flash kernels,
-matrix products, the rest) and the kernels with the most device time.
+Builds the training configuration of one of ``chip_smoke.py``'s phases:
+``bert`` (the default) that of ``train`` (BERT-base in bf16, dropout
+0.1, LAMB with f32 masters, batch 32 x 512 with ragged valid lengths),
+``resnet50`` that of ``resnet_train`` (ResNet-50 v1 with the
+space-to-depth stem, channels-last, bf16, momentum SGD with f32
+masters, batch 256 of 224x224 images, cuDNN autotuning on).  Runs one
+warm-up step, then profiles N steps (default 2), each ending in a host
+read of its loss.  Prints one JSON line: the host wall time, the summed
+device time of every kernel (one stream, so the sum is the device's busy
+time), the idle share ``1 - busy/wall``, device launches a step, the
+device time by group (BERT: the three flash kernels, matrix products,
+the rest; ResNet: cuDNN's convolutions, reductions, matrix products,
+the rest) and the kernels with the most device time.
 The profiler's host cost lengthens the wall time, so the idle share is
 an upper bound on the unprofiled run's.  The Chrome trace goes to
 ``DIR`` (default ``build/profile/``, git-ignored).  Needs one CUDA card.
@@ -29,39 +35,34 @@ import chip_smoke
 # kernel-name fragments of each group (the flash kernels are the port's,
 # FFMA or tensor-core instances; the matrix products are cuBLAS's: nvjet,
 # xmma and CUTLASS kernels)
-GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
-          ("flash_dq", ("flash_dq_kernel", "flash_dq_tc_kernel")),
-          ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_tc_kernel")),
-          ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
+MATMUL = ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas"))
+GROUPS = {
+    "bert": (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
+             ("flash_dq", ("flash_dq_kernel", "flash_dq_tc_kernel")),
+             ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_tc_kernel")),
+             MATMUL),
+    # cuDNN's convolution kernels (implicit GEMMs named fprop/dgrad/wgrad,
+    # cuDNN's CUTLASS instances) before the matrix-product names they
+    # share; BatchNorm's statistics are PyTorch's reduction kernels
+    "resnet50": (("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
+                 ("reduce", ("reduce_kernel", "norm_kernel")),
+                 MATMUL),
+}
 
 
-def group_of(name):
+def group_of(name, groups):
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=os.path.join("build", "profile"))
-    ap.add_argument("--steps", type=int, default=2)
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("torch_train_profile: no CUDA device available",
-              file=sys.stderr)
-        return 2
-    from torch.profiler import ProfilerActivity, profile
+def bert_step(torch):
     from tpu_mx_torch import optimizer
     from tpu_mx_torch.models import BERTModel, MLMLoss, bert_base_config
     from tpu_mx_torch.parallel import CompiledTrainStep
 
-    os.makedirs(args.out, exist_ok=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
     cfg = bert_base_config(max_len=chip_smoke.TRAIN_SEQ)
     rng = np.random.RandomState(0)
     lo, hi = chip_smoke.TRAIN_VALID
@@ -74,6 +75,52 @@ def main():
                     generator=torch.Generator(device="cuda").manual_seed(0))
     step = CompiledTrainStep(net, MLMLoss(), optimizer.create(
         "lamb", learning_rate=1e-4, multi_precision=True))
+    return step, batch
+
+
+def resnet50_step(torch):
+    from tpu_mx_torch import layout, optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.gluon.model_zoo import vision
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    torch.backends.cudnn.benchmark = True
+    batch, size = chip_smoke.RESNET_BATCHES[0], chip_smoke.RESNET_SIZE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with layout.default_layout("NHWC"):
+        net = vision.resnet50_v1(classes=chip_smoke.RESNET_CLASSES,
+                                 stem="s2d", generator=gen)
+    net.initialize("xavier", gen).cast("bfloat16")
+    step = CompiledTrainStep(net, loss.SoftmaxCrossEntropyLoss(),
+                             optimizer.create("sgd", learning_rate=0.1,
+                                              momentum=0.9, wd=1e-4,
+                                              multi_precision=True))
+    data = torch.rand((batch, size, size, 3), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    label = torch.randint(0, chip_smoke.RESNET_CLASSES, (batch,),
+                          generator=gen, device="cuda").float()
+    return step, (data, label)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(GROUPS), default="bert")
+    ap.add_argument("--out", default=os.path.join("build", "profile"))
+    ap.add_argument("--steps", type=int, default=2)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device available",
+              file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(args.out, exist_ok=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    step, batch = {"bert": bert_step,
+                   "resnet50": resnet50_step}[args.model](torch)
     float(step.step(*batch))                              # warm-up
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -88,15 +135,17 @@ def main():
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     groups = {}
     for e in kernels:
-        g = groups.setdefault(group_of(e.key), {"device_ms": 0.0,
-                                                "calls": 0})
+        g = groups.setdefault(group_of(e.key, GROUPS[args.model]),
+                              {"device_ms": 0.0, "calls": 0})
         g["device_ms"] += e.self_device_time_total / 1e3
         g["calls"] += e.count
-    prof.export_chrome_trace(os.path.join(args.out, "train_steps.json"))
+    prof.export_chrome_trace(os.path.join(args.out,
+                                          f"{args.model}_train_steps.json"))
     print(json.dumps({
-        "window": f"{args.steps} train steps", "losses": losses,
-        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "model": args.model, "window": f"{args.steps} train steps",
+        "losses": losses, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / wall_ms,
+        "launches_per_step": sum(e.count for e in kernels) / args.steps,
         "per_step": {k: {"device_ms": v["device_ms"] / args.steps,
                          "calls": v["calls"] / args.steps}
                      for k, v in sorted(groups.items())},

@@ -1,7 +1,9 @@
 """Where the port's tensors live: ``device=`` resolution.
 
-Every entry point of the port (``TinyLM``, ``Server``, the kernel
-wrappers) takes ``device=`` and defaults to ``"cuda"``.  The port is
+Every entry point of the port (``TinyLM``, ``Server``, the models, the
+kernel wrappers) takes ``device=`` and defaults to ``"cuda"``; a
+:class:`~tpu_mx_torch.context.Context` (``mx.gpu(0)``, ``mx.cpu()``) is
+taken wherever a device is.  The port is
 written for the card; with no card it raises :class:`MXNetError` rather
 than carry on slowly on the host.  The CPU is only ever used when a
 caller asks for it (``device="cpu"``), as the tests do — there each
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .base import MXNetError
+from .context import Context
 
 __all__ = ["DEFAULT_DEVICE", "resolve", "of", "as_tensor"]
 
@@ -23,9 +26,12 @@ DEFAULT_DEVICE = "cuda"
 
 
 def resolve(device=DEFAULT_DEVICE):
-    """``device`` as a :class:`torch.device`, checked: ``cuda`` needs a
-    card, and only ``cuda`` and ``cpu`` are taken."""
-    dev = torch.device(device)
+    """``device`` (a string, :class:`torch.device` or
+    :class:`~tpu_mx_torch.context.Context`) as a :class:`torch.device`,
+    checked: ``cuda`` needs a card, and only ``cuda`` and ``cpu`` are
+    taken."""
+    dev = device.torch_device() if isinstance(device, Context) \
+        else torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise MXNetError(

@@ -1,9 +1,10 @@
-"""The Gluon layer the BERT slice needs: :mod:`.nn` layers and :mod:`.loss`.
+"""The Gluon layer of the port: :mod:`.nn` layers, :mod:`.loss`, the
+blocks' shared base (:mod:`.block`) and the :mod:`.model_zoo`.
 
 The port's blocks are :class:`torch.nn.Module`s.  The reference's
-``Block``/``HybridBlock``/``Parameter``/``hybridize`` surface and
-``gluon.Trainer`` are not ported yet (ROADMAP A4).
+``Parameter``/``hybridize`` surface and ``gluon.Trainer`` are not ported
+yet (ROADMAP A4).
 """
-from . import loss, nn
+from . import block, loss, model_zoo, nn
 
-__all__ = ["loss", "nn"]
+__all__ = ["block", "loss", "model_zoo", "nn"]

@@ -1,21 +1,29 @@
-"""``Dense``, ``LayerNorm`` and ``Dropout`` from ``gluon/nn/basic_layers.py``.
+"""Basic layers from ``gluon/nn/basic_layers.py``: ``Dense``,
+``BatchNorm``, ``LayerNorm``, ``Dropout``, ``Activation``, ``Flatten``
+and ``HybridSequential``.
 
 As :class:`torch.nn.Module`s with the reference's parameter names
-(``weight``/``bias``, ``gamma``/``beta``) and initializers.  Shapes are
-declared up front (``in_units``/``in_channels``): the port has no
-deferred initialization.  Parameters are created on the device of the
-``generator`` that draws them, in ``dtype``.
+(``weight``/``bias``, ``gamma``/``beta``, ``running_mean``/
+``running_var``), order and initializers.  Shapes are declared up front
+(``in_units``/``in_channels``): the port has no deferred initialization.
+Parameters are created on the device of the ``generator`` that draws
+them, in ``dtype``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from ... import initializer as _init
+from ... import layout as _layout
 from ...base import MXNetError
 from ...ndarray import ops
+from ..block import HybridBlock, as_dtype, default_generator
 
-__all__ = ["Dense", "LayerNorm", "Dropout", "make_param"]
+__all__ = ["Dense", "BatchNorm", "LayerNorm", "Dropout", "Activation",
+           "Flatten", "HybridSequential", "make_param"]
 
 
 def make_param(name, shape, generator, dtype=torch.float32, init=None):
@@ -26,22 +34,119 @@ def make_param(name, shape, generator, dtype=torch.float32, init=None):
     return nn.Parameter(data)
 
 
-class Dense(nn.Module):
-    """``y = x·Wᵀ + b`` over the last axis (the reference's
-    ``flatten=False``; no activation: BERT applies gelu itself)."""
+class Activation(HybridBlock):
+    """``ops.Activation`` as a layer (``"relu"``, ``"sigmoid"``, ...)."""
 
-    def __init__(self, units, in_units=0, dtype=torch.float32,
-                 generator=None):
+    def __init__(self, activation):
+        super().__init__()
+        self._act_type = activation
+
+    def forward(self, x):
+        return ops.Activation(x, act_type=self._act_type)
+
+    def extra_repr(self):
+        return self._act_type
+
+
+class Dense(HybridBlock):
+    """``y = act(x·Wᵀ + b)``.  With ``flatten`` (the default) an input of
+    rank > 2 is reshaped to ``(N, prod(shape[1:]))`` first; with
+    ``flatten=False`` the product runs over the last axis (BERT).  With
+    ``use_bias=False`` there is no ``bias`` parameter."""
+
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype=torch.float32, weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, generator=None):
         super().__init__()
         if not in_units:
             raise MXNetError("Dense: in_units must be given (the port has "
                              "no deferred initialization)")
-        self.weight = make_param("weight", (units, in_units), generator,
-                                 dtype)
-        self.bias = make_param("bias", (units,), generator, dtype)
+        g, dt = default_generator(generator), as_dtype(dtype)
+        self._flatten = flatten
+        self._declare("weight", (units, in_units), weight_initializer, dt, g)
+        if use_bias:
+            self._declare("bias", (units,), bias_initializer, dt, g)
+        else:
+            self.bias = None
+        self.act = Activation(activation) if activation else None
 
     def forward(self, x):
-        return ops.FullyConnected(x, self.weight, self.bias)
+        out = ops.FullyConnected(x, self.weight, self.bias,
+                                 no_bias=self.bias is None,
+                                 flatten=self._flatten)
+        return self.act(out) if self.act is not None else out
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization with the reference's numerics
+    (``basic_layers.py:BatchNorm``, its one-pass form).
+
+    In training (``module.train()``, unless ``use_global_stats``) the
+    statistics over every axis but ``axis`` are float32 (float64 for a
+    float64 input) sums
+    ``s1 = Σx``, ``s2 = Σx²`` of ``n`` elements: ``mean = s1/n``,
+    ``var = max(s2/n - mean², 0)``, the biased (population) variance,
+    both for the normalization and for the running statistics, which
+    become ``m·rs + (1 - m)·stat`` in their own dtype (``m`` =
+    ``momentum``).  This is not ``F.batch_norm``'s update, which keeps the
+    unbiased variance and takes ``1 - m`` as its momentum.  Otherwise the
+    running statistics normalize.  The normalization is one float32
+    per-channel scale and bias, cast once to ``x``'s dtype:
+    ``x·scale + bias``.  ``axis=None`` follows ``layout.bn_axis()``:
+    1 channels-first, -1 under a channels-last default."""
+
+    def __init__(self, axis=None, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        if not in_channels:
+            raise MXNetError("BatchNorm: in_channels must be given (the "
+                             "port has no deferred initialization)")
+        g, dt = default_generator(generator), as_dtype(dtype)
+        self._axis = _layout.bn_axis() if axis is None else axis
+        self._momentum = momentum
+        self._eps = epsilon
+        self._center = center
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        shape = (in_channels,)
+        self._declare("gamma", shape, gamma_initializer, dt, g, grad=scale)
+        self._declare("beta", shape, beta_initializer, dt, g, grad=center)
+        self._declare("running_mean", shape, running_mean_initializer, dt, g,
+                      aux=True)
+        self._declare("running_var", shape, running_variance_initializer,
+                      dt, g, aux=True)
+
+    def forward(self, x):
+        axis = self._axis % x.dim()
+        shape = [1] * x.dim()
+        shape[axis] = x.shape[axis]
+        red = tuple(i for i in range(x.dim()) if i != axis)
+        gamma = self.gamma if self._scale else torch.ones_like(self.gamma)
+        beta = self.beta if self._center else torch.zeros_like(self.beta)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        if self.training and not self._use_global_stats:
+            n = math.prod(x.shape[i] for i in red)
+            s1 = torch.sum(x, dim=red, dtype=acc)
+            # Σx² in float32 without a float32 copy of x kept for the
+            # backward: the norm saves x itself
+            s2 = torch.linalg.vector_norm(x, 2, dim=red, dtype=acc).square()
+            mean = s1 * (1.0 / n)
+            var = torch.clamp_min(s2 * (1.0 / n) - mean.square(), 0.0)
+            with torch.no_grad():
+                m = self._momentum
+                for rs, stat in ((self.running_mean, mean),
+                                 (self.running_var, var)):
+                    rs.copy_(m * rs + (1 - m) * stat.to(rs.dtype))
+        else:
+            mean = self.running_mean.to(acc)
+            var = self.running_var.to(acc)
+        scale = torch.rsqrt(var + self._eps) * gamma.to(acc)
+        bias = beta.to(acc) - mean * scale
+        return torch.addcmul(bias.to(x.dtype).view(shape), x,
+                             scale.to(x.dtype).view(shape))
 
 
 class LayerNorm(nn.Module):
@@ -73,3 +178,38 @@ class Dropout(nn.Module):
 
     def forward(self, x):
         return ops.Dropout(x, self._rate, self._generator, self.training)
+
+
+class Flatten(HybridBlock):
+    """``(N, ...)`` → ``(N, prod(...))``."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class HybridSequential(HybridBlock):
+    """Children run in the order added; the i-th is named ``"i"``, as
+    the reference's ``_children`` keys."""
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.add_module(str(len(self._modules)), b)
+
+    def forward(self, x):
+        for block in self._modules.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, key):
+        items = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)()
+            net.add(*items[key])
+            return net
+        return items[key]
+
+    def __iter__(self):
+        return iter(self._modules.values())

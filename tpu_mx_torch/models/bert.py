@@ -19,7 +19,6 @@ mesh (ROADMAP A16); passing them raises.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -27,14 +26,13 @@ from .. import device as _device
 from .. import random as _random
 from ..base import MXNetError, refuse_unported
 from ..gluon import loss as _loss
+from ..gluon.block import as_dtype, load_numpy
 from ..gluon.nn import Dense, Dropout, LayerNorm, make_param
 from ..ndarray import ops
 from ..parallel import attention as _attention
 
 __all__ = ["BERTModel", "BERTEncoder", "TransformerLayer", "SelfAttention",
            "MLMLoss", "bert_base_config"]
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def bert_base_config(vocab_size=30522, max_len=512):
@@ -61,7 +59,8 @@ class SelfAttention(nn.Module):
     def forward(self, x, valid_length=None):
         b, t, u = x.shape
         h = self._heads
-        qkv = ops.FullyConnected(x, self.qkv_weight, self.qkv_bias)  # (B,T,3U)
+        qkv = ops.FullyConnected(x, self.qkv_weight, self.qkv_bias,
+                                 flatten=False)               # (B,T,3U)
         q, k, v = qkv.reshape(b, t, 3, h, u // h).permute(2, 0, 3, 1, 4) \
             .unbind(0)                                           # (B,H,T,D)
         # attention-probability dropout in training only, one seed a call
@@ -71,7 +70,8 @@ class SelfAttention(nn.Module):
                          valid_length=valid_length, dropout_rate=rate,
                          dropout_seed=seed)
         out = out.transpose(1, 2).reshape(b, t, u)
-        return ops.FullyConnected(out, self.attnout_weight, self.attnout_bias)
+        return ops.FullyConnected(out, self.attnout_weight, self.attnout_bias,
+                                  flatten=False)
 
 
 class TransformerLayer(nn.Module):
@@ -99,8 +99,10 @@ class TransformerLayer(nn.Module):
         if self.dropout is not None:
             att = self.dropout(att)
         x = self.ln1(x + att)
-        h = ops.gelu(ops.FullyConnected(x, self.ffn1_weight, self.ffn1_bias))
-        h = ops.FullyConnected(h, self.ffn2_weight, self.ffn2_bias)
+        h = ops.gelu(ops.FullyConnected(x, self.ffn1_weight, self.ffn1_bias,
+                                        flatten=False))
+        h = ops.FullyConnected(h, self.ffn2_weight, self.ffn2_bias,
+                               flatten=False)
         if self.dropout is not None:
             h = self.dropout(h)
         return self.ln2(x + h)
@@ -171,12 +173,13 @@ class BERTModel(nn.Module):
         if gen.device.type != dev.type:
             raise MXNetError(f"BERTModel(device={str(device)!r}): the "
                              f"generator lives on {gen.device}")
-        dt = _DTYPES[dtype] if isinstance(dtype, str) else dtype
+        dt = as_dtype(dtype)
         self._cfg = cfg
         units = cfg["units"]
         self.mlm_bias = make_param("mlm_bias", (cfg["vocab_size"],), gen, dt)
         self.encoder = BERTEncoder(dtype=dt, generator=gen, **cfg)
-        self.mlm_dense = Dense(units, in_units=units, dtype=dt, generator=gen)
+        self.mlm_dense = Dense(units, flatten=False, in_units=units, dtype=dt,
+                               generator=gen)
         self.mlm_ln = LayerNorm(in_channels=units, dtype=dt, generator=gen)
 
     def forward(self, tokens, token_types, valid_length=None,
@@ -204,26 +207,10 @@ class BERTModel(nn.Module):
         prefixes (``selfattention3_qkv_weight``), so the i-th array goes
         to the port's i-th parameter, after checking that its name ends in
         the port parameter's name and that the shapes agree: every array
-        is consumed once and every parameter is set."""
-        model = cls(config, dtype=dtype, device=device, generator=generator)
-        ours = list(model.named_parameters())
-        theirs = list(params.items())
-        if len(ours) != len(theirs):
-            raise MXNetError(f"from_numpy: {len(theirs)} arrays for "
-                             f"{len(ours)} parameters")
-        with torch.no_grad():
-            for (name, p), (ref, arr) in zip(ours, theirs):
-                leaf = name.rsplit(".", 1)[-1]
-                if not (ref == leaf or ref.endswith(("_" + leaf, "." + leaf))):
-                    raise MXNetError(f"from_numpy: array {ref!r} does not "
-                                     f"match parameter {name!r}")
-                arr = np.array(arr, dtype=np.float32)
-                if tuple(arr.shape) != tuple(p.shape):
-                    raise MXNetError(f"from_numpy: {ref!r} has shape "
-                                     f"{arr.shape}, {name!r} wants "
-                                     f"{tuple(p.shape)}")
-                p.copy_(torch.from_numpy(arr))
-        return model
+        is consumed once and every parameter is set
+        (``gluon.block.load_numpy``)."""
+        return load_numpy(cls(config, dtype=dtype, device=device,
+                              generator=generator), params)
 
 
 class MLMLoss(_loss.Loss):

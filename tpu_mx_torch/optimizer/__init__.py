@@ -1,4 +1,4 @@
-"""Optimizers (:mod:`.optimizer`): the base, the registry and LAMB."""
-from .optimizer import LAMB, Optimizer, create, register, registry
+"""Optimizers (:mod:`.optimizer`): the base, the registry, SGD and LAMB."""
+from .optimizer import LAMB, SGD, Optimizer, create, register, registry
 
-__all__ = ["Optimizer", "LAMB", "create", "register", "registry"]
+__all__ = ["Optimizer", "SGD", "LAMB", "create", "register", "registry"]

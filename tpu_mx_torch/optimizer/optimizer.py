@@ -1,4 +1,5 @@
-"""Optimizers from ``tpu_mx/optimizer/optimizer.py``: the base and LAMB.
+"""Optimizers from ``tpu_mx/optimizer/optimizer.py``: the base, SGD and
+LAMB.
 
 As in the reference, an optimizer's math is a pure functional core,
 ``update_core(weight, grad, state, lr, wd, t) -> (new_weight,
@@ -6,13 +7,15 @@ new_state)``, here on tensors; ``CompiledTrainStep`` applies it to the
 float32 masters of low-precision parameters when ``multi_precision`` is
 set.  The imperative ``update``/``Updater`` face, lr schedulers, the
 per-parameter lr/wd multipliers and the other optimizers (Adam, AdamW,
-SGD, ...) are not ported yet (ROADMAP A5).
+...) are not ported yet (ROADMAP A5).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["Optimizer", "LAMB", "create", "register", "registry"]
+from ..ndarray import ops
+
+__all__ = ["Optimizer", "SGD", "LAMB", "create", "register", "registry"]
 
 registry = {}
 
@@ -60,6 +63,39 @@ class Optimizer:
         return g
 
 
+def _state_dtype(weight):
+    return torch.float32 if weight.dtype in (torch.float16, torch.bfloat16) \
+        else weight.dtype
+
+
+@register
+class SGD(Optimizer):
+    """SGD, with momentum the reference's rule
+    (``ops.sgd_mom_update_core``): ``mom = momentum·mom - lr·(g + wd·w);
+    w += mom``.  Weight decay applies to every parameter it is given.
+    The momentum is float32 for a low-precision weight and has the
+    weight's memory format.  ``lazy_update`` (sparse gradients) is taken
+    and has no effect: the port's gradients are dense."""
+
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return torch.zeros_like(weight, dtype=_state_dtype(weight))
+        return None
+
+    def update_core(self, weight, grad, state, lr, wd, t):
+        if self.momentum == 0.0:
+            return ops.sgd_update_core(weight, grad, lr, wd,
+                                       self.rescale_grad,
+                                       self.clip_gradient), None
+        return ops.sgd_mom_update_core(weight, grad, state, lr,
+                                       self.momentum, wd, self.rescale_grad,
+                                       self.clip_gradient)
+
+
 @register
 class LAMB(Optimizer):
     """Layer-wise adaptive large-batch optimizer (the BERT path).  The
@@ -75,9 +111,7 @@ class LAMB(Optimizer):
         self.bias_correction = bias_correction
 
     def create_state(self, index, weight):
-        dt = torch.float32 if weight.dtype in (torch.float16,
-                                               torch.bfloat16) \
-            else weight.dtype
+        dt = _state_dtype(weight)
         return (torch.zeros(weight.shape, dtype=dt, device=weight.device),
                 torch.zeros(weight.shape, dtype=dt, device=weight.device))
 

@@ -13,8 +13,12 @@ reference's contract:
 - ``accum_steps=K``: every K-th call applies the update with the mean of
   the last K microbatch gradients (accumulated in float32);
 - the step counter ``t`` starts at 1 for the first applied update;
-- ``state_dict``/``load_state_dict`` snapshot and restore weights,
-  masters, optimizer state and ``t``;
+- the network's buffers (BatchNorm's running statistics, the
+  reference's ``grad_req="null"`` parameters) are step state: they
+  change in the forward of every call, every microbatch included, and
+  ``state_dict``/``load_state_dict`` snapshot and restore them beside
+  the weights, masters, optimizer state and ``t`` (masters and
+  optimizer state exist for the differentiable parameters only);
 - telemetry: ``train_step.steps``, ``train_step.recompiles`` (counted
   once, when the step builds its state at its first call),
   ``train_step.seconds`` and ``train_step.examples_per_sec`` (host time
@@ -83,7 +87,8 @@ class CompiledTrainStep:
         self._params = dict(net.named_parameters())
         if not self._params:
             raise ValueError("net has no parameters")
-        foreign = sorted({str(p.device) for p in self._params.values()
+        foreign = sorted({str(p.device) for p in (*self._params.values(),
+                                                  *net.buffers())
                           if p.device.type != self.device.type})
         if foreign:
             raise MXNetError(f"CompiledTrainStep(device={str(device)!r}): "
@@ -201,10 +206,16 @@ class CompiledTrainStep:
             _telemetry.gauge("train_step.examples_per_sec").set(n / dt)
 
     # -- snapshots --------------------------------------------------------------
+    def _values(self):
+        """The parameters and, read now (``cast`` replaces them), the
+        buffers of the net, by name."""
+        return {**self._params, **dict(self.net.named_buffers())}
+
     def state_dict(self):
-        """Copies of the weights, masters, optimizer state and ``t``."""
+        """Copies of the weights and buffers (``values``), masters,
+        optimizer state and ``t``."""
         clone = lambda x: x.detach().clone()
-        return {"values": {k: clone(p) for k, p in self._params.items()},
+        return {"values": {k: clone(p) for k, p in self._values().items()},
                 "masters": {k: clone(v) for k, v in self.masters.items()},
                 "opt_states": {k: tuple(clone(x) for x in s)
                                if isinstance(s, tuple) else s
@@ -216,9 +227,10 @@ class CompiledTrainStep:
         accumulation is dropped (it was taken against other weights)."""
         if self._build_count == 0:
             self._build()
+        values = self._values()
         with torch.no_grad():
             for k, v in sd["values"].items():
-                self._params[k].copy_(v)
+                values[k].copy_(v)
             self.masters = {k: v.detach().clone().to(self.device)
                             for k, v in sd["masters"].items()}
             self.opt_states = {
