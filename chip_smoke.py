@@ -88,7 +88,38 @@ line each:
                  weight are channels-last, and that no kernel of the
                  port launched (the path is cuDNN, cuBLAS and PyTorch's
                  own kernels);
-9. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
+9. ``lstm_parity`` — thin word-LMs (vocabulary 200, 2 layers of 32,
+                 float32: ``RNNModel`` LSTM and GRU, and an embedding →
+                 bidirectional LSTM → decoder net) built on the card and
+                 on the CPU from one weight set: logits (eval mode)
+                 within 2e-4, then three SGD steps (lr 1.0, the
+                 benchmark's ``FlatCE`` loss) through
+                 ``CompiledTrainStep`` whose losses agree within 1e-4
+                 and whose every tensor moves alike within 1e-2 in norm.
+                 This holds the ``fused`` arm of the recurrence (cuDNN's
+                 RNN, ``rnn.arm{kind="fused"}``) against the ``scan``
+                 arm (plain PyTorch, the CPU's).  Also what cuDNN's copy
+                 of the separate weights into one buffer costs: the
+                 fused float32 forward of the full-width LSTM at batch
+                 512 against ``torch.nn.LSTM`` on its packed buffer, and
+                 that cuDNN warns of the copy;
+10. ``lstm_train`` — the reference benchmark's PTB LSTM recipe
+                 (``bench.py::_lstm_once``) at full width: ``RNNModel``
+                 2 x 650, vocabulary 10k, Xavier, cast to bfloat16,
+                 ``FlatCE``, SGD lr 1.0 with f32 masters through
+                 ``CompiledTrainStep``, bptt 35 at batch 2048 (1024, then
+                 512, said so, if it runs out of memory), float32 token
+                 ids from ``np.random.RandomState(0)``; 1 warm-up, one
+                 profiled step (the kernels that ran, the device's busy
+                 time) and 5 timed steps; step ms, tokens/s, peak
+                 memory and achieved TFLOP/s at 79.6 MFLOP a token
+                 against the 989 TFLOP/s bf16 peak; checks that the
+                 losses are finite and fall, that every step took the
+                 ``fused`` arm on cuDNN's RNN kernels, and that no
+                 kernel of the port launched; then the same run on the
+                 plain ``scan`` arm (its step ms beside the fused arm's;
+                 its losses within 2e-2 of the fused arm's);
+11. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
                  backward at BERT-base's attention width (B=32, H=12,
                  T=512, D=64, bf16, ragged ``valid_length``, dropout
                  0.1) for four float32 bias layouts: per head
@@ -104,7 +135,7 @@ line each:
                  memory, and ms with and without the bias, the bound,
                  the plain version's ms and SDPA's with the bias as a
                  float mask are recorded;
-10. ``rtc``    — the reference's rtc test kernels (``scale``, ``addmul``)
+12. ``rtc``    — the reference's rtc test kernels (``scale``, ``addmul``)
                  as CUDA source compiled at run time by
                  ``tpu_mx_torch.rtc`` and run on 2**26 float32 elements:
                  ``scale`` equals ``x * 3.0`` bit for bit, ``addmul``
@@ -181,6 +212,16 @@ RESNET_UPDATE_ATOL = 1e-5
 RESNET_BATCHES = (256, 128)     # the reference's ladder, bench.py:490
 RESNET_SIZE, RESNET_CLASSES, RESNET_STEPS = 224, 1000, 5
 RESNET50_TRAIN_FLOPS_PER_IMG = 24.54e9   # bench.py:74: 3 x 2 x 4.09 GMAC
+
+# the PTB LSTM slice: thin word-LMs for parity, then the benchmark's recipe
+LSTM_THIN = dict(vocab_size=200, num_embed=32, num_hidden=32, num_layers=2)
+LSTM_PARITY_BPTT, LSTM_PARITY_BATCH, LSTM_PARITY_STEPS = 12, 8, 3
+LSTM_PARITY_LR = 1.0                          # the recipe's
+LSTM_CFG = dict(mode="lstm", vocab_size=10000, num_embed=650,
+                num_hidden=650, num_layers=2, dropout=0.0)
+LSTM_BATCHES = (2048, 1024, 512)    # the reference's ladder, bench.py:749
+LSTM_BPTT, LSTM_STEPS = 35, 5
+LSTM_FLOPS_PER_TOKEN = 79.6e6       # BASELINE.md:43: 26.5 MFLOP fwd x 3
 
 RTC_N = 1 << 26     # float32 elements: 256 MB an operand
 RTC_SOURCE = r'''
@@ -1148,6 +1189,344 @@ def phase_resnet_train(ctx):
             ctx["failures"].append(f"resnet_train check {name} failed")
 
 
+# -- the PTB LSTM slice ---------------------------------------------------------
+def flat_ce():
+    """The reference benchmark's word-LM loss (``bench.py::_lstm_once``):
+    the ``(T, N, V)`` logits reshaped to ``(T·N, V)`` and upcast to
+    float32, then softmax cross-entropy."""
+    from tpu_mx_torch.gluon import loss
+
+    class FlatCE(loss.Loss):
+        def __init__(self):
+            super().__init__(weight=None, batch_axis=0)
+            self._ce = loss.SoftmaxCrossEntropyLoss()
+
+        def forward(self, logits, labels):
+            return self._ce(logits.reshape(-1, logits.shape[-1]).float(),
+                            labels.reshape(-1))
+    return FlatCE()
+
+
+def lstm_thin(kind, device, generator=None, params=None):
+    """A thin word-LM on ``device``: ``RNNModel`` (``"lstm"``, ``"gru"``)
+    or, for ``"bi_lstm"``, embedding → bidirectional 2-layer LSTM →
+    decoder.  Xavier-drawn from ``generator``, or set from ``params``
+    (numpy, the reference's order)."""
+    import torch
+    from tpu_mx_torch import device as _device
+    from tpu_mx_torch.gluon import nn, rnn
+    from tpu_mx_torch.gluon.block import load_numpy
+    from tpu_mx_torch.models import RNNModel
+
+    _device.resolve(device)          # TF32 off on the card
+    cfg = LSTM_THIN
+    gen = generator if generator is not None else torch.Generator(
+        device=device)
+    if kind == "bi_lstm":
+        net = nn.HybridSequential()
+        net.add(nn.Embedding(cfg["vocab_size"], cfg["num_embed"],
+                             generator=gen),
+                rnn.LSTM(cfg["num_hidden"], cfg["num_layers"],
+                         bidirectional=True, input_size=cfg["num_embed"],
+                         generator=gen),
+                nn.Dense(cfg["vocab_size"], flatten=False,
+                         in_units=2 * cfg["num_hidden"], generator=gen))
+    else:
+        net = RNNModel(kind, dropout=0.0, device=device, generator=gen,
+                       **cfg)
+    if params is not None:
+        return load_numpy(net, params)
+    return net.initialize("xavier", gen)
+
+
+def phase_lstm_parity(ctx):
+    """Thin LSTM, GRU and bidirectional word-LMs (float32) on the card
+    (the ``fused`` arm: cuDNN) against the CPU (the ``scan`` arm) from
+    one weight set: logits, then three SGD steps' losses and per-tensor
+    changes.  Also the cost of cuDNN's copy of the separate weights into
+    one buffer, at full width."""
+    import torch
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.ndarray import rnn_op
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(4)
+    v = LSTM_THIN["vocab_size"]
+    x = rng.randint(0, v, (LSTM_PARITY_BPTT, LSTM_PARITY_BATCH)) \
+        .astype(np.float32)
+    y = rng.randint(0, v, (LSTM_PARITY_BPTT * LSTM_PARITY_BATCH,)) \
+        .astype(np.float32)
+    cases, checks, arms = {}, {}, {}
+    for kind in ("lstm", "gru", "bi_lstm"):
+        cpu = lstm_thin(kind, "cpu", torch.Generator().manual_seed(0))
+        params = {n: t.detach().numpy()
+                  for n, t in cpu.collect_params().items()}
+        gpu = lstm_thin(kind, "cuda", params=params)
+        nets = {"cpu": cpu, "cuda": gpu}
+        with torch.no_grad():
+            logits = {d: n.eval()(torch.from_numpy(x).to(d)).cpu()
+                      for d, n in nets.items()}
+        logits_err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        before = {n: t.detach().clone()
+                  for n, t in cpu.collect_params().items()}
+        losses = {}
+        for dev, net in nets.items():
+            step = CompiledTrainStep(net, flat_ce(), optimizer.create(
+                "sgd", learning_rate=LSTM_PARITY_LR), device=dev)
+            counts = arm_counts()
+            data, lab = (torch.from_numpy(a).to(dev) for a in (x, y))
+            losses[dev] = [float(step.step(data, lab))
+                           for _ in range(LSTM_PARITY_STEPS)]
+            arms[f"{kind}_{dev}"] = {k: n - counts[k]
+                                     for k, n in arm_counts().items() if n
+                                     - counts[k]}
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(losses["cuda"], losses["cpu"]))
+        worst, worst_name = 0.0, None
+        on_card = gpu.collect_params()
+        for n, t in cpu.collect_params().items():
+            d_cpu = t.detach() - before[n]
+            d_gpu = on_card[n].detach().cpu() - before[n]
+            rel = float((d_gpu - d_cpu).norm() / d_cpu.norm())
+            if rel > worst:
+                worst, worst_name = rel, n
+        cases[kind] = dict(logits_max_abs_err=logits_err, losses=losses,
+                           loss_rel_err=loss_rel, worst_update_rel_err=worst,
+                           worst_update_tensor=worst_name)
+        checks[f"{kind}_logits"] = logits_err <= LOGITS_ATOL
+        checks[f"{kind}_loss"] = loss_rel <= LOSS_RTOL
+        checks[f"{kind}_updates"] = worst <= UPDATE_RTOL
+        checks[f"{kind}_finite"] = all(map(math.isfinite, losses["cuda"]))
+        checks[f"{kind}_arms"] = \
+            set(arms[f"{kind}_cpu"]) == {"scan"} and \
+            set(arms[f"{kind}_cuda"]) == {"fused"}
+    copy = cudnn_weight_copy(torch, rnn_op)
+    checks["cudnn_copies_separate_weights"] = copy["warned"]
+    emit("lstm_parity", ok=all(checks.values()), checks=checks,
+         config=dict(LSTM_THIN, dtype="float32", bptt=LSTM_PARITY_BPTT,
+                     batch=LSTM_PARITY_BATCH, steps=LSTM_PARITY_STEPS,
+                     optimizer=f"sgd lr={LSTM_PARITY_LR}", loss="FlatCE"),
+         cases=cases, arms=arms,
+         logits_atol=LOGITS_ATOL, loss_rtol=LOSS_RTOL,
+         update_rtol=UPDATE_RTOL, weight_copy=copy, card=ctx["smi"],
+         seconds=time.perf_counter() - t0)
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"lstm_parity check {name} failed")
+
+
+def arm_counts():
+    from tpu_mx_torch import telemetry
+    from tpu_mx_torch.ndarray import rnn_op
+    return {k: telemetry.counter("rnn.arm", kind=k).value
+            for k in rnn_op.ARMS}
+
+
+def cudnn_weight_copy(torch, rnn_op):
+    """What cuDNN's copy of the separate weights costs: the port's fused
+    call (float32, the full-width LSTM, forward) against the same call
+    on one packed buffer (``torch.nn.LSTM`` after
+    ``flatten_parameters()``, its library form), and whether cuDNN
+    warned that it copies."""
+    import warnings
+    e, h, n = LSTM_CFG["num_embed"], LSTM_CFG["num_hidden"], \
+        LSTM_BATCHES[-1]
+    layers = LSTM_CFG["num_layers"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lib = torch.nn.LSTM(e, h, layers, device="cuda")
+    with torch.no_grad():
+        for p in lib.parameters():
+            p.copy_(torch.rand(p.shape, generator=gen, device="cuda") * 0.08
+                    - 0.04)
+    lib.flatten_parameters()
+    weights = [p.detach().clone() for p in lib.parameters()]
+    x = torch.randn((LSTM_BPTT, n, e), generator=gen, device="cuda")
+    st = [torch.zeros((layers, n, h), device="cuda") for _ in range(2)]
+    with torch.no_grad(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ours = rnn_op.recurrence("lstm", x, st, weights, layers,
+                                 arm="fused")[0]
+        ref = lib(x, tuple(st))[0]
+        ms = cuda_ms(torch, lambda: rnn_op.recurrence(
+            "lstm", x, st, weights, layers, arm="fused"), reps=10)
+        lib_ms = cuda_ms(torch, lambda: lib(x, tuple(st)), reps=10)
+        copy_ms = cuda_ms(torch, lambda: torch.cat(
+            [w.reshape(-1) for w in weights]), reps=10)
+    warned = [str(w.message)[:160] for w in caught
+              if "contiguous chunk" in str(w.message)]
+    return dict(shape=[LSTM_BPTT, n, e], layers=layers, ms=ms,
+                packed_ms=lib_ms, cat_ms=copy_ms,
+                max_abs_err=float((ours - ref).abs().max()),
+                warned=bool(warned), warning=warned[:1])
+
+
+def device_busy_ms(torch, prof):
+    """Milliseconds in which at least one kernel ran, from a profile's
+    kernel intervals (cuDNN's RNN runs kernels on several streams at
+    once, so the kernels' summed time exceeds the busy time)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for start, stop in spans:
+        if end is None or start > end:
+            busy, end = busy + stop - start, stop
+        elif stop > end:
+            busy, end = busy + stop - end, stop
+    return busy / 1e3
+
+
+def lstm_train_run(torch, batch, arm=None):
+    """The recipe at ``batch``: setup, 1 warm-up, one profiled step (the
+    kernels that ran) and the timed steps.  ``arm`` replaces the rule's
+    choice of arm for this run (the ``scan`` arm's time beside the
+    ``fused`` one's, as a kernel's plain version beside it)."""
+    from unittest import mock
+    from tpu_mx_torch.ndarray import rnn_op
+
+    if arm is None:
+        return lstm_train_steps(torch, batch)
+    with mock.patch.object(rnn_op, "rnn_arm", lambda *args: arm):
+        return lstm_train_steps(torch, batch)
+
+
+def lstm_train_steps(torch, batch):
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.models import RNNModel
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = RNNModel(generator=gen, **LSTM_CFG)
+    net.initialize("xavier", gen)
+    net.cast("bfloat16")
+    step = CompiledTrainStep(net, flat_ce(), optimizer.create(
+        "sgd", learning_rate=1.0, multi_precision=True))
+    rng = np.random.RandomState(0)
+    v = LSTM_CFG["vocab_size"]
+    x = torch.from_numpy(rng.randint(0, v, (LSTM_BPTT, batch))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, v, (LSTM_BPTT * batch,))
+                         .astype(np.float32)).cuda()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    losses = [float(step.step(x, y))]               # warm-up
+    warmup_ms = (time.perf_counter() - t1) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        losses.append(float(step.step(x, y)))
+        profiled_ms = (time.perf_counter() - t1) * 1e3
+    kernels = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda k: -k[2])
+    busy_ms = device_busy_ms(torch, prof)
+    torch.cuda.reset_peak_memory_stats()
+    reset_port_kernel_launches()
+    counts = arm_counts()
+    step_ms = []
+    for _ in range(LSTM_STEPS):
+        t1 = time.perf_counter()
+        losses.append(float(step.step(x, y)))         # ends in a host read
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = port_kernel_launches()
+    arms = {k: n - counts[k] for k, n in arm_counts().items()}
+    return dict(batch=batch, losses=losses, step_ms=step_ms,
+                warmup_ms=warmup_ms, setup_seconds=setup_s,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches, arms=arms, kernels=kernels,
+                busy_ms=busy_ms, profiled_ms=profiled_ms, weight_dtype=str(net.rnn.l0_i2h_weight.dtype))
+
+
+def phase_lstm_train(ctx):
+    """The PTB word-level LSTM LM of the reference benchmark
+    (``bench.py::_lstm_once``) at full width: 2 x 650, vocabulary 10k,
+    bptt 35, bf16, SGD lr 1.0 with f32 masters, batch 2048."""
+    import torch
+    from tpu_mx_torch.ndarray import rnn_op
+
+    fallback = []
+    for batch in LSTM_BATCHES:
+        try:
+            rec = lstm_train_run(torch, batch)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            fallback.append(f"batch {batch}: {str(e)[:200]}")
+        torch.cuda.empty_cache()
+    else:
+        raise RuntimeError(f"lstm_train: every batch ran out of memory: "
+                           f"{fallback}")
+    torch.cuda.empty_cache()
+    scan = lstm_train_run(torch, rec["batch"], arm="scan")
+    torch.cuda.empty_cache()
+    med = statistics.median(rec["step_ms"])
+    scan_med = statistics.median(scan["step_ms"])
+    tokens = LSTM_BPTT * rec["batch"]
+    flops = LSTM_FLOPS_PER_TOKEN * tokens
+    tflops = flops / (med * 1e-3) / 1e12
+    losses = rec["losses"]
+    probe = torch.empty(1, dtype=torch.bfloat16, device="cuda")
+    # cuDNN's RNN kernels: elemWiseRNNcell, LSTM_elementWise_*,
+    # GENERIC_elementWise_*, RNN_blockPersist_* (the products inside are
+    # cuDNN's GEMMs)
+    cudnn_rnn = [k[0] for k in rec["kernels"]
+                 if re.search(r"RNN|LSTM|elementWise", k[0])]
+    checks = {
+        "finite": all(map(math.isfinite, losses)),
+        "loss_falls": losses[-1] < losses[0],
+        "no_port_kernel_launched": not any(rec["launches"].values()),
+        "fused_arm_every_step": rec["arms"] == dict(
+            dict.fromkeys(rnn_op.ARMS, 0), fused=LSTM_STEPS),
+        # the fused arm's bf16 recurrence runs on cuDNN's RNN kernels
+        "cudnn_route": torch.cudnn_is_acceptable(probe) and bool(cudnn_rnn),
+        "bf16_weights": rec["weight_dtype"] == "torch.bfloat16",
+        # the plain scan arm at full width computes the same losses
+        "scan_arm_losses": scan["arms"]["scan"] == LSTM_STEPS and all(
+            abs(a - b) <= BF16_REL * abs(b)
+            for a, b in zip(scan["losses"], losses)),
+    }
+    ctx["lstm_launches"] = rec["launches"]
+    emit("lstm_train", ok=all(checks.values()), checks=checks,
+         model=dict(LSTM_CFG, dtype="bfloat16", init="xavier"),
+         optimizer="sgd lr=1.0 multi_precision", loss="FlatCE",
+         batch=rec["batch"], batch_fallback=fallback, bptt=LSTM_BPTT,
+         reduced={"steps": f"1 warm-up + {LSTM_STEPS} timed (the "
+                           "reference's recipe: 3 + 20 x 3)"},
+         arm="fused", route="cudnn",
+         cudnn_is_acceptable_bf16=torch.cudnn_is_acceptable(probe),
+         cudnn_rnn_kernels=[n[:90] for n in cudnn_rnn],
+         setup_seconds=rec["setup_seconds"], warmup_ms=rec["warmup_ms"],
+         losses=losses, step_ms=rec["step_ms"], step_ms_median=med,
+         tokens_per_sec=tokens / med * 1e3,
+         peak_memory_bytes=rec["peak_memory_bytes"],
+         flops_per_token=LSTM_FLOPS_PER_TOKEN, achieved_tflops=tflops,
+         peak_tflops=BF16_FLOP_PER_S / 1e12,
+         share_of_peak=tflops * 1e12 / BF16_FLOP_PER_S,
+         launches=rec["launches"], arms=rec["arms"],
+         scan_arm=dict(step_ms=scan["step_ms"], step_ms_median=scan_med,
+                       over_fused=scan_med / med, losses=scan["losses"],
+                       peak_memory_bytes=scan["peak_memory_bytes"],
+                       profiled_busy_ms=scan["busy_ms"],
+                       profiled_launches=sum(k[1] for k in scan["kernels"])),
+         profiled_step=dict(wall_ms=rec["profiled_ms"],
+                            busy_ms=rec["busy_ms"],
+                            idle_share=1 - rec["busy_ms"]
+                            / rec["profiled_ms"],
+                            kernel_ms=sum(k[2] for k in rec["kernels"]),
+                            kernels=len(rec["kernels"]),
+                            launches=sum(k[1] for k in rec["kernels"]),
+                            top=[dict(name=k[0][:90], calls=k[1],
+                                      device_ms=k[2])
+                                 for k in rec["kernels"][:12]]),
+         card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"lstm_train check {name} failed")
+
+
 def sum_to(x, shape):
     """``x`` summed over the axes where ``shape`` is 1 (a broadcast's
     gradient)."""
@@ -1434,6 +1813,8 @@ def main():
                      ("train", phase_train),
                      ("resnet_parity", phase_resnet_parity),
                      ("resnet_train", phase_resnet_train),
+                     ("lstm_parity", phase_lstm_parity),
+                     ("lstm_train", phase_lstm_train),
                      ("attention_bias", phase_attention_bias),
                      ("rtc", phase_rtc)):
         try:
@@ -1445,8 +1826,9 @@ def main():
             if name == "build":
                 break
     if ctx["failures"] or not {"kernels", "launches", "train_launches",
-                                "resnet_parity", "resnet_launches", "bias",
-                                "rtc"} <= ctx.keys():
+                                "resnet_parity", "resnet_launches",
+                                "lstm_launches", "bias", "rtc"} \
+            <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1
     launches = {**ctx["train_launches"],
@@ -1472,7 +1854,8 @@ def main():
                "library_ms": e["library_ms"], "shape": e["shape"],
                "tflops": e["tflops"], "bound_over_ms": e["bound_over_ms"],
                "math_route": e["math_route"],
-               "launches_resnet": ctx["resnet_launches"][name]}
+               "launches_resnet": ctx["resnet_launches"][name],
+               "launches_lstm": ctx["lstm_launches"][name]}
         if "ms_queued" in e:
             row["ms_queued"] = e["ms_queued"]
         path_routes = (ctx["decode_routes"] if name == "paged_attention"
@@ -1512,7 +1895,8 @@ def main():
                     "library_ms": r["library_ms"], "shape": r["shape"],
                     "tflops": r["tflops"], "bound_over_ms": r["bound_over_ms"],
                     "math_route": "ffma", "addmul": r["addmul"],
-                    "launches_resnet": ctx["resnet_launches"]["rtc"]})
+                    "launches_resnet": ctx["resnet_launches"]["rtc"],
+                    "launches_lstm": ctx["lstm_launches"]["rtc"]})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the ResNet slice on the card against the CPU.
+the ResNet and PTB LSTM slices on the card against the CPU.
 
 Needs a CUDA card and ``nvcc``; every test here is marked ``cuda`` and
 skips without a card.  The file imports neither jax nor ``tpu_mx``, so
@@ -922,3 +922,144 @@ def test_bf16_resnet18_step_at_64_is_finite_and_falls():
     losses = [float(step.step(x, label)) for _ in range(5)]
     assert all(math.isfinite(v) for v in losses)
     assert losses[-1] < losses[0]
+
+
+# -- the PTB LSTM slice on the card ------------------------------------------------
+def _rnn_case(mode, layers, bi, dtype, seed=0, t=7, n=5, i=12, h=16):
+    from tpu_mx_torch.ndarray import rnn_op
+    g = torch.Generator().manual_seed(seed)
+    d = 2 if bi else 1
+    size = rnn_op.rnn_param_size(mode, i, h, layers, bi)
+    ws = rnn_op.unpack(torch.randn(size, generator=g) * 0.3, mode, i, h,
+                       layers, bi)
+    x = torch.rand((t, n, i), generator=g)
+    st = [torch.randn((layers * d, n, h), generator=g) * 0.5
+          for _ in range(2 if mode == "lstm" else 1)]
+    return [x.to("cuda", dtype) for x in (x, *st, *ws)], len(st)
+
+
+def _rnn_run(mode, layers, bi, arm, tensors, ns):
+    """out, hN and the gradients of x and the weights, by ``arm``."""
+    from tpu_mx_torch.ndarray import rnn_op
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (tensors[0], *tensors[1 + ns:])]
+    out, h, _ = rnn_op.recurrence(mode, leaves[0], tensors[1:1 + ns],
+                                  leaves[1:], layers, bi, arm=arm)
+    loss = out.float().square().sum() + h.float().sum()
+    return [out, h, *torch.autograd.grad(loss, leaves)]
+
+
+def _within(results, ref, share):
+    for a, b in zip(results, ref):
+        a, b = a.float(), b.float()
+        torch.testing.assert_close(a, b, rtol=0, atol=share * max(
+            1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("mode,layers,bi", [
+    ("lstm", 2, False), ("lstm", 1, True), ("gru", 2, True),
+    ("rnn_tanh", 2, False), ("rnn_relu", 1, True)])
+def test_fused_arm_matches_the_scan_arm_on_the_card(mode, layers, bi):
+    """float32: the fused arm (cuDNN's RNN: ATen takes cuDNN for float32
+    and bfloat16 alike) against the plain scan arm on the same card,
+    outputs and gradients within 1e-4 of max(1, max|ref|) (both IEEE:
+    ``device.resolve`` turns TF32 off)."""
+    from tpu_mx_torch import device as tdevice
+    tdevice.resolve("cuda")
+    tensors, ns = _rnn_case(mode, layers, bi, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.cudnn_is_acceptable(torch.empty(1, dtype=dtype,
+                                                     device="cuda"))
+    _within(_rnn_run(mode, layers, bi, "fused", tensors, ns),
+            _rnn_run(mode, layers, bi, "scan", tensors, ns), 1e-4)
+
+
+@pytest.mark.parametrize("mode,layers,bi", [("lstm", 2, False),
+                                            ("gru", 2, True)])
+def test_bf16_arms_stay_near_float32_on_the_card(mode, layers, bi):
+    """bfloat16: both arms (the fused one on cuDNN) round each step's
+    state to bfloat16; each is held to the float32 scan of
+    the same (bfloat16-valued) inputs within 2e-2 of max(1, max|ref|),
+    outputs and gradients (on the CPU: 7.1e-3 and 1.35e-2 at most)."""
+    tensors, ns = _rnn_case(mode, layers, bi, torch.bfloat16)
+    ref = _rnn_run(mode, layers, bi, "scan", [t.float() for t in tensors],
+                   ns)
+    for arm in ("scan", "fused"):
+        _within(_rnn_run(mode, layers, bi, arm, tensors, ns), ref, 2e-2)
+
+
+def _flat_ce():
+    """The word-LM benchmark's loss: ``(T·N, V)`` logits upcast to
+    float32, softmax cross-entropy."""
+    from tpu_mx_torch.gluon import loss as tloss
+
+    class FlatCE(tloss.Loss):
+        def __init__(self):
+            super().__init__(weight=None, batch_axis=0)
+            self._ce = tloss.SoftmaxCrossEntropyLoss()
+
+        def forward(self, logits, labels):
+            return self._ce(logits.reshape(-1, logits.shape[-1]).float(),
+                            labels.reshape(-1))
+    return FlatCE()
+
+
+def test_thin_lstm_lm_step_on_the_card_matches_the_cpu():
+    """Three float32 SGD steps (lr 1.0, the recipe's) of a thin 2-layer
+    LSTM word-LM through ``CompiledTrainStep`` on the card (the fused
+    arm, cuDNN) and on the CPU (the scan arm) from one weight set:
+    logits within 2e-4, losses within 1e-4, each tensor's change within
+    1e-2 in norm."""
+    from tpu_mx_torch import optimizer, telemetry
+    from tpu_mx_torch.models import RNNModel
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    cfg = dict(vocab_size=100, num_embed=24, num_hidden=24, num_layers=2,
+               dropout=0.0)
+    cpu = RNNModel("lstm", device="cpu",
+                   generator=torch.Generator().manual_seed(0), **cfg)
+    cpu.initialize("xavier", torch.Generator().manual_seed(1))
+    before = {n: t.detach().clone() for n, t in cpu.collect_params().items()}
+    gpu = RNNModel.from_numpy({n: t.numpy() for n, t in before.items()},
+                              "lstm", device="cuda", **cfg)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(0, 100, (10, 6)).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 100, (60,)).astype(np.float32))
+    with torch.no_grad():
+        logits = [n.eval()(x.to(d)).cpu() for n, d in ((cpu, "cpu"),
+                                                        (gpu, "cuda"))]
+    torch.testing.assert_close(logits[1], logits[0], rtol=0, atol=2e-4)
+    fused = telemetry.counter("rnn.arm", kind="fused").value
+    losses = []
+    for net, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        step = CompiledTrainStep(net, _flat_ce(), optimizer.create(
+            "sgd", learning_rate=1.0), device=dev)
+        losses.append([float(step.step(x.to(dev), y.to(dev)))
+                       for _ in range(3)])
+    assert telemetry.counter("rnn.arm", kind="fused").value == fused + 3
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    on_card = gpu.collect_params()
+    for n, t in cpu.collect_params().items():
+        d_cpu = t.detach() - before[n]
+        d_gpu = on_card[n].detach().cpu() - before[n]
+        assert float((d_gpu - d_cpu).norm()) <= 1e-2 * float(d_cpu.norm()), n
+
+
+def test_bf16_lstm_lm_losses_fall_on_the_card():
+    """A thin bf16 LSTM word-LM (f32 masters, SGD lr 1.0): six steps on
+    one batch, losses finite and falling, every parameter bfloat16."""
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.models import RNNModel
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = RNNModel("lstm", 500, 64, 64, 2, dropout=0.0, generator=gen)
+    net.initialize("xavier", gen).cast("bfloat16")
+    step = CompiledTrainStep(
+        net, _flat_ce(),
+        optimizer.create("sgd", learning_rate=1.0, multi_precision=True))
+    x = torch.randint(0, 500, (20, 32), generator=gen, device="cuda").float()
+    y = torch.randint(0, 500, (640,), generator=gen, device="cuda").float()
+    losses = [float(step.step(x, y)) for _ in range(6)]
+    assert all(math.isfinite(v) for v in losses)
+    assert losses[-1] < losses[0]
+    assert all(p.dtype == torch.bfloat16 for p in net.parameters())

@@ -2,7 +2,8 @@
 
 - No file of ``tpu_mx_torch/``, nor the scripts that drive it on the card
   (``chip_smoke.py``, ``torch_serve_profile.py``,
-  ``torch_train_profile.py``, ``torch_flash_ab.py``), imports jax or
+  ``torch_train_profile.py``, ``torch_flash_ab.py``,
+  ``torch_serve_ab.py``), imports jax or
   the reference package ``tpu_mx`` (AST scan, and a fresh interpreter's
   ``sys.modules`` after importing the port).
 - No function of the port defaults ``device`` to the CPU; the entry
@@ -22,7 +23,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tpu_mx_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "torch_serve_profile.py",
-    ROOT / "torch_train_profile.py", ROOT / "torch_flash_ab.py"]
+    ROOT / "torch_train_profile.py", ROOT / "torch_flash_ab.py",
+    ROOT / "torch_serve_ab.py"]
 
 
 def _forbidden(module):

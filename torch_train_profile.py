@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Where the port's training step spends its time: a torch.profiler trace.
 
-    python3 torch_train_profile.py [--model bert|resnet50] [--out DIR]
-                                   [--steps N]
+    python3 torch_train_profile.py [--model bert|resnet50|lstm]
+                                   [--out DIR] [--steps N]
 
 Builds the training configuration of one of ``chip_smoke.py``'s phases:
 ``bert`` (the default) that of ``train`` (BERT-base in bf16, dropout
 0.1, LAMB with f32 masters, batch 32 x 512 with ragged valid lengths),
 ``resnet50`` that of ``resnet_train`` (ResNet-50 v1 with the
 space-to-depth stem, channels-last, bf16, momentum SGD with f32
-masters, batch 256 of 224x224 images, cuDNN autotuning on).  Runs one
+masters, batch 256 of 224x224 images, cuDNN autotuning on), ``lstm``
+that of ``lstm_train`` (the PTB word-level LSTM LM, 2 x 650, vocabulary
+10k, bptt 35, bf16, SGD lr 1.0 with f32 masters, batch 2048).  Runs one
 warm-up step, then profiles N steps (default 2), each ending in a host
-read of its loss.  Prints one JSON line: the host wall time, the summed
-device time of every kernel (one stream, so the sum is the device's busy
-time), the idle share ``1 - busy/wall``, device launches a step, the
+read of its loss.  Prints one JSON line: the host wall time, the
+device's busy time (the union of the kernels' intervals: cuDNN's RNN
+runs kernels on several streams at once), the kernels' summed time, the
+idle share ``1 - busy/wall``, device launches a step, the
 device time by group (BERT: the three flash kernels, matrix products,
 the rest; ResNet: cuDNN's convolutions, reductions, matrix products,
-the rest) and the kernels with the most device time.
+the rest; LSTM: the recurrence's own kernels, reductions and softmax,
+matrix products, the rest: elementwise and copies) and the kernels with
+the most device time.
 The profiler's host cost lengthens the wall time, so the idle share is
 an upper bound on the unprofiled run's.  The Chrome trace goes to
 ``DIR`` (default ``build/profile/``, git-ignored).  Needs one CUDA card.
@@ -47,6 +52,12 @@ GROUPS = {
     "resnet50": (("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
                  ("reduce", ("reduce_kernel", "norm_kernel")),
                  MATMUL),
+    # cuDNN's RNN kernels (RNN_blockPersist_*, LSTM_elementWise_*) or, on
+    # ATen's own route, its fused gate kernels (lstm_cell_forward, ...);
+    # the loss's log-softmax and the gradient sums are reductions
+    "lstm": (("recurrence", ("lstm", "gru", "rnn")),
+             ("reduce", ("reduce_kernel", "softmax", "norm_kernel")),
+             MATMUL),
 }
 
 
@@ -102,6 +113,24 @@ def resnet50_step(torch):
     return step, (data, label)
 
 
+def lstm_step(torch):
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.models import RNNModel
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    batch, bptt = chip_smoke.LSTM_BATCHES[0], chip_smoke.LSTM_BPTT
+    vocab = chip_smoke.LSTM_CFG["vocab_size"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = RNNModel(generator=gen, **chip_smoke.LSTM_CFG)
+    net.initialize("xavier", gen).cast("bfloat16")
+    step = CompiledTrainStep(net, chip_smoke.flat_ce(), optimizer.create(
+        "sgd", learning_rate=1.0, multi_precision=True))
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, vocab, (bptt, batch)).astype(np.float32)
+    y = rng.randint(0, vocab, (bptt * batch,)).astype(np.float32)
+    return step, tuple(torch.from_numpy(a).cuda() for a in (x, y))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(GROUPS), default="bert")
@@ -119,8 +148,8 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    step, batch = {"bert": bert_step,
-                   "resnet50": resnet50_step}[args.model](torch)
+    step, batch = {"bert": bert_step, "resnet50": resnet50_step,
+                   "lstm": lstm_step}[args.model](torch)
     float(step.step(*batch))                              # warm-up
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -132,7 +161,8 @@ def main():
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy_ms = chip_smoke.device_busy_ms(torch, prof)
     groups = {}
     for e in kernels:
         g = groups.setdefault(group_of(e.key, GROUPS[args.model]),
@@ -144,6 +174,7 @@ def main():
     print(json.dumps({
         "model": args.model, "window": f"{args.steps} train steps",
         "losses": losses, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "kernel_ms": kernel_ms,
         "idle_share": 1 - busy_ms / wall_ms,
         "launches_per_step": sum(e.count for e in kernels) / args.steps,
         "per_step": {k: {"device_ms": v["device_ms"] / args.steps,

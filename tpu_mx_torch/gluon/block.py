@@ -47,11 +47,15 @@ def reference_tensors(module):
     """``(name, tensor, owner, leaf)`` for every parameter and buffer of
     ``module`` in the reference's ``collect_params()`` order: each block's
     own parameters, then its own running statistics, then its children
-    in the order they were added, depth first."""
+    in the order they were added, depth first.  A tensor that two blocks
+    share (a tied decoder's weight) comes once, where it is first
+    met."""
+    seen = set()
     for prefix, owner in module.named_modules():
         for leaf, t in list(owner._parameters.items()) \
                 + list(owner._buffers.items()):
-            if t is not None:
+            if t is not None and id(t) not in seen:
+                seen.add(id(t))
                 yield (f"{prefix}.{leaf}" if prefix else leaf), t, owner, leaf
 
 

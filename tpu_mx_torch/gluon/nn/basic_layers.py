@@ -1,6 +1,6 @@
 """Basic layers from ``gluon/nn/basic_layers.py``: ``Dense``,
-``BatchNorm``, ``LayerNorm``, ``Dropout``, ``Activation``, ``Flatten``
-and ``HybridSequential``.
+``BatchNorm``, ``LayerNorm``, ``Dropout``, ``Embedding``, ``Activation``,
+``Flatten`` and ``HybridSequential``.
 
 As :class:`torch.nn.Module`s with the reference's parameter names
 (``weight``/``bias``, ``gamma``/``beta``, ``running_mean``/
@@ -22,8 +22,8 @@ from ...base import MXNetError
 from ...ndarray import ops
 from ..block import HybridBlock, as_dtype, default_generator
 
-__all__ = ["Dense", "BatchNorm", "LayerNorm", "Dropout", "Activation",
-           "Flatten", "HybridSequential", "make_param"]
+__all__ = ["Dense", "BatchNorm", "LayerNorm", "Dropout", "Embedding",
+           "Activation", "Flatten", "HybridSequential", "make_param"]
 
 
 def make_param(name, shape, generator, dtype=torch.float32, init=None):
@@ -178,6 +178,28 @@ class Dropout(nn.Module):
 
     def forward(self, x):
         return ops.Dropout(x, self._rate, self._generator, self.training)
+
+
+class Embedding(HybridBlock):
+    """Row lookup ``weight[x]`` of a ``(input_dim, output_dim)`` table.
+    Token ids may come as floats (the word-LM benchmark passes float32
+    ids); ``ops.Embedding`` takes them as integers.  ``sparse_grad`` is
+    accepted and has no effect: the gradient is dense, as in the
+    reference."""
+
+    def __init__(self, input_dim, output_dim, dtype=torch.float32,
+                 weight_initializer=None, sparse_grad=False, generator=None):
+        super().__init__()
+        g, dt = default_generator(generator), as_dtype(dtype)
+        self._input_dim, self._output_dim = input_dim, output_dim
+        self._declare("weight", (input_dim, output_dim), weight_initializer,
+                      dt, g)
+
+    def forward(self, x):
+        return ops.Embedding(x, self.weight)
+
+    def extra_repr(self):
+        return f"{self._input_dim} -> {self._output_dim}"
 
 
 class Flatten(HybridBlock):
