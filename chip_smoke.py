@@ -119,7 +119,38 @@ line each:
                  kernel of the port launched; then the same run on the
                  plain ``scan`` arm (its step ms beside the fused arm's;
                  its losses within 2e-2 of the fused arm's);
-11. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
+11. ``ssd_parity`` — SSDs in float32 built on the card and on the CPU
+                 from one weight set: the benchmark's smoke SSD (heads
+                 and anchors within 2e-4 of max(1, |out|),
+                 ``MultiBoxDetection`` on the same inputs within 1e-6,
+                 three momentum-SGD steps of the benchmark's objective
+                 whose losses agree within 1e-4) and the VGG16-reduced
+                 SSD-512 at 64x64 (heads); ``MultiBoxTarget`` at the
+                 full width's shape (the VGG16-reduced net's 24,564
+                 anchors at 512x512, the benchmark's labels at batch
+                 128, bf16-rounded scores so that hardness values tie):
+                 masks and class targets equal, location targets within
+                 1e-6; and SSD-300's 8,732 anchors from one 300x300
+                 forward (ceil-mode pools, 75 -> 38);
+12. ``ssd_train`` — the reference benchmark's SSD recipe
+                 (``bench.py::_ssd_once``) at full width:
+                 ``ssd_512(20, backbone="vgg16_reduced")``, Xavier, cast
+                 to bfloat16, channels-last, the objective (softmax CE
+                 on ``MultiBoxTarget``'s classes with 3:1 mining, Huber
+                 on the masked boxes), SGD (lr 0.01, momentum 0.9, wd
+                 5e-4, f32 masters), batch 128 (64, then 32, said so, if
+                 it runs out of memory) of 512x512 images, 1 warm-up,
+                 one profiled step (busy time, idle share, device time
+                 by kernel group) and 5 timed steps (cuDNN autotuning
+                 on); step ms, images/s, peak memory and achieved
+                 TFLOP/s at 537.2 GFLOP an image against the 989 TFLOP/s
+                 bf16 peak; ``MultiBoxTarget``'s ms alone on the batch's
+                 heads and one ``detect`` at batch 8 (CUDA events);
+                 checks 24,564 anchors, finite falling losses, bf16
+                 weights, channels-last, ``detect``'s shape (8, 24564,
+                 6) with finite kept rows, and that no kernel of the
+                 port launched;
+13. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
                  backward at BERT-base's attention width (B=32, H=12,
                  T=512, D=64, bf16, ragged ``valid_length``, dropout
                  0.1) for four float32 bias layouts: per head
@@ -135,7 +166,7 @@ line each:
                  memory, and ms with and without the bias, the bound,
                  the plain version's ms and SDPA's with the bias as a
                  float mask are recorded;
-12. ``rtc``    — the reference's rtc test kernels (``scale``, ``addmul``)
+14. ``rtc``    — the reference's rtc test kernels (``scale``, ``addmul``)
                  as CUDA source compiled at run time by
                  ``tpu_mx_torch.rtc`` and run on 2**26 float32 elements:
                  ``scale`` equals ``x * 3.0`` bit for bit, ``addmul``
@@ -222,6 +253,27 @@ LSTM_CFG = dict(mode="lstm", vocab_size=10000, num_embed=650,
 LSTM_BATCHES = (2048, 1024, 512)    # the reference's ladder, bench.py:749
 LSTM_BPTT, LSTM_STEPS = 35, 5
 LSTM_FLOPS_PER_TOKEN = 79.6e6       # BASELINE.md:43: 26.5 MFLOP fwd x 3
+
+# the SSD slice: thin SSDs for parity, then the benchmark's recipe
+SSD_THIN = dict(num_classes=3, sizes=[[0.2, 0.35], [0.5, 0.7]],
+                ratios=[[1, 2, 0.5]] * 2, base_filters=(8, 16))
+SSD_PARITY_BATCH, SSD_PARITY_SIZE, SSD_PARITY_STEPS = 4, 64, 3
+SSD_HEAD_RTOL = 2e-4    # f32 convolutions, card vs host, x max(1, |out|)
+SSD_LOC_ATOL = 1e-6     # the targets' float32 arithmetic, card vs host
+SSD_CLASSES, SSD_SIZE, SSD_STEPS = 20, 512, 5
+SSD_BATCHES = (128, 64, 32)     # the reference's ladder, bench.py:834
+SSD_ANCHORS = 24564     # maps 64/32/16/8/4/2/1, 4/6/6/6/6/4/4 a position
+SSD_DETECT_BATCH = 8
+# 3 x 179.1 GFLOP: the forward of VGG16-reduced SSD-512 at 512x512 is
+# 89.54 GMAC, counted from the layer shapes of the reference's model
+SSD512_TRAIN_FLOPS_PER_IMG = 537.2e9
+# device-time groups of a step by kernel name: cuDNN's convolutions
+# (implicit GEMMs, cuDNN's CUTLASS instances), reductions (BatchNorm's
+# statistics, the L2 norm, the losses), the rest (elementwise work,
+# copies, pooling, the target generation, the optimizer)
+SSD_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                        "xmma", "cutlass", "nvjet", "gemm")),
+              ("reduce", ("reduce_kernel", "softmax", "norm_kernel")))
 
 RTC_N = 1 << 26     # float32 elements: 256 MB an operand
 RTC_SOURCE = r'''
@@ -1527,6 +1579,364 @@ def phase_lstm_train(ctx):
             ctx["failures"].append(f"lstm_train check {name} failed")
 
 
+# -- the SSD slice --------------------------------------------------------------
+def ssd_train_block(net):
+    """The reference benchmark's SSD objective (``bench.py::_ssd_once``'s
+    ``SSDTrain``): ``forward(x, labels)`` runs the net, casts the anchors
+    and both heads to float32, makes the targets without a gradient
+    (``SSDTrainingTargets``: matching and 3:1 hard-negative mining) and
+    returns softmax cross-entropy on the classes plus Huber on the masked
+    boxes, per image."""
+    import torch
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.gluon.block import HybridBlock
+    from tpu_mx_torch.models import SSDTrainingTargets
+
+    class SSDTrain(HybridBlock):
+        def __init__(self, ssd_net):
+            super().__init__()
+            self.net = ssd_net
+            self._targets = SSDTrainingTargets()
+            self._cls = loss.SoftmaxCrossEntropyLoss()
+            self._box = loss.HuberLoss()
+
+        def forward(self, x, labels):
+            anchors, cls_preds, box_preds = (t.float() for t in self.net(x))
+            with torch.no_grad():
+                loc_t, loc_m, cls_t = self._targets(anchors, labels,
+                                                    cls_preds)
+            return self._cls(cls_preds, cls_t) + \
+                self._box(box_preds * loc_m, loc_t * loc_m)
+    return SSDTrain(net)
+
+
+def ssd_labels(batch, classes, seed=0):
+    """``bench.py::_ssd_once``'s labels from ``np.random.RandomState``:
+    one box an image, then a row of -1 padding."""
+    rng = np.random.RandomState(seed)
+    labels = np.full((batch, 2, 5), -1.0, np.float32)
+    for b in range(batch):
+        cls = rng.randint(0, classes)
+        x0, y0 = rng.uniform(0.05, 0.5, 2)
+        labels[b, 0] = [cls, x0, y0, min(x0 + 0.3, 0.95),
+                        min(y0 + 0.3, 0.95)]
+    return labels
+
+
+def ssd_thin(kind, device, generator=None, params=None):
+    """``"compact"``: the benchmark's smoke SSD (3 classes, two scales,
+    base filters 8 and 16); ``"vgg"``: ``ssd_512(20,
+    backbone="vgg16_reduced")`` at full width.  Xavier-drawn from
+    ``generator``, or set from ``params`` (numpy, the reference's
+    order)."""
+    import torch
+    from tpu_mx_torch.models import SSD, ssd_512
+
+    kw = dict(SSD_THIN) if kind == "compact" else dict(
+        num_classes=SSD_CLASSES, backbone="vgg16_reduced")
+    make = SSD if kind == "compact" else ssd_512
+    gen = generator if generator is not None else torch.Generator(
+        device=device)
+    net = make(device=device, generator=gen, **kw)
+    if params is not None:
+        from tpu_mx_torch.gluon.block import load_numpy
+        return load_numpy(net, params)
+    return net.initialize("xavier", gen)
+
+
+def phase_ssd_parity(ctx):
+    """SSDs in float32 on the card against the CPU from one weight set:
+    the heads and anchors (the smoke SSD, and the full-width VGG16-reduced
+    SSD-512 at 64x64), ``MultiBoxTarget`` at the full-width shape,
+    ``MultiBoxDetection``, three SGD steps of the benchmark's objective,
+    and SSD-300's 8732 anchors from one 300x300 forward."""
+    import torch
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.models import SSDTrainingTargets, ssd_300
+    from tpu_mx_torch.ndarray import contrib
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    prior = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False      # as in resnet_parity
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(5)
+    x = rng.uniform(0, 0.1, (SSD_PARITY_BATCH, 3, SSD_PARITY_SIZE,
+                             SSD_PARITY_SIZE)).astype(np.float32)
+    labels = ssd_labels(SSD_PARITY_BATCH, SSD_THIN["num_classes"])
+    cases, checks = {}, {}
+    try:
+        for kind in ("compact", "vgg"):
+            cpu = ssd_thin(kind, "cpu", torch.Generator().manual_seed(0))
+            params = {n: t.detach().numpy()
+                      for n, t in cpu.collect_params().items()}
+            gpu = ssd_thin(kind, "cuda", params=params)
+            nets = {"cpu": cpu, "cuda": gpu}
+            with torch.no_grad():
+                outs = {d: [t.cpu() for t in n.eval()(
+                    torch.from_numpy(x).to(d))] for d, n in nets.items()}
+            errs = {name: float((g - c).abs().max() / max(1.0, float(
+                c.abs().max()))) for name, g, c in zip(
+                ("anchors", "cls_preds", "box_preds"), outs["cuda"],
+                outs["cpu"])}
+            case = dict(head_rel_err=errs, anchors=outs["cpu"][0].shape[1],
+                        channels_last=gpu.cls_heads[0].weight.is_contiguous(
+                            memory_format=torch.channels_last))
+            checks[f"{kind}_heads"] = max(errs.values()) <= SSD_HEAD_RTOL
+            checks[f"{kind}_channels_last"] = case["channels_last"]
+            if kind == "compact":
+                # detection from the same decoded inputs on both devices
+                prob = torch.softmax(outs["cpu"][1], -1).transpose(1, 2)
+                dets = {d: contrib.MultiBoxDetection(
+                    prob.to(d), outs["cpu"][2].to(d), outs["cpu"][0].to(d),
+                    nms_threshold=0.45, nms_topk=400).cpu()
+                    for d in ("cpu", "cuda")}
+                case["detection_max_abs_err"] = float(
+                    (dets["cuda"] - dets["cpu"]).abs().max())
+                case["detections_kept"] = int((dets["cpu"][..., 0]
+                                               >= 0).sum())
+                checks["detection"] = case["detection_max_abs_err"] \
+                    <= SSD_LOC_ATOL and torch.equal(dets["cuda"][..., 0],
+                                                    dets["cpu"][..., 0])
+                losses = {}
+                for dev, net in nets.items():
+                    step = CompiledTrainStep(
+                        ssd_train_block(net), loss.PassThrough(),
+                        optimizer.create("sgd", learning_rate=0.01,
+                                         momentum=0.9, wd=5e-4),
+                        device=dev)
+                    args = [torch.from_numpy(a).to(dev) for a in
+                            (x, labels, np.zeros(1, np.float32))]
+                    losses[dev] = [float(step.step(*args))
+                                   for _ in range(SSD_PARITY_STEPS)]
+                case["losses"] = losses
+                case["loss_rel_err"] = max(
+                    abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                        losses["cpu"]))
+                checks["loss"] = case["loss_rel_err"] <= LOSS_RTOL
+                checks["finite"] = all(map(math.isfinite, losses["cuda"]))
+                checks["loss_falls"] = losses["cuda"][-1] \
+                    < losses["cuda"][0]
+            cases[kind] = case
+        # MultiBoxTarget at the full-width shape: the anchors of the
+        # VGG16-reduced SSD-512 at 512x512 (24,564), the benchmark's labels
+        # at batch 128, bf16-rounded class scores (tied hardness values)
+        with torch.no_grad():
+            anchors = gpu(torch.zeros((1, 3, SSD_SIZE, SSD_SIZE),
+                                      device="cuda"))[0].cpu()
+        del gpu, nets
+        labels = torch.from_numpy(ssd_labels(SSD_BATCHES[0], SSD_CLASSES))
+        scores = torch.randn((SSD_BATCHES[0], anchors.shape[1],
+                              SSD_CLASSES + 1),
+                             generator=torch.Generator().manual_seed(1)) \
+            .bfloat16().float()
+        targets = SSDTrainingTargets()
+        got = {d: [t.cpu() for t in targets(anchors.to(d), labels.to(d),
+                                             scores.to(d))]
+               for d in ("cpu", "cuda")}
+        loc_err = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+        cls_t = got["cpu"][2]
+        cases["multibox_target"] = dict(
+            batch=SSD_BATCHES[0], anchors=anchors.shape[1],
+            loc_max_abs_err=loc_err,
+            positives=int((cls_t > 0).sum()), negatives=int(
+                (cls_t == 0).sum()), ignored=int((cls_t == -1).sum()))
+        checks["target_anchor_count"] = anchors.shape[1] == SSD_ANCHORS
+        checks["target_loc"] = loc_err <= SSD_LOC_ATOL
+        checks["target_mask_equal"] = torch.equal(got["cuda"][1],
+                                                  got["cpu"][1])
+        checks["target_cls_equal"] = torch.equal(got["cuda"][2], cls_t)
+        # SSD-300's canonical pyramid, from one forward on the card
+        net300 = ssd_300(SSD_CLASSES, backbone="vgg16_reduced",
+                         device="cuda",
+                         generator=torch.Generator(device="cuda"))
+        with torch.no_grad():
+            a300, c300, _ = net300.eval()(torch.rand(
+                (1, 3, 300, 300), generator=torch.Generator(
+                    device="cuda").manual_seed(2), device="cuda"))
+        cases["ssd_300"] = dict(anchors=a300.shape[1])
+        checks["ssd_300_anchors"] = a300.shape[1] == 8732 and \
+            bool(torch.isfinite(c300).all())
+        del net300
+    finally:
+        torch.backends.mkldnn.enabled = prior
+    torch.cuda.empty_cache()
+    emit("ssd_parity", ok=all(checks.values()), checks=checks,
+         config=dict(compact=SSD_THIN, vgg="ssd_512(20, vgg16_reduced)",
+                     dtype="float32", batch=SSD_PARITY_BATCH,
+                     size=SSD_PARITY_SIZE, steps=SSD_PARITY_STEPS,
+                     optimizer="sgd lr=0.01 momentum=0.9 wd=5e-4"),
+         cases=cases, head_rtol=SSD_HEAD_RTOL, loc_atol=SSD_LOC_ATOL,
+         loss_rtol=LOSS_RTOL, card=ctx["smi"],
+         seconds=time.perf_counter() - t0)
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"ssd_parity check {name} failed")
+
+
+def ssd_train_run(torch, batch):
+    """The recipe at ``batch``: setup, 1 warm-up, one profiled step, the
+    timed steps, then ``MultiBoxTarget`` alone on this batch's heads and
+    one timed ``detect`` at batch 8."""
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.models import SSDTrainingTargets, ssd_512
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = ssd_512(SSD_CLASSES, backbone="vgg16_reduced", device="cuda",
+                  generator=gen)
+    wrapper = ssd_train_block(net)
+    wrapper.initialize("xavier", gen)
+    wrapper.cast("bfloat16")
+    step = CompiledTrainStep(wrapper, loss.PassThrough(), optimizer.create(
+        "sgd", learning_rate=0.01, momentum=0.9, wd=5e-4,
+        multi_precision=True), device="cuda")
+    data = (torch.rand((batch, 3, SSD_SIZE, SSD_SIZE), generator=gen,
+                       device="cuda") * 0.1).to(torch.bfloat16)
+    labels = torch.from_numpy(ssd_labels(batch, SSD_CLASSES)).cuda()
+    dummy = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_port_kernel_launches()
+    t1 = time.perf_counter()
+    losses = [float(step.step(data, labels, dummy))]   # cuDNN autotunes
+    warmup_ms = (time.perf_counter() - t1) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        losses.append(float(step.step(data, labels, dummy)))
+        profiled_ms = (time.perf_counter() - t1) * 1e3
+    kernels = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda k: -k[2])
+    busy_ms = device_busy_ms(torch, prof)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(SSD_STEPS):
+        t1 = time.perf_counter()
+        losses.append(float(step.step(data, labels, dummy)))  # host read
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        anchors, cls_preds, _ = (t.float() for t in net(data))
+    targets = SSDTrainingTargets()
+    target_ms = cuda_ms(torch, lambda: targets(anchors, labels, cls_preds),
+                        reps=10)
+    cls_t = targets(anchors, labels, cls_preds)[2]
+    counts = dict(positives=int((cls_t > 0).sum()),
+                  negatives=int((cls_t == 0).sum()),
+                  ignored=int((cls_t == -1).sum()))
+    del cls_preds
+    det = net.detect(data[:SSD_DETECT_BATCH])
+    detect_ms = cuda_ms(torch, lambda: net.detect(data[:SSD_DETECT_BATCH]),
+                        reps=3, warm=1)
+    kept = det[det[..., 0] >= 0]
+    launches = port_kernel_launches()
+    return dict(batch=batch, losses=losses, step_ms=step_ms,
+                warmup_ms=warmup_ms, setup_seconds=setup_s,
+                peak_memory_bytes=peak, anchors=anchors.shape[1],
+                target_ms=target_ms, target_counts=counts,
+                detect=dict(batch=SSD_DETECT_BATCH, ms=detect_ms,
+                            shape=list(det.shape), kept=kept.shape[0],
+                            kept_finite=bool(torch.isfinite(kept).all())),
+                kernels=kernels, busy_ms=busy_ms, profiled_ms=profiled_ms,
+                launches=launches,
+                channels_last=net.backbone.fc6.weight.is_contiguous(
+                    memory_format=torch.channels_last),
+                weight_dtype=str(net.backbone.fc6.weight.dtype))
+
+
+def phase_ssd_train(ctx):
+    """SSD-512 with the VGG16-reduced backbone (``bench.py::_ssd_once``)
+    at 512x512: bf16, momentum SGD with f32 masters, batch 128 (64, then
+    32, said so, if it runs out of memory)."""
+    import torch
+
+    prior = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    fallback = []
+    try:
+        for batch in SSD_BATCHES:
+            try:
+                rec = ssd_train_run(torch, batch)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                fallback.append(f"batch {batch}: {str(e)[:200]}")
+            torch.cuda.empty_cache()
+        else:
+            raise RuntimeError(f"ssd_train: every batch ran out of memory: "
+                               f"{fallback}")
+    finally:
+        torch.backends.cudnn.benchmark = prior
+    torch.cuda.empty_cache()
+    med = statistics.median(rec["step_ms"])
+    flops = SSD512_TRAIN_FLOPS_PER_IMG * rec["batch"]
+    tflops = flops / (med * 1e-3) / 1e12
+    losses = rec["losses"]
+    # groups of the profiled step's device time (torch_train_profile.py's)
+    groups = {}
+    for name, calls, ms in rec["kernels"]:
+        low = name.lower()
+        g = next((grp for grp, keys in SSD_GROUPS
+                  if any(k in low for k in keys)), "other")
+        groups.setdefault(g, [0, 0.0])
+        groups[g][0] += calls
+        groups[g][1] += ms
+    checks = {
+        "finite": all(map(math.isfinite, losses)),
+        "loss_falls": losses[-1] < losses[0],
+        "anchors": rec["anchors"] == SSD_ANCHORS,
+        "no_port_kernel_launched": not any(rec["launches"].values()),
+        "bf16_weights": rec["weight_dtype"] == "torch.bfloat16",
+        "channels_last": rec["channels_last"],
+        "detect_shape": rec["detect"]["shape"] == [SSD_DETECT_BATCH,
+                                                   SSD_ANCHORS, 6],
+        "detect_kept_finite": rec["detect"]["kept"] > 0
+        and rec["detect"]["kept_finite"],
+    }
+    if fallback:
+        print(f"ssd_train: fell back to batch {rec['batch']} "
+              f"(out of memory above it)", flush=True)
+    ctx["ssd_launches"] = rec["launches"]
+    emit("ssd_train", ok=all(checks.values()), checks=checks,
+         model=dict(factory="ssd_512", classes=SSD_CLASSES,
+                    backbone="vgg16_reduced", dtype="bfloat16",
+                    init="xavier", memory_format="channels_last"),
+         optimizer="sgd lr=0.01 momentum=0.9 wd=5e-4 multi_precision",
+         loss="softmax CE + Huber (masked), targets by MultiBoxTarget",
+         batch=rec["batch"], batch_fallback=fallback, size=SSD_SIZE,
+         reduced={"steps": f"1 warm-up + {SSD_STEPS} timed (the "
+                           "reference's recipe: 3 + 10 x 3)"},
+         cudnn_benchmark=True, setup_seconds=rec["setup_seconds"],
+         warmup_ms=rec["warmup_ms"], losses=losses, step_ms=rec["step_ms"],
+         step_ms_median=med, images_per_sec=rec["batch"] / med * 1e3,
+         peak_memory_bytes=rec["peak_memory_bytes"],
+         flops_per_image=SSD512_TRAIN_FLOPS_PER_IMG,
+         achieved_tflops=tflops, peak_tflops=BF16_FLOP_PER_S / 1e12,
+         share_of_peak=tflops * 1e12 / BF16_FLOP_PER_S,
+         flop_floor_ms=flops / BF16_FLOP_PER_S * 1e3,
+         anchors=rec["anchors"], multibox_target_ms=rec["target_ms"],
+         target_counts=rec["target_counts"], detect=rec["detect"],
+         launches=rec["launches"],
+         profiled_step=dict(wall_ms=rec["profiled_ms"],
+                            busy_ms=rec["busy_ms"],
+                            idle_share=1 - rec["busy_ms"]
+                            / rec["profiled_ms"],
+                            launches=sum(k[1] for k in rec["kernels"]),
+                            groups={g: dict(calls=c, device_ms=m)
+                                    for g, (c, m) in sorted(groups.items())},
+                            top=[dict(name=k[0][:90], calls=k[1],
+                                      device_ms=k[2])
+                                 for k in rec["kernels"][:12]]),
+         card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"ssd_train check {name} failed")
+
+
 def sum_to(x, shape):
     """``x`` summed over the axes where ``shape`` is 1 (a broadcast's
     gradient)."""
@@ -1815,6 +2225,8 @@ def main():
                      ("resnet_train", phase_resnet_train),
                      ("lstm_parity", phase_lstm_parity),
                      ("lstm_train", phase_lstm_train),
+                     ("ssd_parity", phase_ssd_parity),
+                     ("ssd_train", phase_ssd_train),
                      ("attention_bias", phase_attention_bias),
                      ("rtc", phase_rtc)):
         try:
@@ -1827,7 +2239,8 @@ def main():
                 break
     if ctx["failures"] or not {"kernels", "launches", "train_launches",
                                 "resnet_parity", "resnet_launches",
-                                "lstm_launches", "bias", "rtc"} \
+                                "lstm_launches", "ssd_launches", "bias",
+                                "rtc"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1
@@ -1855,7 +2268,8 @@ def main():
                "tflops": e["tflops"], "bound_over_ms": e["bound_over_ms"],
                "math_route": e["math_route"],
                "launches_resnet": ctx["resnet_launches"][name],
-               "launches_lstm": ctx["lstm_launches"][name]}
+               "launches_lstm": ctx["lstm_launches"][name],
+               "launches_ssd": ctx["ssd_launches"][name]}
         if "ms_queued" in e:
             row["ms_queued"] = e["ms_queued"]
         path_routes = (ctx["decode_routes"] if name == "paged_attention"
@@ -1896,7 +2310,8 @@ def main():
                     "tflops": r["tflops"], "bound_over_ms": r["bound_over_ms"],
                     "math_route": "ffma", "addmul": r["addmul"],
                     "launches_resnet": ctx["resnet_launches"]["rtc"],
-                    "launches_lstm": ctx["lstm_launches"]["rtc"]})
+                    "launches_lstm": ctx["lstm_launches"]["rtc"],
+                    "launches_ssd": ctx["ssd_launches"]["rtc"]})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

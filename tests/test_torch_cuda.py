@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the ResNet and PTB LSTM slices on the card against the CPU.
+the ResNet, PTB LSTM and SSD slices on the card against the CPU.
 
 Needs a CUDA card and ``nvcc``; every test here is marked ``cuda`` and
 skips without a card.  The file imports neither jax nor ``tpu_mx``, so
@@ -1063,3 +1063,162 @@ def test_bf16_lstm_lm_losses_fall_on_the_card():
     assert all(math.isfinite(v) for v in losses)
     assert losses[-1] < losses[0]
     assert all(p.dtype == torch.bfloat16 for p in net.parameters())
+
+
+# -- the SSD slice ------------------------------------------------------------------
+def test_pick_takes_ignore_labels_on_the_card():
+    """Indices -1 (the last class) and out of range (NaN, no gradient)
+    neither raise nor assert on the card, and match the CPU."""
+    from tpu_mx_torch.ndarray import ops
+    x = torch.randn(6, 5, generator=torch.Generator().manual_seed(0))
+    idx = torch.tensor([-1.0, 0.0, 4.0, 5.0, -5.0, -6.0])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev, copy=True).requires_grad_()
+        y = ops.pick(xd, idx.to(dev))
+        torch.where(torch.isnan(y), 0.0, y * 2).sum().backward()
+        out[dev] = (y.detach().cpu(), xd.grad.cpu())
+    torch.cuda.synchronize()
+    assert torch.isnan(out["cuda"][0]).tolist() == [False] * 3 + [True, False,
+                                                                  True]
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], equal_nan=True)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1])
+
+
+def _ssd_target_case():
+    """A shared best anchor, a padded row after a valid one and class
+    scores rounded through bf16 (tied hardness)."""
+    anc = torch.tensor([[[0.0, 0.0, 0.2, 0.2], [0.3, 0.3, 0.6, 0.6],
+                         [0.7, 0.7, 0.9, 0.9]]])
+    g = torch.Generator().manual_seed(3)
+    p = torch.rand(60, 2, 2, generator=g).sort(1).values
+    anc = torch.cat([anc, p.transpose(1, 2).reshape(1, 60, 4)], 1)
+    lab = torch.full((4, 3, 5), -1.0)
+    lab[:, 0] = torch.tensor([0, 0.25, 0.25, 0.55, 0.7])
+    lab[:, 1] = torch.tensor([2, 0.3, 0.3, 0.62, 0.6])
+    lab[1, 1] = -1                                  # padded after a valid
+    lab[2, 2] = torch.tensor([1, 0.1, 0.1, 0.4, 0.45])
+    pred = (torch.randn(4, 4, 63, generator=g) * 2).round() / 2
+    return anc, lab, pred.bfloat16().float()
+
+
+@pytest.mark.parametrize("mining", [-1.0, 3.0])
+def test_multibox_target_on_the_card_equals_the_cpu(mining):
+    """Equal masks and class targets, location targets within 1e-6, and
+    no host synchronization on the card."""
+    from tpu_mx_torch.ndarray import contrib
+    kw = dict(negative_mining_ratio=mining, minimum_negative_samples=4)
+    case = _ssd_target_case()
+    cpu = contrib.MultiBoxTarget(*case, **kw)
+    args = [t.cuda() for t in case]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = contrib.MultiBoxTarget(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    card = [t.cpu() for t in card]
+    torch.testing.assert_close(card[0], cpu[0], rtol=0, atol=1e-6)
+    assert torch.equal(card[1], cpu[1])
+    assert torch.equal(card[2], cpu[2])
+    assert cpu[2][0, 1] == 3.0                 # the later box's write stands
+
+
+def _ssd_train_block(net):
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.gluon.block import HybridBlock
+    from tpu_mx_torch.models import SSDTrainingTargets
+
+    class SSDTrain(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+            self._targets = SSDTrainingTargets()
+            self._cls = loss.SoftmaxCrossEntropyLoss()
+            self._box = loss.HuberLoss()
+
+        def forward(self, x, labels):
+            anchors, cls_preds, box_preds = (t.float() for t in self.net(x))
+            with torch.no_grad():
+                loc_t, loc_m, cls_t = self._targets(anchors, labels,
+                                                    cls_preds)
+            return self._cls(cls_preds, cls_t) + \
+                self._box(box_preds * loc_m, loc_t * loc_m)
+    return SSDTrain()
+
+
+_SSD_SMOKE = dict(num_classes=3, sizes=[[0.2, 0.35], [0.5, 0.7]],
+                  ratios=[[1, 2, 0.5]] * 2, base_filters=(8, 16))
+
+
+def _ssd_batch(batch, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(0, 0.1, (batch, 3, 64, 64)).astype(np.float32)
+    labels = np.full((batch, 2, 5), -1.0, np.float32)
+    for b in range(batch):
+        x0, y0 = rng.uniform(0.05, 0.5, 2)
+        labels[b, 0] = [rng.randint(0, 3), x0, y0, x0 + 0.3, y0 + 0.3]
+    return torch.from_numpy(x), torch.from_numpy(labels)
+
+
+def test_thin_ssd_step_on_the_card_matches_the_cpu(monkeypatch):
+    """Three float32 SGD steps of the benchmark's SSD objective on the
+    smoke SSD, card against CPU from one weight set: heads within 2e-4,
+    losses within 1e-4."""
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.models import SSD
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    monkeypatch.setattr(torch.backends.mkldnn, "enabled", False)
+    cpu = SSD(device="cpu", generator=torch.Generator().manual_seed(0),
+              **_SSD_SMOKE)
+    cpu.initialize("xavier", torch.Generator().manual_seed(1))
+    gpu = SSD.from_numpy({n: t.detach().numpy()
+                          for n, t in cpu.collect_params().items()},
+                         device="cuda", **_SSD_SMOKE)
+    assert gpu.cls_heads[0].weight.is_contiguous(
+        memory_format=torch.channels_last)
+    x, labels = _ssd_batch(4)
+    with torch.no_grad():
+        heads = [[t.cpu() for t in n.eval()(x.to(d))]
+                 for n, d in ((cpu, "cpu"), (gpu, "cuda"))]
+    for a, b in zip(*heads):
+        torch.testing.assert_close(b, a, rtol=0, atol=2e-4)
+    losses = []
+    for net, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        step = CompiledTrainStep(_ssd_train_block(net), loss.PassThrough(),
+                                 optimizer.create("sgd", learning_rate=0.01,
+                                                  momentum=0.9, wd=5e-4),
+                                 device=dev)
+        losses.append([float(step.step(x.to(dev), labels.to(dev),
+                                        torch.zeros(1, device=dev)))
+                       for _ in range(3)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+def test_bf16_ssd_losses_fall_on_the_card():
+    """The smoke SSD in bf16 (f32 masters, momentum SGD): six steps on
+    one batch, losses finite and falling, every parameter bfloat16, and
+    ``detect`` gives finite kept rows."""
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.models import SSD
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = SSD(device="cuda", generator=gen, **_SSD_SMOKE)
+    net.initialize("xavier", gen).cast("bfloat16")
+    step = CompiledTrainStep(
+        _ssd_train_block(net), loss.PassThrough(),
+        optimizer.create("sgd", learning_rate=0.01, momentum=0.9, wd=5e-4,
+                         multi_precision=True), device="cuda")
+    x, labels = _ssd_batch(8, seed=1)
+    x, labels = x.cuda().bfloat16(), labels.cuda()
+    losses = [float(step.step(x, labels, torch.zeros(1, device="cuda")))
+              for _ in range(6)]
+    assert all(math.isfinite(v) for v in losses)
+    assert losses[-1] < losses[0]
+    assert all(p.dtype == torch.bfloat16 for p in net.parameters())
+    det = net.detect(x[:2])
+    kept = det[det[..., 0] >= 0]
+    assert det.shape == (2, 1280, 6) and kept.shape[0] > 0
+    assert bool(torch.isfinite(kept).all())

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's training step spends its time: a torch.profiler trace.
 
-    python3 torch_train_profile.py [--model bert|resnet50|lstm]
+    python3 torch_train_profile.py [--model bert|resnet50|lstm|ssd]
                                    [--out DIR] [--steps N]
 
 Builds the training configuration of one of ``chip_smoke.py``'s phases:
@@ -11,7 +11,10 @@ Builds the training configuration of one of ``chip_smoke.py``'s phases:
 space-to-depth stem, channels-last, bf16, momentum SGD with f32
 masters, batch 256 of 224x224 images, cuDNN autotuning on), ``lstm``
 that of ``lstm_train`` (the PTB word-level LSTM LM, 2 x 650, vocabulary
-10k, bptt 35, bf16, SGD lr 1.0 with f32 masters, batch 2048).  Runs one
+10k, bptt 35, bf16, SGD lr 1.0 with f32 masters, batch 2048), ``ssd``
+that of ``ssd_train`` (SSD-512 with the VGG16-reduced backbone at
+512x512, bf16, channels-last, the benchmark's objective with its target
+generation, momentum SGD with f32 masters, batch 128).  Runs one
 warm-up step, then profiles N steps (default 2), each ending in a host
 read of its loss.  Prints one JSON line: the host wall time, the
 device's busy time (the union of the kernels' intervals: cuDNN's RNN
@@ -20,8 +23,11 @@ idle share ``1 - busy/wall``, device launches a step, the
 device time by group (BERT: the three flash kernels, matrix products,
 the rest; ResNet: cuDNN's convolutions, reductions, matrix products,
 the rest; LSTM: the recurrence's own kernels, reductions and softmax,
-matrix products, the rest: elementwise and copies) and the kernels with
-the most device time.
+matrix products, the rest: elementwise and copies; SSD: cuDNN's
+convolutions, reductions, the rest) and the kernels with the most device
+time.  For SSD the device time of two named ranges is split out too:
+``ssd.targets`` (``MultiBoxTarget``, the target generation) and
+``ssd.optimizer`` (the SGD update of every parameter).
 The profiler's host cost lengthens the wall time, so the idle share is
 an upper bound on the unprofiled run's.  The Chrome trace goes to
 ``DIR`` (default ``build/profile/``, git-ignored).  Needs one CUDA card.
@@ -58,7 +64,10 @@ GROUPS = {
     "lstm": (("recurrence", ("lstm", "gru", "rnn")),
              ("reduce", ("reduce_kernel", "softmax", "norm_kernel")),
              MATMUL),
+    "ssd": chip_smoke.SSD_GROUPS,
 }
+# the SSD step's named ranges (record_function), by what they wrap
+SSD_RANGES = ("ssd.targets", "ssd.optimizer")
 
 
 def group_of(name, groups):
@@ -131,6 +140,39 @@ def lstm_step(torch):
     return step, tuple(torch.from_numpy(a).cuda() for a in (x, y))
 
 
+def ssd_step(torch):
+    from torch.profiler import record_function
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.models import ssd_512
+    from tpu_mx_torch.ndarray import contrib
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    torch.backends.cudnn.benchmark = True
+    batch, size = chip_smoke.SSD_BATCHES[0], chip_smoke.SSD_SIZE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = ssd_512(chip_smoke.SSD_CLASSES, backbone="vgg16_reduced",
+                  device="cuda", generator=gen)
+    wrapper = chip_smoke.ssd_train_block(net)
+    wrapper.initialize("xavier", gen).cast("bfloat16")
+    step = CompiledTrainStep(wrapper, loss.PassThrough(), optimizer.create(
+        "sgd", learning_rate=0.01, momentum=0.9, wd=5e-4,
+        multi_precision=True), device="cuda")
+
+    def named(name, fn):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+    contrib.MultiBoxTarget = named("ssd.targets", contrib.MultiBoxTarget)
+    step._apply = named("ssd.optimizer", step._apply)
+    data = (torch.rand((batch, 3, size, size), generator=gen,
+                       device="cuda") * 0.1).to(torch.bfloat16)
+    labels = torch.from_numpy(chip_smoke.ssd_labels(
+        batch, chip_smoke.SSD_CLASSES)).cuda()
+    return step, (data, labels, torch.zeros(1, device="cuda"))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(GROUPS), default="bert")
@@ -149,17 +191,22 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     step, batch = {"bert": bert_step, "resnet50": resnet50_step,
-                   "lstm": lstm_step}[args.model](torch)
+                   "lstm": lstm_step, "ssd": ssd_step}[args.model](torch)
     float(step.step(*batch))                              # warm-up
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         losses = [float(step.step(*batch)) for _ in range(args.steps)]
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side rows only: a CPU op's row repeats its kernels' time
+    # device-side rows only: a CPU op's row repeats its kernels' time, and
+    # a named range's device-side span repeats its kernels' too
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0 and e.key not in SSD_RANGES]
+    ranges = {e.key: e.device_time_total / 1e3 / args.steps
+              for e in prof.key_averages()
+              if e.key in SSD_RANGES
+              and e.device_type == torch.autograd.DeviceType.CPU}
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     busy_ms = chip_smoke.device_busy_ms(torch, prof)
@@ -180,6 +227,7 @@ def main():
         "per_step": {k: {"device_ms": v["device_ms"] / args.steps,
                          "calls": v["calls"] / args.steps}
                      for k, v in sorted(groups.items())},
+        "ranges_per_step_device_ms": ranges,
         "kernels": [{"name": e.key[:80], "calls": e.count,
                      "device_ms": e.self_device_time_total / 1e3}
                     for e in kernels[:15]]}), flush=True)

@@ -1,16 +1,18 @@
-"""Losses from ``tpu_mx/gluon/loss.py``: ``Loss``, ``SoftmaxCrossEntropyLoss``
-and ``PassThrough``, as :class:`torch.nn.Module`s.
+"""Losses from ``tpu_mx/gluon/loss.py``: ``Loss``, ``SoftmaxCrossEntropyLoss``,
+``HuberLoss`` and ``PassThrough``, as :class:`torch.nn.Module`s.
 
 A loss returns one value per example (the mean over every axis but
 ``batch_axis``); ``CompiledTrainStep`` takes the mean of that.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from ..ndarray import ops
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss", "PassThrough"]
+__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss", "HuberLoss",
+           "PassThrough"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -66,6 +68,23 @@ class SoftmaxCrossEntropyLoss(Loss):
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class HuberLoss(Loss):
+    """Smooth L1: ``|label - pred| - rho/2`` where that gap exceeds
+    ``rho``, else ``gap² / (2·rho)``; ``label`` is reshaped like
+    ``pred``."""
+
+    def __init__(self, rho=1.0, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def forward(self, pred, label, sample_weight=None):
+        gap = (label.reshape(pred.shape) - pred).abs()
+        loss = torch.where(gap > self._rho, gap - 0.5 * self._rho,
+                           (0.5 / self._rho) * gap.square())
+        return self._per_example(_apply_weighting(loss, self._weight,
+                                                  sample_weight))
 
 
 class PassThrough(Loss):

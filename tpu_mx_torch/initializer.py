@@ -1,6 +1,7 @@
 """Weight initializers from ``tpu_mx/initializer.py``: ``Uniform``,
-``Zero``/``One`` and ``Xavier``, by instance or by registered name
-(``"uniform"``, ``"zeros"``, ``"ones"``, ``"xavier"``).
+``Zero``/``One``, ``Constant`` and ``Xavier``, by instance or by
+registered name (``"uniform"``, ``"zeros"``, ``"ones"``, ``"constant"``,
+``"xavier"``).
 
 As in the reference, an initializer is called with the parameter's name
 and dispatches on the name convention first: names ending in ``gamma``
@@ -25,8 +26,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["Initializer", "Uniform", "Zero", "One", "Xavier", "create",
-           "registry", "DEFAULT"]
+__all__ = ["Initializer", "Uniform", "Zero", "One", "Constant", "Xavier",
+           "create", "registry", "DEFAULT"]
 
 registry = {}
 
@@ -93,6 +94,18 @@ class Zero(Initializer):
 class One(Initializer):
     def _init_weight(self, shape, generator):
         return torch.ones(shape, device=generator.device)
+
+
+@register
+class Constant(Initializer):
+    """Every entry ``value`` (SSD's conv4_3 scale starts at 20)."""
+
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def _init_weight(self, shape, generator):
+        return torch.full(shape, self.value, dtype=torch.float64,
+                          device=generator.device)
 
 
 def _fan(shape, factor_type):

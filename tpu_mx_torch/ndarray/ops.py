@@ -1,5 +1,5 @@
-"""The operators BERT and ResNet call, from ``tpu_mx/ndarray/ops.py``, on
-tensors.
+"""The operators the port's models call (BERT, ResNet, SSD), from
+``tpu_mx/ndarray/ops.py``, on tensors.
 
 Same names and semantics as the reference's, including its numerics in
 mixed precision: ``LayerNorm`` computes its statistics in float32 and
@@ -25,8 +25,8 @@ from .. import layout as _layout
 
 __all__ = ["FullyConnected", "Embedding", "LayerNorm", "gelu", "log_softmax",
            "pick", "Dropout", "Convolution", "Pooling", "Activation",
-           "space_to_depth", "depth_to_space", "sgd_update_core",
-           "sgd_mom_update_core"]
+           "space_to_depth", "depth_to_space", "L2Normalization",
+           "sgd_update_core", "sgd_mom_update_core"]
 
 
 def _pair(v, n):
@@ -159,6 +159,23 @@ def LayerNorm(data, gamma, beta, eps=1e-5):
                         eps).to(data.dtype)
 
 
+def L2Normalization(data, eps=1e-10, mode="instance"):
+    """``x / sqrt(Σx² + eps)`` over the channel axis (``"channel"``), the
+    spatial axes (``"spatial"``) or every axis but the batch's
+    (``"instance"``, and any other mode, as in the reference).  The sum
+    of squares accumulates in float32 and the result is cast back to
+    ``data``'s type, as in the reference."""
+    if mode == "channel":
+        axes = (1,)
+    elif mode == "spatial":
+        axes = tuple(range(2, data.dim()))
+    else:
+        axes = tuple(range(1, data.dim()))
+    x = data.float()
+    norm = torch.sqrt(x.square().sum(dim=axes, keepdim=True) + eps)
+    return (x / norm).to(data.dtype)
+
+
 def gelu(data):
     """GELU with the exact erf form (``approximate=False``)."""
     return F.gelu(data)
@@ -168,10 +185,32 @@ def log_softmax(data, axis=-1):
     return F.log_softmax(data, dim=axis)
 
 
-def pick(data, index, axis=-1):
-    """``data`` at ``index`` along ``axis`` (the reference's ``pick``)."""
-    return torch.gather(data, axis, index.long().unsqueeze(axis)) \
-        .squeeze(axis)
+def _fill_value(dtype):
+    """What the reference's ``take_along_axis`` reads at an index out of
+    range: NaN for floating types, else the most negative value (the
+    largest for an unsigned type)."""
+    if dtype.is_floating_point:
+        return math.nan
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def pick(data, index, axis=-1, keepdims=False):
+    """``data`` at ``index`` along ``axis`` (the reference's ``pick``, a
+    ``take_along_axis``).  Float indices are truncated to integers; an
+    index in ``[-C, -1]`` counts from the end (``-1`` is the last of the
+    ``C`` entries); one ``>= C`` or ``< -C`` reads NaN (for floating
+    ``data``) and passes no gradient.  The gather itself always reads
+    inside the axis, so no index makes it fail on the CPU or assert on
+    the card."""
+    axis = axis % data.dim()
+    c = data.shape[axis]
+    i = index.long().unsqueeze(axis)
+    i = torch.where(i < 0, i + c, i)
+    inside = (i >= 0) & (i < c)
+    out = torch.gather(data, axis, torch.where(inside, i, 0))
+    out = torch.where(inside, out, _fill_value(data.dtype))
+    return out if keepdims else out.squeeze(axis)
 
 
 def Dropout(data, p, generator, training=True):
