@@ -150,7 +150,39 @@ line each:
                  weights, channels-last, ``detect``'s shape (8, 24564,
                  6) with finite kept rows, and that no kernel of the
                  port launched;
-13. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
+13. ``imperative_parity`` — the imperative surface (``NDArray``,
+                 ``autograd.record()``, deferred shapes, ``Trainer``) on
+                 the card against the CPU, float32: LeNet and an MLP with
+                 BatchNorm (logits within 2e-4, three momentum-SGD steps
+                 whose losses agree within 1e-4 and whose every tensor
+                 moves alike within 1e-2 in norm); and a 2-layer BERT at
+                 BERT-base's width, one LAMB step through
+                 ``autograd.record()``/``Trainer`` against
+                 ``CompiledTrainStep`` on the card from the same weights;
+14. ``mnist_train`` — ``examples/mnist/train_mnist.py``'s recipe through
+                 the imperative surface: ``lenet(10)`` with no input
+                 sizes, Xavier, ``Trainer`` (SGD lr 0.05, momentum 0.9)
+                 built before the first forward, softmax cross-entropy,
+                 the example's synthetic 8192 images in a shuffled
+                 ``NDArrayIter`` at batch 128, ``metric.Accuracy`` on
+                 every batch; 3 epochs imperatively, then a fresh net
+                 ``hybridize()``d for 3 more, each ending in the
+                 example's final train accuracy (> 0.9); images/s per
+                 epoch, step ms, peak memory, ``memory_allocated`` over
+                 100 steps (flat: no graph kept alive), a profiled
+                 fourth epoch (device busy time, idle share, launches a
+                 step), the host time the imperative boundary adds to a
+                 forward, and that no kernel of the port launched;
+15. ``bert_imperative`` — one BERT-base step at the ``train`` phase's
+                 width (bf16, dropout 0.1, batch 32 x 512, ragged valid
+                 lengths) written imperatively: ``with autograd.record():
+                 loss = MLMLoss()(net(...), labels)``,
+                 ``loss.backward()``, ``Trainer("lamb", multi_precision)
+                 .step(32)``; 1 warm-up and 5 timed steps in turns with
+                 ``CompiledTrainStep``'s from the same weights; launch
+                 counts prove the flash forward, dq and dk/dv ran 12
+                 times a step on the ``wgmma`` route;
+16. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
                  backward at BERT-base's attention width (B=32, H=12,
                  T=512, D=64, bf16, ragged ``valid_length``, dropout
                  0.1) for four float32 bias layouts: per head
@@ -166,13 +198,14 @@ line each:
                  memory, and ms with and without the bias, the bound,
                  the plain version's ms and SDPA's with the bias as a
                  float mask are recorded;
-14. ``rtc``    — the reference's rtc test kernels (``scale``, ``addmul``)
+17. ``rtc``    — the reference's rtc test kernels (``scale``, ``addmul``)
                  as CUDA source compiled at run time by
                  ``tpu_mx_torch.rtc`` and run on 2**26 float32 elements:
                  ``scale`` equals ``x * 3.0`` bit for bit, ``addmul``
                  equals ``a * b + a`` within 1e-6 of ``|a*b| + |a|``
-                 (nvcc may contract it to one FMA); nvcc's log reaches
-                 the error of bad source.
+                 (nvcc may contract it to one FMA), and ``scale``
+                 launched on an ``NDArray`` returns one, bit-equal too;
+                 nvcc's log reaches the error of bad source.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -274,6 +307,15 @@ SSD512_TRAIN_FLOPS_PER_IMG = 537.2e9
 SSD_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn",
                         "xmma", "cutlass", "nvjet", "gemm")),
               ("reduce", ("reduce_kernel", "softmax", "norm_kernel")))
+
+# the imperative surface: examples/mnist/train_mnist.py's recipe
+MNIST_N, MNIST_BATCH, MNIST_EPOCHS, MNIST_LR = 8192, 128, 3, 0.05
+MNIST_MIN_ACC = 0.9         # the example's own assert (train_mnist.py:85)
+# memory_allocated over 100 steps: one step's saved activations are ~17 MB
+# (conv1's and tanh's 5.9 MB each at batch 128), so a graph kept alive
+# a step would pass this at once; the allocator's own churn is < 1 MB
+MNIST_MEM_SLACK = 4 << 20
+IMPERATIVE_PARITY_BATCH = 16
 
 RTC_N = 1 << 26     # float32 elements: 256 MB an operand
 RTC_SOURCE = r'''
@@ -1413,13 +1455,16 @@ def cudnn_weight_copy(torch, rnn_op):
                 warned=bool(warned), warning=warned[:1])
 
 
-def device_busy_ms(torch, prof):
+def device_busy_ms(torch, prof, ranges=()):
     """Milliseconds in which at least one kernel ran, from a profile's
     kernel intervals (cuDNN's RNN runs kernels on several streams at
-    once, so the kernels' summed time exceeds the busy time)."""
+    once, so the kernels' summed time exceeds the busy time).  The
+    device-side spans of named ``ranges`` (``record_function``) cover
+    their kernels and the gaps between them, and are left out."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in ranges)
     busy, end = 0.0, None
     for start, stop in spans:
         if end is None or start > end:
@@ -2125,7 +2170,7 @@ def phase_rtc(ctx):
     """The reference's rtc kernels as CUDA source, compiled at run time,
     on 2**26 float32 elements."""
     import torch
-    from tpu_mx_torch import rtc
+    from tpu_mx_torch import nd, rtc
     from tpu_mx_torch.base import MXNetError
     gen = torch.Generator(device="cuda").manual_seed(4)
     x, a, b = (torch.randn(RTC_N, device="cuda", generator=gen)
@@ -2140,6 +2185,7 @@ def phase_rtc(ctx):
     rtc.Kernel.launches = 0
     y = scale.launch((x,))
     o = addmul((a, b))
+    y_nd = scale.launch((nd.array(x),))         # NDArray in, NDArray out
     torch.cuda.synchronize()
     launches = rtc.Kernel.launches
     want_y, want_o = x * 3.0, a * b + a
@@ -2148,8 +2194,10 @@ def phase_rtc(ctx):
     errs = {"scale": float((y - want_y).abs().max()),
             "addmul": float((o - want_o).abs().max())}
     checks = {"scale_bit_equal": torch.equal(y, want_y),
-              "addmul_rel": addmul_rel <= 1e-6, "launches": launches == 2}
-    del y, o, want_y, want_o, terms
+              "ndarray_scale_bit_equal": isinstance(y_nd, nd.NDArray)
+              and torch.equal(y_nd._data, want_y),
+              "addmul_rel": addmul_rel <= 1e-6, "launches": launches == 3}
+    del y, o, y_nd, want_y, want_o, terms
 
     buf = torch.empty_like(x)
     nbytes = {"scale": 2 * 4 * RTC_N, "addmul": 3 * 4 * RTC_N}
@@ -2197,6 +2245,429 @@ def phase_rtc(ctx):
             ctx["failures"].append(f"rtc check {name} failed")
 
 
+# -- the imperative surface ---------------------------------------------------
+def mnist_data(n=MNIST_N):
+    """``examples/mnist/train_mnist.py``'s synthetic set (``load_data``'s
+    fallback): blurred one-hot strokes from ``RandomState(0)``."""
+    rng = np.random.RandomState(0)
+    y = rng.randint(0, 10, n)
+    x = rng.rand(n, 1, 28, 28).astype(np.float32) * 0.1
+    for i, lbl in enumerate(y):
+        x[i, 0, lbl * 2:lbl * 2 + 4, 4:24] += 0.9
+    return x, y.astype(np.float32)
+
+
+def mnist_recipe(x, y, hybridize=False):
+    """The example's net, trainer, loss and iterator, on the current
+    context: ``lenet(10)``, Xavier, SGD lr 0.05 momentum 0.9 built before
+    the first forward, softmax cross-entropy, batch 128, shuffled."""
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import gluon
+    from tpu_mx_torch.models.lenet import lenet
+    it = mx.io.NDArrayIter(x, y, batch_size=MNIST_BATCH, shuffle=True,
+                           label_name="softmax_label")
+    net = lenet(classes=10)
+    net.initialize(init="xavier")
+    if hybridize:
+        net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": MNIST_LR, "momentum": 0.9})
+    return net, trainer, gluon.loss.SoftmaxCrossEntropyLoss(), it
+
+
+def mnist_epoch(torch, net, trainer, loss_fn, it, on_step=None,
+                ranges=False):
+    """One epoch of the example's loop body; returns the train accuracy,
+    the images seen, each step's host ms and the epoch's wall seconds
+    (ending in a synchronize).  ``ranges`` names the loop's parts for a
+    profile (``lenet.data``, ``lenet.forward``, ``lenet.backward``,
+    ``lenet.trainer``, ``lenet.metric``)."""
+    import contextlib
+
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import autograd
+    if ranges:
+        from torch.profiler import record_function as part
+    else:
+        def part(_name):
+            return contextlib.nullcontext()
+    it.reset()
+    metric = mx.metric.Accuracy()
+    n, step_ms = 0, []
+    t0 = time.perf_counter()
+    while True:
+        with part("lenet.data"):
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+        t1 = time.perf_counter()
+        data, label = batch.data[0], batch.label[0]
+        with part("lenet.forward"), autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label)
+        with part("lenet.backward"):
+            loss.backward()
+        with part("lenet.trainer"):
+            trainer.step(data.shape[0])
+        with part("lenet.metric"):
+            metric.update([label], [out])
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        n += data.shape[0]
+        if on_step is not None:
+            on_step()
+    torch.cuda.synchronize()
+    return metric.get()[1], n, step_ms, time.perf_counter() - t0
+
+
+def mnist_evaluate(net, it):
+    """The example's ``evaluate``: train accuracy in predict mode."""
+    import tpu_mx_torch as mx
+    metric = mx.metric.Accuracy()
+    it.reset()
+    for batch in it:
+        metric.update([batch.label[0]], [net(batch.data[0])])
+    return metric.get()[1]
+
+
+def boundary_us(torch, net, x, reps=200):
+    """Median host microseconds a forward takes through the imperative
+    boundary (an ``NDArray`` in, wrapped, modes set) beyond the same
+    forward on the raw tensor, in predict mode without a graph."""
+    from tpu_mx_torch import autograd, nd
+    arr = nd.array(x)
+    t = arr._data
+    times = {"nd": [], "tensor": []}
+    with autograd.predict_mode(), torch.no_grad():
+        net.eval()
+        for _ in range(reps):
+            for key, arg in (("nd", arr), ("tensor", t)):
+                t0 = time.perf_counter()
+                net(arg)
+                times[key].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return {k: statistics.median(v) * 1e6 for k, v in times.items()}
+
+
+def mnist_run(torch, x, y, hybridize, ctx_mem=None):
+    """The recipe's 3 epochs and its final train accuracy; with
+    ``ctx_mem``, ``memory_allocated`` after each step from the second
+    epoch on."""
+    net, trainer, loss_fn, it = mnist_recipe(x, y, hybridize)
+    epochs = []
+    for e in range(MNIST_EPOCHS):
+        on_step = None
+        if ctx_mem is not None and e > 0:
+            def on_step():
+                ctx_mem.append(torch.cuda.memory_allocated())
+        acc, n, step_ms, wall = mnist_epoch(torch, net, trainer, loss_fn, it,
+                                            on_step)
+        epochs.append(dict(train_acc=float(acc), images=n, seconds=wall,
+                           images_per_sec=n / wall,
+                           step_ms_median=statistics.median(step_ms)))
+    final = float(mnist_evaluate(net, it))
+    return net, trainer, loss_fn, it, epochs, final
+
+
+def phase_mnist_train(ctx):
+    """``examples/mnist/train_mnist.py``'s recipe through the port's
+    imperative surface: 3 epochs imperatively, then a fresh net
+    hybridized for 3 more, each ending in the example's final train
+    accuracy (> 0.9); a profiled fourth epoch of the imperative net."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.backends.cudnn.benchmark = False
+    x, y = mnist_data()
+    t0 = time.perf_counter()
+    reset_port_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    mem = []
+    net, trainer, loss_fn, it, epochs, final = mnist_run(torch, x, y, False,
+                                                         mem)
+    h_net, _, _, _, h_epochs, h_final = mnist_run(torch, x, y, True)
+    launches = port_kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, n, step_ms, wall = mnist_epoch(torch, net, trainer, loss_fn, it)
+    busy_ms = device_busy_ms(torch, prof)
+    launches_per_step = sum(
+        e.count for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0) / len(step_ms)
+    bound = boundary_us(torch, net, x[:MNIST_BATCH])
+    window = mem[10:110]
+    ctx["mnist_launches"] = launches
+    checks = {
+        "accuracy_imperative": bool(final > MNIST_MIN_ACC),
+        "accuracy_hybridized": bool(h_final > MNIST_MIN_ACC),
+        "hybridized": all(m._active for m in h_net.modules()),
+        "memory_flat": len(window) == 100
+        and max(window) - min(window) <= MNIST_MEM_SLACK,
+        "no_port_kernel_launched": not any(launches.values()),
+        "device_busy": busy_ms > 0,
+    }
+    step_med = statistics.median(
+        [e["step_ms_median"] for e in epochs + h_epochs])
+    ctx["mnist"] = dict(final=final, hybridized_final=h_final,
+                        step_ms=step_med, idle=1 - busy_ms / (wall * 1e3))
+    emit("mnist_train", ok=all(checks.values()), checks=checks,
+         model="lenet(classes=10), deferred shapes, xavier",
+         optimizer=f"sgd lr={MNIST_LR} momentum=0.9 (Trainer before the "
+                   "first forward)",
+         data=dict(images=len(x), batch=MNIST_BATCH, shuffle=True,
+                   source="examples/mnist/train_mnist.py:27-37"),
+         imperative=dict(epochs=epochs, final_train_accuracy=final),
+         hybridized=dict(epochs=h_epochs, final_train_accuracy=h_final),
+         step_ms_median=step_med, min_accuracy=MNIST_MIN_ACC,
+         peak_memory_bytes=peak,
+         memory_allocated_100_steps=dict(
+             min=min(window) if window else None,
+             max=max(window) if window else None, slack=MNIST_MEM_SLACK),
+         profiled_epoch=dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+                             idle_share=1 - busy_ms / (wall * 1e3),
+                             launches_per_step=launches_per_step,
+                             step_ms_median=statistics.median(step_ms)),
+         boundary_host_us=dict(bound, extra=bound["nd"] - bound["tensor"]),
+         launches=launches, seconds=time.perf_counter() - t0,
+         card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"mnist_train check {name} failed")
+    del net, h_net, trainer
+    torch.cuda.empty_cache()
+
+
+def _moved(before, after):
+    """Per-tensor relative difference of two runs' updates (by norm)."""
+    worst, worst_name = 0.0, None
+    for name in before["cpu"]:
+        d_cpu = after["cpu"][name] - before["cpu"][name]
+        d_gpu = after["cuda"][name] - before["cuda"][name]
+        rel = float(np.linalg.norm(d_gpu - d_cpu)
+                    / max(np.linalg.norm(d_cpu), 1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def imperative_case(torch, build, x, y, steps=3):
+    """``build()``'s net on the CPU and on the card from one weight set:
+    predict-mode logits, then ``steps`` imperative SGD steps."""
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import autograd, gluon, nd
+    logits, losses, before, after = {}, {}, {}, {}
+    for dev, context in (("cpu", mx.cpu()), ("cuda", mx.gpu(0))):
+        with context:
+            net = build()
+            net.initialize(init="xavier", generator=torch.Generator(
+                device=dev).manual_seed(0))
+            net(nd.array(x[:2]))                      # the deferred shapes
+            params = net.collect_params()
+            if dev == "cuda":                # the CPU net's starting weights
+                for k, p in params.items():
+                    p.set_data(before["cpu"][k])
+            logits[dev] = net(nd.array(x)).asnumpy()
+            before[dev] = {k: p.data().asnumpy() for k, p in params.items()}
+            trainer = gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                                    "momentum": 0.9})
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            data, label = nd.array(x), nd.array(y)
+            run = []
+            for _ in range(steps):
+                with autograd.record():
+                    loss = loss_fn(net(data), label)
+                loss.backward()
+                trainer.step(len(x))
+                run.append(float(loss.mean().asscalar()))
+            losses[dev] = run
+            after[dev] = {k: p.data().asnumpy() for k, p in params.items()}
+    logit_err = float(np.abs(logits["cuda"] - logits["cpu"]).max())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    worst, worst_name = _moved(before, after)
+    return dict(logits_max_abs_err=logit_err, losses=losses,
+                loss_rel_err=loss_rel, worst_update_rel_err=worst,
+                worst_update_param=worst_name,
+                ok=logit_err <= LOGITS_ATOL and loss_rel <= LOSS_RTOL
+                and worst <= UPDATE_RTOL)
+
+
+def imperative_bert_pair(torch, cfg, dtype, seed=0):
+    """Two BERT models with one weight set (one generator seed each)."""
+    from tpu_mx_torch.models import BERTModel
+    return [BERTModel(cfg, dtype=dtype, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(seed)) for _ in range(2)]
+
+
+def imperative_bert_step(net, trainer, loss_fn, batch):
+    """``with autograd.record(): loss = MLMLoss()(net(...), labels)``,
+    ``loss.backward()``, ``trainer.step(batch size)``; the mean loss."""
+    from tpu_mx_torch import autograd
+    with autograd.record():
+        loss = loss_fn(net(*batch[:4]), batch[4])
+    loss.backward()
+    trainer.step(batch[0].shape[0])
+    return float(loss.mean().asscalar())
+
+
+def phase_imperative_parity(ctx):
+    """The imperative surface on the card against the CPU: LeNet and an
+    MLP with BatchNorm (deferred shapes, float32); and a 2-layer float32
+    BERT-base-width step through ``autograd.record``/``Trainer`` against
+    ``CompiledTrainStep`` on the card, from the same weights."""
+    import torch
+    from tpu_mx_torch import gluon, nd, optimizer
+    from tpu_mx_torch.models import MLMLoss, bert_base_config
+    from tpu_mx_torch.models.lenet import lenet
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    t0 = time.perf_counter()
+    x, y = mnist_data(IMPERATIVE_PARITY_BATCH)
+
+    def mlp():
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(64, activation="relu"), gluon.nn.BatchNorm(),
+                gluon.nn.Dense(10))
+        return net
+    cases = {"lenet": imperative_case(torch, lambda: lenet(10), x, y),
+             "mlp": imperative_case(torch, mlp, x, y)}
+
+    cfg = dict(bert_base_config(max_len=128), num_layers=2, dropout=0.0)
+    imp, comp = imperative_bert_pair(torch, cfg, "float32")
+    batch = bert_batch(cfg, 2, 128, 19, (128, 97), np.random.RandomState(2))
+    tensors = tuple(torch.from_numpy(b).cuda() for b in batch)
+    arrays = [nd.array(b, ctx=None) for b in tensors]
+    step = CompiledTrainStep(comp, MLMLoss(), optimizer.create(
+        "lamb", learning_rate=1e-4), device="cuda")
+    trainer = gluon.Trainer(imp.collect_params(), "lamb",
+                            {"learning_rate": 1e-4})
+    want = float(step.step(*tensors))
+    got = imperative_bert_step(imp, trainer, MLMLoss(), arrays)
+    named = dict(comp.named_parameters())
+    worst, worst_name = 0.0, None
+    for k, p in imp.named_parameters():
+        rel = float((p.detach() - named[k].detach()).norm()
+                    / named[k].detach().norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, k
+    bert = dict(loss_imperative=got, loss_compiled=want,
+                loss_rel_err=abs(got - want) / abs(want),
+                worst_weight_rel_err=worst, worst_param=worst_name)
+    bert["ok"] = bert["loss_rel_err"] <= LOSS_RTOL and worst <= UPDATE_RTOL
+    cases["bert_imperative_vs_compiled"] = bert
+    checks = {name: c["ok"] for name, c in cases.items()}
+    ctx["imperative_parity"] = checks
+    emit("imperative_parity", ok=all(checks.values()), checks=checks,
+         config=dict(lenet="lenet(10), float32", mlp="Dense(64, relu) -> "
+                     "BatchNorm -> Dense(10), deferred shapes",
+                     batch=IMPERATIVE_PARITY_BATCH, steps=3,
+                     optimizer="sgd lr=0.05 momentum=0.9",
+                     bert={**cfg, "dtype": "float32", "batch": 2,
+                           "seq": 128, "optimizer": "lamb lr=1e-4"}),
+         cases=cases, logits_atol=LOGITS_ATOL, loss_rtol=LOSS_RTOL,
+         update_rtol=UPDATE_RTOL, seconds=time.perf_counter() - t0)
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"imperative_parity check {name} failed")
+    del imp, comp, step, trainer
+    torch.cuda.empty_cache()
+
+
+def phase_bert_imperative(ctx):
+    """One BERT-base step at the train phase's width (bf16, dropout 0.1,
+    batch 32 x 512, ragged valid lengths) through the imperative surface,
+    ``Trainer("lamb", multi_precision)``, beside ``CompiledTrainStep``'s
+    step from the same weights, in turns."""
+    import torch
+    from tpu_mx_torch import gluon, nd, optimizer
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.models import MLMLoss, bert_base_config
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    rng = np.random.RandomState(0)
+    valid = rng.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, TRAIN_BATCH)
+    batch = bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED, valid, rng)
+    tensors = tuple(torch.from_numpy(b).cuda() for b in batch)
+    arrays = [nd.array(t) for t in tensors]
+    t0 = time.perf_counter()
+    imp, comp = imperative_bert_pair(torch, cfg, "bfloat16")
+    trainer = gluon.Trainer(imp.collect_params(), "lamb",
+                            {"learning_rate": 1e-4,
+                             "multi_precision": True})
+    step = CompiledTrainStep(comp, MLMLoss(), optimizer.create(
+        "lamb", learning_rate=1e-4, multi_precision=True))
+    loss_fn = MLMLoss()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = {"imperative": [imperative_bert_step(imp, trainer, loss_fn,
+                                                  arrays)],
+              "compiled": [float(step.step(*tensors))]}   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = {"imperative": [], "compiled": []}
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    launches = dict.fromkeys(port_kernel_launches(), 0)
+    routes = {k: dict.fromkeys(fa.ROUTES, 0) for k in FLASH_KERNELS}
+    for _ in range(TRAIN_STEPS):
+        for kind in ("imperative", "compiled"):
+            if kind == "imperative":    # the imperative path's counts only
+                reset_port_kernel_launches()
+                for c in counters:
+                    c.routes = dict.fromkeys(fa.ROUTES, 0)
+            t1 = time.perf_counter()
+            if kind == "imperative":
+                losses[kind].append(imperative_bert_step(imp, trainer,
+                                                         loss_fn, arrays))
+            else:
+                losses[kind].append(float(step.step(*tensors)))
+            step_ms[kind].append((time.perf_counter() - t1) * 1e3)
+            if kind == "imperative":
+                for name, n in port_kernel_launches().items():
+                    launches[name] += n
+                for name, c in zip(FLASH_KERNELS, counters):
+                    for r, n in c.routes.items():
+                        routes[name][r] += n
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg["num_layers"]
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    first_rel = abs(losses["imperative"][0] - losses["compiled"][0]) \
+        / abs(losses["compiled"][0])
+    checks = {
+        "flash_launches": all(launches[k] == layers * TRAIN_STEPS
+                              for k in FLASH_KERNELS),
+        "wgmma_routes": all(r == dict(dict.fromkeys(fa.ROUTES, 0),
+                                      wgmma=layers * TRAIN_STEPS)
+                            for r in routes.values()),
+        "paged_and_rtc_idle": launches["paged_attention"] == 0
+        and launches["rtc"] == 0,
+        "finite": all(math.isfinite(v) for run in losses.values()
+                      for v in run),
+        "first_loss_matches_compiled": first_rel <= BF16_REL,
+    }
+    ctx["bert_imperative_launches"] = launches
+    ctx["bert_imperative"] = dict(step_ms=med)
+    emit("bert_imperative", ok=all(checks.values()), checks=checks,
+         model={**cfg, "dtype": "bfloat16"},
+         batch=dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, masked=TRAIN_MASKED,
+                    valid_length=[int(v) for v in valid]),
+         optimizer="Trainer lamb lr=1e-4 multi_precision, step(32)",
+         setup_seconds=setup_s, losses=losses, step_ms=step_ms,
+         step_ms_median=med, seq_per_sec={k: TRAIN_BATCH / v * 1e3
+                                          for k, v in med.items()},
+         first_loss_rel_err=first_rel, first_loss_rtol=BF16_REL,
+         peak_memory_bytes=peak, launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         routes=routes, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"bert_imperative check {name} failed")
+    del imp, comp, step, trainer
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -2227,6 +2698,9 @@ def main():
                      ("lstm_train", phase_lstm_train),
                      ("ssd_parity", phase_ssd_parity),
                      ("ssd_train", phase_ssd_train),
+                     ("imperative_parity", phase_imperative_parity),
+                     ("mnist_train", phase_mnist_train),
+                     ("bert_imperative", phase_bert_imperative),
                      ("attention_bias", phase_attention_bias),
                      ("rtc", phase_rtc)):
         try:
@@ -2240,7 +2714,8 @@ def main():
     if ctx["failures"] or not {"kernels", "launches", "train_launches",
                                 "resnet_parity", "resnet_launches",
                                 "lstm_launches", "ssd_launches", "bias",
-                                "rtc"} \
+                                "rtc", "imperative_parity", "mnist_launches",
+                                "bert_imperative_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1
@@ -2269,7 +2744,10 @@ def main():
                "math_route": e["math_route"],
                "launches_resnet": ctx["resnet_launches"][name],
                "launches_lstm": ctx["lstm_launches"][name],
-               "launches_ssd": ctx["ssd_launches"][name]}
+               "launches_ssd": ctx["ssd_launches"][name],
+               "launches_mnist": ctx["mnist_launches"][name],
+               "launches_bert_imperative":
+                   ctx["bert_imperative_launches"][name]}
         if "ms_queued" in e:
             row["ms_queued"] = e["ms_queued"]
         path_routes = (ctx["decode_routes"] if name == "paged_attention"
@@ -2311,7 +2789,10 @@ def main():
                     "math_route": "ffma", "addmul": r["addmul"],
                     "launches_resnet": ctx["resnet_launches"]["rtc"],
                     "launches_lstm": ctx["lstm_launches"]["rtc"],
-                    "launches_ssd": ctx["ssd_launches"]["rtc"]})
+                    "launches_ssd": ctx["ssd_launches"]["rtc"],
+                    "launches_mnist": ctx["mnist_launches"]["rtc"],
+                    "launches_bert_imperative":
+                        ctx["bert_imperative_launches"]["rtc"]})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the ResNet, PTB LSTM and SSD slices on the card against the CPU.
+the ResNet, PTB LSTM and SSD slices and the imperative surface on the
+card against the CPU.
 
 Needs a CUDA card and ``nvcc``; every test here is marked ``cuda`` and
 skips without a card.  The file imports neither jax nor ``tpu_mx``, so
@@ -1222,3 +1223,105 @@ def test_bf16_ssd_losses_fall_on_the_card():
     kept = det[det[..., 0] >= 0]
     assert det.shape == (2, 1280, 6) and kept.shape[0] > 0
     assert bool(torch.isfinite(kept).all())
+
+
+# -- the imperative surface on the card ---------------------------------------
+def _mnist(n=32, seed=0):
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 10, n)
+    x = rng.rand(n, 1, 28, 28).astype(np.float32) * 0.1
+    for i, lbl in enumerate(y):
+        x[i, 0, lbl * 2:lbl * 2 + 4, 4:24] += 0.9
+    return x, y.astype(np.float32)
+
+
+def test_arrays_default_to_the_card_and_take_gradients_there():
+    from tpu_mx_torch import autograd, gpu, nd
+    x = nd.array(np.arange(6, dtype=np.float32).reshape(2, 3))
+    assert x.context == gpu(0) and x._data.is_cuda
+    assert nd.zeros((2,)).context == gpu(0)
+    x.attach_grad()
+    with autograd.record():
+        y = (nd.exp(x) * 2).sum()
+    y.backward()
+    np.testing.assert_allclose(x.grad.asnumpy(), 2 * np.exp(x.asnumpy()),
+                               rtol=1e-6)
+    assert nd.random.uniform(shape=(4,)).context == gpu(0)
+
+
+def test_imperative_lenet_steps_on_the_card_match_the_cpu():
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import autograd, gluon, nd
+    from tpu_mx_torch.models.lenet import lenet
+    torch.backends.cudnn.allow_tf32 = False
+    x, y = _mnist()
+    runs, start = {}, None
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        with ctx:
+            net = lenet(10)
+            net.initialize(init="xavier")
+            net(nd.array(x[:2]))
+            params = net.collect_params()
+            if start is None:
+                start = {k: p.data().asnumpy() for k, p in params.items()}
+            else:
+                for k, p in params.items():
+                    p.set_data(start[k])
+            trainer = gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                                    "momentum": 0.9})
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            losses = []
+            for _ in range(3):
+                with autograd.record():
+                    loss = loss_fn(net(nd.array(x)), nd.array(y))
+                loss.backward()
+                trainer.step(len(x))
+                losses.append(float(loss.mean().asscalar()))
+            runs[ctx.kind] = (losses, {k: p.data().asnumpy()
+                                       for k, p in params.items()})
+    np.testing.assert_allclose(runs["gpu"][0], runs["cpu"][0], rtol=1e-4)
+    for k, w in runs["cpu"][1].items():
+        d_cpu, d_gpu = w - start[k], runs["gpu"][1][k] - start[k]
+        assert np.linalg.norm(d_gpu - d_cpu) <= 1e-2 * np.linalg.norm(d_cpu)
+
+
+def test_imperative_bert_step_runs_the_flash_kernels():
+    from tpu_mx_torch import autograd, gluon, nd
+    from tpu_mx_torch.models import BERTModel, MLMLoss, bert_base_config
+    cfg = dict(bert_base_config(vocab_size=1000, max_len=128),
+               num_layers=2, units=128, hidden_size=256, num_heads=2)
+    net = BERTModel(cfg, dtype="bfloat16", device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    trainer = gluon.Trainer(net.collect_params(), "lamb",
+                            {"learning_rate": 1e-3, "multi_precision": True})
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(4, 1000, (4, 128)).astype(np.int32)
+    valid = np.array([128, 100, 77, 128], np.int32)
+    pos = np.stack([rng.choice(n, 19, replace=False)
+                    for n in valid]).astype(np.int32)
+    labels = np.take_along_axis(tokens, pos, axis=1)
+    args = [nd.array(a) for a in (tokens, np.zeros_like(tokens), valid, pos)]
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    with autograd.record():
+        loss = MLMLoss()(net(*args), nd.array(labels))
+    loss.backward()
+    trainer.step(4)
+    after = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+             fa.flash_attention_bwd_dkv.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    assert np.isfinite(loss.asnumpy()).all()
+    p = next(iter(net.collect_params().values()))
+    assert p.dtype == torch.bfloat16 and p.grad._data.is_cuda
+
+
+def test_rtc_launch_takes_arrays_on_the_card():
+    from tpu_mx_torch import nd
+    mod = rtc.CudaModule('extern "C" __global__ void scale(const float* x, '
+                         'float* y, float alpha, int n) { int i = '
+                         'blockIdx.x * blockDim.x + threadIdx.x; '
+                         'if (i < n) y[i] = x[i] * alpha; }')
+    x = nd.array(np.random.RandomState(0).randn(1000).astype(np.float32))
+    y = mod.get_kernel("scale", alpha=3.0).launch((x,))
+    assert isinstance(y, nd.NDArray) and y._data.is_cuda
+    assert torch.equal(y._data, x._data * 3.0)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's training step spends its time: a torch.profiler trace.
 
-    python3 torch_train_profile.py [--model bert|resnet50|lstm|ssd]
+    python3 torch_train_profile.py [--model bert|resnet50|lstm|ssd|lenet]
                                    [--out DIR] [--steps N]
 
 Builds the training configuration of one of ``chip_smoke.py``'s phases:
@@ -28,6 +28,18 @@ convolutions, reductions, the rest) and the kernels with the most device
 time.  For SSD the device time of two named ranges is split out too:
 ``ssd.targets`` (``MultiBoxTarget``, the target generation) and
 ``ssd.optimizer`` (the SGD update of every parameter).
+``lenet`` profiles one epoch (64 steps) of ``mnist_train``'s imperative
+loop (``examples/mnist/train_mnist.py``'s recipe: ``lenet(10)``, SGD with
+momentum, batch 128 of the example's synthetic images, after one
+warm-up epoch) instead of N steps, and splits the wall time by the
+loop's named parts: ``lenet.data`` (``NDArrayIter``), ``lenet.forward``
+(the ``Block`` calls and the loss under ``autograd.record()``),
+``lenet.backward``, ``lenet.trainer`` (``Trainer.step``) and
+``lenet.metric`` (``metric.Accuracy.update``, which reads the batch
+back), each with its host time and the device time of the kernels it
+launched (the backward's kernels are launched by autograd's own thread
+and fall outside ``lenet.backward``); it also prints the host time the
+imperative boundary adds to a forward.
 The profiler's host cost lengthens the wall time, so the idle share is
 an upper bound on the unprofiled run's.  The Chrome trace goes to
 ``DIR`` (default ``build/profile/``, git-ignored).  Needs one CUDA card.
@@ -65,9 +77,17 @@ GROUPS = {
              ("reduce", ("reduce_kernel", "softmax", "norm_kernel")),
              MATMUL),
     "ssd": chip_smoke.SSD_GROUPS,
+    # cuDNN's convolutions, then the rest (elementwise, pooling, the SGD
+    # updates, copies)
+    "lenet": (("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
+              ("reduce", ("reduce_kernel", "softmax", "norm_kernel")),
+              MATMUL),
 }
 # the SSD step's named ranges (record_function), by what they wrap
 SSD_RANGES = ("ssd.targets", "ssd.optimizer")
+# the imperative LeNet loop's parts (chip_smoke.mnist_epoch)
+LENET_RANGES = ("lenet.data", "lenet.forward", "lenet.backward",
+                "lenet.trainer", "lenet.metric")
 
 
 def group_of(name, groups):
@@ -173,6 +193,59 @@ def ssd_step(torch):
     return step, (data, labels, torch.zeros(1, device="cuda"))
 
 
+def lenet_epoch(torch, args, profile, activities):
+    """One profiled epoch of the imperative LeNet loop; prints its JSON
+    line."""
+    x, y = chip_smoke.mnist_data()
+    net, trainer, loss_fn, it = chip_smoke.mnist_recipe(x, y)
+    chip_smoke.mnist_epoch(torch, net, trainer, loss_fn, it)   # warm-up
+    with profile(activities=activities) as prof:
+        acc, n, step_ms, wall = chip_smoke.mnist_epoch(
+            torch, net, trainer, loss_fn, it, ranges=True)
+    steps = len(step_ms)
+    wall_ms = wall * 1e3
+    busy_ms = chip_smoke.device_busy_ms(torch, prof, LENET_RANGES)
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and e.key not in LENET_RANGES]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    ranges = {e.key: {"host_ms": e.cpu_time_total / 1e3 / steps,
+                      "device_ms": e.device_time_total / 1e3 / steps,
+                      "calls": e.count / steps}
+              for e in events if e.key in LENET_RANGES
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    groups = {}
+    for e in kernels:
+        g = groups.setdefault(group_of(e.key, GROUPS["lenet"]),
+                              {"device_ms": 0.0, "calls": 0})
+        g["device_ms"] += e.self_device_time_total / 1e3 / steps
+        g["calls"] += e.count / steps
+    prof.export_chrome_trace(os.path.join(args.out, "lenet_epoch.json"))
+    boundary = chip_smoke.boundary_us(torch, net, x[:chip_smoke.MNIST_BATCH])
+    print(json.dumps({
+        "model": "lenet", "window": f"1 epoch, {steps} steps of "
+                                    f"{chip_smoke.MNIST_BATCH}",
+        "train_accuracy": acc, "images": n, "wall_ms": wall_ms,
+        "step_ms_median": chip_smoke.statistics.median(step_ms),
+        "images_per_sec": n / wall, "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / wall_ms,
+        "launches_per_step": sum(e.count for e in kernels) / steps,
+        "ranges_per_step": ranges,
+        "ranges_host_share": {k: v["host_ms"] * steps / wall_ms
+                              for k, v in ranges.items()},
+        "per_step": groups,
+        "boundary_host_us": dict(boundary,
+                                 extra=boundary["nd"] - boundary["tensor"]),
+        "kernels": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in kernels[:15]]}), flush=True)
+    if busy_ms <= 0:
+        raise SystemExit("torch_train_profile: no device time recorded")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(GROUPS), default="bert")
@@ -190,6 +263,9 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if args.model == "lenet":
+        return lenet_epoch(torch, args, profile, activities)
     step, batch = {"bert": bert_step, "resnet50": resnet50_step,
                    "lstm": lstm_step, "ssd": ssd_step}[args.model](torch)
     float(step.step(*batch))                              # warm-up
@@ -209,7 +285,7 @@ def main():
               and e.device_type == torch.autograd.DeviceType.CPU}
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    busy_ms = chip_smoke.device_busy_ms(torch, prof)
+    busy_ms = chip_smoke.device_busy_ms(torch, prof, SSD_RANGES)
     groups = {}
     for e in kernels:
         g = groups.setdefault(group_of(e.key, GROUPS[args.model]),

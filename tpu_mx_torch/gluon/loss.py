@@ -1,15 +1,18 @@
 """Losses from ``tpu_mx/gluon/loss.py``: ``Loss``, ``SoftmaxCrossEntropyLoss``,
-``HuberLoss`` and ``PassThrough``, as :class:`torch.nn.Module`s.
+``HuberLoss`` and ``PassThrough``, as blocks (they take tensors, or
+arrays through the imperative boundary of :class:`HybridBlock`).
 
 A loss returns one value per example (the mean over every axis but
-``batch_axis``); ``CompiledTrainStep`` takes the mean of that.
+``batch_axis``); ``CompiledTrainStep`` takes the mean of that, and the
+imperative loop's ``loss.backward()`` sums it, ``Trainer.step(batch)``
+scaling by ``1/batch``.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..ndarray import ops
+from .block import HybridBlock
 
 __all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss", "HuberLoss",
            "PassThrough"]
@@ -23,17 +26,15 @@ def _apply_weighting(loss, weight=None, sample_weight=None):
     return loss
 
 
-class Loss(nn.Module):
+class Loss(HybridBlock):
     """Base of the losses.  ``**kwargs`` are the reference's block
     arguments: ``prefix`` names the loss; ``params`` (a parameter dict
-    to share) is ignored, as a loss holds no parameters."""
+    to share) holds nothing a loss uses."""
 
     def __init__(self, weight, batch_axis, prefix=None, params=None):
-        super().__init__()
+        super().__init__(prefix, params)
         self._weight = weight
         self._batch_axis = batch_axis
-        self.prefix = prefix if prefix is not None else \
-            type(self).__name__.lower() + "_"
 
     def _per_example(self, loss):
         axes = tuple(i for i in range(loss.dim()) if i != self._batch_axis)

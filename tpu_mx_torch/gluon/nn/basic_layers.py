@@ -4,41 +4,34 @@
 
 As :class:`torch.nn.Module`s with the reference's parameter names
 (``weight``/``bias``, ``gamma``/``beta``, ``running_mean``/
-``running_var``), order and initializers.  Shapes are declared up front
-(``in_units``/``in_channels``): the port has no deferred initialization.
-Parameters are created on the device of the ``generator`` that draws
-them, in ``dtype``.
+``running_var``), order and initializers.  An input size left at 0
+(``in_units``/``in_channels``) is inferred at the first forward by the
+reference's rules (``infer_shape``), after ``initialize()``.  Parameters
+of known shape are created on the device of the ``generator`` that draws
+them (default: the current context's), in ``dtype``.  ``prefix`` names a
+layer's parameters as in the reference; ``params`` shares another
+block's.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-from torch import nn
 
-from ... import initializer as _init
 from ... import layout as _layout
-from ...base import MXNetError
+from ...base import refuse_unported
 from ...ndarray import ops
 from ..block import HybridBlock, as_dtype, default_generator
 
 __all__ = ["Dense", "BatchNorm", "LayerNorm", "Dropout", "Embedding",
-           "Activation", "Flatten", "HybridSequential", "make_param"]
-
-
-def make_param(name, shape, generator, dtype=torch.float32, init=None):
-    """A trainable parameter drawn by ``init`` (an initializer, or None for
-    the reference's default ``Uniform(0.07)``), which sees ``name`` for
-    its name convention: biases and betas are 0, gammas 1."""
-    data = _init.create(init)(name, tuple(shape), dtype, generator)
-    return nn.Parameter(data)
+           "Activation", "Flatten", "HybridSequential"]
 
 
 class Activation(HybridBlock):
     """``ops.Activation`` as a layer (``"relu"``, ``"sigmoid"``, ...)."""
 
-    def __init__(self, activation):
-        super().__init__()
+    def __init__(self, activation, prefix=None, params=None):
+        super().__init__(prefix, params)
         self._act_type = activation
 
     def forward(self, x):
@@ -52,16 +45,17 @@ class Dense(HybridBlock):
     """``y = act(x·Wᵀ + b)``.  With ``flatten`` (the default) an input of
     rank > 2 is reshaped to ``(N, prod(shape[1:]))`` first; with
     ``flatten=False`` the product runs over the last axis (BERT).  With
-    ``use_bias=False`` there is no ``bias`` parameter."""
+    ``use_bias=False`` there is no ``bias`` parameter.  ``in_units=0``:
+    ``prod(shape[1:])`` of the first input with ``flatten``, else its
+    last axis."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype=torch.float32, weight_initializer=None,
-                 bias_initializer="zeros", in_units=0, generator=None):
-        super().__init__()
-        if not in_units:
-            raise MXNetError("Dense: in_units must be given (the port has "
-                             "no deferred initialization)")
+                 bias_initializer="zeros", in_units=0, generator=None,
+                 prefix=None, params=None):
+        super().__init__(prefix, params)
         g, dt = default_generator(generator), as_dtype(dtype)
+        self._units = units
         self._flatten = flatten
         self._declare("weight", (units, in_units), weight_initializer, dt, g)
         if use_bias:
@@ -69,6 +63,10 @@ class Dense(HybridBlock):
         else:
             self.bias = None
         self.act = Activation(activation) if activation else None
+
+    def infer_shape(self, x, *args):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self._reg_params["weight"].shape_hint((self._units, in_units))
 
     def forward(self, x):
         out = ops.FullyConnected(x, self.weight, self.bias,
@@ -93,17 +91,16 @@ class BatchNorm(HybridBlock):
     running statistics normalize.  The normalization is one float32
     per-channel scale and bias, cast once to ``x``'s dtype:
     ``x·scale + bias``.  ``axis=None`` follows ``layout.bn_axis()``:
-    1 channels-first, -1 under a channels-last default."""
+    1 channels-first, -1 under a channels-last default.  ``in_channels=0``:
+    the first input's size along ``axis``."""
 
     def __init__(self, axis=None, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
                  gamma_initializer="ones", running_mean_initializer="zeros",
                  running_variance_initializer="ones", in_channels=0,
-                 dtype=torch.float32, generator=None):
-        super().__init__()
-        if not in_channels:
-            raise MXNetError("BatchNorm: in_channels must be given (the "
-                             "port has no deferred initialization)")
+                 dtype=torch.float32, generator=None, prefix=None,
+                 params=None):
+        super().__init__(prefix, params)
         g, dt = default_generator(generator), as_dtype(dtype)
         self._axis = _layout.bn_axis() if axis is None else axis
         self._momentum = momentum
@@ -118,6 +115,10 @@ class BatchNorm(HybridBlock):
                       aux=True)
         self._declare("running_var", shape, running_variance_initializer,
                       dt, g, aux=True)
+
+    def infer_shape(self, x, *args):
+        for leaf in ("gamma", "beta", "running_mean", "running_var"):
+            self._reg_params[leaf].shape_hint((x.shape[self._axis],))
 
     def forward(self, x):
         axis = self._axis % x.dim()
@@ -149,30 +150,43 @@ class BatchNorm(HybridBlock):
                              scale.to(x.dtype).view(shape))
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(HybridBlock):
     """Layer normalization over the last axis with float32 statistics
-    (``ops.LayerNorm``); gamma starts at 1, beta at 0."""
+    (``ops.LayerNorm``); gamma starts at 1, beta at 0.  ``in_channels=0``:
+    the first input's last axis."""
 
     def __init__(self, epsilon=1e-5, in_channels=0, dtype=torch.float32,
-                 generator=None):
-        super().__init__()
-        if not in_channels:
-            raise MXNetError("LayerNorm: in_channels must be given (the "
-                             "port has no deferred initialization)")
+                 generator=None, axis=-1, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 prefix=None, params=None):
+        super().__init__(prefix, params)
+        refuse_unported("LayerNorm", "A3", axis=(axis, -1))
+        g, dt = default_generator(generator), as_dtype(dtype)
         self._eps = epsilon
-        self.gamma = make_param("gamma", (in_channels,), generator, dtype)
-        self.beta = make_param("beta", (in_channels,), generator, dtype)
+        self._declare("gamma", (in_channels,), gamma_initializer, dt, g,
+                      grad=scale)
+        self._declare("beta", (in_channels,), beta_initializer, dt, g,
+                      grad=center)
+
+    def infer_shape(self, x, *args):
+        for leaf in ("gamma", "beta"):
+            self._reg_params[leaf].shape_hint((x.shape[-1],))
 
     def forward(self, x):
         return ops.LayerNorm(x, self.gamma, self.beta, eps=self._eps)
 
 
-class Dropout(nn.Module):
-    """Inverted dropout in training mode (``module.train()``), drawing its
-    masks from the explicit ``generator``."""
+class Dropout(HybridBlock):
+    """Inverted dropout in training mode (``autograd.record()`` on
+    arrays, ``module.train()`` on tensors), drawing its masks from the
+    explicit ``generator`` (None: the process's generator for the
+    input's device).  ``axes`` (a mask shared along axes) is not ported
+    yet."""
 
-    def __init__(self, rate, generator):
-        super().__init__()
+    def __init__(self, rate, generator=None, axes=(), prefix=None,
+                 params=None):
+        super().__init__(prefix, params)
+        refuse_unported("Dropout", "A3", axes=(tuple(axes), ()))
         self._rate = rate
         self._generator = generator
 
@@ -188,8 +202,9 @@ class Embedding(HybridBlock):
     reference."""
 
     def __init__(self, input_dim, output_dim, dtype=torch.float32,
-                 weight_initializer=None, sparse_grad=False, generator=None):
-        super().__init__()
+                 weight_initializer=None, sparse_grad=False, generator=None,
+                 prefix=None, params=None):
+        super().__init__(prefix, params)
         g, dt = default_generator(generator), as_dtype(dtype)
         self._input_dim, self._output_dim = input_dim, output_dim
         self._declare("weight", (input_dim, output_dim), weight_initializer,
@@ -203,7 +218,10 @@ class Embedding(HybridBlock):
 
 
 class Flatten(HybridBlock):
-    """``(N, ...)`` → ``(N, prod(...))``."""
+    """``(N, ...)`` → ``(N, prod(...))`` in the logical order of the
+    axes, whatever the memory format (a channels-last ``(N, C, H, W)``
+    tensor flattens in (C, H, W) order, as the reference's NCHW array
+    does)."""
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
@@ -212,6 +230,9 @@ class Flatten(HybridBlock):
 class HybridSequential(HybridBlock):
     """Children run in the order added; the i-th is named ``"i"``, as
     the reference's ``_children`` keys."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix, params)
 
     def add(self, *blocks):
         for b in blocks:
@@ -235,3 +256,4 @@ class HybridSequential(HybridBlock):
 
     def __iter__(self):
         return iter(self._modules.values())
+

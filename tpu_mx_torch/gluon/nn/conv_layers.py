@@ -9,6 +9,8 @@ strides (no copy).  A convolution's weight is an ``(O, I/g, kh, kw)``
 parameter; channels-last it has ``channels_last`` strides and takes the
 reference's ``(O, kh, kw, I/g)`` arrays transposed (``from_numpy``), and
 its initializer sees the reference's shape (a fan is the reference's).
+``in_channels=0`` is inferred at the first forward (the input's channel
+axis), after ``initialize()``.
 
 Not ported yet (ROADMAP): Conv1D/Conv3D, the transposed convolutions and
 the 1-D/3-D pooling layers.
@@ -18,7 +20,6 @@ from __future__ import annotations
 import torch
 
 from ... import layout as _layout
-from ...base import MXNetError
 from ...ndarray import ops
 from ..block import HybridBlock, as_dtype, default_generator
 from .basic_layers import Activation
@@ -38,11 +39,8 @@ class Conv2D(HybridBlock):
                  dilation=(1, 1), groups=1, layout=None, in_channels=0,
                  activation=None, use_bias=True, weight_initializer=None,
                  bias_initializer="zeros", dtype=torch.float32,
-                 generator=None):
-        super().__init__()
-        if not in_channels:
-            raise MXNetError("Conv2D: in_channels must be given (the port "
-                             "has no deferred initialization)")
+                 generator=None, prefix=None, params=None):
+        super().__init__(prefix, params)
         g, dt = default_generator(generator), as_dtype(dtype)
         self._channels = channels
         self._kernel = _tuple(kernel_size, 2)
@@ -52,18 +50,26 @@ class Conv2D(HybridBlock):
         self._groups = groups
         self._layout = layout or _layout.get_default_layout(2)
         self._channels_last = _layout.is_channels_last(self._layout)
-        io = (channels, in_channels // groups)
-        if self._channels_last:     # the reference's (O, kh, kw, I)
-            self._declare("weight", (io[0],) + self._kernel + (io[1],),
-                          weight_initializer, dt, g, axes=(0, 3, 1, 2))
-        else:
-            self._declare("weight", io + self._kernel, weight_initializer,
-                          dt, g)
+        axes = (0, 3, 1, 2) if self._channels_last else None
+        self._declare("weight", self._weight_shape(in_channels),
+                      weight_initializer, dt, g, axes=axes)
         if use_bias:
             self._declare("bias", (channels,), bias_initializer, dt, g)
         else:
             self.bias = None
         self.act = Activation(activation) if activation else None
+
+    def _weight_shape(self, c_in):
+        """The reference's weight shape: ``(O, I/g, kh, kw)``, or
+        channels-last ``(O, kh, kw, I/g)``."""
+        io = (self._channels, c_in // self._groups)
+        if self._channels_last:
+            return (io[0],) + self._kernel + (io[1],)
+        return io + self._kernel
+
+    def infer_shape(self, x, *args):
+        c_in = x.shape[-1 if self._channels_last else 1]
+        self._reg_params["weight"].shape_hint(self._weight_shape(c_in))
 
     def forward(self, x):
         # the op takes the reference's weight layout: the (O, kh, kw, I)
@@ -78,15 +84,17 @@ class Conv2D(HybridBlock):
         return self.act(out) if self.act is not None else out
 
     def extra_repr(self):
-        return (f"{self.weight.shape[1] * self._groups} -> {self._channels}, "
+        return (f"{self._reg_params['weight'].shape[1] * self._groups} -> "
+                f"{self._channels}, "
                 f"kernel_size={self._kernel}, stride={self._strides}, "
                 f"padding={self._padding}, layout={self._layout}")
 
 
 class _Pool(HybridBlock):
     def __init__(self, pool_size, strides, padding, global_pool, pool_type,
-                 layout, ceil_mode=False, count_include_pad=True):
-        super().__init__()
+                 layout, ceil_mode=False, count_include_pad=True,
+                 prefix=None, params=None):
+        super().__init__(prefix, params)
         self._kernel = pool_size
         self._stride = strides if strides is not None else pool_size
         self._pad = padding

@@ -26,8 +26,8 @@ from .. import device as _device
 from .. import random as _random
 from ..base import MXNetError, refuse_unported
 from ..gluon import loss as _loss
-from ..gluon.block import as_dtype, load_numpy
-from ..gluon.nn import Dense, Dropout, LayerNorm, make_param
+from ..gluon.block import HybridBlock, as_dtype, load_numpy
+from ..gluon.nn import Dense, Dropout, LayerNorm
 from ..ndarray import ops
 from ..parallel import attention as _attention
 
@@ -40,7 +40,7 @@ def bert_base_config(vocab_size=30522, max_len=512):
                 vocab_size=vocab_size, max_length=max_len, dropout=0.1)
 
 
-class SelfAttention(nn.Module):
+class SelfAttention(HybridBlock):
     """Fused QKV projection ``(3U, U)``, split ``(B, T, 3, H, D)``, then
     attention over ``(B, H, T, D)`` and the output projection."""
 
@@ -50,11 +50,10 @@ class SelfAttention(nn.Module):
         self._heads, self._dropout, self._mesh = num_heads, dropout, mesh
         self._generator = generator
         g, dt = generator, dtype
-        self.qkv_weight = make_param("qkv_weight", (3 * units, units), g, dt)
-        self.qkv_bias = make_param("qkv_bias", (3 * units,), g, dt)
-        self.attnout_weight = make_param("attnout_weight", (units, units), g,
-                                         dt)
-        self.attnout_bias = make_param("attnout_bias", (units,), g, dt)
+        self._declare("qkv_weight", (3 * units, units), None, dt, g)
+        self._declare("qkv_bias", (3 * units,), None, dt, g)
+        self._declare("attnout_weight", (units, units), None, dt, g)
+        self._declare("attnout_bias", (units,), None, dt, g)
 
     def forward(self, x, valid_length=None):
         b, t, u = x.shape
@@ -74,7 +73,7 @@ class SelfAttention(nn.Module):
                                   flatten=False)
 
 
-class TransformerLayer(nn.Module):
+class TransformerLayer(HybridBlock):
     """Post-LN encoder layer: attention, dropout, residual + LayerNorm,
     FFN with gelu, dropout, residual + LayerNorm."""
 
@@ -83,12 +82,10 @@ class TransformerLayer(nn.Module):
         super().__init__()
         g, dt = generator, dtype
         # own parameters first, then the children: the reference's order
-        self.ffn1_weight = make_param("ffn1_weight", (hidden_size, units), g,
-                                      dt)
-        self.ffn1_bias = make_param("ffn1_bias", (hidden_size,), g, dt)
-        self.ffn2_weight = make_param("ffn2_weight", (units, hidden_size), g,
-                                      dt)
-        self.ffn2_bias = make_param("ffn2_bias", (units,), g, dt)
+        self._declare("ffn1_weight", (hidden_size, units), None, dt, g)
+        self._declare("ffn1_bias", (hidden_size,), None, dt, g)
+        self._declare("ffn2_weight", (units, hidden_size), None, dt, g)
+        self._declare("ffn2_bias", (units,), None, dt, g)
         self.attention = SelfAttention(units, num_heads, dropout, mesh, dt, g)
         self.ln1 = LayerNorm(in_channels=units, dtype=dt, generator=g)
         self.ln2 = LayerNorm(in_channels=units, dtype=dt, generator=g)
@@ -108,7 +105,7 @@ class TransformerLayer(nn.Module):
         return self.ln2(x + h)
 
 
-class BERTEncoder(nn.Module):
+class BERTEncoder(HybridBlock):
     """Word + token-type + position embeddings, LayerNorm, dropout, and
     ``num_layers`` transformer layers."""
 
@@ -117,12 +114,9 @@ class BERTEncoder(nn.Module):
                  generator=None):
         super().__init__()
         g, dt = generator, dtype
-        self.word_embed_weight = make_param("word_embed_weight",
-                                            (vocab_size, units), g, dt)
-        self.pos_embed_weight = make_param("pos_embed_weight",
-                                           (max_length, units), g, dt)
-        self.type_embed_weight = make_param("type_embed_weight", (2, units),
-                                            g, dt)
+        self._declare("word_embed_weight", (vocab_size, units), None, dt, g)
+        self._declare("pos_embed_weight", (max_length, units), None, dt, g)
+        self._declare("type_embed_weight", (2, units), None, dt, g)
         self.ln = LayerNorm(in_channels=units, dtype=dt, generator=g)
         self.dropout = Dropout(dropout, g) if dropout else None
         self.layers = nn.ModuleList(
@@ -142,7 +136,7 @@ class BERTEncoder(nn.Module):
         return x
 
 
-class BERTModel(nn.Module):
+class BERTModel(HybridBlock):
     """Encoder + tied-embedding MLM head (the pretraining objective).
 
     ``BERTModel(config, dtype="bfloat16", device="cuda", generator=g)``:
@@ -176,7 +170,7 @@ class BERTModel(nn.Module):
         dt = as_dtype(dtype)
         self._cfg = cfg
         units = cfg["units"]
-        self.mlm_bias = make_param("mlm_bias", (cfg["vocab_size"],), gen, dt)
+        self._declare("mlm_bias", (cfg["vocab_size"],), None, dt, gen)
         self.encoder = BERTEncoder(dtype=dt, generator=gen, **cfg)
         self.mlm_dense = Dense(units, flatten=False, in_units=units, dtype=dt,
                                generator=gen)
@@ -216,12 +210,17 @@ class BERTModel(nn.Module):
 class MLMLoss(_loss.Loss):
     """The pretraining loss of the reference's BERT benchmark
     (``bench.py::_bert_once``): softmax cross-entropy over the gathered
-    masked positions, averaged (every label is a real token id)."""
+    masked positions (every label is a real token id), one value per
+    sequence, the mean over its masked positions.  Every sequence has as
+    many masked positions, so the mean of these (``CompiledTrainStep``'s
+    objective) is the benchmark's loss, and their sum scaled by
+    ``1/batch`` (``loss.backward()``, ``Trainer.step(batch)``) too."""
 
     def __init__(self):
         super().__init__(weight=None, batch_axis=0)
         self._ce = _loss.SoftmaxCrossEntropyLoss()
 
     def forward(self, logits, labels):
-        return self._ce(logits.reshape(-1, logits.shape[-1]),
-                        labels.reshape(-1)).mean()
+        ce = self._ce(logits.reshape(-1, logits.shape[-1]),
+                      labels.reshape(-1))
+        return ce.reshape(logits.shape[0], -1).mean(dim=1)

@@ -1,32 +1,106 @@
-"""The operators the port's models call (BERT, ResNet, SSD), from
-``tpu_mx/ndarray/ops.py``, on tensors.
+"""The operators of ``tpu_mx/ndarray/ops.py``: the ``nd.*`` namespace.
+
+Every operator is a plain function on tensors wrapped by :func:`_apply`,
+which follows the reference's rule (``ops.py:62-72``): a call with no
+:class:`~tpu_mx_torch.ndarray.NDArray` among its arguments runs the
+function on what it was given and returns raw tensors, so the port's
+models call these functions on tensors at no cost beyond a scan of the
+arguments; a call with arrays unwraps them, runs under
+``torch.set_grad_enabled(autograd.is_recording())`` (a graph only inside
+``record()``) and wraps the tensors it returns.  Creation operators
+(``zeros``, ``arange``, ``random.uniform``, ...) return arrays on
+``ctx`` (default: the current context), and tensors inside a
+``HybridBlock``'s forward, as the reference's do inside a trace.
 
 Same names and semantics as the reference's, including its numerics in
 mixed precision: ``LayerNorm`` computes its statistics in float32 and
-casts the result back to the input's type, ``gelu`` is the erf form.
-Matrix products and convolutions go to PyTorch (cuBLAS and cuDNN on the
-card), as the reference left them to XLA; none of these is a kernel of
-the port.
+casts the result back to the input's type, ``gelu`` is the erf form,
+comparisons return 0/1 in the operands' type, ``argmax`` returns
+float32.  Matrix products and convolutions go to PyTorch (cuBLAS and
+cuDNN on the card), as the reference left them to XLA; none of these is
+a kernel of the port.
 
 Layouts are the reference's: ``layout="NHWC"`` takes ``(N, H, W, C)``
 data and an ``(O, kh, kw, I)`` convolution weight.  The operators
 permute them to ``(N, C, H, W)``-shaped views, which for contiguous
 channels-last data have ``torch.channels_last`` strides (no copy), run
 PyTorch's operator there and permute the result back.
+
+Not ported yet (ROADMAP A3, by name): the linear-algebra, sampling,
+sort/topk, sequence, ``im2col``/``col2im``, ``gather_nd``/``scatter_nd``,
+``pad``, the loss-output heads (``SoftmaxOutput``, ...), ``Custom`` and
+the long tail of the reference's elementwise functions.
 """
 from __future__ import annotations
 
+import builtins
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from .. import autograd
+from .. import device as _device
 from .. import layout as _layout
+from .. import random as _random
+from ..context import current_context
+from .ndarray import NDArray, _torch_dtype
 
-__all__ = ["FullyConnected", "Embedding", "LayerNorm", "gelu", "log_softmax",
-           "pick", "Dropout", "Convolution", "Pooling", "Activation",
-           "space_to_depth", "depth_to_space", "L2Normalization",
-           "sgd_update_core", "sgd_mom_update_core"]
+# -- the imperative face ------------------------------------------------------
+def _holds_array(values):
+    for a in values:
+        if isinstance(a, NDArray):
+            return True
+        if isinstance(a, (list, tuple)) and any(isinstance(x, NDArray)
+                                                for x in a):
+            return True
+    return False
+
+
+def _unwrap(a):
+    if isinstance(a, NDArray):
+        return a._data
+    if isinstance(a, (list, tuple)):
+        return type(a)(_unwrap(x) for x in a)
+    return a
+
+
+def _wrap(out):
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (list, tuple)):
+        return [_wrap(o) for o in out]
+    return out
+
+
+def _apply(fn, args, kwargs):
+    """Run ``fn(*args, **kwargs)``: on raw tensors as given, or, when an
+    argument is an array, on the unwrapped tensors under the recording
+    flag, wrapping the outputs (a list for several)."""
+    if not (_holds_array(args) or _holds_array(kwargs.values())):
+        return fn(*args, **kwargs)
+    with torch.set_grad_enabled(autograd.is_recording()):
+        out = fn(*[_unwrap(a) for a in args],
+                 **{k: _unwrap(v) for k, v in kwargs.items()})
+    return _wrap(out)
+
+
+def _op(fn):
+    """``fn`` with the imperative face of :func:`_apply`."""
+    @functools.wraps(fn)
+    def op(*args, **kwargs):
+        return _apply(fn, args, kwargs)
+    return op
+
+
+def _place(t):
+    """A created tensor as an array, or as itself inside a forward."""
+    return t if autograd._STATE.functional else NDArray(t)
+
+
+def _dev(ctx):
+    return _device.resolve(ctx if ctx is not None else current_context())
 
 
 def _pair(v, n):
@@ -51,7 +125,13 @@ def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
     without it the product runs over the last axis (BERT's form)."""
     if flatten and data.dim() > 2:
         data = data.reshape(data.shape[0], -1)
-    return F.linear(data, weight, None if no_bias else bias)
+    if no_bias or bias is None:
+        return F.linear(data, weight)
+    if data.dtype in (torch.float16, torch.bfloat16):
+        # the reference rounds the product to the operands' type before
+        # it adds the bias (two roundings, where one fused call rounds once)
+        return F.linear(data, weight) + bias
+    return F.linear(data, weight, bias)
 
 
 def Convolution(data, weight, bias=None, kernel=None, stride=None,
@@ -181,8 +261,9 @@ def gelu(data):
     return F.gelu(data)
 
 
-def log_softmax(data, axis=-1):
-    return F.log_softmax(data, dim=axis)
+def log_softmax(data, axis=-1, temperature=None):
+    return F.log_softmax(data / temperature if temperature else data,
+                         dim=axis)
 
 
 def _fill_value(dtype):
@@ -213,12 +294,15 @@ def pick(data, index, axis=-1, keepdims=False):
     return out if keepdims else out.squeeze(axis)
 
 
-def Dropout(data, p, generator, training=True):
+def Dropout(data, p=0.5, generator=None, training=True):
     """Inverted dropout: keep each element with probability ``1 - p`` and
     scale kept ones by ``1/(1-p)``; the mask is drawn from ``generator``
-    (on ``data``'s device).  Identity when not training or ``p == 0``."""
+    (on ``data``'s device; None: the process's generator there).
+    Identity when not training or ``p == 0``."""
     if not training or p <= 0:
         return data
+    if generator is None:
+        generator = _random.generator(data.device)
     keep = torch.rand(data.shape, generator=generator,
                       device=data.device) >= p
     return torch.where(keep, data / (1.0 - p), torch.zeros((), dtype=data.dtype,
@@ -247,3 +331,488 @@ def sgd_mom_update_core(weight, grad, mom, lr, momentum, wd, rescale_grad=1.0,
     g = _clip(grad, rescale_grad, clip_gradient)
     new_mom = momentum * mom - lr * (g + wd * weight)
     return weight + new_mom, new_mom
+
+
+def adam_update_core(weight, grad, mean, var, lr, beta1, beta2, epsilon, wd,
+                     t, rescale_grad=1.0, clip_gradient=None):
+    """Adam, the reference's rule: the gradient rescaled, clipped and
+    given ``wd·w``; bias-corrected moments.  Returns ``(new_weight,
+    new_mean, new_var)``."""
+    g = _clip(grad, rescale_grad, clip_gradient) + wd * weight
+    m = beta1 * mean + (1 - beta1) * g
+    v = beta2 * var + (1 - beta2) * g.square()
+    mhat = m / (1 - beta1 ** t)
+    vhat = v / (1 - beta2 ** t)
+    return weight - lr * mhat / (vhat.sqrt() + epsilon), m, v
+
+
+# -- creation -----------------------------------------------------------------
+def zeros(shape, ctx=None, dtype="float32", **kw):
+    return _place(torch.zeros(shape, dtype=_torch_dtype(dtype),
+                              device=_dev(ctx)))
+
+
+def ones(shape, ctx=None, dtype="float32", **kw):
+    return _place(torch.ones(shape, dtype=_torch_dtype(dtype),
+                             device=_dev(ctx)))
+
+
+def full(shape, val, ctx=None, dtype="float32", **kw):
+    return _place(torch.full(shape, val, dtype=_torch_dtype(dtype),
+                             device=_dev(ctx)))
+
+
+def empty(shape, ctx=None, dtype="float32"):
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    if stop is None:
+        start, stop = 0, start
+    a = torch.arange(start, stop, step, dtype=torch.float64,
+                     device=_dev(ctx)).to(_torch_dtype(dtype))
+    return _place(a.repeat_interleave(repeat) if repeat != 1 else a)
+
+
+def zeros_like(data, **kw):
+    return torch.zeros_like(data)
+
+
+def ones_like(data, **kw):
+    return torch.ones_like(data)
+
+
+def full_like(data, fill_value, **kw):
+    return torch.full_like(data, fill_value)
+
+
+def cast(data, dtype, **kw):
+    return data.to(_torch_dtype(dtype))
+
+
+Cast = astype = cast
+
+
+def BlockGrad(data, **kw):
+    """The value, with no gradient flowing through it."""
+    return data.detach()
+
+
+stop_gradient = BlockGrad
+
+
+def identity(data, **kw):
+    return data
+
+
+# -- elementwise --------------------------------------------------------------
+def _unary(tfn, name):
+    def op(data, **kw):
+        return tfn(data)
+    op.__name__ = op.__qualname__ = name
+    return op
+
+
+abs = _unary(torch.abs, "abs")
+sign = _unary(torch.sign, "sign")
+ceil = _unary(torch.ceil, "ceil")
+floor = _unary(torch.floor, "floor")
+trunc = fix = _unary(torch.trunc, "trunc")
+round = rint = _unary(torch.round, "round")
+exp = _unary(torch.exp, "exp")
+expm1 = _unary(torch.expm1, "expm1")
+log = _unary(torch.log, "log")
+log2 = _unary(torch.log2, "log2")
+log10 = _unary(torch.log10, "log10")
+log1p = _unary(torch.log1p, "log1p")
+sqrt = _unary(torch.sqrt, "sqrt")
+rsqrt = _unary(torch.rsqrt, "rsqrt")
+square = _unary(torch.square, "square")
+reciprocal = _unary(torch.reciprocal, "reciprocal")
+negative = _unary(torch.neg, "negative")
+sin = _unary(torch.sin, "sin")
+cos = _unary(torch.cos, "cos")
+tan = _unary(torch.tan, "tan")
+arcsin = _unary(torch.asin, "arcsin")
+arccos = _unary(torch.acos, "arccos")
+arctan = _unary(torch.atan, "arctan")
+sinh = _unary(torch.sinh, "sinh")
+cosh = _unary(torch.cosh, "cosh")
+tanh = _unary(torch.tanh, "tanh")
+sigmoid = _unary(torch.sigmoid, "sigmoid")
+softsign = _unary(F.softsign, "softsign")
+relu = _unary(torch.relu, "relu")
+erf = _unary(torch.erf, "erf")
+erfinv = _unary(torch.erfinv, "erfinv")
+logical_not = _unary(lambda x: (x == 0).to(x.dtype), "logical_not")
+isnan = _unary(torch.isnan, "isnan")
+isinf = _unary(torch.isinf, "isinf")
+isfinite = _unary(torch.isfinite, "isfinite")
+
+
+def _binary(tfn, name):
+    def op(lhs, rhs, **kw):
+        return tfn(lhs, rhs)
+    op.__name__ = op.__qualname__ = name
+    return op
+
+
+def _compare(cmp):
+    return lambda a, b: cmp(a, b).to(torch.result_type(a, b))
+
+
+add = _binary(lambda a, b: a + b, "add")
+subtract = _binary(lambda a, b: a - b, "subtract")
+multiply = _binary(lambda a, b: a * b, "multiply")
+divide = _binary(lambda a, b: a / b, "divide")
+mod = _binary(lambda a, b: a % b, "mod")
+power = _binary(lambda a, b: a ** b, "power")
+maximum = _binary(lambda a, b: torch.maximum(*_tensors(a, b)), "maximum")
+minimum = _binary(lambda a, b: torch.minimum(*_tensors(a, b)), "minimum")
+hypot = _binary(lambda a, b: torch.hypot(*_tensors(a, b)), "hypot")
+equal = _binary(_compare(lambda a, b: a == b), "equal")
+not_equal = _binary(_compare(lambda a, b: a != b), "not_equal")
+greater = _binary(_compare(lambda a, b: a > b), "greater")
+greater_equal = _binary(_compare(lambda a, b: a >= b), "greater_equal")
+lesser = _binary(_compare(lambda a, b: a < b), "lesser")
+lesser_equal = _binary(_compare(lambda a, b: a <= b), "lesser_equal")
+
+
+def _tensors(a, b):
+    """Both operands as tensors (a Python scalar takes the other's type,
+    as the reference's weakly typed scalars do)."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(a, dtype=torch.result_type(a, b), device=b.device)
+    if not isinstance(b, torch.Tensor):
+        b = torch.as_tensor(b, dtype=torch.result_type(a, b), device=a.device)
+    return a, b
+
+
+broadcast_add = broadcast_plus = elemwise_add = add
+broadcast_sub = broadcast_minus = elemwise_sub = subtract
+broadcast_mul = elemwise_mul = multiply
+broadcast_div = elemwise_div = divide
+broadcast_mod = mod
+broadcast_power = power
+broadcast_maximum = maximum
+broadcast_minimum = minimum
+broadcast_equal = equal
+broadcast_not_equal = not_equal
+broadcast_greater = greater
+broadcast_greater_equal = greater_equal
+broadcast_lesser = lesser
+broadcast_lesser_equal = lesser_equal
+
+
+def add_n(*args, **kw):
+    return functools.reduce(lambda a, b: a + b, args)
+
+
+ElementWiseSum = add_n
+
+
+# -- reductions ---------------------------------------------------------------
+def _axes(data, axis, exclude=False):
+    """``axis`` as a tuple of dims (None: all)."""
+    if axis is None:
+        return None
+    ax = tuple(axis) if isinstance(axis, (list, tuple)) else (axis,)
+    if exclude:
+        keep = {a % data.dim() for a in ax}
+        ax = tuple(i for i in range(data.dim()) if i not in keep)
+    return ax
+
+
+def _reduce(tfn, name, floating=False):
+    def op(data, axis=None, keepdims=False, exclude=False, **kw):
+        if floating and not data.is_floating_point():
+            data = data.float()
+        ax = _axes(data, axis, exclude)
+        if ax is None:
+            out = tfn(data, tuple(range(data.dim())), False)
+            return out.reshape((1,) * data.dim()) if keepdims else out
+        return tfn(data, ax, keepdims)
+    op.__name__ = op.__qualname__ = name
+    return op
+
+
+def _prod(x, dims, keep):
+    for d in sorted((d % x.dim() for d in dims), reverse=True):
+        x = x.prod(dim=d, keepdim=keep)
+    return x
+
+
+sum = sum_axis = _reduce(lambda x, d, k: torch.sum(x, dim=d, keepdim=k)
+                         if d else x.clone(), "sum")
+mean = _reduce(lambda x, d, k: torch.mean(x, dim=d, keepdim=k)
+               if d else x.clone(), "mean", floating=True)
+max = max_axis = _reduce(lambda x, d, k: torch.amax(x, dim=d, keepdim=k)
+                         if d else x.clone(), "max")
+min = min_axis = _reduce(lambda x, d, k: torch.amin(x, dim=d, keepdim=k)
+                         if d else x.clone(), "min")
+prod = _reduce(_prod, "prod")
+
+
+def _arg(tfn, name):
+    def op(data, axis=None, keepdims=False, **kw):
+        if axis is None:
+            out = tfn(data.reshape(-1), dim=0)
+            return (out.reshape((1,) * data.dim()) if keepdims
+                    else out).float()
+        return tfn(data, dim=axis, keepdim=keepdims).float()
+    op.__name__ = op.__qualname__ = name
+    return op
+
+
+argmax = _arg(torch.argmax, "argmax")
+argmin = _arg(torch.argmin, "argmin")
+
+
+def norm(data, ord=2, axis=None, keepdims=False, **kw):
+    """L1 (``ord=1``) or L2 norm over ``axis`` (None: all)."""
+    x = data.abs() if ord == 1 else data.square()
+    ax = _axes(data, axis)
+    s = x.sum() if ax is None else x.sum(dim=ax, keepdim=keepdims)
+    if ax is None and keepdims:
+        s = s.reshape((1,) * data.dim())
+    return s if ord == 1 else s.sqrt()
+
+
+# -- shapes -------------------------------------------------------------------
+def reshape(data, shape=None, reverse=False, **kw):
+    """The reference's reshape with its special codes: 0 keeps a dim,
+    -1 infers one, -2 copies the rest, -3 merges two."""
+    out, src, i = [], list(data.shape), 0
+    for s in tuple(shape):
+        if s == 0:
+            out.append(src[i])
+            i += 1
+        elif s == -1:
+            out.append(-1)
+            i += 1
+        elif s == -2:
+            out.extend(src[i:])
+            i = len(src)
+        elif s == -3:
+            out.append(src[i] * src[i + 1])
+            i += 2
+        elif s == -4:
+            continue
+        else:
+            out.append(s)
+            i += 1
+    return data.reshape(tuple(out))
+
+
+Reshape = reshape
+
+
+def reshape_like(lhs, rhs, **kw):
+    return lhs.reshape(rhs.shape)
+
+
+def flatten(data, **kw):
+    return data.reshape(data.shape[0], -1)
+
+
+Flatten = flatten
+
+
+def transpose(data, axes=None, **kw):
+    return data.permute(tuple(axes) if axes else
+                        tuple(reversed(range(data.dim()))))
+
+
+def swapaxes(data, dim1=0, dim2=0, **kw):
+    return data.transpose(dim1, dim2)
+
+
+SwapAxis = swapaxes
+
+
+def expand_dims(data, axis, **kw):
+    return data.unsqueeze(axis)
+
+
+def squeeze(data, axis=None, **kw):
+    if axis is None:
+        return data.squeeze()
+    return data.squeeze(tuple(axis) if isinstance(axis, (list, tuple))
+                        else axis)
+
+
+def broadcast_to(data, shape, **kw):
+    """To ``shape``; a 0 there keeps the dim."""
+    return data.expand(tuple(data.shape[i] if s == 0 else s
+                             for i, s in enumerate(shape)))
+
+
+def broadcast_like(lhs, rhs, **kw):
+    return lhs.expand(rhs.shape)
+
+
+def flip(data, axis, **kw):
+    return torch.flip(data, dims=(axis,) if isinstance(axis, int)
+                      else tuple(axis))
+
+
+reverse = flip
+
+
+def tile(data, reps, **kw):
+    return data.tile(tuple(reps) if isinstance(reps, (list, tuple))
+                     else (reps,))
+
+
+def repeat(data, repeats, axis=None, **kw):
+    if axis is None:
+        return data.reshape(-1).repeat_interleave(repeats)
+    return data.repeat_interleave(repeats, dim=axis)
+
+
+def concat(*data, dim=1, **kw):
+    if len(data) == 1 and isinstance(data[0], (list, tuple)):
+        data = tuple(data[0])
+    return torch.cat(data, dim=dim)
+
+
+Concat = concat
+
+
+def stack(*data, axis=0, **kw):
+    if len(data) == 1 and isinstance(data[0], (list, tuple)):
+        data = tuple(data[0])
+    return torch.stack(data, dim=axis)
+
+
+def split(data, num_outputs, axis=1, squeeze_axis=False, **kw):
+    """``num_outputs`` equal parts along ``axis``, as a list."""
+    n = data.shape[axis]
+    if n % num_outputs:
+        raise ValueError(f"split: axis of {n} does not divide into "
+                         f"{num_outputs} parts")
+    parts = data.split(n // num_outputs, dim=axis)
+    return [p.squeeze(axis) for p in parts] if squeeze_axis else list(parts)
+
+
+SliceChannel = split
+
+
+def slice_axis(data, axis, begin, end, **kw):
+    idx = [builtins.slice(None)] * data.dim()
+    idx[axis] = builtins.slice(begin, end)
+    return data[tuple(idx)]
+
+
+def clip(data, a_min, a_max, **kw):
+    return torch.clamp(data, a_min, a_max)
+
+
+def where(condition, x, y, **kw):
+    return torch.where(condition != 0, x, y)
+
+
+def take(a, indices, axis=0, mode="clip", **kw):
+    """``a``'s entries along ``axis`` at ``indices`` (floats truncated),
+    clipped into range (``mode="wrap"``: taken modulo the axis)."""
+    n = a.shape[axis]
+    i = indices.long()
+    i = i % n if mode == "wrap" else i.clamp(0, n - 1)
+    out = torch.index_select(a, axis, i.reshape(-1))
+    return out.reshape(a.shape[:axis] + i.shape + a.shape[axis + 1:])
+
+
+def one_hot(indices, depth, on_value=1.0, off_value=0.0, dtype="float32",
+            **kw):
+    """Rows of ``depth`` with ``on_value`` at each index (floats
+    truncated); an index outside ``[0, depth)`` gives a row of
+    ``off_value``."""
+    hot = indices.long().unsqueeze(-1) == torch.arange(
+        depth, device=indices.device)
+    dt = _torch_dtype(dtype)
+    return hot.to(dt) * (on_value - off_value) + off_value
+
+
+# -- products -----------------------------------------------------------------
+def dot(lhs, rhs, transpose_a=False, transpose_b=False, **kw):
+    """The last axis of ``lhs`` against the first of ``rhs`` (matrix
+    transposes first where asked)."""
+    if transpose_a and lhs.dim() > 1:
+        lhs = lhs.transpose(-1, -2)
+    if transpose_b and rhs.dim() > 1:
+        rhs = rhs.transpose(-1, -2)
+    if lhs.dim() <= 2 and rhs.dim() <= 2:
+        return torch.matmul(lhs, rhs)
+    return torch.tensordot(lhs, rhs, dims=([-1], [0]))
+
+
+def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False, **kw):
+    if transpose_a:
+        lhs = lhs.transpose(-1, -2)
+    if transpose_b:
+        rhs = rhs.transpose(-1, -2)
+    return torch.matmul(lhs, rhs)
+
+
+# -- softmax ------------------------------------------------------------------
+def softmax(data, axis=-1, temperature=None, length=None, **kw):
+    """Softmax over ``axis``; with ``length`` only the first
+    ``length[...]`` entries of each row take part."""
+    z = data / temperature if temperature else data
+    if length is not None:
+        shape = [1] * data.dim()
+        shape[axis] = data.shape[axis]
+        steps = torch.arange(data.shape[axis],
+                             device=data.device).reshape(shape)
+        ln = length.reshape(tuple(length.shape)
+                            + (1,) * (data.dim() - length.dim()))
+        z = torch.where(steps < ln, z, -math.inf)
+    return F.softmax(z, dim=axis)
+
+
+def softmax_cross_entropy(data, label, **kw):
+    """``-Σ log softmax(data)[label]`` over the batch (one number)."""
+    logp = F.log_softmax(data, dim=-1)
+    return -logp.gather(-1, label.long().unsqueeze(-1)).sum()
+
+
+# -- random -------------------------------------------------------------------
+class _RandomNS:
+    """``nd.random``: draws on ``ctx`` (default: the current context)
+    from the port's generator for that device."""
+
+    @staticmethod
+    def uniform(low=0.0, high=1.0, shape=(1,), dtype="float32", ctx=None,
+                **kw):
+        dev = _dev(ctx)
+        u = torch.rand(tuple(shape) if shape else (), device=dev,
+                       generator=_random.generator(dev))
+        return _place((u * (high - low) + low).to(_torch_dtype(dtype)))
+
+    @staticmethod
+    def normal(loc=0.0, scale=1.0, shape=(1,), dtype="float32", ctx=None,
+               **kw):
+        dev = _dev(ctx)
+        n = torch.randn(tuple(shape) if shape else (), device=dev,
+                        generator=_random.generator(dev))
+        return _place((n * scale + loc).to(_torch_dtype(dtype)))
+
+
+random = _RandomNS()
+random_uniform = uniform = random.uniform
+random_normal = normal = random.normal
+
+
+# every function above that takes arrays gets the imperative face
+_CREATION = {"zeros", "ones", "full", "empty", "arange", "random",
+             "random_uniform", "random_normal", "uniform", "normal"}
+for _name, _fn in list(globals().items()):
+    if callable(_fn) and getattr(_fn, "__module__", None) == __name__ \
+            and not _name.startswith("_") and _name not in _CREATION \
+            and not isinstance(_fn, type):
+        globals()[_name] = _op(_fn)
+del _name, _fn
+
+__all__ = sorted(n for n, v in globals().items()
+                 if not n.startswith("_") and (callable(v) or n == "random")
+                 and getattr(v, "__module__", None) == __name__)

@@ -31,8 +31,9 @@ was modelled on::
   ``grid`` to ``ceil(n / block)``.  Inputs are contiguous CUDA tensors
   on one device; the kernel runs on that device's current stream and the
   output tensor is returned.  Each launch adds one to
-  ``Kernel.launches``.  The reference's ``NDArray`` handle is not ported
-  yet (ROADMAP A3): ``launch`` takes and returns torch tensors.
+  ``Kernel.launches``.  ``launch`` takes torch tensors and returns one,
+  or takes :class:`~tpu_mx_torch.ndarray.NDArray` handles (any of the
+  inputs) and returns an ``NDArray``, as the reference's does.
 - The source is compiled at the first launch, not at construction, by
   ``nvcc -cubin`` for ``sm_90a`` into ``build/tpu_mx_torch/rtc/<sha256 of
   source, options and nvcc version>.cubin`` (reused while it exists); an
@@ -58,6 +59,7 @@ import threading
 import torch
 
 from .base import MXNetError
+from .ndarray.ndarray import NDArray
 from .kernels import _build
 
 __all__ = ["CudaModule", "Kernel", "NVCC_FLAGS", "RTC_DIR"]
@@ -299,12 +301,22 @@ class Kernel:
         shape; ``out_dtype`` a name or a ``torch.dtype``), run the kernel
         on the inputs' device and current stream with ``shared_mem``
         bytes of dynamic shared memory (at most 48 KB), and return the
-        output."""
-        if isinstance(args, torch.Tensor):
+        output: an ``NDArray`` when an input was one, else a tensor."""
+        if isinstance(args, (torch.Tensor, NDArray)):
             args = (args,)
         args = tuple(args)
+        if any(isinstance(a, NDArray) for a in args):
+            return NDArray(self._launch(
+                tuple(a._data.detach() if isinstance(a, NDArray) else a
+                      for a in args), out_shape, out_dtype, grid, block,
+                shared_mem))
+        return self._launch(args, out_shape, out_dtype, grid, block,
+                            shared_mem)
+
+    def _launch(self, args, out_shape, out_dtype, grid, block, shared_mem):
         if not args or not all(isinstance(a, torch.Tensor) for a in args):
-            raise MXNetError("rtc: launch takes a sequence of torch tensors")
+            raise MXNetError("rtc: launch takes a sequence of torch tensors "
+                             "or NDArrays")
         dev = args[0].device
         if dev.type != "cuda":
             raise MXNetError(
