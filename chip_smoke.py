@@ -52,6 +52,28 @@ line each:
                  every decode on ``split_k``), and
                  request 0 held against the port on the CPU (plain
                  versions, same weights);
+   ``serve_features`` — the serving decode features at the same width
+                 (``max_batch=8``, block 16, 1024 blocks).  (a) Prefix
+                 sharing: 8 requests share a 512-token system prompt and
+                 each adds its own 64-256-token tail (32 new tokens
+                 each), sharing off and on in turns, twice: prefill ms
+                 per request, the peak of blocks held, the index's hits
+                 and bytes saved, flash launches and
+                 ``serve.prefill_attention{kind}``; sharing on must hit
+                 at least 7 times, hold fewer blocks and launch the
+                 flash forward less, run its suffixes dense and its full
+                 prefills ``tf32x3``, and leave no reference after
+                 ``drop_prefix_cache()``.  (b) Speculative decoding:
+                 ``serve``'s 8 prompts with ``TPUMX_SPECULATIVE`` off,
+                 at 4, and at 4 with a proposer that drafts the known
+                 stream (every window accepted): decode steps, tokens/s,
+                 median step ms, the accept ratio, and every spec-on
+                 step's paged launches at ``Tq=4`` on ``split_k``.
+                 (c) Top-k: ``sampling="top_k:40"``, seed 7, twice:
+                 equal streams, every token within its step's top 40,
+                 and a sampler's ``state_dict`` resuming its stream.
+                 Every stream equals the feature-off stream or splits
+                 only where the logits' top two are within ``NEAR_TIE``;
 5. ``train_parity`` — one ``CompiledTrainStep`` LAMB step of BERT-base
                  (12 layers, float32, dropout 0, batch 2 x 128) on the
                  card and on the CPU from the same weights: losses and
@@ -211,6 +233,7 @@ Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
 prints no result, if any phase fails or there is no card.
 """
+import gc
 import json
 import math
 import re
@@ -241,6 +264,10 @@ SERVE = dict(vocab_size=32000, embed_dim=4096, num_heads=32, num_layers=4,
              max_positions=4096, seed=0)
 PROMPT_LENS = (77, 150, 233, 310, 401, 499, 587, 700)
 NEW_TOKENS = 32
+SHARE_SYSTEM = 512               # the shared system prompt: 32 blocks of 16
+SHARE_TAILS = (64, 256)          # each request's own tail, drawn in range
+SPEC_WINDOW = 4                  # TPUMX_SPECULATIVE in the spec-on runs
+TOP_K, TOP_K_SEED = 40, 7
 SERVE_FWD_T = (128, 700, 2048)   # the serving forward's timed prompt lengths
 SERVE_FWD_ENTRY = 700            # the one in the kernels line
 
@@ -528,6 +555,8 @@ def phase_kernels(ctx):
                 ctx["failures"].append(f"paged_attention {shape}: err {err}")
             if tq == 1 and dtype == torch.float32:
                 entries["paged_attention"] = rec
+            if tq == 4 and dtype == torch.float32:
+                ctx["paged_tq4"] = rec
 
     bh, d = 32, 128
     for t in SERVE_FWD_T:
@@ -852,6 +881,7 @@ def phase_serve(ctx):
     ctx["decode_routes"] = decode_routes = dict(pa.paged_attention.routes)
     ctx["launches"] = {"flash_attention_fwd": flash_n,
                        "paged_attention": paged_n}
+    ctx["serve_model"], ctx["serve_prompts"] = model, prompts
 
     events = tracing.snapshot()
     prefill_s = [e["data"]["seconds"] for e in events
@@ -908,6 +938,307 @@ def phase_serve(ctx):
     for name, ok in checks.items():
         if not ok:
             ctx["failures"].append(f"serve check {name} failed")
+
+
+def stream_splits(model, prompts, got, want):
+    """Where each pair of greedy streams first differs (None: equal), and
+    the top-2 logit gap of ``want``'s prefix there (the card's own
+    full-prefill logits)."""
+    out = []
+    for p, g, w in zip(prompts, got, want):
+        split = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                     None)
+        if split is None and len(g) != len(w):
+            split = min(len(g), len(w))
+        gap = None if split is None else \
+            top2_gap(model.prefill(list(p) + w[:split])[2].cpu())
+        out.append((split, gap))
+    return out
+
+
+def splits_ok(splits):
+    return all(s is None or g <= NEAR_TIE for s, g in splits)
+
+
+def serve_run(torch, srv, prompts, new_tokens, track=None):
+    """Drive ``srv`` over ``prompts`` from counts at 0: the streams, the
+    wall seconds, the kernels' launch counts and routes, the prefill and
+    decode events, and the peak of blocks held (read each step)."""
+    from tpu_mx_torch import telemetry, tracing
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.kernels import paged_attention as pa
+    reset_port_kernel_launches()
+    fa.flash_attention.routes = dict.fromkeys(fa.ROUTES, 0)
+    pa.paged_attention.routes = dict.fromkeys(pa.ROUTES, 0)
+    pa.paged_attention.windows = {}
+    tracing.reset()
+    telemetry.reset()
+    reqs = [srv.submit(p, max_new_tokens=new_tokens, request_id=f"f{i}")
+            for i, p in enumerate(prompts)]
+    if track is not None:
+        track(reqs)
+    cache = srv.engine.cache
+    peak = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not srv.scheduler.idle():
+        srv.step()
+        peak = max(peak, cache.allocator.used)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = tracing.snapshot()
+    prefills = [e["data"] for e in events if e["event"] == "serve.prefill"]
+    decode_s = [e["data"]["seconds"] for e in events
+                if e["event"] == "serve.decode"]
+    kinds = {k: (telemetry.get("serve.prefill_attention", kind=k).value
+                 if telemetry.get("serve.prefill_attention", kind=k)
+                 else 0) for k in ("flash", "dense")}
+    ratio = telemetry.get("serve.spec_accept_ratio")
+    return dict(
+        streams=[r.tokens for r in reqs],
+        done=all(r.state == "done" and len(r.tokens) == new_tokens
+                 for r in reqs),
+        wall_seconds=wall,
+        tokens_per_sec=sum(len(r.tokens) for r in reqs) / wall,
+        launches=port_kernel_launches(),
+        flash_routes=dict(fa.flash_attention.routes),
+        paged_routes=dict(pa.paged_attention.routes),
+        paged_windows=dict(pa.paged_attention.windows),
+        prefill_ms=[d["seconds"] * 1e3 for d in prefills],
+        cached=[d["cached"] for d in prefills],
+        decode_steps=len(decode_s),
+        decode_step_ms_median=statistics.median(decode_s) * 1e3
+        if decode_s else None,
+        prefill_attention=kinds, peak_blocks=peak,
+        accept_ratio=ratio.value if ratio is not None else None)
+
+
+def _record(run):
+    """A run's numbers for the phase's line (its streams left out)."""
+    return {k: v for k, v in run.items() if k != "streams"}
+
+
+def window_logits_diff(torch, model, prompt, stream, k=SPEC_WINDOW):
+    """Max |logit| difference between one Tq=``k`` verify step over
+    ``stream[:k]`` and ``k`` one-token steps over the same tokens, both
+    after one prefill of ``prompt``: the last position's logits."""
+    from tpu_mx_torch.serving import PagedKVCache
+
+    class Given:
+        def draft(self, last_tokens, positions, n):
+            return torch.tensor([stream[1:n + 1]], device=model.device)
+
+    out = []
+    for steps in ([k], [1] * k):
+        cache = PagedKVCache(model.num_layers, model.num_heads,
+                             model.head_dim, num_blocks=128,
+                             device=model.device)
+        kv = model.prefill(prompt)
+        cache.prefill("a", kv[0], kv[1])
+        done = 0
+        for w in steps:
+            cache.reserve_window("a", w)
+            tables, lengths = cache.batch_tables(["a"])
+            bids, offs = cache.window_slots(["a"], w)
+            logits = model.decode_step(
+                cache, [stream[done]], lengths - w, tables, lengths, bids,
+                offs, proposer=Given(), want_logits=True)[3]
+            done += w
+        out.append(logits)
+    return float(np.abs(out[0] - out[1]).max())
+
+
+class OracleProposer:
+    """Drafts the known greedy stream: the token each position held in a
+    reference run (the 8 requests' positions do not overlap)."""
+
+    def __init__(self, prompts, streams):
+        self.at = {}
+        for p, s in zip(prompts, streams):
+            seq = list(p) + list(s)
+            for pos in range(len(p), len(seq)):
+                assert pos not in self.at, "overlapping positions"
+                self.at[pos] = seq[pos]
+
+    def draft(self, last_tokens, positions, n):
+        pos = positions.tolist()
+        return np.array([[self.at.get(p + 1 + j, 0) for j in range(n)]
+                         for p in pos], np.int64)
+
+
+def phase_serve_features(ctx):
+    import os
+    import torch
+    from tpu_mx_torch.serving import Server, TinyLM
+    from tpu_mx_torch.serving.sampling import TopKSampler
+
+    model = ctx.pop("serve_model", None) or TinyLM(**SERVE, device="cuda")
+    prompts = ctx.pop("serve_prompts", None)
+    if prompts is None:
+        rng = np.random.RandomState(1)
+        prompts = [rng.randint(0, SERVE["vocab_size"], size=n).tolist()
+                   for n in PROMPT_LENS]
+    layers = SERVE["num_layers"]
+    kw = dict(max_batch=8, block_size=16, num_blocks=1024)
+    checks, launches = {}, dict.fromkeys(port_kernel_launches(), 0)
+
+    def count(run):
+        for k, n in run["launches"].items():
+            launches[k] += n
+
+    # (a) shared-prefix KV reuse: sharing off and on, in turns, twice
+    rng = np.random.RandomState(2)
+    system = rng.randint(0, SERVE["vocab_size"], SHARE_SYSTEM).tolist()
+    shared = [system + rng.randint(0, SERVE["vocab_size"], n).tolist()
+              for n in rng.randint(SHARE_TAILS[0], SHARE_TAILS[1] + 1, 8)]
+    share = {False: [], True: []}
+    for on in (False, True, False, True):
+        srv = Server(model, prefix_sharing=on, **kw)
+        run = serve_run(torch, srv, shared, NEW_TOKENS)
+        stats = srv.engine.cache.prefix_stats()
+        srv.engine.cache.drop_prefix_cache()
+        run.update(hits=stats.get("hits", 0),
+                   prefill_bytes_saved=stats["prefill_bytes_saved"],
+                   refcounts_after_drop=len(
+                       srv.engine.cache.allocator.refcounts()))
+        share[on].append(run)
+        count(run)
+        del srv
+    off = share[False][0]
+    # the card's suffix prefill (dense) against its full one (tf32x3)
+    kv = model.prefill(system)
+    suffix = model.prefill_suffix(shared[1][SHARE_SYSTEM:], SHARE_SYSTEM,
+                                  kv[0], kv[1])[2]
+    share_logits_err = float(
+        (model.prefill(shared[1])[2] - suffix).abs().max())
+    del kv
+    share_splits = [stream_splits(model, shared, r["streams"], off["streams"])
+                    for r in share[False][1:] + share[True]]
+    checks.update(
+        share_done=all(r["done"] for r in share[False] + share[True]),
+        share_hits=all(r["hits"] >= len(shared) - 1 for r in share[True]),
+        share_fewer_blocks=all(r["peak_blocks"] < off["peak_blocks"]
+                               for r in share[True]),
+        share_fewer_flash=all(
+            r["launches"]["flash_attention_fwd"]
+            < off["launches"]["flash_attention_fwd"] for r in share[True]),
+        share_suffix_dense=all(
+            r["prefill_attention"]["dense"] == layers * r["hits"]
+            for r in share[True]),
+        share_full_tf32x3=all(
+            r["flash_routes"].get("tf32x3") == r["launches"][
+                "flash_attention_fwd"] > 0
+            for r in share[False] + share[True]),
+        share_refs_dropped=all(r["refcounts_after_drop"] == 0
+                               for r in share[False] + share[True]),
+        share_streams=all(splits_ok(s) for s in share_splits))
+
+    # (b) speculative decoding: off, at 4, and at 4 with an oracle
+    prior = os.environ.get("TPUMX_SPECULATIVE")
+    spec = {}
+    try:
+        for name, window in (("off", "0"), ("on", str(SPEC_WINDOW)),
+                             ("oracle", str(SPEC_WINDOW))):
+            os.environ["TPUMX_SPECULATIVE"] = window
+            srv = Server(model, **kw)
+            if name == "oracle":
+                srv.engine.proposer = OracleProposer(
+                    prompts, spec["off"]["streams"])
+            spec[name] = serve_run(torch, srv, prompts, NEW_TOKENS)
+            count(spec[name])
+            del srv
+    finally:
+        if prior is None:
+            os.environ.pop("TPUMX_SPECULATIVE", None)
+        else:
+            os.environ["TPUMX_SPECULATIVE"] = prior
+    spec_splits = {n: stream_splits(model, prompts, spec[n]["streams"],
+                                    spec["off"]["streams"])
+                   for n in ("on", "oracle")}
+    spec_logits_err = window_logits_diff(torch, model, prompts[0],
+                                         spec["off"]["streams"][0])
+    checks.update(
+        spec_done=all(r["done"] for r in spec.values()),
+        spec_tq4_split_k=all(
+            spec[n]["paged_windows"] == {
+                SPEC_WINDOW: layers * spec[n]["decode_steps"]}
+            and spec[n]["paged_routes"] == {
+                "split_k": spec[n]["launches"]["paged_attention"]}
+            and spec[n]["decode_steps"] > 0 for n in ("on", "oracle")),
+        spec_off_tq1=spec["off"]["paged_windows"] == {
+            1: layers * spec["off"]["decode_steps"]},
+        spec_streams=all(splits_ok(s) for s in spec_splits.values()),
+        spec_oracle_quarter=spec["oracle"]["decode_steps"]
+        <= -(-spec["off"]["decode_steps"] // SPEC_WINDOW) + 1)
+
+    # (c) top-k sampling: two servers with one seed; request 0's sampler
+    # is checked token by token and its state captured mid-stream
+    topk, seen = [], {"outside_top_k": 0, "sample_ms": 0.0}
+    trace = {"logits": [], "tokens": [], "state": None}
+
+    def track(reqs):
+        for r in reqs:
+            sampler, draw = r.sampler, r.sampler.sample
+
+            def sample(logits, sampler=sampler, draw=draw,
+                       first=r is reqs[0]):
+                if first and len(trace["tokens"]) == NEW_TOKENS // 2:
+                    trace["state"] = sampler.state_dict()
+                t0 = time.perf_counter()
+                tok = draw(logits)
+                seen["sample_ms"] += (time.perf_counter() - t0) * 1e3
+                top = np.argpartition(np.asarray(logits), -TOP_K)[-TOP_K:]
+                seen["outside_top_k"] += int(tok not in top)
+                if first:
+                    trace["logits"].append(np.array(logits))
+                    trace["tokens"].append(tok)
+                return tok
+            sampler.sample = sample
+
+    for i in range(2):
+        srv = Server(model, sampling=f"top_k:{TOP_K}",
+                     sampling_seed=TOP_K_SEED, **kw)
+        topk.append(serve_run(torch, srv, prompts, NEW_TOKENS,
+                              track=track if i == 0 else None))
+        count(topk[-1])
+        del srv
+    resumed = TopKSampler(TOP_K, seed=0)
+    half = NEW_TOKENS // 2
+    resumed.load_state_dict(trace["state"])
+    checks.update(
+        topk_done=all(r["done"] for r in topk),
+        topk_equal=topk[0]["streams"] == topk[1]["streams"],
+        topk_in_top_k=seen["outside_top_k"] == 0,
+        topk_state_resumes=[resumed.sample(x) for x in
+                            trace["logits"][half:]]
+        == trace["tokens"][half:] == topk[0]["streams"][0][half:])
+
+    ctx["serve_features_launches"] = launches
+    ctx["serve_features_tq4"] = spec["on"]["paged_windows"].get(SPEC_WINDOW,
+                                                                0)
+    emit("serve_features", ok=all(checks.values()), checks=checks,
+         model={**SERVE, **kw}, new_tokens=NEW_TOKENS,
+         sharing={"system_tokens": SHARE_SYSTEM,
+                  "prompt_lens": [len(p) for p in shared],
+                  "off": [_record(r) for r in share[False]],
+                  "on": [_record(r) for r in share[True]],
+                  "splits": share_splits,
+                  "suffix_logits_max_abs_diff": share_logits_err},
+         speculative={"window": SPEC_WINDOW,
+                      **{n: _record(r) for n, r in spec.items()},
+                      "splits": spec_splits,
+                      "window_logits_max_abs_diff": spec_logits_err},
+         top_k={"k": TOP_K, "seed": TOP_K_SEED,
+                "runs": [_record(r) for r in topk],
+                "greedy_tokens_per_sec": spec["off"]["tokens_per_sec"],
+                "greedy_step_ms_median": spec["off"][
+                    "decode_step_ms_median"],
+                "host_sample_ms_per_step": seen["sample_ms"]
+                / max(1, topk[0]["decode_steps"] + 1)},
+         launches=launches, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"serve_features check {name} failed")
 
 
 def bert_batch(cfg, batch, seq, n_masked, valid, rng):
@@ -2378,6 +2709,10 @@ def phase_mnist_train(ctx):
     from torch.profiler import ProfilerActivity, profile
     torch.backends.cudnn.benchmark = False
     x, y = mnist_data()
+    # the earlier phases' nets are reference cycles (a block and its
+    # Parameters point at each other); collect them now, so a collection
+    # inside the measured window cannot read as this loop's memory
+    gc.collect()
     t0 = time.perf_counter()
     reset_port_kernel_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -2690,6 +3025,7 @@ def main():
          .splitlines()[-1])
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
                      ("serve", phase_serve),
+                     ("serve_features", phase_serve_features),
                      ("train_parity", phase_train_parity),
                      ("train", phase_train),
                      ("resnet_parity", phase_resnet_parity),
@@ -2712,6 +3048,7 @@ def main():
             if name == "build":
                 break
     if ctx["failures"] or not {"kernels", "launches", "train_launches",
+                                "serve_features_launches",
                                 "resnet_parity", "resnet_launches",
                                 "lstm_launches", "ssd_launches", "bias",
                                 "rtc", "imperative_parity", "mnist_launches",
@@ -2747,7 +3084,15 @@ def main():
                "launches_ssd": ctx["ssd_launches"][name],
                "launches_mnist": ctx["mnist_launches"][name],
                "launches_bert_imperative":
-                   ctx["bert_imperative_launches"][name]}
+                   ctx["bert_imperative_launches"][name],
+               "launches_serve_features":
+                   ctx["serve_features_launches"][name]}
+        if name == "paged_attention":   # the speculative verify window
+            t4 = ctx["paged_tq4"]
+            row["tq4"] = {k: t4[k] for k in ("shape", "ms", "ms_queued",
+                                             "plain_ms", "bound_ms",
+                                             "bound_by", "math_route")}
+            row["tq4"]["launches"] = ctx["serve_features_tq4"]
         if "ms_queued" in e:
             row["ms_queued"] = e["ms_queued"]
         path_routes = (ctx["decode_routes"] if name == "paged_attention"
@@ -2792,7 +3137,9 @@ def main():
                     "launches_ssd": ctx["ssd_launches"]["rtc"],
                     "launches_mnist": ctx["mnist_launches"]["rtc"],
                     "launches_bert_imperative":
-                        ctx["bert_imperative_launches"]["rtc"]})
+                        ctx["bert_imperative_launches"]["rtc"],
+                    "launches_serve_features":
+                        ctx["serve_features_launches"]["rtc"]})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

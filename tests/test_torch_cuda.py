@@ -818,6 +818,44 @@ def test_serving_at_head_dim_80_takes_the_dense_arms_on_the_card():
     assert streams[0] == streams[1]
 
 
+def test_serving_features_on_the_card_launch_their_kernels(monkeypatch):
+    """Shared prefixes (suffixes dense, full prefills on the flash
+    kernel), speculative decoding (the paged kernel at Tq=4 every step)
+    and top-k, at head dim 64, against the same server on the CPU."""
+    from tpu_mx_torch import telemetry
+    from tpu_mx_torch.serving import Server, TinyLM
+    kw = dict(vocab_size=64, embed_dim=256, num_heads=4, num_layers=2,
+              seed=0)
+    tpl = list(range(3, 35))
+    prompts = [tpl + [i, i + 1] for i in range(4)]
+
+    def run(dev, **opts):
+        telemetry.reset()
+        srv = Server(TinyLM(**kw, device=dev), num_blocks=64, block_size=8,
+                     device=dev, **opts)
+        reqs = [srv.submit(p, max_new_tokens=6, request_id=f"c{i}")
+                for i, p in enumerate(prompts)]
+        srv.run_until_idle()
+        srv.engine.cache.drop_prefix_cache()
+        assert srv.engine.cache.allocator.refcounts() == {}
+        return [r.tokens for r in reqs]
+
+    for opts in ({"prefix_sharing": True}, {"sampling": "top_k:5"}):
+        flash = fa.flash_attention.launches
+        assert run("cuda", **opts) == run("cpu", **opts)
+        assert fa.flash_attention.launches > flash
+    assert telemetry.get("serve.prefill_attention", kind="dense") is None
+    run("cuda", prefix_sharing=True)
+    assert telemetry.get("serve.prefill_attention", kind="dense").value \
+        == 2 * 3
+    monkeypatch.setenv("TPUMX_SPECULATIVE", "4")
+    pa.paged_attention.windows = {}
+    card = run("cuda")
+    steps = telemetry.get("serve.decode_steps").value
+    assert pa.paged_attention.windows == {4: 2 * steps}
+    assert card == run("cpu")
+
+
 # -- the ResNet slice on the card -------------------------------------------------
 def _thin_resnet(block, device, params=None):
     from tpu_mx_torch import layout

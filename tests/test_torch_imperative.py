@@ -376,7 +376,11 @@ def test_dropout_reaches_arrays_and_is_identity_when_not_training():
     x = nd.array(_normal(64, 64))
     np.testing.assert_array_equal(nd.Dropout(x, 0.5, training=False)
                                   .asnumpy(), x.asnumpy())
-    y = nd.Dropout(x, 0.5, torch.Generator().manual_seed(0)).asnumpy()
+    # outside record() the array face is the identity, as the
+    # reference's; mode="always" drops there too
+    np.testing.assert_array_equal(nd.Dropout(x, 0.5).asnumpy(), x.asnumpy())
+    y = nd.Dropout(x, 0.5, mode="always",
+                   generator=torch.Generator().manual_seed(0)).asnumpy()
     kept = y != 0
     assert 0.4 < kept.mean() < 0.6
     np.testing.assert_allclose(y[kept], 2 * x.asnumpy()[kept], rtol=1e-6)
@@ -684,22 +688,24 @@ def test_collect_params_select_names_and_order_match_the_reference():
 def test_parameters_are_the_modules_own_tensors():
     net = gluon.nn.Dense(3, in_units=2, generator=torch.Generator())
     w = net.collect_params()[net.prefix + "weight"]
-    assert w.data()._data is net.weight
+    tensor = net._parameters["weight"]
+    assert net.weight is w              # the attribute is the handle
+    assert w.data()._data is tensor
     w.set_data(nd.ones((3, 2)))
-    assert torch.equal(net.weight.detach(), torch.ones(3, 2))
+    assert torch.equal(tensor.detach(), torch.ones(3, 2))
     w.data()[:] = 2.0
-    assert torch.equal(net.weight.detach(), torch.full((3, 2), 2.0))
+    assert torch.equal(tensor.detach(), torch.full((3, 2), 2.0))
     x = nd.array(_normal(4, 2))
     with autograd.record():
         y = net(x).sum()
     y.backward()
-    assert w.grad._data is net.weight.grad
+    assert w.grad._data is tensor.grad
     np.testing.assert_allclose(w.grad.asnumpy(),
                                np.tile(x.asnumpy().sum(0), (3, 1)), rtol=1e-6)
     w.zero_grad()
     assert not w.grad.asnumpy().any()
     w.grad_req = "null"
-    assert not net.weight.requires_grad
+    assert not tensor.requires_grad
     with pytest.raises(MXNetError, match="no gradient"):
         w.grad
     with pytest.raises(MXNetError, match="shape mismatch"):

@@ -7,7 +7,8 @@
   the reference package ``tpu_mx`` (AST scan, and a fresh interpreter's
   ``sys.modules`` after importing the port).
 - No function of the port defaults ``device`` to the CPU; the entry
-  points default to ``"cuda"``.
+  points default to ``"cuda"``, the models and the train step to the
+  current context (the card outside ``with mx.cpu():``).
 - ``chip_smoke.py`` alone, without the package, fails and prints no
   result.
 """
@@ -67,16 +68,20 @@ def test_no_port_function_defaults_device_to_cpu():
 
 
 def test_entry_points_default_to_the_card():
-    from tpu_mx_torch import device, random
+    from tpu_mx_torch import context, device, random
     from tpu_mx_torch.models import BERTModel
     from tpu_mx_torch.parallel import CompiledTrainStep
     from tpu_mx_torch.serving import PagedKVCache, Server, TinyLM
     assert device.DEFAULT_DEVICE == "cuda"
     for fn in (TinyLM.__init__, TinyLM.from_numpy, Server.__init__,
-               PagedKVCache.__init__, device.resolve, BERTModel.__init__,
-               BERTModel.from_numpy, CompiledTrainStep.__init__,
-               random.generator):
+               PagedKVCache.__init__, device.resolve, random.generator):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # the models and the train step follow the current context, which is
+    # the card outside ``with mx.cpu():``
+    assert context.current_context() == context.gpu(0)
+    for fn in (BERTModel.__init__, BERTModel.from_numpy,
+               CompiledTrainStep.__init__):
+        assert inspect.signature(fn).parameters["device"].default is None
 
 
 def test_training_entry_points_refuse_the_cpu_unless_asked():
@@ -109,7 +114,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     code = ("import sys, tpu_mx_torch, tpu_mx_torch.serving, "
             "tpu_mx_torch.kernels, tpu_mx_torch.models, "
             "tpu_mx_torch.parallel, tpu_mx_torch.optimizer, "
-            "tpu_mx_torch.gluon, tpu_mx_torch.rtc; "
+            "tpu_mx_torch.gluon, tpu_mx_torch.rtc, tpu_mx_torch.resume, "
+            "tpu_mx_torch.serving.sampling, tpu_mx_torch.serving.speculative, "
+            "tpu_mx_torch.serving.prefix_cache; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_mx')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -394,13 +394,26 @@ _REFUSED = [
     ("CompiledTrainStep.step", "compile_grace", 1.0),
     ("Server", "deadline", 1.0), ("Server", "max_restarts", 0),
     ("Server", "backoff", 0.5), ("Server", "blackbox", "box"),
-    ("Server", "slo", True), ("Server", "prefix_sharing", True),
-    ("Server", "journal", "journal.log"), ("Server", "sampling_seed", 3),
+    ("Server", "slo", True),
+    ("Server", "journal", "journal.log"),
     ("Server", "replay", "journal.log"),
-    ("EngineCore", "share_prefix", True), ("EngineCore", "forensics", True),
-    ("EngineCore", "warm_batch", 4), ("EngineCore", "greedy", False),
-    ("PagedKVCache", "share_prefix", True),
+    ("EngineCore", "forensics", True),
+    ("EngineCore", "warm_batch", 4),
     ("PagedKVCache", "forensics", True),
+]
+# arguments refused until their feature was ported, each with a check
+# that the given value took effect
+_ACCEPTED = [
+    ("Server", "prefix_sharing", True,
+     lambda srv: srv.engine.cache.prefix is not None),
+    ("Server", "sampling_seed", 3,
+     lambda srv: srv._sampling_seed == 3),
+    ("EngineCore", "share_prefix", True,
+     lambda eng: eng.cache.prefix is not None),
+    ("EngineCore", "greedy", False,
+     lambda eng: not eng.greedy and eng.spec_window == 1),
+    ("PagedKVCache", "share_prefix", True,
+     lambda cache: cache.prefix is not None),
 ]
 # arguments with no torch meaning: accepted at any value and ignored
 _IGNORED = [
@@ -440,6 +453,15 @@ def test_reference_argument_is_refused_by_name(entry, arg, value):
     _PORT[entry](**{arg: default})                 # the default is taken
     with pytest.raises(MXNetError, match=rf"{arg}=.*ROADMAP"):
         _PORT[entry](**{arg: value})
+
+
+@pytest.mark.parametrize("entry,arg,value,took", _ACCEPTED,
+                         ids=[f"{e}-{a}" for e, a, _, _ in _ACCEPTED])
+def test_reference_argument_once_refused_is_accepted(entry, arg, value,
+                                                      took):
+    default = _same_default(entry, arg)
+    assert not took(_PORT[entry](**{arg: default}))
+    assert took(_PORT[entry](**{arg: value}))
 
 
 @pytest.mark.parametrize("entry,arg,value", _IGNORED,

@@ -1,0 +1,527 @@
+"""The port's imperative surface against the reference: faults C8–C13.
+
+On the CPU, at small sizes, inputs made with numpy from a seed and fed
+to both packages:
+
+- C13: the models and ``CompiledTrainStep`` follow the current context
+  (``device=None``), as the ``nd.*`` operators and Gluon layers do;
+- C8: ``out=`` of the elementwise operators writes into the array and
+  returns it;
+- C9: ``nd.Dropout`` on arrays reads ``autograd.is_training()`` and takes
+  ``mode=`` and ``axes=``;
+- C11: every parameter of every public function and class of each
+  module pair is in the port, or in one allow-list below with a reason;
+- C10: the detection operators and ``nd.RNN`` take arrays, and the
+  reference's ``examples/ssd/train.py --smoke`` runs on the port through
+  a module alias;
+- C12: a layer's ``weight`` (``bias``, ``gamma``, ...) is the Gluon
+  ``Parameter`` handle outside a forward.
+"""
+import importlib
+import inspect
+import math
+import pkgutil
+import runpy
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_mx import autograd as jag
+from tpu_mx import gluon as jgluon
+from tpu_mx import nd as jnd
+from tpu_mx.ndarray.rnn_op import rnn_param_size as j_rnn_param_size
+
+import tpu_mx_torch as mx
+from tpu_mx_torch import autograd, gluon, nd, optimizer, serving
+from tpu_mx_torch.base import MXNetError
+
+ROOT = Path(__file__).resolve().parent.parent
+CPU = mx.cpu()
+OP_RTOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _host():
+    torch.backends.mkldnn.enabled = False
+    with CPU:
+        yield
+
+
+def _normal(*shape, seed=0):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def _close(got, want, rtol=OP_RTOL, msg=""):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, msg
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * max(1.0, np.abs(want).max()),
+                               err_msg=msg)
+
+
+# ---------------------------------------------------------------------------
+# C13: the models follow the current context
+# ---------------------------------------------------------------------------
+BERT_CFG = dict(num_layers=1, units=16, hidden_size=32, num_heads=2,
+                vocab_size=20, max_length=8, dropout=0.0)
+
+
+def _bert():
+    from tpu_mx_torch.models import BERTModel
+    return BERTModel(BERT_CFG)
+
+
+def _rnn_model():
+    from tpu_mx_torch.models import RNNModel
+    return RNNModel("lstm", 20, 8, 8, 1, dropout=0.0)
+
+
+def _ssd():
+    from tpu_mx_torch.models.ssd import SSD
+    return SSD(3, sizes=[[0.2, 0.35], [0.5, 0.7]], ratios=[[1, 2, 0.5]] * 2,
+               base_filters=(8, 16))
+
+
+def _resnet_factory():
+    from tpu_mx_torch.gluon.model_zoo import vision
+    return vision.resnet18_v1(classes=4)
+
+
+def _resnet_v2():
+    from tpu_mx_torch.gluon.model_zoo import vision
+    return vision.ResNetV2(vision.BasicBlockV2, [1, 1, 1, 1],
+                           [8, 8, 16, 32, 64], classes=4)
+
+
+def _train_step():
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    net = gluon.nn.Dense(3, in_units=4)
+    step = CompiledTrainStep(net, gluon.loss.HuberLoss(),
+                             optimizer.create("sgd", learning_rate=0.1))
+    assert step.device.type == "cpu"
+    return net
+
+
+@pytest.mark.parametrize("build", [_bert, _rnn_model, _ssd, _resnet_factory,
+                                   _resnet_v2, _train_step],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_models_build_in_the_current_context(build):
+    net = build()
+    devices = {p.device.type for p in net.parameters()}
+    assert devices == {"cpu"}
+
+
+def test_bert_from_numpy_takes_the_current_context():
+    from tpu_mx_torch.models import BERTModel
+    net = _bert()
+    params = {p.name: p.data().asnumpy() for p in
+              net.collect_params().values()}
+    again = BERTModel.from_numpy(params, BERT_CFG)
+    assert {p.device.type for p in again.parameters()} == {"cpu"}
+
+
+# ---------------------------------------------------------------------------
+# C8: out= writes into the array
+# ---------------------------------------------------------------------------
+def _imperative_lists():
+    spec = importlib.util.spec_from_file_location(
+        "_imperative_cases", ROOT / "tests" / "test_torch_imperative.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.UNARY
+
+
+UNARY = _imperative_lists()
+BINARY = ["add", "subtract", "multiply", "divide", "mod", "power",
+          "maximum", "minimum", "hypot", "equal", "not_equal", "greater",
+          "greater_equal", "lesser", "lesser_equal", "broadcast_add",
+          "broadcast_mul", "elemwise_sub", "broadcast_div"]
+
+
+@pytest.mark.parametrize("name", sorted(UNARY) + BINARY)
+def test_out_writes_the_result_into_the_array(name):
+    if name in UNARY:
+        args = [UNARY[name]]
+    else:
+        args = [np.abs(_normal(3, 4, seed=1)) + 0.5, _normal(3, 4, seed=2)]
+    want = jnd.zeros(args[0].shape)
+    r = getattr(jnd, name)(*[jnd.array(a) for a in args], out=want)
+    assert r is want
+    got = nd.zeros(args[0].shape)
+    before = got
+    r = getattr(nd, name)(*[nd.array(a) for a in args], out=got)
+    assert r is got is before
+    _close(got.asnumpy(), want.asnumpy(), msg=name)
+
+
+def test_out_keeps_an_attached_leaf_a_leaf():
+    x = nd.array(_normal(3, 4))
+    y = nd.zeros((3, 4))
+    y.attach_grad()
+    nd.exp(x, out=y)
+    with autograd.record():
+        z = (y * 2).sum()
+    z.backward()
+    _close(y.grad.asnumpy(), np.full((3, 4), 2.0))
+
+
+# ---------------------------------------------------------------------------
+# C9: nd.Dropout on arrays
+# ---------------------------------------------------------------------------
+def test_dropout_outside_training_is_the_identity_as_in_the_reference():
+    for pkg in (nd, jnd):
+        assert float(pkg.Dropout(pkg.ones((4, 4)), 0.5).sum().asscalar()) \
+            == 16.0
+    with autograd.record(train_mode=False):
+        assert float(nd.Dropout(nd.ones((4, 4)), 0.5).sum().asscalar()) \
+            == 16.0
+    x = nd.ones((64, 64))
+    for kept in (nd.Dropout(x, 0.5, mode="always"),
+                 _recorded_dropout(x)):
+        share = float((kept != 0).mean().asscalar())
+        assert 0.4 < share < 0.6
+        vals = kept.asnumpy()
+        assert set(np.unique(vals)) <= {0.0, 2.0}
+    ref = jnd.Dropout(jnd.ones((64, 64)), 0.5, mode="always").asnumpy()
+    assert set(np.unique(ref)) == {0.0, 2.0}
+
+
+def _recorded_dropout(x):
+    with autograd.record():
+        return nd.Dropout(x, 0.5)
+
+
+def test_dropout_axes_share_one_draw_along_them():
+    y = nd.Dropout(nd.ones((8, 32)), 0.5, mode="always", axes=(0,)).asnumpy()
+    assert (y == y[:1]).all() and 0 < (y[0] != 0).mean() < 1
+    ref = jnd.Dropout(jnd.ones((8, 32)), 0.5, mode="always",
+                      axes=(0,)).asnumpy()
+    assert (ref == ref[:1]).all()
+    layer = gluon.nn.Dropout(0.5, axes=(1,))
+    with autograd.record():
+        z = layer(nd.ones((16, 8))).asnumpy()
+    assert (z == z[:, :1]).all() and 0 < (z[:, 0] != 0).mean() < 1
+
+
+# ---------------------------------------------------------------------------
+# C11: every reference parameter is in the port, or allowed by name
+# ---------------------------------------------------------------------------
+# (port module, callable's qualified name, parameter) -> why it is absent
+ALLOWED = {
+    ("tpu_mx_torch.rtc", "Kernel", "fn"):
+        "the reference's kernel is a Pallas function; the port's is CUDA C "
+        "source compiled by nvcc (the Kernel holds its module and name)",
+    ("tpu_mx_torch.rtc", "Kernel", "static_kwargs"):
+        "Pallas static arguments; the port's scalars are get_kernel's",
+    ("tpu_mx_torch.rtc", "Kernel.launch", "in_specs"):
+        "Pallas BlockSpecs; a CUDA launch takes a grid and a block",
+    ("tpu_mx_torch.rtc", "Kernel.launch", "out_specs"):
+        "Pallas BlockSpecs; a CUDA launch takes a grid and a block",
+    ("tpu_mx_torch.rtc", "Kernel.launch", "interpret"):
+        "Pallas interpret mode; a CUDA kernel has no interpreter",
+    ("tpu_mx_torch.serving.attention", "decode_attention", "seq_ids"):
+        "the port's decode takes the step's device block tables and "
+        "lengths, built once a step, where the reference gathers by id",
+    ("tpu_mx_torch.serving.attention", "decode_attention", "kind"):
+        "the port's decode arm is a pure function of shape and dtype "
+        "(decode_arm); TPUMX_PAGED_DECODE is not ported",
+    ("tpu_mx_torch.serving.attention", "decode_attention", "batch"):
+        "the tables and lengths are positional arguments of the port's",
+    ("tpu_mx_torch.serving.attention", "dense_decode_attention", "keys"):
+        "the port's dense decode gathers from the pools by table itself",
+    ("tpu_mx_torch.serving.attention", "dense_decode_attention", "values"):
+        "the port's dense decode gathers from the pools by table itself",
+    ("tpu_mx_torch.serving.scheduler",
+     "ContinuousBatchingScheduler.requeue", "replay"):
+        "the port always keeps a preempted request's tokens (the "
+        "reference's replay=True arm); prompt replay belongs with "
+        "journal.py (ROADMAP A12)",
+}
+
+
+def _module_pairs():
+    for info in pkgutil.walk_packages(mx.__path__, "tpu_mx_torch."):
+        name = info.name
+        ref = "tpu_mx" + name[len("tpu_mx_torch"):]
+        try:
+            yield importlib.import_module(name), importlib.import_module(ref)
+        except ModuleNotFoundError:
+            continue                    # no counterpart (device, _build)
+
+
+def _params(fn):
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return None
+    return [p for p in sig.parameters.values()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def _forwarded(method):
+    """An ``NDArray`` method form's parameters are its operator's."""
+    if getattr(method, "__qualname__", "").startswith("_method."):
+        from tpu_mx_torch.ndarray import ops
+        return _params(getattr(ops, method.__name__))[1:]
+    return None
+
+
+def _pairs_of(pm, rm):
+    for name in sorted(vars(pm)):
+        p, r = getattr(pm, name), getattr(rm, name, None)
+        if name.startswith("_") or r is None or not callable(p) \
+                or not callable(r) \
+                or getattr(p, "__module__", None) != pm.__name__:
+            continue
+        yield name, p, r
+        if inspect.isclass(p) and inspect.isclass(r):
+            for attr in sorted(vars(p)):
+                pa, ra = vars(p)[attr], inspect.getattr_static(r, attr, None)
+                if attr.startswith("_") or ra is None \
+                        or not callable(pa) or not callable(ra):
+                    continue
+                yield f"{name}.{attr}", getattr(p, attr), getattr(r, attr)
+
+
+def _missing():
+    out = []
+    for pm, rm in _module_pairs():
+        for qual, p, r in _pairs_of(pm, rm):
+            want = _params(r)
+            have = _forwarded(p)
+            if have is None:
+                have = _params(p)
+            if want is None or have is None:
+                continue
+            names = {q.name for q in have}
+            out += [(pm.__name__, qual, q.name) for q in want
+                    if q.name not in names and q.name != "self"]
+    return out
+
+
+def test_every_reference_parameter_is_in_the_port_or_allowed_by_name():
+    missing = _missing()
+    assert not [m for m in missing if m not in ALLOWED], \
+        [m for m in missing if m not in ALLOWED]
+    # the allow-list holds nothing the port has since taken
+    assert not set(ALLOWED) - set(missing), set(ALLOWED) - set(missing)
+
+
+# each argument C11 found dropped: its default is taken, and another value
+# is implemented (a check) or refused by name
+C11_CASES = [
+    ("optimizer", lambda v: optimizer.create("sgd", lr_scheduler=v), None,
+     object()),
+    ("optimizer", lambda v: optimizer.create("sgd", param_idx2name=v),
+     None, {0: "w"}),
+    ("optimizer", lambda v: optimizer.create("sgd", sym=v), None, object()),
+    ("optimizer", lambda v: optimizer.create("sgd", begin_num_update=v),
+     lambda o: o.num_update == 5, 5),
+    ("trainer", lambda v: gluon.Trainer(gluon.nn.Dense(2, in_units=2)
+                                        .collect_params(), "sgd",
+                                        {"lr_scheduler": v}), None, object()),
+    ("embedding", lambda v: nd.Embedding(nd.array([1.0, 0.0]),
+                                         nd.ones((3, 2)), input_dim=v,
+                                         output_dim=2, sparse_grad=True),
+     lambda y: y.shape == (2, 2), 3),
+    ("layernorm", lambda v: nd.LayerNorm(nd.array(_normal(2, 3, 4)),
+                                         axis=v),
+     lambda y: abs(float(y.mean(axis=1).abs().max().asscalar())) < 1e-5, 1),
+    ("zeros_like", lambda v: nd.zeros_like(a=nd.ones(v)),
+     lambda y: y.shape == (2,), (2,)),
+    ("initializer", lambda v: mx.initializer.create("xavier", magnitude=v),
+     lambda i: i.magnitude == 2, 2),
+    ("attention", lambda v: mx.parallel.attention(
+        torch.ones((1, 2, 4, 16)), torch.ones((1, 2, 4, 16)),
+        torch.ones((1, 2, 4, 16)), dropout_rate=0.5,
+        dropout_key=v), lambda y: y.shape == (1, 2, 4, 16),
+     torch.tensor([3], dtype=torch.int32)),
+    ("block_bytes", lambda v: serving.BlockAllocator(4, block_bytes=v),
+     None, 64),
+    ("slo_boost", lambda v: serving.ContinuousBatchingScheduler(
+        slo_boost=v), None, 3.0),
+    ("bert_moe", lambda v: mx.models.bert.BERTEncoder(
+        1, 8, 16, 2, 10, 8, moe_every=v, generator=torch.Generator()),
+     None, 2),
+    ("histogram", lambda v: mx.telemetry.histogram("t.x", buckets=v), None,
+     (0.1, 1.0)),
+]
+
+
+@pytest.mark.parametrize("case", C11_CASES, ids=[c[0] + str(i) for i, c in
+                                                 enumerate(C11_CASES)])
+def test_dropped_argument_is_taken_then_implemented_or_refused(case):
+    _, call, check, value = case
+    if check is None:
+        with pytest.raises(MXNetError, match="ROADMAP"):
+            call(value)
+    else:
+        out = call(value)
+        if out is not None:
+            assert check(out)
+
+
+# ---------------------------------------------------------------------------
+# C10: the detection operators and nd.RNN take arrays
+# ---------------------------------------------------------------------------
+def _boxes(rng, n, lo=0.0, hi=0.8):
+    xy = rng.uniform(lo, hi, (n, 2))
+    wh = rng.uniform(0.05, 0.3, (n, 2))
+    return np.concatenate([xy, np.minimum(xy + wh, 1.0)], 1).astype(
+        np.float32)
+
+
+def _contrib_cases():
+    rng = np.random.RandomState(4)
+    a, b = _boxes(rng, 12).reshape(2, 6, 4), _boxes(rng, 8).reshape(2, 4, 4)
+    n = 12
+    rows = np.concatenate([rng.randint(0, 3, (2, n, 1)), rng.rand(2, n, 1),
+                           _boxes(rng, 2 * n).reshape(2, n, 4)],
+                          -1).astype(np.float32)
+    anc = _boxes(rng, 20, 0.1, 0.7)[None]
+    lab = np.array([[[0, 0.1, 0.1, 0.4, 0.4], [2, 0.5, 0.5, 0.9, 0.8],
+                     [-1, -1, -1, -1, -1]]], np.float32)
+    pred = rng.randn(1, 3, 20).astype(np.float32)
+    prob = np.exp(pred) / np.exp(pred).sum(1, keepdims=True)
+    loc = (rng.randn(1, 80) * 0.5).astype(np.float32)
+    s = np.round(rng.rand(2, 5, 4), 1).astype(np.float32)
+    return [
+        ("box_iou", (a, b), dict(format="corner")),
+        ("box_nms", (rows,), dict(overlap_thresh=0.5, coord_start=2,
+                                  score_index=1)),
+        ("MultiBoxPrior", (np.zeros((1, 3, 5, 7), np.float32),),
+         dict(sizes=(0.5, 0.25), ratios=(1, 2))),
+        ("MultiBoxTarget", (anc, lab, pred),
+         dict(overlap_threshold=0.5, negative_mining_ratio=3.0)),
+        ("MultiBoxDetection", (prob, loc, anc), dict(threshold=0.2)),
+        ("bipartite_matching", (s,), dict(threshold=0.3)),
+    ]
+
+
+@pytest.mark.parametrize("case", _contrib_cases(), ids=lambda c: c[0])
+def test_detection_operator_takes_arrays_and_holds_to_the_reference(case):
+    name, args, kw = case
+    want = getattr(jnd.contrib, name)(*[jnd.array(x) for x in args], **kw)
+    got = getattr(nd.contrib, name)(*[nd.array(x) for x in args], **kw)
+    wants = want if isinstance(want, (list, tuple)) else [want]
+    gots = got if isinstance(got, (list, tuple)) else [got]
+    assert len(gots) == len(wants)
+    for g, w in zip(gots, wants):
+        assert isinstance(g, nd.NDArray)
+        _close(g.asnumpy(), w.asnumpy(), msg=name)
+
+
+def test_rnn_operator_takes_arrays_and_holds_to_the_reference():
+    rng = np.random.RandomState(0)
+    size = j_rnn_param_size("lstm", 4, 6, 2, False)
+    x = rng.rand(5, 3, 4).astype(np.float32)
+    params = (rng.randn(size) * 0.4).astype(np.float32)
+    h0, c0 = ((rng.randn(2, 3, 6) * 0.5).astype(np.float32)
+              for _ in range(2))
+    kw = dict(state_size=6, num_layers=2, mode="lstm", state_outputs=True)
+    want = jnd.RNN(*[jnd.array(a) for a in (x, params, h0, c0)], **kw)
+    got = nd.RNN(*[nd.array(a) for a in (x, params, h0, c0)], **kw)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert isinstance(g, nd.NDArray)
+        _close(g.asnumpy(), w.asnumpy())
+
+
+def test_the_ssd_example_trains_on_the_port_through_a_module_alias(
+        monkeypatch, capsys):
+    """``examples/ssd/train.py --smoke`` unedited, with ``tpu_mx`` mapped
+    to the port: it trains (past the targets at :120), asserts its loss
+    fell and decodes a detection."""
+    import tpu_mx_torch.models
+    import tpu_mx_torch.models.ssd
+    for name, mod in (("tpu_mx", mx), ("tpu_mx.models", mx.models),
+                      ("tpu_mx.models.ssd", mx.models.ssd)):
+        monkeypatch.setitem(sys.modules, name, mod)
+    monkeypatch.setattr(sys, "argv", ["train.py", "--smoke"])
+    runpy.run_path(str(ROOT / "examples" / "ssd" / "train.py"),
+                   run_name="__main__")
+    out = capsys.readouterr().out
+    assert "epoch 1: loss" in out and "detections: (1, " in out
+
+
+# ---------------------------------------------------------------------------
+# C12: a layer's weight is its Parameter handle
+# ---------------------------------------------------------------------------
+def _layers(pkg):
+    g = pkg.gluon.nn
+    return {
+        "dense": (lambda: g.Dense(3, in_units=4), ("weight", "bias"),
+                  _normal(2, 4, seed=1)),
+        "conv2d": (lambda: g.Conv2D(3, 3, in_channels=2, padding=1),
+                   ("weight", "bias"), _normal(1, 2, 5, 5, seed=2)),
+        "batchnorm": (lambda: g.BatchNorm(in_channels=3),
+                      ("gamma", "beta"), _normal(4, 3, 2, 2, seed=3)),
+        "embedding": (lambda: g.Embedding(6, 4), ("weight",),
+                      np.array([[1, 5], [0, 3]], np.float32)),
+        "layernorm": (lambda: g.LayerNorm(in_channels=5), ("gamma", "beta"),
+                      _normal(3, 5, seed=4)),
+    }
+
+
+class _Pkg:
+    def __init__(self, gluon_, nd_, autograd_):
+        self.gluon, self.nd, self.autograd = gluon_, nd_, autograd_
+
+
+@pytest.mark.parametrize("kind", ["dense", "conv2d", "batchnorm",
+                                  "embedding", "layernorm"])
+def test_weight_is_the_parameter_handle_as_in_the_reference(kind):
+    results = []
+    for pkg in (_Pkg(jgluon, jnd, jag), _Pkg(gluon, nd, autograd)):
+        build, leaves, x = _layers(pkg)[kind]
+        net = build()
+        net.initialize()
+        for i, leaf in enumerate(leaves):
+            w = getattr(net, leaf)
+            w.set_data(pkg.nd.array(_normal(*w.shape, seed=10 + i)))
+        with pkg.autograd.record():
+            y = net(pkg.nd.array(x))
+            loss = (y * y).sum()
+        loss.backward()
+        results.append({leaf: (getattr(net, leaf).data().asnumpy(),
+                               getattr(net, leaf).grad.asnumpy(),
+                               getattr(net, leaf).name)
+                        for leaf in leaves})
+    ref, port = results
+    for leaf in ref:
+        _close(port[leaf][0], ref[leaf][0], msg=f"{kind}.{leaf} data")
+        _close(port[leaf][1], ref[leaf][1], 1e-4, msg=f"{kind}.{leaf} grad")
+        assert port[leaf][2].split("_")[-1] == ref[leaf][2].split("_")[-1]
+
+
+def test_the_forward_reads_tensors_and_the_handle_stands_for_the_slot():
+    net = gluon.nn.Dense(3, in_units=4)
+    net.initialize()
+    w = net.weight
+    assert isinstance(w, gluon.Parameter)
+    assert w is net.collect_params()[net.prefix + "weight"]
+    assert w.data()._data is net._parameters["weight"]
+    assert isinstance(net(torch.ones((2, 4))), torch.Tensor)
+    w.set_data(np.ones((3, 4), np.float32))
+    assert torch.equal(net._parameters["weight"].detach(),
+                       torch.ones((3, 4)))
+
+    class Probe(gluon.HybridBlock):
+        """A user block whose forward reads a child's weight."""
+
+        def __init__(self):
+            super().__init__()
+            self.inner = gluon.nn.Dense(2, in_units=3)
+
+        def forward(self, x):
+            assert isinstance(self.inner.weight, torch.Tensor)
+            return self.inner(x)
+
+    probe = Probe()
+    probe.initialize()
+    assert math.isfinite(float(probe(torch.ones((1, 3))).sum()))
+    assert isinstance(probe.inner.weight, gluon.Parameter)

@@ -309,7 +309,7 @@ def test_conv_weight_takes_the_references_fan(lay, ref_shape):
         (lay == "NHWC")
     bound = math.sqrt(3 / jfan(ref_shape, "avg"))
     assert bound * 0.95 < float(w.detach().abs().max()) <= bound
-    assert torch.all(conv.bias == 0)
+    assert torch.all(conv.bias.data()._data == 0)
 
 
 def test_initialize_follows_each_tensors_own_initializer():
@@ -567,7 +567,9 @@ def test_state_dict_round_trip_includes_the_running_statistics():
 def test_resnet_entry_points_default_to_the_card():
     for fn in (vision.ResNetV1.__init__, vision.ResNetV2.__init__,
                vision.ResNetV1.from_numpy):
-        assert inspect.signature(fn).parameters["device"].default == "cuda"
+        # None is the current context: the card outside a ``with``
+        assert inspect.signature(fn).parameters["device"].default is None
+    assert tmx.current_context() == tmx.gpu(0)
     net = vision.resnet18_v1(classes=4, ctx=tmx.cpu(),
                              generator=torch.Generator())
     assert next(net.parameters()).device.type == "cpu"

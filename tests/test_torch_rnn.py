@@ -25,6 +25,7 @@ from tpu_mx.models.lstm_lm import RNNModel as JRNNModel
 from tpu_mx.ndarray.rnn_op import rnn_param_size as j_rnn_param_size
 from tpu_mx.parallel import CompiledTrainStep as JCompiledTrainStep
 
+import tpu_mx_torch as tmx
 from tpu_mx_torch import ndarray, optimizer, telemetry
 from tpu_mx_torch.base import MXNetError
 from tpu_mx_torch.gluon import loss as tloss
@@ -373,8 +374,8 @@ def test_dropout_keep_rate_and_scale(rate, monkeypatch):
     seen = []
     real = rnn_op.ops.Dropout
 
-    def spy(data, p, generator, training=True):
-        out = real(data, p, generator, training)
+    def spy(data, p, generator=None, training=None, **kw):
+        out = real(data, p, generator=generator, training=training, **kw)
         seen.append((data.detach(), out.detach(), p, training))
         return out
     monkeypatch.setattr(rnn_op.ops, "Dropout", spy)
@@ -650,12 +651,13 @@ def test_rnn_model_logits_match_the_reference(mode, tie):
 
 def test_tied_weights_share_one_parameter():
     _, m, params = _model_pair("lstm", tie=True)
-    assert m.decoder.weight is m.encoder.weight
+    assert m.decoder.weight.data()._data is m.encoder.weight.data()._data
     names = list(m.collect_params())
     assert names.count("encoder.weight") == 1 and "decoder.weight" \
         not in names and len(names) == len(params) == 10
     logits = m(_t(_tokens()))
-    (g,) = torch.autograd.grad(logits.sum(), [m.encoder.weight])
+    (g,) = torch.autograd.grad(logits.sum(),
+                               [m.encoder.weight.data()._data])
     # the gradient holds the decoder's share: every row is touched
     assert (g.abs().sum(1) > 0).all()
     with pytest.raises(MXNetError, match="tied"):
@@ -775,8 +777,10 @@ def test_bfloat16_first_loss_matches_the_reference():
 
 # -- entry points ------------------------------------------------------------------
 def test_entry_points_default_to_the_card():
+    # None is the current context: the card outside ``with mx.cpu():``
+    assert tmx.current_context() == tmx.gpu(0)
     for fn in (RNNModel.__init__, RNNModel.from_numpy):
-        assert inspect.signature(fn).parameters["device"].default == "cuda"
+        assert inspect.signature(fn).parameters["device"].default is None
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="no CUDA device"):
             RNNModel("lstm", **THIN)

@@ -90,10 +90,11 @@ def test_decode_step_writes_the_pool_and_matches_prefill():
     cache.reserve_window("a", 1)
     tables, lengths = cache.batch_tables(["a"])
     bids, offs = cache.window_slots(["a"], 1)
-    toks, health = model.decode_step(cache, [nxt], lengths - 1, tables,
-                                     lengths, bids[:, 0], offs[:, 0])
+    toks, drafts, health, last = model.decode_step(
+        cache, [nxt], lengths - 1, tables, lengths, bids, offs)
+    assert toks.shape == (1, 1) and drafts.shape == (1, 0) and last is None
     k_full, _, logits_full = model.prefill(prompt + [nxt])
-    assert toks[0] == int(logits_full.argmax())
+    assert toks[0, 0] == int(logits_full.argmax())
     assert health == pytest.approx(float(logits_full.abs().max()),
                                    abs=1e-5)
     kp, _ = cache.pool(1)
@@ -114,7 +115,7 @@ def test_allocator_exhaustion_is_all_or_nothing_backpressure():
     a.free(got)
     assert a.alloc(1) == [got[-1]]          # LIFO: last freed first
     assert a.audit() == {"num_blocks": 4, "used_blocks": 1,
-                         "free_blocks": 3}
+                         "free_blocks": 3, "total_refs": 1}
 
 
 def test_allocator_double_free_is_loud():
@@ -208,7 +209,8 @@ def test_prefill_fills_blocks_and_truncate_frees_tail():
         cache.prefill("b", *_kv(40))
     assert cache.free_sequence("a") == 2
     assert cache.audit() == {"num_blocks": 8, "used_blocks": 0,
-                             "free_blocks": 8, "sequences": 0}
+                             "free_blocks": 8, "total_refs": 0,
+                             "sequences": 0, "index_refs": 0}
 
 
 def test_bf16_pool_serves_close_to_the_f32_pool():
@@ -326,8 +328,8 @@ def test_tenant_quota_and_weighted_pick():
 
 def test_unported_options_and_devices_are_refused_loudly():
     model = port_model()
-    with pytest.raises(MXNetError, match="top-k"):
-        Server(model, sampling="top_k:4", device="cpu")
+    with pytest.raises(MXNetError, match="sampling spec"):
+        Server(model, sampling="nucleus:0.9", device="cpu")
     if not torch.cuda.is_available():
         # the default device is the card: a CPU model cannot be served
         # there, and without a card the server refuses to start at all

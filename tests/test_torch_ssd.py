@@ -23,6 +23,7 @@ from tpu_mx.gluon.block import HybridBlock as JHybridBlock
 from tpu_mx.models import ssd as jssd
 from tpu_mx.parallel import CompiledTrainStep as JCompiledTrainStep
 
+import tpu_mx_torch as tmx
 from tpu_mx_torch import initializer, optimizer
 from tpu_mx_torch.base import MXNetError
 from tpu_mx_torch.gluon import loss as tloss
@@ -170,7 +171,7 @@ def test_constant_initializer_is_registered_and_kept_by_initialize():
     net = ssd.VGG16ReducedFeatures(generator=torch.Generator())
     net.initialize("xavier", torch.Generator().manual_seed(1))
     assert tuple(net.norm4.scale.shape) == (1, 512, 1, 1)
-    assert bool((net.norm4.scale == 20.0).all())
+    assert bool((net.norm4.scale.data()._data == 20.0).all())
 
 
 # -- the detection operators ------------------------------------------------------
@@ -448,7 +449,7 @@ def test_vgg16_reduced_ssd_512_matches_the_reference():
                              backbone="vgg16_reduced", device="cpu")
     _names_match(net, params)
     # the scale keeps its Constant(20) through initialize("xavier")
-    assert bool((net.backbone.norm4.scale == 20.0).all())
+    assert bool((net.backbone.norm4.scale.data()._data == 20.0).all())
     x = np.random.RandomState(10).rand(1, 3, 64, 64).astype(np.float32)
     anchors, _, _ = _forward_check(jnet, net, x, MODEL_RTOL)
     # maps 8/4/2/1/1/1/1 at 64x64, 4/6/6/6/6/4/4 anchors a position
@@ -649,8 +650,10 @@ def test_bfloat16_first_loss_matches_the_reference():
 
 # -- entry points ------------------------------------------------------------------
 def test_entry_points_default_to_the_card():
+    # None is the current context: the card outside ``with mx.cpu():``
     assert inspect.signature(ssd.SSD.__init__).parameters["device"] \
-        .default == "cuda"
+        .default is None
+    assert tmx.current_context() == tmx.gpu(0)
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="no CUDA device"):
             ssd.ssd_512(20, backbone="vgg16_reduced")

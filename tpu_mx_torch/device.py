@@ -1,7 +1,9 @@
 """Where the port's tensors live: ``device=`` resolution.
 
-Every entry point of the port (``TinyLM``, ``Server``, the models, the
-kernel wrappers) takes ``device=`` and defaults to ``"cuda"``; a
+Every entry point of the port (``TinyLM``, ``Server``, the kernel
+wrappers) takes ``device=`` and defaults to ``"cuda"``; the models and
+``CompiledTrainStep`` default to ``device=None``, the current context
+(``gpu(0)`` outside ``with mx.cpu():``), as the reference's nets do; a
 :class:`~tpu_mx_torch.context.Context` (``mx.gpu(0)``, ``mx.cpu()``) is
 taken wherever a device is.  The port is
 written for the card; with no card it raises :class:`MXNetError` rather
@@ -18,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from .base import MXNetError
-from .context import Context
+from .context import Context, current_context
 
 __all__ = ["DEFAULT_DEVICE", "resolve", "of", "as_tensor"]
 
@@ -27,9 +29,11 @@ DEFAULT_DEVICE = "cuda"
 
 def resolve(device=DEFAULT_DEVICE):
     """``device`` (a string, :class:`torch.device` or
-    :class:`~tpu_mx_torch.context.Context`) as a :class:`torch.device`,
-    checked: ``cuda`` needs a card, and only ``cuda`` and ``cpu`` are
-    taken."""
+    :class:`~tpu_mx_torch.context.Context`; None is the current context,
+    ``gpu(0)`` outside a ``with``) as a :class:`torch.device`, checked:
+    ``cuda`` needs a card, and only ``cuda`` and ``cpu`` are taken."""
+    if device is None:
+        device = current_context()
     dev = device.torch_device() if isinstance(device, Context) \
         else torch.device(device)
     if dev.type == "cuda":

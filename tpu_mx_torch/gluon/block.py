@@ -4,7 +4,9 @@ The port's blocks are :class:`torch.nn.Module`s.  A trainable tensor is
 a :class:`torch.nn.Parameter`; a running statistic (BatchNorm's
 ``running_mean``/``running_var``, the reference's ``grad_req="null"``
 parameters) is a buffer; :class:`~tpu_mx_torch.gluon.parameter.Parameter`
-is the reference's handle onto either.  A layer declares each tensor
+is the reference's handle onto either, and what a declared slot's
+attribute (``net.weight``) gives outside a forward, as in the
+reference; inside a forward it gives the tensor.  A layer declares each tensor
 with :meth:`Block._declare`: its reference name and shape, its own
 initializer and, where the port stores it in another order (a
 channels-last convolution's weight), the axes that take the reference's
@@ -191,8 +193,8 @@ def load_numpy(module, params):
 class HookHandle:
     """Removable handle of a forward hook (``detach``/``remove``)."""
 
-    def __init__(self, hooks, hook):
-        self._hooks, self._hook = hooks, hook
+    def __init__(self, hooks_list, hook):
+        self._hooks, self._hook = hooks_list, hook
 
     def detach(self):
         if self._hooks is not None and self._hook in self._hooks:
@@ -224,6 +226,18 @@ class Block(nn.Module):
         self._fwd_hooks = []
         self._fwd_pre_hooks = []
         self._active = False
+
+    def __getattr__(self, name):
+        # nn.Module keeps parameters and buffers out of __dict__, so their
+        # reads land here.  Outside a forward a declared slot answers with
+        # its Parameter handle (``net.weight.data()``), as the reference's
+        # attribute does; inside one, the tensor (the built-in layers read
+        # their slots from ``_parameters``/``_buffers`` and skip this)
+        if not autograd._STATE.functional:
+            p = self.__dict__.get("_reg_params", {}).get(name)
+            if p is not None:
+                return p
+        return nn.Module.__getattr__(self, name)
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
@@ -461,6 +475,9 @@ class HybridBlock(Block):
         raise NotImplementedError
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
-                  backend=None, **kwargs):
+                  inline_limit=None, backend=None, **kwargs):
+        """The flag only (see the module docstring): ``static_alloc``,
+        ``static_shape`` and ``inline_limit`` tune the reference's traced
+        program and have no meaning for the eager forward."""
         refuse_unported("HybridBlock.hybridize", "A8", backend=(backend, None))
         super().hybridize(active)

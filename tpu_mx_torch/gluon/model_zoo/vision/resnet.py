@@ -229,7 +229,7 @@ class _ResNet(HybridBlock):
 
     @classmethod
     def from_numpy(cls, params, *args, layout=None, dtype="float32",
-                   device="cuda", generator=None, **kwargs):
+                   device=None, generator=None, **kwargs):
         """The port's net computing the reference's function: built as
         ``cls(*args, **kwargs)`` (under ``default_layout(layout)`` when
         ``layout`` is given), then every parameter and running statistic
@@ -250,7 +250,7 @@ class ResNetV1(_ResNet):
     classes)`` logits in the parameters' dtype."""
 
     def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
-                 stem="classic", dtype="float32", device="cuda",
+                 stem="classic", dtype="float32", device=None,
                  generator=None):
         super().__init__()
         kw = self._checked(layers, channels, dtype, device, generator)
@@ -270,7 +270,7 @@ class ResNetV2(_ResNet):
     (no scale, no center)."""
 
     def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
-                 stem="classic", dtype="float32", device="cuda",
+                 stem="classic", dtype="float32", device=None,
                  generator=None):
         super().__init__()
         kw = self._checked(layers, channels, dtype, device, generator)
@@ -309,7 +309,7 @@ resnet_block_versions = [
 def get_resnet(version, num_layers, pretrained=False, ctx=None, **kwargs):
     """``ResNetV{version}`` of ``num_layers`` layers; ``ctx`` (a
     :class:`~tpu_mx_torch.context.Context`) is where it lives, in place
-    of ``device=`` (default: the card)."""
+    of ``device=`` (default: the current context)."""
     if num_layers not in resnet_spec or version not in (1, 2):
         raise ValueError(f"get_resnet: no ResNet v{version} with "
                          f"{num_layers} layers (have {sorted(resnet_spec)})")

@@ -19,7 +19,6 @@ import math
 import torch
 
 from ... import layout as _layout
-from ...base import refuse_unported
 from ...ndarray import ops
 from ..block import HybridBlock, as_dtype, default_generator
 
@@ -69,9 +68,9 @@ class Dense(HybridBlock):
         self._reg_params["weight"].shape_hint((self._units, in_units))
 
     def forward(self, x):
-        out = ops.FullyConnected(x, self.weight, self.bias,
-                                 no_bias=self.bias is None,
-                                 flatten=self._flatten)
+        bias = self._parameters.get("bias")
+        out = ops.FullyConnected(x, self._parameters["weight"], bias,
+                                 no_bias=bias is None, flatten=self._flatten)
         return self.act(out) if self.act is not None else out
 
 
@@ -125,8 +124,13 @@ class BatchNorm(HybridBlock):
         shape = [1] * x.dim()
         shape[axis] = x.shape[axis]
         red = tuple(i for i in range(x.dim()) if i != axis)
-        gamma = self.gamma if self._scale else torch.ones_like(self.gamma)
-        beta = self.beta if self._center else torch.zeros_like(self.beta)
+        gamma, beta = self._parameters["gamma"], self._parameters["beta"]
+        running_mean = self._buffers["running_mean"]
+        running_var = self._buffers["running_var"]
+        if not self._scale:
+            gamma = torch.ones_like(gamma)
+        if not self._center:
+            beta = torch.zeros_like(beta)
         acc = torch.promote_types(x.dtype, torch.float32)
         if self.training and not self._use_global_stats:
             n = math.prod(x.shape[i] for i in red)
@@ -138,12 +142,11 @@ class BatchNorm(HybridBlock):
             var = torch.clamp_min(s2 * (1.0 / n) - mean.square(), 0.0)
             with torch.no_grad():
                 m = self._momentum
-                for rs, stat in ((self.running_mean, mean),
-                                 (self.running_var, var)):
+                for rs, stat in ((running_mean, mean), (running_var, var)):
                     rs.copy_(m * rs + (1 - m) * stat.to(rs.dtype))
         else:
-            mean = self.running_mean.to(acc)
-            var = self.running_var.to(acc)
+            mean = running_mean.to(acc)
+            var = running_var.to(acc)
         scale = torch.rsqrt(var + self._eps) * gamma.to(acc)
         bias = beta.to(acc) - mean * scale
         return torch.addcmul(bias.to(x.dtype).view(shape), x,
@@ -151,18 +154,18 @@ class BatchNorm(HybridBlock):
 
 
 class LayerNorm(HybridBlock):
-    """Layer normalization over the last axis with float32 statistics
-    (``ops.LayerNorm``); gamma starts at 1, beta at 0.  ``in_channels=0``:
-    the first input's last axis."""
+    """Layer normalization over ``axis`` (the last by default) with
+    float32 statistics (``ops.LayerNorm``); gamma starts at 1, beta at 0.
+    ``in_channels=0``: the first input's size along ``axis``."""
 
     def __init__(self, epsilon=1e-5, in_channels=0, dtype=torch.float32,
                  generator=None, axis=-1, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
                  prefix=None, params=None):
         super().__init__(prefix, params)
-        refuse_unported("LayerNorm", "A3", axis=(axis, -1))
         g, dt = default_generator(generator), as_dtype(dtype)
         self._eps = epsilon
+        self._axis = axis
         self._declare("gamma", (in_channels,), gamma_initializer, dt, g,
                       grad=scale)
         self._declare("beta", (in_channels,), beta_initializer, dt, g,
@@ -170,28 +173,31 @@ class LayerNorm(HybridBlock):
 
     def infer_shape(self, x, *args):
         for leaf in ("gamma", "beta"):
-            self._reg_params[leaf].shape_hint((x.shape[-1],))
+            self._reg_params[leaf].shape_hint((x.shape[self._axis],))
 
     def forward(self, x):
-        return ops.LayerNorm(x, self.gamma, self.beta, eps=self._eps)
+        return ops.LayerNorm(x, self._parameters["gamma"],
+                             self._parameters["beta"], axis=self._axis,
+                             eps=self._eps)
 
 
 class Dropout(HybridBlock):
     """Inverted dropout in training mode (``autograd.record()`` on
     arrays, ``module.train()`` on tensors), drawing its masks from the
     explicit ``generator`` (None: the process's generator for the
-    input's device).  ``axes`` (a mask shared along axes) is not ported
-    yet."""
+    input's device); with ``axes`` one draw is shared along those
+    axes."""
 
     def __init__(self, rate, generator=None, axes=(), prefix=None,
                  params=None):
         super().__init__(prefix, params)
-        refuse_unported("Dropout", "A3", axes=(tuple(axes), ()))
         self._rate = rate
         self._generator = generator
+        self._axes = tuple(axes)
 
     def forward(self, x):
-        return ops.Dropout(x, self._rate, self._generator, self.training)
+        return ops.Dropout(x, self._rate, axes=self._axes,
+                           generator=self._generator, training=self.training)
 
 
 class Embedding(HybridBlock):
@@ -211,7 +217,7 @@ class Embedding(HybridBlock):
                       dt, g)
 
     def forward(self, x):
-        return ops.Embedding(x, self.weight)
+        return ops.Embedding(x, self._parameters["weight"])
 
     def extra_repr(self):
         return f"{self._input_dim} -> {self._output_dim}"

@@ -74,13 +74,15 @@ class Conv2D(HybridBlock):
     def forward(self, x):
         # the op takes the reference's weight layout: the (O, kh, kw, I)
         # view of the channels-last weight, which it permutes back
-        w = self.weight.permute(0, 2, 3, 1) if self._channels_last \
-            else self.weight
-        out = ops.Convolution(x, w, self.bias, kernel=self._kernel,
+        w = self._parameters["weight"]
+        if self._channels_last:
+            w = w.permute(0, 2, 3, 1)
+        bias = self._parameters.get("bias")
+        out = ops.Convolution(x, w, bias, kernel=self._kernel,
                               stride=self._strides, dilate=self._dilation,
                               pad=self._padding, num_filter=self._channels,
-                              num_group=self._groups,
-                              no_bias=self.bias is None, layout=self._layout)
+                              num_group=self._groups, no_bias=bias is None,
+                              layout=self._layout)
         return self.act(out) if self.act is not None else out
 
     def extra_repr(self):

@@ -247,8 +247,8 @@ class DropoutCell(RecurrentCell):
         return []
 
     def forward(self, inputs, states):
-        return ops.Dropout(inputs, self._rate, self._generator,
-                           self.training), states
+        return ops.Dropout(inputs, self._rate, generator=self._generator,
+                           training=self.training), states
 
 
 class ModifierCell(RecurrentCell):

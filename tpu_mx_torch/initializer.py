@@ -150,15 +150,16 @@ class Xavier(Initializer):
 DEFAULT = Uniform(0.07)
 
 
-def create(init):
+def create(name, **kwargs):
     """An :class:`Initializer` from an instance, a registered name
-    (``"xavier"``, ``"zeros"``, ...) or None for the default
+    (``"xavier"``, ``"zeros"``, ...) built with ``kwargs``
+    (``create("xavier", magnitude=2)``), or None for the default
     ``Uniform(0.07)``."""
-    if init is None:
+    if name is None:
         return DEFAULT
-    if isinstance(init, Initializer):
-        return init
-    if isinstance(init, str) and init.lower() in registry:
-        return registry[init.lower()]()
-    raise ValueError(f"initializer {init!r} is not in the port's registry "
+    if isinstance(name, Initializer):
+        return name
+    if isinstance(name, str) and name.lower() in registry:
+        return registry[name.lower()](**kwargs)
+    raise ValueError(f"initializer {name!r} is not in the port's registry "
                      f"({sorted(registry)})")

@@ -295,15 +295,17 @@ def kernel_takes(head_dim, dtype):
     return head_dim in HEAD_DIMS and dtype in _DTYPES
 
 
-def card_dense_arm(what, head_dim, dtype, detail=""):
+def card_dense_arm(what, head_dim, dtype, detail="", suffix=False):
     """``"dense"`` for a caller whose kernel has no instance for this head
     dim and (query) dtype on the card, where the reference's own gate
     (``supported()`` of its flash and paged kernels: a head dim that is a
-    multiple of 64, float32 or bfloat16) sends the shape dense too.  A
-    shape the reference's kernel takes raises instead (head dims 192,
-    256, ...): the port does not put a plain version on the card in a
-    kernel's place."""
-    if head_dim % 64 == 0 and dtype in _DTYPES:
+    multiple of 64, float32 or bfloat16) sends the shape dense too, and
+    for a ``suffix`` prefill (fewer queries than keys), which the
+    reference's gate sends dense whatever the head dim.  A shape the
+    reference's kernel takes raises instead (head dims 192, 256, ...):
+    the port does not put a plain version on the card in a kernel's
+    place."""
+    if not suffix and head_dim % 64 == 0 and dtype in _DTYPES:
         raise MXNetError(
             f"{what}: no kernel instance for head dim {head_dim}, {dtype}"
             f"{detail}, a shape the reference's kernel takes; the port's "

@@ -28,9 +28,10 @@ Two versions share that contract:
   run for CPU tensors — and on the card only to check the kernel.
 
 :func:`paged_attention` counts its kernel launches in
-``paged_attention.launches`` (a plain int; set it to 0 to start a count)
-and, by the route the C entry point reports, in
-``paged_attention.routes`` (``{"split_k": n}``).
+``paged_attention.launches`` (a plain int; set it to 0 to start a count),
+by the route the C entry point reports in ``paged_attention.routes``
+(``{"split_k": n}``) and by window in ``paged_attention.windows``
+(``{Tq: n}``).
 """
 from __future__ import annotations
 
@@ -186,6 +187,7 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, scale):
     _build.check(lib, code, "paged_attention")
     paged_attention.launches += 1
     paged_attention.routes[ROUTES[route.value]] += 1
+    paged_attention.windows[tq] = paged_attention.windows.get(tq, 0) + 1
     return out
 
 
@@ -218,3 +220,4 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, scale=None,
 
 paged_attention.launches = 0
 paged_attention.routes = dict.fromkeys(ROUTES, 0)
+paged_attention.windows = {}

@@ -111,8 +111,11 @@ class BERTEncoder(HybridBlock):
 
     def __init__(self, num_layers, units, hidden_size, num_heads, vocab_size,
                  max_length, dropout=0.0, mesh=None, dtype=torch.float32,
-                 generator=None):
+                 moe_every=0, moe_experts=8, moe_top_k=2, generator=None):
         super().__init__()
+        refuse_unported("BERTEncoder", "A7", moe_every=(moe_every, 0),
+                        moe_experts=(moe_experts, 8),
+                        moe_top_k=(moe_top_k, 2))
         g, dt = generator, dtype
         self._declare("word_embed_weight", (vocab_size, units), None, dt, g)
         self._declare("pos_embed_weight", (max_length, units), None, dt, g)
@@ -139,7 +142,7 @@ class BERTEncoder(HybridBlock):
 class BERTModel(HybridBlock):
     """Encoder + tied-embedding MLM head (the pretraining objective).
 
-    ``BERTModel(config, dtype="bfloat16", device="cuda", generator=g)``:
+    ``BERTModel(config, dtype="bfloat16", device=None, generator=g)``:
     every parameter in ``dtype`` on ``device``, drawn from ``g`` (default:
     ``random.generator(device)``), which also draws the dropout masks
     and seeds.  ``forward(tokens, token_types, valid_length=None,
@@ -148,7 +151,7 @@ class BERTModel(HybridBlock):
 
     def __init__(self, config=None, mesh=None, dtype="float32", remat=False,
                  remat_policy=None, moe_every=0, moe_experts=8, moe_top_k=2,
-                 device="cuda", generator=None):
+                 device=None, generator=None):
         super().__init__()
         if moe_every:
             raise MXNetError("BERTModel: the MoE layers (moe_every) are not "
@@ -193,7 +196,7 @@ class BERTModel(HybridBlock):
             + self.mlm_bias.float()
 
     @classmethod
-    def from_numpy(cls, params, config=None, dtype="float32", device="cuda",
+    def from_numpy(cls, params, config=None, dtype="float32", device=None,
                    generator=None):
         """The port's model computing the reference's function: ``params``
         maps the reference's ``collect_params()`` names to numpy arrays, in

@@ -27,7 +27,7 @@ MODES = ("lstm", "gru", "rnn_relu", "rnn_tanh")
 
 class RNNModel(HybridBlock):
     """``RNNModel(mode, vocab_size, num_embed, num_hidden, num_layers,
-    dropout, tie_weights, dtype=, device="cuda", generator=g)``: every
+    dropout, tie_weights, dtype=, device=None, generator=g)``: every
     parameter in ``dtype`` on ``device``, drawn from ``g`` (default:
     ``random.generator(device)``), which also draws the dropout masks.
     ``forward(inputs, state=None)``: ``(T, N)`` token ids (integers or
@@ -36,7 +36,7 @@ class RNNModel(HybridBlock):
 
     def __init__(self, mode="lstm", vocab_size=10000, num_embed=200,
                  num_hidden=200, num_layers=2, dropout=0.5, tie_weights=False,
-                 dtype="float32", device="cuda", generator=None):
+                 dtype="float32", device=None, generator=None):
         super().__init__()
         if mode not in MODES:
             raise ValueError(f"RNNModel mode {mode!r}: one of {MODES}")
@@ -62,7 +62,7 @@ class RNNModel(HybridBlock):
             if num_embed != num_hidden:
                 raise MXNetError("RNNModel: tied weights need num_embed == "
                                  "num_hidden")
-            self.decoder.weight = self.encoder.weight
+            self.decoder.weight = self.encoder._parameters["weight"]
 
     def begin_state(self, batch_size=0):
         return self.rnn.begin_state(batch_size)
@@ -77,7 +77,7 @@ class RNNModel(HybridBlock):
     @classmethod
     def from_numpy(cls, params, mode="lstm", vocab_size=10000, num_embed=200,
                    num_hidden=200, num_layers=2, dropout=0.5,
-                   tie_weights=False, dtype="float32", device="cuda",
+                   tie_weights=False, dtype="float32", device=None,
                    generator=None):
         """The port's model computing the reference's function: ``params``
         maps the reference's ``collect_params()`` names to numpy arrays in

@@ -123,7 +123,7 @@ class VGG16ReducedFeatures(HybridBlock):
 
 class SSD(HybridBlock):
     """Multi-scale single-shot detector.  ``SSD(num_classes, sizes,
-    ratios, ..., dtype=, device="cuda", generator=g)``: every parameter in
+    ratios, ..., dtype=, device=None, generator=g)``: every parameter in
     ``dtype`` on ``device``, drawn from ``g`` (default:
     ``random.generator(device)``).
 
@@ -134,7 +134,7 @@ class SSD(HybridBlock):
     def __init__(self, num_classes, sizes, ratios, base_filters=(16, 32, 64),
                  scale_filters=128, num_scales=None, backbone="compact",
                  extra_specs=None, in_channels=3, dtype="float32",
-                 device="cuda", generator=None):
+                 device=None, generator=None):
         super().__init__()
         dev = _device.resolve(device)
         g = _random.generator(dev) if generator is None else generator
@@ -219,14 +219,15 @@ class SSD(HybridBlock):
                force_suppress=False):
         """Inference (BatchNorm on its running statistics): decode and NMS
         → ``(B, A, 6)`` rows ``[class_id, score, x1, y1, x2, y2]``, -1
-        where dropped."""
+        where dropped (an array for an array ``x``)."""
         was_training = self.training
         self.eval()
         try:
             anchors, cls_preds, box_preds = self(x)
         finally:
             self.train(was_training)
-        cls_prob = torch.softmax(cls_preds, -1).transpose(1, 2)
+        cls_prob = ops.transpose(ops.softmax(cls_preds, axis=-1),
+                                 axes=(0, 2, 1))
         return contrib.MultiBoxDetection(
             cls_prob, box_preds, anchors, threshold=threshold,
             nms_threshold=nms_threshold, nms_topk=nms_topk,
@@ -253,8 +254,9 @@ class SSDTrainingTargets:
                        negative_mining_thresh=negative_mining_thresh)
 
     def __call__(self, anchors, labels, cls_preds):
-        return contrib.MultiBoxTarget(anchors, labels,
-                                      cls_preds.transpose(1, 2), **self.kw)
+        return contrib.MultiBoxTarget(
+            anchors, labels, ops.transpose(cls_preds, axes=(0, 2, 1)),
+            **self.kw)
 
 
 def ssd_512(num_classes=20, **kwargs):

@@ -11,7 +11,8 @@ behind the forward.  The greedy NMS of ``box_nms`` and
 reference; it reads the number of valid candidates once, to skip the
 steps that change nothing.
 
-Ties resolve as the reference's do: ``argmax`` takes the first maximum,
+Each takes tensors or arrays, as every ``nd`` operator does (arrays in,
+arrays out).  Ties resolve as the reference's do: ``argmax`` takes the first maximum,
 both sorts are stable, and where two ground-truth boxes claim the same
 anchor the later one's write stands.
 """
@@ -21,6 +22,8 @@ import math
 
 import numpy as np
 import torch
+
+from .ops import _op
 
 __all__ = ["box_iou", "box_nms", "MultiBoxPrior", "MultiBoxTarget",
            "MultiBoxDetection", "bipartite_matching"]
@@ -313,3 +316,10 @@ def bipartite_matching(data, is_ascend=False, threshold=None, topk=-1):
                                       | (cols_of == j[:, None])[:, None, :])
         sc = torch.where(retire, -big, sc)
     return row, col
+
+
+# each operator with the imperative face of ndarray/ops.py: arrays in,
+# arrays out; tensors in, tensors out
+for _name in __all__:
+    globals()[_name] = _op(globals()[_name])
+del _name

@@ -94,6 +94,20 @@ def _op(fn):
     return op
 
 
+def _op_out(fn):
+    """:func:`_op` with the reference's ``out=`` (its elementwise ops):
+    the result is written into the array ``out``, rebound as ``out[:] =
+    v`` rebinds it, and ``out`` is returned."""
+    @functools.wraps(fn)
+    def op(*args, out=None, **kwargs):
+        res = _apply(fn, args, kwargs)
+        if out is None:
+            return res
+        out._rebind(res._data if isinstance(res, NDArray) else res)
+        return out
+    return op
+
+
 def _place(t):
     """A created tensor as an array, or as itself inside a forward."""
     return t if autograd._STATE.functional else NDArray(t)
@@ -226,17 +240,23 @@ def depth_to_space(data, block_size):
     return y.reshape(n, c // (b * b), h * b, w * b)
 
 
-def Embedding(data, weight):
-    """Row lookup ``weight[data]`` (dense gradient, as in the reference)."""
+def Embedding(data, weight, input_dim=None, output_dim=None,
+              dtype="float32", sparse_grad=False, **kw):
+    """Row lookup ``weight[data]`` (dense gradient, as in the reference;
+    the table's sizes come from ``weight``, and ``input_dim``,
+    ``output_dim``, ``dtype`` and ``sparse_grad`` change nothing, as in
+    the reference)."""
     return F.embedding(data.long(), weight)
 
 
-def LayerNorm(data, gamma, beta, eps=1e-5):
-    """Layer normalization over the last axis with float32 statistics,
-    result in ``data``'s type."""
-    x = data.float()
-    return F.layer_norm(x, x.shape[-1:], gamma.float(), beta.float(),
-                        eps).to(data.dtype)
+def LayerNorm(data, gamma=None, beta=None, axis=-1, eps=1e-5, **kw):
+    """Layer normalization over ``axis`` with float32 statistics, result
+    in ``data``'s type; ``gamma``/``beta`` default to 1 and 0."""
+    x = data.float().movedim(axis, -1)
+    y = F.layer_norm(x, x.shape[-1:],
+                     None if gamma is None else gamma.float(),
+                     None if beta is None else beta.float(), eps)
+    return y.movedim(-1, axis).to(data.dtype)
 
 
 def L2Normalization(data, eps=1e-10, mode="instance"):
@@ -294,17 +314,25 @@ def pick(data, index, axis=-1, keepdims=False):
     return out if keepdims else out.squeeze(axis)
 
 
-def Dropout(data, p=0.5, generator=None, training=True):
+def Dropout(data, p=0.5, mode="training", axes=None, generator=None,
+            training=None, **kw):
     """Inverted dropout: keep each element with probability ``1 - p`` and
-    scale kept ones by ``1/(1-p)``; the mask is drawn from ``generator``
-    (on ``data``'s device; None: the process's generator there).
-    Identity when not training or ``p == 0``."""
-    if not training or p <= 0:
+    scale kept ones by ``1/(1-p)``; with ``axes`` one draw is shared
+    along those axes.  The mask is drawn from ``generator`` (on
+    ``data``'s device; None: the process's generator there).  It drops
+    in training — ``training`` as the layers pass it, or with None
+    ``autograd.is_training()`` as in the reference — or always with
+    ``mode="always"``; otherwise, and for ``p == 0``, it is the
+    identity."""
+    if training is None:
+        training = autograd.is_training()
+    if not (training or mode == "always") or p <= 0:
         return data
     if generator is None:
         generator = _random.generator(data.device)
-    keep = torch.rand(data.shape, generator=generator,
-                      device=data.device) >= p
+    shape = data.shape if not axes else tuple(
+        1 if i in axes else s for i, s in enumerate(data.shape))
+    keep = torch.rand(shape, generator=generator, device=data.device) >= p
     return torch.where(keep, data / (1.0 - p), torch.zeros((), dtype=data.dtype,
                                                            device=data.device))
 
@@ -334,10 +362,13 @@ def sgd_mom_update_core(weight, grad, mom, lr, momentum, wd, rescale_grad=1.0,
 
 
 def adam_update_core(weight, grad, mean, var, lr, beta1, beta2, epsilon, wd,
-                     t, rescale_grad=1.0, clip_gradient=None):
+                     t, rescale_grad=1.0, clip_gradient=None,
+                     lazy_update=False):
     """Adam, the reference's rule: the gradient rescaled, clipped and
     given ``wd·w``; bias-corrected moments.  Returns ``(new_weight,
-    new_mean, new_var)``."""
+    new_mean, new_var)``.  ``lazy_update`` (rows of a sparse gradient)
+    changes nothing for the dense gradients of the port, as in the
+    reference."""
     g = _clip(grad, rescale_grad, clip_gradient) + wd * weight
     m = beta1 * mean + (1 - beta1) * g
     v = beta2 * var + (1 - beta2) * g.square()
@@ -374,16 +405,16 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
     return _place(a.repeat_interleave(repeat) if repeat != 1 else a)
 
 
-def zeros_like(data, **kw):
-    return torch.zeros_like(data)
+def zeros_like(a, **kw):
+    return torch.zeros_like(a)
 
 
-def ones_like(data, **kw):
-    return torch.ones_like(data)
+def ones_like(a, **kw):
+    return torch.ones_like(a)
 
 
-def full_like(data, fill_value, **kw):
-    return torch.full_like(data, fill_value)
+def full_like(a, fill_value, **kw):
+    return torch.full_like(a, fill_value)
 
 
 def cast(data, dtype, **kw):
@@ -407,9 +438,10 @@ def identity(data, **kw):
 
 # -- elementwise --------------------------------------------------------------
 def _unary(tfn, name):
-    def op(data, **kw):
+    def op(data, out=None, **kw):
         return tfn(data)
     op.__name__ = op.__qualname__ = name
+    op._out = True
     return op
 
 
@@ -451,9 +483,10 @@ isfinite = _unary(torch.isfinite, "isfinite")
 
 
 def _binary(tfn, name):
-    def op(lhs, rhs, **kw):
+    def op(lhs, rhs, out=None, **kw):
         return tfn(lhs, rhs)
     op.__name__ = op.__qualname__ = name
+    op._out = True
     return op
 
 
@@ -803,14 +836,16 @@ random_uniform = uniform = random.uniform
 random_normal = normal = random.normal
 
 
-# every function above that takes arrays gets the imperative face
+# every function above that takes arrays gets the imperative face, and
+# the elementwise ones the reference's out=
 _CREATION = {"zeros", "ones", "full", "empty", "arange", "random",
              "random_uniform", "random_normal", "uniform", "normal"}
 for _name, _fn in list(globals().items()):
     if callable(_fn) and getattr(_fn, "__module__", None) == __name__ \
             and not _name.startswith("_") and _name not in _CREATION \
             and not isinstance(_fn, type):
-        globals()[_name] = _op(_fn)
+        globals()[_name] = (_op_out if getattr(_fn, "_out", False)
+                            else _op)(_fn)
 del _name, _fn
 
 __all__ = sorted(n for n, v in globals().items()

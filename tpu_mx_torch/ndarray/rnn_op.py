@@ -210,7 +210,8 @@ def recurrence(mode, x, states, weights, num_layers=1, bidirectional=False,
         hs.append(h)
         cs.append(c)
         if layer < num_layers - 1:
-            inp = ops.Dropout(inp, dropout, generator, training)
+            inp = ops.Dropout(inp, dropout, generator=generator,
+                              training=training)
     return (inp, torch.cat(hs), torch.cat(cs) if mode == "lstm" else None)
 
 
@@ -238,3 +239,7 @@ def RNN(data, parameters, state, state_cell=None, state_size=None,
     if not state_outputs:
         return out
     return (out, h, c) if is_lstm else (out, h)
+
+
+# the imperative face of ndarray/ops.py: arrays in, arrays out
+RNN = ops._op(RNN)

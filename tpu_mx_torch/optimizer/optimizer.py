@@ -13,15 +13,15 @@ writes the new weight into the weight's own tensor in place; with
 ``multi_precision`` a float16/bfloat16 weight's state is ``(float32
 master, inner state)`` (``create_state_multi_precision``), the update
 runs on the master and the weight becomes its cast.  Not ported yet
-(ROADMAP A5): the lr schedulers, ``param_idx2name``,
-``begin_num_update`` and the other optimizers (AdamW, NAG, RMSProp,
-AdaGrad, AdaDelta, Ftrl, Signum, LBSGD, DCASGD, SGLD, Adamax, Nadam,
-FTML).
+(ROADMAP A5): the lr schedulers and ``param_idx2name`` (refused by name
+when set), and the other optimizers (AdamW, NAG, RMSProp, AdaGrad,
+AdaDelta, Ftrl, Signum, LBSGD, DCASGD, SGLD, Adamax, Nadam, FTML).
 """
 from __future__ import annotations
 
 import torch
 
+from ..base import refuse_unported
 from ..ndarray import ops
 
 __all__ = ["Optimizer", "SGD", "Adam", "LAMB", "Updater", "create",
@@ -32,10 +32,15 @@ _LOW_PRECISION = (torch.float16, torch.bfloat16)
 registry = {}
 
 
-def register(cls):
-    """Register an optimizer class under its lower-cased name."""
-    registry[cls.__name__.lower()] = cls
-    return cls
+def register(obj=None, *, name=None, aliases=()):
+    """Register an optimizer class under its lower-cased name (or
+    ``name``) and each of ``aliases``; usable bare (``@register``) or
+    with arguments (``@register(name="sgd2")``)."""
+    def add(cls):
+        for key in (name or cls.__name__, *aliases):
+            registry[key.lower()] = cls
+        return cls
+    return add if obj is None else add(obj)
 
 
 def create(name, **kwargs):
@@ -53,15 +58,22 @@ class Optimizer:
     """Base optimizer: learning rate, weight decay, gradient rescale and
     clip, mixed-precision flag."""
 
-    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, multi_precision=False, param_dict=None):
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0, multi_precision=False,
+                 param_dict=None):
+        refuse_unported("Optimizer", "A5", param_idx2name=(param_idx2name,
+                                                           None),
+                        lr_scheduler=(lr_scheduler, None))
+        refuse_unported("Optimizer", "A17 (symbol)", sym=(sym, None))
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
         self.param_dict = param_dict or {}
-        self.num_update = 0
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
         self._index_update_count = {}
 
     def set_learning_rate(self, lr):
@@ -69,7 +81,7 @@ class Optimizer:
 
     def _update_count(self, index):
         self._index_update_count[index] = \
-            self._index_update_count.get(index, 0) + 1
+            self._index_update_count.get(index, self.begin_num_update) + 1
         self.num_update = max(self._index_update_count[index],
                               self.num_update)
 

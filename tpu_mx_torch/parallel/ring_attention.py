@@ -119,14 +119,28 @@ def _block_attn(q, k, v, bias=None, mask=None, scale=1.0, dropout_rate=0.0,
     return l, o
 
 
+def _dropout_seed(dropout_key, dropout_seed):
+    """The reference's ``dropout_key`` (a JAX PRNG key there) is the
+    port's seed: an int or a ``(1,)`` int32 tensor, as ``dropout_seed``
+    is; giving both raises."""
+    if dropout_key is None:
+        return dropout_seed
+    if dropout_seed is not None:
+        raise ValueError("attention: pass dropout_key or dropout_seed, "
+                         "not both")
+    return dropout_key
+
+
 def local_flash_attention(q, k, v, causal=False, valid_length=None,
-                          dropout_rate=0.0, dropout_seed=None, bias=None):
+                          dropout_rate=0.0, dropout_key=None, bias=None,
+                          dropout_seed=None):
     """Single-device attention over ``(B, H, T, D)``: the flash kernels
     for CUDA tensors of a shape they take, the dense plain version
-    otherwise (:func:`attention_arm`).  ``dropout_seed`` is a ``(1,)``
-    int32 tensor (``random.take_seed``); pass ``dropout_rate > 0`` only
-    in training.  ``bias`` is an additive ``(B|1, H|1, T|1, Tk)``
-    attention bias."""
+    otherwise (:func:`attention_arm`).  ``dropout_seed`` (or the
+    reference's name, ``dropout_key``) is a ``(1,)`` int32 tensor
+    (``random.take_seed``); pass ``dropout_rate > 0`` only in training.
+    ``bias`` is an additive ``(B|1, H|1, T|1, Tk)`` attention bias."""
+    dropout_seed = _dropout_seed(dropout_key, dropout_seed)
     rate = float(dropout_rate) if dropout_seed is not None else 0.0
     arm = attention_arm(q.device.type, q.shape[-1], q.dtype)
     _count(arm, f"shape={tuple(q.shape)} dtype={q.dtype} "
@@ -146,8 +160,8 @@ def local_flash_attention(q, k, v, causal=False, valid_length=None,
 
 
 def attention(q, k, v, mesh=None, causal=False, valid_length=None,
-              dropout_rate=0.0, dropout_seed=None, bias=None,
-              sp_strategy=None):
+              dropout_rate=0.0, dropout_key=None, bias=None,
+              sp_strategy=None, dropout_seed=None):
     """Dispatch: local attention (:func:`local_flash_attention`).
     ``sp_strategy`` (``"ring"``, ``"ulysses"`` or None) is checked on
     every call, mesh or not, so a typo never selects the local path
@@ -164,4 +178,6 @@ def attention(q, k, v, mesh=None, causal=False, valid_length=None,
     return local_flash_attention(q, k, v, causal=causal,
                                  valid_length=valid_length,
                                  dropout_rate=dropout_rate,
-                                 dropout_seed=dropout_seed, bias=bias)
+                                 dropout_seed=_dropout_seed(dropout_key,
+                                                            dropout_seed),
+                                 bias=bias)

@@ -56,7 +56,8 @@ class CompiledTrainStep:
                   whose parameters all live on ``device``
     loss_fn     — a loss module (``gluon.loss``), per-example values
     optimizer   — a port optimizer (its ``update_core`` is applied)
-    device      — where the step runs, ``"cuda"`` by default; a network
+    device      — where the step runs; None (the default) is the current
+                  context (``gpu(0)`` outside ``with mx.cpu():``); a network
                   on another device raises
     n_loss_args — how many trailing ``step()`` arguments go to the loss
     accum_steps — gradient accumulation, as in the reference
@@ -69,7 +70,7 @@ class CompiledTrainStep:
 
     def __init__(self, net, loss_fn, optimizer, mesh=None, rules=None,
                  data_specs=None, donate=True, n_loss_args=1,
-                 gradient_compression=None, accum_steps=1, device="cuda"):
+                 gradient_compression=None, accum_steps=1, device=None):
         refuse_unported("CompiledTrainStep", "A8", rules=(rules, None),
                         data_specs=(data_specs, None),
                         gradient_compression=(gradient_compression, None))

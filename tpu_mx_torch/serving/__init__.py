@@ -2,18 +2,25 @@
 
 The port of ``tpu_mx/serving``'s main path, bottom up:
 
-- :mod:`.kv_cache` — block pools on the device + free-list allocator +
-  per-sequence block tables; exhaustion is backpressure
+- :mod:`.kv_cache` — block pools on the device + refcounted free-list
+  allocator + per-sequence block tables; exhaustion is backpressure
   (:class:`CacheExhausted`), never OOM.
+- :mod:`.prefix_cache` — the shared-prefix index: requests with a
+  common template share its cached blocks (``TPUMX_PREFIX_SHARING``).
 - :mod:`.attention` — flash-kernel prefill, paged-kernel decode.
 - :mod:`.model` — :class:`TinyLM`, the seed-deterministic model, with
   its whole decode step on the device.
 - :mod:`.scheduler` — admission, continuous batching, tenant fairness.
+- :mod:`.speculative` — draft on the device, verify a ``(B, K)`` window
+  in one step (``TPUMX_SPECULATIVE``).
+- :mod:`.sampling` — top-k samplers whose state is data.
 - :mod:`.engine` — model + cache = prefill/decode compute.
 - :mod:`.server` — ``submit``/``step``/``run_until_idle``/``stream``.
 - :mod:`.tenancy`, :mod:`.timeline` — tenant policy, latency attribution.
 """
-from .kv_cache import BlockAllocator, CacheExhausted, PagedKVCache
+from .kv_cache import (BlockAllocator, CacheExhausted, PagedKVCache,
+                       PrefillPlan, prefix_sharing_enabled)
+from .prefix_cache import PrefixIndex
 from .tenancy import TenantConfig, TenantTable
 from .attention import decode_attention, dense_attention, prefill_attention
 from .model import TinyLM
@@ -23,6 +30,7 @@ from .engine import EngineCore
 from .server import Server
 
 __all__ = ["BlockAllocator", "CacheExhausted", "PagedKVCache",
+           "PrefillPlan", "PrefixIndex", "prefix_sharing_enabled",
            "TenantConfig", "TenantTable", "dense_attention",
            "decode_attention", "prefill_attention", "TinyLM",
            "RequestTimeline", "AdmissionReject",

@@ -5,7 +5,9 @@ exist in a serving engine and each has its kernel:
 
 - **Prefill** — the whole prompt at once, ``(L, H, D)`` causal
   self-attention: :func:`prefill_attention` folds it to ``(H, L, D)``
-  and calls the flash forward (``kernels/flash_attention.py``).
+  and calls the flash forward (``kernels/flash_attention.py``).  The
+  suffix of a prompt whose prefix is cached (``S`` queries over ``L >
+  S`` keys) takes the dense arm, the reference's route for that shape.
 - **Decode** — each sequence's new token against the paged cache:
   :func:`decode_attention` hands the pool and the block tables to the
   paged kernel (``kernels/paged_attention.py``).
@@ -71,16 +73,21 @@ def dense_attention(q, k, v, lengths=None, causal=False):
     return out.to(q.dtype)
 
 
-def prefill_arm(head_dim, dtype, device_type="cuda"):
+def prefill_arm(head_dim, dtype, device_type="cuda", queries=None,
+                keys=None):
     """``"flash"`` where the flash forward has an instance for this head
-    dim and dtype, else ``"dense"``; on the card a shape the reference's
-    kernel takes without an instance here raises
+    dim and dtype and the prefill is a whole prompt, else ``"dense"``; a
+    suffix prefill (``keys`` > ``queries``) is dense, as in the
+    reference.  On the card a whole-prompt shape the reference's kernel
+    takes without an instance here raises
     (``kernels.flash_attention.card_dense_arm``)."""
-    if _fa.kernel_takes(head_dim, dtype):
+    suffix = keys is not None and keys != queries
+    if _fa.kernel_takes(head_dim, dtype) and not suffix:
         return "flash"
     if device_type != "cuda":
         return "dense"
-    return _fa.card_dense_arm("prefill_attention", head_dim, dtype)
+    return _fa.card_dense_arm("prefill_attention", head_dim, dtype,
+                              suffix=suffix)
 
 
 def decode_arm(head_dim, q_dtype, pool_dtype, window=1, device_type="cuda"):
@@ -98,11 +105,14 @@ def decode_arm(head_dim, q_dtype, pool_dtype, window=1, device_type="cuda"):
 
 
 def prefill_attention(q, k, v):
-    """Causal self-attention over one prompt: ``q``/``k``/``v`` are
-    ``(L, H, D)`` tensors; returns ``(L, H, D)``.  The flash forward
+    """Causal self-attention over one prompt: ``q`` is ``(S, H, D)`` and
+    ``k``/``v`` are ``(L, H, D)`` with ``L >= S``; returns ``(S, H, D)``.
+    ``L == S`` is a whole prompt; ``L > S`` a suffix after a cached
+    prefix, query ``i`` at position ``L - S + i``.  The flash forward
     takes the ``(H, L, D)`` layout (heads folded into its batch axis);
     the dense arm (:func:`prefill_arm`) runs :func:`dense_attention`."""
-    kind = prefill_arm(q.shape[-1], q.dtype, q.device.type)
+    kind = prefill_arm(q.shape[-1], q.dtype, q.device.type, q.shape[0],
+                       k.shape[0])
     _telemetry.counter("serve.prefill_attention", kind=kind).inc()
     if kind == "dense":
         return dense_attention(q[None], k[None], v[None], causal=True)[0]

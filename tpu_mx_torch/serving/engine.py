@@ -7,30 +7,42 @@ device and runs two operations for the server:
 - :meth:`EngineCore.prefill` — one sequence's prompt (plus any tokens
   it already committed before a preemption): the model computes every
   layer's K/V through the flash kernel, the cache is bulk-filled in one
-  call, and the first generated token comes back.
+  call, and the first generated token comes back.  With prefix sharing
+  on, the longest indexed full-block prefix of the prompt is served from
+  the cache: only the suffix is computed (``TinyLM.prefill_suffix``, the
+  dense arm over prefix ++ suffix keys) and written.
 - :meth:`EngineCore.decode` — ONE decode step for a whole batch: reserve
-  each sequence's slot, then run :meth:`TinyLM.decode_step`, the whole
-  step on the device with the paged kernel.  Sequences whose slot
-  reservation hits :class:`CacheExhausted` are returned as *preempted*
-  (the scheduler requeues them); the rest of the batch proceeds.
+  each sequence's window of ``spec_window`` slots, then run
+  :meth:`TinyLM.decode_step`, the whole step on the device with the
+  paged kernel over the ``(B, K)`` window.  With speculation on
+  (``TPUMX_SPECULATIVE``) the proposer drafts ``K-1`` tokens, each row's
+  agreeing prefix is accepted and the rejected tail truncated: greedy
+  streams are those of one-token decode.  Sequences whose reservation
+  hits :class:`CacheExhausted` are returned as *preempted* (the
+  scheduler requeues them); the rest of the batch proceeds.
 
-Greedy decoding, one token per step: the reference's speculative
-window, non-greedy sampling and its self-check audits are not ported
-yet.  Non-finite logits raise :class:`NumericDivergence`.
+Sharing, the speculative window and greedy/sampled decoding are resolved
+once per engine and recorded on the ``serve.decode_path`` event.  A
+request carrying a sampler gets its last position's logits back instead
+of a token: the server samples on its own thread.  A non-greedy engine
+pins the window to 1 (speculation verifies greedily).  The reference's
+fused/host decode arms, warm-up and self-check audits are not ported
+(the port has one on-device decode path).  Non-finite logits raise
+:class:`NumericDivergence`.
 """
 from __future__ import annotations
 
 import math
 import time
 
-import numpy as np
 import torch
 
 from ..base import NumericDivergence, refuse_unported
 from .. import telemetry as _telemetry
 from .. import tracing as _tracing
 from .attention import decode_arm
-from .kv_cache import CacheExhausted, PagedKVCache
+from .kv_cache import CacheExhausted, PagedKVCache, prefix_sharing_enabled
+from .speculative import SiblingProposer, accept_prefix, resolve_spec_window
 
 __all__ = ["EngineCore"]
 
@@ -39,42 +51,78 @@ class EngineCore:
     """See module docstring.  ``model`` is a
     :class:`~tpu_mx_torch.serving.model.TinyLM`; the cache geometry and
     device come from it.  ``dtype`` is the KV pool's storage type.
-    ``share_prefix``, ``forensics``, ``warm_batch`` and ``greedy`` must
-    keep the reference's defaults: prefix sharing, forensics, warm-up
-    and non-greedy sampling are not ported yet (ROADMAP A12)."""
+    ``share_prefix`` (None: ``TPUMX_PREFIX_SHARING``) turns prefix
+    sharing on; ``greedy=False`` (a sampling server) hands logits back
+    and pins the speculative window to 1.  ``forensics`` and
+    ``warm_batch`` must keep the reference's defaults: not ported yet
+    (ROADMAP A12)."""
 
     def __init__(self, model, block_size=16, num_blocks=256,
                  dtype=torch.float32, share_prefix=None, forensics=None,
                  warm_batch=None, greedy=True):
-        refuse_unported("EngineCore", "A12", share_prefix=(share_prefix, None),
-                        forensics=(forensics, None),
-                        warm_batch=(warm_batch, None), greedy=(greedy, True))
+        refuse_unported("EngineCore", "A12", forensics=(forensics, None),
+                        warm_batch=(warm_batch, None))
         self.model = model
+        self.greedy = bool(greedy)
+        if share_prefix is None:
+            share_prefix = prefix_sharing_enabled()
+        self.share_prefix = bool(share_prefix)
+        self.spec_window = resolve_spec_window() if self.greedy else 1
         self.cache = PagedKVCache(
             model.num_layers, model.num_heads, model.head_dim,
             block_size=block_size, num_blocks=num_blocks, dtype=dtype,
-            device=model.device)
+            share_prefix=self.share_prefix, device=model.device)
+        self.proposer = (SiblingProposer(model) if self.spec_window > 1
+                         else None)
         _tracing.emit("serve.decode_path",
                       path=decode_arm(model.head_dim, torch.float32,
                                       self.cache.k_pool.dtype,
+                                      self.spec_window,
                                       device_type=self.cache.k_pool.device
                                       .type),
                       device=str(model.device), storage="device",
-                      fused=True, spec_window=1, sampling="greedy")
+                      sharing=self.share_prefix, fused=True,
+                      spec_window=self.spec_window,
+                      sampling="greedy" if self.greedy else "sampled")
+        self._spec_drafted = 0
+        self._spec_accepted = 0
 
     # -- prefill -------------------------------------------------------------
     def prefill(self, req):
         """Run ``req``'s prompt plus its committed tokens, fill its cache
-        blocks, and return the next (greedy) token.  A requeued request
-        is rebuilt in this one call: K/V at every position is a function
-        of the tokens before it only.  :class:`CacheExhausted`
-        propagates with the cache unchanged (the scheduler defers)."""
+        blocks, and return ``(next, cached_tokens)``: ``next`` is the
+        greedy token, or for a request carrying a sampler the last
+        position's logits (a float32 ``(V,)`` array) for the caller to
+        sample.  A requeued request is rebuilt in this one call: K/V at
+        every position is a function of the tokens before it only.  With
+        sharing on, ``cached_tokens`` leading tokens came from the
+        cache.  :class:`CacheExhausted` propagates with the cache
+        unchanged and no pinned reference left (the scheduler defers)."""
         t0 = time.perf_counter()
         tokens = req.prompt + req.tokens
-        k, v, logits = self.model.prefill(tokens)
-        self.cache.prefill(req.id, k, v)
-        top = torch.stack([logits.abs().amax(), logits.argmax().float()])
-        health, first = top.cpu().tolist()
+        plan = self.cache.match_prefix(tokens)
+        if plan is not None:
+            cached = plan.tokens_matched
+            try:
+                kp, vp = self.cache.gather_plan(plan)
+                k, v, logits = self.model.prefill_suffix(
+                    tokens[cached:], cached, kp, vp)
+            except BaseException:
+                self.cache.abandon_plan(plan)
+                raise
+            self.cache.commit_prefill(req.id, plan, k, v, tokens)
+        else:
+            cached = 0
+            k, v, logits = self.model.prefill(tokens)
+            self.cache.prefill(req.id, k, v,
+                               tokens=tokens if self.share_prefix else None)
+        sampled = getattr(req, "sampler", None) is not None
+        # one device->host copy: health and the greedy id, and for a
+        # sampled request the logits themselves
+        parts = [logits.abs().amax().reshape(1), logits.argmax().float()
+                 .reshape(1)] + ([logits.float()] if sampled else [])
+        back = torch.cat(parts).cpu().numpy()
+        health = float(back[0])
         if not math.isfinite(health):
             self.cache.free_sequence(req.id)
             raise NumericDivergence(
@@ -84,29 +132,47 @@ class EngineCore:
             _telemetry.counter("serve.replay_requests").inc()
             _telemetry.counter("serve.replay_tokens").inc(len(req.tokens))
         _tracing.emit("serve.prefill", request=req.id,
-                      tokens=len(req.prompt), replayed=len(req.tokens),
-                      t0=t0, t1=time.perf_counter())
-        return int(first)
+                      tokens=len(req.prompt), cached=cached,
+                      replayed=len(req.tokens), t0=t0,
+                      t1=time.perf_counter())
+        return (back[2:] if sampled else int(back[1])), cached
 
     # -- decode --------------------------------------------------------------
+    def _window(self, items):
+        """The step's window: ``spec_window``, cut so that no row's
+        window passes the model's last position."""
+        room = min(self.model.max_positions - self.cache.length(req.id)
+                   for req, _ in items)
+        return max(1, min(self.spec_window, room))
+
     def decode(self, items):
-        """One decode STEP for each ``(req, last_token)`` in ``items``.
+        """One decode STEP for each ``(req, last_token)`` in ``items`` —
+        one to ``spec_window`` tokens per request.
 
         Returns ``(results, preempted)``: ``results`` maps request id →
-        ``[token]`` for every sequence that decoded; ``preempted`` lists
-        the requests evicted to make room.  Preemption picks, among the
-        members not yet reserved this step, the one with the lowest
-        tenant weight, then the most blocks, then the youngest; the
-        reservation is retried after each eviction, so the oldest live
-        sequence always makes progress (``items`` arrive in admission
-        order)."""
+        the LIST of tokens the step produced, in stream order (one, or
+        up to ``spec_window`` when speculation accepts drafts) — for a
+        request carrying a sampler, its last position's logits (a
+        float32 ``(V,)`` array) instead; ``preempted`` lists the
+        requests evicted to make room.
+
+        The step reserves each sequence's whole window up front
+        (all-or-nothing), runs one windowed step, accepts each row's
+        agreeing draft prefix and truncates the rejected tail.
+        Preemption picks, among the members not yet reserved this step,
+        the one with the lowest tenant weight, then the most blocks only
+        it holds (freeing a shared block returns no memory), then the
+        youngest; the reservation is retried after each eviction, so the
+        oldest live sequence always makes progress (``items`` arrive in
+        admission order)."""
+        k = self._window(items)
         live, preempted = [], []
         remaining = [(req, int(last)) for req, last in items]
         while remaining:
             req, last = remaining.pop(0)
             while True:
                 try:
-                    self.cache.reserve_window(req.id, 1)
+                    self.cache.reserve_window(req.id, k)
                     live.append((req, last))
                     break
                 except CacheExhausted:
@@ -120,16 +186,38 @@ class EngineCore:
             return {}, preempted
         seq_ids = [r.id for r, _ in live]
         tables, lengths = self.cache.batch_tables(seq_ids)
-        bids, offs = self.cache.window_slots(seq_ids, 1)
-        toks, health = self.model.decode_step(
-            self.cache, [t for _, t in live], lengths - 1, tables, lengths,
-            bids[:, 0], offs[:, 0])
+        bids, offs = self.cache.window_slots(seq_ids, k)
+        samplers = [getattr(r, "sampler", None) for r, _ in live]
+        want_logits = any(s is not None for s in samplers)
+        heads = [t for _, t in live]
+        out, drafts, health, logits = self.model.decode_step(
+            self.cache, heads, lengths - k, tables, lengths, bids, offs,
+            proposer=self.proposer, want_logits=want_logits)
         if not math.isfinite(health):
             raise NumericDivergence(
                 f"serving: non-finite logits in decode batch of "
                 f"{len(live)} (health={health})")
-        return ({req.id: [int(t)] for (req, _), t in zip(live, toks)},
-                preempted)
+        results = {}
+        accepted = 0
+        for bi, (req, last) in enumerate(live):
+            a = accept_prefix([last, *drafts[bi]], out[bi])
+            if a + 1 < k:
+                self.cache.truncate(req.id, int(lengths[bi]) - (k - 1 - a))
+            if samplers[bi] is not None:
+                results[req.id] = logits[bi]
+            else:
+                results[req.id] = [int(t) for t in out[bi, :a + 1]]
+            accepted += a
+        if k > 1:
+            drafted = (k - 1) * len(live)
+            self._spec_drafted += drafted
+            self._spec_accepted += accepted
+            _telemetry.counter("serve.spec_drafted").inc(drafted)
+            if accepted:
+                _telemetry.counter("serve.spec_accepted").inc(accepted)
+            _telemetry.gauge("serve.spec_accept_ratio").set(
+                self._spec_accepted / self._spec_drafted)
+        return results, preempted
 
     def _pick_victim(self, remaining):
         """Index into ``remaining`` of the preemption victim (see
@@ -137,9 +225,8 @@ class EngineCore:
         best_j, best_key = len(remaining) - 1, None
         for j in range(len(remaining) - 1, -1, -1):
             req = remaining[j][0]
-            blocks = (len(self.cache.block_table(req.id))
-                      if self.cache.has_sequence(req.id) else 0)
-            key = (-float(req.tenant_weight), blocks, j)
+            key = (-float(req.tenant_weight),
+                   self.cache.exclusive_blocks(req.id), j)
             if best_key is None or key > best_key:
                 best_j, best_key = j, key
         return best_j

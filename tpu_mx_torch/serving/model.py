@@ -17,12 +17,17 @@ entry points run the model:
 - :meth:`TinyLM.prefill` — a whole prompt; returns every layer's K/V for
   the cache bulk-fill and the last position's logits.  Attention goes
   through the flash forward (``serving/attention.py``).
+- :meth:`TinyLM.prefill_suffix` — the tail of a prompt whose leading
+  positions' K/V come from a shared prefix in the cache.
 - :meth:`TinyLM.decode_step` — one decode step for a batch with the
-  whole step on the device: token ids in, embed, then per layer the QKV
-  projections, the K/V write into the cache pool (``index_put_``), the
-  paged kernel and the residual combine, then logits and greedy argmax.
-  One host-to-device copy carries the step's integer operands in and one
-  device-to-host copy brings the sampled ids and the health scalar back.
+  whole step on the device: token ids in (a speculative window's drafts
+  made on the device too), embed, then per layer the QKV projections,
+  the K/V write into the cache pool (``index_put_``), the paged kernel
+  over the ``(B, K)`` window and the residual combine, then logits and
+  greedy argmax.  One host-to-device copy carries the step's integer
+  operands in and one device-to-host copy brings the greedy ids, the
+  drafts, the health scalar and (for sampled rows) the last position's
+  logits back.
 """
 from __future__ import annotations
 
@@ -156,43 +161,113 @@ class TinyLM(nn.Module):
             h = self._combine(i, h, _attn.prefill_attention(q, k, v))
         return torch.stack(ks), torch.stack(vs), (h[-1:] @ self.w_out)[0]
 
+    @torch.no_grad()
+    def prefill_suffix(self, tokens, pos_offset, k_prefix, v_prefix):
+        """The tail of a prompt whose leading ``pos_offset`` positions'
+        K/V are cached (a shared prefix): ``tokens`` are the suffix's
+        host ids at positions ``pos_offset .. pos_offset+S-1``, and
+        ``k_prefix``/``v_prefix`` the cached ``(num_layers, pos_offset,
+        H, D)`` tensors (``PagedKVCache.gather_plan``).  Returns ``(k, v,
+        logits_last)`` as :meth:`prefill` does, for the suffix positions
+        only.  Each suffix query attends causally over prefix ++ suffix:
+        the rows a full prefill computes for those positions."""
+        tokens = np.asarray(tokens, np.int64)
+        s = tokens.shape[0]
+        if s < 1:
+            raise ValueError("prefill_suffix: empty suffix — at least the "
+                             "final prompt position must be computed for "
+                             "its logits")
+        m = int(pos_offset)
+        want = (self.num_layers, m, self.num_heads, self.head_dim)
+        if tuple(k_prefix.shape) != want or tuple(v_prefix.shape) != want:
+            raise ValueError(
+                f"prefill_suffix: prefix K/V must be {want}, got "
+                f"{tuple(k_prefix.shape)} / {tuple(v_prefix.shape)}")
+        self._check_positions(m + s - 1)
+        h = self._embed(torch.as_tensor(tokens, device=self.device),
+                        torch.arange(m, m + s, device=self.device))
+        ks, vs = [], []
+        for i in range(self.num_layers):
+            q = self._heads(h @ self.wq[i])                 # (S, H, D)
+            k = self._heads(h @ self.wk[i])
+            v = self._heads(h @ self.wv[i])
+            ks.append(k)
+            vs.append(v)
+            attn = _attn.prefill_attention(q, torch.cat([k_prefix[i], k]),
+                                           torch.cat([v_prefix[i], v]))
+            h = self._combine(i, h, attn)
+        return torch.stack(ks), torch.stack(vs), (h[-1:] @ self.w_out)[0]
+
     # -- decode ---------------------------------------------------------------
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions, tables, lengths, bids,
-                    offs):
-        """ONE decode step for a batch, on the device.
+                    offs, proposer=None, want_logits=False):
+        """ONE decode step for a batch, on the device, over a window of
+        ``K`` positions per row (``K = bids.shape[1]``; 1 without
+        speculation).
 
-        ``tokens``/``positions``/``bids``/``offs``: host ints ``(B,)`` —
-        each row's last token, its position, and the pool slot its K/V
-        goes to (``cache.window_slots``); ``tables``/``lengths``: the
-        batch's ``cache.batch_tables``.  Writes every layer's K/V into
-        ``cache``'s pools and returns ``(tokens, health)``: host int64
-        ``(B,)`` greedy ids and the step's max |logit| as a float."""
-        b = len(tokens)
-        self._check_positions(int(np.max(positions)))
+        ``tokens``/``positions``: host ints ``(B,)`` — each row's stream
+        head and its position; ``bids``/``offs``: host ints ``(B, K)`` —
+        the pool slots of the window's positions
+        (``cache.window_slots``); ``tables``/``lengths``: the batch's
+        ``cache.batch_tables``, the window reserved.  With ``K > 1``,
+        ``proposer.draft`` drafts each row's next ``K-1`` tokens on the
+        device and the window is the head followed by the drafts.  Every
+        layer writes the window's K/V into ``cache``'s pools and runs the
+        paged kernel once on a ``(B, K, H, D)`` query.
+
+        Returns ``(out, drafts, health, logits)`` on the host: int64
+        ``(B, K)`` greedy ids (``out[:, j]`` follows window position
+        ``j``), int64 ``(B, K-1)`` drafts, the step's max |logit|, and
+        with ``want_logits`` the float32 ``(B, V)`` logits of the last
+        window position (else None) — all in one device-to-host copy."""
+        b, k = np.shape(bids)
         tables = np.asarray(tables, np.int64)
+        positions = np.asarray(positions, np.int64)
+        self._check_positions(int(np.max(positions)) + k - 1)
         # one host->device copy for all of the step's integer operands
         ops = torch.from_numpy(np.concatenate([
-            np.asarray(tokens, np.int64), np.asarray(positions, np.int64),
-            np.asarray(lengths, np.int64), np.asarray(bids, np.int64),
-            np.asarray(offs, np.int64), tables.reshape(-1)])).to(self.device)
-        tok, pos, lens, bid, off = ops[:5 * b].view(5, b)
+            np.asarray(tokens, np.int64), positions,
+            np.asarray(lengths, np.int64),
+            np.asarray(bids, np.int64).reshape(-1),
+            np.asarray(offs, np.int64).reshape(-1),
+            tables.reshape(-1)])).to(self.device)
+        tok, pos, lens = ops[:3 * b].view(3, b)
+        bid, off = ops[3 * b:(3 + 2 * k) * b].view(2, b * k)
         # the kernel's int32 operands, cast once per step, not per layer
-        tab = ops[5 * b:].view(tables.shape).to(torch.int32)
+        tab = ops[(3 + 2 * k) * b:].view(tables.shape).to(torch.int32)
         lens = lens.to(torch.int32)
-        h = self._embed(tok, pos)                           # (B, E)
+        if k > 1:
+            drafts = torch.as_tensor(proposer.draft(tok, pos, k - 1),
+                                     device=self.device).long()
+            window = torch.cat([tok[:, None], drafts], dim=1)
+        else:
+            drafts = tok.new_zeros((b, 0))
+            window = tok[:, None]
+        wpos = pos[:, None] + torch.arange(k, device=self.device)
+        h = self._embed(window.reshape(-1), wpos.reshape(-1))    # (B*K, E)
         for i in range(self.num_layers):
-            q = self._heads(h @ self.wq[i])                 # (B, H, D)
-            k = self._heads(h @ self.wk[i])
-            v = self._heads(h @ self.wv[i])
+            q = self._heads(h @ self.wq[i])                 # (B*K, H, D)
+            kk = self._heads(h @ self.wk[i])
+            vv = self._heads(h @ self.wv[i])
             kp, vp = cache.pool(i)
-            kp.index_put_((bid, off), k.to(kp.dtype))
-            vp.index_put_((bid, off), v.to(vp.dtype))
-            attn = _attn.decode_attention(q, cache, i, tab, lens)
-            h = self._combine(i, h, attn)
-        logits = h @ self.w_out                             # (B, V)
+            kp.index_put_((bid, off), kk.to(kp.dtype))
+            vp.index_put_((bid, off), vv.to(vp.dtype))
+            qw = q.view(b, k, self.num_heads, self.head_dim) if k > 1 else q
+            attn = _attn.decode_attention(qw, cache, i, tab, lens)
+            h = self._combine(i, h, attn.reshape(b * k, self.num_heads,
+                                                 self.head_dim))
+        logits = h @ self.w_out                             # (B*K, V)
         # one device->host copy: the ids travel as float32, exact for any
-        # vocabulary below 2**24, beside the health scalar
-        back = torch.cat([logits.argmax(dim=-1).float(),
-                          logits.abs().amax().reshape(1)]).cpu().numpy()
-        return back[:b].astype(np.int64), float(back[b])
+        # vocabulary below 2**24, beside the drafts, the health scalar
+        # and, when asked, the last position's logits
+        parts = [logits.argmax(dim=-1).float(), drafts.reshape(-1).float(),
+                 logits.abs().amax().reshape(1)]
+        if want_logits:
+            parts.append(logits.view(b, k, -1)[:, -1].reshape(-1))
+        back = torch.cat(parts).cpu().numpy()
+        n = b * k + b * (k - 1)
+        out = back[:b * k].astype(np.int64).reshape(b, k)
+        drafted = back[b * k:n].astype(np.int64).reshape(b, k - 1)
+        last = back[n + 1:].reshape(b, -1) if want_logits else None
+        return out, drafted, float(back[n]), last

@@ -34,7 +34,7 @@ import itertools
 import threading
 import time
 
-from ..base import MXNetError
+from ..base import MXNetError, refuse_unported
 from .. import telemetry as _telemetry
 from .. import tracing as _tracing
 from .tenancy import DEFAULT_TENANT, TenantTable, label_for
@@ -78,6 +78,7 @@ class Request:
         self.max_new_tokens = int(max_new_tokens)
         self.tenant = DEFAULT_TENANT if tenant is None else str(tenant)
         self.tenant_weight = 1.0
+        self.sampler = None     # the server's per-request sampler (top-k)
         self.state = "queued"
         self.tokens = []
         self.finish_reason = None
@@ -170,7 +171,9 @@ class ContinuousBatchingScheduler:
     plain FIFO."""
 
     def __init__(self, max_pending=64, max_batch=8, max_tokens=8192,
-                 tenants=None):
+                 tenants=None, slo_boost=2.0):
+        refuse_unported("ContinuousBatchingScheduler", "A12 (slo.py)",
+                        slo_boost=(slo_boost, 2.0))
         self.max_pending = int(max_pending)
         self.max_batch = int(max_batch)
         self.max_tokens = int(max_tokens)
@@ -307,16 +310,21 @@ class ContinuousBatchingScheduler:
             if req in self._running:
                 self._running.remove(req)
 
-    def requeue(self, req):
-        """Bounce a running request to the queue front (cache
-        preemption), its committed tokens kept."""
+    def requeue(self, req, front=True):
+        """Bounce a running request back to pending (cache preemption),
+        its committed tokens kept: the next prefill replays them (the
+        reference's ``replay=True`` arm).  ``front`` keeps arrival-order
+        fairness."""
         with self._lock:
             if req in self._running:
                 self._running.remove(req)
             self._admitting.discard(req)
             self._vtime_charges.pop(req, None)
             req.requeue()
-            self._pending.insert(0, req)
+            if front:
+                self._pending.insert(0, req)
+            else:
+                self._pending.append(req)
         _telemetry.counter("serve.requests", state="requeued").inc()
         _telemetry.gauge("serve.queue_depth").set(self.queue_depth())
 

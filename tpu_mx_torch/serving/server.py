@@ -9,15 +9,23 @@ engine work:
   or raises :class:`~tpu_mx_torch.serving.scheduler.AdmissionReject`
   with a reason — the bounded-queue backpressure contract;
 - ``step()`` runs ONE engine iteration: admit + prefill newly admissible
-  requests, decode the running batch one token, evict finished sequences
-  at once.  The caller drives the loop (``run_until_idle()``), which
-  keeps the data plane single-threaded and deterministic;
+  requests, decode the running batch one token (or an accepted
+  speculative window), evict finished sequences at once.  The caller
+  drives the loop (``run_until_idle()``), which keeps the data plane
+  single-threaded and deterministic;
 - ``stream(prompt, ...)`` submits and yields tokens as they are
   generated, driving ``step()`` underneath.
 
+Decoding is greedy, or top-k (``sampling="top_k:K"``): each request then
+gets its own sampler seeded by ``fold_seed(sampling_seed, request id)``
+(``serving/sampling.py``), and the engine hands each step's last-position
+logits back for this thread to sample.  Prefix sharing
+(``prefix_sharing``, default ``TPUMX_PREFIX_SHARING``) and speculative
+decoding (``TPUMX_SPECULATIVE``) are the engine's.
+
 Not yet ported (ROADMAP): the watchdog and classified-restart ladder, the
 committed-token journal and ``recover()``, SLO monitoring, drain and
-handoff, the capacity gauges, and non-greedy sampling.  An engine fault
+handoff, and the capacity gauges.  An engine fault
 (:class:`NumericDivergence`, a CUDA error) propagates to the caller
 after the step's unstarted admissions are put back in the queue.
 """
@@ -33,6 +41,7 @@ from .. import telemetry as _telemetry
 from .. import tracing as _tracing
 from .engine import EngineCore
 from .kv_cache import CacheExhausted
+from .sampling import fold_seed, make_sampler, parse_sampling
 from .scheduler import ContinuousBatchingScheduler, Request
 
 __all__ = ["Server"]
@@ -46,11 +55,13 @@ class Server:
     defaults to a :class:`ContinuousBatchingScheduler` built from
     ``max_pending``/``max_batch``/``max_tokens``/``tenants``;
     ``block_size``/``num_blocks``/``dtype`` size the paged cache;
-    ``eos_id`` optionally ends generation early.  ``sampling`` must be
-    ``"greedy"``: top-k sampling is not ported yet.  The reference's
-    supervisor, black box, SLO, prefix-sharing, journal, sampling-seed
-    and replay arguments are accepted and must keep their defaults:
-    they are not ported yet (ROADMAP A10/A12)."""
+    ``eos_id`` optionally ends generation early.  ``sampling`` is
+    ``"greedy"`` or ``"top_k:K"``, seeded per request from
+    ``sampling_seed``; ``prefix_sharing`` (None:
+    ``TPUMX_PREFIX_SHARING``) shares the cached K/V of common prompt
+    prefixes.  The reference's supervisor, black box, SLO, journal and
+    replay arguments are accepted and must keep their defaults: they are
+    not ported yet (ROADMAP A10/A12)."""
 
     def __init__(self, model, *, scheduler=None, max_pending=64,
                  max_batch=8, max_tokens=8192, block_size=16,
@@ -63,17 +74,13 @@ class Server:
             "Server", "A10/A12", deadline=(deadline, None),
             max_restarts=(max_restarts, 3), backoff=(backoff, 0.05),
             blackbox=(blackbox, None), slo=(slo, None),
-            prefix_sharing=(prefix_sharing, None), journal=(journal, None),
-            sampling_seed=(sampling_seed, 0), replay=(replay, None))
+            journal=(journal, None), replay=(replay, None))
         dev = _device.resolve(device)
         if model.device.type != dev.type:
             raise MXNetError(f"Server(device={str(device)!r}): the model's "
                              f"weights are on {model.device}")
-        if sampling != "greedy":
-            raise MXNetError(
-                f"Server(sampling={sampling!r}): only greedy decoding is "
-                "ported; top-k sampling waits for its ROADMAP item "
-                "(serving/sampling.py)")
+        self._sampling_kind, self._sampling_k = parse_sampling(sampling)
+        self._sampling_seed = int(sampling_seed)
         self.model = model
         self.device = dev
         self.scheduler = scheduler if scheduler is not None else \
@@ -82,7 +89,9 @@ class Server:
                                         max_tokens=max_tokens,
                                         tenants=tenants)
         self.engine = EngineCore(model, block_size=block_size,
-                                 num_blocks=num_blocks, dtype=dtype)
+                                 num_blocks=num_blocks, dtype=dtype,
+                                 share_prefix=prefix_sharing,
+                                 greedy=self._sampling_kind == "greedy")
         self.eos_id = eos_id
         self._steps = 0
         self._tokens_generated = 0
@@ -96,6 +105,8 @@ class Server:
         req = Request(prompt, max_new_tokens, request_id=request_id,
                       tenant=tenant)
         req.tenant_weight = self.scheduler.tenants.get(req.tenant).weight
+        req.sampler = make_sampler(self._sampling_kind, self._sampling_k,
+                                   fold_seed(self._sampling_seed, req.id))
         # a request whose worst case can never fit the pool would
         # preempt-loop forever: reject it at the door
         need = self.engine.cache.blocks_for(req.budget_tokens)
@@ -120,7 +131,7 @@ class Server:
             _tracing.set_context(request=req.id)
             req.timeline.mark_prefill_start()
             try:
-                first = self.engine.prefill(req)
+                first, cached = self.engine.prefill(req)
             except CacheExhausted:
                 # backpressure: this admission and the rest of the step's
                 # go back to the queue front, and the step falls through
@@ -136,8 +147,10 @@ class Server:
                 raise
             finally:
                 _tracing.set_context(request=None)
-            req.timeline.mark_prefill_end()
+            req.timeline.mark_prefill_end(cached_tokens=cached)
             self.scheduler.mark_running(req)
+            if req.sampler is not None:
+                first = req.sampler.sample(first)
             self._commit_token(req, first)
             worked = True
         batch = self.scheduler.decode_batch()
@@ -147,16 +160,28 @@ class Server:
             items = [(r, r.tokens[-1]) for r in batch]
             t0 = time.perf_counter()
             results, preempted = self.engine.decode(items)
+            fresh = 0
             for req in batch:
-                for token in results.get(req.id, ()):
+                tokens = results.get(req.id)
+                if tokens is None:
+                    continue                    # preempted
+                if req.sampler is not None:
+                    tokens = [req.sampler.sample(tokens)]
+                # a list in stream order (one token, or an accepted
+                # speculative window): tokens past an EOS or the length
+                # budget were never part of the stream
+                for token in tokens:
+                    fresh += 1
                     self._commit_token(req, token)
+                    if req.done:
+                        break
             for req in preempted:
                 _tracing.emit("serve.evict", request=req.id,
                               reason="preempted", generated=len(req.tokens))
                 self.scheduler.requeue(req)
             _telemetry.counter("serve.decode_steps").inc()
             _tracing.emit("serve.decode", batch=len(items),
-                          tokens=len(results), t0=t0, t1=time.perf_counter())
+                          tokens=fresh, t0=t0, t1=time.perf_counter())
             worked = True
         self._update_gauges()
         return worked

@@ -48,7 +48,7 @@ class RequestTimeline:
     __slots__ = ("t0", "_mark", "_wait_kind", "_in_flight", "phases",
                  "defers", "requeues", "tokens", "ttft_breakdown",
                  "_first_token_pending", "ended_at", "outcome",
-                 "_replay_pending")
+                 "cached_tokens", "_replay_pending")
 
     def __init__(self, t0=None):
         self.t0 = time.perf_counter() if t0 is None else float(t0)
@@ -63,6 +63,8 @@ class RequestTimeline:
         self._first_token_pending = True
         self.ended_at = None
         self.outcome = None
+        self.cached_tokens = 0           # prompt tokens the last prefill
+        #                                  took from the prefix cache
         self._replay_pending = False     # next prefill is a replay
 
     def _close(self, phase, now=None):
@@ -82,14 +84,17 @@ class RequestTimeline:
         self._close(self._wait_kind)
         self._wait_kind = "queue_wait"
 
-    def mark_prefill_end(self):
+    def mark_prefill_end(self, cached_tokens=0):
         """A replay prefill (after a preemption) is recovery work: it
         closes into ``restart_penalty``, keeping ``prefill`` comparable
-        across preempted and clean requests."""
+        across preempted and clean requests.  ``cached_tokens`` is how
+        many leading prompt tokens this prefill took from the shared
+        prefix cache (a fast ``prefill`` then reads as a cache hit)."""
         self._close("restart_penalty" if self._replay_pending
                     else "prefill")
         self._replay_pending = False
         self._in_flight = True
+        self.cached_tokens = int(cached_tokens)
 
     def mark_prefill_failed(self):
         """The prefill attempt bounced on cache backpressure: the attempt
@@ -152,7 +157,8 @@ class RequestTimeline:
         _tracing.emit("serve.request_timeline", request=request_id,
                       outcome=outcome, latency=self.ended_at - self.t0,
                       tokens=self.tokens, requeues=self.requeues,
-                      defers=self.defers, **payload)
+                      defers=self.defers, cached_tokens=self.cached_tokens,
+                      **payload)
 
     @property
     def total(self):

@@ -12,6 +12,8 @@ from __future__ import annotations
 import math
 import threading
 
+from .base import refuse_unported
+
 __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge",
            "histogram", "get", "reset"]
 
@@ -69,11 +71,14 @@ class Histogram(_Metric):
     samples are dropped and counted (``dropped_nonfinite``), as in the
     reference: they have no honest bucket and would poison the sum."""
 
-    __slots__ = ("count", "sum", "min", "max", "dropped_nonfinite")
+    __slots__ = ("count", "sum", "min", "max", "dropped_nonfinite", "unit")
     kind = "histogram"
 
-    def __init__(self, name, labels):
+    def __init__(self, name, labels, buckets=None, unit="seconds"):
         super().__init__(name, labels)
+        refuse_unported("Histogram", "A15 (telemetry windows)",
+                        buckets=(buckets, None))
+        self.unit = unit
         self.count = 0
         self.sum = 0.0
         self.min = None
@@ -93,12 +98,12 @@ class Histogram(_Metric):
         return self
 
 
-def _get_or_make(cls, name, labels):
+def _get_or_make(cls, name, labels, **kwargs):
     key = (name, _labels_key(labels))
     with _lock:
         m = _metrics.get(key)
         if m is None:
-            m = _metrics[key] = cls(name, key[1])
+            m = _metrics[key] = cls(name, key[1], **kwargs)
         elif not isinstance(m, cls):
             raise TypeError(f"metric {name!r} already registered as "
                             f"{m.kind}, not {cls.kind}")
@@ -115,9 +120,10 @@ def gauge(name, **labels):
     return _get_or_make(Gauge, name, labels)
 
 
-def histogram(name, **labels):
-    """Create-or-fetch the Histogram ``name``."""
-    return _get_or_make(Histogram, name, labels)
+def histogram(name, buckets=None, unit="seconds", **labels):
+    """Create-or-fetch the Histogram ``name`` (``buckets``, the
+    reference's quantile buckets, must stay None: not ported yet)."""
+    return _get_or_make(Histogram, name, labels, buckets=buckets, unit=unit)
 
 
 def get(name, **labels):
