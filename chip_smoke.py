@@ -15,14 +15,17 @@ line each:
                  ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync) tensor-core
                  instructions in ``cuobjdump --dump-sass``: the bf16
                  forward, dq and dk/dv instances (``*_tc_kernel``) must
-                 have HGMMA, the float32 forward's (``*_tf32x3_kernel``)
-                 HMMA, and both spill nothing; the float32 backward and
-                 paged instances have neither;
+                 have HGMMA, the float32 forward, dq and dk/dv instances
+                 (``*_tf32x3_kernel``) HMMA, and both spill nothing; the
+                 paged instances have neither.  For the float32
+                 instances, the instruction mix of their SASS
+                 (``f32_mix``: all instructions, HMMA, TF32 splits);
 3. ``kernel``  — each CUDA kernel against its plain PyTorch version on
                  the card: paged decode and the flash forward at the
                  serving path's shapes; the flash forward, dq and dk/dv
                  at BERT's training shapes (bf16, ragged ``kv_valid``,
-                 dropout 0 and 0.1) and at one float32 causal shape.
+                 dropout 0 and 0.1; float32, dropout 0.1) and at one
+                 float32 causal shape.
                  Max abs error and its tolerance, median ms by CUDA
                  events (the window holds the wrapper's host path too;
                  the serving and BERT-shape kernels also queued behind a
@@ -32,18 +35,18 @@ line each:
                  one computes the same function, and the least time the
                  card could take (bytes over 3.35 TB/s or operations
                  over the 989 TFLOP/s bf16 tensor-core rate; for float32
-                 inputs the forward's three TF32 products over 495
-                 TFLOP/s, with the 67 TFLOP/s FFMA bound beside it, and
-                 67 TFLOP/s for the FFMA backward; whichever of bytes and
+                 inputs three TF32 products over 495 TFLOP/s, with the
+                 67 TFLOP/s FFMA bound beside it; whichever of bytes and
                  operations is larger), the achieved TFLOP/s and
                  bound_ms / ms, and the route the C entry points
-                 reported for the timed calls (``wgmma``, ``tf32x3`` or
-                 ``ffma``; ``split_k`` for paged decode).
-                 The float32 forward at large scores is held to float64
-                 within the bounds of its split-precision arithmetic
-                 (``f32_precision``), and the forward kernel's dropout
-                 mask is read out and held bit for bit against the
-                 plain mask;
+                 reported for the timed calls (``wgmma`` or ``tf32x3``;
+                 ``split_k`` for paged decode).
+                 The float32 forward and backward at large scores are
+                 held to float64 within the bounds of their
+                 split-precision arithmetic (``f32_precision``,
+                 ``f32_bwd_precision``), and the forward kernel's
+                 dropout mask is read out and held bit for bit against
+                 the plain mask;
 4. ``serve``   — the serving path at TinyLM width 4096 (32 heads of
                  128, vocabulary 32000 — Llama-2-7B's attention width),
                  depth cut to 4 layers: 8 requests through
@@ -77,7 +80,8 @@ line each:
 5. ``train_parity`` — one ``CompiledTrainStep`` LAMB step of BERT-base
                  (12 layers, float32, dropout 0, batch 2 x 128) on the
                  card and on the CPU from the same weights: losses and
-                 per-tensor weight updates agree;
+                 per-tensor weight updates agree (the float32 flash
+                 kernels, ``tf32x3``, on the card);
 6. ``train``   — the training slice at full width: BERT-base in bf16
                  with dropout 0.1, the benchmark's MLM loss and LAMB
                  (f32 masters), batch 32 x 512 with ragged valid
@@ -85,6 +89,13 @@ line each:
                  prove the flash forward, dq and dk/dv ran 12 times a
                  step (all three on the ``wgmma`` route the C entry
                  points report) and the paged kernel not at all;
+   ``train_f32`` — the same step in float32 (``BERTModel(dtype=
+                 "float32")``, LAMB, dropout 0.1, batch 32 x 512; running
+                 out of memory fails the phase), 1 warm-up and 3 timed
+                 steps: step ms, sequences/s, peak memory; launch
+                 counts prove the flash forward, dq and dk/dv ran 12
+                 times a step, all three on ``tf32x3``, and the paged
+                 kernel not at all; losses finite;
 7. ``resnet_parity`` — thin ResNetV1s (one block a stage; BasicBlock
                  and Bottleneck, the classic and the space-to-depth
                  stems; channels-last, float32) built on the card and on
@@ -213,7 +224,7 @@ line each:
                  causal case (BH=32, T=700, D=128, bias (1,32,700,700)).
                  Launch counts prove the three flash kernels ran with
                  the bias (bf16 on the ``wgmma`` route, the float32 case's
-                 forward on ``tf32x3`` and its backward on ``ffma``); each
+                 three on ``tf32x3``); each
                  kernel is held against its plain version
                  (out, lse, dq, dk, dv, the reduced d_bias), d_bias is
                  checked to be written everywhere over NaN-filled
@@ -249,11 +260,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
-TF32_PASSES = 3                # the float32 forward's split-precision products
+TF32_PASSES = 3                # the float32 kernels' split-precision products
 
 PAGED_ATOL = 1e-4   # f32 math in both; only the summation order differs
-FLASH_ATOL = 1e-4   # f32 kernels (3xTF32 forward: ~2^-21 a product; FFMA
-                    # backward) vs the f32 (non-TF32) plain matmuls
+FLASH_ATOL = 1e-4   # f32 kernels (3xTF32: ~2^-21 a product) vs the f32
+                    # (non-TF32) plain matmuls
 BF16_REL = 2e-2     # bf16 operands: x max|ref| (outputs rounded once each)
 LOSS_RTOL = 1e-4    # BERT-base f32 loss, card vs host (summation order)
 UPDATE_RTOL = 1e-2  # per-tensor LAMB update, relative in norm
@@ -275,11 +286,12 @@ SERVE_FWD_ENTRY = 700            # the one in the kernels line
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED = 32, 512, 76   # 15% of 512 masked
 TRAIN_VALID = (384, 512)
 TRAIN_STEPS = 5
+TRAIN_F32_BATCH, TRAIN_F32_STEPS = 32, 3
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 # the route each flash kernel takes per dtype, as the C entry points report
 BF16_ROUTES = dict.fromkeys(FLASH_KERNELS, "wgmma")
-F32_ROUTES = dict(zip(FLASH_KERNELS, ("tf32x3", "ffma", "ffma")))
+F32_ROUTES = dict.fromkeys(FLASH_KERNELS, "tf32x3")
 
 # the bias phase: BERT-base's attention width, four float32 bias layouts
 BIAS_LAYOUTS = (("per_head", (1, 12, 512, 512)),
@@ -414,10 +426,15 @@ def demangle(names):
     return [n.split("(anonymous namespace)::")[-1] for n in out]
 
 
+SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+[@A-Z]")
+
+
 def mma_counts(lib):
-    """``{kernel: [HGMMA, HMMA]}``, the numbers of wgmma and mma.sync
-    tensor-core instructions in the library's SASS (``cuobjdump
-    --dump-sass``)."""
+    """``{kernel: [HGMMA, HMMA, instructions, TF32 masks]}``: the numbers
+    of wgmma and mma.sync tensor-core instructions in the library's SASS
+    (``cuobjdump --dump-sass``), of all its instructions, and of the
+    ``& 0xffffe000`` masks (or ``& ~0x1fff``) of the float32 kernels' TF32
+    splits (nvcc keeps one such mask a split)."""
     from tpu_mx_torch.kernels import _build
     tool = _build.nvcc_path()[:-len("nvcc")] + "cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
@@ -426,17 +443,20 @@ def mma_counts(lib):
     for line in sass.splitlines():
         if "Function : " in line:
             names.append(line.split("Function : ")[1].strip())
-            counts.append([0, 0])
-        elif names and "HGMMA" in line:
-            counts[-1][0] += 1
-        elif names and "HMMA" in line:
-            counts[-1][1] += 1
+            counts.append([0, 0, 0, 0])
+        elif names and SASS_OP.search(line):
+            c = counts[-1]
+            c[0] += "HGMMA" in line
+            c[1] += "HMMA" in line and "HGMMA" not in line
+            c[2] += 1
+            c[3] += "0xffffe000" in line or "0x1fff," in line
     return dict(zip(demangle(names), counts)) if names else {}
 
 
 def tensor_core_kind(kernel):
     """Which tensor-core instruction an instance must hold: 0 HGMMA (the
-    bf16 ``*_tc_kernel``s), 1 HMMA (the float32 forward), None neither."""
+    bf16 ``*_tc_kernel``s), 1 HMMA (the float32 ``*_tf32x3_kernel``s),
+    None neither."""
     if "_tc_kernel" in kernel:
         return 0
     if "_tf32x3_kernel" in kernel:
@@ -448,13 +468,13 @@ def phase_build(ctx):
     """Build every source; report ptxas's registers and spills per kernel
     and the HGMMA and HMMA counts per kernel.  The bf16 forward, dq and
     dk/dv instances (``*_tc_kernel``) must hold HGMMA instructions, the
-    float32 forward's (``*_tf32x3_kernel``) HMMA, and neither may spill;
-    every other kernel (float32 FFMA backward, paged) holds neither."""
+    float32 forward, dq and dk/dv instances (``*_tf32x3_kernel``) HMMA,
+    and neither may spill; every other kernel (paged) holds neither."""
     from tpu_mx_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    report, mma, wrong = {}, {}, []
+    report, mma, mix, wrong = {}, {}, {}, []
     for name, lib in libs.items():
         log = lib.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -470,10 +490,21 @@ def phase_build(ctx):
         counts = mma_counts(lib)
         mma[name] = {"hgmma_total": sum(c[0] for c in counts.values()),
                      "hmma_total": sum(c[1] for c in counts.values()),
-                     "kernels": counts}
+                     "kernels": {k: c[:2] for k, c in counts.items()}}
+        # the float32 kernels' instruction mix: their TF32 splits (one
+        # mask each in the SASS; 3 to 5 instructions a split) beside the
+        # HMMA, in the unrolled body of one tile
+        for kernel, c in counts.items():
+            if tensor_core_kind(kernel) == 1:
+                short = re.sub(r"void |<unnamed>::|tmx_flash::", "",
+                               kernel[:kernel.index(">(") + 1])
+                mix[short] = dict(
+                    instructions=c[2], hmma=c[1], splits=c[3],
+                    split_share=[3 * c[3] / c[2], 5 * c[3] / c[2]],
+                    hmma_share=c[1] / c[2])
         for kernel, c in counts.items():
             kind = tensor_core_kind(kernel)
-            if [n > 0 for n in c] != [kind == 0, kind == 1]:
+            if [n > 0 for n in c[:2]] != [kind == 0, kind == 1]:
                 wrong.append(f"{kernel}: {c[0]} HGMMA, {c[1]} HMMA")
         for kernel, line in entries:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -483,7 +514,7 @@ def phase_build(ctx):
                 wrong.append(f"{pretty[kernel]}: {line}")
     ok = not wrong
     emit("build", ok=ok, seconds=secs, ptxas=report, mma=mma,
-         mma_wrong=wrong)
+         mma_wrong=wrong, f32_mix=mix)
     if not ok:
         ctx["failures"].append(f"build: tensor-core instructions where not "
                                f"expected or missing, or a tensor-core "
@@ -600,6 +631,7 @@ def phase_kernels(ctx):
         if t == SERVE_FWD_ENTRY:
             ctx["serve_fwd"] = rec
     flash_f32_precision(torch, fa, ctx)
+    flash_f32_bwd_precision(torch, fa, ctx)
     flash_train_kernels(torch, fa, gen, ctx, entries, worst)
     flash_mask_bits(torch, fa, ctx)
     for name, e in entries.items():
@@ -641,9 +673,43 @@ def flash_f32_precision(torch, fa, ctx):
                                f"bounds {bounds}, one pass {one_pass}")
 
 
-def fwd_work(flops, f32):
-    """(operations, rate) of the flash forward's bound: the float32
-    forward's three TF32 products on the tensor cores, else bf16."""
+def flash_f32_bwd_precision(torch, fa, ctx):
+    """The float32 dq and dk/dv at large scores (|q.k| up to ~400 at scale
+    1) against float64, fed the float64 lse and delta: within
+    ``fa.f32_bwd_error_bounds`` everywhere, and the plain backward on q, k, v
+    and dO rounded to TF32 (one TF32 pass) at least 50 times further
+    off."""
+    gen = torch.Generator().manual_seed(9)
+    q, k = ((torch.randn((2, 96, 128), generator=gen) * 3).cuda()
+            for _ in range(2))
+    v, do = (torch.randn((2, 96, 128), generator=gen).cuda()
+             for _ in range(2))
+    exact, bounds, lse, delta = fa.f32_bwd_error_bounds(q, k, v, do)
+    tf32 = lambda x: ((x.view(torch.int32) + 0x1000) & -0x2000) \
+        .view(torch.float32)
+    args = (lse.float(), delta.float(), 1.0)
+    kernel = (fa.flash_attention_bwd_dq(q, k, v, do, *args),
+              *fa.flash_attention_bwd_dkv(q, k, v, do, *args))
+    one_pass = fa.flash_attention_bwd_plain(tf32(q), tf32(k), tf32(v),
+                                            tf32(do), *args)
+    err = lambda got: [(a.double() - b).abs() for a, b in zip(got, exact)]
+    e_kernel, e_one = err(kernel), err(one_pass)
+    within = [bool((e <= b).all()) for e, b in zip(e_kernel, bounds)]
+    worst = [float(e.max()) for e in e_kernel]
+    one = [float(e.max()) for e in e_one]
+    ok = all(within) and all(o >= 50 * w for o, w in zip(one, worst))
+    emit("f32_bwd_precision", ok=ok, shape="BH=2 T=96 D=128 f32 scale 1",
+         error_dq_dk_dv=worst, within_bounds=within,
+         bound_dq_dk_dv=[float(b.max()) for b in bounds],
+         one_pass_dq_dk_dv=one)
+    if not ok:
+        ctx["failures"].append(f"f32 backward precision: {worst}, within "
+                               f"{within}, one pass {one}")
+
+
+def tc_work(flops, f32):
+    """(operations, rate) of a flash kernel's bound: the float32 kernels'
+    three TF32 products on the tensor cores, else bf16."""
     return (TF32_PASSES * flops, TF32_FLOP_PER_S) if f32 else \
         (flops, BF16_FLOP_PER_S)
 
@@ -672,10 +738,10 @@ def routes_of(fa):
 
 
 def route_since(fa, name, before):
-    """The routes (``wgmma``, ``ffma``, joined by ``+`` if both) that the
+    """The routes (``wgmma``, ``tf32x3``, joined by ``+`` if both) that the
     C entry point reported for ``name``'s launches since ``before``."""
     now = getattr(fa, ROUTED[name]).routes
-    return "+".join(r for r in fa.ROUTES if now[r] > before[name][r]) or \
+    return "+".join(r for r in now if now[r] > before[name][r]) or \
         "none"
 
 
@@ -749,18 +815,13 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
 
     elt = q.element_size()
     fpm, qb, kvb, rowb = flash_work(bh, t, d, causal, valid, elt)
-    rate_flops = F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
     flops = {"flash_attention_fwd": 2 * fpm, "flash_attention_bwd_dq": 3 * fpm,
              "flash_attention_bwd_dkv": 4 * fpm}
-    bounds = {
-        "flash_attention_fwd": bound(2 * qb + 2 * kvb + rowb + 4 * bh,
-                                     *fwd_work(2 * fpm, f32)),
-        "flash_attention_bwd_dq": bound(3 * qb + 2 * kvb + 2 * rowb + 4 * bh,
-                                        3 * fpm, rate_flops),
-        "flash_attention_bwd_dkv": bound(2 * qb + 2 * kvb + 2 * rowb
-                                         + 2 * bh * t * d * elt + 4 * bh,
-                                         4 * fpm, rate_flops),
-    }
+    nbytes = {"flash_attention_fwd": 2 * qb + 2 * kvb + rowb + 4 * bh,
+              "flash_attention_bwd_dq": 3 * qb + 2 * kvb + 2 * rowb + 4 * bh,
+              "flash_attention_bwd_dkv": 2 * qb + 2 * kvb + 2 * rowb
+              + 2 * bh * t * d * elt + 4 * bh}
+    bounds = {n: bound(nbytes[n], *tc_work(flops[n], f32)) for n in flops}
     shape = (f"BH={bh} T={t} D={d} {str(dtype).split('.')[-1]} "
              f"{'causal' if causal else 'non-causal'} kv_valid "
              f"{min(valid)}-{max(valid)} dropout {rate}")
@@ -771,29 +832,43 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
         fwd = name == "flash_attention_fwd"
         recs[name] = dict(
             shape=shape, max_abs_err=e, atol=atol,
-            ok=math.isfinite(e) and e <= atol and also, ms=ms[name],
+            ok=(math.isfinite(e) and e <= atol and also and routes[name]
+                == (F32_ROUTES if f32 else BF16_ROUTES)[name]),
+            ms=ms[name],
             ms_queued=queued[name],
             plain_ms=plain_fwd if fwd else plain_bwd,
             library_ms=lib_fwd if fwd else lib_bwd,
             library_fwd_bwd_ms=lib_both, bound_ms=b_ms, bound_by=b_by,
             math_route=routes[name],
             **rates(flops[name], ms[name], b_ms))
+        if f32:   # the same work at the FFMA rate, beside the bound
+            recs[name]["bound_ms_ffma"], recs[name]["bound_by_ffma"] = bound(
+                nbytes[name], flops[name])
     recs["flash_attention_fwd"]["lse_max_abs_err"] = lse_err
     return recs
 
 
+ENTRY_KEYS = ("shape", "ms", "ms_queued", "plain_ms", "library_ms",
+              "bound_ms", "bound_by", "tflops", "bound_over_ms", "math_route")
+
+
 def flash_train_kernels(torch, fa, gen, ctx, entries, worst):
     """BERT's shapes (BH = 32 x 12, T = 512, D = 64, bf16, kv_valid per
-    batch row over 384-512, dropout 0 and 0.1) and a float32 causal case
-    with kv_valid (BH = 32, T = 700, D = 128, dropout 0 and 0.1)."""
+    batch row over 384-512, dropout 0 and 0.1), a float32 causal case
+    with kv_valid (BH = 32, T = 700, D = 128, dropout 0 and 0.1) and
+    BERT's shape in float32 (dropout 0.1), the ``train_f32`` step's."""
     b, h = TRAIN_BATCH, 12
     rows = torch.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, (b,),
                          generator=gen).repeat_interleave(h).tolist()
     f32_valid = torch.randint(350, 701, (32,), generator=gen).tolist()
-    for dtype, bh, t, d, causal, valid in (
-            (torch.bfloat16, b * h, TRAIN_SEQ, 64, False, rows),
-            (torch.float32, 32, 700, 128, True, f32_valid)):
-        for rate in (0.0, 0.1):
+    f32 = {}
+    for key, dtype, bh, t, d, causal, valid, rates in (
+            ("bf16", torch.bfloat16, b * h, TRAIN_SEQ, 64, False, rows,
+             (0.0, 0.1)),
+            ("t700", torch.float32, 32, 700, 128, True, f32_valid, (0.0, 0.1)),
+            ("bert", torch.float32, b * h, TRAIN_SEQ, 64, False, rows,
+             (0.1,))):
+        for rate in rates:
             recs = flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate,
                               valid)
             for name, r in recs.items():
@@ -802,12 +877,16 @@ def flash_train_kernels(torch, fa, gen, ctx, entries, worst):
                     ctx["failures"].append(f"{name} {r['shape']}: err "
                                            f"{r['max_abs_err']}")
                 worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
-                if dtype == torch.bfloat16 and rate > 0:
-                    entries[name] = {k: r[k] for k in (
-                        "shape", "ms", "ms_queued", "plain_ms", "library_ms",
-                        "bound_ms", "bound_by", "tflops", "bound_over_ms",
-                        "math_route")}
+                if rate == 0:
+                    continue
+                if key == "bf16":
+                    entries[name] = {k: r[k] for k in ENTRY_KEYS}
+                else:
+                    f32.setdefault(name, {})[key] = {k: r[k] for k in (
+                        ENTRY_KEYS + ("max_abs_err", "bound_ms_ffma",
+                                      "bound_by_ffma"))}
             torch.cuda.empty_cache()
+    ctx["f32_kernels"] = f32
 
 
 def flash_mask_bits(torch, fa, ctx):
@@ -866,7 +945,7 @@ def phase_serve(ctx):
     srv.run_until_idle()
 
     fa.flash_attention.launches = 0
-    fa.flash_attention.routes = dict.fromkeys(fa.ROUTES, 0)
+    fa.flash_attention.routes = fa.route_counts()
     pa.paged_attention.launches = 0
     pa.paged_attention.routes = dict.fromkeys(pa.ROUTES, 0)
     tracing.reset()
@@ -897,7 +976,7 @@ def phase_serve(ctx):
         "both_ran": flash_n > 0 and paged_n > 0,
         # every prefill ran the float32 forward on the tensor cores
         "prefill_tf32x3": prefill_routes == dict(
-            dict.fromkeys(fa.ROUTES, 0), tf32x3=flash_n),
+            fa.route_counts(), tf32x3=flash_n),
         # and every decode step the paged kernel split over the keys
         "decode_split_k": decode_routes == {"split_k": paged_n},
     }
@@ -968,7 +1047,7 @@ def serve_run(torch, srv, prompts, new_tokens, track=None):
     from tpu_mx_torch.kernels import flash_attention as fa
     from tpu_mx_torch.kernels import paged_attention as pa
     reset_port_kernel_launches()
-    fa.flash_attention.routes = dict.fromkeys(fa.ROUTES, 0)
+    fa.flash_attention.routes = fa.route_counts()
     pa.paged_attention.routes = dict.fromkeys(pa.ROUTES, 0)
     pa.paged_attention.windows = {}
     tracing.reset()
@@ -1300,75 +1379,123 @@ def phase_train_parity(ctx):
     torch.cuda.empty_cache()
 
 
-def phase_train(ctx):
-    """The training slice at full width: BERT-base bf16, dropout 0.1,
-    MLM loss, LAMB with f32 masters, batch 32 x 512, on the card."""
-    import torch
+def bert_train_run(torch, dtype, n, steps):
+    """BERT-base at full width (dropout 0.1) in ``dtype``, the benchmark's
+    MLM loss and LAMB (float32 masters for bfloat16) through
+    ``CompiledTrainStep`` at batch ``n`` x 512 with ragged valid lengths:
+    1 warm-up and ``steps`` timed steps; the port's launch counts and the
+    flash wrappers' routes over the timed steps."""
     from tpu_mx_torch import optimizer
     from tpu_mx_torch.kernels import flash_attention as fa
-    from tpu_mx_torch.kernels import paged_attention as pa
     from tpu_mx_torch.models import BERTModel, MLMLoss, bert_base_config
     from tpu_mx_torch.parallel import CompiledTrainStep
 
     cfg = bert_base_config(max_len=TRAIN_SEQ)
     rng = np.random.RandomState(0)
-    valid = rng.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, TRAIN_BATCH)
-    batch = bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED, valid, rng)
+    valid = rng.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, n)
+    batch = bert_batch(cfg, n, TRAIN_SEQ, TRAIN_MASKED, valid, rng)
     batch = tuple(torch.from_numpy(x).cuda() for x in batch)
     t0 = time.perf_counter()
-    net = BERTModel(cfg, dtype="bfloat16", device="cuda",
+    net = BERTModel(cfg, dtype=dtype, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(0))
-    opt = optimizer.create("lamb", learning_rate=1e-4, multi_precision=True)
+    opt = optimizer.create("lamb", learning_rate=1e-4,
+                           multi_precision=dtype == "bfloat16")
     step = CompiledTrainStep(net, MLMLoss(), opt)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     losses = [float(step.step(*batch))]          # warm-up
     torch.cuda.reset_peak_memory_stats()
-    counters = (fa.flash_attention, fa.flash_attention_bwd_dq,
-                fa.flash_attention_bwd_dkv, pa.paged_attention)
-    for c in counters:
-        c.launches = 0
-    for c in counters[:3]:
-        c.routes = dict.fromkeys(fa.ROUTES, 0)
+    reset_port_kernel_launches()
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    for c in wrappers:
+        c.routes = fa.route_counts()
     step_ms = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t1 = time.perf_counter()
         losses.append(float(step.step(*batch)))  # ends in a host read
         step_ms.append((time.perf_counter() - t1) * 1e3)
-    launches = dict(zip(FLASH_KERNELS + ("paged_attention",),
-                        (c.launches for c in counters)))
-    ctx["train_launches"] = launches
-    routes = {name: dict(c.routes) for name, c in zip(FLASH_KERNELS,
-                                                      counters)}
-    ctx["train_routes"] = routes
-    layers = cfg["num_layers"]
-    checks = {
-        # the bf16 step's three flash kernels ran on the tensor cores only
-        "wgmma_routes": all(r == dict(dict.fromkeys(fa.ROUTES, 0),
-                                      wgmma=layers * TRAIN_STEPS)
-                            for r in routes.values()),
-        "finite": all(math.isfinite(x) for x in losses),
-        "loss_falls": losses[-1] < losses[0],
-        "flash_launches": all(launches[k] == layers * TRAIN_STEPS
-                              for k in FLASH_KERNELS),
-        "paged_idle": launches["paged_attention"] == 0,
-    }
-    med = statistics.median(step_ms)
-    ctx["train_step_ms"] = med
-    emit("train", ok=all(checks.values()), checks=checks,
-         model={**cfg, "dtype": "bfloat16"},
-         batch=dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, masked=TRAIN_MASKED,
-                    valid_length=[int(x) for x in valid]),
-         optimizer="lamb lr=1e-4 multi_precision", setup_seconds=setup_s,
-         losses=losses, step_ms=step_ms, step_ms_median=med,
-         seq_per_sec=TRAIN_BATCH / med * 1e3,
-         peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         launches=launches, launches_per_step={
-             k: launches[k] / TRAIN_STEPS for k in launches}, routes=routes,
-         card=ctx["smi"])
+    return dict(
+        cfg=cfg, batch=dict(batch=n, seq=TRAIN_SEQ, masked=TRAIN_MASKED,
+                            valid_length=[int(x) for x in valid]),
+        setup_s=setup_s, losses=losses, step_ms=step_ms,
+        peak=torch.cuda.max_memory_allocated(),
+        launches=port_kernel_launches(),
+        routes={name: dict(c.routes) for name, c in zip(FLASH_KERNELS,
+                                                        wrappers)})
+
+
+def emit_train(ctx, phase, run, dtype, optimizer, checks, **extra):
+    """One training phase's line; its failed checks join the failures."""
+    med = statistics.median(run["step_ms"])
+    emit(phase, ok=all(checks.values()), checks=checks,
+         model={**run["cfg"], "dtype": dtype}, batch=run["batch"],
+         optimizer=optimizer, setup_seconds=run["setup_s"],
+         losses=run["losses"], step_ms=run["step_ms"], step_ms_median=med,
+         seq_per_sec=run["batch"]["batch"] / med * 1e3,
+         peak_memory_bytes=run["peak"], launches=run["launches"],
+         launches_per_step={k: n / len(run["step_ms"])
+                            for k, n in run["launches"].items()},
+         routes=run["routes"], card=ctx["smi"], **extra)
     for name, ok in checks.items():
         if not ok:
-            ctx["failures"].append(f"train check {name} failed")
+            ctx["failures"].append(f"{phase} check {name} failed")
+
+
+def flash_route_check(fa, routes, route, launches):
+    """Each flash kernel ran ``launches`` times, all on ``route``."""
+    return all(r == dict(fa.route_counts(), **{route: launches})
+               for r in routes.values())
+
+
+def phase_train(ctx):
+    """The training slice at full width: BERT-base bf16, dropout 0.1,
+    MLM loss, LAMB with f32 masters, batch 32 x 512, on the card."""
+    import torch
+    from tpu_mx_torch.kernels import flash_attention as fa
+
+    run = bert_train_run(torch, "bfloat16", TRAIN_BATCH, TRAIN_STEPS)
+    launches, losses = run["launches"], run["losses"]
+    ctx["train_launches"], ctx["train_routes"] = launches, run["routes"]
+    per_run = run["cfg"]["num_layers"] * TRAIN_STEPS
+    checks = {
+        # the bf16 step's three flash kernels ran on the tensor cores only
+        "wgmma_routes": flash_route_check(fa, run["routes"], "wgmma",
+                                          per_run),
+        "finite": all(math.isfinite(x) for x in losses),
+        "loss_falls": losses[-1] < losses[0],
+        "flash_launches": all(launches[k] == per_run for k in FLASH_KERNELS),
+        "paged_idle": launches["paged_attention"] == 0,
+    }
+    emit_train(ctx, "train", run, "bfloat16", "lamb lr=1e-4 multi_precision",
+               checks)
+
+
+def phase_train_f32(ctx):
+    """The training slice in float32: ``train``'s BERT-base step with
+    float32 weights and activations (the flash kernels on ``tf32x3``),
+    batch 32 x 512, 1 warm-up and 3 timed steps."""
+    import torch
+    from tpu_mx_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 products
+    run = bert_train_run(torch, "float32", TRAIN_F32_BATCH, TRAIN_F32_STEPS)
+    launches, losses = run["launches"], run["losses"]
+    ctx["train_f32_launches"] = launches
+    ctx["train_f32_routes"] = run["routes"]
+    per_run = run["cfg"]["num_layers"] * TRAIN_F32_STEPS
+    checks = {
+        # the float32 step's three flash kernels ran on 3xTF32 only
+        "tf32x3_routes": flash_route_check(fa, run["routes"], "tf32x3",
+                                           per_run),
+        "finite": all(math.isfinite(x) for x in losses),
+        "flash_launches": all(launches[k] == per_run for k in FLASH_KERNELS),
+        "paged_idle": launches["paged_attention"] == 0,
+        "rtc_idle": launches["rtc"] == 0,
+    }
+    emit_train(ctx, "train_f32", run, "float32", "lamb lr=1e-4", checks)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def resnet_thin(block, stem, device, generator=None, params=None):
@@ -2457,19 +2584,18 @@ def bias_case(torch, fa, gen, b, h, t, d, dtype, causal, valid, bias_shape):
     fpm, qb, kvb, rowb = flash_work(bh, t, d, causal, kv.tolist(), elt)
     bias_b = kb.numel() * kb.element_size()
     db_b = bh * t * t * 4
-    rate_flops = F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S
-    rec["bound"] = {n: bound(nbytes, *work) for n, (nbytes, work)
-                    in {"flash_attention_fwd": (2 * qb + 2 * kvb + rowb
-                                                + 4 * bh + bias_b,
-                                                fwd_work(2 * fpm, f32)),
-                        "flash_attention_bwd_dq": (3 * qb + 2 * kvb + 2 * rowb
-                                                   + 4 * bh + bias_b + db_b,
-                                                   (3 * fpm, rate_flops)),
-                        "flash_attention_bwd_dkv": (2 * qb + 2 * kvb + 2 * rowb
-                                                    + 2 * bh * t * d * elt
-                                                    + 4 * bh + bias_b,
-                                                    (4 * fpm, rate_flops))
-                        }.items()}
+    work = {"flash_attention_fwd": (2 * qb + 2 * kvb + rowb + 4 * bh
+                                    + bias_b, 2 * fpm),
+            "flash_attention_bwd_dq": (3 * qb + 2 * kvb + 2 * rowb + 4 * bh
+                                       + bias_b + db_b, 3 * fpm),
+            "flash_attention_bwd_dkv": (2 * qb + 2 * kvb + 2 * rowb
+                                        + 2 * bh * t * d * elt + 4 * bh
+                                        + bias_b, 4 * fpm)}
+    rec["bound"] = {n: bound(nbytes, *tc_work(flops, f32))
+                    for n, (nbytes, flops) in work.items()}
+    if f32:   # the same work at the FFMA rate, beside the bound
+        rec["bound_ffma"] = {n: bound(nbytes, flops)
+                             for n, (nbytes, flops) in work.items()}
     return rec
 
 
@@ -2945,13 +3071,13 @@ def phase_bert_imperative(ctx):
     counters = (fa.flash_attention, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv)
     launches = dict.fromkeys(port_kernel_launches(), 0)
-    routes = {k: dict.fromkeys(fa.ROUTES, 0) for k in FLASH_KERNELS}
+    routes = {k: fa.route_counts() for k in FLASH_KERNELS}
     for _ in range(TRAIN_STEPS):
         for kind in ("imperative", "compiled"):
             if kind == "imperative":    # the imperative path's counts only
                 reset_port_kernel_launches()
                 for c in counters:
-                    c.routes = dict.fromkeys(fa.ROUTES, 0)
+                    c.routes = fa.route_counts()
             t1 = time.perf_counter()
             if kind == "imperative":
                 losses[kind].append(imperative_bert_step(imp, trainer,
@@ -2973,7 +3099,7 @@ def phase_bert_imperative(ctx):
     checks = {
         "flash_launches": all(launches[k] == layers * TRAIN_STEPS
                               for k in FLASH_KERNELS),
-        "wgmma_routes": all(r == dict(dict.fromkeys(fa.ROUTES, 0),
+        "wgmma_routes": all(r == dict(fa.route_counts(),
                                       wgmma=layers * TRAIN_STEPS)
                             for r in routes.values()),
         "paged_and_rtc_idle": launches["paged_attention"] == 0
@@ -3028,6 +3154,7 @@ def main():
                      ("serve_features", phase_serve_features),
                      ("train_parity", phase_train_parity),
                      ("train", phase_train),
+                     ("train_f32", phase_train_f32),
                      ("resnet_parity", phase_resnet_parity),
                      ("resnet_train", phase_resnet_train),
                      ("lstm_parity", phase_lstm_parity),
@@ -3048,6 +3175,7 @@ def main():
             if name == "build":
                 break
     if ctx["failures"] or not {"kernels", "launches", "train_launches",
+                                "train_f32_launches", "f32_kernels",
                                 "serve_features_launches",
                                 "resnet_parity", "resnet_launches",
                                 "lstm_launches", "ssd_launches", "bias",
@@ -3086,7 +3214,8 @@ def main():
                "launches_bert_imperative":
                    ctx["bert_imperative_launches"][name],
                "launches_serve_features":
-                   ctx["serve_features_launches"][name]}
+                   ctx["serve_features_launches"][name],
+               "launches_train_f32": ctx["train_f32_launches"][name]}
         if name == "paged_attention":   # the speculative verify window
             t4 = ctx["paged_tq4"]
             row["tq4"] = {k: t4[k] for k in ("shape", "ms", "ms_queued",
@@ -3107,6 +3236,12 @@ def main():
                 "plain_ms", "bound_ms", "bound_by", "bound_ms_ffma",
                 "math_route")}
             row["serve"]["launches"] = ctx["launches"]["flash_attention_fwd"]
+        if name in FLASH_KERNELS:    # float32: train_f32's shape, T=700
+            f32 = ctx["f32_kernels"][name]
+            row["f32"] = {key: dict(f32[key], launches=(
+                ctx["train_f32_launches"][name] if key == "bert" else None))
+                for key in ("bert", "t700")}
+            row["f32"]["train_f32_routes"] = ctx["train_f32_routes"][name]
         if name in FLASH_KERNELS:    # with the per-head bias, same shape
             bias = ctx["bias"]["per_head"]
             row["bias"] = {
@@ -3139,7 +3274,8 @@ def main():
                     "launches_bert_imperative":
                         ctx["bert_imperative_launches"]["rtc"],
                     "launches_serve_features":
-                        ctx["serve_features_launches"]["rtc"]})
+                        ctx["serve_features_launches"]["rtc"],
+                    "launches_train_f32": ctx["train_f32_launches"]["rtc"]})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

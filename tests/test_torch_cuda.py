@@ -367,12 +367,12 @@ def test_tc_kernels_with_every_bias_layout_match_plain(t, d, causal, planes,
 
 def test_routes_follow_the_dtype():
     """bf16 runs the tensor-core forward, dq and dk/dv; float32 the
-    split-precision tensor-core forward and the FFMA dq and dk/dv, as
-    the C entry points report."""
+    split-precision tensor-core forward, dq and dk/dv, as the C entry
+    points report."""
     wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv)
     for dtype, routes in ((torch.bfloat16, ("wgmma",) * 3),
-                          (torch.float32, ("tf32x3", "ffma", "ffma"))):
+                          (torch.float32, ("tf32x3",) * 3)):
         q, k, v, do, valid = _flash_case(2, 2, 96, 64, dtype)
         before = [dict(w.routes) for w in wrappers]
         out, lse = fa.flash_attention(q, k, v, kv_valid=valid,
@@ -452,8 +452,8 @@ def test_flash_bias_kernels_match_plain(t, d, planes, bias_dtype, dtype,
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_d_bias_is_written_everywhere_on_poisoned_memory(dtype, causal):
-    """d_bias comes from torch.empty: the dq kernels (FFMA and tensor
-    cores) write every element — masked columns, key tiles past kv_valid
+    """d_bias comes from torch.empty: the dq kernels (3xTF32 and wgmma)
+    write every element — masked columns, key tiles past kv_valid
     and above the diagonal that they never visit get 0 — over memory a
     previous call filled with NaN."""
     t = 300
@@ -484,8 +484,8 @@ def test_flash_d_bias_is_written_everywhere_on_poisoned_memory(dtype, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_minus_inf_bias_gives_zero_rows_not_nans(dtype):
     """-inf bias entries get p = 0; a row that is -inf everywhere gets
-    out = 0 and zero gradients, in the kernels (FFMA and tensor cores) as
-    in the plain versions."""
+    out = 0 and zero gradients, in the kernels (3xTF32 and wgmma) as in
+    the plain versions."""
     q, k, v, do, valid = _flash_case(10, 2, 96, 32, dtype)
     bias = torch.zeros((2, 96, 96), device="cuda")
     bias[:, :, ::3] = -math.inf
@@ -686,6 +686,50 @@ def test_f32_forward_is_not_one_tf32_pass():
                                              one_pass):
         assert e_kernel <= bound_, (name, e_kernel, bound_)
         assert e_one >= 50 * e_kernel, (name, e_one, e_kernel)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_dtype", [None, torch.float32, torch.bfloat16,
+                                        torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t,tk", [(1, 1), (65, 65), (96, 96), (700, 700),
+                                  (40, 77)])
+def test_f32_backward_matches_plain_at_every_head_dim(t, tk, d, bias_dtype,
+                                                      causal, rate):
+    """Every float32 dq and dk/dv runs the 3xTF32 kernels and stays within
+    the float32 tolerance of the plain backward: ragged T, Tk != T,
+    kv_valid with an empty row, dropout, a bias of 3 planes (one per row)
+    in float32 and float16 or of 1 (shared) in bfloat16, and its d_bias.
+    Every launch reports the tf32x3 route."""
+    g = torch.Generator().manual_seed(t * d + tk + causal)
+    bh = 3
+    q, do = (torch.randn((bh, t, d), generator=g).cuda() for _ in range(2))
+    k, v = (torch.randn((bh, tk, d), generator=g).cuda() for _ in range(2))
+    kv = torch.tensor([tk, 0, (tk + 1) // 2], dtype=torch.int32,
+                      device="cuda")
+    bias = None if bias_dtype is None else _bias(
+        t + d, 1 if bias_dtype == torch.bfloat16 else bh, t, tk, bias_dtype)
+    seed = torch.tensor([t + tk + d], dtype=torch.int32, device="cuda")
+    scale = 1 / math.sqrt(d)
+    ref, lse = fa.flash_attention_plain(q, k, v, scale, causal, kv, rate,
+                                        seed, bias)
+    args = (q, k, v, do, lse, fa.flash_attention_delta(do, ref), scale,
+            causal, kv, rate, seed, bias)
+    wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [dict(w.routes) for w in wrappers]
+    dq = fa.flash_attention_bwd_dq(*args, want_d_bias=bias is not None)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for wrapper, was in zip(wrappers, before):
+        assert wrapper.routes == dict(was, tf32x3=was["tf32x3"] + 1)
+    got = (dq, dk, dv) if bias is None else (dq[0], dk, dv, dq[1])
+    assert len(got) == len(want)
+    for name, a, b in zip(("dq", "dk", "dv", "d_bias"), got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL, msg=name)
+    for row, n in enumerate(kv.tolist()):
+        assert torch.all(dk[row, n:] == 0) and torch.all(dv[row, n:] == 0)
 
 
 def test_f32_forward_refuses_unaligned_operands():

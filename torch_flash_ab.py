@@ -22,7 +22,11 @@ path in the window, ``<name>_queued`` with each call queued behind a
 - where the tree has them, the forward, dq and dk/dv at BERT's training
   shape: BH=384, T=512, D=64, bf16, ``kv_valid`` over 384-512, dropout
   0.1; and the forward, dq (with ``d_bias``) and dk/dv there with a
-  per-head float32 bias (12 planes of 512 x 512, ``*_bias``).
+  per-head float32 bias (12 planes of 512 x 512, ``*_bias``);
+- the float32 dq and dk/dv (``dq_f32_*``, ``dkv_f32_*``) at BERT's shape
+  (float32, the same ``kv_valid``, dropout 0.1: ``*_bert``) and at
+  BH=32, T=700, D=128, causal, ``kv_valid`` over 350-700, dropout 0.1
+  (``*_t700``).
 
 Prints one JSON line per run (``tree`` is ``this`` or the other tree's
 path as given) and the card's ``name, power.limit``.
@@ -105,6 +109,20 @@ if hasattr(fa, "reduce_d_bias"):
     timed("dq_bert_bias", lambda: fa.flash_attention_bwd_dq(
         *args, bias, want_d_bias=True))
     timed("dkv_bert_bias", lambda: fa.flash_attention_bwd_dkv(*args, bias))
+if hasattr(fa, "flash_attention_bwd_dq"):
+    for key, bh, t, d, causal, kv in (
+            ("bert", 384, 512, 64, False, kv),
+            ("t700", 32, 700, 128, True, torch.randint(
+                350, 701, (32,), generator=g, dtype=torch.int32).cuda())):
+        q, k, v, do = (torch.randn((bh, t, d), generator=g).cuda()
+                       for _ in range(4))
+        opts = dict(causal=causal, kv_valid=kv, dropout_rate=0.1,
+                    dropout_seed=seed)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **opts)
+        args = (q, k, v, do, lse, fa.flash_attention_delta(do, out),
+                d ** -0.5, causal, kv, 0.1, seed)
+        timed(f"dq_f32_{key}", lambda: fa.flash_attention_bwd_dq(*args))
+        timed(f"dkv_f32_{key}", lambda: fa.flash_attention_bwd_dkv(*args))
 print(json.dumps(res))
 '''
 

@@ -55,14 +55,15 @@ import numpy as np
 
 import chip_smoke
 
-# kernel-name fragments of each group (the flash kernels are the port's,
-# FFMA or tensor-core instances; the matrix products are cuBLAS's: nvjet,
-# xmma and CUTLASS kernels)
+# kernel-name fragments of each group (the flash kernels are the port's
+# bf16 wgmma or float32 3xTF32 instances; the matrix products are
+# cuBLAS's: nvjet, xmma and CUTLASS kernels)
 MATMUL = ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas"))
 GROUPS = {
-    "bert": (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
-             ("flash_dq", ("flash_dq_kernel", "flash_dq_tc_kernel")),
-             ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_tc_kernel")),
+    "bert": (("flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_tf32x3_kernel")),
+             ("flash_dq", ("flash_dq_tc_kernel", "flash_dq_tf32x3_kernel")),
+             ("flash_dkv", ("flash_dkv_tc_kernel",
+                            "flash_dkv_tf32x3_kernel")),
              MATMUL),
     # cuDNN's convolution kernels (implicit GEMMs named fprop/dgrad/wgrad,
     # cuDNN's CUTLASS instances) before the matrix-product names they

@@ -1,14 +1,15 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels, dq and dk/dv,
-// each in bf16 on the tensor cores (wgmma) and in float32 on FFMA.
+// each in bf16 on the tensor cores (wgmma) and in float32 on the tensor
+// cores in split precision (3xTF32 mma.sync).
 //
 // Replaces the backward Pallas TPU kernels of tpu_mx/kernels/
 // flash_attention.py, both launched by _bwd:
-//   - flash_dq_tc_kernel (bf16) and flash_dq_kernel (float32)
+//   - flash_dq_tc_kernel (bf16) and flash_dq_tf32x3_kernel (float32)
 //       <- _bwd_dq_kernel:  dq = ds K, with
 //       s  = q k^T * scale (masked),  p = exp(s - lse),  dp = dO V^T,
 //       dp <- z/(1-r) * dp  (the regenerated keep mask z),
 //       ds = p o (dp - delta) * scale;
-//   - flash_dkv_tc_kernel (bf16) and flash_dkv_kernel (float32)
+//   - flash_dkv_tc_kernel (bf16) and flash_dkv_tf32x3_kernel (float32)
 //       <- _bwd_dkv_kernel: dv = (z/(1-r) * p)^T dO and dk = ds^T q.
 // delta = rowsum(dO o O) (float32, (BH, T)) and lse come from the caller,
 // as in the reference.  The masks (causal, kv_valid) and the keep mask are
@@ -22,15 +23,20 @@
 // scale), a (BH, T, Tk) float32 array that the caller reduces to the
 // bias's shape.  d_bias is not pre-zeroed, so the dq kernels write every
 // element of their rows: masked columns and the key tiles they never visit
-// (past kv_valid, above the causal diagonal) get 0.
+// (past kv_valid, above the causal diagonal) get 0.  Nor are dk and dv:
+// a key tile wholly past kv_valid runs no query tile and writes zeros.
 //
 // Bound on the H100: operations.  Non-causal, dq does 3 products of
 // 2*T*Tk_valid*D operations per head (QK^T, dO V^T, dS K) and dk/dv 4
 // (QK^T, dO V^T, P^T dO, dS^T Q), against a few bytes per element of q, k,
 // v, dO, dq, dk, dv.  At BERT's shape (BH=384, T=512, D=64, kv_valid
-// 384-512) dk/dv is 45.9 GFLOP: 0.046 ms at the 989 TFLOP/s bf16
-// tensor-core rate, 0.69 ms at the 67 TFLOP/s float32 FFMA rate; dq's
-// three products take 0.035 ms, just under the 0.036 ms its bytes take.
+// 384-512) dq is 34.4 GFLOP and dk/dv 45.9:
+//   - bf16: 0.035 and 0.046 ms at the 989 TFLOP/s tensor-core rate (dq's
+//     just under the 0.036 ms its bytes take);
+//   - float32: each product is three TF32 products (below), 0.209 and
+//     0.278 ms at the 495 TFLOP/s TF32 rate, above the 0.07 and 0.09 ms
+//     of their float32 bytes; on FFMA the same work would take 0.51 and
+//     0.69 ms at 67 TFLOP/s.
 // In practice the bf16 kernels are held back by their registers and by
 // the element-wise work between the products (exp2, the masks, the
 // dropout hash): dk/dv (about 0.33 ms there on an H100) needs 167
@@ -39,7 +45,11 @@
 // for its own element-wise work; dq (about 0.24 ms) fits in 128 at D<=64
 // without a bias (S, dP and dQ are 96), so two blocks share an SM.  ptxas
 // (CUDA 12.9): dq 106-179 registers without a bias, 160-236 with one,
-// no spill.
+// no spill.  The float32 kernels (dq 110-169 registers, dk/dv 112-245, no
+// spill) took 0.77 and 1.10 ms of device time at BERT's shape on an H100
+// at 700 W, 26% and 25% of their 3xTF32 floor, and 0.24 and 0.28 ms at
+// BH=32, T=700, D=128, causal; the FFMA kernels they replace took 1.37 and
+// 1.71, and 0.37 and 0.50 ms, in the same calls (torch_flash_ab.py).
 //
 // dk/dv bf16 design (flash_dkv_tc_kernel):
 //   - grid (ceil(Tk/128), BH); 256 threads, two warpgroups of 64 key rows
@@ -91,23 +101,64 @@
 //   - dQ += dS K: A = dS rounded to bf16 from the registers, B = K read
 //     MN-major from the same tile; dq accumulates in float32 registers and
 //     is written once in bf16.
-// FFMA designs (float32):
-//   - dq: grid (ceil(T/64), BH); 256 threads own 64 query rows, with their
-//     q and dO staged in shared memory, and loop over 64-row K/V tiles up
-//     to ceil(valid/64) (and the causal diagonal).  Each thread computes a
-//     4x4 block of s and dp, writes ds to shared memory, and accumulates a
-//     4 x D/16 block of dq in registers;
-//     With a bias, its tile is staged into the ds tile with K and V, and
-//     d_bias is written from registers (16 consecutive keys a half-warp);
-//   - dk/dv, float32: grid (ceil(Tk/64), BH); 256 threads own 64 key rows,
-//     with their k and v staged, and loop over 64-row Q tiles (from the
-//     diagonal when causal).  They compute the transposed scores, write
-//     the dropped probabilities and ds transposed to shared memory, and
-//     accumulate 4 x D/16 blocks of dk and dv.  Key tiles wholly past
-//     kv_valid run no Q tile and write zeros; key rows past kv_valid in a
-//     partial tile get p = ds = 0, hence zeros too (the outputs are not
-//     pre-zeroed).  With a bias, its tile is staged transposed into the p
-//     tile, read along the key axis so that the loads coalesce.
+// float32 designs (flash_dq_tf32x3_kernel, flash_dkv_tf32x3_kernel), the
+// float32 forward's (flash_attention_fwd.cu) carried over: mma.sync.m16n8k8
+// TF32 in split precision (flash_common.cuh: every operand x becomes hi =
+// rna_tf32(x) and lo = rna_tf32(x - hi), each product a_hi*b_hi +
+// a_hi*b_lo + a_lo*b_hi with float32 sums; one TF32 pass would be a
+// different result).  mma.sync, not wgmma: the threads load their own
+// fragments from padded float32 rows and split them in registers, so
+// shared memory holds one float32 copy of each tile and no operand needs a
+// transposed copy.
+//   - 128 threads, 4 warps of 16 rows: a block owns 64 query rows (dq) or
+//     64 key rows (dk/dv), whose two operands (Q and dO; K and V) are
+//     copied into shared memory once; the other two flow through a 2-stage
+//     cp.async ring (16 bytes a thread, zero-filled past T or Tk) in tiles
+//     of 32 rows, 16 at D=128.  The copy of tile j+1 is issued right after
+//     the one barrier of tile j, so it runs under tile j's products.  At
+//     D=128 a block takes 99 KB (two blocks, 8 warps, share an SM; 32-row
+//     tiles would take 132 KB, one block); at D=64 68 KB (three blocks by
+//     shared memory; dk/dv's 177 registers a thread allow two).
+//   - every tile's rows are D+4 floats apart, and fragments are read one
+//     float at a time: along D (the A and B operands of S and dP, element
+//     8kk+t or 8kk+t+4 of row g: bank 4g+t) and along the rows (the B
+//     operand of dQ, dV and dK, rows 2t and 2t+1, column g: bank 8t+g) both
+//     hit 32 distinct banks, so K (dq) and Q, dO (dk/dv), read both ways,
+//     need one copy;
+//   - the C fragment of S and dP (dq) or S^T and dP^T (dk/dv) is the A
+//     fragment of the next product as it stands (flash_common.cuh), so P,
+//     the masks, the keep bit and dS are computed on the accumulator
+//     registers and feed dQ += dS K, dV += (z/(1-r) P^T) dO and
+//     dK += dS^T Q with no shuffle and no shared memory between;
+//   - dq: the forward's orientation.  A thread's two query rows keep their
+//     lse, delta and dropout key in registers; the loop stops at
+//     ceil(kv_valid / tile) and, causal, at the diagonal, and a warp skips
+//     the tiles above its own.  d_bias is written from the registers before
+//     the scale (a quad of lanes holds 8 consecutive keys of a row: every
+//     32-byte sector is written whole), and the key tiles a warp never
+//     computes get zeros after the loop;
+//   - dk/dv: transposed, the query index is the column: lse and delta of a
+//     query tile are staged with it, the keep hash is taken per column,
+//     and the loop starts at the diagonal when causal.  A warp holds 16
+//     key rows of dK and dV (D floats a thread at D=128, which is why the
+//     query tile is 16 there: S^T and dP^T then take 16 registers);
+//   - the bias is read from device memory in its own type (a template
+//     parameter); the lanes that share a row read 8 consecutive keys, one
+//     32-byte sector;
+//   - each warp splits every element it reads, as the forward does: a
+//     streamed tile's elements 4 times (once a warp), the block's own rows
+//     once a tile.  A tile's unrolled body holds 328 splits beside 288
+//     HMMA at D=128 in dq (dk/dv: 400 beside 384; 272 and 352 at D=64):
+//     at 3 to 5 instructions a split, 21-52% of the instructions at D=64
+//     and 128, against 7-10% for the HMMA (chip_smoke.py's build phase
+//     reports the mix, f32_mix).  Splitting once at staging (hi and lo in
+//     shared memory) would leave only the register-sourced A operands'
+//     splits, for one more shared load an operand element, but doubles the
+//     tiles: one block (4 warps) a SM at D=128 instead of two, at D=64 one
+//     or two instead of three.  Whether that pays is not measured;
+//     splitting the block's own rows once (Q and dO in dq, K and V in
+//     dk/dv: 128 of dq's 328 splits at D=128) keeps two blocks at D=64 and
+//     is the next step.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -115,294 +166,411 @@ namespace {
 
 using namespace tmx_flash;
 
-constexpr int kPs = kBk + 1;  // padded row stride of the ds / p tiles
+namespace hp = tmx_hopper;
 
-// kBias: a bias (bias.ptr != null); d_bias may then be null (not wanted).
-template <int D, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    Bias bias, float* __restrict__ d_bias,
-                    const int* __restrict__ kv_valid,
-                    const int* __restrict__ seed, int tq, int tk, float scale,
-                    int causal, uint32_t threshold, float keep_scale) {
+// ---------------------------------------------------------------------------
+// float32: split-precision TF32 on the tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+constexpr int kTfWarps = 4;
+constexpr int kTfThreads = 32 * kTfWarps;
+constexpr int kTfRows = 16 * kTfWarps;  // query (dq) or key rows a block
+
+// The rows of a streamed tile: keys of a K/V tile (dq), queries of a Q/dO
+// tile (dk/dv).
+template <int D>
+__host__ __device__ constexpr int tf_tile() {
+  return D >= 128 ? 16 : 32;
+}
+
+// The block's two operands [64][D+4], 2 stages of the streamed two
+// [tile][D+4], float32; dk/dv adds 2 stages of lse and delta [tile].
+template <int D, int kKind>
+constexpr size_t tf_smem_bytes() {
+  return sizeof(float) * ((2 * kTfRows + 4 * tf_tile<D>()) * (D + 4) +
+                          (kKind == 1 ? 4 * tf_tile<D>() : 0));
+}
+
+// BT: the bias element type (flash_common.cuh), NoBias without a bias.
+template <int D, typename BT>
+__global__ void __launch_bounds__(kTfThreads, 2)
+    flash_dq_tf32x3_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, Bias bias,
+                           float* __restrict__ d_bias,
+                           const int* __restrict__ kv_valid,
+                           const int* __restrict__ seed, int tq, int tk,
+                           float scale, int causal, uint32_t threshold,
+                           float keep_scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int QS = D + 1;
-  constexpr int CPT = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;               // [kBq][QS]
-  float* do_s = q_s + kBq * QS;    // [kBq][QS]
-  float* k_s = do_s + kBq * QS;    // [kBk][QS]
-  float* v_s = k_s + kBk * QS;     // [kBk][QS]
-  float* ds_s = v_s + kBk * QS;    // [kBq][kPs]
-  float* lse_s = ds_s + kBq * kPs; // [kBq]
-  float* dl_s = lse_s + kBq;       // [kBq] delta
+  constexpr bool kBias = kHasBias<BT>;
+  constexpr int L = D + 4;          // row stride of every tile, floats
+  constexpr int TK = tf_tile<D>();  // keys of a K/V tile
+  constexpr int NT = TK / 8;        // 8-key tiles of S; k-steps of dS K
+  constexpr int DT = D / 8;         // k-steps of S and dP; 8-column dQ tiles
+  extern __shared__ float4 smem_f4[];
+  float* q_s = reinterpret_cast<float*>(smem_f4);  // [64][L]
+  float* do_s = q_s + kTfRows * L;                 // [64][L]
+  float* k_s = do_s + kTfRows * L;                 // [2][TK][L]
+  float* v_s = k_s + 2 * TK * L;                   // [2][TK][L]
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBq, tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // the m16n8 fragment coordinates
+  const int bh = blockIdx.y, q0 = blockIdx.x * kTfRows, qw0 = q0 + 16 * warp;
   const long qoff = static_cast<long>(bh) * tq;
   const long koff = static_cast<long>(bh) * tk;
   const int valid = valid_keys(kv_valid, bh, tk);
   const bool drop = seed != nullptr;
-  uint32_t qkey[4];
-  {
-    const uint32_t row =
-        drop ? dropout_row_key(static_cast<uint32_t>(seed[0]), bh) : 0u;
+  // the two query rows of this thread's accumulator registers, with their
+  // lse, delta and dropout key; a row past T takes lse = +inf (p = 0)
+  const int qrow[2] = {qw0 + g, qw0 + g + 8};
+  const uint32_t row_key =
+      drop ? dropout_row_key(static_cast<uint32_t>(seed[0]), bh) : 0u;
+  float lr[2], dl[2];
+  uint32_t qkey[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      qkey[i] = drop ? dropout_q_key(row, q0 + ty * 4 + i) : 0u;
+  for (int h = 0; h < 2; ++h) {
+    const bool in = qrow[h] < tq;
+    lr[h] = in ? lse[qoff + qrow[h]] : INFINITY;
+    dl[h] = in ? delta[qoff + qrow[h]] : 0.f;
+    qkey[h] = drop ? dropout_q_key(row_key, qrow[h]) : 0u;
   }
+  const long plane =
+      kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
+            : 0;
+  // d_bias rows written in pairs of keys (8 bytes) when they can be
+  const bool db_pairs = kBias && d_bias != nullptr && tk % 2 == 0 &&
+                        (reinterpret_cast<uintptr_t>(d_bias) & 7) == 0;
+  const uint32_t k_a = hp::smem_addr(k_s), v_a = hp::smem_addr(v_s);
+  auto copy_kv = [&](int kt, int st) {
+    copy_rows_f32<D, TK, L, kTfThreads>(k_a + 4 * st * TK * L, k + koff * D,
+                                        kt * TK, tk, tid);
+    copy_rows_f32<D, TK, L, kTfThreads>(v_a + 4 * st * TK * L, v + koff * D,
+                                        kt * TK, tk, tid);
+  };
 
-  stage_rows2<D, kBq>(q_s, QS, q + qoff * D, do_s, QS, dout + qoff * D, q0,
-                      tq);
-  if (tid < kBq) {
-    const bool in = q0 + tid < tq;
-    lse_s[tid] = in ? lse[qoff + q0 + tid] : 0.f;
-    dl_s[tid] = in ? delta[qoff + q0 + tid] : 0.f;
+  // the key tiles of rows below `end`: up to kv_valid, and to the diagonal
+  // when causal.  A warp computes a prefix of the block's tiles.
+  const int n_valid = (valid + TK - 1) / TK;
+  auto tiles_below = [&](int end) {
+    return causal ? min(n_valid, (end - 1) / TK + 1) : n_valid;
+  };
+  const int n_tiles = tiles_below(min(q0 + kTfRows, tq));
+  const int n_w = qw0 < tq ? tiles_below(min(qw0 + 16, tq)) : 0;
+  if (n_tiles > 0) {
+    copy_rows_f32<D, kTfRows, L, kTfThreads>(hp::smem_addr(q_s), q + qoff * D,
+                                             q0, tq, tid);
+    copy_rows_f32<D, kTfRows, L, kTfThreads>(hp::smem_addr(do_s),
+                                             dout + qoff * D, q0, tq, tid);
+    copy_kv(0, 0);
   }
-  float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+  hp::cp_async_commit();
 
-  int n_tiles = (valid + kBk - 1) / kBk;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBq - 1) / kBk + 1);
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  const float* qw = q_s + 16 * warp * L;
+  const float* dow = do_s + 16 * warp * L;
+
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBk;
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows2<D, kBk>(k_s, QS, k + koff * D, v_s, QS, v + koff * D, k0,
-                        tk);
-    if (kBias) stage_bias<false>(ds_s, kPs, bias, bh, q0, k0, tq, tk);
+    const int k0 = kt * TK, st = kt & 1;
+    hp::cp_async_wait<0>();
+    // tile kt (and Q, dO) is in shared memory, and every warp is done with
+    // tile kt - 1, whose stage the next copy overwrites
     __syncthreads();
+    if (kt + 1 < n_tiles) copy_kv(kt + 1, st ^ 1);
+    hp::cp_async_commit();
+    if (kt >= n_w) continue;
 
-    float s[4][4], dp[4][4];
+    const float* ks = k_s + st * TK * L;
+    const float* vs = v_s + st * TK * L;
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      const int c = 8 * kk + t;  // reduction elements c and c + 4
+      uint32_t ah[4], al[4];
+      // S = Q K^T: A = the warp's Q rows g and g + 8, B = K row 8j + g
+      split_frag(qw[g * L + c], qw[(g + 8) * L + c], qw[g * L + c + 4],
+                 qw[(g + 8) * L + c + 4], ah, al);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mma_3xtf32(s[j], ah, al, ks[(8 * j + g) * L + c],
+                   ks[(8 * j + g) * L + c + 4]);
+      // dP = dO V^T
+      split_frag(dow[g * L + c], dow[(g + 8) * L + c], dow[g * L + c + 4],
+                 dow[(g + 8) * L + c + 4], ah, al);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mma_3xtf32(dp[j], ah, al, vs[(8 * j + g) * L + c],
+                   vs[(8 * j + g) * L + c + 4]);
+    }
+
+    // s <- d_bias = p (z/(1-r) dp - delta); dS is d_bias * scale
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        qv[i] = q_s[(ty * 4 + i) * QS + d];
-        ov[i] = do_s[(ty * 4 + i) * QS + d];
+        const int h = i / 2, kp = k0 + 8 * j + 2 * t + (i & 1);
+        const bool ok = kp < valid && (!causal || kp <= qrow[h]);
+        float x = s[j][i] * scale;
+        if constexpr (kBias)
+          x += ok && qrow[h] < tq
+                   ? bias_value<BT>(bias.ptr, plane +
+                                                  static_cast<long>(qrow[h]) *
+                                                      tk +
+                                                  kp)
+                   : 0.f;
+        const float p = ok ? expf(x - lr[h]) : 0.f;
+        float gd = dp[j][i];
+        if (drop)
+          gd = dropout_keep(qkey[h], kp, threshold) ? gd * keep_scale : 0.f;
+        s[j][i] = p * (gd - dl[h]);
       }
+    // d_bias from the float32 registers: a quad of lanes holds 8
+    // consecutive keys of a row, 32 bytes
+    if constexpr (kBias) {
+      if (d_bias != nullptr) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = k_s[(tx + 16 * j) * QS + d];
-        vv[j] = v_s[(tx + 16 * j) * QS + d];
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int kp = k0 + 8 * j + 2 * t;
+            if (qrow[h] >= tq || kp >= tk) continue;
+            float* row = d_bias + (qoff + qrow[h]) * tk;
+            if (db_pairs) {
+              *reinterpret_cast<float2*>(row + kp) =
+                  make_float2(s[j][2 * h], s[j][2 * h + 1]);
+            } else {
+              row[kp] = s[j][2 * h];
+              if (kp + 1 < tk) row[kp + 1] = s[j][2 * h + 1];
+            }
+          }
+        __syncwarp();  // converged again before the warp's mma.sync
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += qv[i] * kv[j];
-          dp[i][j] += ov[i] * vv[j];
-        }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, kpos = k0 + c;
-        const bool ok = kpos < valid && (!causal || kpos <= q0 + r);
-        float p;
-        if (kBias)
-          p = ok ? expf(s[i][j] * scale + ds_s[r * kPs + c] - lse_s[r]) : 0.f;
-        else
-          p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        float g = dp[i][j];
-        if (drop) g = dropout_keep(qkey[i], kpos, threshold) ? g * keep_scale
-                                                             : 0.f;
-        const float db = p * (g - dl_s[r]);
-        if (kBias && d_bias != nullptr && q0 + r < tq && kpos < tk)
-          d_bias[(qoff + q0 + r) * tk + kpos] = ok ? db : 0.f;
-        ds_s[r * kPs + c] = db * scale;
-      }
-    }
-    __syncthreads();
 
-    for (int kk = 0; kk < kBk; ++kk) {
-      float dv[4], kv[CPT];
+    // dQ += dS K: A = dS's registers as they stand (rows g, g + 8; keys
+    // 8j + 2t and 8j + 2t + 1 as reduction elements t and t + 4), B = K's
+    // rows 8j + 2t and 8j + 2t + 1, column 8n + g
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dv[i] = ds_s[(ty * 4 + i) * kPs + kk];
+    for (int j = 0; j < NT; ++j) {
+      uint32_t ah[4], al[4];
+      split_frag(s[j][0] * scale, s[j][2] * scale, s[j][1] * scale,
+                 s[j][3] * scale, ah, al);
+      const float* k2 = ks + (8 * j + 2 * t) * L + g;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = k_s[kk * QS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] += dv[i] * kv[j];
-    }
-  }
-  if (kBias && d_bias != nullptr) {  // the key tiles the loop never visited
-    const int c0 = n_tiles * kBk, nc = tk - c0, nr = min(kBq, tq - q0);
-    for (long i = tid; i < static_cast<long>(nr) * nc; i += kThreads) {
-      const int r = static_cast<int>(i / nc), c = static_cast<int>(i % nc);
-      d_bias[(qoff + q0 + r) * tk + c0 + c] = 0.f;
+      for (int n = 0; n < DT; ++n)
+        mma_3xtf32(acc[n], ah, al, k2[8 * n], k2[L + 8 * n]);
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r < tq) {
-      float* row = dq + (qoff + q0 + r) * D;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) row[tx + 16 * j] = acc[i][j];
+  // d_bias of the key tiles the warp never computed (past kv_valid, above
+  // the diagonal): zeros, a row at a time over the warp's lanes
+  if constexpr (kBias) {
+    if (d_bias != nullptr) {
+      for (int r = 0; r < 16 && qw0 + r < tq; ++r) {
+        float* row = d_bias + (qoff + qw0 + r) * tk;
+        for (int c = n_w * TK + lane; c < tk; c += 32) row[c] = 0.f;
+      }
     }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (qrow[h] >= tq) continue;
+    float* orow = dq + (qoff + qrow[h]) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
   }
 }
 
-template <int D, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, Bias bias,
-                     const int* __restrict__ kv_valid,
-                     const int* __restrict__ seed, int tq, int tk,
-                     float scale, int causal, uint32_t threshold,
-                     float keep_scale) {
+// BT: the bias element type (flash_common.cuh), NoBias without a bias.
+template <int D, typename BT>
+__global__ void __launch_bounds__(kTfThreads, 2)
+    flash_dkv_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            Bias bias, const int* __restrict__ kv_valid,
+                            const int* __restrict__ seed, int tq, int tk,
+                            float scale, int causal, uint32_t threshold,
+                            float keep_scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int QS = D + 1;
-  constexpr int CPT = D / 16;
-  extern __shared__ float smem[];
-  float* k_s = smem;               // [kBk][QS]
-  float* v_s = k_s + kBk * QS;     // [kBk][QS]
-  float* q_s = v_s + kBk * QS;     // [kBq][QS]
-  float* do_s = q_s + kBq * QS;    // [kBq][QS]
-  float* pt_s = do_s + kBq * QS;   // [kBk][kPs] dropped p, transposed
-  float* dst_s = pt_s + kBk * kPs; // [kBk][kPs] ds, transposed
-  float* lse_s = dst_s + kBk * kPs;// [kBq]
-  float* dl_s = lse_s + kBq;       // [kBq] delta
+  constexpr bool kBias = kHasBias<BT>;
+  constexpr int L = D + 4;          // row stride of every tile, floats
+  constexpr int TQ = tf_tile<D>();  // queries of a Q/dO tile
+  constexpr int NT = TQ / 8;        // 8-query tiles of S^T; k-steps of dV, dK
+  constexpr int DT = D / 8;         // k-steps of S^T, dP^T; 8-column tiles
+  extern __shared__ float4 smem_f4[];
+  float* k_s = reinterpret_cast<float*>(smem_f4);  // [64][L]
+  float* v_s = k_s + kTfRows * L;                  // [64][L]
+  float* q_s = v_s + kTfRows * L;                  // [2][TQ][L]
+  float* do_s = q_s + 2 * TQ * L;                  // [2][TQ][L]
+  float* lse_s = do_s + 2 * TQ * L;                // [2][TQ]
+  float* dl_s = lse_s + 2 * TQ;                    // [2][TQ] delta
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * kBk, tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // the m16n8 fragment coordinates
+  const int bh = blockIdx.y, k0 = blockIdx.x * kTfRows, kw0 = k0 + 16 * warp;
   const long qoff = static_cast<long>(bh) * tq;
   const long koff = static_cast<long>(bh) * tk;
   const int valid = valid_keys(kv_valid, bh, tk);
   const bool drop = seed != nullptr;
+  // the two key rows of this thread's accumulator registers
+  const int krow[2] = {kw0 + g, kw0 + g + 8};
   const uint32_t row_key =
       drop ? dropout_row_key(static_cast<uint32_t>(seed[0]), bh) : 0u;
+  const long plane =
+      kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
+            : 0;
+  const uint32_t q_a = hp::smem_addr(q_s), do_a = hp::smem_addr(do_s),
+                 lse_a = hp::smem_addr(lse_s), dl_a = hp::smem_addr(dl_s);
+  // query tile qt's Q, dO, lse and delta into ring stage st
+  auto copy_q = [&](int qt, int st) {
+    const int r0 = qt * TQ;
+    copy_rows_f32<D, TQ, L, kTfThreads>(q_a + 4 * st * TQ * L, q + qoff * D,
+                                        r0, tq, tid);
+    copy_rows_f32<D, TQ, L, kTfThreads>(do_a + 4 * st * TQ * L,
+                                        dout + qoff * D, r0, tq, tid);
+    hp::copy_floats(lse_a + 4 * st * TQ, lse + qoff + r0, TQ, tq - r0, tid);
+    hp::copy_floats(dl_a + 4 * st * TQ, delta + qoff + r0, TQ, tq - r0,
+                    tid - TQ);
+  };
 
-  float dk_acc[4][CPT], dv_acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  // a key tile wholly past kv_valid runs no query tile and writes zeros
+  const int n_qt = k0 < valid ? (tq + TQ - 1) / TQ : 0;
+  const int qt0 = causal ? k0 / TQ : 0;
+  if (qt0 < n_qt) {
+    copy_rows_f32<D, kTfRows, L, kTfThreads>(hp::smem_addr(k_s), k + koff * D,
+                                             k0, tk, tid);
+    copy_rows_f32<D, kTfRows, L, kTfThreads>(hp::smem_addr(v_s), v + koff * D,
+                                             k0, tk, tid);
+    copy_q(qt0, 0);
+  }
+  hp::cp_async_commit();
 
-  // a key tile wholly past kv_valid runs no Q tile and writes zeros
-  const int n_qt = k0 < valid ? (tq + kBq - 1) / kBq : 0;
-  const int qt0 = causal ? k0 / kBq : 0;
-  if (qt0 < n_qt)
-    stage_rows2<D, kBk>(k_s, QS, k + koff * D, v_s, QS, v + koff * D, k0,
-                        tk);
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+  const bool keys_in = kw0 < valid;  // the warp holds a valid key
+  const float* kw = k_s + 16 * warp * L;
+  const float* vw = v_s + 16 * warp * L;
+
   for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kBq;
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows2<D, kBq>(q_s, QS, q + qoff * D, do_s, QS, dout + qoff * D,
-                        q0, tq);
-    if (kBias) stage_bias<true>(pt_s, kPs, bias, bh, q0, k0, tq, tk);
-    if (tid < kBq) {
-      const bool in = q0 + tid < tq;
-      lse_s[tid] = in ? lse[qoff + q0 + tid] : 0.f;
-      dl_s[tid] = in ? delta[qoff + q0 + tid] : 0.f;
-    }
+    const int q0 = qt * TQ, st = (qt - qt0) & 1;
+    hp::cp_async_wait<0>();
+    // tile qt (and K, V) is in shared memory, and every warp is done with
+    // tile qt - 1, whose stage the next copy overwrites
     __syncthreads();
+    if (qt + 1 < n_qt) copy_q(qt + 1, st ^ 1);
+    hp::cp_async_commit();
+    if (!keys_in || (causal && q0 + TQ - 1 < kw0)) continue;
 
-    // transposed scores: key rows ty*4+i, query columns tx+16j
-    float st[4][4], dpt[4][4];
+    const float* qs = q_s + st * TQ * L;
+    const float* dos = do_s + st * TQ * L;
+    const float* lrow = lse_s + st * TQ;
+    const float* drow = dl_s + st * TQ;
+    // transposed scores: key rows, query columns
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = k_s[(ty * 4 + i) * QS + d];
-        vv[i] = v_s[(ty * 4 + i) * QS + d];
-      }
+    for (int kk = 0; kk < DT; ++kk) {
+      const int c = 8 * kk + t;  // reduction elements c and c + 4
+      uint32_t ah[4], al[4];
+      // S^T = K Q^T: A = the warp's K rows g and g + 8, B = Q row 8j + g
+      split_frag(kw[g * L + c], kw[(g + 8) * L + c], kw[g * L + c + 4],
+                 kw[(g + 8) * L + c + 4], ah, al);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = q_s[(tx + 16 * j) * QS + d];
-        ov[j] = do_s[(tx + 16 * j) * QS + d];
-      }
+      for (int j = 0; j < NT; ++j)
+        mma_3xtf32(s[j], ah, al, qs[(8 * j + g) * L + c],
+                   qs[(8 * j + g) * L + c + 4]);
+      // dP^T = V dO^T
+      split_frag(vw[g * L + c], vw[(g + 8) * L + c], vw[g * L + c + 4],
+                 vw[(g + 8) * L + c + 4], ah, al);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] += kv[i] * qv[j];
-          dpt[i][j] += vv[i] * ov[j];
-        }
+      for (int j = 0; j < NT; ++j)
+        mma_3xtf32(dp[j], ah, al, dos[(8 * j + g) * L + c],
+                   dos[(8 * j + g) * L + c + 4]);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j, qpos = q0 + c;
-      const uint32_t qkey = drop ? dropout_q_key(row_key, qpos) : 0u;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i, kpos = k0 + r;
-        const bool ok =
-            qpos < tq && kpos < valid && (!causal || kpos <= qpos);
-        float p;
-        if (kBias)  // pt_s holds the bias, transposed: [key][query]
-          p = ok ? expf(st[i][j] * scale + pt_s[r * kPs + c] - lse_s[c])
-                 : 0.f;
-        else
-          p = ok ? expf(st[i][j] * scale - lse_s[c]) : 0.f;
-        float pd = p, g = dpt[i][j];
-        if (drop) {
-          const bool keep = dropout_keep(qkey, kpos, threshold);
-          pd = keep ? p * keep_scale : 0.f;
-          g = keep ? g * keep_scale : 0.f;
-        }
-        pt_s[r * kPs + c] = pd;
-        dst_s[r * kPs + c] = p * (g - dl_s[c]) * scale;
-      }
-    }
-    __syncthreads();
 
-    for (int rr = 0; rr < kBq; ++rr) {
-      float pv[4], dsv[4], ov[CPT], qv[CPT];
+    // s <- the dropped p^T, dp <- ds^T = p^T o (z/(1-r) dp^T - delta) scale
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = pt_s[(ty * 4 + i) * kPs + rr];
-        dsv[i] = dst_s[(ty * 4 + i) * kPs + rr];
-      }
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        ov[j] = do_s[rr * QS + tx + 16 * j];
-        qv[j] = q_s[rr * QS + tx + 16 * j];
-      }
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e, qp = q0 + c;
+        const float lq = lrow[c], dlq = drow[c];
+        const uint32_t qkey = drop ? dropout_q_key(row_key, qp) : 0u;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          dv_acc[i][j] += pv[i] * ov[j];
-          dk_acc[i][j] += dsv[i] * qv[j];
+        for (int h = 0; h < 2; ++h) {
+          const int i = 2 * h + e, kp = krow[h];
+          const bool ok = qp < tq && kp < valid && (!causal || kp <= qp);
+          float x = s[j][i] * scale;
+          if constexpr (kBias)
+            x += ok ? bias_value<BT>(bias.ptr,
+                                     plane + static_cast<long>(qp) * tk + kp)
+                    : 0.f;
+          const float p = ok ? expf(x - lq) : 0.f;
+          float pd = p, gd = dp[j][i];
+          if (drop) {
+            const bool keep = dropout_keep(qkey, kp, threshold);
+            pd = keep ? p * keep_scale : 0.f;
+            gd = keep ? gd * keep_scale : 0.f;
+          }
+          s[j][i] = pd;
+          dp[j][i] = p * (gd - dlq) * scale;
         }
+      }
+
+    // dV += P^T dO and dK += dS^T Q: A = the registers as they stand (key
+    // rows g, g + 8; queries 8j + 2t and 8j + 2t + 1 as reduction elements
+    // t and t + 4), B = dO's or Q's rows 8j + 2t and 8j + 2t + 1
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t ah[4], al[4];
+      const float* o2 = dos + (8 * j + 2 * t) * L + g;
+      split_frag(s[j][0], s[j][2], s[j][1], s[j][3], ah, al);
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        mma_3xtf32(dv_acc[n], ah, al, o2[8 * n], o2[L + 8 * n]);
+      const float* q2 = qs + (8 * j + 2 * t) * L + g;
+      split_frag(dp[j][0], dp[j][2], dp[j][1], dp[j][3], ah, al);
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        mma_3xtf32(dk_acc[n], ah, al, q2[8 * n], q2[L + 8 * n]);
     }
   }
 
+  // key rows past kv_valid (or in a tile that ran no query tile) hold 0
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (k0 + r < tk) {
-      float* krow = dk + (koff + k0 + r) * D;
-      float* vrow = dv + (koff + k0 + r) * D;
+  for (int h = 0; h < 2; ++h) {
+    if (krow[h] >= tk) continue;
+    float* krow_o = dk + (koff + krow[h]) * D;
+    float* vrow_o = dv + (koff + krow[h]) * D;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        krow[tx + 16 * j] = dk_acc[i][j];
-        vrow[tx + 16 * j] = dv_acc[i][j];
-      }
+    for (int n = 0; n < DT; ++n) {
+      *reinterpret_cast<float2*>(krow_o + 8 * n + 2 * t) =
+          make_float2(dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(vrow_o + 8 * n + 2 * t) =
+          make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
     }
   }
 }
@@ -410,7 +578,6 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // dk/dv in bf16: tensor cores
 // ---------------------------------------------------------------------------
-namespace hp = tmx_hopper;
 
 constexpr int kTcKeys = 128;    // key rows of a block: 2 warpgroups of 64
 constexpr int kTcQ = 64;        // query rows of a Q/dO tile
@@ -866,13 +1033,6 @@ __global__ void __launch_bounds__(kTcThreads,
   }
 }
 
-cudaError_t allow_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -887,38 +1047,6 @@ struct Args {
   float keep_scale;
   cudaStream_t stream;
 };
-
-template <int D, bool kBias>
-cudaError_t launch_dq(const Args& a) {
-  const size_t smem =
-      sizeof(float) * (4 * kBq * (D + 1) + kBq * kPs + 2 * kBq);
-  auto kernel = flash_dq_kernel<D, kBias>;
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.tq + kBq - 1) / kBq, a.bh), kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dq), a.bias, a.d_bias,
-      a.kv_valid, a.seed, a.tq, a.tk, a.scale, a.causal, a.threshold,
-      a.keep_scale);
-  return cudaGetLastError();
-}
-
-template <int D, bool kBias>
-cudaError_t launch_dkv(const Args& a) {
-  const size_t smem =
-      sizeof(float) * (4 * kBk * (D + 1) + 2 * kBk * kPs + 2 * kBq);
-  auto kernel = flash_dkv_kernel<D, kBias>;
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.tk + kBk - 1) / kBk, a.bh), kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.bias, a.kv_valid, a.seed, a.tq, a.tk, a.scale, a.causal,
-      a.threshold, a.keep_scale);
-  return cudaGetLastError();
-}
 
 template <int D, typename BT>
 cudaError_t launch_dq_tc(const Args& a) {
@@ -959,56 +1087,74 @@ cudaError_t launch_dkv_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-// kKind: 0 dq, 1 dk/dv.  The FFMA kernels (float32) take the bias type at
-// run time; the tensor-core kernels (bf16) as a template parameter.
-template <int kKind, bool kBias, int D>
-cudaError_t launch_ffma(const Args& a) {
-  if constexpr (kKind == 0) return launch_dq<D, kBias>(a);
-  else return launch_dkv<D, kBias>(a);
+template <int kKind, int D, typename BT>
+cudaError_t launch_tf32x3(const Args& a) {
+  const size_t smem = tf_smem_bytes<D, kKind>();
+  if constexpr (kKind == 0) {
+    auto kernel = flash_dq_tf32x3_kernel<D, BT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((a.tq + kTfRows - 1) / kTfRows, a.bh), kTfThreads, smem,
+             a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dq), a.bias, a.d_bias,
+        a.kv_valid, a.seed, a.tq, a.tk, a.scale, a.causal, a.threshold,
+        a.keep_scale);
+  } else {
+    auto kernel = flash_dkv_tf32x3_kernel<D, BT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((a.tk + kTfRows - 1) / kTfRows, a.bh), kTfThreads, smem,
+             a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+        a.bias, a.kv_valid, a.seed, a.tq, a.tk, a.scale, a.causal,
+        a.threshold, a.keep_scale);
+  }
+  return cudaGetLastError();
 }
 
-template <int kKind, typename BT, int D>
-cudaError_t launch_tc(const Args& a) {
-  if constexpr (kKind == 0) return launch_dq_tc<D, BT>(a);
+// kKind: 0 dq, 1 dk/dv; kF32: the float32 3xTF32 kernels, else the bf16
+// tensor-core ones.  Both take the bias type as a template parameter.
+template <bool kF32, int kKind, typename BT, int D>
+cudaError_t launch(const Args& a) {
+  if constexpr (kF32) return launch_tf32x3<kKind, D, BT>(a);
+  else if constexpr (kKind == 0) return launch_dq_tc<D, BT>(a);
   else return launch_dkv_tc<D, BT>(a);
 }
 
-template <int kKind, bool kBias>
-cudaError_t dispatch_ffma_d(int d, const Args& a) {
+template <bool kF32, int kKind, typename BT>
+cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 16: return launch_ffma<kKind, kBias, 16>(a);
-    case 32: return launch_ffma<kKind, kBias, 32>(a);
-    case 64: return launch_ffma<kKind, kBias, 64>(a);
-    case 128: return launch_ffma<kKind, kBias, 128>(a);
+    case 16: return launch<kF32, kKind, BT, 16>(a);
+    case 32: return launch<kF32, kKind, BT, 32>(a);
+    case 64: return launch<kF32, kKind, BT, 64>(a);
+    case 128: return launch<kF32, kKind, BT, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int kKind, typename BT>
-cudaError_t dispatch_tc_d(int d, const Args& a) {
-  switch (d) {
-    case 16: return launch_tc<kKind, BT, 16>(a);
-    case 32: return launch_tc<kKind, BT, 32>(a);
-    case 64: return launch_tc<kKind, BT, 64>(a);
-    case 128: return launch_tc<kKind, BT, 128>(a);
-    default: return cudaErrorInvalidValue;
-  }
+template <bool kF32, int kKind>
+cudaError_t dispatch(int d, const Args& a) {
+  if (a.bias.ptr == nullptr) return dispatch_d<kF32, kKind, NoBias>(d, a);
+  if (a.bias.dtype == 1)
+    return dispatch_d<kF32, kKind, __nv_bfloat16>(d, a);
+  if (a.bias.dtype == 2) return dispatch_d<kF32, kKind, __half>(d, a);
+  return dispatch_d<kF32, kKind, float>(d, a);
 }
-
-template <int kKind>
-cudaError_t dispatch_tc(int d, const Args& a) {
-  if (a.bias.ptr == nullptr) return dispatch_tc_d<kKind, NoBias>(d, a);
-  if (a.bias.dtype == 1) return dispatch_tc_d<kKind, __nv_bfloat16>(d, a);
-  if (a.bias.dtype == 2) return dispatch_tc_d<kKind, __half>(d, a);
-  return dispatch_tc_d<kKind, float>(d, a);
-}
-
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// float32 runs the FFMA kernel, bfloat16 the tensor-core one (its q, k, v,
-// dout and outputs 16-byte aligned); *route is set to the kernel launched.
+// float32 runs the 3xTF32 kernel, bfloat16 the wgmma one (q, k, v, dout
+// and the outputs 16-byte aligned in both); *route is set to the kernel
+// launched.
 template <int kKind>
 int run(const Args& a, int d, int dtype, const void* out0, const void* out1,
         int* route) {
@@ -1018,30 +1164,24 @@ int run(const Args& a, int d, int dtype, const void* out0, const void* out1,
       (a.bias.planes < 1 || a.bh % a.bias.planes != 0 || a.bias.dtype < 0 ||
        a.bias.dtype > 2))
     return cudaErrorInvalidValue;
-  if (dtype == 0) {
-    *route = 0;
-    return a.bias.ptr != nullptr ? dispatch_ffma_d<kKind, true>(d, a)
-                                 : dispatch_ffma_d<kKind, false>(d, a);
-  }
-  if (dtype == 1) {
-    if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
-        !aligned16(a.dout) || !aligned16(out0) || !aligned16(out1))
-      return cudaErrorInvalidValue;
-    *route = 1;
-    return dispatch_tc<kKind>(d, a);
-  }
-  return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
+      !aligned16(a.dout) || !aligned16(out0) || !aligned16(out1))
+    return cudaErrorInvalidValue;
+  *route = dtype == 0 ? 2 : 1;
+  return dtype == 0 ? dispatch<true, kKind>(d, a)
+                    : dispatch<false, kKind>(d, a);
 }
 
 }  // namespace
 
-// dtype: 0 float32 (the FFMA kernels), 1 bfloat16 (the tensor-core
-// kernels; q, k, v, dout and the outputs 16-byte aligned).  *route is set
-// to the kernel launched: 0 FFMA, 1 wgmma (left as it is when nothing is
-// launched).  kv_valid, seed and bias may be null (no key-padding mask; no
-// dropout; no bias).  lse and delta are float32 (BH, T).  bias is
-// (bias_planes, tq, tk) of bias_dtype (0 float32, 1 bfloat16, 2 float16);
-// row bh reads plane bh % bias_planes.  d_bias, float32 (BH, tq, tk), may
+// dtype: 0 float32 (the 3xTF32 kernels), 1 bfloat16 (the wgmma kernels);
+// q, k, v, dout and the outputs 16-byte aligned.  *route is set to the
+// kernel launched: 1 wgmma, 2 3xTF32 (left as it is when nothing is
+// launched; 0 is reserved).  kv_valid, seed and
+// bias may be null (no key-padding mask; no dropout; no bias).  lse and
+// delta are float32 (BH, T).  bias is (bias_planes, tq, tk) of bias_dtype
+// (0 float32, 1 bfloat16, 2 float16); row bh reads plane bh % bias_planes.  d_bias, float32 (BH, tq, tk), may
 // be null when there is a bias and its gradient is not wanted.
 extern "C" int tmx_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,

@@ -69,15 +69,8 @@
 //   rounding of P (tolerance 2e-2 * max|ref| on the card).
 // float32 design (flash_fwd_tf32x3_kernel), for the serving prefill, whose
 // gates are logits within 2e-4 of the CPU and the kernel within 1e-4 of
-// the plain version with TF32 off: one TF32 pass would round q, k, v and
-// P to 10 mantissa bits (a different result, not a faster one), so every
-// operand x is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi) and
-// each product is a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, accumulated in
-// float32.  hi + lo is within 2^-22 of |x|, and the omitted a_lo*b_lo
-// is under 2^-22 of |a b|, so a product keeps about 21 bits before the
-// float32 sums.  Both roundings are two integer operations on the bit
-// pattern (a cvt.rna.tf32.f32 instruction took 30% more device time on
-// an H100):
+// the plain version with TF32 off: split-precision TF32 (3xTF32), every
+// product in three TF32 passes with float32 sums (flash_common.cuh):
 //   - mma.sync.m16n8k8 TF32, not wgmma: TF32 wgmma reads B only K-major
 //     from shared memory, so O += P V would need a transposed copy of every
 //     V tile, and the lo halves a second copy of K and V (4 x 32 KB a stage
@@ -134,68 +127,6 @@ constexpr size_t f32tc_smem_bytes() {
          (kF32Rows * (D + 8) + 2 * kF32Keys * (D + 8) + 2 * kF32Keys * (D + 4));
 }
 
-// x split into hi, x rounded to TF32 (10 mantissa bits) to nearest with
-// ties away from zero (the bit pattern's low 13 bits rounded on the
-// magnitude, as cvt.rna.tf32.f32 rounds), and lo, the exact x - hi
-// rounded the same way.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a * b in three TF32 products, the small ones first.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], float b0,
-                                           float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
-
-// Issue the copy of rows [r0, r0 + R) of a (rows, D) float32 operand into
-// shared memory at `dst`, rows kLd floats apart, 16 bytes a thread; rows
-// past `rows` are zero-filled (source size 0, address clamped to row 0).
-template <int D, int R, int kLd>
-__device__ __forceinline__ void copy_rows_f32(uint32_t dst, const float* src,
-                                              int r0, int rows, int tid) {
-  constexpr int kChunks = D / 4, kN = R * kChunks;
-#pragma unroll
-  for (int it = 0; it < (kN + kF32Threads - 1) / kF32Threads; ++it) {
-    const int i = tid + it * kF32Threads;
-    if (kN % kF32Threads != 0 && i >= kN) break;
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool in = r0 + r < rows;
-    const float* from = src + (in ? static_cast<long>(r0 + r) * D + c : 0);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     dst + 4 * (r * kLd + c)),
-                 "l"(from), "r"(in ? 16 : 0)
-                 : "memory");
-  }
-}
-
-template <typename BT>
-__device__ __forceinline__ float bias_value(const void* base, long i) {
-  if constexpr (std::is_same_v<BT, float>)
-    return __ldg(static_cast<const float*>(base) + i);
-  else if constexpr (std::is_same_v<BT, __nv_bfloat16>)
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i]);
-  else
-    return __half2float(static_cast<const __half*>(base)[i]);
-}
-
 // BT: the bias element type (flash_common.cuh), NoBias without a bias.
 template <int D, bool kDrop, typename BT>
 __global__ void __launch_bounds__(kF32Threads, 2)
@@ -238,16 +169,16 @@ __global__ void __launch_bounds__(kF32Threads, 2)
   const uint32_t q_a = hp::smem_addr(q_s), k_a = hp::smem_addr(k_s),
                  v_a = hp::smem_addr(v_s);
   auto copy_kv = [&](int kt, int st) {
-    copy_rows_f32<D, kF32Keys, KL>(k_a + 4 * st * kF32Keys * KL, kb,
-                                   kt * kF32Keys, tk, tid);
-    copy_rows_f32<D, kF32Keys, VL>(v_a + 4 * st * kF32Keys * VL, vb,
-                                   kt * kF32Keys, tk, tid);
+    copy_rows_f32<D, kF32Keys, KL, kF32Threads>(
+        k_a + 4 * st * kF32Keys * KL, kb, kt * kF32Keys, tk, tid);
+    copy_rows_f32<D, kF32Keys, VL, kF32Threads>(
+        v_a + 4 * st * kF32Keys * VL, vb, kt * kF32Keys, tk, tid);
   };
 
   int n_tiles = (valid + kF32Keys - 1) / kF32Keys;
   if (causal)
     n_tiles = min(n_tiles, (min(q0 + kF32Rows, tq) - 1) / kF32Keys + 1);
-  copy_rows_f32<D, kF32Rows, QL>(q_a, qb, q0, tq, tid);
+  copy_rows_f32<D, kF32Rows, QL, kF32Threads>(q_a, qb, q0, tq, tid);
   if (n_tiles > 0) copy_kv(0, 0);
   hp::cp_async_commit();
 
@@ -676,8 +607,7 @@ bool aligned16(const void* p) {
 // key-padding mask; no dropout; no bias).  bias is (bias_planes, tq, tk)
 // of bias_dtype (0 float32, 1 bfloat16, 2 float16); row bh reads plane
 // bh % bias_planes.  *route is set to the kernel launched: 1 wgmma,
-// 2 3xTF32 (left as it is when nothing is launched; 0, FFMA, is the
-// backward's float32 route).
+// 2 3xTF32 (left as it is when nothing is launched; 0 is reserved).
 extern "C" int tmx_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, float* lse,
                                        const void* bias, int bias_planes,

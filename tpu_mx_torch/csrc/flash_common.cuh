@@ -1,6 +1,6 @@
 // What the flash-attention forward and backward kernels share: the
-// staging of float32 tiles and of the bias, the masks, and the dropout
-// keep mask.
+// masks, the dropout keep mask, the staging of the bias, and the float32
+// kernels' split-precision (3xTF32) tensor-core products.
 //
 // The keep mask replaces the reference's TPU PRNG draw (_keep_mask in
 // tpu_mx/kernels/flash_attention.py), which cannot be reproduced off the
@@ -20,9 +20,7 @@
 //
 // The additive bias (_bias_spec in the reference) is a (planes, T, Tk)
 // tensor of float32, bfloat16 or float16; row bh reads plane bh % planes
-// (planes = BH: one plane per row, 1: shared, G: one per head).  A kernel
-// stages the (kBq x kBk) tile it needs in shared memory, read along the
-// key axis so that the loads coalesce.
+// (planes = BH: one plane per row, 1: shared, G: one per head).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,9 +33,6 @@
 
 namespace tmx_flash {
 
-constexpr int kBq = 64;            // query rows of a tile
-constexpr int kBk = 64;            // key rows of a tile
-constexpr int kThreads = 256;      // 16 x 16 threads, each a 4 x 4 block
 constexpr float kNegInf = -1e30f;  // finite, as in the reference
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -68,27 +63,6 @@ __device__ __forceinline__ int valid_keys(const int* kv_valid, int bh,
   return max(0, min(kv_valid[bh], tk));
 }
 
-// Copy rows [r0, r0 + kRows) of two float32 (rows, D) operands into shared
-// memory, with row strides sa and sb; rows past `rows` are zero.  Both
-// operands are staged in one unrolled loop so that many global loads are
-// in flight at once: one block runs per SM (shared memory is the limit),
-// and the tile's load latency is not hidden behind other blocks' work.
-template <int D, int kRows>
-__device__ __forceinline__ void stage_rows2(float* da, int sa, const float* a,
-                                            float* db, int sb, const float* b,
-                                            int r0, int rows) {
-  static_assert(kRows * D % kThreads == 0, "tile must split evenly");
-#pragma unroll 8
-  for (int it = 0; it < kRows * D / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / D, d = i % D;
-    const bool in = r0 + r < rows;
-    const long at = static_cast<long>(r0 + r) * D + d;
-    da[r * sa + d] = in ? a[at] : 0.f;
-    db[r * sb + d] = in ? b[at] : 0.f;
-  }
-}
-
 // The bias: a pointer to its first element, its element type (0 float32,
 // 1 bfloat16, 2 float16) and its number of planes.
 struct Bias {
@@ -97,45 +71,14 @@ struct Bias {
   int dtype;
 };
 
-__device__ __forceinline__ float bias_at(const Bias& b, long i) {
-  if (b.dtype == 1)
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(b.ptr)[i]);
-  if (b.dtype == 2) return __half2float(static_cast<const __half*>(b.ptr)[i]);
-  return static_cast<const float*>(b.ptr)[i];
-}
-
-// Stage the bias tile of query rows [q0, q0 + kBq) and key columns
-// [k0, k0 + kBk) of row bh into dst as float32: dst[r * ld + c], or
-// dst[c * ld + r] when kTrans (the dk/dv kernel's transposed scores).
-// Consecutive threads read consecutive keys; elements past (tq, tk) are 0.
-template <bool kTrans>
-__device__ __forceinline__ void stage_bias(float* dst, int ld, const Bias& b,
-                                           int bh, int q0, int k0, int tq,
-                                           int tk) {
-  const long plane =
-      static_cast<long>(bh % b.planes) * tq * static_cast<long>(tk);
-#pragma unroll 4
-  for (int it = 0; it < kBq * kBk / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kBk, c = i % kBk;
-    const bool in = q0 + r < tq && k0 + c < tk;
-    const float x =
-        in ? bias_at(b, plane + static_cast<long>(q0 + r) * tk + k0 + c)
-           : 0.f;
-    if (kTrans)
-      dst[c * ld + r] = x;
-    else
-      dst[r * ld + c] = x;
-  }
-}
-
-// --- the bias in the tensor-core kernels ------------------------------------
-// Their bias element type BT is a template parameter (float, __nv_bfloat16
-// or __half; NoBias without a bias): the bias tile is staged in shared
-// memory in that type, rows `stride` bytes apart, next to the K/V
-// (forward) or Q/dO (dk/dv) tiles of the same ring stage, and read back
-// with no branch on the type (a run-time branch per element cost dk/dv
-// more than the bias itself on an H100).
+// --- the bias's element type -------------------------------------------------
+// A kernel takes the bias element type BT as a template parameter (float,
+// __nv_bfloat16 or __half; NoBias without a bias) and reads the bias with
+// no branch on the type (a run-time branch per element cost the bf16
+// dk/dv kernel more than the bias itself on an H100).  The bf16 kernels
+// stage the bias tile in shared memory in that type, rows `stride` bytes
+// apart, next to the K/V (forward, dq) or Q/dO (dk/dv) tiles of the same
+// ring stage; the float32 kernels read it from device memory.
 struct NoBias {};
 template <typename BT>
 constexpr bool kHasBias = !std::is_same_v<BT, NoBias>;
@@ -222,6 +165,101 @@ __device__ __forceinline__ float2 lds_bias2<__nv_bfloat16>(const uint8_t* p) {
 template <>
 __device__ __forceinline__ float2 lds_bias2<__half>(const uint8_t* p) {
   return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+
+// One bias element at index i of `base`, as float32, read from device
+// memory.
+template <typename BT>
+__device__ __forceinline__ float bias_value(const void* base, long i) {
+  if constexpr (std::is_same_v<BT, float>)
+    return __ldg(static_cast<const float*>(base) + i);
+  else if constexpr (std::is_same_v<BT, __nv_bfloat16>)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i]);
+  else
+    return __half2float(static_cast<const __half*>(base)[i]);
+}
+
+// --- float32 on the tensor cores: split-precision TF32 (3xTF32) --------------
+// One TF32 pass would round every operand to 10 mantissa bits (a different
+// result, not a faster one), so every operand x is split into hi =
+// rna_tf32(x) and lo = rna_tf32(x - hi), and each product is a_hi*b_hi +
+// a_hi*b_lo + a_lo*b_hi, accumulated in float32 by mma.sync.m16n8k8.  hi +
+// lo is within 2^-22 of |x|, and the omitted a_lo*b_lo is under 2^-22 of
+// |a b|, so a product keeps about 21 bits before the float32 sums.  Both
+// roundings are two integer operations on the bit pattern (a
+// cvt.rna.tf32.f32 instruction took 30% more device time on an H100).
+//
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A (16 x 8) holds
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8) holds
+// (t, g), (t + 4, g); the accumulator C (16 x 8) holds (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).  Inside one instruction the
+// order of the 8 reduction elements is free as long as A and B agree, so
+// a C fragment is the A fragment of the next product as it stands
+// ({c0, c2, c1, c3}, reduction elements t and t + 4 being columns 2t and
+// 2t + 1), with B's rows 2t and 2t + 1.
+
+// x split into hi, x rounded to TF32 (10 mantissa bits) to nearest with
+// ties away from zero (the bit pattern's low 13 bits rounded on the
+// magnitude, as cvt.rna.tf32.f32 rounds), and lo, the exact x - hi
+// rounded the same way.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
+}
+
+// The A fragment {a0, a1, a2, a3} split into hi and lo halves.
+__device__ __forceinline__ void split_frag(float a0, float a1, float a2,
+                                           float a3, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split_tf32(a0, hi[0], lo[0]);
+  split_tf32(a1, hi[1], lo[1]);
+  split_tf32(a2, hi[2], lo[2]);
+  split_tf32(a3, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in three TF32 products, the small ones first; b = (b0, b1)
+// is split here.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// Issue the copy of rows [r0, r0 + R) of a (rows, D) float32 operand into
+// shared memory at `dst`, rows kLd floats apart, 16 bytes a thread, by
+// kThreads threads; rows past `rows` are zero-filled (source size 0,
+// address clamped to row 0).
+template <int D, int R, int kLd, int kThreads>
+__device__ __forceinline__ void copy_rows_f32(uint32_t dst, const float* src,
+                                              int r0, int rows, int tid) {
+  constexpr int kChunks = D / 4, kN = R * kChunks;
+#pragma unroll
+  for (int it = 0; it < (kN + kThreads - 1) / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    if (kN % kThreads != 0 && i >= kN) break;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool in = r0 + r < rows;
+    const float* from = src + (in ? static_cast<long>(r0 + r) * D + c : 0);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     dst + 4 * (r * kLd + c)),
+                 "l"(from), "r"(in ? 16 : 0)
+                 : "memory");
+  }
 }
 
 }  // namespace tmx_flash

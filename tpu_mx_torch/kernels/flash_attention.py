@@ -40,13 +40,13 @@ count):
   the backward (``csrc/flash_attention_bwd.cu``).
 
 The kernel is chosen by dtype: bfloat16 runs on the tensor cores
-(``wgmma``) in all three; the float32 forward runs on the tensor cores
-in split precision (``tf32x3``: each operand split into two TF32
-halves, three products, float32 sums — within float32 rounding of the
-plain version, as the serving path needs), the float32 backward on FFMA
-(``ffma``).  Each wrapper also counts its launches by the route the C
-entry point reports, in ``<wrapper>.routes`` (``{"ffma": n, "wgmma": n,
-"tf32x3": n}``); there is no fallback between them.
+(``wgmma``) in all three; float32 runs on the tensor cores in split
+precision in all three too (``tf32x3``: each operand split into two
+TF32 halves, three products, float32 sums — within float32 rounding of
+the plain version, as the serving path and float32 training need).
+Each wrapper also counts its launches by the route the C entry point
+reports, in ``<wrapper>.routes`` (``{"wgmma": n, "tf32x3": n}``); there
+is no fallback between them.
 
 Gradients flow through :class:`FlashAttentionFunction`, whose backward
 calls the two backward wrappers.  The plain versions
@@ -76,7 +76,9 @@ HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 PLAIN_BLOCK_Q = 128             # query rows per step of the plain versions
-ROUTES = ("ffma", "wgmma", "tf32x3")   # the kernels a C entry point reports
+# the kernels a C entry point reports, by index (0 is reserved: the C ABI
+# keeps its numbering)
+ROUTES = {1: "wgmma", 2: "tf32x3"}
 
 _M32 = 0xFFFFFFFF
 _ROW_SALT = 0x9E3779B9          # the constants of csrc/flash_common.cuh
@@ -222,6 +224,47 @@ def flash_attention_delta(do, out):
     return (do.float() * out.float()).sum(dim=-1)
 
 
+def f32_bwd_error_bounds(q, k, v, do, scale=1.0):
+    """Elementwise bounds on the float32 backward's error against float64
+    at ``(BH, T, D)`` inputs without masks, fed the float64 lse and delta
+    rounded to float32, and the float64 ``(dq, dk, dv)``, lse and delta.
+    With ``c(n) = 3 * 2^-22 + 3n/8 * 2^-23`` (a split product's error and
+    n/8 float32 accumulations, each off by a whole unit in the last
+    place): a score is off by ``c(D) sum|q||k|`` and dP by ``c(D)
+    sum|dO||v|``; ``p = exp(s - lse)`` by ``p (e_s + 2^-23 (|lse| + |s -
+    lse|) + 2^-21) + 2^-126`` (lse's rounding, the subtraction, expf, a p
+    below float32's normal range flushed); ``dS = p (dP - delta)`` by
+    ``|dp_err| |dP - delta| + p (dP_err + 2^-23 |delta| + 2^-22 |dP -
+    delta|)``; ``dq = dS K scale`` by ``sum|dS_err||K| + c(Tk) sum|dS||K|``
+    (dk likewise over the queries with Q), ``dv = P^T dO`` by
+    ``sum|p_err||dO| + c(T) sum p|dO|``; every term doubled for the
+    second-order terms left out."""
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    d, t, tk = q.shape[-1], q.shape[1], k.shape[1]
+    c = lambda n: 3 * 2 ** -22 + 3 * n / 8 * 2 ** -23
+    s = q @ k.transpose(1, 2) * scale
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.exp(s - lse)
+    dp = do @ v.transpose(1, 2)
+    delta = (do * (p @ v)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    exact = (ds @ k * scale, ds.transpose(1, 2) @ q * scale,
+             p.transpose(1, 2) @ do)
+    e_s = c(d) * (q.abs() @ k.abs().transpose(1, 2)) * scale
+    e_dp = c(d) * (do.abs() @ v.abs().transpose(1, 2))
+    e_p = p * (e_s + 2 ** -23 * (lse.abs() + (s - lse).abs()) + 2 ** -21) \
+        + 2 ** -126
+    e_ds = e_p * (dp - delta).abs() + p * (
+        e_dp + 2 ** -23 * delta.abs() + 2 ** -22 * (dp - delta).abs())
+    bounds = (
+        (e_ds @ k.abs() + c(tk) * (ds.abs() @ k.abs())) * scale,
+        (e_ds.transpose(1, 2) @ q.abs()
+         + c(t) * (ds.abs().transpose(1, 2) @ q.abs())) * scale,
+        e_p.transpose(1, 2) @ do.abs() + c(t) * (p.transpose(1, 2)
+                                                 @ do.abs()))
+    return exact, [2 * b for b in bounds], lse[..., 0], delta[..., 0]
+
+
 def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale, causal=False,
                               kv_valid=None, dropout_rate=0.0,
                               dropout_seed=None, bias=None,
@@ -344,19 +387,17 @@ def _bias_abi(bias):
     return bias.data_ptr(), bias.shape[0], _BIAS_DTYPES[bias.dtype]
 
 
-def _check_aligned(what, *tensors, any_dtype=False):
-    """The tensor-core kernels copy 16-byte chunks: their operands (bf16
-    ones, and with ``any_dtype`` the float32 forward's too) must start
-    16-byte aligned (a fresh or contiguous-copied tensor does)."""
-    if (any_dtype or tensors[0].dtype == torch.bfloat16) and any(
-            x.data_ptr() % 16 for x in tensors):
+def _check_aligned(what, *tensors):
+    """The kernels copy 16-byte chunks: their operands and outputs must
+    start 16-byte aligned (a fresh or contiguous-copied tensor does)."""
+    if any(x.data_ptr() % 16 for x in tensors):
         raise MXNetError(f"{what} kernel: {tensors[0].dtype} operands "
                          "must start 16-byte aligned")
 
 
 def _count(wrapper, route):
     """One launch of ``wrapper``'s kernel, on the route the C entry point
-    reported (an index into :data:`ROUTES`)."""
+    reported (a key of :data:`ROUTES`)."""
     wrapper.launches += 1
     wrapper.routes[ROUTES[route.value]] += 1
 
@@ -364,7 +405,7 @@ def _count(wrapper, route):
 def _launch_fwd(q, k, v, scale, causal, kv_valid, rate, seed, bias=None):
     _check_kernel_operands("flash_attention", q, k, v)
     out = torch.empty_like(q)
-    _check_aligned("flash_attention", q, k, v, out, any_dtype=True)
+    _check_aligned("flash_attention", q, k, v, out)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     lib = _lib("flash_attention_fwd")
     route = ctypes.c_int(-1)
@@ -600,6 +641,13 @@ def mha_flash_attention(q, k, v, causal=False, valid_length=None,
 flash_attention.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
-flash_attention.routes = dict.fromkeys(ROUTES, 0)
-flash_attention_bwd_dq.routes = dict.fromkeys(ROUTES, 0)
-flash_attention_bwd_dkv.routes = dict.fromkeys(ROUTES, 0)
+
+
+def route_counts():
+    """A wrapper's ``routes`` with no launch counted."""
+    return dict.fromkeys(ROUTES.values(), 0)
+
+
+flash_attention.routes = route_counts()
+flash_attention_bwd_dq.routes = route_counts()
+flash_attention_bwd_dkv.routes = route_counts()
