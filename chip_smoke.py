@@ -77,6 +77,35 @@ line each:
                  and a sampler's ``state_dict`` resuming its stream.
                  Every stream equals the feature-off stream or splits
                  only where the logits' top two are within ``NEAR_TIE``;
+   ``serve_recovery`` — serving's robustness and recovery planes at the
+                 same width (``max_batch=8``, block 16, 1024 blocks), each
+                 arm against a run with every plane off: (a) the
+                 committed-token journal off and on in turns, twice (step
+                 ms, fsyncs a step, journal bytes); (b) a child process
+                 serving with ``TPUMX_CHAOS=kill9_at_decode_step=4`` and
+                 ``journal=`` must exit 137 without rebuilding a kernel,
+                 then ``recover()`` here resumes every unfinished stream
+                 with one replay prefill each (``tf32x3``), nothing
+                 re-decoded, lost, duplicated or re-yielded
+                 (``recover()``-to-last-resumed ms); (c) ``deadline=``
+                 with a wedged decode step: one ``WatchdogTimeout``, one
+                 classified restart to generation 1, a black box that
+                 ``tracing.validate_blackbox`` accepts, restart ms (fire
+                 to next token), and one pool's memory once the zombie
+                 step has ended; (d) a 3-restart storm within
+                 ``max_restarts=3``, then ``max_restarts=0``: queued
+                 requests fail loudly, the running batch drains; (e) one
+                 restart, replay prefill against the legacy prompt-replay
+                 arm (tokens re-decoded, wall ms); (f) ``handoff()`` and
+                 ``drain()`` mid-run; (g) ``slo=True``: a finite signal,
+                 TTFT/ITL window quantiles; (h) the capacity ledger's
+                 audit at every step under two tenants, and a forensic
+                 record valid under ``validate_forensic_doc`` from a
+                 64-block pool; (i) ``StaticBatchingScheduler`` against
+                 continuous batching (tokens/s).  Every run's flash
+                 launches are on ``tf32x3`` and paged launches on
+                 ``split_k``; streams equal the reference run's or split
+                 only at a near tie;
 5. ``train_parity`` — one ``CompiledTrainStep`` LAMB step of BERT-base
                  (12 layers, float32, dropout 0, batch 2 x 128) on the
                  card and on the CPU from the same weights: losses and
@@ -238,7 +267,13 @@ line each:
                  equals ``a * b + a`` within 1e-6 of ``|a*b| + |a|``
                  (nvcc may contract it to one FMA), and ``scale``
                  launched on an ``NDArray`` returns one, bit-equal too;
-                 nvcc's log reaches the error of bad source.
+                 nvcc's log reaches the error of bad source.  Each kernel
+                 is timed queued (device time), with the launch's host
+                 path in the window, and by the host clock over 200
+                 launches enqueued back to back (``host_us``), beside
+                 ``torch.mul``/``addcmul`` timed the same three ways; ``scale4`` (``scale``
+                 written for the card: 16-byte loads and stores) is timed
+                 beside ``torch.mul`` and must equal ``x * 3.0`` too.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -370,7 +405,21 @@ extern "C" __global__ void addmul(const float* __restrict__ a,
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) o[i] = a[i] * b[i] + a[i];
 }
+
+// scale written for the card: 16-byte loads and stores, a scalar tail
+extern "C" __global__ void scale4(const float* __restrict__ x,
+                                  float* __restrict__ y, float alpha, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int n4 = n >> 2;
+  if (i < n4) {
+    float4 v = reinterpret_cast<const float4*>(x)[i];
+    v.x *= alpha; v.y *= alpha; v.z *= alpha; v.w *= alpha;
+    reinterpret_cast<float4*>(y)[i] = v;
+  }
+  if (i < (n & 3)) y[(n4 << 2) + i] = x[(n4 << 2) + i] * alpha;
+}
 '''
+RTC_BLOCK = 256
 
 
 def emit(phase, **fields):
@@ -404,6 +453,20 @@ def cuda_ms(torch, fn, reps=20, warm=3, queued=False):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(torch, fn, n=200):
+    """Host microseconds a call of ``fn`` takes to enqueue its work: ``n``
+    calls back to back on the host clock, the card left to catch up
+    after (the queue never fills at these kernels' lengths)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
@@ -921,6 +984,13 @@ def flash_mask_bits(torch, fa, ctx):
                                f"keep rate {keep_rate}")
 
 
+def serve_prompts():
+    """The serve traffic's 8 prompts (77-700 tokens), from a seed."""
+    rng = np.random.RandomState(1)
+    return [rng.randint(0, SERVE["vocab_size"], size=n).tolist()
+            for n in PROMPT_LENS]
+
+
 def top2_gap(logits):
     top = np.sort(np.asarray(logits, np.float64))[-2:]
     return float(top[1] - top[0])
@@ -937,9 +1007,7 @@ def phase_serve(ctx):
     model = TinyLM(**SERVE, device="cuda")
     setup_s = time.perf_counter() - t0
     srv = Server(model, max_batch=8, block_size=16, num_blocks=1024)
-    rng = np.random.RandomState(1)
-    prompts = [rng.randint(0, SERVE["vocab_size"], size=n).tolist()
-               for n in PROMPT_LENS]
+    prompts = serve_prompts()
     # warm-up request (cuBLAS handles, kernel libraries) before counting
     srv.submit(prompts[0][:16], max_new_tokens=2)
     srv.run_until_idle()
@@ -960,7 +1028,7 @@ def phase_serve(ctx):
     ctx["decode_routes"] = decode_routes = dict(pa.paged_attention.routes)
     ctx["launches"] = {"flash_attention_fwd": flash_n,
                        "paged_attention": paged_n}
-    ctx["serve_model"], ctx["serve_prompts"] = model, prompts
+    ctx["serve_model"] = model
 
     events = tracing.snapshot()
     prefill_s = [e["data"]["seconds"] for e in events
@@ -1039,30 +1107,31 @@ def splits_ok(splits):
     return all(s is None or g <= NEAR_TIE for s, g in splits)
 
 
-def serve_run(torch, srv, prompts, new_tokens, track=None):
+def serve_run(torch, srv, prompts, new_tokens, track=None, each=None,
+              tenants=None, ids="f"):
     """Drive ``srv`` over ``prompts`` from counts at 0: the streams, the
     wall seconds, the kernels' launch counts and routes, the prefill and
-    decode events, and the peak of blocks held (read each step)."""
+    decode events, and the peak of blocks held (read each step).
+    ``each(i, reqs)`` runs after step ``i``; ``tenants`` names each
+    request's tenant."""
     from tpu_mx_torch import telemetry, tracing
     from tpu_mx_torch.kernels import flash_attention as fa
     from tpu_mx_torch.kernels import paged_attention as pa
-    reset_port_kernel_launches()
-    fa.flash_attention.routes = fa.route_counts()
-    pa.paged_attention.routes = dict.fromkeys(pa.ROUTES, 0)
-    pa.paged_attention.windows = {}
-    tracing.reset()
-    telemetry.reset()
-    reqs = [srv.submit(p, max_new_tokens=new_tokens, request_id=f"f{i}")
+    reset_serving_counts()
+    reqs = [srv.submit(p, max_new_tokens=new_tokens, request_id=f"{ids}{i}",
+                       tenant=None if tenants is None else tenants[i])
             for i, p in enumerate(prompts)]
     if track is not None:
         track(reqs)
-    cache = srv.engine.cache
-    peak = 0
+    peak, steps = 0, 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while not srv.scheduler.idle():
         srv.step()
-        peak = max(peak, cache.allocator.used)
+        steps += 1
+        peak = max(peak, srv.engine.cache.allocator.used)
+        if each is not None:
+            each(steps, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = tracing.snapshot()
@@ -1074,7 +1143,7 @@ def serve_run(torch, srv, prompts, new_tokens, track=None):
                  else 0) for k in ("flash", "dense")}
     ratio = telemetry.get("serve.spec_accept_ratio")
     return dict(
-        streams=[r.tokens for r in reqs],
+        streams=[r.tokens for r in reqs], reqs=reqs, steps=steps,
         done=all(r.state == "done" and len(r.tokens) == new_tokens
                  for r in reqs),
         wall_seconds=wall,
@@ -1092,9 +1161,33 @@ def serve_run(torch, srv, prompts, new_tokens, track=None):
         accept_ratio=ratio.value if ratio is not None else None)
 
 
+def reset_serving_counts():
+    """Launch counts, the serving kernels' routes and windows, events and
+    telemetry, all to zero: what a run then counts is its own."""
+    from tpu_mx_torch import telemetry, tracing
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.kernels import paged_attention as pa
+    reset_port_kernel_launches()
+    fa.flash_attention.routes = fa.route_counts()
+    pa.paged_attention.routes = dict.fromkeys(pa.ROUTES, 0)
+    pa.paged_attention.windows = {}
+    tracing.reset()
+    telemetry.reset()
+
+
+def serving_counts():
+    """The launch counts and the serving kernels' routes since the last
+    :func:`reset_serving_counts`."""
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.kernels import paged_attention as pa
+    return dict(launches=port_kernel_launches(),
+                flash_routes=dict(fa.flash_attention.routes),
+                paged_routes=dict(pa.paged_attention.routes))
+
+
 def _record(run):
     """A run's numbers for the phase's line (its streams left out)."""
-    return {k: v for k, v in run.items() if k != "streams"}
+    return {k: v for k, v in run.items() if k not in ("streams", "reqs")}
 
 
 def window_logits_diff(torch, model, prompt, stream, k=SPEC_WINDOW):
@@ -1151,12 +1244,9 @@ def phase_serve_features(ctx):
     from tpu_mx_torch.serving import Server, TinyLM
     from tpu_mx_torch.serving.sampling import TopKSampler
 
-    model = ctx.pop("serve_model", None) or TinyLM(**SERVE, device="cuda")
-    prompts = ctx.pop("serve_prompts", None)
-    if prompts is None:
-        rng = np.random.RandomState(1)
-        prompts = [rng.randint(0, SERVE["vocab_size"], size=n).tolist()
-                   for n in PROMPT_LENS]
+    model = ctx.get("serve_model") or TinyLM(**SERVE, device="cuda")
+    ctx["serve_model"] = model
+    prompts = serve_prompts()
     layers = SERVE["num_layers"]
     kw = dict(max_batch=8, block_size=16, num_blocks=1024)
     checks, launches = {}, dict.fromkeys(port_kernel_launches(), 0)
@@ -1318,6 +1408,451 @@ def phase_serve_features(ctx):
     for name, ok in checks.items():
         if not ok:
             ctx["failures"].append(f"serve_features check {name} failed")
+
+
+RECOVERY_KW = dict(max_batch=8, block_size=16, num_blocks=1024)
+RECOVERY_DEADLINE = 2.0     # s; a decode step at this width takes ~2-5 ms
+RECOVERY_STALL = 3.0        # s the wedged decode step sleeps
+RECOVERY_FAULT_STEP = 6     # the engine step at which a fault is armed
+RECOVERY_STORM = 3          # back-to-back restarts, within max_restarts=3
+RECOVERY_KILL_STEP = 4      # the child dies inside this decode step
+RECOVERY_EXHAUST_BLOCKS = 64
+RECOVERY_TENANTS = ("a", "b")
+RECOVERY_MEM_SLACK = 64 << 20   # bytes beside one pool after the zombie
+
+KILL9_CHILD = r'''
+import os, sys
+import chip_smoke as cs
+from tpu_mx_torch.serving import Server, TinyLM
+srv = Server(TinyLM(**cs.SERVE, device="cuda"), journal=sys.argv[1],
+             **cs.RECOVERY_KW)
+for i, p in enumerate(cs.serve_prompts()):
+    srv.submit(p, max_new_tokens=cs.NEW_TOKENS, request_id=f"f{i}")
+srv.run_until_idle()        # dies inside a decode step: os._exit(137)
+print("SHOULD NOT REACH HERE", flush=True)
+'''
+
+
+def arm_at(step, stack, **faults):
+    """A ``serve_run`` callback that arms chaos ``faults`` after engine
+    step ``step`` (disarmed when ``stack`` closes)."""
+    from tpu_mx_torch.contrib import chaos
+
+    def each(i, reqs):
+        if i == step:
+            stack.enter_context(chaos.enable(**faults))
+    return each
+
+
+def card_routes(run):
+    """Every flash launch of the run on ``tf32x3``, every paged launch on
+    ``split_k``, and both kernels launched."""
+    flash = run["launches"]["flash_attention_fwd"]
+    paged = run["launches"]["paged_attention"]
+    return (flash > 0 and paged > 0
+            and run["flash_routes"].get("tf32x3") == flash
+            and sum(run["flash_routes"].values()) == flash
+            and run["paged_routes"] == {"split_k": paged})
+
+
+def zombies():
+    import threading
+    return [t for t in threading.enumerate()
+            if t.name.startswith("watchdog-")]
+
+
+def phase_serve_recovery(ctx):
+    """Serving's robustness and recovery planes at TinyLM width 4096, each
+    arm held to a reference run with every plane off: the journal's cost,
+    kill -9 in a child then ``recover()`` here, the watchdog and restart
+    ladder, replay against the legacy arm, drain and handoff, the SLO
+    monitor, the capacity ledger and static batching."""
+    import contextlib
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from tpu_mx_torch import telemetry, tracing
+    from tpu_mx_torch.kernels import _build
+    from tpu_mx_torch.serving import (AdmissionReject, Server,
+                                      StaticBatchingScheduler, TinyLM,
+                                      validate_forensic_doc)
+    from tpu_mx_torch.serving.journal import load as journal_load
+    from tpu_mx_torch.serving.journal import journal_path
+
+    t_phase = time.perf_counter()
+    model = ctx.pop("serve_model", None) or TinyLM(**SERVE, device="cuda")
+    prompts = serve_prompts()
+    layers = SERVE["num_layers"]
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="serve_recovery-",
+                            dir=str(_build.BUILD_DIR.parent))
+    checks, launches = {}, dict.fromkeys(port_kernel_launches(), 0)
+    out = {}
+
+    def count(run):
+        for k, n in run["launches"].items():
+            launches[k] += n
+
+    def run_arm(name, srv, **kw):
+        run = serve_run(torch, srv, prompts, NEW_TOKENS, **kw)
+        count(run)
+        run.update(restarts=srv.restarts, generation=srv.generation)
+        checks[f"{name}_routes"] = card_routes(run)
+        return run
+
+    def near_ref(name, got, want=None):
+        splits = stream_splits(model, prompts, got, want or ref["streams"])
+        checks[f"{name}_streams"] = splits_ok(splits)
+        return splits
+
+    try:
+        # the reference run: every plane off
+        ref = run_arm("reference", Server(model, **RECOVERY_KW))
+        checks["reference_done"] = ref["done"]
+
+        # (a) the journal's cost: off and on in turns, twice
+        journal = {False: [], True: []}
+        for on in (False, True, False, True):
+            prefix = os.path.join(work, f"j{len(journal[on])}") if on \
+                else None
+            srv = Server(model, journal=prefix, **RECOVERY_KW)
+            fsyncs = [0]
+            if on:
+                inner = srv.journal._fsync
+
+                def fsync(inner=inner):
+                    fsyncs[0] += 1
+                    inner()
+                srv.journal._fsync = fsync
+            run = run_arm(f"journal_{int(on)}", srv)
+            if on:
+                srv.journal.close()
+                bytes_ = os.path.getsize(journal_path(prefix))
+                entries = journal_load(journal_path(prefix))
+                # one fsync a step; besides, one an admission, one at close
+                step_fsyncs = fsyncs[0] - len(prompts) - 1
+                run.update(fsyncs=fsyncs[0], step_fsyncs=step_fsyncs,
+                           fsyncs_per_step=step_fsyncs / run["steps"],
+                           journal_bytes=bytes_,
+                           journal_bytes_per_token=bytes_ / (
+                               len(prompts) * NEW_TOKENS),
+                           journal_ended=all(e["ended"] and e["tokens"]
+                                             == s for e, s in zip(
+                                                 entries.values(),
+                                                 run["streams"])))
+            journal[on].append(run)
+            del srv
+        checks["journal_streams"] = all(
+            splits_ok(stream_splits(model, prompts, r["streams"],
+                                    ref["streams"]))
+            for r in journal[False] + journal[True])
+        checks["journal_one_fsync_a_step"] = all(
+            r["step_fsyncs"] == r["steps"] for r in journal[True])
+        checks["journal_complete"] = all(r["journal_ended"]
+                                         for r in journal[True])
+        out["journal"] = {"off": [_record(r) for r in journal[False]],
+                          "on": [_record(r) for r in journal[True]]}
+
+        # (b) kill -9 in a child process, recover() here
+        prefix = os.path.join(work, "k9")
+        libs = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+        env = dict(os.environ,
+                   TPUMX_CHAOS=f"kill9_at_decode_step={RECOVERY_KILL_STEP}")
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", KILL9_CHILD, prefix],
+                               capture_output=True, text=True, env=env,
+                               cwd=os.path.dirname(os.path.abspath(
+                                   __file__)), timeout=300)
+        child_s = time.perf_counter() - t0
+        checks["kill9_exit_137"] = child.returncode == 137
+        checks["kill9_no_rebuild"] = libs == sorted(
+            p.name for p in _build.BUILD_DIR.glob("*.so"))
+        entries = journal_load(journal_path(prefix))
+        committed = {rid: list(e["tokens"]) for rid, e in entries.items()}
+        unfinished = [rid for rid, e in entries.items() if not e["ended"]]
+        srv = Server(model, journal=prefix, **RECOVERY_KW)
+        reset_serving_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = srv.recover()
+        pending = {rid for rid, h in handles.items()
+                   if len(h.tokens) < NEW_TOKENS}
+        yielded = {rid: [] for rid in handles}
+        resumed_ms = None
+        while not srv.scheduler.idle():
+            before = {rid: len(h.tokens) for rid, h in handles.items()}
+            srv.step()
+            for rid, h in handles.items():
+                yielded[rid] += h.tokens[before[rid]:]
+            if resumed_ms is None and all(yielded[r] for r in pending):
+                torch.cuda.synchronize()
+                resumed_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        recover_wall = time.perf_counter() - t0
+        rec = serving_counts()
+        rec_launches = rec["launches"]
+        count(rec)
+        prefills = [e["data"] for e in tracing.snapshot()
+                    if e["event"] == "serve.prefill"]
+        decodes = [e for e in tracing.snapshot()
+                   if e["event"] == "serve.decode"]
+        got = [list(handles[f"f{i}"].tokens) for i in range(len(prompts))]
+        checks.update(
+            kill9_journal_clean=len(entries) == len(prompts) and not any(
+                e["fallback"] for e in entries.values()),
+            kill9_work_committed=any(committed.values()),
+            recover_all_unfinished=set(handles) == set(unfinished)
+            and all(h.state == "done" for h in handles.values()),
+            recover_zero_lost_dup=all(
+                committed[rid] + yielded[rid] == list(h.tokens)
+                and len(h.tokens) == NEW_TOKENS
+                for rid, h in handles.items()),
+            recover_one_prefill_each=len(prefills) == len(pending)
+            and sorted(p["replayed"] for p in prefills) == sorted(
+                len(committed[rid]) for rid in pending)
+            and rec_launches["flash_attention_fwd"] == layers * len(pending),
+            recover_no_redecode=(
+                telemetry.get("serve.redecode_tokens") is None
+                and rec_launches["paged_attention"]
+                == layers * len(decodes)),
+            recover_routes=card_routes(rec))
+        recovered = {rid: list(h.tokens) for rid, h in handles.items()}
+        splits = near_ref("recover", [recovered.get(f"f{i}", committed.get(
+            f"f{i}")) for i in range(len(prompts))])
+        out["kill9"] = dict(
+            child_exit=child.returncode, child_seconds=child_s,
+            child_stderr_tail=child.stderr[-600:],
+            committed_tokens={rid: len(t) for rid, t in committed.items()},
+            unfinished=len(unfinished), replay_prefills=len(prefills),
+            replay_tokens=sum(p["replayed"] for p in prefills),
+            launches=rec_launches, recover_to_last_resumed_ms=resumed_ms,
+            recover_wall_seconds=recover_wall, splits=splits)
+        srv.journal.close()
+        del srv, handles
+
+        # (c) the watchdog: one wedged decode step
+        box = os.path.join(work, "wd")
+        gc.collect()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        srv = Server(model, deadline=RECOVERY_DEADLINE, backoff=0.0,
+                     blackbox=box, **RECOVERY_KW)
+        pool_bytes = 2 * srv.engine.cache.k_pool.nbytes
+        off = time.time() - time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            wd = run_arm("watchdog", srv, each=arm_at(
+                RECOVERY_FAULT_STEP, stack,
+                slow_decode_step=1, slow_decode_seconds=RECOVERY_STALL))
+        fires = [e for e in tracing.snapshot()
+                 if e["event"] == "supervisor.watchdog_fire"]
+        restarts = [e for e in tracing.snapshot()
+                    if e["event"] == "serve.restart"]
+        fire_t = fires[0]["ts"] - off if fires else None
+        after = [t for r in wd["reqs"] for t in r.token_times
+                 if fire_t is not None and t > fire_t]
+        for t in zombies():
+            t.join(timeout=2 * RECOVERY_STALL)
+        zombie_left = len(zombies())
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated() - m0
+        doc = json.loads(open(tracing.blackbox_path(box)).read())
+        try:
+            tracing.validate_blackbox(doc)
+            box_ok = True
+        except ValueError:
+            box_ok = False
+        checks.update(
+            watchdog_done=wd["done"],
+            watchdog_fired_once=len(fires) == 1
+            and telemetry.get("supervisor.watchdog_fires").value == 1,
+            watchdog_one_restart=wd["restarts"] == 1
+            and wd["generation"] == 1 and len(restarts) == 1
+            and "WatchdogTimeout" in restarts[0]["data"]["reason"],
+            watchdog_blackbox_valid=box_ok,
+            watchdog_zombie_joined=zombie_left == 0,
+            watchdog_one_pool_after=mem_after <= pool_bytes
+            + RECOVERY_MEM_SLACK)
+        near_ref("watchdog", wd["streams"])
+        out["watchdog"] = dict(
+            _record(wd), deadline_s=RECOVERY_DEADLINE,
+            stall_s=RECOVERY_STALL,
+            restart_ms=(min(after) - fire_t) * 1e3 if after else None,
+            pool_bytes=pool_bytes, peak_bytes_over_model=(
+                torch.cuda.max_memory_allocated() - m0),
+            bytes_after_zombie=mem_after,
+            blackbox_events=len(doc["events"]),
+            blackbox_environment={k: doc["environment"].get(k) for k in (
+                "torch", "cuda", "device", "nvcc")})
+        del srv, wd
+
+        # (d) a restart storm within the budget, then the degrade path
+        with contextlib.ExitStack() as stack:
+            srv = Server(model, max_restarts=RECOVERY_STORM, backoff=0.0,
+                         **RECOVERY_KW)
+            storm = run_arm("storm", srv, each=arm_at(
+                RECOVERY_FAULT_STEP, stack, restart_storm=RECOVERY_STORM))
+        checks["storm_restarts"] = storm["done"] and storm["restarts"] == \
+            storm["generation"] == RECOVERY_STORM and not srv.degraded
+        near_ref("storm", storm["streams"])
+        del srv
+        extra = prompts + prompts[:4]
+        with contextlib.ExitStack() as stack:
+            srv = Server(model, max_restarts=0, backoff=0.0, **RECOVERY_KW)
+            reset_serving_counts()
+            reqs = [srv.submit(p, max_new_tokens=NEW_TOKENS,
+                               request_id=f"d{i}")
+                    for i, p in enumerate(extra)]
+            each = arm_at(RECOVERY_FAULT_STEP, stack, restart_storm=1)
+            step = 0
+            while not srv.scheduler.idle():
+                srv.step()
+                step += 1
+                each(step, reqs)
+            degrade_counts = serving_counts()
+            count(degrade_counts)
+        checks["degrade_routes"] = card_routes(degrade_counts)
+        failed = [r for r in reqs if r.state == "failed"]
+        drained = [r for r in reqs if r.state == "done"]
+        checks.update(
+            degrade_queued_failed=len(failed) == len(extra) - 8 and all(
+                r.finish_reason.startswith("degraded") for r in failed),
+            degrade_running_drained=len(drained) == 8 and all(
+                len(r.tokens) == NEW_TOKENS for r in drained),
+            degrade_closed=srv.degraded and srv.generation == 1)
+        near_ref("degrade", [r.tokens for r in reqs[:8]])
+        out["storm"] = dict(_record(storm), degrade=dict(
+            failed=len(failed), drained=len(drained),
+            generation=srv.generation))
+        del srv, reqs
+
+        # (e) one restart: replay prefill against the legacy arm
+        replay = {}
+        for arm in (True, False):
+            with contextlib.ExitStack() as stack:
+                srv = Server(model, replay=arm, backoff=0.0, **RECOVERY_KW)
+                run = run_arm(f"replay_{int(arm)}", srv, each=arm_at(
+                    RECOVERY_FAULT_STEP, stack, restart_storm=1))
+            red = telemetry.get("serve.redecode_tokens")
+            rep = telemetry.get("serve.replay_tokens")
+            run.update(redecode_tokens=red.value if red else 0,
+                       replay_tokens=rep.value if rep else 0)
+            replay[arm] = run
+            near_ref(f"replay_{int(arm)}", run["streams"])
+            del srv
+        checks["replay_no_redecode"] = (
+            replay[True]["redecode_tokens"] == 0
+            and replay[True]["replay_tokens"] > 0
+            and replay[False]["redecode_tokens"] > 0)
+        out["replay"] = {"replay": _record(replay[True]),
+                         "legacy": _record(replay[False])}
+
+        # (f) drain and handoff mid-run
+        srv = Server(model, **RECOVERY_KW)
+        moved = []
+        hand = run_arm("handoff", srv, each=lambda i, reqs: moved.append(
+            srv.handoff()) if i == RECOVERY_FAULT_STEP else None)
+        checks["handoff"] = hand["done"] and hand["generation"] == 1 \
+            and hand["restarts"] == 0 and moved == [len(prompts)]
+        near_ref("handoff", hand["streams"])
+        srv = Server(model, **RECOVERY_KW)
+        drained_at = []
+        drain = run_arm("drain", srv, each=lambda i, reqs: drained_at.append(
+            srv.drain()) if i == RECOVERY_FAULT_STEP else None)
+        try:
+            srv.submit(prompts[0], max_new_tokens=2)
+            reason = None
+        except AdmissionReject as e:
+            reason = e.reason
+        srv.resume_admission()
+        checks["drain"] = drain["done"] and reason == "draining" \
+            and not [r for r in drain["reqs"] if r.state == "failed"]
+        near_ref("drain", drain["streams"])
+        out["handoff"] = _record(hand)
+        out["drain"] = dict(_record(drain), drain_steps=drained_at)
+        del srv
+
+        # (g) the live SLO monitor
+        srv = Server(model, slo=True, **RECOVERY_KW)
+        slo_run = run_arm("slo", srv)
+        sig = srv.slo_signal
+        q = {f"{m}_{p}": telemetry.get(f"serve.{m}_seconds")
+             .window_quantile(float(f"0.{p}"))
+             for m in ("ttft", "itl") for p in ("5", "99")}
+        checks["slo_signal_finite"] = sig is not None and math.isfinite(
+            sig["max_burn_rate"]) and all(
+                v is not None and math.isfinite(v) for v in q.values())
+        near_ref("slo", slo_run["streams"])
+        out["slo"] = dict(_record(slo_run), signal={
+            k: sig[k] for k in ("breaching", "max_burn_rate")},
+            window_quantiles_s=q, slos={
+                n: {k: st[k] for k in ("estimate_seconds", "breaching")}
+                for n, st in sig["slos"].items()})
+        del srv
+
+        # (h) the capacity ledger, audited at every step; exhaustion
+        srv = Server(model, tenants={t: {"weight": 1.0}
+                                     for t in RECOVERY_TENANTS},
+                     **RECOVERY_KW)
+        audits = []
+
+        def audit(i, reqs):
+            # audit() checks the identity exactly (fractions) or raises;
+            # here its float rendering, against the allocator's count
+            rep = srv.engine.cache.audit()
+            used = srv.engine.cache.allocator.used * rep["block_bytes"]
+            audits.append(rep["used_bytes"] == used and abs(sum(
+                d["bytes_amortized"] for d in rep["tenants"].values())
+                - used) <= 1e-9 * max(used, 1))
+        led = run_arm("ledger", srv, each=audit, tenants=[
+            RECOVERY_TENANTS[i % 2] for i in range(len(prompts))])
+        checks["ledger_audit_every_step"] = len(audits) == led["steps"] \
+            and all(audits)
+        near_ref("ledger", led["streams"])
+        del srv
+        box = os.path.join(work, "cap")
+        srv = Server(model, blackbox=box, **dict(
+            RECOVERY_KW, num_blocks=RECOVERY_EXHAUST_BLOCKS))
+        exh = run_arm("exhaustion", srv)
+        recs = srv.engine.cache.forensic_records()
+        path = srv.engine.cache.flush_forensics()
+        try:
+            validate_forensic_doc(json.loads(open(path).read()))
+            forensic_ok = True
+        except (ValueError, TypeError, OSError):
+            forensic_ok = False
+        checks.update(
+            exhaustion_done=exh["done"],
+            exhaustion_forensic=any(r["kind"] == "exhaustion"
+                                    for r in recs) and forensic_ok)
+        near_ref("exhaustion", exh["streams"])
+        out["ledger"] = dict(_record(led), audits=len(audits),
+                             exhaustion=dict(_record(exh),
+                                             forensic_records=len(recs)))
+        del srv
+
+        # (i) static batching against continuous batching
+        srv = Server(model, scheduler=StaticBatchingScheduler(
+            max_batch=RECOVERY_KW["max_batch"]), **RECOVERY_KW)
+        static = run_arm("static", srv)
+        checks["static_done"] = static["done"]
+        near_ref("static", static["streams"])
+        out["static"] = dict(_record(static), continuous_tokens_per_sec=ref[
+            "tokens_per_sec"], continuous_steps=ref["steps"])
+        del srv
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    ctx["serve_recovery_launches"] = launches
+    emit("serve_recovery", ok=all(checks.values()), checks=checks,
+         model={**SERVE, **RECOVERY_KW}, prompts=list(PROMPT_LENS),
+         new_tokens=NEW_TOKENS, reference=_record(ref), **out,
+         launches=launches, seconds=time.perf_counter() - t_phase,
+         card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"serve_recovery check {name} failed")
 
 
 def bert_batch(cfg, batch, seq, n_masked, valid, rng):
@@ -2625,7 +3160,8 @@ def phase_attention_bias(ctx):
 
 def phase_rtc(ctx):
     """The reference's rtc kernels as CUDA source, compiled at run time,
-    on 2**26 float32 elements."""
+    on 2**26 float32 elements; and ``scale`` written for the card
+    (``scale4``), timed beside ``torch.mul``."""
     import torch
     from tpu_mx_torch import nd, rtc
     from tpu_mx_torch.base import MXNetError
@@ -2635,6 +3171,8 @@ def phase_rtc(ctx):
     mod = rtc.CudaModule(RTC_SOURCE)
     scale, addmul = mod.get_kernel("scale", alpha=3.0), \
         mod.get_kernel("addmul")
+    scale4 = mod.get_kernel("scale4", alpha=3.0)
+    grid4 = -(-(RTC_N // 4) // RTC_BLOCK)
     t0 = time.perf_counter()
     mod.cubin()
     build_s = time.perf_counter() - t0
@@ -2645,25 +3183,37 @@ def phase_rtc(ctx):
     y_nd = scale.launch((nd.array(x),))         # NDArray in, NDArray out
     torch.cuda.synchronize()
     launches = rtc.Kernel.launches
+    y4 = scale4.launch((x,), grid=grid4, block=RTC_BLOCK)
+    tail = x[:RTC_N - 3]
+    y4_tail = scale4.launch((tail,), grid=-(-(tail.numel() // 4)
+                                            // RTC_BLOCK),
+                            block=RTC_BLOCK)
     want_y, want_o = x * 3.0, a * b + a
     terms = (a * b).abs() + a.abs()
     addmul_rel = float(((o - want_o).abs() / terms.clamp_min(1e-30)).max())
     errs = {"scale": float((y - want_y).abs().max()),
-            "addmul": float((o - want_o).abs().max())}
+            "addmul": float((o - want_o).abs().max()),
+            "scale4": float((y4 - want_y).abs().max())}
     checks = {"scale_bit_equal": torch.equal(y, want_y),
               "ndarray_scale_bit_equal": isinstance(y_nd, nd.NDArray)
               and torch.equal(y_nd._data, want_y),
+              "scale4_bit_equal": torch.equal(y4, want_y),
+              "scale4_tail_bit_equal": torch.equal(y4_tail, tail * 3.0),
               "addmul_rel": addmul_rel <= 1e-6, "launches": launches == 3}
-    del y, o, y_nd, want_y, want_o, terms
+    del y, o, y_nd, y4, y4_tail, want_y, want_o, terms
 
     buf = torch.empty_like(x)
-    nbytes = {"scale": 2 * 4 * RTC_N, "addmul": 3 * 4 * RTC_N}
-    flops = {"scale": RTC_N, "addmul": 2 * RTC_N}
+    nbytes = {"scale": 2 * 4 * RTC_N, "addmul": 3 * 4 * RTC_N,
+              "scale4": 2 * 4 * RTC_N}
+    flops = {"scale": RTC_N, "addmul": 2 * RTC_N, "scale4": RTC_N}
+    scale_lib = lambda: torch.mul(x, 3.0, out=buf)
     timed = {
-        "scale": (lambda: scale.launch((x,)), lambda: x * 3.0,
-                  lambda: torch.mul(x, 3.0, out=buf)),
+        "scale": (lambda: scale.launch((x,)), lambda: x * 3.0, scale_lib),
         "addmul": (lambda: addmul((a, b)), lambda: a * b + a,
-                   lambda: torch.addcmul(a, a, b, out=buf))}
+                   lambda: torch.addcmul(a, a, b, out=buf)),
+        "scale4": (lambda: scale4.launch((x,), grid=grid4,
+                                         block=RTC_BLOCK),
+                   lambda: x * 3.0, scale_lib)}
     kernels = {}
     for name, (kern, plain, lib) in timed.items():
         b_ms, b_by = bound(nbytes[name], flops[name])
@@ -2671,9 +3221,15 @@ def phase_rtc(ctx):
             ms=cuda_ms(torch, kern, queued=True),
             ms_with_host=cuda_ms(torch, kern),
             plain_ms=cuda_ms(torch, plain, queued=True),
-            library_ms=cuda_ms(torch, lib, queued=True), bound_ms=b_ms,
-            bound_by=b_by, max_abs_err=errs[name])
-        kernels[name].update(rates(flops[name], kernels[name]["ms"], b_ms))
+            library_ms=cuda_ms(torch, lib, queued=True),
+            library_ms_with_host=cuda_ms(torch, lib),
+            host_us=host_us(torch, kern), library_host_us=host_us(torch, lib),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[name])
+        k = kernels[name]
+        k.update(rates(flops[name], k["ms"], b_ms),
+                 host_ms=k["ms_with_host"] - k["ms"],
+                 library_host_ms=k["library_ms_with_host"] - k["library_ms"],
+                 over_library=k["ms"] / k["library_ms"])
 
     refusals = {}
     bad = rtc.CudaModule('extern "C" __global__ void bad(const float* x, '
@@ -2692,7 +3248,7 @@ def phase_rtc(ctx):
     checks["unknown_kernel"] = "not found" in refusals["unknown_kernel"]
     ctx["rtc"] = dict(kernels["scale"], launches=launches,
                       shape=f"{RTC_N} float32 elements, scale alpha=3.0",
-                      addmul=kernels["addmul"])
+                      addmul=kernels["addmul"], scale4=kernels["scale4"])
     emit("rtc", ok=all(checks.values()), checks=checks, n=RTC_N,
          build_seconds=build_s, launches=launches,
          addmul_max_rel_err_of_terms=addmul_rel, kernels=kernels,
@@ -3152,6 +3708,7 @@ def main():
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
                      ("serve", phase_serve),
                      ("serve_features", phase_serve_features),
+                     ("serve_recovery", phase_serve_recovery),
                      ("train_parity", phase_train_parity),
                      ("train", phase_train),
                      ("train_f32", phase_train_f32),
@@ -3177,6 +3734,7 @@ def main():
     if ctx["failures"] or not {"kernels", "launches", "train_launches",
                                 "train_f32_launches", "f32_kernels",
                                 "serve_features_launches",
+                                "serve_recovery_launches",
                                 "resnet_parity", "resnet_launches",
                                 "lstm_launches", "ssd_launches", "bias",
                                 "rtc", "imperative_parity", "mnist_launches",
@@ -3215,6 +3773,8 @@ def main():
                    ctx["bert_imperative_launches"][name],
                "launches_serve_features":
                    ctx["serve_features_launches"][name],
+               "launches_serve_recovery":
+                   ctx["serve_recovery_launches"][name],
                "launches_train_f32": ctx["train_f32_launches"][name]}
         if name == "paged_attention":   # the speculative verify window
             t4 = ctx["paged_tq4"]
@@ -3267,6 +3827,11 @@ def main():
                     "library_ms": r["library_ms"], "shape": r["shape"],
                     "tflops": r["tflops"], "bound_over_ms": r["bound_over_ms"],
                     "math_route": "ffma", "addmul": r["addmul"],
+                    "scale4": r["scale4"],
+                    "ms_with_host": r["ms_with_host"],
+                    "library_ms_with_host": r["library_ms_with_host"],
+                    "host_us": r["host_us"],
+                    "library_host_us": r["library_host_us"],
                     "launches_resnet": ctx["resnet_launches"]["rtc"],
                     "launches_lstm": ctx["lstm_launches"]["rtc"],
                     "launches_ssd": ctx["ssd_launches"]["rtc"],
@@ -3275,6 +3840,8 @@ def main():
                         ctx["bert_imperative_launches"]["rtc"],
                     "launches_serve_features":
                         ctx["serve_features_launches"]["rtc"],
+                    "launches_serve_recovery":
+                        ctx["serve_recovery_launches"]["rtc"],
                     "launches_train_f32": ctx["train_f32_launches"]["rtc"]})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

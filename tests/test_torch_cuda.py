@@ -8,6 +8,7 @@ it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import json
 import math
 
 import numpy as np
@@ -1407,3 +1408,48 @@ def test_rtc_launch_takes_arrays_on_the_card():
     y = mod.get_kernel("scale", alpha=3.0).launch((x,))
     assert isinstance(y, nd.NDArray) and y._data.is_cuda
     assert torch.equal(y._data, x._data * 3.0)
+
+
+# ---------------------------------------------------------------------------
+# serving's recovery plane on the card
+# ---------------------------------------------------------------------------
+def test_engine_warm_batch_launches_both_kernels_at_construction():
+    from tpu_mx_torch.serving import EngineCore, TinyLM
+    model = TinyLM(vocab_size=64, embed_dim=256, num_heads=2, num_layers=2,
+                   device="cuda")
+    fa.flash_attention.launches = pa.paged_attention.launches = 0
+    eng = EngineCore(model, num_blocks=64, warm_batch=4)
+    torch.cuda.synchronize()
+    assert eng.warmed and eng.warm_batch == 4
+    assert fa.flash_attention.launches == 2
+    assert pa.paged_attention.launches == 2
+    assert eng.cache.audit()["used_blocks"] == 0
+
+
+def test_watchdog_restart_on_the_card_keeps_the_streams(tmp_path):
+    from tpu_mx_torch import tracing
+    from tpu_mx_torch.contrib import chaos
+    from tpu_mx_torch.serving import Server, TinyLM
+    model = TinyLM(vocab_size=64, embed_dim=256, num_heads=2, num_layers=2,
+                   device="cuda")
+    prompts = ([1, 2, 3], [4, 5, 6, 7], [8] * 20)
+
+    def run(**kw):
+        srv = Server(model, num_blocks=64, backoff=0.0, **kw)
+        reqs = [srv.submit(p, 8, request_id=f"r{i}")
+                for i, p in enumerate(prompts)]
+        srv.step()
+        with chaos.enable(slow_decode_step=1, slow_decode_seconds=1.0):
+            srv.run_until_idle()
+        return srv, [list(r.tokens) for r in reqs]
+
+    clean = Server(model, num_blocks=64)
+    want = [clean.submit(p, 8, request_id=f"r{i}")
+            for i, p in enumerate(prompts)]
+    clean.run_until_idle()
+    srv, got = run(deadline=0.5, blackbox=str(tmp_path / "bb"))
+    assert srv.restarts == 1 and srv.generation == 1
+    assert len(got) == 3 and all(len(t) == 8 for t in got)
+    tracing.validate_blackbox(json.loads(
+        (tmp_path / "bb-blackbox.json").read_text()))
+    assert got[0][:1] == want[0].tokens[:1]

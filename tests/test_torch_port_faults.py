@@ -20,6 +20,8 @@ The card side of the dense arm is in ``tests/test_torch_cuda.py``.
 import importlib
 import inspect
 import json
+import os
+import tempfile
 
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +49,8 @@ from tpu_mx_torch.serving import Server, TinyLM
 jra = importlib.import_module("tpu_mx.parallel.ring_attention")
 # each arm of the port's dispatch_counts by its name in the reference's
 REFERENCE_ARMS = {"flash_kernel": "pallas_flash", "dense": "xla_dense"}
+# a journal prefix in a directory of its own (the journal opens its file)
+_JOURNAL = os.path.join(tempfile.mkdtemp(prefix="port-faults-"), "serve")
 _JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
         torch.float16: jnp.float16}
 
@@ -392,14 +396,6 @@ _REFUSED = [
     ("CompiledTrainStep", "gradient_compression", {"type": "2bit"}),
     ("CompiledTrainStep.step", "deadline", 5.0),
     ("CompiledTrainStep.step", "compile_grace", 1.0),
-    ("Server", "deadline", 1.0), ("Server", "max_restarts", 0),
-    ("Server", "backoff", 0.5), ("Server", "blackbox", "box"),
-    ("Server", "slo", True),
-    ("Server", "journal", "journal.log"),
-    ("Server", "replay", "journal.log"),
-    ("EngineCore", "forensics", True),
-    ("EngineCore", "warm_batch", 4),
-    ("PagedKVCache", "forensics", True),
 ]
 # arguments refused until their feature was ported, each with a check
 # that the given value took effect
@@ -414,6 +410,24 @@ _ACCEPTED = [
      lambda eng: not eng.greedy and eng.spec_window == 1),
     ("PagedKVCache", "share_prefix", True,
      lambda cache: cache.prefix is not None),
+    # the serving robustness and recovery planes
+    ("Server", "deadline", 1.0, lambda srv: srv.deadline == 1.0),
+    ("Server", "max_restarts", 0, lambda srv: srv.max_restarts == 0),
+    ("Server", "backoff", 0.5, lambda srv: srv.backoff == 0.5),
+    ("Server", "blackbox", "box",
+     lambda srv: srv.blackbox == "box"
+     and srv.engine.cache._forensics_path == "box-capacity.json"),
+    ("Server", "slo", True, lambda srv: srv.slo is not None
+     and srv.slo_signal is not None),
+    ("Server", "journal", _JOURNAL,
+     lambda srv: srv.journal is not None
+     and srv.journal.path == f"{_JOURNAL}-journal.jsonl"),
+    ("Server", "replay", False, lambda srv: srv.replay is False),
+    ("EngineCore", "forensics", "box",
+     lambda eng: eng.cache._forensics_path == "box-capacity.json"),
+    ("EngineCore", "warm_batch", 4, lambda eng: eng.warm_batch == 4),
+    ("PagedKVCache", "forensics", "box",
+     lambda cache: cache._forensics_path == "box-capacity.json"),
 ]
 # arguments with no torch meaning: accepted at any value and ignored
 _IGNORED = [

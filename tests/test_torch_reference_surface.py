@@ -235,11 +235,6 @@ ALLOWED = {
         "the port's dense decode gathers from the pools by table itself",
     ("tpu_mx_torch.serving.attention", "dense_decode_attention", "values"):
         "the port's dense decode gathers from the pools by table itself",
-    ("tpu_mx_torch.serving.scheduler",
-     "ContinuousBatchingScheduler.requeue", "replay"):
-        "the port always keeps a preempted request's tokens (the "
-        "reference's replay=True arm); prompt replay belongs with "
-        "journal.py (ROADMAP A12)",
 }
 
 
@@ -341,14 +336,16 @@ C11_CASES = [
         dropout_key=v), lambda y: y.shape == (1, 2, 4, 16),
      torch.tensor([3], dtype=torch.int32)),
     ("block_bytes", lambda v: serving.BlockAllocator(4, block_bytes=v),
-     None, 64),
+     lambda a: a.ledger.block_bytes == 64
+     and a.capacity_snapshot()["block_bytes"] == 64, 64),
     ("slo_boost", lambda v: serving.ContinuousBatchingScheduler(
-        slo_boost=v), None, 3.0),
+        slo_boost=v), lambda s: s.slo_boost == 3.0
+     and s._effective_weight("t", {"t"}) == 3.0, 3.0),
     ("bert_moe", lambda v: mx.models.bert.BERTEncoder(
         1, 8, 16, 2, 10, 8, moe_every=v, generator=torch.Generator()),
      None, 2),
-    ("histogram", lambda v: mx.telemetry.histogram("t.x", buckets=v), None,
-     (0.1, 1.0)),
+    ("histogram", lambda v: mx.telemetry.histogram("t.x", buckets=v),
+     lambda h: h.buckets == (0.1, 1.0), (0.1, 1.0)),
 ]
 
 

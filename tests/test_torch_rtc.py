@@ -146,3 +146,40 @@ def test_reference_rtc_kernels_compute_what_the_card_is_held_to():
     # differ by an ulp of the terms, not of a result that cancels
     err = np.abs(o.asnumpy() - (a * b + a))
     assert np.all(err <= 1e-6 * (np.abs(a * b) + np.abs(a)))
+
+
+def _per_launch_values(kernel, tensors, n):
+    """The values a launch passed before the parameter block existed: a
+    fresh list built at every launch (pointers, then each scalar as its
+    static binding or, for an unbound ``n``, the output's size)."""
+    ptrs = iter(tensors)
+    return [ctypes.c_void_p(next(ptrs).data_ptr()) if kind == "pointer"
+            else kernel._static[name] if name in kernel._static
+            else rtc._scalar(ctype, n, name)
+            for name, kind, ctype in kernel.params]
+
+
+@pytest.mark.parametrize("type_name", sorted(rtc._SCALARS))
+def test_parameter_block_binds_what_the_per_launch_list_did(type_name):
+    ctype = rtc._SCALARS[type_name]
+    value = {ctypes.c_float: 1.25, ctypes.c_double: -2.5,
+             ctypes.c_bool: True, ctypes.c_int32: -7,
+             ctypes.c_uint32: 4_000_000_000,
+             ctypes.c_int64: -(2 ** 40)}[ctype]
+    mod = rtc.CudaModule(
+        'extern "C" __global__ void k(const float* x, const double* w, '
+        f'{type_name} s, float* y, {type_name} n) {{}}')
+    tensors = (torch.ones(3), torch.ones(2, dtype=torch.float64),
+               torch.empty(5))
+    for static in ({"s": value}, {"s": value, "n": value}):
+        k = mod.get_kernel("k", **static)
+        for n in (5, 7):     # the block is rewritten in place per launch
+            array = k._block.bind(tensors, n)
+            want = _per_launch_values(k, tensors, n)
+            assert len(array) == len(want) == 5
+            for addr, w in zip(array, want):
+                got = type(w).from_address(addr)
+                assert got.value == w.value, (type_name, static, n)
+    if ctype in (ctypes.c_int32, ctypes.c_uint32):
+        with pytest.raises(MXNetError, match="does not fit"):
+            mod.get_kernel("k", s=value)._block.bind(tensors, 2 ** 33)

@@ -114,8 +114,14 @@ def test_allocator_exhaustion_is_all_or_nothing_backpressure():
     assert a.available == 1
     a.free(got)
     assert a.alloc(1) == [got[-1]]          # LIFO: last freed first
-    assert a.audit() == {"num_blocks": 4, "used_blocks": 1,
-                         "free_blocks": 3, "total_refs": 1}
+    report = a.audit()
+    assert {k: report[k] for k in ("num_blocks", "used_blocks",
+                                   "free_blocks", "total_refs")} == {
+        "num_blocks": 4, "used_blocks": 1, "free_blocks": 3,
+        "total_refs": 1}
+    # the ledger's view of the same block: one unattributed reference
+    assert [(h["id"], h["blocks"]) for h in report["holders"]] == [
+        ("_anon", 1)] and report["used_bytes"] == a.ledger.block_bytes
 
 
 def test_allocator_double_free_is_loud():
@@ -208,9 +214,13 @@ def test_prefill_fills_blocks_and_truncate_frees_tail():
     with pytest.raises(CacheExhausted):
         cache.prefill("b", *_kv(40))
     assert cache.free_sequence("a") == 2
-    assert cache.audit() == {"num_blocks": 8, "used_blocks": 0,
-                             "free_blocks": 8, "total_refs": 0,
-                             "sequences": 0, "index_refs": 0}
+    report = cache.audit()
+    assert {k: report[k] for k in ("num_blocks", "used_blocks",
+                                   "free_blocks", "total_refs",
+                                   "sequences", "index_refs")} == {
+        "num_blocks": 8, "used_blocks": 0, "free_blocks": 8,
+        "total_refs": 0, "sequences": 0, "index_refs": 0}
+    assert report["holders"] == [] and report["tenants"] == {}
 
 
 def test_bf16_pool_serves_close_to_the_f32_pool():
@@ -342,10 +352,14 @@ def test_unported_options_and_devices_are_refused_loudly():
 def test_non_finite_logits_raise_and_lose_no_request():
     model = port_model()
     model.w_out[0, 0] = float("nan")
-    srv = Server(model, num_blocks=64, device="cpu")
+    srv = Server(model, num_blocks=64, backoff=0.0, device="cpu")
     req = srv.submit(PROMPTS[0], max_new_tokens=4)
     with pytest.raises(NumericDivergence):
-        srv.step()
+        srv.engine.prefill(req)
+    # the server classifies it (numeric) and restarts the engine with the
+    # request back in the queue, as the reference's does
+    srv.step()
+    assert srv.restarts == 1 and srv.generation == 1
     assert req.state == "queued" and srv.scheduler.queue_depth() == 1
     assert srv.engine.cache.audit()["used_blocks"] == 0
 

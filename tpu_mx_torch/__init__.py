@@ -10,7 +10,9 @@ reads like the reference's scripts: ``mx.nd`` (arrays and operators),
 The port goes slice by slice:
 
 - serving (:mod:`tpu_mx_torch.serving`), over the flash forward and the
-  paged-decode kernels;
+  paged-decode kernels, with its robustness and recovery planes
+  (:mod:`tpu_mx_torch.supervisor`, the committed-token journal, the SLO
+  monitor, the capacity ledger);
 - one BERT-base pretraining step (:mod:`tpu_mx_torch.models`,
   :mod:`tpu_mx_torch.parallel`, :mod:`tpu_mx_torch.optimizer`,
   :mod:`tpu_mx_torch.gluon`, :mod:`tpu_mx_torch.ndarray`), over the

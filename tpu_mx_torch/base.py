@@ -1,9 +1,11 @@
 """Framework-level errors of the PyTorch/CUDA port.
 
-Copies of the reference's exception classes (``tpu_mx/base.py``,
-``tpu_mx/supervisor.py``): the port never imports ``tpu_mx`` — doing so
-would boot its distributed runtime and import jax — so the few classes
-it needs live here under the same names.
+Copies of the reference's exception classes (``tpu_mx/base.py``): the
+port never imports ``tpu_mx`` — doing so would boot its distributed
+runtime and import jax — so the classes it needs live here under the
+same names.  :class:`NumericDivergence` lives in
+:mod:`tpu_mx_torch.supervisor`, as in the reference, and is re-exported
+here.
 """
 from __future__ import annotations
 
@@ -12,12 +14,6 @@ __all__ = ["MXNetError", "NumericDivergence", "refuse_unported"]
 
 class MXNetError(RuntimeError):
     """Framework-level error (name kept for API familiarity with the reference)."""
-
-
-class NumericDivergence(MXNetError):
-    """Non-finite values where the computation must stay finite: the
-    serving engine raises it when a step's logits health (max |logit|)
-    is NaN or Inf."""
 
 
 def _is_default(value, default):
@@ -40,3 +36,11 @@ def refuse_unported(owner, item, **args):
         if not _is_default(value, default):
             raise MXNetError(f"{owner}({name}={value!r}) is not ported yet "
                              f"(ROADMAP {item})")
+
+
+def __getattr__(name):
+    # supervisor.py imports this module: resolved at first use
+    if name == "NumericDivergence":
+        from .supervisor import NumericDivergence
+        return NumericDivergence
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

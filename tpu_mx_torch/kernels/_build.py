@@ -111,11 +111,18 @@ def build_all():
 
 
 def load(name):
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use.  A
+    build or ``dlopen`` that fails with an ``OSError`` raises
+    :class:`MXNetError`: retrying it cannot succeed, and the serving
+    supervisor would call an ``OSError`` transient and restart."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            try:
+                lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            except OSError as e:
+                raise MXNetError(f"kernel library csrc/{name}.cu could not "
+                                 f"be built or loaded: {e}") from e
         return lib
 
 

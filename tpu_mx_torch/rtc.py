@@ -42,6 +42,11 @@ was modelled on::
   through :mod:`ctypes`), once per (device, hash), and launched with
   ``cuLaunchKernel``; an error code it returns raises
   :class:`MXNetError` with ``cuGetErrorString``'s text.
+- The launch's host path is short: ``get_kernel`` builds the kernel's
+  ``cuLaunchKernel`` parameter block once (static scalars bound for
+  good; a launch rewrites the pointers and an unbound ``n`` in place),
+  the CUDA context is verified once per thread and device, and the
+  device switch is skipped when the inputs' device is already current.
 - There is no CUDA-C interpreter on the host, so ``launch`` on CPU
   tensors raises (the reference runs its Pallas kernels in interpret
   mode there).
@@ -50,7 +55,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import math
 import os
 import re
 import subprocess
@@ -185,6 +189,85 @@ def _require_context(device):
                          f"{index.value}'s, not {device}'s")
 
 
+# devices whose context this thread has verified: once torch has made a
+# device's primary context current on a thread it stays so while that
+# device is torch's current one, so libcuda is asked once, not per
+# launch
+_verified = threading.local()
+
+
+def _context_ready(device):
+    seen = getattr(_verified, "devices", None)
+    if seen is None:
+        seen = _verified.devices = set()
+    if device.index not in seen:
+        _require_context(device)
+        seen.add(device.index)
+
+
+def _raw_stream(index):
+    """The device's current stream as a ``CUstream`` integer."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+_DTYPES = {}      # out_dtype name -> torch.dtype
+
+
+def _out_dtype(out_dtype):
+    if isinstance(out_dtype, torch.dtype):
+        return out_dtype
+    dtype = _DTYPES.get(out_dtype)
+    if dtype is None:
+        dtype = getattr(torch, out_dtype, None) \
+            if isinstance(out_dtype, str) else None
+        if not isinstance(dtype, torch.dtype):
+            raise MXNetError(f"rtc: unknown out_dtype {out_dtype!r}")
+        _DTYPES[out_dtype] = dtype
+    return dtype
+
+
+class _ParamBlock:
+    """A kernel's ``cuLaunchKernel`` parameter block, built once: one
+    ``ctypes`` value per parameter and the array of their addresses.
+    Static scalars are bound here for good; a launch rewrites only the
+    pointer slots and, when it is unbound, ``n`` (in place, so the
+    address array never changes)."""
+
+    __slots__ = ("values", "array", "pointers", "n", "exact")
+
+    def __init__(self, params, static):
+        self.values, self.pointers, self.n = [], [], None
+        for name, kind, ctype in params:
+            if kind == "pointer":
+                v = ctypes.c_void_p()
+                self.pointers.append(v)
+            elif name in static:
+                v = ctype(static[name].value)
+            else:               # only ``n`` may stay unbound
+                v = self.n = ctype()
+                self.exact = ctype not in (ctypes.c_float, ctypes.c_double,
+                                           ctypes.c_bool)
+            self.values.append(v)
+        self.array = (ctypes.c_void_p * len(self.values))(
+            *[ctypes.addressof(v) for v in self.values])
+
+    def bind(self, tensors, n):
+        """Point the pointer slots at ``tensors`` (inputs, then the
+        output) and set an unbound ``n``; refuses an ``n`` its type
+        cannot hold."""
+        for slot, t in zip(self.pointers, tensors):
+            slot.value = t.data_ptr()
+        if self.n is not None:
+            self.n.value = n
+            if self.exact and self.n.value != n:
+                raise MXNetError(f"rtc: n={n!r} does not fit a "
+                                 f"{type(self.n).__name__}")
+        return self.array
+
+
 class CudaModule:
     """CUDA C source holding ``extern "C" __global__`` kernels (the
     reference's ``PallasModule``, MXNet's ``CudaModule``).  ``exports``
@@ -294,6 +377,9 @@ class Kernel:
         self.params = params
         self._static = static
         self._n_ptr = sum(kind == "pointer" for _, kind, _ in params)
+        self._block = _ParamBlock(params, static)
+        self._lock = threading.Lock()
+        self._fn = {}             # device index -> CUfunction
 
     def launch(self, args, out_shape=None, out_dtype="float32", grid=None,
                block=None, shared_mem=0):
@@ -333,34 +419,37 @@ class Kernel:
             raise MXNetError(f"rtc: kernel {self.name!r} takes "
                              f"{self._n_ptr} pointers (inputs, then the "
                              f"output), got {len(args)} inputs")
-        dtype = getattr(torch, out_dtype, None) \
-            if isinstance(out_dtype, str) else out_dtype
-        if not isinstance(dtype, torch.dtype):
-            raise MXNetError(f"rtc: unknown out_dtype {out_dtype!r}")
-        shape = tuple(args[0].shape) if out_shape is None \
-            else tuple(out_shape)
+        dtype = _out_dtype(out_dtype)
+        shape = args[0].shape if out_shape is None else tuple(out_shape)
+        index = dev.index
+        if torch.cuda.current_device() == index:
+            return self._run(args, shape, dtype, dev, grid, block,
+                             shared_mem)
         with torch.cuda.device(dev):
-            out = torch.empty(shape, dtype=dtype, device=dev)
-            n = out.numel()
-            block = _dims(256 if block is None else block, "block")
-            grid = _dims(math.ceil(n / block[0]) if grid is None else grid,
-                         "grid")
-            if n == 0 or 0 in grid:
-                return out
-            _require_context(dev)
-            fn = self.module.function(dev, self.name)
-            ptrs = iter(args + (out,))
-            values = [ctypes.c_void_p(next(ptrs).data_ptr())
-                      if kind == "pointer" else self._static[name]
-                      if name in self._static else _scalar(ctype, n, name)
-                      for name, kind, ctype in self.params]
-            params = (ctypes.c_void_p * len(values))(
-                *[ctypes.addressof(v) for v in values])
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            _check(_libcuda().cuLaunchKernel(fn, *grid, *block,
-                                            int(shared_mem), stream, params,
-                                            None),
-                   f"cuLaunchKernel({self.name})")
+            return self._run(args, shape, dtype, dev, grid, block,
+                             shared_mem)
+
+    def _run(self, args, shape, dtype, dev, grid, block, shared_mem):
+        """The launch proper, with ``dev`` torch's current device."""
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        n = out.numel()
+        block = (256, 1, 1) if block is None else _dims(block, "block")
+        grid = (-(-n // block[0]), 1, 1) if grid is None \
+            else _dims(grid, "grid")
+        if n == 0 or 0 in grid:
+            return out
+        _context_ready(dev)
+        fn = self._fn.get(dev.index)
+        if fn is None:
+            fn = self._fn[dev.index] = self.module.function(dev, self.name)
+        stream = _raw_stream(dev.index)
+        with self._lock:
+            params = self._block.bind(args + (out,), n)
+            code = _libcuda().cuLaunchKernel(fn, *grid, *block,
+                                             int(shared_mem), stream, params,
+                                             None)
+        if code:
+            _check(code, f"cuLaunchKernel({self.name})")
         Kernel.launches += 1
         return out
 

@@ -10,14 +10,23 @@ The port of ``tpu_mx/serving``'s main path, bottom up:
 - :mod:`.attention` — flash-kernel prefill, paged-kernel decode.
 - :mod:`.model` — :class:`TinyLM`, the seed-deterministic model, with
   its whole decode step on the device.
-- :mod:`.scheduler` — admission, continuous batching, tenant fairness.
+- :mod:`.accounting` — the capacity ledger: every block reference
+  attributed to a holder and a tenant, exhaustion forensics.
+- :mod:`.scheduler` — admission, continuous batching, tenant fairness,
+  the static-batching baseline.
 - :mod:`.speculative` — draft on the device, verify a ``(B, K)`` window
   in one step (``TPUMX_SPECULATIVE``).
 - :mod:`.sampling` — top-k samplers whose state is data.
 - :mod:`.engine` — model + cache = prefill/decode compute.
-- :mod:`.server` — ``submit``/``step``/``run_until_idle``/``stream``.
+- :mod:`.server` — ``submit``/``step``/``run_until_idle``/``stream``,
+  supervised: watchdog, classified restarts, ``drain``/``handoff``/
+  ``recover``.
+- :mod:`.journal` — the committed-token journal ``recover()`` reads.
+- :mod:`.slo` — the live SLO monitor (windowed attainment, burn rate).
 - :mod:`.tenancy`, :mod:`.timeline` — tenant policy, latency attribution.
 """
+from .accounting import (CapacityLedger, FORENSIC_FORMAT,
+                         validate_forensic_doc, validate_forensic_record)
 from .kv_cache import (BlockAllocator, CacheExhausted, PagedKVCache,
                        PrefillPlan, prefix_sharing_enabled)
 from .prefix_cache import PrefixIndex
@@ -25,7 +34,10 @@ from .tenancy import TenantConfig, TenantTable
 from .attention import decode_attention, dense_attention, prefill_attention
 from .model import TinyLM
 from .timeline import RequestTimeline
-from .scheduler import AdmissionReject, ContinuousBatchingScheduler, Request
+from .slo import SLO, SLOMonitor
+from .scheduler import (AdmissionReject, ContinuousBatchingScheduler,
+                        Request, StaticBatchingScheduler)
+from .journal import TokenJournal
 from .engine import EngineCore
 from .server import Server
 
@@ -34,4 +46,7 @@ __all__ = ["BlockAllocator", "CacheExhausted", "PagedKVCache",
            "TenantConfig", "TenantTable", "dense_attention",
            "decode_attention", "prefill_attention", "TinyLM",
            "RequestTimeline", "AdmissionReject",
-           "ContinuousBatchingScheduler", "Request", "EngineCore", "Server"]
+           "ContinuousBatchingScheduler", "Request",
+           "StaticBatchingScheduler", "EngineCore", "Server", "SLO",
+           "SLOMonitor", "TokenJournal", "CapacityLedger", "FORENSIC_FORMAT",
+           "validate_forensic_doc", "validate_forensic_record"]

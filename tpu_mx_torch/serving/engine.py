@@ -24,11 +24,27 @@ device and runs two operations for the server:
 Sharing, the speculative window and greedy/sampled decoding are resolved
 once per engine and recorded on the ``serve.decode_path`` event.  A
 request carrying a sampler gets its last position's logits back instead
-of a token: the server samples on its own thread.  A non-greedy engine
-pins the window to 1 (speculation verifies greedily).  The reference's
-fused/host decode arms, warm-up and self-check audits are not ported
-(the port has one on-device decode path).  Non-finite logits raise
-:class:`NumericDivergence`.
+of a token: the server samples on its own thread, so a watchdog's
+abandoned (zombie) step never advances a journaled RNG.  A non-greedy
+engine pins the window to 1 (speculation verifies greedily).  The
+reference's fused/host decode arms and self-check audits are not ported
+(the port has one on-device decode path).
+
+``warm_batch=B`` builds both kernels and launches one prefill and one
+decode step at batch ``B`` at construction, on a scratch cache, so that
+no first request — and no watchdog deadline — pays ``nvcc``: the port's
+meaning of the reference's jit warm-up.  On the CPU the kernels' plain
+versions need no build, and nothing runs.  ``forensics`` (a path prefix)
+arms the cache's capacity forensic dumps.
+
+Fault surface (what the server's watchdog and restart ladder wrap): the
+chaos ``slow_decode_step``, ``kill9_at_decode_step`` and
+``restart_storm`` sites fire at the top of :meth:`EngineCore.decode`,
+inside the watchdog thread, and the logits health routes through
+``chaos.poison_loss``.  Non-finite logits raise
+:class:`~tpu_mx_torch.supervisor.NumericDivergence`.  The engine is
+disposable: a restart builds a fresh one (new cache, same weights), and
+a thread still inside the old one touches only its private cache.
 """
 from __future__ import annotations
 
@@ -37,9 +53,10 @@ import time
 
 import torch
 
-from ..base import NumericDivergence, refuse_unported
 from .. import telemetry as _telemetry
 from .. import tracing as _tracing
+from ..contrib import chaos as _chaos
+from ..supervisor import NumericDivergence
 from .attention import decode_arm
 from .kv_cache import CacheExhausted, PagedKVCache, prefix_sharing_enabled
 from .speculative import SiblingProposer, accept_prefix, resolve_spec_window
@@ -53,15 +70,12 @@ class EngineCore:
     device come from it.  ``dtype`` is the KV pool's storage type.
     ``share_prefix`` (None: ``TPUMX_PREFIX_SHARING``) turns prefix
     sharing on; ``greedy=False`` (a sampling server) hands logits back
-    and pins the speculative window to 1.  ``forensics`` and
-    ``warm_batch`` must keep the reference's defaults: not ported yet
-    (ROADMAP A12)."""
+    and pins the speculative window to 1; ``forensics`` and
+    ``warm_batch`` as in the module docstring."""
 
     def __init__(self, model, block_size=16, num_blocks=256,
                  dtype=torch.float32, share_prefix=None, forensics=None,
                  warm_batch=None, greedy=True):
-        refuse_unported("EngineCore", "A12", forensics=(forensics, None),
-                        warm_batch=(warm_batch, None))
         self.model = model
         self.greedy = bool(greedy)
         if share_prefix is None:
@@ -71,7 +85,8 @@ class EngineCore:
         self.cache = PagedKVCache(
             model.num_layers, model.num_heads, model.head_dim,
             block_size=block_size, num_blocks=num_blocks, dtype=dtype,
-            share_prefix=self.share_prefix, device=model.device)
+            share_prefix=self.share_prefix, forensics=forensics,
+            device=model.device)
         self.proposer = (SiblingProposer(model) if self.spec_window > 1
                          else None)
         _tracing.emit("serve.decode_path",
@@ -80,12 +95,42 @@ class EngineCore:
                                       self.spec_window,
                                       device_type=self.cache.k_pool.device
                                       .type),
-                      device=str(model.device), storage="device",
+                      storage="device",
                       sharing=self.share_prefix, fused=True,
                       spec_window=self.spec_window,
                       sampling="greedy" if self.greedy else "sampled")
         self._spec_drafted = 0
         self._spec_accepted = 0
+        self.warm_batch = int(warm_batch) if warm_batch else None
+        self.warmed = False
+        if self.warm_batch and model.device.type == "cuda":
+            self._warm(self.warm_batch)
+            self.warmed = True
+
+    def _warm(self, batch):
+        """One prefill (the flash forward, through ``num_layers``
+        launches) and one decode step at ``batch`` (the paged kernel over
+        the engine's window) on a scratch cache of this engine's
+        geometry: the kernels are built and loaded here, outside any
+        deadline, and the engine's own cache is untouched."""
+        model, bs, k = self.model, self.cache.block_size, self.spec_window
+        length = max(1, min(bs, model.max_positions - k))
+        cache = PagedKVCache(
+            model.num_layers, model.num_heads, model.head_dim,
+            block_size=bs,
+            num_blocks=batch * self.cache.blocks_for(length + k),
+            dtype=self.cache.k_pool.dtype, share_prefix=False,
+            device=model.device)
+        kv = model.prefill([0] * length)
+        ids = [f"warm-{i}" for i in range(batch)]
+        for sid in ids:
+            cache.prefill(sid, kv[0], kv[1])
+            cache.reserve_window(sid, k)
+        tables, lengths = cache.batch_tables(ids)
+        bids, offs = cache.window_slots(ids, k)
+        model.decode_step(cache, [0] * batch, lengths - k, tables, lengths,
+                          bids, offs, proposer=self.proposer,
+                          want_logits=not self.greedy)
 
     # -- prefill -------------------------------------------------------------
     def prefill(self, req):
@@ -100,7 +145,9 @@ class EngineCore:
         unchanged and no pinned reference left (the scheduler defers)."""
         t0 = time.perf_counter()
         tokens = req.prompt + req.tokens
-        plan = self.cache.match_prefix(tokens)
+        # the capacity ledger's attribution key
+        tenant = getattr(req, "tenant", None)
+        plan = self.cache.match_prefix(tokens, tenant=tenant)
         if plan is not None:
             cached = plan.tokens_matched
             try:
@@ -110,12 +157,14 @@ class EngineCore:
             except BaseException:
                 self.cache.abandon_plan(plan)
                 raise
-            self.cache.commit_prefill(req.id, plan, k, v, tokens)
+            self.cache.commit_prefill(req.id, plan, k, v, tokens,
+                                      tenant=tenant)
         else:
             cached = 0
             k, v, logits = self.model.prefill(tokens)
             self.cache.prefill(req.id, k, v,
-                               tokens=tokens if self.share_prefix else None)
+                               tokens=tokens if self.share_prefix else None,
+                               tenant=tenant)
         sampled = getattr(req, "sampler", None) is not None
         # one device->host copy: health and the greedy id, and for a
         # sampled request the logits themselves
@@ -164,7 +213,11 @@ class EngineCore:
         it holds (freeing a shared block returns no memory), then the
         youngest; the reservation is retried after each eviction, so the
         oldest live sequence always makes progress (``items`` arrive in
-        admission order)."""
+        admission order).  A finished member (a static batch's padding
+        slot) is always the first victim: its cache is pure waste."""
+        _chaos.maybe_slow_decode()
+        _chaos.maybe_kill9_decode()   # a real os._exit(137)
+        _chaos.storm_restart()        # back-to-back classified restarts
         k = self._window(items)
         live, preempted = [], []
         remaining = [(req, int(last)) for req, last in items]
@@ -176,7 +229,11 @@ class EngineCore:
                     live.append((req, last))
                     break
                 except CacheExhausted:
-                    victim = (remaining.pop(self._pick_victim(remaining))[0]
+                    done = [j for j in range(len(remaining))
+                            if remaining[j][0].done]
+                    victim = (remaining.pop(done[-1])[0] if done
+                              else remaining.pop(
+                                  self._pick_victim(remaining))[0]
                               if remaining else req)
                     self.cache.free_sequence(victim.id)
                     preempted.append(victim)
@@ -193,6 +250,7 @@ class EngineCore:
         out, drafts, health, logits = self.model.decode_step(
             self.cache, heads, lengths - k, tables, lengths, bids, offs,
             proposer=self.proposer, want_logits=want_logits)
+        health = _chaos.poison_loss(health)
         if not math.isfinite(health):
             raise NumericDivergence(
                 f"serving: non-finite logits in decode batch of "

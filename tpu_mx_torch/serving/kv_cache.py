@@ -28,29 +28,43 @@ The port of ``tpu_mx/serving/kv_cache.py``:
   copied before an append writes into it (copy-on-write, one block in
   every layer's pools, on the device).
 
-The reference's capacity ledger (``holder=``/``tenant=`` attribution,
-``describe``, ``reassign``, ``capacity_snapshot``, the exhaustion
-forensics) waits for ``accounting.py`` (ROADMAP A12).  Bookkeeping
-belongs to the server's step thread; the allocator alone is locked, as
-the scheduler may size requests from other threads.
+- **Capacity ledger** (``serving/accounting.py``): every reference is
+  attributed to a holder — ``seq:<id>`` with its tenant, the prefix
+  index, or a pinned plan (``plan:<n>``) — under the allocator's lock;
+  :meth:`PagedKVCache.audit` checks the accounting identity,
+  :meth:`PagedKVCache.capacity_stats` is what the server publishes, and
+  each genuine :class:`CacheExhausted` (and each prefix pressure
+  eviction) leaves a forensic record naming every holder
+  (:meth:`PagedKVCache.forensic_records`; ``forensics=`` a path prefix
+  persists them as ``<prefix>-capacity.json``).
+
+Bookkeeping belongs to the server's step thread; the allocator alone is
+locked, as the scheduler may size requests from other threads.
 """
 from __future__ import annotations
 
+import itertools
 import threading
+import time
+from collections import deque
 
 import numpy as np
 import torch
 
-from ..base import MXNetError, refuse_unported
+from ..base import MXNetError
 from .. import device as _device
 from .. import telemetry as _telemetry
 from .. import tracing as _tracing
+from . import accounting as _accounting
+from .accounting import INDEX_TENANT, CapacityLedger
 from .prefix_cache import PrefixIndex, prefix_sharing_enabled
+from .tenancy import DEFAULT_TENANT
 
 __all__ = ["CacheExhausted", "BlockAllocator", "PagedKVCache",
            "PrefillPlan", "prefix_sharing_enabled"]
 
-_LEDGER = "A12 (accounting.py)"
+# ledger holder ids of pinned prefill plans, unique in the process
+_plan_ids = itertools.count()
 
 
 def _next_pow2(n):
@@ -72,12 +86,15 @@ class BlockAllocator:
     free list is untouched.  ``incref`` and ``free`` reject ids the
     allocator did not hand out: a double free, or a sharer of a freed
     block, would corrupt the pool silently; loud is the only acceptable
-    failure.  ``block_bytes`` and ``holder=`` are the capacity ledger's
-    (not ported yet: they must keep their defaults)."""
+    failure.
+
+    Every reference is also attributed in :attr:`ledger` (a
+    :class:`~tpu_mx_torch.serving.accounting.CapacityLedger` counting
+    ``block_bytes`` a block) to the ``holder=`` a caller names on
+    ``alloc``/``incref``/``free`` (None files it under ``_anon``), under
+    this allocator's lock, next to the refcount it mirrors."""
 
     def __init__(self, num_blocks, block_bytes=1):
-        refuse_unported("BlockAllocator", _LEDGER,
-                        block_bytes=(block_bytes, 1))
         if int(num_blocks) < 1:
             raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
         self.num_blocks = int(num_blocks)
@@ -85,12 +102,12 @@ class BlockAllocator:
         # LIFO: recently freed blocks are handed out first
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._refs = {}         # held block id -> reference count
+        self.ledger = CapacityLedger(block_bytes)
 
     def alloc(self, n=1, holder=None):
-        """``n`` block ids at one reference each, or raise
-        :class:`CacheExhausted` (free list untouched)."""
-        refuse_unported("BlockAllocator.alloc", _LEDGER,
-                        holder=(holder, None))
+        """``n`` block ids at one reference each, attributed to
+        ``holder``, or raise :class:`CacheExhausted` (free list
+        untouched)."""
         n = int(n)
         with self._lock:
             if n > len(self._free):
@@ -101,6 +118,8 @@ class BlockAllocator:
             ids = [self._free.pop() for _ in range(n)]
             for bid in ids:
                 self._refs[bid] = 1
+            self.ledger.hold(ids, holder)
+            self.ledger.note_used(len(self._refs))
         return ids
 
     def _check_held(self, block_ids, what):
@@ -113,26 +132,75 @@ class BlockAllocator:
 
     def incref(self, block_ids, holder=None):
         """One more reference on each (held) block: a sharer."""
-        refuse_unported("BlockAllocator.incref", _LEDGER,
-                        holder=(holder, None))
         with self._lock:
             self._check_held(block_ids, "incref")
             for bid in block_ids:
                 self._refs[bid] += 1
+            self.ledger.hold(block_ids, holder)
 
     def free(self, block_ids, holder=None):
         """Drop one reference per block; a block at zero returns to the
         free list (its contents stay in place for the next owner to
-        overwrite).  Freeing an unheld block raises and frees nothing."""
-        refuse_unported("BlockAllocator.free", _LEDGER,
-                        holder=(holder, None))
+        overwrite).  Freeing an unheld block, or a reference ``holder``
+        does not hold, raises and frees nothing."""
         with self._lock:
             self._check_held(block_ids, "free")
+            # the ledger checks the attribution before a refcount moves
+            self.ledger.release(block_ids, holder)
             for bid in block_ids:
                 self._refs[bid] -= 1
                 if self._refs[bid] == 0:
                     del self._refs[bid]
                     self._free.append(bid)
+
+    def reassign(self, block_ids, src, dst):
+        """Move the attribution of one reference per block from holder
+        ``src`` to ``dst``, refcounts untouched (a committed plan's pins
+        become its sequence's references)."""
+        with self._lock:
+            self._check_held(block_ids, "reassign")
+            self.ledger.transfer(block_ids, src, dst)
+
+    def describe(self, holder, kind=None, tenant=None, pinned=None):
+        """Attach attribution metadata to a ledger holder."""
+        with self._lock:
+            self.ledger.describe(holder, kind=kind, tenant=tenant,
+                                 pinned=pinned)
+
+    def _fragmentation_locked(self):
+        """1 - (largest contiguous free-id run / free blocks); 0 with an
+        empty free list.  A locality signal, not a failure predictor."""
+        if not self._free:
+            return 0.0
+        free = sorted(self._free)
+        best = run = 1
+        for a, b in zip(free, free[1:]):
+            run = run + 1 if b == a + 1 else 1
+            best = max(best, run)
+        return 1.0 - best / len(free)
+
+    def fragmentation(self):
+        """Free-list fragmentation in [0, 1]."""
+        with self._lock:
+            return self._fragmentation_locked()
+
+    def capacity_snapshot(self):
+        """One consistent read of the pool's capacity state: counts,
+        fragmentation, high watermark, every ledger holder and the
+        per-tenant attribution."""
+        with self._lock:
+            holders, tenants = self.ledger.views()
+            return {
+                "num_blocks": self.num_blocks,
+                "block_bytes": self.ledger.block_bytes,
+                "used_blocks": len(self._refs),
+                "free_blocks": len(self._free),
+                "total_refs": sum(self._refs.values()),
+                "high_watermark_blocks": self.ledger.high_watermark,
+                "fragmentation": self._fragmentation_locked(),
+                "holders": holders,
+                "tenants": tenants,
+            }
 
     def refcount(self, block_id):
         """The block's reference count (0 when not held)."""
@@ -164,10 +232,14 @@ class BlockAllocator:
 
     def audit(self, expected_refs=None):
         """Check that the free list and the held blocks partition the
-        pool exactly, and, given ``expected_refs`` (``{block_id: count}``
-        of the references the caller knows of), that every held block's
-        count is exactly that.  Returns ``{num_blocks, used_blocks,
-        free_blocks, total_refs}`` or raises :class:`MXNetError`."""
+        pool exactly; given ``expected_refs`` (``{block_id: count}`` of
+        the references the caller knows of), that every held block's
+        count is exactly that; and the ledger's accounting identity (per
+        block, attributed references == refcount; per tenant, amortized
+        bytes sum exactly to used bytes).  Returns the ledger's report
+        (``used_blocks``, ``used_bytes``, ``total_refs``, ``holders``,
+        ``tenants``, ...) plus ``num_blocks``, ``free_blocks`` and
+        ``fragmentation``, or raises :class:`MXNetError`."""
         with self._lock:
             free = set(self._free)
             if len(free) != len(self._free):
@@ -188,18 +260,21 @@ class BlockAllocator:
                     f"{bad[:8]} disagree with their holders "
                     f"(held {[self._refs.get(b, 0) for b in bad[:8]]}, "
                     f"expected {[expected_refs.get(b, 0) for b in bad[:8]]})")
-            return {"num_blocks": self.num_blocks,
-                    "used_blocks": len(self._refs),
-                    "free_blocks": len(free),
-                    "total_refs": sum(self._refs.values())}
+            report = self.ledger.audit(dict(self._refs))
+            report.update(num_blocks=self.num_blocks,
+                          free_blocks=len(free),
+                          fragmentation=self._fragmentation_locked())
+            return report
 
 
 class _Sequence:
-    __slots__ = ("blocks", "length")
+    __slots__ = ("blocks", "length", "holder", "tenant")
 
-    def __init__(self, blocks, length):
+    def __init__(self, blocks, length, holder, tenant=DEFAULT_TENANT):
         self.blocks = blocks
         self.length = length
+        self.holder = holder    # the sequence's ledger holder id
+        self.tenant = tenant
 
 
 class PrefillPlan:
@@ -252,8 +327,8 @@ class PagedKVCache:
     ``device``.  ``share_prefix`` (None: ``TPUMX_PREFIX_SHARING``) turns
     the shared-prefix index on; it needs a float32 pool, since a lossy
     pool would feed a suffix prefill rounded prefix K/V where a full
-    prefill recomputes it.  ``forensics`` (the capacity records) must
-    keep its default: not ported yet (ROADMAP A12)."""
+    prefill recomputes it.  ``forensics`` (a path prefix) persists the
+    capacity forensic records as ``<forensics>-capacity.json``."""
 
     def __init__(self, num_layers, num_heads, head_dim, block_size=16,
                  num_blocks=256, dtype=torch.float32, storage="host",
@@ -261,7 +336,6 @@ class PagedKVCache:
         if storage not in ("host", "device"):
             raise ValueError(f"storage must be 'host' or 'device', "
                              f"got {storage!r}")
-        refuse_unported("PagedKVCache", _LEDGER, forensics=(forensics, None))
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
@@ -276,19 +350,33 @@ class PagedKVCache:
                 "lossy pool would give a shared prefix other logits than "
                 "a private prefill")
         self.device = _device.resolve(device)
-        self.allocator = BlockAllocator(num_blocks)
+        # per-token K/V footprint across all layers, both pools; a block's
+        # is the ledger's unit
+        self._token_bytes = (self.num_layers * self.num_heads * self.head_dim
+                             * 2 * torch.empty((), dtype=dtype).element_size())
+        self.allocator = BlockAllocator(
+            num_blocks, block_bytes=self._token_bytes * self.block_size)
         shape = (self.num_layers, self.allocator.num_blocks, self.block_size,
                  self.num_heads, self.head_dim)
         self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
-        # per-token K/V footprint across all layers, both pools
-        self._token_bytes = (self.num_layers * self.num_heads * self.head_dim
-                             * 2 * self.k_pool.element_size())
+        # the capacity forensic ring, persisted (rolling, atomic) when a
+        # path prefix is armed
+        self._forensics = deque(maxlen=256)
+        self._forensics_path = (f"{forensics}-capacity.json"
+                                if forensics else None)
+        self._forensics_dumped = None   # monotonic time of the last dump
         self._seqs = {}
+        self._plans = {}            # pinned plan holder -> its blocks
         self.prefix = PrefixIndex(self.block_size) if share_prefix else None
         self._prompt_tokens = 0     # tokens asked for across prefills
         self._cached_tokens = 0     # of those, served from the index
         self._cow_copies = 0
+
+    @property
+    def device_resident(self):
+        """True when the pools live on the card."""
+        return self.device.type == "cuda"
 
     # -- bookkeeping ---------------------------------------------------------
     def _entry(self, seq_id):
@@ -331,22 +419,77 @@ class PagedKVCache:
         return flat(self.k_pool), flat(self.v_pool)
 
     # -- writes --------------------------------------------------------------
-    def _alloc(self, n):
+    def _alloc(self, n, holder=None):
         """``allocator.alloc`` that, on exhaustion with sharing on, first
         releases least-recently-matched index-only prefixes and retries
         once: the index never stands between a live request and free
-        memory, and a pool full of live data still raises."""
+        memory, and a pool full of live data still raises.  The pressure
+        eviction and the genuine exhaustion each leave a forensic
+        record."""
         try:
-            return self.allocator.alloc(n)
+            return self.allocator.alloc(n, holder=holder)
         except CacheExhausted:
             if self.prefix is None:
+                self._record_forensic("exhaustion", need=n)
                 raise
             released = self.prefix.release(self.allocator, n)
             if released:
                 _telemetry.counter("serve.prefix_evictions").inc(released)
                 _tracing.emit("serve.prefix_evict", released=released,
                               need=int(n))
-            return self.allocator.alloc(n)
+                self._record_forensic("pressure_evict", need=n,
+                                      released=released)
+            try:
+                return self.allocator.alloc(n, holder=holder)
+            except CacheExhausted:
+                self._record_forensic("exhaustion", need=n)
+                raise
+
+    def _record_forensic(self, kind, need, released=0):
+        """Snapshot who holds the pool at a capacity event — every holder
+        with its tenant, blocks, pinned/shared state and age — into the
+        bounded ring, and persist the ring when a path is armed (at most
+        once a second; :meth:`flush_forensics` forces it).  A genuine
+        exhaustion also lands on the flight recorder, naming the file.
+        Best effort: a failed dump is counted, and never turns
+        backpressure into a crash."""
+        snap = self.allocator.capacity_snapshot()
+        rec = {"kind": kind, "ts": time.time(), "need": int(need),
+               "free": snap["free_blocks"], "released": int(released),
+               "pool": {k: snap[k] for k in
+                        ("num_blocks", "block_bytes", "used_blocks",
+                         "total_refs", "high_watermark_blocks",
+                         "fragmentation")},
+               "holders": snap["holders"], "tenants": snap["tenants"]}
+        self._forensics.append(rec)
+        if kind == "exhaustion":
+            _tracing.emit("serve.capacity_exhausted", need=int(need),
+                          free=int(snap["free_blocks"]),
+                          holders=len(snap["holders"]),
+                          forensic=self._forensics_path or "")
+        now = time.monotonic()
+        if self._forensics_path and (self._forensics_dumped is None
+                                     or now - self._forensics_dumped
+                                     >= 1.0):
+            self._forensics_dumped = now
+            try:
+                _accounting.dump_forensics(self._forensics_path,
+                                           self._forensics)
+            except Exception:  # noqa: BLE001 — forensics are best effort
+                _telemetry.counter("serve.forensic_dump_failures").inc()
+
+    def forensic_records(self):
+        """The in-memory capacity forensic ring (newest last)."""
+        return list(self._forensics)
+
+    def flush_forensics(self):
+        """Write the forensic ring to disk now (past the rate limit);
+        returns the path, or None (unarmed or empty ring)."""
+        if not self._forensics_path or not self._forensics:
+            return None
+        self._forensics_dumped = time.monotonic()
+        return _accounting.dump_forensics(self._forensics_path,
+                                          self._forensics)
 
     def _check_kv(self, what, k, v):
         want = (self.num_layers, k.shape[1], self.num_heads, self.head_dim)
@@ -391,9 +534,7 @@ class PagedKVCache:
         registered, so the scheduler can retry after an eviction.
         ``tokens`` (the prompt's ids) lets the shared-prefix index learn
         the sequence's full blocks; ``tenant`` is the capacity ledger's
-        (not ported yet)."""
-        refuse_unported("PagedKVCache.prefill", _LEDGER,
-                        tenant=(tenant, None))
+        attribution (default: the single-tenant default)."""
         self._check_kv("prefill", k, v)
         length = k.shape[1]
         if length < 1:
@@ -404,9 +545,12 @@ class PagedKVCache:
         if seq_id in self._seqs:
             raise MXNetError(f"prefill: sequence {seq_id!r} already cached "
                              "(free it first)")
-        blocks = self._alloc(self.blocks_for(length))
+        tenant = DEFAULT_TENANT if tenant is None else str(tenant)
+        holder = f"seq:{seq_id}"
+        blocks = self._alloc(self.blocks_for(length), holder=holder)
+        self.allocator.describe(holder, kind="sequence", tenant=tenant)
         self._fill(blocks, k, v)
-        self._seqs[seq_id] = _Sequence(blocks, length)
+        self._seqs[seq_id] = _Sequence(blocks, length, holder, tenant)
         if self.prefix is not None and tokens is not None:
             self.prefix.insert(tokens, blocks, self.allocator)
         self._account_prefill(length, 0)
@@ -417,16 +561,21 @@ class PagedKVCache:
         (increfed, so pressure eviction cannot reuse it before the
         commit): a :class:`PrefillPlan`, or None with sharing off or on
         a miss.  Every plan must reach :meth:`commit_prefill` or
-        :meth:`abandon_plan`."""
-        refuse_unported("PagedKVCache.match_prefix", _LEDGER,
-                        tenant=(tenant, None))
+:meth:`abandon_plan`.  The pins are ledgered as a ``plan`` holder
+        of ``tenant``."""
         if self.prefix is None:
             return None
         blocks, m = self.prefix.match(tokens)
         if not m:
             return None
-        self.allocator.incref(blocks)
-        return PrefillPlan(blocks, m)
+        holder = f"plan:{next(_plan_ids)}"
+        self.allocator.incref(blocks, holder=holder)
+        self._plans[holder] = list(blocks)
+        self.allocator.describe(
+            holder, kind="plan",
+            tenant=DEFAULT_TENANT if tenant is None else str(tenant),
+            pinned=True)
+        return PrefillPlan(blocks, m, holder=holder)
 
     def gather_plan(self, plan):
         """The pinned prefix's K/V as ``(num_layers, m, H, D)`` tensors
@@ -444,12 +593,14 @@ class PagedKVCache:
         of ``tokens[plan.tokens_matched:]``.  All-or-nothing, like
         :meth:`prefill`: on any failure (the suffix's allocation hitting
         exhaustion included) the plan's pins and any fresh blocks are
-        released and nothing is registered."""
-        refuse_unported("PagedKVCache.commit_prefill", _LEDGER,
-                        tenant=(tenant, None))
+        released and nothing is registered.  On success the plan's pinned
+        attribution becomes the sequence's."""
         m = plan.tokens_matched
         length = m + k.shape[1]
+        tenant = DEFAULT_TENANT if tenant is None else str(tenant)
+        holder = f"seq:{seq_id}"
         plan.consume()
+        self._plans.pop(plan.holder, None)
         fresh = []
         try:
             if seq_id in self._seqs:
@@ -464,14 +615,19 @@ class PagedKVCache:
                     f"commit_prefill: the matched prefix ({m}) must be "
                     "block-aligned, with a non-empty suffix")
             self._check_kv("commit_prefill", k, v)
-            fresh = self._alloc(self.blocks_for(length) - len(plan.blocks))
+            fresh = self._alloc(self.blocks_for(length) - len(plan.blocks),
+                                holder=holder)
+            self.allocator.describe(holder, kind="sequence", tenant=tenant)
             self._fill(fresh, k, v)
+            # the pins become the sequence's references (refcounts kept)
+            self.allocator.reassign(plan.blocks, plan.holder, holder)
         except BaseException:
             if fresh:
-                self.allocator.free(fresh)
-            self.allocator.free(plan.blocks)
+                self.allocator.free(fresh, holder=holder)
+            self.allocator.free(plan.blocks, holder=plan.holder)
             raise
-        entry = self._seqs[seq_id] = _Sequence(plan.blocks + fresh, length)
+        entry = self._seqs[seq_id] = _Sequence(plan.blocks + fresh, length,
+                                               holder, tenant)
         self.prefix.insert(tokens, entry.blocks, self.allocator)
         self._account_prefill(k.shape[1], m)
 
@@ -479,20 +635,24 @@ class PagedKVCache:
         """Release a plan's pins without committing it (the model failed
         between the match and the commit)."""
         plan.consume()
-        self.allocator.free(plan.blocks)
+        self._plans.pop(plan.holder, None)
+        self.allocator.free(plan.blocks, holder=plan.holder)
 
     def fork(self, parent_id, child_id, tenant=None):
         """Register ``child_id`` sharing all of ``parent_id``'s blocks
         (one more reference each): N generations from one prompt pay one
         prefill.  Either sibling's next append into a shared partial tail
-        block copies it first."""
-        refuse_unported("PagedKVCache.fork", _LEDGER, tenant=(tenant, None))
+        block copies it first.  ``tenant`` defaults to the parent's."""
         if child_id in self._seqs:
             raise MXNetError(f"fork: sequence {child_id!r} already cached "
                              "(free it first)")
         parent = self._entry(parent_id)
-        self.allocator.incref(parent.blocks)
-        self._seqs[child_id] = _Sequence(list(parent.blocks), parent.length)
+        tenant = parent.tenant if tenant is None else str(tenant)
+        holder = f"seq:{child_id}"
+        self.allocator.incref(parent.blocks, holder=holder)
+        self.allocator.describe(holder, kind="sequence", tenant=tenant)
+        self._seqs[child_id] = _Sequence(list(parent.blocks), parent.length,
+                                         holder, tenant)
 
     def _cow_tail(self, entry):
         """Copy-on-write the entry's shared tail block: a private block
@@ -500,11 +660,11 @@ class PagedKVCache:
         and the original loses one reference.  The sharers keep reading
         the original."""
         old = entry.blocks[-1]
-        new = self._alloc(1)[0]
+        new = self._alloc(1, holder=entry.holder)[0]
         for pool in (self.k_pool, self.v_pool):
             pool[:, new] = pool[:, old]
         entry.blocks[-1] = new
-        self.allocator.free([old])
+        self.allocator.free([old], holder=entry.holder)
         self._cow_copies += 1
         _telemetry.counter("serve.cow_copies").inc()
 
@@ -533,11 +693,11 @@ class PagedKVCache:
                 self._cow_tail(entry)
             need = self.blocks_for(base + k) - len(entry.blocks)
             if need > 0:
-                entry.blocks.extend(self._alloc(need))
+                entry.blocks.extend(self._alloc(need, holder=entry.holder))
         except CacheExhausted:
             fresh = entry.blocks[base_blocks:]
             if fresh:
-                self.allocator.free(fresh)
+                self.allocator.free(fresh, holder=entry.holder)
                 del entry.blocks[base_blocks:]
             raise
         entry.length = base + k
@@ -558,7 +718,7 @@ class PagedKVCache:
         keep = self.blocks_for(length)
         tail = entry.blocks[keep:]
         if tail:
-            self.allocator.free(tail)
+            self.allocator.free(tail, holder=entry.holder)
             del entry.blocks[keep:]
         entry.length = length
 
@@ -584,7 +744,7 @@ class PagedKVCache:
         entry = self._seqs.pop(seq_id, None)
         if entry is None:
             return 0
-        self.allocator.free(entry.blocks)
+        self.allocator.free(entry.blocks, holder=entry.holder)
         return len(entry.blocks)
 
     def exclusive_blocks(self, seq_id):
@@ -647,11 +807,15 @@ class PagedKVCache:
 
     def audit(self):
         """Check the cache's bookkeeping against the allocator: every
-        table covers its length, and every held block's reference count
-        is exactly the number of tables that hold it plus one if the
-        prefix index holds it (so no reference leaks and none is
-        missing).  Returns the allocator's report plus ``sequences`` and
-        ``index_refs``; raises :class:`MXNetError` on any violation."""
+        table covers its length, every held block's reference count is
+        exactly the number of tables and pinned plans that hold it plus
+        one if the prefix index holds it (so no reference leaks and none
+        is missing), and
+        the ledger's accounting identity holds.  Returns the allocator's
+        report plus ``sequences`` and ``index_refs``; raises
+        :class:`MXNetError` on any violation.  With every sequence freed
+        and the index dropped it shows zero used blocks and no
+        tenants."""
         expected = {}
         for seq_id, entry in self._seqs.items():
             if len(entry.blocks) != self.blocks_for(entry.length):
@@ -661,9 +825,29 @@ class PagedKVCache:
             for bid in entry.blocks:
                 expected[bid] = expected.get(bid, 0) + 1
         indexed = self.prefix.block_ids() if self.prefix is not None else []
-        for bid in indexed:
+        for bid in indexed + [b for bs in self._plans.values() for b in bs]:
             expected[bid] = expected.get(bid, 0) + 1
         report = self.allocator.audit(expected)
         report["sequences"] = len(self._seqs)
         report["index_refs"] = len(indexed)
         return report
+
+    def capacity_stats(self):
+        """The live capacity view the server publishes as gauges and hands
+        the scheduler as ``capacity_signal``: pool geometry, used and
+        high-watermark bytes, fragmentation, pinned blocks (plan
+        holders), the prefix index's amortized bytes, the optimistic
+        reclaimable-under-pressure bound and the per-tenant
+        attribution."""
+        snap = self.allocator.capacity_snapshot()
+        snap["block_size"] = self.block_size
+        snap["used_bytes"] = snap["used_blocks"] * snap["block_bytes"]
+        snap["high_watermark_bytes"] = (snap["high_watermark_blocks"]
+                                        * snap["block_bytes"])
+        snap["pinned_blocks"] = sum(h["blocks"] for h in snap["holders"]
+                                    if h["pinned"])
+        idx = snap["tenants"].get(INDEX_TENANT)
+        snap["index_bytes"] = idx["bytes_amortized"] if idx else 0.0
+        snap["reclaimable_blocks"] = (self.prefix.reclaimable(self.allocator)
+                                      if self.prefix is not None else 0)
+        return snap

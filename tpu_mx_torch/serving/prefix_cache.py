@@ -30,16 +30,11 @@ import heapq
 import itertools
 import os
 
-__all__ = ["PrefixIndex", "prefix_sharing_enabled", "INDEX_HOLDER",
-           "INDEX_TENANT"]
+from .accounting import INDEX_HOLDER, INDEX_TENANT
+
+__all__ = ["PrefixIndex", "prefix_sharing_enabled"]
 
 _SHARING_ENV = "TPUMX_PREFIX_SHARING"
-
-# the capacity ledger's names for the index's references
-# (``tpu_mx/serving/accounting.py:71``); the port's allocator keeps no
-# ledger yet (ROADMAP A12, accounting.py), so nothing is filed under them
-INDEX_HOLDER = "prefix-index"
-INDEX_TENANT = "_index"
 
 
 def prefix_sharing_enabled():
@@ -127,7 +122,12 @@ class PrefixIndex:
             child = node.children.get(key)
             if child is None:
                 child = _Node(key, block_ids[i], node)
-                allocator.incref([block_ids[i]])
+                # the index's references are ledgered under its own
+                # holder and pseudo-tenant: index-resident bytes belong
+                # to the fleet, not to whichever tenant prefilled first
+                allocator.incref([block_ids[i]], holder=INDEX_HOLDER)
+                allocator.describe(INDEX_HOLDER, kind="index",
+                                   tenant=INDEX_TENANT)
                 node.children[key] = child
                 self._nodes += 1
             child.last_used = stamp
@@ -153,7 +153,7 @@ class PrefixIndex:
         while heap and allocator.available < need:
             _, _, victim = heapq.heappop(heap)
             del victim.parent.children[victim.key]
-            allocator.free([victim.block_id])
+            allocator.free([victim.block_id], holder=INDEX_HOLDER)
             self._nodes -= 1
             self.evictions += 1
             released += 1
@@ -172,11 +172,20 @@ class PrefixIndex:
         while stack:
             n = stack.pop()
             stack.extend(n.children.values())
-            allocator.free([n.block_id])
+            allocator.free([n.block_id], holder=INDEX_HOLDER)
             dropped += 1
         self._root.children = {}
         self._nodes = 0
         return dropped
+
+    def reclaimable(self, allocator):
+        """How many indexed blocks no live sequence shares (refcount 1):
+        an optimistic upper bound on what a pressure pass could release
+        (an interior node above a shared child never becomes an
+        evictable leaf) — the scheduler's would-fit gate treats a miss
+        as the ordinary defer path, not a promise."""
+        refs = allocator.refcounts()
+        return sum(1 for b in self.block_ids() if refs.get(b) == 1)
 
     def block_ids(self):
         """The indexed block ids, one per node (the cache's audit counts

@@ -1,9 +1,6 @@
 """Per-request latency attribution: every request's wall clock, typed.
 
-A copy of ``tpu_mx/serving/timeline.py`` for the port's one recovery
-arm (a requeued request keeps its committed tokens and is rebuilt by one
-prefill; the reference's legacy prompt-replay bookkeeping is not
-ported).  Each :class:`~tpu_mx_torch.serving.scheduler.Request` owns a
+A copy of ``tpu_mx/serving/timeline.py``.  Each :class:`~tpu_mx_torch.serving.scheduler.Request` owns a
 :class:`RequestTimeline` that decomposes its lifetime — submit to
 finish/fail — into typed phases stamped at the scheduler/engine/server
 seams:
@@ -12,9 +9,11 @@ seams:
 - ``prefill``      — the prompt's engine prefill
 - ``decode_gap``   — per token: from the previous committed token (or
   prefill end) to this commit — scheduler share and decode compute both
-- ``restart_penalty`` — what a cache preemption cost this request: the
-  in-flight interval at eviction, the wait until its replay starts, and
-  the replay prefill itself
+- ``restart_penalty`` — what an engine restart or a cache preemption
+  cost this request: the in-flight interval at the fault, the wait until
+  its recovery starts, and the recovery work — the one replay prefill
+  (``replay=True``), or on the legacy prompt-replay arm the re-run
+  prefill plus every re-decoded catch-up token
 - ``defer_stall``  — cache-backpressure deferrals: the wait after a
   prefill admission bounced on ``CacheExhausted``
 - ``reject``       — the (tiny) interval a rejected admission consumed
@@ -48,7 +47,7 @@ class RequestTimeline:
     __slots__ = ("t0", "_mark", "_wait_kind", "_in_flight", "phases",
                  "defers", "requeues", "tokens", "ttft_breakdown",
                  "_first_token_pending", "ended_at", "outcome",
-                 "cached_tokens", "_replay_pending")
+                 "cached_tokens", "_replay_pending", "_catchup")
 
     def __init__(self, t0=None):
         self.t0 = time.perf_counter() if t0 is None else float(t0)
@@ -66,6 +65,7 @@ class RequestTimeline:
         self.cached_tokens = 0           # prompt tokens the last prefill
         #                                  took from the prefix cache
         self._replay_pending = False     # next prefill is a replay
+        self._catchup = 0                # legacy re-decodes still owed
 
     def _close(self, phase, now=None):
         """Close ``[mark, now]`` into ``phase`` and advance the mark."""
@@ -115,16 +115,40 @@ class RequestTimeline:
     def mark_token(self, now=None):
         """A token committed: the gap since the previous commit (or the
         prefill end) is decode_gap.  The first token snapshots the
-        cumulative phase sums — the TTFT breakdown."""
-        self._close("decode_gap", now)
+        cumulative phase sums — the TTFT breakdown.  On the legacy
+        prompt-replay arm the first ``committed`` tokens after a requeue
+        are catch-up re-decodes the client already had: restart penalty
+        (each counts ``serve.redecode_tokens``)."""
+        if self._catchup > 0:
+            self._catchup -= 1
+            self._close("restart_penalty", now)
+            _telemetry.counter("serve.redecode_tokens").inc()
+        else:
+            self._close("decode_gap", now)
         self.tokens += 1
         if self._first_token_pending:
             self._first_token_pending = False
             self.ttft_breakdown = dict(self.phases)
 
+    def mark_requeue(self, committed=0):
+        """A restart or preemption discarded this request's generation
+        (the legacy prompt-replay arm): the in-flight interval, and
+        everything until the re-run's prefill starts, is restart penalty,
+        and the re-run's first ``committed`` decodes are catch-up.  The
+        first-token snapshot resets with the generation."""
+        self._close("restart_penalty")
+        self._wait_kind = "restart_penalty"
+        self._in_flight = False
+        self.requeues += 1
+        self.tokens = 0
+        self.cached_tokens = 0
+        self._catchup += int(committed)
+        self._first_token_pending = True
+        self.ttft_breakdown = None
+
     def mark_replay_requeue(self):
-        """A preemption requeued this request; its committed tokens
-        stand.  Everything from here to the end of the one replay
+        """A restart, handoff or preemption requeued this request; its
+        committed tokens stand.  Everything from here to the end of the one replay
         prefill is restart penalty."""
         self._close("restart_penalty")
         self._wait_kind = "restart_penalty"

@@ -1,28 +1,164 @@
-"""Runtime telemetry: the counter/gauge/histogram subset the port calls.
+"""Runtime telemetry: counters, gauges and windowed histograms.
 
-A copy of the registry core of ``tpu_mx/telemetry.py`` (stdlib only, so
-copied rather than imported — importing ``tpu_mx`` would import jax).
-Metric names are the reference's (``serve.*``), so a dashboard reads
-both packages alike.  The sliding windows, the JSONL exporter, the
-Prometheus exposition and the profiler bridge are not ported yet
-(ROADMAP queue A, runtime planes).
+A copy of ``tpu_mx/telemetry.py``'s registry (stdlib only, so copied
+rather than imported — importing ``tpu_mx`` would import jax).  Metric
+names are the reference's (``serve.*``), so a dashboard reads both
+packages alike:
+
+- **Registry**: :func:`counter` / :func:`gauge` / :func:`histogram`
+  create-or-fetch named metrics; ``key=value`` labels make distinct
+  series (:func:`series` lists them).  Thread-safe.
+- **Sliding windows**: every counter and histogram also keeps a ring of
+  subwindows covering the trailing :data:`WINDOW_SECONDS`, so "p99 over
+  the last minute" (``window_quantile``), SLO attainment
+  (``window_fraction_le``) and windowed rates are O(subwindows x
+  buckets) reads — the serving SLO monitor (``serving/slo.py``) sits on
+  them.  The serving latency pair uses the dense
+  :data:`SLO_LATENCY_BUCKETS` ladder.
+- **Spans** (:class:`span`) time a region into a histogram.
+- **Export**: :func:`snapshot` (one record per metric, schema checked by
+  :func:`validate_record`) and :func:`flush` (JSONL append to ``path``
+  or ``TPUMX_TELEMETRY``; ``final=True`` rewrites the file through
+  ``checkpoint.atomic_write``).
+
+Not ported yet (ROADMAP A item 8): the Prometheus exposition, the
+host-RSS gauge, the fleet identity stamp and the profiler bridge.
 """
 from __future__ import annotations
 
+import atexit
+import json
 import math
+import os
+import re
+import sys
 import threading
+import time
+from bisect import bisect_left
 
-from .base import refuse_unported
+__all__ = ["counter", "gauge", "histogram", "span", "get", "series",
+           "reset", "snapshot", "flush", "validate_record",
+           "configured_path", "Counter", "Gauge", "Histogram",
+           "LATENCY_BUCKETS", "SLO_LATENCY_BUCKETS", "WINDOW_SECONDS",
+           "WINDOW_SUBWINDOWS", "quantile_from_cumulative",
+           "fraction_le_from_cumulative", "parse_slo_spec", "DEFAULT_SLOS"]
 
-__all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge",
-           "histogram", "get", "reset"]
+# fixed log-scale latency buckets, in SECONDS: 10µs → 30s in 1–3–10 steps.
+# Fixed — never derived from data — so histograms from any two runs merge.
+LATENCY_BUCKETS = (1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2,
+                   0.1, 0.3, 1.0, 3.0, 10.0, 30.0)
 
-_lock = threading.Lock()
-_metrics = {}
+
+def _geometric_ladder(lo, hi, ratio):
+    out, v = [], float(lo)
+    while v < hi:
+        out.append(round(v, 12))
+        v *= ratio
+    out.append(float(hi))
+    return tuple(out)
+
+
+# The SLO ladder: a denser fixed geometric grid (ratio 1.05, ~306 edges
+# over the same 10µs→30s span) for the serving latency histograms.  The
+# 1–3–10 ladder is fine for dashboards but a 3× bucket cannot support a
+# "p99 within 10% of exact" claim.  The bucket-merge estimate is
+# guaranteed within ONE bucket of the exact percentile, and a sparse
+# tail (p99 of a 64-request trace rides its top two order statistics)
+# realizes that worst case — so the ratio is sized to make one bucket
+# ≈ ±5%, keeping a 10% live-vs-exact bar honest rather than lucky.  ~2.5 KB of ints per histogram series; observe
+# cost is one bisect (9 compares).  Fixed like every other ladder
+# (derived from a formula, never from data) so any two runs' snapshots
+# merge.
+SLO_LATENCY_BUCKETS = _geometric_ladder(1e-5, 30.0, 1.05)
+
+# Sliding-window defaults: every Counter/Histogram additionally keeps a
+# ring of subwindows covering the trailing WINDOW_SECONDS, so "p99 over
+# the last minute" is an O(buckets) read with bounded memory
+# (subwindows × buckets ints per histogram).  configure_window() resizes
+# a metric's ring (resetting its window contents, never the cumulative
+# state).
+WINDOW_SECONDS = 60.0
+WINDOW_SUBWINDOWS = 15
+
+# Per-name bucket defaults, applied when histogram() is called without
+# explicit buckets — every creation site agrees on the edges without
+# repeating them (first-creation-wins would otherwise make the edges
+# depend on call order).
+_DEFAULT_BUCKETS = {
+    "serve.ttft_seconds": SLO_LATENCY_BUCKETS,
+    "serve.itl_seconds": SLO_LATENCY_BUCKETS,
+    "serve.phase_seconds": SLO_LATENCY_BUCKETS,
+}
+
+_lock = threading.RLock()
+_metrics: dict = {}          # (name, labels_tuple) -> metric object
+
+# the window clock.  Monotonic (a wall-clock step must not expire or
+# resurrect subwindows); module-level so tests can substitute a fake
+# clock and drive subwindow rollover deterministically.
+_monotonic = time.monotonic
 
 
 def _labels_key(labels):
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+class _WindowRing:
+    """Ring of ``n`` subwindow slots covering the trailing ``seconds``.
+
+    Each slot is stamped with the epoch (``monotonic // slot_seconds``)
+    it belongs to; writing into a slot whose stamp is stale resets it
+    first, and reads simply skip slots whose epoch has rotated out — so
+    neither writes nor reads ever pay more than O(n) and memory is
+    bounded no matter how long the process runs.  All methods are called
+    under the registry lock."""
+
+    __slots__ = ("seconds", "n", "slot_seconds", "epochs", "slots",
+                 "created", "_make_slot")
+
+    def __init__(self, seconds, n, make_slot):
+        seconds = float(seconds)
+        n = int(n)
+        if seconds <= 0 or n < 2:
+            raise ValueError("window needs seconds > 0 and >= 2 subwindows")
+        self.seconds = seconds
+        self.n = n
+        self.slot_seconds = seconds / n
+        self.epochs = [-1] * n
+        self.slots = [make_slot() for _ in range(n)]
+        self.created = _monotonic()
+        self._make_slot = make_slot
+
+    def slot(self):
+        """The live slot for the current epoch (reset if stale)."""
+        e = int(_monotonic() // self.slot_seconds)
+        i = e % self.n
+        if self.epochs[i] != e:
+            self.epochs[i] = e
+            self.slots[i] = self._make_slot()
+        return self.slots[i]
+
+    def live(self, window=None):
+        """(covered_seconds, [slot, ...]) for the trailing ``window``
+        (clamped to the ring horizon; quantized to whole subwindows).
+        ``covered`` is additionally clamped to the ring's AGE (floored
+        at one subwindow): a 5 s-old ring must not claim 60 s of
+        coverage, or every rate derived from it under-reports ~12x
+        during exactly the warm-up an operator watches."""
+        if window is None:
+            horizon = self.seconds
+        else:
+            horizon = min(max(float(window), self.slot_seconds),
+                          self.seconds)
+        k = max(1, min(self.n, int(math.ceil(horizon / self.slot_seconds
+                                             - 1e-9))))
+        now = _monotonic()
+        e = int(now // self.slot_seconds)
+        out = [self.slots[i] for i in range(self.n)
+               if self.epochs[i] >= 0 and e - self.epochs[i] < k]
+        covered = min(k * self.slot_seconds,
+                      max(now - self.created, self.slot_seconds))
+        return covered, out
 
 
 class _Metric:
@@ -35,23 +171,59 @@ class _Metric:
 
 
 class Counter(_Metric):
-    """Monotonically increasing count (resets only with the process)."""
+    """Monotonically increasing count (resets only with the process).
+    Additionally keeps a subwindow ring so :meth:`window_delta` /
+    :meth:`window_rate` answer "how many in the last N seconds" without
+    a scraper diffing snapshots."""
 
-    __slots__ = ("value",)
+    __slots__ = ("value", "_win")
     kind = "counter"
 
     def __init__(self, name, labels):
         super().__init__(name, labels)
         self.value = 0
+        self._win = _WindowRing(WINDOW_SECONDS, WINDOW_SUBWINDOWS,
+                                lambda: [0])
 
     def inc(self, n=1):
         with _lock:
             self.value += n
+            self._win.slot()[0] += n
         return self
+
+    def configure_window(self, seconds, subwindows=None):
+        """Resize the subwindow ring (resets the WINDOW contents only;
+        the cumulative value is untouched)."""
+        with _lock:
+            self._win = _WindowRing(seconds,
+                                    subwindows or WINDOW_SUBWINDOWS,
+                                    lambda: [0])
+        return self
+
+    def window_delta(self, window=None):
+        """Increments observed over the trailing ``window`` seconds
+        (default: the full ring horizon, quantized to subwindows)."""
+        with _lock:
+            _, slots = self._win.live(window)
+            return sum(s[0] for s in slots)
+
+    def window_rate(self, window=None):
+        """Increments per second over the trailing window."""
+        with _lock:
+            covered, slots = self._win.live(window)
+            return sum(s[0] for s in slots) / covered
+
+    def _record(self, ts):
+        rec = _rec(self, ts, self.value)
+        with _lock:
+            covered, slots = self._win.live()
+            rec["window"] = {"seconds": covered,
+                             "value": sum(s[0] for s in slots)}
+        return rec
 
 
 class Gauge(_Metric):
-    """Last-written value (e.g. tokens/sec)."""
+    """Last-written value (e.g. examples/sec)."""
 
     __slots__ = ("value",)
     kind = "gauge"
@@ -65,64 +237,378 @@ class Gauge(_Metric):
             self.value = float(value)
         return self
 
+    def _record(self, ts):
+        return _rec(self, ts, self.value)
+
 
 class Histogram(_Metric):
-    """Count, sum, min and max of the observed values.  Non-finite
-    samples are dropped and counted (``dropped_nonfinite``), as in the
-    reference: they have no honest bucket and would poison the sum."""
+    """Fixed-bucket distribution; default buckets are the log-scale
+    latency ladder (:data:`LATENCY_BUCKETS`, seconds).  Tracks count, sum,
+    min and max alongside the cumulative bucket counts.  ``unit`` rides
+    the JSONL record so renderers know whether ms-scaling applies.
 
-    __slots__ = ("count", "sum", "min", "max", "dropped_nonfinite", "unit")
+    Every histogram additionally maintains a **sliding window**: a ring
+    of subwindow slots (each a full bucket array + count/sum/min/max)
+    covering the trailing :data:`WINDOW_SECONDS`.  Merging the live
+    slots answers "p99 over the last N seconds" in O(subwindows ×
+    buckets) with bounded memory — the live-SLO read the serving
+    monitor (serving/slo.py) sits on."""
+
+    __slots__ = ("buckets", "counts", "count", "sum", "min", "max", "unit",
+                 "dropped_nonfinite", "_win")
     kind = "histogram"
 
     def __init__(self, name, labels, buckets=None, unit="seconds"):
         super().__init__(name, labels)
-        refuse_unported("Histogram", "A15 (telemetry windows)",
-                        buckets=(buckets, None))
         self.unit = unit
+        # sorted + deduped so cumulative()/exposition() emit `le` bounds
+        # in ascending order with +Inf last, per the Prometheus text
+        # format, whatever order a caller passed
+        self.buckets = tuple(sorted({float(b)
+                                     for b in (buckets or LATENCY_BUCKETS)}))
+        self.counts = [0] * (len(self.buckets) + 1)  # last = +Inf overflow
         self.count = 0
         self.sum = 0.0
         self.min = None
         self.max = None
-        self.dropped_nonfinite = 0
+        self.dropped_nonfinite = 0   # NaN/±Inf observations, never bucketed
+        self._win = _WindowRing(WINDOW_SECONDS, WINDOW_SUBWINDOWS,
+                                self._make_slot)
+
+    def _make_slot(self):
+        # [bucket counts, count, sum, min, max] — one subwindow's state
+        return [[0] * (len(self.buckets) + 1), 0, 0.0, None, None]
 
     def observe(self, value):
         value = float(value)
-        with _lock:
-            if not math.isfinite(value):
+        if not math.isfinite(value):
+            # a non-finite sample has no honest bucket: bisect would
+            # file NaN under the FASTEST bucket (every `edge < nan`
+            # compare is False), the overflow slot would force false
+            # breaches for legitimate >30s samples, and one nan+x
+            # would poison the running sum forever — breaking the
+            # strict-JSON JSONL/black-box contract.  Drop it VISIBLY:
+            # the dropped_nonfinite field rides every record.
+            with _lock:
                 self.dropped_nonfinite += 1
-                return self
+            return self
+        with _lock:
+            # first bucket whose upper bound >= value (values above the
+            # last edge land in the +Inf overflow slot)
+            i = bisect_left(self.buckets, value)
+            self.counts[i] += 1
             self.count += 1
             self.sum += value
             self.min = value if self.min is None else min(self.min, value)
             self.max = value if self.max is None else max(self.max, value)
+            s = self._win.slot()
+            s[0][i] += 1
+            s[1] += 1
+            s[2] += value
+            s[3] = value if s[3] is None else min(s[3], value)
+            s[4] = value if s[4] is None else max(s[4], value)
         return self
 
+    def configure_window(self, seconds, subwindows=None):
+        """Resize the subwindow ring (resets the WINDOW contents only;
+        cumulative bucket state is untouched)."""
+        with _lock:
+            self._win = _WindowRing(seconds,
+                                    subwindows or WINDOW_SUBWINDOWS,
+                                    self._make_slot)
+        return self
 
-def _get_or_make(cls, name, labels, **kwargs):
+    def cumulative(self):
+        """[(upper_bound | "+Inf", cumulative_count), ...] — monotone."""
+        with _lock:
+            cum = _cumulate(self.counts)
+        out = list(zip(self.buckets, cum))
+        out.append(("+Inf", cum[-1]))
+        return out
+
+    # -- windowed reads ------------------------------------------------------
+    def _window_merged(self, window=None):
+        """(covered_seconds, counts, count, sum, min, max) — the live
+        subwindows merged; called under the registry lock."""
+        covered, slots = self._win.live(window)
+        counts = [0] * (len(self.buckets) + 1)
+        n, total, mn, mx = 0, 0.0, None, None
+        for s in slots:
+            for j, c in enumerate(s[0]):
+                counts[j] += c
+            n += s[1]
+            total += s[2]
+            if s[3] is not None:
+                mn = s[3] if mn is None else min(mn, s[3])
+                mx = s[4] if mx is None else max(mx, s[4])
+        return covered, counts, n, total, mn, mx
+
+    def window_cumulative(self, window=None):
+        """Like :meth:`cumulative`, over the trailing window only."""
+        with _lock:
+            _, counts, _, _, _, _ = self._window_merged(window)
+        cum = _cumulate(counts)
+        out = list(zip(self.buckets, cum))
+        out.append(("+Inf", cum[-1]))
+        return out
+
+    def window_stats(self, window=None):
+        """{seconds, count, sum, min, max} over the trailing window."""
+        with _lock:
+            covered, _, n, total, mn, mx = self._window_merged(window)
+        return {"seconds": covered, "count": n, "sum": total,
+                "min": mn, "max": mx}
+
+    def window_quantile(self, q, window=None):
+        """Bucket-merge estimate of the ``q`` quantile over the trailing
+        window (within-bucket linear interpolation, clamped to the
+        window's observed min/max), or None when the window is empty.
+        O(subwindows × buckets)."""
+        with _lock:
+            _, counts, n, _, mn, mx = self._window_merged(window)
+        if not n:
+            return None
+        return _quantile(self.buckets, _cumulate(counts), q,
+                         vmin=mn, vmax=mx)
+
+    def window_fraction_le(self, threshold, window=None):
+        """Fraction of window samples <= ``threshold`` seconds (linear
+        interpolation inside the straddling bucket; overflow-bucket
+        samples count as above any finite threshold — conservative for
+        SLO attainment), or None when the window is empty."""
+        with _lock:
+            _, counts, n, _, mn, mx = self._window_merged(window)
+        if not n:
+            return None
+        return _fraction_le(self.buckets, _cumulate(counts),
+                            float(threshold), vmin=mn, vmax=mx)
+
+    def quantile(self, q):
+        """Lifetime (cumulative-since-start) quantile estimate, same
+        bucket interpolation as :meth:`window_quantile`."""
+        with _lock:
+            counts = list(self.counts)
+            n, mn, mx = self.count, self.min, self.max
+        if not n:
+            return None
+        return _quantile(self.buckets, _cumulate(counts), q,
+                         vmin=mn, vmax=mx)
+
+    def _record(self, ts):
+        rec = _rec(self, ts, self.count)
+        rec["sum"] = self.sum
+        rec["unit"] = self.unit
+        if self.count:
+            rec["min"] = self.min
+            rec["max"] = self.max
+        if self.dropped_nonfinite:
+            rec["dropped_nonfinite"] = self.dropped_nonfinite
+        rec["buckets"] = [[b, c] for b, c in self.cumulative()]
+        with _lock:
+            covered, counts, n, total, mn, mx = self._window_merged()
+        win = {"seconds": covered, "count": n, "sum": total}
+        if n:
+            win["min"] = mn
+            win["max"] = mx
+        cum = _cumulate(counts)
+        win["buckets"] = ([[b, c] for b, c in zip(self.buckets, cum)]
+                          + [["+Inf", cum[-1]]])
+        rec["window"] = win
+        return rec
+
+
+def _rec(metric, ts, value):
+    rec = {"name": metric.name, "type": metric.kind, "value": value,
+           "ts": ts}
+    if metric.labels:
+        rec["labels"] = dict(metric.labels)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# bucket quantile math (shared by the live monitor and the snapshot
+# readers)
+# ---------------------------------------------------------------------------
+def _cumulate(counts):
+    """Per-bucket counts (overflow last) → cumulative counts, the +Inf
+    overflow included as the last entry — the shape every quantile /
+    fraction / record path consumes."""
+    cum, acc = [], 0
+    for c in counts[:-1]:
+        acc += c
+        cum.append(acc)
+    cum.append(acc + counts[-1])
+    return cum
+
+
+def _quantile(bounds, cum, q, vmin=None, vmax=None):
+    """Estimate the ``q`` quantile from cumulative bucket counts.
+
+    ``bounds`` are the ascending finite upper edges; ``cum`` the
+    cumulative counts per bucket INCLUDING the +Inf overflow as its last
+    entry.  Linear interpolation inside the straddling bucket; the
+    estimate is clamped to [vmin, vmax] when known (which makes the
+    all-samples-in-one-bucket case exact when min == max).  Returns None
+    on an empty distribution."""
+    total = cum[-1]
+    if total <= 0:
+        return None
+    q = min(max(float(q), 0.0), 1.0)
+    rank = q * total
+    prev_c, prev_b = 0, 0.0
+    est = None
+    for b, c in zip(bounds, cum):
+        if c >= rank and c > prev_c:
+            frac = (rank - prev_c) / (c - prev_c)
+            est = prev_b + (b - prev_b) * max(0.0, min(1.0, frac))
+            break
+        prev_c, prev_b = c, b
+    if est is None:
+        # the rank lives in the +Inf overflow bucket: the best bounded
+        # answer is the observed max (or the last finite edge)
+        est = vmax if vmax is not None else (bounds[-1] if bounds else 0.0)
+    if vmin is not None:
+        est = max(est, vmin)
+    if vmax is not None:
+        est = min(est, vmax)
+    return est
+
+
+def _fraction_le(bounds, cum, threshold, vmin=None, vmax=None):
+    """Fraction of samples <= ``threshold`` from cumulative bucket
+    counts (``cum`` includes the +Inf overflow last).  Interpolates
+    inside the straddling bucket; overflow samples count as ABOVE any
+    threshold below the observed max (conservative for SLO attainment).
+    Known ``vmin``/``vmax`` short-circuit the degenerate cases exactly:
+    a threshold at or above every observed sample is full attainment
+    (sound because observe() drops non-finite values — every counted
+    sample, overflow included, is <= vmax), one below every sample is
+    zero."""
+    total = cum[-1]
+    if total <= 0:
+        return None
+    if vmax is not None and threshold >= vmax:
+        return 1.0
+    if vmin is not None and threshold < vmin:
+        return 0.0
+    prev_c, prev_b = 0, 0.0
+    for b, c in zip(bounds, cum):
+        if threshold <= b:
+            if threshold >= b:
+                return c / total
+            width = b - prev_b
+            frac = (threshold - prev_b) / width if width > 0 else 1.0
+            return (prev_c + (c - prev_c) * max(0.0, min(1.0, frac))) / total
+        prev_c, prev_b = c, b
+    return (cum[-2] if len(cum) > 1 else cum[-1]) / total
+
+
+def _split_record_buckets(buckets):
+    """A record-shaped ``[[bound | "+Inf", cum], ...]`` list split into
+    (finite_bounds, cum_counts_incl_overflow)."""
+    bounds = [float(b) for b, _ in buckets if b != "+Inf"]
+    cum = [c for b, c in buckets if b != "+Inf"]
+    inf = [c for b, c in buckets if b == "+Inf"]
+    cum.append(inf[0] if inf else (cum[-1] if cum else 0))
+    return bounds, cum
+
+
+def quantile_from_cumulative(buckets, q, vmin=None, vmax=None):
+    """The ``q`` quantile estimate from a record-shaped cumulative
+    bucket list (``[[bound | "+Inf", count], ...]`` — the JSONL/window
+    schema), or None when empty.  A snapshot reader gets live-window
+    SLO state from snapshots with exactly this call."""
+    bounds, cum = _split_record_buckets(buckets)
+    return _quantile(bounds, cum, q, vmin=vmin, vmax=vmax)
+
+
+def fraction_le_from_cumulative(buckets, threshold, vmin=None, vmax=None):
+    """Fraction of samples <= ``threshold`` from a record-shaped
+    cumulative bucket list, or None when empty (``vmin``/``vmax`` —
+    e.g. a window record's min/max — make the all-above/all-below
+    cases exact)."""
+    bounds, cum = _split_record_buckets(buckets)
+    return _fraction_le(bounds, cum, float(threshold),
+                        vmin=vmin, vmax=vmax)
+
+
+# ---------------------------------------------------------------------------
+# SLO target specs ("itl_p99 < 50ms") — one grammar for the serving
+# monitor and every reader
+# ---------------------------------------------------------------------------
+# the serving pair, shared by serving.SLOMonitor's default arming and
+# the reference's report tool — one source, no drift
+DEFAULT_SLOS = ("ttft_p99 < 500ms", "itl_p99 < 50ms")
+
+SLO_METRIC_ALIASES = {
+    "itl": "serve.itl_seconds",
+    "ttft": "serve.ttft_seconds",
+}
+
+_SLO_SPEC_RE = re.compile(
+    r"^\s*([A-Za-z0-9_.]+?)_p(\d{1,2}(?:\.\d+)?)\s*<\s*"
+    r"([0-9]*\.?[0-9]+)\s*(us|ms|s)\s*$")
+
+_SLO_UNITS = {"us": 1e-6, "ms": 1e-3, "s": 1.0}
+
+
+def parse_slo_spec(spec):
+    """``"itl_p99 < 50ms"`` → ``{name, metric, quantile,
+    threshold_seconds, objective}``.  The left side is a metric alias
+    (``itl``/``ttft``) or a full histogram name, suffixed ``_p<NN>``;
+    the right side a latency with unit ``us``/``ms``/``s``.  The
+    objective (required good fraction) defaults to the quantile: "p99
+    below X" means 99% of samples must land below X, i.e. an error
+    budget of 1%."""
+    m = _SLO_SPEC_RE.match(str(spec))
+    if not m:
+        raise ValueError(
+            f"unparseable SLO spec {spec!r} (want e.g. 'itl_p99 < 50ms')")
+    base, pct, value, unit = m.groups()
+    quantile = float(pct) / 100.0
+    if not 0.0 < quantile < 1.0:
+        raise ValueError(f"SLO spec {spec!r}: p{pct} out of (0, 100)")
+    return {
+        "name": f"{base}_p{pct}",
+        "metric": SLO_METRIC_ALIASES.get(base, base),
+        "quantile": quantile,
+        "threshold_seconds": float(value) * _SLO_UNITS[unit],
+        "objective": quantile,
+    }
+
+
+def _get_or_make(cls, name, labels, **kw):
     key = (name, _labels_key(labels))
     with _lock:
         m = _metrics.get(key)
         if m is None:
-            m = _metrics[key] = cls(name, key[1], **kwargs)
+            m = _metrics[key] = cls(name, _labels_key(labels), **kw)
         elif not isinstance(m, cls):
-            raise TypeError(f"metric {name!r} already registered as "
-                            f"{m.kind}, not {cls.kind}")
+            raise TypeError(
+                f"metric {name!r} already registered as {m.kind}, "
+                f"not {cls.kind}")
         return m
 
 
 def counter(name, **labels):
-    """Create-or-fetch the Counter ``name`` (labels make distinct series)."""
+    """Create-or-fetch the Counter `name` (labels make distinct series)."""
     return _get_or_make(Counter, name, labels)
 
 
 def gauge(name, **labels):
-    """Create-or-fetch the Gauge ``name``."""
+    """Create-or-fetch the Gauge `name`."""
     return _get_or_make(Gauge, name, labels)
 
 
 def histogram(name, buckets=None, unit="seconds", **labels):
-    """Create-or-fetch the Histogram ``name`` (``buckets``, the
-    reference's quantile buckets, must stay None: not ported yet)."""
+    """Create-or-fetch the Histogram `name`; `buckets` and `unit` only
+    apply on first creation (fixed thereafter — merged snapshots depend
+    on the bucket edges).  Names in ``_DEFAULT_BUCKETS`` (the serving
+    SLO pair and phase attribution) default to the dense
+    :data:`SLO_LATENCY_BUCKETS` ladder so every creation site agrees
+    without repeating the edges."""
+    if buckets is None:
+        buckets = _DEFAULT_BUCKETS.get(name)
     return _get_or_make(Histogram, name, labels, buckets=buckets, unit=unit)
 
 
@@ -132,7 +618,230 @@ def get(name, **labels):
         return _metrics.get((name, _labels_key(labels)))
 
 
+def series(name):
+    """Every registered series of ``name`` as ``[(labels_dict, metric),
+    ...]`` (no create side effect).  The per-tenant SLO evaluation uses
+    this to find the tenant-labeled variants of a target's histogram
+    without knowing the tenant set in advance."""
+    with _lock:
+        return [(dict(m.labels), m)
+                for (n, _), m in _metrics.items() if n == name]
+
+
 def reset():
     """Drop every metric (test hook)."""
     with _lock:
         _metrics.clear()
+    _finalized.clear()
+
+
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+class span:
+    """Context manager: time a region into the histogram ``name``."""
+
+    __slots__ = ("name", "labels", "_t0")
+
+    def __init__(self, name, **labels):
+        self.name = name
+        self.labels = labels
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        histogram(self.name, **self.labels).observe(
+            time.perf_counter() - self._t0)
+        return False
+
+
+# ---------------------------------------------------------------------------
+# JSONL exporter
+# ---------------------------------------------------------------------------
+def configured_path():
+    """The JSONL sink from the TPUMX_TELEMETRY env var, or None."""
+    return os.environ.get("TPUMX_TELEMETRY") or None
+
+
+def snapshot():
+    """One record per live metric, sharing a wall-clock ``ts``.
+
+    Built entirely under the registry lock (no I/O happens here): a
+    concurrent ``observe()`` between reading ``count`` and the bucket
+    array would otherwise produce a record violating the schema's own
+    +Inf-count == value invariant."""
+    ts = time.time()
+    with _lock:
+        return [m._record(ts) for m in _metrics.values()]
+
+
+def flush(path=None, final=False):
+    """Append one snapshot to the JSONL sink (`path` or TPUMX_TELEMETRY).
+
+    No sink configured → no-op (returns None), which is what makes
+    instrumentation free to call this unconditionally.  ``final=True``
+    rewrites the file — full history + this snapshot — through
+    ``checkpoint.atomic_write``, so the at-exit dump can never leave a
+    truncated file; intermediate flushes are plain appends (cheap, and a
+    torn tail there is recoverable line-by-line).  Returns the records."""
+    path = path or configured_path()
+    if not path:
+        return None
+    _refresh_bridge_gauges()
+    recs = snapshot()
+    payload = "".join(json.dumps(r, sort_keys=True) + "\n" for r in recs)
+    # The registry _lock is NEVER held across file I/O: the write path
+    # below re-enters instrumented code (atomic_write counts itself).  _flush_io_lock serializes concurrent flush()
+    # calls instead, so a final read-modify-rewrite cannot drop a
+    # concurrent append.  Earlier snapshots are re-read from disk for the
+    # final rewrite — no in-memory history accumulates over a long run.
+    with _flush_io_lock:
+        if final:
+            _finalized.add(path)
+            try:
+                with open(path, encoding="utf-8") as f:
+                    prev = f.read()
+            except OSError:
+                prev = ""
+            from .checkpoint import atomic_write
+            with atomic_write(path, "w") as f:
+                f.write(prev + payload)
+        else:
+            with open(path, "a", encoding="utf-8") as f:
+                f.write(payload)
+    return recs
+
+
+def _refresh_bridge_gauges():
+    """Pull the flight recorder's overflow count into the registry right
+    before a snapshot leaves the process (the ``tracing.events_dropped``
+    gauge).  Only reads a tracing module that is already imported."""
+    mod = sys.modules.get(__package__ + ".tracing") if __package__ else None
+    if mod is None:
+        return
+    try:
+        gauge("tracing.events_dropped").set(float(mod.stats()["dropped"]))
+    except Exception:
+        pass  # a torn-down tracing module must not break a flush
+
+
+# paths a final flush already rewrote — the atexit hook must not append a
+# duplicate final snapshot after an explicit flush(final=True)
+_finalized: set = set()
+_flush_io_lock = threading.Lock()
+
+
+@atexit.register
+def _flush_at_exit():
+    try:
+        path = configured_path()
+        if path and _metrics and path not in _finalized:
+            flush(final=True)
+    except Exception:
+        pass
+
+
+def validate_record(rec):
+    """Raise ValueError unless `rec` is a schema-valid telemetry record.
+
+    Schema: every record
+    has a str ``name``, ``type`` in {counter, gauge, histogram}, numeric
+    ``value`` and ``ts``; histograms additionally carry a numeric ``sum``
+    and cumulative ``buckets`` [[bound, count], ...] whose counts are
+    monotone non-decreasing, whose last bound is "+Inf", and whose total
+    equals ``value``."""
+    if not isinstance(rec, dict):
+        raise ValueError(f"record is {type(rec).__name__}, not an object")
+    name = rec.get("name")
+    if not isinstance(name, str) or not name:
+        raise ValueError(f"record missing name: {rec!r}")
+    kind = rec.get("type")
+    if kind not in ("counter", "gauge", "histogram"):
+        raise ValueError(f"{name}: bad type {kind!r}")
+    for field in ("value", "ts"):
+        if not isinstance(rec.get(field), (int, float)) \
+                or isinstance(rec.get(field), bool):
+            raise ValueError(f"{name}: missing numeric {field!r}")
+    if "labels" in rec and not (
+            isinstance(rec["labels"], dict)
+            and all(isinstance(k, str) and isinstance(v, str)
+                    for k, v in rec["labels"].items())):
+        raise ValueError(f"{name}: labels must be a str->str object")
+    # the fleet-identity stamp is optional — records from
+    # static-world processes simply lack both keys and stay valid
+    for field in ("rank", "fleet_generation"):
+        v = rec.get(field)
+        if v is not None and (not isinstance(v, int)
+                              or isinstance(v, bool)):
+            raise ValueError(f"{name}: {field!r} must be int, got {v!r}")
+    if kind == "histogram":
+        if not isinstance(rec.get("sum"), (int, float)):
+            raise ValueError(f"{name}: histogram missing numeric 'sum'")
+        buckets = rec.get("buckets")
+        if not isinstance(buckets, list) or not buckets:
+            raise ValueError(f"{name}: histogram missing 'buckets'")
+        prev = None
+        for entry in buckets:
+            if (not isinstance(entry, list) or len(entry) != 2
+                    or not isinstance(entry[1], int)):
+                raise ValueError(f"{name}: malformed bucket {entry!r}")
+            if prev is not None and entry[1] < prev:
+                raise ValueError(
+                    f"{name}: bucket counts not monotone "
+                    f"({entry[1]} after {prev})")
+            prev = entry[1]
+        if buckets[-1][0] != "+Inf":
+            raise ValueError(f"{name}: last bucket bound must be '+Inf', "
+                             f"got {buckets[-1][0]!r}")
+        if buckets[-1][1] != rec["value"]:
+            raise ValueError(
+                f"{name}: +Inf bucket count {buckets[-1][1]} != "
+                f"value {rec['value']}")
+    if "window" in rec:
+        _validate_window(name, kind, rec["window"])
+    return rec
+
+
+def _validate_window(name, kind, win):
+    """The optional ``window`` sub-object (trailing-window state riding
+    counter/histogram records): numeric ``seconds``; counters carry a
+    numeric ``value``, histograms a numeric ``count``/``sum`` and a
+    monotone cumulative bucket list ending at ``+Inf`` whose total
+    equals the window count — the same invariants as the record
+    proper.  Records written before the window layer simply lack the
+    key and stay valid."""
+    if not isinstance(win, dict):
+        raise ValueError(f"{name}: 'window' must be an object")
+    if not isinstance(win.get("seconds"), (int, float)) \
+            or isinstance(win.get("seconds"), bool):
+        raise ValueError(f"{name}: window missing numeric 'seconds'")
+    if kind == "counter":
+        if not isinstance(win.get("value"), (int, float)) \
+                or isinstance(win.get("value"), bool):
+            raise ValueError(f"{name}: counter window missing 'value'")
+        return
+    if kind != "histogram":
+        raise ValueError(f"{name}: {kind} records carry no window")
+    for field in ("count", "sum"):
+        if not isinstance(win.get(field), (int, float)) \
+                or isinstance(win.get(field), bool):
+            raise ValueError(f"{name}: window missing numeric {field!r}")
+    buckets = win.get("buckets")
+    if not isinstance(buckets, list) or not buckets:
+        raise ValueError(f"{name}: window missing 'buckets'")
+    prev = None
+    for entry in buckets:
+        if (not isinstance(entry, list) or len(entry) != 2
+                or not isinstance(entry[1], int)):
+            raise ValueError(f"{name}: malformed window bucket {entry!r}")
+        if prev is not None and entry[1] < prev:
+            raise ValueError(f"{name}: window bucket counts not monotone")
+        prev = entry[1]
+    if buckets[-1][0] != "+Inf":
+        raise ValueError(f"{name}: window's last bucket must be '+Inf'")
+    if buckets[-1][1] != win["count"]:
+        raise ValueError(
+            f"{name}: window +Inf count {buckets[-1][1]} != "
+            f"count {win['count']}")
