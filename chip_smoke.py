@@ -275,6 +275,46 @@ line each:
                  written for the card: 16-byte loads and stores) is timed
                  beside ``torch.mul`` and must equal ``x * 3.0`` too.
 
+18. ``zoo_parity`` — the seven vision networks of ``train_imagenet.py``
+                 (``alexnet``, ``vgg16``, ``squeezenet1_0``,
+                 ``mobilenet1_0``, ``mobilenet_v2_1_0``, ``densenet121``,
+                 ``inception_v3``), channels-last float32 at batch 2 and
+                 small inputs (``ZOO_PARITY_SIZE``), built on the card and
+                 on the CPU from one Xavier weight set (drawn for the
+                 channels-first twin), dropout off: eval logits within 1e-4
+                 of max|logit|, one momentum-SGD step's loss within 1e-4
+                 relative and every convolution's and dense layer's
+                 updated tensor within 1e-2 in norm; over the BatchNorm
+                 tensors and any tensor whose CPU float32 update is more
+                 than 1e-3 from a float64 run of the same step (a shift's
+                 gradient sums what the next BatchNorm made cancel), the
+                 card's summed error against float64 is at most twice the
+                 CPU's or 1e-2 of their update; each optimizer's
+                 ``update_core`` (the 13 of the slice, SGD, Adam, LAMB)
+                 three steps card against CPU within 1e-5 relative; each of
+                 the four schedulers driving ``CompiledTrainStep``'s rate,
+                 which must equal ``sched(t)`` at every step;
+19. ``zoo_train`` — the seven networks at full width through the
+                 example's recipe (``get_model(name, classes=1000)``,
+                 Xavier, bfloat16, NHWC, softmax CE, SGD 0.1 / 0.9 / 1e-4
+                 with f32 masters, ``CompiledTrainStep``) at batch 128 of
+                 224x224 (299x299 for Inception), 1 warm-up and 3 timed
+                 steps each (cuDNN's heuristics): step ms, images/s,
+                 TFLOP/s at 6 x the forward multiply-adds counted from the
+                 layer shapes (held within 5% of the published figures),
+                 its share of 989, peak memory, finite losses, and no port
+                 kernel launched;
+20. ``zoo_example`` — ``examples/image_classification/
+                 train_imagenet.py`` unedited, on the card, through a
+                 ``sys.modules`` alias of ``tpu_mx`` to the port:
+                 ``--network mobilenet_v2_1_0 --layout NHWC --epochs 1
+                 --model-prefix <tmp>`` (20 steps at batch 128): it ends,
+                 every ``DevicePrefetchIter`` batch arrives on the card in
+                 bfloat16, no module of ``tpu_mx/`` nor ``jax`` is loaded,
+                 the ``.params`` it wrote has the reference's members (each
+                 bfloat16 weight as ``'<V2'``) and loads bit-equal into a
+                 fresh network on the CPU; the example's own images/s.
+
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
 prints no result, if any phase fails or there is no card.
@@ -384,6 +424,39 @@ SSD_GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn",
 
 # the imperative surface: examples/mnist/train_mnist.py's recipe
 MNIST_N, MNIST_BATCH, MNIST_EPOCHS, MNIST_LR = 8192, 128, 3, 0.05
+ZOO_NETS = ("alexnet", "vgg16", "squeezenet1_0", "mobilenet1_0",
+            "mobilenet_v2_1_0", "densenet121", "inception_v3")
+ZOO_CLASSES, ZOO_BATCH, ZOO_STEPS = 1000, 128, 3
+ZOO_SIZE = {"inception_v3": 299}              # else 224
+ZOO_SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+# the parity inputs: each net's least (AlexNet 63, VGG 32, SqueezeNet
+# 21), 64 for the MobileNets and DenseNet and 171 for Inception, whose
+# last BatchNorms would see two samples a channel at 32 (75): float32
+# against float64 of the same step there, DenseNet's losses 6e-2 apart
+# (Inception's 8e-4; 7e-6 at 171)
+ZOO_PARITY_SIZE = {"alexnet": 63, "vgg16": 32, "squeezenet1_0": 21,
+                   "mobilenet1_0": 64, "mobilenet_v2_1_0": 64,
+                   "densenet121": 64, "inception_v3": 171}
+ZOO_PARITY_BATCH = 2
+ZOO_LOGITS_REL = 1e-4        # card against CPU, x max|logit| (PERF.md §2)
+ZOO_UPDATE_ATOL = 1e-6       # an update below this norm counts as none
+ZOO_COND_RTOL = 1e-3         # the CPU's float32 update this far from
+ZOO_COND_FACTOR = 2.0        # float64: see zoo_parity_net
+ZOO_BN_LEAVES = ("gamma", "beta", "running_mean", "running_var")
+ZOO_OPT_RTOL = 1e-5          # three update_core steps, card against CPU
+ZOO_SCHED_STEPS = 6
+ZOO_SCHEDULERS = (("FactorScheduler", dict(step=2, factor=0.5)),
+                  ("MultiFactorScheduler", dict(step=[2, 4], factor=0.3)),
+                  ("PolyScheduler", dict(max_update=6, pwr=2)),
+                  ("CosineScheduler", dict(max_update=6, final_lr=0.01)))
+# forward multiply-adds an image, the published figures the counted ones
+# are held to (AlexNet, VGG-16, SqueezeNet 1.0, MobileNet 1.0, MobileNet
+# v2 1.0, DenseNet-121, Inception v3)
+ZOO_PUBLISHED_GMAC = {"alexnet": 0.7, "vgg16": 15.5, "squeezenet1_0": 0.8,
+                      "mobilenet1_0": 0.57, "mobilenet_v2_1_0": 0.3,
+                      "densenet121": 2.9, "inception_v3": 5.7}
+ZOO_GMAC_RTOL = 0.05
+ZOO_EXAMPLE_STEPS = 20       # train_imagenet.py: 128 x 20 synthetic images
 MNIST_MIN_ACC = 0.9         # the example's own assert (train_mnist.py:85)
 # memory_allocated over 100 steps: one step's saved activations are ~17 MB
 # (conv1's and tanh's 5.9 MB each at batch 128), so a graph kept alive
@@ -868,6 +941,9 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
                                  device=dev).tril()[None, None]
     q4, k4, v4, do4 = (x.view(1, bh, t, d) for x in (q, k, v, do))
     lib_fwd = cuda_ms(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask))
+    # with the kernel's dropout too: the like-for-like yardstick
+    lib_fwd_dropout = cuda_ms(torch, lambda: sdpa(
+        q4, k4, v4, attn_mask=mask, dropout_p=rate)) if rate else None
     leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
     lib_out = sdpa(*leaves, attn_mask=mask)
     lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
@@ -908,6 +984,7 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
             recs[name]["bound_ms_ffma"], recs[name]["bound_by_ffma"] = bound(
                 nbytes[name], flops[name])
     recs["flash_attention_fwd"]["lse_max_abs_err"] = lse_err
+    recs["flash_attention_fwd"]["library_ms_dropout"] = lib_fwd_dropout
     return recs
 
 
@@ -944,6 +1021,9 @@ def flash_train_kernels(torch, fa, gen, ctx, entries, worst):
                     continue
                 if key == "bf16":
                     entries[name] = {k: r[k] for k in ENTRY_KEYS}
+                    if "library_ms_dropout" in r:
+                        entries[name]["library_ms_dropout"] = \
+                            r["library_ms_dropout"]
                 else:
                     f32.setdefault(name, {})[key] = {k: r[k] for k in (
                         ENTRY_KEYS + ("max_abs_err", "bound_ms_ffma",
@@ -2975,6 +3055,495 @@ def phase_ssd_train(ctx):
             ctx["failures"].append(f"ssd_train check {name} failed")
 
 
+# -- the vision zoo ---------------------------------------------------------------
+def zoo_net(torch, name, device, classes=ZOO_CLASSES):
+    """``vision.get_model(name)`` built channels-last on ``device`` (its
+    tensors are deferred until the first forward or ``load_numpy``)."""
+    from tpu_mx_torch import layout
+    from tpu_mx_torch.context import cpu, gpu
+    from tpu_mx_torch.gluon.model_zoo import vision
+    with layout.default_layout("NHWC"), (cpu() if device == "cpu"
+                                         else gpu(0)):
+        return vision.get_model(name, classes=classes)
+
+
+def zoo_no_dropout(net):
+    from tpu_mx_torch.gluon import nn
+    for m in net.modules():
+        if isinstance(m, nn.Dropout):
+            m._rate = 0.0
+
+
+def zoo_copy(torch, name, device, params, dtype=None):
+    """A fresh ``name`` on ``device`` holding ``params`` (reference
+    order and shapes), dropout off, in ``dtype`` if given."""
+    from tpu_mx_torch.context import cpu, gpu
+    from tpu_mx_torch.gluon.block import load_numpy
+    net = zoo_net(torch, name, device)
+    with cpu() if device == "cpu" else gpu(0):
+        load_numpy(net, params)
+    zoo_no_dropout(net)
+    return net.to(dtype) if dtype is not None else net
+
+
+def zoo_step(torch, net, x, label, device):
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    step = CompiledTrainStep(net, loss.SoftmaxCrossEntropyLoss(),
+                             optimizer.create("sgd", **ZOO_SGD),
+                             device=device)
+    dt = next(net.parameters()).dtype
+    return float(step.step(torch.from_numpy(x).to(device, dt),
+                           torch.from_numpy(label).to(device, dt)))
+
+
+def zoo_parity_net(torch, name):
+    """One network, float32, batch 2 at its parity input, channels-last,
+    with Xavier weights drawn for its channels-first twin (the
+    reference's Xavier reads a channels-last weight's fan as ``kw·I``,
+    which leaves several nets' logits near 1e-20 and their gradients
+    all rounding): the card's eval logits and one SGD-momentum step
+    against the CPU's from the same weights, and both steps against the
+    CPU's float64 step.  A convolution's or dense layer's tensor whose
+    CPU float32 update is within ZOO_COND_RTOL of float64 must move
+    alike on the card within UPDATE_RTOL in norm.  Over the rest, the
+    BatchNorm tensors (a shift's gradient sums what the next BatchNorm
+    made cancel; statistics of a few samples) and the tensors float32
+    cannot pin, the card's summed error against float64 is at most
+    ZOO_COND_FACTOR times the CPU's, or UPDATE_RTOL of their summed
+    update."""
+    from tpu_mx_torch import layout
+    from tpu_mx_torch.context import cpu
+    from tpu_mx_torch.gluon.model_zoo import vision
+    size = ZOO_PARITY_SIZE[name]
+    rng = np.random.RandomState(3)
+    x = rng.rand(ZOO_PARITY_BATCH, size, size, 3).astype(np.float32)
+    label = rng.randint(0, ZOO_CLASSES, ZOO_PARITY_BATCH).astype(np.float32)
+    with cpu(), layout.default_layout("NCHW"):
+        src = vision.get_model(name, classes=ZOO_CLASSES)
+    src.initialize("xavier", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        src.eval()(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+    params = {p.name: (lambda a: a.transpose(0, 2, 3, 1) if a.ndim == 4
+                       else a)(p._ref_view().detach().numpy()).copy()
+              for p in src.collect_params().values()}
+    nets = {"cpu": zoo_copy(torch, name, "cpu", params),
+            "cuda": zoo_copy(torch, name, "cuda", params),
+            "f64": zoo_copy(torch, name, "cpu", params, torch.float64)}
+    with torch.no_grad():
+        want = nets["cpu"].eval()(torch.from_numpy(x))
+        got = nets["cuda"].eval()(torch.from_numpy(x).cuda()).cpu()
+    logits_err = float((got - want).abs().max())
+    logits_tol = ZOO_LOGITS_REL * float(want.abs().max())
+    before = {n: p._ref_view().detach().double().clone()
+              for n, p in nets["f64"].collect_params().items()}
+    losses = {key: zoo_step(torch, nets[key], x, label,
+                            "cuda" if key == "cuda" else "cpu")
+              for key in ("cuda", "cpu", "f64")}
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    moved = {key: {n: p._ref_view().detach().cpu().double() - before[n]
+                   for n, p in nets[key].collect_params().items()}
+             for key in nets}
+    worst, worst_name, unmoved, bad = 0.0, None, 0, []
+    err_gpu, err_cpu, cond_size, cond = 0.0, 0.0, 0.0, []
+    for n, d_64 in moved["f64"].items():
+        d_cpu, d_gpu = moved["cpu"][n], moved["cuda"][n]
+        size_ = float(d_64.norm())
+        if n.endswith(ZOO_BN_LEAVES) or (
+                size_ > ZOO_UPDATE_ATOL and
+                float((d_cpu - d_64).norm()) > ZOO_COND_RTOL * size_):
+            cond.append(n)
+            err_gpu += float((d_gpu - d_64).norm()) ** 2
+            err_cpu += float((d_cpu - d_64).norm()) ** 2
+            cond_size += size_ ** 2
+        elif size_ <= ZOO_UPDATE_ATOL:
+            unmoved += 1
+            if float((d_gpu - d_cpu).norm()) > ZOO_UPDATE_ATOL:
+                bad.append(n)
+        else:
+            rel = float((d_gpu - d_cpu).norm()) / size_
+            if rel > worst:
+                worst, worst_name = rel, n
+            if rel > UPDATE_RTOL:
+                bad.append(n)
+    err_gpu, err_cpu = math.sqrt(err_gpu), math.sqrt(err_cpu)
+    cond_size = math.sqrt(cond_size)
+    rec = dict(size=size, batch=ZOO_PARITY_BATCH,
+               logits_max_abs_err=logits_err, logits_atol=logits_tol,
+               logits_max_abs=float(want.abs().max()), losses=losses,
+               loss_rel_err=loss_rel, worst_update_rel_err=worst,
+               worst_update_tensor=worst_name, tensors=len(before),
+               unmoved_tensors=unmoved, ill_conditioned_tensors=len(cond),
+               ill_conditioned_err_card_vs_f64=err_gpu,
+               ill_conditioned_err_cpu_vs_f64=err_cpu,
+               ill_conditioned_update_norm=cond_size,
+               failed_tensors=bad[:8])
+    checks = {"logits": logits_err <= logits_tol,
+              "loss": loss_rel <= LOSS_RTOL,
+              "updates": not bad,
+              "ill_conditioned": err_gpu <= max(ZOO_COND_FACTOR * err_cpu,
+                                                UPDATE_RTOL * cond_size),
+              "finite": math.isfinite(losses["cuda"])}
+    return rec, checks
+
+
+ZOO_OPTIMIZERS = (
+    ("sgd", dict(momentum=0.9, wd=1e-4)), ("adam", dict(wd=1e-4)),
+    ("lamb", dict(wd=1e-2)), ("lbsgd", dict(momentum=0.9, wd=1e-4)),
+    ("nag", dict(momentum=0.9, wd=1e-4)), ("adamw", dict(wd=1e-2)),
+    ("rmsprop", dict(centered=False)), ("rmsprop", dict(centered=True)),
+    ("adagrad", {}), ("adadelta", {}), ("ftrl", {}), ("signum", {}),
+    ("dcasgd", dict(momentum=0.9)), ("sgld", {}), ("adamax", {}),
+    ("nadam", {}), ("ftml", {}))
+
+
+def zoo_optimizer_case(torch, name, kw):
+    """Three ``update_core`` steps of ``name`` on the card against the
+    CPU from one weight and three gradients: the largest difference of
+    the weight and of any state tensor, relative to the CPU's max.
+    SGLD's noise comes from each device's own generator: the noise each
+    drew (re-drawn from a twin) is taken away first."""
+    from tpu_mx_torch import optimizer
+    rng = np.random.RandomState(5)
+    w0 = rng.randn(257, 129).astype(np.float32)
+    grads = [rng.randn(257, 129).astype(np.float32) for _ in range(3)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        extra = {}
+        if name == "sgld":
+            extra["generator"] = torch.Generator(dev).manual_seed(7)
+            twin = torch.Generator(dev).manual_seed(7)
+        opt = optimizer.create(name, learning_rate=0.01, **kw, **extra)
+        w = torch.from_numpy(w0).to(dev)
+        state = opt.create_state(0, w)
+        noise = 0.0
+        for t, g in enumerate(grads, 1):
+            w, state = opt.update_core(w, torch.from_numpy(g).to(dev), state,
+                                       0.01, opt.wd, t)
+            if name == "sgld":
+                noise = noise + math.sqrt(0.01) * torch.randn(
+                    w.shape, generator=twin, device=dev)
+        flat = [w - noise] + [s for s in (state if isinstance(
+            state, tuple) else (state,)) if s is not None]
+        out[dev] = [s.detach().double().cpu() for s in flat]
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(out["cuda"], out["cpu"]))
+
+
+def zoo_scheduler_case(torch, name, kw):
+    """``CompiledTrainStep`` on the card with ``lr_scheduler``: the rate
+    each update ran with (read where ``update_core`` takes it) against
+    the scheduler's own ``sched(t)``, t = 1..ZOO_SCHED_STEPS."""
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.context import gpu
+    from tpu_mx_torch.gluon import loss, nn
+    from tpu_mx_torch.optimizer import lr_scheduler
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    with gpu(0):
+        net = nn.Dense(8, in_units=16)
+    opt = optimizer.create("sgd", learning_rate=0.2, momentum=0.9,
+                           lr_scheduler=getattr(lr_scheduler, name)(**kw))
+    used = []
+    core = opt.update_core
+
+    def recorded(weight, grad, state, lr, wd, t):
+        if not used or used[-1][0] != t:
+            used.append((t, lr))
+        return core(weight, grad, state, lr, wd, t)
+    opt.update_core = recorded
+    step = CompiledTrainStep(net, loss.L2Loss(), opt)
+    x = torch.rand((4, 16), device="cuda")
+    y = torch.rand((4, 8), device="cuda")
+    for _ in range(ZOO_SCHED_STEPS):
+        step.step(x, y)
+    probe = getattr(lr_scheduler, name)(**kw)
+    probe.base_lr = 0.2
+    want = [(t, probe(t)) for t in range(1, ZOO_SCHED_STEPS + 1)]
+    return used, want
+
+
+def phase_zoo_parity(ctx):
+    """The seven vision networks in float32 on the card against the CPU;
+    the optimizers' update cores and the schedulers on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    prior = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False   # see phase_resnet_parity
+    try:
+        nets, checks = {}, {}
+        for name in ZOO_NETS:
+            rec, ok = zoo_parity_net(torch, name)
+            nets[name] = rec
+            checks.update({f"{name}_{k}": v for k, v in ok.items()})
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.mkldnn.enabled = prior
+    opts = {}
+    for name, kw in ZOO_OPTIMIZERS:
+        key = name + ("_centered" if kw.get("centered") else "")
+        opts[key] = zoo_optimizer_case(torch, name, kw)
+        checks[f"optimizer_{key}"] = opts[key] <= ZOO_OPT_RTOL
+    scheds = {}
+    for name, kw in ZOO_SCHEDULERS:
+        used, want = zoo_scheduler_case(torch, name, kw)
+        scheds[name] = dict(used=used, want=want)
+        checks[f"scheduler_{name}"] = len(used) == len(want) and all(
+            t == u and abs(a - b) <= 1e-12 * abs(b)
+            for (t, a), (u, b) in zip(used, want))
+    ctx["zoo_parity"] = nets
+    emit("zoo_parity", ok=all(checks.values()), checks=checks, nets=nets,
+         config=dict(layout="NHWC", dtype="float32", classes=ZOO_CLASSES,
+                     optimizer="sgd lr=0.1 momentum=0.9 wd=1e-4, one step",
+                     dropout="rate 0 on both nets"),
+         logits_rel=ZOO_LOGITS_REL, loss_rtol=LOSS_RTOL,
+         update_rtol=UPDATE_RTOL, cond_rtol=ZOO_COND_RTOL,
+         cond_factor=ZOO_COND_FACTOR,
+         optimizers_max_rel_err=opts, optimizer_rtol=ZOO_OPT_RTOL,
+         schedulers=scheds, seconds=time.perf_counter() - t0)
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"zoo_parity check {name} failed")
+
+
+def zoo_gmac(torch, net, size):
+    """Forward multiply-adds of one image, counted from the layer shapes
+    seen in one forward: a convolution's output elements times its
+    input channels per group times its window, a dense layer's output
+    times its inputs."""
+    from tpu_mx_torch.gluon import nn
+    from tpu_mx_torch.gluon.nn.conv_layers import _Conv
+    macs = [0]
+
+    def count(block, args, out):
+        w = block._parameters["weight"]
+        per = math.prod(w.shape[1:]) if isinstance(block, _Conv) \
+            else w.shape[1]
+        macs[0] += out.numel() * per
+
+    handles = [m.register_forward_hook(count) for m in net.modules()
+               if isinstance(m, (_Conv, nn.Dense))]
+    with torch.no_grad():
+        net.eval()(torch.zeros((1, size, size, 3), device="cuda"))
+    for h in handles:
+        h.remove()
+    return macs[0] / 1e9
+
+
+def zoo_train_run(torch, name):
+    """``train_imagenet.py``'s recipe for ``name``: Xavier, bf16 with
+    f32 masters, channels-last, softmax CE, SGD (0.1, momentum 0.9, wd
+    1e-4) through ``CompiledTrainStep`` at batch ZOO_BATCH; 1 warm-up
+    and ZOO_STEPS timed steps."""
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    size = ZOO_SIZE.get(name, 224)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = zoo_net(torch, name, "cuda")
+    net.initialize("xavier", generator=gen)
+    gmac = zoo_gmac(torch, net, size)        # also fixes the shapes
+    net.cast("bfloat16")
+    step = CompiledTrainStep(net, loss.SoftmaxCrossEntropyLoss(),
+                             optimizer.create("sgd", **ZOO_SGD,
+                                              multi_precision=True))
+    data = torch.rand((ZOO_BATCH, size, size, 3), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    label = torch.randint(0, ZOO_CLASSES, (ZOO_BATCH,), generator=gen,
+                          device="cuda").float()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    losses = [float(step.step(data, label))]     # warm-up
+    warmup_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(ZOO_STEPS):
+        t1 = time.perf_counter()
+        losses.append(float(step.step(data, label)))   # ends in a host read
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    med = statistics.median(step_ms)
+    flops = 6 * gmac * 1e9 * ZOO_BATCH          # forward 2 x MACs, x 3
+    tflops = flops / (med * 1e-3) / 1e12
+    first = next(p for p in net.parameters() if p.dim() == 4)
+    return dict(size=size, batch=ZOO_BATCH, losses=losses, step_ms=step_ms,
+                step_ms_median=med, images_per_sec=ZOO_BATCH / med * 1e3,
+                warmup_ms=warmup_ms, setup_seconds=setup_s,
+                gmac_per_image=gmac,
+                published_gmac_per_image=ZOO_PUBLISHED_GMAC[name],
+                train_flops_per_image=6 * gmac * 1e9,
+                achieved_tflops=tflops,
+                share_of_peak=tflops * 1e12 / BF16_FLOP_PER_S,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                weight_dtype=str(first.dtype),
+                channels_last=first.is_contiguous(
+                    memory_format=torch.channels_last))
+
+
+def phase_zoo_train(ctx):
+    """The seven networks at full width through ``train_imagenet.py``'s
+    recipe, one after another; no kernel of the port may launch."""
+    import torch
+
+    # cuDNN's heuristics, not its autotuning: on this card autotuning
+    # took 5-26 s of warm-up a network and no step was faster for it
+    prior = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    reset_port_kernel_launches()
+    runs, checks = {}, {}
+    try:
+        for name in ZOO_NETS:
+            rec = zoo_train_run(torch, name)
+            runs[name] = rec
+            checks[f"{name}_finite"] = all(map(math.isfinite, rec["losses"]))
+            checks[f"{name}_bf16"] = rec["weight_dtype"] == "torch.bfloat16"
+            checks[f"{name}_gmac"] = abs(rec["gmac_per_image"] / rec[
+                "published_gmac_per_image"] - 1) <= ZOO_GMAC_RTOL
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = prior
+    ctx["zoo_train"] = runs
+    ctx["zoo_launches"] = port_kernel_launches()
+    checks["no_port_kernel_launched"] = not any(ctx["zoo_launches"].values())
+    emit("zoo_train", ok=all(checks.values()), checks=checks, runs=runs,
+         recipe="examples/image_classification/train_imagenet.py: "
+                "get_model(name, classes=1000), xavier, bfloat16, NHWC, "
+                "softmax CE, sgd lr=0.1 momentum=0.9 wd=1e-4 "
+                "multi_precision, CompiledTrainStep",
+         reduced={"steps": f"1 warm-up + {ZOO_STEPS} timed"},
+         cudnn_benchmark=False, launches=ctx["zoo_launches"],
+         peak_tflops=BF16_FLOP_PER_S / 1e12, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"zoo_train check {name} failed")
+
+
+def phase_zoo_example(ctx):
+    """``examples/image_classification/train_imagenet.py`` unedited, on
+    the card, through a ``sys.modules`` alias of ``tpu_mx`` to the
+    port: mobilenet_v2_1_0, NHWC, one epoch of 20 steps at batch 128."""
+    import contextlib
+    import io as _io
+    import os
+    import runpy
+    import tempfile
+    import zipfile
+
+    import torch
+
+    import tpu_mx_torch as tmx
+    import tpu_mx_torch.gluon.model_zoo  # noqa: F401
+    import tpu_mx_torch.layout  # noqa: F401
+    import tpu_mx_torch.parallel  # noqa: F401
+    from tpu_mx_torch.context import cpu
+    from tpu_mx_torch.io import DevicePrefetchIter
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "examples", "image_classification",
+                          "train_imagenet.py")
+    alias = {"tpu_mx": tmx, "tpu_mx.gluon": tmx.gluon,
+             "tpu_mx.gluon.model_zoo": tmx.gluon.model_zoo,
+             "tpu_mx.gluon.model_zoo.vision": tmx.gluon.model_zoo.vision,
+             "tpu_mx.parallel": tmx.parallel, "tpu_mx.layout": tmx.layout}
+    vision = tmx.gluon.model_zoo.vision
+    nets, batches = [], []
+    get_model, receive = vision.get_model, DevicePrefetchIter._receive
+
+    def recorded_get_model(*args, **kwargs):
+        nets.append(get_model(*args, **kwargs))
+        return nets[-1]
+
+    def recorded_receive(self, item):
+        out = receive(self, item)
+        d = out[0].data[0]._data
+        batches.append((d.device.type, str(d.dtype)))
+        return out
+
+    saved = {k: sys.modules.get(k) for k in alias}
+    argv = sys.argv
+    tmp = tempfile.mkdtemp(prefix="zoo_example_")
+    prefix = os.path.join(tmp, "mobilenet_v2")
+    out = _io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        sys.modules.update(alias)
+        vision.get_model = recorded_get_model
+        DevicePrefetchIter._receive = recorded_receive
+        sys.argv = ["train_imagenet.py", "--network", "mobilenet_v2_1_0",
+                    "--layout", "NHWC", "--epochs", "1",
+                    "--model-prefix", prefix]
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(script, run_name="__main__")
+    finally:
+        sys.argv = argv
+        vision.get_model = get_model
+        DevicePrefetchIter._receive = receive
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    last = [ln for ln in text.splitlines() if ln.startswith("epoch 0: loss")]
+    imgs = float(last[-1].split()[-2]) if last else float("nan")
+    loss = float(last[-1].split()[3]) if last else float("nan")
+    ref_dir = os.path.join(here, "tpu_mx") + os.sep
+    loaded = sorted(n for n, m in list(sys.modules.items())
+                    if (getattr(m, "__file__", None) or "").startswith(
+                        ref_dir))
+    params = f"{prefix}-0000.params"
+    net = nets[0] if nets else None
+    members, v2 = {}, []
+    if os.path.exists(params):
+        with zipfile.ZipFile(params) as z:
+            members = {n: z.read(n)[:128] for n in z.namelist()}
+        v2 = [n for n, head in members.items() if b"'<V2'" in head]
+    keys = set(net._collect_params_with_prefix()) if net is not None \
+        else set()
+    bit_equal = False
+    if net is not None and members:
+        with cpu():
+            host = zoo_net(torch, "mobilenet_v2_1_0", "cpu")
+            host.initialize()
+            host.load_parameters(params)
+        bit_equal = all(
+            torch.equal(a._ref_view().cpu(), b._ref_view())
+            for a, b in zip(net._collect_params_with_prefix().values(),
+                            host._collect_params_with_prefix().values()))
+    checks = {
+        "ended": bool(last) and math.isfinite(loss),
+        "batches_on_card_bf16": len(batches) == ZOO_EXAMPLE_STEPS and all(
+            b == ("cuda", "torch.bfloat16") for b in batches),
+        "no_reference_module_loaded": not loaded,
+        "no_jax": "jax" not in sys.modules,
+        "params_members": set(members) == {"__layout__.npy"} | {
+            k + ".npy" for k in keys},
+        "params_bf16_as_v2": bool(keys) and len(v2) == len(keys),
+        "reloaded_bit_equal_on_cpu": bit_equal,
+    }
+    # zoo_train reset the counts: they now cover both zoo phases
+    ctx["zoo_launches"] = port_kernel_launches()
+    checks["no_port_kernel_launched"] = not any(ctx["zoo_launches"].values())
+    ctx["zoo_example"] = dict(images_per_sec=imgs, loss=loss)
+    emit("zoo_example", ok=all(checks.values()), checks=checks,
+         argv=sys.argv[:1] + ["--network", "mobilenet_v2_1_0", "--layout",
+                              "NHWC", "--epochs", "1"],
+         example_images_per_sec=imgs, final_loss=loss, steps=len(batches),
+         seconds=seconds, reference_modules_loaded=loaded[:10],
+         params_members=len(members), card=ctx["smi"])
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"zoo_example check {name} failed")
+
+
 def sum_to(x, shape):
     """``x`` summed over the axes where ``shape`` is 1 (a broadcast's
     gradient)."""
@@ -3718,6 +4287,9 @@ def main():
                      ("lstm_train", phase_lstm_train),
                      ("ssd_parity", phase_ssd_parity),
                      ("ssd_train", phase_ssd_train),
+                     ("zoo_parity", phase_zoo_parity),
+                     ("zoo_train", phase_zoo_train),
+                     ("zoo_example", phase_zoo_example),
                      ("imperative_parity", phase_imperative_parity),
                      ("mnist_train", phase_mnist_train),
                      ("bert_imperative", phase_bert_imperative),
@@ -3738,7 +4310,9 @@ def main():
                                 "resnet_parity", "resnet_launches",
                                 "lstm_launches", "ssd_launches", "bias",
                                 "rtc", "imperative_parity", "mnist_launches",
-                                "bert_imperative_launches"} \
+                                "bert_imperative_launches", "zoo_parity",
+                                "zoo_train", "zoo_example",
+                                "zoo_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1
@@ -3768,6 +4342,7 @@ def main():
                "launches_resnet": ctx["resnet_launches"][name],
                "launches_lstm": ctx["lstm_launches"][name],
                "launches_ssd": ctx["ssd_launches"][name],
+               "launches_zoo": ctx["zoo_launches"][name],
                "launches_mnist": ctx["mnist_launches"][name],
                "launches_bert_imperative":
                    ctx["bert_imperative_launches"][name],
@@ -3784,6 +4359,8 @@ def main():
             row["tq4"]["launches"] = ctx["serve_features_tq4"]
         if "ms_queued" in e:
             row["ms_queued"] = e["ms_queued"]
+        if "library_ms_dropout" in e:   # SDPA with dropout_p=0.1 as well
+            row["library_ms_dropout"] = e["library_ms_dropout"]
         path_routes = (ctx["decode_routes"] if name == "paged_attention"
                        else ctx["train_routes"].get(name))
         if path_routes is not None:   # as the main path's run reported
@@ -3835,6 +4412,7 @@ def main():
                     "launches_resnet": ctx["resnet_launches"]["rtc"],
                     "launches_lstm": ctx["lstm_launches"]["rtc"],
                     "launches_ssd": ctx["ssd_launches"]["rtc"],
+                    "launches_zoo": ctx["zoo_launches"]["rtc"],
                     "launches_mnist": ctx["mnist_launches"]["rtc"],
                     "launches_bert_imperative":
                         ctx["bert_imperative_launches"]["rtc"],

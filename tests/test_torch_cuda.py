@@ -1453,3 +1453,75 @@ def test_watchdog_restart_on_the_card_keeps_the_streams(tmp_path):
     tracing.validate_blackbox(json.loads(
         (tmp_path / "bb-blackbox.json").read_text()))
     assert got[0][:1] == want[0].tokens[:1]
+
+
+# -- the vision zoo's data and weights on the card --------------------------------
+def test_device_prefetch_orders_the_consumer_after_its_side_stream_copy():
+    """``DevicePrefetchIter`` copies each batch from pinned memory on a
+    side stream; the consumer's stream waits on its event, so reading
+    the batch right away sees the whole copy, normalized in float32 and
+    then cast, and each tensor is held for the consumer's stream."""
+    from tpu_mx_torch import io
+    from tpu_mx_torch.context import cpu
+    x = np.random.RandomState(0).rand(64, 32, 32, 3).astype(np.float32) * 255
+    y = np.arange(64).astype(np.float32)
+    with cpu():
+        src = io.NDArrayIter(x, y, batch_size=16)
+    mean, std = (123.68, 116.78, 103.94), (58.39, 57.12, 57.37)
+    it = io.DevicePrefetchIter(src, depth=2, cast_data="bfloat16",
+                               normalize=(mean, std))
+    assert it._dev.type == "cuda" and it._stream is not None
+    for i, batch in enumerate(it):
+        d = batch.data[0]._data
+        assert d.device.type == "cuda" and d.dtype == torch.bfloat16
+        torch.cuda._sleep(10_000_000)        # keep the consumer's stream busy
+        want = ((torch.from_numpy(x[16 * i:16 * (i + 1)]) -
+                 torch.tensor(mean)) / torch.tensor(std)).to(torch.bfloat16)
+        assert torch.equal(d.cpu(), want)
+        assert torch.equal(batch.label[0]._data.cpu(),
+                           torch.from_numpy(y[16 * i:16 * (i + 1)]))
+    assert i == 3
+    it.close()
+
+
+def test_bf16_zoo_params_from_the_card_load_bit_equal_on_the_cpu(tmp_path):
+    from tpu_mx_torch import layout, nd
+    from tpu_mx_torch.context import cpu
+    from tpu_mx_torch.gluon.model_zoo import vision
+    with layout.default_layout("NHWC"):
+        net = vision.mobilenet_v2_0_25(classes=10)
+    net.initialize("xavier")
+    net(nd.array(np.zeros((2, 64, 64, 3), np.float32)))
+    net.cast("bfloat16")
+    f = str(tmp_path / "net.params")
+    net.save_parameters(f)
+    with cpu(), layout.default_layout("NHWC"):
+        host = vision.mobilenet_v2_0_25(classes=10)
+        host.initialize()
+        host.load_parameters(f)
+    for (k, a), b in zip(net._collect_params_with_prefix().items(),
+                         host._collect_params_with_prefix().values()):
+        assert b.dtype == torch.bfloat16, k
+        assert torch.equal(a._ref_view().cpu(), b._ref_view()), k
+
+
+@pytest.mark.parametrize("count_include_pad", [True, False])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_padded_average_pool_gradient_on_the_card_equals_the_cpu(
+        stride, count_include_pad):
+    """PyTorch's CUDA average-pool backward of a channels-last input with
+    padding is wrong (torch 2.11); the port's ``Pooling`` pads a copy, so
+    Inception's ``AvgPool2D(3, 1, 1)`` trains alike on the card."""
+    from tpu_mx_torch.ndarray import ops
+    x = torch.randn((2, 9, 11, 16), generator=torch.Generator().manual_seed(0))
+    w = torch.randn((2, (9 + 2 - 3) // stride + 1, (11 + 2 - 3) // stride + 1,
+                     16), generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev in ("cpu", "cuda"):
+        xi = x.to(dev).requires_grad_()
+        y = ops.Pooling(xi, kernel=(3, 3), pool_type="avg", stride=(stride,) * 2,
+                        pad=(1, 1), count_include_pad=count_include_pad,
+                        layout="NHWC")
+        (g,) = torch.autograd.grad(y, xi, w.to(dev))
+        grads.append(g.cpu())
+    assert torch.allclose(grads[1], grads[0], rtol=1e-5, atol=1e-6)

@@ -1193,8 +1193,8 @@ def test_metrics_equal_the_reference():
     m = mx.metric.Accuracy()
     m.update(nd.array(labels[0]), torch.from_numpy(logits[0]))
     assert m.get_name_value()[0][0] == "accuracy"
-    with pytest.raises(MXNetError, match="not ported"):
-        mx.metric.create("f1")
+    with pytest.raises(MXNetError, match="not registered"):
+        mx.metric.create("bleu")
 
 
 def test_clip_global_norm_and_split_and_load():

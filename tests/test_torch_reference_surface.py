@@ -308,9 +308,25 @@ def test_every_reference_parameter_is_in_the_port_or_allowed_by_name():
 
 # each argument C11 found dropped: its default is taken, and another value
 # is implemented (a check) or refused by name
+def _scheduled(opt):
+    """``lr_scheduler`` took effect: it starts from the optimizer's rate
+    and gives the rate of each update count (a ``Trainer``'s
+    ``learning_rate`` reads it)."""
+    trainer, opt = (opt, opt.optimizer) if hasattr(opt, "optimizer") \
+        else (None, opt)
+    if opt.lr_scheduler.base_lr != opt.lr or opt.lr != 0.4:
+        return False
+    rates = []
+    for opt.num_update in (1, 3, 5):
+        rates.append(opt._get_lr(0))
+    return rates == [0.4, 0.2, 0.1] and \
+        (trainer is None or trainer.learning_rate == 0.1)
+
+
 C11_CASES = [
-    ("optimizer", lambda v: optimizer.create("sgd", lr_scheduler=v), None,
-     object()),
+    ("optimizer", lambda v: optimizer.create("sgd", learning_rate=0.4,
+                                             lr_scheduler=v), _scheduled,
+     optimizer.lr_scheduler.FactorScheduler(step=2, factor=0.5)),
     ("optimizer", lambda v: optimizer.create("sgd", param_idx2name=v),
      None, {0: "w"}),
     ("optimizer", lambda v: optimizer.create("sgd", sym=v), None, object()),
@@ -318,7 +334,9 @@ C11_CASES = [
      lambda o: o.num_update == 5, 5),
     ("trainer", lambda v: gluon.Trainer(gluon.nn.Dense(2, in_units=2)
                                         .collect_params(), "sgd",
-                                        {"lr_scheduler": v}), None, object()),
+                                        {"learning_rate": 0.4,
+                                         "lr_scheduler": v}), _scheduled,
+     optimizer.lr_scheduler.FactorScheduler(step=2, factor=0.5)),
     ("embedding", lambda v: nd.Embedding(nd.array([1.0, 0.0]),
                                          nd.ones((3, 2)), input_dim=v,
                                          output_dim=2, sparse_grad=True),

@@ -263,7 +263,7 @@ def test_initializer_follows_the_reference_name_convention():
         else:
             assert p.abs().max() <= 0.07 and p.std() > 0.03, name
     with pytest.raises(ValueError, match="registry"):
-        initializer.create("orthogonal")
+        initializer.create("kaiming")
 
 
 def test_from_numpy_consumes_every_array_once():

@@ -24,7 +24,11 @@ The port goes slice by slice:
 - the ResNet-50, PTB LSTM and SSD-512 training steps;
 - the imperative surface: ``NDArray``, ``autograd.record()``, Gluon's
   ``Parameter`` with deferred shapes, ``Trainer``, ``io.NDArrayIter``,
-  ``metric``, and LeNet for MNIST.
+  ``metric``, and LeNet for MNIST;
+- Gluon's training vocabulary (the layers, initializers, optimizers with
+  learning-rate schedules, losses and metrics, the reference's
+  ``.params`` files, the prefetching iterators) and the vision zoo
+  (``gluon.model_zoo.vision.get_model``).
 
 The hand-written Hopper kernels are in :mod:`tpu_mx_torch.kernels`.
 Entry points take ``device=`` and default to ``"cuda"``

@@ -29,8 +29,12 @@ Parameters carry the reference's per-instance names (``dense0_weight``).
 own parameters, then its own running statistics, then its children in
 the order they were added, depth first), keyed by structural name
 (``0.weight``, as the port's earlier slices keyed it; a parameter is
-found by its name too); ``save_parameters`` names them by structure in
-the port's own file format.
+found by its name too).  ``save_parameters`` writes the reference's
+``.npz`` container under the reference's keys (the attribute paths of
+its ``_collect_params_with_prefix``, which are the structural names),
+each array in the reference's shape (a channels-last convolution's
+weight ``(O, kh, kw, I)``), so a ``.params`` file crosses between the
+packages both ways.
 
 ``hybridize()`` keeps the reference's observable contract (the flag; the
 first call resolves deferred shapes; the results are those of the
@@ -40,6 +44,7 @@ refuse by name.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
@@ -56,7 +61,7 @@ from ..ndarray.ops import _holds_array, _unwrap, _wrap
 from .parameter import Parameter, ParameterDict, _incomplete
 
 __all__ = ["Block", "HybridBlock", "HookHandle", "as_dtype",
-           "default_generator", "load_numpy", "reference_tensors"]
+           "default_generator", "load_numpy"]
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64}
@@ -85,19 +90,6 @@ def default_generator(generator):
     if generator is not None:
         return generator
     return _random.generator(_device.resolve(current_context()))
-
-
-def reference_tensors(module):
-    """``(name, tensor, owner, leaf)`` for every parameter and buffer of
-    ``module`` in the reference's ``collect_params()`` order: each block's
-    own parameters, then its own running statistics, then its children
-    in the order they were added, depth first.  A tensor that two blocks
-    share (a tied decoder's weight) comes once, where it is first
-    met."""
-    for name, p in _slots(module):
-        t = p._tensor()
-        if t is not None:
-            yield name, t, p._owner, p._leaf
 
 
 def _reg_params(owner):
@@ -150,38 +142,35 @@ def _slots(module):
                 yield (f"{path}.{leaf}" if path else leaf), p
 
 
-def _axes_of(owner, leaf):
-    """How ``owner`` stores ``leaf`` against the reference's array: the
-    axes that take the reference's array to the port's tensor, or None
-    where both have one shape."""
-    p = owner.__dict__.get("_reg_params", {}).get(leaf)
-    return None if p is None else p._axes
-
-
 def load_numpy(module, params):
     """Set every parameter and running statistic of ``module`` from
     ``params``, the reference's ``collect_params()`` as numpy arrays in
     the reference's (structural) order.  Reference names carry
     per-instance prefixes (``conv2d3_weight``), so the i-th array goes to
-    the i-th tensor of :func:`reference_tensors`, after checking that its
-    name ends in the tensor's name and that the shapes agree: every array
-    is consumed once and every tensor is set.  A tensor the port stores
-    in another order (a channels-last convolution's weight, the
-    reference's ``(O, kh, kw, I)``) takes the array transposed."""
-    ours = list(reference_tensors(module))
+    the i-th slot of the module (deferred ones included: they take the
+    array's shape), after checking that its name ends in the slot's name
+    and that the shapes agree: every array is consumed once and every
+    slot is set.  A tensor the port stores in another order (a
+    channels-last convolution's weight, the reference's ``(O, kh, kw,
+    I)``) takes the array transposed."""
+    ours = list(_slots(module))
     theirs = list(params.items())
     if len(ours) != len(theirs):
         raise MXNetError(f"from_numpy: {len(theirs)} arrays for "
                          f"{len(ours)} parameters")
     with torch.no_grad():
-        for (name, t, owner, leaf), (ref, arr) in zip(ours, theirs):
+        for (name, p), (ref, arr) in zip(ours, theirs):
+            leaf = p._leaf
             if not (ref == leaf or ref.endswith(("_" + leaf, "." + leaf))):
                 raise MXNetError(f"from_numpy: array {ref!r} does not "
                                  f"match parameter {name!r}")
             arr = np.array(arr, dtype=np.float32)
-            axes = _axes_of(owner, leaf)
-            if axes is not None and arr.ndim == len(axes):
-                arr = arr.transpose(axes)
+            t = p._tensor()
+            if t is None:
+                p.set_data(arr)
+                continue
+            if p._axes is not None and arr.ndim == len(p._axes):
+                arr = arr.transpose(p._axes)
             if tuple(arr.shape) != tuple(t.shape):
                 raise MXNetError(f"from_numpy: {ref!r} has shape "
                                  f"{arr.shape}, {name!r} wants "
@@ -269,7 +258,7 @@ class Block(nn.Module):
         if _incomplete(shape):
             self._deferred.append(p)
             return p
-        data = _init.create(init)(leaf, tuple(shape), dtype, generator)
+        data = _init.create(init)(p.name, tuple(shape), dtype, generator)
         p._set_tensor(data if axes is None else data.permute(axes))
         return p
 
@@ -334,24 +323,44 @@ class Block(nn.Module):
                 p._dtype = dt
         return self.to(dt)
 
+    def name_scope(self):
+        """A no-op scope, as in the reference (names come from each
+        block's own prefix)."""
+        return contextlib.nullcontext(self)
+
+    def apply_fn(self, fn):
+        """``fn`` on every child, depth first, then on this block (the
+        reference's ``apply``; ``nn.Module.apply`` does the same)."""
+        return self.apply(fn)
+
+    def _collect_params_with_prefix(self, prefix=""):
+        """``{key: Parameter}`` under the reference's keys: each block's
+        attribute path, dot-joined (``features.0.weight``)."""
+        pre = prefix + "." if prefix else ""
+        return {pre + k: p for k, p in _slots(self)}
+
     def save_parameters(self, filename):
-        """Every initialized tensor by its structural name (``0.weight``,
-        ``encoder.ln.gamma``) in the port's own file format."""
+        """Every initialized tensor under its reference key
+        (``features.0.weight``), in the reference's shape and
+        container."""
         from ..ndarray.ndarray import save as nd_save
-        nd_save(filename, {k: p.data() for k, p in _slots(self)
+        nd_save(filename, {k: p._ref_view() for k, p in
+                           self._collect_params_with_prefix().items()
                            if p._tensor() is not None})
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
                         ignore_extra=False, cast_dtype=False):
-        """Set the tensors from a :meth:`save_parameters` file; a missing
-        or extra name, or a shape that does not match, raises."""
+        """Set the tensors from a :meth:`save_parameters` file of either
+        package, each cast to its parameter's type (``cast_dtype`` is
+        taken and, as in the reference, changes nothing); a missing or
+        extra name, or a shape that does not match, raises."""
         from ..ndarray.ndarray import load as nd_load
         if ctx is None:
             t = next((p._tensor() for _, p in _slots(self)
                       if p._tensor() is not None), None)
             ctx = t.device if t is not None else None
         loaded = nd_load(filename, ctx=ctx)
-        params = dict(_slots(self))
+        params = self._collect_params_with_prefix()
         for k, p in params.items():
             if k in loaded:
                 p.set_data(loaded[k])

@@ -1,21 +1,34 @@
-"""Losses from ``tpu_mx/gluon/loss.py``: ``Loss``, ``SoftmaxCrossEntropyLoss``,
-``HuberLoss`` and ``PassThrough``, as blocks (they take tensors, or
-arrays through the imperative boundary of :class:`HybridBlock`).
+"""Losses from ``tpu_mx/gluon/loss.py``, as blocks (they take tensors,
+or arrays through the imperative boundary of :class:`HybridBlock`):
+``SoftmaxCrossEntropyLoss``, ``L2Loss``, ``L1Loss``,
+``SigmoidBinaryCrossEntropyLoss``, ``KLDivLoss``, ``HuberLoss``,
+``HingeLoss``, ``SquaredHingeLoss``, ``LogisticLoss``,
+``PoissonNLLLoss``, ``TripletLoss``, ``CosineEmbeddingLoss`` and
+``PassThrough``.
 
 A loss returns one value per example (the mean over every axis but
-``batch_axis``); ``CompiledTrainStep`` takes the mean of that, and the
-imperative loop's ``loss.backward()`` sums it, ``Trainer.step(batch)``
-scaling by ``1/batch``.
+``batch_axis``, as the reference's do; ``PoissonNLLLoss`` the mean of
+all, ``TripletLoss`` and ``CosineEmbeddingLoss`` a value per row);
+``CompiledTrainStep`` takes the mean of that, and the imperative loop's
+``loss.backward()`` sums it, ``Trainer.step(batch)`` scaling by
+``1/batch``.  ``sample_weight`` multiplies before the mean, then
+``weight``.  ``CTCLoss`` is not ported yet and raises by name (ROADMAP
+A item 3, with ``ndarray/ctc.py``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from ..base import MXNetError
 from ..ndarray import ops
 from .block import HybridBlock
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss", "HuberLoss",
-           "PassThrough"]
+__all__ = ["Loss", "L2Loss", "L1Loss", "PoissonNLLLoss",
+           "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
+           "SigmoidBinaryCrossEntropyLoss", "SigmoidBCELoss", "KLDivLoss",
+           "HuberLoss", "HingeLoss", "SquaredHingeLoss", "LogisticLoss",
+           "TripletLoss", "CTCLoss", "CosineEmbeddingLoss", "PassThrough"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -97,3 +110,192 @@ class PassThrough(Loss):
 
     def forward(self, loss, *_ignored):
         return loss
+
+
+def _softrelu_tail(pred):
+    """``relu(x) - x·label``'s stable companion: ``log(1 + e^-|x|)``."""
+    return F.softplus(-pred.abs())
+
+
+class L2Loss(Loss):
+    """``weight/2 · (label - pred)²``."""
+
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def forward(self, pred, label, sample_weight=None):
+        loss = (label.reshape(pred.shape) - pred).square()
+        return self._per_example(_apply_weighting(loss, self._weight / 2,
+                                                  sample_weight))
+
+
+class L1Loss(Loss):
+    """``|label - pred|``."""
+
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def forward(self, pred, label, sample_weight=None):
+        loss = (label.reshape(pred.shape) - pred).abs()
+        return self._per_example(_apply_weighting(loss, self._weight,
+                                                  sample_weight))
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """Binary cross-entropy of logits (the stable ``relu(x) - x·y +
+    log(1 + e^-|x|)``), or of probabilities with ``from_sigmoid=True``
+    (``-(y·log(p + 1e-12) + (1-y)·log(1 - p + 1e-12))``).
+    ``pos_weight`` is taken and, as in the reference, unused."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def forward(self, pred, label, sample_weight=None, pos_weight=None):
+        label = label.reshape(pred.shape)
+        if not self._from_sigmoid:
+            loss = torch.relu(pred) - pred * label + _softrelu_tail(pred)
+        else:
+            eps = 1e-12
+            loss = -(torch.log(pred + eps) * label
+                     + torch.log(1.0 - pred + eps) * (1.0 - label))
+        return self._per_example(_apply_weighting(loss, self._weight,
+                                                  sample_weight))
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    """``label·(log(label + 1e-12) - pred)``, ``pred`` log-probabilities
+    (or logits with ``from_logits=False``, log-softmaxed over
+    ``axis``)."""
+
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def forward(self, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = ops.log_softmax(pred, axis=self._axis)
+        loss = label * (torch.log(label + 1e-12) - pred)
+        return self._per_example(_apply_weighting(loss, self._weight,
+                                                  sample_weight))
+
+
+class HingeLoss(Loss):
+    """``relu(margin - pred·label)``, labels ±1."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def _hinge(self, pred, label):
+        return torch.relu(self._margin - pred * label.reshape(pred.shape))
+
+    def forward(self, pred, label, sample_weight=None):
+        return self._per_example(_apply_weighting(
+            self._hinge(pred, label), self._weight, sample_weight))
+
+
+class SquaredHingeLoss(HingeLoss):
+    """``relu(margin - pred·label)²``."""
+
+    def forward(self, pred, label, sample_weight=None):
+        return self._per_example(_apply_weighting(
+            self._hinge(pred, label).square(), self._weight, sample_weight))
+
+
+class LogisticLoss(Loss):
+    """Binary cross-entropy of logits with labels ±1
+    (``label_format="signed"``) or 0/1 (``"binary"``)."""
+
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+
+    def forward(self, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = torch.relu(pred) - pred * label + _softrelu_tail(pred)
+        return self._per_example(_apply_weighting(loss, self._weight,
+                                                  sample_weight))
+
+
+class PoissonNLLLoss(Loss):
+    """Poisson negative log-likelihood of the rate ``pred`` (its log with
+    ``from_logits=True``): ``e^pred - label·pred`` or ``pred - label·
+    log(pred + epsilon)``, with ``compute_full`` Stirling's term for
+    ``log(label!)`` where ``label > 1``; the mean over everything."""
+
+    def __init__(self, weight=None, from_logits=True, batch_axis=0,
+                 compute_full=False, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._compute_full = compute_full
+
+    def forward(self, pred, label, sample_weight=None, epsilon=1e-08):
+        label = label.reshape(pred.shape)
+        if self._from_logits:
+            loss = torch.exp(pred) - label * pred
+        else:
+            loss = pred - label * torch.log(pred + epsilon)
+        if self._compute_full:
+            stirling = label * torch.log(label + epsilon) - label + \
+                0.5 * torch.log(2.0 * 3.14159265358979 * (label + epsilon))
+            loss = loss + torch.where(label <= 1.0,
+                                      torch.zeros_like(stirling), stirling)
+        return _apply_weighting(loss, self._weight, sample_weight).mean()
+
+
+class TripletLoss(Loss):
+    """``relu(Σ (positive - pred)² - (negative - pred)² + margin)`` over
+    every axis but the first."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def forward(self, pred, positive, negative, sample_weight=None):
+        positive = positive.reshape(pred.shape)
+        negative = negative.reshape(pred.shape)
+        axes = tuple(range(1, pred.dim()))
+        loss = ((positive - pred).square() - (negative - pred).square()).sum(
+            dim=axes) + self._margin
+        return _apply_weighting(torch.relu(loss), self._weight,
+                                sample_weight)
+
+
+class CosineEmbeddingLoss(Loss):
+    """``1 - cos(input1, input2)`` where ``label == 1``, else
+    ``relu(cos - margin)``; the cosine over every axis but the first."""
+
+    def __init__(self, weight=None, batch_axis=0, margin=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def forward(self, input1, input2, label, sample_weight=None):
+        axes = tuple(range(1, input1.dim()))
+        num = (input1 * input2).sum(dim=axes)
+        den = input1.square().sum(dim=axes).sqrt() * \
+            input2.square().sum(dim=axes).sqrt()
+        cos = num / (den + 1e-12)
+        label = label.reshape(cos.shape)
+        loss = torch.where(label == 1, 1.0 - cos,
+                           torch.relu(cos - self._margin))
+        return _apply_weighting(loss, self._weight, sample_weight)
+
+
+class CTCLoss(Loss):
+    """Not ported yet: raises :class:`MXNetError` by name (ROADMAP A item
+    3, with ``ndarray/ctc.py``)."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        raise MXNetError("gluon.loss.CTCLoss is not ported yet (ROADMAP A "
+                         "item 3, with ndarray/ctc.py)")

@@ -1,4 +1,5 @@
-"""The model zoo: :mod:`.vision` (ResNet v1/v2 so far)."""
+"""The model zoo: :mod:`.vision` (ResNet, AlexNet, VGG, SqueezeNet,
+MobileNet v1/v2, DenseNet, Inception v3 and ``get_model``)."""
 from . import vision
 
 __all__ = ["vision"]

@@ -1,11 +1,8 @@
-"""Basic layers (:mod:`.basic_layers`) and 2-D convolution and pooling
+"""Basic layers (:mod:`.basic_layers`) and the convolution and pooling
 layers (:mod:`.conv_layers`)."""
-from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
-                           Flatten, HybridSequential, LayerNorm)
-from .conv_layers import (AvgPool2D, Conv2D, GlobalAvgPool2D,
-                          GlobalMaxPool2D, MaxPool2D)
+from .basic_layers import *  # noqa: F401,F403
+from .basic_layers import __all__ as _basic
+from .conv_layers import *  # noqa: F401,F403
+from .conv_layers import __all__ as _conv
 
-__all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "Embedding",
-           "Flatten",
-           "HybridSequential", "LayerNorm", "Conv2D",
-           "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D", "GlobalAvgPool2D"]
+__all__ = list(_basic) + list(_conv)

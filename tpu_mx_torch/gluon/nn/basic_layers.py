@@ -1,6 +1,9 @@
 """Basic layers from ``gluon/nn/basic_layers.py``: ``Dense``,
-``BatchNorm``, ``LayerNorm``, ``Dropout``, ``Embedding``, ``Activation``,
-``Flatten`` and ``HybridSequential``.
+``BatchNorm``, ``LayerNorm``, ``InstanceNorm``, ``GroupNorm``,
+``Dropout``, ``Embedding``, ``Activation`` and the other activations
+(``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU``, ``Swish``),
+``Flatten``, ``ReflectionPad2D``, ``Sequential``/``HybridSequential``
+and ``Lambda``/``HybridLambda``.
 
 As :class:`torch.nn.Module`s with the reference's parameter names
 (``weight``/``bias``, ``gamma``/``beta``, ``running_mean``/
@@ -17,13 +20,18 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
+from ... import initializer as _init
 from ... import layout as _layout
+from ...base import MXNetError
 from ...ndarray import ops
-from ..block import HybridBlock, as_dtype, default_generator
+from ..block import Block, HybridBlock, as_dtype, default_generator
 
-__all__ = ["Dense", "BatchNorm", "LayerNorm", "Dropout", "Embedding",
-           "Activation", "Flatten", "HybridSequential"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "GroupNorm", "ReflectionPad2D", "LayerNorm", "InstanceNorm",
+           "Embedding", "Flatten", "Activation", "LeakyReLU", "PReLU", "ELU",
+           "SELU", "GELU", "Swish", "Lambda", "HybridLambda"]
 
 
 class Activation(HybridBlock):
@@ -181,6 +189,60 @@ class LayerNorm(HybridBlock):
                              eps=self._eps)
 
 
+class InstanceNorm(HybridBlock):
+    """Each example's each channel normalized over its positions
+    (``(N, C, *S)`` input; ``axis`` is taken and, as in the reference,
+    the channel axis is 1), float32 statistics; ``in_channels=0``: the
+    first input's channels."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, dtype=torch.float32, generator=None,
+                 prefix=None, params=None):
+        super().__init__(prefix, params)
+        g, dt = default_generator(generator), as_dtype(dtype)
+        self._eps = epsilon
+        self._declare("gamma", (in_channels,), gamma_initializer, dt, g)
+        self._declare("beta", (in_channels,), beta_initializer, dt, g)
+
+    def infer_shape(self, x, *args):
+        for leaf in ("gamma", "beta"):
+            self._reg_params[leaf].shape_hint((x.shape[1],))
+
+    def forward(self, x):
+        return ops.InstanceNorm(x, self._parameters["gamma"],
+                                self._parameters["beta"], eps=self._eps)
+
+
+class GroupNorm(HybridBlock):
+    """Group normalization of ``(N, C, *S)`` input: C split into
+    ``num_groups`` groups, each normalized over its channels and
+    positions with float32 statistics; ``gamma``/``beta`` are per group,
+    ``(num_groups,)``, as in the reference, so its weights load as they
+    are."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 dtype=torch.float32, generator=None, prefix=None,
+                 params=None):
+        super().__init__(prefix, params)
+        g, dt = default_generator(generator), as_dtype(dtype)
+        self._ng = int(num_groups)
+        self._eps = epsilon
+        self._declare("gamma", (self._ng,), gamma_initializer, dt, g,
+                      grad=scale)
+        self._declare("beta", (self._ng,), beta_initializer, dt, g,
+                      grad=center)
+
+    def forward(self, x):
+        if x.shape[1] % self._ng:
+            raise MXNetError(f"GroupNorm: channels {x.shape[1]} not "
+                             f"divisible by num_groups {self._ng}")
+        return ops.GroupNorm(x, self._parameters["gamma"],
+                             self._parameters["beta"], num_groups=self._ng,
+                             eps=self._eps)
+
+
 class Dropout(HybridBlock):
     """Inverted dropout in training mode (``autograd.record()`` on
     arrays, ``module.train()`` on tensors), drawing its masks from the
@@ -223,6 +285,106 @@ class Embedding(HybridBlock):
         return f"{self._input_dim} -> {self._output_dim}"
 
 
+class LeakyReLU(HybridBlock):
+    """``x`` above 0, ``alpha·x`` below."""
+
+    def __init__(self, alpha=0.01, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return ops.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """Leaky ReLU with a learned slope ``alpha`` of shape ``(1,)``
+    (``Constant(0.25)`` unless ``alpha_initializer`` says otherwise)."""
+
+    def __init__(self, alpha_initializer=None, dtype=torch.float32,
+                 generator=None, prefix=None, params=None):
+        super().__init__(prefix, params)
+        g, dt = default_generator(generator), as_dtype(dtype)
+        self._declare("alpha", (1,), alpha_initializer or
+                      _init.Constant(0.25), dt, g)
+
+    def forward(self, x):
+        return ops.LeakyReLU(x, gamma=self._parameters["alpha"],
+                             act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """``x`` above 0, ``alpha·(eˣ - 1)`` below."""
+
+    def __init__(self, alpha=1.0, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return ops.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def forward(self, x):
+        return ops.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """GELU, the erf form."""
+
+    def forward(self, x):
+        return ops.gelu(x)
+
+
+class Swish(HybridBlock):
+    """``x·sigmoid(beta·x)``."""
+
+    def __init__(self, beta=1.0, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._beta = beta
+
+    def forward(self, x):
+        return x * torch.sigmoid(self._beta * x)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Mirror padding of the H and W axes of ``(N, C, H, W)`` input:
+    ``padding`` is one int or ``(left, right, top, bottom)``."""
+
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix, params)
+        if isinstance(padding, int):
+            padding = (padding,) * 4
+        self._pad = tuple(int(p) for p in padding)
+
+    def forward(self, x):
+        return F.pad(x, self._pad, mode="reflect")
+
+
+class Lambda(Block):
+    """A block that calls ``function`` on its arguments (arrays in,
+    arrays out)."""
+
+    def __init__(self, function, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._fn = function
+
+    def forward(self, *args):
+        return self._fn(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A hybrid block that calls ``function(F, *args)``, ``F`` being the
+    port's ``nd`` namespace as :meth:`HybridBlock.hybrid_forward` gets
+    it (MobileNet's ReLU6 is ``lambda F, x: F.clip(x, 0, 6)``)."""
+
+    def __init__(self, function, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._fn = function
+
+    def hybrid_forward(self, F, *args):
+        return self._fn(F, *args)
+
+
 class Flatten(HybridBlock):
     """``(N, ...)`` → ``(N, prod(...))`` in the logical order of the
     axes, whatever the memory format (a channels-last ``(N, C, H, W)``
@@ -233,18 +395,16 @@ class Flatten(HybridBlock):
         return x.reshape(x.shape[0], -1)
 
 
-class HybridSequential(HybridBlock):
-    """Children run in the order added; the i-th is named ``"i"``, as
-    the reference's ``_children`` keys."""
-
-    def __init__(self, prefix=None, params=None):
-        super().__init__(prefix, params)
+class _Stack:
+    """What ``Sequential`` and ``HybridSequential`` share: children run
+    in the order added; the i-th is named ``"i"``, as the reference's
+    ``_children`` keys."""
 
     def add(self, *blocks):
         for b in blocks:
             self.add_module(str(len(self._modules)), b)
 
-    def forward(self, x):
+    def forward(self, x, *args):
         for block in self._modules.values():
             x = block(x)
         return x
@@ -262,4 +422,19 @@ class HybridSequential(HybridBlock):
 
     def __iter__(self):
         return iter(self._modules.values())
+
+
+class Sequential(_Stack, Block):
+    """A stack of blocks that is not hybridizable, as in the reference:
+    it hands what it is given (arrays) to each child in turn."""
+
+    def __init__(self, prefix=None, params=None):
+        Block.__init__(self, prefix, params)
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """A stack of hybrid blocks."""
+
+    def __init__(self, prefix=None, params=None):
+        HybridBlock.__init__(self, prefix, params)
 

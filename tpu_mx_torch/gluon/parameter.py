@@ -234,8 +234,8 @@ class Parameter:
         """A tensor of the reference's shape drawn by ``init`` on
         ``device``, permuted into the stored order."""
         g = generator if generator is not None else _random.generator(device)
-        leaf = self._leaf or self.name
-        data = _init.create(init)(leaf, self._ref_shape(), self.dtype, g)
+        data = _init.create(init)(self.name, self._ref_shape(), self.dtype,
+                                  g)
         if self._axes is not None:
             data = data.permute(self._axes)
         return data.to(device)
@@ -296,6 +296,21 @@ class Parameter:
             raise MXNetError(f"Parameter {self.name} not initialized")
         return self._nd()
 
+    def list_data(self):
+        """``[data()]``: the port keeps one copy, on one device."""
+        return [self.data()]
+
+    def _ref_view(self):
+        """The tensor in the reference's order (a channels-last
+        convolution's weight as ``(O, kh, kw, I)``), a view."""
+        t = self._tensor()
+        if self._axes is None or t is None:
+            return t
+        inv = [0] * len(self._axes)
+        for i, a in enumerate(self._axes):
+            inv[a] = i
+        return t.permute(inv)
+
     @property
     def grad(self):
         """The gradient buffer as an array (zeros before any backward)."""
@@ -306,21 +321,39 @@ class Parameter:
             t.grad = torch.zeros_like(t)
         return NDArray(t.grad)
 
+    def list_grad(self):
+        return [self.grad]
+
     def zero_grad(self):
         t = self._tensor()
         if t is not None and t.grad is not None:
             t.grad.zero_()
 
+    def reset_ctx(self, ctx):
+        """Move the tensor (and its gradient) to ``ctx``'s device."""
+        t = self._tensor()
+        if t is None:
+            return
+        dev = _device.resolve(ctx)
+        with torch.no_grad():
+            t.data = t.data.to(dev)
+            if t.grad is not None:
+                t.grad = t.grad.to(dev)
+
     def set_data(self, data):
         """Set the value (an array, tensor or numpy array of the stored
         shape, or of the reference's for a channels-last weight); an
-        uninitialized parameter takes the data's shape."""
+        uninitialized parameter takes the data's shape (and an array's
+        device and type)."""
         src = data._data.detach() if isinstance(data, NDArray) else \
             data.detach() if isinstance(data, torch.Tensor) else \
             torch.as_tensor(np.asarray(data))
         shape = tuple(src.shape)
-        if self._axes is not None and shape == self._ref_shape() \
-                and len(shape) == len(self._axes):
+        ref = self._ref_shape()
+        if self._axes is not None and ref is not None \
+                and len(shape) == len(self._axes) \
+                and all(r in (0, None, -1) or r == g
+                        for r, g in zip(ref, shape)):
             src, shape = src.permute(self._axes), self._stored(shape)
         want = self.shape
         if want is not None and len(want) == len(shape):
@@ -334,11 +367,13 @@ class Parameter:
                              f"declared {want} but got data of shape {shape}")
         t = self._tensor()
         if t is None:
-            dev = src.device if isinstance(data, (NDArray, torch.Tensor)) \
-                else _device.resolve(current_context())
+            # an array keeps its device and type, as the reference's
+            # parameter takes the array itself; host data is placed
+            held = isinstance(data, (NDArray, torch.Tensor))
+            dev = src.device if held else _device.resolve(current_context())
             self._shape, self._pending = shape, None
-            self._set_tensor(src.to(device=dev, dtype=self._dtype,
-                                    copy=True))
+            self._set_tensor(src.to(device=dev, dtype=src.dtype if held
+                                    else self._dtype, copy=True))
             return
         with torch.no_grad():
             t.copy_(src.to(t.device, t.dtype).reshape(t.shape))
@@ -453,15 +488,16 @@ class ParameterDict:
             setattr(p, name, value)
 
     def save(self, fname, strip_prefix=""):
-        """The initialized parameters by name (``strip_prefix`` cut), in
-        the port's own file format (``nd.save``)."""
+        """The initialized parameters by key (``strip_prefix`` cut), each
+        in the reference's shape, in the reference's container
+        (``nd.save``)."""
         from ..ndarray.ndarray import save as nd_save
         payload = {}
         for k, p in self._params.items():
             if p._tensor() is None:
                 continue
             key = k[len(strip_prefix):] if k.startswith(strip_prefix) else k
-            payload[key] = p.data()
+            payload[key] = p._ref_view()
         nd_save(fname, payload)
 
     def load(self, fname, ctx=None, allow_missing=False, ignore_extra=False,

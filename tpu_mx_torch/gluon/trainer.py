@@ -66,7 +66,11 @@ class Trainer:
 
     @property
     def learning_rate(self):
-        return self._optimizer.lr
+        """The optimizer's ``lr``, or with an ``lr_scheduler`` its rate at
+        the current update count, as the reference reads it."""
+        sched = self._optimizer.lr_scheduler
+        return sched(self._optimizer.num_update) if sched \
+            else self._optimizer.lr
 
     @property
     def optimizer(self):

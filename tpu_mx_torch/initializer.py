@@ -1,7 +1,11 @@
 """Weight initializers from ``tpu_mx/initializer.py``: ``Uniform``,
-``Zero``/``One``, ``Constant`` and ``Xavier``, by instance or by
-registered name (``"uniform"``, ``"zeros"``, ``"ones"``, ``"constant"``,
-``"xavier"``).
+``Normal``, ``Zero``/``One``, ``Constant``, ``Xavier``, ``MSRAPrelu``,
+``Orthogonal``, ``Bilinear`` and ``LSTMBias``, by instance or by
+registered name (``"uniform"``, ``"normal"``, ``"zeros"``, ``"ones"``,
+``"constant"``, ``"xavier"``, ``"msraprelu"``, ``"orthogonal"``,
+``"bilinear"``, ``"lstmbias"``); and ``Mixed`` (the first pattern that
+matches a parameter's name picks its initializer) and ``Load`` (arrays
+saved by name).
 
 As in the reference, an initializer is called with the parameter's name
 and dispatches on the name convention first: names ending in ``gamma``
@@ -26,16 +30,18 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["Initializer", "Uniform", "Zero", "One", "Constant", "Xavier",
-           "create", "registry", "DEFAULT"]
+__all__ = ["Initializer", "Uniform", "Normal", "Zero", "One", "Constant",
+           "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear", "LSTMBias",
+           "Mixed", "Load", "create", "registry", "DEFAULT"]
 
 registry = {}
 
 
-def register(cls=None, *, aliases=()):
-    """Register an initializer under its lower-cased name and aliases."""
+def register(cls=None, *, name=None, aliases=()):
+    """Register an initializer under its lower-cased name (or ``name``)
+    and aliases."""
     def _do(c):
-        for key in (c.__name__.lower(),) + tuple(aliases):
+        for key in ((name or c.__name__).lower(),) + tuple(aliases):
             registry[key] = c
         return c
     return _do(cls) if cls is not None else _do
@@ -82,6 +88,18 @@ class Uniform(Initializer):
 
     def _init_weight(self, shape, generator):
         return _uniform(shape, self.scale, generator)
+
+
+@register
+class Normal(Initializer):
+    """N(0, sigma), drawn in float32."""
+
+    def __init__(self, sigma=0.01):
+        self.sigma = sigma
+
+    def _init_weight(self, shape, generator):
+        return self.sigma * torch.randn(shape, generator=generator,
+                                        device=generator.device)
 
 
 @register(aliases=("zeros",))
@@ -145,6 +163,120 @@ class Xavier(Initializer):
             return _uniform(shape, s, generator)
         return s * torch.randn(shape, generator=generator,
                                device=generator.device)
+
+
+@register(name="msraprelu")
+class MSRAPrelu(Xavier):
+    """He initialization for PReLU nets: Gaussian Xavier with magnitude
+    ``2 / (1 + slope²)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+
+
+@register
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal basis: the left or right singular
+    vectors (whichever has the weight's ``(rows, prod(rest))`` shape) of
+    a uniform(-1, 1) (``rand_type="uniform"``) or standard normal draw,
+    found in float64."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, shape, generator):
+        rows, cols = shape[0], int(np.prod(shape[1:]))
+        dev = generator.device
+        tmp = _uniform((rows, cols), 1.0, generator) \
+            if self.rand_type == "uniform" else \
+            torch.randn((rows, cols), generator=generator, device=dev)
+        u, _, v = torch.linalg.svd(tmp.double(), full_matrices=False)
+        q = u if tuple(u.shape) == (rows, cols) else v
+        return (self.scale * q).reshape(shape).float()
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a ``(.., .., kh, kw)`` weight
+    (a transposed convolution's), as the reference builds it."""
+
+    def _init_weight(self, shape, generator):
+        i = torch.arange(int(np.prod(shape)), dtype=torch.float64,
+                         device=generator.device)
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        x = torch.remainder(i, shape[3])
+        y = torch.remainder(torch.div(i, shape[3], rounding_mode="floor"),
+                            shape[2])
+        return ((1 - (x / f - c).abs()) * (1 - (y / f - c).abs())).reshape(
+            shape)
+
+
+@register(name="lstmbias")
+class LSTMBias(Initializer):
+    """An LSTM's bias: 0, and ``forget_bias`` on the forget gate (the
+    second quarter), whatever the parameter's name."""
+
+    def __init__(self, forget_bias=1.0):
+        self.forget_bias = forget_bias
+
+    def __call__(self, name, shape, dtype, generator):
+        b = torch.zeros(shape, dtype=dtype, device=generator.device)
+        n = shape[0] // 4
+        b[n:2 * n] = self.forget_bias
+        return b
+
+
+class Mixed(Initializer):
+    """The first of ``patterns`` (regular expressions, searched in the
+    parameter's name) that matches picks the initializer; none matching
+    raises (add a ``".*"`` catch-all)."""
+
+    def __init__(self, patterns, initializers):
+        import re
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must pair up")
+        self._map = [(re.compile(p), create(i))
+                     for p, i in zip(patterns, initializers)]
+
+    def __call__(self, name, shape, dtype, generator):
+        for pat, init in self._map:
+            if pat.search(name):
+                return init(name, shape, dtype, generator)
+        raise ValueError(f"no initializer pattern matches {name!r}; "
+                         "add a '.*' catch-all")
+
+
+class Load(Initializer):
+    """Arrays saved by name (a dict, or an ``nd.save`` file of either
+    package; a ``arg:``/``aux:`` prefix is dropped); a name not there
+    takes ``default_init``, and with none raises."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            from .context import cpu
+            from .ndarray.ndarray import load as nd_load
+            param = nd_load(param, ctx=cpu())
+        self._param = {k.split(":", 1)[-1]: v for k, v in param.items()}
+        self._default = default_init
+        self._verbose = verbose
+
+    def __call__(self, name, shape, dtype, generator):
+        if name in self._param:
+            arr = self._param[name]
+            t = arr._data if hasattr(arr, "_data") else torch.as_tensor(
+                np.asarray(arr))
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"Load: shape mismatch for {name}: saved "
+                                 f"{tuple(t.shape)} vs wanted "
+                                 f"{tuple(shape)}")
+            return t.detach().to(device=generator.device, dtype=dtype,
+                                 copy=True)
+        if self._default is None:
+            raise ValueError(f"Load: {name!r} not in saved params and no "
+                             "default_init given")
+        return create(self._default)(name, shape, dtype, generator)
 
 
 DEFAULT = Uniform(0.07)

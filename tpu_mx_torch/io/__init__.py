@@ -1,5 +1,7 @@
-"""``mx.io``: the data-iterator protocol and ``NDArrayIter``
-(:mod:`.io`)."""
-from .io import DataBatch, DataDesc, DataIter, NDArrayIter
+"""``mx.io``: the data-iterator protocol, ``NDArrayIter`` and the
+prefetching iterators (:mod:`.io`)."""
+from .io import (DataBatch, DataDesc, DataIter, DevicePrefetchIter,
+                 NDArrayIter, PrefetchingIter)
 
-__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter"]
+__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter",
+           "PrefetchingIter", "DevicePrefetchIter"]

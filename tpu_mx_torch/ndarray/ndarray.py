@@ -375,25 +375,74 @@ def concatenate(arrays, axis=0):
     return ops.concat(*arrays, dim=axis)
 
 
+def _npy(t):
+    """The ``.npy`` member for tensor ``t``, as the reference writes it:
+    a bfloat16 tensor (numpy has no such type) goes in as its raw 2-byte
+    words under the descriptor ``'<V2'``, the one numpy gives the
+    reference's bfloat16 arrays."""
+    import io as _io
+    t = t.detach().cpu().contiguous()
+    bio = _io.BytesIO()
+    if t.dtype == torch.bfloat16:
+        raw = t.view(torch.int16).numpy()
+        np.lib.format.write_array_header_1_0(bio, {
+            "descr": "<V2", "fortran_order": False, "shape": raw.shape})
+        bio.write(raw.tobytes())
+    else:
+        np.lib.format.write_array(bio, t.numpy(), allow_pickle=False)
+    return bio.getvalue()
+
+
 def save(fname, data):
-    """``nd.save`` of an array, a list or a dict of arrays, in the port's
-    own format (``torch.save`` of host tensors; the reference's ``.npz``
-    container is not read or written: ROADMAP A1)."""
+    """``nd.save`` of an array, a list or a dict of arrays in the
+    reference's container: an ``.npz`` holding ``__layout__``
+    (``"list"`` or ``"dict"``) and one ``.npy`` per array (``arr_{i}``
+    for a list), committed whole through ``checkpoint.atomic_write``."""
+    import io as _io
+    import zipfile
+    from ..checkpoint import atomic_write
     if isinstance(data, NDArray):
         data = [data]
     if isinstance(data, (list, tuple)):
-        payload = [a._data.detach().cpu() for a in data]
+        payload = {f"arr_{i}": a for i, a in enumerate(data)}
+        meta = "list"
     elif isinstance(data, dict):
-        payload = {k: v._data.detach().cpu() for k, v in data.items()}
+        payload, meta = dict(data), "dict"
     else:
         raise TypeError("save: need NDArray, list or dict of NDArray")
-    torch.save(payload, fname)
+    bio = _io.BytesIO()
+    with zipfile.ZipFile(bio, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as z:
+        head = _io.BytesIO()
+        np.lib.format.write_array(head, np.array(meta), allow_pickle=False)
+        z.writestr("__layout__.npy", head.getvalue())
+        for k, a in payload.items():
+            t = a._data if isinstance(a, NDArray) else torch.as_tensor(a)
+            z.writestr(f"{k}.npy", _npy(t))
+    with atomic_write(fname) as f:
+        f.write(bio.getbuffer())
+
+
+def _tensor_of(a):
+    """A member as a tensor: a 2-byte void member (the reference's
+    bfloat16) as bfloat16."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 def load(fname, ctx=None):
-    """What :func:`save` wrote, as arrays on ``ctx`` (default: the
-    current context)."""
-    payload = torch.load(fname, map_location="cpu", weights_only=True)
-    if isinstance(payload, dict):
-        return {k: array(v, ctx=ctx) for k, v in payload.items()}
-    return [array(v, ctx=ctx) for v in payload]
+    """What :func:`save` (or the reference's ``nd.save``) wrote, as
+    arrays on ``ctx`` (default: the current context); a missing
+    ``fname`` is looked for as ``fname + ".npz"``, as in the
+    reference."""
+    import os
+    if not os.path.exists(fname) and os.path.exists(str(fname) + ".npz"):
+        fname = str(fname) + ".npz"
+    with np.load(fname, allow_pickle=False) as z:
+        layout = str(z["__layout__"]) if "__layout__" in z else "dict"
+        items = {k: array(_tensor_of(z[k]), ctx=ctx)
+                 for k in z.files if k != "__layout__"}
+    if layout == "list":
+        return [items[f"arr_{i}"] for i in range(len(items))]
+    return items

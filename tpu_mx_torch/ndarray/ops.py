@@ -28,8 +28,8 @@ PyTorch's operator there and permute the result back.
 
 Not ported yet (ROADMAP A3, by name): the linear-algebra, sampling,
 sort/topk, sequence, ``im2col``/``col2im``, ``gather_nd``/``scatter_nd``,
-``pad``, the loss-output heads (``SoftmaxOutput``, ...), ``Custom`` and
-the long tail of the reference's elementwise functions.
+the loss-output heads (``SoftmaxOutput``, ...), ``Custom`` and the rest
+of the reference's elementwise functions.
 """
 from __future__ import annotations
 
@@ -173,8 +173,9 @@ def Pooling(data, kernel=None, pool_type="max", global_pool=False,
             count_include_pad=True, layout=None):
     """Max/avg/sum pooling with the reference's arguments.  Max pads with
     -inf; avg divides by the whole window with ``count_include_pad``,
-    else by its elements inside the input; ``"full"`` (ceil mode) pads
-    the trailing side by ``stride - 1`` more, as the reference does."""
+    else by its elements inside the input (zeros padded onto a copy);
+    ``"full"`` (ceil mode) pads the trailing side by ``stride - 1``
+    more, as the reference does."""
     channels_last = _layout.is_channels_last(layout)
     nd_ = data.dim() - 2
     if global_pool:
@@ -193,10 +194,14 @@ def Pooling(data, kernel=None, pool_type="max", global_pool=False,
     avg_pool = (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[nd_ - 1]
     if pooling_convention != "full" and all(2 * pp <= kk
                                             for pp, kk in zip(p, k)) \
-            and pool_type != "sum":
-        # PyTorch's own padding computes the reference's windows here
+            and (pool_type == "max" or (pool_type == "avg" and not any(p))):
+        # PyTorch's own padding computes the reference's windows here.  An
+        # average pool pads a copy instead: PyTorch's CUDA average-pool
+        # backward of a channels-last input with padding is wrong (torch
+        # 2.11: gradients off by ~100%), while its forward and its
+        # unpadded backward are right
         y = max_pool(x, k, s, p) if pool_type == "max" else \
-            avg_pool(x, k, s, p, count_include_pad=count_include_pad)
+            avg_pool(x, k, s)
     else:
         extra = [st - 1 if pooling_convention == "full" else 0 for st in s]
         pads = [v for pp, e in reversed(list(zip(p, extra)))
@@ -214,6 +219,32 @@ def Pooling(data, kernel=None, pool_type="max", global_pool=False,
     return y.permute(_to_channels_last(nd_)) if channels_last else y
 
 
+def Deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=None,
+                  num_group=1, no_bias=True, layout=None, **kw):
+    """Transposed convolution with the reference's arguments: the output
+    is ``(i-1)·s - 2p + d·(k-1) + 1 + adj`` long on each spatial axis.
+    The weight is ``(I, O/g, *kernel)`` or, channels-last,
+    ``(I, *kernel, O/g)``.  The reference correlates the strided input
+    with the weight as it is (no spatial flip), so the port hands
+    PyTorch's transposed convolution the flipped weight."""
+    nd_ = len(kernel)
+    strides = _pair(stride, nd_) if stride else (1,) * nd_
+    dilation = _pair(dilate, nd_) if dilate else (1,) * nd_
+    padding = _pair(pad, nd_) if pad else (0,) * nd_
+    adjust = _pair(adj, nd_) if adj else (0,) * nd_
+    channels_last = _layout.is_channels_last(layout)
+    if channels_last:
+        data = data.permute(_to_channels_first(nd_))
+        weight = weight.permute(_to_channels_first(nd_))
+    conv = (F.conv_transpose1d, F.conv_transpose2d,
+            F.conv_transpose3d)[nd_ - 1]
+    w = weight.flip(tuple(range(2, nd_ + 2)))
+    y = conv(data, w, None if no_bias else bias, strides, padding, adjust,
+             num_group, dilation)
+    return y.permute(_to_channels_last(nd_)) if channels_last else y
+
+
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
                 "tanh": torch.tanh, "softrelu": F.softplus,
                 "softsign": F.softsign}
@@ -221,6 +252,54 @@ _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
 
 def Activation(data, act_type="relu"):
     return _ACTIVATIONS[act_type](data)
+
+
+def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
+              lower_bound=0.125, upper_bound=0.334, **kw):
+    """The reference's ``LeakyReLU`` family by ``act_type``: ``leaky``
+    (``slope`` below 0), ``elu`` (``slope·(eˣ - 1)`` below 0), ``selu``,
+    ``gelu`` (the erf form) and ``prelu`` (the learned ``gamma`` below
+    0, broadcast against ``data``'s trailing axes).  ``lower_bound`` and
+    ``upper_bound`` belong to ``rrelu``, which the reference does not
+    take either."""
+    if act_type == "leaky":
+        return F.leaky_relu(data, slope)
+    if act_type == "elu":
+        return F.elu(data, slope)
+    if act_type == "selu":
+        return F.selu(data)
+    if act_type == "gelu":
+        return F.gelu(data)
+    if act_type == "prelu":
+        return torch.where(data >= 0, data, gamma * data)
+    raise ValueError(act_type)
+
+
+def InstanceNorm(data, gamma, beta, eps=1e-3, **kw):
+    """Each example's each channel normalized over its spatial axes
+    (``(N, C, *S)``), float32 statistics, result in ``data``'s type."""
+    ax = tuple(range(2, data.dim()))
+    x = data.float()
+    mu = x.mean(dim=ax, keepdim=True)
+    var = (x - mu).square().mean(dim=ax, keepdim=True)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    y = (x - mu) * torch.rsqrt(var + eps) * gamma.float().reshape(shape) \
+        + beta.float().reshape(shape)
+    return y.to(data.dtype)
+
+
+def GroupNorm(data, gamma, beta, num_groups=1, eps=1e-5, **kw):
+    """``(N, C, *S)`` with C split into ``num_groups`` groups, each
+    normalized over its channels and positions with float32 statistics;
+    ``gamma``/``beta`` are per group, ``(num_groups,)``, as in the
+    reference."""
+    n = data.shape[0]
+    x = data.float().reshape(n, num_groups, -1)
+    mu = x.mean(dim=2, keepdim=True)
+    var = (x - mu).square().mean(dim=2, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps) * gamma.float().reshape(1, -1, 1) \
+        + beta.float().reshape(1, -1, 1)
+    return y.reshape(data.shape).to(data.dtype)
 
 
 def space_to_depth(data, block_size):
@@ -276,9 +355,36 @@ def L2Normalization(data, eps=1e-10, mode="instance"):
     return (x / norm).to(data.dtype)
 
 
-def gelu(data):
+def gelu(data, **kw):
     """GELU with the exact erf form (``approximate=False``)."""
     return F.gelu(data)
+
+
+def gelu_tanh(data, **kw):
+    """GELU's tanh approximation."""
+    return F.gelu(data, approximate="tanh")
+
+
+def softrelu(data, **kw):
+    """``log(1 + eˣ)`` (``Activation("softrelu")`` as an operator)."""
+    return F.softplus(data)
+
+
+def hard_sigmoid(data, alpha=0.2, beta=0.5, **kw):
+    """``clip(alpha·x + beta, 0, 1)``."""
+    return torch.clamp(alpha * data + beta, 0.0, 1.0)
+
+
+def smooth_l1(data, scalar=1.0, **kw):
+    """Elementwise Huber: ``0.5·(σx)²`` where ``|x| < 1/σ²``, else
+    ``|x| - 0.5/σ²``."""
+    s2 = float(scalar) ** 2
+    ax = data.abs()
+    return torch.where(ax < 1.0 / s2, 0.5 * s2 * data * data, ax - 0.5 / s2)
+
+
+def softmin(data, axis=-1, **kw):
+    return F.softmax(-data, dim=axis)
 
 
 def log_softmax(data, axis=-1, temperature=None):
@@ -480,6 +586,21 @@ logical_not = _unary(lambda x: (x == 0).to(x.dtype), "logical_not")
 isnan = _unary(torch.isnan, "isnan")
 isinf = _unary(torch.isinf, "isinf")
 isfinite = _unary(torch.isfinite, "isfinite")
+cbrt = _unary(lambda x: torch.sign(x) * x.abs().pow(1.0 / 3.0), "cbrt")
+rcbrt = _unary(lambda x: 1.0 / (torch.sign(x) * x.abs().pow(1.0 / 3.0)),
+               "rcbrt")
+arcsinh = _unary(torch.asinh, "arcsinh")
+arccosh = _unary(torch.acosh, "arccosh")
+arctanh = _unary(torch.atanh, "arctanh")
+degrees = _unary(torch.rad2deg, "degrees")
+radians = _unary(torch.deg2rad, "radians")
+gammaln = _unary(torch.lgamma, "gammaln")
+gamma = _unary(lambda x: torch.exp(torch.lgamma(x)), "gamma")
+digamma = _unary(torch.digamma, "digamma")
+log_sigmoid = _unary(F.logsigmoid, "log_sigmoid")
+mish = _unary(F.mish, "mish")
+hard_swish = _unary(lambda x: x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0,
+                    "hard_swish")
 
 
 def _binary(tfn, name):
@@ -509,6 +630,12 @@ greater = _binary(_compare(lambda a, b: a > b), "greater")
 greater_equal = _binary(_compare(lambda a, b: a >= b), "greater_equal")
 lesser = _binary(_compare(lambda a, b: a < b), "lesser")
 lesser_equal = _binary(_compare(lambda a, b: a <= b), "lesser_equal")
+logical_and = _binary(_compare(lambda a, b: (a != 0) & (b != 0)),
+                      "logical_and")
+logical_or = _binary(_compare(lambda a, b: (a != 0) | (b != 0)),
+                     "logical_or")
+logical_xor = _binary(_compare(lambda a, b: (a != 0) ^ (b != 0)),
+                      "logical_xor")
 
 
 def _tensors(a, b):
@@ -703,6 +830,36 @@ def repeat(data, repeats, axis=None, **kw):
     return data.repeat_interleave(repeats, dim=axis)
 
 
+def pad(data, mode="constant", pad_width=None, constant_value=0, **kw):
+    """The reference's ``pad``: ``pad_width`` is the flat ``(before,
+    after)`` pair of every axis; ``mode`` is ``"constant"`` (with
+    ``constant_value``), ``"edge"`` (the border repeated) or
+    ``"reflect"`` (mirrored without the border, as ``numpy.pad``'s
+    ``reflect``; a pad shorter than its axis)."""
+    pairs = list(zip(pad_width[::2], pad_width[1::2]))
+    if mode == "constant":
+        flat = [v for b, a in reversed(pairs) for v in (b, a)]
+        return F.pad(data, flat, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise ValueError(f"pad: unknown mode {mode!r}")
+    out = data
+    for axis, (b, a) in enumerate(pairs):
+        if not (b or a):
+            continue
+        n = out.shape[axis]
+        idx = torch.arange(-b, n + a, device=out.device)
+        if mode == "edge":
+            idx = idx.clamp(0, n - 1)
+        else:
+            idx = idx.abs()
+            idx = torch.where(idx > n - 1, 2 * (n - 1) - idx, idx)
+        out = out.index_select(axis, idx)
+    return out
+
+
+Pad = pad
+
+
 def concat(*data, dim=1, **kw):
     if len(data) == 1 and isinstance(data[0], (list, tuple)):
         data = tuple(data[0])
@@ -738,7 +895,17 @@ def slice_axis(data, axis, begin, end, **kw):
 
 
 def clip(data, a_min, a_max, **kw):
-    return torch.clamp(data, a_min, a_max)
+    """``data`` bounded to ``[a_min, a_max]`` (either may be None), as
+    ``max`` then ``min``: at a bound the gradient is halved, as the
+    reference's ``jnp.clip`` halves it (``torch.clamp`` passes it whole;
+    MobileNet's ReLU6 meets the bound at exact zeros)."""
+    if a_min is not None:
+        data = torch.maximum(data, torch.as_tensor(a_min, dtype=data.dtype,
+                                                   device=data.device))
+    if a_max is not None:
+        data = torch.minimum(data, torch.as_tensor(a_max, dtype=data.dtype,
+                                                   device=data.device))
+    return data
 
 
 def where(condition, x, y, **kw):

@@ -12,7 +12,11 @@ reference's contract:
   weight is a cast of the master; the optimizer's state is float32;
 - ``accum_steps=K``: every K-th call applies the update with the mean of
   the last K microbatch gradients (accumulated in float32);
-- the step counter ``t`` starts at 1 for the first applied update;
+- the step counter ``t`` starts at 1 for the first applied update; its
+  learning rate is ``optimizer.lr_scheduler(t)`` with a scheduler, else
+  ``optimizer.lr`` (or the call's ``lr=``);
+- a batch of arrays (``NDArray``, as a ``DevicePrefetchIter`` yields)
+  gives the loss as an array, a batch of tensors as a tensor;
 - the network's buffers (BatchNorm's running statistics, the
   reference's ``grad_req="null"`` parameters) are step state: they
   change in the forward of every call, every microbatch included, and
@@ -41,6 +45,7 @@ import torch
 from .. import device as _device
 from .. import telemetry as _telemetry
 from ..base import MXNetError, refuse_unported
+from ..ndarray.ndarray import NDArray
 
 __all__ = ["CompiledTrainStep"]
 
@@ -144,8 +149,10 @@ class CompiledTrainStep:
         t_start = time.perf_counter()
         if self._build_count == 0:
             self._build()
-        batch = tuple(None if b is None else _device.as_tensor(b, self.device)
-                      for b in batch)
+        arrays = any(isinstance(b, NDArray) for b in batch)
+        batch = tuple(None if b is None else _device.as_tensor(
+            b._data if isinstance(b, NDArray) else b, self.device)
+            for b in batch)
         n = self._n_loss_args
         data_args, loss_args = batch[:-n], batch[-n:]
         diff = [self._params[k] for k in self._diff_keys]
@@ -168,18 +175,25 @@ class CompiledTrainStep:
                         self._gacc[key] += g.float() / k
                     self._micro += 1
                     self._record_step(batch, t_start)
-                    return loss
+                    return NDArray(loss) if arrays else loss
                 grads = [g.float() / k + self._gacc[key]
                          for key, g in zip(self._diff_keys, grads)]
                 for buf in self._gacc.values():
                     buf.zero_()
                 self._micro = 0
             t_next = self._t + 1
-            self._apply(grads, self.optimizer.lr if lr is None else lr,
-                        t_next)
+            if lr is None:
+                sched = self.optimizer.lr_scheduler
+                lr = sched(t_next) if sched else self.optimizer.lr
+            self._apply(grads, lr, t_next)
             self._t = t_next
         self._record_step(batch, t_start)
-        return loss
+        return NDArray(loss) if arrays else loss
+
+    def sync_to_net(self):
+        """The reference copies its compiled state back into the net's
+        parameters here; the port's step updates them in place, so there
+        is nothing to copy."""
 
     def _apply(self, grads, lr, t):
         opt, wd = self.optimizer, self.optimizer.wd
