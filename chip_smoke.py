@@ -315,6 +315,47 @@ line each:
                  bfloat16 weight as ``'<V2'``) and loads bit-equal into a
                  fresh network on the CPU; the example's own images/s.
 
+21. ``moe_parity`` — a thin MoE BERT (2 layers of units 64, 2 heads,
+                 ``moe_every=1``, 4 experts, top-2, float32, dropout 0.1,
+                 batch 4 x 64 with ragged valid lengths) on the card
+                 against the CPU from one weight set, the card's layers
+                 drawing their dropout masks and seeds from a host
+                 generator in the CPU's state: three ``CompiledTrainStep``
+                 LAMB steps of MLM loss + 0.01 x aux, with remat off, on
+                 (every output recomputed) and on with ``dots_saveable``:
+                 losses within 1e-4 relative, every tensor's change
+                 within 1e-2 in norm, the routing (experts, slots, drops)
+                 equal card against CPU at every call, the remat runs'
+                 losses bit-equal to the run without, and the flash
+                 kernels on ``tf32x3`` (the forward launched again in the
+                 backward only where remat recomputes it);
+22. ``moe_train`` — BERT-base with ``moe_every=2`` (6 MoE layers of 8
+                 experts, top-2, capacity factor 1.25) in bf16, LAMB with
+                 f32 masters, dropout 0.1, MLM loss + 0.01 x aux, batch
+                 32 x 512 with ragged valid lengths: 1 warm-up and 3
+                 timed steps with remat off, on, and on with
+                 ``dots_saveable``, each from the same weights and
+                 generator state: step ms, sequences/s, peak memory, the
+                 aux term; losses equal across the three, the flash
+                 dq and dk/dv 12 times a step on ``wgmma`` (the forward
+                 12, or 24 where remat recomputes it); then
+                 ``save_checkpoint``, a fresh step's
+                 ``load_checkpoint`` and one more step each: equal losses
+                 and ``fingerprint()``s;
+23. ``bert_example`` — ``examples/bert/pretrain.py`` unedited through a
+                 ``sys.modules`` alias of ``tpu_mx`` at its defaults
+                 (BERT-base, seq 128, batch 8, 30 LAMB steps, bf16): its
+                 own assertion that the loss falls holds, its seq/s,
+                 the flash launches (12 a step, ``wgmma``), no module of
+                 ``tpu_mx/`` loaded; and the host time of the example's
+                 ``MLMLoss`` (its ``hybrid_forward`` on jax-method
+                 arrays) beside the same arithmetic on plain tensors;
+24. ``moe_example`` — ``examples/moe/train_moe_lm.py`` unedited at its
+                 defaults (vocabulary 1000, units 256, hidden 1024, 8
+                 experts, 32 x 64, 60 Adam steps): its own assertion
+                 that the loss falls holds, every loss it read came off
+                 the card, no module of ``tpu_mx/`` loaded.
+
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
 prints no result, if any phase fails or there is no card.
@@ -457,6 +498,17 @@ ZOO_PUBLISHED_GMAC = {"alexnet": 0.7, "vgg16": 15.5, "squeezenet1_0": 0.8,
                       "densenet121": 2.9, "inception_v3": 5.7}
 ZOO_GMAC_RTOL = 0.05
 ZOO_EXAMPLE_STEPS = 20       # train_imagenet.py: 128 x 20 synthetic images
+MOE_THIN = dict(num_layers=2, units=64, hidden_size=128, num_heads=2,
+                vocab_size=120, max_length=64, dropout=0.1)
+MOE_THIN_ARGS = dict(moe_every=1, moe_experts=4, moe_top_k=2)
+MOE_THIN_VALID = (64, 41, 57, 33)
+MOE_THIN_MASKED = 9
+MOE_PARITY_STEPS = 3
+MOE_ARGS = dict(moe_every=2, moe_experts=8, moe_top_k=2)   # 6 MoE layers
+MOE_STEPS = 3
+MOE_AUX_WEIGHT = 0.01
+MOE_REMAT_ARMS = ((False, None), (True, None), (True, "dots_saveable"))
+BERT_EXAMPLE_STEPS, BERT_EXAMPLE_BATCH = 30, 8   # pretrain.py's defaults
 MNIST_MIN_ACC = 0.9         # the example's own assert (train_mnist.py:85)
 # memory_allocated over 100 steps: one step's saved activations are ~17 MB
 # (conv1's and tanh's 5.9 MB each at batch 128), so a graph kept alive
@@ -3426,29 +3478,18 @@ def phase_zoo_example(ctx):
     """``examples/image_classification/train_imagenet.py`` unedited, on
     the card, through a ``sys.modules`` alias of ``tpu_mx`` to the
     port: mobilenet_v2_1_0, NHWC, one epoch of 20 steps at batch 128."""
-    import contextlib
-    import io as _io
     import os
-    import runpy
     import tempfile
     import zipfile
 
     import torch
 
     import tpu_mx_torch as tmx
-    import tpu_mx_torch.gluon.model_zoo  # noqa: F401
-    import tpu_mx_torch.layout  # noqa: F401
-    import tpu_mx_torch.parallel  # noqa: F401
     from tpu_mx_torch.context import cpu
     from tpu_mx_torch.io import DevicePrefetchIter
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    script = os.path.join(here, "examples", "image_classification",
-                          "train_imagenet.py")
-    alias = {"tpu_mx": tmx, "tpu_mx.gluon": tmx.gluon,
-             "tpu_mx.gluon.model_zoo": tmx.gluon.model_zoo,
-             "tpu_mx.gluon.model_zoo.vision": tmx.gluon.model_zoo.vision,
-             "tpu_mx.parallel": tmx.parallel, "tpu_mx.layout": tmx.layout}
+    alias = port_alias("gluon", "gluon.model_zoo", "gluon.model_zoo.vision",
+                       "parallel", "layout")
     vision = tmx.gluon.model_zoo.vision
     nets, batches = [], []
     get_model, receive = vision.get_model, DevicePrefetchIter._receive
@@ -3463,40 +3504,22 @@ def phase_zoo_example(ctx):
         batches.append((d.device.type, str(d.dtype)))
         return out
 
-    saved = {k: sys.modules.get(k) for k in alias}
-    argv = sys.argv
     tmp = tempfile.mkdtemp(prefix="zoo_example_")
     prefix = os.path.join(tmp, "mobilenet_v2")
-    out = _io.StringIO()
-    t0 = time.perf_counter()
     try:
-        sys.modules.update(alias)
         vision.get_model = recorded_get_model
         DevicePrefetchIter._receive = recorded_receive
-        sys.argv = ["train_imagenet.py", "--network", "mobilenet_v2_1_0",
-                    "--layout", "NHWC", "--epochs", "1",
-                    "--model-prefix", prefix]
-        with contextlib.redirect_stdout(out):
-            runpy.run_path(script, run_name="__main__")
+        _, text, seconds, loaded = run_example(
+            "image_classification/train_imagenet.py",
+            ["train_imagenet.py", "--network", "mobilenet_v2_1_0",
+             "--layout", "NHWC", "--epochs", "1", "--model-prefix", prefix],
+            alias)
     finally:
-        sys.argv = argv
         vision.get_model = get_model
         DevicePrefetchIter._receive = receive
-        for k, v in saved.items():
-            if v is None:
-                sys.modules.pop(k, None)
-            else:
-                sys.modules[k] = v
-    seconds = time.perf_counter() - t0
-    text = out.getvalue()
-    print(text, end="", flush=True)
     last = [ln for ln in text.splitlines() if ln.startswith("epoch 0: loss")]
     imgs = float(last[-1].split()[-2]) if last else float("nan")
     loss = float(last[-1].split()[3]) if last else float("nan")
-    ref_dir = os.path.join(here, "tpu_mx") + os.sep
-    loaded = sorted(n for n, m in list(sys.modules.items())
-                    if (getattr(m, "__file__", None) or "").startswith(
-                        ref_dir))
     params = f"{prefix}-0000.params"
     net = nets[0] if nets else None
     members, v2 = {}, []
@@ -4254,6 +4277,463 @@ def phase_bert_imperative(ctx):
     torch.cuda.empty_cache()
 
 
+def moe_train_block(bert):
+    """The MoE BERT's objective as the reference's MoE examples write it:
+    the MLM loss plus ``MOE_AUX_WEIGHT`` x the load-balance term, in the
+    forward (the step trains on a net's first output), for
+    ``gluon.loss.PassThrough``; the last aux term is kept in ``.aux``."""
+    from tpu_mx_torch.gluon.block import HybridBlock
+    from tpu_mx_torch.models import MLMLoss
+
+    class MoEBertTrain(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.bert = bert
+            self._mlm = MLMLoss()
+            self.aux = None
+
+        def forward(self, tokens, types, valid, positions, labels):
+            logits, aux = self.bert(tokens, types, valid, positions)
+            self.aux = aux.detach()
+            return self._mlm(logits, labels).mean() + MOE_AUX_WEIGHT * aux
+
+    return MoEBertTrain()
+
+
+def moe_step(torch, net, lr, device, multi_precision=False):
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon.loss import PassThrough
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    return CompiledTrainStep(moe_train_block(net), PassThrough(),
+                             optimizer.create(
+                                 "lamb", learning_rate=lr,
+                                 multi_precision=multi_precision),
+                             device=device)
+
+
+def moe_parity_arm(torch, remat, policy, batch):
+    """One remat arm of ``moe_parity``: the thin MoE BERT on the CPU and
+    on the card from one weight set and one generator state; the losses,
+    each parameter's change, the routing of every MoE call, and the
+    card's launches and routes."""
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.models import BERTModel
+    from tpu_mx_torch.parallel import moe as moe_mod
+
+    gen = torch.Generator().manual_seed(0)
+    cpu = BERTModel(MOE_THIN, remat=remat, remat_policy=policy,
+                    device="cpu", generator=gen, **MOE_THIN_ARGS)
+    card = BERTModel.from_numpy(
+        {n: p.detach().numpy() for n, p in cpu.named_parameters()},
+        MOE_THIN, device="cuda", remat=remat, remat_policy=policy,
+        **MOE_THIN_ARGS)
+    host = torch.Generator()
+    host.set_state(gen.get_state())
+    for m in card.modules():     # the CPU's draws, copied to the card
+        if isinstance(m.__dict__.get("_generator"), torch.Generator):
+            m._generator = host
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    route = moe_mod.moe_route
+    out = {}
+    for name, net, dev in (("cpu", cpu, "cpu"), ("cuda", card, "cuda")):
+        calls = []
+
+        def recorded(probs, top_k, capacity):
+            r = route(probs, top_k, capacity)
+            calls.append([torch.stack(x).cpu().numpy() for x in r[:3]])
+            return r
+
+        step = moe_step(torch, net, 1e-3, dev)
+        args = tuple(torch.from_numpy(b).to(dev) for b in batch)
+        dummy = torch.zeros(1, device=dev)
+        reset_port_kernel_launches()
+        wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                    fa.flash_attention_bwd_dkv)
+        for c in wrappers:
+            c.routes = fa.route_counts()
+        moe_mod.moe_route = recorded
+        try:
+            losses = [float(step.step(*args, dummy))
+                      for _ in range(MOE_PARITY_STEPS)]
+        finally:
+            moe_mod.moe_route = route
+        out[name] = dict(losses=losses, calls=calls,
+                         launches=port_kernel_launches(),
+                         routes={k: dict(c.routes) for k, c in
+                                 zip(FLASH_KERNELS, wrappers)})
+    worst, worst_name = 0.0, None
+    params_card = dict(card.named_parameters())
+    for n, p in cpu.named_parameters():
+        d_cpu = p.detach() - before[n]
+        d_card = params_card[n].detach().cpu() - before[n]
+        rel = float((d_card - d_cpu).norm()
+                    / d_cpu.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, n
+    routing_equal = len(out["cpu"]["calls"]) == len(out["cuda"]["calls"]) \
+        and all(all(np.array_equal(a, b) for a, b in zip(x, y))
+                for x, y in zip(out["cpu"]["calls"], out["cuda"]["calls"]))
+    drops = int(sum((~c[2].astype(bool)).sum() for c in out["cpu"]["calls"]))
+    return dict(losses={k: out[k]["losses"] for k in out},
+                worst_update_rel_err=worst, worst_update_param=worst_name,
+                routing_equal=routing_equal,
+                route_calls=len(out["cuda"]["calls"]), dropped=drops,
+                launches=out["cuda"]["launches"],
+                routes=out["cuda"]["routes"])
+
+
+def phase_moe_parity(ctx):
+    """The thin MoE BERT through three LAMB steps on the card against the
+    CPU (float32, dropout 0.1), with remat off, on and on with
+    ``dots_saveable``."""
+    import torch
+    from tpu_mx_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(4)
+    batch = bert_batch(MOE_THIN, len(MOE_THIN_VALID), MOE_THIN["max_length"],
+                       MOE_THIN_MASKED, MOE_THIN_VALID, rng)
+    layers = MOE_THIN["num_layers"]
+    checks, arms = {}, {}
+    launches = dict.fromkeys(port_kernel_launches(), 0)
+    for remat, policy in MOE_REMAT_ARMS:
+        key = "remat_off" if not remat else f"remat_{policy or 'all'}"
+        arm = moe_parity_arm(torch, remat, policy, batch)
+        arms[key] = arm
+        for k, n in arm["launches"].items():
+            launches[k] += n
+        losses = arm["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        arm["loss_rel_err"] = rel
+        recomputed = remat and policy is None
+        per = layers * MOE_PARITY_STEPS
+        checks.update({
+            f"{key}_loss": rel <= LOSS_RTOL,
+            f"{key}_updates": arm["worst_update_rel_err"] <= UPDATE_RTOL,
+            f"{key}_routing_equal": arm["routing_equal"],
+            f"{key}_finite": all(math.isfinite(x) for x in losses["cuda"]),
+            f"{key}_tf32x3": all(
+                r == dict(fa.route_counts(), tf32x3=n) for r, n in zip(
+                    arm["routes"].values(),
+                    (per * (2 if recomputed else 1), per, per))),
+        })
+        if remat:
+            checks[f"{key}_losses_equal_without_remat"] = \
+                losses["cuda"] == arms["remat_off"]["losses"]["cuda"]
+    ctx["moe_parity_launches"] = launches
+    emit("moe_parity", ok=all(checks.values()), checks=checks,
+         config={**MOE_THIN, **MOE_THIN_ARGS, "dtype": "float32",
+                 "valid_length": list(MOE_THIN_VALID),
+                 "masked": MOE_THIN_MASKED, "aux_weight": MOE_AUX_WEIGHT},
+         arms=arms, loss_rtol=LOSS_RTOL, update_rtol=UPDATE_RTOL,
+         launches=launches, seconds=time.perf_counter() - t0)
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"moe_parity check {name} failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_train_net(torch, remat, policy):
+    from tpu_mx_torch.models import BERTModel, bert_base_config
+    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    return cfg, BERTModel(cfg, dtype="bfloat16", device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(0), remat=remat, remat_policy=policy,
+                          **MOE_ARGS)
+
+
+def moe_train_arm(torch, remat, policy, batch):
+    """``MOE_STEPS`` timed steps (after a warm-up) of the full-width MoE
+    BERT; returns the run and its step (for the checkpoint)."""
+    from tpu_mx_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    cfg, net = moe_train_net(torch, remat, policy)
+    step = moe_step(torch, net, 1e-4, "cuda", multi_precision=True)
+    dummy = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = [float(step.step(*batch, dummy))]          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_port_kernel_launches()
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    for c in wrappers:
+        c.routes = fa.route_counts()
+    step_ms, aux = [], []
+    for _ in range(MOE_STEPS):
+        t1 = time.perf_counter()
+        losses.append(float(step.step(*batch, dummy)))  # ends in a host read
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        aux.append(float(step.net.aux))
+    med = statistics.median(step_ms)
+    run = dict(setup_seconds=setup_s, losses=losses, step_ms=step_ms,
+               step_ms_median=med, seq_per_sec=TRAIN_BATCH / med * 1e3,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               aux=aux, launches=port_kernel_launches(),
+               routes={k: dict(c.routes) for k, c in zip(FLASH_KERNELS,
+                                                         wrappers)})
+    return cfg, run, step
+
+
+def phase_moe_train(ctx):
+    """BERT-base MoE at full width in bf16 on the card: remat off, on and
+    on with ``dots_saveable`` from the same weights; then the step's
+    checkpoint round trip."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.models import bert_base_config
+
+    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    rng = np.random.RandomState(0)
+    valid = rng.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, TRAIN_BATCH)
+    batch = bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED, valid, rng)
+    batch = tuple(torch.from_numpy(x).cuda() for x in batch)
+    layers = cfg["num_layers"]
+    arms, checks, step = {}, {}, None
+    launches = dict.fromkeys(port_kernel_launches(), 0)
+    for remat, policy in MOE_REMAT_ARMS:
+        key = "remat_off" if not remat else f"remat_{policy or 'all'}"
+        step = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, run, step = moe_train_arm(torch, remat, policy, batch)
+        arms[key] = run
+        for k, n in run["launches"].items():
+            launches[k] += n
+        per = layers * MOE_STEPS
+        fwd = per * (2 if remat and policy is None else 1)
+        checks.update({
+            f"{key}_finite": all(math.isfinite(x) for x in run["losses"]),
+            f"{key}_flash_launches": [run["launches"][k] for k in
+                                      FLASH_KERNELS] == [fwd, per, per],
+            f"{key}_wgmma": all(r == dict(fa.route_counts(), wgmma=n)
+                                for r, n in zip(run["routes"].values(),
+                                                (fwd, per, per))),
+            f"{key}_paged_rtc_idle": run["launches"]["paged_attention"] == 0
+            and run["launches"]["rtc"] == 0,
+        })
+        if remat:
+            checks[f"{key}_losses_equal_without_remat"] = \
+                run["losses"] == arms["remat_off"]["losses"]
+    # the last arm's step: save, a fresh step loads, one more step each
+    tmp = tempfile.mkdtemp(prefix="moe_ckpt_")
+    path = os.path.join(tmp, "step")
+    try:
+        t0 = time.perf_counter()
+        step.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        marker = os.path.exists(step.commit_marker_path(path))
+        _, net2 = moe_train_net(torch, *MOE_REMAT_ARMS[-1])
+        fresh = moe_step(torch, net2, 1e-4, "cuda", multi_precision=True)
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(path)
+        load_s = time.perf_counter() - t0
+        dummy = torch.zeros(1, device="cuda")
+        after = [float(s.step(*batch, dummy)) for s in (step, fresh)]
+        fps = [s.fingerprint() for s in (step, fresh)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    checks["checkpoint_losses_equal"] = after[0] == after[1]
+    checks["checkpoint_fingerprints_equal"] = fps[0] == fps[1] is not None
+    checks["checkpoint_marker_written"] = marker
+    ctx["moe_train_launches"] = launches
+    ctx["moe_train"] = {k: dict(step_ms=v["step_ms_median"],
+                                peak=v["peak_memory_bytes"])
+                        for k, v in arms.items()}
+    emit("moe_train", ok=all(checks.values()), checks=checks,
+         model={**cfg, **MOE_ARGS, "capacity_factor": 1.25,
+                "dtype": "bfloat16", "aux_weight": MOE_AUX_WEIGHT},
+         batch=dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, masked=TRAIN_MASKED,
+                    valid_length=[int(v) for v in valid]),
+         optimizer="lamb lr=1e-4 multi_precision", arms=arms,
+         checkpoint=dict(bytes=size, save_seconds=save_s,
+                         load_seconds=load_s, losses_after=after,
+                         fingerprints=fps),
+         launches=launches, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"moe_train check {name} failed")
+    del step, fresh, net2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_example(relpath, argv, alias):
+    """Run ``examples/<relpath>`` unedited with ``alias`` in
+    ``sys.modules`` and ``argv``; returns its globals, its standard
+    output, its seconds and the modules of ``tpu_mx/`` loaded meanwhile."""
+    import contextlib
+    import io as _io
+    import os
+    import runpy
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved = {k: sys.modules.get(k) for k in alias}
+    old_argv = sys.argv
+    out = _io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        sys.modules.update(alias)
+        sys.argv = argv
+        with contextlib.redirect_stdout(out):
+            result = runpy.run_path(os.path.join(here, "examples", relpath),
+                                    run_name="__main__")
+    finally:
+        sys.argv = old_argv
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    seconds = time.perf_counter() - t0
+    ref_dir = os.path.join(here, "tpu_mx") + os.sep
+    loaded = sorted(n for n, m in list(sys.modules.items())
+                    if (getattr(m, "__file__", None) or "").startswith(
+                        ref_dir))
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    return result, text, seconds, loaded
+
+
+def port_alias(*names):
+    import importlib
+    import tpu_mx_torch as tmx
+    alias = {"tpu_mx": tmx}
+    for n in names:
+        alias["tpu_mx." + n] = importlib.import_module("tpu_mx_torch." + n)
+    return alias
+
+
+def phase_bert_example(ctx):
+    """``examples/bert/pretrain.py`` unedited at its defaults on the card
+    through the alias; the host cost of ``hybrid_forward``'s arrays."""
+    import torch
+    from tpu_mx_torch.kernels import flash_attention as fa
+
+    alias = port_alias("gluon", "models", "models.bert", "parallel")
+    reset_port_kernel_launches()
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    for c in wrappers:
+        c.routes = fa.route_counts()
+    result, text, seconds, loaded = run_example(
+        "bert/pretrain.py", ["pretrain.py"], alias)
+    launches = port_kernel_launches()
+    routes = {k: dict(c.routes) for k, c in zip(FLASH_KERNELS, wrappers)}
+    line = [ln for ln in text.splitlines() if "seq/s" in ln]
+    m = re.search(r"loss ([\d.]+) -> ([\d.]+)\s+\(([\d.]+) seq/s\)",
+                  line[-1]) if line else None
+    # C15's cost: the example's loss (its hybrid_forward on jax-method
+    # arrays) against the same arithmetic on plain tensors
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(BERT_EXAMPLE_BATCH, 128, 30522, device="cuda",
+                         generator=gen)
+    labels = torch.where(torch.rand(BERT_EXAMPLE_BATCH, 128, device="cuda",
+                                    generator=gen) < 0.15,
+                         torch.randint(0, 30522, (BERT_EXAMPLE_BATCH, 128),
+                                       device="cuda", generator=gen),
+                         -1).to(torch.int32)
+    loss_fn = result["MLMLoss"]()
+
+    def plain():
+        flat = logits.reshape(-1, logits.shape[-1])
+        lab = labels.reshape(-1)
+        mask = lab >= 0
+        safe = torch.where(mask, lab, torch.zeros_like(lab))
+        ce = -torch.log_softmax(flat, -1).gather(1, safe.long()[:, None])[:, 0]
+        ce = torch.where(mask, ce, torch.zeros_like(ce))
+        return ce.sum() / torch.clamp(mask.float().sum(), min=1.0)
+
+    traced_us = host_us(torch, lambda: loss_fn(logits, labels), n=100)
+    plain_us = host_us(torch, plain, n=100)
+    agree = abs(float(loss_fn(logits, labels)) - float(plain())) \
+        <= 1e-5 * abs(float(plain()))
+    steps = BERT_EXAMPLE_STEPS
+    checks = {
+        "ended_with_its_assertion": m is not None,
+        "no_reference_module_loaded": not loaded,
+        "no_jax": "jax" not in sys.modules,
+        # the shape-finalizing forward, then the steps
+        "flash_launches": [launches[k] for k in FLASH_KERNELS]
+        == [12 * (steps + 1), 12 * steps, 12 * steps],
+        "wgmma_routes": all(set(r) == set(fa.route_counts()) and
+                            r["wgmma"] == n for r, n in zip(
+                                routes.values(), (12 * (steps + 1),
+                                                  12 * steps, 12 * steps))),
+        "loss_matches_plain_twin": agree,
+    }
+    ctx["bert_example_launches"] = launches
+    ctx["bert_example"] = dict(seq_per_sec=float(m.group(3)) if m else None)
+    emit("bert_example", ok=all(checks.values()), checks=checks,
+         argv=["pretrain.py"], losses=[float(m.group(1)), float(m.group(2))]
+         if m else None, example_seq_per_sec=float(m.group(3)) if m
+         else None, seconds=seconds, launches=launches, routes=routes,
+         loss_host_us=dict(hybrid_forward=traced_us, plain_tensors=plain_us),
+         reference_modules_loaded=loaded[:10], card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"bert_example check {name} failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_example(ctx):
+    """``examples/moe/train_moe_lm.py`` unedited at its defaults on the
+    card through the alias."""
+    import torch
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    alias = port_alias("gluon", "gluon.nn", "gluon.block", "parallel")
+    devices = []
+    real = CompiledTrainStep.step
+
+    def recorded(self, *batch, **kwargs):
+        loss = real(self, *batch, **kwargs)
+        devices.append(loss._data.device.type)
+        return loss
+
+    reset_port_kernel_launches()
+    CompiledTrainStep.step = recorded
+    try:
+        _, text, seconds, loaded = run_example(
+            "moe/train_moe_lm.py", ["train_moe_lm.py"], alias)
+    finally:
+        CompiledTrainStep.step = real
+    m = re.search(r"loss ([\d.]+) -> ([\d.]+) in", text)
+    checks = {
+        "ended_with_its_assertion": m is not None,
+        "losses_on_the_card": len(devices) == 60 and set(devices)
+        == {"cuda"},
+        "no_reference_module_loaded": not loaded,
+        "no_jax": "jax" not in sys.modules,
+    }
+    ctx["moe_example_launches"] = port_kernel_launches()
+    emit("moe_example", ok=all(checks.values()), checks=checks,
+         argv=["train_moe_lm.py"],
+         losses=[float(m.group(1)), float(m.group(2))] if m else None,
+         seconds=seconds, steps=len(devices),
+         launches=ctx["moe_example_launches"],
+         reference_modules_loaded=loaded[:10], card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"moe_example check {name} failed")
+
+
+def slice15_launches(ctx, name):
+    """A kernel's launches in the MoE and example phases."""
+    return {f"launches_{p}": ctx[f"{p}_launches"][name]
+            for p in ("moe_parity", "moe_train", "bert_example",
+                      "moe_example")}
+
+
 def main():
     try:
         import torch
@@ -4293,6 +4773,10 @@ def main():
                      ("imperative_parity", phase_imperative_parity),
                      ("mnist_train", phase_mnist_train),
                      ("bert_imperative", phase_bert_imperative),
+                     ("moe_parity", phase_moe_parity),
+                     ("moe_train", phase_moe_train),
+                     ("bert_example", phase_bert_example),
+                     ("moe_example", phase_moe_example),
                      ("attention_bias", phase_attention_bias),
                      ("rtc", phase_rtc)):
         try:
@@ -4312,7 +4796,9 @@ def main():
                                 "rtc", "imperative_parity", "mnist_launches",
                                 "bert_imperative_launches", "zoo_parity",
                                 "zoo_train", "zoo_example",
-                                "zoo_launches"} \
+                                "zoo_launches", "moe_parity_launches",
+                                "moe_train_launches", "bert_example_launches",
+                                "moe_example_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1
@@ -4350,7 +4836,8 @@ def main():
                    ctx["serve_features_launches"][name],
                "launches_serve_recovery":
                    ctx["serve_recovery_launches"][name],
-               "launches_train_f32": ctx["train_f32_launches"][name]}
+               "launches_train_f32": ctx["train_f32_launches"][name],
+               **slice15_launches(ctx, name)}
         if name == "paged_attention":   # the speculative verify window
             t4 = ctx["paged_tq4"]
             row["tq4"] = {k: t4[k] for k in ("shape", "ms", "ms_queued",
@@ -4420,7 +4907,8 @@ def main():
                         ctx["serve_features_launches"]["rtc"],
                     "launches_serve_recovery":
                         ctx["serve_recovery_launches"]["rtc"],
-                    "launches_train_f32": ctx["train_f32_launches"]["rtc"]})
+                    "launches_train_f32": ctx["train_f32_launches"]["rtc"],
+                    **slice15_launches(ctx, "rtc")})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -371,31 +371,54 @@ def _mha(**kw):
     return fa.mha_flash_attention(q, q, q, **kw)
 
 
+def _bert_moe(**kw):
+    return _bert(moe_every=1, **kw)
+
+
+def _iter(**kw):
+    from tpu_mx_torch import io
+    return io.NDArrayIter(np.zeros((4, 2), np.float32), batch_size=2, **kw)
+
+
+def _trainer(**kw):
+    from tpu_mx_torch import gluon as pgluon
+    net = pgluon.nn.Dense(2, in_units=2, generator=torch.Generator())
+    return pgluon.Trainer(net.collect_params(), "sgd", **kw)
+
+
+def _optimizer(**kw):
+    from tpu_mx_torch import optimizer
+    return optimizer.Optimizer(**kw)
+
+
 def _reference(name):
     from tpu_mx.models.bert import BERTModel
     from tpu_mx.parallel import CompiledTrainStep
     from tpu_mx.serving import EngineCore, PagedKVCache
-    return {"BERTModel": BERTModel, "CompiledTrainStep": CompiledTrainStep,
+    return {"BERTModel": BERTModel, "BERTModel(moe_every=1)": BERTModel,
+            "CompiledTrainStep": CompiledTrainStep,
             "CompiledTrainStep.step": CompiledTrainStep.step,
             "Server": JServer, "EngineCore": EngineCore,
             "PagedKVCache": PagedKVCache,
             "flash_attention": jfa.flash_attention,
-            "mha_flash_attention": jfa.mha_flash_attention}[name]
+            "mha_flash_attention": jfa.mha_flash_attention,
+            "NDArrayIter": mx.io.NDArrayIter, "Trainer": gluon.Trainer,
+            "Optimizer": mx.optimizer.Optimizer}[name]
 
 
-_PORT = {"BERTModel": _bert, "CompiledTrainStep": _train_step,
+_PORT = {"BERTModel": _bert, "BERTModel(moe_every=1)": _bert_moe,
+         "CompiledTrainStep": _train_step,
          "CompiledTrainStep.step": _step, "Server": _server,
          "EngineCore": _engine, "PagedKVCache": _cache,
-         "flash_attention": _flash, "mha_flash_attention": _mha}
+         "flash_attention": _flash, "mha_flash_attention": _mha,
+         "NDArrayIter": _iter, "Trainer": _trainer, "Optimizer": _optimizer}
 
 # (entry point, argument, a value other than the reference's default)
 _REFUSED = [
-    ("BERTModel", "moe_experts", 4), ("BERTModel", "moe_top_k", 1),
-    ("CompiledTrainStep", "rules", {"w": None}),
-    ("CompiledTrainStep", "data_specs", ("dp",)),
-    ("CompiledTrainStep", "gradient_compression", {"type": "2bit"}),
-    ("CompiledTrainStep.step", "deadline", 5.0),
-    ("CompiledTrainStep.step", "compile_grace", 1.0),
+    ("NDArrayIter", "num_workers", 2), ("NDArrayIter", "rank", 1),
+    ("Trainer", "compression_params", {"type": "2bit"}),
+    ("Trainer", "update_on_kvstore", True),
+    ("Optimizer", "param_idx2name", {0: "w"}),
 ]
 # arguments refused until their feature was ported, each with a check
 # that the given value took effect
@@ -428,6 +451,15 @@ _ACCEPTED = [
     ("EngineCore", "warm_batch", 4, lambda eng: eng.warm_batch == 4),
     ("PagedKVCache", "forensics", "box",
      lambda cache: cache._forensics_path == "box-capacity.json"),
+    # the rest of the BERT step
+    ("BERTModel(moe_every=1)", "moe_experts", 4,
+     lambda net: net.encoder.layers[0].moe._E == 4),
+    ("BERTModel(moe_every=1)", "moe_top_k", 1,
+     lambda net: net.encoder.layers[0].moe._k == 1),
+    ("CompiledTrainStep", "rules", [(r"qkv_weight$", ("tp", None))],
+     lambda step: step._rules is not None),
+    ("CompiledTrainStep", "data_specs", (("dp",),),
+     lambda step: step._data_specs == (("dp",),)),
 ]
 # arguments with no torch meaning: accepted at any value and ignored
 _IGNORED = [
@@ -449,15 +481,20 @@ def _same_default(entry, arg):
 
 
 def _port_callable(entry):
+    from tpu_mx_torch import gluon as pgluon
+    from tpu_mx_torch import io, optimizer
     from tpu_mx_torch.models import BERTModel
     from tpu_mx_torch.parallel import CompiledTrainStep
     from tpu_mx_torch.serving import EngineCore, PagedKVCache
-    return {"BERTModel": BERTModel, "CompiledTrainStep": CompiledTrainStep,
+    return {"BERTModel": BERTModel, "BERTModel(moe_every=1)": BERTModel,
+            "CompiledTrainStep": CompiledTrainStep,
             "CompiledTrainStep.step": CompiledTrainStep.step,
             "Server": Server, "EngineCore": EngineCore,
             "PagedKVCache": PagedKVCache,
             "flash_attention": fa.flash_attention,
-            "mha_flash_attention": fa.mha_flash_attention}[entry]
+            "mha_flash_attention": fa.mha_flash_attention,
+            "NDArrayIter": io.NDArrayIter, "Trainer": pgluon.Trainer,
+            "Optimizer": optimizer.Optimizer}[entry]
 
 
 @pytest.mark.parametrize("entry,arg,value", _REFUSED,

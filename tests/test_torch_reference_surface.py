@@ -1,4 +1,4 @@
-"""The port's imperative surface against the reference: faults C8–C13.
+"""The port's imperative surface against the reference: faults C8–C16.
 
 On the CPU, at small sizes, inputs made with numpy from a seed and fed
 to both packages:
@@ -15,7 +15,15 @@ to both packages:
   reference's ``examples/ssd/train.py --smoke`` runs on the port through
   a module alias;
 - C12: a layer's ``weight`` (``bias``, ``gamma``, ...) is the Gluon
-  ``Parameter`` handle outside a forward.
+  ``Parameter`` handle outside a forward;
+- C15: a user's ``hybrid_forward`` gets arrays with the methods of the
+  jax arrays the reference's traced path hands it (``astype``, ``size``,
+  axis reductions, ...), and a loss written with them trains as the
+  reference's does;
+- C16: ``models.bert`` has the reference's ``bert_sharding_rules`` and
+  ``bert_data_specs``, and ``examples/bert/pretrain.py`` and
+  ``examples/moe/train_moe_lm.py`` run on the port through a module
+  alias.
 """
 import importlib
 import inspect
@@ -29,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+import tpu_mx as jmx
 from tpu_mx import autograd as jag
 from tpu_mx import gluon as jgluon
 from tpu_mx import nd as jnd
@@ -361,7 +370,8 @@ C11_CASES = [
      and s._effective_weight("t", {"t"}) == 3.0, 3.0),
     ("bert_moe", lambda v: mx.models.bert.BERTEncoder(
         1, 8, 16, 2, 10, 8, moe_every=v, generator=torch.Generator()),
-     None, 2),
+     lambda e: isinstance(e.layers[0], mx.models.bert.MoETransformerLayer),
+     1),
     ("histogram", lambda v: mx.telemetry.histogram("t.x", buckets=v),
      lambda h: h.buckets == (0.1, 1.0), (0.1, 1.0)),
 ]
@@ -540,3 +550,185 @@ def test_the_forward_reads_tensors_and_the_handle_stands_for_the_slot():
     probe.initialize()
     assert math.isfinite(float(probe(torch.ones((1, 3))).sum()))
     assert isinstance(probe.inner.weight, gluon.Parameter)
+
+
+# ---------------------------------------------------------------------------
+# C15: hybrid_forward gets arrays with jax's array methods
+# ---------------------------------------------------------------------------
+def _mlm_loss_cls(gluon_pkg):
+    """``examples/bert/pretrain.py``'s loss, written for either package."""
+    class MLMLoss(gluon_pkg.loss.Loss):
+        def __init__(self, **kwargs):
+            super().__init__(weight=None, batch_axis=0, **kwargs)
+            self._ce = gluon_pkg.loss.SoftmaxCrossEntropyLoss()
+
+        def hybrid_forward(self, F, logits, labels):
+            vocab = logits.shape[-1]
+            flat_logits = F.reshape(logits, shape=(-1, vocab))
+            flat_labels = F.reshape(labels, shape=(-1,))
+            mask = flat_labels >= 0
+            safe = F.where(mask, flat_labels, F.zeros_like(flat_labels))
+            ce = self._ce(flat_logits, safe)
+            ce = F.where(mask, ce, F.zeros_like(ce))
+            return F.sum(ce) / F.maximum(F.sum(mask.astype("float32")), 1.0)
+    return MLMLoss
+
+
+def test_a_loss_calling_astype_trains_as_the_references():
+    from tpu_mx.parallel import CompiledTrainStep as JStep
+    rng = np.random.RandomState(0)
+    w = (rng.randn(10, 6) * 0.3).astype(np.float32)
+    b = (rng.randn(10) * 0.1).astype(np.float32)
+    x = rng.randn(3, 5, 6).astype(np.float32)
+    labels = np.where(rng.rand(3, 5) < 0.4, rng.randint(0, 10, (3, 5)),
+                      -1).astype(np.float32)
+    ref = jgluon.nn.Dense(10, in_units=6, flatten=False)
+    ref.initialize()
+    ref.weight.set_data(jnd.array(w))
+    ref.bias.set_data(jnd.array(b))
+    port = gluon.nn.Dense(10, in_units=6, flatten=False)
+    port.weight.set_data(nd.array(w))
+    port.bias.set_data(nd.array(b))
+    jstep = JStep(ref, _mlm_loss_cls(jgluon)(),
+                  jmx.optimizer.create("sgd", learning_rate=0.5))
+    pstep = mx.parallel.CompiledTrainStep(
+        port, _mlm_loss_cls(gluon)(),
+        optimizer.create("sgd", learning_rate=0.5))
+    for _ in range(2):
+        want = float(jstep.step(jnd.array(x), jnd.array(labels)).asnumpy())
+        got = float(pstep.step(torch.from_numpy(x),
+                               torch.from_numpy(labels)))
+        assert abs(got - want) <= OP_RTOL * abs(want)
+    jstep.sync_to_net()
+    _close(port.weight.data().asnumpy(), ref.weight.data().asnumpy())
+    _close(port.bias.data().asnumpy(), ref.bias.data().asnumpy())
+
+
+def _jax_methods():
+    import jax.numpy as jnp
+    idx = np.array([2, 0])
+    return [
+        ("astype", lambda a: a.astype("float32") * 2),
+        ("astype_int", lambda a: (a > 0).astype("int32") + 1),
+        ("size", lambda a: a * a.size),
+        ("T", lambda a: a.T),
+        ("transpose", lambda a: a.transpose(2, 0, 1)),
+        ("transpose_tuple", lambda a: a.transpose((1, 0, 2))),
+        ("sum_axis", lambda a: a.sum(axis=1, keepdims=True)),
+        ("sum_axes", lambda a: a.sum(axis=(0, 2))),
+        ("mean", lambda a: a.mean()),
+        ("max_axis", lambda a: a.max(axis=-1)),
+        ("min_keep", lambda a: a.min(axis=0, keepdims=True)),
+        ("argmax", lambda a: a.argmax(axis=1) * 1.0),
+        ("std", lambda a: a.std(axis=2)),
+        ("var", lambda a: a.var()),
+        ("prod_axes", lambda a: a.prod(axis=(1, 2))),
+        ("cumsum_flat", lambda a: a.cumsum()),
+        ("cumsum_axis", lambda a: a.cumsum(axis=1)),
+        ("repeat", lambda a: a.repeat(2, axis=1)),
+        ("repeat_flat", lambda a: a.repeat(3)),
+        ("take", lambda a: a.take(jnp.asarray(idx) if isinstance(
+            a, jnp.ndarray) else torch.from_numpy(idx), axis=2)),
+        ("sort", lambda a: a.sort(axis=1)),
+        ("ptp", lambda a: a.ptp(axis=0)),
+        ("copy", lambda a: a.copy() + 1),
+        ("at_set", lambda a: a.at[0, 1].set(5.0)),
+        ("at_add", lambda a: a.at[:, 0].add(1.0)),
+        ("all_any", lambda a: (a > -3).all(axis=1).astype("float32")
+         + (a > 1).any(axis=0).sum()),
+        ("nonzero", lambda a: a.reshape(-1)[(a.reshape(-1) > 0).nonzero()
+                                            [0]]),
+        ("dot", lambda a: a[0].dot(a[1].T)),
+    ]
+
+
+@pytest.mark.parametrize("name,fn", _jax_methods(),
+                         ids=[n for n, _ in _jax_methods()])
+def test_hybrid_forward_arrays_have_the_jax_methods(name, fn):
+    import jax.numpy as jnp
+
+    class Probe(gluon.block.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return fn(x)
+
+    x = _normal(2, 3, 4, seed=5)
+    want = np.asarray(fn(jnp.asarray(x)))
+    got = Probe()(torch.from_numpy(x))
+    assert type(got) is torch.Tensor         # the caller gets a tensor
+    _close(got.numpy(), want, msg=name)
+
+
+def test_blocks_called_from_hybrid_forward_run_plain_and_answer_in_kind():
+    seen = []
+
+    class Inner(gluon.block.HybridBlock):
+        def forward(self, x):
+            seen.append(type(x))
+            return x * 2
+
+    class Outer(gluon.block.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.inner = Inner()
+
+        def hybrid_forward(self, F, x):
+            y = self.inner(x)
+            return y.astype("float32").sum(axis=0)
+
+    out = Outer()(torch.ones(3, 2))
+    assert seen == [torch.Tensor] and type(out) is torch.Tensor
+    assert out.tolist() == [6.0, 6.0]
+
+
+# ---------------------------------------------------------------------------
+# C16: the BERT rules, and the BERT and MoE examples through the alias
+# ---------------------------------------------------------------------------
+def test_the_bert_rules_and_specs_are_the_references():
+    from tpu_mx.models import bert as jbert
+    from tpu_mx_torch.models.bert import bert_data_specs, bert_sharding_rules
+    got, want = bert_sharding_rules(), jbert.bert_sharding_rules()
+    assert len(got) == len(want)
+    for (gr, gs), (wr, ws) in zip(got, want):
+        assert gr == wr and gs == ws and tuple(gs) == tuple(ws)
+    assert all(g == w for g, w in zip(bert_data_specs(),
+                                      jbert.bert_data_specs()))
+
+
+def _alias_port(monkeypatch):
+    import tpu_mx_torch.gluon.block
+    import tpu_mx_torch.gluon.nn
+    import tpu_mx_torch.models.bert
+    import tpu_mx_torch.parallel
+    for name, mod in (("tpu_mx", mx), ("tpu_mx.gluon", mx.gluon),
+                      ("tpu_mx.gluon.nn", mx.gluon.nn),
+                      ("tpu_mx.gluon.block", mx.gluon.block),
+                      ("tpu_mx.models", mx.models),
+                      ("tpu_mx.models.bert", mx.models.bert),
+                      ("tpu_mx.parallel", mx.parallel)):
+        monkeypatch.setitem(sys.modules, name, mod)
+
+
+def test_the_bert_example_trains_on_the_port_through_a_module_alias(
+        monkeypatch, capsys):
+    """``examples/bert/pretrain.py --smoke`` unedited (2 layers, units
+    128, seq 128, batch 8, 10 LAMB steps in bfloat16): its own assertion
+    that the loss falls holds."""
+    _alias_port(monkeypatch)
+    monkeypatch.setattr(sys, "argv", ["pretrain.py", "--smoke"])
+    runpy.run_path(str(ROOT / "examples" / "bert" / "pretrain.py"),
+                   run_name="__main__")
+    out = capsys.readouterr().out
+    assert "seq/s" in out and "->" in out
+
+
+def test_the_moe_example_trains_on_the_port_through_a_module_alias(
+        monkeypatch, capsys):
+    """``examples/moe/train_moe_lm.py --smoke`` unedited (4 experts,
+    top-2, 40 Adam steps): it reads each loss as
+    ``np.asarray(l._data)`` and asserts the loss falls."""
+    _alias_port(monkeypatch)
+    monkeypatch.setattr(sys, "argv", ["train_moe_lm.py", "--smoke"])
+    runpy.run_path(str(ROOT / "examples" / "moe" / "train_moe_lm.py"),
+                   run_name="__main__")
+    out = capsys.readouterr().out
+    assert "single device" in out

@@ -284,10 +284,12 @@ def test_from_numpy_consumes_every_array_once():
 
 
 def test_bert_refuses_what_is_not_ported():
-    for kw, item in ((dict(moe_every=2), "A7"), (dict(remat=True), "A4"),
-                     (dict(mesh=object()), "A16")):
-        with pytest.raises(MXNetError, match=item):
-            BERTModel(_cfg(), device="cpu", **kw)
-    with pytest.raises(MXNetError, match="A8"):
+    from tpu_mx_torch.parallel import make_mesh
+    with pytest.raises(MXNetError, match="checkpoint name"):
+        BERTModel(_cfg(), device="cpu", remat=True,
+                  remat_policy="save_only_these_names")
+    with pytest.raises(MXNetError, match="A item 9"):
+        make_mesh({"dp": 2, "tp": 1}, devices=["cpu"])
+    with pytest.raises(MXNetError, match="A item 9"):
         CompiledTrainStep(_fresh(), MLMLoss(), optimizer.create("lamb"),
                           mesh=object(), device="cpu")

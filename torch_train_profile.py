@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's training step spends its time: a torch.profiler trace.
 
-    python3 torch_train_profile.py [--model bert|resnet50|lstm|ssd|lenet]
+    python3 torch_train_profile.py [--model bert|bert_moe|resnet50|lstm|
+                                            ssd|lenet]
                                    [--out DIR] [--steps N]
 
 Builds the training configuration of one of ``chip_smoke.py``'s phases:
 ``bert`` (the default) that of ``train`` (BERT-base in bf16, dropout
 0.1, LAMB with f32 masters, batch 32 x 512 with ragged valid lengths),
+``bert_moe`` that of ``moe_train`` with remat off (the same BERT-base
+step with ``moe_every=2``: 6 MoE layers of 8 experts, top-2, MLM loss
+plus 0.01 x the aux term; its MoE routing's gathers, scatters, sorts and
+scans are the ``index`` group),
 ``resnet50`` that of ``resnet_train`` (ResNet-50 v1 with the
 space-to-depth stem, channels-last, bf16, momentum SGD with f32
 masters, batch 256 of 224x224 images, cuDNN autotuning on), ``lstm``
@@ -77,6 +82,12 @@ GROUPS = {
     "lstm": (("recurrence", ("lstm", "gru", "rnn")),
              ("reduce", ("reduce_kernel", "softmax", "norm_kernel")),
              MATMUL),
+    "bert_moe": (("flash_fwd", ("flash_fwd_tc_kernel",)),
+                 ("flash_dq", ("flash_dq_tc_kernel",)),
+                 ("flash_dkv", ("flash_dkv_tc_kernel",)),
+                 MATMUL,
+                 ("index", ("index", "scatter", "gather", "sort", "radix",
+                            "scan", "cumsum", "nonzero"))),
     "ssd": chip_smoke.SSD_GROUPS,
     # cuDNN's convolutions, then the rest (elementwise, pooling, the SGD
     # updates, copies)
@@ -117,6 +128,20 @@ def bert_step(torch):
     step = CompiledTrainStep(net, MLMLoss(), optimizer.create(
         "lamb", learning_rate=1e-4, multi_precision=True))
     return step, batch
+
+
+def bert_moe_step(torch):
+    cfg, net = chip_smoke.moe_train_net(torch, False, None)
+    rng = np.random.RandomState(0)
+    lo, hi = chip_smoke.TRAIN_VALID
+    valid = rng.randint(lo, hi + 1, chip_smoke.TRAIN_BATCH)
+    batch = chip_smoke.bert_batch(cfg, chip_smoke.TRAIN_BATCH,
+                                  chip_smoke.TRAIN_SEQ,
+                                  chip_smoke.TRAIN_MASKED, valid, rng)
+    batch = tuple(torch.from_numpy(x).cuda() for x in batch) \
+        + (torch.zeros(1, device="cuda"),)
+    return chip_smoke.moe_step(torch, net, 1e-4, "cuda",
+                               multi_precision=True), batch
 
 
 def resnet50_step(torch):
@@ -267,7 +292,8 @@ def main():
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     if args.model == "lenet":
         return lenet_epoch(torch, args, profile, activities)
-    step, batch = {"bert": bert_step, "resnet50": resnet50_step,
+    step, batch = {"bert": bert_step, "bert_moe": bert_moe_step,
+                   "resnet50": resnet50_step,
                    "lstm": lstm_step, "ssd": ssd_step}[args.model](torch)
     float(step.step(*batch))                              # warm-up
     with profile(activities=[ProfilerActivity.CPU,

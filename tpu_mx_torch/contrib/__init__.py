@@ -1,1 +1,2 @@
-"""Contributed planes of the port: :mod:`.chaos` (fault injection)."""
+"""Contributed planes of the port: :mod:`.chaos` (fault injection) and
+:mod:`.compression` (the gradient quantizers)."""

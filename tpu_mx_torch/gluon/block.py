@@ -45,6 +45,7 @@ refuse by name.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import numpy as np
@@ -58,10 +59,12 @@ from .. import random as _random
 from ..base import MXNetError, refuse_unported
 from ..context import current_context
 from ..ndarray.ops import _holds_array, _unwrap, _wrap
+from ..ndarray.traced import TracedArray, plain, traced
 from .parameter import Parameter, ParameterDict, _incomplete
 
 __all__ = ["Block", "HybridBlock", "HookHandle", "as_dtype",
-           "default_generator", "load_numpy"]
+           "default_generator", "load_numpy", "resolve_remat_policy",
+           "REMAT_POLICIES"]
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64}
@@ -177,6 +180,129 @@ def load_numpy(module, params):
                                  f"{tuple(t.shape)}")
             t.copy_(torch.from_numpy(arr))
     return module
+
+
+# -- remat ------------------------------------------------------------------
+#: The policies of ``jax.checkpoint_policies`` the port maps onto
+#: selective checkpointing: which outputs of a remat segment are kept.
+#: "Products" are cuBLAS's (``mm``/``addmm``, and the batched
+#: ``bmm``/``baddbmm``) and the flash forward's; a product with no batch
+#: dimensions is a 2-D ``mm``/``addmm`` (a dense layer's).
+REMAT_POLICIES = ("everything_saveable", "nothing_saveable", "dots_saveable",
+                  "checkpoint_dots", "dots_with_no_batch_dims_saveable",
+                  "checkpoint_dots_with_no_batch_dims")
+
+# jax's policy factories: they keep values tagged with checkpoint_name,
+# which the port's layers do not tag
+_NAMED_POLICIES = ("save_only_these_names", "save_any_names_but_these",
+                   "save_anything_except_these_names",
+                   "save_and_offload_only_these_names",
+                   "save_from_both_policies", "offload_dot_with_no_batch_dims")
+
+
+def resolve_remat_policy(policy):
+    """None, a selective-checkpoint policy function ``(ctx, op, *args,
+    **kwargs) -> CheckpointPolicy``, or one of :data:`REMAT_POLICIES`
+    (kept as its name); another name raises the reference's
+    ``ValueError``."""
+    if policy is None or not isinstance(policy, str):
+        return policy
+    if policy in REMAT_POLICIES:
+        return policy
+    if policy in _NAMED_POLICIES:
+        raise MXNetError(f"remat policy {policy!r} keeps values by "
+                         "checkpoint name, which the port's layers do not "
+                         "tag (ROADMAP A item 6)")
+    raise ValueError(f"unknown remat policy {policy!r}; see "
+                     f"jax.checkpoint_policies for valid names")
+
+
+def _saved_ops(name):
+    aten = torch.ops.aten
+    if name in ("dots_with_no_batch_dims_saveable",
+                "checkpoint_dots_with_no_batch_dims"):
+        return {aten.mm.default, aten.addmm.default}
+    from ..kernels.flash_attention import flash_forward_op
+    return {aten.mm.default, aten.addmm.default, aten.bmm.default,
+            aten.baddbmm.default, flash_forward_op()}
+
+
+def _context_fn(policy):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a resolved
+    policy (None: recompute everything)."""
+    if policy is None or policy == "nothing_saveable":
+        return None
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    if callable(policy):
+        fn = policy
+    elif policy == "everything_saveable":
+        def fn(ctx, op, *args, **kwargs):
+            return CheckpointPolicy.MUST_SAVE
+    else:
+        saved = _saved_ops(policy)
+
+        def fn(ctx, op, *args, **kwargs):
+            return CheckpointPolicy.MUST_SAVE if op in saved \
+                else CheckpointPolicy.PREFER_RECOMPUTE
+    return functools.partial(create_selective_checkpoint_contexts, fn)
+
+
+def _segment_generators(block, args):
+    """The generators the layers of ``block`` draw from: each module's
+    ``_generator``, and for one left None the process's generator of the
+    inputs' device."""
+    gens, default = [], False
+    for m in block.modules():
+        g = m.__dict__.get("_generator", False)
+        if isinstance(g, torch.Generator):
+            if all(g is not h for h in gens):
+                gens.append(g)
+        elif g is None:
+            default = True
+    if default:
+        dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                   None)
+        if dev is not None:
+            g = _random.generator(dev)
+            if all(g is not h for h in gens):
+                gens.append(g)
+    return gens
+
+
+def _checkpointed(block, args, kwargs):
+    """``block``'s forward as a ``torch.utils.checkpoint`` segment whose
+    recomputation replays the segment's draws and leaves no trace: each
+    generator is set back to its state at the segment's entry for the
+    recomputation and restored afterwards (``preserve_rng_state`` covers
+    PyTorch's default generators only), and the running statistics the
+    recomputation moves again (BatchNorm's) are restored too."""
+    from torch.utils.checkpoint import checkpoint
+    gens = _segment_generators(block, args)
+    bufs = list(block.buffers())
+    entry = [g.get_state() for g in gens]
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return nn.Module.__call__(block, *a, **kwargs)
+        now = [g.get_state() for g in gens]
+        held = [b.detach().clone() for b in bufs]
+        for g, s in zip(gens, entry):
+            g.set_state(s)
+        try:
+            return nn.Module.__call__(block, *a, **kwargs)
+        finally:
+            for g, s in zip(gens, now):
+                g.set_state(s)
+            with torch.no_grad():
+                for b, h in zip(bufs, held):
+                    b.copy_(h)
+
+    ctx_fn = _context_fn(block._remat_policy)
+    extra = {} if ctx_fn is None else {"context_fn": ctx_fn}
+    return checkpoint(run, *args, use_reentrant=False, **extra)
 
 
 class HookHandle:
@@ -455,7 +581,27 @@ class HybridBlock(Block):
     written as ``hybrid_forward(self, F, x, **params)`` with ``F`` the
     port's ``nd`` namespace (its operators take and return tensors
     inside the forward; ``params`` are this block's own tensors by
-    attribute name)."""
+    attribute name).  ``hybrid_forward`` gets its arguments and
+    parameters as :class:`~tpu_mx_torch.ndarray.traced.TracedArray`s,
+    tensors with the methods of the jax arrays the reference's traced
+    path hands it (``mask.astype("float32")``), and its caller gets
+    plain tensors back."""
+
+    _remat = False
+    _remat_policy = None
+
+    def remat(self, active=True, policy=None):
+        """Recompute this block's forward in the backward instead of
+        keeping its activations (``torch.utils.checkpoint``), whenever it
+        runs with gradients enabled; ``policy`` keeps some outputs (a
+        name of :data:`REMAT_POLICIES`, as ``jax.checkpoint_policies``
+        names them, or a selective-checkpoint policy function).  The
+        recomputation replays the draws of every generator the block's
+        layers hold (dropout masks, the flash kernels' dropout seeds),
+        so the gradient is the one without remat.  Returns self."""
+        self._remat = bool(active)
+        self._remat_policy = resolve_remat_policy(policy)
+        return self
 
     def _run(self, args, kwargs):
         if _holds_array(args) or _holds_array(kwargs.values()):
@@ -464,6 +610,11 @@ class HybridBlock(Block):
                 return _wrap(self._run_tensors(
                     [_unwrap(a) for a in args],
                     {k: _unwrap(v) for k, v in kwargs.items()}))
+        if any(type(a) is TracedArray for a in args) \
+                or any(type(v) is TracedArray for v in kwargs.values()):
+            # called from a hybrid_forward: run plain, answer in kind
+            return traced(self._run_tensors(plain(list(args)), {
+                k: plain(v) for k, v in kwargs.items()}))
         return self._run_tensors(args, kwargs)
 
     def _run_tensors(self, args, kwargs):
@@ -471,6 +622,8 @@ class HybridBlock(Block):
             self._resolve_deferred(args)
         autograd._STATE.functional += 1
         try:
+            if self._remat and torch.is_grad_enabled():
+                return _checkpointed(self, args, kwargs)
             return nn.Module.__call__(self, *args, **kwargs)
         finally:
             autograd._STATE.functional -= 1
@@ -478,7 +631,9 @@ class HybridBlock(Block):
     def forward(self, *args, **kwargs):
         from .. import ndarray as F
         params = {leaf: p._tensor() for leaf, p in self._reg_params.items()}
-        return self.hybrid_forward(F, *args, **params, **kwargs)
+        return plain(self.hybrid_forward(F, *traced(list(args)),
+                                         **traced(params),
+                                         **traced(kwargs)))
 
     def hybrid_forward(self, F, *args, **kwargs):
         raise NotImplementedError

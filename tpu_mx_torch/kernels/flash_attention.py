@@ -487,6 +487,24 @@ def _forward(q, k, v, scale, causal, kv_valid, rate, seed, bias=None):
                                  seed, bias)
 
 
+# The forward as a dispatcher operator, so that selective checkpointing
+# (``HybridBlock.remat(policy="dots_saveable")``) sees it as one product
+# and can keep its outputs instead of launching it again in the backward.
+_OPS = torch.library.Library("tpu_mx_torch_flash", "FRAGMENT")
+_OPS.define("fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, "
+            "Tensor? kv_valid, Tensor? seed, float scale, bool causal, "
+            "float rate) -> (Tensor, Tensor)")
+_OPS.impl("fwd", lambda q, k, v, bias, kv_valid, seed, scale, causal, rate:
+          _forward(q, k, v, scale, causal, kv_valid, rate, seed, bias),
+          "CompositeExplicitAutograd")
+
+
+def flash_forward_op():
+    """The flash forward's operator (``(out, lse)``), as selective
+    checkpointing policies name it."""
+    return torch.ops.tpu_mx_torch_flash.fwd.default
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """The flash forward with the flash backward as its gradient (the
     reference's ``jax.custom_vjp`` ``_flash_core``).  Saves ``(q, k, v,
@@ -497,8 +515,9 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, kv_valid, seed, scale, causal, rate):
-        out, lse = _forward(q, k, v, scale, causal, kv_valid, rate, seed,
-                            bias)
+        out, lse = flash_forward_op()(q, k, v, bias, kv_valid, seed,
+                                      float(scale), bool(causal),
+                                      float(rate))
         ctx.save_for_backward(q, k, v, bias, kv_valid, seed, out, lse)
         ctx.args = (scale, causal, rate)
         return out

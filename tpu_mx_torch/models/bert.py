@@ -13,9 +13,13 @@ whenever ``valid_length`` is given — and the dense plain version on the
 CPU.  Every random draw (parameter init, hidden dropout, the attention
 dropout seed) comes from the model's explicit ``torch.Generator``.
 
-Not ported yet: the MoE layers (``moe_every``, ROADMAP A7), ``remat``
-(``torch.utils.checkpoint``, ROADMAP A4) and the sharding rules and
-mesh (ROADMAP A16); passing them raises.
+``moe_every=N`` makes every N-th layer a :class:`MoETransformerLayer`
+(the FFN a :class:`~tpu_mx_torch.parallel.moe.MoEFFN`), and the forward
+then returns ``(logits, aux)``; ``remat=True`` recomputes each
+transformer layer in the backward (``HybridBlock.remat``, with
+``remat_policy`` a name of ``jax.checkpoint_policies``).  A mesh is
+accepted at world size 1 (``parallel.make_mesh``); the sharding rules
+and data specs are the reference's, over the port's ``P``.
 """
 from __future__ import annotations
 
@@ -24,20 +28,44 @@ from torch import nn
 
 from .. import device as _device
 from .. import random as _random
-from ..base import MXNetError, refuse_unported
+from ..base import MXNetError
 from ..gluon import loss as _loss
-from ..gluon.block import HybridBlock, as_dtype, load_numpy
+from ..gluon.block import (HybridBlock, as_dtype, load_numpy,
+                           resolve_remat_policy)
 from ..gluon.nn import Dense, Dropout, LayerNorm
 from ..ndarray import ops
 from ..parallel import attention as _attention
+from ..parallel.mesh import P
+from ..parallel.moe import MoEFFN
 
-__all__ = ["BERTModel", "BERTEncoder", "TransformerLayer", "SelfAttention",
-           "MLMLoss", "bert_base_config"]
+__all__ = ["BERTModel", "BERTEncoder", "TransformerLayer",
+           "MoETransformerLayer", "SelfAttention", "MLMLoss",
+           "bert_base_config", "bert_sharding_rules", "bert_data_specs"]
 
 
 def bert_base_config(vocab_size=30522, max_len=512):
     return dict(num_layers=12, units=768, hidden_size=3072, num_heads=12,
                 vocab_size=vocab_size, max_length=max_len, dropout=0.1)
+
+
+def bert_sharding_rules():
+    """Megatron TP layout (regex → PartitionSpec on (out, in) weights):
+    column-parallel for qkv & FFN-in, row-parallel for the output mats."""
+    return [
+        (r"qkv_weight$", P("tp", None)),
+        (r"qkv_bias$", P("tp")),
+        (r"attnout_weight$", P(None, "tp")),
+        (r"ffn1_weight$", P("tp", None)),
+        (r"ffn1_bias$", P("tp")),
+        (r"ffn2_weight$", P(None, "tp")),
+        (r"word_embed_weight$", P(None, None)),
+        # everything else (embeddings, LN, heads) replicated
+    ]
+
+
+def bert_data_specs():
+    """(tokens, token_types, labels) enter sharded batch×sequence."""
+    return (P("dp", "sp"), P("dp", "sp"), P("dp", "sp"))
 
 
 class SelfAttention(HybridBlock):
@@ -64,7 +92,8 @@ class SelfAttention(HybridBlock):
             .unbind(0)                                           # (B,H,T,D)
         # attention-probability dropout in training only, one seed a call
         rate = self._dropout if self.training else 0.0
-        seed = _random.take_seed(self._generator) if rate > 0.0 else None
+        seed = _random.take_seed(self._generator).to(x.device) \
+            if rate > 0.0 else None
         out = _attention(q, k, v, mesh=self._mesh, causal=False,
                          valid_length=valid_length, dropout_rate=rate,
                          dropout_seed=seed)
@@ -105,26 +134,68 @@ class TransformerLayer(HybridBlock):
         return self.ln2(x + h)
 
 
+class MoETransformerLayer(HybridBlock):
+    """:class:`TransformerLayer` with the dense FFN swapped for a sparse
+    :class:`~tpu_mx_torch.parallel.moe.MoEFFN`; ``forward`` returns
+    ``(x_out, aux_loss)``."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 mesh=None, num_experts=8, top_k=2, dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        g, dt = generator, dtype
+        self.attention = SelfAttention(units, num_heads, dropout, mesh, dt, g)
+        self.ln1 = LayerNorm(in_channels=units, dtype=dt, generator=g)
+        self.ln2 = LayerNorm(in_channels=units, dtype=dt, generator=g)
+        self.dropout = Dropout(dropout, g) if dropout else None
+        self.moe = MoEFFN(units, hidden_size, num_experts, top_k=top_k,
+                          dtype=dt, generator=g)
+
+    def forward(self, x, valid_length=None):
+        att = self.attention(x, valid_length)
+        if self.dropout is not None:
+            att = self.dropout(att)
+        x = self.ln1(x + att)
+        h, aux = self.moe(x)
+        if self.dropout is not None:
+            h = self.dropout(h)
+        return self.ln2(x + h), aux
+
+
 class BERTEncoder(HybridBlock):
     """Word + token-type + position embeddings, LayerNorm, dropout, and
-    ``num_layers`` transformer layers."""
+    ``num_layers`` transformer layers; with ``moe_every=N`` layers N-1,
+    2N-1, ... are :class:`MoETransformerLayer`s and the forward returns
+    ``(x, aux)``, ``aux`` the sum of their load-balance terms."""
 
     def __init__(self, num_layers, units, hidden_size, num_heads, vocab_size,
                  max_length, dropout=0.0, mesh=None, dtype=torch.float32,
                  moe_every=0, moe_experts=8, moe_top_k=2, generator=None):
         super().__init__()
-        refuse_unported("BERTEncoder", "A7", moe_every=(moe_every, 0),
-                        moe_experts=(moe_experts, 8),
-                        moe_top_k=(moe_top_k, 2))
         g, dt = generator, dtype
         self._declare("word_embed_weight", (vocab_size, units), None, dt, g)
         self._declare("pos_embed_weight", (max_length, units), None, dt, g)
         self._declare("type_embed_weight", (2, units), None, dt, g)
         self.ln = LayerNorm(in_channels=units, dtype=dt, generator=g)
         self.dropout = Dropout(dropout, g) if dropout else None
-        self.layers = nn.ModuleList(
-            TransformerLayer(units, hidden_size, num_heads, dropout, mesh, dt,
-                             g) for _ in range(num_layers))
+        self._moe = bool(moe_every)
+        layers = []
+        for i in range(num_layers):
+            # moe_every=2 -> layers 1, 3, 5, ... are sparse
+            if moe_every and (i % moe_every) == moe_every - 1:
+                layers.append(MoETransformerLayer(
+                    units, hidden_size, num_heads, dropout, mesh,
+                    num_experts=moe_experts, top_k=moe_top_k, dtype=dt,
+                    generator=g))
+            else:
+                layers.append(TransformerLayer(units, hidden_size, num_heads,
+                                               dropout, mesh, dt, g))
+        if moe_every and not any(isinstance(m, MoETransformerLayer)
+                                 for m in layers):
+            raise ValueError(
+                f"moe_every={moe_every} places no MoE layer in "
+                f"{num_layers} layers (needs moe_every <= num_layers)")
+        self.layers = nn.ModuleList(layers)
 
     def forward(self, tokens, token_types, valid_length=None):
         t = tokens.shape[1]
@@ -134,9 +205,14 @@ class BERTEncoder(HybridBlock):
         x = self.ln(x)
         if self.dropout is not None:
             x = self.dropout(x)
+        aux_total = None
         for layer in self.layers:
-            x = layer(x, valid_length)
-        return x
+            if isinstance(layer, MoETransformerLayer):
+                x, aux = layer(x, valid_length)
+                aux_total = aux if aux_total is None else aux_total + aux
+            else:
+                x = layer(x, valid_length)
+        return (x, aux_total) if self._moe else x
 
 
 class BERTModel(HybridBlock):
@@ -147,23 +223,22 @@ class BERTModel(HybridBlock):
     ``random.generator(device)``), which also draws the dropout masks
     and seeds.  ``forward(tokens, token_types, valid_length=None,
     masked_positions=None)`` returns float32 logits ``(B, M, V)`` over
-    the masked positions (``(B, T, V)`` without them)."""
+    the masked positions (``(B, T, V)`` without them); with
+    ``moe_every`` it returns ``(logits, aux_loss)`` (add ``aux_weight ·
+    aux_loss`` to the objective).  ``remat=True`` recomputes each
+    transformer layer in the backward; ``remat_policy`` (a name of
+    ``jax.checkpoint_policies``) keeps some of its outputs."""
 
     def __init__(self, config=None, mesh=None, dtype="float32", remat=False,
                  remat_policy=None, moe_every=0, moe_experts=8, moe_top_k=2,
                  device=None, generator=None):
         super().__init__()
-        if moe_every:
-            raise MXNetError("BERTModel: the MoE layers (moe_every) are not "
-                             "ported yet (ROADMAP A7)")
-        refuse_unported("BERTModel", "A7", moe_experts=(moe_experts, 8),
-                        moe_top_k=(moe_top_k, 2))
-        if remat or remat_policy is not None:
-            raise MXNetError("BERTModel: remat is not ported yet (ROADMAP "
-                             "A4: torch.utils.checkpoint)")
-        if mesh is not None:
-            raise MXNetError("BERTModel: the mesh and sharding rules are not "
-                             "ported yet (ROADMAP A16)")
+        # resolve up front: a typo'd policy (or one passed with remat off)
+        # fails at construction, as in the reference
+        policy = resolve_remat_policy(remat_policy)
+        if remat_policy is not None and not remat:
+            raise ValueError("remat_policy given but remat=False — pass "
+                             "remat=True (or drop the policy)")
         cfg = dict(config or bert_base_config())
         dev = _device.resolve(device)
         gen = _random.generator(dev) if generator is None else generator
@@ -172,16 +247,26 @@ class BERTModel(HybridBlock):
                              f"generator lives on {gen.device}")
         dt = as_dtype(dtype)
         self._cfg = cfg
+        self._moe = bool(moe_every)
         units = cfg["units"]
         self._declare("mlm_bias", (cfg["vocab_size"],), None, dt, gen)
-        self.encoder = BERTEncoder(dtype=dt, generator=gen, **cfg)
+        self.encoder = BERTEncoder(mesh=mesh, dtype=dt, moe_every=moe_every,
+                                   moe_experts=moe_experts,
+                                   moe_top_k=moe_top_k, generator=gen, **cfg)
+        if remat:
+            for layer in self.encoder.layers:
+                layer.remat(policy=policy)
         self.mlm_dense = Dense(units, flatten=False, in_units=units, dtype=dt,
                                generator=gen)
         self.mlm_ln = LayerNorm(in_channels=units, dtype=dt, generator=gen)
 
     def forward(self, tokens, token_types, valid_length=None,
                 masked_positions=None):
-        x = self.encoder(tokens, token_types, valid_length)
+        aux = None
+        if self._moe:
+            x, aux = self.encoder(tokens, token_types, valid_length)
+        else:
+            x = self.encoder(tokens, token_types, valid_length)
         if masked_positions is not None:
             # project ONLY the masked positions through the vocab head
             idx = masked_positions.long()[..., None].expand(-1, -1,
@@ -192,12 +277,13 @@ class BERTModel(HybridBlock):
         # product (both operands upcast, which is exact), not a cast of a
         # bfloat16 result
         embed = self.encoder.word_embed_weight
-        return torch.matmul(h.float(), embed.float().t()) \
+        logits = torch.matmul(h.float(), embed.float().t()) \
             + self.mlm_bias.float()
+        return (logits, aux) if self._moe else logits
 
     @classmethod
     def from_numpy(cls, params, config=None, dtype="float32", device=None,
-                   generator=None):
+                   generator=None, **kwargs):
         """The port's model computing the reference's function: ``params``
         maps the reference's ``collect_params()`` names to numpy arrays, in
         that (structural) order.  Reference names carry per-instance
@@ -205,9 +291,12 @@ class BERTModel(HybridBlock):
         to the port's i-th parameter, after checking that its name ends in
         the port parameter's name and that the shapes agree: every array
         is consumed once and every parameter is set
-        (``gluon.block.load_numpy``)."""
+        (``gluon.block.load_numpy``).  ``kwargs`` are the constructor's
+        (``moe_every``, ``moe_experts``, ``moe_top_k``, ``remat``,
+        ``remat_policy``): the experts' parameters follow each MoE
+        layer's attention and LayerNorms, as in the reference."""
         return load_numpy(cls(config, dtype=dtype, device=device,
-                              generator=generator), params)
+                              generator=generator, **kwargs), params)
 
 
 class MLMLoss(_loss.Loss):

@@ -429,7 +429,8 @@ def Dropout(data, p=0.5, mode="training", axes=None, generator=None,
     in training — ``training`` as the layers pass it, or with None
     ``autograd.is_training()`` as in the reference — or always with
     ``mode="always"``; otherwise, and for ``p == 0``, it is the
-    identity."""
+    identity.  A generator on another device draws the mask there (a
+    host generator gives a card tensor the host's draws)."""
     if training is None:
         training = autograd.is_training()
     if not (training or mode == "always") or p <= 0:
@@ -438,7 +439,8 @@ def Dropout(data, p=0.5, mode="training", axes=None, generator=None,
         generator = _random.generator(data.device)
     shape = data.shape if not axes else tuple(
         1 if i in axes else s for i, s in enumerate(data.shape))
-    keep = torch.rand(shape, generator=generator, device=data.device) >= p
+    keep = (torch.rand(shape, generator=generator, device=generator.device)
+            >= p).to(data.device)
     return torch.where(keep, data / (1.0 - p), torch.zeros((), dtype=data.dtype,
                                                            device=data.device))
 
@@ -455,6 +457,19 @@ def sgd_update_core(weight, grad, lr, wd, rescale_grad=1.0,
     """Plain SGD: ``w - lr·(g + wd·w)``, ``g`` rescaled and clipped."""
     g = _clip(grad, rescale_grad, clip_gradient)
     return weight - lr * (g + wd * weight)
+
+
+def sgd_update(weight, grad, lr, wd=0.0, rescale_grad=1.0, clip_gradient=-1,
+               out=None, **kw):
+    """The reference's ``nd.sgd_update``: :func:`sgd_update_core`'s
+    ``w - lr·(g + wd·w)`` with no gradient recorded; ``out=`` takes the
+    new weight."""
+    cg = clip_gradient if clip_gradient and clip_gradient > 0 else None
+    with torch.no_grad():
+        return sgd_update_core(weight, grad, lr, wd, rescale_grad, cg)
+
+
+sgd_update._out = True
 
 
 def sgd_mom_update_core(weight, grad, mom, lr, momentum, wd, rescale_grad=1.0,

@@ -29,29 +29,110 @@ reference's contract:
   of the call, which returns before the card has finished unless the
   caller reads the loss).
 
+- a net that returns several outputs trains on the first (a warning
+  says so unless the loss is ``PassThrough``): an MoE net's aux loss is
+  folded into its objective in ``forward``, as the reference's examples
+  do;
+- ``fingerprint()``: the digest of the post-update parameters and
+  buffers (``parallel.integrity.device_fingerprint``'s bits, keyed by
+  structural name) of the last applied update, computed on the device
+  at each update and read at the call (``TPUMX_FINGERPRINT=0`` turns it
+  off: None);
+- ``save_checkpoint``/``load_checkpoint``: the reference's protocol (a
+  ``<path>.commit.json`` marker written atomically after the state, a
+  marker-less path skipped for the next of ``fallback_paths``, the
+  reference's error when none restores) over the port's own bytes: one
+  ``torch.save`` file of the state and the states of the generators the
+  net draws from, so a loaded step continues bit for bit;
+- ``step(deadline=)``: the step and its loss's readback under
+  ``supervisor.run_with_deadline``; a restore during an abandoned step
+  makes that step drop its update.
+
 The name is the reference's; in the port the step is **eager PyTorch**
 (no capture into one program yet: CUDA-graph capture is open work,
-ROADMAP).  Not ported yet: the mesh, sharding rules and data specs,
-gradient compression, the SDC fingerprint, checkpoint save/load, the
-``deadline`` watchdog and chaos injection.
+ROADMAP).  ``mesh``, ``rules`` and ``data_specs`` are taken at world
+size 1 (``parallel.make_mesh``): the specs are the reference's answers
+(:func:`apply_rules`) and place nothing; ``gradient_compression``
+raises where the reference raises (it needs a ``dp`` axis above 1).
+Chaos injection (the training sites) is ROADMAP A item 8.
 """
 from __future__ import annotations
 
+import json
 import logging
+import os
+import re
+import threading
 import time
 
+import numpy as np
 import torch
 
 from .. import device as _device
 from .. import telemetry as _telemetry
-from ..base import MXNetError, refuse_unported
+from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
+from ..ndarray.traced import host_readable
+from .integrity import fold_sums, leaf_word_sum
+from .mesh import NamedSharding, P
 
-__all__ = ["CompiledTrainStep"]
+__all__ = ["CompiledTrainStep", "fsdp_rules", "sharding_for", "apply_rules"]
 
 _logger = logging.getLogger(__name__)
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
+
+CHECKPOINT_FORMAT = "tpu_mx_torch-step-v1"
+
+
+def _fingerprint_on():
+    """``TPUMX_FINGERPRINT`` gates the state fingerprint (default on)."""
+    return os.environ.get("TPUMX_FINGERPRINT", "1").lower() \
+        not in ("0", "false", "off")
+
+
+def apply_rules(name, shape, rules, mesh):
+    """First matching (regex → PartitionSpec) rule wins; axes not in the mesh
+    are dropped from the spec; default replicated."""
+    if rules:
+        for pattern, spec in rules:
+            if re.search(pattern, name):
+                cleaned = tuple(
+                    (ax if (ax is not None and ax in mesh.axis_names) else None)
+                    for ax in spec) if mesh is not None else ()
+                # drop trailing Nones beyond rank
+                cleaned = cleaned[:len(shape)]
+                return P(*cleaned)
+    return P()
+
+
+def sharding_for(mesh, spec):
+    return NamedSharding(mesh, spec) if mesh is not None else None
+
+
+def fsdp_rules(params, axis="dp", min_size=1024, axis_size=None):
+    """ZeRO-3/FSDP-style rules, the reference's: every parameter of at
+    least ``min_size`` elements split over ``axis`` along its largest
+    dimension divisible by ``axis_size`` (any largest one with None);
+    the rest replicated.  ``params`` maps names to arrays or shapes'
+    holders."""
+    rules = []
+    for name, v in params.items():
+        shape = tuple(v.shape)
+        if not shape or int(np.prod(shape)) < min_size:
+            continue
+        dims = sorted(range(len(shape)), key=lambda d: -shape[d])
+        dim = None
+        for d in dims:  # largest divisible axis; ties -> earliest
+            if axis_size is None or shape[d] % axis_size == 0:
+                dim = d
+                break
+        if dim is None:
+            continue  # no divisible axis: leave replicated
+        spec = [None] * len(shape)
+        spec[dim] = axis
+        rules.append((f"^{re.escape(name)}$", P(*spec)))
+    return rules
 
 
 class CompiledTrainStep:
@@ -67,23 +148,22 @@ class CompiledTrainStep:
     n_loss_args — how many trailing ``step()`` arguments go to the loss
     accum_steps — gradient accumulation, as in the reference
 
+    mesh        — None or a world-size-1 ``parallel.make_mesh`` mesh
+    rules       — ``[(regex, P)]``: each parameter's spec is
+                  :func:`apply_rules` of its key in ``collect_params()``
+                  (``specs``)
+    data_specs  — the batch's specs, kept as given
+
     ``donate`` is accepted and ignored: buffer donation is a JAX
-    compilation option with no PyTorch meaning.  ``rules``,
-    ``data_specs`` and ``gradient_compression`` must keep their
-    defaults (None): the mesh and compression are not ported yet.
+    compilation option with no PyTorch meaning.
     """
 
     def __init__(self, net, loss_fn, optimizer, mesh=None, rules=None,
                  data_specs=None, donate=True, n_loss_args=1,
                  gradient_compression=None, accum_steps=1, device=None):
-        refuse_unported("CompiledTrainStep", "A8", rules=(rules, None),
-                        data_specs=(data_specs, None),
-                        gradient_compression=(gradient_compression, None))
-        if mesh is not None:
-            raise MXNetError("CompiledTrainStep: the mesh (and its sharding "
-                             "rules, data specs and gradient compression) "
-                             "is not ported yet (ROADMAP A8: the port's "
-                             "step runs on one device)")
+        if mesh is not None and getattr(mesh, "size", None) != 1:
+            raise MXNetError("CompiledTrainStep: a mesh of more than one "
+                             "device is not ported yet (ROADMAP A item 9)")
         if n_loss_args < 1:
             raise ValueError("n_loss_args must be >= 1 (the label)")
         if accum_steps < 1:
@@ -101,6 +181,21 @@ class CompiledTrainStep:
                              f"the net's parameters live on {foreign}")
         self._diff_keys = [k for k, p in self._params.items()
                            if p.requires_grad and p.is_floating_point()]
+        self.mesh = mesh
+        self._rules = rules
+        self.specs = {k: apply_rules(k, p.shape, rules, mesh)
+                      for k, p in self._values().items()}
+        self._data_specs = data_specs
+        if gradient_compression:
+            ctype = gradient_compression.get("type", "2bit")
+            if ctype not in ("2bit", "int8", "fp8"):
+                raise ValueError(f"unsupported compression type {ctype!r} "
+                                 "(have: 2bit, int8, fp8)")
+            if mesh is None or "dp" not in mesh.axis_names or \
+                    mesh.shape["dp"] < 2:
+                raise ValueError(
+                    "gradient_compression needs a mesh with a dp axis >1 "
+                    "(it compresses the dp gradient reduction)")
         self._n_loss_args = n_loss_args
         self._accum = int(accum_steps)
         self._micro = 0
@@ -109,6 +204,12 @@ class CompiledTrainStep:
         self._build_count = 0
         self.masters = {}
         self.opt_states = {}
+        self._last_fp = None
+        # a restore bumps the generation; a step abandoned by its watchdog
+        # drops its update when it finds the generation moved
+        self._state_lock = threading.Lock()
+        self._generation = 0
+        self._pending = None     # (thread, path, t, errors) of a save
 
     # -- state ----------------------------------------------------------------
     def _build(self):
@@ -137,15 +238,47 @@ class CompiledTrainStep:
         return self._build_count
 
     # -- the step ---------------------------------------------------------------
+    def fingerprint(self):
+        """The last applied update's post-update parameter digest as a
+        Python int (the reference's uint32), or None before the first
+        applied update or with ``TPUMX_FINGERPRINT=0``."""
+        if not _fingerprint_on() or self._last_fp is None:
+            return None
+        return int(self._last_fp)
+
     def step(self, *batch, lr=None, deadline=None, compile_grace=120.0):
         """Run one step; ``batch = (*data_args, *loss_args)`` as tensors on
         the step's device or host arrays (copied there).  Returns the
-        loss, a 0-d float32 tensor on the device (no host sync).
-        ``deadline``/``compile_grace`` (the reference's watchdog) must
-        keep their defaults: not ported yet."""
-        refuse_unported("CompiledTrainStep.step", "A8",
-                        deadline=(deadline, None),
-                        compile_grace=(compile_grace, 120.0))
+        loss, a 0-d float32 tensor on the device (no host sync); an
+        array (``NDArray``, which ``np.asarray(loss._data)`` reads by a
+        host copy) for a batch of arrays.
+
+        ``deadline=`` runs the step and its loss's readback on a watchdog
+        thread joined with the deadline (``supervisor.run_with_deadline``):
+        a step that stalls raises ``WatchdogTimeout``; the first step,
+        which builds the state, gets ``compile_grace`` more seconds."""
+        if deadline is None:
+            return self._step(batch, lr)
+        from ..supervisor import run_with_deadline
+        gen0 = self._generation
+
+        def call():
+            loss = self._step(batch, lr, expect_gen=gen0)
+            t = loss._data if isinstance(loss, NDArray) else loss
+            if t.is_cuda:
+                torch.cuda.current_stream(t.device).synchronize()
+            return loss
+
+        count0 = self._build_count
+        return run_with_deadline(
+            call, deadline, name="train_step", grace=compile_grace or 0.0,
+            grace_signal=lambda: self._build_count - count0,
+            message=f"train_step hung past its {deadline:.1f}s deadline "
+                    "(stalled device); restart from the last checkpoint")
+
+    def _step(self, batch, lr, expect_gen=None):
+        if expect_gen is None:
+            expect_gen = self._generation
         t_start = time.perf_counter()
         if self._build_count == 0:
             self._build()
@@ -159,8 +292,13 @@ class CompiledTrainStep:
         self.net.train()
         out = self.net(*data_args)
         if isinstance(out, (tuple, list)):
-            _logger.warning("CompiledTrainStep: net returned %d outputs; "
-                            "training on output[0]", len(out))
+            from ..gluon.loss import PassThrough
+            if not isinstance(self.loss_fn, PassThrough):
+                _logger.warning(
+                    "CompiledTrainStep: net returned %d outputs; training on "
+                    "output[0] and DROPPING the rest (an MoE aux loss would "
+                    "be lost — fold extra terms into the objective in "
+                    "forward() and use gluon.loss.PassThrough)", len(out))
             out = out[0]
         loss = self.loss_fn(out, *loss_args).float().mean()
         grads = torch.autograd.grad(loss, diff, allow_unused=True)
@@ -175,7 +313,7 @@ class CompiledTrainStep:
                         self._gacc[key] += g.float() / k
                     self._micro += 1
                     self._record_step(batch, t_start)
-                    return NDArray(loss) if arrays else loss
+                    return NDArray(host_readable(loss)) if arrays else loss
                 grads = [g.float() / k + self._gacc[key]
                          for key, g in zip(self._diff_keys, grads)]
                 for buf in self._gacc.values():
@@ -185,10 +323,35 @@ class CompiledTrainStep:
             if lr is None:
                 sched = self.optimizer.lr_scheduler
                 lr = sched(t_next) if sched else self.optimizer.lr
-            self._apply(grads, lr, t_next)
-            self._t = t_next
+            with self._state_lock:
+                if self._stale(expect_gen):
+                    return NDArray(host_readable(loss)) if arrays else loss
+                self._apply(grads, lr, t_next)
+                self._t = t_next
+                self._last_fp = self._digest() if _fingerprint_on() \
+                    else None
         self._record_step(batch, t_start)
-        return NDArray(loss) if arrays else loss
+        return NDArray(host_readable(loss)) if arrays else loss
+
+    def _digest(self):
+        """The post-update digest as a 0-d device tensor: the reference's
+        fold over the values keyed by structural name (sorted, as jax
+        orders a dict), which every instance of a network shares (the
+        reference's per-instance names would order two instances
+        differently)."""
+        values = self._values()
+        return fold_sums([leaf_word_sum(values[k]) for k in sorted(values)])
+
+    def _stale(self, expect_gen):
+        """True when the state was restored while this step ran past its
+        watchdog deadline (call with ``_state_lock`` held)."""
+        if expect_gen is not None and self._generation != expect_gen:
+            _logger.warning(
+                "train_step: discarding a stale step result — the train "
+                "state was restored while this step ran past its watchdog "
+                "deadline")
+            return True
+        return False
 
     def sync_to_net(self):
         """The reference copies its compiled state back into the net's
@@ -243,7 +406,8 @@ class CompiledTrainStep:
         if self._build_count == 0:
             self._build()
         values = self._values()
-        with torch.no_grad():
+        with self._state_lock, torch.no_grad():
+            self._generation += 1   # an abandoned step drops its update
             for k, v in sd["values"].items():
                 values[k].copy_(v)
             self.masters = {k: v.detach().clone().to(self.device)
@@ -253,7 +417,124 @@ class CompiledTrainStep:
                 if isinstance(s, tuple) else s
                 for k, s in sd["opt_states"].items()}
             self._t = int(sd["t"])
-            self._micro = 0
-            if self._gacc is not None:
-                for buf in self._gacc.values():
-                    buf.zero_()
+            self._reset_accumulation()
+
+    def _reset_accumulation(self):
+        self._micro = 0
+        if self._gacc is not None:
+            for buf in self._gacc.values():
+                buf.zero_()
+
+    # -- checkpoints ------------------------------------------------------------
+    def _generators(self):
+        from ..gluon.block import _segment_generators
+        return _segment_generators(self.net, ())
+
+    def save_checkpoint(self, path, block=True):
+        """Write the train state (weights and buffers, masters, optimizer
+        state, ``t``) and the states of the generators the net draws from
+        to the file ``path``, then its ``<path>.commit.json`` marker
+        atomically.  ``block=False`` returns once the state is copied to
+        the host and writes on a thread; :meth:`wait_for_checkpoint` (or
+        any later save or load) waits for it and stamps its marker."""
+        self.wait_for_checkpoint()
+        cpu = lambda x: x.detach().to("cpu", copy=True)
+        sd = self.state_dict()
+        state = {"format": CHECKPOINT_FORMAT, "t": int(sd["t"]),
+                 "values": {k: cpu(v) for k, v in sd["values"].items()},
+                 "masters": {k: cpu(v) for k, v in sd["masters"].items()},
+                 "opt_states": {k: tuple(cpu(x) for x in s)
+                                if isinstance(s, tuple) else s
+                                for k, s in sd["opt_states"].items()},
+                 "generators": [g.get_state() for g in self._generators()]}
+        ap = os.path.abspath(str(path))
+        errors = []
+
+        def write():
+            from ..checkpoint import atomic_write
+            try:
+                with atomic_write(ap, "wb") as f:
+                    torch.save(state, f)
+            except BaseException as e:  # noqa: BLE001 — raised at the wait
+                errors.append(e)
+
+        if block:
+            write()
+            if errors:
+                raise errors[0]
+            self._write_commit_marker(ap, state["t"])
+            return
+        thread = threading.Thread(target=write, daemon=True,
+                                  name="train_step-checkpoint")
+        thread.start()
+        self._pending = (thread, ap, state["t"], errors)
+
+    @staticmethod
+    def commit_marker_path(path):
+        return os.path.abspath(str(path)) + ".commit.json"
+
+    def _write_commit_marker(self, path, saved_t):
+        from ..checkpoint import atomic_write
+        with atomic_write(self.commit_marker_path(path), "w") as f:
+            f.write(json.dumps({"format": CHECKPOINT_FORMAT + "-commit",
+                                "path": os.path.basename(path),
+                                "t": saved_t, "wall_time": time.time()}))
+
+    def wait_for_checkpoint(self):
+        """Block until an in-flight async save has written its file, then
+        stamp its commit marker; a failed write raises here, unstamped."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            thread, path, saved_t, errors = pending
+            thread.join()
+            if errors:
+                raise errors[0]
+            self._write_commit_marker(path, saved_t)
+
+    def load_checkpoint(self, path, fallback_paths=()):
+        """Restore a :meth:`save_checkpoint` file, the generators' states
+        included.  A path without its commit marker is skipped while
+        ``fallback_paths`` (older checkpoints, newest first) remain, and
+        tried (with a warning) as the last resort; a path that fails to
+        restore falls back too.  Returns the path restored; raises
+        ``MXNetError`` when none restores."""
+        self.wait_for_checkpoint()
+        candidates = [os.path.abspath(str(p))
+                      for p in (path, *tuple(fallback_paths))]
+        errors = []
+        for i, ap in enumerate(candidates):
+            last_resort = i == len(candidates) - 1
+            if not os.path.exists(ap):
+                errors.append(f"{ap}: does not exist")
+                continue
+            if not os.path.exists(self.commit_marker_path(ap)):
+                if not last_resort:
+                    _logger.warning(
+                        "checkpoint %s has no commit marker (interrupted "
+                        "or pre-durability save): falling back", ap)
+                    errors.append(f"{ap}: no commit marker")
+                    continue
+                _logger.warning(
+                    "checkpoint %s has no commit marker: attempting "
+                    "unverified restore (legacy/last resort)", ap)
+            try:
+                state = torch.load(ap, map_location="cpu",
+                                   weights_only=True)
+                if state.get("format") != CHECKPOINT_FORMAT:
+                    raise ValueError(f"not a {CHECKPOINT_FORMAT} file")
+                gens = self._generators()
+                if len(state["generators"]) != len(gens):
+                    raise ValueError(f"{len(state['generators'])} generator "
+                                     f"states for {len(gens)} generators")
+                self.load_state_dict(state)
+            except Exception as e:  # noqa: BLE001 — falls back, then raises
+                _logger.warning("checkpoint %s failed to restore (%s: %s)%s",
+                                ap, type(e).__name__, e,
+                                "" if last_resort else " — falling back")
+                errors.append(f"{ap}: {type(e).__name__}: {e}")
+                continue
+            for g, s in zip(gens, state["generators"]):
+                g.set_state(s)
+            return ap
+        raise MXNetError("load_checkpoint: no restorable checkpoint among "
+                         + "; ".join(errors))
