@@ -243,7 +243,13 @@ line each:
                  .step(32)``; 1 warm-up and 5 timed steps in turns with
                  ``CompiledTrainStep``'s from the same weights; launch
                  counts prove the flash forward, dq and dk/dv ran 12
-                 times a step on the ``wgmma`` route;
+                 times a step on the ``wgmma`` route.  The trainer's
+                 states after step 1 go through ``save_states`` (the
+                 reference's pickle; bytes and seconds) into a fresh
+                 ``Trainer``'s ``load_states`` (seconds): with step 1's
+                 weights and dropout generators restored, the loaded
+                 state tensors' checksums equal the saved ones and step
+                 2's loss equals the unbroken run's bit for bit;
 16. ``attention_bias`` — ``parallel.attention(..., bias=)`` forward and
                  backward at BERT-base's attention width (B=32, H=12,
                  T=512, D=64, bf16, ragged ``valid_length``, dropout
@@ -354,7 +360,37 @@ line each:
                  defaults (vocabulary 1000, units 256, hidden 1024, 8
                  experts, 32 x 64, 60 Adam steps): its own assertion
                  that the loss falls holds, every loss it read came off
-                 the card, no module of ``tpu_mx/`` loaded.
+                 the card, no module of ``tpu_mx/`` loaded;
+25. ``operators`` — the rest of the ``nd.*`` operators, CTC and
+                 ``nd.Custom`` at the repo's model shapes, each against
+                 the port on the CPU on the same inputs (its leading
+                 rows where the operator treats rows apart) and timed
+                 (median of 20 by CUDA events, with one PyTorch call
+                 computing the same function beside it where there is
+                 one): ``sort``/``argsort``/``topk(k=50, "both")``/
+                 ``argmax_channel`` at the serving logits (8 x 32000
+                 f32) and the MLM logits (32 x 76 x 30522 bf16), values
+                 distinct in a row, equal; ``sample_multinomial`` from
+                 the serving logits (support, never a zero class, a
+                 chi-square over 32 bins of 2**16 draws); the sequence
+                 operators at the PTB LSTM's (35, 2048, 650) bf16,
+                 equal; the indexing operators at BERT's (32, 512, 768)
+                 bf16 with 76 positions a row, equal; ``BatchNorm``
+                 (training, inference) and ``batch_norm_core`` at
+                 ResNet-50's stage-1 (256, 56, 56, 256) bf16
+                 channels-last, 2e-2 of max|ref| (statistics 1e-4); the
+                 masked softmaxes at BERT's scores (32, 12, 512, 512)
+                 bf16 (fully masked rows exact) and ``RMSNorm`` at
+                 (16384, 768); ``linalg_gemm2``/``syrk`` at (384, 512,
+                 64) bf16 and ``potrf`` of a 1024 x 1024 f32 SPD matrix;
+                 ``im2col``/``col2im`` at (32, 64, 56, 56) f32;
+                 ``SoftmaxOutput`` forward and injected gradient at the
+                 MLM logits in f32 (``normalization="valid"``); CTC at
+                 T=400, N=32, C=29, labels 40-120 long (loss 1e-4
+                 relative, gradient 1e-3 in norm, ``F.ctc_loss`` timed
+                 beside); every other name on 2**24 f32 elements (1e-5
+                 of max|ref|; the samplers' means within 5 standard
+                 errors); no kernel of the port launches.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -363,6 +399,7 @@ prints no result, if any phase fails or there is no card.
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -4214,6 +4251,7 @@ def phase_bert_imperative(ctx):
     losses = {"imperative": [imperative_bert_step(imp, trainer, loss_fn,
                                                   arrays)],
               "compiled": [float(step.step(*tensors))]}   # warm-up
+    saved = trainer_states_save(torch, imp, trainer, tensors)
     torch.cuda.reset_peak_memory_stats()
     step_ms = {"imperative": [], "compiled": []}
     counters = (fa.flash_attention, fa.flash_attention_bwd_dq,
@@ -4240,6 +4278,8 @@ def phase_bert_imperative(ctx):
                     for r, n in c.routes.items():
                         routes[name][r] += n
     peak = torch.cuda.max_memory_allocated()
+    states = trainer_states_resume(torch, imp, saved, arrays, loss_fn,
+                                   losses["imperative"][1])
     layers = cfg["num_layers"]
     med = {k: statistics.median(v) for k, v in step_ms.items()}
     first_rel = abs(losses["imperative"][0] - losses["compiled"][0]) \
@@ -4255,6 +4295,7 @@ def phase_bert_imperative(ctx):
         "finite": all(math.isfinite(v) for run in losses.values()
                       for v in run),
         "first_loss_matches_compiled": first_rel <= BF16_REL,
+        **{f"states_{k}": v for k, v in states.pop("checks").items()},
     }
     ctx["bert_imperative_launches"] = launches
     ctx["bert_imperative"] = dict(step_ms=med)
@@ -4269,12 +4310,72 @@ def phase_bert_imperative(ctx):
          first_loss_rel_err=first_rel, first_loss_rtol=BF16_REL,
          peak_memory_bytes=peak, launches=launches,
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
-         routes=routes, card=ctx["smi"])
+         routes=routes, trainer_states=states, card=ctx["smi"])
     for name, ok in checks.items():
         if not ok:
             ctx["failures"].append(f"bert_imperative check {name} failed")
     del imp, comp, step, trainer
     torch.cuda.empty_cache()
+
+
+def _state_sums(torch, states):
+    """Each state tensor's float64 sum, in tree order (a checksum)."""
+    out = []
+    for s in states:
+        if isinstance(s, torch.Tensor):
+            out.append(float(s.double().sum()))
+        elif isinstance(s, (tuple, list)):
+            out += _state_sums(torch, s)
+    return out
+
+
+def trainer_states_save(torch, net, trainer, tensors):
+    """After step 1: the trainer's states in the reference's file (bytes,
+    seconds), with the weights, the dropout generators' states and a
+    checksum of every state tensor kept to resume from."""
+    import tempfile
+    from tpu_mx_torch.gluon.block import _segment_generators
+    path = tempfile.mkdtemp(prefix="chip_states_") + "/bert.states"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_states(path)
+    save_s = time.perf_counter() - t0
+    gens = _segment_generators(net, tensors)
+    return dict(path=path, save_seconds=save_s,
+                bytes=os.path.getsize(path),
+                weights=[p.data()._data.detach().clone()
+                         for p in net.collect_params().values()],
+                gens=[(g, g.get_state()) for g in gens],
+                sums=_state_sums(torch, trainer._states))
+
+
+def trainer_states_resume(torch, net, saved, arrays, loss_fn, unbroken):
+    """Step 2 again from step 1's weights and generators through a fresh
+    ``Trainer`` that loads the saved file: the state tensors load
+    bit-equal and step 2's loss equals the unbroken run's bit for bit."""
+    from tpu_mx_torch import gluon
+    with torch.no_grad():
+        for p, w in zip(net.collect_params().values(), saved["weights"]):
+            p.data()._data.copy_(w)
+    for g, st in saved["gens"]:
+        g.set_state(st)
+    trainer = gluon.Trainer(net.collect_params(), "lamb",
+                            {"learning_rate": 1e-4, "multi_precision": True})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.load_states(saved["path"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    sums = _state_sums(torch, trainer._states)
+    loss = imperative_bert_step(net, trainer, loss_fn, arrays)
+    os.remove(saved["path"])
+    os.rmdir(os.path.dirname(saved["path"]))
+    return dict(bytes=saved["bytes"], save_seconds=saved["save_seconds"],
+                load_seconds=load_s, step2_loss=loss,
+                step2_loss_unbroken=unbroken,
+                checks={"loaded_bit_equal": sums == saved["sums"],
+                        "step2_loss_bit_equal": loss == unbroken,
+                        "update_counts": trainer.optimizer.num_update == 2})
 
 
 def moe_train_block(bert):
@@ -4727,11 +4828,728 @@ def phase_moe_example(ctx):
             ctx["failures"].append(f"moe_example check {name} failed")
 
 
-def slice15_launches(ctx, name):
-    """A kernel's launches in the MoE and example phases."""
+OPS_REPS = 20                   # cuda_ms medians of the operators phase
+OPS_F32_TOL = 1e-5              # card against CPU, x max|ref|
+OPS_STATS_TOL = 1e-4            # float32 statistics / products, x max|ref|
+CTC_LOSS_RTOL = 1e-4
+CTC_GRAD_RTOL = 1e-3            # in norm
+CTC_SHAPE = dict(T=400, N=32, C=29, label_len=(40, 120), data_len=(300, 400))
+OPS_REST = 1 << 24              # elements of the remaining operators' inputs
+MULTINOMIAL_DRAWS = 1 << 16
+# rows (a batch's leading entries) the CPU port computes where an operator
+# treats rows apart: the card runs the whole shape and its leading rows
+# are held to the CPU's (the host's half would take minutes at full size)
+OPS_CPU_ROWS = {"ordering_mlm": 304, "sequence": 256, "masked_softmax": 6,
+                "linalg": 48, "batch_norm": 16, "softmax_output": 304,
+                "rest_images": 4, "rest_rows": 256}
+CHI2_Z = 5.0                    # the chi-square bound, in standard deviations
+
+
+def chi2_bound(df, z=CHI2_Z):
+    """The chi-square statistic of ``df`` degrees of freedom that ``z``
+    standard deviations of the Wilson-Hilferty normal approximation
+    reach."""
+    a = 2.0 / (9 * df)
+    return df * (1 - a + z * math.sqrt(a)) ** 3
+
+
+def card_draw(torch, rng, shape, low=None, high=None):
+    """A float32 tensor of ``shape`` drawn on the card (normal, or uniform
+    in ``[low, high)``) from a generator seeded by ``rng``, on the host."""
+    g = torch.Generator(device="cuda").manual_seed(int(rng.randint(1 << 31)))
+    if low is None:
+        return torch.randn(shape, generator=g, device="cuda").cpu()
+    return (torch.rand(shape, generator=g, device="cuda") * (high - low)
+            + low).cpu()
+
+
+def distinct_bf16(rows, cols, rng):
+    """``(rows, cols)`` bfloat16 logits, each row distinct values (positive
+    normal bit patterns in a row-shifted permutation)."""
+    import torch
+    perm = rng.permutation(cols)
+    shift = rng.randint(0, cols, rows)
+    idx = (perm[None, :] + shift[:, None] * 7919) % cols
+    return torch.from_numpy((idx + 0x0080).astype(np.int16)).view(
+        torch.bfloat16)
+
+
+class OpsCheck:
+    """One group of the operators phase: card timings, the CPU port's
+    outputs on the same inputs, errors against tolerances."""
+
+    def __init__(self, torch, ctx):
+        self.torch, self.ctx = torch, ctx
+        self.groups, self.failures = {}, []
+
+    def err(self, card, cpu):
+        """Max |card - cpu| over finite entries, and the max |cpu|; the
+        non-finite entries must match exactly."""
+        t = self.torch
+        a = card.detach().double()
+        b = cpu.detach().to(card.device).double()     # compared on the card
+        same_inf = bool(t.equal(t.isinf(a) & (a > 0), t.isinf(b) & (b > 0))
+                        and t.equal(t.isinf(a) & (a < 0),
+                                    t.isinf(b) & (b < 0))
+                        and t.equal(t.isnan(a), t.isnan(b)))
+        fin = t.isfinite(b)
+        if not fin.any():
+            return (0.0 if same_inf else math.inf), 0.0
+        e = float((a[fin] - b[fin]).abs().max()) if same_inf else math.inf
+        return e, float(b[fin].abs().max())
+
+    def check(self, group, name, card, cpu, tol, rel=True, exact=False):
+        e, scale = self.err(card, cpu)
+        limit = 0.0 if exact else tol * (scale if rel else 1.0)
+        ok = card.device.type == "cuda" and e <= limit
+        g = self.groups[group]
+        g.setdefault("checks", {})[name] = ok
+        g["cpu_max_abs_err"] = max(g.get("cpu_max_abs_err", 0.0), e)
+        g.setdefault("errors", {})[name] = dict(max_abs_err=e, limit=limit)
+        if not ok:
+            self.failures.append(f"operators {group}: {name} off by {e} "
+                                 f"(limit {limit})")
+        return ok
+
+    def time(self, group, fn, library=None, key="ms", lib_key="library_ms"):
+        g = self.groups.setdefault(group, {})
+        g[key] = cuda_ms(self.torch, fn, reps=OPS_REPS)
+        if lib_key not in g:
+            g[lib_key] = None
+        if library is not None:
+            g[lib_key] = cuda_ms(self.torch, library, reps=OPS_REPS)
+        return g[key]
+
+
+def ops_ordering(oc, nd, rng):
+    """sort / argsort / topk / argmax_channel at the serving logits (8 x
+    32000 f32) and the MLM logits (32 x 76 masked positions x 30522 bf16),
+    distinct values in a row; sample_multinomial from the serving logits."""
+    torch = oc.torch
+    serve = torch.from_numpy((rng.permutation(8 * 32000).reshape(8, 32000)
+                              .astype(np.float32) - 128000.0) / 1000.0)
+    mlm = distinct_bf16(32 * 76, 30522, rng)
+    for group, x, k in (("ordering_serve", serve, 8),
+                        ("ordering_mlm", mlm, OPS_CPU_ROWS["ordering_mlm"])):
+        xc = x.cuda()
+        oc.groups[group] = {"shape": list(x.shape), "dtype": str(x.dtype),
+                            "cpu_rows": k}
+        x = x[:k]
+        oc.time(group, lambda: nd.sort(xc, is_ascend=False),
+                lambda: torch.sort(xc, descending=True, stable=True))
+        oc.time(group, lambda: nd.argsort(xc, is_ascend=False),
+                lambda: torch.argsort(xc, descending=True, stable=True),
+                key="argsort_ms", lib_key="argsort_library_ms")
+        oc.time(group, lambda: nd.topk(xc, k=50, ret_typ="both"),
+                lambda: torch.topk(xc, 50), key="topk_ms",
+                lib_key="topk_library_ms")
+        oc.check(group, "sort", nd.sort(xc, is_ascend=False)[:k],
+                 nd.sort(x, is_ascend=False), 0, exact=True)
+        oc.check(group, "argsort", nd.argsort(xc, is_ascend=False)[:k],
+                 nd.argsort(x, is_ascend=False), 0, exact=True)
+        for part, c, h in zip(("topk_values", "topk_indices"),
+                              nd.topk(xc, k=50, ret_typ="both"),
+                              nd.topk(x, k=50, ret_typ="both")):
+            oc.check(group, part, c[:k], h, 0, exact=True)
+        if group == "ordering_serve":
+            oc.time(group, lambda: nd.argmax_channel(xc),
+                    lambda: torch.argmax(xc, dim=1),
+                    key="argmax_channel_ms",
+                    lib_key="argmax_channel_library_ms")
+            oc.check(group, "argmax_channel", nd.argmax_channel(xc),
+                     nd.argmax_channel(x), 0, exact=True)
+        del xc
+    # sampling from the serving logits: 1000 classes of row 0 held at 0
+    p = torch.softmax(serve.double() / 64.0, -1).float()
+    p[0, :1000] = 0.0
+    pc = p.cuda()
+    g = oc.groups["multinomial"] = {"shape": list(p.shape),
+                                    "draws": MULTINOMIAL_DRAWS}
+    oc.time("multinomial", lambda: nd.sample_multinomial(pc),
+            lambda: torch.multinomial(pc, 1))
+    g["draws_ms"] = cuda_ms(torch, lambda: nd.random.multinomial(
+        pc[:1], shape=MULTINOMIAL_DRAWS), reps=OPS_REPS)
+    d = nd.random.multinomial(pc[:1], shape=MULTINOMIAL_DRAWS)
+    one = nd.sample_multinomial(pc)
+    counts = torch.bincount(d.reshape(-1).long(), minlength=32000).cpu()
+    bins = counts.reshape(32, 1000).sum(1).double()
+    row = p[0].double() / p[0].double().sum()      # the sampler normalizes
+    want = row.reshape(32, 1000).sum(1) * MULTINOMIAL_DRAWS
+    use = want > 0
+    chi2 = float(((bins[use] - want[use]) ** 2 / want[use]).sum())
+    df = int(use.sum()) - 1
+    g["checks"] = {
+        "on_the_card": d.device.type == "cuda" and one.shape == (8,),
+        "support": bool(((d >= 0) & (d < 32000)).all()),
+        "zero_classes_never_drawn": int(counts[:1000].sum()) == 0,
+        "chi2": chi2 <= chi2_bound(df)}
+    g.update(chi2=chi2, chi2_df=df, chi2_bound=chi2_bound(df))
+    g["cpu_max_abs_err"] = None
+    oc.failures += [f"operators multinomial: {k}"
+                    for k, ok in g["checks"].items() if not ok]
+
+
+def ops_sequence(oc, nd, rng):
+    """SequenceMask / Reverse / Last at the PTB LSTM's activations (35 x
+    2048 x 650 bf16), lengths 1-35."""
+    torch = oc.torch
+    x = card_draw(torch, rng, (35, 2048, 650)) \
+        .bfloat16()
+    lens = torch.from_numpy(rng.randint(1, 36, 2048).astype(np.float32))
+    xc, lc = x.cuda(), lens.cuda()
+    k = OPS_CPU_ROWS["sequence"]
+    oc.groups["sequence"] = {"shape": list(x.shape), "dtype": "bfloat16",
+                             "cpu_batch": k}
+    kw = dict(use_sequence_length=True)
+    for name, fn in (("SequenceMask", nd.SequenceMask),
+                     ("SequenceReverse", nd.SequenceReverse),
+                     ("SequenceLast", nd.SequenceLast)):
+        oc.time("sequence", lambda: fn(xc, lc, **kw), key=f"{name}_ms",
+                lib_key=f"{name}_library_ms")
+        got = fn(xc, lc, **kw)
+        oc.check("sequence", name, got[:, :k] if got.dim() == 3 else got[:k],
+                 fn(x[:, :k], lens[:k], **kw), 0, exact=True)
+    oc.groups["sequence"]["ms"] = oc.groups["sequence"]["SequenceMask_ms"]
+    oc.groups["sequence"]["library_ms"] = None
+
+
+def ops_indexing(oc, nd, rng):
+    """gather_nd / scatter_nd / batch_take / choose_element_0index /
+    fill_element_0index at BERT's hidden states (32 x 512 x 768 bf16), 76
+    masked positions a row."""
+    torch = oc.torch
+    h = card_draw(torch, rng, (32, 512, 768)) \
+        .bfloat16()
+    pos = np.stack([rng.choice(512, 76, replace=False) for _ in range(32)])
+    idx = torch.from_numpy(np.stack([np.repeat(np.arange(32), 76),
+                                     pos.reshape(-1)]).astype(np.float32))
+    col = torch.from_numpy(rng.randint(0, 768, 32 * 76).astype(np.float32))
+    fill = torch.from_numpy(rng.randn(32 * 76).astype(np.float32)) \
+        .bfloat16()
+    hc, ic, cc, fc = h.cuda(), idx.cuda(), col.cuda(), fill.cuda()
+    oc.groups["indexing"] = {"shape": list(h.shape), "dtype": "bfloat16",
+                             "positions": 32 * 76}
+    g_card, g_cpu = nd.gather_nd(hc, ic), nd.gather_nd(h, idx)
+    cases = (
+        ("gather_nd", lambda: nd.gather_nd(hc, ic), g_cpu,
+         lambda: hc[ic[0].long(), ic[1].long()]),
+        ("scatter_nd", lambda: nd.scatter_nd(g_card, ic, (32, 512, 768)),
+         nd.scatter_nd(g_cpu, idx, (32, 512, 768)), None),
+        ("batch_take", lambda: nd.batch_take(g_card, cc),
+         nd.batch_take(g_cpu, col), None),
+        ("choose_element_0index",
+         lambda: nd.choose_element_0index(g_card, cc),
+         nd.choose_element_0index(g_cpu, col), None),
+        ("fill_element_0index",
+         lambda: nd.fill_element_0index(g_card, fc, cc),
+         nd.fill_element_0index(g_cpu, fill, col), None))
+    for name, fn, want, lib in cases:
+        oc.time("indexing", fn, lib, key=f"{name}_ms",
+                lib_key=f"{name}_library_ms")
+        oc.check("indexing", name, fn(), want, 0, exact=True)
+    oc.groups["indexing"]["ms"] = oc.groups["indexing"]["gather_nd_ms"]
+    oc.groups["indexing"]["library_ms"] = \
+        oc.groups["indexing"]["gather_nd_library_ms"]
+
+
+def ops_batch_norm(oc, nd, autograd, rng):
+    """BatchNorm (training and inference) and batch_norm_core at ResNet-50's
+    stage-1 activation (256 x 56 x 56 x 256 bf16, channels-last,
+    ``axis=3``)."""
+    torch = oc.torch
+    F = torch.nn.functional
+    x = (card_draw(torch, rng, (256, 56, 56, 256))
+         * 2 + 0.5).bfloat16()
+    gamma, beta, mean, var = (torch.from_numpy(a.astype(np.float32)) for a in
+                              (rng.uniform(0.5, 1.5, 256), rng.randn(256),
+                               rng.randn(256) * 0.1,
+                               rng.uniform(0.5, 2.0, 256)))
+    args = (x, gamma, beta, mean, var)
+    card = tuple(a.cuda() for a in args)
+    xn = card[0].permute(0, 3, 1, 2)            # channels-last strides
+    oc.groups["batch_norm"] = {"shape": list(x.shape), "dtype": "bfloat16",
+                               "axis": 3}
+    kw = dict(axis=3, fix_gamma=False)
+
+    def train(a):
+        with autograd.train_mode():
+            return nd.BatchNorm(*a, **kw)
+    run_mean, run_var = card[3].clone(), card[4].clone()   # F updates them
+    oc.time("batch_norm", lambda: train(card), lambda: F.batch_norm(
+        xn, run_mean, run_var, card[1], card[2], training=True))
+    oc.time("batch_norm", lambda: nd.BatchNorm(*card, **kw),
+            lambda: F.batch_norm(xn, card[3], card[4], card[1], card[2],
+                                 training=False),
+            key="inference_ms", lib_key="inference_library_ms")
+    oc.time("batch_norm", lambda: nd.batch_norm_core(*card, 1e-5, True, 3),
+            key="core_ms", lib_key="core_library_ms")
+    # training-mode BatchNorm is batch_norm_core with batch statistics:
+    # both are held to the CPU port's one pass over the whole batch; the
+    # inference arm, per sample, on the first samples
+    k = OPS_CPU_ROWS["batch_norm"]
+    oc.groups["batch_norm"]["cpu_inference_batch"] = k
+    got = nd.batch_norm_core(*card, 1e-5, True, 3)
+    want = nd.batch_norm_core(*args, 1e-5, True, 3)
+    oc.check("batch_norm", "training", train(card), want[0], BF16_REL)
+    oc.check("batch_norm", "inference", nd.BatchNorm(*card, **kw)[:k],
+             nd.BatchNorm(x[:k], *args[1:], **kw), BF16_REL)
+    oc.check("batch_norm", "core_out", got[0], want[0], BF16_REL)
+    oc.check("batch_norm", "core_mean", got[1], want[1], OPS_STATS_TOL)
+    oc.check("batch_norm", "core_var", got[2], want[2], OPS_STATS_TOL)
+
+
+def ops_masked_softmax(oc, nd, rng):
+    """masked_softmax / masked_log_softmax at BERT's attention scores (32 x
+    12 x 512 x 512 bf16) with the key-padding mask (one sequence fully
+    masked), and RMSNorm at 16384 x 768 bf16."""
+    torch = oc.torch
+    F = torch.nn.functional
+    s = card_draw(torch, rng, (32, 12, 512, 512)) \
+        .bfloat16()
+    valid = rng.randint(384, 513, 32)
+    valid[5] = 0
+    mask = torch.from_numpy((np.arange(512)[None, :] < valid[:, None])
+                            .astype(np.float32)).reshape(32, 1, 1, 512)
+    sc, mc = s.cuda(), mask.cuda()
+    oc.groups["masked_softmax"] = {"shape": list(s.shape),
+                                   "dtype": "bfloat16",
+                                   "fully_masked_rows": 12 * 512}
+    oc.time("masked_softmax", lambda: nd.masked_softmax(sc, mc))
+    oc.time("masked_softmax", lambda: nd.masked_log_softmax(sc, mc),
+            key="log_ms", lib_key="log_library_ms")
+    k = OPS_CPU_ROWS["masked_softmax"]
+    oc.groups["masked_softmax"]["cpu_batch"] = k
+    for name, fn in (("masked_softmax", nd.masked_softmax),
+                     ("masked_log_softmax", nd.masked_log_softmax)):
+        got, want = fn(sc, mc)[:k], fn(s[:k], mask[:k])
+        oc.check("masked_softmax", name, got, want, BF16_REL)
+        oc.check("masked_softmax", f"{name}_fully_masked", got[5], want[5],
+                 0, exact=True)
+    del sc, s
+    x = card_draw(torch, rng, (16384, 768)).bfloat16()
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, 768).astype(np.float32))
+    xc, gc = x.cuda(), g.cuda()
+    oc.groups["rms_norm"] = {"shape": list(x.shape), "dtype": "bfloat16"}
+    oc.time("rms_norm", lambda: nd.RMSNorm(xc, gc),
+            (lambda: F.rms_norm(xc, (768,), gc.bfloat16(), 1e-6))
+            if hasattr(F, "rms_norm") else None)
+    oc.check("rms_norm", "RMSNorm", nd.RMSNorm(xc, gc), nd.RMSNorm(x, g),
+             BF16_REL)
+
+
+def ops_linalg(oc, nd, rng):
+    """linalg_gemm2 / linalg_syrk at BERT's attention product (384 x 512 x
+    64 by 384 x 64 x 512 bf16), linalg_gemm with a bias, linalg_potrf on
+    a 1024 x 1024 f32 SPD matrix."""
+    torch = oc.torch
+    a = (card_draw(torch, rng, (384, 512, 64)) / 8) \
+        .bfloat16()
+    b = (card_draw(torch, rng, (384, 64, 512)) / 8) \
+        .bfloat16()
+    ac, bc = a.cuda(), b.cuda()
+    oc.groups["linalg"] = {"shape": [list(a.shape), list(b.shape)],
+                           "dtype": "bfloat16"}
+    oc.time("linalg", lambda: nd.linalg_gemm2(ac, bc, alpha=0.125),
+            lambda: torch.bmm(ac, bc))
+    oc.time("linalg", lambda: nd.linalg_syrk(ac),
+            lambda: torch.bmm(ac, ac.transpose(1, 2)), key="syrk_ms",
+            lib_key="syrk_library_ms")
+    k = OPS_CPU_ROWS["linalg"]
+    oc.groups["linalg"]["cpu_batch"] = k
+    oc.check("linalg", "linalg_gemm2",
+             nd.linalg_gemm2(ac, bc, alpha=0.125)[:k],
+             nd.linalg_gemm2(a[:k], b[:k], alpha=0.125), BF16_REL)
+    oc.check("linalg", "linalg_syrk", nd.linalg_syrk(ac)[:k],
+             nd.linalg_syrk(a[:k]), BF16_REL)
+    c = torch.from_numpy(rng.randn(64, 64).astype(np.float32))
+    a2 = torch.from_numpy(rng.randn(64, 512).astype(np.float32))
+    oc.check("linalg", "linalg_gemm",
+             nd.linalg_gemm(a2.cuda(), a2.cuda(), c.cuda(), transpose_b=True,
+                            beta=0.5),
+             nd.linalg_gemm(a2, a2, c, transpose_b=True, beta=0.5),
+             OPS_STATS_TOL)
+    m = rng.randn(1024, 1024)
+    spd = torch.from_numpy((m @ m.T / 1024 + np.eye(1024)).astype(np.float32))
+    sc = spd.cuda()
+    oc.time("linalg", lambda: nd.linalg_potrf(sc),
+            lambda: torch.linalg.cholesky(sc), key="potrf_ms",
+            lib_key="potrf_library_ms")
+    oc.check("linalg", "linalg_potrf", nd.linalg_potrf(sc),
+             nd.linalg_potrf(spd), OPS_STATS_TOL)
+
+
+def ops_patches(oc, nd, rng):
+    """im2col / col2im at ResNet-50's stage-1 input width (32 x 64 x 56 x
+    56 f32, 3 x 3, pad 1)."""
+    torch = oc.torch
+    F = torch.nn.functional
+    x = card_draw(torch, rng, (32, 64, 56, 56))
+    xc = x.cuda()
+    kw = dict(kernel=(3, 3), pad=(1, 1))
+    cols_c, cols = nd.im2col(xc, **kw), nd.im2col(x, **kw)
+    oc.groups["patches"] = {"shape": list(x.shape), "dtype": "float32",
+                            "cols": list(cols.shape)}
+    oc.time("patches", lambda: nd.im2col(xc, **kw),
+            lambda: F.unfold(xc, (3, 3), padding=1))
+    oc.time("patches", lambda: nd.col2im(cols_c, (56, 56), **kw),
+            lambda: F.fold(cols_c, (56, 56), (3, 3), padding=1),
+            key="col2im_ms", lib_key="col2im_library_ms")
+    oc.check("patches", "im2col", cols_c, cols, OPS_F32_TOL)
+    oc.check("patches", "col2im", nd.col2im(cols_c, (56, 56), **kw),
+             nd.col2im(cols, (56, 56), **kw), OPS_F32_TOL)
+
+
+def ops_softmax_output(oc, nd, rng):
+    """SoftmaxOutput forward and injected gradient at the MLM logits
+    (32 x 76 masked positions x 30522, f32), ``normalization="valid"``."""
+    torch = oc.torch
+    x = card_draw(torch, rng, (32 * 76, 30522))
+    y = torch.from_numpy(rng.randint(0, 30522, 32 * 76).astype(np.float32))
+    kw = dict(normalization="valid")
+
+    def run(xx, yy):
+        xx = xx.detach().requires_grad_(True)
+        out = nd.SoftmaxOutput(xx, yy, **kw)
+        out.backward(torch.ones_like(out))
+        return out.detach(), xx.grad
+
+    xc, yc = x.cuda(), y.cuda()
+    oc.groups["softmax_output"] = {"shape": list(x.shape), "dtype": "float32",
+                                   "normalization": "valid"}
+    oc.time("softmax_output", lambda: nd.SoftmaxOutput(xc, yc, **kw),
+            lambda: torch.softmax(xc, -1))
+    oc.time("softmax_output", lambda: run(xc, yc), key="fwd_bwd_ms",
+            lib_key="fwd_bwd_library_ms")
+    # the CPU port on the leading rows: "valid" divides by the rows given,
+    # so its gradient is the card's times N / k there
+    k = OPS_CPU_ROWS["softmax_output"]
+    oc.groups["softmax_output"]["cpu_rows"] = k
+    (oc_out, oc_grad), (cpu_out, cpu_grad) = run(xc, yc), run(x[:k], y[:k])
+    oc.check("softmax_output", "forward", oc_out[:k], cpu_out, OPS_F32_TOL)
+    oc.check("softmax_output", "gradient", oc_grad[:k] * (32 * 76 / k),
+             cpu_grad, OPS_F32_TOL)
+    onehot = torch.nn.functional.one_hot(yc.long(), 30522).float()
+    oc.check("softmax_output", "gradient_is_softmax_minus_onehot_over_count",
+             oc_grad, ((oc_out - onehot) / (32 * 76)).cpu(), OPS_F32_TOL)
+
+
+def ops_ctc(oc, nd, rng):
+    """nd.ctc_loss forward and gradient at T=400, N=32, C=29 (a character
+    alphabet and the blank), labels 40-120 long padded with -1, data
+    lengths 300-400; F.ctc_loss on the same log-probabilities beside it."""
+    torch = oc.torch
+    F = torch.nn.functional
+    t_len, n, c = CTC_SHAPE["T"], CTC_SHAPE["N"], CTC_SHAPE["C"]
+    lo, hi = CTC_SHAPE["label_len"]
+    acts = torch.from_numpy(rng.randn(t_len, n, c).astype(np.float32))
+    lab_len = rng.randint(lo, hi + 1, n)
+    lab = np.full((n, hi), -1, np.float32)
+    for i, k in enumerate(lab_len):
+        lab[i, :k] = rng.randint(1, c, k)
+    lab = torch.from_numpy(lab)
+    dlen = torch.from_numpy(rng.randint(CTC_SHAPE["data_len"][0],
+                                        CTC_SHAPE["data_len"][1] + 1, n)
+                            .astype(np.float32))
+
+    def run(a, lb, dl):
+        a = a.detach().requires_grad_(True)
+        loss = nd.ctc_loss(a, lb, dl, use_data_lengths=True)
+        loss.sum().backward()
+        return loss.detach(), a.grad
+
+    ac, lc, dc = acts.cuda(), lab.cuda(), dlen.cuda()
+    logp = F.log_softmax(ac, -1)
+    targets = lc.clamp(min=0).long()
+    tl = torch.from_numpy(lab_len).cuda()
+
+    def library():
+        return F.ctc_loss(logp, targets, dc.long(), tl, blank=0,
+                          reduction="none", zero_infinity=False)
+
+    def library_fb():
+        lp = logp.detach().requires_grad_(True)
+        F.ctc_loss(lp, targets, dc.long(), tl, blank=0,
+                   reduction="sum").backward()
+    g = oc.groups["ctc"] = dict(CTC_SHAPE, label_lengths=[int(v) for v in
+                                                          lab_len])
+    oc.time("ctc", lambda: nd.ctc_loss(ac, lc, dc, use_data_lengths=True),
+            library)
+    oc.time("ctc", lambda: run(ac, lc, dc), library_fb, key="fwd_bwd_ms",
+            lib_key="fwd_bwd_library_ms")
+    (l_card, g_card), (l_cpu, g_cpu) = run(ac, lc, dc), run(acts, lab, dlen)
+    rel = float(((l_card.cpu() - l_cpu).abs() / l_cpu.abs()).max())
+    grel = float((g_card.cpu() - g_cpu).norm() / g_cpu.norm())
+    lib_rel = float(((library().cpu() - l_cpu).abs() / l_cpu.abs()).max())
+    g.update(loss_max_rel_err=rel, grad_rel_err_in_norm=grel,
+             library_loss_max_rel_diff=lib_rel,
+             cpu_max_abs_err=float((l_card.cpu() - l_cpu).abs().max()),
+             loss_mean=float(l_cpu.mean()))
+    g["checks"] = {"loss": rel <= CTC_LOSS_RTOL,
+                   "gradient": grel <= CTC_GRAD_RTOL,
+                   "on_the_card": l_card.device.type == "cuda",
+                   "agrees_with_F_ctc_loss": lib_rel <= CTC_LOSS_RTOL}
+    oc.failures += [f"operators ctc: {k}" for k, ok in g["checks"].items()
+                    if not ok]
+
+
+def ops_rest(oc, nd, mx, rng):
+    """Every other name of the slice on 2**24 float32 elements (4096 x
+    4096, or a shape of that size), card against CPU within 1e-5 of
+    max|ref|; the samplers' means within 5 standard errors; the
+    deprecated aliases and a registered custom operator."""
+    import warnings
+    torch = oc.torch
+    sq = (4096, 4096)
+    x, y = card_draw(torch, rng, sq), card_draw(torch, rng, sq)
+    pos = card_draw(torch, rng, sq, 0.5, 3.0)
+    unit = card_draw(torch, rng, sq, 0.05, 0.95)
+    near1 = 1 + 1e-3 * card_draw(torch, rng, sq)
+    nan = x.clone()
+    nan[card_draw(torch, rng, sq, 0.0, 1.0) < 0.01] = math.nan
+    ties = card_draw(torch, rng, sq, 0.0, 3.0).floor()
+    img = card_draw(torch, rng, (64, 64, 64, 64))
+    w = torch.from_numpy(rng.randn(64, 64, 3, 3).astype(np.float32) / 24)
+    lab = torch.from_numpy(rng.randint(0, 4096, 4096).astype(np.float32))
+    flat = torch.from_numpy(rng.randint(0, 1 << 24, 1 << 20)
+                            .astype(np.float32))
+    coords = torch.from_numpy(np.stack([rng.randint(-2, 4100, 1 << 20),
+                                        rng.randint(-2, 4100, 1 << 20)])
+                              .astype(np.float32))
+    krm = [torch.from_numpy(rng.randn(r, 1024).astype(np.float32))
+           for r in (128, 128)]
+    bn = [torch.from_numpy(a.astype(np.float32)) for a in
+          (rng.uniform(0.5, 1.5, 64), rng.randn(64), rng.randn(64) * 0.1,
+           rng.uniform(0.5, 2.0, 64))]
+    cases = [
+        ("arctan2", lambda a: nd.arctan2(a[0], a[1]), (x, y), 2),
+        ("broadcast_hypot", lambda a: nd.broadcast_hypot(a[0], a[1][:1]),
+         (x, y), 2),
+        ("broadcast_logical_and",
+         lambda a: nd.broadcast_logical_and(a[0], a[1][:1]), (ties, ties), 2),
+        ("broadcast_logical_or",
+         lambda a: nd.broadcast_logical_or(a[0], a[1][:1]), (ties, ties), 2),
+        ("broadcast_logical_xor",
+         lambda a: nd.broadcast_logical_xor(a[0], a[1][:1]), (ties, ties), 2),
+        ("cumsum", lambda a: nd.cumsum(a[0], axis=1), (x,), 1),
+        ("nansum", lambda a: nd.nansum(a[0], axis=1), (nan,), 1),
+        ("nanprod", lambda a: nd.nanprod(a[0], axis=1), (near1,), 1),
+        ("erfcinv", lambda a: nd.erfcinv(a[0] * 2), (unit,), 1),
+        ("polygamma", lambda a: nd.polygamma(1, a[0]), (pos,), 1),
+        ("gammainc", lambda a: nd.gammainc(a[0], a[1]), (pos, pos.T), 2),
+        ("nextafter", lambda a: nd.nextafter(a[0], a[1]), (x, y), 2),
+        ("moments", lambda a: nd.moments(a[0], axes=(1,))[1], (x,), 1),
+        ("khatri_rao", lambda a: nd.khatri_rao(a[0], a[1]), krm),
+        ("multi_all_finite", lambda a: nd.multi_all_finite(a[0], a[1]),
+         (x, nan)),
+        ("all_finite", lambda a: nd.all_finite(a[0]), (x,)),
+        ("amp_cast", lambda a: nd.amp_cast(a[0], "bfloat16").float(), (x,), 1),
+        ("amp_multicast", lambda a: nd.amp_multicast(
+            a[0].bfloat16(), a[1])[0], (x, y), 2),
+        ("eye", lambda a: nd.eye(4096, ctx=mx.gpu(0) if a[0].is_cuda
+                                 else mx.cpu()), (x,)),
+        ("linspace", lambda a: nd.linspace(-3.0, 5.0, 1 << 24,
+                                           ctx=mx.gpu(0) if a[0].is_cuda
+                                           else mx.cpu()), (x,)),
+        ("diag", lambda a: nd.diag(a[0], k=3), (x,)),
+        ("slice", lambda a: nd.slice(a[0], (1, 0), (4000, None), (3, 2)),
+         (x,)),
+        ("slice_like", lambda a: nd.slice_like(a[0], a[1][:100, :200]),
+         (x, y)),
+        ("Crop", lambda a: nd.Crop(a[0], h_w=(40, 50), center_crop=True),
+         (img,), 1),
+        ("broadcast_axis", lambda a: nd.broadcast_axis(a[0][:1], axis=0,
+                                                       size=4096), (x,)),
+        ("broadcast_axes", lambda a: nd.broadcast_axes(a[0][:, :1], axis=1,
+                                                       size=4096), (x,)),
+        ("ravel_multi_index", lambda a: nd.ravel_multi_index(
+            a[0], shape=(4096, 4096)), (coords,)),
+        ("unravel_index", lambda a: nd.unravel_index(
+            a[0], shape=(4096, 4096)), (flat,)),
+        ("shape_array", lambda a: nd.shape_array(a[0]), (x,)),
+        ("size_array", lambda a: nd.size_array(a[0]), (x,)),
+        ("LRN", lambda a: nd.LRN(a[0], nsize=5), (img,), 1),
+        ("SoftmaxActivation", lambda a: nd.SoftmaxActivation(
+            a[0], mode="channel"), (img,), 1),
+        ("SVMOutput", lambda a: _head_grad(torch, nd.SVMOutput, a[0], a[1]),
+         (x, lab)),
+        ("LinearRegressionOutput", lambda a: _head_grad(
+            torch, nd.LinearRegressionOutput, a[0], a[1]), (x, y)),
+        ("MAERegressionOutput", lambda a: _head_grad(
+            torch, nd.MAERegressionOutput, a[0], a[1]), (x, y)),
+        ("LogisticRegressionOutput", lambda a: _head_grad(
+            torch, nd.LogisticRegressionOutput, a[0], a[1]), (x, unit)),
+        ("MakeLoss", lambda a: _head_grad(
+            torch, lambda v, _: nd.MakeLoss(v, normalization="valid"),
+            a[0], None), (x,)),
+        ("make_loss", lambda a: _head_grad(
+            torch, lambda v, _: nd.make_loss(v * 1.0), a[0], None), (x,)),
+        ("IdentityAttachKLSparseReg", lambda a: _head_grad(
+            torch, lambda v, _: nd.IdentityAttachKLSparseReg(v), a[0], None),
+         (unit,)),
+        ("BatchNorm_v1", lambda a: nd.BatchNorm_v1(a[0], *a[1:]),
+         (img, *bn), 1),
+        ("Convolution_v1", lambda a: nd.Convolution_v1(
+            a[0], a[1], kernel=(3, 3), pad=(1, 1), no_bias=True), (img, w), 1),
+        ("Pooling_v1", lambda a: nd.Pooling_v1(a[0], kernel=(2, 2),
+                                               stride=(2, 2)), (img,), 1),
+        ("Softmax", lambda a: nd.Softmax(a[0], a[1]), (x, lab), 2),
+    ]
+    g = oc.groups["rest"] = {"elements": OPS_REST, "names": {},
+                             "cpu_rows": OPS_CPU_ROWS["rest_rows"],
+                             "cpu_images": OPS_CPU_ROWS["rest_images"]}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for name, fn, args, *cut in cases:
+            card = tuple(a.cuda() for a in args)
+            tol = OPS_STATS_TOL if name in ("Convolution_v1", "gammainc",
+                                            "polygamma", "khatri_rao",
+                                            "moments") else OPS_F32_TOL
+            ms = cuda_ms(torch, lambda: fn(card), reps=OPS_REPS)
+            got = _tensor(fn(card)).float()
+            if cut:     # rows treated apart: the CPU on the leading ones
+                k = OPS_CPU_ROWS["rest_images" if args[0].dim() == 4
+                                 else "rest_rows"]
+                args = tuple(a[:k] if i < cut[0] else a
+                             for i, a in enumerate(args))
+                got = got[:k]
+            ok = oc.check("rest", name, got, _tensor(fn(args)).float(), tol)
+            g["names"][name] = dict(ms=ms, ok=ok, cpu_rows=k if cut else None)
+    # the samplers' means on the card, 2**24 draws each
+    mx.random.seed(0)
+    n = OPS_REST
+    draws = [("random_randint", lambda: nd.random_randint(2, 9, shape=(n,)),
+              5.0, 4.0, lambda d: ((d >= 2) & (d < 9)).all()),
+             ("random_gamma", lambda: nd.random_gamma(3.0, 0.5, shape=(n,)),
+              1.5, 0.75, lambda d: (d > 0).all()),
+             ("random_exponential",
+              lambda: nd.random_exponential(2.0, shape=(n,)), 2.0, 4.0,
+              lambda d: (d >= 0).all()),
+             ("random_poisson", lambda: nd.random_poisson(4.0, shape=(n,)),
+              4.0, 4.0, lambda d: ((d >= 0) & (d == d.round())).all()),
+             ("random_bernoulli",
+              lambda: nd.random_bernoulli(0.3, shape=(n,)), 0.3, 0.21,
+              lambda d: ((d == 0) | (d == 1)).all()),
+             ("randn", lambda: nd.randn(n), 0.0, 1.0, lambda d: True),
+             ("normal_array_loc", lambda: nd.random.normal(
+                 loc=nd.zeros((n,)), scale=2.0, shape=(n,)), 0.0, 4.0,
+              lambda d: True)]
+    for name, fn, mean, var, support in draws:
+        ms = cuda_ms(torch, fn, reps=OPS_REPS)
+        d = _tensor(fn()).double()
+        z = abs(float(d.mean()) - mean) / math.sqrt(var / n)
+        ok = d.device.type == "cuda" and bool(support(d)) and z <= 5.0
+        g["names"][name] = dict(ms=ms, ok=ok, mean_z=z)
+        if not ok:
+            oc.failures.append(f"operators rest: {name} (z {z})")
+    xc = x.cuda()
+    xc[:, 0] = torch.arange(4096, device="cuda")     # each row's own id
+    perm = nd.shuffle(xc)
+    ok = perm.device.type == "cuda" and bool(torch.equal(
+        perm, xc[perm[:, 0].long()])) and bool(torch.equal(
+            perm[:, 0].sort().values, xc[:, 0]))
+    g["names"]["shuffle"] = dict(ms=cuda_ms(torch, lambda: nd.shuffle(xc),
+                                            reps=OPS_REPS), ok=ok)
+    if not ok:
+        oc.failures.append("operators rest: shuffle")
+    g["names"]["Custom"] = ops_custom(oc, nd, mx, x)
+    g["ms"] = sum(v["ms"] for v in g["names"].values())
+    g["library_ms"] = None
+
+
+def _tensor(v):
+    """An operator's result as a tensor (creation operators give arrays)."""
+    return v._data if hasattr(v, "_data") else v
+
+
+def _head_grad(torch, fn, x, y):
+    """An output head's forward and its gradient, stacked."""
+    x = x.detach().requires_grad_(True)
+    out = fn(x, y)
+    out.backward(torch.ones_like(out))
+    return torch.cat([out.detach().reshape(-1), x.grad.reshape(-1)])
+
+
+def ops_custom(oc, nd, mx, x):
+    """A registered custom operator (x³ with its gradient) on 2**24
+    elements, recorded, card against CPU."""
+    torch = oc.torch
+    from tpu_mx_torch import autograd, operator
+
+    class Cube(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0] ** 3)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0],
+                        3 * in_data[0] ** 2 * out_grad[0])
+
+    @operator.register("chip_cube")
+    class CubeProp(operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Cube()
+
+    def run(t):
+        a = nd.array(t, ctx=mx.gpu(0) if t.is_cuda else mx.cpu())
+        a.attach_grad()
+        with autograd.record():
+            y = nd.Custom(a, op_type="chip_cube")
+        y.backward()
+        return torch.cat([y._data.detach().reshape(-1),
+                          a.grad._data.reshape(-1)])
+
+    xc = x.cuda() / 4
+    ms = cuda_ms(torch, lambda: run(xc), reps=OPS_REPS)
+    ok = oc.check("rest", "Custom", run(xc), run(x / 4), OPS_F32_TOL)
+    return dict(ms=ms, ok=ok)
+
+
+def phase_operators(ctx):
+    """The rest of the ``nd.*`` operators, CTC and ``nd.Custom`` on the
+    card at the repo's model shapes, each against the CPU port on the
+    same inputs (from ``np.random.RandomState``; the large ones drawn on
+    the card by generators it seeds), timed by ``cuda_ms``.  Where an
+    operator treats rows apart the CPU computes the leading rows only
+    (``OPS_CPU_ROWS``)."""
+    import torch
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import autograd, nd
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 products
+    torch.backends.cudnn.allow_tf32 = False
+    oc = OpsCheck(torch, ctx)
+    reset_port_kernel_launches()
+    rng = np.random.RandomState(0)
+    seconds = {}
+    for fn, extra in ((ops_ordering, ()), (ops_sequence, ()),
+                      (ops_indexing, ()), (ops_masked_softmax, ()),
+                      (ops_linalg, ()), (ops_patches, ()),
+                      (ops_softmax_output, ()), (ops_ctc, ()),
+                      (ops_batch_norm, (autograd,)), (ops_rest, (mx,))):
+        t1 = time.perf_counter()
+        fn(oc, nd, *extra, rng)
+        torch.cuda.empty_cache()
+        seconds[fn.__name__[4:]] = time.perf_counter() - t1
+    ctx["operators_launches"] = port_kernel_launches()
+    checks = {"all_groups": not oc.failures,
+              "no_port_kernel_launched":
+                  not any(ctx["operators_launches"].values())}
+    emit("operators", ok=all(checks.values()), checks=checks,
+         groups=oc.groups, failures=oc.failures[:20],
+         seconds=time.perf_counter() - t0, group_seconds=seconds,
+         cpu_threads=torch.get_num_threads(),
+         launches=ctx["operators_launches"], card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"operators check {name} failed")
+    ctx["failures"] += oc.failures
+
+
+def later_launches(ctx, name):
+    """A kernel's launches in the MoE, example and operators phases."""
     return {f"launches_{p}": ctx[f"{p}_launches"][name]
             for p in ("moe_parity", "moe_train", "bert_example",
-                      "moe_example")}
+                      "moe_example", "operators")}
 
 
 def main():
@@ -4777,6 +5595,7 @@ def main():
                      ("moe_train", phase_moe_train),
                      ("bert_example", phase_bert_example),
                      ("moe_example", phase_moe_example),
+                     ("operators", phase_operators),
                      ("attention_bias", phase_attention_bias),
                      ("rtc", phase_rtc)):
         try:
@@ -4798,7 +5617,8 @@ def main():
                                 "zoo_train", "zoo_example",
                                 "zoo_launches", "moe_parity_launches",
                                 "moe_train_launches", "bert_example_launches",
-                                "moe_example_launches"} \
+                                "moe_example_launches",
+                                "operators_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1
@@ -4837,7 +5657,7 @@ def main():
                "launches_serve_recovery":
                    ctx["serve_recovery_launches"][name],
                "launches_train_f32": ctx["train_f32_launches"][name],
-               **slice15_launches(ctx, name)}
+               **later_launches(ctx, name)}
         if name == "paged_attention":   # the speculative verify window
             t4 = ctx["paged_tq4"]
             row["tq4"] = {k: t4[k] for k in ("shape", "ms", "ms_queued",
@@ -4908,7 +5728,7 @@ def main():
                     "launches_serve_recovery":
                         ctx["serve_recovery_launches"]["rtc"],
                     "launches_train_f32": ctx["train_f32_launches"]["rtc"],
-                    **slice15_launches(ctx, "rtc")})
+                    **later_launches(ctx, "rtc")})
     print(ctx["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

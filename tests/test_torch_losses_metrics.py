@@ -3,8 +3,8 @@
 Each loss of ``gluon.loss`` on the same numpy inputs in both packages:
 its values (with and without ``sample_weight``, at another
 ``batch_axis``, through each option) and the gradient of every input,
-at ``OP_TOL`` of ``test_torch_resnet.py``.  ``CTCLoss`` is refused by
-name.  Each metric of ``metric`` updated with the same batches in both
+at ``OP_TOL`` of ``test_torch_resnet.py``, ``CTCLoss`` among them
+(``test_torch_ctc.py`` holds its options).  Each metric of ``metric`` updated with the same batches in both
 packages: its name and value, exact to 1e-6; ``create`` of every
 registered name, a list and a function.
 """
@@ -120,8 +120,21 @@ def test_loss_matches_the_reference(case):
 
 
 def test_ctc_loss_is_refused_by_name():
-    with pytest.raises(MXNetError, match="CTCLoss.*ROADMAP"):
-        loss.CTCLoss()
+    # refused until the slice that ported ndarray/ctc.py; now the loss and
+    # its gradient are the reference's
+    pred = _normal(3, 7, 5)
+    label = np.asarray([[1, 2], [4, 4], [3, 1]], np.float32)
+    got, want = [], []
+    for ndm, ag, mod, out in ((jnd, jag, jloss, want),
+                              (nd, autograd, loss, got)):
+        x = ndm.array(pred)
+        x.attach_grad()
+        with ag.record():
+            y = mod.CTCLoss()(x, ndm.array(label))
+        y.backward()
+        out += [y.asnumpy(), x.grad.asnumpy()]
+    for g, w in zip(got, want):
+        _close(g, w)
 
 
 # -- metrics ---------------------------------------------------------------------

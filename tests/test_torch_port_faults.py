@@ -418,7 +418,6 @@ _REFUSED = [
     ("NDArrayIter", "num_workers", 2), ("NDArrayIter", "rank", 1),
     ("Trainer", "compression_params", {"type": "2bit"}),
     ("Trainer", "update_on_kvstore", True),
-    ("Optimizer", "param_idx2name", {0: "w"}),
 ]
 # arguments refused until their feature was ported, each with a check
 # that the given value took effect
@@ -460,6 +459,9 @@ _ACCEPTED = [
      lambda step: step._rules is not None),
     ("CompiledTrainStep", "data_specs", (("dp",),),
      lambda step: step._data_specs == (("dp",),)),
+    # the name-keyed multipliers
+    ("Optimizer", "param_idx2name", {0: "w"},
+     lambda opt: opt.idx2name == {0: "w"}),
 ]
 # arguments with no torch meaning: accepted at any value and ignored
 _IGNORED = [

@@ -337,7 +337,7 @@ C11_CASES = [
                                              lr_scheduler=v), _scheduled,
      optimizer.lr_scheduler.FactorScheduler(step=2, factor=0.5)),
     ("optimizer", lambda v: optimizer.create("sgd", param_idx2name=v),
-     None, {0: "w"}),
+     lambda o: o.idx2name == {0: "w"}, {0: "w"}),
     ("optimizer", lambda v: optimizer.create("sgd", sym=v), None, object()),
     ("optimizer", lambda v: optimizer.create("sgd", begin_num_update=v),
      lambda o: o.num_update == 5, 5),

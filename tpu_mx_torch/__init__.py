@@ -36,7 +36,8 @@ Entry points take ``device=`` and default to ``"cuda"``
 ``mx.cpu()``) is taken wherever a device is, and ``with mx.cpu():``
 makes the host the current context (the default is the card).
 """
-from . import autograd, gluon, io, metric, ndarray, optimizer, random
+from . import autograd, gluon, io, metric, ndarray, operator, optimizer
+from . import random
 from . import initializer
 from . import initializer as init
 from .base import MXNetError, NumericDivergence
@@ -47,4 +48,4 @@ from . import ndarray as nd
 __all__ = ["MXNetError", "NumericDivergence", "Context", "cpu", "cpu_pinned",
            "current_context", "gpu", "num_gpus", "tpu", "autograd", "gluon",
            "init", "initializer", "io", "metric", "nd", "ndarray",
-           "optimizer", "random"]
+           "operator", "optimizer", "random"]

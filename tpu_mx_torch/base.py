@@ -1,15 +1,23 @@
 """Framework-level errors of the PyTorch/CUDA port.
 
-Copies of the reference's exception classes (``tpu_mx/base.py``): the
-port never imports ``tpu_mx`` — doing so would boot its distributed
-runtime and import jax — so the classes it needs live here under the
-same names.  :class:`NumericDivergence` lives in
+Copies of the reference's exception classes and module constants
+(``logger``, ``string_types``, ``numeric_types``; ``tpu_mx/base.py``):
+the port never imports ``tpu_mx`` — doing so would boot its distributed
+runtime and import jax — so what it needs lives here under the same
+names.  :class:`NumericDivergence` lives in
 :mod:`tpu_mx_torch.supervisor`, as in the reference, and is re-exported
 here.
 """
 from __future__ import annotations
 
+import logging
+import numbers
+
 __all__ = ["MXNetError", "NumericDivergence", "refuse_unported"]
+
+logger = logging.getLogger("tpu_mx_torch")
+string_types = (str,)
+numeric_types = (numbers.Number,)
 
 
 class MXNetError(RuntimeError):

@@ -22,7 +22,7 @@ import threading
 import torch
 
 __all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned", "current_context",
-           "num_gpus", "num_tpus"]
+           "default_context", "num_gpus", "num_tpus"]
 
 _DEVTYPE_ALIASES = {
     "cpu": "cpu",
@@ -104,7 +104,14 @@ def num_gpus():
 num_tpus = num_gpus
 
 
+def default_context():
+    """The implicit creation context: ``gpu(0)`` (the port's entry points
+    run on the card unless the caller asks for the host)."""
+    return gpu(0)
+
+
 def current_context():
-    """The innermost ``with ctx:`` context of this thread, else ``gpu(0)``."""
+    """The innermost ``with ctx:`` context of this thread, else
+    :func:`default_context`."""
     stack = getattr(Context._tls, "stack", None)
-    return stack[-1] if stack else gpu(0)
+    return stack[-1] if stack else default_context()

@@ -500,6 +500,19 @@ class Block(nn.Module):
     load_params = load_parameters
 
     # -- calls ----------------------------------------------------------------
+    def register_child(self, block, name=None):
+        """Add ``block`` as a child under ``name`` (default: the count of
+        children so far), as the reference's ``Sequential`` does."""
+        self.add_module(name or str(len(self._modules)), block)
+
+    def summary(self, *inputs):
+        """Run a forward on ``inputs`` and return the reference's one-line
+        summary, ``"<class>: params=<count>"``."""
+        self(*inputs)
+        n = sum(int(np.prod(p.shape))
+                for p in self.collect_params().values() if p.shape)
+        return f"{type(self).__name__}: params={n}"
+
     def register_forward_hook(self, hook):
         """``hook(block, args, out)`` after each call, with what the
         caller passed and got."""

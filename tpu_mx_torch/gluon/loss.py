@@ -12,15 +12,15 @@ all, ``TripletLoss`` and ``CosineEmbeddingLoss`` a value per row);
 ``CompiledTrainStep`` takes the mean of that, and the imperative loop's
 ``loss.backward()`` sums it, ``Trainer.step(batch)`` scaling by
 ``1/batch``.  ``sample_weight`` multiplies before the mean, then
-``weight``.  ``CTCLoss`` is not ported yet and raises by name (ROADMAP
-A item 3, with ``ndarray/ctc.py``).
+``weight``.  ``CTCLoss`` is the reference's own recursion (not
+``nd.ctc_loss``'s), and takes neither weight, as the reference's does
+not.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError
 from ..ndarray import ops
 from .block import HybridBlock
 
@@ -292,10 +292,43 @@ class CosineEmbeddingLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Not ported yet: raises :class:`MXNetError` by name (ROADMAP A item
-    3, with ``ndarray/ctc.py``)."""
+    """Connectionist temporal classification, the reference's
+    ``gluon.loss.CTCLoss`` recursion: ``pred`` in ``layout`` ``"NTC"`` or
+    ``"TNC"`` (log-softmax in its own type), ``(N, L)`` labels with the
+    blank at channel 0, every label ``L`` long unless ``label_lengths``
+    says otherwise, the likelihood read at step ``pred_lengths - 1``
+    (default the last).  Unlike ``nd.ctc_loss`` no state is masked and
+    the log-sum is PyTorch's ``logaddexp``; ``weight`` and
+    ``sample_weight`` are taken and, as in the reference, not applied.
+    One value per sequence."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise MXNetError("gluon.loss.CTCLoss is not ported yet (ROADMAP A "
-                         "item 3, with ndarray/ctc.py)")
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        from ..ndarray.ctc import alpha_recursion
+        from ..ndarray.ops_tail import _take_along
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        t_len, n, _ = pred.shape
+        logp = F.log_softmax(pred, dim=-1)
+        big_l = label.shape[1]
+        ext = torch.zeros((n, 2 * big_l + 1), dtype=torch.long,
+                          device=pred.device)
+        ext[:, 1::2] = label.long()
+        same_as_prev2 = torch.cat(
+            [torch.ones((n, 2), dtype=torch.bool, device=pred.device),
+             ext[:, 2:] == ext[:, :-2]], 1)
+        emit = _take_along(logp, ext[None], 2)
+        alphas = alpha_recursion(emit, ~same_as_prev2, None, torch.logaddexp)
+        t_end = (pred_lengths.long() - 1 if pred_lengths is not None else
+                 torch.full((n,), t_len - 1, device=pred.device)) % t_len
+        rows = torch.arange(n, device=pred.device)
+        alpha_end = alphas[t_end, rows]
+        s_last = 2 * (label_lengths.long() if label_lengths is not None else
+                      torch.full((n,), big_l, device=pred.device))
+        return -torch.logaddexp(alpha_end[rows, s_last],
+                                alpha_end[rows, (s_last - 1).clamp(min=0)])

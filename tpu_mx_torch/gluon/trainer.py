@@ -14,6 +14,10 @@ update is open work (ROADMAP A5).
 """
 from __future__ import annotations
 
+import importlib
+import pickle
+
+import numpy as np
 import torch
 
 from .. import optimizer as _opt
@@ -24,19 +28,114 @@ __all__ = ["Trainer"]
 _LOCAL_KVSTORES = (None, False, "", "local", "device")
 
 
-def _to_device(state, device):
+class _Bf16Type:
+    """Pickles as ``ml_dtypes.bfloat16`` (the numpy type of the
+    reference's bfloat16 arrays) without importing ``ml_dtypes``: the
+    reader looks the type up when it loads the file."""
+
+    def __reduce__(self):
+        return getattr, (_MlDtypes(), "bfloat16")
+
+
+class _MlDtypes:
+    def __reduce__(self):
+        return importlib.import_module, ("ml_dtypes",)
+
+
+class _Bf16Array:
+    """A bfloat16 tensor, pickled as the reference's numpy array of
+    ``ml_dtypes.bfloat16``: ``numpy.ndarray(shape, bfloat16, raw)``."""
+
+    def __init__(self, t):
+        self.shape = tuple(t.shape)
+        self.raw = t.contiguous().view(torch.int16).numpy().tobytes()
+
+    def __reduce__(self):
+        return np.ndarray, (self.shape, _Bf16Type(), self.raw)
+
+
+class _Bf16Marker:
+    """What the reader takes ``ml_dtypes.bfloat16`` (the module's type,
+    and the numpy dtype built from it) for; numpy's pickle sets a dtype's
+    state, which it ignores."""
+
+    bfloat16 = None             # the stand-in module's attribute: itself
+
+    def __setstate__(self, state):
+        pass
+
+
+_BF16 = _Bf16Marker()
+_Bf16Marker.bfloat16 = _BF16
+
+
+def _bf16_tensor(shape, raw):
+    words = np.frombuffer(raw, np.int16).reshape(shape)
+    return torch.from_numpy(words.copy()).view(torch.bfloat16)
+
+
+class _Array:
+    """An array of the file, rebuilt by numpy's ``__setstate__`` protocol:
+    a bfloat16 one as a bfloat16 tensor, any other as a numpy array."""
+
+    def __init__(self, *args):
+        self.value = None
+
+    def __setstate__(self, state):
+        _, shape, dtype, _, raw = state
+        if dtype is _BF16:
+            self.value = _bf16_tensor(shape, raw)
+        else:
+            a = np.empty(0)
+            a.__setstate__(state)
+            self.value = a
+
+
+class _StatesUnpickler(pickle.Unpickler):
+    """Reads either package's states file with or without ``ml_dtypes``:
+    the reference's numpy pickles (``_reconstruct`` then the array's
+    state) and the port's ``numpy.ndarray(shape, bfloat16, raw)``."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "ml_dtypes" and name == "bfloat16":
+            return _BF16
+        if module in ("numpy._core.multiarray", "numpy.core.multiarray") \
+                and name == "_reconstruct":
+            return _Array
+        if module == "numpy" and name == "dtype":
+            return lambda obj, *a: obj if obj is _BF16 else np.dtype(obj, *a)
+        if module == "numpy" and name == "ndarray":
+            return lambda *a: _bf16_tensor(a[0], a[2]) \
+                if len(a) == 3 and a[1] is _BF16 else np.ndarray(*a)
+        if module == "importlib" and name == "import_module":
+            return lambda mod: _BF16 if mod == "ml_dtypes" \
+                else importlib.import_module(mod)
+        return super().find_class(module, name)
+
+
+def _to_file(state):
+    """A state tree with its tensors as the reference's numpy arrays."""
     if isinstance(state, torch.Tensor):
-        return state.to(device)
+        t = state.detach().cpu()
+        return _Bf16Array(t) if t.dtype == torch.bfloat16 else t.numpy()
     if isinstance(state, (tuple, list)):
-        return tuple(_to_device(s, device) for s in state)
+        return type(state)(_to_file(s) for s in state)
     return state
 
 
-def _to_host(state):
+def _from_file(state, like):
+    """A read state tree as tensors on ``like``'s device, each laid out
+    as ``like`` where its shape is ``like``'s."""
+    if isinstance(state, _Array):
+        state = state.value
+    if isinstance(state, np.ndarray):
+        state = torch.from_numpy(np.array(state))
     if isinstance(state, torch.Tensor):
-        return state.detach().cpu()
+        if state.shape == like.shape:
+            return torch.empty_like(like, dtype=state.dtype).copy_(state)
+        return state.to(like.device)
     if isinstance(state, (tuple, list)):
-        return tuple(_to_host(s) for s in state)
+        return tuple(_from_file(s, like) for s in state)
     return state
 
 
@@ -111,18 +210,28 @@ class Trainer:
                                                          self._states[i])
 
     def save_states(self, fname):
-        """The optimizer's state and update counts, in the port's own
-        file format (``torch.save`` of host tensors)."""
-        torch.save({"states": [_to_host(s) for s in self._states],
-                    "states_inited": list(self._states_inited),
-                    "num_update": self._optimizer.num_update,
-                    "index_update_count":
-                        dict(self._optimizer._index_update_count)}, fname)
+        """The optimizer's state and update counts in the reference's
+        file: a pickled dict of ``states`` (a tree of numpy arrays, a
+        bfloat16 one as an ``ml_dtypes.bfloat16`` array), ``states_inited``,
+        ``num_update`` and ``index_update_count``, committed whole
+        through ``checkpoint.atomic_write``.  Either package reads the
+        other's."""
+        from ..checkpoint import atomic_write
+        payload = {"states": [_to_file(s) for s in self._states],
+                   "states_inited": list(self._states_inited),
+                   "num_update": self._optimizer.num_update,
+                   "index_update_count":
+                       dict(self._optimizer._index_update_count)}
+        with atomic_write(fname) as f:
+            f.write(pickle.dumps(payload))
 
     def load_states(self, fname):
-        payload = torch.load(fname, map_location="cpu", weights_only=True)
+        """Read a :meth:`save_states` file of either package (no
+        ``ml_dtypes`` needed) onto the parameters' devices."""
+        with open(fname, "rb") as f:
+            payload = _StatesUnpickler(f).load()
         self._check_initialized()
-        self._states = [_to_device(s, p._tensor().device)
+        self._states = [_from_file(s, p._tensor())
                         for s, p in zip(payload["states"], self._params)]
         self._states_inited = list(payload["states_inited"])
         self._optimizer.num_update = payload["num_update"]

@@ -25,6 +25,7 @@ import torch
 
 from .. import autograd
 from .. import device as _device
+from ..base import MXNetError
 from ..context import Context, cpu, current_context, gpu
 
 __all__ = ["NDArray", "array", "concatenate", "waitall", "from_numpy",
@@ -309,6 +310,30 @@ class NDArray:
     def T(self):
         return self.transpose()
 
+    @property
+    def handle(self):
+        """The underlying tensor (the reference's buffer handle)."""
+        return self._data
+
+    def as_nd_ndarray(self):
+        return self
+
+    def tostype(self, stype):
+        """The array in storage type ``stype``: ``"default"`` (itself);
+        the sparse types are not ported yet (ROADMAP A item 10)."""
+        if stype == "default":
+            return self
+        if stype in ("row_sparse", "csr"):
+            raise MXNetError(f"NDArray.tostype({stype!r}): sparse storage "
+                             "is not ported yet (ROADMAP A item 10)")
+        raise ValueError(f"unknown storage type {stype!r}")
+
+    def to_dlpack_for_read(self):
+        """A DLPack capsule of the tensor (shared, not copied)."""
+        return torch.utils.dlpack.to_dlpack(self._data.detach())
+
+    to_dlpack_for_write = to_dlpack_for_read
+
 
 def _method(name):
     def method(self, *args, **kwargs):
@@ -325,7 +350,9 @@ for _name in ("transpose", "flatten", "expand_dims", "squeeze",
               "argmin", "norm", "softmax", "log_softmax", "one_hot", "take",
               "split", "pick", "sign", "relu", "sigmoid", "tanh", "dot",
               "zeros_like", "ones_like", "swapaxes", "flip", "tile",
-              "repeat", "round", "floor", "ceil"):
+              "repeat", "round", "floor", "ceil", "rint", "log1p", "expm1",
+              "log10", "log2", "reciprocal", "rsqrt", "cbrt", "pad", "sort",
+              "argsort", "topk", "slice", "slice_like", "diag"):
     setattr(NDArray, _name, _method(_name))
 del _name
 

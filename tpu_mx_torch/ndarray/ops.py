@@ -26,10 +26,12 @@ permute them to ``(N, C, H, W)``-shaped views, which for contiguous
 channels-last data have ``torch.channels_last`` strides (no copy), run
 PyTorch's operator there and permute the result back.
 
-Not ported yet (ROADMAP A3, by name): the linear-algebra, sampling,
-sort/topk, sequence, ``im2col``/``col2im``, ``gather_nd``/``scatter_nd``,
-the loss-output heads (``SoftmaxOutput``, ...), ``Custom`` and the rest
-of the reference's elementwise functions.
+The rest of the reference's operators (sequence, ordering, indexing,
+the loss-output heads, ``BatchNorm``, the samplers, ``Custom``, ...) are
+in :mod:`.ops_tail` and ``ctc_loss`` in :mod:`.ctc`, both re-exported
+here.  Not ported yet (ROADMAP A item 10): the families the reference
+adds from ``linalg_ops``, ``vision_ops``, ``quantized_ops`` and
+``sample_ops``.
 """
 from __future__ import annotations
 
@@ -671,6 +673,10 @@ broadcast_mod = mod
 broadcast_power = power
 broadcast_maximum = maximum
 broadcast_minimum = minimum
+broadcast_hypot = hypot
+broadcast_logical_and = logical_and
+broadcast_logical_or = logical_or
+broadcast_logical_xor = logical_xor
 broadcast_equal = equal
 broadcast_not_equal = not_equal
 broadcast_greater = greater
@@ -1007,10 +1013,13 @@ class _RandomNS:
     @staticmethod
     def normal(loc=0.0, scale=1.0, shape=(1,), dtype="float32", ctx=None,
                **kw):
+        """``loc + scale·n``, broadcast (``loc``/``scale`` may be
+        arrays)."""
         dev = _dev(ctx)
         n = torch.randn(tuple(shape) if shape else (), device=dev,
                         generator=_random.generator(dev))
-        return _place((n * scale + loc).to(_torch_dtype(dtype)))
+        return _place((_unwrap(loc) + _unwrap(scale) * n).to(
+            _torch_dtype(dtype)))
 
 
 random = _RandomNS()
@@ -1030,6 +1039,16 @@ for _name, _fn in list(globals().items()):
                             else _op)(_fn)
 del _name, _fn
 
+from .ops_tail import *  # noqa: E402,F401,F403
+from .ctc import CTCLoss, ctc_loss  # noqa: E402,F401
+
+for _name in ("randint", "gamma", "exponential", "poisson", "bernoulli"):
+    setattr(_RandomNS, _name, staticmethod(globals()["random_" + _name]))
+_RandomNS.multinomial = staticmethod(sample_multinomial)  # noqa: F405
+_RandomNS.shuffle = staticmethod(shuffle)  # noqa: F405
+del _name
+
 __all__ = sorted(n for n, v in globals().items()
                  if not n.startswith("_") and (callable(v) or n == "random")
-                 and getattr(v, "__module__", None) == __name__)
+                 and getattr(v, "__module__", None) == __name__) \
+    + ["CTCLoss", "ctc_loss"]

@@ -20,8 +20,11 @@ reference says so (SGD, LBSGD, Adam, AdamW, LAMB, Adamax, Nadam, FTML),
 the weight's own type where it says that (NAG, RMSProp, AdaGrad,
 AdaDelta, Ftrl, Signum, DCASGD).  ``SGLD`` draws its noise from a
 ``torch.Generator`` (``generator=``, else the process's generator for
-the weight's device), not the reference's key stream.  Not ported yet
-(ROADMAP A5): ``param_idx2name`` (refused by name when set).
+the weight's device), not the reference's key stream.  The learning
+rate and weight decay of an index take the multiplier of the first of:
+its ``Parameter`` in ``param_dict`` (a ``Trainer`` sets one for every
+index), the index-keyed ``set_lr_mult``/``set_wd_mult`` entry, the entry
+of its name in ``param_idx2name``, as in the reference.
 """
 from __future__ import annotations
 
@@ -73,8 +76,6 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None):
-        refuse_unported("Optimizer", "A5", param_idx2name=(param_idx2name,
-                                                           None))
         refuse_unported("Optimizer", "A17 (symbol)", sym=(sym, None))
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
@@ -88,9 +89,35 @@ class Optimizer:
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
         self._index_update_count = {}
+        self.idx2name = param_idx2name or {}
+        self.lr_mult = {}
+        self.wd_mult = {}
+
+    # the update is elementwise in (weight, grad, state) with scalar
+    # hyperparameters (no per-tensor norm, no draw): set on the classes
+    # the reference marks so
+    elementwise_update = False
 
     def set_learning_rate(self, lr):
         self.lr = lr
+
+    def set_lr_mult(self, args_lr_mult):
+        """Learning-rate multipliers by index or by name."""
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        """Weight-decay multipliers by index or by name."""
+        self.wd_mult = dict(args_wd_mult)
+
+    def _mult(self, index, table, attr):
+        p = self.param_dict.get(index)
+        if p is not None:
+            return getattr(p, attr)
+        if index in table:
+            return table[index]
+        if index in self.idx2name:
+            return table.get(self.idx2name[index], 1.0)
+        return 1.0
 
     def _update_count(self, index):
         self._index_update_count[index] = \
@@ -101,12 +128,10 @@ class Optimizer:
     def _get_lr(self, index):
         lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
             else self.lr
-        p = self.param_dict.get(index)
-        return lr * (p.lr_mult if p is not None else 1.0)
+        return lr * self._mult(index, self.lr_mult, "lr_mult")
 
     def _get_wd(self, index):
-        p = self.param_dict.get(index)
-        return self.wd * (p.wd_mult if p is not None else 1.0)
+        return self.wd * self._mult(index, self.wd_mult, "wd_mult")
 
     def create_state(self, index, weight):
         """Per-weight state (tensors, tuples of them, or None)."""
@@ -602,6 +627,12 @@ class FTML(Optimizer):
         sigma = d - self.beta1 * d_prev
         z = self.beta1 * z_prev + (1 - self.beta1) * g - sigma * weight
         return (-z / d).to(weight.dtype), (d, v, z)
+
+
+for _cls in (SGD, NAG, Adam, AdamW, RMSProp, AdaGrad, AdaDelta, Signum,
+             Adamax, Nadam, FTML):
+    _cls.elementwise_update = True
+del _cls
 
 
 class Updater:

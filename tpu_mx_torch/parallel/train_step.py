@@ -358,6 +358,21 @@ class CompiledTrainStep:
         parameters here; the port's step updates them in place, so there
         is nothing to copy."""
 
+    def sync_from_net(self):
+        """Take the net's parameters as the step's weights again (the
+        rollback after the net was restored from a checkpoint): the
+        float32 masters are re-derived from them and in-flight gradient
+        accumulation is dropped.  The step trains the net's own tensors,
+        so the weights need no copy; the optimizer state is kept, as in
+        the reference."""
+        if self._build_count == 0:
+            return
+        with self._state_lock, torch.no_grad():
+            self._generation += 1
+            self.masters = {k: self._params[k].detach().float().clone()
+                            for k in self.masters}
+            self._reset_accumulation()
+
     def _apply(self, grads, lr, t):
         opt, wd = self.optimizer, self.optimizer.wd
         for key, g in zip(self._diff_keys, grads):

@@ -397,6 +397,17 @@ class PagedKVCache:
         """The sequence's block-id table (a copy), in position order."""
         return list(self._entry(seq_id).blocks)
 
+    def num_sequences(self):
+        """How many sequences hold blocks."""
+        return len(self._seqs)
+
+    def stats(self):
+        """``{sequences, used_blocks, free_blocks, utilization}``."""
+        return {"sequences": len(self._seqs),
+                "used_blocks": self.allocator.used,
+                "free_blocks": self.allocator.available,
+                "utilization": self.allocator.utilization()}
+
     def utilization(self):
         return self.allocator.utilization()
 

@@ -29,7 +29,8 @@ from __future__ import annotations
 import threading
 
 __all__ = ["DEFAULT_TENANT", "TENANT_LABEL_CAP", "OVERFLOW_LABEL",
-           "TenantConfig", "TenantTable", "label_for"]
+           "TenantConfig", "TenantTable", "label_for",
+           "reset_label_registry"]
 
 DEFAULT_TENANT = "default"
 
@@ -61,6 +62,13 @@ def label_for(tenant):
             return OVERFLOW_LABEL
         _labels[tenant] = tenant
         return tenant
+
+
+def reset_label_registry():
+    """Forget every label given out (between tests: the cap goes to the
+    first tenants named)."""
+    with _label_lock:
+        _labels.clear()
 
 
 class TenantConfig:
@@ -127,6 +135,10 @@ class TenantTable:
     def get(self, tenant):
         """``tenant``'s config, or the permissive default."""
         return self._configs.get(str(tenant), self._default)
+
+    def configured(self):
+        """The ids of the tenants declared explicitly."""
+        return list(self._configs)
 
     def __repr__(self):
         return f"TenantTable({sorted(self._configs)})"
