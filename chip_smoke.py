@@ -390,7 +390,33 @@ line each:
                  relative, gradient 1e-3 in norm, ``F.ctc_loss`` timed
                  beside); every other name on 2**24 f32 elements (1e-5
                  of max|ref|; the samplers' means within 5 standard
-                 errors); no kernel of the port launches.
+                 errors); no kernel of the port launches;
+26. ``data``  — the data plane on the card's host.  The native
+                 library is built from ``native/tpumx_io.cpp`` (its
+                 libjpeg as ``tpu_mx_torch.lib.jpeg_link`` finds it);
+                 2,560 synthetic 500 x 375 JPEGs (quality 90, ~110 KB,
+                 1000 classes, written with OpenCV) packed by
+                 ``native_im2rec``; ``ImageRecordIter``'s native arm
+                 alone at batch 256 (resize 256, random 224 crop and
+                 mirror, uint8 NHWC into page-locked memory): images/s
+                 at 2, 4 and min(nproc, 16) threads, two seeded runs
+                 bit-equal, the uint8 feed normalised on the card by
+                 ``DevicePrefetchIter`` within 1e-5 of the float32
+                 host-normalised feed; ``train_imagenet.py`` unedited
+                 (ResNet-50 v1, NHWC, s2d stem, batch 256, one epoch)
+                 fed from the records through the native pipe, then its
+                 synthetic arm, each with its steady images/s;
+                 ``ssd/train.py --feed u8`` at its defaults on 512
+                 detection records (1-8 boxes over 20 classes) through
+                 the native detection pipe; ``train_mnist.py --epochs
+                 1`` on MNIST's four idx files (60,000 + 10,000
+                 synthetic digits) through ``MNISTIter``; and
+                 ``gluon.data.DataLoader`` over ``vision.MNIST`` with
+                 ``ToTensor`` and ``Normalize`` at batch 256, serial, 4
+                 forked process workers and 4 threads (batches/s, each
+                 equal to the serial epoch), then one epoch of LeNet on
+                 the card fed by the process workers.  No kernel of the
+                 port launches.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -552,6 +578,22 @@ MNIST_MIN_ACC = 0.9         # the example's own assert (train_mnist.py:85)
 # a step would pass this at once; the allocator's own churn is < 1 MB
 MNIST_MEM_SLACK = 4 << 20
 IMPERATIVE_PARITY_BATCH = 16
+
+# the data plane (phase data): ImageNet's typical stored JPEG (500 x 375,
+# quality 90, ~110 KB of smooth fields with noise), 1000 classes; VOC-style
+# detection records (1-8 boxes over 20 classes); MNIST's sizes
+DATA_W, DATA_H, DATA_QUALITY = 500, 375, 90
+DATA_CLS_IMAGES, DATA_CLASSES = 2560, 1000
+DATA_DET_IMAGES, DATA_DET_CLASSES, DATA_DET_BOXES = 512, 20, 8
+DATA_NOISE, DATA_CELLS = 24.0, 12     # ~109 KB a file (OpenCV, quality 90)
+DATA_BATCH, DATA_SHAPE, DATA_RESIZE = 256, (3, 224, 224), 256
+DATA_MNIST = (60000, 10000)
+DATA_LOADER_BATCH, DATA_LOADER_WORKERS = 256, 4
+DATA_MNIST_NORM = (0.13, 0.31)
+DATA_NORM_ATOL = 1e-5        # uint8 normalised on the card vs on the host
+DATA_THREADS = (2, 4)        # and min(nproc, 16): the iterator's rate
+IMAGENET_MEAN = (123.68, 116.78, 103.94)      # train_imagenet.py's
+IMAGENET_STD = (58.39, 57.12, 57.37)
 
 RTC_N = 1 << 26     # float32 elements: 256 MB an operand
 RTC_SOURCE = r'''
@@ -5545,11 +5587,422 @@ def phase_operators(ctx):
     ctx["failures"] += oc.failures
 
 
+def data_jpeg(cv2, rng_seed, bank):
+    """One synthetic photograph-like image (BGR uint8, DATA_H x DATA_W):
+    a smooth field of DATA_CELLS x DATA_CELLS random colours, bicubic,
+    plus noise from ``bank`` at a random offset."""
+    r = np.random.RandomState(rng_seed)
+    low = r.uniform(0, 255, (DATA_CELLS, DATA_CELLS, 3)).astype(np.float32)
+    field = cv2.resize(low, (DATA_W, DATA_H), interpolation=cv2.INTER_CUBIC)
+    dy, dx = r.randint(0, 64, 2)
+    noise = bank[rng_seed % len(bank), dy:dy + DATA_H, dx:dx + DATA_W]
+    return np.clip(field + DATA_NOISE * noise, 0, 255).astype(np.uint8)
+
+
+def data_encode(cv2, img):
+    ok, buf = cv2.imencode(".jpg", img,
+                           [cv2.IMWRITE_JPEG_QUALITY, DATA_QUALITY])
+    if not ok:
+        raise RuntimeError("cv2.imencode failed")
+    return buf.tobytes()
+
+
+def data_write_sets(cv2, tmp, threads):
+    """The classification JPEG files with their ``.lst``, the detection
+    record file (``recordio.pack_img``) and MNIST's four idx files."""
+    import gzip
+    import struct
+    from concurrent.futures import ThreadPoolExecutor
+    from tpu_mx_torch import recordio
+    bank = np.random.RandomState(0).normal(
+        0, 1, (4, DATA_H + 64, DATA_W + 64, 3)).astype(np.float32)
+    root = os.path.join(tmp, "jpeg")
+    os.makedirs(root)
+    labels = np.random.RandomState(1).randint(0, DATA_CLASSES,
+                                              DATA_CLS_IMAGES)
+
+    def write(i):
+        data = data_encode(cv2, data_jpeg(cv2, i, bank))
+        with open(os.path.join(root, f"{i}.jpg"), "wb") as f:
+            f.write(data)
+        return len(data)
+
+    with ThreadPoolExecutor(threads) as pool:
+        sizes = list(pool.map(write, range(DATA_CLS_IMAGES)))
+    lst = os.path.join(tmp, "train.lst")
+    with open(lst, "w") as f:
+        f.writelines(f"{i}\t{labels[i]}.0\t{i}.jpg\n"
+                     for i in range(DATA_CLS_IMAGES))
+    rng = np.random.RandomState(2)
+    boxes = []
+    for _ in range(DATA_DET_IMAGES):
+        m = rng.randint(1, DATA_DET_BOXES + 1)
+        lo = rng.uniform(0.0, 0.6, (m, 2))
+        hi = np.minimum(lo + rng.uniform(0.1, 0.4, (m, 2)), 1.0)
+        boxes.append(np.concatenate(
+            [rng.randint(0, DATA_DET_CLASSES, (m, 1)), lo, hi], 1))
+    with ThreadPoolExecutor(threads) as pool:
+        imgs = list(pool.map(lambda i: data_jpeg(cv2, 10 ** 6 + i, bank),
+                             range(DATA_DET_IMAGES)))
+    det = os.path.join(tmp, "det.rec")
+    w = recordio.MXIndexedRecordIO(det[:-4] + ".idx", det, "w")
+    for i, (img, b) in enumerate(zip(imgs, boxes)):
+        w.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, b.ravel().astype(np.float32), i, 0), img,
+            quality=DATA_QUALITY))
+    w.close()
+    mnist = os.path.join(tmp, "mnist")
+    os.makedirs(mnist)
+    for (prefix, n), seed in zip((("train", DATA_MNIST[0]),
+                                  ("t10k", DATA_MNIST[1])), (3, 4)):
+        x, y = data_mnist_digits(n, seed)
+        for kind, arr in (("images-idx3", x), ("labels-idx1", y)):
+            with gzip.open(os.path.join(
+                    mnist, f"{prefix}-{kind}-ubyte.gz"), "wb",
+                    compresslevel=1) as f:
+                f.write(struct.pack(">I", 0x0800 | arr.ndim))
+                f.write(b"".join(struct.pack(">I", d) for d in arr.shape))
+                f.write(arr.tobytes())
+    return dict(root=root, lst=lst, det=det, mnist=mnist,
+                jpeg_bytes_mean=float(np.mean(sizes)),
+                det_boxes_mean=float(np.mean([len(b) for b in boxes])))
+
+
+def data_mnist_digits(n, seed):
+    """MNIST-shaped uint8 digits: train_mnist.py's synthetic strokes (a
+    bar over rows 2·label..2·label+4) over noise, moved sideways by up
+    to two pixels (a shift along the rows would make classes alike)."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 10, n).astype(np.uint8)
+    x = rng.randint(0, 26, (n, 28, 28)).astype(np.uint8)
+    shift = rng.randint(-2, 3, n)
+    for i in range(n):
+        r0, c0 = int(y[i]) * 2, 4 + shift[i]
+        x[i, r0:r0 + 4, c0:c0 + 20] = 230
+    return x, y
+
+
+def data_iter_rate(io, rec, threads, batches=None):
+    """Images a second of ``ImageRecordIter``'s native pipeline alone
+    (``iter_next``: read, decode, resize, crop, mirror, batch into
+    page-locked memory), one epoch at ``threads``."""
+    it = io.ImageRecordIter(
+        path_imgrec=rec, data_shape=DATA_SHAPE, batch_size=DATA_BATCH,
+        shuffle=True, rand_crop=True, rand_mirror=True, resize=DATA_RESIZE,
+        preprocess_threads=threads, output_dtype="uint8",
+        output_layout="NHWC", use_native=True)
+    t0 = time.perf_counter()
+    n = 0
+    while it.iter_next():
+        n += DATA_BATCH - it.getpad()
+        if batches is not None:
+            batches.append((it._data.copy(), it._label.copy()))
+    return n / (time.perf_counter() - t0), it
+
+
+def data_step_rate(calls):
+    """Images a second between the second and the last call of
+    ``CompiledTrainStep.step`` (the host runs at most a step or two
+    ahead of the card, so this is the loop's pace past the first
+    step's warm-up)."""
+    if len(calls) < 3:
+        return float("nan")
+    return DATA_BATCH * (len(calls) - 2) / (calls[-1] - calls[1])
+
+
+def data_example(relpath, argv, alias, patch):
+    """``run_example`` with ``patch`` ``{(owner, name): replacement}``
+    set meanwhile; the example's text and seconds."""
+    saved = {k: getattr(*k) for k in patch}
+    try:
+        for (owner, name), value in patch.items():
+            setattr(owner, name, value)
+        _, text, seconds, loaded = run_example(relpath, argv, alias)
+    finally:
+        for (owner, name), value in saved.items():
+            setattr(owner, name, value)
+    return text, seconds, loaded
+
+
+def recording(cls, made):
+    """A subclass of iterator ``cls`` that appends each instance to
+    ``made``."""
+    class Recorded(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+    Recorded.__name__ = cls.__name__
+    return Recorded
+
+
+def data_loader_leg(torch, mnist_dir):
+    """``gluon.data.vision.MNIST`` through ``ToTensor`` and ``Normalize``
+    at batch 256: one epoch each with no workers, 4 forked process
+    workers and 4 threads, on the host (batches/s over the epoch, the
+    first batch's seconds, batches/s after it; each kind's batches
+    equal the serial ones), then one epoch of LeNet on the card fed by
+    the process workers (the parent has started CUDA; the children run
+    numpy only)."""
+    from tpu_mx_torch import autograd, gluon, metric
+    from tpu_mx_torch.context import cpu
+    from tpu_mx_torch.gluon.data import DataLoader
+    from tpu_mx_torch.gluon.data.vision import MNIST, transforms
+    from tpu_mx_torch.models.lenet import lenet
+    ds = MNIST(root=mnist_dir, train=True).transform_first(
+        transforms.Compose([transforms.ToTensor(),
+                            transforms.Normalize(*DATA_MNIST_NORM)]))
+    kinds = {"serial": dict(num_workers=0),
+             "processes": dict(num_workers=DATA_LOADER_WORKERS,
+                               thread_pool=False),
+             "threads": dict(num_workers=DATA_LOADER_WORKERS)}
+    rates, first, steady, epochs = {}, {}, {}, {}
+    with cpu():
+        for kind, kw in kinds.items():
+            t0 = time.perf_counter()
+            stamps, epochs[kind] = [], []
+            for d, lab in DataLoader(ds, batch_size=DATA_LOADER_BATCH, **kw):
+                epochs[kind].append((d.asnumpy(), lab.asnumpy()))
+                stamps.append(time.perf_counter())
+            rates[kind] = len(stamps) / (stamps[-1] - t0)
+            first[kind] = stamps[0] - t0
+            steady[kind] = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    equal = {kind: len(epochs[kind]) == len(epochs["serial"]) and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        for a, b in zip(epochs[kind], epochs["serial"]))
+        for kind in ("processes", "threads")}
+    shape = epochs["serial"][0][0].shape
+    del epochs
+    net = lenet(classes=10)
+    net.initialize(init="xavier")
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": MNIST_LR, "momentum": 0.9})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    acc = metric.Accuracy()
+    devices = set()
+    t0 = time.perf_counter()
+    steps = 0
+    for data, label in DataLoader(ds, batch_size=DATA_LOADER_BATCH,
+                                  shuffle=True, thread_pool=False,
+                                  num_workers=DATA_LOADER_WORKERS):
+        devices.add(data._data.device.type)
+        with autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label)
+        loss.backward()
+        trainer.step(data.shape[0])
+        acc.update([label], [out])
+        steps += 1
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    return dict(batches_per_sec=rates, first_batch_seconds=first,
+                steady_batches_per_sec=steady, equal_to_serial=equal,
+                batch_shape=list(shape), train_steps=steps,
+                train_seconds=train_s, train_batches_per_sec=steps / train_s,
+                train_accuracy=float(acc.get()[1]),
+                train_devices=sorted(devices))
+
+
+def phase_data(ctx):
+    """The data plane on the card's host: JPEG records through the
+    native pipeline into ``train_imagenet.py`` and ``ssd/train.py``,
+    MNIST's idx files into ``train_mnist.py``, and ``DataLoader``'s
+    worker kinds (see the module's docstring, item 26)."""
+    import shutil
+    import tempfile
+
+    import cv2                  # the host's JPEG writer (PERF.md's probe)
+    import torch
+
+    import tpu_mx_torch as tmx
+    from tpu_mx_torch import io, lib
+    from tpu_mx_torch.lib import recordio_cpp
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    t0 = time.perf_counter()
+    reset_port_kernel_launches()
+    threads = min(os.cpu_count() or 1, 16)
+    tb = time.perf_counter()
+    jpeg_link, _ = lib.jpeg_link()
+    so = lib.ensure_built()
+    build_s = time.perf_counter() - tb
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    checks, out = {}, {}
+    try:
+        tw = time.perf_counter()
+        sets = data_write_sets(cv2, tmp, threads)
+        rec = os.path.join(tmp, "train")
+        packed = recordio_cpp.native_im2rec(sets["lst"], sets["root"], rec,
+                                            resize=0, quality=DATA_QUALITY,
+                                            num_thread=threads)
+        rec += ".rec"
+        write_s = time.perf_counter() - tw
+        checks["packed_every_image"] = packed == DATA_CLS_IMAGES
+
+        # the iterator alone: rate by threads, seeded runs, the u8 feed
+        rates = {}
+        for n in sorted(set(DATA_THREADS + (threads,))):
+            rates[n], it = data_iter_rate(io, rec, n)
+        it.reset()
+        it.iter_next()
+        checks["native_batches_page_locked"] = \
+            torch.from_numpy(it._data).is_pinned()
+        del it
+        first, second = [], []
+        data_iter_rate(io, rec, threads, first)
+        data_iter_rate(io, rec, threads, second)
+        checks["seeded_iterators_bit_equal"] = len(first) == len(second) \
+            == -(-DATA_CLS_IMAGES // DATA_BATCH) and all(
+                np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for a, b in zip(first, second))
+        del first, second
+        common = dict(path_imgrec=rec, data_shape=DATA_SHAPE,
+                      batch_size=DATA_BATCH, shuffle=True, rand_crop=True,
+                      rand_mirror=True, resize=DATA_RESIZE, seed=3,
+                      preprocess_threads=threads, use_native=True)
+        u8 = io.DevicePrefetchIter(
+            io.ImageRecordIter(output_dtype="uint8", output_layout="NHWC",
+                               **common),
+            normalize=(IMAGENET_MEAN, IMAGENET_STD), normalize_axis=-1)
+        f32 = io.ImageRecordIter(
+            mean_r=IMAGENET_MEAN[0], mean_g=IMAGENET_MEAN[1],
+            mean_b=IMAGENET_MEAN[2], std_r=IMAGENET_STD[0],
+            std_g=IMAGENET_STD[1], std_b=IMAGENET_STD[2], **common)
+        card = u8.next().data[0]._data
+        host = f32.next().data[0].asnumpy()
+        u8.close()
+        norm_err = float(np.abs(card.permute(0, 3, 1, 2).cpu().numpy()
+                                - host).max())
+        checks["u8_card_normalised_equals_f32_host"] = \
+            card.device.type == "cuda" and norm_err <= DATA_NORM_ATOL
+
+        # train_imagenet.py: record-fed, then its synthetic arm
+        alias = port_alias("gluon", "gluon.model_zoo",
+                           "gluon.model_zoo.vision", "parallel", "layout")
+        made, calls = [], []
+        step_fn = CompiledTrainStep.step
+
+        def timed_step(self, *args, **kwargs):
+            calls.append(time.perf_counter())
+            return step_fn(self, *args, **kwargs)
+
+        prior = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        imagenet = {}
+        try:
+            for arm in ("records", "synthetic"):
+                calls.clear()
+                argv = ["train_imagenet.py", "--batch-size", str(DATA_BATCH),
+                        "--layout", "NHWC", "--stem", "s2d", "--epochs", "1"]
+                if arm == "records":
+                    argv += ["--data-train", rec, "--feed", "u8",
+                             "--data-nthreads", str(threads)]
+                text, seconds, loaded = data_example(
+                    "image_classification/train_imagenet.py", argv, alias,
+                    {(tmx.io, "ImageRecordIter"):
+                         recording(io.ImageRecordIter, made),
+                     (CompiledTrainStep, "step"): timed_step})
+                last = [ln for ln in text.splitlines()
+                        if ln.startswith("epoch 0: loss")]
+                imagenet[arm] = dict(
+                    argv=argv[1:], steps=len(calls), seconds=seconds,
+                    example_images_per_sec=float(last[-1].split()[-2])
+                    if last else float("nan"),
+                    steady_images_per_sec=data_step_rate(calls),
+                    loss=float(last[-1].split()[3]) if last
+                    else float("nan"), reference_modules_loaded=loaded[:10])
+        finally:
+            torch.backends.cudnn.benchmark = prior
+        checks["imagenet_native_pipe"] = len(made) == 1 \
+            and made[0].uses_native
+        checks["imagenet_records_epoch"] = \
+            imagenet["records"]["steps"] == DATA_CLS_IMAGES // DATA_BATCH
+        checks["imagenet_losses_finite"] = all(
+            math.isfinite(v["loss"]) for v in imagenet.values())
+        del made[:]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ssd/train.py at its defaults on the detection records
+        det_made = []
+        text, ssd_s, ssd_loaded = data_example(
+            "ssd/train.py", ["train.py", "--data-train", sets["det"],
+                             "--feed", "u8"],
+            port_alias("models", "models.ssd"),
+            {(tmx.io, "ImageDetRecordIter"):
+                 recording(io.ImageDetRecordIter, det_made)})
+        ssd_epochs = [ln for ln in text.splitlines()
+                      if ln.startswith("epoch ")]
+        checks["ssd_native_pipe"] = len(det_made) == 1 \
+            and det_made[0].uses_native
+        checks["ssd_two_epochs"] = len(ssd_epochs) == 2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # train_mnist.py on the idx files
+        mnist_made = []
+        os.environ["MNIST_DIR"] = sets["mnist"]
+        try:
+            text, mnist_s, mnist_loaded = data_example(
+                "mnist/train_mnist.py", ["train_mnist.py", "--epochs", "1"],
+                port_alias("models", "models.lenet"),
+                {(tmx.io, "MNISTIter"): recording(io.MNISTIter,
+                                                  mnist_made)})
+        finally:
+            del os.environ["MNIST_DIR"]
+        mnist_final = [ln for ln in text.splitlines()
+                       if ln.startswith("final accuracy")]
+        checks["mnist_idx_files"] = len(mnist_made) == 1
+        checks["mnist_example_ended"] = bool(mnist_final)
+
+        loader = data_loader_leg(torch, sets["mnist"])
+        checks["loader_processes_equal_serial"] = \
+            loader["equal_to_serial"]["processes"]
+        checks["loader_threads_equal_serial"] = \
+            loader["equal_to_serial"]["threads"]
+        checks["loader_trains_on_card"] = loader["train_devices"] == \
+            ["cuda"] and loader["train_steps"] == \
+            -(-DATA_MNIST[0] // DATA_LOADER_BATCH)
+        checks["no_reference_module_loaded"] = not (
+            imagenet["records"]["reference_modules_loaded"] or ssd_loaded
+            or mnist_loaded)
+        checks["no_jax"] = "jax" not in sys.modules
+        ctx["data_launches"] = port_kernel_launches()
+        checks["no_port_kernel_launched"] = \
+            not any(ctx["data_launches"].values())
+        out = dict(
+            host=dict(nproc=os.cpu_count(), threads=threads,
+                      opencv=cv2.__version__, libjpeg=jpeg_link,
+                      library=os.path.relpath(so), build_seconds=build_s),
+            sets=dict(classification=DATA_CLS_IMAGES, detection=
+                      DATA_DET_IMAGES, size=[DATA_W, DATA_H],
+                      quality=DATA_QUALITY,
+                      jpeg_kb_mean=sets["jpeg_bytes_mean"] / 1e3,
+                      det_boxes_mean=sets["det_boxes_mean"],
+                      mnist=list(DATA_MNIST), write_seconds=write_s),
+            iterator=dict(images_per_sec_by_threads=rates,
+                          batch=DATA_BATCH, shape=list(DATA_SHAPE),
+                          resize=DATA_RESIZE, feed="uint8 NHWC",
+                          u8_norm_max_abs_err=norm_err,
+                          tolerance=DATA_NORM_ATOL),
+            train_imagenet=imagenet,
+            ssd=dict(epochs=ssd_epochs, seconds=ssd_s),
+            mnist=dict(final=mnist_final, seconds=mnist_s),
+            data_loader=loader)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("data", ok=all(checks.values()), checks=checks, **out,
+         launches=ctx.get("data_launches"),
+         seconds=time.perf_counter() - t0, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"data check {name} failed")
+
+
 def later_launches(ctx, name):
     """A kernel's launches in the MoE, example and operators phases."""
     return {f"launches_{p}": ctx[f"{p}_launches"][name]
             for p in ("moe_parity", "moe_train", "bert_example",
-                      "moe_example", "operators")}
+                      "moe_example", "operators", "data")}
 
 
 def main():
@@ -5596,6 +6049,7 @@ def main():
                      ("bert_example", phase_bert_example),
                      ("moe_example", phase_moe_example),
                      ("operators", phase_operators),
+                     ("data", phase_data),
                      ("attention_bias", phase_attention_bias),
                      ("rtc", phase_rtc)):
         try:
@@ -5618,7 +6072,7 @@ def main():
                                 "zoo_launches", "moe_parity_launches",
                                 "moe_train_launches", "bert_example_launches",
                                 "moe_example_launches",
-                                "operators_launches"} \
+                                "operators_launches", "data_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1

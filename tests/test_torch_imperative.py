@@ -1169,8 +1169,15 @@ def test_ndarray_iter_global_shuffle_and_state_dict():
     again.load_state_dict(state)
     for g, w in zip([b.data[0].asnumpy() for b in again], rest):
         np.testing.assert_array_equal(g, w)
-    with pytest.raises(MXNetError, match="A14"):
-        mx.io.NDArrayIter(data, batch_size=2, num_workers=2)
+    # elastic sharding: each rank's slices equal the reference's
+    for io_ in (jmx.io, mx.io):
+        its = [io_.NDArrayIter(data, batch_size=4, shuffle=True, seed=2,
+                               num_workers=2, rank=r) for r in range(2)]
+        runs.append([[(b.data[0].asnumpy(), b.pad) for b in it]
+                     for it in its])
+    for (dg, pg), (dw, pw) in zip(sum(runs[-1], []), sum(runs[-2], [])):
+        np.testing.assert_array_equal(dg, dw)
+        assert pg == pw
 
 
 def test_metrics_equal_the_reference():

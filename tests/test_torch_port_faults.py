@@ -380,6 +380,10 @@ def _iter(**kw):
     return io.NDArrayIter(np.zeros((4, 2), np.float32), batch_size=2, **kw)
 
 
+def _iter_sharded(**kw):
+    return _iter(num_workers=2, **kw)
+
+
 def _trainer(**kw):
     from tpu_mx_torch import gluon as pgluon
     net = pgluon.nn.Dense(2, in_units=2, generator=torch.Generator())
@@ -402,7 +406,9 @@ def _reference(name):
             "PagedKVCache": PagedKVCache,
             "flash_attention": jfa.flash_attention,
             "mha_flash_attention": jfa.mha_flash_attention,
-            "NDArrayIter": mx.io.NDArrayIter, "Trainer": gluon.Trainer,
+            "NDArrayIter": mx.io.NDArrayIter,
+            "NDArrayIter(num_workers=2)": mx.io.NDArrayIter,
+            "Trainer": gluon.Trainer,
             "Optimizer": mx.optimizer.Optimizer}[name]
 
 
@@ -411,11 +417,11 @@ _PORT = {"BERTModel": _bert, "BERTModel(moe_every=1)": _bert_moe,
          "CompiledTrainStep.step": _step, "Server": _server,
          "EngineCore": _engine, "PagedKVCache": _cache,
          "flash_attention": _flash, "mha_flash_attention": _mha,
-         "NDArrayIter": _iter, "Trainer": _trainer, "Optimizer": _optimizer}
+         "NDArrayIter": _iter, "NDArrayIter(num_workers=2)": _iter_sharded,
+         "Trainer": _trainer, "Optimizer": _optimizer}
 
 # (entry point, argument, a value other than the reference's default)
 _REFUSED = [
-    ("NDArrayIter", "num_workers", 2), ("NDArrayIter", "rank", 1),
     ("Trainer", "compression_params", {"type": "2bit"}),
     ("Trainer", "update_on_kvstore", True),
 ]
@@ -462,6 +468,11 @@ _ACCEPTED = [
     # the name-keyed multipliers
     ("Optimizer", "param_idx2name", {0: "w"},
      lambda opt: opt.idx2name == {0: "w"}),
+    # elastic sharding
+    ("NDArrayIter", "num_workers", 2,
+     lambda it: it.num_workers == 2 and it.batch_size == 1),
+    ("NDArrayIter(num_workers=2)", "rank", 1,
+     lambda it: it.rank == 1 and it.iter_next() and list(it._sel) == [1]),
 ]
 # arguments with no torch meaning: accepted at any value and ignored
 _IGNORED = [
@@ -495,7 +506,9 @@ def _port_callable(entry):
             "PagedKVCache": PagedKVCache,
             "flash_attention": fa.flash_attention,
             "mha_flash_attention": fa.mha_flash_attention,
-            "NDArrayIter": io.NDArrayIter, "Trainer": pgluon.Trainer,
+            "NDArrayIter": io.NDArrayIter,
+            "NDArrayIter(num_workers=2)": io.NDArrayIter,
+            "Trainer": pgluon.Trainer,
             "Optimizer": optimizer.Optimizer}[entry]
 
 

@@ -34,7 +34,6 @@ def _item(n, what):
 
 
 _ITEM2 = _item(2, "serving's remaining decode arms")
-_ITEM5 = _item(5, "data")
 _ITEM8 = _item(8, "runtime planes")
 _ITEM9 = _item(9, "multi-device parallel")
 _ITEM10 = _item(10, "graph API and the long tail")
@@ -52,7 +51,6 @@ ALLOWED = {
         JAX + "a draw from a jax PRNG key on the device; the port draws "
         "from torch.Generators",
     ("tpu_mx_torch.random", "KeyHolder"): JAX + "the PRNG key stream",
-    ("tpu_mx_torch.random", "host_rng"): JAX + "the PRNG key stream",
     ("tpu_mx_torch.random", "key_scope"): JAX + "the PRNG key stream",
     ("tpu_mx_torch.random", "take_key"): JAX + "the PRNG key stream",
     ("tpu_mx_torch.rtc", "PallasModule"):
@@ -83,10 +81,8 @@ ALLOWED = {
     **{("tpu_mx_torch.serving.kv_cache", f"PagedKVCache.{m}"): _ITEM2
        for m in ("write", "write_batch", "write_window", "gather_batch",
                  "pools", "adopt_pools")},
-    **{("tpu_mx_torch.io.io", n): _ITEM5
-       for n in ("CSVIter", "LibSVMIter", "MNISTIter", "ImageRecordIter",
-                 "ImageDetRecordIter", "ResizeIter",
-                 "NDArrayIter.set_shard", "NDArrayIter.global_batch_ids")},
+    ("tpu_mx_torch.io.io", "LibSVMIter"):
+        _ITEM10 + ": its CSR batches need ndarray/sparse.py",
     **{("tpu_mx_torch.checkpoint", n): _ITEM8
        for n in ("CheckpointCorrupt", "MANIFEST_FORMAT", "PreemptionHandler",
                  "apply_retention", "checkpoint_files", "list_epochs", "log",

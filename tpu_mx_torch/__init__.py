@@ -28,7 +28,10 @@ The port goes slice by slice:
 - Gluon's training vocabulary (the layers, initializers, optimizers with
   learning-rate schedules, losses and metrics, the reference's
   ``.params`` files, the prefetching iterators) and the vision zoo
-  (``gluon.model_zoo.vision.get_model``).
+  (``gluon.model_zoo.vision.get_model``);
+- the data plane: ``mx.recordio``, the native JPEG pipeline
+  (:mod:`tpu_mx_torch.lib`), the file and record iterators of ``mx.io``,
+  ``mx.gluon.data`` and ``mx.image``.
 
 The hand-written Hopper kernels are in :mod:`tpu_mx_torch.kernels`.
 Entry points take ``device=`` and default to ``"cuda"``
@@ -38,6 +41,8 @@ makes the host the current context (the default is the card).
 """
 from . import autograd, gluon, io, metric, ndarray, operator, optimizer
 from . import random
+from . import recordio
+from . import image
 from . import initializer
 from . import initializer as init
 from .base import MXNetError, NumericDivergence
@@ -47,5 +52,5 @@ from . import ndarray as nd
 
 __all__ = ["MXNetError", "NumericDivergence", "Context", "cpu", "cpu_pinned",
            "current_context", "gpu", "num_gpus", "tpu", "autograd", "gluon",
-           "init", "initializer", "io", "metric", "nd", "ndarray",
-           "operator", "optimizer", "random"]
+           "image", "init", "initializer", "io", "metric", "nd", "ndarray",
+           "operator", "optimizer", "random", "recordio"]

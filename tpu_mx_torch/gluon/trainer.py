@@ -14,6 +14,7 @@ update is open work (ROADMAP A5).
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import pickle
 
@@ -113,6 +114,85 @@ class _StatesUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+_LOW_PRECISION = (torch.float16, torch.bfloat16)
+
+
+def _has_pure_core(cls):
+    """The optimizer overrides ``update_core`` and neither ``update`` nor
+    ``update_multi_precision``: the reference's test for its fused
+    step."""
+    base = _opt.Optimizer
+    return cls.update_core is not base.update_core \
+        and cls.update is base.update \
+        and cls.update_multi_precision is base.update_multi_precision
+
+
+class _WideLowPrecision(torch.overrides.TorchFunctionMode):
+    """The reference's fused step is one XLA program, and XLA lets a
+    value keep more precision than its type: a float16/bfloat16 result
+    that the next operation converts to float32 is not rounded in
+    between.  Under this mode each low-precision result is still the
+    rounded tensor, and its float32 value is kept beside it (a cast down
+    keeps its source); an operation that promotes a low-precision
+    operand to float32 reads the kept value instead.  Operations among
+    low-precision tensors see the rounded values, as XLA's do."""
+
+    def __init__(self):
+        super().__init__()
+        self._wide = {}
+
+    def _kept(self, t):
+        got = self._wide.get(id(t))
+        return got[1] if got is not None and got[0] is t else None
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not isinstance(out, torch.Tensor) or not out.is_floating_point():
+            return out
+        floats = [a for a in args if isinstance(a, torch.Tensor)
+                  and a.is_floating_point()]
+        if out.dtype in _LOW_PRECISION:
+            if len(floats) == 1 and floats[0].dtype == torch.float32:
+                wide = floats[0]                        # a cast down
+            elif floats and all(a.dtype == out.dtype for a in floats):
+                wide = func(*[a.float() if isinstance(a, torch.Tensor)
+                              and a.is_floating_point() else a
+                              for a in args], **kwargs)
+            else:
+                return out
+            if isinstance(wide, torch.Tensor) \
+                    and wide.dtype == torch.float32:
+                self._wide[id(out)] = (out, wide)
+            return out
+        if out.dtype == torch.float32 and any(
+                self._kept(a) is not None for a in floats):
+            out = func(*[self._kept(a) if isinstance(a, torch.Tensor)
+                         and self._kept(a) is not None else a
+                         for a in args], **kwargs)
+        return out
+
+
+def _leaves(state):
+    """The tensors of a state tree."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _leaves(s)]
+    return []
+
+
+def _shaped_like(new, old):
+    """A state tree ``new`` with each tensor in the shape of its
+    counterpart in ``old`` (a 0-d state broadcast to ``(1,)`` by the
+    fused step's scalars)."""
+    if isinstance(new, torch.Tensor):
+        return new.reshape(old.shape)
+    if isinstance(new, (tuple, list)):
+        return type(new)(_shaped_like(n, o) for n, o in zip(new, old))
+    return new
+
+
 def _to_file(state):
     """A state tree with its tensors as the reference's numpy arrays."""
     if isinstance(state, torch.Tensor):
@@ -162,6 +242,7 @@ class Trainer:
         self._optimizer.param_dict = dict(enumerate(self._params))
         self._states = [None] * len(self._params)
         self._states_inited = [False] * len(self._params)
+        self._fuse_update = fuse_update
 
     @property
     def learning_rate(self):
@@ -198,16 +279,64 @@ class Trainer:
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Apply the optimizer to every parameter (after
-        :meth:`allreduce_grads`)."""
+        :meth:`allreduce_grads`): the fused step or one call per
+        parameter, as the module's docstring says."""
         self._check_initialized()
         opt = self._optimizer
         for i, p in enumerate(self._params):
-            weight = p.data()
             if not self._states_inited[i]:
-                self._states[i] = opt.create_state_multi_precision(i, weight)
+                self._states[i] = opt.create_state_multi_precision(
+                    i, p.data())
                 self._states_inited[i] = True
-            self._states[i] = opt.update_multi_precision(i, weight, p.grad,
+        if self._fuse_update and _has_pure_core(type(opt)) \
+                and len(self._params) > 1:
+            self._update_fused()
+            return
+        for i, p in enumerate(self._params):
+            self._states[i] = opt.update_multi_precision(i, p.data(), p.grad,
                                                          self._states[i])
+
+    def _update_fused(self):
+        """The reference's fused step (``tpu_mx/gluon/trainer.py``
+        ``_update_fused``) as one eager loop.  ``lr``, ``wd`` and ``t``
+        are shape-``(1,)`` float32 tensors: a 0-d tensor would not
+        promote a bfloat16 operand in torch, a dimensioned one does, as
+        jax's float32 0-d array does.  They reach each device in one copy
+        a step.  The results take back the shapes of the weight and state
+        they replace."""
+        opt = self._optimizer
+        n = len(self._params)
+        for i in range(n):
+            opt._update_count(i)
+        rows = torch.tensor([[opt._get_lr(i), opt._get_wd(i),
+                              opt._index_update_count[i]] for i in range(n)],
+                            dtype=torch.float32)
+        scalars = {}
+        with torch.no_grad():
+            for i, p in enumerate(self._params):
+                w = p.data()._data
+                if w.device not in scalars:
+                    scalars[w.device] = rows.to(w.device)
+                row = scalars[w.device][i]
+                lr, wd, t = row[0:1], row[1:2], row[2:3]
+                grad = p.grad._data
+                state = self._states[i]
+                if opt.multi_precision and w.dtype in _LOW_PRECISION:
+                    master, inner = state
+                    new_master, new_inner = opt.update_core(
+                        master, grad.float(), inner, lr, wd, t)
+                    new_master = new_master.reshape(master.shape)
+                    w.copy_(new_master)
+                    self._states[i] = (new_master,
+                                       _shaped_like(new_inner, inner))
+                    continue
+                low = w.dtype in _LOW_PRECISION or any(
+                    s.dtype in _LOW_PRECISION for s in _leaves(state))
+                with _WideLowPrecision() if low else contextlib.nullcontext():
+                    new_w, new_state = opt.update_core(w, grad, state, lr,
+                                                       wd, t)
+                w.copy_(new_w.reshape(w.shape))
+                self._states[i] = _shaped_like(new_state, state)
 
     def save_states(self, fname):
         """The optimizer's state and update counts in the reference's

@@ -1,6 +1,7 @@
 """Data iterators, from ``tpu_mx/io/io.py``: ``DataDesc``, ``DataBatch``,
-the ``DataIter`` protocol, ``NDArrayIter``, ``PrefetchingIter`` and
-``DevicePrefetchIter``.
+the ``DataIter`` protocol, ``NDArrayIter``, ``ResizeIter``,
+``MNISTIter``, ``CSVIter``, ``ImageRecordIter``, ``ImageDetRecordIter``,
+``PrefetchingIter`` and ``DevicePrefetchIter``.
 
 ``NDArrayIter`` batches in-memory arrays with the reference's last-batch
 handling (``pad`` wraps to the epoch's head and reports the overlap in
@@ -8,12 +9,33 @@ handling (``pad`` wraps to the epoch's head and reports the overlap in
 into the next epoch) and shuffles each epoch with
 ``np.random.RandomState(seed)``, or numpy's global state without a seed,
 as the reference does: both packages yield the same batches from the
-same seed.  A batch's arrays are made with ``nd.array`` on the current
-context.  ``state_dict``/``load_state_dict`` snapshot the cursor, the
-epoch's permutation and the shuffle stream.  Elastic sharding
-(``num_workers``/``rank``) is not ported yet (ROADMAP A14).  The other
-iterators (``MNISTIter``, ``CSVIter``, ``ImageRecordIter``,
-``ResizeIter``) stay queued there too.
+same seed.  Elastic sharding: ``batch_size`` is the global batch, one
+cursor walks one global permutation and rank ``r`` of ``num_workers``
+takes the ``r``-th contiguous ``batch_size/num_workers`` of each global
+batch, so the global sequence is the same at every world size;
+``set_shard`` re-partitions a live iterator, and a sharded state (v2)
+loads into an iterator of another world size at the same global batch.
+``MNISTIter`` and ``CSVIter`` are ``NDArrayIter``s over the files.
+A batch's arrays are made on the current context.
+``state_dict``/``load_state_dict`` snapshot the cursor, the epoch's
+permutation and the shuffle stream.  ``LibSVMIter`` yields sparse
+batches and is not ported yet (ROADMAP A item 10): ``mx.io.LibSVMIter``
+raises an ``AttributeError`` that says so.
+
+``ImageRecordIter`` reads JPEG records through the native pipeline
+(:mod:`tpu_mx_torch.lib`: decode, resize, crop, mirror and batch on the
+library's threads) or, for other records, ``round_batch=False``, or
+``use_native=False``, through OpenCV on a thread pool, with the
+reference's augmentation draws.  ``use_native=None`` warns and takes
+the Python arm where the library cannot be built; ``use_native=True``
+raises there.  ``output_dtype="uint8"`` leaves normalisation to the
+consumer (``DevicePrefetchIter(normalize=...)`` on the card) and
+``output_layout="NHWC"`` emits channels-last.  A native batch is
+written into page-locked host memory when the iterator was made under
+the card's context, and its arrays are tensors over those buffers.
+``ImageDetRecordIter`` is the detection twin: ``(max_objects, 5)``
+labels padded with -1, the native pipeline or
+:class:`tpu_mx_torch.image.ImageDetIter`.
 
 ``PrefetchingIter`` runs wrapped iterators on a background thread
 behind a queue of ``depth`` batches, with the reference's lifecycle:
@@ -34,21 +56,27 @@ the caching allocator does not hand its memory out early.
 from __future__ import annotations
 
 import copy as _copy
+import gzip
 import logging
+import os
 import queue
+import struct
 import threading
+import warnings
 from collections import namedtuple
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .. import device as _device
-from ..base import MXNetError, refuse_unported
+from ..base import MXNetError
 from ..context import cpu, current_context
 from ..ndarray.ndarray import NDArray, _torch_dtype, array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
-           "PrefetchingIter", "DevicePrefetchIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter", "DevicePrefetchIter", "MNISTIter", "CSVIter",
+           "ImageRecordIter", "ImageDetRecordIter"]
 
 _logger = logging.getLogger(__name__)
 
@@ -63,6 +91,34 @@ def _check_state(state, cls_name):
     if got != cls_name:
         raise MXNetError(f"load_state_dict: state was captured from "
                          f"{got!r}, not {cls_name!r}")
+
+
+def _np_rng_tuple(state):
+    """A numpy ``RandomState`` token (also after a JSON round trip) as the
+    tuple ``set_state`` takes."""
+    return (str(state[0]), np.asarray(state[1], dtype=np.uint32),
+            int(state[2]), int(state[3]), float(state[4]))
+
+
+def __getattr__(name):
+    if name == "LibSVMIter":
+        raise AttributeError(
+            "mx.io.LibSVMIter is not ported yet (ROADMAP A item 10: it "
+            "yields CSR batches through ndarray/sparse.py)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def _batch_array(a):
+    """A fresh host batch (numpy) as an array on the current context: the
+    same memory on the host (float64 made float32, as ``nd.array``
+    does), one copy to the card.  ``nd.array`` would copy on the host
+    too, a copy torch splits over its thread pool, which a data
+    pipeline's own threads and workers keep busy."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.dtype == torch.float64:
+        t = t.float()
+    dev = _device.resolve(current_context())
+    return NDArray(t if dev.type == "cpu" else t.to(dev))
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -180,8 +236,6 @@ class NDArrayIter(DataIter):
                  last_batch_handle="pad", data_name="data",
                  label_name="softmax_label", seed=None, num_workers=1,
                  rank=0):
-        refuse_unported("NDArrayIter", "A14 (elastic sharding)",
-                        num_workers=(num_workers, 1), rank=(rank, 0))
         super().__init__(batch_size)
         self.data = _pairs(data, data_name)
         self.label = _pairs(label, label_name)
@@ -195,12 +249,32 @@ class NDArrayIter(DataIter):
         _check(self.num_data >= batch_size, "batch_size larger than dataset")
         self.shuffle = shuffle
         self.last_batch_handle = last_batch_handle
+        self.global_batch_size = int(batch_size)
         self._rng = np.random.RandomState(seed) if seed is not None \
             else np.random
         self._leftover = None
+        self._global_sel = None
+        self.num_workers = 1
+        self.rank = 0
+        self.set_shard(rank, num_workers)
+        self.reset()
+
+    def set_shard(self, rank, num_workers):
+        """Re-partition the live global stream: this rank now takes the
+        ``rank``-th of ``num_workers`` slices of each global batch; the
+        cursor, permutation and shuffle stream are unchanged."""
+        num_workers, rank = int(num_workers), int(rank)
+        _check(num_workers >= 1, "set_shard: num_workers must be >= 1")
+        _check(0 <= rank < num_workers,
+               f"set_shard: rank {rank} out of range for {num_workers}")
+        _check(self.global_batch_size % num_workers == 0,
+               f"set_shard: global batch {self.global_batch_size} not "
+               f"divisible by num_workers {num_workers}")
+        self.num_workers = num_workers
+        self.rank = rank
+        self.batch_size = self.global_batch_size // num_workers
         self._sel = None
         self._pad = 0
-        self.reset()
 
     @property
     def provide_data(self):
@@ -223,17 +297,18 @@ class NDArrayIter(DataIter):
         self.idx = epoch
         self.cursor = 0
         self._sel = None
+        self._global_sel = None
         self._pad = 0
 
     def iter_next(self):
-        n, bs = len(self.idx), self.batch_size
+        n, gbs = len(self.idx), self.global_batch_size
         remaining = n - self.cursor
         if remaining <= 0:
             return False
-        pad = 0
-        if remaining >= bs:
-            sel = self.idx[self.cursor:self.cursor + bs]
-            self.cursor += bs
+        gpad = 0
+        if remaining >= gbs:
+            gsel = self.idx[self.cursor:self.cursor + gbs]
+            self.cursor += gbs
         elif self.last_batch_handle == "discard":
             self.cursor = n
             return False
@@ -242,31 +317,68 @@ class NDArrayIter(DataIter):
             self.cursor = n
             return False
         else:                       # pad: wrap to the epoch's head
-            pad = bs - remaining
-            sel = np.concatenate([self.idx[self.cursor:], self.idx[:pad]])
+            gpad = gbs - remaining
+            gsel = np.concatenate([self.idx[self.cursor:], self.idx[:gpad]])
             self.cursor = n
-        self._sel, self._pad = sel, pad
+        self._global_sel = gsel
+        lb = self.batch_size
+        lo = self.rank * lb
+        self._sel = gsel[lo:lo + lb]
+        # the wrapped ids are the global batch's tail: this rank's pad is
+        # the part of that tail in its slice
+        self._pad = max(0, min(lb, lo + lb - (gbs - gpad))) if gpad else 0
         return True
+
+    def global_batch_ids(self):
+        """The sample ids of the last global batch: the same on every
+        rank of any world size at the same cursor."""
+        return (None if self._global_sel is None
+                else np.asarray(self._global_sel).copy())
 
     def state_dict(self):
         """Cursor, this epoch's permutation, the roll-over tail and the
-        shuffle stream, taken between batches."""
-        return {"iter": type(self).__name__, "version": 1,
-                "cursor": int(self.cursor), "idx": np.asarray(self.idx).copy(),
-                "leftover": (None if self._leftover is None
-                             else np.asarray(self._leftover).copy()),
-                "rng": self._rng.get_state()}
+        shuffle stream, in global sample space, taken between batches; a
+        sharded iterator's state (version 2) adds its ``shard``."""
+        state = {"iter": type(self).__name__,
+                 "version": 1 if self.num_workers == 1 else 2,
+                 "cursor": int(self.cursor),
+                 "idx": np.asarray(self.idx).copy(),
+                 "leftover": (None if self._leftover is None
+                              else np.asarray(self._leftover).copy()),
+                 "rng": self._rng.get_state()}
+        if self.num_workers != 1:
+            state["shard"] = {"num_workers": self.num_workers,
+                              "rank": self.rank,
+                              "global_batch": self.global_batch_size}
+        return state
 
     def load_state_dict(self, state):
+        """Take a captured global position; this iterator keeps its own
+        ``(rank, num_workers)``.  A version-2 state must come from the
+        same global batch; a version-1 state (no shard map) loads only
+        into an unsharded iterator."""
         _check_state(state, type(self).__name__)
+        shard = state.get("shard")
+        if shard is not None:
+            captured = int(shard.get("global_batch", -1))
+            if captured != self.global_batch_size:
+                raise MXNetError(
+                    f"load_state_dict: state was captured at global batch "
+                    f"{captured}, this iterator uses "
+                    f"{self.global_batch_size}")
+        elif self.num_workers != 1:
+            raise MXNetError(
+                "load_state_dict: a version-1 state has no shard map and "
+                "may be one worker's local stream; it cannot be "
+                f"re-partitioned to num_workers={self.num_workers} (load "
+                "it unsharded, then set_shard)")
         self.idx = np.asarray(state["idx"], dtype=np.intp)
         self.cursor = int(state["cursor"])
         lo = state.get("leftover")
         self._leftover = None if lo is None else np.asarray(lo, dtype=np.intp)
-        r = state["rng"]
-        self._rng.set_state((str(r[0]), np.asarray(r[1], dtype=np.uint32),
-                             int(r[2]), int(r[3]), float(r[4])))
+        self._rng.set_state(_np_rng_tuple(state["rng"]))
         self._sel = None
+        self._global_sel = None
         self._pad = 0
 
     def _take(self, arrs):
@@ -280,6 +392,65 @@ class NDArrayIter(DataIter):
 
     def getpad(self):
         return self._pad
+
+
+class ResizeIter(DataIter):
+    """``data_iter`` cut or extended to exactly ``size`` batches an epoch
+    (it is reset and read again when it runs out)."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+
+    @property
+    def provide_data(self):
+        return self.data_iter.provide_data
+
+    @property
+    def provide_label(self):
+        return self.data_iter.provide_label
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def state_dict(self):
+        return {"iter": "ResizeIter", "version": 1, "cur": int(self.cur),
+                "internal": self.data_iter.state_dict()}
+
+    def load_state_dict(self, state):
+        _check_state(state, "ResizeIter")
+        self.cur = int(state["cur"])
+        self.data_iter.load_state_dict(state["internal"])
+        self.current_batch = None
+
+    def close(self):
+        self.data_iter.close()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getpad(self):
+        return self.current_batch.pad
 
 
 class PrefetchingIter(DataIter):
@@ -573,3 +744,465 @@ class DevicePrefetchIter(PrefetchingIter):
                 for a in b.data + b.label:
                     a._data.record_stream(consumer)
         return staged
+
+
+def _read_idx_ubyte(path):
+    """An MNIST idx-ubyte file (``.gz`` or not) as a uint8 array."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dims = [struct.unpack(">I", f.read(4))[0] for _ in range(ndim)]
+        data = np.frombuffer(f.read(), dtype=np.uint8)
+    return data.reshape(dims)
+
+
+class MNISTIter(NDArrayIter):
+    """MNIST's idx-ubyte files as ``(N, 1, 28, 28)`` float32 in [0, 1]
+    (``flat``: ``(N, 784)``), shuffled with ``RandomState(seed)``, the
+    short tail discarded."""
+
+    def __init__(self, image, label, batch_size=128, shuffle=True,
+                 flat=False, silent=True, seed=0, **kwargs):
+        imgs = _read_idx_ubyte(image).astype(np.float32) / 255.0
+        labels = _read_idx_ubyte(label).astype(np.float32)
+        imgs = imgs.reshape(len(imgs), -1) if flat else imgs[:, None, :, :]
+        super().__init__(imgs, labels, batch_size=batch_size,
+                         shuffle=shuffle, last_batch_handle="discard",
+                         data_name="data", label_name="softmax_label",
+                         seed=seed)
+
+
+class CSVIter(NDArrayIter):
+    """Rows of ``data_csv`` reshaped to ``data_shape`` (labels from
+    ``label_csv``, else zeros); ``round_batch`` pads the last batch,
+    else it is discarded."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=128, round_batch=True,
+                 **kwargs):
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.float32, ndmin=2)
+        data = data.reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32,
+                               ndmin=2).reshape((-1,) + tuple(label_shape))
+        else:
+            label = np.zeros((len(data), 1), dtype=np.float32)
+        super().__init__(data, label, batch_size=batch_size,
+                         last_batch_handle="pad" if round_batch
+                         else "discard")
+
+
+def _pin_batches():
+    """Native batches go to page-locked memory when the current context
+    is the card."""
+    return current_context().kind == "gpu" and torch.cuda.is_available()
+
+
+def _native_unavailable(what, e, use_native):
+    """``use_native=True`` raises; None warns and takes the Python arm."""
+    if use_native:
+        raise e
+    warnings.warn(f"native {what} unavailable ({e}); using the Python "
+                  "pipeline")
+
+
+class ImageRecordIter(DataIter):
+    """JPEG records to batches of ``data_shape`` images with the
+    reference's augmentations (``resize`` of the shorter side,
+    ``rand_crop``, ``rand_mirror``, else a centre crop, then mean/std):
+    see the module's docstring for the two arms."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size, path_imgidx=None,
+                 label_width=1, shuffle=False, rand_crop=False,
+                 rand_mirror=False, resize=-1, mean_r=0.0, mean_g=0.0,
+                 mean_b=0.0, std_r=1.0, std_g=1.0, std_b=1.0,
+                 preprocess_threads=4, prefetch_buffer=4, round_batch=True,
+                 seed=0, use_native=None, output_dtype="float32",
+                 output_layout="NCHW", **kwargs):
+        super().__init__(batch_size)
+        self.data_shape = tuple(data_shape)
+        _check(len(self.data_shape) == 3, "data_shape must be (C,H,W)")
+        _check(output_dtype in ("float32", "uint8"),
+               "output_dtype must be float32|uint8")
+        _check(output_layout in ("NCHW", "NHWC"),
+               "output_layout must be NCHW|NHWC")
+        self.output_dtype = output_dtype
+        self.output_layout = output_layout
+        self.label_width = label_width
+        self.shuffle = shuffle
+        self.rand_crop = rand_crop
+        self.rand_mirror = rand_mirror
+        self.resize = resize
+        self.mean = np.array([mean_r, mean_g, mean_b], np.float32)
+        self.std = np.array([std_r, std_g, std_b], np.float32)
+        self.rng = np.random.RandomState(seed)
+        self.round_batch = round_batch
+        self._native = None
+        native_ok = (round_batch and self.data_shape[0] == 3
+                     and self._first_record_is_jpeg(path_imgrec))
+        if use_native and not native_ok:
+            raise MXNetError(
+                "use_native=True requires JPEG records, round_batch=True "
+                "and a 3-channel data_shape")
+        if use_native is not False and native_ok:
+            from ..lib import NativeBuildError
+            try:
+                from ..lib.recordio_cpp import NativeImagePipe
+                self._native = NativeImagePipe(
+                    path_imgrec, batch_size=batch_size,
+                    data_shape=self.data_shape, resize=resize,
+                    rand_crop=rand_crop, rand_mirror=rand_mirror,
+                    mean=self.mean, std=self.std,
+                    preprocess_threads=preprocess_threads,
+                    prefetch_buffer=prefetch_buffer, shuffle=shuffle,
+                    seed=seed, label_width=label_width,
+                    output_dtype=output_dtype, output_layout=output_layout,
+                    pin_memory=_pin_batches())
+            except (NativeBuildError, OSError) as e:
+                _native_unavailable("io", e, use_native)
+        if self._native is not None:
+            n = len(self._native)
+            self._nat_batches = (n + batch_size - 1) // batch_size
+            self._nat_pad = self._nat_batches * batch_size - n
+            self._nat_seen = 0
+            self._pad = 0
+            return
+        import cv2
+        self._cv2 = cv2
+        from ..recordio import MXIndexedRecordIO, MXRecordIO
+        if path_imgidx and os.path.isfile(path_imgidx):
+            self._rec = MXIndexedRecordIO(path_imgidx, path_imgrec, "r")
+            self._order = list(self._rec.keys)
+        else:
+            # no index: one pass records the offsets (shuffle needs them)
+            self._rec = MXRecordIO(path_imgrec, "r")
+            self._offsets = []
+            while True:
+                pos = self._rec.tell()
+                if self._rec.read() is None:
+                    break
+                self._offsets.append(pos)
+            self._order = list(range(len(self._offsets)))
+        self._pool = ThreadPoolExecutor(max_workers=preprocess_threads)
+        self._prefetch = prefetch_buffer
+        self.reset()
+
+    @property
+    def uses_native(self):
+        """True when the native pipeline produces the batches."""
+        return self._native is not None
+
+    @property
+    def provide_data(self):
+        c, h, w = self.data_shape
+        shp = (h, w, c) if self.output_layout == "NHWC" else (c, h, w)
+        dt = np.uint8 if self.output_dtype == "uint8" else np.float32
+        return [DataDesc("data", (self.batch_size,) + shp, dtype=dt,
+                         layout="N" + self.output_layout[1:])]
+
+    @property
+    def provide_label(self):
+        shp = (self.batch_size,) if self.label_width == 1 else (
+            self.batch_size, self.label_width)
+        return [DataDesc("softmax_label", shp)]
+
+    @staticmethod
+    def _first_record_is_jpeg(path, sample=8):
+        """The first ``sample`` records' payloads start with JPEG's
+        marker (the native pipeline decodes JPEG only)."""
+        from ..recordio import MXRecordIO, unpack
+        try:
+            r = MXRecordIO(path, "r")
+        except OSError:
+            return False
+        seen = 0
+        try:
+            for _ in range(sample):
+                raw = r.read()
+                if raw is None:
+                    break
+                _, payload = unpack(raw)
+                if bytes(payload[:2]) != b"\xff\xd8":
+                    return False
+                seen += 1
+        except (MXNetError, struct.error):
+            return False
+        finally:
+            r.close()
+        return seen > 0
+
+    def reset(self):
+        if self._native is not None:
+            self._native.reset()
+            self._nat_seen = 0
+            self._pad = 0
+            return
+        if self.shuffle:
+            self.rng.shuffle(self._order)
+        self._cursor = 0
+        self._pending = []
+
+    def state_dict(self):
+        """Cursor, shuffle permutation and augmentation stream (the Python
+        arm only: the native pipeline keeps its cursors in its threads;
+        pass ``use_native=False`` where resume must be exact)."""
+        if self._native is not None:
+            raise NotImplementedError(
+                "ImageRecordIter: state_dict is unsupported on the native "
+                "pipeline; pass use_native=False for deterministic resume")
+        return {"iter": type(self).__name__, "version": 1,
+                "cursor": int(self._cursor),
+                "order": [int(i) for i in self._order],
+                "rng": self.rng.get_state()}
+
+    def load_state_dict(self, state):
+        _check_state(state, type(self).__name__)
+        if self._native is not None:
+            raise NotImplementedError(
+                "ImageRecordIter: load_state_dict is unsupported on the "
+                "native pipeline; pass use_native=False")
+        self._order = [int(i) for i in state["order"]]
+        self._cursor = int(state["cursor"])
+        self._pad = 0
+        self._pending = []
+        self.rng.set_state(_np_rng_tuple(state["rng"]))
+
+    def close(self):
+        """Shut down the decode pool and close the record file (the
+        native pipeline keeps its threads for its lifetime)."""
+        if self._native is not None:
+            return
+        pool = getattr(self, "_pool", None)
+        if pool is not None:
+            pool.shutdown(wait=True)
+        rec = getattr(self, "_rec", None)
+        if rec is not None:
+            rec.close()
+
+    def _read_raw(self, key):
+        from ..recordio import MXIndexedRecordIO
+        if isinstance(self._rec, MXIndexedRecordIO):
+            return self._rec.read_idx(key)
+        self._rec.record.seek(self._offsets[key])
+        return self._rec.read()
+
+    def _decode_one(self, raw, aug):
+        # aug = (crop fraction y, crop fraction x, mirror), drawn on the
+        # consumer's thread: RandomState is not thread-safe, and drawing
+        # per batch there keeps a seeded run's draws in order
+        from ..recordio import unpack
+        cv2 = self._cv2
+        fy, fx, mirror = aug
+        header, img_bytes = unpack(raw)
+        img = cv2.imdecode(np.frombuffer(img_bytes, np.uint8),
+                           cv2.IMREAD_COLOR)
+        _check(img is not None, "image decode failed")
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        c, h, w = self.data_shape
+        if self.resize > 0:
+            scale = self.resize / min(img.shape[:2])
+            img = cv2.resize(img, (max(w, int(round(img.shape[1] * scale))),
+                                   max(h, int(round(img.shape[0] * scale)))))
+        ih, iw = img.shape[:2]
+        if ih < h or iw < w:
+            img = cv2.resize(img, (max(w, iw), max(h, ih)))
+            ih, iw = img.shape[:2]
+        if self.rand_crop:
+            y = int(fy * (ih - h + 1))
+            x = int(fx * (iw - w + 1))
+        else:
+            y, x = (ih - h) // 2, (iw - w) // 2
+        img = img[y:y + h, x:x + w]
+        if mirror:
+            img = img[:, ::-1]
+        if self.output_dtype != "uint8":
+            img = (img.astype(np.float32) - self.mean) / self.std
+        label = header.label if self.label_width > 1 else float(
+            np.asarray(header.label).ravel()[0])
+        if self.output_layout == "NCHW":
+            img = img.transpose(2, 0, 1)
+        return np.ascontiguousarray(img), label
+
+    def iter_next(self):
+        if self._native is not None:
+            out = self._native.next_batch()
+            if out is None:
+                return False
+            self._data, self._label = out
+            self._nat_seen += 1
+            self._pad = self._nat_pad \
+                if self._nat_seen == self._nat_batches else 0
+            return True
+        n = len(self._order)
+        if self._cursor >= n:
+            return False
+        idxs = [self._order[(self._cursor + i) % n]
+                for i in range(self.batch_size)]
+        self._pad = max(0, self._cursor + self.batch_size - n)
+        if self._pad and not self.round_batch:
+            return False
+        self._cursor += self.batch_size
+        raws = [self._read_raw(i) for i in idxs]
+        augs = [(self.rng.rand(), self.rng.rand(),
+                 self.rand_mirror and self.rng.rand() < 0.5)
+                for _ in idxs]
+        decoded = list(self._pool.map(self._decode_one, raws, augs))
+        self._data = np.stack([d for d, _ in decoded])
+        self._label = np.asarray([lab for _, lab in decoded],
+                                 dtype=np.float32)
+        return True
+
+    def getdata(self):
+        return [_batch_array(self._data)]
+
+    def getlabel(self):
+        return [_batch_array(self._label)]
+
+    def getpad(self):
+        return self._pad
+
+
+class ImageDetRecordIter(DataIter):
+    """Detection records to ``(images, (B, max_objects, 5) labels)``:
+    JPEG decode, the IoU-constrained random crop, mirror with the boxes,
+    resize to ``data_shape``, batching.  The native pipeline, or with
+    ``use_native=False`` (or where the library cannot be built and
+    ``use_native`` is None) :class:`tpu_mx_torch.image.ImageDetIter`,
+    which keeps the same labels but only the float32 NCHW output."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size, max_objects=None,
+                 shuffle=False, rand_crop=0, rand_mirror=False,
+                 mean_r=0.0, mean_g=0.0, mean_b=0.0, std_r=1.0, std_g=1.0,
+                 std_b=1.0, min_object_covered=0.3, area_range=(0.3, 1.0),
+                 aspect_ratio_range=(0.75, 1.33), max_attempts=20,
+                 preprocess_threads=4, prefetch_buffer=4, seed=0,
+                 use_native=None, output_dtype="float32",
+                 output_layout="NCHW", **kwargs):
+        super().__init__(batch_size)
+        self.data_shape = tuple(data_shape)
+        _check(len(self.data_shape) == 3, "data_shape must be (C,H,W)")
+        _check(output_dtype in ("float32", "uint8"),
+               "output_dtype must be float32|uint8")
+        _check(output_layout in ("NCHW", "NHWC"),
+               "output_layout must be NCHW|NHWC")
+        plain = output_dtype == "float32" and output_layout == "NCHW"
+        if not plain and use_native is False:
+            raise MXNetError("output_dtype/output_layout variants need "
+                             "the native pipeline (use_native=False set)")
+        self.output_dtype = output_dtype
+        self.output_layout = output_layout
+        self.max_objects = max_objects or self._scan_max_objects(path_imgrec)
+        self._pad = 0
+        self._native = None
+        if use_native is not False:
+            from ..lib import NativeBuildError
+            try:
+                from ..lib.recordio_cpp import NativeDetPipe
+                self._native = NativeDetPipe(
+                    path_imgrec, batch_size=batch_size,
+                    data_shape=self.data_shape,
+                    max_objects=self.max_objects,
+                    rand_crop=bool(rand_crop), rand_mirror=rand_mirror,
+                    mean=(mean_r, mean_g, mean_b),
+                    std=(std_r, std_g, std_b),
+                    min_object_covered=min_object_covered,
+                    area_range=area_range,
+                    aspect_ratio_range=aspect_ratio_range,
+                    max_attempts=max_attempts,
+                    preprocess_threads=preprocess_threads,
+                    prefetch_buffer=prefetch_buffer, shuffle=shuffle,
+                    seed=seed, output_dtype=output_dtype,
+                    output_layout=output_layout, pin_memory=_pin_batches())
+            except (NativeBuildError, OSError) as e:
+                _native_unavailable("det io", e, use_native or not plain)
+        if self._native is not None:
+            n = len(self._native)
+            self._nat_batches = (n + batch_size - 1) // batch_size
+            self._nat_pad = self._nat_batches * batch_size - n
+            self._nat_seen = 0
+            return
+        from ..image.detection import ImageDetIter
+        mean = std = None
+        if mean_r or mean_g or mean_b:
+            mean = np.array([mean_r, mean_g, mean_b], np.float32)
+        if std_r != 1.0 or std_g != 1.0 or std_b != 1.0:
+            std = np.array([std_r, std_g, std_b], np.float32)
+        self._py = ImageDetIter(
+            batch_size, self.data_shape, path_imgrec=path_imgrec,
+            shuffle=shuffle, max_objects=self.max_objects,
+            rand_crop=rand_crop, rand_mirror=rand_mirror, mean=mean,
+            std=std, min_object_covered=min_object_covered,
+            area_range=area_range, aspect_ratio_range=aspect_ratio_range,
+            max_attempts=max_attempts, **kwargs)
+
+    @property
+    def uses_native(self):
+        """True when the native pipeline produces the batches."""
+        return self._native is not None
+
+    @staticmethod
+    def _scan_max_objects(path_imgrec):
+        """The widest label block of the file, in boxes (headers only)."""
+        from ..recordio import MXRecordIO, unpack
+        widest = 1
+        r = MXRecordIO(path_imgrec, "r")
+        try:
+            while True:
+                raw = r.read()
+                if raw is None:
+                    break
+                header, _ = unpack(raw)
+                if header.flag:
+                    widest = max(widest, int(header.flag) // 5)
+        finally:
+            r.close()
+        return widest
+
+    @property
+    def provide_data(self):
+        c, h, w = self.data_shape
+        shp = (h, w, c) if self.output_layout == "NHWC" else (c, h, w)
+        dt = np.uint8 if self.output_dtype == "uint8" else np.float32
+        return [DataDesc("data", (self.batch_size,) + shp, dtype=dt,
+                         layout="N" + self.output_layout[1:])]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("label", (self.batch_size, self.max_objects, 5))]
+
+    def reset(self):
+        if self._native is not None:
+            self._native.reset()
+            self._nat_seen = 0
+            self._pad = 0
+        else:
+            self._py.reset()
+
+    def iter_next(self):
+        if self._native is not None:
+            out = self._native.next_batch()
+            if out is None:
+                return False
+            self._data, self._label = out
+            self._nat_seen += 1
+            self._pad = self._nat_pad \
+                if self._nat_seen == self._nat_batches else 0
+            return True
+        try:
+            batch = self._py.next()
+        except StopIteration:
+            return False
+        self._data = batch.data[0].asnumpy()
+        self._label = batch.label[0].asnumpy()
+        self._pad = batch.pad or 0
+        return True
+
+    def getdata(self):
+        return [_batch_array(self._data)]
+
+    def getlabel(self):
+        return [_batch_array(self._label)]
+
+    def getpad(self):
+        return self._pad

@@ -278,7 +278,7 @@ class LAMB(Optimizer):
         mean, var = state
         g = self._preprocess(grad, weight, wd)
         m = self.beta1 * mean + (1 - self.beta1) * g
-        v = self.beta2 * var + (1 - self.beta2) * g * g
+        v = self.beta2 * var + (1 - self.beta2) * g.square()
         if self.bias_correction:
             mhat = m / (1 - self.beta1 ** t)
             vhat = v / (1 - self.beta2 ** t)

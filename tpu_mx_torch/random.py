@@ -27,7 +27,8 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["seed", "generator", "take_seed", "get_state", "set_state"]
+__all__ = ["seed", "generator", "take_seed", "get_state", "set_state",
+           "host_rng"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -81,6 +82,14 @@ def seed(seed_state, ctx="all"):
             g.manual_seed(_seed)
     np.random.seed(int(seed_state) % (2 ** 32))
     return prior
+
+
+def host_rng():
+    """The host-side generator: numpy's global ``RandomState`` itself,
+    the stream :func:`seed` seeds and :func:`get_state` snapshots.  The
+    data plane's samplers and transforms draw through it, so a seeded
+    shuffle is the reference's bit for bit."""
+    return np.random.mtrand._rand
 
 
 def generator(device="cuda"):
