@@ -417,6 +417,49 @@ line each:
                  equal to the serial epoch), then one epoch of LeNet on
                  the card fed by the process workers.  No kernel of the
                  port launches.
+27. ``serve_arms`` — serving's decode arms at the ``serve`` width (after
+                 ``serve_recovery``): every ``TPUMX_PAGED_DECODE`` (0, 1,
+                 kernel) x ``TPUMX_FUSED_DECODE`` (0, 1) combination, the
+                 knobs unset, and the host layer loop at window 4 (paged
+                 and dense), each on ``serve``'s 8 greedy requests in
+                 two rounds (the second in reverse order): tokens/s,
+                 decode-step ms, host crossings a token;
+                 ``serve.decode_attention{kind}`` one call a layer a step
+                 under the arm's kind, the paged kernel's launches on
+                 the paged arms and none on dense; every arm's streams
+                 against each other and the CPU port's (near ties
+                 allowed).  The decode self-check at rate 1.0 on the
+                 host loop and the fused arm (no mismatch, the same
+                 streams), and with ``flaky_recompute=1`` armed (one
+                 ``DataCorruption``, one classified restart, the
+                 streams whole);
+28. ``crossover`` — forward plus backward of ``local_flash_attention`` on
+                 its dense and flash arms (after ``attention_bias``):
+                 bf16 and float32, causal and ``valid_length``, H=12
+                 D=64 and H=32 D=128, T from 128 to 2048 at 16384 tokens
+                 a call; median ms and peak memory of each, the flash
+                 output against the dense one (1e-4 in float32,
+                 2e-2 x max|ref| in bf16), and the largest T at which
+                 dense wins in both dtypes (``TPUMX_DENSE_MAX_KV``'s
+                 measured default, beside the code's);
+29. ``quantize`` — ``quantize_net`` of ResNet-50 v1 at full width
+                 (float32, NHWC, 224 x 224; after ``data``; BatchNorm's
+                 running statistics moved by 30 training-mode forwards
+                 first): calibrated on 4 batches of 32 synthetic
+                 images, one batch of 32
+                 through the int8 net; the int32 accumulators of the
+                 stem and of a 3 x 3 of stages 3 and 4 bit-equal to the
+                 CPU port's on the same int8 inputs, a full
+                 3 x 3 x 512 window of 127 x 127 exact (7.4e7 > 2^24),
+                 the int8 logits
+                 within 1e-3 x max|logit| of the CPU port's int8 net,
+                 int8 against float ms and their argmax agreement; then
+                 ``examples/quantization/quantize_cnn.py`` at its
+                 defaults through the alias, with its own check;
+30. ``estimator`` — ``examples/estimator/train.py`` at its defaults
+                 through the alias (forked ``DataLoader`` workers, the
+                 Estimator on the card): its own asserts, its wall
+                 time.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -5998,11 +6041,518 @@ def phase_data(ctx):
             ctx["failures"].append(f"data check {name} failed")
 
 
+# -- the quantization and estimator examples, the attention crossover and
+# -- serving's decode arms
+QUANT_NET, QUANT_CLASSES, QUANT_SIZE = "resnet50_v1", 1000, 224
+QUANT_BATCH, QUANT_CALIB_BATCHES = 32, 4
+# the convolutions whose int32 accumulators are held bit for bit: the stem
+# (7 x 7 x 3 taps), a 3 x 3 of stage 3 (2304 taps) and of stage 4 (4608)
+QUANT_SAMPLED = ("features.0", "features.6.0.body.3", "features.7.0.body.3")
+QUANT_CPU_ROWS = 2           # images the CPU port runs (inference rows are
+                             # independent): ~8 GMAC of int32 on the host
+QUANT_LOGITS_REL = 1e-3      # int8 logits, card against CPU, x max|logit|
+QUANT_REPS = 5
+# training-mode forwards that move BatchNorm's running statistics (momentum
+# 0.9) to ~0.96 of the batch's: at their initial (0, 1) the untrained
+# net's logits are ~1e-5, no test of the int8 path's scale
+QUANT_BN_WARM = 30
+# the dense/flash crossover: forward plus backward at 16384 tokens a call
+CROSS_T = (128, 256, 512, 1024, 2048)
+CROSS_TOKENS = 16384
+CROSS_SHAPES = ((12, 64), (32, 128))          # BERT-base; a 7B model's
+CROSS_REPS, CROSS_WARM = 10, 2
+# serving's decode arms: (name, TPUMX_PAGED_DECODE, TPUMX_FUSED_DECODE,
+# TPUMX_SPECULATIVE); None leaves a knob unset
+SERVE_ARMS = (("default", None, None, None),
+              ("dense_host", "0", "0", None),
+              ("dense_fused", "0", "1", None),
+              ("paged_host", "1", "0", None),
+              ("paged_fused", "1", "1", None),
+              ("kernel_host", "kernel", "0", None),
+              ("kernel_fused", "kernel", "1", None),
+              ("paged_host_spec4", "1", "0", str(SPEC_WINDOW)),
+              ("dense_host_spec4", "0", "0", str(SPEC_WINDOW)))
+SERVE_ARM_KNOBS = ("TPUMX_PAGED_DECODE", "TPUMX_FUSED_DECODE",
+                   "TPUMX_SPECULATIVE", "TPUMX_SELF_CHECK",
+                   "TPUMX_SELF_CHECK_SEED")
+
+
+class env_set:
+    """Set (a value) or unset (None) environment variables for the extent
+    of a ``with`` block, restoring them after."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def quant_images(torch, seed):
+    """A batch of synthetic normalised images, NHWC float32, drawn on the
+    card from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((QUANT_BATCH, QUANT_SIZE, QUANT_SIZE, 3),
+                       generator=gen, device="cuda")
+
+
+def phase_quantize(ctx):
+    """``quantize_net`` of ResNet-50 v1 at full width on the card (float32,
+    channels-last, 224 x 224): calibrated on QUANT_CALIB_BATCHES batches,
+    one batch through the int8 net; the sampled convolutions' int32
+    accumulators against the CPU port's, the int8 logits against the CPU
+    port's int8 net, int8 against float ms; then
+    ``examples/quantization/quantize_cnn.py`` at its defaults."""
+    import torch
+    from tpu_mx_torch.contrib import quantization as q
+    from tpu_mx_torch.ndarray import NDArray
+    from tpu_mx_torch.ndarray import quantized_ops as qops
+
+    t0 = time.perf_counter()
+    reset_port_kernel_launches()
+    net = zoo_net(torch, QUANT_NET, "cuda")
+    net.initialize("xavier",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        net.eval()(quant_images(torch, 99)[:1])      # fixes the shapes
+        net.train()
+        warm = quant_images(torch, 98)
+        for _ in range(QUANT_BN_WARM):
+            net(warm)
+        net.eval()
+    tc = time.perf_counter()
+    qnet = q.quantize_net(net, calib_iter=[
+        NDArray(quant_images(torch, i)) for i in range(QUANT_CALIB_BATCHES)])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - tc
+    x = NDArray(quant_images(torch, 100))
+    seen = {}
+    hooks = [blk.register_forward_pre_hook(
+        lambda b, args, n=n: seen.__setitem__(n, args[0]))
+        for n, blk in q._named_quantizable(net) if n in QUANT_SAMPLED]
+    logits = qnet(x)._data
+    for h in hooks:
+        h.detach()
+    with torch.no_grad():
+        flt = net(x)._data
+    int8_ms = cuda_ms(torch, lambda: qnet(x), reps=QUANT_REPS, warm=1)
+    float_ms = cuda_ms(torch, lambda: net(x), reps=QUANT_REPS, warm=1)
+    agree = float((logits.argmax(-1) == flt.argmax(-1)).float().mean())
+    # the sampled accumulators: the card's whole batch, its leading rows
+    # against the CPU port's on the same int8 inputs
+    rows = QUANT_CPU_ROWS
+    accs = {}
+    for n in QUANT_SAMPLED:
+        ql, c = qnet._qmap[n], net.get_submodule(n)
+        xq = q.quantize(seen[n], *ql._in_range)[0]._data
+        kw = dict(kernel=c._kernel, stride=c._strides, pad=c._padding,
+                  dilate=c._dilation, num_filter=c._channels,
+                  num_group=c._groups, layout=c._layout)
+        rng = (*ql._in_range, ql._wmin, ql._wmax)
+        card = qops.quantized_conv(xq, ql._wq._data, None, *rng, **kw)[0]
+        host = qops.quantized_conv(xq[:rows].cpu(), ql._wq._data.cpu(),
+                                   None, *rng, **kw)[0]
+        taps = math.prod(c._kernel) * ql._wq.shape[-1]
+        accs[n] = dict(taps=taps, shape=list(card.shape),
+                       dtype=str(card.dtype),
+                       bit_equal=bool(torch.equal(card[:rows].cpu(), host)),
+                       max_abs=int(card.abs().max()),
+                       past_f32_exact=int(card.abs().max()) > 1 << 24)
+    # every tap of a 3 x 3 x 512 window at 127 x 127 (one at 126): 7.4e7,
+    # past what a float32 accumulator holds exactly
+    ones = torch.full((1, 3, 3, 512), 127, dtype=torch.int8, device="cuda")
+    w = ones.clone()
+    w[0, 0, 0, 0] = 126
+    full = int(qops.quantized_conv(ones, w, None, -1.0, 1.0, -1.0, 1.0,
+                                   kernel=(3, 3), num_filter=1,
+                                   layout="NHWC")[0].reshape(-1)[0])
+    # the CPU port's int8 net: the same weights, the card's ranges
+    params = {p.name: p._ref_view().detach().cpu().numpy()
+              for p in net.collect_params().values()}
+    host_net = zoo_copy(torch, QUANT_NET, "cpu", params)
+    host_q = q._QuantizedNet(host_net, {
+        n: type(ql)(host_net.get_submodule(n), ql._in_range)
+        for n, ql in qnet._qmap.items()})
+    th = time.perf_counter()
+    from tpu_mx_torch.context import cpu
+    with cpu():
+        host_logits = host_q(NDArray(x._data[:rows].cpu()))._data
+    host_s = time.perf_counter() - th
+    scale = float(host_logits.abs().max())
+    logits_err = float((logits[:rows].cpu() - host_logits).abs().max())
+    weights_equal = all(
+        torch.equal(ql._wq._data.cpu(), host_q._qmap[n]._wq._data)
+        for n, ql in qnet._qmap.items())
+    # the reference's example at its defaults, through the alias
+    alias = port_alias("gluon", "gluon.nn", "contrib", "contrib.quantization")
+    try:
+        _, text, ex_s, loaded = run_example(
+            "quantization/quantize_cnn.py", ["quantize_cnn.py"], alias)
+        ex_exit = None
+    except SystemExit as e:         # its own check failed
+        text, ex_s, loaded, ex_exit = "", None, [], e.code
+    ex = {k: float(m.group(1)) for k, m in (
+        (k, re.search(pat + r"\s+([\d.]+)", text)) for k, pat in (
+            ("float_accuracy", r"float32 accuracy:"),
+            ("int8_accuracy", r"int8    accuracy:"),
+            ("agreement", r"argmax agreement:"))) if m}
+    ctx["quantize_launches"] = port_kernel_launches()
+    checks = {
+        "leaves": len(qnet._qmap) == 54,
+        "accumulators_bit_equal": all(a["bit_equal"] for a in accs.values()),
+        "accumulators_int32": all(a["dtype"] == "torch.int32"
+                                  for a in accs.values()),
+        "full_tap_sum_exact": full == 4608 * 127 * 127 - 127,
+        "int8_weights_equal": weights_equal,
+        "logits_finite": bool(torch.isfinite(logits).all()),
+        "logits_match_cpu": logits_err <= QUANT_LOGITS_REL * scale,
+        "example_passed": ex_exit is None and "PASSED" in text,
+        "no_reference_module_loaded": not loaded,
+        "no_jax": "jax" not in sys.modules,
+        "no_port_kernel_launched": not any(ctx["quantize_launches"].values()),
+    }
+    ctx["quantize"] = dict(int8_ms=int8_ms, float_ms=float_ms,
+                           agreement=agree)
+    emit("quantize", ok=all(checks.values()), checks=checks,
+         net=QUANT_NET, batch=QUANT_BATCH, size=QUANT_SIZE, layout="NHWC",
+         calib_batches=QUANT_CALIB_BATCHES, calib_seconds=calib_s,
+         quantized_leaves=len(qnet._qmap), int8_ms=int8_ms,
+         float_ms=float_ms, int8_over_float=int8_ms / float_ms,
+         argmax_agreement=agree, accumulators=accs, cpu_rows=rows,
+         full_tap_sum=full, bn_warm_forwards=QUANT_BN_WARM,
+         logits_max_abs_err=logits_err, logits_scale=scale,
+         logits_tol=QUANT_LOGITS_REL * scale, cpu_seconds=host_s,
+         example=dict(ex, seconds=ex_s, exit=ex_exit),
+         launches=ctx["quantize_launches"],
+         seconds=time.perf_counter() - t0, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"quantize check {name} failed")
+    del net, qnet, host_net, host_q
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_estimator(ctx):
+    """``examples/estimator/train.py`` unedited at its defaults on the card
+    through the alias: its own asserts (loss < 0.45, accuracy > 0.8, a
+    ``best`` checkpoint) hold."""
+    import torch
+    from tpu_mx_torch.gluon.contrib import estimator as est
+
+    alias = port_alias("gluon", "gluon.nn", "gluon.data", "gluon.contrib",
+                       "gluon.contrib.estimator")
+    devices = []
+    real = est.Estimator.fit
+
+    def recorded(self, *args, **kwargs):
+        devices.extend({p.data()._data.device.type
+                        for p in self.net.collect_params().values()})
+        return real(self, *args, **kwargs)
+
+    reset_port_kernel_launches()
+    est.Estimator.fit = recorded
+    try:
+        _, text, seconds, loaded = run_example(
+            "estimator/train.py", ["train.py"], alias)
+    finally:
+        est.Estimator.fit = real
+    m = re.search(r"eval loss ([\d.]+)\s+accuracy ([\d.]+)", text)
+    ctx["estimator_launches"] = port_kernel_launches()
+    checks = {
+        "ended_with_its_assertions": m is not None
+        and "checkpoints:" in text,
+        "trained_on_the_card": set(devices) == {"cuda"},
+        "no_reference_module_loaded": not loaded,
+        "no_jax": "jax" not in sys.modules,
+    }
+    ctx["estimator"] = dict(seconds=seconds)
+    emit("estimator", ok=all(checks.values()), checks=checks,
+         argv=["train.py"], eval_loss=float(m.group(1)) if m else None,
+         accuracy=float(m.group(2)) if m else None, wall_seconds=seconds,
+         launches=ctx["estimator_launches"],
+         reference_modules_loaded=loaded[:10], card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"estimator check {name} failed")
+    torch.cuda.empty_cache()
+
+
+def crossover_point(torch, ra, dtype, h, d, t, causal, gen):
+    """Forward plus backward of ``local_flash_attention`` at one point on
+    both arms: each arm's median ms and peak memory, and the flash
+    output's error against the dense arm's."""
+    b = CROSS_TOKENS // t
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
+               .to(dtype).requires_grad_() for _ in range(3))
+    g = torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
+    valid = None if causal else torch.randint(
+        t // 2, t + 1, (b,), generator=gen, device="cuda").to(torch.int32)
+    rec = {}
+    outs = {}
+    for mode in ("dense", "flash"):
+        with env_set(TPUMX_ATTENTION=mode):
+            arm = ra.attention_arm("cuda", d, dtype, mode, t)
+
+            def run():
+                out = ra.local_flash_attention(q, k, v, causal=causal,
+                                               valid_length=valid)
+                out.backward(g)
+                return out
+
+            outs[mode] = run().detach().float()
+            q.grad = k.grad = v.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ms = cuda_ms(torch, run, reps=CROSS_REPS, warm=CROSS_WARM)
+            q.grad = k.grad = v.grad = None
+        rec[mode] = dict(arm=arm, ms=ms, peak_bytes=peak)
+    err = float((outs["flash"] - outs["dense"]).abs().max())
+    ref = float(outs["dense"].abs().max())
+    tol = FLASH_ATOL if dtype == torch.float32 else BF16_REL * ref
+    return dict(b=b, dense_ms=rec["dense"]["ms"], flash_ms=rec["flash"]["ms"],
+                dense_peak_bytes=rec["dense"]["peak_bytes"],
+                flash_peak_bytes=rec["flash"]["peak_bytes"],
+                arms=[rec["dense"]["arm"], rec["flash"]["arm"]],
+                max_abs_err=err, tol=tol, ok=err <= tol,
+                dense_wins=rec["dense"]["ms"] < rec["flash"]["ms"])
+
+
+def phase_crossover(ctx):
+    """Where the dense arm beats the flash kernels on the card: forward
+    plus backward of ``local_flash_attention`` on both arms, bf16 and
+    float32, causal and padded (``valid_length`` in [T/2, T]), H=12 D=64
+    and H=32 D=128, T in CROSS_T at CROSS_TOKENS tokens a call; the
+    largest T at which dense wins in every case of both dtypes (and of
+    every T below) is the measured default of ``TPUMX_DENSE_MAX_KV``."""
+    import torch
+    from tpu_mx_torch.parallel import ring_attention as ra
+
+    t0 = time.perf_counter()
+    reset_port_kernel_launches()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    table = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, d in CROSS_SHAPES:
+            for causal in (True, False):
+                for t in CROSS_T:
+                    p = crossover_point(torch, ra, dtype, h, d, t, causal,
+                                        gen)
+                    p.update(dtype=str(dtype).replace("torch.", ""), h=h,
+                             d=d, t=t, mask="causal" if causal
+                             else "valid_length")
+                    table.append(p)
+                    emit("crossover_point", **p)
+                    torch.cuda.empty_cache()
+    wins = {t: all(p["dense_wins"] for p in table if p["t"] == t)
+            for t in CROSS_T}
+    by_dtype = {dt: max([0] + [t for t in CROSS_T if all(
+        p["dense_wins"] for p in table if p["t"] <= t and p["dtype"] == dt)])
+        for dt in ("bfloat16", "float32")}
+    chosen = max([0] + [t for t in CROSS_T
+                        if all(wins[u] for u in CROSS_T if u <= t)])
+    ctx["crossover_launches"] = port_kernel_launches()
+    checks = {
+        "every_point": len(table) == 2 * len(CROSS_SHAPES) * 2 * len(CROSS_T),
+        "flash_matches_dense": all(p["ok"] for p in table),
+        "arms_as_pinned": all(p["arms"] == ["dense", "flash_kernel"]
+                              for p in table),
+        "flash_launched": ctx["crossover_launches"]["flash_attention_fwd"]
+        > 0,
+    }
+    ctx["crossover"] = dict(chosen=chosen, by_dtype=by_dtype)
+    emit("crossover", ok=all(checks.values()), checks=checks,
+         tokens=CROSS_TOKENS, shapes=[list(s) for s in CROSS_SHAPES],
+         t=list(CROSS_T), dense_wins_by_t=wins,
+         dense_max_kv_by_dtype=by_dtype, chosen_default=chosen,
+         code_default=ra.DENSE_MAX_KV_DEFAULT,
+         default_agrees=chosen == ra.DENSE_MAX_KV_DEFAULT,
+         launches=ctx["crossover_launches"],
+         seconds=time.perf_counter() - t0, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"crossover check {name} failed")
+
+
+def serve_arm_run(torch, model, prompts, name, paged, fused, spec,
+                  self_check=None, flaky=False):
+    """One arm's server over ``prompts`` from counts at 0 (a warm-up
+    request first): :func:`serve_run`'s numbers, the engine's arm, the
+    decode-attention counts by kind, the host crossings and the
+    self-check's counters."""
+    from tpu_mx_torch import telemetry, tracing
+    from tpu_mx_torch.contrib import chaos
+    from tpu_mx_torch.serving import Server
+    knobs = dict(TPUMX_PAGED_DECODE=paged, TPUMX_FUSED_DECODE=fused,
+                 TPUMX_SPECULATIVE=spec, TPUMX_SELF_CHECK=self_check,
+                 TPUMX_SELF_CHECK_SEED=None)
+    with env_set(**knobs):
+        srv = Server(model, max_batch=8, block_size=16, num_blocks=1024,
+                     backoff=0.0)
+        srv.submit(prompts[0][:16], max_new_tokens=2, request_id="warm")
+        srv.run_until_idle()
+        if flaky:
+            with chaos.enable(flaky_recompute=1) as cfg:
+                run = serve_run(torch, srv, prompts, NEW_TOKENS,
+                                ids=name[:2])
+            run["flaky_fired"] = cfg.flaky_fired
+        else:
+            run = serve_run(torch, srv, prompts, NEW_TOKENS, ids=name[:2])
+
+    def value(metric, **labels):
+        m = telemetry.get(metric, **labels)
+        return 0 if m is None else m.value
+
+    tokens = sum(len(s) for s in run["streams"])
+    run.update(
+        arm=dict(decode_kind=srv.engine.decode_kind, fused=srv.engine.fused,
+                 spec_window=srv.engine.spec_window),
+        decode_attention={k: value("serve.decode_attention", kind=k)
+                          for k in ("dense", "paged", "paged-kernel")},
+        host_crossings=value("serve.host_crossings"),
+        host_crossings_per_token=value("serve.host_crossings") / tokens,
+        self_checks=value("integrity.self_checks"),
+        self_check_mismatches=value("integrity.self_check_mismatches"),
+        restarts=srv.restarts,
+        restart_reasons=[e["data"]["reason"][:80] for e in
+                         tracing.snapshot()
+                         if e["event"] == "serve.restart"])
+    return run
+
+
+def phase_serve_arms(ctx):
+    """Serving's decode arms at the serve phase's width: every
+    ``TPUMX_PAGED_DECODE`` x ``TPUMX_FUSED_DECODE`` combination (and the
+    knobs unset, and the host loop at window SPEC_WINDOW) on the same 8
+    greedy requests, in two rounds (the second in reverse order); the
+    decode self-check at rate 1.0 on the host and the fused arm, and
+    with a flaky recompute armed."""
+    import torch
+    from tpu_mx_torch.serving import Server, TinyLM
+    from tpu_mx_torch.supervisor import classify, DataCorruption
+
+    t0 = time.perf_counter()
+    model = ctx.get("serve_model") or TinyLM(**SERVE, device="cuda")
+    prompts = serve_prompts()
+    layers = SERVE["num_layers"]
+    # two rounds, the second in reverse order: the first run of a code
+    # path pays its warm-up (cuBLAS's handles, the allocator's blocks)
+    rounds = {}
+    for arms in (SERVE_ARMS, SERVE_ARMS[::-1]):
+        for name, paged, fused, spec in arms:
+            rounds.setdefault(name, []).append(serve_arm_run(
+                torch, model, prompts, name, paged, fused, spec))
+    runs = {name: rs[0] for name, rs in rounds.items()}
+    for name, fused in (("self_check_host", "0"),
+                        ("self_check_fused", "1")):
+        runs[name] = serve_arm_run(torch, model, prompts, name, "1", fused,
+                                   None, self_check="1.0")
+    runs["flaky"] = serve_arm_run(torch, model, prompts, "flaky", "1", "0",
+                                  None, self_check="1.0", flaky=True)
+    # the CPU port: the same weights, the default arm's plain versions
+    th = time.perf_counter()
+    cpu = TinyLM.from_numpy(*model.to_numpy(), num_heads=SERVE["num_heads"],
+                            device="cpu")
+    host = Server(cpu, max_batch=8, block_size=16, num_blocks=1024,
+                  device="cpu")
+    hreqs = [host.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    host.run_until_idle()
+    host_s = time.perf_counter() - th
+    want = [r.tokens for r in hreqs]
+    splits = {name: stream_splits(model, prompts, r["streams"], want)
+              for name, r in runs.items()}
+    base = runs["paged_fused"]["streams"]
+    checks = {}
+    for name, paged, fused, spec in SERVE_ARMS:
+        kind = {None: "paged", "1": "paged", "0": "dense",
+                "kernel": "paged-kernel"}[paged]
+        ok = {"done": True, "arm": True, "decode_attention": True,
+              "paged_launches": True}
+        for r in rounds[name]:
+            steps = r["decode_steps"]
+            ok["done"] &= r["done"] and r["streams"] == runs[name]["streams"]
+            ok["arm"] &= r["arm"]["decode_kind"] == kind and \
+                r["arm"]["fused"] == (fused != "0" and kind != "dense")
+            ok["decode_attention"] &= r["decode_attention"] == {
+                k: (layers * steps if k == kind else 0)
+                for k in ("dense", "paged", "paged-kernel")}
+            ok["paged_launches"] &= (
+                r["launches"]["paged_attention"] == 0 if kind == "dense"
+                else r["launches"]["paged_attention"] == layers * steps)
+        checks.update({f"{name}_{k}": v for k, v in ok.items()})
+        checks[f"{name}_streams_cpu"] = splits_ok(splits[name])
+        checks[f"{name}_streams_arms"] = splits_ok(stream_splits(
+            model, prompts, runs[name]["streams"], base))
+    for name in ("self_check_host", "self_check_fused"):
+        r = runs[name]
+        checks[f"{name}_no_mismatch"] = r["self_check_mismatches"] == 0 \
+            and r["self_checks"] == r["decode_steps"] > 0 \
+            and r["restarts"] == 0
+        checks[f"{name}_streams"] = r["streams"] == runs[
+            "paged_host" if name.endswith("host") else "paged_fused"][
+                "streams"]
+    r = runs["flaky"]
+    checks["flaky_caught"] = r["flaky_fired"] == 1 and \
+        r["self_check_mismatches"] == 1 and r["restarts"] == 1 and \
+        classify(DataCorruption("x")) == "corruption" and \
+        any("DataCorruption" in s for s in r["restart_reasons"])
+    # the restart's replay prefills recompute the committed tokens' K/V
+    # on the flash forward: a later token may split only at a near tie
+    checks["flaky_streams_whole"] = r["done"] and splits_ok(stream_splits(
+        model, prompts, r["streams"], runs["paged_host"]["streams"]))
+    every = [r for rs in rounds.values() for r in rs] + [
+        runs[n] for n in ("self_check_host", "self_check_fused", "flaky")]
+    ctx["serve_arms_launches"] = {
+        k: sum(r["launches"][k] for r in every)
+        for k in runs["default"]["launches"]}
+    per_round = lambda name, key: [r[key] for r in rounds.get(
+        name, [runs[name]])]
+    table = {name: dict(
+        arm=r["arm"], tokens_per_sec=per_round(name, "tokens_per_sec"),
+        decode_step_ms_median=per_round(name, "decode_step_ms_median"),
+        decode_steps=r["decode_steps"],
+        host_crossings_per_token=r["host_crossings_per_token"],
+        decode_attention=r["decode_attention"],
+        paged_launches=r["launches"]["paged_attention"],
+        flash_launches=r["launches"]["flash_attention_fwd"],
+        self_checks=r["self_checks"],
+        self_check_mismatches=r["self_check_mismatches"],
+        restarts=r["restarts"], stream_splits_vs_cpu=[
+            s for s, _ in splits[name]])
+        for name, r in runs.items()}
+    ctx["serve_arms"] = table
+    emit("serve_arms", ok=all(checks.values()), checks=checks, arms=table,
+         cpu_seconds=host_s, launches=ctx["serve_arms_launches"],
+         seconds=time.perf_counter() - t0, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"serve_arms check {name} failed")
+    torch.cuda.empty_cache()
+
+
 def later_launches(ctx, name):
-    """A kernel's launches in the MoE, example and operators phases."""
+    """A kernel's launches in the MoE, example, operators, data and later
+    phases."""
     return {f"launches_{p}": ctx[f"{p}_launches"][name]
             for p in ("moe_parity", "moe_train", "bert_example",
-                      "moe_example", "operators", "data")}
+                      "moe_example", "operators", "data", "serve_arms",
+                      "crossover", "quantize", "estimator")}
 
 
 def main():
@@ -6029,6 +6579,7 @@ def main():
                      ("serve", phase_serve),
                      ("serve_features", phase_serve_features),
                      ("serve_recovery", phase_serve_recovery),
+                     ("serve_arms", phase_serve_arms),
                      ("train_parity", phase_train_parity),
                      ("train", phase_train),
                      ("train_f32", phase_train_f32),
@@ -6050,7 +6601,10 @@ def main():
                      ("moe_example", phase_moe_example),
                      ("operators", phase_operators),
                      ("data", phase_data),
+                     ("quantize", phase_quantize),
+                     ("estimator", phase_estimator),
                      ("attention_bias", phase_attention_bias),
+                     ("crossover", phase_crossover),
                      ("rtc", phase_rtc)):
         try:
             fn(ctx)
@@ -6072,7 +6626,10 @@ def main():
                                 "zoo_launches", "moe_parity_launches",
                                 "moe_train_launches", "bert_example_launches",
                                 "moe_example_launches",
-                                "operators_launches", "data_launches"} \
+                                "operators_launches", "data_launches",
+                                "serve_arms_launches", "crossover_launches",
+                                "quantize_launches",
+                                "estimator_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1

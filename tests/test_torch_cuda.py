@@ -1525,3 +1525,60 @@ def test_padded_average_pool_gradient_on_the_card_equals_the_cpu(
         (g,) = torch.autograd.grad(y, xi, w.to(dev))
         grads.append(g.cpu())
     assert torch.allclose(grads[1], grads[0], rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# int8 products and the decode arms on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,k,n", [(3, 147, 64), (401, 576, 64),
+                                   (17, 4608, 512)])
+def test_int8_matmul_on_the_card_is_the_cpus_exactly(m, k, n):
+    from tpu_mx_torch.ndarray import quantized_ops as qops
+    g = torch.Generator().manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    got = qops.int8_matmul(a.cuda(), b.cuda())
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), qops.int8_matmul(a, b))
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_quantized_conv_on_the_card_is_the_cpus_exactly(layout):
+    from tpu_mx_torch.ndarray import quantized_ops as qops
+    g = torch.Generator().manual_seed(3)
+    shape = (2, 16, 9, 9) if layout == "NCHW" else (2, 9, 9, 16)
+    wshape = (24, 8, 3, 3) if layout == "NCHW" else (24, 3, 3, 8)
+    x = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, wshape, generator=g, dtype=torch.int8)
+    kw = dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_group=2,
+              num_filter=24, layout=layout)
+    got = qops.quantized_conv(x.cuda(), w.cuda(), None, -1.0, 1.0, -1.0,
+                              1.0, **kw)[0]
+    want = qops.quantized_conv(x, w, None, -1.0, 1.0, -1.0, 1.0, **kw)[0]
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("paged,fused", [("0", "0"), ("1", "0"),
+                                         ("kernel", "1"), ("1", "1")])
+def test_every_decode_arm_on_the_card_serves_the_cpus_streams(
+        monkeypatch, paged, fused):
+    from tpu_mx_torch import telemetry
+    from tpu_mx_torch.serving import Server, TinyLM
+    monkeypatch.setenv("TPUMX_PAGED_DECODE", paged)
+    monkeypatch.setenv("TPUMX_FUSED_DECODE", fused)
+    monkeypatch.setenv("TPUMX_SELF_CHECK", "1.0")
+    kw = dict(vocab_size=64, embed_dim=256, num_heads=2, num_layers=2,
+              seed=0)
+    streams = []
+    for dev in ("cpu", "cuda"):
+        telemetry.reset()
+        launches = pa.paged_attention.launches
+        srv = Server(TinyLM(**kw, device=dev), num_blocks=64, device=dev)
+        req = srv.submit(list(range(3, 40)), max_new_tokens=8)
+        srv.run_until_idle()
+        streams.append(req.tokens)
+        assert telemetry.get("integrity.self_check_mismatches") is None
+        if dev == "cuda":
+            ran = pa.paged_attention.launches - launches
+            assert (ran == 0) == (paged == "0")
+    assert streams[0] == streams[1]

@@ -116,7 +116,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
             "tpu_mx_torch.parallel, tpu_mx_torch.optimizer, "
             "tpu_mx_torch.gluon, tpu_mx_torch.rtc, tpu_mx_torch.resume, "
             "tpu_mx_torch.serving.sampling, tpu_mx_torch.serving.speculative, "
-            "tpu_mx_torch.serving.prefix_cache; "
+            "tpu_mx_torch.serving.prefix_cache, "
+            "tpu_mx_torch.serving.jax_model, "
+            "tpu_mx_torch.ndarray.quantized_ops, "
+            "tpu_mx_torch.contrib.quantization, "
+            "tpu_mx_torch.gluon.contrib.estimator, "
+            "tpu_mx_torch.parallel.integrity; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_mx')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -186,12 +186,16 @@ def test_dense_decode_arm_equals_the_paged_plain_version():
     tables = torch.from_numpy(rng.permutation(20)[:b * nb]
                               .reshape(b, nb).astype(np.int32))
     lens = torch.tensor([17, 4, 9], dtype=torch.int32)
+    # the padded gather of the tables, as PagedKVCache.gather_batch makes it
+    kd, vd = (p[tables.long()].reshape(b, nb * bs, h, d) for p in (kp, vp))
     for tq in (1, 3):
         q = torch.from_numpy(rng.randn(b, tq, h, d).astype(np.float32))
         want = pa.paged_attention_plain(q, kp, vp, tables, lens, d ** -0.5)
-        got = sattn.dense_decode_attention(q, kp, vp, tables, lens)
+        got = sattn.dense_attention(q, kd, vd, lengths=lens, causal=True)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    got = sattn.dense_decode_attention(q[:, 0], kp, vp, tables, lens)
+        got = sattn._dense_on_tables(q, kp, vp, tables, lens)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    got = sattn.dense_decode_attention(q[:, 0], kd, vd, lens)
     want = pa.paged_attention_plain(q[:, :1], kp, vp, tables, lens,
                                     d ** -0.5)[:, 0]
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

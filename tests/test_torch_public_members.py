@@ -33,7 +33,6 @@ def _item(n, what):
     return f"ROADMAP A item {n} ({what})"
 
 
-_ITEM2 = _item(2, "serving's remaining decode arms")
 _ITEM8 = _item(8, "runtime planes")
 _ITEM9 = _item(9, "multi-device parallel")
 _ITEM10 = _item(10, "graph API and the long tail")
@@ -68,19 +67,9 @@ ALLOWED = {
     ("tpu_mx_torch.gluon.rnn.rnn_layer", "rnn_fused_core"):
         JAX + "the scan core keyed by a PRNG key; the port's recurrence is "
         "ndarray.rnn_op.recurrence",
-    ("tpu_mx_torch.kernels.paged_attention", "DEFAULT_BLOCK_SIZE"): _ITEM2,
-    ("tpu_mx_torch.kernels.paged_attention", "paged_attention_reference"):
-        _ITEM2,
-    ("tpu_mx_torch.kernels.paged_attention", "window_walk"): _ITEM2,
-    ("tpu_mx_torch.serving.attention", "decode_path"): _ITEM2,
-    ("tpu_mx_torch.serving.attention", "resolve_decode_path"): _ITEM2,
-    ("tpu_mx_torch.serving.model", "TinyLM.embed"): _ITEM2,
-    ("tpu_mx_torch.serving.model", "TinyLM.layer_qkv"): _ITEM2,
-    ("tpu_mx_torch.serving.model", "TinyLM.layer_combine"): _ITEM2,
-    ("tpu_mx_torch.serving.model", "TinyLM.logits"): _ITEM2,
-    **{("tpu_mx_torch.serving.kv_cache", f"PagedKVCache.{m}"): _ITEM2
-       for m in ("write", "write_batch", "write_window", "gather_batch",
-                 "pools", "adopt_pools")},
+    ("tpu_mx_torch.serving.jax_model", "JaxTinyLM"):
+        JAX + "the jitted whole-step decode program; the port's fused arm "
+        "is TinyLM.decode_step",
     ("tpu_mx_torch.io.io", "LibSVMIter"):
         _ITEM10 + ": its CSR batches need ndarray/sparse.py",
     **{("tpu_mx_torch.checkpoint", n): _ITEM8
@@ -98,16 +87,14 @@ ALLOWED = {
                  "CapsuleManager", "ModuleState", "capsule_path", "log",
                  "read_capsule", "step_capsule_path", "step_state_path")},
     **{("tpu_mx_torch.supervisor", n): _ITEM8
-       for n in ("DataCorruption", "NumericSentinel", "Supervise",
+       for n in ("NumericSentinel", "Supervise",
                  "Supervisor", "SupervisorResult", "for_module")},
     **{("tpu_mx_torch.contrib.chaos", n): _ITEM8
-       for n in ("maybe_bitflip", "maybe_crash_step", "maybe_flaky_recompute",
-                 "maybe_hang", "maybe_oserror", "maybe_preempt",
-                 "maybe_slow_worker", "partitioned", "peer_killed",
-                 "wrap_file")},
+       for n in ("maybe_bitflip", "maybe_crash_step", "maybe_hang",
+                 "maybe_oserror", "maybe_preempt", "maybe_slow_worker",
+                 "partitioned", "peer_killed", "wrap_file")},
     **{("tpu_mx_torch.parallel.integrity", n): _ITEM8
-       for n in ("IntegrityMonitor", "ShadowAuditor", "bits_equal", "log",
-                 "sampled")},
+       for n in ("IntegrityMonitor", "log")},
     **{("tpu_mx_torch.telemetry", n): _ITEM8
        for n in ("ATTRIBUTION_TOLERANCE", "KNOWN_METRICS",
                  "SEGMENT_OPS_BUCKETS", "exposition", "fleet_identity",

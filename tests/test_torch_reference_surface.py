@@ -23,7 +23,10 @@ to both packages:
 - C16: ``models.bert`` has the reference's ``bert_sharding_rules`` and
   ``bert_data_specs``, and ``examples/bert/pretrain.py`` and
   ``examples/moe/train_moe_lm.py`` run on the port through a module
-  alias.
+  alias;
+- ``examples/quantization/quantize_cnn.py`` and
+  ``examples/estimator/train.py`` (``--smoke``) run on the port through a
+  module alias, each with its own assertions.
 """
 import importlib
 import inspect
@@ -232,18 +235,6 @@ ALLOWED = {
         "Pallas BlockSpecs; a CUDA launch takes a grid and a block",
     ("tpu_mx_torch.rtc", "Kernel.launch", "interpret"):
         "Pallas interpret mode; a CUDA kernel has no interpreter",
-    ("tpu_mx_torch.serving.attention", "decode_attention", "seq_ids"):
-        "the port's decode takes the step's device block tables and "
-        "lengths, built once a step, where the reference gathers by id",
-    ("tpu_mx_torch.serving.attention", "decode_attention", "kind"):
-        "the port's decode arm is a pure function of shape and dtype "
-        "(decode_arm); TPUMX_PAGED_DECODE is not ported",
-    ("tpu_mx_torch.serving.attention", "decode_attention", "batch"):
-        "the tables and lengths are positional arguments of the port's",
-    ("tpu_mx_torch.serving.attention", "dense_decode_attention", "keys"):
-        "the port's dense decode gathers from the pools by table itself",
-    ("tpu_mx_torch.serving.attention", "dense_decode_attention", "values"):
-        "the port's dense decode gathers from the pools by table itself",
 }
 
 
@@ -732,3 +723,52 @@ def test_the_moe_example_trains_on_the_port_through_a_module_alias(
                    run_name="__main__")
     out = capsys.readouterr().out
     assert "single device" in out
+
+
+# ---------------------------------------------------------------------------
+# the quantization and estimator examples through the alias
+# ---------------------------------------------------------------------------
+def _alias(monkeypatch, *names):
+    import importlib
+    monkeypatch.setitem(sys.modules, "tpu_mx", mx)
+    for n in names:
+        monkeypatch.setitem(sys.modules, "tpu_mx." + n,
+                            importlib.import_module("tpu_mx_torch." + n))
+
+
+def test_the_quantization_example_runs_on_the_port_through_a_module_alias(
+        monkeypatch, capsys):
+    """``examples/quantization/quantize_cnn.py --smoke`` unedited (30
+    Adam steps, 4 calibration batches, ``quantize_net`` of its two convs
+    and two Dense layers): its own check that int8 accuracy is within 2%
+    of float32 passes."""
+    _alias(monkeypatch, "gluon", "gluon.nn", "contrib",
+           "contrib.quantization")
+    monkeypatch.setattr(sys, "argv", ["quantize_cnn.py", "--smoke"])
+    # one intra-op thread: with oneDNN off, the example's native
+    # convolution backward spins on its idle threads when the suite's
+    # workers share the cores (10 s alone, ~600 s among them)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runpy.run_path(str(ROOT / "examples" / "quantization" /
+                           "quantize_cnn.py"), run_name="__main__")
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "PASSED" in out and "int8/float argmax agreement" in out
+
+
+def test_the_estimator_example_runs_on_the_port_through_a_module_alias(
+        monkeypatch, capsys):
+    """``examples/estimator/train.py --smoke`` unedited (512 samples, two
+    forked DataLoader workers, the Estimator with logging, best
+    checkpointing and early stopping): its asserts hold (loss < 0.45,
+    accuracy > 0.8, a ``best`` checkpoint)."""
+    _alias(monkeypatch, "gluon", "gluon.nn", "gluon.data", "gluon.contrib",
+           "gluon.contrib.estimator")
+    monkeypatch.setattr(sys, "argv", ["train.py", "--smoke"])
+    runpy.run_path(str(ROOT / "examples" / "estimator" / "train.py"),
+                   run_name="__main__")
+    out = capsys.readouterr().out
+    assert "eval loss" in out and "model-best.params" in out

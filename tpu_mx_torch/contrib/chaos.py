@@ -23,11 +23,16 @@ emitted as a ``chaos.inject`` event when it fires):
   ``"reject_storm"``.
 - ``nan_after=N`` (with ``nan_streak=K``): the Nth value routed through
   :func:`poison_loss` (a decode step's logits health) comes back NaN.
+- ``flaky_recompute=K``: the next K shadow re-executions of a step
+  (``parallel/integrity.py``'s ``ShadowAuditor``, the serving decode
+  self-check) come back with one bit flipped: flaky hardware, which the
+  bit-exact audit must catch as ``DataCorruption``.
 
 ``seed``, ``hard`` and ``match`` are taken as in the reference.  The
 reference's file, training and fleet sites (torn writes, hangs of a
-supervised step, preemption, bit flips) are not ported yet (ROADMAP A
-item 8); their knobs in ``TPUMX_CHAOS`` are ignored with a warning.
+supervised step, preemption, the training bit flips) are not ported yet
+(ROADMAP A item 8); their knobs in ``TPUMX_CHAOS`` are ignored with a
+warning.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from .. import tracing as _tracing
 
 __all__ = ["ChaosCrash", "enable", "active", "configure_from_env",
            "poison_loss", "maybe_slow_decode", "maybe_kill9_decode",
-           "storm_restart", "forced_reject"]
+           "storm_restart", "forced_reject", "maybe_flaky_recompute"]
 
 log = logging.getLogger(__name__)
 
@@ -64,13 +69,13 @@ class ChaosCrash(Exception):
 class _Config:
     _KINDS = ("nan_after", "nan_streak", "slow_decode_step",
               "slow_decode_seconds", "reject_storm",
-              "kill9_at_decode_step", "restart_storm", "seed", "hard",
-              "match")
+              "kill9_at_decode_step", "restart_storm", "flaky_recompute",
+              "seed", "hard", "match")
 
     def __init__(self, nan_after=None, nan_streak=1, slow_decode_step=None,
                  slow_decode_seconds=3600.0, reject_storm=0,
-                 kill9_at_decode_step=None, restart_storm=0, seed=None,
-                 hard=False, match=None):
+                 kill9_at_decode_step=None, restart_storm=0,
+                 flaky_recompute=0, seed=None, hard=False, match=None):
         if seed is None:
             seed = int(os.environ.get("TPUMX_CHAOS_SEED", "0"))
         self.nan_after = None if nan_after is None else int(nan_after)
@@ -82,6 +87,7 @@ class _Config:
         self.kill9_at_decode_step = None if kill9_at_decode_step is None \
             else int(kill9_at_decode_step)
         self.restart_storm = int(restart_storm)
+        self.flaky_recompute = int(flaky_recompute)
         self.seed = seed
         self.hard = bool(hard)
         self.match = match
@@ -97,6 +103,8 @@ class _Config:
         self.storms_fired = 0        # back-to-back restarts provoked
         self.rejects_left = self.reject_storm
         self.rejects_forced = 0
+        self.flaky_left = self.flaky_recompute
+        self.flaky_fired = 0
 
     def __repr__(self):
         on = {k: getattr(self, k) for k in self._KINDS
@@ -273,5 +281,24 @@ def forced_reject():
             cfg.rejects_left -= 1
             cfg.rejects_forced += 1
             _count_injection("reject_storm")
+            return True
+    return False
+
+
+def maybe_flaky_recompute():
+    """True when the ``flaky_recompute`` budget says this shadow
+    re-execution must come back with other bits (the audit of
+    ``parallel/integrity.py`` and the serving decode self-check call this
+    on every re-execution).  The program is deterministic, so only a
+    faulty chip makes two runs disagree: this simulates one.  A
+    decrementing budget, as ``reject_storm``'s."""
+    cfg = configure_from_env()
+    if cfg is None or not cfg.flaky_recompute:
+        return False
+    with cfg.lock:
+        if cfg.flaky_left > 0:
+            cfg.flaky_left -= 1
+            cfg.flaky_fired += 1
+            _count_injection("flaky_recompute")
             return True
     return False

@@ -2,8 +2,9 @@
 (:mod:`.block`), :class:`Parameter`/:class:`ParameterDict`
 (:mod:`.parameter`), :class:`Trainer` (:mod:`.trainer`), :mod:`.utils`,
 the :mod:`.nn` layers, the :mod:`.rnn` layers and cells, :mod:`.loss`,
-the :mod:`.model_zoo` and :mod:`.data` (datasets, samplers,
-``DataLoader``, the vision datasets and transforms).
+the :mod:`.model_zoo`, :mod:`.data` (datasets, samplers,
+``DataLoader``, the vision datasets and transforms) and :mod:`.contrib`
+(the Estimator).
 
 The port's blocks are :class:`torch.nn.Module`s; called with
 :class:`~tpu_mx_torch.ndarray.NDArray` arguments they are the reference's
@@ -11,13 +12,13 @@ imperative blocks (``autograd.record()``, ``loss.backward()``,
 ``trainer.step()``), called with tensors plain modules.
 """
 from . import block, loss, model_zoo, nn, parameter, rnn, trainer, utils
-from . import data
+from . import contrib, data
 from .block import Block, HybridBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .trainer import Trainer
 
-__all__ = ["block", "data", "loss", "model_zoo", "nn", "parameter", "rnn", "trainer",
+__all__ = ["block", "contrib", "data", "loss", "model_zoo", "nn", "parameter", "rnn", "trainer",
            "utils", "Block", "HybridBlock", "Constant",
            "DeferredInitializationError", "Parameter", "ParameterDict",
            "Trainer"]

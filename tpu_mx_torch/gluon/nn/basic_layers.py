@@ -152,10 +152,17 @@ class BatchNorm(HybridBlock):
                 m = self._momentum
                 for rs, stat in ((running_mean, mean), (running_var, var)):
                     rs.copy_(m * rs + (1 - m) * stat.to(rs.dtype))
+            inv = torch.rsqrt(var + self._eps)
         else:
             mean = running_mean.to(acc)
             var = running_var.to(acc)
-        scale = torch.rsqrt(var + self._eps) * gamma.to(acc)
+            # from the running statistics the inverse deviation is
+            # rounded once from float64, the same on the card and the
+            # host: float32 rsqrt differs between them in ~30% of values,
+            # and int8 inference requantizes after every norm, where a
+            # 1-ulp scale flips quanta (PERF.md §6)
+            inv = torch.rsqrt(var.double() + self._eps).to(acc)
+        scale = inv * gamma.to(acc)
         bias = beta.to(acc) - mean * scale
         return torch.addcmul(bias.to(x.dtype).view(shape), x,
                              scale.to(x.dtype).view(shape))

@@ -25,7 +25,12 @@ Two versions share that contract:
   takes float32 queries, head dims 16/32/64/128 and windows up to
   :data:`MAX_WINDOW`; anything else on the card raises;
 - :func:`paged_attention_plain`, the same block walk written in PyTorch,
-  run for CPU tensors — and on the card only to check the kernel.
+  run for CPU tensors — and on the card only to check the kernel.  The
+  reference's names for it are here too: :func:`window_walk` (the walk
+  over the canonical ``(B, Tq, H, D)`` window) and
+  :func:`paged_attention_reference` (the walk with the wrapper's
+  operand handling, on whatever device the operands are: the parity
+  oracle).
 
 :func:`paged_attention` counts its kernel launches in
 ``paged_attention.launches`` (a plain int; set it to 0 to start a count),
@@ -45,9 +50,14 @@ from .. import device as _device
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_plain", "kernel_takes",
-           "MAX_WINDOW", "HEAD_DIMS"]
+           "MAX_WINDOW", "HEAD_DIMS", "window_walk",
+           "paged_attention_reference", "DEFAULT_BLOCK_SIZE"]
 
 NEG_INF = -1e30
+# tokens a pool block holds: the reference's serving block size (its
+# sweep ran on a TPU), the port's PagedKVCache default; not re-measured
+# on the card
+DEFAULT_BLOCK_SIZE = 16
 MAX_WINDOW = 8                  # kTqMax in the kernel
 HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
 SPLIT_KEYS = 64                 # kSplitKeys: the keys of a split
@@ -140,6 +150,27 @@ def paged_attention_plain(q, k_pool, v_pool, block_tables, lengths, scale):
         acc = acc * alpha[..., None] + torch.einsum("bths,bshd->bthd", p, v)
         m = m_cur
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def window_walk(q, k_pool, v_pool, block_tables, lengths, scale):
+    """The reference's name for the block walk over a canonical ``(B,
+    Tq, H, D)`` window: :func:`paged_attention_plain`."""
+    return paged_attention_plain(q, k_pool, v_pool, block_tables, lengths,
+                                 scale)
+
+
+def paged_attention_reference(q, k_pool, v_pool, block_tables, lengths,
+                              scale=None):
+    """The kernel's algorithm in plain PyTorch with the wrapper's operand
+    contract (``(B, H, D)`` or ``(B, Tq, H, D)`` queries, the default
+    scale), on the operands' device: the paged kernel's parity oracle,
+    never a kernel launch."""
+    q, had_t = _normalize_q(q)
+    _check_operands(q, k_pool, v_pool, block_tables, lengths)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    out = paged_attention_plain(q, k_pool, v_pool, block_tables, lengths,
+                                scale)
+    return out if had_t else out[:, 0]
 
 
 def _launch(q, k_pool, v_pool, block_tables, lengths, scale):

@@ -28,10 +28,10 @@ PyTorch's operator there and permute the result back.
 
 The rest of the reference's operators (sequence, ordering, indexing,
 the loss-output heads, ``BatchNorm``, the samplers, ``Custom``, ...) are
-in :mod:`.ops_tail` and ``ctc_loss`` in :mod:`.ctc`, both re-exported
-here.  Not ported yet (ROADMAP A item 10): the families the reference
-adds from ``linalg_ops``, ``vision_ops``, ``quantized_ops`` and
-``sample_ops``.
+in :mod:`.ops_tail`, ``ctc_loss`` in :mod:`.ctc` and the int8 operators
+in :mod:`.quantized_ops`, all re-exported here.  Not ported yet (ROADMAP
+A item 10): the families the reference adds from ``linalg_ops``,
+``vision_ops`` and ``sample_ops``.
 """
 from __future__ import annotations
 
@@ -1041,6 +1041,8 @@ del _name, _fn
 
 from .ops_tail import *  # noqa: E402,F401,F403
 from .ctc import CTCLoss, ctc_loss  # noqa: E402,F401
+from .quantized_ops import *  # noqa: E402,F401,F403
+from . import quantized_ops as _quantized_ops  # noqa: E402
 
 for _name in ("randint", "gamma", "exponential", "poisson", "bernoulli"):
     setattr(_RandomNS, _name, staticmethod(globals()["random_" + _name]))
@@ -1051,4 +1053,4 @@ del _name
 __all__ = sorted(n for n, v in globals().items()
                  if not n.startswith("_") and (callable(v) or n == "random")
                  and getattr(v, "__module__", None) == __name__) \
-    + ["CTCLoss", "ctc_loss"]
+    + ["CTCLoss", "ctc_loss"] + list(_quantized_ops.__all__)

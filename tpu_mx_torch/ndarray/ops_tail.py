@@ -423,9 +423,12 @@ def batch_norm_core(x, gamma, beta, moving_mean, moving_var, eps,
     if use_batch_stats:
         mu, var = _onepass_stats(
             x.float(), tuple(i for i in range(x.dim()) if i != axis))
+        inv = torch.rsqrt(var + eps)
     else:
         mu, var = moving_mean.float(), moving_var.float()
-    scale = torch.rsqrt(var + eps) * g.float()
+        # rounded once from float64, as the Gluon layer's
+        inv = torch.rsqrt(var.double() + eps).float()
+    scale = inv * g.float()
     bias = beta.float() - mu * scale
     y = x * scale.reshape(shape).to(x.dtype) + bias.reshape(shape).to(x.dtype)
     return y, mu, var

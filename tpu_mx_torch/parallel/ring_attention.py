@@ -1,7 +1,8 @@
 """Attention dispatch: the mesh-less arms of ``tpu_mx/parallel/ring_attention.py``.
 
 ``attention`` is what models call.  :func:`attention_arm` picks the arm,
-a pure function of the device type, head dim and dtype:
+a pure function of the device type, head dim, dtype, the
+``TPUMX_ATTENTION`` mode and the key length:
 
 - ``"flash_kernel"`` (the reference's ``pallas_flash``): on the card,
   for every shape the kernels instantiate (head dims 16/32/64/128,
@@ -9,20 +10,30 @@ a pure function of the device type, head dim and dtype:
   ragged tails, so there is no ``T`` gate, and gradients flow through
   their backward kernels;
 - ``"dense"`` (the reference's ``xla_dense``): the dense plain version
-  (``_dense_mask`` + ``_block_attn``) on the CPU, and on the card for
-  the shapes that the reference's own gate sends dense too (a head dim
-  that is not a multiple of 64, such as 80 or 96; float16), with the
-  kernels' dropout mask so every arm computes the same function.  On
-  the card it logs a warning, as the reference's does on its chip.  A
-  shape the reference's kernel takes and the port has no instance for
-  (head dims 192, 256) raises on the card
+  (``_dense_mask`` + ``_block_attn``), with the kernels' dropout mask so
+  every arm computes the same function.  It runs on the CPU whatever the
+  mode, as the reference's does off its chip; on the card where the
+  mode asks for it (``dense``, or ``auto`` at a key length of at most
+  ``TPUMX_DENSE_MAX_KV``), and for the shapes the reference's own gate
+  sends dense too (a head dim that is not a multiple of 64, such as 80
+  or 96; float16), where it logs a warning as the reference's does on
+  its chip: a deliberate dense choice does not.  A shape the
+  reference's kernel takes and the port has no instance for (head dims
+  192, 256) raises on the card unless the mode chose dense
   (``kernels.flash_attention.card_dense_arm``).
 
+``TPUMX_ATTENTION`` (``auto``, the default, ``dense`` or ``flash``) and
+``TPUMX_DENSE_MAX_KV`` are read and checked on every call, as the
+reference reads them.  The reference's default of 512 was measured on a
+TPU; the port's, :data:`DENSE_MAX_KV_DEFAULT`, is the largest key length
+at which the dense arm beat the kernels' forward plus backward on the
+H100 in both bfloat16 and float32 (``chip_smoke.py``'s ``crossover``
+phase: causal and padded, H=12 D=64 and H=32 D=128, T from 128 to 2048
+at 16384 tokens, recorded in PERF.md), 0 where it never did: flash
+everywhere.
+
 Each distinct call signature is counted once in ``dispatch_counts``
-under its arm.  The reference's crossover knobs
-(``TPUMX_ATTENTION``, ``TPUMX_DENSE_MAX_KV``) are not ported: its table
-was measured on a TPU, and a dense↔flash crossover for the H100 is open
-work (ROADMAP).  Both arms take the additive ``(B|1, H|1, T|1, Tk)``
+under its arm.  Both arms take the additive ``(B|1, H|1, T|1, Tk)``
 bias (ALiBi, relative positions), with its gradient.  Sequence
 parallelism over a mesh's ``sp`` axis (ring, Ulysses) is not ported yet.
 """
@@ -30,6 +41,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 
 import torch
 
@@ -37,7 +49,7 @@ from ..base import MXNetError
 from ..kernels import flash_attention as _fa
 
 __all__ = ["attention", "local_flash_attention", "attention_arm",
-           "dispatch_counts"]
+           "attention_mode", "dispatch_counts", "DENSE_MAX_KV_DEFAULT"]
 
 _logger = logging.getLogger(__name__)
 
@@ -46,16 +58,61 @@ _logger = logging.getLogger(__name__)
 dispatch_counts = {"flash_kernel": 0, "dense": 0}
 _seen_signatures = set()
 
+#: the key length up to which ``TPUMX_ATTENTION=auto`` takes the dense arm
+#: on the card when ``TPUMX_DENSE_MAX_KV`` is unset (module docstring)
+DENSE_MAX_KV_DEFAULT = 0
+_MODES = ("auto", "dense", "flash")
 
-def attention_arm(device_type, head_dim, dtype):
+
+def attention_mode():
+    """``TPUMX_ATTENTION``, checked: ``auto`` (unset), ``dense`` or
+    ``flash``."""
+    mode = os.environ.get("TPUMX_ATTENTION", "auto")
+    if mode not in _MODES:
+        raise ValueError(f"TPUMX_ATTENTION must be auto|dense|flash, "
+                         f"got {mode!r}")
+    return mode
+
+
+def _dense_max_kv():
+    """The largest key length at which ``auto`` prefers the dense arm:
+    ``TPUMX_DENSE_MAX_KV``, else :data:`DENSE_MAX_KV_DEFAULT`.  Read on
+    every call, so a probe can sweep the crossover at run time."""
+    raw = os.environ.get("TPUMX_DENSE_MAX_KV")
+    if raw is None:
+        return DENSE_MAX_KV_DEFAULT
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"TPUMX_DENSE_MAX_KV must be an integer, got "
+                         f"{raw!r}") from None
+
+
+def _choose(device_type, head_dim, dtype, mode, kv_len):
+    """``(arm, deliberate)``: the arm, and whether a dense arm was the
+    mode's choice (no warning) rather than the shape's."""
+    mode = attention_mode() if mode is None else mode
+    if mode not in _MODES:
+        raise ValueError(f"TPUMX_ATTENTION must be auto|dense|flash, "
+                         f"got {mode!r}")
+    if device_type != "cuda":
+        return "dense", True
+    if mode == "dense" or (mode == "auto" and kv_len is not None
+                           and kv_len <= _dense_max_kv()):
+        return "dense", True
+    if _fa.kernel_takes(head_dim, dtype):
+        return "flash_kernel", False
+    return _fa.card_dense_arm("attention", head_dim, dtype), False
+
+
+def attention_arm(device_type, head_dim, dtype, mode=None, kv_len=None):
     """The arm :func:`local_flash_attention` takes for q/k/v of this head
     dim and dtype on a ``device_type`` (``"cuda"`` or ``"cpu"``) device:
-    ``"flash_kernel"`` or ``"dense"`` (see the module docstring)."""
-    if device_type != "cuda":
-        return "dense"
-    if _fa.kernel_takes(head_dim, dtype):
-        return "flash_kernel"
-    return _fa.card_dense_arm("attention", head_dim, dtype)
+    ``"flash_kernel"`` or ``"dense"`` (see the module docstring).
+    ``mode`` is a ``TPUMX_ATTENTION`` value (None: read it); ``kv_len``
+    the key length ``auto`` compares with ``TPUMX_DENSE_MAX_KV`` (None:
+    no comparison)."""
+    return _choose(device_type, head_dim, dtype, mode, kv_len)[0]
 
 
 def _count(path, detail, warn=False):
@@ -136,16 +193,18 @@ def local_flash_attention(q, k, v, causal=False, valid_length=None,
                           dropout_seed=None):
     """Single-device attention over ``(B, H, T, D)``: the flash kernels
     for CUDA tensors of a shape they take, the dense plain version
-    otherwise (:func:`attention_arm`).  ``dropout_seed`` (or the
+    otherwise, or where ``TPUMX_ATTENTION`` asks for the dense arm
+    (:func:`attention_arm`).  ``dropout_seed`` (or the
     reference's name, ``dropout_key``) is a ``(1,)`` int32 tensor
     (``random.take_seed``); pass ``dropout_rate > 0`` only in training.
     ``bias`` is an additive ``(B|1, H|1, T|1, Tk)`` attention bias."""
     dropout_seed = _dropout_seed(dropout_key, dropout_seed)
     rate = float(dropout_rate) if dropout_seed is not None else 0.0
-    arm = attention_arm(q.device.type, q.shape[-1], q.dtype)
+    arm, deliberate = _choose(q.device.type, q.shape[-1], q.dtype, None,
+                              k.shape[2])
     _count(arm, f"shape={tuple(q.shape)} dtype={q.dtype} "
-                f"device={q.device.type}",
-           warn=arm == "dense" and q.device.type == "cuda")
+                f"device={q.device.type} kv_len={k.shape[2]}",
+           warn=arm == "dense" and not deliberate)
     if arm == "flash_kernel":
         return _fa.mha_flash_attention(q, k, v, causal=causal,
                                        valid_length=valid_length,

@@ -7,9 +7,11 @@ The port of ``tpu_mx/serving``'s main path, bottom up:
   (:class:`CacheExhausted`), never OOM.
 - :mod:`.prefix_cache` — the shared-prefix index: requests with a
   common template share its cached blocks (``TPUMX_PREFIX_SHARING``).
-- :mod:`.attention` — flash-kernel prefill, paged-kernel decode.
+- :mod:`.attention` — flash-kernel prefill; decode on the reference's
+  arms (``TPUMX_PAGED_DECODE``: dense gather, paged, the paged kernel).
 - :mod:`.model` — :class:`TinyLM`, the seed-deterministic model, with
-  its whole decode step on the device.
+  its whole decode step on the device and the host layer loop's pieces.
+- :mod:`.jax_model` — the fused-step knob (``TPUMX_FUSED_DECODE``).
 - :mod:`.accounting` — the capacity ledger: every block reference
   attributed to a holder and a tenant, exhaustion forensics.
 - :mod:`.scheduler` — admission, continuous batching, tenant fairness,
@@ -17,7 +19,9 @@ The port of ``tpu_mx/serving``'s main path, bottom up:
 - :mod:`.speculative` — draft on the device, verify a ``(B, K)`` window
   in one step (``TPUMX_SPECULATIVE``).
 - :mod:`.sampling` — top-k samplers whose state is data.
-- :mod:`.engine` — model + cache = prefill/decode compute.
+- :mod:`.engine` — model + cache = prefill/decode compute, on the fused
+  arm or the host layer loop, with the sampled decode self-check
+  (``TPUMX_SELF_CHECK``).
 - :mod:`.server` — ``submit``/``step``/``run_until_idle``/``stream``,
   supervised: watchdog, classified restarts, ``drain``/``handoff``/
   ``recover``.

@@ -12,23 +12,64 @@ device and runs two operations for the server:
   the cache: only the suffix is computed (``TinyLM.prefill_suffix``, the
   dense arm over prefix ++ suffix keys) and written.
 - :meth:`EngineCore.decode` — ONE decode step for a whole batch: reserve
-  each sequence's window of ``spec_window`` slots, then run
-  :meth:`TinyLM.decode_step`, the whole step on the device with the
-  paged kernel over the ``(B, K)`` window.  With speculation on
-  (``TPUMX_SPECULATIVE``) the proposer drafts ``K-1`` tokens, each row's
-  agreeing prefix is accepted and the rejected tail truncated: greedy
-  streams are those of one-token decode.  Sequences whose reservation
-  hits :class:`CacheExhausted` are returned as *preempted* (the
-  scheduler requeues them); the rest of the batch proceeds.
+  each sequence's window of ``spec_window`` slots, then run the window
+  forward through one of two arms (``TPUMX_FUSED_DECODE``,
+  ``serving/jax_model.py``):
 
-Sharing, the speculative window and greedy/sampled decoding are resolved
-once per engine and recorded on the ``serve.decode_path`` event.  A
+  * **fused** (the port's default): :meth:`TinyLM.decode_step`, the
+    whole step on the device — one copy of the step's integer operands
+    in, the paged kernel over the ``(B, K)`` window every layer, one
+    copy of the ids and the health back;
+  * **host layer loop** (``TPUMX_FUSED_DECODE=0``, and every dense
+    engine): the reference's ``_host_step``, the model's pieces
+    (``embed``, ``layer_qkv``, ``layer_combine``, ``logits``)
+    interleaved with the cache's per-layer writes
+    (``write_batch``/``write_window``) and :func:`decode_attention` of
+    the engine's decode arm (``TPUMX_PAGED_DECODE``: ``dense``,
+    ``paged`` or ``paged-kernel``, ``serving/attention.py``).  The
+    tensors stay on the model's device; the loop pays a host-to-device
+    copy of the write slots every layer (and of the gather index on the
+    dense arm).
+
+  With speculation on (``TPUMX_SPECULATIVE``) the proposer drafts ``K-1``
+  tokens on the device, each row's agreeing prefix is accepted and the
+  rejected tail truncated: greedy streams are those of one-token decode,
+  on every arm.  Sequences whose reservation hits
+  :class:`CacheExhausted` are returned as *preempted* (the scheduler
+  requeues them); the rest of the batch proceeds.
+
+The decode arm, sharing, the fused step, the speculative window and
+greedy/sampled decoding are resolved once per engine and recorded on the
+``serve.decode_path`` event (``path``: the arm a decode takes, so a
+``"paged"`` engine at a shape the kernel has no instance for records
+``"dense"``; ``fused``; ``storage``: where the pools live).  With both
+knobs unset the port decodes paged and fused, on the device; the
+reference's default is its host-resident dense arm (chosen for a process
+where jax might be missing), which an explicit ``0`` selects here.  A
 request carrying a sampler gets its last position's logits back instead
 of a token: the server samples on its own thread, so a watchdog's
 abandoned (zombie) step never advances a journaled RNG.  A non-greedy
-engine pins the window to 1 (speculation verifies greedily).  The
-reference's fused/host decode arms and self-check audits are not ported
-(the port has one on-device decode path).
+engine pins the window to 1 (speculation verifies greedily); it keeps
+the fused arm, which hands the logits back (the reference's fused
+program samples on its device, so it pins a sampled engine to its host
+loop).  ``serve.host_crossings`` counts the host<->device copies of each
+step when the pools are on the card: 2 on the fused arm; on the host
+loop 3 + the layer count on the paged arms and 2 + twice it on the dense
+one, one more with speculation; ``serve.host_crossings_per_token``
+divides them by the tokens the step emitted.
+
+**Decode self-check** (``TPUMX_SELF_CHECK``, a rate; 0, the default,
+disarms; ``TPUMX_SELF_CHECK_SEED``): on the sampled steps of
+``parallel/integrity.py``'s ``ShadowAuditor(surface="decode")`` the
+engine re-runs the identical step — the same operands, the same arm; the
+window's K/V land the same values in the same reserved slots — before
+the rejected tail is truncated, and compares the emitted ids bit for
+bit (``integrity.self_checks``; a mismatch counts
+``integrity.self_check_mismatches`` and raises ``DataCorruption``, which
+the server's restart ladder classifies ``"corruption"``).  Each arm is
+deterministic for fixed shapes: cuBLAS picks one algorithm for a shape,
+the paged kernel's split count and merge order are fixed by the shape
+and the lengths, and no arm reduces with atomics.
 
 ``warm_batch=B`` builds both kernels and launches one prefill and one
 decode step at batch ``B`` at construction, on a scratch cache, so that
@@ -49,15 +90,19 @@ a thread still inside the old one touches only its private cache.
 from __future__ import annotations
 
 import math
+import os
 import time
 
+import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
 from .. import tracing as _tracing
 from ..contrib import chaos as _chaos
 from ..supervisor import NumericDivergence
-from .attention import decode_arm
+from .attention import (decode_arm, decode_attention, device_tables,
+                        resolve_decode_path)
+from .jax_model import resolve_fused
 from .kv_cache import CacheExhausted, PagedKVCache, prefix_sharing_enabled
 from .speculative import SiblingProposer, accept_prefix, resolve_spec_window
 
@@ -78,10 +123,12 @@ class EngineCore:
                  warm_batch=None, greedy=True):
         self.model = model
         self.greedy = bool(greedy)
+        self.decode_kind = resolve_decode_path()
         if share_prefix is None:
             share_prefix = prefix_sharing_enabled()
         self.share_prefix = bool(share_prefix)
         self.spec_window = resolve_spec_window() if self.greedy else 1
+        self.fused = resolve_fused(self.decode_kind, model)
         self.cache = PagedKVCache(
             model.num_layers, model.num_heads, model.head_dim,
             block_size=block_size, num_blocks=num_blocks, dtype=dtype,
@@ -89,16 +136,26 @@ class EngineCore:
             device=model.device)
         self.proposer = (SiblingProposer(model) if self.spec_window > 1
                          else None)
-        _tracing.emit("serve.decode_path",
-                      path=decode_arm(model.head_dim, torch.float32,
-                                      self.cache.k_pool.dtype,
-                                      self.spec_window,
-                                      device_type=self.cache.k_pool.device
-                                      .type),
-                      storage="device",
-                      sharing=self.share_prefix, fused=True,
+        path = self.decode_kind
+        if path == "paged":
+            path = decode_arm(model.head_dim, torch.float32,
+                              self.cache.k_pool.dtype, self.spec_window,
+                              device_type=self.cache.k_pool.device.type)
+        _tracing.emit("serve.decode_path", path=path,
+                      storage="device" if self.cache.device_resident
+                      else "host",
+                      sharing=self.share_prefix, fused=self.fused,
                       spec_window=self.spec_window,
                       sampling="greedy" if self.greedy else "sampled")
+        rate = float(os.environ.get("TPUMX_SELF_CHECK", "0") or 0)
+        if rate > 0:
+            from ..parallel.integrity import ShadowAuditor
+            seed = int(os.environ.get("TPUMX_SELF_CHECK_SEED", "0") or 0)
+            self._self_check = ShadowAuditor(rate=rate, seed=seed,
+                                             surface="decode")
+        else:
+            self._self_check = None
+        self._decode_step_idx = 0
         self._spec_drafted = 0
         self._spec_accepted = 0
         self.warm_batch = int(warm_batch) if warm_batch else None
@@ -109,10 +166,10 @@ class EngineCore:
 
     def _warm(self, batch):
         """One prefill (the flash forward, through ``num_layers``
-        launches) and one decode step at ``batch`` (the paged kernel over
-        the engine's window) on a scratch cache of this engine's
-        geometry: the kernels are built and loaded here, outside any
-        deadline, and the engine's own cache is untouched."""
+        launches) and one decode step of this engine's arm at ``batch``
+        on a scratch cache of this engine's geometry: the kernels are
+        built and loaded here, outside any deadline, and the engine's own
+        cache is untouched."""
         model, bs, k = self.model, self.cache.block_size, self.spec_window
         length = max(1, min(bs, model.max_positions - k))
         cache = PagedKVCache(
@@ -126,11 +183,8 @@ class EngineCore:
         for sid in ids:
             cache.prefill(sid, kv[0], kv[1])
             cache.reserve_window(sid, k)
-        tables, lengths = cache.batch_tables(ids)
-        bids, offs = cache.window_slots(ids, k)
-        model.decode_step(cache, [0] * batch, lengths - k, tables, lengths,
-                          bids, offs, proposer=self.proposer,
-                          want_logits=not self.greedy)
+        self._step(cache, ids, [0] * batch, np.full(batch, length),
+                   k, not self.greedy)
 
     # -- prefill -------------------------------------------------------------
     def prefill(self, req):
@@ -242,19 +296,33 @@ class EngineCore:
         if not live:
             return {}, preempted
         seq_ids = [r.id for r, _ in live]
-        tables, lengths = self.cache.batch_tables(seq_ids)
-        bids, offs = self.cache.window_slots(seq_ids, k)
+        heads = [t for _, t in live]
+        lengths = np.array([self.cache.length(s) for s in seq_ids],
+                           np.int64)
         samplers = [getattr(r, "sampler", None) for r, _ in live]
         want_logits = any(s is not None for s in samplers)
-        heads = [t for _, t in live]
-        out, drafts, health, logits = self.model.decode_step(
-            self.cache, heads, lengths - k, tables, lengths, bids, offs,
-            proposer=self.proposer, want_logits=want_logits)
+        out, drafts, health, logits, crossings = self._step(
+            self.cache, seq_ids, heads, lengths - k, k, want_logits)
         health = _chaos.poison_loss(health)
         if not math.isfinite(health):
             raise NumericDivergence(
                 f"serving: non-finite logits in decode batch of "
                 f"{len(live)} (health={health})")
+        # the sampled self-check (module docstring): before any rejected
+        # tail is truncated, the identical step again, ids compared bit
+        # for bit
+        idx = self._decode_step_idx
+        self._decode_step_idx += 1
+        if self._self_check is not None \
+                and self._self_check.should_audit(idx):
+            _telemetry.counter("integrity.self_checks").inc()
+            try:
+                self._self_check.audit(out, lambda: self._step(
+                    self.cache, seq_ids, heads, lengths - k, k,
+                    want_logits)[0], step=idx)
+            except Exception:
+                _telemetry.counter("integrity.self_check_mismatches").inc()
+                raise
         results = {}
         accepted = 0
         for bi, (req, last) in enumerate(live):
@@ -275,7 +343,79 @@ class EngineCore:
                 _telemetry.counter("serve.spec_accepted").inc(accepted)
             _telemetry.gauge("serve.spec_accept_ratio").set(
                 self._spec_accepted / self._spec_drafted)
+        if crossings:
+            _telemetry.counter("serve.host_crossings").inc(crossings)
+        _telemetry.gauge("serve.host_crossings_per_token").set(
+            crossings / (accepted + len(live)))
         return results, preempted
+
+    def _step(self, cache, seq_ids, heads, positions, k, want_logits):
+        """The window forward of one decode step on ``cache``: the fused
+        arm or the host layer loop.  ``heads`` are the rows' stream heads
+        at host ``positions``; the window's ``k`` slots are reserved.
+        Returns ``(out, drafts, health, logits, crossings)``: int64 ``(B,
+        k)`` greedy ids, int64 ``(B, k-1)`` drafts, the max |logit|, the
+        last position's float32 ``(B, V)`` logits with ``want_logits``
+        (else None) and the step's host<->device copies."""
+        if self.fused:
+            tables, lengths = cache.batch_tables(seq_ids)
+            bids, offs = cache.window_slots(seq_ids, k)
+            res = self.model.decode_step(
+                cache, heads, positions, tables, lengths, bids, offs,
+                proposer=self.proposer, want_logits=want_logits,
+                kind=self.decode_kind)
+            _telemetry.counter("serve.fused_steps").inc()
+            return res + (2 if cache.device_resident else 0,)
+        return self._host_step(cache, seq_ids, heads, positions, k,
+                               want_logits)
+
+    @torch.no_grad()
+    def _host_step(self, cache, seq_ids, heads, positions, k, want_logits):
+        """The host layer loop (module docstring), over the ``(B*K, E)``
+        hidden batch: ``K == 1`` writes each layer through
+        ``write_batch``, a wider window through ``write_window`` and the
+        per-row causal window attention.  Returns what :meth:`_step`
+        does."""
+        model, b = self.model, len(seq_ids)
+        hd = (model.num_heads, model.head_dim)
+        paged = self.decode_kind != "dense"
+        # the tables do not change between the step's layers: once
+        batch = (device_tables(*cache.batch_tables(seq_ids), model.device)
+                 if paged else None)
+        positions = np.asarray(positions, np.int64)
+        if k > 1:
+            ops = torch.from_numpy(np.stack(
+                [np.asarray(heads, np.int64), positions])).to(model.device)
+            drafts = torch.as_tensor(self.proposer.draft(ops[0], ops[1],
+                                                         k - 1),
+                                     device=model.device).long()
+            tokens = torch.cat([ops[0][:, None], drafts], dim=1).reshape(-1)
+        else:
+            drafts = torch.zeros((b, 0), dtype=torch.int64,
+                                 device=model.device)
+            tokens = heads
+        h = model.embed(tokens, (positions[:, None]
+                                 + np.arange(k)).reshape(-1))
+        for i in range(model.num_layers):
+            q, kk, vv = model.layer_qkv(i, h)
+            if k == 1:
+                cache.write_batch(seq_ids, i, kk, vv)
+            else:
+                cache.write_window(seq_ids, i, kk.view(b, k, *hd),
+                                   vv.view(b, k, *hd))
+                q = q.view(b, k, *hd)
+            attn = decode_attention(q, cache, seq_ids, i,
+                                    kind=self.decode_kind, batch=batch)
+            h = model.layer_combine(i, h, attn.reshape(b * k, *hd))
+        res = model.step_result(model.logits(h), drafts, b, k, want_logits)
+        crossings = 0
+        if cache.device_resident:
+            # the embed's operands (one copy, two with the proposer's),
+            # the tables, every layer's write slots (and the dense
+            # gather's index), the readback
+            crossings = ((2 if k > 1 else 1) + paged
+                         + model.num_layers * (1 if paged else 2) + 1)
+        return res + (crossings,)
 
     def _pick_victim(self, remaining):
         """Index into ``remaining`` of the preemption victim (see

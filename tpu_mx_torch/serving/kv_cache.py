@@ -18,7 +18,11 @@ The port of ``tpu_mx/serving/kv_cache.py``:
   sequence (:meth:`PagedKVCache.reserve_window`) — at most a few
   free-list pops — and the model's step writes each layer's K/V straight
   into the pool at :meth:`PagedKVCache.window_slots` (``index_put_`` on
-  the device).
+  the device).  The host layer loop of the engine writes each layer
+  through :meth:`PagedKVCache.write_batch` (one token a sequence) or
+  :meth:`PagedKVCache.write_window` (a speculative window), and its
+  dense-gather arm reads :meth:`PagedKVCache.gather_batch`; both act on
+  the pools where they live, on the card when the cache is there.
 - **Shared prefixes** (``share_prefix``): full blocks of prompt tokens
   are indexed (``serving/prefix_cache.py``); a later prompt with the
   same leading blocks pins them (:meth:`PagedKVCache.match_prefix`),
@@ -794,6 +798,85 @@ class PagedKVCache:
         if self.prefix is not None:
             out.update(self.prefix.stats())
         return out
+
+    # -- the host layer loop's writes and reads ------------------------------
+    def _slot_index(self, bids, offs):
+        """``(block ids, offsets)`` as two int64 index tensors on the
+        pools' device, in one copy."""
+        idx = torch.from_numpy(np.stack([np.asarray(bids, np.int64)
+                                         .reshape(-1),
+                                         np.asarray(offs, np.int64)
+                                         .reshape(-1)]))
+        return tuple(idx.to(self.device))
+
+    def _write_rows(self, layer, bids, offs, k, v):
+        idx = self._slot_index(bids, offs)
+        shape = (-1, self.num_heads, self.head_dim)
+        self.k_pool[layer].index_put_(idx, k.reshape(shape)
+                                      .to(self.k_pool.dtype))
+        self.v_pool[layer].index_put_(idx, v.reshape(shape)
+                                      .to(self.v_pool.dtype))
+
+    def write(self, seq_id, layer, k, v):
+        """Write one layer's K/V projection (``(num_heads, head_dim)``)
+        into the sequence's newest reserved slot."""
+        self.write_batch([seq_id], layer, k[None], v[None])
+
+    def write_batch(self, seq_ids, layer, k, v):
+        """Write one layer's K/V for a decode batch (``(B, num_heads,
+        head_dim)``) into each sequence's newest reserved slot: one
+        ``index_put_`` a pool."""
+        bids, offs = self.window_slots(seq_ids, 1)
+        self._write_rows(layer, bids, offs, k, v)
+
+    def write_window(self, seq_ids, layer, k, v):
+        """Write one layer's K/V for a draft window (``(B, K, num_heads,
+        head_dim)``) into each sequence's last ``K`` reserved slots: one
+        ``index_put_`` a pool for the whole ``B*K`` window."""
+        bids, offs = self.window_slots(seq_ids, k.shape[1])
+        self._write_rows(layer, bids, offs, k, v)
+
+    def gather_batch(self, seq_ids, layer):
+        """Padded dense K/V of ``layer`` for a decode batch: a ``(B, Lpad,
+        H, D)`` pair on the pools' device, ``Lpad`` the batch's most
+        blocks times the block size, plus the int32 ``(B,)`` true lengths
+        (a tensor there too).  One gather a pool; each table is padded
+        with block 0, whose finite contents past a row's length the
+        attention mask excludes exactly."""
+        tables = [(self._entry(s).blocks, self._entry(s).length)
+                  for s in seq_ids]
+        b = len(tables)
+        nbmax = max(len(blocks) for blocks, _ in tables)
+        host = np.zeros((b, nbmax + 1), np.int64)
+        for i, (blocks, length) in enumerate(tables):
+            host[i, :len(blocks)] = blocks
+            host[i, -1] = length
+        dev = torch.from_numpy(host).to(self.device)
+        ids, lengths = dev[:, :-1].reshape(-1), dev[:, -1].to(torch.int32)
+        shape = (b, nbmax * self.block_size, self.num_heads, self.head_dim)
+        return (self.k_pool[layer][ids].reshape(shape),
+                self.v_pool[layer][ids].reshape(shape), lengths)
+
+    def pools(self):
+        """Every layer's K and V pool, as two lists of views of the
+        resident pools: the operands the reference's fused decode program
+        consumes (the port's fused step writes them in place)."""
+        return ([self.k_pool[i] for i in range(self.num_layers)],
+                [self.v_pool[i] for i in range(self.num_layers)])
+
+    def adopt_pools(self, k_pools, v_pools):
+        """Install per-layer pool contents, the other half of
+        :meth:`pools`: a layer whose tensor is already the resident view
+        is left as it is, any other is copied in."""
+        if (len(k_pools) != self.num_layers
+                or len(v_pools) != self.num_layers):
+            raise ValueError(
+                f"adopt_pools: expected {self.num_layers} pool pairs, "
+                f"got {len(k_pools)}/{len(v_pools)}")
+        for pool, news in ((self.k_pool, k_pools), (self.v_pool, v_pools)):
+            for i, t in enumerate(news):
+                if t.data_ptr() != pool[i].data_ptr():
+                    pool[i].copy_(t)
 
     # -- reads: the paged kernel's operands ----------------------------------
     def batch_tables(self, seq_ids):

@@ -19,15 +19,20 @@ entry points run the model:
   through the flash forward (``serving/attention.py``).
 - :meth:`TinyLM.prefill_suffix` — the tail of a prompt whose leading
   positions' K/V come from a shared prefix in the cache.
-- :meth:`TinyLM.decode_step` — one decode step for a batch with the
-  whole step on the device: token ids in (a speculative window's drafts
-  made on the device too), embed, then per layer the QKV projections,
-  the K/V write into the cache pool (``index_put_``), the paged kernel
-  over the ``(B, K)`` window and the residual combine, then logits and
-  greedy argmax.  One host-to-device copy carries the step's integer
-  operands in and one device-to-host copy brings the greedy ids, the
-  drafts, the health scalar and (for sampled rows) the last position's
-  logits back.
+- :meth:`TinyLM.decode_step` — the engine's fused arm: one decode step
+  for a batch with the whole step on the device: token ids in (a
+  speculative window's drafts made on the device too), embed, then per
+  layer the QKV projections, the K/V write into the cache pool
+  (``index_put_``), the paged kernel over the ``(B, K)`` window and the
+  residual combine, then logits and greedy argmax.  One host-to-device
+  copy carries the step's integer operands in and one device-to-host
+  copy brings the greedy ids, the drafts, the health scalar and (for
+  sampled rows) the last position's logits back.
+- :meth:`TinyLM.embed`, :meth:`TinyLM.layer_qkv`,
+  :meth:`TinyLM.layer_combine` and :meth:`TinyLM.logits` — the pieces
+  the engine's host layer loop interleaves with the cache's per-layer
+  writes and decode attention, as the reference's numpy model offers
+  them; each runs on the model's device.
 """
 from __future__ import annotations
 
@@ -132,12 +137,57 @@ class TinyLM(nn.Module):
     def _embed(self, tokens, positions):
         return self.tok_emb[tokens % self.vocab_size] + self.pos_emb[positions]
 
-    def _combine(self, i, h, attn):
-        """Residual + output projection + bounded nonlinearity (``tanh``
-        keeps untrained-weight generations finite, so the engine's NaN
-        check fires on real faults only)."""
+    # -- the layer pieces (the host layer loop's, and every forward's) -------
+    # the weights are buffers, so nothing here records a graph
+    def embed(self, tokens, positions):
+        """``(B,)`` token ids at ``(B,)`` absolute positions -> ``(B, E)``
+        on the device.  Host ids cross in one copy; a device tensor of
+        ids stays where it is."""
+        positions = np.asarray(positions, np.int64).reshape(-1)
+        if positions.size:
+            self._check_positions(int(positions.max()))
+        if isinstance(tokens, torch.Tensor):
+            tok = tokens.to(self.device).long().reshape(-1)
+            pos = torch.from_numpy(positions).to(self.device)
+        else:
+            ops = torch.from_numpy(np.concatenate(
+                [np.asarray(tokens, np.int64).reshape(-1), positions]))
+            tok, pos = ops.to(self.device).view(2, -1)
+        return self._embed(tok, pos)
+
+    def layer_qkv(self, i, h):
+        """``(B, E)`` -> ``q, k, v``, each ``(B, H, D)``."""
+        return (self._heads(h @ self.wq[i]), self._heads(h @ self.wk[i]),
+                self._heads(h @ self.wv[i]))
+
+    def layer_combine(self, i, h, attn):
+        """Residual + output projection + bounded nonlinearity of layer
+        ``i`` (``tanh`` keeps untrained-weight generations finite, so the
+        engine's NaN check fires on real faults only)."""
         flat = attn.reshape(attn.shape[0], self.embed_dim)
         return torch.tanh(h + flat @ self.wo[i])
+
+    def logits(self, h):
+        """``(B, E)`` -> ``(B, V)``."""
+        return h @ self.w_out
+
+    def step_result(self, logits, drafts, b, k, want_logits):
+        """A decode step's results on the host in one device-to-host copy:
+        int64 ``(B, K)`` greedy ids of the ``(B*K, V)`` ``logits``, int64
+        ``(B, K-1)`` drafts, the max |logit| and, with ``want_logits``,
+        the float32 ``(B, V)`` logits of each row's last window position
+        (else None).  The ids travel as float32, exact for any vocabulary
+        below 2**24."""
+        parts = [logits.argmax(dim=-1).float(), drafts.reshape(-1).float(),
+                 logits.abs().amax().reshape(1)]
+        if want_logits:
+            parts.append(logits.view(b, k, -1)[:, -1].reshape(-1))
+        back = torch.cat(parts).cpu().numpy()
+        n = b * k + b * (k - 1)
+        out = back[:b * k].astype(np.int64).reshape(b, k)
+        drafted = back[b * k:n].astype(np.int64).reshape(b, k - 1)
+        last = back[n + 1:].reshape(b, -1) if want_logits else None
+        return out, drafted, float(back[n]), last
 
     # -- prefill --------------------------------------------------------------
     @torch.no_grad()
@@ -153,12 +203,10 @@ class TinyLM(nn.Module):
                         torch.arange(length, device=self.device))
         ks, vs = [], []
         for i in range(self.num_layers):
-            q = self._heads(h @ self.wq[i])                 # (L, H, D)
-            k = self._heads(h @ self.wk[i])
-            v = self._heads(h @ self.wv[i])
+            q, k, v = self.layer_qkv(i, h)                  # (L, H, D)
             ks.append(k)
             vs.append(v)
-            h = self._combine(i, h, _attn.prefill_attention(q, k, v))
+            h = self.layer_combine(i, h, _attn.prefill_attention(q, k, v))
         return torch.stack(ks), torch.stack(vs), (h[-1:] @ self.w_out)[0]
 
     @torch.no_grad()
@@ -188,20 +236,18 @@ class TinyLM(nn.Module):
                         torch.arange(m, m + s, device=self.device))
         ks, vs = [], []
         for i in range(self.num_layers):
-            q = self._heads(h @ self.wq[i])                 # (S, H, D)
-            k = self._heads(h @ self.wk[i])
-            v = self._heads(h @ self.wv[i])
+            q, k, v = self.layer_qkv(i, h)                  # (S, H, D)
             ks.append(k)
             vs.append(v)
             attn = _attn.prefill_attention(q, torch.cat([k_prefix[i], k]),
                                            torch.cat([v_prefix[i], v]))
-            h = self._combine(i, h, attn)
+            h = self.layer_combine(i, h, attn)
         return torch.stack(ks), torch.stack(vs), (h[-1:] @ self.w_out)[0]
 
     # -- decode ---------------------------------------------------------------
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions, tables, lengths, bids,
-                    offs, proposer=None, want_logits=False):
+                    offs, proposer=None, want_logits=False, kind="paged"):
         """ONE decode step for a batch, on the device, over a window of
         ``K`` positions per row (``K = bids.shape[1]``; 1 without
         speculation).
@@ -214,7 +260,9 @@ class TinyLM(nn.Module):
         ``proposer.draft`` drafts each row's next ``K-1`` tokens on the
         device and the window is the head followed by the drafts.  Every
         layer writes the window's K/V into ``cache``'s pools and runs the
-        paged kernel once on a ``(B, K, H, D)`` query.
+        paged kernel once on a ``(B, K, H, D)`` query (``kind`` is the
+        engine's decode arm, ``"paged"`` or ``"paged-kernel"``:
+        ``serving.attention``).
 
         Returns ``(out, drafts, health, logits)`` on the host: int64
         ``(B, K)`` greedy ids (``out[:, j]`` follows window position
@@ -247,27 +295,13 @@ class TinyLM(nn.Module):
         wpos = pos[:, None] + torch.arange(k, device=self.device)
         h = self._embed(window.reshape(-1), wpos.reshape(-1))    # (B*K, E)
         for i in range(self.num_layers):
-            q = self._heads(h @ self.wq[i])                 # (B*K, H, D)
-            kk = self._heads(h @ self.wk[i])
-            vv = self._heads(h @ self.wv[i])
+            q, kk, vv = self.layer_qkv(i, h)                # (B*K, H, D)
             kp, vp = cache.pool(i)
             kp.index_put_((bid, off), kk.to(kp.dtype))
             vp.index_put_((bid, off), vv.to(vp.dtype))
             qw = q.view(b, k, self.num_heads, self.head_dim) if k > 1 else q
-            attn = _attn.decode_attention(qw, cache, i, tab, lens)
-            h = self._combine(i, h, attn.reshape(b * k, self.num_heads,
+            attn = _attn.decode_on_tables(qw, cache, i, tab, lens, kind)
+            h = self.layer_combine(i, h, attn.reshape(b * k, self.num_heads,
                                                  self.head_dim))
-        logits = h @ self.w_out                             # (B*K, V)
-        # one device->host copy: the ids travel as float32, exact for any
-        # vocabulary below 2**24, beside the drafts, the health scalar
-        # and, when asked, the last position's logits
-        parts = [logits.argmax(dim=-1).float(), drafts.reshape(-1).float(),
-                 logits.abs().amax().reshape(1)]
-        if want_logits:
-            parts.append(logits.view(b, k, -1)[:, -1].reshape(-1))
-        back = torch.cat(parts).cpu().numpy()
-        n = b * k + b * (k - 1)
-        out = back[:b * k].astype(np.int64).reshape(b, k)
-        drafted = back[b * k:n].astype(np.int64).reshape(b, k - 1)
-        last = back[n + 1:].reshape(b, -1) if want_logits else None
-        return out, drafted, float(back[n]), last
+        return self.step_result(self.logits(h), drafts, b, k,
+                                want_logits)

@@ -25,11 +25,13 @@ decoding (``TPUMX_SPECULATIVE``) are the engine's.
 **Self-healing** (``tpu_mx_torch/supervisor.py``): every engine compute
 call runs under ``run_with_deadline`` (``deadline=`` seconds; a hung
 decode becomes a :class:`~tpu_mx_torch.supervisor.WatchdogTimeout`), and
-non-finite logits raise ``NumericDivergence``.  ``supervisor.classify``
-sorts each fault: a transient or numeric one triggers a **classified
-engine restart** — a fresh engine and cache, every in-flight request
-requeued, a black box dumped (``blackbox=`` prefix), a backoff
-(``backoff * 2**(n-1)`` seconds) — within a budget of ``max_restarts``;
+non-finite logits raise ``NumericDivergence``, a failed decode
+self-check (``TPUMX_SELF_CHECK``) ``DataCorruption``.
+``supervisor.classify`` sorts each fault: a transient, numeric or
+corruption one triggers a **classified engine restart** — a fresh
+engine and cache, every in-flight request requeued, a black box dumped
+(``blackbox=`` prefix), a backoff (``backoff * 2**(n-1)`` seconds) —
+within a budget of ``max_restarts``;
 a fatal one (a programming error, a CUDA error) propagates.  No restart
 moves work to the CPU or swaps a kernel for its plain version.  A
 watchdog's abandoned thread touches only the discarded engine: the

@@ -81,7 +81,7 @@ class SiblingProposer:
             p = torch.clamp(pos + j, max=m.max_positions - 1)
             h = m._embed(cur, p)
             for i in range(m.num_layers):
-                h = m._combine(i, h, m._heads(h @ m.wv[i]))
+                h = m.layer_combine(i, h, m._heads(h @ m.wv[i]))
             cur = (h @ m.w_out).argmax(dim=-1)
             out.append(cur)
         return torch.stack(out, dim=1)

@@ -9,14 +9,17 @@
 - :func:`classify` sorts a failure into ``"transient"`` (a bounded
   restart can survive it: ``OSError``, ``WorkerFailure``,
   :class:`~tpu_mx_torch.contrib.chaos.ChaosCrash`), ``"numeric"``
-  (:class:`NumericDivergence`) or ``"fatal"`` (everything else).  A
+  (:class:`NumericDivergence`), ``"corruption"`` (:class:`DataCorruption`:
+  a bit-exact re-execution disagreed, ``parallel/integrity.py``) or
+  ``"fatal"`` (everything else).  A
   CUDA error — PyTorch's ``RuntimeError``/``torch.AcceleratorError``, or
   a kernel's :class:`~tpu_mx_torch.base.MXNetError` — is fatal: a
   restart cannot heal a poisoned context, and the server never moves
   work to the CPU.
 
 The reference module's training ``Supervisor``, ``NumericSentinel`` and
-rollback plane are not ported yet (ROADMAP A item 8).
+rollback plane are not ported yet (ROADMAP A item 8); a serving engine's
+corruption is a restart, as in the reference's server.
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ from . import tracing as _tracing
 from .contrib.chaos import ChaosCrash
 from .elastic import WorkerFailure
 
-__all__ = ["NumericDivergence", "WatchdogTimeout", "run_with_deadline",
-           "classify", "TRANSIENT_EXCEPTIONS"]
+__all__ = ["NumericDivergence", "DataCorruption", "WatchdogTimeout",
+           "run_with_deadline", "classify", "TRANSIENT_EXCEPTIONS"]
 
 log = logging.getLogger(__name__)
 
@@ -39,6 +42,24 @@ class NumericDivergence(MXNetError):
     """Non-finite values where the computation must stay finite: the
     serving engine raises it when a step's logits health (max |logit|)
     is NaN or Inf.  Classified ``"numeric"``: a restart."""
+
+
+class DataCorruption(MXNetError):
+    """Silent data corruption, caught loudly (``parallel/integrity.py``):
+    a shadow re-execution of a step on the same operands gave other bits.
+    Classified ``"corruption"``.  ``step`` and ``surface`` say where;
+    ``minority``/``verified_step`` are the reference's cross-replica vote
+    fields (a vote is ROADMAP A item 8); ``self_corrupt`` means this worker
+    named itself (the shadow audit has no one else to blame)."""
+
+    def __init__(self, message, step=0, minority=(), verified_step=0,
+                 surface="train", self_corrupt=False):
+        super().__init__(message)
+        self.step = int(step)
+        self.minority = tuple(int(m) for m in minority)
+        self.verified_step = int(verified_step)
+        self.surface = str(surface)
+        self.self_corrupt = bool(self_corrupt)
 
 
 class WatchdogTimeout(WorkerFailure):
@@ -53,11 +74,13 @@ TRANSIENT_EXCEPTIONS = (OSError, ConnectionError, TimeoutError,
 
 
 def classify(exc, transient=TRANSIENT_EXCEPTIONS):
-    """``"numeric"``, ``"transient"`` or ``"fatal"`` (module docstring).
-    The classification is the retry policy: a transient fault restarts,
-    numeric divergence restarts, and everything else — programming
-    errors, CUDA errors, ``KeyboardInterrupt``/``SystemExit`` —
-    propagates at once."""
+    """``"corruption"``, ``"numeric"``, ``"transient"`` or ``"fatal"``
+    (module docstring).  The classification is the retry policy: a
+    transient fault, numeric divergence and a serving engine's data
+    corruption restart, and everything else — programming errors, CUDA
+    errors, ``KeyboardInterrupt``/``SystemExit`` — propagates at once."""
+    if isinstance(exc, DataCorruption):
+        return "corruption"
     if isinstance(exc, NumericDivergence):
         return "numeric"
     if isinstance(exc, (KeyboardInterrupt, SystemExit, GeneratorExit)):

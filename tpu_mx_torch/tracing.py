@@ -95,6 +95,10 @@ KNOWN_EVENTS = {
         "defer_stall": "float", "reject": "float",
         "tokens": "int", "requeues": "int", "defers": "int",
         "tenant": "str", "cached_tokens": "int"},
+    # one sampled bit-exact re-execution of a step
+    # (parallel/integrity.py's ShadowAuditor; surface=train|decode)
+    "integrity.shadow_audit": {"step": "int", "match": "bool",
+                               "surface": "str"},
     # SLO breach transitions (serving/slo.py)
     "serve.slo": {"slo": "str", "breaching": "bool", "burn_rate": "float",
                   "estimate_seconds": "float", "attainment": "float",
