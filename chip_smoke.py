@@ -460,6 +460,31 @@ line each:
                  through the alias (forked ``DataLoader`` workers, the
                  Estimator on the card): its own asserts, its wall
                  time.
+31. ``supervised_train`` — supervised, deterministically resumable
+                 training (after ``crossover``): BERT-base at full width
+                 (bf16, dropout 0.1, LAMB with float32 masters, batch
+                 32 x 512) through ``CompiledTrainStep`` under
+                 ``Supervisor(capsule=CapsuleManager(prefix, iters=[it],
+                 state=step, interval=2))`` with
+                 ``elastic.save_checkpoint``/``auto_resume``, in fresh
+                 processes: (A) 2 epochs of 4 steps; (B) the same under
+                 ``TPUMX_CHAOS=crash_at_step=6,hard=1,seed=0`` (exit
+                 137); (C) a fresh process resuming B at epoch 1 step 3;
+                 (D) a real SIGTERM after step 3 (``preemption_handler``
+                 writes the step capsule, exit 143) and its resume —
+                 losses bit-equal to A's, final fingerprints A's, every
+                 manifest verified.  Then in this process: step ms with
+                 and without the supervisor and the host ms of each
+                 ``train_step.phase``; a hung step the watchdog turns
+                 into a restart from the last verified checkpoint
+                 (restart ms); a poisoned loss skipped, then past the
+                 budget rolled back; three replicas at depth 2 with one
+                 bit flipped on rank 2 after step 3 (the step-4 vote
+                 names rank 2); two supervised steps under
+                 ``mx.profiler`` whose trace holds the three flash
+                 kernels by name, 12 each a step, as the launch counts
+                 say, and every phase's span.  Capsule bytes and write
+                 ms, checkpoint bytes, save and verify s, resume ms.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -6546,13 +6571,551 @@ def phase_serve_arms(ctx):
     torch.cuda.empty_cache()
 
 
+# -- supervised, deterministically resumable training (phase
+# supervised_train).  The job: BERT under Supervisor + CapsuleManager +
+# elastic.save_checkpoint/auto_resume around CompiledTrainStep, fed by a
+# seeded shuffling NDArrayIter; each of runs A-D is a fresh process.
+SUP_EPOCHS, SUP_STEPS = 2, 4          # 2 epochs of 4 steps
+SUP_INTERVAL = 2                      # a step capsule every 2 commits
+SUP_CRASH_STEP = 6                    # run B: os._exit(137) after step 6
+SUP_PREEMPT_STEP = 3                  # run D: SIGTERM after step 3 commits
+SUP_SEED, SUP_DATA_SEED = 11, 7
+SUP_DEADLINE = 10.0                   # the in-process watchdog's deadline
+SUP_REPLICAS, SUP_REPLICA_LAYERS = 3, 2
+SUP_BITFLIP_STEP, SUP_BITFLIP_RANK = 3, 2
+SUP_PROFILE_STEPS = 2
+SUP_TIMED_STEPS = 3
+
+SUPERVISED_CHILD = r'''
+import json, sys
+import chip_smoke as cs
+sys.exit(cs.supervised_child(json.loads(sys.argv[1])))
+'''
+
+
+def supervised_job(spec):
+    """The supervised job of ``spec`` (a dict: ``device``, ``cfg``,
+    ``dtype``, ``batch``, ``seq``, ``masked``, ``valid``, ``prefix``,
+    ``interval``, and optionally ``deadline`` and the supervisor's
+    ``sup_kwargs``): the net (weights and dropout drawn from the port's
+    process generator after ``random.seed``), the step, a seeded
+    shuffling iterator over ``batch x SUP_STEPS`` samples, the capsule
+    manager and the supervisor with its save and restore functions.
+    Returns them in a dict; ``losses`` records each committed step's loss
+    under ``"epoch:step"``."""
+    import torch
+    from tpu_mx_torch import elastic, optimizer, random, resume, supervisor
+    from tpu_mx_torch import io as mxio
+    from tpu_mx_torch.models import BERTModel, MLMLoss
+    from tpu_mx_torch.parallel import CompiledTrainStep
+
+    dev = spec["device"]
+    random.seed(SUP_SEED)
+    net = BERTModel(spec["cfg"], dtype=spec["dtype"], device=dev,
+                    generator=random.generator(dev))
+    opt = optimizer.create("lamb", learning_rate=1e-4,
+                           multi_precision=spec["dtype"] == "bfloat16")
+    step = CompiledTrainStep(net, MLMLoss(), opt, device=dev)
+    rng = np.random.RandomState(SUP_DATA_SEED)
+    n = spec["batch"] * SUP_STEPS
+    valid = rng.randint(spec["valid"][0], spec["valid"][1] + 1, n)
+    tokens, types, valid, pos, labels = bert_batch(
+        spec["cfg"], n, spec["seq"], spec["masked"], valid, rng)
+    it = mxio.NDArrayIter([tokens, types, valid, pos], labels,
+                          batch_size=spec["batch"], shuffle=True,
+                          last_batch_handle="discard", seed=SUP_SEED)
+    prefix = spec["prefix"]
+    mgr = resume.CapsuleManager(prefix, iters=[it], state=step,
+                                interval=spec.get("interval", SUP_INTERVAL))
+    sup = supervisor.Supervisor(capsule=mgr, backoff=0.0, seed=0,
+                                deadline=spec.get("deadline"),
+                                **spec.get("sup_kwargs", {}))
+    job = dict(net=net, step=step, it=it, mgr=mgr, sup=sup, losses={},
+               commits=[], saves=[], capsules=[])
+
+    def save_fn(epoch):
+        t0 = time.perf_counter()
+        elastic.save_checkpoint(prefix, epoch, net=net, capsule=mgr)
+        job["saves"].append(time.perf_counter() - t0)
+
+    def restore_fn():
+        epoch = elastic.auto_resume(prefix, net=net)
+        step.sync_from_net()
+        return epoch
+
+    write_step = mgr.write_step
+
+    def timed_write_step(sup=None):
+        t0 = time.perf_counter()
+        write_step(sup)
+        job["capsules"].append(dict(
+            seconds=time.perf_counter() - t0,
+            bytes=os.path.getsize(resume.step_state_path(prefix))
+            + os.path.getsize(resume.step_capsule_path(prefix))))
+
+    mgr.write_step = timed_write_step
+    sup.save_fn, sup.restore_fn = save_fn, restore_fn
+
+    def epoch_fn(epoch):
+        if not sup.resume_step(epoch):
+            it.reset()
+        for b in it:
+            loss = sup.step(lambda b=b: step.step(*b.data, *b.label))
+            job["losses"][f"{epoch}:{sup.step_in_epoch}"] = \
+                float(loss.asnumpy())
+            job["commits"].append(time.time())
+            if job.get("on_commit"):
+                job["on_commit"](sup.steps)
+
+    job["epoch_fn"] = epoch_fn
+    job["torch"] = torch
+    return job
+
+
+def supervised_child(spec):
+    """One run of the supervised job in a fresh process (``spec["mode"]``:
+    ``run`` to the end, ``crash`` under ``TPUMX_CHAOS``, or ``preempt``:
+    after step ``SUP_PREEMPT_STEP`` commits, wait for the SIGTERM the
+    parent sends, with ``preemption_handler`` armed to write the step
+    capsule).  Writes ``spec["out"]`` (JSON): the losses, the final
+    fingerprint, the times of each commit and save, the capsule writes,
+    the restore the run started from; with ``spec["save_values"]`` the
+    final weights and buffers beside it (``<out>.npz``, as float32)."""
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import checkpoint, tracing
+    job = supervised_job(spec)
+    sup, step = job["sup"], job["step"]
+    progress = spec.get("progress")
+    if spec["mode"] == "preempt":
+        checkpoint.preemption_handler(lambda: job["mgr"].write_step(sup))
+
+        def on_commit(n):
+            with open(progress, "a") as f:
+                f.write(f"{n}\n")
+            if n == SUP_PREEMPT_STEP:
+                time.sleep(120)           # the SIGTERM lands here
+                raise SystemExit("no SIGTERM arrived")
+        job["on_commit"] = on_commit
+    with mx.cpu() if spec["device"] == "cpu" else mx.gpu(0):
+        result = sup.run(job["epoch_fn"], begin_epoch=0,
+                         num_epoch=SUP_EPOCHS)
+    if spec["mode"] == "crash":
+        raise SystemExit("crash_at_step did not fire")
+    restores = [e["data"] for e in tracing.snapshot()
+                if e["event"] == "resume.capsule_restore"]
+    man = {e: checkpoint.read_manifest(spec["prefix"], e)
+           for e in range(SUP_EPOCHS)}
+    verify = {}
+    for e in range(SUP_EPOCHS):
+        t0 = time.perf_counter()
+        status = checkpoint.verify_checkpoint(spec["prefix"], e)[0]
+        verify[e] = dict(status=status, seconds=time.perf_counter() - t0,
+                         bytes=sum(f["size"] for f in
+                                   man[e]["files"].values()))
+    if spec.get("save_values"):
+        np.savez(spec["out"] + ".npz", **{
+            k: v.detach().float().cpu().numpy()
+            for k, v in step.state_dict()["values"].items()})
+    with open(spec["out"], "w") as f:
+        json.dump(dict(result=result.as_dict(), losses=job["losses"],
+                       fingerprint=step.fingerprint(),
+                       commits=job["commits"], saves=job["saves"],
+                       capsules=job["capsules"], restores=restores,
+                       verify={str(k): v for k, v in verify.items()}), f)
+    return 0
+
+
+def supervised_runs(spec, work, timeout=600):
+    """Runs A-D of the supervised job, each a fresh process running
+    :data:`SUPERVISED_CHILD` from this file's directory: (A) to the end;
+    (B) under ``TPUMX_CHAOS=crash_at_step=6,hard=1,seed=0`` (exit 137
+    expected); (C) a fresh process resuming B; (D) a run sent a real
+    SIGTERM once step 3 committed (exit 143: 128 + SIGTERM), then a
+    fresh process resuming it.  Returns each run's exit code, output,
+    wall time from its launch to its first commit (``resume_ms``) and the
+    tail of its standard error."""
+    import signal
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "TPUMX_CHAOS"}
+    runs = {}
+
+    def launch(name, prefix, mode, chaos=None):
+        out = os.path.join(work, f"{name}.json")
+        progress = os.path.join(work, f"{name}.progress")
+        child = dict(spec, prefix=os.path.join(work, prefix), mode=mode,
+                     out=out, progress=progress)
+        t0 = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", SUPERVISED_CHILD, json.dumps(child)],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(env, **({"TPUMX_CHAOS": chaos}
+                                        if chaos else {})))
+        return proc, t0, out, progress
+
+    def finish(name, proc, t0, out):
+        _, err = proc.communicate(timeout=timeout)
+        rec = dict(rc=proc.returncode, stderr=err[-2000:],
+                   wall_s=time.time() - t0)
+        if os.path.exists(out):
+            with open(out) as f:
+                rec["out"] = json.load(f)
+            rec["resume_ms"] = (rec["out"]["commits"][0] - t0) * 1e3
+        runs[name] = rec
+
+    for name, prefix, mode, chaos in (
+            ("A", "a", "run", None),
+            ("B", "b", "crash",
+             f"crash_at_step={SUP_CRASH_STEP},hard=1,seed=0"),
+            ("C", "b", "run", None)):
+        finish(name, *launch(name, prefix, mode, chaos)[:3])
+    proc, t0, out, progress = launch("D", "d", "preempt")
+    deadline = time.time() + timeout
+    while proc.poll() is None and time.time() < deadline:
+        if os.path.exists(progress) and str(SUP_PREEMPT_STEP) in \
+                open(progress).read().split():
+            proc.send_signal(signal.SIGTERM)
+            break
+        time.sleep(0.05)
+    finish("D", proc, t0, out)
+    finish("D_resume", *launch("D_resume", "d", "run")[:3])
+    return runs
+
+
+def supervised_resume_checks(runs, crash_step, preempt_step, steps):
+    """The resume contract on runs A-D: B exits 137 and D 143; C's first
+    recorded step is the one after B's crash, D's resume's the one after
+    the preemption; their losses are bit-equal to A's for the same steps,
+    their final fingerprints equal A's, and every epoch's manifest
+    verifies."""
+    def key(n):
+        return f"{(n - 1) // steps}:{(n - 1) % steps + 1}"
+
+    a = runs["A"].get("out", {})
+    checks = {"A_completed": runs["A"]["rc"] == 0
+              and a.get("result", {}).get("status") == "completed",
+              "B_exit_137": runs["B"]["rc"] == 137,
+              "D_exit_143": runs["D"]["rc"] == 128 + 15}
+    for name, first in (("C", crash_step + 1),
+                        ("D_resume", preempt_step + 1)):
+        out = runs[name].get("out")
+        if runs[name]["rc"] != 0 or out is None:
+            checks[f"{name}_completed"] = False
+            continue
+        got = out["losses"]
+        checks[f"{name}_completed"] = out["result"]["status"] == "completed"
+        checks[f"{name}_first_step"] = next(iter(got)) == key(first)
+        checks[f"{name}_steps"] = list(got) == [key(n) for n in range(
+            first, SUP_EPOCHS * steps + 1)]
+        checks[f"{name}_losses_bit_equal"] = all(
+            a.get("losses", {}).get(k) == v for k, v in got.items())
+        checks[f"{name}_fingerprint"] = (out["fingerprint"] is not None
+                                         and out["fingerprint"]
+                                         == a.get("fingerprint"))
+        checks[f"{name}_resumed_from_step_capsule"] = any(
+            r["used"] == "step" for r in out["restores"])
+        checks[f"{name}_manifests_verified"] = all(
+            v["status"] == "verified" for v in out["verify"].values())
+    return checks
+
+
+def supervised_spec(cfg):
+    """The job at the ``train`` phase's shape: BERT-base bf16 (LAMB with
+    float32 masters, dropout 0.1), batch 32 x 512, ragged valid
+    lengths, 76 masked positions."""
+    return dict(device="cuda", cfg=cfg, dtype="bfloat16", batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, masked=TRAIN_MASKED, valid=list(TRAIN_VALID),
+                interval=SUP_INTERVAL)
+
+
+def supervised_counting(job):
+    """Wrap ``job``'s step so that ``job["executed"]`` counts the steps
+    that ran (a hung step never reaches its body)."""
+    step = job["step"]
+    inner = step.step
+    job["executed"] = 0
+
+    def counted(*a, **k):
+        job["executed"] += 1
+        return inner(*a, **k)
+    step.step = counted
+
+
+def supervised_replicas(torch, cfg, work, fa_layers, device="cuda",
+                        shape=(TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED,
+                               TRAIN_VALID), dtype="bfloat16"):
+    """The fingerprint vote at ``cfg``'s width and depth ``fa_layers``
+    (batch, sequence, masked positions and valid range ``shape``): three
+    replicas of one seed fed the same batches, each with an
+    ``IntegrityMonitor(interval=2)`` on a shared directory, under chaos
+    ``bitflip_param_at_step=3, bitflip_rank=2``.  After each step every
+    replica's monitor runs ``on_committed_step`` (one thread each, as
+    three processes would).  Returns each step's fingerprints and each
+    rank's verdicts."""
+    import threading
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.contrib import chaos
+    from tpu_mx_torch.models import BERTModel, MLMLoss
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    from tpu_mx_torch.parallel.integrity import IntegrityMonitor
+    from tpu_mx_torch.supervisor import DataCorruption
+
+    rcfg = dict(cfg, num_layers=fa_layers)
+    n, seq, masked, (lo, hi) = shape
+    rng = np.random.RandomState(SUP_DATA_SEED)
+    batches = []
+    for _ in range(SUP_STEPS):
+        valid = rng.randint(lo, hi + 1, n)
+        batches.append(tuple(torch.from_numpy(x).to(device) for x in
+                             bert_batch(rcfg, n, seq, masked, valid, rng)))
+    ranks = range(SUP_REPLICAS)
+    steps, monitors = [], []
+    for r in ranks:
+        net = BERTModel(rcfg, dtype=dtype, device=device,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(SUP_SEED))
+        opt = optimizer.create("lamb", learning_rate=1e-4,
+                               multi_precision=dtype == "bfloat16")
+        steps.append(CompiledTrainStep(net, MLMLoss(), opt, device=device))
+        monitors.append(IntegrityMonitor(work, rank=r, world=list(ranks),
+                                         interval=SUP_INTERVAL,
+                                         vote_timeout=60.0))
+    fps, verdicts = [], {r: [] for r in ranks}
+    with chaos.enable(bitflip_param_at_step=SUP_BITFLIP_STEP,
+                      bitflip_rank=SUP_BITFLIP_RANK, seed=0) as cfg_:
+        for k, batch in enumerate(batches, 1):
+            for r in ranks:
+                with env_set(TPUMX_FLEET_MEMBER=str(r)):
+                    float(steps[r].step(*batch))
+            fps.append([s.fingerprint() for s in steps])
+
+            def vote(r, k=k):
+                try:
+                    v = monitors[r].on_committed_step(k, fp=fps[-1][r])
+                    verdicts[r].append(dict(step=k, agree=None if v is None
+                                            else v["agree"]))
+                except DataCorruption as e:
+                    verdicts[r].append(dict(step=k, agree=False,
+                                            minority=list(e.minority),
+                                            self_corrupt=e.self_corrupt))
+            threads = [threading.Thread(target=vote, args=(r,))
+                       for r in ranks]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        bitflips = cfg_.bitflips
+    return fps, verdicts, bitflips
+
+
+def phase_supervised_train(ctx):
+    """Supervised, deterministically resumable BERT-base training at full
+    width (bf16, dropout 0.1, LAMB with float32 masters, batch 32 x 512):
+    ``CompiledTrainStep`` under ``Supervisor(capsule=CapsuleManager(
+    prefix, iters=[it], state=step, interval=2))`` with
+    ``elastic.save_checkpoint``/``auto_resume``.  Runs A-D in fresh
+    processes (:func:`supervised_runs`); then in this process: step ms
+    with and without the supervisor, a hung step the watchdog turns into
+    a restart from the last verified checkpoint, a poisoned loss the
+    sentinel skips and then rolls back, the three-replica fingerprint
+    vote with one bit flipped on rank 2, and two supervised steps under
+    ``mx.profiler`` whose trace holds the flash kernels by name."""
+    import shutil
+    import tempfile
+    import torch
+    from tpu_mx_torch import optimizer, profiler, tracing
+    from tpu_mx_torch.contrib import chaos
+    from tpu_mx_torch.kernels import _build
+    from tpu_mx_torch.models import MLMLoss, bert_base_config
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    from tpu_mx_torch.supervisor import Supervisor
+
+    t_phase = time.perf_counter()
+    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    spec = supervised_spec(cfg)
+    layers = cfg["num_layers"]
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="supervised_train-",
+                            dir=str(_build.BUILD_DIR.parent))
+    out = {}
+    try:
+        torch.cuda.empty_cache()
+        runs = supervised_runs(spec, work)
+        checks = supervised_resume_checks(runs, SUP_CRASH_STEP,
+                                          SUP_PREEMPT_STEP, SUP_STEPS)
+        a = runs["A"].get("out", {})
+        out["runs"] = {
+            name: dict(rc=r["rc"], wall_s=r["wall_s"],
+                       resume_ms=r.get("resume_ms"),
+                       first_step=next(iter(r["out"]["losses"]), None)
+                       if "out" in r else None,
+                       fingerprint=r.get("out", {}).get("fingerprint"),
+                       **({} if r["rc"] in (0, 137, 143)
+                          else {"stderr": r["stderr"][-1500:]}))
+            for name, r in runs.items()}
+        out["losses_A"] = a.get("losses")
+        out["capsule"] = dict(
+            bytes=[c["bytes"] for c in a.get("capsules", [])],
+            write_ms=[c["seconds"] * 1e3 for c in a.get("capsules", [])])
+        out["checkpoint"] = dict(
+            bytes=[v["bytes"] for v in a.get("verify", {}).values()],
+            save_s=a.get("saves"),
+            verify_s=[v["seconds"] for v in a.get("verify", {}).values()])
+        out["resume_ms"] = {n: runs[n].get("resume_ms")
+                            for n in ("C", "D_resume")}
+
+        # -- in this process: the main path's counts from 0
+        reset_port_kernel_launches()
+        executed = 0
+        # step ms with and without the supervisor, then the phases' host ms
+        job = supervised_job(dict(spec, prefix=os.path.join(work, "t"),
+                                  interval=0, deadline=SUP_DEADLINE))
+        supervised_counting(job)
+        step, sup, it = job["step"], job["sup"], job["it"]
+        it.reset()
+        batches = [next(it) for _ in range(SUP_STEPS)]
+        float(step.step(*batches[0].data, *batches[0].label).asnumpy())
+        plain_ms, sup_ms = [], []
+        for b in batches[1:1 + SUP_TIMED_STEPS]:
+            t0 = time.perf_counter()
+            float(step.step(*b.data, *b.label).asnumpy())
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        tracing.reset()
+        for b in batches[1:1 + SUP_TIMED_STEPS]:
+            t0 = time.perf_counter()
+            sup.step(lambda b=b: step.step(*b.data, *b.label))
+            sup_ms.append((time.perf_counter() - t0) * 1e3)
+        phase_ms = {}
+        for e in tracing.snapshot():
+            if e["event"] == "train_step.phase":
+                phase_ms.setdefault(e["data"]["phase"], []).append(
+                    e["data"]["seconds"] * 1e3)
+        out["step_ms"] = dict(plain=plain_ms, supervised=sup_ms)
+        out["phase_host_ms"] = {p: statistics.mean(v)
+                                for p, v in phase_ms.items()}
+        # two supervised steps of a fresh step under the profiler
+        profile = os.path.join(work, "profile.json")
+        profiler.set_config(filename=profile)
+        pstep = CompiledTrainStep(job["net"], MLMLoss(), optimizer.create(
+            "lamb", learning_rate=1e-4, multi_precision=True))
+        psup = Supervisor(backoff=0.0)
+        before = port_kernel_launches()
+        profiler.set_state("run")
+        for b in batches[:SUP_PROFILE_STEPS]:
+            psup.step(lambda b=b: pstep.step(*b.data, *b.label))
+        profiler.set_state("stop")
+        table = profiler.dumps()
+        profiled = {k: n - before[k] for k, n in
+                    port_kernel_launches().items()}
+        with open(profile) as f:
+            trace = json.load(f)["traceEvents"]
+        in_trace = {k: sum(1 for e in trace if e.get("cat") == "kernel"
+                           and sym in e["name"])
+                    for k, sym in (("flash_attention_fwd",
+                                    "flash_fwd_tc_kernel"),
+                                   ("flash_attention_bwd_dq",
+                                    "flash_dq_tc_kernel"),
+                                   ("flash_attention_bwd_dkv",
+                                    "flash_dkv_tc_kernel"))}
+        spans = {e["name"] for e in trace if e.get("cat") == "tracing"}
+        executed += job["executed"] + SUP_PROFILE_STEPS
+        out["profiler"] = dict(kernels_in_trace=in_trace,
+                               launches=profiled, events=len(trace),
+                               table=table.splitlines())
+        print(table, flush=True)
+        checks["profiler_kernels"] = all(
+            in_trace[k] == profiled[k] == layers * SUP_PROFILE_STEPS
+            for k in FLASH_KERNELS)
+        checks["profiler_phases"] = all(
+            f"train_step.phase:{p}" in spans
+            for p in tracing.TRAIN_STEP_PHASES)
+        del job, pstep, psup, step, sup, batches
+        torch.cuda.empty_cache()
+
+        # a hung step: the watchdog fires, the supervisor restarts from the
+        # last verified checkpoint (epoch 0's) and finishes
+        job = supervised_job(dict(spec, prefix=os.path.join(work, "h"),
+                                  interval=0, deadline=SUP_DEADLINE))
+        supervised_counting(job)
+        with chaos.enable(hang_step=SUP_STEPS + 1, hang_seconds=3600.0):
+            res = job["sup"].run(job["epoch_fn"], 0, SUP_EPOCHS)
+        fires = [e["ts"] for e in tracing.snapshot()
+                 if e["event"] == "supervisor.watchdog_fire"]
+        after = [t for t in job["commits"] if fires and t > fires[-1]]
+        out["hang"] = dict(result=res.as_dict(), restart_ms=(
+            (after[0] - fires[-1]) * 1e3 if after else None),
+            steps_run=job["executed"])
+        checks["watchdog_restart"] = (res.ok and res.watchdog_fires == 1
+                                      and res.restarts == 1
+                                      and bool(after))
+        executed += job["executed"]
+        del job
+        torch.cuda.empty_cache()
+
+        # a poisoned loss: skipped within the budget, then past it a
+        # rollback to epoch 0's checkpoint
+        job = supervised_job(dict(spec, prefix=os.path.join(work, "n"),
+                                  interval=0,
+                                  sup_kwargs=dict(skip_limit=1)))
+        supervised_counting(job)
+        with chaos.enable(nan_after=SUP_STEPS + 2, nan_streak=2):
+            res = job["sup"].run(job["epoch_fn"], 0, SUP_EPOCHS)
+        out["nan"] = dict(result=res.as_dict(), steps_run=job["executed"])
+        checks["sentinel_skip_then_rollback"] = (
+            res.ok and res.batches_skipped == 1 and res.rollbacks == 1)
+        executed += job["executed"]
+        del job
+        torch.cuda.empty_cache()
+        full = port_kernel_launches()
+
+        # the fingerprint vote of three replicas at depth 2
+        reset_port_kernel_launches()
+        fps, verdicts, bitflips = supervised_replicas(
+            torch, cfg, os.path.join(work, "vote"), SUP_REPLICA_LAYERS)
+        torch.cuda.empty_cache()
+        replica = port_kernel_launches()
+        flip = SUP_BITFLIP_STEP
+        out["integrity"] = dict(fingerprints=fps, verdicts=verdicts,
+                                bitflips=bitflips)
+        checks["ranks_0_1_agree"] = all(f[0] == f[1] is not None
+                                        for f in fps)
+        checks["rank_2_diverges_after_the_flip"] = all(
+            (f[2] == f[0]) == (k <= flip) for k, f in enumerate(fps, 1))
+        checks["vote_step_2_agrees"] = all(
+            v[1] == dict(step=2, agree=True) for v in verdicts.values())
+        checks["vote_names_rank_2"] = all(
+            verdicts[r][3] == dict(step=4, agree=False, minority=[2],
+                                   self_corrupt=r == 2)
+            for r in range(SUP_REPLICAS))
+        launches = {k: full[k] + replica[k] for k in full}
+        want = layers * executed + SUP_REPLICA_LAYERS * SUP_REPLICAS \
+            * SUP_STEPS
+        checks["flash_launches"] = all(launches[k] == want
+                                       for k in FLASH_KERNELS)
+        checks["paged_idle"] = launches["paged_attention"] == 0
+        out["steps_executed"] = executed
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ctx["supervised_train_launches"] = launches
+    emit("supervised_train", ok=all(checks.values()), checks=checks,
+         model={**cfg, "dtype": "bfloat16"},
+         batch=dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, masked=TRAIN_MASKED,
+                    valid_length=list(TRAIN_VALID)),
+         epochs=SUP_EPOCHS, steps_per_epoch=SUP_STEPS,
+         capsule_interval=SUP_INTERVAL, **out, launches=launches,
+         seconds=time.perf_counter() - t_phase, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"supervised_train check {name} failed")
+
+
 def later_launches(ctx, name):
     """A kernel's launches in the MoE, example, operators, data and later
     phases."""
     return {f"launches_{p}": ctx[f"{p}_launches"][name]
             for p in ("moe_parity", "moe_train", "bert_example",
                       "moe_example", "operators", "data", "serve_arms",
-                      "crossover", "quantize", "estimator")}
+                      "crossover", "quantize", "estimator",
+                      "supervised_train")}
 
 
 def main():
@@ -6605,6 +7168,7 @@ def main():
                      ("estimator", phase_estimator),
                      ("attention_bias", phase_attention_bias),
                      ("crossover", phase_crossover),
+                     ("supervised_train", phase_supervised_train),
                      ("rtc", phase_rtc)):
         try:
             fn(ctx)
@@ -6629,7 +7193,8 @@ def main():
                                 "operators_launches", "data_launches",
                                 "serve_arms_launches", "crossover_launches",
                                 "quantize_launches",
-                                "estimator_launches"} \
+                                "estimator_launches",
+                                "supervised_train_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1

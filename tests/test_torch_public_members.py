@@ -33,7 +33,6 @@ def _item(n, what):
     return f"ROADMAP A item {n} ({what})"
 
 
-_ITEM8 = _item(8, "runtime planes")
 _ITEM9 = _item(9, "multi-device parallel")
 _ITEM10 = _item(10, "graph API and the long tail")
 
@@ -72,34 +71,10 @@ ALLOWED = {
         "is TinyLM.decode_step",
     ("tpu_mx_torch.io.io", "LibSVMIter"):
         _ITEM10 + ": its CSR batches need ndarray/sparse.py",
-    **{("tpu_mx_torch.checkpoint", n): _ITEM8
-       for n in ("CheckpointCorrupt", "MANIFEST_FORMAT", "PreemptionHandler",
-                 "apply_retention", "checkpoint_files", "list_epochs", "log",
-                 "manifest_path", "newest_verified_epoch",
-                 "preemption_handler", "read_manifest", "retry",
-                 "sha256_file", "update_manifest", "verify_checkpoint",
-                 "write_manifest")},
-    **{("tpu_mx_torch.elastic", n): _ITEM8
-       for n in ("auto_resume", "barrier", "candidate_checkpoints",
-                 "latest_checkpoint", "log", "save_checkpoint")},
-    **{("tpu_mx_torch.resume", n): _ITEM8
-       for n in ("CAPSULE_FORMAT", "CAPSULE_FORMATS", "CAPSULE_FORMAT_V1",
-                 "CapsuleManager", "ModuleState", "capsule_path", "log",
-                 "read_capsule", "step_capsule_path", "step_state_path")},
-    **{("tpu_mx_torch.supervisor", n): _ITEM8
-       for n in ("NumericSentinel", "Supervise",
-                 "Supervisor", "SupervisorResult", "for_module")},
-    **{("tpu_mx_torch.contrib.chaos", n): _ITEM8
-       for n in ("maybe_bitflip", "maybe_crash_step", "maybe_hang",
-                 "maybe_oserror", "maybe_preempt", "maybe_slow_worker",
-                 "partitioned", "peer_killed", "wrap_file")},
-    **{("tpu_mx_torch.parallel.integrity", n): _ITEM8
-       for n in ("IntegrityMonitor", "log")},
-    **{("tpu_mx_torch.telemetry", n): _ITEM8
-       for n in ("ATTRIBUTION_TOLERANCE", "KNOWN_METRICS",
-                 "SEGMENT_OPS_BUCKETS", "exposition", "fleet_identity",
-                 "set_fleet_identity")},
-    ("tpu_mx_torch.tracing", "TRAIN_STEP_PHASES"): _ITEM8,
+    ("tpu_mx_torch.supervisor", "for_module"):
+        _ITEM10 + ": it wires a Supervisor to a Module (module/)",
+    ("tpu_mx_torch.resume", "ModuleState"):
+        _ITEM10 + ": a Module's state for the capsule's sidecar (module/)",
     ("tpu_mx_torch.parallel.ring_attention", "ring_attention"): _ITEM9,
     ("tpu_mx_torch.contrib.compression", "GradientCompression"): _ITEM9,
     ("tpu_mx_torch.autograd", "get_symbol"): _ITEM10,

@@ -22,9 +22,9 @@ import tpu_mx as jmx
 from tpu_mx import nd as jnd
 
 import tpu_mx_torch as mx
-from tpu_mx_torch.base import MXNetError
 from tpu_mx_torch.gluon import nn
-from tpu_mx_torch.gluon.block import HybridBlock, REMAT_POLICIES
+from tpu_mx_torch.gluon.block import (HybridBlock, REMAT_POLICIES,
+                                      resolve_remat_policy)
 from tpu_mx_torch.kernels import flash_attention as fa
 from tpu_mx_torch.models import BERTModel
 from tpu_mx_torch.models.bert import SelfAttention
@@ -125,7 +125,7 @@ def test_the_flash_forward_is_kept_as_a_product(policy, launches,
     rng = np.random.RandomState(0)
     q, k, v = (torch.from_numpy(rng.randn(2, 16, 16).astype(np.float32))
                .requires_grad_(True) for _ in range(3))
-    block = _FlashBlock().remat(policy=policy)
+    block = _FlashBlock().remat(policy=resolve_remat_policy(policy))
     out = block(q, k, v)
     grads = torch.autograd.grad(out.square().sum(), (q, k, v))
     assert len(seen) == launches
@@ -167,6 +167,26 @@ def test_remat_sequential_with_batchnorm_matches_and_moves_stats_once():
     assert not torch.equal(s1[0], torch.zeros_like(s1[0]))
 
 
+_FACTORY_NAMES = ("save_only_these_names", "save_any_names_but_these",
+                  "save_anything_except_these_names",
+                  "save_and_offload_only_these_names",
+                  "save_from_both_policies",
+                  "offload_dot_with_no_batch_dims")
+
+
+class _SquareLoss(HybridBlock):
+    def forward(self, pred, label):
+        return pred.float().square().mean(dim=(1, 2))
+
+
+class _JSquareLoss(jmx.gluon.loss.Loss):
+    def __init__(self):
+        super().__init__(None, 0)
+
+    def hybrid_forward(self, F, pred, label):
+        return (pred.astype("float32") ** 2).mean(axis=(1, 2))
+
+
 def test_policy_errors_are_the_references():
     with pytest.raises(ValueError, match="remat policy"):
         BERTModel(CFG, remat=True, remat_policy="bogus_policy",
@@ -174,13 +194,73 @@ def test_policy_errors_are_the_references():
     with pytest.raises(ValueError, match="remat=True"):
         BERTModel(CFG, remat=False, remat_policy="dots_saveable",
                   device="cpu", generator=torch.Generator())
-    with pytest.raises(MXNetError, match="checkpoint name"):
-        BERTModel(CFG, remat=True, remat_policy="save_only_these_names",
-                  device="cpu", generator=torch.Generator())
     from tpu_mx.models.bert import BERTModel as JBERT
+    from tpu_mx.parallel import CompiledTrainStep as JStep
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.parallel import CompiledTrainStep
     with pytest.raises(ValueError, match="remat policy"):
         JBERT(dict(CFG, num_layers=1), remat=True,
               remat_policy="bogus_policy")
+    # jax's policy factories (fault C20): the name constructs and the
+    # eager forward runs in both packages; the first training step raises
+    # jax's TypeError, the port's with the reference's message
+    cfg = dict(CFG, num_layers=1)
+    toks = np.random.RandomState(0).randint(4, 50, (2, 16)).astype(np.int32)
+    zeros = np.zeros((2, 16), np.int32)
+    for name in _FACTORY_NAMES:
+        message = (f"{name}() got an unexpected keyword argument "
+                   "'dimension_numbers'")
+        net = BERTModel(cfg, remat=True, remat_policy=name, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+        assert net(mx.nd.array(toks), mx.nd.array(zeros)).shape == \
+            (2, 16, 50)
+        step = CompiledTrainStep(net, _SquareLoss(),
+                                 optimizer.create("sgd", learning_rate=0.1),
+                                 device="cpu")
+        with pytest.raises(TypeError) as got:
+            step.step(torch.from_numpy(toks), torch.from_numpy(zeros),
+                      torch.zeros(2))
+        assert str(got.value) == message
+        jmx.random.seed(0)
+        jnet = JBERT(cfg, remat=True, remat_policy=name)
+        jnet.initialize(init="xavier")
+        assert jnet(jnd.array(toks), jnd.array(zeros)).shape == (2, 16, 50)
+        jstep = JStep(jnet, _JSquareLoss(),
+                      jmx.optimizer.create("sgd", learning_rate=0.1))
+        with pytest.raises(TypeError) as want:
+            jstep.step(jnd.array(toks), jnd.array(zeros), jnd.zeros((2,)))
+        assert str(want.value) == message
+
+
+@pytest.mark.parametrize("policy", ["dots_saveable", "bogus"])
+def test_block_remat_hands_a_name_on_unresolved_as_the_reference(policy):
+    """``HybridBlock.remat(policy=<str>)`` keeps the string, as the
+    reference's does (it hands it to ``jax.checkpoint``): the eager
+    forward runs and the first training step raises jax's TypeError."""
+    from tpu_mx.gluon import nn as jnn
+    from tpu_mx.parallel import CompiledTrainStep as JStep
+    from tpu_mx_torch import gluon, optimizer
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    x = np.ones((2, 4), np.float32)
+    nets = []
+    for pkg_nn in (nn, jnn):
+        net = pkg_nn.HybridSequential()
+        dense = pkg_nn.Dense(4, in_units=4)
+        dense.remat(policy=policy)
+        net.add(dense, pkg_nn.Dense(2, in_units=4))
+        net.initialize()
+        nets.append(net)
+    assert nets[0](mx.nd.array(x)).shape == (2, 2)
+    assert nets[1](jnd.array(x)).shape == (2, 2)
+    step = CompiledTrainStep(nets[0], gluon.loss.L2Loss(),
+                             optimizer.create("sgd", learning_rate=0.1),
+                             device="cpu")
+    with pytest.raises(TypeError, match="'str' object is not callable"):
+        step.step(torch.from_numpy(x), torch.zeros(2, 2))
+    jstep = JStep(nets[1], jmx.gluon.loss.L2Loss(),
+                  jmx.optimizer.create("sgd", learning_rate=0.1))
+    with pytest.raises(TypeError, match="'str' object is not callable"):
+        jstep.step(jnd.array(x), jnd.zeros((2, 2)))
 
 
 @pytest.mark.parametrize("policy", [None, "dots_saveable"])

@@ -285,9 +285,24 @@ def test_from_numpy_consumes_every_array_once():
 
 def test_bert_refuses_what_is_not_ported():
     from tpu_mx_torch.parallel import make_mesh
-    with pytest.raises(MXNetError, match="checkpoint name"):
-        BERTModel(_cfg(), device="cpu", remat=True,
-                  remat_policy="save_only_these_names")
+    # a policy factory's name constructs and its first step raises jax's
+    # TypeError, in both packages (fault C20)
+    cfg = dict(_cfg(), num_layers=1)
+    batch = _batch()
+    step = CompiledTrainStep(
+        BERTModel(cfg, device="cpu", remat=True,
+                  remat_policy="save_only_these_names"),
+        MLMLoss(), optimizer.create("lamb"), device="cpu")
+    with pytest.raises(TypeError, match="save_only_these_names\\(\\) got an "
+                       "unexpected keyword argument 'dimension_numbers'"):
+        step.step(*batch)
+    mx.random.seed(0)
+    jnet = JBERTModel(cfg, remat=True, remat_policy="save_only_these_names")
+    jnet.initialize()
+    jstep = JCompiledTrainStep(jnet, JMLMLoss(), mx.optimizer.create("lamb"))
+    with pytest.raises(TypeError, match="save_only_these_names\\(\\) got an "
+                       "unexpected keyword argument 'dimension_numbers'"):
+        jstep.step(*_nd(batch))
     with pytest.raises(MXNetError, match="A item 9"):
         make_mesh({"dp": 2, "tp": 1}, devices=["cpu"])
     with pytest.raises(MXNetError, match="A item 9"):

@@ -31,7 +31,13 @@ The port goes slice by slice:
   (``gluon.model_zoo.vision.get_model``);
 - the data plane: ``mx.recordio``, the native JPEG pipeline
   (:mod:`tpu_mx_torch.lib`), the file and record iterators of ``mx.io``,
-  ``mx.gluon.data`` and ``mx.image``.
+  ``mx.gluon.data`` and ``mx.image``;
+- supervised, deterministically resumable training: checkpoint
+  manifests (:mod:`tpu_mx_torch.checkpoint`), auto-resume
+  (:mod:`tpu_mx_torch.elastic`), capsules (:mod:`tpu_mx_torch.resume`),
+  the :class:`~tpu_mx_torch.supervisor.Supervisor`, the chaos training
+  sites, the cross-replica fingerprint vote
+  (``parallel.integrity.IntegrityMonitor``) and ``mx.profiler``.
 
 The hand-written Hopper kernels are in :mod:`tpu_mx_torch.kernels`.
 Entry points take ``device=`` and default to ``"cuda"``
@@ -40,6 +46,7 @@ Entry points take ``device=`` and default to ``"cuda"``
 makes the host the current context (the default is the card).
 """
 from . import autograd, gluon, io, metric, ndarray, operator, optimizer
+from . import profiler
 from . import random
 from . import recordio
 from . import image
@@ -53,4 +60,4 @@ from . import ndarray as nd
 __all__ = ["MXNetError", "NumericDivergence", "Context", "cpu", "cpu_pinned",
            "current_context", "gpu", "num_gpus", "tpu", "autograd", "gluon",
            "image", "init", "initializer", "io", "metric", "nd", "ndarray",
-           "operator", "optimizer", "random", "recordio"]
+           "operator", "optimizer", "profiler", "random", "recordio"]

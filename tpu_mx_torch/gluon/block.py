@@ -192,29 +192,81 @@ REMAT_POLICIES = ("everything_saveable", "nothing_saveable", "dots_saveable",
                   "checkpoint_dots", "dots_with_no_batch_dims_saveable",
                   "checkpoint_dots_with_no_batch_dims")
 
-# jax's policy factories: they keep values tagged with checkpoint_name,
-# which the port's layers do not tag
-_NAMED_POLICIES = ("save_only_these_names", "save_any_names_but_these",
-                   "save_anything_except_these_names",
-                   "save_and_offload_only_these_names",
-                   "save_from_both_policies", "offload_dot_with_no_batch_dims")
+
+def _named_policy(name):
+    """The policy function of one of :data:`REMAT_POLICIES`: a
+    selective-checkpoint policy ``(ctx, op, *args, **kwargs)``."""
+    saved = []
+
+    def policy(ctx, op, *args, **kwargs):
+        from torch.utils.checkpoint import CheckpointPolicy
+        if name == "everything_saveable":
+            return CheckpointPolicy.MUST_SAVE
+        if not saved and name != "nothing_saveable":
+            saved.append(_saved_ops(name))
+        return CheckpointPolicy.MUST_SAVE if saved and op in saved[0] \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    policy.__name__ = policy.__qualname__ = name
+    return policy
+
+
+# jax's policy factories: each takes names (or policies) and returns a
+# policy.  The port's layers tag no value with a checkpoint name, so a
+# name-keyed policy keeps no named value; an offloaded value is kept on
+# the card.
+def save_only_these_names(*names_which_can_be_saved):
+    return _POLICIES["nothing_saveable"]
+
+
+def save_any_names_but_these(*names_not_to_save):
+    return _POLICIES["nothing_saveable"]
+
+
+def save_anything_except_these_names(*names_not_to_save):
+    return _POLICIES["everything_saveable"]
+
+
+def save_and_offload_only_these_names(*, names_which_can_be_saved,
+                                      names_which_can_be_offloaded,
+                                      offload_src, offload_dst):
+    return _POLICIES["nothing_saveable"]
+
+
+def save_from_both_policies(policy_1, policy_2):
+    def policy(ctx, op, *args, **kwargs):
+        from torch.utils.checkpoint import CheckpointPolicy
+        keep = (policy_1(ctx, op, *args, **kwargs),
+                policy_2(ctx, op, *args, **kwargs))
+        return CheckpointPolicy.MUST_SAVE \
+            if CheckpointPolicy.MUST_SAVE in keep \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def offload_dot_with_no_batch_dims(offload_src, offload_dst):
+    return _POLICIES["dots_with_no_batch_dims_saveable"]
+
+
+_POLICIES = {n: _named_policy(n) for n in REMAT_POLICIES}
+_FACTORIES = {f.__name__: f for f in (
+    save_only_these_names, save_any_names_but_these,
+    save_anything_except_these_names, save_and_offload_only_these_names,
+    save_from_both_policies, offload_dot_with_no_batch_dims)}
 
 
 def resolve_remat_policy(policy):
-    """None, a selective-checkpoint policy function ``(ctx, op, *args,
-    **kwargs) -> CheckpointPolicy``, or one of :data:`REMAT_POLICIES`
-    (kept as its name); another name raises the reference's
-    ``ValueError``."""
+    """``BERTModel(remat_policy=)``'s resolution, the reference's: None or
+    a callable pass through, a name of ``jax.checkpoint_policies`` gives
+    the port's entry of that name (a policy of :data:`REMAT_POLICIES`, or
+    one of the factories, which is what jax gives too), another name
+    raises the reference's ``ValueError``."""
     if policy is None or not isinstance(policy, str):
         return policy
-    if policy in REMAT_POLICIES:
-        return policy
-    if policy in _NAMED_POLICIES:
-        raise MXNetError(f"remat policy {policy!r} keeps values by "
-                         "checkpoint name, which the port's layers do not "
-                         "tag (ROADMAP A item 6)")
-    raise ValueError(f"unknown remat policy {policy!r}; see "
-                     f"jax.checkpoint_policies for valid names")
+    found = _POLICIES.get(policy) or _FACTORIES.get(policy)
+    if found is None:
+        raise ValueError(f"unknown remat policy {policy!r}; see "
+                         f"jax.checkpoint_policies for valid names")
+    return found
 
 
 def _saved_ops(name):
@@ -228,24 +280,21 @@ def _saved_ops(name):
 
 
 def _context_fn(policy):
-    """The ``context_fn`` of ``torch.utils.checkpoint`` for a resolved
-    policy (None: recompute everything)."""
-    if policy is None or policy == "nothing_saveable":
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a segment's
+    policy (None: recompute everything).  What jax cannot call as a
+    policy raises jax's ``TypeError`` here, when the segment first
+    records a gradient (in the reference, when the step is traced): a
+    string (``HybridBlock.remat`` hands the policy on unresolved) and an
+    uncalled factory (jax calls it with a product's parameters)."""
+    if isinstance(policy, str):
+        raise TypeError("'str' object is not callable")
+    if any(policy is f for f in _FACTORIES.values()):
+        raise TypeError(f"{policy.__name__}() got an unexpected keyword "
+                        "argument 'dimension_numbers'")
+    if policy is None or policy is _POLICIES["nothing_saveable"]:
         return None
-    from torch.utils.checkpoint import (CheckpointPolicy,
-                                        create_selective_checkpoint_contexts)
-    if callable(policy):
-        fn = policy
-    elif policy == "everything_saveable":
-        def fn(ctx, op, *args, **kwargs):
-            return CheckpointPolicy.MUST_SAVE
-    else:
-        saved = _saved_ops(policy)
-
-        def fn(ctx, op, *args, **kwargs):
-            return CheckpointPolicy.MUST_SAVE if op in saved \
-                else CheckpointPolicy.PREFER_RECOMPUTE
-    return functools.partial(create_selective_checkpoint_contexts, fn)
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 def _segment_generators(block, args):
@@ -607,13 +656,16 @@ class HybridBlock(Block):
         """Recompute this block's forward in the backward instead of
         keeping its activations (``torch.utils.checkpoint``), whenever it
         runs with gradients enabled; ``policy`` keeps some outputs (a
-        name of :data:`REMAT_POLICIES`, as ``jax.checkpoint_policies``
-        names them, or a selective-checkpoint policy function).  The
+        selective-checkpoint policy function, such as
+        ``resolve_remat_policy("dots_saveable")``).  As in the reference,
+        the policy is kept as given: a name (a string) is not resolved
+        here, and the first gradient-recording forward of the segment
+        raises jax's ``TypeError`` for it.  The
         recomputation replays the draws of every generator the block's
         layers hold (dropout masks, the flash kernels' dropout seeds),
         so the gradient is the one without remat.  Returns self."""
         self._remat = bool(active)
-        self._remat_policy = resolve_remat_policy(policy)
+        self._remat_policy = policy
         return self
 
     def _run(self, args, kwargs):

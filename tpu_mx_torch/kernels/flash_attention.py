@@ -488,7 +488,7 @@ def _forward(q, k, v, scale, causal, kv_valid, rate, seed, bias=None):
 
 
 # The forward as a dispatcher operator, so that selective checkpointing
-# (``HybridBlock.remat(policy="dots_saveable")``) sees it as one product
+# (a remat segment with the ``dots_saveable`` policy) sees it as one product
 # and can keep its outputs instead of launching it again in the backward.
 _OPS = torch.library.Library("tpu_mx_torch_flash", "FRAGMENT")
 _OPS.define("fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, "

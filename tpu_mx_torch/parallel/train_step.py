@@ -46,7 +46,19 @@ reference's contract:
   net draws from, so a loaded step continues bit for bit;
 - ``step(deadline=)``: the step and its loss's readback under
   ``supervisor.run_with_deadline``; a restore during an abandoned step
-  makes that step drop its update.
+  makes that step drop its update;
+- the flight recorder's ``train_step.phase`` events, the stations of
+  ``tracing.TRAIN_STEP_PHASES`` in the reference's order: ``data_wait``
+  (the batch onto the device), ``recompile`` (the first call's build of
+  the masters and optimizer state), ``dispatch`` (the eager forward,
+  loss and backward enqueued on the device), ``optimizer_update`` (the
+  update loop over the parameters) and ``loss_readback`` (the loss's
+  device-to-host read, inside the deadline's thread or the
+  supervisor's);
+- the chaos training sites: ``slow_worker_rank`` sleeps inside
+  ``data_wait``, and ``bitflip_param_at_step``/``bitflip_grad_rank``
+  flip one bit of the committed parameters after the step's
+  fingerprint (:meth:`CompiledTrainStep._apply_bitflip`).
 
 The name is the reference's; in the port the step is **eager PyTorch**
 (no capture into one program yet: CUDA-graph capture is open work,
@@ -54,7 +66,6 @@ ROADMAP).  ``mesh``, ``rules`` and ``data_specs`` are taken at world
 size 1 (``parallel.make_mesh``): the specs are the reference's answers
 (:func:`apply_rules`) and place nothing; ``gradient_compression``
 raises where the reference raises (it needs a ``dp`` axis above 1).
-Chaos injection (the training sites) is ROADMAP A item 8.
 """
 from __future__ import annotations
 
@@ -70,7 +81,9 @@ import torch
 
 from .. import device as _device
 from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from ..base import MXNetError
+from ..contrib import chaos as _chaos
 from ..ndarray.ndarray import NDArray
 from ..ndarray.traced import host_readable
 from .integrity import fold_sums, leaf_word_sum
@@ -81,6 +94,8 @@ __all__ = ["CompiledTrainStep", "fsdp_rules", "sharding_for", "apply_rules"]
 _logger = logging.getLogger(__name__)
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
+# the explicit mantissa bits of each type a master is cast to
+_MANTISSA_BITS = {torch.float16: 10, torch.bfloat16: 7}
 
 CHECKPOINT_FORMAT = "tpu_mx_torch-step-v1"
 
@@ -133,6 +148,16 @@ def fsdp_rules(params, axis="dp", min_size=1024, axis_size=None):
         spec[dim] = axis
         rules.append((f"^{re.escape(name)}$", P(*spec)))
     return rules
+
+
+def _to_device(state, device):
+    """A copy of an optimizer state (a tensor, a tuple of tensors, or
+    None) on ``device``."""
+    if isinstance(state, tuple):
+        return tuple(_to_device(x, device) for x in state)
+    if isinstance(state, torch.Tensor):
+        return state.detach().clone().to(device)
+    return state
 
 
 class CompiledTrainStep:
@@ -265,8 +290,13 @@ class CompiledTrainStep:
         def call():
             loss = self._step(batch, lr, expect_gen=gen0)
             t = loss._data if isinstance(loss, NDArray) else loss
+            # the step's work completes INSIDE the watchdog thread: a
+            # stalled kernel parks here
+            t_read = time.perf_counter()
             if t.is_cuda:
                 torch.cuda.current_stream(t.device).synchronize()
+            _tracing.emit("train_step.phase", t0=t_read,
+                          t1=time.perf_counter(), phase="loss_readback")
             return loss
 
         count0 = self._build_count
@@ -280,12 +310,20 @@ class CompiledTrainStep:
         if expect_gen is None:
             expect_gen = self._generation
         t_start = time.perf_counter()
-        if self._build_count == 0:
-            self._build()
+        # a chaos straggler's delay lands inside the data_wait phase
+        _chaos.maybe_slow_worker()
         arrays = any(isinstance(b, NDArray) for b in batch)
         batch = tuple(None if b is None else _device.as_tensor(
             b._data if isinstance(b, NDArray) else b, self.device)
             for b in batch)
+        t_data = time.perf_counter()
+        _tracing.emit("train_step.phase", t0=t_start, t1=t_data,
+                      phase="data_wait")
+        if self._build_count == 0:
+            self._build()
+            _tracing.emit("train_step.phase", t0=t_data,
+                          t1=time.perf_counter(), phase="recompile")
+        t_disp = time.perf_counter()
         n = self._n_loss_args
         data_args, loss_args = batch[:-n], batch[-n:]
         diff = [self._params[k] for k in self._diff_keys]
@@ -305,6 +343,9 @@ class CompiledTrainStep:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(diff, grads)]
         loss = loss.detach()
+        t_done = time.perf_counter()
+        _tracing.emit("train_step.phase", t0=t_disp, t1=t_done,
+                      phase="dispatch")
         with torch.no_grad():
             if self._accum > 1:
                 k = self._accum
@@ -330,8 +371,44 @@ class CompiledTrainStep:
                 self._t = t_next
                 self._last_fp = self._digest() if _fingerprint_on() \
                     else None
+        _tracing.emit("train_step.phase", t0=t_done,
+                      t1=time.perf_counter(), phase="optimizer_update")
+        # chaos corruption: one bit of the COMMITTED state flips after this
+        # step's fingerprint, silent until the next published one
+        bit = _chaos.maybe_bitflip()
+        if bit is not None:
+            self._apply_bitflip(bit)
         self._record_step(batch, t_start)
         return NDArray(host_readable(loss)) if arrays else loss
+
+    def _apply_bitflip(self, bit):
+        """Flip one bit of element 0 of the first differentiable
+        parameter: the chaos ``bitflip_param_at_step`` /
+        ``bitflip_grad_rank`` payload.  A float32 parameter flips mantissa
+        bit ``bit`` (0–22), any other without a master bit ``bit % 8`` of
+        its first byte, as in the reference.  A mixed-precision parameter
+        flips its float32 master, which every update casts the weight
+        from (a flip of the weight alone would heal at the next update),
+        in the mantissa bits the weight's type keeps, so the weight the
+        replicas' fingerprints compare changes with it."""
+        key = self._diff_keys[0]
+        p = self._params[key]
+        with self._state_lock, torch.no_grad():
+            master = self.masters.get(key)
+            target = p if master is None else master
+            head = target.view(-1)[:1]
+            if target.dtype == torch.float32:
+                if master is not None:
+                    kept = _MANTISSA_BITS[p.dtype]
+                    bit = 23 - kept + int(bit) % kept
+                head.view(torch.int32).bitwise_xor_(1 << int(bit) % 32)
+            else:
+                head.view(torch.uint8)[:1].bitwise_xor_(1 << int(bit) % 8)
+            if master is not None:
+                p.view(-1)[:1].copy_(head.to(p.dtype))
+        _logger.debug("train_step: chaos bit-flip applied to %r bit %d (%s)",
+                      key, int(bit), "master" if master is not None
+                      else "value")
 
     def _digest(self):
         """The post-update digest as a 0-d device tensor: the reference's
@@ -427,10 +504,8 @@ class CompiledTrainStep:
                 values[k].copy_(v)
             self.masters = {k: v.detach().clone().to(self.device)
                             for k, v in sd["masters"].items()}
-            self.opt_states = {
-                k: tuple(x.detach().clone().to(self.device) for x in s)
-                if isinstance(s, tuple) else s
-                for k, s in sd["opt_states"].items()}
+            self.opt_states = {k: _to_device(s, self.device)
+                               for k, s in sd["opt_states"].items()}
             self._t = int(sd["t"])
             self._reset_accumulation()
 

@@ -17,12 +17,15 @@ packages alike:
   :data:`SLO_LATENCY_BUCKETS` ladder.
 - **Spans** (:class:`span`) time a region into a histogram.
 - **Export**: :func:`snapshot` (one record per metric, schema checked by
-  :func:`validate_record`) and :func:`flush` (JSONL append to ``path``
-  or ``TPUMX_TELEMETRY``; ``final=True`` rewrites the file through
-  ``checkpoint.atomic_write``).
-
-Not ported yet (ROADMAP A item 8): the Prometheus exposition, the
-host-RSS gauge, the fleet identity stamp and the profiler bridge.
+  :func:`validate_record`), :func:`flush` (JSONL append to ``path`` or
+  ``TPUMX_TELEMETRY``; ``final=True`` rewrites the file through
+  ``checkpoint.atomic_write``) and :func:`exposition` (the Prometheus
+  text format).  Every export refreshes the ``host.rss_bytes`` and
+  ``tracing.events_dropped`` gauges first; :func:`set_fleet_identity`
+  stamps every record with a rank and a membership generation.
+- **Catalog**: :data:`KNOWN_METRICS` lists every metric name, the
+  reference's and the port's own (``rnn.arm``,
+  ``serve.prefill_attention``, ``serve.forensic_dump_failures``).
 """
 from __future__ import annotations
 
@@ -37,16 +40,21 @@ import time
 from bisect import bisect_left
 
 __all__ = ["counter", "gauge", "histogram", "span", "get", "series",
-           "reset", "snapshot", "flush", "validate_record",
+           "reset", "snapshot", "flush", "exposition", "validate_record",
+           "set_fleet_identity", "fleet_identity",
            "configured_path", "Counter", "Gauge", "Histogram",
-           "LATENCY_BUCKETS", "SLO_LATENCY_BUCKETS", "WINDOW_SECONDS",
-           "WINDOW_SUBWINDOWS", "quantile_from_cumulative",
-           "fraction_le_from_cumulative", "parse_slo_spec", "DEFAULT_SLOS"]
+           "KNOWN_METRICS", "LATENCY_BUCKETS", "SEGMENT_OPS_BUCKETS",
+           "SLO_LATENCY_BUCKETS", "WINDOW_SECONDS", "WINDOW_SUBWINDOWS",
+           "quantile_from_cumulative", "fraction_le_from_cumulative",
+           "parse_slo_spec", "DEFAULT_SLOS", "ATTRIBUTION_TOLERANCE"]
 
 # fixed log-scale latency buckets, in SECONDS: 10µs → 30s in 1–3–10 steps.
 # Fixed — never derived from data — so histograms from any two runs merge.
 LATENCY_BUCKETS = (1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2,
                    0.1, 0.3, 1.0, 3.0, 10.0, 30.0)
+
+# count-valued buckets for fusion segment lengths (power-of-two edges)
+SEGMENT_OPS_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
 
 
 def _geometric_ladder(lo, hi, ratio):
@@ -90,8 +98,219 @@ _DEFAULT_BUCKETS = {
     "serve.phase_seconds": SLO_LATENCY_BUCKETS,
 }
 
+# The stable metric-name catalog, the reference's names (a dashboard reads
+# both packages alike) and, at its end, the port's own.
+KNOWN_METRICS = frozenset({
+    # fusion engine (fusion.py)
+    "fusion.flushes", "fusion.flush_cause", "fusion.segment_ops",
+    "fusion.ops_fused", "fusion.segments_dead",
+    "fusion.cache_hits", "fusion.cache_misses", "fusion.eager_fallbacks",
+    # durability layer (checkpoint.py; save_seconds is the span at
+    # the whole-checkpoint save sites, write_seconds the per-file commit)
+    "checkpoint.save_seconds", "checkpoint.write_seconds",
+    "checkpoint.verify_seconds", "checkpoint.atomic_writes",
+    "checkpoint.retries", "checkpoint.corrupt_detected",
+    # elastic resume (elastic.py)
+    "elastic.resume_attempts", "elastic.epochs_skipped_corrupt",
+    "elastic.legacy_fallbacks",
+    # compiled train step (parallel/train_step.py)
+    "train_step.seconds", "train_step.steps", "train_step.recompiles",
+    "train_step.examples_per_sec",
+    # kvstore eager path (kvstore.py).  checksums counts payload
+    # digests recorded at push time, checksum_failures the pulls whose
+    # aggregate no longer matched — silent corruption crossing the sync
+    # seam, raised loudly as kvstore.IntegrityError
+    "kvstore.pushes", "kvstore.pulls",
+    "kvstore.push_bytes", "kvstore.pull_bytes",
+    "kvstore.checksums", "kvstore.checksum_failures",
+    # self-healing supervisor (supervisor.py; corruptions counts
+    # DataCorruption verdicts the classify discipline handled)
+    "supervisor.restarts", "supervisor.rollbacks",
+    "supervisor.corruptions",
+    "supervisor.batches_skipped", "supervisor.watchdog_fires",
+    "supervisor.degraded",
+    # SDC defense plane (parallel/integrity.py,
+    # docs/robustness.md "Silent data corruption defense").
+    # fingerprints counts published cross-replica digests, votes the
+    # cohort comparisons, mismatches the disagreeing votes (corruption
+    # verdicts); verified_step is a gauge: the newest step PROVEN clean
+    # by an all-agree vote (the rollback anchor, carried by the
+    # capsule).  shadow_audits / shadow_mismatches count sampled
+    # bit-exact re-executions and their failures (the dp=1 detector);
+    # self_checks / self_check_mismatches are the serving decode twin;
+    # quarantined counts ranks permanently barred by a corruption
+    # verdict (fleet.quarantine — never re-admitted).
+    "integrity.fingerprints", "integrity.votes", "integrity.mismatches",
+    "integrity.verified_step",
+    "integrity.shadow_audits", "integrity.shadow_mismatches",
+    "integrity.self_checks", "integrity.self_check_mismatches",
+    "integrity.quarantined",
+    # deterministic-resume capsules (resume.py; resume_step_gap is
+    # the batches a recovery could NOT replay exactly — 0 under capsules,
+    # and the soak CI tier fails if it is ever nonzero)
+    "resume.capsules_written", "resume.capsule_restore_seconds",
+    "resume.resume_step_gap",
+    # fault injection (contrib/chaos.py)
+    "chaos.injections",
+    # elastic fleet membership (parallel/fleet.py + tools/launch.py
+    # --supervise; docs/robustness.md "Elastic fleets").  membership_epoch
+    # is the monotone fleet generation this process has adopted (a gauge —
+    # its value IS the current membership epoch); reshards counts
+    # world-size transitions driven through the reshard seam; rejoins
+    # counts members re-admitted at a new membership epoch; lost_workers
+    # counts members evicted (heartbeat-lease expiry or launcher-observed
+    # death); worker_restarts counts fleet-supervisor restarts of
+    # preempted local workers; heartbeats counts liveness beats written
+    # (suppressed beats under the partition_worker fault are NOT counted —
+    # their absence is the observable).
+    "fleet.membership_epoch", "fleet.reshards", "fleet.rejoins",
+    "fleet.lost_workers", "fleet.worker_restarts", "fleet.heartbeats",
+    # fleet observability plane (parallel/fleet_obs.py
+    # + tools/launch.py --supervise; docs/observability.md "Fleet
+    # observability").  obs_records counts telemetry records this worker
+    # shipped to <fleet_dir>/obs/rank-N.jsonl; the rest are the
+    # CONTROLLER'S rollups: step_rate is fleet-wide steps/sec summed
+    # over reporting ranks' windows; ranks_reporting counts ranks whose
+    # shipped snapshot the last aggregation pass actually merged (a
+    # missing rank is a reported gap, never interpolated);
+    # agg_lag_seconds is the age of the OLDEST shipped snapshot the pass
+    # consumed; step_skew_seconds is the max-min cross-rank wall clock
+    # of the latest (epoch, step, generation)-correlated step;
+    # straggler_signal is the windowed persistent-straggler detector's
+    # 0/1 state and straggler_rank the rank it attributes (-1 = none) —
+    # the scheduler.slo_signal/capacity_signal twin the fleet
+    # supervisor surfaces in evict/degrade decisions.
+    "fleet.obs_records", "fleet.step_rate", "fleet.ranks_reporting",
+    "fleet.agg_lag_seconds", "fleet.step_skew_seconds",
+    "fleet.straggler_signal", "fleet.straggler_rank",
+    # flight recorder (tracing.py; event NAMES live in its own
+    # KNOWN_EVENTS catalog — blackbox_dumps counts black boxes persisted,
+    # events_dropped surfaces tracing.stats()["dropped"] as a gauge
+    # refreshed at flush/black-box time so silent ring overflow is
+    # visible on dashboards, not only in-process)
+    "tracing.blackbox_dumps", "tracing.events_dropped",
+    # inference serving runtime (serving/; docs/serving.md).  The
+    # SLO pair: ttft = submit→first token (queueing + prefill), itl = the
+    # gap between consecutive generated tokens — p50/p99 read off the
+    # fixed latency buckets.  requests{state} counts every admission
+    # outcome (admitted/rejected/completed/requeued); decode_steps and
+    # generated_tokens are the throughput numerators; queue_depth /
+    # cache_utilization are the backpressure observables.
+    "serve.ttft_seconds", "serve.itl_seconds",
+    "serve.tokens_per_sec", "serve.queue_depth", "serve.cache_utilization",
+    "serve.requests", "serve.engine_restarts",
+    "serve.decode_steps", "serve.generated_tokens",
+    # decode data plane: which attention arm each call took
+    # (kind=dense/paged/paged-kernel) and whether the KV block pool is
+    # device-resident (1.0) or host numpy (0.0)
+    "serve.decode_attention", "serve.pool_device_resident",
+    # whole-step fused decode + speculative windows.
+    # fused_steps counts decode steps run as ONE jitted device program
+    # (serving/jax_model.py); host_crossings counts host<->device
+    # boundary crossings the decode step paid (a constant 3 per fused
+    # step vs 4 per LAYER host-resident) and host_crossings_per_token
+    # is that step's crossings amortized over the tokens it emitted —
+    # the O(1)-vs-O(layers) receipt.  spec_drafted / spec_accepted
+    # count proposer-drafted tokens and the verified prefix tokens the
+    # engine accepted; spec_accept_ratio is their lifetime quotient
+    # (serving/speculative.py — correctness never depends on it).
+    "serve.fused_steps", "serve.host_crossings",
+    "serve.host_crossings_per_token",
+    "serve.spec_drafted", "serve.spec_accepted",
+    "serve.spec_accept_ratio",
+    # SLO engine (serving/slo.py + timeline.py).
+    # phase_seconds{phase=...} is the per-request attribution total for
+    # each typed phase (queue_wait/prefill/decode_gap/restart_penalty/
+    # defer_stall/reject); the slo_* gauges are the live monitor state —
+    # windowed quantile estimate, good-fraction attainment and
+    # error-budget burn rate per (slo, window), and the 0/1 breach flag
+    # the scheduler hook consumes.
+    "serve.phase_seconds",
+    "serve.slo_estimate_seconds", "serve.slo_attainment",
+    "serve.slo_burn_rate", "serve.slo_breaching",
+    # multi-tenant serving (serving/prefix_cache.py +
+    # tenancy.py).  prefill_bytes counts K/V bytes a prefill COMPUTED,
+    # prefill_bytes_saved the bytes served from the shared-prefix index
+    # instead (the bench receipt's ">= 2x reduction" pair);
+    # prefix_hit_ratio is cached/total prompt tokens over the cache's
+    # lifetime; cow_copies counts copy-on-write tail-block duplications;
+    # prefix_evictions counts index entries released under pool
+    # pressure.  slo_tenant_burn_rate{slo,tenant} is the per-tenant
+    # worst-window burn the fairness boost consumes — tenant labels are
+    # cardinality-capped (tenancy.label_for: first N tenants keep their
+    # name, the rest collapse into the "_other" overflow label).
+    "serve.prefix_hits", "serve.prefix_hit_ratio",
+    "serve.prefill_bytes", "serve.prefill_bytes_saved",
+    "serve.prefix_evictions", "serve.cow_copies",
+    "serve.slo_tenant_burn_rate",
+    # capacity accounting (serving/accounting.py).
+    # pool_bytes{tenant,kind} is the per-tenant block-pool attribution —
+    # kind=amortized (1/refcount share of shared blocks; sums across
+    # tenants to pool_used_bytes EXACTLY, the CI-gated identity) or
+    # kind=exclusive (the full-block exclusive-if-forked cost).
+    # pool_fragmentation is the free-list contiguity signal,
+    # pool_high_watermark_bytes the lifetime peak, prefix_index_bytes
+    # the shared-prefix index's amortized residency, pool_pinned_blocks
+    # the references pinned by in-flight prefill plans.
+    "serve.pool_bytes", "serve.pool_used_bytes",
+    "serve.pool_fragmentation", "serve.pool_high_watermark_bytes",
+    "serve.prefix_index_bytes", "serve.pool_pinned_blocks",
+    # zero-regeneration recovery (serving/journal.py +
+    # the prefill-replay restart path).  journal_requests/tokens/bytes
+    # count durable admissions, committed-token records, and bytes
+    # fsync'd to the append-only journal.  replay_requests/replay_tokens
+    # count restart recoveries that re-established a stream with ONE
+    # prefill and the already-committed tokens that prefill replayed
+    # (vs serve.decode_steps — the "zero re-decoded steps" receipt);
+    # redecode_tokens counts tokens the LEGACY prompt-replay arm
+    # regenerated one decode step at a time (the A/B cost the CI gate
+    # compares); replay_fallbacks counts streams a torn/corrupt journal
+    # loudly degraded to prompt replay.
+    "serve.journal_requests", "serve.journal_tokens",
+    "serve.journal_bytes",
+    "serve.replay_requests", "serve.replay_tokens",
+    "serve.replay_fallbacks", "serve.redecode_tokens",
+    # training-side capacity twins: jit builds per batch
+    # shape-signature and their wall-clock (first-call XLA compile
+    # included), the newest checkpoint's manifest bytes-on-disk, and
+    # the process's host resident set (refreshed at every flush /
+    # black-box export, like tracing.events_dropped)
+    "train_step.compiles", "train_step.compile_seconds",
+    "checkpoint.bytes_on_disk", "host.rss_bytes",
+    # module-API training (callback.py)
+    "speedometer.samples_per_sec",
+    # the port's own: the recurrence arm an RNN call took
+    # (ndarray/rnn_op.py), the prefill attention arm (serving), and
+    # capacity forensic dumps that failed (serving/kv_cache.py)
+    "rnn.arm", "serve.prefill_attention", "serve.forensic_dump_failures",
+})
+
 _lock = threading.RLock()
 _metrics: dict = {}          # (name, labels_tuple) -> metric object
+
+# the fleet identity every exported record carries once set: this
+# process's rank and the membership generation the snapshot reflects.
+# Both None (the default) stamps nothing.
+_fleet_identity = {"rank": None, "generation": None}
+_UNSET = object()
+
+
+def set_fleet_identity(rank=_UNSET, generation=_UNSET):
+    """Stamp every subsequently exported record with this process's
+    fleet identity (plain labels: ``rank``, ``fleet_generation``).
+    Omitted fields keep their value; None clears one."""
+    with _lock:
+        if rank is not _UNSET:
+            _fleet_identity["rank"] = None if rank is None else int(rank)
+        if generation is not _UNSET:
+            _fleet_identity["generation"] = \
+                None if generation is None else int(generation)
+
+
+def fleet_identity():
+    """The live ``(rank, generation)`` stamp, or ``(None, None)``."""
+    with _lock:
+        return _fleet_identity["rank"], _fleet_identity["generation"]
 
 # the window clock.  Monotonic (a wall-clock step must not expire or
 # resurrect subwindows); module-level so tests can substitute a fake
@@ -422,6 +641,10 @@ def _rec(metric, ts, value):
            "ts": ts}
     if metric.labels:
         rec["labels"] = dict(metric.labels)
+    if _fleet_identity["rank"] is not None:
+        rec["rank"] = _fleet_identity["rank"]
+    if _fleet_identity["generation"] is not None:
+        rec["fleet_generation"] = _fleet_identity["generation"]
     return rec
 
 
@@ -540,6 +763,11 @@ def fraction_le_from_cumulative(buckets, threshold, vmin=None, vmax=None):
 # the reference's report tool — one source, no drift
 DEFAULT_SLOS = ("ttft_p99 < 500ms", "itl_p99 < 50ms")
 
+# the attribution invariant's bar: |sum(phases) - latency| must stay
+# within this fraction of the latency (plus a 1 ms absolute floor for
+# sub-ms requests)
+ATTRIBUTION_TOLERANCE = 0.05
+
 SLO_METRIC_ALIASES = {
     "itl": "serve.itl_seconds",
     "ttft": "serve.ttft_seconds",
@@ -629,9 +857,10 @@ def series(name):
 
 
 def reset():
-    """Drop every metric (test hook)."""
+    """Drop every metric and the fleet-identity stamp (test hook)."""
     with _lock:
         _metrics.clear()
+        _fleet_identity.update(rank=None, generation=None)
     _finalized.clear()
 
 
@@ -714,10 +943,33 @@ def flush(path=None, final=False):
     return recs
 
 
+def _host_rss_bytes():
+    """The process's resident set in bytes (``/proc/self/statm``; the
+    peak resident set from ``getrusage`` elsewhere), or None."""
+    try:
+        with open("/proc/self/statm", encoding="ascii") as f:
+            resident_pages = int(f.read().split()[1])
+        return resident_pages * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        import resource
+        peak = int(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+        # linux and BSD report KiB, darwin bytes
+        return peak if sys.platform == "darwin" else peak * 1024
+    except Exception:
+        return None
+
+
 def _refresh_bridge_gauges():
-    """Pull the flight recorder's overflow count into the registry right
-    before a snapshot leaves the process (the ``tracing.events_dropped``
-    gauge).  Only reads a tracing module that is already imported."""
+    """Pull cross-module observables into the registry right before a
+    snapshot leaves the process: the host resident set
+    (``host.rss_bytes``) and the flight recorder's overflow count
+    (``tracing.events_dropped``, read only from a tracing module that is
+    already imported)."""
+    rss = _host_rss_bytes()
+    if rss is not None:
+        gauge("host.rss_bytes").set(float(rss))
     mod = sys.modules.get(__package__ + ".tracing") if __package__ else None
     if mod is None:
         return
@@ -845,3 +1097,79 @@ def _validate_window(name, kind, win):
         raise ValueError(
             f"{name}: window +Inf count {buckets[-1][1]} != "
             f"count {win['count']}")
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text exposition
+# ---------------------------------------------------------------------------
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(name):
+    return "tpumx_" + _NAME_RE.sub("_", name)
+
+
+def _prom_escape(v):
+    """Label-value escaping per the Prometheus text format: backslash,
+    double-quote and line-feed — in that order (escaping the escape
+    character first keeps the round trip unambiguous)."""
+    return (str(v).replace("\\", r"\\").replace('"', r'\"')
+            .replace("\n", r"\n"))
+
+
+def _prom_labels(pairs):
+    if not pairs:
+        return ""
+    body = ",".join('%s="%s"' % (_NAME_RE.sub("_", k), _prom_escape(v))
+                    for k, v in pairs)
+    return "{" + body + "}"
+
+
+def _prom_num(v):
+    return repr(float(v)) if isinstance(v, float) else str(v)
+
+
+def exposition():
+    """The registry in Prometheus text exposition format (one string —
+    serve it over whatever transport exists; no HTTP server here).
+    Counters get the conventional ``_total`` suffix; histograms emit the
+    ``_bucket{le=...}`` / ``_sum`` / ``_count`` family.  Rendered under
+    the registry lock (pure string building, no I/O) so a concurrent
+    ``observe()`` cannot tear a histogram's bucket/sum/count family."""
+    with _lock:
+        return _exposition_locked()
+
+
+def _exposition_locked():
+    metrics = sorted(_metrics.values(), key=lambda m: (m.name, m.labels))
+    lines = []
+    typed = set()
+
+    def type_line(pname, kind):
+        if pname not in typed:
+            typed.add(pname)
+            lines.append(f"# TYPE {pname} {kind}")
+
+    for m in metrics:
+        if m.kind == "counter":
+            pname = _prom_name(m.name) + "_total"
+            type_line(pname, "counter")
+            lines.append(f"{pname}{_prom_labels(m.labels)} "
+                         f"{_prom_num(m.value)}")
+        elif m.kind == "gauge":
+            pname = _prom_name(m.name)
+            type_line(pname, "gauge")
+            lines.append(f"{pname}{_prom_labels(m.labels)} "
+                         f"{_prom_num(m.value)}")
+        else:
+            pname = _prom_name(m.name)
+            type_line(pname, "histogram")
+            for bound, cum in m.cumulative():
+                le = "+Inf" if bound == "+Inf" else repr(float(bound))
+                lab = _prom_labels(tuple(m.labels) + (("le", le),))
+                lines.append(f"{pname}_bucket{lab} {cum}")
+            lines.append(f"{pname}_sum{_prom_labels(m.labels)} "
+                         f"{_prom_num(m.sum)}")
+            lines.append(f"{pname}_count{_prom_labels(m.labels)} "
+                         f"{m.count}")
+    return "\n".join(lines) + ("\n" if lines else "")

@@ -20,8 +20,14 @@ rather than imported — importing ``tpu_mx`` would import jax):
   accepts the port's boxes and :func:`validate_blackbox` the
   reference's.
 
-``TPUMX_TRACING=0`` turns emission off.  The reference's profiler bridge
-(chrome-trace merge) is not ported yet (ROADMAP A item 8).
+- **Chrome trace** — while :mod:`~tpu_mx_torch.profiler` records, every
+  event is mirrored into it through ``profiler.record_span`` (an
+  interval when ``t0``/``t1`` are passed, a zero-length mark
+  otherwise), named by the event and its categorical field
+  (``train_step.phase:dispatch``), so the timeline sits beside the
+  card's kernels in one trace.
+
+``TPUMX_TRACING=0`` turns emission off.
 """
 from __future__ import annotations
 
@@ -35,21 +41,41 @@ import threading
 import time
 from collections import deque
 
-__all__ = ["KNOWN_EVENTS", "BLACKBOX_FORMAT", "enabled", "configure",
-           "emit", "set_context", "get_context", "snapshot", "stats",
-           "reset", "validate_event", "blackbox_doc", "dump_blackbox",
-           "blackbox_path", "validate_blackbox"]
+__all__ = ["KNOWN_EVENTS", "BLACKBOX_FORMAT", "TRAIN_STEP_PHASES",
+           "enabled", "configure", "emit", "set_context", "get_context",
+           "snapshot", "stats", "reset", "validate_event",
+           "blackbox_doc", "dump_blackbox", "blackbox_path",
+           "validate_blackbox"]
 
 BLACKBOX_FORMAT = "tpu_mx-blackbox-v1"
 
 # The event-name catalog: name -> {payload field: type name}.  Payload
 # fields are optional but typed; undeclared fields are rejected at emit.
 KNOWN_EVENTS = {
-    # self-healing: every watchdog fire and black box (supervisor.py,
-    # serving/server.py)
+    # the train step (parallel/train_step.py): its host-side phases, the
+    # values of TRAIN_STEP_PHASES
+    "train_step.phase": {"phase": "str", "seconds": "float"},
+    # the durability layer (checkpoint.py, elastic.py)
+    "checkpoint.save": {"prefix": "str", "epoch": "int", "seconds": "float"},
+    "checkpoint.verify": {"prefix": "str", "epoch": "int", "status": "str"},
+    "checkpoint.retry": {"attempt": "int", "error": "str"},
+    "checkpoint.preemption": {"signum": "int", "save_ok": "bool"},
+    "elastic.resume": {"resume_from": "int"},
+    "elastic.epoch_skipped": {"epoch": "int", "reason": "str"},
+    # self-healing (supervisor.py, serving/server.py): every watchdog
+    # fire, sentinel skip, classification, recovery decision and black box
     "supervisor.watchdog_fire": {"name": "str", "deadline_seconds": "float"},
+    "supervisor.sentinel_skip": {"loss": "float", "consecutive_bad": "int"},
     "supervisor.classify": {"kind": "str", "error": "str", "message": "str"},
+    "supervisor.restart": {"n": "int", "backoff_seconds": "float",
+                           "resume_epoch": "int"},
+    "supervisor.rollback": {"n": "int", "resume_epoch": "int"},
+    "supervisor.degrade": {"budget": "str", "error": "str"},
     "supervisor.blackbox": {"path": "str", "reason": "str"},
+    # deterministic-resume capsules (resume.py)
+    "resume.capsule_write": {"kind": "str", "epoch": "int", "step": "int"},
+    "resume.capsule_restore": {"used": "str", "epoch": "int", "step": "int",
+                               "gap": "int"},
     # fault injection (contrib/chaos.py): the injection and the recovery
     # it provokes share one timeline
     "chaos.inject": {"kind": "str"},
@@ -95,10 +121,22 @@ KNOWN_EVENTS = {
         "defer_stall": "float", "reject": "float",
         "tokens": "int", "requeues": "int", "defers": "int",
         "tenant": "str", "cached_tokens": "int"},
-    # one sampled bit-exact re-execution of a step
-    # (parallel/integrity.py's ShadowAuditor; surface=train|decode)
+    # the corruption defense (parallel/integrity.py, supervisor.py): a
+    # published cross-replica digest, one cohort vote (agree=False is the
+    # verdict; `minority` the comma-joined voted-out ranks, "" for a
+    # tie), the permanent eviction of a corrupt rank, one sampled
+    # bit-exact re-execution of a step (surface=train|decode), and the
+    # survivors' rollback to the last fingerprint-verified step
+    "integrity.fingerprint": {"step": "int", "fp": "int", "rank": "int"},
+    "integrity.vote": {"step": "int", "agree": "bool",
+                       "majority_fp": "int", "minority": "str",
+                       "world_size": "int"},
+    "integrity.quarantine": {"rank": "int", "reason": "str",
+                             "step": "int"},
     "integrity.shadow_audit": {"step": "int", "match": "bool",
                                "surface": "str"},
+    "integrity.rollback": {"step": "int", "verified_step": "int",
+                           "resume_epoch": "int"},
     # SLO breach transitions (serving/slo.py)
     "serve.slo": {"slo": "str", "breaching": "bool", "burn_rate": "float",
                   "estimate_seconds": "float", "attainment": "float",
@@ -107,8 +145,16 @@ KNOWN_EVENTS = {
 
 _TYPES = {"str": str, "int": int, "float": (int, float), "bool": bool}
 
+# the values of train_step.phase's `phase` field, the host-side stations
+# of a step: on the port `dispatch` is the eager forward and backward
+# enqueue and `optimizer_update` the update loop (parallel/train_step.py)
+TRAIN_STEP_PHASES = ("data_wait", "recompile", "dispatch", "loss_readback",
+                     "optimizer_update")
+
 # reentrant: an emit may run inside another's dump (a black box emits
-# its own record)
+# its own record), and the SIGTERM preemption handler
+# (checkpoint.PreemptionHandler) emits and dumps between two bytecodes of
+# a frame that may itself be inside emit()
 _lock = threading.RLock()
 _DEFAULT_CAPACITY = 512
 _ring: deque = deque(maxlen=_DEFAULT_CAPACITY)
@@ -259,8 +305,9 @@ def emit(event, t0=None, t1=None, **payload):
     ``payload`` fields must be declared in :data:`KNOWN_EVENTS` with
     matching types — a typo'd field or name raises immediately.
     ``t0``/``t1`` (``time.perf_counter`` endpoints) add the interval as
-    ``seconds`` where the event declares it.  Returns the record (None
-    when disabled)."""
+    ``seconds`` where the event declares it, and are the span the
+    profiler records while it runs (a mark without them).  Returns the
+    record (None when disabled)."""
     global _emitted, _dropped
     if not _enabled:
         return None
@@ -275,7 +322,30 @@ def emit(event, t0=None, t1=None, **payload):
             _dropped += 1
         _emitted += 1
         _ring.append(rec)
+    _merge_profiler(event, t0, t1, payload)
     return rec
+
+
+def _merge_profiler(event, t0, t1, payload):
+    """Mirror the event onto the profiler's chrome trace while it records:
+    the span is named by the event and its categorical field
+    (``train_step.phase:dispatch``, ``chaos.inject:hang``), so the phases
+    of a step stay apart in the aggregate table."""
+    profiler = sys.modules.get(__package__ + ".profiler") \
+        if __package__ else None
+    if profiler is None or not profiler._recording():
+        return
+    try:
+        for key in ("phase", "kind", "cause"):
+            v = payload.get(key)
+            if isinstance(v, str):
+                event = f"{event}:{v}"
+                break
+        if t0 is None or t1 is None:
+            t0 = t1 = time.perf_counter()
+        profiler.record_span(event, t0, t1, category="tracing")
+    except Exception:
+        pass  # a profiler torn down at exit must not break emission
 
 
 def snapshot(last=None):
