@@ -485,6 +485,47 @@ line each:
                  kernels by name, 12 each a step, as the launch counts
                  say, and every phase's span.  Capsule bytes and write
                  ms, checkpoint bytes, save and verify s, resume ms.
+32. ``fusion`` — ``engine.bulk()`` (after ``supervised_train``):
+                 bench.py's 32-op chain (sin, x1.0009, +0.1, tanh, 8
+                 times) on f32 at (64, 64) and at BERT-base's activation
+                 (32 x 512 x 768), eager against ``bulk(64)`` (one
+                 captured CUDA graph replayed a flush): outputs and
+                 gradients bit-equal, ms and host us a chain, the card's
+                 kernels and the host's launch calls a chain (profiler);
+                 ``nd.sgd_update`` over BERT-base's 154 parameters, eager
+                 against bulk (bit-equal, ms, launches), then under a
+                 learning rate that moves every step (bit-equal each
+                 step; the graph cache held to its byte bound);
+                 ``examples/mnist/train_mnist.py`` unedited through the
+                 alias with ``TPUMX_FUSION=1`` and ``=0`` (images/s, every
+                 step's loss equal); the ns the lazy ``_data`` property
+                 adds to an eager op.
+33. ``kvstore`` — the imperative BERT-base step (bf16, LAMB, 32 x 512)
+                 through ``Trainer`` with ``kvstore="device"``,
+                 ``update_on_kvstore=True`` and ``compression_params=
+                 {"type": "2bit"}`` against ``kvstore=None``, from one
+                 weight set, in turns: losses bit-equal (the 2-bit arm's
+                 first), ms a step, push/pull host ms a step; the
+                 store's checksums taken on the card, a corrupted
+                 aggregate refused at pull; then two
+                 processes on the card from ``python -m
+                 tpu_mx_torch.tools.launch -n 2`` (``dist_sync`` over
+                 gloo, 16 x 512 a rank): the known-values push/pull at
+                 BERT-base's parameter shapes, three steps with the two
+                 replicas' weight fingerprints equal after each, ms a
+                 step and of the host-staged reduction.
+34. ``fleet`` — the kill-and-rejoin proof under ``python -m
+                 tpu_mx_torch.tools.launch --supervise -n 2`` with
+                 ``TPUMX_CHAOS=preempt_worker_at_step=3,preempt_rank=1``,
+                 each step a BERT-base training step (bf16) on the
+                 worker's shard of 32 x 512: rank 1 evicted, restarted
+                 and admitted again, every sample-id ledger the
+                 uninterrupted oracle's; restart ms, rejoin ms,
+                 ``fleet.on_step`` host ms beside step ms.  A second run
+                 with ``slow_worker_rank=1``: the launcher's
+                 ``FleetAggregator`` names rank 1 in ``data_wait``, the
+                 fleet black box passes ``validate_fleet_section`` and
+                 ``tpu_mx_torch/tools/fleet_report.py --validate``.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -4166,7 +4207,8 @@ def phase_mnist_train(ctx):
     step_med = statistics.median(
         [e["step_ms_median"] for e in epochs + h_epochs])
     ctx["mnist"] = dict(final=final, hybridized_final=h_final,
-                        step_ms=step_med, idle=1 - busy_ms / (wall * 1e3))
+                        step_ms=step_med, idle=1 - busy_ms / (wall * 1e3),
+                        boundary_us=bound["nd"] - bound["tensor"])
     emit("mnist_train", ok=all(checks.values()), checks=checks,
          model="lenet(classes=10), deferred shapes, xavier",
          optimizer=f"sgd lr={MNIST_LR} momentum=0.9 (Trainer before the "
@@ -7108,6 +7150,886 @@ def phase_supervised_train(ctx):
             ctx["failures"].append(f"supervised_train check {name} failed")
 
 
+# -- engine.bulk() and fusion, the kvstore, elastic fleets ------------------
+FUSION_BULK = 64                 # engine.bulk(64): bench.py's fusion leg
+FUSION_SHAPES = (("bench", (64, 64)), ("bert_activation", (32, 512, 768)))
+FUSION_REPS = {"bench": 50, "bert_activation": 10}
+FUSION_HOST_N = {"bench": 200, "bert_activation": 20}  # the queue never fills
+FUSION_SGD = dict(lr=0.01, wd=1e-4)
+# a learning rate that moves every step: each value is a new chain (lr is
+# in sgd_update's fuse key) and new graphs, which the cache's byte bound
+# must hold to GRAPH_CACHE_BYTES
+FUSION_LR_SCHEDULE = tuple(0.01 * 0.9 ** k for k in range(1, 7))
+KV_STEPS = 3                     # timed steps an arm (after one warm-up)
+KV_DIST_RANK_BATCH = 16          # dist_sync: 16 x 512 a rank, 32 x 512 global
+FLEET_GLOBAL_BATCH = 32          # the churn run's global batch, 32 x 512
+FLEET_STRAGGLER_STEPS = 14
+FLEET_SLOW_SECONDS = 0.3
+CHILD_TIMEOUT = 420
+
+WORKER_CHILD = r'''
+import time
+T0 = time.time()                # the process's start, before any import
+import json, os, sys
+spec = json.loads(sys.argv[1])
+spec["t0"] = T0
+if spec.get("no_group"):     # the fleet protocol alone, no collective group
+    for k in ("TPUMX_COORDINATOR", "TPUMX_NUM_PROC", "TPUMX_PROC_ID"):
+        os.environ.pop(k, None)
+import chip_smoke as cs
+sys.exit(getattr(cs, spec["fn"])(spec))
+'''
+
+
+def chain32(nd, x):
+    """bench.py's fusion chain (``bench.py:950-1010``): sin, x1.0009,
+    +0.1, tanh, 8 times — 32 elementwise ops."""
+    y = x
+    for _ in range(8):
+        y = nd.sin(y)
+        y = y * 1.0009
+        y = y + 0.1
+        y = nd.tanh(y)
+    return y
+
+
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpy")
+
+
+def profiled_launches(torch, fn):
+    """One call of ``fn`` under the profiler: the card's kernel and copy
+    executions, and the host's launch API calls by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = sum(e.count for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0)
+    host = dict.fromkeys(LAUNCH_APIS, 0)
+    for e in events:
+        for api in LAUNCH_APIS:
+            if e.key.startswith(api):
+                host[api] += e.count
+    return dict(device=device, host_calls=host,
+                host_total=sum(host.values()))
+
+
+def fusion_chain_case(torch, nd, autograd, engine, shape, name):
+    """The 32-op chain at ``shape`` (f32) eager against bulk(64): outputs
+    and gradients bit-equal, ms, host us and launches a chain."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xt = torch.randn(shape, generator=g, device="cuda")
+    x = nd.array(xt)
+
+    def eager():
+        return chain32(nd, x)._data
+
+    def fused():
+        with engine.bulk(FUSION_BULK):
+            y = chain32(nd, x)
+        return y._data
+
+    out = dict(shape=list(shape))
+    out["equal_forward"] = bool(torch.equal(eager(), fused()))
+
+    def grads(bulk):
+        xa = nd.array(xt)
+        xa.attach_grad()
+        with autograd.record():
+            with engine.bulk(bulk):
+                y = chain32(nd, xa)
+                loss = y.sum()
+        loss.backward()
+        return y._data.clone(), xa.grad._data.clone(), loss._data.clone()
+    (ey, eg, el), (fy, fg, fl) = grads(1), grads(FUSION_BULK)
+    out["equal_backward"] = bool(torch.equal(ey, fy) and torch.equal(eg, fg)
+                                 and torch.equal(el, fl))
+    for kind, fn in (("eager", eager), ("fused", fused)):
+        out[f"{kind}_ms"] = cuda_ms(torch, fn, reps=FUSION_REPS[name])
+        out[f"{kind}_host_us"] = host_us(torch, fn, n=FUSION_HOST_N[name])
+        out[f"{kind}_launches"] = profiled_launches(torch, fn)
+    n = xt.numel()
+    # each op reads and writes the tensor once: 32 x 8 bytes an element
+    out["bound_ms_op_by_op"] = bound(32 * 8 * n, 0)[0]
+    out["bound_ms_one_pass"] = bound(8 * n, 0)[0]
+    return out
+
+
+def fusion_sgd_sweep(torch, nd, engine):
+    """``nd.sgd_update`` over every BERT-base parameter shape (f32),
+    eager against bulk(64): bit-equal results, ms and launches."""
+    from tpu_mx_torch.models import BERTModel, bert_base_config
+    net = BERTModel(bert_base_config(max_len=TRAIN_SEQ), dtype="bfloat16",
+                    device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    shapes = [tuple(p.shape) for p in net.parameters()]
+    del net
+    g = torch.Generator(device="cuda").manual_seed(6)
+    ws = [nd.array(torch.randn(s, generator=g, device="cuda"))
+          for s in shapes]
+    gs = [nd.array(torch.randn(s, generator=g, device="cuda") * 1e-3)
+          for s in shapes]
+
+    def eager():
+        return [nd.sgd_update(w, gr, **FUSION_SGD)._data
+                for w, gr in zip(ws, gs)]
+
+    def fused():
+        with engine.bulk(FUSION_BULK):
+            outs = [nd.sgd_update(w, gr, **FUSION_SGD)
+                    for w, gr in zip(ws, gs)]
+        return [o._data for o in outs]
+    equal = all(torch.equal(a, b) for a, b in zip(eager(), fused()))
+    n = sum(int(np.prod(s)) for s in shapes)
+    out = dict(keys=len(shapes), params=n, equal=bool(equal),
+               eager_ms=cuda_ms(torch, eager, reps=5, warm=1),
+               fused_ms=cuda_ms(torch, fused, reps=5, warm=1),
+               eager_launches=profiled_launches(torch, eager),
+               fused_launches=profiled_launches(torch, fused),
+               bound_ms=bound(12 * n, 0)[0])   # read w, g; write w'
+    out["lr_schedule"] = fusion_lr_schedule(torch, nd, engine, ws, gs)
+    del ws, gs
+    return out
+
+
+def fusion_lr_schedule(torch, nd, engine, ws, gs):
+    """The sweep under a learning rate that changes every step
+    (``FUSION_LR_SCHEDULE``): each step bit-equal to eager, and the
+    graph cache's bytes, graphs, captures and evictions after each, with
+    the card's reserved memory."""
+    from tpu_mx_torch import fusion
+    steps = []
+    for lr in FUSION_LR_SCHEDULE:
+        kw = dict(FUSION_SGD, lr=lr)
+        eager = [nd.sgd_update(w, gr, **kw)._data for w, gr in zip(ws, gs)]
+        t0 = time.perf_counter()
+        with engine.bulk(FUSION_BULK):
+            outs = [nd.sgd_update(w, gr, **kw) for w, gr in zip(ws, gs)]
+        fused = [o._data for o in outs]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = fusion.graph_stats()
+        steps.append(dict(
+            lr=lr, equal=all(torch.equal(a, b)
+                             for a, b in zip(eager, fused)),
+            fused_ms_with_capture=ms, graphs=st["graphs"],
+            graph_bytes=st["bytes"], captures=st["captures"],
+            evictions=st["evictions"],
+            reserved_bytes=torch.cuda.memory_reserved()))
+        del eager, outs, fused
+    return dict(steps=steps, capacity_bytes=fusion.GRAPH_CACHE_BYTES,
+                equal=all(x["equal"] for x in steps),
+                within_bound=all(x["graph_bytes"] <= fusion.GRAPH_CACHE_BYTES
+                                 or x["graphs"] == 1 for x in steps),
+                evicted=steps[-1]["evictions"] > steps[0]["evictions"])
+
+
+def fusion_mnist_example(torch, fusion_env):
+    """``examples/mnist/train_mnist.py`` unedited through the alias with
+    ``TPUMX_FUSION=<fusion_env>``: its printed rates, its loss at every
+    step (a recording subclass of the loss stands in for the port's), the
+    engine's counters."""
+    from tpu_mx_torch import engine, fusion, gluon, random
+    losses = []
+    base = gluon.loss.SoftmaxCrossEntropyLoss
+
+    class Recorded(base):
+        def __call__(self, *args, **kwargs):
+            out = super().__call__(*args, **kwargs)
+            losses.append(out._data.detach().float().mean())
+            return out
+    saved = os.environ.get("TPUMX_FUSION")
+    os.environ["TPUMX_FUSION"] = fusion_env
+    gluon.loss.SoftmaxCrossEntropyLoss = Recorded
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    random.seed(0)
+    np.random.seed(0)
+    engine.reset_bulk_stats()
+    graphs0 = fusion.graph_stats()["captures"]
+    try:
+        _, text, seconds, loaded = run_example(
+            "mnist/train_mnist.py", ["train_mnist.py"],
+            port_alias("models", "models.lenet"))
+    finally:
+        gluon.loss.SoftmaxCrossEntropyLoss = base
+        torch.backends.cudnn.deterministic = det
+        if saved is None:
+            os.environ.pop("TPUMX_FUSION", None)
+        else:
+            os.environ["TPUMX_FUSION"] = saved
+    rates = [float(m) for m in re.findall(r"\((\d+) img/s\)", text)]
+    final = re.findall(r"final accuracy: ([0-9.]+)", text)
+    stats = engine.bulk_stats()
+    return dict(images_per_sec=rates, final_accuracy=float(final[0])
+                if final else None, seconds=seconds,
+                reference_modules=loaded, steps=len(losses),
+                losses=torch.stack(losses).cpu() if losses else None,
+                ops_fused=stats["ops_fused"],
+                segments_flushed=stats["segments_flushed"],
+                flush_reasons=stats["flush_reasons"],
+                graph_captures=fusion.graph_stats()["captures"] - graphs0)
+
+
+def data_property_cost(torch, nd):
+    """What the lazy ``_data`` property adds to an eager op: ns an access
+    (property against the slot beneath it), the accesses one ``nd.relu``
+    on an array makes, and that op's host us."""
+    from tpu_mx_torch.ndarray.ndarray import NDArray
+    a = nd.array(torch.ones(128, device="cuda"))
+    n = 200000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        a._data
+    prop_ns = (time.perf_counter() - t0) / n * 1e9
+    t0 = time.perf_counter()
+    for _ in range(n):
+        a._buf
+    slot_ns = (time.perf_counter() - t0) / n * 1e9
+    prop = NDArray.__dict__["_data"]
+    count = [0]
+
+    def counting(self):
+        count[0] += 1
+        return prop.fget(self)
+    NDArray._data = property(counting, prop.fset)
+    try:
+        nd.relu(a)
+    finally:
+        NDArray._data = prop
+    op_us = host_us(torch, lambda: nd.relu(a), n=2000)
+    return dict(property_ns=prop_ns, slot_ns=slot_ns,
+                reads_per_op=count[0], eager_relu_host_us=op_us,
+                added_us_per_op=(prop_ns - slot_ns) * count[0] / 1e3)
+
+
+def phase_fusion(ctx):
+    """``engine.bulk()`` on the card: the 32-op chain at bench.py's
+    (64, 64) and at BERT-base's activation (32 x 512 x 768), eager
+    against bulk(64) (one CUDA-graph replay a flush): outputs and
+    gradients bit-equal, ms, host us and launches a chain; the
+    ``sgd_update`` sweep over BERT-base's parameters; the MNIST example
+    unedited with ``TPUMX_FUSION=1`` and ``=0`` (a cold pair, then a
+    timed pair; all four runs' losses equal); the host cost of the lazy
+    ``_data`` property."""
+    import torch
+    from tpu_mx_torch import autograd, engine, fusion, nd
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_port_kernel_launches()
+    out = {"chains": {}}
+    for name, shape in FUSION_SHAPES:
+        out["chains"][name] = fusion_chain_case(torch, nd, autograd, engine,
+                                                shape, name)
+    out["sgd_sweep"] = fusion_sgd_sweep(torch, nd, engine)
+    out["data_property"] = data_property_cost(torch, nd)
+    # a cold pair first (cuDNN's and the allocator's warm-up), then the
+    # pair that is timed, in the other order
+    cold = {env: fusion_mnist_example(torch, env) for env in ("0", "1")}
+    runs = {env: fusion_mnist_example(torch, env) for env in ("1", "0")}
+    launches = port_kernel_launches()
+    ctx["fusion_launches"] = launches
+    losses = [r.pop("losses") for r in (*cold.values(), *runs.values())]
+    out["mnist_example"] = dict(
+        runs, cold_images_per_sec={k: r["images_per_sec"]
+                                   for k, r in cold.items()},
+        losses_equal=all(x is not None and torch.equal(x, losses[0])
+                         for x in losses),
+        first_last_loss=[float(losses[0][0]), float(losses[0][-1])])
+    out["mnist_boundary_host_us"] = ctx.get("mnist", {}).get("boundary_us")
+    out["graph_stats"] = fusion.graph_stats()
+    out["cache_stats"] = fusion.cache_stats()
+    chains = out["chains"].values()
+    checks = {
+        "chains_forward_bit_equal": all(c["equal_forward"] for c in chains),
+        "chains_backward_bit_equal": all(c["equal_backward"]
+                                         for c in chains),
+        "chain_one_graph_launch": all(
+            c["fused_launches"]["host_calls"]["cudaGraphLaunch"] == 1
+            for c in chains),
+        "sgd_sweep_bit_equal": out["sgd_sweep"]["equal"],
+        "lr_schedule_bit_equal": out["sgd_sweep"]["lr_schedule"]["equal"],
+        "lr_schedule_graphs_within_bytes":
+            out["sgd_sweep"]["lr_schedule"]["within_bound"]
+            and out["sgd_sweep"]["lr_schedule"]["evicted"],
+        "mnist_losses_equal": out["mnist_example"]["losses_equal"],
+        "mnist_fusion_off_is_eager": runs["0"]["ops_fused"] == 0,
+        "mnist_accuracy": all((runs[k]["final_accuracy"] or 0)
+                              > MNIST_MIN_ACC for k in ("1", "0")),
+        "no_reference_modules": not any(runs[k]["reference_modules"]
+                                        for k in ("1", "0")),
+    }
+    emit("fusion", ok=all(checks.values()), checks=checks, **out,
+         bulk=FUSION_BULK, launches=launches,
+         seconds=time.perf_counter() - t_phase, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"fusion check {name} failed")
+    torch.cuda.empty_cache()
+
+
+def kv_trainer_arm(torch, net, kv_args):
+    """A ``Trainer("lamb", multi_precision)`` over ``net`` with the arm's
+    kvstore arguments, its ``allreduce_grads`` timed (the push/pull host
+    ms a step)."""
+    from tpu_mx_torch import gluon
+    trainer = gluon.Trainer(net.collect_params(), "lamb",
+                            {"learning_rate": 1e-4, "multi_precision": True},
+                            **kv_args)
+    reduce_ms = []
+    inner = trainer.allreduce_grads
+
+    def timed():
+        t0 = time.perf_counter()
+        inner()
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    trainer.allreduce_grads = timed
+    return trainer, reduce_ms
+
+
+def kv_card_checksums(torch, nd):
+    """The store's checksum on the card: a list push and pull of BERT-
+    base-sized keys verified there (a word sum a key, one host read a
+    pull), and one corrupted aggregate refused at pull."""
+    from tpu_mx_torch import kvstore
+    kv = kvstore.create("device")
+    keys = list(range(4))
+    vals = [nd.ones((768, 768), dtype="bfloat16") * float(k + 1)
+            for k in keys]
+    for k in keys:
+        kv.init(k, nd.zeros((768, 768), dtype="bfloat16"))
+    kv.push(keys, vals)
+    on_card = all(isinstance(kv._checksums[k], torch.Tensor)
+                  and kv._checksums[k].is_cuda for k in keys)
+    outs = [nd.zeros((768, 768), dtype="bfloat16") for _ in keys]
+    kv.pull(keys, outs)
+    clean = all(bool((o._data == k + 1).all()) for k, o in zip(keys, outs))
+    kv.push(keys, vals)
+    kv._store["_pending_2"]._data[3, 5] += 1
+    try:
+        kv.pull(keys, outs)
+        refused = False
+    except kvstore.IntegrityError as e:
+        refused = "pull(2)" in str(e)
+    return dict(checksums_on_card=on_card, clean_pull=clean,
+                tamper_refused=refused)
+
+
+KV_ARMS = (("none", {"kvstore": None}), ("device", {"kvstore": "device"}),
+           ("update_on_kvstore", {"kvstore": "device",
+                                  "update_on_kvstore": True}),
+           ("compression_2bit", {"compression_params": {"type": "2bit"}}))
+
+
+def kvstore_dist_child(spec):
+    """One rank of the two-process ``dist_sync`` run (under the port's
+    launcher; ``import tpu_mx_torch`` joined the gloo group): the
+    reference's known-values push/pull at BERT-base's parameter shapes,
+    then 1 + ``KV_STEPS`` imperative BERT-base steps (bf16, LAMB) on this
+    rank's 16 x 512 shard through ``Trainer(kvstore="dist_sync")``, the
+    weights' fingerprint after each."""
+    import torch
+    import torch.distributed as dist
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import nd
+    from tpu_mx_torch.models import BERTModel, MLMLoss, bert_base_config
+    from tpu_mx_torch.parallel import integrity
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    res = dict(rank=rank, world=world, backend=dist.get_backend())
+    with mx.gpu(0):
+        net = BERTModel(cfg, dtype="bfloat16", device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(0))
+        kv = mx.kv.create("dist_sync")
+        res["kv"] = [kv.rank, kv.num_workers]
+        shapes = [tuple(p.shape) for p in net.parameters()]
+        for k, s in enumerate(shapes):
+            kv.init(k, nd.zeros(s, dtype="bfloat16"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k, s in enumerate(shapes):
+            kv.push(k, nd.ones(s, dtype="bfloat16") * float(rank + 1))
+        ok = True
+        for k, s in enumerate(shapes):
+            o = nd.zeros(s, dtype="bfloat16")
+            kv.pull(k, o)
+            ok = ok and bool((o._data == world * (world + 1) / 2).all())
+        torch.cuda.synchronize()
+        res.update(known_values_ok=ok, known_keys=len(shapes),
+                   known_ms=(time.perf_counter() - t0) * 1e3)
+        rng = np.random.RandomState(0)
+        gb = KV_DIST_RANK_BATCH * world
+        valid = rng.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, gb)
+        batch = bert_batch(cfg, gb, TRAIN_SEQ, TRAIN_MASKED, valid, rng)
+        lo, hi = rank * KV_DIST_RANK_BATCH, (rank + 1) * KV_DIST_RANK_BATCH
+        arrays = [nd.array(torch.from_numpy(b[lo:hi]).cuda()) for b in batch]
+        trainer, reduce_ms = kv_trainer_arm(torch, net,
+                                            {"kvstore": "dist_sync"})
+        reset_port_kernel_launches()
+        losses, fps, step_ms = [], [], []
+        for _ in range(1 + KV_STEPS):
+            t0 = time.perf_counter()
+            losses.append(imperative_bert_step(net, trainer, MLMLoss(),
+                                               arrays))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            fps.append(int(integrity.device_fingerprint(
+                [p.data()._data for p in net.collect_params().values()])))
+        res.update(losses=losses, fingerprints=fps, step_ms=step_ms,
+                   reduce_ms=reduce_ms, keys=len(trainer._params),
+                   launches=port_kernel_launches())
+    with open(spec["out"] % rank, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_kvstore(ctx):
+    """The kvstore on the card: the imperative BERT-base step (bf16,
+    LAMB, 32 x 512) through ``Trainer`` with each kvstore argument
+    against ``kvstore=None`` from the same weights (losses bit-equal
+    where the store sums one copy), ms a step and the push/pull host ms
+    a step over its keys; then two processes on the card from the port's
+    launcher, ``dist_sync`` over gloo at 16 x 512 a rank: the known
+    values, three steps with the replicas' weights bit-equal after each,
+    ms a step and ms of the host-staged reduction a step."""
+    import tempfile
+    import torch
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import nd, telemetry
+    from tpu_mx_torch.kernels import _build
+    from tpu_mx_torch.models import BERTModel, MLMLoss, bert_base_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    rng = np.random.RandomState(0)
+    valid = rng.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, TRAIN_BATCH)
+    batch = bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED, valid, rng)
+    out = {"arms": {}}
+    with mx.gpu(0):
+        arrays = [nd.array(torch.from_numpy(b).cuda()) for b in batch]
+        nets = {name: BERTModel(cfg, dtype="bfloat16", device="cuda",
+                                generator=torch.Generator(device="cuda")
+                                .manual_seed(0)) for name, _ in KV_ARMS}
+        arms = {name: kv_trainer_arm(torch, nets[name], kw)
+                for name, kw in KV_ARMS}
+        losses = {name: [] for name in arms}
+        step_ms = {name: [] for name in arms}
+        pushes0 = getattr(telemetry.get("kvstore.pushes"), "value", 0)
+        reset_port_kernel_launches()
+        for i in range(1 + KV_STEPS):
+            for name, (trainer, _) in arms.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses[name].append(imperative_bert_step(
+                    nets[name], trainer, MLMLoss(), arrays))
+                step_ms[name].append((time.perf_counter() - t0) * 1e3)
+        launches = port_kernel_launches()
+        pushes = getattr(telemetry.get("kvstore.pushes"), "value", 0) \
+            - pushes0
+        keys = len(arms["device"][0]._params)
+        for name, (trainer, reduce_ms) in arms.items():
+            out["arms"][name] = dict(
+                losses=losses[name],
+                step_ms_median=statistics.median(step_ms[name][1:]),
+                push_pull_host_ms_median=statistics.median(reduce_ms[1:])
+                if reduce_ms else None,
+                bit_equal_to_none=losses[name] == losses["none"])
+        del nets, arms
+        out["card_checksums"] = kv_card_checksums(torch, nd)
+    torch.cuda.empty_cache()
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="kvstore-", dir=str(_build.BUILD_DIR.parent))
+    spec = dict(fn="kvstore_dist_child",
+                out=os.path.join(work, "rank%d.json"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_mx_torch.tools.launch", "-n", "2",
+         sys.executable, "-c", WORKER_CHILD, json.dumps(spec)],
+        cwd=here, capture_output=True, text=True, timeout=CHILD_TIMEOUT)
+    dist_wall = time.perf_counter() - t0
+    ranks = []
+    for i in range(2):
+        path = spec["out"] % i
+        if os.path.exists(path):
+            with open(path) as f:
+                ranks.append(json.load(f))
+    dist = dict(rc=r.returncode, wall_s=dist_wall,
+                stderr=r.stderr[-1500:] if r.returncode else "")
+    if len(ranks) == 2:
+        dist.update(
+            backend=ranks[0]["backend"], known_keys=ranks[0]["known_keys"],
+            known_values_ok=[x["known_values_ok"] for x in ranks],
+            known_ms=[x["known_ms"] for x in ranks],
+            losses=[x["losses"] for x in ranks],
+            fingerprints=[x["fingerprints"] for x in ranks],
+            step_ms_median=[statistics.median(x["step_ms"][1:])
+                            for x in ranks],
+            reduce_ms_median=[statistics.median(x["reduce_ms"][1:])
+                              for x in ranks],
+            keys=ranks[0]["keys"], kv=[x["kv"] for x in ranks])
+        for name in launches:
+            launches[name] += sum(x["launches"][name] for x in ranks)
+    out["dist_sync"] = dist
+    ctx["kvstore_launches"] = launches
+    fps = dist.get("fingerprints", [[], [None]])
+    checks = {
+        "device_bit_equal": out["arms"]["device"]["bit_equal_to_none"],
+        "update_on_kvstore_bit_equal":
+            out["arms"]["update_on_kvstore"]["bit_equal_to_none"],
+        "compression_first_step_equal":
+            out["arms"]["compression_2bit"]["losses"][0]
+            == out["arms"]["none"]["losses"][0],
+        "finite": all(math.isfinite(v) for a in out["arms"].values()
+                      for v in a["losses"]),
+        "pushed_every_key": pushes == 3 * keys * (1 + KV_STEPS),
+        "card_checksums": all(out["card_checksums"].values()),
+        "flash_launches": all(launches[k] > 0 for k in FLASH_KERNELS),
+        "dist_rc": dist["rc"] == 0,
+        "dist_known_values": all(dist.get("known_values_ok", [False])),
+        "dist_replicas_bit_equal": len(fps) == 2 and fps[0] == fps[1]
+        and len(set(fps[0])) == 1 + KV_STEPS,
+        "dist_group": dist.get("backend") == "gloo"
+        and dist.get("kv") == [[0, 2], [1, 2]],
+    }
+    emit("kvstore", ok=all(checks.values()), checks=checks, **out,
+         keys=keys, pushes=pushes, model={**cfg, "dtype": "bfloat16"},
+         batch=dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    dist_rank_batch=KV_DIST_RANK_BATCH),
+         optimizer="Trainer lamb lr=1e-4 multi_precision",
+         launches=launches, seconds=time.perf_counter() - t_phase,
+         card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"kvstore check {name} failed")
+
+
+def fleet_child(spec):
+    """One fleet worker under ``python -m tpu_mx_torch.tools.launch
+    --supervise``: the reference's churn worker (``tests/test_fleet.py``:
+    join, admission, the sample-id ledger over a sharded NDArrayIter, the
+    published global cursor for late joiners), and at each step a
+    BERT-base training step (bf16, LAMB, ``CompiledTrainStep``) on this
+    rank's shard of a 32 x 512 global batch on the card.  ``mode``
+    ``straggler`` runs ``FLEET_STRAGGLER_STEPS`` steps and leaves."""
+    import pickle
+    import torch
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import checkpoint as ckpt
+    from tpu_mx_torch import optimizer, tracing
+    from tpu_mx_torch.elastic import WorkerFailure
+    from tpu_mx_torch.io import NDArrayIter
+    from tpu_mx_torch.models import BERTModel, MLMLoss, bert_base_config
+    from tpu_mx_torch.parallel import CompiledTrainStep
+    from tpu_mx_torch.parallel.fleet import Fleet, MembershipChange
+
+    root = spec["root"]
+    member = int(os.environ["TPUMX_FLEET_MEMBER"])
+    t_start = spec["t0"]
+    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    net = BERTModel(cfg, dtype="bfloat16", device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    step_fn = CompiledTrainStep(net, MLMLoss(), optimizer.create(
+        "lamb", learning_rate=1e-4, multi_precision=True), device="cuda")
+    rng = np.random.RandomState(0)
+    valid = rng.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1,
+                        FLEET_GLOBAL_BATCH)
+    glob = [torch.from_numpy(b).cuda() for b in bert_batch(
+        cfg, FLEET_GLOBAL_BATCH, TRAIN_SEQ, TRAIN_MASKED, valid, rng)]
+    reset_port_kernel_launches()
+    with open(os.path.join(root, f"started-{member}.log"), "a") as fh:
+        fh.write(f"{os.getpid()} {t_start} {time.time()}\n")
+
+    f = Fleet.from_env()
+    f.join()
+    f.await_admission(timeout=60)
+    sync = time.monotonic() + 20
+    for m in f.world():
+        if m == f.member:
+            continue
+        while m not in f.live() and time.monotonic() < sync:
+            f.heartbeat()
+            time.sleep(0.05)
+    r, w = f.shard()
+    X = np.arange(64, dtype=np.float32).reshape(64, 1)
+    with mx.cpu():
+        it = NDArrayIter(X, batch_size=8, shuffle=True, seed=5,
+                         last_batch_handle="discard")
+    spath = os.path.join(root, "stream.pkl")
+    step = 0
+    if os.path.exists(spath):
+        with open(spath, "rb") as fh:
+            pub = pickle.load(fh)
+        it.load_state_dict(pub["state"])
+        step = pub["step"]
+    it.set_shard(r, w)
+    straggler = spec["mode"] == "straggler"
+    target = FLEET_STRAGGLER_STEPS if straggler else max(16, step + 8)
+    post_rejoin = 0
+    led = open(os.path.join(root, f"ledger-{member}-{os.getpid()}.jsonl"),
+               "a", buffering=1)
+    pace = 0.0 if straggler else (0.25 if member == 0 else 0.05)
+    deadline = time.monotonic() + 240
+    while time.monotonic() < deadline:
+        t0 = time.perf_counter()
+        try:
+            f.on_step()
+        except MembershipChange:
+            f.ack()
+            try:
+                r, w = f.shard()
+            except WorkerFailure:
+                f.join()
+                f.await_admission(timeout=60)
+                r, w = f.shard()
+                if os.path.exists(spath):
+                    with open(spath, "rb") as fh:
+                        pub = pickle.load(fh)
+                    it.load_state_dict(pub["state"])
+                    step = pub["step"]
+            it.set_shard(r, w)
+            led.write(json.dumps({"membership": True, "step": step,
+                                  "gen": f.acked_generation,
+                                  "world": w}) + "\n")
+            continue
+        on_step_ms = (time.perf_counter() - t0) * 1e3
+        if member == 0 and not straggler:
+            if step >= target and f.acked_generation >= 3 \
+                    and post_rejoin >= 3:
+                break
+            if step >= 96:
+                break
+        elif step >= target:
+            break
+        with mx.cpu():
+            if not it.iter_next():
+                it.reset()
+                assert it.iter_next()
+        step += 1
+        if member == 0 and f.acked_generation >= 3:
+            post_rejoin += 1
+        lb = FLEET_GLOBAL_BATCH // w
+        tracing.set_context(epoch=0, step=step)
+        t1 = time.perf_counter()
+        loss = float(step_fn.step(*[b[r * lb:(r + 1) * lb] for b in glob]))
+        step_ms = (time.perf_counter() - t1) * 1e3
+        led.write(json.dumps(
+            {"step": step, "gen": f.acked_generation, "rank": r, "world": w,
+             "gids": [int(v) for v in it.global_batch_ids()],
+             "mine": [int(v) for v in it.getdata()[0].asnumpy().ravel()],
+             "loss": loss, "finite": math.isfinite(loss), "batch": lb,
+             "step_ms": step_ms, "on_step_ms": on_step_ms,
+             "wall": time.time()}) + "\n")
+        if r == 0:
+            with ckpt.atomic_write(spath, mode="wb") as fh:
+                pickle.dump({"step": step, "state": it.state_dict()}, fh)
+        time.sleep(pace)
+    f.leave()
+    with open(os.path.join(root, f"launches-{member}-{os.getpid()}.json"),
+              "w") as fh:
+        json.dump(port_kernel_launches(), fh)
+    led.close()
+    return 0
+
+
+def fleet_run(work, name, chaos):
+    """One supervised two-worker run of :func:`fleet_child` through the
+    port's launcher; returns its exit code, output tail, wall seconds,
+    run directory and fleet directory."""
+    root = os.path.join(work, name)
+    fdir = os.path.join(work, name + "-fleet")
+    os.makedirs(root)
+    spec = dict(fn="fleet_child", root=root, no_group=True,
+                mode="churn" if "preempt" in chaos else "straggler")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_mx_torch.tools.launch", "--supervise",
+         "-n", "2", "--fleet-dir", fdir, "--max-restarts", "2",
+         "--backoff", "3.0", "--lease", "4.0", "--join-timeout", "120",
+         "--env", f"TPUMX_CHAOS={chaos}",
+         sys.executable, "-c", WORKER_CHILD, json.dumps(spec)],
+        cwd=here, capture_output=True, text=True, timeout=CHILD_TIMEOUT)
+    return dict(rc=r.returncode, stderr=r.stderr[-3000:],
+                wall_s=time.perf_counter() - t0, root=root, fleet=fdir)
+
+
+def _jsonl(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def fleet_oracle(steps=128):
+    """The uninterrupted global sample-id stream (one 1-worker iterator)."""
+    import tpu_mx_torch as mx
+    from tpu_mx_torch.io import NDArrayIter
+    with mx.cpu():
+        it = NDArrayIter(np.arange(64, dtype=np.float32).reshape(64, 1),
+                         batch_size=8, shuffle=True, seed=5,
+                         last_batch_handle="discard")
+        out = {}
+        for s in range(1, steps + 1):
+            if not it.iter_next():
+                it.reset()
+                it.iter_next()
+            out[s] = [int(v) for v in it.global_batch_ids()]
+    return out
+
+
+def fleet_churn_checks(run):
+    """The reference's kill-and-rejoin contract on a churn run's ledgers,
+    and its restart, rejoin and per-step times."""
+    import glob as _glob
+    root = run["root"]
+    oracle = fleet_oracle()
+    starts = {m: [line.split() for line in open(os.path.join(
+        root, f"started-{m}.log")).read().splitlines()] for m in (0, 1)}
+    rows0 = [row for p in _glob.glob(os.path.join(root, "ledger-0-*.jsonl"))
+             for row in _jsonl(p)]
+    steps0 = sorted((row for row in rows0 if "gids" in row),
+                    key=lambda row: row["step"])
+    hi = steps0[-1]["step"] if steps0 else 0
+    worlds = [row["world"] for row in steps0]
+    pids1 = [s[0] for s in starts[1]]
+    first = [row for row in _jsonl(os.path.join(
+        root, f"ledger-1-{pids1[0]}.jsonl")) if "gids" in row] \
+        if pids1 else []
+    second = [row for row in _jsonl(os.path.join(
+        root, f"ledger-1-{pids1[1]}.jsonl")) if "gids" in row] \
+        if len(pids1) > 1 else []
+    gen = json.loads(open(os.path.join(run["fleet"], "gen.json")).read())
+    checks = {
+        "rc": run["rc"] == 0,
+        "rank1_restarted_once": len(pids1) == 2 and len(starts[0]) == 1,
+        "rank0_no_step_skipped_or_repeated":
+            [row["step"] for row in steps0] == list(range(1, hi + 1))
+            and hi >= 16,
+        "rank0_ledger_is_the_oracle": all(row["gids"] == oracle[row["step"]]
+                                          for row in steps0),
+        "dp_2_1_2": bool(worlds) and worlds[0] == 2 and 1 in worlds
+        and worlds[-1] == 2,
+        "rejoined_ledger_is_the_oracle": len(second) >= 4 and all(
+            row["gen"] >= 3 and row["world"] == 2 and row["rank"] == 1
+            and row["gids"] == oracle[row["step"]]
+            and row["mine"] == oracle[row["step"]][4:] for row in second),
+        "fleet_back_to_full_world": gen["world"] == [0, 1]
+        and gen["generation"] >= 3,
+        "bert_losses_finite": all(row["finite"] for row in steps0 + second),
+    }
+    times = {}
+    if first and len(starts[1]) > 1:
+        times["restart_ms"] = (float(starts[1][1][1]) - first[-1]["wall"]) \
+            * 1e3
+        times["rejoin_ms"] = (second[0]["wall"] - float(starts[1][1][1])) \
+            * 1e3 if second else None
+    rows = steps0 + first + second
+    times["step_ms_median"] = statistics.median(r["step_ms"] for r in rows)
+    times["on_step_host_ms_median"] = statistics.median(
+        r["on_step_ms"] for r in rows)
+    times["steps"] = {"rank0": hi, "rank1_first": len(first),
+                      "rank1_second": len(second)}
+    times["batches"] = sorted({(r["world"], r["batch"]) for r in rows})
+    return checks, times
+
+
+def fleet_kernel_launches(root):
+    import glob as _glob
+    total = dict.fromkeys(port_kernel_launches(), 0)
+    for p in _glob.glob(os.path.join(root, "launches-*.json")):
+        with open(p) as f:
+            for k, v in json.load(f).items():
+                total[k] += v
+    return total
+
+
+def phase_fleet(ctx):
+    """Elastic fleets on the card: the reference's kill-and-rejoin proof
+    under ``python -m tpu_mx_torch.tools.launch --supervise -n 2`` with
+    ``TPUMX_CHAOS=preempt_worker_at_step=3,preempt_rank=1``, each step a
+    BERT-base training step on the worker's shard of 32 x 512 (rank 1
+    evicted, restarted and admitted again; every ledger the oracle's;
+    restart ms, rejoin ms, ``fleet.on_step`` host ms against step ms);
+    then a run with ``slow_worker_rank=1`` whose ``FleetAggregator``
+    must name rank 1, and whose fleet black box must pass
+    ``validate_fleet_section`` and the port's ``fleet_report``."""
+    import shutil
+    import tempfile
+    import torch
+    from tpu_mx_torch import telemetry
+    from tpu_mx_torch.kernels import _build
+    from tpu_mx_torch.models import bert_base_config
+    from tpu_mx_torch.parallel import fleet_obs
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fleet-", dir=str(_build.BUILD_DIR.parent))
+    out = {}
+    try:
+        churn = fleet_run(work, "churn",
+                          "preempt_worker_at_step=3,preempt_rank=1")
+        checks, times = fleet_churn_checks(churn)
+        out["churn"] = dict(rc=churn["rc"], wall_s=churn["wall_s"], **times,
+                            **({"stderr": churn["stderr"]}
+                               if not all(checks.values()) else {}))
+        launches = fleet_kernel_launches(churn["root"])
+        slow = fleet_run(work, "straggler",
+                         f"slow_worker_rank=1,slow_worker_seconds="
+                         f"{FLEET_SLOW_SECONDS}")
+        box_path = fleet_obs.fleet_blackbox_path(slow["fleet"])
+        box = json.loads(open(box_path).read()) \
+            if os.path.exists(box_path) else {}
+        sig = box.get("fleet", {}).get("straggler_signal", {})
+        try:
+            fleet_obs.validate_fleet_section(box, telemetry=telemetry)
+            valid = True
+        except ValueError as e:
+            valid = str(e)[:300]
+        here = os.path.dirname(os.path.abspath(__file__))
+        rep = subprocess.run(
+            [sys.executable, os.path.join(here, "tpu_mx_torch", "tools",
+                                          "fleet_report.py"), box_path,
+             "--validate"], capture_output=True, text=True, timeout=120)
+        for k, v in fleet_kernel_launches(slow["root"]).items():
+            launches[k] += v
+        out["straggler"] = dict(
+            rc=slow["rc"], wall_s=slow["wall_s"], signal=sig,
+            section_valid=valid, report_rc=rep.returncode,
+            skew_steps=len(box.get("fleet", {}).get("skew_timeline", [])),
+            **({"stderr": slow["stderr"]} if slow["rc"] else {}))
+        checks.update({
+            "straggler_rc": slow["rc"] == 0,
+            "straggler_named": bool(sig.get("straggling"))
+            and sig.get("rank") == 1
+            and sig.get("dominant_phase") == "data_wait",
+            "fleet_blackbox_valid": valid is True,
+            "fleet_report": rep.returncode == 0
+            and "slowest=rank 1" in rep.stdout,
+            "flash_launches": all(launches[k] > 0 for k in FLASH_KERNELS),
+        })
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ctx["fleet_launches"] = launches
+    emit("fleet", ok=all(checks.values()), checks=checks, **out,
+         model={**bert_base_config(max_len=TRAIN_SEQ), "dtype": "bfloat16"},
+         global_batch=[FLEET_GLOBAL_BATCH, TRAIN_SEQ],
+         chaos=dict(churn="preempt_worker_at_step=3,preempt_rank=1",
+                    straggler=f"slow_worker_rank=1,slow_worker_seconds="
+                              f"{FLEET_SLOW_SECONDS}"),
+         launches=launches, seconds=time.perf_counter() - t_phase,
+         card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"fleet check {name} failed")
+
+
 def later_launches(ctx, name):
     """A kernel's launches in the MoE, example, operators, data and later
     phases."""
@@ -7115,7 +8037,7 @@ def later_launches(ctx, name):
             for p in ("moe_parity", "moe_train", "bert_example",
                       "moe_example", "operators", "data", "serve_arms",
                       "crossover", "quantize", "estimator",
-                      "supervised_train")}
+                      "supervised_train", "fusion", "kvstore", "fleet")}
 
 
 def main():
@@ -7169,6 +8091,9 @@ def main():
                      ("attention_bias", phase_attention_bias),
                      ("crossover", phase_crossover),
                      ("supervised_train", phase_supervised_train),
+                     ("fusion", phase_fusion),
+                     ("kvstore", phase_kvstore),
+                     ("fleet", phase_fleet),
                      ("rtc", phase_rtc)):
         try:
             fn(ctx)
@@ -7194,7 +8119,9 @@ def main():
                                 "serve_arms_launches", "crossover_launches",
                                 "quantize_launches",
                                 "estimator_launches",
-                                "supervised_train_launches"} \
+                                "supervised_train_launches",
+                                "fusion_launches", "kvstore_launches",
+                                "fleet_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1

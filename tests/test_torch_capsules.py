@@ -247,8 +247,20 @@ def test_a_bfloat16_sidecar_comes_back_bit_for_bit(tmp_path):
 
 
 def test_the_manager_refuses_what_it_cannot_carry(tmp_path):
-    with pytest.raises(MXNetError, match="A item 8b"):
-        resume.CapsuleManager(str(tmp_path / "f"), fleet=object())
+    # a fleet it now carries: the world map is the adopted epoch's
+    from tpu_mx_torch import telemetry, tracing
+    from tpu_mx_torch.parallel import fleet
+    f = fleet.Fleet(tmp_path / "fl", member=1, controller=True)
+    f.advance(world=[0, 1])
+    f.join()
+    try:
+        mgr = resume.CapsuleManager(str(tmp_path / "f"), fleet=f)
+        assert mgr._world() == {"num_workers": 2, "rank": 1,
+                                "generation": 1}
+    finally:
+        fleet._live_world = None
+        telemetry.set_fleet_identity(rank=None, generation=None)
+        tracing.reset()
     with pytest.raises(MXNetError, match="checkpoint prefix"):
         resume.CapsuleManager("")
 

@@ -315,14 +315,26 @@ def test_the_preemption_handler_saves_once_and_is_reentrant(tmp_path):
         assert os.path.exists(str(tmp_path / "bb") + "-blackbox.json")
 
 
-def test_the_barrier_at_world_size_one():
-    for el, ch in ((elastic, chaos), (jelastic, jchaos)):
+def test_the_barrier_at_world_size_one(tmp_path):
+    from tpu_mx.parallel import fleet as jfleet
+    from tpu_mx_torch.parallel import fleet
+    for el, ch, fl in ((elastic, chaos, fleet), (jelastic, jchaos, jfleet)):
         assert el.barrier("t", timeout=1.0) is None
         with ch.enable(kill_peer=True):
             with pytest.raises(el.WorkerFailure, match="kill_peer"):
                 el.barrier("t", timeout=1.0)
-    with pytest.raises(MXNetError, match="A item 8b"):
-        elastic.barrier("t", fleet=object())
+        # fleet=: a stale membership generation raises before any wait
+        root = tmp_path / fl.__name__
+        ctl = fl.Fleet(root, controller=True)
+        ctl.advance(world=[0])
+        try:
+            assert el.barrier("t", timeout=1.0, fleet=ctl) is None
+            fl.Fleet(root, controller=True).advance(world=[0, 1])
+            with pytest.raises(el.WorkerFailure,
+                               match="stale fleet generation 1"):
+                el.barrier("t", timeout=1.0, fleet=ctl)
+        finally:
+            fl._live_world = None
 
 
 CHAOS_SPECS = [

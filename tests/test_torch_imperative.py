@@ -1087,8 +1087,10 @@ def test_trainer_before_the_first_forward_and_its_surface(tmp_path):
         p.set_data(snap[k])
     trainer.load_states(f)
     assert step() == pytest.approx(l1, rel=1e-6) and l1 < l0
-    with pytest.raises(MXNetError, match="kvstore"):
-        gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    dist = gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    assert (dist._kvstore.type, dist._kvstore.num_workers) == ("dist_sync", 1)
+    with pytest.raises(MXNetError, match="unknown KVStore type"):
+        gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_bogus")
 
 
 def test_lr_and_wd_multipliers_and_the_updater():

@@ -426,8 +426,7 @@ _PORT = {"BERTModel": _bert, "BERTModel(moe_every=1)": _bert_moe,
 
 # (entry point, argument, a value other than the reference's default)
 _REFUSED = [
-    ("Trainer", "compression_params", {"type": "2bit"}),
-    ("Trainer", "update_on_kvstore", True),
+    ("Optimizer", "sym", "net"),
 ]
 # arguments refused until their feature was ported, each with a check
 # that the given value took effect
@@ -477,6 +476,12 @@ _ACCEPTED = [
      lambda it: it.num_workers == 2 and it.batch_size == 1),
     ("NDArrayIter(num_workers=2)", "rank", 1,
      lambda it: it.rank == 1 and it.iter_next() and list(it._sel) == [1]),
+    # the kvstore
+    ("Trainer", "compression_params", {"type": "2bit"},
+     lambda tr: tr._kvstore._compression is not None
+     and tr._kvstore._compression.type == "2bit"),
+    ("Trainer", "update_on_kvstore", True,
+     lambda tr: tr._update_on_kvstore is True),
 ]
 # arguments with no torch meaning: accepted at any value and ignored
 _IGNORED = [

@@ -37,8 +37,6 @@ _ITEM9 = _item(9, "multi-device parallel")
 _ITEM10 = _item(10, "graph API and the long tail")
 
 ALLOWED = {
-    ("tpu_mx_torch.base", "dist_boot"):
-        JAX + "boots jax.distributed from the launcher's environment",
     ("tpu_mx_torch.context", "Context.jax_device"):
         JAX + "the jax Device of a context; the port's is torch_device",
     ("tpu_mx_torch.parallel.train_step", "CompiledTrainStep.aot_compiled"):
@@ -76,7 +74,6 @@ ALLOWED = {
     ("tpu_mx_torch.resume", "ModuleState"):
         _ITEM10 + ": a Module's state for the capsule's sidecar (module/)",
     ("tpu_mx_torch.parallel.ring_attention", "ring_attention"): _ITEM9,
-    ("tpu_mx_torch.contrib.compression", "GradientCompression"): _ITEM9,
     ("tpu_mx_torch.autograd", "get_symbol"): _ITEM10,
     ("tpu_mx_torch.base", "Registry"): _ITEM10,
     ("tpu_mx_torch.base", "check"): _ITEM10,

@@ -174,7 +174,7 @@ def test_the_recovery_ladder_is_the_references(scenario):
                                                         "completed")
 
 
-def test_the_step_reads_a_tensor_loss_once_and_refuses_a_fleet():
+def test_the_step_reads_a_tensor_loss_once_and_refuses_a_fleet(tmp_path):
     sup = supervisor.Supervisor()
     for value, want in ((torch.tensor(2.5), 2.5),
                         (torch.tensor([1.0, 3.0]), 2.0),
@@ -183,8 +183,25 @@ def test_the_step_reads_a_tensor_loss_once_and_refuses_a_fleet():
         assert supervisor._observable(value)[0] == want
     assert sup.step(lambda: torch.tensor(1.5)).item() == 1.5
     assert sup.steps == 1
-    with pytest.raises(MXNetError, match="A item 8b"):
-        supervisor.Supervisor(fleet=object())
+    # a fleet's duty cycle runs at the step boundary, and a step under a
+    # moved membership epoch is refused (MembershipChange)
+    from tpu_mx_torch.parallel import fleet
+    f = fleet.Fleet(tmp_path / "fleet", member=0, controller=True)
+    f.advance(world=[0])
+    f.join()
+    try:
+        fsup = supervisor.Supervisor(fleet=f)
+        beat = f.members()[0]["beat"]
+        assert fsup.step(lambda: torch.tensor(0.5)).item() == 0.5
+        assert f.members()[0]["beat"] == beat + 1 and fsup.steps == 1
+        f.advance(world=[0, 1], reason="scale-up")
+        with pytest.raises(fleet.MembershipChange, match="generation 1 -> 2"):
+            fsup.step(lambda: torch.tensor(0.5))
+        assert fsup.steps == 1
+    finally:
+        fleet._live_world = None
+        telemetry.set_fleet_identity(rank=None, generation=None)
+        tracing.reset()
     with pytest.raises(AttributeError, match="A item 10"):
         supervisor.for_module
     from tpu_mx_torch import resume

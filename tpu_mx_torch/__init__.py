@@ -37,14 +37,26 @@ The port goes slice by slice:
   (:mod:`tpu_mx_torch.elastic`), capsules (:mod:`tpu_mx_torch.resume`),
   the :class:`~tpu_mx_torch.supervisor.Supervisor`, the chaos training
   sites, the cross-replica fingerprint vote
-  (``parallel.integrity.IntegrityMonitor``) and ``mx.profiler``.
+  (``parallel.integrity.IntegrityMonitor``) and ``mx.profiler``;
+- ``engine.bulk()`` with the fusion engine (:mod:`tpu_mx_torch.fusion`),
+  ``mx.kvstore`` (``mx.kv``, ``dist_*`` over ``torch.distributed``) and
+  elastic fleets (:mod:`tpu_mx_torch.parallel.fleet`,
+  :mod:`~tpu_mx_torch.parallel.fleet_obs`, the launcher
+  ``tpu_mx_torch.tools.launch``).
 
 The hand-written Hopper kernels are in :mod:`tpu_mx_torch.kernels`.
 Entry points take ``device=`` and default to ``"cuda"``
 (:mod:`tpu_mx_torch.device`); a :mod:`~tpu_mx_torch.context` (``mx.gpu(0)``,
 ``mx.cpu()``) is taken wherever a device is, and ``with mx.cpu():``
 makes the host the current context (the default is the card).
+
+Under the launcher (``python -m tpu_mx_torch.tools.launch``) the import
+joins the workers' ``torch.distributed`` group first
+(:func:`~tpu_mx_torch.base.dist_boot`), as the reference's does.
 """
+from .base import dist_boot as _dist_boot
+_dist_boot()
+
 from . import autograd, gluon, io, metric, ndarray, operator, optimizer
 from . import profiler
 from . import random
@@ -56,8 +68,13 @@ from .base import MXNetError, NumericDivergence
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
                       num_gpus, tpu)
 from . import ndarray as nd
+from . import kvstore
+from . import kvstore as kv
+from . import fusion
+from . import engine
 
 __all__ = ["MXNetError", "NumericDivergence", "Context", "cpu", "cpu_pinned",
            "current_context", "gpu", "num_gpus", "tpu", "autograd", "gluon",
            "image", "init", "initializer", "io", "metric", "nd", "ndarray",
-           "operator", "optimizer", "profiler", "random", "recordio"]
+           "operator", "optimizer", "profiler", "random", "recordio",
+           "kvstore", "kv", "fusion", "engine"]

@@ -54,6 +54,11 @@ class _Scope:
 
     def __enter__(self):
         self._old = (_STATE.recording, _STATE.training)
+        if self._rec is not None and self._rec != _STATE.recording:
+            # tape boundary: a pending fused segment flushes under the
+            # recording state its ops were issued in
+            from . import fusion
+            fusion.flush("tape_boundary")
         if self._rec is not None:
             _STATE.recording = self._rec
         if self._train is not None:
@@ -61,6 +66,9 @@ class _Scope:
         return self
 
     def __exit__(self, *exc):
+        if _STATE.recording != self._old[0]:
+            from . import fusion
+            fusion.flush("tape_boundary")
         _STATE.recording, _STATE.training = self._old
         return False
 
@@ -137,6 +145,8 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     into every attached leaf's buffer, by its ``grad_req``; a leaf the
     heads do not reach keeps its gradient.  The graph is freed unless
     ``retain_graph``."""
+    from . import fusion
+    fusion.flush("backward")  # heads and their tape realized first
     outs, grads = _heads(heads, head_grads)
     if not outs:
         return

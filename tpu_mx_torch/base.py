@@ -13,7 +13,8 @@ from __future__ import annotations
 import logging
 import numbers
 
-__all__ = ["MXNetError", "NumericDivergence", "refuse_unported"]
+__all__ = ["MXNetError", "NumericDivergence", "refuse_unported",
+           "dist_boot"]
 
 logger = logging.getLogger("tpu_mx_torch")
 string_types = (str,)
@@ -44,6 +45,46 @@ def refuse_unported(owner, item, **args):
         if not _is_default(value, default):
             raise MXNetError(f"{owner}({name}={value!r}) is not ported yet "
                              f"(ROADMAP {item})")
+
+
+#: seconds the launcher's rendezvous and each collective may wait
+DIST_TIMEOUT_SECONDS = 300
+
+
+def dist_boot():
+    """Join the multi-process collective group from the launcher's
+    environment (``tpu_mx_torch.tools.launch``: ``TPUMX_COORDINATOR``
+    host:port of rank 0, ``TPUMX_NUM_PROC``, ``TPUMX_PROC_ID``), as the
+    reference's ``dist_boot`` joins ``jax.distributed``.  The group is
+    ``torch.distributed`` over ``gloo``, through host memory: ranks may
+    share one card, which NCCL refuses.  Each rank leaves the group at
+    exit, so its threads are joined before the interpreter tears down
+    (left to the teardown, a rank could abort there).  Returns True iff
+    this process is in a group of that size."""
+    import os
+    coord = os.environ.get("TPUMX_COORDINATOR")
+    if not coord:
+        return False
+    import atexit
+    import datetime
+    import torch.distributed as dist
+    world = int(os.environ["TPUMX_NUM_PROC"])
+    if dist.is_initialized():
+        return dist.get_world_size() == world
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coord}", world_size=world,
+        rank=int(os.environ["TPUMX_PROC_ID"]),
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_SECONDS))
+    atexit.register(_dist_shutdown)
+    return True
+
+
+def _dist_shutdown():
+    """Leave the group at exit.  No barrier: a rank that exits on an
+    error must not wait for peers still inside a collective."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def __getattr__(name):

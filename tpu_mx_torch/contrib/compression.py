@@ -3,15 +3,17 @@
 Each core takes a gradient and its error-feedback residual and returns
 ``(dequantized_gradient, new_residual)``: the value a worker's reduction
 would carry after quantizing ``grad + residual``, and what the rounding
-left behind for the next step.  ``GradientCompression`` and the step's
-compressed reduction need a mesh with a ``dp`` axis above 1 (ROADMAP A
+left behind for the next step.  :class:`GradientCompression` is the
+kvstore's round trip (``KVStore.set_gradient_compression``); the step's
+compressed reduction needs a mesh with a ``dp`` axis above 1 (ROADMAP A
 item 9).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["quantize_2bit_core", "quantize_int8_core", "quantize_fp8_core"]
+__all__ = ["GradientCompression", "quantize_2bit_core", "quantize_int8_core",
+           "quantize_fp8_core"]
 
 
 def quantize_2bit_core(grad, residual, threshold):
@@ -42,3 +44,42 @@ def quantize_fp8_core(grad, residual):
     wire = (acc / scale).to(torch.float8_e4m3fn)
     deq = wire.to(torch.float32) * scale
     return deq, acc - deq
+
+
+class GradientCompression:
+    """The reference's gradient compression with error feedback:
+    ``compress_decompress(grad, key=)`` returns what a worker's push would
+    carry after the wire format (``"2bit"`` around ``threshold``,
+    ``"int8"`` or ``"fp8"``) and keeps the rounding error as the residual
+    the next call under ``key`` adds back.  Without a ``key`` the residual
+    is keyed by ``id(grad)``, as in the reference."""
+
+    def __init__(self, type="2bit", threshold=0.5):
+        if type not in ("2bit", "int8", "fp8"):
+            raise ValueError(f"unsupported compression type {type!r} "
+                             "(have: 2bit, int8, fp8)")
+        self.type = type
+        self.threshold = float(threshold)
+        self._residuals = {}
+
+    def compress_decompress(self, grad, key=None):
+        """Round-trip a gradient (an array or a tensor) through the wire
+        format; returns the same kind."""
+        from ..ndarray import NDArray
+        raw = grad._data if isinstance(grad, NDArray) else grad
+        rkey = key if key is not None else id(grad)
+        residual = self._residuals.get(rkey)
+        if residual is None or residual.shape != raw.shape:
+            residual = torch.zeros_like(raw)
+        if self.type == "2bit":
+            q, new_residual = quantize_2bit_core(raw, residual,
+                                                 self.threshold)
+        elif self.type == "fp8":
+            q, new_residual = quantize_fp8_core(raw, residual)
+        else:
+            q, new_residual = quantize_int8_core(raw, residual)
+        self._residuals[rkey] = new_residual
+        return NDArray(q) if isinstance(grad, NDArray) else q
+
+    def get_params(self):
+        return {"type": self.type, "threshold": self.threshold}

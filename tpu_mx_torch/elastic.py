@@ -17,8 +17,9 @@ durable auto-resume.
    ``save_parameters``) and the trainer-state pickle, so a checkpoint
    written by the reference loads into the port with the same weights.
 
-Elastic fleets (``fleet=``, membership generations) are ROADMAP A item
-8b and raise; a Module (``module=``) is item 10.
+``barrier(fleet=)`` tags the rendezvous with an elastic fleet's
+membership generation (:mod:`tpu_mx_torch.parallel.fleet`); a Module
+(``module=``) is ROADMAP A item 10.
 """
 from __future__ import annotations
 
@@ -51,10 +52,14 @@ def barrier(tag="tpumx_elastic", timeout=60.0, generation=None, fleet=None):
 
     Call between epochs, so a dead rank turns into a clean, fast failure
     instead of a hang in the next collective.  The ``kill_peer`` chaos
-    knob makes this raise deterministically.  ``generation=`` (an int)
-    tags the rendezvous (``tag@gen``) in messages; ``fleet=`` is ROADMAP
-    A item 8b."""
-    refuse_unported("elastic.barrier", "A item 8b", fleet=(fleet, None))
+    knob makes this raise deterministically.
+
+    Elastic fleets: with ``fleet=`` (a ``parallel.fleet.Fleet``) the
+    rendezvous is tagged with the membership epoch, ``tag@gen``, and a
+    worker still holding an earlier generation raises
+    :class:`WorkerFailure` here, before the collective, instead of
+    pairing with (or wedging) the current cohort.  ``generation=`` alone
+    (an int) just tags."""
     from .contrib import chaos
     chaos.configure_from_env()
     if chaos.peer_killed():
@@ -62,6 +67,16 @@ def barrier(tag="tpumx_elastic", timeout=60.0, generation=None, fleet=None):
             f"barrier '{tag}': chaos kill_peer armed — simulating a dead "
             "peer. Restart the job with --resume to continue from the last "
             "checkpoint.")
+    if fleet is not None:
+        current = fleet.generation
+        if generation is None:
+            generation = fleet.acked_generation
+        if int(generation) != int(current):
+            raise WorkerFailure(
+                f"barrier '{tag}': stale fleet generation {generation} "
+                f"(the membership epoch is now {current}) — this worker "
+                "belongs to a previous epoch and must reshard/rejoin "
+                "before it may rendezvous with the current cohort")
     if generation is not None:
         tag = f"{tag}@{int(generation)}"
     import torch.distributed as dist

@@ -56,6 +56,7 @@ class _ParamArray(NDArray):
     parameter's own tensor (in place) and its gradient."""
 
     __slots__ = ("_param",)
+    _lazy = None                # never a node of a fusion segment
 
     def __init__(self, param):
         self._param = param
@@ -100,6 +101,35 @@ class _ParamArray(NDArray):
             t.grad.copy_(g)
 
 
+class _ParamGradArray(NDArray):
+    """The gradient buffer of a :class:`Parameter` as one array, the same
+    object at every read (the reference's ``Parameter.grad``): reads see
+    the tensor's current ``.grad``, writes go into it in place."""
+
+    __slots__ = ("_param",)
+    _lazy = None                # never a node of a fusion segment
+
+    def __init__(self, param):
+        self._param = param
+        self._grad = None
+        self._grad_req = "null"
+
+    @property
+    def _data(self):
+        t = self._param._tensor()
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+        return t.grad
+
+    @_data.setter
+    def _data(self, t):
+        self._rebind(t)
+
+    def _rebind(self, t):
+        with torch.no_grad():
+            self._data.copy_(t)
+
+
 class Parameter:
     """A weight or running statistic of a block (the reference's
     ``Parameter``): ``grad_req`` ("write", "add" or "null"),
@@ -127,6 +157,7 @@ class Parameter:
         self._own = None         # the tensor while bound to no module
         self._pending = None     # (init, generator) until the first forward
         self._array = None
+        self._grad_array = None
 
     # -- the slot -------------------------------------------------------------
     def _bind(self, owner, leaf, aux=False, axes=None):
@@ -313,13 +344,17 @@ class Parameter:
 
     @property
     def grad(self):
-        """The gradient buffer as an array (zeros before any backward)."""
+        """The gradient buffer as an array (zeros before any backward);
+        one array object over the tensor's ``.grad``, as the reference's
+        is one handle."""
         t = self._tensor()
         if t is None or self._grad_req == "null" or self._aux:
             raise MXNetError(f"Parameter {self.name} has no gradient buffer")
         if t.grad is None:
             t.grad = torch.zeros_like(t)
-        return NDArray(t.grad)
+        if self._grad_array is None:
+            self._grad_array = _ParamGradArray(self)
+        return self._grad_array
 
     def list_grad(self):
         return [self.grad]

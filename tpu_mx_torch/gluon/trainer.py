@@ -4,11 +4,15 @@
 the :class:`~tpu_mx_torch.gluon.Parameter` handles, not their tensors, so
 it can be built before a deferred net's first forward.  ``step(batch)``
 sets the optimizer's ``rescale_grad`` to ``1/batch`` (the loss's
-per-example values were summed by ``backward()``), reduces the gradients
-across workers (a no-op at world size 1, the only one ported) and
-updates every parameter with ``grad_req != "null"`` in place, under
-``torch.no_grad()``: with ``multi_precision`` a float16/bfloat16
-parameter is the cast of a float32 master kept in its state.  The
+per-example values were summed by ``backward()``), pushes the gradients
+to the kvstore and pulls the aggregates back into them (``kvstore="device"``,
+the default, sums one copy and checks its checksum; a ``dist_*`` store sums
+across the launcher's workers; ``compression_params`` compresses the
+push; None skips the store), and updates every parameter with
+``grad_req != "null"`` in place, under ``torch.no_grad()``: with
+``multi_precision`` a float16/bfloat16 parameter is the cast of a
+float32 master kept in its state.  ``update_on_kvstore`` is kept and, as
+in the reference, changes nothing: the update runs here.  The
 update is one eager loop over the parameters; a fused multi-tensor
 update is open work (ROADMAP A5).
 """
@@ -22,11 +26,10 @@ import numpy as np
 import torch
 
 from .. import optimizer as _opt
-from ..base import MXNetError, refuse_unported
+from ..base import MXNetError
+from ..kvstore import create as _kv_create
 
 __all__ = ["Trainer"]
-
-_LOCAL_KVSTORES = (None, False, "", "local", "device")
 
 
 class _Bf16Type:
@@ -220,20 +223,13 @@ def _from_file(state, like):
 
 
 class Trainer:
-    """Applies an optimizer to a set of parameters (the reference's
-    ``gluon.Trainer``).  ``kvstore`` other than a local one
-    (``"device"``, ``"local"``, None) is not ported yet (ROADMAP A15)."""
+    """Applies an optimizer to a set of parameters through a kvstore (the
+    reference's ``gluon.Trainer``): ``kvstore`` is a store type
+    (``mx.kv.create``), a ``KVStore`` or None."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None, fuse_update=True):
-        if kvstore not in _LOCAL_KVSTORES:
-            raise MXNetError(f"Trainer(kvstore={kvstore!r}) is not ported "
-                             "yet (ROADMAP A15: kvstore.py over "
-                             "torch.distributed)")
-        refuse_unported("Trainer", "A15",
-                        compression_params=(compression_params, None),
-                        update_on_kvstore=(update_on_kvstore, None))
         if hasattr(params, "values"):
             params = list(params.values())
         self._params = [p for p in params if p.grad_req != "null"]
@@ -242,6 +238,14 @@ class Trainer:
         self._optimizer.param_dict = dict(enumerate(self._params))
         self._states = [None] * len(self._params)
         self._states_inited = [False] * len(self._params)
+        self._kvstore = _kv_create(kvstore) \
+            if isinstance(kvstore, str) and kvstore else kvstore
+        self._compression_params = compression_params
+        if compression_params and self._kvstore:
+            self._kvstore.set_gradient_compression(compression_params)
+        self._update_on_kvstore = update_on_kvstore
+        self._kv_initialized = False
+        self._scale = 1.0
         self._fuse_update = fuse_update
 
     @property
@@ -266,16 +270,32 @@ class Trainer:
                     f"Parameter {p.name} is not initialized; call "
                     "initialize() and run a forward pass before step()")
 
+    def _init_kvstore(self):
+        if self._kvstore:
+            for i, p in enumerate(self._params):
+                self._kvstore.init(i, p.data())
+        self._kv_initialized = True
+
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale the gradients by ``1/batch_size``, reduce them and
         update every parameter."""
         self._check_initialized()
-        self._optimizer.rescale_grad = 1.0 / batch_size
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
         self.update(batch_size, ignore_stale_grad)
 
     def allreduce_grads(self):
-        """Sum the gradients across workers: nothing to do on one."""
+        """Push every gradient to the kvstore and pull the aggregates back
+        into the parameters' gradients: one push and one pull of all the
+        keys, so the store checks them together."""
+        if not self._kvstore:
+            return
+        keys = list(range(len(self._params)))
+        grads = [p.grad for p in self._params]
+        self._kvstore.push(keys, grads)
+        self._kvstore.pull(keys, grads)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Apply the optimizer to every parameter (after

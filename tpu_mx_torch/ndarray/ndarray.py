@@ -13,6 +13,13 @@ PyTorch).  An array over a Gluon parameter (``Parameter.data()``) is the
 exception: its writes go into the parameter's own tensor, in place, so
 the module sees them.
 
+The tensor lives behind the ``_data`` property: ``_buf`` is the
+concrete tensor, or None while ``_lazy`` points at a node of a pending
+fusion segment (``engine.bulk()``, :mod:`tpu_mx_torch.fusion`).  Every
+read goes through the property, so any access to the tensor flushes the
+segment; ``shape``, ``dtype``, ``size``, ``ndim`` and ``context`` answer
+from the segment without flushing.
+
 Divergences: ``dtype`` is a numpy dtype where numpy has one and the
 ``torch.dtype`` otherwise (bfloat16), and ``asnumpy()`` of a bfloat16
 array is float32; there is no engine, so ``wait_to_read`` synchronizes
@@ -25,6 +32,7 @@ import torch
 
 from .. import autograd
 from .. import device as _device
+from .. import fusion as _fusion
 from ..base import MXNetError
 from ..context import Context, cpu, current_context, gpu
 
@@ -46,9 +54,9 @@ def _torch_dtype(dtype):
     return {"bool": torch.bool}.get(name) or getattr(torch, name)
 
 
-def _context_of(t):
-    if t.device.type == "cuda":
-        return gpu(t.device.index or 0)
+def _context_of(dev):
+    if dev.type == "cuda":
+        return gpu(dev.index or 0)
     return cpu()
 
 
@@ -57,7 +65,7 @@ class NDArray:
     arithmetic, comparisons (0/1 arrays), indexing, the shape methods,
     ``attach_grad``/``grad``/``backward``, ``asnumpy``."""
 
-    __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_buf", "_lazy", "_grad", "_grad_req", "__weakref__")
 
     def __init__(self, data, ctx=None):
         if isinstance(data, NDArray):
@@ -66,31 +74,55 @@ class NDArray:
             data = torch.as_tensor(np.asarray(data))
         if ctx is not None:
             data = data.to(_device.resolve(ctx))
-        self._data = data
+        self._buf = data
+        self._lazy = None
         self._grad = None
         self._grad_req = "null"
+
+    @property
+    def _data(self):
+        if self._lazy is not None:
+            _fusion.realize(self)
+        return self._buf
+
+    @_data.setter
+    def _data(self, value):
+        self._buf = value
+        self._lazy = None
+
+    def _meta(self):
+        """The tensor, or while lazy a meta-device tensor of its shape and
+        dtype (no flush)."""
+        if self._lazy is not None:
+            try:
+                return _fusion.aval_of(self._lazy)
+            except Exception:  # noqa: BLE001 — no meta kernel: flush, read
+                pass
+        return self._data
 
     # -- meta -------------------------------------------------------------
     @property
     def shape(self):
-        return tuple(self._data.shape)
+        return tuple(self._meta().shape)
 
     @property
     def dtype(self):
-        t = self._data.dtype
+        t = self._meta().dtype
         return np.dtype(_NP_DTYPES[t]) if t in _NP_DTYPES else t
 
     @property
     def size(self):
-        return self._data.numel()
+        return self._meta().numel()
 
     @property
     def ndim(self):
-        return self._data.dim()
+        return self._meta().dim()
 
     @property
     def context(self):
-        return _context_of(self._data)
+        if self._lazy is not None:
+            return _context_of(_fusion.device_of(self._lazy))
+        return _context_of(self._data.device)
 
     ctx = context
 
@@ -392,7 +424,9 @@ def from_numpy(a, zero_copy=False):
 
 
 def waitall():
-    """Wait for every launch queued on the card."""
+    """Flush the pending fusion segment, then wait for every launch queued
+    on the card."""
+    _fusion.flush("waitall")
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 

@@ -29,9 +29,18 @@ PyTorch's operator there and permute the result back.
 The rest of the reference's operators (sequence, ordering, indexing,
 the loss-output heads, ``BatchNorm``, the samplers, ``Custom``, ...) are
 in :mod:`.ops_tail`, ``ctc_loss`` in :mod:`.ctc` and the int8 operators
-in :mod:`.quantized_ops`, all re-exported here.  Not ported yet (ROADMAP
-A item 10): the families the reference adds from ``linalg_ops``,
-``vision_ops`` and ``sample_ops``.
+in :mod:`.quantized_ops`, all re-exported here.
+
+The operators that carry the reference's fuse keys (``ops.py:62-76``:
+the elementwise and broadcast operators, ``cast``, the ``*_like``
+creators, ``BlockGrad``, ``identity``, ``add_n``, the reductions,
+``argmax``/``argmin``, ``norm``, ``clip``, ``where``, ``softmax``,
+``log_softmax`` and ``sgd_update``) are marked by :func:`_fusible`: with
+fusion on (``engine.bulk()``, :mod:`tpu_mx_torch.fusion`) a call on
+arrays joins the pending segment instead of running.
+
+Not ported yet (ROADMAP A item 10): the families the reference adds
+from ``linalg_ops``, ``vision_ops`` and ``sample_ops``.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ import torch.nn.functional as F
 
 from .. import autograd
 from .. import device as _device
+from .. import fusion as _fusion
 from .. import layout as _layout
 from .. import random as _random
 from ..context import current_context
@@ -76,12 +86,59 @@ def _wrap(out):
     return out
 
 
+def _static_key(v):
+    """A hashable, type-tagged form of an operator's static argument
+    (``1 == 1.0 == True`` in Python, but each promotes differently);
+    TypeError for an argument a fuse key cannot hold (an array)."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return (type(v).__name__, v)
+    if isinstance(v, (list, tuple)):
+        return ("seq",) + tuple(_static_key(x) for x in v)
+    if isinstance(v, torch.dtype):
+        return ("dtype", str(v))
+    if isinstance(v, type) or type(v).__module__.startswith("numpy"):
+        return ("dtype", str(_torch_dtype(v)))
+    raise TypeError(type(v).__name__)
+
+
+def _fusible(n_arrays=1, nondiff=False):
+    """Mark an operator fusible.  Its first ``n_arrays`` positional
+    arguments (``None``: all of them) are the segment's inputs; the rest,
+    and the keywords, are static and complete its fuse key.  ``nondiff``:
+    the output is a constant for autograd, as the eager call leaves it."""
+    def mark(fn):
+        def plan(*args, **kwargs):
+            n = len(args) if n_arrays is None else n_arrays
+            static = args[n:]
+            try:
+                key = (fn.__name__, n, _static_key(static),
+                       _static_key(sorted(kwargs.items())))
+            except TypeError:
+                return None
+            return key, list(args[:n]), \
+                lambda *xs: fn(*xs, *static, **kwargs)
+        fn._fuse = plan
+        fn._nondiff = nondiff
+        return fn
+    return mark
+
+
 def _apply(fn, args, kwargs):
     """Run ``fn(*args, **kwargs)``: on raw tensors as given, or, when an
     argument is an array, on the unwrapped tensors under the recording
-    flag, wrapping the outputs (a list for several)."""
+    flag, wrapping the outputs (a list for several).  A fusible ``fn``
+    joins the pending fusion segment instead while fusion is on."""
     if not (_holds_array(args) or _holds_array(kwargs.values())):
         return fn(*args, **kwargs)
+    plan = getattr(fn, "_fuse", None)
+    if plan is not None and _fusion.enabled():
+        spec = plan(*args, **kwargs)
+        if spec is not None:
+            key, arrays, pure = spec
+            res = _fusion.append(pure, arrays, fn.__name__, key,
+                                 fn._nondiff)
+            if res is not None:
+                return res
     with torch.set_grad_enabled(autograd.is_recording()):
         out = fn(*[_unwrap(a) for a in args],
                  **{k: _unwrap(v) for k, v in kwargs.items()})
@@ -389,6 +446,7 @@ def softmin(data, axis=-1, **kw):
     return F.softmax(-data, dim=axis)
 
 
+@_fusible()
 def log_softmax(data, axis=-1, temperature=None):
     return F.log_softmax(data / temperature if temperature else data,
                          dim=axis)
@@ -461,6 +519,7 @@ def sgd_update_core(weight, grad, lr, wd, rescale_grad=1.0,
     return weight - lr * (g + wd * weight)
 
 
+@_fusible(2, nondiff=True)
 def sgd_update(weight, grad, lr, wd=0.0, rescale_grad=1.0, clip_gradient=-1,
                out=None, **kw):
     """The reference's ``nd.sgd_update``: :func:`sgd_update_core`'s
@@ -528,18 +587,22 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
     return _place(a.repeat_interleave(repeat) if repeat != 1 else a)
 
 
+@_fusible(nondiff=True)
 def zeros_like(a, **kw):
     return torch.zeros_like(a)
 
 
+@_fusible(nondiff=True)
 def ones_like(a, **kw):
     return torch.ones_like(a)
 
 
+@_fusible(nondiff=True)
 def full_like(a, fill_value, **kw):
     return torch.full_like(a, fill_value)
 
 
+@_fusible()
 def cast(data, dtype, **kw):
     return data.to(_torch_dtype(dtype))
 
@@ -547,6 +610,7 @@ def cast(data, dtype, **kw):
 Cast = astype = cast
 
 
+@_fusible(nondiff=True)
 def BlockGrad(data, **kw):
     """The value, with no gradient flowing through it."""
     return data.detach()
@@ -555,6 +619,7 @@ def BlockGrad(data, **kw):
 stop_gradient = BlockGrad
 
 
+@_fusible()
 def identity(data, **kw):
     return data
 
@@ -565,7 +630,7 @@ def _unary(tfn, name):
         return tfn(data)
     op.__name__ = op.__qualname__ = name
     op._out = True
-    return op
+    return _fusible()(op)
 
 
 abs = _unary(torch.abs, "abs")
@@ -625,7 +690,7 @@ def _binary(tfn, name):
         return tfn(lhs, rhs)
     op.__name__ = op.__qualname__ = name
     op._out = True
-    return op
+    return _fusible(2)(op)
 
 
 def _compare(cmp):
@@ -657,11 +722,12 @@ logical_xor = _binary(_compare(lambda a, b: (a != 0) ^ (b != 0)),
 
 def _tensors(a, b):
     """Both operands as tensors (a Python scalar takes the other's type,
-    as the reference's weakly typed scalars do)."""
+    as the reference's weakly typed scalars do; made by a fill, so a CUDA
+    graph can capture it)."""
     if not isinstance(a, torch.Tensor):
-        a = torch.as_tensor(a, dtype=torch.result_type(a, b), device=b.device)
+        a = torch.full((), a, dtype=torch.result_type(a, b), device=b.device)
     if not isinstance(b, torch.Tensor):
-        b = torch.as_tensor(b, dtype=torch.result_type(a, b), device=a.device)
+        b = torch.full((), b, dtype=torch.result_type(a, b), device=a.device)
     return a, b
 
 
@@ -685,6 +751,7 @@ broadcast_lesser = lesser
 broadcast_lesser_equal = lesser_equal
 
 
+@_fusible(None)
 def add_n(*args, **kw):
     return functools.reduce(lambda a, b: a + b, args)
 
@@ -705,6 +772,7 @@ def _axes(data, axis, exclude=False):
 
 
 def _reduce(tfn, name, floating=False):
+    @_fusible()
     def op(data, axis=None, keepdims=False, exclude=False, **kw):
         if floating and not data.is_floating_point():
             data = data.float()
@@ -735,6 +803,7 @@ prod = _reduce(_prod, "prod")
 
 
 def _arg(tfn, name):
+    @_fusible(nondiff=True)
     def op(data, axis=None, keepdims=False, **kw):
         if axis is None:
             out = tfn(data.reshape(-1), dim=0)
@@ -749,6 +818,7 @@ argmax = _arg(torch.argmax, "argmax")
 argmin = _arg(torch.argmin, "argmin")
 
 
+@_fusible()
 def norm(data, ord=2, axis=None, keepdims=False, **kw):
     """L1 (``ord=1``) or L2 norm over ``axis`` (None: all)."""
     x = data.abs() if ord == 1 else data.square()
@@ -915,20 +985,22 @@ def slice_axis(data, axis, begin, end, **kw):
     return data[tuple(idx)]
 
 
+@_fusible()
 def clip(data, a_min, a_max, **kw):
     """``data`` bounded to ``[a_min, a_max]`` (either may be None), as
     ``max`` then ``min``: at a bound the gradient is halved, as the
     reference's ``jnp.clip`` halves it (``torch.clamp`` passes it whole;
     MobileNet's ReLU6 meets the bound at exact zeros)."""
     if a_min is not None:
-        data = torch.maximum(data, torch.as_tensor(a_min, dtype=data.dtype,
-                                                   device=data.device))
+        data = torch.maximum(data, torch.full((), a_min, dtype=data.dtype,
+                                              device=data.device))
     if a_max is not None:
-        data = torch.minimum(data, torch.as_tensor(a_max, dtype=data.dtype,
-                                                   device=data.device))
+        data = torch.minimum(data, torch.full((), a_max, dtype=data.dtype,
+                                              device=data.device))
     return data
 
 
+@_fusible(3)
 def where(condition, x, y, **kw):
     return torch.where(condition != 0, x, y)
 
@@ -976,6 +1048,7 @@ def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False, **kw):
 
 
 # -- softmax ------------------------------------------------------------------
+@_fusible()
 def softmax(data, axis=-1, temperature=None, length=None, **kw):
     """Softmax over ``axis``; with ``length`` only the first
     ``length[...]`` entries of each row take part."""

@@ -6,11 +6,15 @@
   the reference's rules, checkpoint and fingerprint;
 - :mod:`.mesh` — ``make_mesh``/``P`` over one device;
 - :mod:`.moe` — ``MoEFFN`` and its routing;
-- :mod:`.integrity` — the state fingerprints.
+- :mod:`.integrity` — the state fingerprints;
+- :mod:`.fleet` / :mod:`.fleet_obs` — elastic fleet membership (the
+  file store, ``Fleet``, ``MembershipChange``, ``reshard_live``) and its
+  cross-rank observability.
 
 Ring/Ulysses sequence parallelism, pipelines and every mesh of more than
 one device are not ported yet (ROADMAP A item 9).
 """
+from .fleet import Fleet, MembershipChange, reshard_live
 from .mesh import Mesh, NamedSharding, P, hybrid_mesh, local_mesh, make_mesh
 from .moe import MoEFFN, moe_sharding_rules
 from .ring_attention import attention, dispatch_counts, local_flash_attention
@@ -20,4 +24,5 @@ from .train_step import (CompiledTrainStep, apply_rules, fsdp_rules,
 __all__ = ["attention", "local_flash_attention", "dispatch_counts",
            "CompiledTrainStep", "apply_rules", "fsdp_rules", "sharding_for",
            "Mesh", "NamedSharding", "P", "make_mesh", "local_mesh",
-           "hybrid_mesh", "MoEFFN", "moe_sharding_rules"]
+           "hybrid_mesh", "MoEFFN", "moe_sharding_rules", "Fleet",
+           "MembershipChange", "reshard_live"]

@@ -33,9 +33,10 @@ the supervisor's loop cursor, the numeric sentinel's ledger and the
 integrity monitor's fingerprint history.  The native image pipeline's
 iterators have no ``state_dict`` and are refused at construction.
 
-This build writes ``tpu_mx-capsule-v2`` and reads v1 and v2.  A capsule
-of a sharded world (elastic fleets) is ROADMAP A item 8b; ``fleet=``
-raises, and ``ModuleState`` (a Module's state) is item 10.
+This build writes ``tpu_mx-capsule-v2`` and reads v1 and v2; with an
+elastic fleet attached (``fleet=``) the ``world`` map records this
+worker's rank and world size in the fleet's adopted epoch and that
+generation.  ``ModuleState`` (a Module's state) is ROADMAP A item 10.
 
 Telemetry: ``resume.capsules_written{kind}``,
 ``resume.capsule_restore_seconds`` and the ``resume.resume_step_gap``
@@ -54,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from .base import MXNetError, refuse_unported
+from .base import MXNetError
 from . import checkpoint as _ckpt
 from . import random as _random
 from . import telemetry as _telemetry
@@ -217,16 +218,17 @@ class CapsuleManager:
     resume and recovery falls back to the epoch boundary.
     ``interval`` — committed steps between step capsules (0 = epoch
     capsules only).
-    ``fleet`` — an elastic fleet, ROADMAP A item 8b (raises); the
-    capsule's ``world`` map is derived from the registered iterators'
-    shard placement.
+    ``fleet`` — optional :class:`tpu_mx_torch.parallel.fleet.Fleet`; when
+    set, the capsule's ``world`` map records this worker's (rank,
+    num_workers) and the fleet generation it was captured under
+    (otherwise the map is derived from the registered iterators' shard
+    placement).
 
     Wire it to a supervisor with ``Supervisor(capsule=mgr)`` /
     ``sup.attach_capsule(mgr)``; the supervisor calls :meth:`on_step` /
     :meth:`on_epoch` / :meth:`restore` at the right points."""
 
     def __init__(self, prefix, iters=(), state=None, interval=0, fleet=None):
-        refuse_unported("CapsuleManager", "A item 8b", fleet=(fleet, None))
         if not prefix:
             raise MXNetError("CapsuleManager needs a checkpoint prefix")
         self.prefix = prefix
@@ -253,8 +255,18 @@ class CapsuleManager:
     # -- capture ------------------------------------------------------------
     def _world(self):
         """The (rank, num_workers, generation) this capsule is captured
-        under, from the registered iterators' shard placement
-        (unsharded pipelines record the static 1-worker world)."""
+        under — from the fleet when attached, else from the registered
+        iterators' shard placement (unsharded pipelines record the static
+        1-worker world)."""
+        if self.fleet is not None:
+            rank = 0
+            try:
+                rank = self.fleet.shard()[0]
+            except MXNetError:
+                pass  # controller-only handles have no member slot
+            return {"num_workers": max(1, self.fleet.acked_world_size),
+                    "rank": int(rank),
+                    "generation": int(self.fleet.acked_generation)}
         n = max([int(getattr(it, "num_workers", 1))
                  for it in self.iters] or [1])
         ranks = [int(getattr(it, "rank", 0)) for it in self.iters

@@ -35,8 +35,9 @@
 
 The sentinel reads the step's loss — on the card a 0-d CUDA tensor —
 inside the watchdog thread: that read is the supervised step's one
-device-to-host synchronization.  Elastic fleets (``fleet=``) are ROADMAP
-A item 8b and raise; ``for_module`` needs ``module/`` (item 10).
+device-to-host synchronization.  With an elastic fleet (``fleet=``) the
+step boundary is also the membership quiesce point; ``for_module``
+needs ``module/`` (ROADMAP A item 10).
 
 Usage, around a ``CompiledTrainStep``::
 
@@ -63,7 +64,7 @@ import threading
 import time
 from collections import deque
 
-from .base import MXNetError, refuse_unported
+from .base import MXNetError
 from . import telemetry as _telemetry
 from . import tracing as _tracing
 from .contrib.chaos import ChaosCrash
@@ -388,8 +389,14 @@ class Supervisor:
 
     ``integrity`` (a ``parallel.integrity.IntegrityMonitor``) runs its
     ``on_committed_step`` at every step boundary: a disagreeing
-    fingerprint vote raises ``DataCorruption`` there.  ``fleet`` (an
-    elastic fleet) is ROADMAP A item 8b and raises."""
+    fingerprint vote raises ``DataCorruption`` there.
+
+    ``fleet`` (a ``parallel.fleet.Fleet``): every step boundary runs the
+    fleet's duty cycle (``on_step``: heartbeat, chaos preemption,
+    membership check); a ``WorkerFailure`` while the membership epoch
+    moved is classified ``membership`` — ack the epoch, restore onto the
+    new world, ``note_reshard`` — without spending the restart budget;
+    a rank that finds itself corrupt quarantines itself in the fleet."""
 
     def __init__(self, save_fn=None, restore_fn=None, *, deadline=None,
                  compile_grace=120.0, max_restarts=3, max_rollbacks=3,
@@ -398,7 +405,6 @@ class Supervisor:
                  max_backoff=30.0, jitter=0.5, transient=None, resume=True,
                  seed=None, on_degraded=None, capsule=None, blackbox=None,
                  fleet=None, integrity=None):
-        refuse_unported("Supervisor", "A item 8b", fleet=(fleet, None))
         self.save_fn = save_fn
         self.restore_fn = restore_fn
         # the corruption defense (parallel/integrity.py): an
@@ -487,7 +493,12 @@ class Supervisor:
         reduce via mean), optionally ``(loss, grad_norm)``; None skips the
         numeric check.  Chaos's ``hang_step`` fires inside the watchdog
         thread (before ``fn``), ``nan_after`` poisons the observed loss,
-        and ``crash_at_step`` fires after the step commits."""
+        and ``crash_at_step`` fires after the step commits.
+
+        With a fleet attached, the step boundary is also the membership
+        quiesce point: ``fleet.on_step()`` beats the heartbeat, fires a
+        pending chaos preemption, and raises ``MembershipChange`` when
+        the membership epoch moved, so a reshard happens between steps."""
         from .contrib import chaos
 
         # stamp the trace context BEFORE anything can fail: every event
@@ -498,6 +509,8 @@ class Supervisor:
         _tracing.set_context(epoch=self._epoch,
                              step=self._step_in_epoch + 1,
                              generation=self.generation)
+        if self.fleet is not None:
+            self.fleet.on_step()
 
         def call():
             chaos.maybe_hang()
@@ -592,6 +605,15 @@ class Supervisor:
                     self.capsule.on_epoch(epoch, self)
             except BaseException as e:  # noqa: BLE001 — classified below
                 kind = classify(e, self.transient)
+                if (kind == "transient" and self.fleet is not None
+                        and isinstance(e, WorkerFailure)
+                        and self.fleet.poll_changed()):
+                    # a WorkerFailure while the membership epoch moved is
+                    # a fleet event, not a fault (the step-boundary
+                    # MembershipChange, or a dead peer's barrier): no
+                    # restart budget spent — re-entry needs a fresh
+                    # generation, so it cannot loop
+                    kind = "membership"
                 # the classification IS the supervisor's decision: it goes
                 # on the timeline under the FAILING step's trace context
                 # (the context advances only at the next step/epoch top,
@@ -607,19 +629,52 @@ class Supervisor:
                               "propagating (programming errors are not "
                               "retried): %s", type(e).__name__, epoch, e)
                     raise
-                if kind == "corruption":
+                if kind == "membership":
+                    from .parallel.fleet import note_reshard
+                    prev_world = self.fleet.acked_world_size
+                    ep_rec = self.fleet.ack()
+                    log.warning(
+                        "supervisor: membership epoch %d (world size "
+                        "%d -> %d, %s) — quiescing and resharding from "
+                        "the last verified manifest",
+                        ep_rec["generation"], prev_world,
+                        ep_rec["world_size"], ep_rec.get("reason"))
+                    # restore_fn rebuilds at fleet.shard()'s world size;
+                    # the capsule re-partitions the data stream from its
+                    # global cursor (capsule v2)
+                    epoch = self._restore(epoch)
+                    note_reshard(prev_world, ep_rec["world_size"],
+                                 source="manifest",
+                                 generation=ep_rec["generation"])
+                    self._dump_blackbox(
+                        f"membership epoch {ep_rec['generation']}: world "
+                        f"{prev_world} -> {ep_rec['world_size']} "
+                        f"({ep_rec.get('reason')}) — resharded, resuming "
+                        f"epoch {epoch}")
+                elif kind == "corruption":
                     self.corruptions += 1
                     _telemetry.counter("supervisor.corruptions").inc()
                     if getattr(e, "self_corrupt", False):
                         # THIS replica is the corrupt one (voted-out
                         # minority, or a self-attributed shadow-audit
-                        # mismatch): it exits loudly.  No retry:
-                        # re-running on bad silicon is how silent
-                        # corruption spreads.
+                        # mismatch): quarantine the rank permanently — the
+                        # fleet must never re-admit a flaky chip — and
+                        # exit loudly.  No retry: re-running on bad
+                        # silicon is how silent corruption spreads.
+                        if self.fleet is not None \
+                                and self.fleet.member is not None:
+                            try:
+                                self.fleet.quarantine(
+                                    self.fleet.member,
+                                    reason=str(e)[:300],
+                                    step=getattr(e, "step", 0))
+                            except Exception as qerr:  # noqa: BLE001
+                                log.error("supervisor: quarantine record "
+                                          "failed: %s", qerr)
                         log.error("supervisor: %s — this rank is "
-                                  "corrupt, exiting", e)
+                                  "quarantined, exiting", e)
                         self._dump_blackbox(
-                            f"{type(e).__name__}: {e} — rank exits "
+                            f"{type(e).__name__}: {e} — rank quarantined "
                             f"(self_corrupt)")
                         _telemetry.flush()
                         raise

@@ -137,6 +137,36 @@ KNOWN_EVENTS = {
                                "surface": "str"},
     "integrity.rollback": {"step": "int", "verified_step": "int",
                            "resume_epoch": "int"},
+    # the fusion engine (fusion.py): one event per executed flush
+    "fusion.flush": {"cause": "str", "ops": "int"},
+    # kvstore payload integrity (kvstore.py): a pulled aggregate failed
+    # its push-time checksum
+    "kvstore.checksum_fail": {"key": "str"},
+    # elastic fleet membership (parallel/fleet.py, tools/launch.py
+    # --supervise): `fleet.epoch` records a generation advance (who is in
+    # the world and why); join/leave/lost/rejoin are the per-member
+    # lifecycle; `fleet.reshard` a world-size transition through the
+    # load_state_dict seam (source=manifest after a fault, source=live
+    # for a planned change); restart_worker/degrade are the launcher's
+    # restart-budget decisions.  The fleet generation is a payload field;
+    # the context's `generation` stays the supervisor's restore count.
+    "fleet.epoch": {"generation": "int", "world_size": "int",
+                    "reason": "str"},
+    "fleet.join": {"member": "int", "generation": "int"},
+    "fleet.leave": {"member": "int", "generation": "int", "reason": "str"},
+    "fleet.lost": {"member": "int", "age_seconds": "float"},
+    "fleet.rejoin": {"member": "int", "generation": "int"},
+    "fleet.reshard": {"generation": "int", "from_world": "int",
+                      "to_world": "int", "source": "str"},
+    "fleet.restart_worker": {"member": "int", "n": "int",
+                             "backoff_seconds": "float"},
+    "fleet.degrade": {"world_size": "int", "reason": "str"},
+    # the persistent-straggler detector's state flip (parallel/
+    # fleet_obs.py): `rank` the straggler (-1: all clear), its mean
+    # per-step excess over the fastest rank, the dominant slow phase and
+    # the correlated steps the window judged
+    "fleet.straggler": {"rank": "int", "excess_seconds": "float",
+                        "phase": "str", "steps": "int"},
     # SLO breach transitions (serving/slo.py)
     "serve.slo": {"slo": "str", "breaching": "bool", "burn_rate": "float",
                   "estimate_seconds": "float", "attainment": "float",
@@ -171,6 +201,13 @@ _context = {
     "step": None,
     "generation": 0,
     "request": None,
+    # fleet identity: this process's fleet rank and the membership
+    # generation it adopted, stamped by parallel/fleet.py (None outside a
+    # fleet).  `fleet_generation` is the membership epoch; `generation`
+    # stays the supervisor's restore count.  parallel/fleet_obs.py
+    # correlates ranks' events on (epoch, step, fleet_generation).
+    "rank": None,
+    "fleet_generation": None,
 }
 
 
@@ -373,7 +410,8 @@ def reset():
         _ring.clear()
         _emitted = 0
         _dropped = 0
-        _context.update(epoch=None, step=None, generation=0, request=None)
+        _context.update(epoch=None, step=None, generation=0, request=None,
+                        rank=None, fleet_generation=None)
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +435,9 @@ def _nvcc():
 def _environment_fingerprint():
     """Where this process ran: enough to reproduce and attribute, nothing
     secret — the host, the Python and torch versions, CUDA's, the card's
-    name and ``nvcc``'s release."""
+    name (only where this process already uses the card: a black box
+    never initializes CUDA, so the launcher's stays off the card) and
+    ``nvcc``'s release."""
     env = {k: v for k, v in sorted(os.environ.items())
            if k.startswith(("TPUMX_", "CUDA_", "PYTORCH_"))}
     torch = sys.modules.get("torch")
@@ -405,8 +445,9 @@ def _environment_fingerprint():
     device = None
     if torch is not None and cuda is not None:
         try:
-            if torch.cuda.is_available():
-                device = torch.cuda.get_device_name(0)
+            if torch.cuda.is_initialized():
+                device = torch.cuda.get_device_name(
+                    torch.cuda.current_device())
         except Exception:
             device = None
     return {
