@@ -462,8 +462,8 @@ line each:
                  time.
 31. ``supervised_train`` — supervised, deterministically resumable
                  training (after ``crossover``): BERT-base at full width
-                 (bf16, dropout 0.1, LAMB with float32 masters, batch
-                 32 x 512) through ``CompiledTrainStep`` under
+                 and 6 of its 12 layers (bf16, dropout 0.1, LAMB with
+                 float32 masters, batch 32 x 512) through ``CompiledTrainStep`` under
                  ``Supervisor(capsule=CapsuleManager(prefix, iters=[it],
                  state=step, interval=2))`` with
                  ``elastic.save_checkpoint``/``auto_resume``, in fresh
@@ -526,6 +526,29 @@ line each:
                  ``FleetAggregator`` names rank 1 in ``data_wait``, the
                  fleet black box passes ``validate_fleet_section`` and
                  ``tpu_mx_torch/tools/fleet_report.py --validate``.
+35. ``mesh`` — two ranks that share the card (``python -m
+                 tpu_mx_torch.tools.launch -n 2``, gloo; collectives on
+                 CUDA tensors staged through the host at one counted
+                 place) run each parallel path on BERT-base (12
+                 layers, 768 units, 12 heads of 64, 3072 hidden,
+                 vocabulary 30522, T=512; float32, dropout 0; global
+                 batch cut to ``MESH_BATCH``): tp=2 with
+                 ``bert_sharding_rules``, sp=2 Ulysses, sp=2 ring,
+                 GPipe over pp=2 (a BERT-base encoder layer a stage, 4
+                 microbatches), FSDP dp=2 (Adam), fp8-compressed dp=2
+                 under ``accum_steps=2``, ep=2 on the BERT-base MoE (8
+                 experts, top-2).  Each against the same calls at world
+                 size 1 on the card (rank 0, same weights and global
+                 batch): losses within 1e-4, each parameter's change
+                 within 1e-2 in norm (the compressed run: against its
+                 plain compressed reference, which a control without
+                 the reduction and one without error feedback must
+                 miss, and its loss falls), the Ulysses and
+                 ring dispatch, the flash kernels' launches on each rank;
+                 step ms and host-staged bytes and ms by arm.  The
+                 operators phase also holds Gluon's two-pass BatchNorm
+                 (``TPUMX_BN_ONEPASS=0``, fault C21) on the card to the
+                 CPU port.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -4983,6 +5006,9 @@ def phase_moe_example(ctx):
 OPS_REPS = 20                   # cuda_ms medians of the operators phase
 OPS_F32_TOL = 1e-5              # card against CPU, x max|ref|
 OPS_STATS_TOL = 1e-4            # float32 statistics / products, x max|ref|
+# the two-pass BatchNorm at mean 20, spread 0.1: the mean/spread of 200
+# scales each device's rounding of the centred values (x max|ref|)
+BN_TWO_PASS_F32_TOL = 5e-4
 CTC_LOSS_RTOL = 1e-4
 CTC_GRAD_RTOL = 1e-3            # in norm
 CTC_SHAPE = dict(T=400, N=32, C=29, label_len=(40, 120), data_len=(300, 400))
@@ -5248,6 +5274,50 @@ def ops_batch_norm(oc, nd, autograd, rng):
     oc.check("batch_norm", "core_out", got[0], want[0], BF16_REL)
     oc.check("batch_norm", "core_mean", got[1], want[1], OPS_STATS_TOL)
     oc.check("batch_norm", "core_var", got[2], want[2], OPS_STATS_TOL)
+
+
+def ops_batch_norm_two_pass(oc, nd, autograd, rng):
+    """Gluon's ``BatchNorm`` in training under ``TPUMX_BN_ONEPASS=0``
+    (the reference's two-pass form, fault C21) on the card against the
+    CPU port: 32 x 28 x 28 x 64 channels-last at the large-mean input
+    (mean 20, spread 0.1), float32 and bfloat16; the output, the running
+    statistics and the input, gamma and beta gradients."""
+    torch = oc.torch
+    from tpu_mx_torch.gluon import nn
+    x0 = (20.0 + 0.1 * rng.randn(32, 28, 28, 64)).astype(np.float32)
+    head = rng.randn(32, 28, 28, 64).astype(np.float32)
+    prev = os.environ.get("TPUMX_BN_ONEPASS")
+    os.environ["TPUMX_BN_ONEPASS"] = "0"
+    try:
+        for dtype, tol in ((torch.float32, BN_TWO_PASS_F32_TOL),
+                           (torch.bfloat16, BF16_REL)):
+            group = f"batch_norm_two_pass_{str(dtype)[6:]}"
+            oc.groups[group] = {"shape": list(x0.shape), "axis": 3,
+                                "dtype": str(dtype)[6:],
+                                "TPUMX_BN_ONEPASS": "0"}
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                bn = nn.BatchNorm(axis=3, in_channels=64,
+                                  generator=torch.Generator())
+                bn.to(device=dev, dtype=dtype)
+                bn.train()
+                x = torch.from_numpy(x0).to(dev, dtype).requires_grad_()
+                y = bn(x)
+                (y.float() * torch.from_numpy(head).to(dev)).sum().backward()
+                runs[dev] = {"out": y, "running_mean":
+                             bn._buffers["running_mean"],
+                             "running_var": bn._buffers["running_var"],
+                             "dx": x.grad,
+                             "dgamma": bn._parameters["gamma"].grad,
+                             "dbeta": bn._parameters["beta"].grad}
+            for name in runs["cpu"]:
+                oc.check(group, name, runs["cuda"][name], runs["cpu"][name],
+                         tol)
+    finally:
+        if prev is None:
+            os.environ.pop("TPUMX_BN_ONEPASS", None)
+        else:
+            os.environ["TPUMX_BN_ONEPASS"] = prev
 
 
 def ops_masked_softmax(oc, nd, rng):
@@ -5677,7 +5747,9 @@ def phase_operators(ctx):
                       (ops_indexing, ()), (ops_masked_softmax, ()),
                       (ops_linalg, ()), (ops_patches, ()),
                       (ops_softmax_output, ()), (ops_ctc, ()),
-                      (ops_batch_norm, (autograd,)), (ops_rest, (mx,))):
+                      (ops_batch_norm, (autograd,)),
+                      (ops_batch_norm_two_pass, (autograd,)),
+                      (ops_rest, (mx,))):
         t1 = time.perf_counter()
         fn(oc, nd, *extra, rng)
         torch.cuda.empty_cache()
@@ -6409,7 +6481,8 @@ def phase_crossover(ctx):
     largest T at which dense wins in every case of both dtypes (and of
     every T below) is the measured default of ``TPUMX_DENSE_MAX_KV``."""
     import torch
-    from tpu_mx_torch.parallel import ring_attention as ra
+    import importlib
+    ra = importlib.import_module("tpu_mx_torch.parallel.ring_attention")
 
     t0 = time.perf_counter()
     reset_port_kernel_launches()
@@ -6627,6 +6700,7 @@ SUP_REPLICAS, SUP_REPLICA_LAYERS = 3, 2
 SUP_BITFLIP_STEP, SUP_BITFLIP_RANK = 3, 2
 SUP_PROFILE_STEPS = 2
 SUP_TIMED_STEPS = 3
+SUP_LAYERS = 6                        # of BERT-base's 12 (the script's time)
 
 SUPERVISED_CHILD = r'''
 import json, sys
@@ -6951,7 +7025,8 @@ def supervised_replicas(torch, cfg, work, fa_layers, device="cuda",
 
 def phase_supervised_train(ctx):
     """Supervised, deterministically resumable BERT-base training at full
-    width (bf16, dropout 0.1, LAMB with float32 masters, batch 32 x 512):
+    width, ``SUP_LAYERS`` deep (bf16, dropout 0.1, LAMB with float32
+    masters, batch 32 x 512):
     ``CompiledTrainStep`` under ``Supervisor(capsule=CapsuleManager(
     prefix, iters=[it], state=step, interval=2))`` with
     ``elastic.save_checkpoint``/``auto_resume``.  Runs A-D in fresh
@@ -6972,7 +7047,7 @@ def phase_supervised_train(ctx):
     from tpu_mx_torch.supervisor import Supervisor
 
     t_phase = time.perf_counter()
-    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    cfg = dict(bert_base_config(max_len=TRAIN_SEQ), num_layers=SUP_LAYERS)
     spec = supervised_spec(cfg)
     layers = cfg["num_layers"]
     _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
@@ -8030,6 +8105,427 @@ def phase_fleet(ctx):
             ctx["failures"].append(f"fleet check {name} failed")
 
 
+# the mesh phase: BERT-base (12 layers, 768 units, 12 heads of 64, 3072
+# hidden, vocabulary 30522, T=512), float32, dropout 0; the global batch
+# cut to MESH_BATCH (the phase's time: every arm runs twice, on the two
+# ranks and at world size 1)
+MESH_LAYERS, MESH_BATCH, MESH_STEPS = 12, 4, 3
+MESH_VALID = (384, 512)
+MESH_PP_MICRO = 4
+MESH_COMPRESSED_CALLS = 4        # accum_steps=2: two applied updates
+MESH_TIMEOUT = 600
+MESH_LOSS_RTOL = 1e-4            # each 2-rank loss against world size 1
+MESH_UPDATE_RTOL = 1e-2          # each parameter's change, in norm
+# the fp8 arm's parameter change against its plain compressed reference
+# (mesh_fp8_plain), in norm: sound runs and the controls lie on either
+# side of it
+MESH_COMPRESSED_RTOL = 1e-2
+
+
+def mesh_cfg():
+    from tpu_mx_torch.models import bert_base_config
+    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    cfg.update(num_layers=MESH_LAYERS, dropout=0.0)
+    return cfg
+
+
+def mesh_batch(torch, masked=False):
+    """The global batch every rank and the world-size-1 run take:
+    tokens, token types, ragged valid lengths and every position's label
+    (or, for the MoE objective, 76 masked positions and their labels)."""
+    rng = np.random.RandomState(21)
+    cfg = mesh_cfg()
+    b, t = MESH_BATCH, TRAIN_SEQ
+    valid = rng.randint(MESH_VALID[0], MESH_VALID[1] + 1, b)
+    if masked:
+        return [torch.from_numpy(a).to("cuda") for a in
+                bert_batch(cfg, b, t, TRAIN_MASKED, valid, rng)]
+    tokens = rng.randint(4, cfg["vocab_size"], (b, t))
+    types = rng.randint(0, 2, (b, t))
+    labels = rng.randint(0, cfg["vocab_size"], (b, t)).astype(np.float32)
+    return [torch.from_numpy(a).to("cuda")
+            for a in (tokens, types, valid, labels)]
+
+
+def mesh_bert_arm(torch, arm, mesh):
+    """One BERT arm's net and step (``mesh`` None: world size 1)."""
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss as gloss
+    from tpu_mx_torch.gluon.loss import PassThrough
+    from tpu_mx_torch.models import BERTModel
+    from tpu_mx_torch.models.bert import bert_sharding_rules
+    from tpu_mx_torch.parallel import CompiledTrainStep, P, fsdp_rules
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    if arm == "ep2_moe":
+        bert = BERTModel(mesh_cfg(), device="cuda", generator=gen,
+                         mesh=mesh, **MOE_ARGS)
+        net = moe_train_block(bert)
+        return net, CompiledTrainStep(
+            net, PassThrough(), optimizer.create("lamb", learning_rate=1e-4),
+            mesh=mesh, device="cuda")
+    net = BERTModel(mesh_cfg(), device="cuda", generator=gen, mesh=mesh)
+    specs = (P("dp", "sp"), P("dp", "sp"), P("dp"), P("dp", "sp"))
+    kw = {}
+    if arm == "tp2" and mesh is not None:
+        kw["rules"] = bert_sharding_rules()
+    if arm == "fsdp_dp2" and mesh is not None:
+        kw["rules"] = fsdp_rules(dict(net.named_parameters()),
+                                 axis_size=mesh.shape["dp"])
+    if arm == "fp8_dp2_accum2":
+        # the compressed reduction is over dp: the batch splits over dp only
+        specs = (P("dp"),) * 4
+        kw["accum_steps"] = 2
+        if mesh is not None:
+            kw["gradient_compression"] = {"type": "fp8"}
+    opt = optimizer.create("adam", learning_rate=1e-4) \
+        if arm == "fsdp_dp2" else optimizer.create("lamb", learning_rate=1e-4)
+    return net, CompiledTrainStep(net, gloss.SoftmaxCrossEntropyLoss(), opt,
+                                  mesh=mesh, data_specs=specs,
+                                  device="cuda", **kw)
+
+
+def mesh_pipeline_arm(torch, mesh):
+    """``pipeline_apply`` of two BERT-base encoder layers (one a stage,
+    ``torch.func.functional_call``), ``MESH_PP_MICRO`` microbatches of the
+    global batch's activations, SGD on the stacked parameters; ``mesh``
+    None: the two layers one after the other on the whole batch."""
+    from tpu_mx_torch.models.bert import TransformerLayer
+    from tpu_mx_torch.parallel import pipeline_apply, stack_stage_params
+    cfg = mesh_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    layer = TransformerLayer(cfg["units"], cfg["hidden_size"],
+                             cfg["num_heads"], dtype=torch.float32,
+                             generator=gen).to("cuda")
+    stages = []
+    for _ in range(2):
+        stages.append({k: (torch.randn(v.shape, generator=gen,
+                                       device="cuda") * 0.02
+                           if v.dim() > 1 else v.detach().clone())
+                       for k, v in layer.named_parameters()})
+    stacked = stack_stage_params(stages)
+    x = torch.randn(MESH_BATCH, TRAIN_SEQ, cfg["units"], generator=gen,
+                    device="cuda")
+    target = torch.randn(x.shape, generator=gen, device="cuda") * 0.5
+
+    def stage(params, h):
+        return torch.func.functional_call(layer, params, (h,))
+
+    def step(stacked):
+        for a in stacked.values():
+            a.requires_grad_()
+        if mesh is None:
+            y = x
+            for s in range(2):
+                y = stage({k: a[s] for k, a in stacked.items()}, y)
+        else:
+            y = pipeline_apply(stage, stacked, x, mesh,
+                               num_microbatches=MESH_PP_MICRO)
+        loss = ((y - target) ** 2).mean()
+        grads = torch.autograd.grad(loss, list(stacked.values()))
+        with torch.no_grad():
+            new = {k: (a - 0.5 * g).detach()
+                   for (k, a), g in zip(stacked.items(), grads)}
+        return loss.detach(), new
+    return stacked, step
+
+
+MESH_ARMS = (
+    # name, mesh axes, strategy, step() calls
+    ("tp2", {"dp": 1, "sp": 1, "tp": 2}, None, MESH_STEPS),
+    ("ulysses_sp2", {"dp": 1, "sp": 2}, "ulysses", MESH_STEPS),
+    ("ring_sp2", {"dp": 1, "sp": 2}, "ring", MESH_STEPS),
+    ("pipeline_pp2", {"pp": 2}, None, MESH_STEPS),
+    ("fsdp_dp2", {"dp": 2}, None, MESH_STEPS),
+    ("fp8_dp2_accum2", {"dp": 2}, None, MESH_COMPRESSED_CALLS),
+    ("ep2_moe", {"ep": 2}, None, MESH_STEPS),
+)
+
+
+def mesh_run(torch, arm, mesh, calls):
+    """``calls`` step() calls of one arm: losses, ms each (host clock to
+    the loss's read), and the parameters before and after."""
+    if arm == "pipeline_pp2":
+        stacked, step = mesh_pipeline_arm(torch, mesh)
+        before = {k: a.detach().clone() for k, a in stacked.items()}
+        losses, ms = [], []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, stacked = step(stacked)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms, before, stacked
+    net, step = mesh_bert_arm(torch, arm, mesh)
+    batch = mesh_batch(torch, masked=arm == "ep2_moe")
+    if arm == "ep2_moe":
+        batch = batch + [torch.zeros(1, device="cuda")]
+    before = {k: p.detach().clone() for k, p in net.named_parameters()}
+    losses, ms = [], []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step.step(*batch)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    after = {k: p.detach().clone() for k, p in net.named_parameters()}
+    del net, step
+    return losses, ms, before, after
+
+
+def mesh_update_rel_err(before, after, before1, after1):
+    """The worst parameter's ``|Δ − Δ1| / |Δ1|`` (changes in norm) of
+    a run against its reference run, and that parameter's name."""
+    worst, key = 0.0, None
+    for k in before:
+        d1 = after1[k] - before1[k]
+        n1 = float(d1.norm())
+        if n1 > 0:
+            dm = after[k] - before[k]
+            err = float((dm - d1).norm()) / n1
+            if err > worst:
+                worst, key = err, k
+    return worst, key
+
+
+def mesh_fp8_plain(torch, calls, variant):
+    """The fp8 arm's plain compressed reference on one rank, written out
+    from the semantics rather than through the step: each of the two dp
+    ranks' half of the global batch gives its gradient, accumulated over
+    ``accum_steps=2`` calls as ``g/2 + g/2``, quantized by
+    ``quantize_fp8_core`` with that rank's error feedback; the two are
+    averaged and LAMB applies the mean.  ``variant`` "sound" is that;
+    "own" drops rank 1's contribution (a reduction that does not reduce)
+    and "no_ef" drops the error feedback: the controls the gate must tell
+    from a sound run.  Returns the losses of the ``calls`` calls (the
+    mean of the ranks' mean losses) and the parameters before and
+    after."""
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.contrib.compression import quantize_fp8_core
+    from tpu_mx_torch.gluon import loss as gloss
+    net, _ = mesh_bert_arm(torch, "fp8_dp2_accum2", None)
+    params = {k: p for k, p in net.named_parameters()
+              if p.requires_grad and p.is_floating_point()}
+    before = {k: p.detach().clone() for k, p in net.named_parameters()}
+    opt = optimizer.create("lamb", learning_rate=1e-4)
+    states = {k: opt.create_state(i, p.detach())
+              for i, (k, p) in enumerate(params.items())}
+    efs = [{k: torch.zeros_like(p) for k, p in params.items()}
+           for _ in range(2)]
+    halves = [[b.chunk(2, 0)[r] for b in mesh_batch(torch)]
+              for r in range(2)]
+    loss_fn = gloss.SoftmaxCrossEntropyLoss()
+    net.train()
+    losses = []
+    for t in range(1, calls // 2 + 1):
+        deq, rank_losses = [], []
+        for r, (*data, labels) in enumerate(halves):
+            out = net(*data)
+            out = out[0] if isinstance(out, (tuple, list)) else out
+            loss = loss_fn(out, labels).float().mean()
+            grads = torch.autograd.grad(loss, list(params.values()))
+            rank_losses.append(float(loss))
+            d = {}
+            for k, g in zip(params, grads):
+                acc = g.float() / 2 + g.float() / 2
+                d[k], ef = quantize_fp8_core(
+                    acc, efs[r][k] if variant != "no_ef"
+                    else torch.zeros_like(acc))
+                efs[r][k] = ef
+            deq.append(d)
+        losses += [sum(rank_losses) / 2] * 2
+        with torch.no_grad():
+            for k, p in params.items():
+                g = deq[0][k] if variant == "own" \
+                    else (deq[0][k] + deq[1][k]) / 2
+                w, states[k] = opt.update_core(p.detach(), g.to(p.dtype),
+                                               states[k], opt.lr, opt.wd, t)
+                p.copy_(w)
+    after = {k: p.detach().clone() for k, p in net.named_parameters()}
+    del net, params, states, efs
+    return losses, before, after
+
+
+def mesh_child(spec):
+    """One of the two ranks of the ``mesh`` phase (under the port's
+    launcher; ``import tpu_mx_torch`` joined the gloo group): each arm of
+    ``MESH_ARMS`` on its 2-rank mesh, the kernels' launch counters set to
+    0 just before and read just after; then rank 0 runs the arm at world
+    size 1 on the same card, same weights and global batch, and compares
+    the losses and each parameter's change."""
+    import torch
+    import torch.distributed as dist
+    import tpu_mx_torch as mx
+    from tpu_mx_torch.parallel import (collectives, dispatch_counts,
+                                       make_mesh, set_sp_strategy)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    res = {"rank": rank, "backend": dist.get_backend(), "arms": {}}
+    with mx.gpu(torch.cuda.current_device()):
+        for arm, axes, strategy, calls in MESH_ARMS:
+            mesh = make_mesh(axes)
+            prev = set_sp_strategy(strategy or "ring")
+            counts0 = dict(dispatch_counts)
+            staged0 = collectives.host_staged_stats()
+            reset_port_kernel_launches()
+            try:
+                losses, ms, before, after = mesh_run(torch, arm, mesh, calls)
+            finally:
+                set_sp_strategy(prev)
+            torch.cuda.synchronize()
+            launches = port_kernel_launches()
+            staged = collectives.host_staged_stats()
+            out = dict(
+                losses=losses, step_ms=ms, launches=launches,
+                dispatch={k: dispatch_counts[k] - counts0[k]
+                          for k in dispatch_counts},
+                host_staged_bytes=staged["bytes"] - staged0["bytes"],
+                host_staged_ms=(staged["seconds"] - staged0["seconds"])
+                * 1e3, host_staged_calls=staged["calls"] - staged0["calls"])
+            dist.barrier()
+            if rank == 0 and arm == "fp8_dp2_accum2":
+                one, before1, after1 = mesh_fp8_plain(torch, calls, "sound")
+                out["control_update_rel_err"] = {}
+                for variant in ("own", "no_ef"):
+                    _, b, a = mesh_fp8_plain(torch, calls, variant)
+                    out["control_update_rel_err"][variant] = \
+                        mesh_update_rel_err(b, a, before1, after1)[0]
+                    del b, a
+            elif rank == 0:
+                one, _, before1, after1 = mesh_run(torch, arm, None, calls)
+            if rank == 0:
+                out["world1_losses"] = one
+                out["same_init"] = all(torch.equal(before[k], before1[k])
+                                       for k in before)
+                out["worst_update_rel_err"], out["worst_update_param"] = \
+                    mesh_update_rel_err(before, after, before1, after1)
+                del before1, after1
+            del before, after
+            torch.cuda.empty_cache()
+            dist.barrier()
+            res["arms"][arm] = out
+    with open(spec["out"] % rank, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def mesh_expected_launches(arm, calls):
+    """Each flash kernel's launches on one rank in an arm: one a layer a
+    call (the ring's blocks are plain PyTorch, as the reference's are;
+    the pipeline's stages run every tick, bubbles included)."""
+    if arm == "ring_sp2":
+        return 0
+    if arm == "pipeline_pp2":
+        return (MESH_PP_MICRO + 2 - 1) * calls
+    return MESH_LAYERS * calls
+
+
+def phase_mesh(ctx):
+    """Two ranks that share the card (the port's launcher, ``gloo``) run
+    each parallel path on BERT-base (``MESH_ARMS``): (a) tp=2 with
+    ``bert_sharding_rules`` (Megatron's split of the compute; the weights
+    stay whole on each rank), (b) sp=2 Ulysses, (c) sp=2 ring, (d) GPipe
+    over pp=2 with a BERT-base encoder layer a stage, (e) FSDP dp=2
+    (Adam) and an fp8-compressed dp=2 step under ``accum_steps=2``, (f)
+    ep=2 on the BERT-base MoE (8 experts, top-2).  Every rank computes on
+    the card; collectives on CUDA tensors are staged through the host
+    (``collectives._host_staged``).  Gates: each loss within
+    ``MESH_LOSS_RTOL`` and each parameter's change within
+    ``MESH_UPDATE_RTOL`` in norm of the world-size-1 run on the card (the
+    compressed arm: of its plain compressed reference,
+    ``mesh_fp8_plain``, within ``MESH_COMPRESSED_RTOL``, which its
+    controls must miss, and its loss must fall), the sp arms' dispatch,
+    and the flash kernels' launches on each rank."""
+    import tempfile
+    import torch
+    from tpu_mx_torch.kernels import _build
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="mesh-", dir=str(_build.BUILD_DIR.parent))
+    spec = dict(fn="mesh_child", out=os.path.join(work, "rank%d.json"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_mx_torch.tools.launch", "-n", "2",
+         sys.executable, "-c", WORKER_CHILD, json.dumps(spec)],
+        cwd=here, capture_output=True, text=True, timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for i in range(2):
+        path = spec["out"] % i
+        if os.path.exists(path):
+            with open(path) as f:
+                ranks.append(json.load(f))
+    checks = {"rc": r.returncode == 0, "two_ranks": len(ranks) == 2}
+    launches = dict.fromkeys(port_kernel_launches(), 0)
+    arms = {}
+    if len(ranks) == 2:
+        checks["gloo"] = all(x["backend"] == "gloo" for x in ranks)
+        for arm, axes, _, calls in MESH_ARMS:
+            a0, a1 = ranks[0]["arms"][arm], ranks[1]["arms"][arm]
+            one = a0["world1_losses"]
+            rel = [abs(x - y) / abs(y) for x, y in zip(a0["losses"], one)]
+            want = mesh_expected_launches(arm, calls)
+            row = dict(axes=axes, losses=[a0["losses"], a1["losses"]],
+                       world1_losses=one, loss_rel_err=max(rel),
+                       worst_update_rel_err=a0["worst_update_rel_err"],
+                       worst_update_param=a0["worst_update_param"],
+                       step_ms=[a0["step_ms"], a1["step_ms"]],
+                       step_ms_median=[statistics.median(x["step_ms"][1:])
+                                       for x in (a0, a1)],
+                       host_staged_bytes=[x["host_staged_bytes"]
+                                          for x in (a0, a1)],
+                       host_staged_ms=[x["host_staged_ms"] for x in (a0, a1)],
+                       host_staged_calls=[x["host_staged_calls"]
+                                          for x in (a0, a1)],
+                       dispatch=a0["dispatch"],
+                       launches=[x["launches"] for x in (a0, a1)],
+                       expected_flash_launches=want)
+            arms[arm] = row
+            for x in (a0, a1):
+                for name in launches:
+                    launches[name] += x["launches"][name]
+            checks[f"{arm}_ranks_agree"] = a0["losses"] == a1["losses"]
+            checks[f"{arm}_same_init"] = a0["same_init"]
+            checks[f"{arm}_finite"] = all(math.isfinite(v)
+                                          for v in a0["losses"])
+            if arm == "fp8_dp2_accum2":
+                # against the plain compressed reference; the controls
+                # (no reduction, no error feedback) must miss it
+                row["control_update_rel_err"] = a0["control_update_rel_err"]
+                checks[f"{arm}_loss"] = max(rel) <= MESH_LOSS_RTOL
+                checks[f"{arm}_loss_moved"] = a0["losses"][-1] \
+                    < a0["losses"][0]
+                checks[f"{arm}_updates"] = \
+                    a0["worst_update_rel_err"] <= MESH_COMPRESSED_RTOL
+                for variant, err in a0["control_update_rel_err"].items():
+                    checks[f"{arm}_control_{variant}_caught"] = \
+                        err > MESH_COMPRESSED_RTOL
+            else:
+                checks[f"{arm}_loss"] = max(rel) <= MESH_LOSS_RTOL
+                checks[f"{arm}_updates"] = \
+                    a0["worst_update_rel_err"] <= MESH_UPDATE_RTOL
+            checks[f"{arm}_flash_launches"] = all(
+                x["launches"][k] == want for x in (a0, a1)
+                for k in FLASH_KERNELS)
+        checks["ulysses_dispatched"] = \
+            arms["ulysses_sp2"]["dispatch"]["ulysses"] >= 1
+        checks["ring_dispatched"] = arms["ring_sp2"]["dispatch"]["ring"] >= 1
+    ctx["mesh_launches"] = launches
+    emit("mesh", ok=all(checks.values()), checks=checks, arms=arms,
+         ranks=2, backend="gloo (two ranks share the card; NCCL needs a "
+         "card a rank)", model={**mesh_cfg(), "dtype": "float32"},
+         cuts=dict(global_batch=f"{MESH_BATCH} x {TRAIN_SEQ} (the train "
+                   f"cell's {TRAIN_BATCH} x {TRAIN_SEQ})"),
+         steps=MESH_STEPS, launches=launches, wall_s=wall,
+         stderr=r.stderr[-3000:] if r.returncode else "",
+         seconds=time.perf_counter() - t_phase, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"mesh check {name} failed")
+
+
 def later_launches(ctx, name):
     """A kernel's launches in the MoE, example, operators, data and later
     phases."""
@@ -8037,7 +8533,8 @@ def later_launches(ctx, name):
             for p in ("moe_parity", "moe_train", "bert_example",
                       "moe_example", "operators", "data", "serve_arms",
                       "crossover", "quantize", "estimator",
-                      "supervised_train", "fusion", "kvstore", "fleet")}
+                      "supervised_train", "fusion", "kvstore", "fleet",
+                      "mesh")}
 
 
 def main():
@@ -8094,6 +8591,7 @@ def main():
                      ("fusion", phase_fusion),
                      ("kvstore", phase_kvstore),
                      ("fleet", phase_fleet),
+                     ("mesh", phase_mesh),
                      ("rtc", phase_rtc)):
         try:
             fn(ctx)
@@ -8121,7 +8619,7 @@ def main():
                                 "estimator_launches",
                                 "supervised_train_launches",
                                 "fusion_launches", "kvstore_launches",
-                                "fleet_launches"} \
+                                "fleet_launches", "mesh_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1

@@ -21,7 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from tpu_mx_torch.base import MXNetError
-from tpu_mx_torch.parallel import ring_attention as ra
+ra = importlib.import_module("tpu_mx_torch.parallel.ring_attention")
 
 jra = importlib.import_module("tpu_mx.parallel.ring_attention")
 TOL = 1e-5

@@ -27,7 +27,8 @@ from tpu_mx_torch.parallel import fleet_obs as obs
 from tpu_mx_torch.parallel.fleet import Fleet
 
 PORT_ONLY_METRICS = {"rnn.arm", "serve.forensic_dump_failures",
-                     "serve.prefill_attention"}
+                     "serve.prefill_attention", "mesh.host_staged_bytes",
+                     "mesh.host_staged_seconds"}
 
 
 @pytest.fixture(autouse=True)

@@ -427,7 +427,7 @@ def test_cpu_attention_arm_is_the_kernels_function():
     flash plain versions (explicit backward) compute the same function,
     dropout mask included — so a model trained on the CPU and on the card
     sees the same masks."""
-    from tpu_mx_torch.parallel import ring_attention as ra
+    from tpu_mx_torch.parallel.ring_attention import attention
     rng = np.random.RandomState(19)
     q, k, v = (torch.from_numpy(rng.randn(2, 2, 40, 16).astype(np.float32))
                for _ in range(3))
@@ -435,7 +435,7 @@ def test_cpu_attention_arm_is_the_kernels_function():
     vl = torch.tensor([40, 23], dtype=torch.int32)
     seed = torch.tensor([77], dtype=torch.int32)
     grads = []
-    for fn in (ra.attention, fa.mha_flash_attention):
+    for fn in (attention, fa.mha_flash_attention):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         out = fn(*leaves, valid_length=vl, dropout_rate=0.1,
                  dropout_seed=seed)
@@ -450,18 +450,29 @@ class _SpMesh:
     shape = {"dp": 1, "sp": 2}
 
 
-def test_attention_refuses_what_is_not_ported():
-    """Sequence parallelism over an ``sp`` mesh axis still raises; the
-    additive bias, once refused here, is now taken (a zero bias changes
-    nothing)."""
+def test_attention_refuses_what_is_not_ported(monkeypatch):
+    """Sequence parallelism over an ``sp`` mesh axis, once refused here,
+    is dispatched now: ring attention by default and where the heads do
+    not divide by ``sp``, Ulysses where asked and they do (their math
+    against the reference: ``tests/test_torch_mesh.py``); the additive
+    bias, once refused too, is taken (a zero bias changes nothing)."""
     from tpu_mx_torch.parallel import attention
+    ra = importlib.import_module("tpu_mx_torch.parallel.ring_attention")
+    uly = importlib.import_module("tpu_mx_torch.parallel.ulysses")
+    calls = []
+    monkeypatch.setattr(ra, "ring_attention",
+                        lambda q, *a, **k: calls.append("ring") or q)
+    monkeypatch.setattr(uly, "ulysses_attention",
+                        lambda q, *a, **k: calls.append("ulysses") or q)
     q = torch.from_numpy(np.random.RandomState(20).randn(1, 1, 8, 16)
                          .astype(np.float32))
-    with pytest.raises(MXNetError, match="A16"):
-        attention(q, q, q, mesh=_SpMesh())
-    for strategy in ("ring", "ulysses"):
-        with pytest.raises(MXNetError, match="A16"):
-            attention(q, q, q, mesh=_SpMesh(), sp_strategy=strategy)
+    q2 = torch.cat([q, q], dim=1)
+    attention(q2, q2, q2, mesh=_SpMesh())
+    attention(q2, q2, q2, mesh=_SpMesh(), sp_strategy="ulysses")
+    attention(q, q, q, mesh=_SpMesh(), sp_strategy="ulysses")   # 1 % 2
+    attention(q2, q2, q2, mesh=_SpMesh(), sp_strategy="ring")
+    assert calls == ["ring", "ulysses", "ring", "ring"]
+    monkeypatch.undo()
     out = attention(q, q, q, bias=torch.zeros((1, 1, 8, 8)))
     assert torch.equal(out, attention(q, q, q))
 

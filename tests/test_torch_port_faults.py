@@ -42,13 +42,14 @@ from tpu_mx_torch.base import MXNetError
 from tpu_mx_torch.gluon import loss as tloss
 from tpu_mx_torch.kernels import flash_attention as fa
 from tpu_mx_torch.kernels import paged_attention as pa
-from tpu_mx_torch.parallel import ring_attention as ra
+ra = importlib.import_module("tpu_mx_torch.parallel.ring_attention")
 from tpu_mx_torch.serving import attention as sattn
 from tpu_mx_torch.serving import Server, TinyLM
 
 jra = importlib.import_module("tpu_mx.parallel.ring_attention")
 # each arm of the port's dispatch_counts by its name in the reference's
-REFERENCE_ARMS = {"flash_kernel": "pallas_flash", "dense": "xla_dense"}
+REFERENCE_ARMS = {"flash_kernel": "pallas_flash", "dense": "xla_dense",
+                  "ring": "ring", "ulysses": "ulysses"}
 # a journal prefix in a directory of its own (the journal opens its file)
 _JOURNAL = os.path.join(tempfile.mkdtemp(prefix="port-faults-"), "serve")
 _JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,

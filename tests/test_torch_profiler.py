@@ -158,7 +158,8 @@ def test_exposition_is_the_references():
 def test_the_catalog_and_the_fleet_stamp_are_the_references():
     assert jtelemetry.KNOWN_METRICS <= telemetry.KNOWN_METRICS
     assert telemetry.KNOWN_METRICS - jtelemetry.KNOWN_METRICS == {
-        "rnn.arm", "serve.prefill_attention", "serve.forensic_dump_failures"}
+        "rnn.arm", "serve.prefill_attention", "serve.forensic_dump_failures",
+        "mesh.host_staged_bytes", "mesh.host_staged_seconds"}
     for tel in (telemetry, jtelemetry):
         tel.set_fleet_identity(rank=3, generation=7)
         tel.counter("supervisor.rollbacks").inc()

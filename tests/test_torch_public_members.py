@@ -33,7 +33,6 @@ def _item(n, what):
     return f"ROADMAP A item {n} ({what})"
 
 
-_ITEM9 = _item(9, "multi-device parallel")
 _ITEM10 = _item(10, "graph API and the long tail")
 
 ALLOWED = {
@@ -41,8 +40,6 @@ ALLOWED = {
         JAX + "the jax Device of a context; the port's is torch_device",
     ("tpu_mx_torch.parallel.train_step", "CompiledTrainStep.aot_compiled"):
         JAX + "the step's ahead-of-time compiled XLA program",
-    ("tpu_mx_torch.parallel.train_step", "CompiledTrainStep.place"):
-        JAX + "device_put onto the mesh's shardings",
     ("tpu_mx_torch.initializer", "Initializer.device_sample"):
         JAX + "a draw from a jax PRNG key on the device; the port draws "
         "from torch.Generators",
@@ -73,7 +70,6 @@ ALLOWED = {
         _ITEM10 + ": it wires a Supervisor to a Module (module/)",
     ("tpu_mx_torch.resume", "ModuleState"):
         _ITEM10 + ": a Module's state for the capsule's sidecar (module/)",
-    ("tpu_mx_torch.parallel.ring_attention", "ring_attention"): _ITEM9,
     ("tpu_mx_torch.autograd", "get_symbol"): _ITEM10,
     ("tpu_mx_torch.base", "Registry"): _ITEM10,
     ("tpu_mx_torch.base", "check"): _ITEM10,

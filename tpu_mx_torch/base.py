@@ -14,7 +14,7 @@ import logging
 import numbers
 
 __all__ = ["MXNetError", "NumericDivergence", "refuse_unported",
-           "dist_boot"]
+           "dist_boot", "backend_for"]
 
 logger = logging.getLogger("tpu_mx_torch")
 string_types = (str,)
@@ -51,16 +51,29 @@ def refuse_unported(owner, item, **args):
 DIST_TIMEOUT_SECONDS = 300
 
 
+def backend_for(device_type, ranks_per_card):
+    """The collective backend, a pure function of where the ranks
+    compute: ``"nccl"`` for CUDA ranks that own a card each, ``"gloo"``
+    (host memory) for host processes and for ranks that share a card,
+    which NCCL refuses."""
+    return "nccl" if device_type == "cuda" and ranks_per_card == 1 \
+        else "gloo"
+
+
 def dist_boot():
     """Join the multi-process collective group from the launcher's
     environment (``tpu_mx_torch.tools.launch``: ``TPUMX_COORDINATOR``
     host:port of rank 0, ``TPUMX_NUM_PROC``, ``TPUMX_PROC_ID``), as the
     reference's ``dist_boot`` joins ``jax.distributed``.  The group is
-    ``torch.distributed`` over ``gloo``, through host memory: ranks may
-    share one card, which NCCL refuses.  Each rank leaves the group at
-    exit, so its threads are joined before the interpreter tears down
-    (left to the teardown, a rank could abort there).  Returns True iff
-    this process is in a group of that size."""
+    ``torch.distributed`` over ``gloo``, through host memory: the join
+    comes at import, before a rank has chosen where it computes, and the
+    group's own users (the ``dist_*`` kvstore, meshes of host ranks)
+    hand it host tensors.  A mesh whose ranks compute on cards of their
+    own makes its groups over :func:`backend_for` of their devices
+    (``parallel.mesh``).  Each rank leaves the group at exit, so its
+    threads are joined before the interpreter tears down (left to the
+    teardown, a rank could abort there).  Returns True iff this process
+    is in a group of that size."""
     import os
     coord = os.environ.get("TPUMX_COORDINATOR")
     if not coord:

@@ -4,9 +4,9 @@ Each core takes a gradient and its error-feedback residual and returns
 ``(dequantized_gradient, new_residual)``: the value a worker's reduction
 would carry after quantizing ``grad + residual``, and what the rounding
 left behind for the next step.  :class:`GradientCompression` is the
-kvstore's round trip (``KVStore.set_gradient_compression``); the step's
-compressed reduction needs a mesh with a ``dp`` axis above 1 (ROADMAP A
-item 9).
+kvstore's round trip (``KVStore.set_gradient_compression``); the cores
+are also the train step's compressed ``dp`` reduction
+(``CompiledTrainStep(gradient_compression=)`` over a mesh).
 """
 from __future__ import annotations
 

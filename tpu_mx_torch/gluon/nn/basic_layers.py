@@ -18,6 +18,7 @@ block's.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -139,6 +140,9 @@ class BatchNorm(HybridBlock):
             gamma = torch.ones_like(gamma)
         if not self._center:
             beta = torch.zeros_like(beta)
+        if os.environ.get("TPUMX_BN_ONEPASS", "1") != "1":
+            return self._legacy_forward(x, gamma, beta, running_mean,
+                                        running_var, red, shape)
         acc = torch.promote_types(x.dtype, torch.float32)
         if self.training and not self._use_global_stats:
             n = math.prod(x.shape[i] for i in red)
@@ -166,6 +170,28 @@ class BatchNorm(HybridBlock):
         bias = beta.to(acc) - mean * scale
         return torch.addcmul(bias.to(x.dtype).view(shape), x,
                              scale.to(x.dtype).view(shape))
+
+    def _legacy_forward(self, x, gamma, beta, running_mean, running_var,
+                        red, shape):
+        """The reference's two-pass form (``TPUMX_BN_ONEPASS`` set to
+        anything but ``"1"``, read every call): ``mean``, then
+        ``var = mean((x - mean)²)``, both in ``x``'s dtype (a bfloat16
+        mean is summed in float32 and rounded once, as ``jnp.mean``
+        does), the running statistics ``m·rs + (1 - m)·stat`` in the
+        promoted dtype of the two, and the normalization unfolded:
+        ``(x - mean)·rsqrt(var + eps)·gamma + beta``."""
+        if self.training and not self._use_global_stats:
+            mean = x.mean(dim=red)
+            var = (x - mean.view(shape)).square().mean(dim=red)
+            with torch.no_grad():
+                m = self._momentum
+                for rs, stat in ((running_mean, mean), (running_var, var)):
+                    rs.copy_(m * rs + (1 - m) * stat)
+        else:
+            mean, var = running_mean, running_var
+        inv = torch.rsqrt(var.view(shape) + self._eps)
+        return (x - mean.view(shape)) * inv * gamma.view(shape) \
+            + beta.view(shape)
 
 
 class LayerNorm(HybridBlock):

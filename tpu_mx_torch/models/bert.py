@@ -17,9 +17,24 @@ dropout seed) comes from the model's explicit ``torch.Generator``.
 (the FFN a :class:`~tpu_mx_torch.parallel.moe.MoEFFN`), and the forward
 then returns ``(logits, aux)``; ``remat=True`` recomputes each
 transformer layer in the backward (``HybridBlock.remat``, with
-``remat_policy`` a name of ``jax.checkpoint_policies``).  A mesh is
-accepted at world size 1 (``parallel.make_mesh``); the sharding rules
-and data specs are the reference's, over the port's ``P``.
+``remat_policy`` a name of ``jax.checkpoint_policies``).
+
+On a mesh (``parallel.make_mesh``; the sharding rules and data specs are
+the reference's, over the port's ``P``), inside the train step's SPMD
+region the layers split their work as the reference's rules lay the
+weights out: over ``tp`` (Megatron) a rank computes its ``H/tp`` heads —
+the ``qkv`` rows of its heads, the ``attnout`` columns of its heads, its
+``ffn1`` rows and ``ffn2`` columns (``collectives.take``), the
+replicated input entering by ``copy_to`` and the partial outputs summed
+by ``psum`` before the biases.  This is Megatron's split of the compute,
+not of the weights: every rank holds each weight whole, and ``take``'s
+backward all-reduces a whole-size gradient over ``tp``, so tp saves no
+weight or gradient memory and moves the weights' size a step (Megatron
+keeps the rank's block and needs no gradient collective; ROADMAP A item
+9b).  Over ``sp`` a rank holds ``T/sp``
+positions, reads its slice of the position embeddings, and attends by
+ring or Ulysses attention (``parallel.attention``).  Outside a region
+the model computes the whole function on whole tensors.
 """
 from __future__ import annotations
 
@@ -35,6 +50,7 @@ from ..gluon.block import (HybridBlock, as_dtype, load_numpy,
 from ..gluon.nn import Dense, Dropout, LayerNorm
 from ..ndarray import ops
 from ..parallel import attention as _attention
+from ..parallel import collectives as _coll
 from ..parallel.mesh import P
 from ..parallel.moe import MoEFFN
 
@@ -85,11 +101,22 @@ class SelfAttention(HybridBlock):
 
     def forward(self, x, valid_length=None):
         b, t, u = x.shape
-        h = self._heads
-        qkv = ops.FullyConnected(x, self.qkv_weight, self.qkv_bias,
-                                 flatten=False)               # (B,T,3U)
-        q, k, v = qkv.reshape(b, t, 3, h, u // h).permute(2, 0, 3, 1, 4) \
-            .unbind(0)                                           # (B,H,T,D)
+        mesh, tp, r = _coll.split_over("tp")
+        h, d = self._heads // tp, u // self._heads
+        wq, bq = self.qkv_weight, self.qkv_bias
+        wo = self.attnout_weight
+        if tp > 1:
+            # this rank's heads: rows [r·h·d, (r+1)·h·d) of each of q, k, v
+            # and the same columns of the output projection
+            own = torch.arange(r * h * d, (r + 1) * h * d, device=x.device)
+            rows = torch.cat([own + i * u for i in range(3)])
+            wq = _coll.take(wq, mesh, "tp", 0, rows)
+            bq = _coll.take(bq, mesh, "tp", 0, rows)
+            wo = _coll.take(wo, mesh, "tp", 1, own)
+            x = _coll.copy_to(x, mesh, "tp")
+        qkv = ops.FullyConnected(x, wq, bq, flatten=False)      # (B,T,3hd)
+        q, k, v = qkv.reshape(b, t, 3, h, d).permute(2, 0, 3, 1, 4) \
+            .unbind(0)                                           # (B,h,T,D)
         # attention-probability dropout in training only, one seed a call
         rate = self._dropout if self.training else 0.0
         seed = _random.take_seed(self._generator).to(x.device) \
@@ -97,9 +124,32 @@ class SelfAttention(HybridBlock):
         out = _attention(q, k, v, mesh=self._mesh, causal=False,
                          valid_length=valid_length, dropout_rate=rate,
                          dropout_seed=seed)
-        out = out.transpose(1, 2).reshape(b, t, u)
-        return ops.FullyConnected(out, self.attnout_weight, self.attnout_bias,
-                                  flatten=False)
+        out = out.transpose(1, 2).reshape(b, t, h * d)
+        if tp == 1:
+            return ops.FullyConnected(out, wo, self.attnout_bias,
+                                      flatten=False)
+        part = ops.FullyConnected(out, wo, None, no_bias=True, flatten=False)
+        return _coll.psum(part, mesh, "tp") + self.attnout_bias
+
+
+def _ffn(x, w1, b1, w2, b2):
+    """``gelu(x·w1ᵀ + b1)·w2ᵀ + b2``; over ``tp`` a rank takes its block
+    of the hidden units (rows of ``w1``/``b1``, columns of ``w2``) and
+    the partial products are summed before ``b2`` (Megatron's column-
+    then row-parallel pair)."""
+    mesh, tp, r = _coll.split_over("tp")
+    if tp == 1:
+        h = ops.gelu(ops.FullyConnected(x, w1, b1, flatten=False))
+        return ops.FullyConnected(h, w2, b2, flatten=False)
+    n = w1.shape[0] // tp
+    own = torch.arange(r * n, (r + 1) * n, device=x.device)
+    x = _coll.copy_to(x, mesh, "tp")
+    h = ops.gelu(ops.FullyConnected(x, _coll.take(w1, mesh, "tp", 0, own),
+                                    _coll.take(b1, mesh, "tp", 0, own),
+                                    flatten=False))
+    part = ops.FullyConnected(h, _coll.take(w2, mesh, "tp", 1, own), None,
+                              no_bias=True, flatten=False)
+    return _coll.psum(part, mesh, "tp") + b2
 
 
 class TransformerLayer(HybridBlock):
@@ -125,10 +175,8 @@ class TransformerLayer(HybridBlock):
         if self.dropout is not None:
             att = self.dropout(att)
         x = self.ln1(x + att)
-        h = ops.gelu(ops.FullyConnected(x, self.ffn1_weight, self.ffn1_bias,
-                                        flatten=False))
-        h = ops.FullyConnected(h, self.ffn2_weight, self.ffn2_bias,
-                               flatten=False)
+        h = _ffn(x, self.ffn1_weight, self.ffn1_bias, self.ffn2_weight,
+                 self.ffn2_bias)
         if self.dropout is not None:
             h = self.dropout(h)
         return self.ln2(x + h)
@@ -199,9 +247,11 @@ class BERTEncoder(HybridBlock):
 
     def forward(self, tokens, token_types, valid_length=None):
         t = tokens.shape[1]
+        # over sp a rank holds positions [i·t, (i+1)·t)
+        _, _, sp_index = _coll.split_over("sp")
         x = ops.Embedding(tokens, self.word_embed_weight)
         x = x + ops.Embedding(token_types, self.type_embed_weight)
-        x = x + self.pos_embed_weight[:t][None]
+        x = x + self.pos_embed_weight[sp_index * t:(sp_index + 1) * t][None]
         x = self.ln(x)
         if self.dropout is not None:
             x = self.dropout(x)
@@ -268,6 +318,10 @@ class BERTModel(HybridBlock):
         else:
             x = self.encoder(tokens, token_types, valid_length)
         if masked_positions is not None:
+            if _coll.split_over("sp")[1] > 1:
+                raise ValueError("BERTModel: masked_positions index the "
+                                 "whole sequence; over an sp axis pass "
+                                 "None and label every position")
             # project ONLY the masked positions through the vocab head
             idx = masked_positions.long()[..., None].expand(-1, -1,
                                                             x.shape[-1])

@@ -24,8 +24,12 @@ only the zero row, which every empty slot and dropped token reads,
 takes more, and its gradient is dropped).
 
 The expert weights are stacked on a leading ``E`` axis, as in the
-reference; :func:`moe_sharding_rules` returns its ``ep`` rules (the
-port's mesh is one device, so they place nothing).
+reference; :func:`moe_sharding_rules` returns its ``ep`` rules.  Inside
+the train step's SPMD region over a mesh with an ``ep`` axis, a rank
+computes its ``E/ep`` experts (``collectives.take`` of their weights;
+the routing, the gates and the auxiliary term are the same on every
+rank) and the partial outputs are summed over ``ep``: the layer's
+function is the one-device one.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import torch
 
 from ..gluon.block import HybridBlock
 from ..ndarray import ops
+from . import collectives as _coll
 from .mesh import P
 
 __all__ = ["MoEFFN", "moe_sharding_rules", "moe_route"]
@@ -96,11 +101,25 @@ def moe_route(probs, top_k, capacity):
 
 def _moe_forward(x, gw, w1, b1, w2, b2, *, top_k, capacity, act):
     """Routing and expert compute on flattened tokens ``(S, U)``; returns
-    ``(y, aux)``, ``y`` in ``x``'s dtype and ``aux`` float32."""
+    ``(y, aux)``, ``y`` in ``x``'s dtype and ``aux`` float32.  Over
+    ``ep`` (module docstring) the rank's experts run and the outputs
+    are summed over the axis."""
     s, u = x.shape
-    e = w1.shape[0]
+    e = gw.shape[0]
     probs = torch.softmax(x.float() @ gw.float().t(), dim=-1)   # (S, E)
     experts, slots, kept, gates = moe_route(probs, top_k, capacity)
+    mesh, ep, r = _coll.split_over("ep")
+    lo, hi = r * (e // ep), (r + 1) * (e // ep)
+    if ep > 1:
+        own = torch.arange(lo, hi, device=x.device)
+        w1, b1, w2, b2 = (_coll.take(w, mesh, "ep", 0, own)
+                          for w in (w1, b1, w2, b2))
+        # the same tokens and gates on every rank, each read by its own
+        # experts: their gradients are summed over ep
+        x_in = _coll.copy_to(x, mesh, "ep")
+        gates = [_coll.copy_to(g, mesh, "ep") for g in gates]
+    else:
+        x_in = x
     # each kept (round, token) at row expert·C + slot of the experts'
     # inputs; empty rows read the zero row S
     flat = [torch.where(k, i * capacity + sl.long(), e * capacity)
@@ -112,16 +131,22 @@ def _moe_forward(x, gw, w1, b1, w2, b2, *, top_k, capacity, act):
         src = src.index_put((f,), tokens)
     # index_select, not advanced indexing: its backward adds into rows
     # (at most k a row that counts), where indexing's sorts every index
-    x_pad = torch.cat([x, x.new_zeros(1, u)])
-    expert_in = x_pad.index_select(0, src[:-1]).view(e, capacity, u)
+    x_pad = torch.cat([x_in, x_in.new_zeros(1, u)])
+    expert_in = x_pad.index_select(0, src[lo * capacity:hi * capacity]) \
+        .view(hi - lo, capacity, u)
     h = torch.baddbmm(b1[:, None, :].to(x.dtype), expert_in,
                       w1.transpose(1, 2))                        # (E, C, H)
     h = act(h)
     eo = torch.baddbmm(b2[:, None, :].to(x.dtype), h,
                        w2.transpose(1, 2))                       # (E, C, U)
-    eo_pad = torch.cat([eo.reshape(e * capacity, u), eo.new_zeros(1, u)])
+    # the other ranks' experts' rows read zeros here
+    eo_pad = torch.cat([eo.new_zeros(lo * capacity, u),
+                        eo.reshape((hi - lo) * capacity, u),
+                        eo.new_zeros((e - hi) * capacity + 1, u)])
     y = sum(g.to(x.dtype).float()[:, None] * eo_pad.index_select(0, f)
             .float() for g, f in zip(gates, flat))
+    if ep > 1:
+        y = _coll.psum(y, mesh, "ep")
     frac = _one_hot(experts[0], e, torch.float32).mean(0)
     aux = e * torch.sum(frac * probs.mean(0))
     return y.to(x.dtype), aux.float()

@@ -1,4 +1,5 @@
-"""Attention dispatch: the mesh-less arms of ``tpu_mx/parallel/ring_attention.py``.
+"""Attention dispatch and ring attention, from
+``tpu_mx/parallel/ring_attention.py``.
 
 ``attention`` is what models call.  :func:`attention_arm` picks the arm,
 a pure function of the device type, head dim, dtype, the
@@ -34,8 +35,29 @@ everywhere.
 
 Each distinct call signature is counted once in ``dispatch_counts``
 under its arm.  Both arms take the additive ``(B|1, H|1, T|1, Tk)``
-bias (ALiBi, relative positions), with its gradient.  Sequence
-parallelism over a mesh's ``sp`` axis (ring, Ulysses) is not ported yet.
+bias (ALiBi, relative positions), with its gradient.
+
+**Sequence parallelism.**  With a mesh whose ``sp`` axis is longer than
+1, ``attention`` takes the reference's strategies (``ulysses`` where the
+heads divide by ``sp`` and ``tp`` is 1, else ``ring``; counted under
+``ring``/``ulysses``).  :func:`ring_attention` is the reference's: each
+rank holds a ``T/sp`` block of q, k and v, the k/v blocks travel the
+ring by :func:`~.collectives.ppermute` in ``sp`` steps, and each step
+merges its block's online-softmax statistics (row max, denominator,
+numerator) into float32 carries; causal masking, ``valid_length`` and
+the bias's column slice follow the global position of the block held,
+and ``step_chunk`` cuts each step's ``(T/sp, T/sp)`` scores into
+``(T/sp, C)`` pieces.  Each block is computed by the plain
+:func:`_block_attn`, as the reference computes it by its own plain
+``_block_attn`` and not by its Pallas kernel: the card runs the ring in
+PyTorch operations.  Dropout draws the kernels' keep mask at the global
+(q, k) positions with a seed folded with the rank's index along every
+axis the q spec shards over, so shards that differ only in ``dp`` or
+``tp`` draw different masks.  Outside a :func:`~.collectives.spmd`
+region q/k/v are the reference's global ``(B, H, T, D)`` arrays (the
+same on every rank) and so is the result; inside one (the train step
+on a mesh) they are the rank's blocks, and a ``DTensor`` is taken by
+its local block and returned as one.
 """
 from __future__ import annotations
 
@@ -45,17 +67,19 @@ import os
 
 import torch
 
-from ..base import MXNetError
 from ..kernels import flash_attention as _fa
+from . import collectives as _coll
+from .mesh import P
 
-__all__ = ["attention", "local_flash_attention", "attention_arm",
-           "attention_mode", "dispatch_counts", "DENSE_MAX_KV_DEFAULT"]
+__all__ = ["attention", "local_flash_attention", "ring_attention",
+           "attention_arm", "attention_mode", "dispatch_counts",
+           "DENSE_MAX_KV_DEFAULT"]
 
 _logger = logging.getLogger(__name__)
 
 # Which attention path each distinct call signature took, deduplicated by
 # (path, detail) as in the reference: a new shape or dtype counts once.
-dispatch_counts = {"flash_kernel": 0, "dense": 0}
+dispatch_counts = {"flash_kernel": 0, "dense": 0, "ring": 0, "ulysses": 0}
 _seen_signatures = set()
 
 #: the key length up to which ``TPUMX_ATTENTION=auto`` takes the dense arm
@@ -145,14 +169,15 @@ def _dense_mask(t, tk, causal, valid_length, device):
 
 
 def _block_attn(q, k, v, bias=None, mask=None, scale=1.0, dropout_rate=0.0,
-                dropout_seed=None):
-    """One q-block × k-block attention: ``(l, o)`` statistics, float32
-    (the reference also returns the row max ``m`` for the ring's merge,
-    which the port does not have).
+                dropout_seed=None, q_offset=0, k_offset=0):
+    """One q-block × k-block attention: ``(m, l, o)`` statistics, float32
+    (row max, floored at -1e30 where every key is masked, denominator,
+    numerator).
     q: (B, H, Tq, D), k/v: (B, H, Tk, D); bias: added (in float32) to the
     scaled scores before the mask; mask: bool, True = attend.
     Dropout hits only the V-accumulation (the denominator ``l`` stays
-    un-dropped); its mask is the flash kernels' (row ``bh = b*H + h``).
+    un-dropped); its mask is the flash kernels' (row ``bh = b*H + h``) at
+    query positions ``q_offset + i`` and key positions ``k_offset + j``.
     Unlike the reference's dense arm the probabilities stay float32 for
     the PV product, as in the port's kernels."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -169,11 +194,179 @@ def _block_attn(q, k, v, bias=None, mask=None, scale=1.0, dropout_rate=0.0,
         keep = _fa.dropout_keep_mask(
             torch.as_tensor(dropout_seed, device=dev).reshape(1),
             torch.arange(b * h, device=dev).reshape(b, h, 1, 1),
-            torch.arange(t, device=dev).reshape(1, 1, t, 1),
-            torch.arange(tk, device=dev).reshape(1, 1, 1, tk), dropout_rate)
+            (q_offset + torch.arange(t, device=dev)).reshape(1, 1, t, 1),
+            (k_offset + torch.arange(tk, device=dev)).reshape(1, 1, 1, tk),
+            dropout_rate)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
-    return l, o
+    return m_safe, l, o
+
+
+def _merge(m1, l1, o1, m2, l2, o2):
+    """Merge two online-softmax partial results."""
+    m = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m)
+    a2 = torch.exp(m2 - m)
+    return m, l1 * a1 + l2 * a2, o1 * a1[..., None] + o2 * a2[..., None]
+
+
+def fold_seed(seed, index):
+    """A ``(1,)`` int32 dropout seed mixed with an integer ``index`` on
+    the seed's device (the reference's ``fold_in``): equal inputs give
+    equal seeds, different indices different streams."""
+    s = torch.as_tensor(seed).reshape(1).to(torch.int64) & _fa._M32
+    h = _fa._fmix32(s ^ _fa._fmix32((s * 0 + int(index) + _fa._ROW_SALT
+                                     + 0x632BE5AB) & _fa._M32))
+    return (h & 0x7FFFFFFF).to(torch.int32)
+
+
+def _fold_axes(seed, mesh, axes):
+    for ax in axes:
+        seed = fold_seed(seed, mesh.axis_index(ax))
+    return seed
+
+
+def _ring_chunk(tb, prefer=1024):
+    """Each ring step's inner chunk: the per-step score block is
+    ``(Tb, C)``, not ``(Tb, Tb)``; a ``prefer`` that does not divide
+    ``Tb`` falls down the power-of-two ladder (the reference's)."""
+    if tb <= prefer:
+        return tb
+    if tb % prefer == 0:
+        return prefer
+    for c in (512, 256, 128):
+        if c <= prefer and tb % c == 0:
+            return c
+    return tb
+
+
+def _ring_body(q, k, v, valid, seed, bias, *, mesh, axis_name, causal,
+               scale, rate, key_axes, step_chunk):
+    """One rank's ring: q/k/v its ``(B, H, Tb, D)`` blocks, ``valid`` the
+    ``(B,)`` global key counts or None, ``bias`` its ``(B|1, H|1, Tb,
+    T)`` rows or None, ``seed`` a ``(1,)`` int32 tensor or None."""
+    n = mesh.axis_size(axis_name)
+    my = mesh.axis_index(axis_name)
+    b, h, tb, _ = q.shape
+    dev = q.device
+    m = torch.full((b, h, tb), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, tb), dtype=torch.float32, device=dev)
+    o = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    if seed is not None:
+        seed = _fold_axes(seed, mesh, key_axes)
+    c = _ring_chunk(tb, step_chunk) if step_chunk else _ring_chunk(tb)
+    qpos = my * tb + torch.arange(tb, device=dev)
+    k_cur, v_cur = k, v
+    for i in range(n):
+        k_idx = (my - i) % n              # whose K block this rank holds
+        for ci in range(tb // c):
+            k0 = k_idx * tb + ci * c
+            kpos = k0 + torch.arange(c, device=dev)
+            mask = None
+            if causal:
+                mask = (qpos[:, None] >= kpos[None, :])[None, None]
+            if valid is not None:
+                km = kpos[None, None, None, :] < valid.long()[:, None, None,
+                                                              None]
+                mask = km if mask is None else mask & km
+            bm, bl, bo = _block_attn(
+                q, k_cur[:, :, ci * c:(ci + 1) * c],
+                v_cur[:, :, ci * c:(ci + 1) * c],
+                bias=None if bias is None else bias[..., k0:k0 + c],
+                mask=mask, scale=scale, dropout_rate=rate,
+                dropout_seed=seed, q_offset=my * tb, k_offset=k0)
+            m, l, o = _merge(m, l, o, bm, bl, bo)
+        if i < n - 1:
+            k_cur = _coll.ppermute(k_cur, mesh, axis_name, perm)
+            v_cur = _coll.ppermute(v_cur, mesh, axis_name, perm)
+    return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def _sp_spec(mesh, axis_name, q_spec, batch_axes, present):
+    bax, hax = (tuple(batch_axes) + (None, None))[:2]
+    return q_spec or P(bax if bax and present(bax) else None,
+                       hax if hax and present(hax) else None,
+                       axis_name if present(axis_name) else None, None)
+
+
+def _sp_call(body, q, k, v, mesh, spec, valid_length, dropout_seed, bias,
+             bias_spec):
+    """Run ``body(q, k, v, valid, seed, bias)`` on this rank's blocks: the
+    reference's ``shard_map`` over global arrays outside an SPMD region
+    (operands scattered by their specs, the result gathered), the blocks
+    themselves inside one, a ``DTensor``'s local block for a
+    ``DTensor``."""
+    from .mesh import spec_axes
+    dtensor = None
+    try:
+        from torch.distributed.tensor import DTensor
+        if isinstance(q, DTensor):
+            dtensor = q
+            q, k, v = q.to_local(), k.to_local(), v.to_local()
+    except ImportError:      # pragma: no cover - torch without DTensor
+        pass
+    glob = dtensor is None and _coll.current_spmd() is None
+    valid = None
+    if valid_length is not None:
+        valid = torch.as_tensor(valid_length, device=q.device)
+        if glob:
+            valid = _coll.scatter(valid, mesh, spec_axes(spec[0]), 0)
+    if glob:
+        q, k, v = (_coll.scatter_spec(x, mesh, spec) for x in (q, k, v))
+        if bias is not None:
+            bias = _coll.scatter_spec(bias, mesh, bias_spec)
+    out = body(q, k, v, valid, dropout_seed, bias)
+    if glob:
+        return _coll.gather_spec(out, mesh, spec)
+    if dtensor is not None:
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(out, dtensor.device_mesh,
+                                  dtensor.placements)
+    return out
+
+
+def ring_attention(q, k, v, mesh, axis_name="sp", causal=False, q_spec=None,
+                   valid_length=None, dropout_rate=0.0, dropout_key=None,
+                   bias=None, batch_axes=("dp", "tp"), step_chunk=None,
+                   dropout_seed=None):
+    """Sequence-parallel attention (module docstring).  q/k/v: global
+    ``(B, H, T, D)`` arrays whose T axis is split over ``axis_name``
+    (rank blocks inside an SPMD region); returns the output laid out
+    alike.  ``q_spec`` overrides the default
+    ``P(batch_axes[0], batch_axes[1], axis_name, None)`` (axes absent
+    from the mesh dropped).  ``valid_length``: ``(B,)`` valid key
+    counts.  ``dropout_seed`` (or ``dropout_key``): a ``(1,)`` int32
+    seed.  ``bias``: ``(B|1, H|1, T, T)`` additive bias whose rows split
+    with q and whose columns each step slices for the block it holds."""
+    dropout_seed = _dropout_seed(dropout_key, dropout_seed)
+    present = lambda ax: ax in mesh.axis_names
+    spec = _sp_spec(mesh, axis_name, q_spec, batch_axes, present)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    rate = float(dropout_rate) if dropout_seed is not None else 0.0
+    if not present(axis_name):
+        mask = _dense_mask(q.shape[2], k.shape[2], causal, valid_length,
+                           q.device)
+        _, l, o = _block_attn(q, k, v, bias=bias, mask=mask, scale=scale,
+                              dropout_rate=rate, dropout_seed=dropout_seed)
+        return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    _count("ring", f"sp={mesh.shape[axis_name]} shape={tuple(q.shape)} "
+                   f"dtype={q.dtype}")
+    bspec = None
+    if bias is not None:
+        bspec = P(spec[0] if bias.shape[0] > 1 else None,
+                  spec[1] if bias.shape[1] > 1 else None, spec[2], None)
+    key_axes = tuple(a for entry in spec for a in
+                     (entry if isinstance(entry, tuple) else (entry,))
+                     if a is not None)
+
+    def body(q, k, v, valid, seed, b):
+        return _ring_body(q, k, v, valid, seed if rate > 0.0 else None, b,
+                          mesh=mesh, axis_name=axis_name, causal=causal,
+                          scale=scale, rate=rate, key_axes=key_axes,
+                          step_chunk=step_chunk)
+    return _sp_call(body, q, k, v, mesh, spec, valid_length, dropout_seed,
+                    bias, bspec)
 
 
 def _dropout_seed(dropout_key, dropout_seed):
@@ -212,7 +405,7 @@ def local_flash_attention(q, k, v, causal=False, valid_length=None,
                                        dropout_seed=dropout_seed, bias=bias)
     mask = _dense_mask(q.shape[2], k.shape[2], causal, valid_length,
                        q.device)
-    l, o = _block_attn(q, k, v, bias=bias, mask=mask,
+    _, l, o = _block_attn(q, k, v, bias=bias, mask=mask,
                           scale=1.0 / math.sqrt(q.shape[-1]),
                           dropout_rate=rate, dropout_seed=dropout_seed)
     return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
@@ -221,22 +414,34 @@ def local_flash_attention(q, k, v, causal=False, valid_length=None,
 def attention(q, k, v, mesh=None, causal=False, valid_length=None,
               dropout_rate=0.0, dropout_key=None, bias=None,
               sp_strategy=None, dropout_seed=None):
-    """Dispatch: local attention (:func:`local_flash_attention`).
-    ``sp_strategy`` (``"ring"``, ``"ulysses"`` or None) is checked on
+    """Dispatch: sequence parallelism when the mesh (the SPMD region's,
+    else ``mesh``) has an ``sp`` axis longer than 1 — ``sp_strategy``
+    (``"ring"``/``"ulysses"``, else :func:`~.ulysses.get_sp_strategy`),
+    Ulysses only where ``H % sp == 0`` and ``tp`` is 1, ring otherwise —
+    else :func:`local_flash_attention`.  ``sp_strategy`` is checked on
     every call, mesh or not, so a typo never selects the local path
-    silently.  A mesh with an ``sp`` axis longer than 1 — sequence
-    parallelism — raises: ring and Ulysses attention are not ported yet
-    (ROADMAP A16)."""
+    silently.  Inside an SPMD region the local arm's dropout seed is
+    folded with the rank's index along every mesh axis, so each rank
+    draws its own mask."""
     if sp_strategy is not None and sp_strategy not in ("ring", "ulysses"):
         raise ValueError(f"unknown sp_strategy {sp_strategy!r}; use 'ring' "
                          "or 'ulysses'")
+    seed = _dropout_seed(dropout_key, dropout_seed)
+    region = _coll.current_spmd()
+    mesh = region if region is not None else mesh
     if mesh is not None and "sp" in getattr(mesh, "axis_names", ()) \
             and mesh.shape["sp"] > 1:
-        raise MXNetError("attention: sequence parallelism over a mesh's "
-                         "'sp' axis is not ported yet (ROADMAP A16)")
+        from .ulysses import get_sp_strategy, ulysses_attention
+        strategy = sp_strategy or get_sp_strategy()
+        kw = dict(causal=causal, valid_length=valid_length,
+                  dropout_rate=dropout_rate, dropout_seed=seed, bias=bias)
+        if strategy == "ulysses" and q.shape[1] % mesh.shape["sp"] == 0 \
+                and mesh.shape.get("tp", 1) == 1:
+            return ulysses_attention(q, k, v, mesh, **kw)
+        return ring_attention(q, k, v, mesh, **kw)
+    if region is not None and seed is not None and dropout_rate > 0.0:
+        seed = _fold_axes(seed, region, region.axis_names)
     return local_flash_attention(q, k, v, causal=causal,
                                  valid_length=valid_length,
                                  dropout_rate=dropout_rate,
-                                 dropout_seed=_dropout_seed(dropout_key,
-                                                            dropout_seed),
-                                 bias=bias)
+                                 dropout_seed=seed, bias=bias)

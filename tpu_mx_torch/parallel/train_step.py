@@ -62,14 +62,50 @@ reference's contract:
 
 The name is the reference's; in the port the step is **eager PyTorch**
 (no capture into one program yet: CUDA-graph capture is open work,
-ROADMAP).  ``mesh``, ``rules`` and ``data_specs`` are taken at world
-size 1 (``parallel.make_mesh``): the specs are the reference's answers
-(:func:`apply_rules`) and place nothing; ``gradient_compression``
-raises where the reference raises (it needs a ``dp`` axis above 1).
+ROADMAP).
+
+**Over a mesh** (``parallel.make_mesh`` of more than one rank; every
+rank builds the same net from the same seed and calls ``step`` with the
+same global batch):
+
+- each batch argument is cut to the rank's block by its data spec
+  (``data_specs``, default ``P("dp")`` on every argument; axes absent
+  from the mesh are dropped); the forward and backward run on the
+  blocks inside :func:`~.collectives.spmd`, where a model that splits
+  its work over ``tp``, ``sp`` or ``ep`` (BERT's Megatron layers, ring
+  and Ulysses attention, ``MoEFFN``'s experts) gives every rank the
+  whole, equal gradient of each parameter it reads;
+- the objective is the mean over the data axes (the axes the specs
+  split the batch over) of each rank's mean loss, the gradients are
+  averaged over the data axes in one all-reduce a dtype, and so are the
+  network's floating buffers (BatchNorm's running statistics) after
+  every forward;
+- the weights stay whole on every rank.  With an elementwise optimizer
+  (``elementwise_update``: SGD, Adam, ...) the float32 masters and the
+  optimizer state of a parameter whose spec splits it (``rules``:
+  ``bert_sharding_rules``, :func:`fsdp_rules`, ``moe_sharding_rules``)
+  are the rank's block of that spec: each rank updates its block and
+  the blocks are all-gathered into the weight (ZeRO's layout).  A
+  per-tensor optimizer (LAMB's trust ratio) updates whole tensors and
+  keeps whole state;
+- ``gradient_compression`` (``2bit``/``int8``/``fp8``; a ``dp`` axis
+  above 1, replicated parameters and a batch split over ``dp`` only, as
+  the reference refuses otherwise): each rank quantizes its gradient
+  with its own error feedback (``efs``, kept per rank and not
+  checkpointed) and the dequantized values are summed over ``dp``;
+  under ``accum_steps`` the microbatch gradients accumulate per rank
+  and are compressed once per applied update;
+- ``state_dict``/``save_checkpoint`` hold whole tensors (rank 0 writes
+  the file), so a checkpoint loads onto any other mesh or none.
+
+Model-level parallelism on a mesh is per rank: an ``MoEFFN`` under
+``dp`` routes each rank's tokens with its own capacity and load-balance
+statistics, where the reference's program routes the global batch.
 """
 from __future__ import annotations
 
 import json
+from contextlib import nullcontext as _nullcontext
 import logging
 import os
 import re
@@ -86,8 +122,9 @@ from ..base import MXNetError
 from ..contrib import chaos as _chaos
 from ..ndarray.ndarray import NDArray
 from ..ndarray.traced import host_readable
+from . import collectives as _coll
 from .integrity import fold_sums, leaf_word_sum
-from .mesh import NamedSharding, P
+from .mesh import Mesh, NamedSharding, P, spec_axes
 
 __all__ = ["CompiledTrainStep", "fsdp_rules", "sharding_for", "apply_rules"]
 
@@ -160,8 +197,59 @@ def _to_device(state, device):
     return state
 
 
+def _spec_axes_in(spec, mesh):
+    """Per dimension of ``spec``, its axes that the mesh has and that are
+    longer than 1."""
+    return [tuple(a for a in spec_axes(e)
+                  if a in mesh.shape and mesh.shape[a] > 1) for e in spec]
+
+
+def _block(t, spec, mesh):
+    """The rank's block of ``t`` (the same on every rank) under
+    ``spec``."""
+    for d, axes in enumerate(_spec_axes_in(spec, mesh)):
+        if axes:
+            t = t.chunk(mesh.axis_size(axes), d)[mesh.axis_index(axes)]
+    return t
+
+
+def _whole(t, spec, mesh):
+    """The whole tensor of the ranks' ``spec`` blocks (no autograd)."""
+    axes = _spec_axes_in(spec, mesh)
+    for d in reversed(range(len(axes))):
+        if axes[d]:
+            t = _coll._gather(t, mesh, axes[d], d)
+    return t
+
+
+def _state_map(fn, state):
+    if isinstance(state, tuple):
+        return tuple(_state_map(fn, x) for x in state)
+    return fn(state) if isinstance(state, torch.Tensor) else state
+
+
+def _mean_over(tensors, mesh, axes):
+    """Each tensor averaged over ``axes``: one all-reduce per dtype of
+    the tensors flattened together."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return list(tensors)
+    out = list(tensors)
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        flat = _coll._reduce(flat, mesh, axes) / n
+        for i, piece in zip(idx, flat.split([tensors[i].numel()
+                                             for i in idx])):
+            out[i] = piece.view(tensors[i].shape)
+    return out
+
+
 class CompiledTrainStep:
-    """One train step over a network on one device.
+    """One train step over a network on one device, or on each rank of a
+    mesh (module docstring).
 
     net         — a :class:`torch.nn.Module` (e.g. ``models.BERTModel``)
                   whose parameters all live on ``device``
@@ -173,11 +261,13 @@ class CompiledTrainStep:
     n_loss_args — how many trailing ``step()`` arguments go to the loss
     accum_steps — gradient accumulation, as in the reference
 
-    mesh        — None or a world-size-1 ``parallel.make_mesh`` mesh
+    mesh        — None or a ``parallel.make_mesh`` mesh
     rules       — ``[(regex, P)]``: each parameter's spec is
                   :func:`apply_rules` of its key in ``collect_params()``
                   (``specs``)
-    data_specs  — the batch's specs, kept as given
+    data_specs  — the batch arguments' specs (default ``P("dp")`` each)
+    gradient_compression — None or ``{"type": "2bit"|"int8"|"fp8",
+                  "threshold": t}`` (the compressed ``dp`` reduction)
 
     ``donate`` is accepted and ignored: buffer donation is a JAX
     compilation option with no PyTorch meaning.
@@ -186,9 +276,12 @@ class CompiledTrainStep:
     def __init__(self, net, loss_fn, optimizer, mesh=None, rules=None,
                  data_specs=None, donate=True, n_loss_args=1,
                  gradient_compression=None, accum_steps=1, device=None):
-        if mesh is not None and getattr(mesh, "size", None) != 1:
-            raise MXNetError("CompiledTrainStep: a mesh of more than one "
-                             "device is not ported yet (ROADMAP A item 9)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise MXNetError("CompiledTrainStep: mesh must be a "
+                             f"parallel.make_mesh Mesh, not {type(mesh)}")
+        if mesh is not None and mesh.size > 1 and mesh.coords is None:
+            raise MXNetError(f"CompiledTrainStep: rank {mesh.rank} is not "
+                             f"in the mesh {mesh}")
         if n_loss_args < 1:
             raise ValueError("n_loss_args must be >= 1 (the label)")
         if accum_steps < 1:
@@ -207,10 +300,19 @@ class CompiledTrainStep:
         self._diff_keys = [k for k, p in self._params.items()
                            if p.requires_grad and p.is_floating_point()]
         self.mesh = mesh
+        self._multi = mesh is not None and mesh.size > 1
         self._rules = rules
         self.specs = {k: apply_rules(k, p.shape, rules, mesh)
                       for k, p in self._values().items()}
         self._data_specs = data_specs
+        # parameters whose masters and optimizer state are the rank's
+        # block of their spec (an elementwise optimizer; module docstring)
+        self._shard_keys = set()
+        if self._multi and getattr(optimizer, "elementwise_update", False):
+            self._shard_keys = {k for k in self._diff_keys
+                                if any(_spec_axes_in(self.specs[k], mesh))}
+        self._compression = None
+        self.efs = {}
         if gradient_compression:
             ctype = gradient_compression.get("type", "2bit")
             if ctype not in ("2bit", "int8", "fp8"):
@@ -221,6 +323,19 @@ class CompiledTrainStep:
                 raise ValueError(
                     "gradient_compression needs a mesh with a dp axis >1 "
                     "(it compresses the dp gradient reduction)")
+            sharded = [k for k in self._diff_keys
+                       if any(ax is not None for ax in self.specs[k])]
+            if sharded:
+                raise ValueError(
+                    "gradient_compression supports pure-DP (replicated) "
+                    f"params; these are sharded: {sharded[:3]}...")
+            bad_axes = {a for spec in (data_specs or ()) for e in spec
+                        for a in spec_axes(e) if a != "dp"}
+            if bad_axes:
+                raise ValueError(
+                    "gradient_compression reduces over 'dp' only, but "
+                    f"data_specs shard the batch over {sorted(bad_axes)}")
+            self._compression = dict(gradient_compression, type=ctype)
         self._n_loss_args = n_loss_args
         self._accum = int(accum_steps)
         self._micro = 0
@@ -244,23 +359,62 @@ class CompiledTrainStep:
         _telemetry.counter("train_step.recompiles").inc()
         mp = getattr(self.optimizer, "multi_precision", False)
         with torch.no_grad():
-            self.masters = {k: self._params[k].detach().float().clone()
-                            for k in self._diff_keys
+            self.masters = {k: self._own(k, self._params[k].detach().float())
+                            .clone() for k in self._diff_keys
                             if mp and self._params[k].dtype in _LOW_PRECISION}
             self.opt_states = {
                 k: self.optimizer.create_state(
-                    i, self.masters.get(k, self._params[k].detach()))
+                    i, self.masters.get(k, self._own(
+                        k, self._params[k].detach())))
                 for i, k in enumerate(self._diff_keys)}
+            if self._compression:
+                self.efs = {k: torch.zeros(self._params[k].shape,
+                                           dtype=torch.float32,
+                                           device=self.device)
+                            for k in self._diff_keys}
         if self._accum > 1:
             self._gacc = {k: torch.zeros(self._params[k].shape,
                                          dtype=torch.float32,
                                          device=self.device)
                           for k in self._diff_keys}
 
+    def place(self):
+        """Lay the train state out on the mesh: the masters and optimizer
+        state, each split parameter's as the rank's block of its spec
+        (the reference device_puts them onto their shardings).  The first
+        step places it if nothing has; the weights stay whole."""
+        if self._build_count == 0:
+            self._build()
+
+    def _own(self, key, t):
+        """``t`` (a whole tensor of parameter ``key``'s shape) as this
+        rank keeps its master and optimizer state: its spec block for a
+        sharded key, whole otherwise."""
+        return _block(t, self.specs[key], self.mesh) \
+            if key in self._shard_keys else t
+
+    def _whole_state(self, key, t):
+        return _whole(t, self.specs[key], self.mesh) \
+            if key in self._shard_keys else t
+
     @property
     def recompiles(self):
         """How many times this step built its state (once)."""
         return self._build_count
+
+    def _data_axes(self, n_batch):
+        """The mesh axes (longer than 1) the batch is split over."""
+        specs = self._batch_specs(n_batch)
+        return tuple(a for a in self.mesh.axis_names
+                     if any(a in ax for spec in specs
+                            for ax in _spec_axes_in(spec, self.mesh)))
+
+    def _batch_specs(self, n_batch):
+        specs = self._data_specs or tuple(P("dp") for _ in range(n_batch))
+        if len(specs) != n_batch:
+            raise ValueError(f"data_specs has {len(specs)} specs for a batch "
+                             f"of {n_batch} arguments")
+        return specs
 
     # -- the step ---------------------------------------------------------------
     def fingerprint(self):
@@ -325,24 +479,26 @@ class CompiledTrainStep:
                           t1=time.perf_counter(), phase="recompile")
         t_disp = time.perf_counter()
         n = self._n_loss_args
+        data_axes = ()
+        region = _coll.spmd(self.mesh) if self._multi else _nullcontext()
+        if self._multi:
+            data_axes = self._data_axes(len(batch))
+            batch = tuple(None if b is None else _block(b, spec, self.mesh)
+                          for b, spec in zip(batch,
+                                             self._batch_specs(len(batch))))
         data_args, loss_args = batch[:-n], batch[-n:]
         diff = [self._params[k] for k in self._diff_keys]
         self.net.train()
-        out = self.net(*data_args)
-        if isinstance(out, (tuple, list)):
-            from ..gluon.loss import PassThrough
-            if not isinstance(self.loss_fn, PassThrough):
-                _logger.warning(
-                    "CompiledTrainStep: net returned %d outputs; training on "
-                    "output[0] and DROPPING the rest (an MoE aux loss would "
-                    "be lost — fold extra terms into the objective in "
-                    "forward() and use gluon.loss.PassThrough)", len(out))
-            out = out[0]
-        loss = self.loss_fn(out, *loss_args).float().mean()
-        grads = torch.autograd.grad(loss, diff, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(diff, grads)]
-        loss = loss.detach()
+        with region:
+            loss, grads = self._forward_backward(data_args, loss_args, diff)
+        if self._multi:
+            with torch.no_grad():
+                loss = _mean_over([loss], self.mesh, data_axes)[0]
+                bufs = [b for b in self.net.buffers()
+                        if b.is_floating_point()]
+                for b, v in zip(bufs, _mean_over(bufs, self.mesh,
+                                                 data_axes)):
+                    b.copy_(v)
         t_done = time.perf_counter()
         _tracing.emit("train_step.phase", t0=t_disp, t1=t_done,
                       phase="dispatch")
@@ -360,6 +516,10 @@ class CompiledTrainStep:
                 for buf in self._gacc.values():
                     buf.zero_()
                 self._micro = 0
+            if self._compression:
+                grads = self._compressed_reduce(grads)
+            elif self._multi:
+                grads = _mean_over(grads, self.mesh, data_axes)
             t_next = self._t + 1
             if lr is None:
                 sched = self.optimizer.lr_scheduler
@@ -380,6 +540,49 @@ class CompiledTrainStep:
             self._apply_bitflip(bit)
         self._record_step(batch, t_start)
         return NDArray(host_readable(loss)) if arrays else loss
+
+    def _forward_backward(self, data_args, loss_args, diff):
+        """The mean loss of the (rank's) batch and the gradients of the
+        differentiable parameters (zeros for one the loss does not
+        read)."""
+        out = self.net(*data_args)
+        if isinstance(out, (tuple, list)):
+            from ..gluon.loss import PassThrough
+            if not isinstance(self.loss_fn, PassThrough):
+                _logger.warning(
+                    "CompiledTrainStep: net returned %d outputs; training on "
+                    "output[0] and DROPPING the rest (an MoE aux loss would "
+                    "be lost — fold extra terms into the objective in "
+                    "forward() and use gluon.loss.PassThrough)", len(out))
+            out = out[0]
+        loss = self.loss_fn(out, *loss_args).float().mean()
+        grads = torch.autograd.grad(loss, diff, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(diff, grads)]
+        return loss.detach(), grads
+
+    def _compressed_reduce(self, grads):
+        """The compressed ``dp`` reduction: each rank quantizes its
+        (accumulated) gradient with its error feedback and the
+        dequantized values are averaged over ``dp``."""
+        from ..contrib.compression import (quantize_2bit_core,
+                                           quantize_fp8_core,
+                                           quantize_int8_core)
+        ctype = self._compression["type"]
+        threshold = float(self._compression.get("threshold", 0.5))
+        deq = []
+        for key, g in zip(self._diff_keys, grads):
+            g = g.float()
+            ef = self.efs[key]
+            if ctype == "2bit":
+                d, new_ef = quantize_2bit_core(g, ef, threshold)
+            elif ctype == "fp8":
+                d, new_ef = quantize_fp8_core(g, ef)
+            else:
+                d, new_ef = quantize_int8_core(g, ef)
+            self.efs[key] = new_ef
+            deq.append(d)
+        return _mean_over(deq, self.mesh, ("dp",))
 
     def _apply_bitflip(self, bit):
         """Flip one bit of element 0 of the first differentiable
@@ -446,7 +649,8 @@ class CompiledTrainStep:
             return
         with self._state_lock, torch.no_grad():
             self._generation += 1
-            self.masters = {k: self._params[k].detach().float().clone()
+            self.masters = {k: self._own(k, self._params[k].detach()
+                                         .float()).clone()
                             for k in self.masters}
             self._reset_accumulation()
 
@@ -454,15 +658,17 @@ class CompiledTrainStep:
         opt, wd = self.optimizer, self.optimizer.wd
         for key, g in zip(self._diff_keys, grads):
             p = self._params[key]
+            g = self._own(key, g)
             if key in self.masters:
                 # update in float32 master space; the weight is its cast
                 w, s = opt.update_core(self.masters[key], g.float(),
                                        self.opt_states[key], lr, wd, t)
                 self.masters[key] = w
             else:
-                w, s = opt.update_core(p.detach(), g.to(p.dtype),
-                                       self.opt_states[key], lr, wd, t)
-            p.copy_(w.to(p.dtype))
+                w, s = opt.update_core(self._own(key, p.detach()),
+                                       g.to(p.dtype), self.opt_states[key],
+                                       lr, wd, t)
+            p.copy_(self._whole_state(key, w.to(p.dtype)))
             self.opt_states[key] = s
 
     @staticmethod
@@ -485,10 +691,10 @@ class CompiledTrainStep:
         """Copies of the weights and buffers (``values``), masters,
         optimizer state and ``t``."""
         clone = lambda x: x.detach().clone()
+        whole = lambda k: lambda x: self._whole_state(k, x.detach()).clone()
         return {"values": {k: clone(p) for k, p in self._values().items()},
-                "masters": {k: clone(v) for k, v in self.masters.items()},
-                "opt_states": {k: tuple(clone(x) for x in s)
-                               if isinstance(s, tuple) else s
+                "masters": {k: whole(k)(v) for k, v in self.masters.items()},
+                "opt_states": {k: _state_map(whole(k), s)
                                for k, s in self.opt_states.items()},
                 "t": self._t}
 
@@ -502,9 +708,11 @@ class CompiledTrainStep:
             self._generation += 1   # an abandoned step drops its update
             for k, v in sd["values"].items():
                 values[k].copy_(v)
-            self.masters = {k: v.detach().clone().to(self.device)
+            own = lambda k: lambda x: self._own(k, x.to(self.device))
+            self.masters = {k: own(k)(v.detach()).clone()
                             for k, v in sd["masters"].items()}
-            self.opt_states = {k: _to_device(s, self.device)
+            self.opt_states = {k: _to_device(_state_map(own(k), s),
+                                             self.device)
                                for k, s in sd["opt_states"].items()}
             self._t = int(sd["t"])
             self._reset_accumulation()
@@ -539,6 +747,8 @@ class CompiledTrainStep:
                  "generators": [g.get_state() for g in self._generators()]}
         ap = os.path.abspath(str(path))
         errors = []
+        if self._multi and self.mesh.rank != self.mesh.ranks.flat[0]:
+            return          # the mesh's first rank writes the whole state
 
         def write():
             from ..checkpoint import atomic_write
@@ -589,6 +799,10 @@ class CompiledTrainStep:
         restore falls back too.  Returns the path restored; raises
         ``MXNetError`` when none restores."""
         self.wait_for_checkpoint()
+        if self._multi:
+            # every rank reads the file the first rank wrote: wait for it
+            _coll._reduce(torch.zeros(1, device=self.device), self.mesh,
+                          self.mesh.axis_names)
         candidates = [os.path.abspath(str(p))
                       for p in (path, *tuple(fallback_paths))]
         errors = []

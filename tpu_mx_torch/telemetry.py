@@ -280,9 +280,12 @@ KNOWN_METRICS = frozenset({
     # module-API training (callback.py)
     "speedometer.samples_per_sec",
     # the port's own: the recurrence arm an RNN call took
-    # (ndarray/rnn_op.py), the prefill attention arm (serving), and
-    # capacity forensic dumps that failed (serving/kv_cache.py)
+    # (ndarray/rnn_op.py), the prefill attention arm (serving),
+    # capacity forensic dumps that failed (serving/kv_cache.py), and the
+    # bytes and wall seconds of mesh collectives staged through the host
+    # (parallel/collectives.py: CUDA tensors over a gloo group)
     "rnn.arm", "serve.prefill_attention", "serve.forensic_dump_failures",
+    "mesh.host_staged_bytes", "mesh.host_staged_seconds",
 })
 
 _lock = threading.RLock()
