@@ -549,6 +549,27 @@ line each:
                  operators phase also holds Gluon's two-pass BatchNorm
                  (``TPUMX_BN_ONEPASS=0``, fault C21) on the card to the
                  CPU port.
+36. ``wide_heads`` — head dims 192 and 256 (ROADMAP B item 8) on the
+                 main paths: the serve cell's traffic at Gemma's layout
+                 (TinyLM 4096 wide, 16 heads of 256, 2 layers: depth
+                 cut for the CPU port's references) with a
+                 float32 pool, a bfloat16 pool and
+                 ``TPUMX_SPECULATIVE=12`` (a window past the paged
+                 kernel's 8 rows, walked in chunks): request 0 as the
+                 CPU port's, the prefill logits and one decode step's
+                 (the arm's pool and window) within 2e-4 of the CPU
+                 port's, prefill on ``tf32x3``, decode on ``split_k``,
+                 no dense arm; ``parallel.attention`` forward and
+                 backward at 16 heads (bf16 T=2048 D=256 and 192 with
+                 dropout, float32 T=700 D=256) held to the plain twins;
+                 the four bias layouts with ``d_bias`` at bf16 T=512
+                 D=256.  The kernel phase times every wide instance
+                 (and paged decode with bf16 queries, a float16 pool and
+                 a window of 12 at H=16 D=256) against its plain
+                 version, bound and SDPA, and holds the bias grid (q in
+                 float32 and bf16, D=192 and 256, float32, bf16 and
+                 float16 biases in the four layouts, with d_bias) to the
+                 plain versions and, in float32, to a float64 witness.
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -592,6 +613,31 @@ SPEC_WINDOW = 4                  # TPUMX_SPECULATIVE in the spec-on runs
 TOP_K, TOP_K_SEED = 40, 7
 SERVE_FWD_T = (128, 700, 2048)   # the serving forward's timed prompt lengths
 SERVE_FWD_ENTRY = 700            # the one in the kernels line
+
+# the wide heads (phase wide_heads and the kernel phase): Gemma's attention
+# layout, 16 heads of 256, at the serve cell's width (4096) and traffic,
+# 2 layers deep (the CPU port's references of request 0 read every weight
+# a token: depth cut for the script's time); the training attention at
+# 16 heads, batch 4
+WIDE_SERVE = dict(vocab_size=32000, embed_dim=4096, num_heads=16,
+                  num_layers=2, max_positions=4096, seed=0)
+WIDE_SPEC_WINDOW = 12            # TPUMX_SPECULATIVE of the chunked arm
+WIDE_BATCH, WIDE_HEADS = 4, 16
+# (key, dtype name, T, D, dropout): the training attention's shapes, each
+# causal with ragged valid lengths in [T/2, T]
+WIDE_FLASH = (("bf16_d256", "bfloat16", 2048, 256, 0.1),
+              ("bf16_d192", "bfloat16", 2048, 192, 0.1),
+              ("f32_d256", "float32", 700, 256, 0.0))
+WIDE_BIAS_T, WIDE_BIAS_D = 512, 256
+# the bias grid of the wide instances: every q dtype, head dim, bias
+# dtype and layout, with d_bias, at B=2 H=2 T=136 (a partial tile),
+# causal, ragged valid lengths, dropout 0.1
+WIDE_GRID_B, WIDE_GRID_H, WIDE_GRID_T = 2, 2, 136
+WIDE_GRID_LAYOUTS = ("per_row", "per_head", "shared", "alibi")
+# (key, window, query dtype, pool dtype): paged decode at B=8 H=16 D=256
+WIDE_PAGED = (("bf16_q", 1, "bfloat16", "float32"),
+              ("f16_pool", 1, "float32", "float16"),
+              ("window12", WIDE_SPEC_WINDOW, "float32", "float32"))
 
 # the training slice: the reference benchmark's seq-512 BERT leg
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED = 32, 512, 76   # 15% of 512 masked
@@ -920,10 +966,12 @@ def phase_build(ctx):
                                f"kernel spills: {wrong[:4]}")
 
 
-def paged_case(torch, gen, tq, pool_dtype):
-    """B=8 ragged rows of 100-800 tokens, H=32, D=128, BS=16, tables
-    scattered over a 1024-block pool and padded to the cache's bucket."""
-    b, h, d, bs, n = 8, 32, 128, 16, 1024
+def paged_case(torch, gen, tq, pool_dtype, h=32, d=128,
+               q_dtype="float32"):
+    """B=8 ragged rows of 100-800 tokens, H=32, D=128 (or ``h``, ``d``),
+    BS=16, tables scattered over a 1024-block pool and padded to the
+    cache's bucket; queries in ``q_dtype``."""
+    b, bs, n = 8, 16, 1024
     lengths = torch.randint(100, 801, (b,), generator=gen)
     nblk = [-(-int(x) // bs) for x in lengths]
     nbpad = -(-max(nblk) // 4) * 4
@@ -936,7 +984,8 @@ def paged_case(torch, gen, tq, pool_dtype):
     dev = "cuda"
     kp = torch.randn((n, bs, h, d), generator=gen).to(dev, pool_dtype)
     vp = torch.randn((n, bs, h, d), generator=gen).to(dev, pool_dtype)
-    q = torch.randn((b, tq, h, d), generator=gen).to(dev)
+    q = torch.randn((b, tq, h, d), generator=gen).to(
+        dev, getattr(torch, q_dtype))
     return q, kp, vp, tables.to(dev), lengths.to(dev, torch.int32), nblk
 
 
@@ -1032,6 +1081,7 @@ def phase_kernels(ctx):
     flash_f32_precision(torch, fa, ctx)
     flash_f32_bwd_precision(torch, fa, ctx)
     flash_train_kernels(torch, fa, gen, ctx, entries, worst)
+    wide_kernels(torch, fa, pa, gen, ctx)
     flash_mask_bits(torch, fa, ctx)
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
@@ -1293,6 +1343,283 @@ def flash_train_kernels(torch, fa, gen, ctx, entries, worst):
                                       "bound_by_ffma"))}
             torch.cuda.empty_cache()
     ctx["f32_kernels"] = f32
+
+
+def wide_valid(torch, gen, t):
+    """Ragged valid lengths in [T/2, T] of the WIDE_BATCH rows, repeated
+    over the WIDE_HEADS heads (the folded rows' kv_valid)."""
+    rows = torch.randint(t // 2, t + 1, (WIDE_BATCH,), generator=gen)
+    return rows.tolist(), rows.repeat_interleave(WIDE_HEADS).tolist()
+
+
+def wide_kernels(torch, fa, pa, gen, ctx):
+    """The head dim 192 and 256 instances (ROADMAP B item 8) against their
+    plain versions at the wide_heads cell's shapes: the flash forward, dq
+    and dk/dv (bf16 BH=64 T=2048 causal with dropout at D=256 and 192,
+    float32 T=700 D=256 causal), and paged decode at B=8 H=16 D=256 with
+    bf16 queries, a float16 pool and a window of 12 (two chunks of the
+    kernel's 8 rows).  Each with its ms, plain ms, bound and SDPA's ms,
+    in its own entry of the kernels line (``wide``)."""
+    wide = {}
+    bh = WIDE_BATCH * WIDE_HEADS
+    for key, dt, t, d, rate in WIDE_FLASH:
+        _, valid = wide_valid(torch, gen, t)
+        recs = flash_case(torch, fa, gen, bh, t, d, getattr(torch, dt),
+                          True, rate, valid)
+        for name, r in recs.items():
+            emit("kernel", name=name, wide=key, **r)
+            if not r["ok"]:
+                ctx["failures"].append(f"{name} {r['shape']}: err "
+                                       f"{r['max_abs_err']}, route "
+                                       f"{r['math_route']}")
+            wide.setdefault(name, {})[key] = {k: r[k] for k in (
+                ENTRY_KEYS + ("max_abs_err",))}
+        torch.cuda.empty_cache()
+    for key, tq, qd, pd in WIDE_PAGED:
+        q, kp, vp, tab, lens, nblk = paged_case(
+            torch, gen, tq, getattr(torch, pd), h=WIDE_HEADS, d=256,
+            q_dtype=qd)
+        scale = 1.0 / 16
+        before = dict(pa.paged_attention.routes)
+        out = pa.paged_attention(q, kp, vp, tab, lens)
+        route = "+".join(r for r, n in pa.paged_attention.routes.items()
+                         if n > before[r]) or "none"
+        ref = pa.paged_attention_plain(q, kp, vp, tab, lens, scale)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        atol = PAGED_ATOL if qd == "float32" else \
+            BF16_REL * float(ref.float().abs().max())
+        ok = (math.isfinite(err) and err <= atol and out.dtype == q.dtype
+              and route == "split_k")
+        call = lambda: pa.paged_attention(q, kp, vp, tab, lens)
+        ms = cuda_ms(torch, call)
+        ms_queued = cuda_ms(torch, call, queued=True)
+        plain_ms = cuda_ms(torch, lambda: pa.paged_attention_plain(
+            q, kp, vp, tab, lens, scale), reps=5)
+        kv_bytes = sum(nblk) * 16 * WIDE_HEADS * 256 * 2 * kp.element_size()
+        nbytes = (kv_bytes + 2 * q.numel() * q.element_size()
+                  + tab.numel() * 4 + lens.numel() * 4)
+        flops = 4 * int(lens.sum()) * WIDE_HEADS * 256 * tq
+        b_ms, b_by = bound(nbytes, flops)
+        rec = dict(shape=f"B=8 Tq={tq} H={WIDE_HEADS} D=256 BS=16 q={qd} "
+                         f"pool={pd} lengths={lens.tolist()}",
+                   ms=ms, ms_queued=ms_queued, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   math_route=route, max_abs_err=err, atol=atol,
+                   **rates(flops, ms, b_ms))
+        emit("kernel", name="paged_attention", wide=key, ok=ok, **rec)
+        if not ok:
+            ctx["failures"].append(f"paged_attention {rec['shape']}: err "
+                                   f"{err}, route {route}")
+        wide.setdefault("paged_attention", {})[key] = rec
+    ctx["wide_kernels"] = wide
+    wide_bias_grid(torch, fa, gen, ctx)
+
+
+def attention64(torch, fa, q, k, v, do, kb, kv, rate, seed, scale):
+    """The float64 witness of one causal case, by the plain versions'
+    formulas on the same inputs, masks and keep mask, every step in
+    float64: ``{out, lse, delta, dq, dk, dv, d_bias}`` (``d_bias`` per
+    row ``(BH, T, Tk)``; ``kb`` the folded ``(BH|G|1, T, Tk)`` bias),
+    and ``bounds``: elementwise bounds on a float32 backward's error
+    against it when fed this lse and delta rounded to float32, the
+    model of ``fa.f32_bwd_error_bounds`` (3xTF32 products, sums of n
+    terms each off by a unit in the last place n/8 times) with the
+    bias's, the scale's and the dropout's roundings added, every term
+    doubled."""
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    bh, t, d = q.shape
+    c = lambda n: 3 * 2 ** -22 + 3 * n / 8 * 2 ** -23
+    u = 2 ** -23
+    qi = torch.arange(t, device=q.device).reshape(1, t, 1)
+    ki = torch.arange(t, device=q.device).reshape(1, 1, t)
+    ok = (ki <= qi) & (ki < kv.long().reshape(bh, 1, 1))
+    keep = fa.dropout_keep_mask(seed, torch.arange(
+        bh, device=q.device).reshape(bh, 1, 1), qi, ki, rate)
+    planes = kb.double()
+    if planes.shape[0] != bh:
+        planes = planes.repeat(bh // planes.shape[0], 1, 1)
+    qk = q @ k.transpose(1, 2) * scale
+    s = torch.where(ok, qk + planes, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    lse = m + torch.log(torch.where(ok, torch.exp(s - m), 0.0)
+                        .sum(-1, keepdim=True))
+    p = torch.where(ok, torch.exp(s - lse), 0.0)
+    inv = 1.0 / (1.0 - rate)
+    p_drop = torch.where(keep, p * inv, 0.0)
+    out = p_drop @ v
+    delta = (do * out).sum(-1, keepdim=True)
+    dp = torch.where(keep, (do @ v.transpose(1, 2)) * inv, 0.0)
+    ds = p * (dp - delta)
+    dq, dk = ds @ k * scale, ds.transpose(1, 2) @ q * scale
+    dv = p_drop.transpose(1, 2) @ do
+    sf = torch.where(ok, s, 0.0)
+    e_s = c(d) * (q.abs() @ k.abs().transpose(1, 2)) * scale \
+        + u * (qk.abs() + planes.abs())
+    e_p = torch.where(ok, p * (e_s + u * (lse.abs() + (sf - lse).abs())
+                               + 2 ** -21) + 2 ** -126, 0.0)
+    e_dp = torch.where(keep, c(d) * (do.abs() @ v.abs().transpose(1, 2))
+                       * inv + u * dp.abs(), 0.0)
+    e_ds = e_p * (dp - delta).abs() + p * (
+        e_dp + u * delta.abs() + 2 * u * (dp - delta).abs())
+    e_pd = torch.where(keep, e_p * inv + u * p_drop, 0.0)
+    bounds = {
+        "d_bias": 2 * e_ds,
+        "dq": 2 * ((e_ds + u * ds.abs()) @ k.abs() * scale
+                   + c(t) * (ds.abs() @ k.abs()) * scale + u * dq.abs()),
+        "dk": 2 * ((e_ds + u * ds.abs()).transpose(1, 2) @ q.abs() * scale
+                   + c(t) * (ds.abs().transpose(1, 2) @ q.abs()) * scale
+                   + u * dk.abs()),
+        "dv": 2 * (e_pd.transpose(1, 2) @ do.abs()
+                   + c(t) * (p_drop.transpose(1, 2) @ do.abs()))}
+    return dict(out=out, lse=lse[..., 0], delta=delta[..., 0], dq=dq, dk=dk,
+                dv=dv, d_bias=ds, bounds=bounds)
+
+
+def wide_bias_case(torch, fa, gen, dtype, d, bias_dtype, layout):
+    """One case of the wide bias grid: ``parallel.attention(bias=)``
+    forward and backward (the layout folded as the main path folds it),
+    then each kernel with the folded bias against its plain version on
+    the same inputs (fed the plain forward's lse and delta).  bf16
+    outputs within BF16_REL x max|ref|; float32 ones within FLASH_ATOL,
+    and a float32 gradient that is not, within the bounds of its
+    arithmetic of the float64 witness (:func:`attention64`; kernel and
+    plain twin then fed the witness's lse and delta, each one's distance
+    from the witness recorded).  The main path's d_bias against the
+    kernel's own d_bias of its forward, summed to the layout and cast
+    to the bias's type (the sums' order aside: FLASH_ATOL x max(1, max)
+    for a float32 bias, else BF16_REL x max)."""
+    from tpu_mx_torch.parallel import attention
+    dev, rate = "cuda", 0.1
+    b, h, t = WIDE_GRID_B, WIDE_GRID_H, WIDE_GRID_T
+    bh, scale = b * h, 1.0 / math.sqrt(d)
+    f32 = dtype == torch.float32
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen).to(dev, dtype)
+                   for _ in range(4))
+    shape = {"per_row": (b, h, t, t), "per_head": (1, h, t, t),
+             "shared": (1, 1, t, t), "alibi": (1, h, 1, t)}[layout]
+    bias = torch.randn(shape, generator=gen).to(dev, bias_dtype)
+    rows = torch.randint(t // 2, t + 1, (b,), generator=gen).tolist()
+    vl = torch.tensor(rows, dtype=torch.int32, device=dev)
+    kv = vl.repeat_interleave(h)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                         dtype=torch.int32).to(dev)
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    for cnt in counters:
+        cnt.launches = 0
+    before = routes_of(fa)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
+    out = attention(*leaves[:3], causal=True, valid_length=vl,
+                    dropout_rate=rate, dropout_seed=seed, bias=leaves[3])
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = dict(zip(FLASH_KERNELS, (cnt.launches for cnt in counters)))
+
+    groups = None
+    if layout == "alibi":
+        kb = bias.expand(b, h, t, t).reshape(bh, t, t)
+    elif layout == "per_head":
+        kb, groups = bias.reshape(h, t, t), h
+    else:
+        kb = bias.reshape(-1, t, t)
+    fold = lambda x: x.reshape(bh, t, d)
+    qf, kf, vf, dof = (fold(x) for x in (q, k, v, do))
+    got, lse = fa.flash_attention(qf, kf, vf, return_lse=True, causal=True,
+                                  kv_valid=kv, dropout_rate=rate,
+                                  dropout_seed=seed, bias=kb,
+                                  bias_groups=groups)
+    ref, ref_lse = fa.flash_attention_plain(qf, kf, vf, scale, True, kv,
+                                            rate, seed, kb)
+    tail = (scale, True, kv, rate, seed, kb)
+    args = (qf, kf, vf, dof, ref_lse, fa.flash_attention_delta(dof, ref),
+            *tail)
+    dq, db = fa.flash_attention_bwd_dq(*args, want_d_bias=True)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    # the main path's d_bias: its own forward's lse and delta, reduced
+    own = (qf, kf, vf, dof, lse, fa.flash_attention_delta(dof, got), *tail)
+    own_db = sum_to(fa.flash_attention_bwd_dq(*own, want_d_bias=True)[1]
+                    .reshape(b, h, t, t), shape).to(bias_dtype)
+    routes = {n: route_since(fa, n, before) for n in FLASH_KERNELS}
+    err = lambda a, r: float((a.double() - r.double()).abs().max())
+    kernel = {"out": got, "lse": lse, "dq": dq, "dk": dk, "dv": dv,
+              "d_bias": db}
+    plain = {"out": ref, "lse": ref_lse, "dq": want[0], "dk": want[1],
+             "dv": want[2], "d_bias": want[3]}
+    errors, witness = {}, {}
+    for n in kernel:
+        r = plain[n]
+        tol = FLASH_ATOL if f32 or n == "lse" else \
+            BF16_REL * float(r.abs().max())
+        e = err(kernel[n], r)
+        errors[n] = [e, tol, math.isfinite(e) and e <= tol]
+    if f32:
+        ex = attention64(torch, fa, qf, kf, vf, dof, kb, kv, rate, seed,
+                         scale)
+        fed = (qf, kf, vf, dof, ex["lse"].float(), ex["delta"].float(),
+               *tail)
+        kq, kdb = fa.flash_attention_bwd_dq(*fed, want_d_bias=True)
+        kk, kvv = fa.flash_attention_bwd_dkv(*fed)
+        pw = fa.flash_attention_bwd_plain(*fed)
+        for n, kx, px in (("dq", kq, pw[0]), ("dk", kk, pw[1]),
+                          ("dv", kvv, pw[2]), ("d_bias", kdb, pw[3])):
+            ek = (kx.double() - ex[n]).abs()
+            bound = ex["bounds"][n]
+            within = bool((ek <= bound).all())
+            witness[n] = dict(
+                kernel_vs_f64=float(ek.max()),
+                plain_vs_f64=float((px.double() - ex[n]).abs().max()),
+                bound_max=float(bound.max()),
+                worst_share_of_bound=float(torch.where(
+                    bound > 0, ek / bound, ek * math.inf).nan_to_num(0.0)
+                    .max()),
+                within_bound=within)
+            errors[n][2] = errors[n][2] or within
+    # the same d_bias summed in another order: relative to its size
+    big = float(own_db.double().abs().max())
+    tol_db = FLASH_ATOL * max(1.0, big) if bias_dtype == torch.float32 \
+        else BF16_REL * big
+    e = err(leaves[3].grad, own_db)
+    errors["attention_d_bias"] = [e, tol_db, math.isfinite(e) and e <= tol_db]
+    # the main path ran the same forward on the same inputs
+    e = err(out.detach().reshape(bh, t, d), got)
+    errors["attention_out"] = [e, 0.0, e == 0.0]
+    ok = (all(x[2] for x in errors.values())
+          and all(n > 0 for n in launches.values())
+          and routes == (F32_ROUTES if f32 else BF16_ROUTES))
+    return dict(ok=ok, dtype=str(dtype).split(".")[-1], d=d,
+                bias_dtype=str(bias_dtype).split(".")[-1], layout=layout,
+                bias_shape=list(shape),
+                shape=f"B={b} H={h} T={t} D={d} causal valid {rows} "
+                      f"dropout {rate}",
+                launches=launches, routes=routes,
+                max_abs_err={n: x[0] for n, x in errors.items()},
+                atol={n: x[1] for n, x in errors.items()},
+                passed={n: x[2] for n, x in errors.items()},
+                witness=witness)
+
+
+def wide_bias_grid(torch, fa, gen, ctx):
+    """Every wide bias instance against its plain version: q in float32
+    and bf16, D = 192 and 256, a float32, bf16 and float16 bias in each
+    of the four layouts, all with d_bias (:func:`wide_bias_case`)."""
+    recs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (192, 256):
+            for bias_dtype in (torch.float32, torch.bfloat16,
+                               torch.float16):
+                for layout in WIDE_GRID_LAYOUTS:
+                    rec = wide_bias_case(torch, fa, gen, dtype, d,
+                                         bias_dtype, layout)
+                    emit("wide_bias", card=ctx["smi"], **rec)
+                    recs.append(rec)
+                    if not rec["ok"]:
+                        ctx["failures"].append(
+                            f"wide bias {rec['dtype']} D={d} "
+                            f"{rec['bias_dtype']} {layout}: "
+                            f"{rec['max_abs_err']} {rec['witness']}")
+    ctx["wide_bias"] = recs
 
 
 def flash_mask_bits(torch, fa, ctx):
@@ -4614,8 +4941,8 @@ def moe_parity_arm(torch, remat, policy, batch):
     for name, net, dev in (("cpu", cpu, "cpu"), ("cuda", card, "cuda")):
         calls = []
 
-        def recorded(probs, top_k, capacity):
-            r = route(probs, top_k, capacity)
+        def recorded(probs, top_k, capacity, *split):
+            r = route(probs, top_k, capacity, *split)
             calls.append([torch.stack(x).cpu().numpy() for x in r[:3]])
             return r
 
@@ -8526,6 +8853,266 @@ def phase_mesh(ctx):
             ctx["failures"].append(f"mesh check {name} failed")
 
 
+def wide_serve_arm(torch, model, cpu, prompts, name, pool, window,
+                   prefill, cpu_stream0=None):
+    """One serving arm at 16 heads of 256 (``pool`` a dtype name,
+    ``window`` a ``TPUMX_SPECULATIVE`` value or None): the card's run from
+    counts at 0, what it counted by kind, request 0 on the CPU port
+    with the same weights and pool dtype (``cpu_stream0`` when the caller
+    has it already), and the card's prefill logits (``prefill``: the
+    phase's one prefill of request 0, which reads no pool) and one
+    decode step's against the CPU port's (:func:`wide_logits`, the
+    arm's pool and window)."""
+    import os
+    from tpu_mx_torch import telemetry
+    from tpu_mx_torch.serving import Server
+    prior = os.environ.get("TPUMX_SPECULATIVE")
+    os.environ["TPUMX_SPECULATIVE"] = window or "0"
+    try:
+        dtype = getattr(torch, pool)
+        srv = Server(model, max_batch=8, block_size=16, num_blocks=1024,
+                     dtype=dtype)
+        run = serve_run(torch, srv, prompts, NEW_TOKENS, ids=name)
+        run["decode_attention"] = {
+            k: (telemetry.get("serve.decode_attention", kind=k).value
+                if telemetry.get("serve.decode_attention", kind=k) else 0)
+            for k in ("paged", "paged-kernel", "dense")}
+        del srv
+        if cpu_stream0 is None:
+            ref = Server(cpu, max_batch=1, block_size=16, num_blocks=64,
+                         dtype=dtype, device="cpu")
+            r = ref.submit(prompts[0], max_new_tokens=NEW_TOKENS,
+                           request_id=f"{name}0")
+            ref.run_until_idle()
+            cpu_stream0 = r.tokens
+        run["cpu_stream0"] = cpu_stream0
+        run["logits"] = wide_logits(torch, model, cpu, prefill,
+                                    cpu_stream0, dtype,
+                                    int(window) if window else 1)
+    finally:
+        if prior is None:
+            os.environ.pop("TPUMX_SPECULATIVE", None)
+        else:
+            os.environ["TPUMX_SPECULATIVE"] = prior
+    return run
+
+
+def wide_logits(torch, model, cpu, prefill, stream, pool, window):
+    """One decode step's logits on the card against the CPU port's (same
+    weights) after ``prefill`` = ``(k, v, k_cpu, v_cpu, prefill_err)``,
+    the card's prefill of request 0 (its K/V, and a copy on the host)
+    and its logits' distance from the CPU port's: both caches
+    ``pool``-typed and filled with the card's K/V, so that the step's
+    window of ``window`` positions of ``stream`` (its last position's
+    logits) is what differs; max |difference|s beside LOGITS_ATOL."""
+    from tpu_mx_torch.serving import PagedKVCache
+
+    class Given:
+        def __init__(self, device):
+            self.device = device
+
+        def draft(self, last_tokens, positions, n):
+            return torch.tensor([stream[1:n + 1]], device=self.device)
+
+    got = []
+    for m, k, v in ((model, *prefill[:2]), (cpu, *prefill[2:4])):
+        cache = PagedKVCache(m.num_layers, m.num_heads, m.head_dim,
+                             num_blocks=64, dtype=pool, device=m.device)
+        cache.prefill("a", k, v)
+        cache.reserve_window("a", window)
+        tables, lengths = cache.batch_tables(["a"])
+        bids, offs = cache.window_slots(["a"], window)
+        got.append(np.asarray(m.decode_step(
+            cache, [stream[0]], lengths - window, tables, lengths, bids,
+            offs, proposer=Given(m.device), want_logits=True)[3],
+            np.float64))
+    return dict(prefill_max_abs_err=prefill[4],
+                decode_max_abs_err=float(np.abs(got[0] - got[1]).max()),
+                window=window, atol=LOGITS_ATOL)
+
+
+def wide_attention_case(torch, fa, gen, key, dt, t, d, rate):
+    """``parallel.attention`` forward and backward at B=4 H=16 (causal,
+    ragged valid lengths) from launch counts at 0, held to the plain
+    forward and backward on the same inputs and dropout seed."""
+    from tpu_mx_torch.parallel import attention
+    dev, dtype = "cuda", getattr(torch, dt)
+    b, h = WIDE_BATCH, WIDE_HEADS
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen).to(dev, dtype)
+                   for _ in range(4))
+    rows, valid = wide_valid(torch, gen, t)
+    vl = torch.tensor(rows, dtype=torch.int32, device=dev)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                         dtype=torch.int32).to(dev)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    reset_port_kernel_launches()
+    before = routes_of(fa)
+    out = attention(*leaves, causal=True, valid_length=vl,
+                    dropout_rate=rate, dropout_seed=seed)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = port_kernel_launches()
+    routes = {n: route_since(fa, n, before) for n in FLASH_KERNELS}
+    fold = lambda x: x.reshape(b * h, t, d)
+    kv = torch.tensor(valid, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(d)
+    ref, lse = fa.flash_attention_plain(fold(q), fold(k), fold(v), scale,
+                                        True, kv, rate, seed)
+    want = fa.flash_attention_bwd_plain(
+        fold(q), fold(k), fold(v), fold(do), lse,
+        fa.flash_attention_delta(fold(do), ref), scale, True, kv, rate, seed)
+    f32 = dtype == torch.float32
+    tol = lambda r: FLASH_ATOL if f32 else BF16_REL * float(r.abs().max())
+    err = lambda a, r: float((fold(a).float() - r.float()).abs().max())
+    errors = {"out": (err(out.detach(), ref), tol(ref))}
+    for n, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        errors[n] = (err(leaf.grad, w), tol(w))
+    ok = (all(math.isfinite(e) and e <= a for e, a in errors.values())
+          and all(launches[n] == 1 for n in FLASH_KERNELS)
+          and routes == (F32_ROUTES if f32 else BF16_ROUTES))
+    return dict(case=key, ok=ok, shape=f"B={b} H={h} T={t} D={d} {dt} "
+                f"causal valid {min(rows)}-{max(rows)} dropout {rate}",
+                launches=launches, routes=routes,
+                max_abs_err={n: e for n, (e, _) in errors.items()},
+                atol={n: a for n, (_, a) in errors.items()})
+
+
+def phase_wide_heads(ctx):
+    """Head dims 192 and 256 on the main paths (ROADMAP B item 8): (a) the
+    serve cell's traffic at Gemma's layout, TinyLM 4096 wide with 16 heads
+    of 256 (2 layers, vocabulary 32000), f32 pool, bf16 pool, and
+    ``TPUMX_SPECULATIVE=12`` (a window past the kernel's 8 rows, walked
+    in chunks) with the f32 pool: each arm's request 0 equal to the CPU
+    port's (or split at a near tie), its prefill logits and one decode
+    step's (the arm's pool and window) within LOGITS_ATOL of the CPU
+    port's, every prefill on the flash kernel
+    (``tf32x3``), every decode on the paged kernel (``split_k``), no
+    dense arm; (b) ``parallel.attention`` forward and backward at B=4,
+    16 heads, causal with ragged valid lengths: bf16 T=2048 D=256 and 192
+    with dropout 0.1, float32 T=700 D=256, each held to its plain twin;
+    (c) at bf16 T=512 D=256 the four bias layouts with ``d_bias``
+    (``bias_case``)."""
+    import torch
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.serving import TinyLM
+    t0 = time.perf_counter()
+    model = TinyLM(**WIDE_SERVE, device="cuda")
+    cpu = TinyLM.from_numpy(*model.to_numpy(),
+                            num_heads=WIDE_SERVE["num_heads"], device="cpu")
+    prompts = serve_prompts()
+    layers = WIDE_SERVE["num_layers"]
+    total = dict.fromkeys(port_kernel_launches(), 0)
+    arms, checks = {}, {}
+    # request 0's prefill on the card (its K/V for each arm's decode
+    # logits) and its logits against the CPU port's
+    kv = model.prefill(prompts[0])
+    prefill = (kv[0], kv[1], kv[0].cpu(), kv[1].cpu(), float(
+        (kv[2].double().cpu() - cpu.prefill(prompts[0])[2].double())
+        .abs().max()))
+    del kv
+    for name, pool, window in (("f32_pool", "float32", None),
+                               ("bf16_pool", "bfloat16", None),
+                               ("spec12", "float32",
+                                str(WIDE_SPEC_WINDOW))):
+        # greedy speculation is exact: the window's stream is the CPU
+        # port's stream of the same pool without it
+        run = wide_serve_arm(torch, model, cpu, prompts, name, pool, window,
+                             prefill, arms["f32_pool"]["cpu_stream0"]
+                             if window else None)
+        for n, c in run["launches"].items():
+            total[n] += c
+        split = stream_splits(model, prompts[:1], run["streams"][:1],
+                              [run["cpu_stream0"]])
+        flash_n = run["launches"]["flash_attention_fwd"]
+        paged_n = run["launches"]["paged_attention"]
+        arm_checks = dict(
+            done=run["done"],
+            stream0_as_cpu=splits_ok(split),
+            prefill_flash=run["prefill_attention"] == {
+                "flash": flash_n, "dense": 0}
+            and flash_n == layers * len(prompts),
+            prefill_tf32x3=run["flash_routes"] == dict(
+                fa.route_counts(), tf32x3=flash_n),
+            decode_paged=run["decode_attention"] == {
+                "paged": paged_n, "paged-kernel": 0, "dense": 0}
+            and paged_n == layers * run["decode_steps"] > 0,
+            decode_split_k=run["paged_routes"] == {"split_k": paged_n},
+            prefill_logits=run["logits"]["prefill_max_abs_err"]
+            <= LOGITS_ATOL,
+            decode_logits=run["logits"]["decode_max_abs_err"]
+            <= LOGITS_ATOL)
+        if window:
+            # windows of 12 (cut only where a request nears its end)
+            arm_checks["window_chunked"] = (
+                max(run["paged_windows"]) == WIDE_SPEC_WINDOW
+                and sum(run["paged_windows"].values()) == paged_n)
+            arm_checks["streams_as_f32_pool"] = splits_ok(stream_splits(
+                model, prompts, run["streams"],
+                arms["f32_pool"]["streams"]))
+        checks.update({f"{name}_{k}": v for k, v in arm_checks.items()})
+        arms[name] = run
+        emit("wide_heads_serve", arm=name, ok=all(arm_checks.values()),
+             checks=arm_checks, pool=pool, spec_window=window,
+             stream0_split=split[0], **_record(run))
+    serve_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    gen = torch.Generator().manual_seed(22)
+    attn = {}
+    for key, dt, t, d, rate in WIDE_FLASH:
+        rec = wide_attention_case(torch, fa, gen, key, dt, t, d, rate)
+        for n, c in rec["launches"].items():
+            total[n] += c
+        attn[key] = rec
+        checks[f"attention_{key}"] = rec["ok"]
+        emit("wide_heads_attention", card=ctx["smi"], **rec)
+        torch.cuda.empty_cache()
+    bias = {}
+    for name, shape in (("per_row", (WIDE_BATCH, WIDE_HEADS, WIDE_BIAS_T,
+                                     WIDE_BIAS_T)),
+                        ("per_head", (1, WIDE_HEADS, WIDE_BIAS_T,
+                                      WIDE_BIAS_T)),
+                        ("shared", (1, 1, WIDE_BIAS_T, WIDE_BIAS_T)),
+                        ("alibi", (1, WIDE_HEADS, 1, WIDE_BIAS_T))):
+        rows, _ = wide_valid(torch, gen, WIDE_BIAS_T)
+        rec = bias_case(torch, fa, gen, WIDE_BATCH, WIDE_HEADS, WIDE_BIAS_T,
+                        WIDE_BIAS_D, torch.bfloat16, True, rows, shape)
+        for n, c in rec["launches"].items():
+            total[n] += c
+        bias[name] = rec
+        checks[f"bias_{name}"] = rec["ok"]
+        emit("wide_heads_bias", layout=name, card=ctx["smi"], **rec)
+        torch.cuda.empty_cache()
+    ctx["wide_heads_launches"] = total
+    ctx["wide_heads"] = dict(arms=arms, attention=attn, bias=bias)
+    emit("wide_heads", ok=all(checks.values()), checks=checks,
+         model={**WIDE_SERVE, "block_size": 16, "num_blocks": 1024},
+         launches=total, serve_seconds=serve_s,
+         attention_seconds=time.perf_counter() - t1,
+         seconds=time.perf_counter() - t0, card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"wide_heads check {name} failed")
+
+
+def wide_rows(ctx, name):
+    """A kernel's wide instances for the kernels line: each shape's
+    numbers from the kernel phase, with the launches of the wide_heads
+    phase's run at that shape (the training attention's for the flash
+    kernels, the spec12 serving arm's for the window of 12; bf16 queries
+    and the float16 pool are paged decode's direct calls, 0)."""
+    wide = ctx["wide_heads"]
+    rows = {}
+    for key, rec in ctx["wide_kernels"][name].items():
+        if name == "paged_attention":
+            n = wide["arms"]["spec12"]["launches"][name] \
+                if key == "window12" else 0
+        else:
+            n = wide["attention"][key]["launches"][name]
+        rows[key] = dict(rec, launches=n)
+    return rows
+
+
 def later_launches(ctx, name):
     """A kernel's launches in the MoE, example, operators, data and later
     phases."""
@@ -8534,7 +9121,7 @@ def later_launches(ctx, name):
                       "moe_example", "operators", "data", "serve_arms",
                       "crossover", "quantize", "estimator",
                       "supervised_train", "fusion", "kvstore", "fleet",
-                      "mesh")}
+                      "mesh", "wide_heads")}
 
 
 def main():
@@ -8553,6 +9140,7 @@ def main():
               file=sys.stderr)
         return 2
     ctx = {"failures": [], "smi": smi_line()}
+    phase_s = {}
     emit("env", card=ctx["smi"], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvcc=_build.nvcc_version().strip()
@@ -8592,7 +9180,9 @@ def main():
                      ("kvstore", phase_kvstore),
                      ("fleet", phase_fleet),
                      ("mesh", phase_mesh),
+                     ("wide_heads", phase_wide_heads),
                      ("rtc", phase_rtc)):
+        t_phase = time.perf_counter()
         try:
             fn(ctx)
         except Exception as e:  # noqa: BLE001 — reported, and the run fails
@@ -8601,6 +9191,10 @@ def main():
             ctx["failures"].append(f"phase {name}: {type(e).__name__}")
             if name == "build":
                 break
+        finally:
+            phase_s[name] = time.perf_counter() - t_phase
+    # each phase's wall seconds (the script's time limit is the sum's)
+    emit("phase_seconds", seconds=phase_s, total=sum(phase_s.values()))
     if ctx["failures"] or not {"kernels", "launches", "train_launches",
                                 "train_f32_launches", "f32_kernels",
                                 "serve_features_launches",
@@ -8619,7 +9213,8 @@ def main():
                                 "estimator_launches",
                                 "supervised_train_launches",
                                 "fusion_launches", "kvstore_launches",
-                                "fleet_launches", "mesh_launches"} \
+                                "fleet_launches", "mesh_launches",
+                                "wide_kernels", "wide_heads_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1
@@ -8665,6 +9260,9 @@ def main():
                                              "plain_ms", "bound_ms",
                                              "bound_by", "math_route")}
             row["tq4"]["launches"] = ctx["serve_features_tq4"]
+        # the head dim 192 and 256 instances, with their launches on the
+        # wide_heads phase's paths
+        row["wide"] = wide_rows(ctx, name)
         if "ms_queued" in e:
             row["ms_queued"] = e["ms_queued"]
         if "library_ms_dropout" in e:   # SDPA with dropout_p=0.1 as well

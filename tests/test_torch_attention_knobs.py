@@ -137,11 +137,18 @@ def test_a_deliberate_dense_choice_is_told_apart(d, dtype, mode, arm,
     assert ra._choose("cuda", d, dtype, mode, 4096) == (arm, deliberate)
 
 
-@pytest.mark.parametrize("d", [192, 256])
-def test_flash_or_auto_refuse_a_shape_without_an_instance(d):
+@pytest.mark.parametrize("d,refused", [(192, False), (256, False),
+                                       (320, True), (384, True)])
+def test_flash_or_auto_refuse_a_shape_without_an_instance(d, refused):
+    """Head dims 192 and 256 have instances; 320 and more are refused by
+    name (ROADMAP B item 8b), whichever mode asks for the kernel."""
     for mode in ("flash", "auto"):
-        with pytest.raises(MXNetError, match="ROADMAP B item 8"):
-            ra.attention_arm("cuda", d, torch.float32, mode, 4096)
+        if refused:
+            with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
+                ra.attention_arm("cuda", d, torch.float32, mode, 4096)
+        else:
+            assert ra.attention_arm("cuda", d, torch.float32, mode,
+                                    4096) == "flash_kernel"
 
 
 def test_each_signature_counts_once_and_a_chosen_dense_does_not_warn(

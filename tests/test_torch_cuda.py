@@ -827,17 +827,17 @@ def test_attention_dense_arm_on_the_card_matches_the_cpu(d, dtype, caplog):
         torch.testing.assert_close(b, a, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [320, 384])
 def test_card_refuses_head_dims_the_reference_kernel_takes(d):
     """The reference's kernel takes these head dims; the port has no
-    instance, and refuses them on the card rather than run its plain
-    version in the kernel's place."""
+    instance (ROADMAP B item 8b), and refuses them on the card rather
+    than run its plain version in the kernel's place."""
     from tpu_mx_torch.parallel import attention
     q = torch.randn((1, 2, 128, d), device="cuda")
     launches = fa.flash_attention.launches
-    with pytest.raises(MXNetError, match="ROADMAP B item 8"):
+    with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
         attention(q, q, q)
-    with pytest.raises(MXNetError, match="ROADMAP B item 8"):
+    with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
         sattn.prefill_attention(q[0].transpose(0, 1), q[0].transpose(0, 1),
                                 q[0].transpose(0, 1))
     assert fa.flash_attention.launches == launches

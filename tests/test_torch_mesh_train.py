@@ -612,6 +612,239 @@ def test_moe_experts_over_ep_match_the_one_device_layer(pool, ep, top_k):
         np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
 
 
+# -- C22, C23: batch statistics of the global batch under dp -------------------------
+# dp=2 on ranks 0 and 1 of the pool (ranks 2 and 3 sit the mesh out):
+# BatchNorm's statistics and the MoE routing of the two ranks' batches
+# are the global batch's, as in the reference's dp=2 mesh program.
+DP2 = {"dp": 2}
+
+
+def _bn_params(seed):
+    rng = np.random.RandomState(seed)
+    return {"dense0_weight": (rng.randn(16, 8) * 0.3).astype(np.float32),
+            "dense0_bias": (rng.randn(16) * 0.1).astype(np.float32),
+            "batchnorm0_gamma": (1 + rng.randn(16) * 0.1).astype(np.float32),
+            "batchnorm0_beta": (rng.randn(16) * 0.1).astype(np.float32),
+            "batchnorm0_running_mean": np.zeros(16, np.float32),
+            "batchnorm0_running_var": np.ones(16, np.float32),
+            "dense1_weight": (rng.randn(4, 16) * 0.3).astype(np.float32),
+            "dense1_bias": (rng.randn(4) * 0.1).astype(np.float32)}
+
+
+def _bn_batches():
+    """Two ranks' halves whose statistics differ: the second half is
+    shifted and scaled, so per-rank and global normalization part."""
+    x, y = _xy(7, 8, 8, 4)
+    x[4:] = x[4:] * 3.0 + 1.5
+    return [(x, y)] * 3
+
+
+def _ref_bn_step(params, batches, mesh_axes):
+    """The reference's Dense-BatchNorm-Dense step: losses, and its
+    parameters and running statistics after the steps."""
+    import jax
+    import tpu_mx as mx
+    from tpu_mx import gluon, nd
+    from tpu_mx.gluon import nn as jnn
+    from tpu_mx.parallel import CompiledTrainStep as JStep
+    from tpu_mx.parallel import make_mesh as jmake
+    net = jnn.HybridSequential()
+    net.add(jnn.Dense(16, in_units=8), jnn.BatchNorm(in_channels=16),
+            jnn.Activation("relu"), jnn.Dense(4, in_units=16))
+    net.initialize()
+    net(nd.ones((2, 8)))
+    for p, v in zip(net.collect_params().values(), params.values()):
+        p.set_data(nd.array(v))
+    n = int(np.prod(list(mesh_axes.values())))
+    step = JStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                 mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9),
+                 mesh=jmake(mesh_axes, devices=jax.devices()[:n]))
+    losses = [float(np.asarray(step.step(nd.array(x), nd.array(y))._data))
+              for x, y in batches]
+    step.sync_to_net()
+    return losses, [p.data().asnumpy()
+                    for p in net.collect_params().values()]
+
+
+def _rank_bn_step(params, batches, onepass):
+    import os
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss as gloss
+    from tpu_mx_torch.gluon import nn
+    from tpu_mx_torch.gluon.block import load_numpy
+    from tpu_mx_torch.parallel import CompiledTrainStep, make_mesh
+    mesh = make_mesh(DP2, devices=[0, 1])
+    if mesh.coords is None:
+        return None
+    net = nn.HybridSequential()
+    net.add(nn.Dense(16, in_units=8, generator=torch.Generator()),
+            nn.BatchNorm(in_channels=16, generator=torch.Generator()),
+            nn.Activation("relu"),
+            nn.Dense(4, in_units=16, generator=torch.Generator()))
+    load_numpy(net, params)
+    step = CompiledTrainStep(net, gloss.SoftmaxCrossEntropyLoss(),
+                             optimizer.create("sgd", learning_rate=0.1,
+                                              momentum=0.9),
+                             mesh=mesh, device="cpu")
+    old = os.environ.get("TPUMX_BN_ONEPASS")
+    os.environ["TPUMX_BN_ONEPASS"] = onepass
+    try:
+        losses = [float(step.step(torch.tensor(x), torch.tensor(y)))
+                  for x, y in batches]
+    finally:
+        if old is None:
+            os.environ.pop("TPUMX_BN_ONEPASS")
+        else:
+            os.environ["TPUMX_BN_ONEPASS"] = old
+    # the reference's order: dense0, gamma, beta, the running statistics,
+    # dense1
+    ps = [_np(p) for p in net.parameters()]
+    stats = [_np(net[1]._buffers[k]) for k in ("running_mean",
+                                                 "running_var")]
+    return {"losses": losses, "values": ps[:4] + stats + ps[4:]}
+
+
+@pytest.mark.parametrize("onepass", ["1", "0"])
+def test_batchnorm_under_dp_normalizes_the_global_batch(pool, monkeypatch,
+                                                        onepass):
+    """C22: a Dense-BatchNorm net on dp=2 (both ``TPUMX_BN_ONEPASS``
+    forms) against the reference's dp=2 mesh program: the losses, the
+    weights after three momentum-SGD steps (the input gradient through
+    the statistics) and the running statistics are the global batch's."""
+    monkeypatch.setenv("TPUMX_BN_ONEPASS", onepass)
+    params = _bn_params(11)
+    batches = _bn_batches()
+    want = _ref_bn_step(params, batches, DP2)
+    got = pool.run(_rank_bn_step, params, batches, onepass)
+    for g in got[:2]:
+        np.testing.assert_allclose(g["losses"], want[0], rtol=LOSS_RTOL)
+        for a, b in zip(g["values"], want[1]):
+            np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5)
+    assert got[2] is None and got[3] is None
+
+
+# the load-balance term weighs as much as the task here, so that its
+# gradient (through the global mean_prob) moves the losses measurably
+MOE_DP_AUX = 0.5
+
+
+def _ref_moe_mesh(top_k, cf, axes=DP2, spec=("dp",)):
+    import jax
+    import tpu_mx as mx
+    from tpu_mx import gluon, nd
+    from tpu_mx.gluon.block import HybridBlock
+    from tpu_mx.parallel import CompiledTrainStep as JStep
+    from tpu_mx.parallel import MoEFFN as JMoE
+    from tpu_mx.parallel import P as JP
+    from tpu_mx.parallel import make_mesh as jmake
+
+    class JNet(HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.moe = JMoE(8, 16, 4, top_k=top_k, capacity_factor=cf)
+
+        def forward(self, x, target):
+            y, aux = self.moe(x)
+            return nd.mean(nd.square(y - target)) + MOE_DP_AUX * aux
+
+    x, t = _moe_data()
+    net = JNet()
+    net.initialize()
+    net(nd.array(x), nd.array(t))
+    for p, v in zip(net.collect_params().values(), _moe_params().values()):
+        p.set_data(nd.array(v.astype(np.float32)))
+    n = int(np.prod(list(axes.values())))
+    step = JStep(net, gluon.loss.PassThrough(),
+                 mx.optimizer.create("sgd", learning_rate=0.1),
+                 mesh=jmake(axes, devices=jax.devices()[:n]),
+                 data_specs=(JP(*spec), JP(*spec), JP()))
+    return [float(np.asarray(step.step(nd.array(x), nd.array(t),
+                                       nd.array(np.zeros(1, np.float32)))
+                             ._data).ravel()[0]) for _ in range(5)]
+
+
+def _rank_moe_mesh(top_k, cf, axes=DP2, spec=("dp",)):
+    from tpu_mx_torch import optimizer
+    from tpu_mx_torch.gluon import loss as gloss
+    from tpu_mx_torch.parallel import CompiledTrainStep, MoEFFN, P, make_mesh
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.moe = MoEFFN(8, 16, 4, top_k=top_k, capacity_factor=cf,
+                              generator=torch.Generator())
+
+        def forward(self, x, target):
+            y, aux = self.moe(x)
+            return ((y - target) ** 2).mean() + MOE_DP_AUX * aux
+
+    n = int(np.prod(list(axes.values())))
+    mesh = make_mesh(axes, devices=list(range(n)))
+    if mesh.coords is None:
+        return None
+    net = Net()
+    with torch.no_grad():
+        for k, v in _moe_params().items():
+            net.moe._parameters[k].copy_(torch.tensor(v))
+    step = CompiledTrainStep(net, gloss.PassThrough(),
+                             optimizer.create("sgd", learning_rate=0.1),
+                             mesh=mesh, data_specs=(P(*spec), P(*spec), P()),
+                             device="cpu")
+    x, t = (torch.tensor(a) for a in _moe_data())
+    return [float(step.step(x, t, torch.zeros(1))) for _ in range(5)]
+
+
+@pytest.mark.parametrize("top_k,cf", [(1, 1.0), (2, 0.75)])
+def test_moe_under_dp_routes_the_global_batch(pool, top_k, cf):
+    """C23: an ``MoEFFN`` net on dp=2 whose capacity drops tokens
+    (``capacity_factor`` <= 1) against the reference's dp=2 mesh program:
+    the global capacity, slots and load-balance term give its losses over
+    five SGD steps, which per-rank routing does not."""
+    want = _ref_moe_mesh(top_k, cf)
+    got = pool.run(_rank_moe_mesh, top_k, cf)
+    for g in got[:2]:
+        np.testing.assert_allclose(g, want, rtol=LOSS_RTOL)
+    assert got[2] is None and got[3] is None
+
+
+def _rank_moe_other_split():
+    from tpu_mx_torch.base import MXNetError
+    try:
+        _rank_moe_mesh(1, 1.0, spec=(None, None, "dp"))
+    except MXNetError as e:
+        return str(e)
+    return None
+
+
+def test_moe_refuses_a_batch_split_of_another_dimension(pool):
+    """A batch split over dp along a dimension other than its rows and
+    its sequence (here the features) raises by name instead of routing
+    each rank's tokens with its own capacity, slots and load-balance
+    term, which the reference's mesh program does not do."""
+    got = pool.run(_rank_moe_other_split)
+    for msg in got[:2]:
+        assert msg is not None and "MoEFFN" in msg \
+            and "rows and its sequence" in msg
+    assert got[2] is None and got[3] is None
+
+
+@pytest.mark.parametrize("axes,top_k", [({"dp": 1, "sp": 2}, 1),
+                                        ({"dp": 2, "sp": 2}, 2)])
+def test_moe_under_sp_routes_the_global_batch(pool, axes, top_k):
+    """C24: the same net with its tokens split along the sequence (sp=2;
+    and dp=2 x sp=2 on the four ranks) against the reference's mesh
+    program at those axes: the global token order interleaves the ranks'
+    rows, and the slots follow it."""
+    spec = ("dp", "sp")
+    cf = 1.0 if top_k == 1 else 0.75
+    want = _ref_moe_mesh(top_k, cf, axes, spec)
+    got = pool.run(_rank_moe_mesh, top_k, cf, axes, spec)
+    n = int(np.prod(list(axes.values())))
+    for g in got[:n]:
+        np.testing.assert_allclose(g, want, rtol=LOSS_RTOL)
+    assert all(g is None for g in got[n:])
+
+
 # -- the dry run -------------------------------------------------------------------
 def _rank_dryrun():
     from tpu_mx_torch.tools.dryrun_multichip import dryrun_multichip

@@ -66,8 +66,10 @@ _JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
     ("cuda", 80, torch.float32, "dense"),
     ("cuda", 96, torch.bfloat16, "dense"),
     ("cuda", 64, torch.float16, "dense"),
-    ("cuda", 192, torch.float32, None),      # the reference's kernel
-    ("cuda", 256, torch.bfloat16, None),     # takes these: no dense arm
+    ("cuda", 192, torch.float32, "flash_kernel"),
+    ("cuda", 256, torch.bfloat16, "flash_kernel"),
+    ("cuda", 320, torch.float32, None),      # the reference's kernel
+    ("cuda", 384, torch.bfloat16, None),     # takes these: no dense arm
     ("cuda", 192, torch.float16, "dense"),
     ("cpu", 64, torch.float32, "dense"),
     ("cpu", 80, torch.float16, "dense"),
@@ -79,7 +81,7 @@ def test_attention_arm_is_a_function_of_shape_and_dtype(device, d, dtype,
     plain version in its kernel's place."""
     for _ in range(2):                                   # no state
         if arm is None:
-            with pytest.raises(MXNetError, match="ROADMAP B item 8"):
+            with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
                 ra.attention_arm(device, d, dtype)
         else:
             assert ra.attention_arm(device, d, dtype) == arm
@@ -89,14 +91,15 @@ def test_attention_arm_is_a_function_of_shape_and_dtype(device, d, dtype,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("d", [48, 64, 80, 96, 128, 192, 256])
+@pytest.mark.parametrize("d", [48, 64, 80, 96, 128, 192, 256, 320])
 def test_attention_arm_on_the_card_names_the_reference_arm(d, dtype):
     """At a T the reference's kernel tiles (T % 128 == 0), the arm the
     port takes on the card is, under the reference's name, the arm the
     reference's gate ``supported()`` picks on its chip, or, where that
-    is its kernel and the port has no instance (head dims 192, 256), a
-    refusal: never the dense arm in the kernel's place.  (The port also
-    instantiates head dims 16 and 32, which the reference sends dense.)"""
+    is its kernel and the port has no instance (head dims of 320 and
+    more), a refusal: never the dense arm in the kernel's place.  (The
+    port also instantiates head dims 16 and 32, which the reference
+    sends dense.)"""
     want = "pallas_flash" if jfa.supported((2, 2, 128, d), _JDT[dtype],
                                            kv_len=128) else "xla_dense"
     if want == "pallas_flash" and d not in fa.HEAD_DIMS:
@@ -146,16 +149,19 @@ def test_cpu_dense_arm_counts_and_matches_the_reference(d, dtype):
     (16, torch.float32, torch.bfloat16, 8, "paged"),
     (80, torch.float32, torch.float32, 1, "dense"),
     (96, torch.float32, torch.bfloat16, 1, "dense"),
-    (64, torch.float32, torch.float16, 1, None),
+    (64, torch.float32, torch.float16, 1, "paged"),
     (64, torch.float16, torch.float32, 1, "dense"),
-    (64, torch.float32, torch.float32, 9, None),
-    (192, torch.float32, torch.float32, 1, None),
-    (256, torch.bfloat16, torch.bfloat16, 1, None),
+    (64, torch.float32, torch.float32, 9, "paged"),
+    (192, torch.float32, torch.float32, 1, "paged"),
+    (256, torch.bfloat16, torch.bfloat16, 1, "paged"),
+    (256, torch.float32, torch.float32, 12, "paged"),
+    (320, torch.float32, torch.float32, 1, None),
+    (320, torch.bfloat16, torch.float16, 12, None),
 ])
 def test_decode_arm_is_a_function_of_shape_and_dtype(d, q_dtype, pool,
                                                      window, arm):
     if arm is None:
-        with pytest.raises(MXNetError, match="ROADMAP B item 8"):
+        with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
             sattn.decode_arm(d, q_dtype, pool, window)
     else:
         assert sattn.decode_arm(d, q_dtype, pool, window) == arm
@@ -167,10 +173,11 @@ def test_decode_arm_is_a_function_of_shape_and_dtype(d, q_dtype, pool,
 @pytest.mark.parametrize("d,dtype,arm", [
     (128, torch.float32, "flash"), (64, torch.bfloat16, "flash"),
     (80, torch.float32, "dense"), (64, torch.float16, "dense"),
-    (192, torch.float32, None), (256, torch.bfloat16, None)])
+    (192, torch.float32, "flash"), (256, torch.bfloat16, "flash"),
+    (320, torch.float32, None), (384, torch.bfloat16, None)])
 def test_prefill_arm_is_a_function_of_shape_and_dtype(d, dtype, arm):
     if arm is None:
-        with pytest.raises(MXNetError, match="ROADMAP B item 8"):
+        with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
             sattn.prefill_arm(d, dtype)
     else:
         assert sattn.prefill_arm(d, dtype) == arm
@@ -204,7 +211,8 @@ def test_dense_decode_arm_equals_the_paged_plain_version():
 
 @pytest.mark.parametrize("embed_dim,num_heads,kind,env", [
     (160, 2, "dense", "0"),     # D=80: no kernel instance, both dense
-    (384, 2, "dense", "0"),     # D=192: no instance, dense on the CPU
+    (384, 2, "paged", "1"),     # D=192: both on their paged arm
+    (640, 2, "dense", "0"),     # D=320: no instance, dense on the CPU
     (32, 2, "paged", "1"),      # D=16: both on their paged arm
 ])
 def test_serving_counts_the_decode_arm_the_reference_counts(

@@ -159,6 +159,31 @@
 //     splitting the block's own rows once (Q and dO in dq, K and V in
 //     dk/dv: 128 of dq's 328 splits at D=128) keeps two blocks at D=64 and
 //     is the next step.
+// Head dims 192 and 256 (Gemma's 16 heads of 256; the reference's gate takes
+// any multiple of 64), each kernel as simple as it can be and right:
+//   - dK and dV of 64 (bf16) or 16 (float32) key rows at D = 256 are 256
+//     float32 registers a thread, past the 255 a thread may have, and dQ
+//     with S and dP leaves no room at D = 256 either.  So the grid's z
+//     dimension splits the output columns: a bf16 block accumulates at most
+//     two 64-column blocks of dQ or of dK and dV (kTcOut: the D = 128
+//     instances' register budget; at D = 192 the second block takes the
+//     third column block alone), a float32 block half of D (tf_split),
+//     and each block recomputes S and dP, which need all D: the
+//     recompute costs up to 2x the score products, where accumulating dV
+//     and dK in two passes would cost the same and need a second walk.
+//     The float32 kernels also copy their streamed tiles by a rolled loop
+//     there (copy_rows_f32's kRolled: unrolled, its hoisted addresses
+//     spilled dq);
+//   - shared memory: the bf16 rings keep two stages where they fit and one
+//     at D = 256 (dq's K/V, dk/dv's Q/dO: 263,168 bytes with two, against
+//     232,448) and in dk/dv at D = 192 with a float32 bias, so a tile's
+//     copy there waits for the products before it; dq reads its bias
+//     from device memory above D = 128 (kTcStageBias), one element a
+//     register, as the float32 kernels do, and dk/dv stages a float32
+//     bias in one stage beside a one-stage ring and reads a 16-bit one
+//     from device memory (dkv_stage_bias); the float32 tiles stay
+//     (150-200 KB, one block an SM).
+// Head dims of 320 and more are refused by name (ROADMAP B item 8b).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -182,6 +207,16 @@ __host__ __device__ constexpr int tf_tile() {
   return D >= 128 ? 16 : 32;
 }
 
+// The blocks the output columns are split over (grid z) above D = 128:
+// dK and dV of 16 key rows are D/2 float32 registers a thread each, 256 at
+// D = 256, past the 255 a thread may have, and dQ's D/2 spill beside S and
+// dP.  Each block accumulates half of the columns (as many registers as
+// at D = 128) and recomputes S and dP, which need all D.
+template <int D>
+__host__ __device__ constexpr int tf_split() {
+  return D > 128 ? 2 : 1;
+}
+
 // The block's two operands [64][D+4], 2 stages of the streamed two
 // [tile][D+4], float32; dk/dv adds 2 stages of lse and delta [tile].
 template <int D, int kKind>
@@ -191,8 +226,10 @@ constexpr size_t tf_smem_bytes() {
 }
 
 // BT: the bias element type (flash_common.cuh), NoBias without a bias.
+// Two blocks an SM to D = 128, one above.  Block z of tf_split<D>()
+// writes dQ columns [z D/split, (z + 1) D/split); block z = 0 d_bias.
 template <int D, typename BT>
-__global__ void __launch_bounds__(kTfThreads, 2)
+__global__ void __launch_bounds__(kTfThreads, D <= 128 ? 2 : 1)
     flash_dq_tf32x3_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
@@ -211,6 +248,9 @@ __global__ void __launch_bounds__(kTfThreads, 2)
   constexpr int TK = tf_tile<D>();  // keys of a K/V tile
   constexpr int NT = TK / 8;        // 8-key tiles of S; k-steps of dS K
   constexpr int DT = D / 8;         // k-steps of S and dP; 8-column dQ tiles
+  constexpr int DO = DT / tf_split<D>();  // the block's 8-column tiles
+  // its first (0 to D = 128, known to the compiler: one block a row)
+  const int n0 = tf_split<D>() > 1 ? blockIdx.z * DO : 0;
   extern __shared__ float4 smem_f4[];
   float* q_s = reinterpret_cast<float*>(smem_f4);  // [64][L]
   float* do_s = q_s + kTfRows * L;                 // [64][L]
@@ -241,15 +281,16 @@ __global__ void __launch_bounds__(kTfThreads, 2)
   const long plane =
       kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
             : 0;
-  // d_bias rows written in pairs of keys (8 bytes) when they can be
+  // d_bias (block z = 0 only) in pairs of keys (8 bytes) when it can be
+  if (n0 != 0) d_bias = nullptr;
   const bool db_pairs = kBias && d_bias != nullptr && tk % 2 == 0 &&
                         (reinterpret_cast<uintptr_t>(d_bias) & 7) == 0;
   const uint32_t k_a = hp::smem_addr(k_s), v_a = hp::smem_addr(v_s);
   auto copy_kv = [&](int kt, int st) {
-    copy_rows_f32<D, TK, L, kTfThreads>(k_a + 4 * st * TK * L, k + koff * D,
-                                        kt * TK, tk, tid);
-    copy_rows_f32<D, TK, L, kTfThreads>(v_a + 4 * st * TK * L, v + koff * D,
-                                        kt * TK, tk, tid);
+    copy_rows_f32<D, TK, L, kTfThreads, (D > 128)>(
+        k_a + 4 * st * TK * L, k + koff * D, kt * TK, tk, tid);
+    copy_rows_f32<D, TK, L, kTfThreads, (D > 128)>(
+        v_a + 4 * st * TK * L, v + koff * D, kt * TK, tk, tid);
   };
 
   // the key tiles of rows below `end`: up to kv_valid, and to the diagonal
@@ -269,9 +310,9 @@ __global__ void __launch_bounds__(kTfThreads, 2)
   }
   hp::cp_async_commit();
 
-  float acc[DT][4];
+  float acc[DO][4];
 #pragma unroll
-  for (int n = 0; n < DT; ++n)
+  for (int n = 0; n < DO; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   const float* qw = q_s + 16 * warp * L;
@@ -366,9 +407,9 @@ __global__ void __launch_bounds__(kTfThreads, 2)
       uint32_t ah[4], al[4];
       split_frag(s[j][0] * scale, s[j][2] * scale, s[j][1] * scale,
                  s[j][3] * scale, ah, al);
-      const float* k2 = ks + (8 * j + 2 * t) * L + g;
+      const float* k2 = ks + (8 * j + 2 * t) * L + 8 * n0 + g;
 #pragma unroll
-      for (int n = 0; n < DT; ++n)
+      for (int n = 0; n < DO; ++n)
         mma_3xtf32(acc[n], ah, al, k2[8 * n], k2[L + 8 * n]);
     }
   }
@@ -386,17 +427,19 @@ __global__ void __launch_bounds__(kTfThreads, 2)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (qrow[h] >= tq) continue;
-    float* orow = dq + (qoff + qrow[h]) * D;
+    float* orow = dq + (qoff + qrow[h]) * D + 8 * n0;
 #pragma unroll
-    for (int n = 0; n < DT; ++n)
+    for (int n = 0; n < DO; ++n)
       *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
           make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
   }
 }
 
 // BT: the bias element type (flash_common.cuh), NoBias without a bias.
+// Block z of tf_split<D>() writes dK and dV columns
+// [z D/split, (z + 1) D/split).
 template <int D, typename BT>
-__global__ void __launch_bounds__(kTfThreads, 2)
+__global__ void __launch_bounds__(kTfThreads, D <= 128 ? 2 : 1)
     flash_dkv_tf32x3_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -414,6 +457,9 @@ __global__ void __launch_bounds__(kTfThreads, 2)
   constexpr int TQ = tf_tile<D>();  // queries of a Q/dO tile
   constexpr int NT = TQ / 8;        // 8-query tiles of S^T; k-steps of dV, dK
   constexpr int DT = D / 8;         // k-steps of S^T, dP^T; 8-column tiles
+  constexpr int DO = DT / tf_split<D>();  // the block's 8-column tiles
+  // its first (0 to D = 128, known to the compiler: one block a row)
+  const int n0 = tf_split<D>() > 1 ? blockIdx.z * DO : 0;
   extern __shared__ float4 smem_f4[];
   float* k_s = reinterpret_cast<float*>(smem_f4);  // [64][L]
   float* v_s = k_s + kTfRows * L;                  // [64][L]
@@ -441,10 +487,10 @@ __global__ void __launch_bounds__(kTfThreads, 2)
   // query tile qt's Q, dO, lse and delta into ring stage st
   auto copy_q = [&](int qt, int st) {
     const int r0 = qt * TQ;
-    copy_rows_f32<D, TQ, L, kTfThreads>(q_a + 4 * st * TQ * L, q + qoff * D,
-                                        r0, tq, tid);
-    copy_rows_f32<D, TQ, L, kTfThreads>(do_a + 4 * st * TQ * L,
-                                        dout + qoff * D, r0, tq, tid);
+    copy_rows_f32<D, TQ, L, kTfThreads, (D > 128)>(
+        q_a + 4 * st * TQ * L, q + qoff * D, r0, tq, tid);
+    copy_rows_f32<D, TQ, L, kTfThreads, (D > 128)>(
+        do_a + 4 * st * TQ * L, dout + qoff * D, r0, tq, tid);
     hp::copy_floats(lse_a + 4 * st * TQ, lse + qoff + r0, TQ, tq - r0, tid);
     hp::copy_floats(dl_a + 4 * st * TQ, delta + qoff + r0, TQ, tq - r0,
                     tid - TQ);
@@ -462,9 +508,9 @@ __global__ void __launch_bounds__(kTfThreads, 2)
   }
   hp::cp_async_commit();
 
-  float dk_acc[DT][4], dv_acc[DT][4];
+  float dk_acc[DO][4], dv_acc[DO][4];
 #pragma unroll
-  for (int n = 0; n < DT; ++n)
+  for (int n = 0; n < DO; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
   const bool keys_in = kw0 < valid;  // the warp holds a valid key
@@ -546,15 +592,15 @@ __global__ void __launch_bounds__(kTfThreads, 2)
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       uint32_t ah[4], al[4];
-      const float* o2 = dos + (8 * j + 2 * t) * L + g;
+      const float* o2 = dos + (8 * j + 2 * t) * L + 8 * n0 + g;
       split_frag(s[j][0], s[j][2], s[j][1], s[j][3], ah, al);
 #pragma unroll
-      for (int n = 0; n < DT; ++n)
+      for (int n = 0; n < DO; ++n)
         mma_3xtf32(dv_acc[n], ah, al, o2[8 * n], o2[L + 8 * n]);
-      const float* q2 = qs + (8 * j + 2 * t) * L + g;
+      const float* q2 = qs + (8 * j + 2 * t) * L + 8 * n0 + g;
       split_frag(dp[j][0], dp[j][2], dp[j][1], dp[j][3], ah, al);
 #pragma unroll
-      for (int n = 0; n < DT; ++n)
+      for (int n = 0; n < DO; ++n)
         mma_3xtf32(dk_acc[n], ah, al, q2[8 * n], q2[L + 8 * n]);
     }
   }
@@ -563,10 +609,10 @@ __global__ void __launch_bounds__(kTfThreads, 2)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (krow[h] >= tk) continue;
-    float* krow_o = dk + (koff + krow[h]) * D;
-    float* vrow_o = dv + (koff + krow[h]) * D;
+    float* krow_o = dk + (koff + krow[h]) * D + 8 * n0;
+    float* vrow_o = dv + (koff + krow[h]) * D + 8 * n0;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
+    for (int n = 0; n < DO; ++n) {
       *reinterpret_cast<float2*>(krow_o + 8 * n + 2 * t) =
           make_float2(dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
       *reinterpret_cast<float2*>(vrow_o + 8 * n + 2 * t) =
@@ -583,23 +629,66 @@ constexpr int kTcKeys = 128;    // key rows of a block: 2 warpgroups of 64
 constexpr int kTcQ = 64;        // query rows of a Q/dO tile
 constexpr int kTcThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxSmem = 232448;  // bytes a block may have on an H100
 // A staged bias row (one query, 128 keys) is 528 bytes in float32 and 272
 // in 16-bit types: a pad after the keys, so that the 8 keys x 4 queries a
 // warp reads at once fall in different banks.
 constexpr int kBiasRow32 = 528, kBiasRow16 = 272;
 constexpr int kBiasStage = kTcQ * kBiasRow32;  // bytes
 
-// K and V (128 rows each), 2 stages of Q and dO (64 rows each), bf16; then
-// 2 stages of lse and delta (64 floats each) and with a bias 2 stages of
-// its (64 x 128) tile; 1024 bytes of slack to align the tiles to the
-// swizzle atom.
-template <int D, bool kBias>
-constexpr size_t dkv_tc_smem_bytes() {
-  return 1024 + 2 * D * (2 * kTcKeys + 4 * kTcQ) + 4 * 4 * kTcQ +
-         (kBias ? 2 * kBiasStage : 0);
+// The wide head dims (192, 256).  dK and dV (dQ) of a warpgroup's 64 rows
+// are D/2 float32 registers a thread each: at most two 64-column blocks
+// of them fit beside S and dP (the D = 128 instances' budget), so a block
+// accumulates at most kTcOut column blocks and the grid's z dimension
+// covers the rest, each block recomputing S and dP (which need all D).
+// dq stages its bias in shared memory to D = 128 only (above, the tiles
+// leave no room for two stages of it): its wide instances read it from
+// device memory (dk/dv: dkv_stage_bias).
+template <int D>
+constexpr int kTcOut =
+    hp::TileShape<D>::kBlocks < 2 ? hp::TileShape<D>::kBlocks : 2;
+template <int D>
+__host__ __device__ constexpr int tc_split() {
+  return (hp::TileShape<D>::kBlocks + kTcOut<D> - 1) / kTcOut<D>;
+}
+template <int D>
+constexpr bool kTcStageBias = D <= 128;
+
+// K and V (128 rows each), St stages of Q and dO (64 rows each), bf16;
+// then St stages of lse and delta (64 floats each) and with a staged bias
+// (kStaged) St stages of its (64 x 128) tile; 1024 bytes of slack to
+// align the tiles to the swizzle atom.
+template <int D, bool kStaged, int St>
+__host__ __device__ constexpr size_t dkv_tc_bytes() {
+  return 1024 + 2 * D * (2 * kTcKeys + 2 * St * kTcQ) + 2 * 4 * St * kTcQ +
+         (kStaged ? St * kBiasStage : 0);
+}
+// Where dk/dv stages its bias (BT, flash_common.cuh): to D = 128 always;
+// above, a float32 bias in one stage beside a one-stage ring (231,936
+// bytes at D = 256), a 16-bit one read from device memory.  These are
+// the choices ptxas compiled without a spill: read from device memory, a
+// float32 bias spilled the D = 192 and 256 instances (40-56 bytes);
+// staged, a 16-bit one spilled the D = 256 instance (4 bytes).
+template <int D, typename BT>
+__host__ __device__ constexpr bool dkv_stage_bias() {
+  return kHasBias<BT> &&
+         (D <= 128 || (sizeof(BT) == 4 && dkv_tc_bytes<D, true, 1>() <=
+                                              kMaxSmem));
+}
+// Two stages of the Q/dO ring where they fit (to D = 128; at D = 192
+// unless a float32 bias is staged), else one: the copy of a tile then
+// waits for the products of the one before.
+template <int D, typename BT>
+__host__ __device__ constexpr int dkv_tc_stages() {
+  return dkv_tc_bytes<D, dkv_stage_bias<D, BT>(), 2>() <= kMaxSmem ? 2 : 1;
+}
+template <int D, typename BT>
+__host__ __device__ constexpr size_t dkv_tc_smem_bytes() {
+  return dkv_tc_bytes<D, dkv_stage_bias<D, BT>(), dkv_tc_stages<D, BT>()>();
 }
 
 // BT: the bias element type (flash_common.cuh), NoBias without a bias.
+// Block z writes column blocks [z kTcOut, (z + 1) kTcOut) of dK and dV.
 template <int D, typename BT>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -616,6 +705,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                         float keep_scale) {
   using S = hp::TileShape<D>;
   constexpr bool kBias = kHasBias<BT>;
+  constexpr bool kStage = dkv_stage_bias<D, BT>();
+  constexpr int St = dkv_tc_stages<D, BT>();
+  constexpr int kOut = kTcOut<D>;
   constexpr int kKvBytes = kTcKeys * D * 2, kQBytes = kTcQ * D * 2;
   constexpr int kBElt = sizeof(BT);
   constexpr int kBStride = kBElt == 4 ? kBiasRow32 : kBiasRow16;
@@ -624,16 +716,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                               hp::smem_addr(smem_raw));
   const uint32_t k_s = hp::smem_addr(smem);     // [128][D], swizzled
   const uint32_t v_s = k_s + kKvBytes;          // [128][D]
-  const uint32_t q_s = v_s + kKvBytes;          // [2][64][D]
-  const uint32_t do_s = q_s + 2 * kQBytes;      // [2][64][D]
-  const float* lse_s =                          // [2][64]
-      reinterpret_cast<const float*>(smem + 2 * kKvBytes + 4 * kQBytes);
-  const float* dl_s = lse_s + 2 * kTcQ;         // [2][64]
-  const uint32_t b_s = do_s + 2 * kQBytes + 4 * 4 * kTcQ;  // [2][64] rows
+  const uint32_t q_s = v_s + kKvBytes;          // [St][64][D]
+  const uint32_t do_s = q_s + St * kQBytes;     // [St][64][D]
+  const float* lse_s =                          // [St][64]
+      reinterpret_cast<const float*>(smem + 2 * kKvBytes + 2 * St * kQBytes);
+  const float* dl_s = lse_s + St * kTcQ;        // [St][64]
+  const uint32_t b_s = do_s + St * kQBytes + 2 * 4 * St * kTcQ;  // [St] rows
   const uint8_t* b_g = smem + (b_s - k_s);
 
   const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
   const int bh = blockIdx.y, k0 = blockIdx.x * kTcKeys, kw0 = k0 + 64 * wg;
+  // the block's first column block (0 to D = 128, known to the
+  // compiler: the unsplit instances' products are those of one block)
+  const int b0 = tc_split<D>() > 1 ? blockIdx.z * kOut : 0;
   const long qoff = static_cast<long>(bh) * tq;
   const long koff = static_cast<long>(bh) * tk;
   const int valid = valid_keys(kv_valid, bh, tk);
@@ -646,7 +741,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const long plane =
       kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
             : 0;
-  const bool b_chunks = kBias && bias_rows_aligned<BT>(bias, tk);
+  const bool b_chunks = kStage && bias_rows_aligned<BT>(bias, tk);
 
   // a key tile wholly past kv_valid runs no Q tile and writes zeros
   const int n_qt = k0 < valid ? (tq + kTcQ - 1) / kTcQ : 0;
@@ -658,9 +753,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                                        qt * kTcQ, tq, tid);
     const uint32_t rows = hp::smem_addr(lse_s + st * kTcQ);
     hp::copy_floats(rows, lse + qoff + qt * kTcQ, kTcQ, tq - qt * kTcQ, tid);
-    hp::copy_floats(rows + 4 * 2 * kTcQ, delta + qoff + qt * kTcQ, kTcQ,
+    hp::copy_floats(rows + 4 * St * kTcQ, delta + qoff + qt * kTcQ, kTcQ,
                     tq - qt * kTcQ, tid - kTcQ);
-    if constexpr (kBias)  // bias[q][k] of these queries and the block's keys
+    if constexpr (kStage)  // bias[q][k] of these queries and the block's keys
       stage_bias_async<kTcQ, kTcKeys, kTcThreads, BT>(
           b_s + st * kBiasStage, kBStride, bias, plane, qt * kTcQ, k0, tq, tk,
           b_chunks, tid);
@@ -672,20 +767,28 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
   hp::cp_async_commit();
 
-  float dk_acc[S::kBlocks][S::kCols / 2], dv_acc[S::kBlocks][S::kCols / 2];
+  float dk_acc[kOut][S::kCols / 2], dv_acc[kOut][S::kCols / 2];
 #pragma unroll
-  for (int b = 0; b < S::kBlocks; ++b)
+  for (int b = 0; b < kOut; ++b)
 #pragma unroll
     for (int i = 0; i < S::kCols / 2; ++i) dk_acc[b][i] = dv_acc[b][i] = 0.f;
   const bool keys_in = kw0 < valid;  // the warpgroup holds a valid key
 
   for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTcQ, st = (qt - qt0) & 1;
-    if (qt + 1 < n_qt) {  // the next tile's copy, into the other stage
-      copy_q(qt + 1, st ^ 1);
-      hp::cp_async_commit();
-      hp::cp_async_wait<1>();
+    const int q0 = qt * kTcQ, st = St == 2 ? (qt - qt0) & 1 : 0;
+    if constexpr (St == 2) {
+      if (qt + 1 < n_qt) {  // the next tile's copy, into the other stage
+        copy_q(qt + 1, st ^ 1);
+        hp::cp_async_commit();
+        hp::cp_async_wait<1>();
+      } else {
+        hp::cp_async_wait<0>();
+      }
     } else {
+      if (qt > qt0) {  // the one stage is free: the loop's last barrier
+        copy_q(qt, 0);
+        hp::cp_async_commit();
+      }
       hp::cp_async_wait<0>();
     }
     hp::fence_async_smem();
@@ -727,9 +830,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
             const bool ok =
                 qp < tq && kp < valid && (!causal || kp <= qp);
             float x = s[i] * scale;
-            if constexpr (kBias)
+            if constexpr (kStage)
               x += lds_bias<BT>(b_g + st * kBiasStage + c * kBStride +
                                 (kp - k0) * kBElt);
+            else if constexpr (kBias)
+              x += ok ? bias_value<BT>(bias.ptr,
+                                       plane + static_cast<long>(qp) * tk + kp)
+                      : 0.f;
             const float p = ok ? exp2f(fmaf(x, kLog2e, -lse2)) : 0.f;
             float pd = p, g = dp[i];
             if (seed != nullptr) {
@@ -743,8 +850,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         }
 
       // dV += P^T dO and dK += dS^T Q: A from registers (bf16), B = dO or Q
-      // read MN-major from shared memory.  Both A operands are built before
-      // the products: an in-flight product's registers are not rewritten.
+      // read MN-major from shared memory (the block's column blocks).  Both
+      // A operands are built before the products: an in-flight product's
+      // registers are not rewritten.
       uint32_t ap[kTcQ / 16][4], ad[kTcQ / 16][4];
 #pragma unroll
       for (int j = 0; j < kTcQ / 16; ++j) {
@@ -752,7 +860,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         hp::to_a_frag(dp, j, ad[j]);
       }
 #pragma unroll
-      for (int b = 0; b < S::kBlocks; ++b) {
+      for (int b = 0; b < kOut; ++b) {
         hp::fence_regs(dv_acc[b]);
         hp::fence_regs(dk_acc[b]);
       }
@@ -760,21 +868,22 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
       for (int j = 0; j < kTcQ / 16; ++j)
 #pragma unroll
-        for (int b = 0; b < S::kBlocks; ++b) {
+        for (int b = 0; b < kOut; ++b) {
+          if (b0 + b >= S::kBlocks) break;  // the last block's short split
           hp::wgmma_rs(dv_acc[b], ap[j],
-                       hp::desc_mn_major<D, kTcQ>(dost, b, j));
+                       hp::desc_mn_major<D, kTcQ>(dost, b0 + b, j));
           hp::wgmma_rs(dk_acc[b], ad[j],
-                       hp::desc_mn_major<D, kTcQ>(qst, b, j));
+                       hp::desc_mn_major<D, kTcQ>(qst, b0 + b, j));
         }
       hp::wgmma_commit();
       hp::wgmma_wait();
 #pragma unroll
-      for (int b = 0; b < S::kBlocks; ++b) {
+      for (int b = 0; b < kOut; ++b) {
         hp::fence_regs(dv_acc[b]);
         hp::fence_regs(dk_acc[b]);
       }
     }
-    __syncthreads();  // stage st is free for the copy of tile qt + 2
+    __syncthreads();  // the stage is free for the copy of a later tile
   }
 
 #pragma unroll
@@ -783,15 +892,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     __nv_bfloat16* krow_o = dk + (koff + krow[h]) * D;
     __nv_bfloat16* vrow_o = dv + (koff + krow[h]) * D;
 #pragma unroll
-    for (int b = 0; b < S::kBlocks; ++b)
+    for (int b = 0; b < kOut; ++b) {
+      if (b0 + b >= S::kBlocks) break;
 #pragma unroll
       for (int i = 0; i < S::kCols / 2; i += 4) {
-        const int c = b * S::kCols + 8 * (i / 4) + 2 * (lane % 4);
+        const int c = (b0 + b) * S::kCols + 8 * (i / 4) + 2 * (lane % 4);
         *reinterpret_cast<uint32_t*>(krow_o + c) =
             hp::pack_bf16(dk_acc[b][i + 2 * h], dk_acc[b][i + 2 * h + 1]);
         *reinterpret_cast<uint32_t*>(vrow_o + c) =
             hp::pack_bf16(dv_acc[b][i + 2 * h], dv_acc[b][i + 2 * h + 1]);
       }
+    }
   }
 }
 
@@ -805,20 +916,31 @@ constexpr int kDqKeys = 64;   // keys of a K/V tile
 constexpr int kDqBiasLd = 72;
 constexpr int kDqBiasStage = kDqRows * kDqBiasLd * 4;  // bytes
 
-// Q and dO (128 rows each), 2 stages of K and V (64 rows each), bf16; then
-// with a bias 2 stages of its (128 x 64) tile; 1024 bytes of slack to align
-// the tiles to the swizzle atom.
+// Q and dO (128 rows each), St stages of K and V (64 rows each), bf16;
+// then with a staged bias St stages of its (128 x 64) tile; 1024 bytes of
+// slack to align the tiles to the swizzle atom.
+template <int D, bool kBias, int St>
+__host__ __device__ constexpr size_t dq_tc_bytes() {
+  return 1024 + 2 * D * (2 * kDqRows + 2 * St * kDqKeys) +
+         (kBias && kTcStageBias<D> ? St * kDqBiasStage : 0);
+}
+// Two stages of the K/V ring where they fit (every D but 256), else one.
 template <int D, bool kBias>
-constexpr size_t dq_tc_smem_bytes() {
-  return 1024 + 2 * D * (2 * kDqRows + 4 * kDqKeys) +
-         (kBias ? 2 * kDqBiasStage : 0);
+__host__ __device__ constexpr int dq_tc_stages() {
+  return dq_tc_bytes<D, kBias, 2>() <= kMaxSmem ? 2 : 1;
+}
+template <int D, bool kBias>
+__host__ __device__ constexpr size_t dq_tc_smem_bytes() {
+  return dq_tc_bytes<D, kBias, dq_tc_stages<D, kBias>()>();
 }
 
 // BT: the bias element type (flash_common.cuh), NoBias without a bias.
 // Two blocks a SM where they fit, D <= 64 without a bias (128 registers a
 // thread, no spill; 66.5 KB of shared memory): one block's products then
 // run under the other's element-wise work, 0.238 against 0.348 ms of
-// device time at BERT's shape on an H100 (torch_flash_ab.py).
+// device time at BERT's shape on an H100 (torch_flash_ab.py).  Block z
+// writes column blocks [z kTcOut, (z + 1) kTcOut) of dQ; block z = 0
+// writes d_bias.
 template <int D, typename BT>
 __global__ void __launch_bounds__(kTcThreads,
                                   D <= 64 && !kHasBias<BT> ? 2 : 1)
@@ -836,18 +958,24 @@ __global__ void __launch_bounds__(kTcThreads,
                        float keep_scale) {
   using S = hp::TileShape<D>;
   constexpr bool kBias = kHasBias<BT>;
+  constexpr bool kStage = kBias && kTcStageBias<D>;
+  constexpr int St = dq_tc_stages<D, kBias>();
+  constexpr int kOut = kTcOut<D>;
   constexpr int kQBytes = kDqRows * D * 2, kKvBytes = kDqKeys * D * 2;
   constexpr int kBElt = sizeof(BT), kBStride = kDqBiasLd * kBElt;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (hp::smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t do_s = q_s + kQBytes;       // [128][D], swizzled, as q_s
-  const uint32_t k_s = do_s + kQBytes;       // [2][64][D], swizzled
-  const uint32_t v_s = k_s + 2 * kKvBytes;   // [2][64][D], swizzled
-  const uint32_t b_s = v_s + 2 * kKvBytes;   // [2][128][kDqBiasLd] bias
+  const uint32_t k_s = do_s + kQBytes;       // [St][64][D], swizzled
+  const uint32_t v_s = k_s + St * kKvBytes;  // [St][64][D], swizzled
+  const uint32_t b_s = v_s + St * kKvBytes;  // [St][128][kDqBiasLd] bias
   const uint8_t* b_g = smem_raw + (b_s - hp::smem_addr(smem_raw));
 
   const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
   const int bh = blockIdx.y, q0 = blockIdx.x * kDqRows, qw0 = q0 + 64 * wg;
+  // the block's first column block (0 to D = 128, known to the
+  // compiler: the unsplit instances' products are those of one block)
+  const int b0 = tc_split<D>() > 1 ? blockIdx.z * kOut : 0;
   const long qoff = static_cast<long>(bh) * tq;
   const long koff = static_cast<long>(bh) * tk;
   const int valid = valid_keys(kv_valid, bh, tk);
@@ -873,17 +1001,19 @@ __global__ void __launch_bounds__(kTcThreads,
   const long plane =
       kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
             : 0;
-  const bool b_chunks = kBias && bias_rows_aligned<BT>(bias, tk);
-  // d_bias rows written in pairs of keys (8 bytes) when they can be
-  const bool db_pairs = kBias && d_bias != nullptr && tk % 2 == 0 &&
-                        (reinterpret_cast<uintptr_t>(d_bias) & 7) == 0;
-  // tile kt's K, V and bias into ring stage st
+  const bool b_chunks = kStage && bias_rows_aligned<BT>(bias, tk);
+  // d_bias (written by block z = 0 only) in pairs of keys (8 bytes) when
+  // its rows allow
+  float* const db = b0 == 0 ? d_bias : nullptr;
+  const bool db_pairs = kBias && db != nullptr && tk % 2 == 0 &&
+                        (reinterpret_cast<uintptr_t>(db) & 7) == 0;
+  // tile kt's K, V and (staged) bias into ring stage st
   auto copy_kv = [&](int kt, int st) {
     hp::copy_tile<D, kDqKeys, kTcThreads>(k_s + st * kKvBytes, k + koff * D,
                                           kt * kDqKeys, tk, tid);
     hp::copy_tile<D, kDqKeys, kTcThreads>(v_s + st * kKvBytes, v + koff * D,
                                           kt * kDqKeys, tk, tid);
-    if constexpr (kBias)
+    if constexpr (kStage)
       stage_bias_async<kDqRows, kDqKeys, kTcThreads, BT>(
           b_s + st * kDqBiasStage, kBStride, bias, plane, q0, kt * kDqKeys,
           tq, tk, b_chunks, tid);
@@ -905,20 +1035,28 @@ __global__ void __launch_bounds__(kTcThreads,
   }
   hp::cp_async_commit();
 
-  float acc[S::kBlocks][S::kCols / 2];
+  float acc[kOut][S::kCols / 2];
 #pragma unroll
-  for (int b = 0; b < S::kBlocks; ++b)
+  for (int b = 0; b < kOut; ++b)
 #pragma unroll
     for (int i = 0; i < S::kCols / 2; ++i) acc[b][i] = 0.f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kDqKeys, st = kt & 1;
+    const int k0 = kt * kDqKeys, st = St == 2 ? kt & 1 : 0;
     const uint32_t kst = k_s + st * kKvBytes, vst = v_s + st * kKvBytes;
-    if (kt + 1 < n_tiles) {  // the next tile's copy, into the other stage
-      copy_kv(kt + 1, st ^ 1);
-      hp::cp_async_commit();
-      hp::cp_async_wait<1>();
+    if constexpr (St == 2) {
+      if (kt + 1 < n_tiles) {  // the next tile's copy, into the other stage
+        copy_kv(kt + 1, st ^ 1);
+        hp::cp_async_commit();
+        hp::cp_async_wait<1>();
+      } else {
+        hp::cp_async_wait<0>();
+      }
     } else {
+      if (kt > 0) {  // the one stage is free: the loop's last barrier
+        copy_kv(kt, 0);
+        hp::cp_async_commit();
+      }
       hp::cp_async_wait<0>();
     }
     hp::fence_async_smem();
@@ -950,11 +1088,17 @@ __global__ void __launch_bounds__(kTcThreads,
         const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
         const bool ok = kp < valid && (!causal || kp <= qrow[h]);
         float x = s[i] * scale;
-        if constexpr (kBias) {
+        if constexpr (kStage) {
           if (i % 2 == 0)  // the pair of keys (kp, kp + 1) of row qrow[h]
             bv = lds_bias2<BT>(b_g + st * kDqBiasStage +
                                ((qrow[h] - q0) * kDqBiasLd + kp - k0) * kBElt);
           x += i % 2 ? bv.y : bv.x;
+        } else if constexpr (kBias) {
+          x += ok && qrow[h] < tq
+                   ? bias_value<BT>(bias.ptr,
+                                    plane + static_cast<long>(qrow[h]) * tk +
+                                        kp)
+                   : 0.f;
         }
         const float p = ok ? exp2f(fmaf(x, kLog2e, -lse2[h])) : 0.f;
         float g = dp[i];
@@ -966,13 +1110,13 @@ __global__ void __launch_bounds__(kTcThreads,
       // d_bias from the float32 registers: a quad of lanes holds 8
       // consecutive keys of a row, 32 bytes
       if constexpr (kBias) {
-        if (d_bias != nullptr) {
+        if (db != nullptr) {
 #pragma unroll
           for (int i = 0; i < 32; i += 2) {
             const int h = (i / 2) % 2;
             const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4);
             if (qrow[h] >= tq || kp >= tk) continue;
-            float* row = d_bias + (qoff + qrow[h]) * tk;
+            float* row = db + (qoff + qrow[h]) * tk;
             if (db_pairs) {
               *reinterpret_cast<float2*>(row + kp) =
                   make_float2(s[i], s[i + 1]);
@@ -986,33 +1130,36 @@ __global__ void __launch_bounds__(kTcThreads,
       }
 
       // dQ += dS K: A = dS from registers (bf16), B = K read MN-major from
-      // the same shared-memory tile
+      // the same shared-memory tile (the block's column blocks)
       uint32_t a[kDqKeys / 16][4];
 #pragma unroll
       for (int j = 0; j < kDqKeys / 16; ++j) hp::to_a_frag(dp, j, a[j]);
 #pragma unroll
-      for (int b = 0; b < S::kBlocks; ++b) hp::fence_regs(acc[b]);
+      for (int b = 0; b < kOut; ++b) hp::fence_regs(acc[b]);
       hp::wgmma_fence();
 #pragma unroll
       for (int j = 0; j < kDqKeys / 16; ++j)
 #pragma unroll
-        for (int b = 0; b < S::kBlocks; ++b)
-          hp::wgmma_rs(acc[b], a[j], hp::desc_mn_major<D, kDqKeys>(kst, b, j));
+        for (int b = 0; b < kOut; ++b) {
+          if (b0 + b >= S::kBlocks) break;  // the last block's short split
+          hp::wgmma_rs(acc[b], a[j],
+                       hp::desc_mn_major<D, kDqKeys>(kst, b0 + b, j));
+        }
       hp::wgmma_commit();
       hp::wgmma_wait();
 #pragma unroll
-      for (int b = 0; b < S::kBlocks; ++b) hp::fence_regs(acc[b]);
+      for (int b = 0; b < kOut; ++b) hp::fence_regs(acc[b]);
     }
-    __syncthreads();  // stage st is free for the copy of tile kt + 2
+    __syncthreads();  // the stage is free for the copy of a later tile
   }
 
   // d_bias of the key tiles the warpgroup never computed (past kv_valid,
   // above the diagonal): zeros, a warp a row
   if constexpr (kBias) {
-    if (d_bias != nullptr && qw0 < tq) {
+    if (db != nullptr && qw0 < tq) {
       const int nr = min(64, tq - qw0), warp = (tid % 128) / 32;
       for (int r = warp; r < nr; r += 4) {
-        float* row = d_bias + (qoff + qw0 + r) * tk;
+        float* row = db + (qoff + qw0 + r) * tk;
         for (int c = n_wg * kDqKeys + lane; c < tk; c += 32) row[c] = 0.f;
       }
     }
@@ -1023,13 +1170,15 @@ __global__ void __launch_bounds__(kTcThreads,
     if (qrow[h] >= tq) continue;
     __nv_bfloat16* row = dq + (qoff + qrow[h]) * D;
 #pragma unroll
-    for (int b = 0; b < S::kBlocks; ++b)
+    for (int b = 0; b < kOut; ++b) {
+      if (b0 + b >= S::kBlocks) break;
 #pragma unroll
       for (int i = 0; i < S::kCols / 2; i += 4) {
-        const int c = b * S::kCols + 8 * (i / 4) + 2 * (lane % 4);
+        const int c = (b0 + b) * S::kCols + 8 * (i / 4) + 2 * (lane % 4);
         *reinterpret_cast<uint32_t*>(row + c) =
             hp::pack_bf16(acc[b][i + 2 * h], acc[b][i + 2 * h + 1]);
       }
+    }
   }
 }
 
@@ -1056,8 +1205,8 @@ cudaError_t launch_dq_tc(const Args& a) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.tq + kDqRows - 1) / kDqRows, a.bh), kTcThreads, smem,
-           a.stream>>>(
+  kernel<<<dim3((a.tq + kDqRows - 1) / kDqRows, a.bh, tc_split<D>()),
+           kTcThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
@@ -1069,14 +1218,14 @@ cudaError_t launch_dq_tc(const Args& a) {
 
 template <int D, typename BT>
 cudaError_t launch_dkv_tc(const Args& a) {
-  const size_t smem = dkv_tc_smem_bytes<D, kHasBias<BT>>();
+  const size_t smem = dkv_tc_smem_bytes<D, BT>();
   auto kernel = flash_dkv_tc_kernel<D, BT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.tk + kTcKeys - 1) / kTcKeys, a.bh), kTcThreads, smem,
-           a.stream>>>(
+  kernel<<<dim3((a.tk + kTcKeys - 1) / kTcKeys, a.bh, tc_split<D>()),
+           kTcThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
@@ -1096,8 +1245,8 @@ cudaError_t launch_tf32x3(const Args& a) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    kernel<<<dim3((a.tq + kTfRows - 1) / kTfRows, a.bh), kTfThreads, smem,
-             a.stream>>>(
+    kernel<<<dim3((a.tq + kTfRows - 1) / kTfRows, a.bh, tf_split<D>()),
+             kTfThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         a.lse, a.delta, static_cast<float*>(a.dq), a.bias, a.d_bias,
@@ -1109,8 +1258,8 @@ cudaError_t launch_tf32x3(const Args& a) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    kernel<<<dim3((a.tk + kTfRows - 1) / kTfRows, a.bh), kTfThreads, smem,
-             a.stream>>>(
+    kernel<<<dim3((a.tk + kTfRows - 1) / kTfRows, a.bh, tf_split<D>()),
+             kTfThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
@@ -1132,10 +1281,13 @@ cudaError_t launch(const Args& a) {
 template <bool kF32, int kKind, typename BT>
 cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
+#ifdef TMX_HEAD_DIM  // a unit of one head dim (flash_attention_bwd_d*.cu)
+    case TMX_HEAD_DIM: return launch<kF32, kKind, BT, TMX_HEAD_DIM>(a);
+#else
     case 16: return launch<kF32, kKind, BT, 16>(a);
     case 32: return launch<kF32, kKind, BT, 32>(a);
     case 64: return launch<kF32, kKind, BT, 64>(a);
-    case 128: return launch<kF32, kKind, BT, 128>(a);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }

@@ -100,6 +100,19 @@
 //     over the quad with two __shfl_xor_sync each, (m, l) in registers;
 //     masks, the dropout keep bit and the bias (read from device memory in
 //     its own type, a template parameter) apply per register.
+// Head dims: 16, 32, 64, 128, and 192 and 256 (Gemma's 16 heads of 256),
+// the reference's gate taking any multiple of 64.  At 192 and 256 the
+// whole O accumulator (D/2 float32 registers a thread) beside S spilled
+// (ptxas, float32 at D = 256), so the grid's z dimension splits O's
+// columns: a block accumulates at most two 64-column blocks (bf16,
+// kTcOut) or half of D (float32, f32_split), the D = 128 instances'
+// registers, and recomputes S and the softmax statistics, which need all
+// D (up to 2x the QK^T products; block z = 0 writes lse).  The bf16 tiles
+// are 3 and 4 column blocks of 64 (hopper.cuh), one block an SM; the bias
+// is read from device memory there (kTcStageBias: no room for two staged
+// bias tiles beside Q and the K/V ring).  The float32 kernel keeps its
+// tiles (150 and 197 KB of shared memory, one block an SM).  Head dims of
+// 320 and more are refused by name (ROADMAP B item 8b).
 // The C entry point sends bfloat16 to the wgmma kernel and float32 to the
 // 3xTF32 kernel, and reports which through *route; nothing else falls back.
 #include "flash_common.cuh"
@@ -120,6 +133,15 @@ constexpr int kF32Keys = 32;              // keys of a K/V tile
 constexpr int kF32Threads = 32 * kF32Warps;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Above D = 128 the output's columns are split over the grid's z
+// dimension: a block accumulates half of O (D/4 registers a thread, as at
+// D = 128; the whole of it spilled at D = 256) and recomputes S and the
+// softmax statistics, which need all D.  Block z = 0 writes lse.
+template <int D>
+__host__ __device__ constexpr int f32_split() {
+  return D > 128 ? 2 : 1;
+}
+
 template <int D>
 constexpr size_t f32tc_smem_bytes() {
   // Q [64][D+8], then 2 stages of K [32][D+8] and V [32][D+4], float32
@@ -128,8 +150,9 @@ constexpr size_t f32tc_smem_bytes() {
 }
 
 // BT: the bias element type (flash_common.cuh), NoBias without a bias.
+// Two blocks an SM to D = 128; one above (the tiles take 150-197 KB).
 template <int D, bool kDrop, typename BT>
-__global__ void __launch_bounds__(kF32Threads, 2)
+__global__ void __launch_bounds__(kF32Threads, D <= 128 ? 2 : 1)
     flash_fwd_tf32x3_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v, float* __restrict__ o,
@@ -143,6 +166,9 @@ __global__ void __launch_bounds__(kF32Threads, 2)
   constexpr int QL = D + 8, KL = D + 8, VL = D + 4;  // row strides, floats
   constexpr int NT = kF32Keys / 8;  // 8-key tiles of S, k-steps of P V
   constexpr int DT = D / 8;         // k-steps of S, 8-column tiles of O
+  constexpr int DO = DT / f32_split<D>();  // the block's 8-column tiles
+  // its first (0 to D = 128, known to the compiler: one block a row)
+  const int n0 = f32_split<D>() > 1 ? blockIdx.z * DO : 0;
   extern __shared__ float4 smem_f4[];
   float* q_s = reinterpret_cast<float*>(smem_f4);  // [64][QL]
   float* k_s = q_s + kF32Rows * QL;                // [2][32][KL]
@@ -169,9 +195,9 @@ __global__ void __launch_bounds__(kF32Threads, 2)
   const uint32_t q_a = hp::smem_addr(q_s), k_a = hp::smem_addr(k_s),
                  v_a = hp::smem_addr(v_s);
   auto copy_kv = [&](int kt, int st) {
-    copy_rows_f32<D, kF32Keys, KL, kF32Threads>(
+    copy_rows_f32<D, kF32Keys, KL, kF32Threads, (D > 128)>(
         k_a + 4 * st * kF32Keys * KL, kb, kt * kF32Keys, tk, tid);
-    copy_rows_f32<D, kF32Keys, VL, kF32Threads>(
+    copy_rows_f32<D, kF32Keys, VL, kF32Threads, (D > 128)>(
         v_a + 4 * st * kF32Keys * VL, vb, kt * kF32Keys, tk, tid);
   };
 
@@ -182,9 +208,9 @@ __global__ void __launch_bounds__(kF32Threads, 2)
   if (n_tiles > 0) copy_kv(0, 0);
   hp::cp_async_commit();
 
-  float acc[DT][4];
+  float acc[DO][4];
 #pragma unroll
-  for (int n = 0; n < DT; ++n)
+  for (int n = 0; n < DO; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -279,7 +305,7 @@ __global__ void __launch_bounds__(kF32Threads, 2)
       l[h] = l[h] * alpha[h] + sum[h];
     }
 #pragma unroll
-    for (int n = 0; n < DT; ++n)
+    for (int n = 0; n < DO; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i / 2];
 
@@ -292,9 +318,9 @@ __global__ void __launch_bounds__(kF32Threads, 2)
       split_tf32(s[j][2], ph[1], pl[1]);
       split_tf32(s[j][1], ph[2], pl[2]);
       split_tf32(s[j][3], ph[3], pl[3]);
-      const float* v0 = vs + (8 * j + 2 * t) * VL + g;
+      const float* v0 = vs + (8 * j + 2 * t) * VL + 8 * n0 + g;
 #pragma unroll
-      for (int n = 0; n < DT; ++n)  // B: V rows 8j + 2t, 8j + 2t + 1
+      for (int n = 0; n < DO; ++n)  // B: V rows 8j + 2t, 8j + 2t + 1
         mma_3xtf32(acc[n], ph, pl, v0[8 * n], v0[VL + 8 * n]);
     }
   }
@@ -304,12 +330,12 @@ __global__ void __launch_bounds__(kF32Threads, 2)
   for (int h = 0; h < 2; ++h) {
     if (qrow[h] >= tq) continue;
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
-    float* orow = o + (static_cast<long>(bh) * tq + qrow[h]) * D;
+    float* orow = o + (static_cast<long>(bh) * tq + qrow[h]) * D + 8 * n0;
 #pragma unroll
-    for (int n = 0; n < DT; ++n)
+    for (int n = 0; n < DO; ++n)
       *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
           make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
-    if (t == 0)
+    if (t == 0 && n0 == 0)
       lse[static_cast<long>(bh) * tq + qrow[h]] =
           m[h] + logf(fmaxf(l[h], 1e-30f));
   }
@@ -327,13 +353,32 @@ constexpr int kTcThreads = 256;
 // rows a warp reads at once fall in different banks.
 constexpr int kBiasLd = 72;
 constexpr int kBiasStage = kTcBq * kBiasLd * 4;  // bytes, float32 or less
+// The bias is staged in shared memory to D = 128.  Above, Q and the K/V
+// ring alone take 148-197 KB and two bias stages would not fit beside
+// them at D = 256 (271,360 bytes against the 232,448 a block may have), so
+// the wide instances read it from device memory, as the float32 kernel
+// does: the same values, one element a register.
+template <int D>
+constexpr bool kTcStageBias = D <= 128;
+// A block accumulates at most two 64-column blocks of O (the D = 128
+// instances' registers); above, the grid's z dimension covers the rest
+// and each block recomputes S and the softmax statistics.  Block z = 0
+// writes lse.
+template <int D>
+constexpr int kTcOut =
+    hp::TileShape<D>::kBlocks < 2 ? hp::TileShape<D>::kBlocks : 2;
+template <int D>
+__host__ __device__ constexpr int tc_split() {
+  return (hp::TileShape<D>::kBlocks + kTcOut<D> - 1) / kTcOut<D>;
+}
 
 // Q (128 rows), then K and V (2 stages of 64 rows each), bf16, then with a
-// bias 2 stages of its (128 x 64) tile; 1024 bytes of slack to align the
-// tiles to the swizzle atom.
+// staged bias 2 stages of its (128 x 64) tile; 1024 bytes of slack to
+// align the tiles to the swizzle atom.
 template <int D, bool kBias>
 constexpr size_t tc_smem_bytes() {
-  return 1024 + 2 * D * (kTcBq + 4 * kTcBk) + (kBias ? 2 * kBiasStage : 0);
+  return 1024 + 2 * D * (kTcBq + 4 * kTcBk) +
+         (kBias && kTcStageBias<D> ? 2 * kBiasStage : 0);
 }
 
 // BT: the bias element type (flash_common.cuh), NoBias without a bias.
@@ -351,6 +396,8 @@ __global__ void __launch_bounds__(kTcThreads,
                         float keep_scale) {
   using S = hp::TileShape<D>;
   constexpr bool kBias = kHasBias<BT>;
+  constexpr bool kStage = kBias && kTcStageBias<D>;
+  constexpr int kOut = kTcOut<D>;
   constexpr int kQBytes = kTcBq * D * 2, kKvBytes = kTcBk * D * 2;
   constexpr int kBElt = sizeof(BT), kBStride = kBiasLd * kBElt;
   extern __shared__ uint8_t smem_raw[];
@@ -362,6 +409,9 @@ __global__ void __launch_bounds__(kTcThreads,
 
   const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
   const int bh = blockIdx.y, q0 = blockIdx.x * kTcBq, qw0 = q0 + 64 * wg;
+  // the block's first column block (0 to D = 128, known to the
+  // compiler: the unsplit instances' products are those of one block)
+  const int b0 = tc_split<D>() > 1 ? blockIdx.z * kOut : 0;
   const __nv_bfloat16* qb = q + static_cast<long>(bh) * tq * D;
   const __nv_bfloat16* kb = k + static_cast<long>(bh) * tk * D;
   const __nv_bfloat16* vb = v + static_cast<long>(bh) * tk * D;
@@ -378,14 +428,14 @@ __global__ void __launch_bounds__(kTcThreads,
   const long plane =
       kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
             : 0;
-  const bool b_chunks = kBias && bias_rows_aligned<BT>(bias, tk);
-  // tile kt's K, V and bias into ring stage st
+  const bool b_chunks = kStage && bias_rows_aligned<BT>(bias, tk);
+  // tile kt's K, V and (staged) bias into ring stage st
   auto copy_kv = [&](int kt, int st) {
     hp::copy_tile<D, kTcBk, kTcThreads>(k_s + st * kKvBytes, kb, kt * kTcBk,
                                         tk, tid);
     hp::copy_tile<D, kTcBk, kTcThreads>(v_s + st * kKvBytes, vb, kt * kTcBk,
                                         tk, tid);
-    if constexpr (kBias)
+    if constexpr (kStage)
       stage_bias_async<kTcBq, kTcBk, kTcThreads, BT>(
           b_s + st * kBiasStage, kBStride, bias, plane, q0, kt * kTcBk, tq,
           tk, b_chunks, tid);
@@ -397,9 +447,9 @@ __global__ void __launch_bounds__(kTcThreads,
   if (n_tiles > 0) copy_kv(0, 0);
   hp::cp_async_commit();
 
-  float acc[S::kBlocks][S::kCols / 2];
+  float acc[kOut][S::kCols / 2];
 #pragma unroll
-  for (int b = 0; b < S::kBlocks; ++b)
+  for (int b = 0; b < kOut; ++b)
 #pragma unroll
     for (int i = 0; i < S::kCols / 2; ++i) acc[b][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -439,11 +489,18 @@ __global__ void __launch_bounds__(kTcThreads,
         const int h = (i / 2) % 2;
         const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
         const bool ok = kp < valid && (!causal || kp <= qrow[h]);
-        if constexpr (kBias) {
+        if constexpr (kStage) {
           if (i % 2 == 0)  // the pair of keys (kp, kp + 1) of row qrow[h]
             bv = lds_bias2<BT>(b_g + st * kBiasStage +
                                ((qrow[h] - q0) * kBiasLd + kp - k0) * kBElt);
           s[i] = ok ? s[i] * scale + (i % 2 ? bv.y : bv.x) : -INFINITY;
+        } else if constexpr (kBias) {
+          const float b =
+              ok && qrow[h] < tq
+                  ? bias_value<BT>(bias.ptr,
+                                   plane + static_cast<long>(qrow[h]) * tk + kp)
+                  : 0.f;
+          s[i] = ok ? s[i] * scale + b : -INFINITY;
         } else {
           s[i] = ok ? s[i] * scale : kNegInf;
         }
@@ -478,7 +535,7 @@ __global__ void __launch_bounds__(kTcThreads,
         l[h] = l[h] * alpha[h] + sum[h];
       }
 #pragma unroll
-      for (int b = 0; b < S::kBlocks; ++b)
+      for (int b = 0; b < kOut; ++b)
 #pragma unroll
         for (int i = 0; i < S::kCols / 2; ++i) acc[b][i] *= alpha[(i / 2) % 2];
 
@@ -486,18 +543,20 @@ __global__ void __launch_bounds__(kTcThreads,
 #pragma unroll
       for (int j = 0; j < kTcBk / 16; ++j) hp::to_a_frag(s, j, a[j]);
 #pragma unroll
-      for (int b = 0; b < S::kBlocks; ++b) hp::fence_regs(acc[b]);
+      for (int b = 0; b < kOut; ++b) hp::fence_regs(acc[b]);
       hp::wgmma_fence();
 #pragma unroll
       for (int j = 0; j < kTcBk / 16; ++j)
 #pragma unroll
-        for (int b = 0; b < S::kBlocks; ++b)
-          hp::wgmma_rs(acc[b], a[j],
-                       hp::desc_mn_major<D, kTcBk>(v_s + st * kKvBytes, b, j));
+        for (int b = 0; b < kOut; ++b) {
+          if (b0 + b >= S::kBlocks) break;  // the last block's short split
+          hp::wgmma_rs(acc[b], a[j], hp::desc_mn_major<D, kTcBk>(
+                                         v_s + st * kKvBytes, b0 + b, j));
+        }
       hp::wgmma_commit();
       hp::wgmma_wait();
 #pragma unroll
-      for (int b = 0; b < S::kBlocks; ++b) hp::fence_regs(acc[b]);
+      for (int b = 0; b < kOut; ++b) hp::fence_regs(acc[b]);
     }
     __syncthreads();  // stage st is free for the copy of tile kt + 2
   }
@@ -509,14 +568,16 @@ __global__ void __launch_bounds__(kTcThreads,
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
     __nv_bfloat16* orow = o + (static_cast<long>(bh) * tq + qrow[h]) * D;
 #pragma unroll
-    for (int b = 0; b < S::kBlocks; ++b)
+    for (int b = 0; b < kOut; ++b) {
+      if (b0 + b >= S::kBlocks) break;
 #pragma unroll
       for (int i = 0; i < S::kCols / 2; i += 4) {
-        const int c = b * S::kCols + 8 * (i / 4) + 2 * (lane % 4);
+        const int c = (b0 + b) * S::kCols + 8 * (i / 4) + 2 * (lane % 4);
         *reinterpret_cast<uint32_t*>(orow + c) = hp::pack_bf16(
             acc[b][i + 2 * h] * inv, acc[b][i + 2 * h + 1] * inv);
       }
-    if (lane % 4 == 0)
+    }
+    if (lane % 4 == 0 && b0 == 0)
       lse[static_cast<long>(bh) * tq + qrow[h]] =
           m[h] + logf(fmaxf(l[h], 1e-30f));
   }
@@ -546,8 +607,8 @@ cudaError_t launch(const Args& a) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    kernel<<<dim3((a.tq + kF32Rows - 1) / kF32Rows, a.bh), kF32Threads, smem,
-             a.stream>>>(
+    kernel<<<dim3((a.tq + kF32Rows - 1) / kF32Rows, a.bh, f32_split<D>()),
+             kF32Threads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
         a.kv_valid, a.seed, a.bias, a.tq, a.tk, a.scale, a.causal,
@@ -559,8 +620,8 @@ cudaError_t launch(const Args& a) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    kernel<<<dim3((a.tq + kTcBq - 1) / kTcBq, a.bh), kTcThreads, smem,
-             a.stream>>>(
+    kernel<<<dim3((a.tq + kTcBq - 1) / kTcBq, a.bh, tc_split<D>()),
+             kTcThreads, smem, a.stream>>>(
         static_cast<const __nv_bfloat16*>(a.q),
         static_cast<const __nv_bfloat16*>(a.k),
         static_cast<const __nv_bfloat16*>(a.v),
@@ -573,10 +634,13 @@ cudaError_t launch(const Args& a) {
 template <bool kF32, bool kDrop, typename BT>
 cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
+#ifdef TMX_HEAD_DIM  // a unit of one head dim (flash_attention_fwd_d*.cu)
+    case TMX_HEAD_DIM: return launch<kF32, TMX_HEAD_DIM, kDrop, BT>(a);
+#else
     case 16: return launch<kF32, 16, kDrop, BT>(a);
     case 32: return launch<kF32, 32, kDrop, BT>(a);
     case 64: return launch<kF32, 64, kDrop, BT>(a);
-    case 128: return launch<kF32, 128, kDrop, BT>(a);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }

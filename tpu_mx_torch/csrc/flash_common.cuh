@@ -243,15 +243,17 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
 // Issue the copy of rows [r0, r0 + R) of a (rows, D) float32 operand into
 // shared memory at `dst`, rows kLd floats apart, 16 bytes a thread, by
 // kThreads threads; rows past `rows` are zero-filled (source size 0,
-// address clamped to row 0).
-template <int D, int R, int kLd, int kThreads>
+// address clamped to row 0).  kRolled: one chunk an iteration of a loop
+// that is not unrolled.  A tile streamed inside a kernel's loop is copied
+// so at head dims above 128: unrolled, the copy's address arithmetic is
+// hoisted out of the caller's loop and kept live across it, and spilled
+// the float32 dq at D = 256 (ptxas: 255 registers and 60 bytes of spill,
+// 159 rolled).
+template <int D, int R, int kLd, int kThreads, bool kRolled = false>
 __device__ __forceinline__ void copy_rows_f32(uint32_t dst, const float* src,
                                               int r0, int rows, int tid) {
   constexpr int kChunks = D / 4, kN = R * kChunks;
-#pragma unroll
-  for (int it = 0; it < (kN + kThreads - 1) / kThreads; ++it) {
-    const int i = tid + it * kThreads;
-    if (kN % kThreads != 0 && i >= kN) break;
+  auto chunk = [&](int i) {
     const int r = i / kChunks, c = (i % kChunks) * 4;
     const bool in = r0 + r < rows;
     const float* from = src + (in ? static_cast<long>(r0 + r) * D + c : 0);
@@ -259,6 +261,17 @@ __device__ __forceinline__ void copy_rows_f32(uint32_t dst, const float* src,
                      dst + 4 * (r * kLd + c)),
                  "l"(from), "r"(in ? 16 : 0)
                  : "memory");
+  };
+  if constexpr (kRolled) {
+#pragma unroll 1
+    for (int i = tid; i < kN; i += kThreads) chunk(i);
+  } else {
+#pragma unroll
+    for (int it = 0; it < (kN + kThreads - 1) / kThreads; ++it) {
+      const int i = tid + it * kThreads;
+      if (kN % kThreads != 0 && i >= kN) break;
+      chunk(i);
+    }
   }
 }
 

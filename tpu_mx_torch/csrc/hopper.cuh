@@ -4,7 +4,8 @@
 // instructions the kernels issue.
 //
 // Tile layout.  A tile of R rows of a (rows, D) bf16 operand is stored as
-// D / C column blocks of C = min(D, 64) columns, each R x C, rows of
+// D / C column blocks of C = min(D, 64) columns (up to 4, at D = 256),
+// each R x C, rows of
 // C * 2 bytes (128, 64 or 32: the 128B, 64B and 32B swizzle modes).  The
 // 16-byte chunks of a row are permuted the way the hardware reads them:
 // byte offset o inside a block goes to o ^ (((o >> 7) & kMask) << 4), the
@@ -31,8 +32,9 @@ namespace tmx_hopper {
 
 template <int D>
 struct TileShape {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "head_dim must be 16, 32, 64 or 128");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 192 ||
+                    D == 256,
+                "head_dim must be 16, 32, 64, 128, 192 or 256");
   static constexpr int kCols = D < 64 ? D : 64;     // columns of a block
   static constexpr int kBlocks = D / kCols;         // column blocks
   static constexpr int kRowBytes = kCols * 2;

@@ -6,11 +6,19 @@
 // window over a paged KV pool (N, BS, H, D), each sequence's keys and
 // values scattered over pool blocks named by its row of the (B, NB) block
 // table.  Query t of row b sits at position lengths[b] - Tq + t and sees
-// keys at positions < lengths[b] - (Tq - 1 - t).
+// keys at positions < lengths[b] - (Tq - 1 - t).  Queries are float32 or
+// bfloat16 (the output in their type), pools float32, bfloat16 or float16,
+// head dims 16, 32, 64, 128, 192 and 256; the math is float32 throughout.
+// Any window Tq >= 1 is taken: the C entry point walks it in chunks of
+// kTqMax = 8 rows, one split and one merge launch a chunk, each chunk
+// seeing the keys its own rows see (rows [t0, t0 + n) of the window are a
+// window of n rows over a row whose length is lengths[b] - (Tq - t0 - n)),
+// so the kernels' per-row registers (acc[kTqMax][D/32]) do not grow with
+// the window.
 //
 // Bound on the H100: memory.  Every K/V byte of the visited blocks is
-// read once and used for Tq (<= 8) dot products, far below the card's
-// operations-per-byte line, so the kernel has to keep enough copies in
+// read once and used for a chunk's <= 8 dot products, far below the
+// card's operations-per-byte line, so the kernel has to keep enough copies in
 // flight on every SM.  One block per (sequence, head) walking the
 // sequence's blocks one after another leaves most of the card idle at a
 // decode batch (256 blocks of 8 warps' worth of loads on 132 SMs, one
@@ -45,8 +53,11 @@
 // table entries past the row's length are never read, and slots past a
 // window row's causal limit get probability exactly 0.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -63,9 +74,11 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // n consecutive elements at p (n * sizeof(T) bytes, aligned to that) as
-// float32.
+// float32.  A bfloat16 is the high half of its float32; a float16 is not,
+// and goes through the hardware's conversion.
 template <typename T, int N>
 __device__ __forceinline__ void load_n(const T* p, float (&x)[N]) {
   if constexpr (sizeof(T) * N == 16) {
@@ -75,6 +88,11 @@ __device__ __forceinline__ void load_n(const T* p, float (&x)[N]) {
     for (int i = 0; i < 4; ++i) {
       if constexpr (sizeof(T) == 4) {
         x[i] = __uint_as_float(u[i]);
+      } else if constexpr (std::is_same_v<T, __half>) {
+        const float2 f =
+            __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+        x[2 * i] = f.x;
+        x[2 * i + 1] = f.y;
       } else {
         x[2 * i] = __uint_as_float(u[i] << 16);
         x[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
@@ -100,21 +118,24 @@ constexpr size_t split_smem_bytes() {
          sizeof(float) * (kWin ? kTqMax : 1) * D;
 }
 
-// kWin: a window of Tq <= 8 query rows (else Tq == 1).  The single-token
-// instances are held to 4 blocks an SM (the 3-stage ring's shared memory
-// allows 4 at D=128, float32); a window's instances may take up to 255
-// registers (the compiler's default choice spilled them).
-template <int D, typename T, bool kWin>
+// kWin: a chunk of 2 <= tq <= 8 query rows (else tq == 1).  The
+// single-token instances are held to 4 blocks an SM (the 3-stage ring's
+// shared memory allows 4 at D=128, float32); a window's instances may take
+// up to 255 registers (the compiler's default choice spilled them).  q
+// points at the chunk's first row; rows of a sequence are tq_all (the
+// whole window) apart; the chunk's rows see keys below lengths[b] - shift.
+template <int D, typename QT, typename T, bool kWin>
 __global__ void __launch_bounds__(kThreads, kWin ? 1 : 4)
-    paged_split_kernel(const float* __restrict__ q,
+    paged_split_kernel(const QT* __restrict__ q,
                        const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool,
                        const int* __restrict__ tables,
                        const int* __restrict__ lengths,
                        float* __restrict__ part_ml,
-                       float* __restrict__ part_acc, int tq, int heads,
-                       int bs, int nb, int splits, float scale) {
-  static_assert(D % 16 == 0 && D <= 128, "head_dim");
+                       float* __restrict__ part_acc, int tq, int tq_all,
+                       int shift, int heads, int bs, int nb, int splits,
+                       float scale) {
+  static_assert(D % 16 == 0 && D <= 256, "head_dim");
   constexpr int kTq = kWin ? kTqMax : 1;
   constexpr int kE = 16 / sizeof(T);          // elements of a 16-byte chunk
   constexpr int kRowChunks = D / kE;          // chunks of a key row
@@ -134,7 +155,7 @@ __global__ void __launch_bounds__(kThreads, kWin ? 1 : 4)
   const long total = static_cast<long>(gridDim.x) * splits * tq * heads;
   float* m_out = part_ml;
   float* l_out = part_ml + total;
-  const int length = lengths[b];
+  const int length = lengths[b] - shift;
   // a length past the table's NB*BS slots walks the table and no further
   // (the plain version's bound too): never a read past row b
   const int kv_end = min(length, nb * bs);
@@ -185,17 +206,17 @@ __global__ void __launch_bounds__(kThreads, kWin ? 1 : 4)
   // the window's queries: in shared memory for a window, in registers (the
   // lane's chunks of the one query row) otherwise
   float qr[kWin ? 1 : kLaneChunks * kE];
-  const float* qb = q + static_cast<long>(b) * tq * row + h * D;
+  const QT* qb = q + static_cast<long>(b) * tq_all * row + h * D;
   if constexpr (kWin) {
     for (int i = tid; i < tq * D; i += kThreads)
-      q_s[i] = qb[static_cast<long>(i / D) * row + i % D];
+      q_s[i] = to_f32(qb[static_cast<long>(i / D) * row + i % D]);
   } else {
 #pragma unroll
     for (int i = 0; i < kLaneChunks; ++i)
 #pragma unroll
       for (int e = 0; e < kE; ++e) {
         const int d = (j + 8 * i) * kE + e;
-        qr[i * kE + e] = d < D ? qb[d] : 0.f;
+        qr[i * kE + e] = d < D ? to_f32(qb[d]) : 0.f;
       }
   }
 
@@ -319,12 +340,14 @@ __global__ void __launch_bounds__(kThreads, kWin ? 1 : 4)
   }
 }
 
-// Fold the S partials of row (b, h): out = sum acc_s e^(m_s - M) / L.
-template <int D>
+// Fold the S partials of row (b, h): out = sum acc_s e^(m_s - M) / L, in
+// the queries' type; out points at the chunk's first row, rows tq_all
+// apart.
+template <int D, typename QT>
 __global__ void __launch_bounds__(kThreads)
     paged_merge_kernel(const float* __restrict__ part_ml,
                        const float* __restrict__ part_acc,
-                       float* __restrict__ out, int tq, int heads,
+                       QT* __restrict__ out, int tq, int tq_all, int heads,
                        int splits) {
   const int b = blockIdx.x, h = blockIdx.y;
   const long total = static_cast<long>(gridDim.x) * splits * tq * heads;
@@ -347,25 +370,30 @@ __global__ void __launch_bounds__(kThreads)
         a += part_acc[pr * D + d] * f;
       }
     }
-    out[((static_cast<long>(b) * tq + t) * heads + h) * D + d] =
-        a / fmaxf(sum, 1e-30f);
+    const float o = a / fmaxf(sum, 1e-30f);
+    QT* at = out + ((static_cast<long>(b) * tq_all + t) * heads + h) * D + d;
+    if constexpr (std::is_same_v<QT, float>)
+      *at = o;
+    else
+      *at = __float2bfloat16(o);
   }
 }
 
 struct Args {
-  const float* q;
+  const void* q;
   const void *k_pool, *v_pool;
   const int *tables, *lengths;
-  float *out, *part_ml, *part_acc;
-  int b, tq, heads, bs, nb, splits;
+  void* out;
+  float *part_ml, *part_acc;
+  int b, tq, tq_all, shift, heads, bs, nb, splits;
   float scale;
   cudaStream_t stream;
 };
 
-template <int D, typename T, bool kWin>
+template <int D, typename QT, typename T, bool kWin>
 cudaError_t launch(const Args& a) {
   constexpr size_t smem = split_smem_bytes<D, T, kWin>();
-  auto kernel = paged_split_kernel<D, T, kWin>;
+  auto kernel = paged_split_kernel<D, QT, T, kWin>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -373,62 +401,98 @@ cudaError_t launch(const Args& a) {
     if (err != cudaSuccess) return err;
   }
   kernel<<<dim3(a.b, a.heads, a.splits), kThreads, smem, a.stream>>>(
-      a.q, static_cast<const T*>(a.k_pool), static_cast<const T*>(a.v_pool),
-      a.tables, a.lengths, a.part_ml, a.part_acc, a.tq, a.heads, a.bs, a.nb,
-      a.splits, a.scale);
+      static_cast<const QT*>(a.q), static_cast<const T*>(a.k_pool),
+      static_cast<const T*>(a.v_pool), a.tables, a.lengths, a.part_ml,
+      a.part_acc, a.tq, a.tq_all, a.shift, a.heads, a.bs, a.nb, a.splits,
+      a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_merge_kernel<D><<<dim3(a.b, a.heads), kThreads, 0, a.stream>>>(
-      a.part_ml, a.part_acc, a.out, a.tq, a.heads, a.splits);
+  paged_merge_kernel<D, QT><<<dim3(a.b, a.heads), kThreads, 0, a.stream>>>(
+      a.part_ml, a.part_acc, static_cast<QT*>(a.out), a.tq, a.tq_all,
+      a.heads, a.splits);
   return cudaGetLastError();
 }
 
-template <typename T, bool kWin>
+template <typename QT, typename T, bool kWin>
 cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 16: return launch<16, T, kWin>(a);
-    case 32: return launch<32, T, kWin>(a);
-    case 64: return launch<64, T, kWin>(a);
-    case 128: return launch<128, T, kWin>(a);
+    case 16: return launch<16, QT, T, kWin>(a);
+    case 32: return launch<32, QT, T, kWin>(a);
+    case 64: return launch<64, QT, T, kWin>(a);
+    case 128: return launch<128, QT, T, kWin>(a);
+    case 192: return launch<192, QT, T, kWin>(a);
+    case 256: return launch<256, QT, T, kWin>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename QT, typename T>
 cudaError_t dispatch(int d, const Args& a) {
-  return a.tq > 1 ? dispatch_d<T, true>(d, a) : dispatch_d<T, false>(d, a);
+  return a.tq > 1 ? dispatch_d<QT, T, true>(d, a)
+                  : dispatch_d<QT, T, false>(d, a);
+}
+
+template <typename QT>
+cudaError_t dispatch_pool(int pool_dtype, int d, const Args& a) {
+  if (pool_dtype == 1) return dispatch<QT, __nv_bfloat16>(d, a);
+  if (pool_dtype == 2) return dispatch<QT, __half>(d, a);
+  return dispatch<QT, float>(d, a);
 }
 
 }  // namespace
 
-// q (b, tq, heads, d) float32; pools (N, bs, heads, d) float32 or
-// (pool_bf16) bfloat16, 16-byte aligned; tables (b, nb) int32; lengths (b,)
-// int32 >= tq; out (b, tq, heads, d) float32.  splits must be
-// ceil(nb * bs / 64); part_ml (2, b, splits, tq, heads) and part_acc
-// (b, splits, tq, heads, d) are float32 scratch for the splits' (m, l) and
-// acc.  Issues the split and the merge launches on `stream`, and writes
-// the route it took to *route (0: split-K over the keys, the only one).
-extern "C" int tmx_paged_attention(const float* q, const void* k_pool,
+// q (b, tq, heads, d) of q_dtype (0 float32, 1 bfloat16); pools (N, bs,
+// heads, d) of pool_dtype (0 float32, 1 bfloat16, 2 float16), 16-byte
+// aligned; tables (b, nb) int32; lengths (b,) int32 >= tq; out (b, tq,
+// heads, d) of q_dtype.  splits must be ceil(nb * bs / 64); part_ml
+// (2, b, splits, c, heads) and part_acc (b, splits, c, heads, d), c =
+// min(tq, 8), are float32 scratch for the splits' (m, l) and acc, reused
+// by each chunk of 8 window rows.  Issues a split and a merge launch a
+// chunk on `stream`, and writes the route it took to *route (0: split-K
+// over the keys, the only one).
+extern "C" int tmx_paged_attention(const void* q, const void* k_pool,
                                    const void* v_pool, const int* tables,
-                                   const int* lengths, float* out, int b,
+                                   const int* lengths, void* out, int b,
                                    int tq, int heads, int d, int bs, int nb,
-                                   float scale, int pool_bf16,
+                                   float scale, int q_dtype, int pool_dtype,
                                    float* part_ml, float* part_acc,
                                    int splits, void* stream, int* route) {
-  if (tq < 1 || tq > kTqMax || b < 1 || bs < 1 || nb < 1 || heads < 1 ||
-      heads > 65535 || splits > 65535 ||
+  if (tq < 1 || b < 1 || bs < 1 || nb < 1 || heads < 1 || heads > 65535 ||
+      splits > 65535 || q_dtype < 0 || q_dtype > 1 || pool_dtype < 0 ||
+      pool_dtype > 2 ||
       splits != (static_cast<long>(nb) * bs + kSplitKeys - 1) / kSplitKeys)
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(k_pool) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(v_pool) & 15) != 0)
     return cudaErrorInvalidValue;
-  Args a{q,      k_pool, v_pool, tables, lengths, out,  part_ml,
-         part_acc, b,    tq,     heads,  bs,      nb,   splits,
-         scale,  static_cast<cudaStream_t>(stream)};
-  const cudaError_t err =
-      pool_bf16 ? dispatch<__nv_bfloat16>(d, a) : dispatch<float>(d, a);
-  if (err == cudaSuccess) *route = 0;
-  return err;
+  const long row = static_cast<long>(heads) * d * (q_dtype == 1 ? 2 : 4);
+  for (int t0 = 0; t0 < tq; t0 += kTqMax) {
+    const int n = tq - t0 < kTqMax ? tq - t0 : kTqMax;
+    Args a{static_cast<const char*>(q) + t0 * row,
+           k_pool,
+           v_pool,
+           tables,
+           lengths,
+           static_cast<char*>(out) + t0 * row,
+           part_ml,
+           part_acc,
+           b,
+           n,
+           tq,
+           tq - t0 - n,
+           heads,
+           bs,
+           nb,
+           splits,
+           scale,
+           static_cast<cudaStream_t>(stream)};
+    const cudaError_t err =
+        q_dtype == 1 ? dispatch_pool<__nv_bfloat16>(pool_dtype, d, a)
+                     : dispatch_pool<float>(pool_dtype, d, a);
+    if (err != cudaSuccess) return err;
+  }
+  *route = 0;
+  return cudaSuccess;
 }
 
 extern "C" const char* tmx_error_string(int code) {

@@ -83,6 +83,11 @@ class Dense(HybridBlock):
         return self.act(out) if self.act is not None else out
 
 
+def _coll():
+    from ...parallel import collectives   # parallel imports gluon
+    return collectives
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization with the reference's numerics
     (``basic_layers.py:BatchNorm``, its one-pass form).
@@ -100,7 +105,17 @@ class BatchNorm(HybridBlock):
     per-channel scale and bias, cast once to ``x``'s dtype:
     ``x·scale + bias``.  ``axis=None`` follows ``layout.bn_axis()``:
     1 channels-first, -1 under a channels-last default.  ``in_channels=0``:
-    the first input's size along ``axis``."""
+    the first input's size along ``axis``.
+
+    Inside a train step's SPMD region whose batch is split over ranks
+    (``collectives.batch_split``) the statistics are the global batch's,
+    as the reference's mesh program computes them: each rank's sums are
+    added over the batch axes (ranks of equal batches) with
+    ``collectives.batch_sum``, whose backward adds the cotangents too, so
+    the normalized output, the input gradient and the running statistics
+    are those of the global batch at world size 1.  Under the compressed
+    per-shard reduction the region names no batch axes and each rank
+    keeps its own."""
 
     def __init__(self, axis=None, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -150,6 +165,12 @@ class BatchNorm(HybridBlock):
             # Σx² in float32 without a float32 copy of x kept for the
             # backward: the norm saves x itself
             s2 = torch.linalg.vector_norm(x, 2, dim=red, dtype=acc).square()
+            coll = _coll()
+            mesh, axes, ranks, _ = coll.batch_split()
+            if mesh is not None:     # one all-reduce of Σx and Σx²
+                c = x.shape[axis]
+                tot = coll.batch_sum(torch.cat([s1, s2]), mesh, axes)
+                s1, s2, n = tot[:c], tot[c:], n * ranks
             mean = s1 * (1.0 / n)
             var = torch.clamp_min(s2 * (1.0 / n) - mean.square(), 0.0)
             with torch.no_grad():
@@ -181,8 +202,18 @@ class BatchNorm(HybridBlock):
         promoted dtype of the two, and the normalization unfolded:
         ``(x - mean)·rsqrt(var + eps)·gamma + beta``."""
         if self.training and not self._use_global_stats:
-            mean = x.mean(dim=red)
-            var = (x - mean.view(shape)).square().mean(dim=red)
+            coll = _coll()
+            mesh, axes, ranks, _ = coll.batch_split()
+            if mesh is None:
+                mean = x.mean(dim=red)
+                var = (x - mean.view(shape)).square().mean(dim=red)
+            else:   # the global batch's mean, then its centred squares
+                acc = torch.promote_types(x.dtype, torch.float32)
+                n = math.prod(x.shape[i] for i in red) * ranks
+                total = lambda t: coll.batch_sum(
+                    t.sum(dim=red, dtype=acc), mesh, axes) * (1.0 / n)
+                mean = total(x).to(x.dtype)
+                var = total((x - mean.view(shape)).square()).to(x.dtype)
             with torch.no_grad():
                 m = self._momentum
                 for rs, stat in ((running_mean, mean), (running_var, var)):

@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` on its own into ``build/tpu_mx_torch/<name>-<hash>.so`` under
 the checkout's root, then loaded with :mod:`ctypes` — no PyTorch headers
 are compiled, which keeps a build to seconds.  ``<hash>`` covers the
-source, the shared headers (``csrc/*.cuh``), the ``nvcc`` flags and the
-``nvcc`` version, so an edited source rebuilds at its next use and an
-unchanged one is loaded as it is.
+source (and a ``.cu`` it includes: the units of one head dim,
+``flash_attention_*_d<D>.cu``, include their kernel's source), the
+shared headers (``csrc/*.cuh``), the ``nvcc`` flags and the ``nvcc``
+version, so an edited source rebuilds at its next use and an unchanged
+one is loaded as it is.
 
 Nothing here runs at import: a source is built at the first call of the
 kernel that needs it (or all at once, in parallel, by :func:`build_all`).
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,7 +35,10 @@ __all__ = ["SOURCES", "nvcc_path", "nvcc_version", "build", "build_all",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_mx_torch"
-SOURCES = ("paged_attention", "flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("paged_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_fwd_d128", "flash_attention_bwd_d128",
+           "flash_attention_fwd_d192", "flash_attention_fwd_d256",
+           "flash_attention_bwd_d192", "flash_attention_bwd_d256")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,6 +65,9 @@ def nvcc_version():
 
 def _target(name):
     src = (CSRC / f"{name}.cu").read_bytes()
+    # a unit of one head dim includes its kernel's source
+    src += b"".join((CSRC / inc.decode()).read_bytes() for inc in re.findall(
+        rb'#include "([\w.]+\.cu)"', src))
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
                          + nvcc_version().encode()).hexdigest()[:16]

@@ -72,7 +72,7 @@ __all__ = ["flash_attention", "mha_flash_attention", "flash_attention_plain",
            "dropout_keep_mask", "FlashAttentionFunction", "HEAD_DIMS"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # the kernels' template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 PLAIN_BLOCK_Q = 128             # query rows per step of the plain versions
@@ -86,12 +86,16 @@ _Q_MULT = 0x85EBCA77
 _K_MULT = 0xC2B2AE3D
 
 _libs = {}
+# head dims whose instances are a unit and a library of their own
+# (``csrc/<kernel>_d<D>.cu``, built in parallel with the others)
+_OWN_UNIT = (128, 192, 256)
 
 
-def _lib(name):
-    lib = _libs.get(name)
+def _lib(name, d):
+    unit = f"{name}_d{d}" if d in _OWN_UNIT else name
+    lib = _libs.get(unit)
     if lib is None:
-        lib = _build.load(name)
+        lib = _build.load(unit)
         p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_float)
         # (..., kv_valid, seed, bh, tq, tk, d, scale, causal, threshold,
@@ -111,7 +115,7 @@ def _lib(name):
             lib.tmx_flash_attention_bwd_dkv.argtypes = [p] * 8 + bias + tail \
                 + route
             lib.tmx_flash_attention_bwd_dkv.restype = i
-        _libs[name] = lib
+        _libs[unit] = lib
     return lib
 
 
@@ -345,14 +349,14 @@ def card_dense_arm(what, head_dim, dtype, detail="", suffix=False):
     multiple of 64, float32 or bfloat16) sends the shape dense too, and
     for a ``suffix`` prefill (fewer queries than keys), which the
     reference's gate sends dense whatever the head dim.  A shape the
-    reference's kernel takes raises instead (head dims 192, 256, ...):
-    the port does not put a plain version on the card in a kernel's
-    place."""
+    reference's kernel takes raises instead (head dims 320, 384, ...,
+    which need another design: ROADMAP B item 8b): the port does not put
+    a plain version on the card in a kernel's place."""
     if not suffix and head_dim % 64 == 0 and dtype in _DTYPES:
         raise MXNetError(
             f"{what}: no kernel instance for head dim {head_dim}, {dtype}"
             f"{detail}, a shape the reference's kernel takes; the port's "
-            f"instances are head dims {HEAD_DIMS} (ROADMAP B item 8)")
+            f"instances are head dims {HEAD_DIMS} (ROADMAP B item 8b)")
     return "dense"
 
 
@@ -366,7 +370,7 @@ def _check_kernel_operands(what, q, *rest):
                              f"{q.dtype}, got {x.dtype}")
     if q.shape[-1] not in HEAD_DIMS:
         raise MXNetError(f"{what} kernel: head_dim {q.shape[-1]} not in "
-                         f"{HEAD_DIMS}")
+                         f"{HEAD_DIMS} (ROADMAP B item 8b)")
 
 
 def _tail(q, k, kv_valid, rate, seed, scale, causal):
@@ -407,7 +411,7 @@ def _launch_fwd(q, k, v, scale, causal, kv_valid, rate, seed, bias=None):
     out = torch.empty_like(q)
     _check_aligned("flash_attention", q, k, v, out)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    lib = _lib("flash_attention_fwd")
+    lib = _lib("flash_attention_fwd", q.shape[-1])
     route = ctypes.c_int(-1)
     code = lib.tmx_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -441,7 +445,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal=False,
         if want_d_bias else None
     dq = torch.empty_like(q)
     _check_aligned("flash_attention_bwd_dq", q, k, v, do, dq)
-    lib = _lib("flash_attention_bwd")
+    lib = _lib("flash_attention_bwd", q.shape[-1])
     route = ctypes.c_int(-1)
     code = lib.tmx_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -466,7 +470,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal=False,
     _check_kernel_operands("flash_attention_bwd_dkv", q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _check_aligned("flash_attention_bwd_dkv", q, k, v, do, dk, dv)
-    lib = _lib("flash_attention_bwd")
+    lib = _lib("flash_attention_bwd", q.shape[-1])
     route = ctypes.c_int(-1)
     code = lib.tmx_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

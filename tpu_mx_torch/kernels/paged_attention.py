@@ -9,7 +9,7 @@ shape contract is the reference's:
   sits at position ``lengths[b] - Tq + t`` and sees key positions
   ``< lengths[b] - (Tq - 1 - t)`` (``Tq > 1`` is a speculative window);
 - ``k_pool``/``v_pool``: ``(num_blocks, block_size, H, D)``, one layer's
-  pool, float32 or bfloat16;
+  pool, float32, bfloat16 or float16;
 - ``block_tables``: int ``(B, NB)``; entries past a row's real blocks
   must still be valid pool indices (the cache pads with block 0);
 - ``lengths``: int ``(B,)`` true context lengths, ``>= Tq``.
@@ -22,8 +22,11 @@ Two versions share that contract:
   ``(B, H)`` over the float32 partials, which the wrapper allocates.
   Nothing is read back to the host, so a call can be captured in a CUDA
   graph and replayed after the tables and lengths change in place.  It
-  takes float32 queries, head dims 16/32/64/128 and windows up to
-  :data:`MAX_WINDOW`; anything else on the card raises;
+  takes float32 or bfloat16 queries (the output in their dtype, float32
+  math), float32, bfloat16 or float16 pools, head dims
+  16/32/64/128/192/256 and any window, walked in chunks of
+  :data:`WINDOW_CHUNK` rows (a split and a merge launch a chunk); a head
+  dim of 320 or more on the card raises (ROADMAP B item 8b);
 - :func:`paged_attention_plain`, the same block walk written in PyTorch,
   run for CPU tensors — and on the card only to check the kernel.  The
   reference's names for it are here too: :func:`window_walk` (the walk
@@ -50,7 +53,7 @@ from .. import device as _device
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_plain", "kernel_takes",
-           "MAX_WINDOW", "HEAD_DIMS", "window_walk",
+           "WINDOW_CHUNK", "HEAD_DIMS", "window_walk",
            "paged_attention_reference", "DEFAULT_BLOCK_SIZE"]
 
 NEG_INF = -1e30
@@ -58,8 +61,10 @@ NEG_INF = -1e30
 # sweep ran on a TPU), the port's PagedKVCache default; not re-measured
 # on the card
 DEFAULT_BLOCK_SIZE = 16
-MAX_WINDOW = 8                  # kTqMax in the kernel
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
+WINDOW_CHUNK = 8                # kTqMax: the window rows a launch takes
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # the kernel's template instances
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SPLIT_KEYS = 64                 # kSplitKeys: the keys of a split
 ROUTES = ("split_k",)           # the kernels the C entry point reports
 
@@ -72,8 +77,8 @@ def _kernel_lib():
         lib = _build.load("paged_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tmx_paged_attention.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p, p, i,
-            p, ctypes.POINTER(i)]
+            p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p, p,
+            i, p, ctypes.POINTER(i)]
         lib.tmx_paged_attention.restype = i
         _lib = lib
     return _lib
@@ -84,9 +89,8 @@ def kernel_takes(head_dim, q_dtype, pool_dtype, window=1):
     query and pool dtypes, window ``Tq`` (the wrapper raises on the card
     for anything else; the serving decode dispatches on this, a pure
     function of shape and dtype)."""
-    return (head_dim in HEAD_DIMS and q_dtype == torch.float32
-            and pool_dtype in (torch.float32, torch.bfloat16)
-            and 1 <= window <= MAX_WINDOW)
+    return (head_dim in HEAD_DIMS and q_dtype in _Q_DTYPES
+            and pool_dtype in _POOL_DTYPES and window >= 1)
 
 
 def _normalize_q(q):
@@ -175,20 +179,16 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables, lengths,
 
 def _launch(q, k_pool, v_pool, block_tables, lengths, scale):
     b, tq, h, d = q.shape
-    if q.dtype != torch.float32:
-        raise MXNetError(f"paged_attention kernel: q must be float32, got "
-                         f"{q.dtype}")
-    if k_pool.dtype not in (torch.float32, torch.bfloat16) \
-            or v_pool.dtype != k_pool.dtype:
+    if q.dtype not in _Q_DTYPES:
+        raise MXNetError(f"paged_attention kernel: q must be float32 or "
+                         f"bfloat16, got {q.dtype}")
+    if k_pool.dtype not in _POOL_DTYPES or v_pool.dtype != k_pool.dtype:
         raise MXNetError(f"paged_attention kernel: pools must both be "
-                         f"float32 or bfloat16, got {k_pool.dtype} / "
-                         f"{v_pool.dtype}")
+                         f"float32, bfloat16 or float16, got {k_pool.dtype} "
+                         f"/ {v_pool.dtype}")
     if d not in HEAD_DIMS:
         raise MXNetError(f"paged_attention kernel: head_dim {d} not in "
-                         f"{HEAD_DIMS}")
-    if tq > MAX_WINDOW:
-        raise MXNetError(f"paged_attention kernel: window Tq={tq} > "
-                         f"{MAX_WINDOW}")
+                         f"{HEAD_DIMS} (ROADMAP B item 8b)")
     q = q.contiguous()
     k_pool = k_pool.contiguous()
     v_pool = v_pool.contiguous()
@@ -202,17 +202,17 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, scale):
     bs, nb = k_pool.shape[1], tables.shape[1]
     # the splits from the table's width, never from the lengths (no read
     # back: the call stays capturable in a CUDA graph); their float32
-    # partials in one buffer: (m, l) (2, B, S, Tq, H), then acc
-    # (B, S, Tq, H, D)
+    # partials in one buffer, reused by each chunk of the window: (m, l)
+    # (2, B, S, c, H), then acc (B, S, c, H, D), c = min(Tq, WINDOW_CHUNK)
     splits = -(-nb * bs // SPLIT_KEYS)
-    rows = b * splits * tq * h
+    rows = b * splits * min(tq, WINDOW_CHUNK) * h
     part = torch.empty(rows * (2 + d), dtype=torch.float32, device=q.device)
     route = ctypes.c_int(-1)
     code = lib.tmx_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, tq, h, d, bs, nb, float(scale),
-        int(k_pool.dtype == torch.bfloat16), part.data_ptr(),
+        b, tq, h, d, bs, nb, float(scale), _Q_DTYPES[q.dtype],
+        _POOL_DTYPES[k_pool.dtype], part.data_ptr(),
         part.data_ptr() + 2 * rows * 4, splits, _build.stream(q),
         ctypes.byref(route))
     _build.check(lib, code, "paged_attention")

@@ -27,7 +27,12 @@ an ``autograd.Function``:
   way;
 - :func:`take`: a rank's own rows of a parameter every rank holds whole
   (a Megatron column or row block, a group of experts); backward sums
-  the rows' cotangents over the axes into the whole gradient.
+  the rows' cotangents over the axes into the whole gradient;
+- :func:`batch_sum`: the sum over the axes of each rank's partial of a
+  statistic of the global batch that every rank then reads for its own
+  rows (BatchNorm's sums, the MoE router's means); backward sums the
+  cotangents over the axes too, so each rank's partial gets the
+  gradient of every rank's use of the statistic.
 
 :func:`axis_index` is the rank's index along the axes, an int.
 
@@ -49,6 +54,15 @@ outside it, the functions of :mod:`.ring_attention`, :mod:`.ulysses` and
 :mod:`.pipeline` take the reference's global arrays (the same value on
 every rank) and return global arrays: they :func:`scatter` their
 operands, run the per-rank body, and :func:`all_gather` the result.
+The train step also names the region's ``batch_axes``, the axes its
+batch is split over (:func:`batch_split`), and where the split is of
+its rows and its sequence alone, those two dimensions' axes
+(:func:`token_split`): a layer whose function reads statistics of the
+whole batch reduces them over those axes (or, for statistics that
+depend on the tokens' order, gathers them in the global order), so
+that it computes what it computes on the global batch at world size 1.
+The compressed per-shard reduction names none: each rank's statistics
+stay its own, as the reference's per-shard program keeps them.
 """
 from __future__ import annotations
 
@@ -61,15 +75,22 @@ from .. import telemetry as _telemetry
 
 __all__ = ["psum", "pmean", "all_gather", "scatter",
            "copy_to", "all_to_all", "ppermute", "take", "axis_index",
-           "spmd", "current_spmd", "host_staged_stats", "split_over"]
+           "spmd", "current_spmd", "host_staged_stats", "split_over",
+           "batch_sum", "batch_split", "token_split"]
 
-_SPMD = []          # the meshes of the enclosing spmd regions, innermost last
+# the (mesh, batch axes, token axes) of the enclosing spmd regions,
+# innermost last
+_SPMD = []
 
 
 @contextlib.contextmanager
-def spmd(mesh):
-    """Tensors inside are each rank's local block over ``mesh``."""
-    _SPMD.append(mesh)
+def spmd(mesh, batch_axes=(), token_axes=None):
+    """Tensors inside are each rank's local block over ``mesh``;
+    ``batch_axes``: the axes the batch is split over whose ranks'
+    batch statistics are one global batch's (module docstring);
+    ``token_axes``: ``(row axes, sequence axes)`` where the batch is
+    split along its first two dimensions alone, else None."""
+    _SPMD.append((mesh, tuple(batch_axes), token_axes))
     try:
         yield mesh
     finally:
@@ -78,7 +99,40 @@ def spmd(mesh):
 
 def current_spmd():
     """The mesh of the innermost :func:`spmd` region, or None."""
-    return _SPMD[-1] if _SPMD else None
+    return _SPMD[-1][0] if _SPMD else None
+
+
+def batch_split():
+    """``(mesh, axes, size, index)``: the innermost region's batch axes
+    longer than 1, their number of ranks and this rank's index along
+    them; ``(None, (), 1, 0)`` outside a region or where the batch is
+    not split."""
+    if not _SPMD:
+        return None, (), 1, 0
+    mesh, axes, _ = _SPMD[-1]
+    axes = mesh.axes_of(axes) if axes else ()
+    if not axes:
+        return None, (), 1, 0
+    return mesh, axes, mesh.axis_size(axes), mesh.axis_index(axes)
+
+
+def token_split():
+    """Where the innermost region's batch is split along its rows and
+    its sequence alone: ``(mesh, axes, (row_blocks, row_index,
+    seq_blocks, seq_index))``, ``axes`` the row axes then the sequence
+    axes (longer than 1), so that a gather over them lists the ranks'
+    blocks row block by row block, each by its sequence blocks; else
+    None (no split, or one of another dimension)."""
+    if not _SPMD or _SPMD[-1][2] is None:
+        return None
+    mesh = _SPMD[-1][0]
+    rows, seq = (mesh.axes_of(a) if a else () for a in _SPMD[-1][2])
+    if not rows + seq:
+        return None
+    return mesh, rows + seq, (mesh.axis_size(rows) if rows else 1,
+                              mesh.axis_index(rows) if rows else 0,
+                              mesh.axis_size(seq) if seq else 1,
+                              mesh.axis_index(seq) if seq else 0)
 
 
 def host_staged_stats():
@@ -299,6 +353,13 @@ def psum(x, mesh, axes):
 
 def pmean(x, mesh, axes):
     return psum(x, mesh, axes) / mesh.axis_size(axes)
+
+
+def batch_sum(x, mesh, axes):
+    """The sum over ``axes`` of each rank's partial ``x`` of a global-batch
+    statistic: all-reduced forward and, through :func:`copy_to`, its
+    cotangent all-reduced backward (each rank's loss reads the sum)."""
+    return psum(copy_to(x, mesh, axes), mesh, axes)
 
 
 def copy_to(x, mesh, axes):

@@ -30,6 +30,23 @@ computes its ``E/ep`` experts (``collectives.take`` of their weights;
 the routing, the gates and the auxiliary term are the same on every
 rank) and the partial outputs are summed over ``ep``: the layer's
 function is the one-device one.
+
+Where the step's batch is split over ranks along its rows (``dp``) or
+its sequence (``sp``) (``collectives.token_split``), the layer routes
+the global batch, as the reference's mesh program does: the capacity is
+``ceil(cf·S_global·k/E)``; a token's slot is its place in the global
+count, in the global batch's token order (row by row, each row's
+sequence in order), which walks the ``k`` rounds one after another, each
+starting at the totals of the rounds before it.  So in round ``j`` a
+token of row ``b`` counts, before its own row's earlier tokens on its
+rank, every token of the rows before ``b`` and of the sequence blocks
+before its rank's in row ``b``, from every rank: one all-gather of the
+ranks' per-row ``(rows, E)`` counts a round.  The auxiliary term's
+``frac`` and ``mean_prob`` are global means (``collectives.batch_sum``,
+whose backward adds the cotangents).  Under the compressed per-shard
+reduction each rank routes its own tokens, as the reference's per-shard
+program does.  A batch split along another dimension raises
+:class:`MXNetError` (not ported).
 """
 from __future__ import annotations
 
@@ -37,6 +54,7 @@ import math
 
 import torch
 
+from ..base import MXNetError
 from ..gluon.block import HybridBlock
 from ..ndarray import ops
 from . import collectives as _coll
@@ -63,13 +81,17 @@ def _one_hot(idx, n, dtype):
     return (idx[:, None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def moe_route(probs, top_k, capacity):
+def moe_route(probs, top_k, capacity, split=None, rows=1):
     """The reference's routing of ``probs`` ``(S, E)`` (float32): per
     round ``r < top_k``, each token's expert ``experts[r]`` (int64,
     ``(S,)``), its slot in that expert ``slots[r]`` (int32 position
     count, first choices before second), whether the slot is within
     capacity ``kept[r]``, and its gate ``gates[r]`` (differentiable in
-    ``probs``; renormalised over the picks for ``top_k > 1``)."""
+    ``probs``; renormalised over the picks for ``top_k > 1``).
+    ``split``: ``collectives.token_split()`` of a batch split over
+    ranks, whose ``S`` tokens are this rank's ``rows`` rows of
+    ``S / rows`` tokens each: the slots are then the global batch's
+    (module docstring)."""
     s, e = probs.shape
     masked = probs.detach()
     experts, gates = [], []
@@ -91,23 +113,40 @@ def moe_route(probs, top_k, capacity):
         run = torch.cumsum(onehot.reshape(-1), 0, dtype=torch.int32) \
             .view(e, s)
         start = run[:, :1] - onehot[:, :1]
+        counts = run[:, -1] - start[:, 0]                        # (E,)
         pos = run - onehot - start + prev[:, None]               # (E, S)
+        if split is not None:
+            # the tokens every rank holds before each of this rank's rows
+            # in the global order, less those of its own earlier rows
+            mesh, axes, (nr, ri, ns, si) = split
+            mine = onehot.view(e, rows, s // rows).sum(
+                -1, dtype=torch.int32).t()                        # (rows, E)
+            every = _coll._gather(mine[None], mesh, axes, 0)     # (R, rows, E)
+            glob = every.view(nr, ns, rows, e).transpose(1, 2).reshape(-1, e)
+            before = torch.cumsum(glob, 0, dtype=torch.int32) - glob
+            own = torch.cumsum(mine, 0, dtype=torch.int32) - mine
+            shift = before.view(nr, rows, ns, e)[ri, :, si] - own
+            pos = pos + shift.t().repeat_interleave(s // rows, dim=1)
+            counts = glob.sum(0, dtype=torch.int32)
         slot = pos.gather(0, idx[None, :])[0]
         slots.append(slot)
         kept.append(slot < capacity)
-        prev = prev + run[:, -1] - start[:, 0]
+        prev = prev + counts
     return experts, slots, kept, gates
 
 
-def _moe_forward(x, gw, w1, b1, w2, b2, *, top_k, capacity, act):
+def _moe_forward(x, gw, w1, b1, w2, b2, *, top_k, capacity, act,
+                 split=None, rows=1):
     """Routing and expert compute on flattened tokens ``(S, U)``; returns
     ``(y, aux)``, ``y`` in ``x``'s dtype and ``aux`` float32.  Over
     ``ep`` (module docstring) the rank's experts run and the outputs
-    are summed over the axis."""
+    are summed over the axis; with ``split`` (:func:`moe_route`) the
+    routing and the auxiliary term are the global batch's."""
     s, u = x.shape
     e = gw.shape[0]
     probs = torch.softmax(x.float() @ gw.float().t(), dim=-1)   # (S, E)
-    experts, slots, kept, gates = moe_route(probs, top_k, capacity)
+    experts, slots, kept, gates = moe_route(probs, top_k, capacity, split,
+                                            rows)
     mesh, ep, r = _coll.split_over("ep")
     lo, hi = r * (e // ep), (r + 1) * (e // ep)
     if ep > 1:
@@ -147,8 +186,15 @@ def _moe_forward(x, gw, w1, b1, w2, b2, *, top_k, capacity, act):
             .float() for g, f in zip(gates, flat))
     if ep > 1:
         y = _coll.psum(y, mesh, "ep")
-    frac = _one_hot(experts[0], e, torch.float32).mean(0)
-    aux = e * torch.sum(frac * probs.mean(0))
+    first = _one_hot(experts[0], e, torch.float32)
+    if split is None:
+        frac, mean_prob = first.mean(0), probs.mean(0)
+    else:    # the global means: one all-reduce of both sums
+        mesh, axes, (nr, _, ns, _) = split
+        both = _coll.batch_sum(torch.cat([first.sum(0), probs.sum(0)]),
+                               mesh, axes) / (s * nr * ns)
+        frac, mean_prob = both[:e], both[e:]
+    aux = e * torch.sum(frac * mean_prob)
     return y.to(x.dtype), aux.float()
 
 
@@ -195,11 +241,21 @@ class MoEFFN(HybridBlock):
         shape = x.shape
         s = math.prod(shape[:-1])
         act = ops.gelu if self._act_name == "gelu" else _ACTS[self._act_name]
+        split = _coll.token_split()
+        if split is None and _coll.batch_split()[2] > 1:
+            raise MXNetError(
+                "MoEFFN: the step's batch is split over ranks along a "
+                "dimension other than its rows and its sequence; routing "
+                "the global batch is ported only for row (dp) and "
+                "sequence (sp) splits, and routing each rank's tokens "
+                "would differ from the reference's mesh program")
+        ranks = 1 if split is None else split[2][0] * split[2][2]
         y, aux = _moe_forward(
             x.reshape(s, shape[-1]), self._parameters["gate_weight"],
             self._parameters["expert_w1"], self._parameters["expert_b1"],
             self._parameters["expert_w2"], self._parameters["expert_b2"],
-            top_k=self._k, capacity=self.capacity(s), act=act)
+            top_k=self._k, capacity=self.capacity(s * ranks), act=act,
+            split=split, rows=shape[0] if x.dim() > 2 else s)
         return y.reshape(shape), aux
 
     def __repr__(self):

@@ -20,7 +20,7 @@ a pure function of the device type, head dim, dtype, the
   or 96; float16), where it logs a warning as the reference's does on
   its chip: a deliberate dense choice does not.  A shape the
   reference's kernel takes and the port has no instance for (head dims
-  192, 256) raises on the card unless the mode chose dense
+  320 and more) raises on the card unless the mode chose dense
   (``kernels.flash_attention.card_dense_arm``).
 
 ``TPUMX_ATTENTION`` (``auto``, the default, ``dense`` or ``flash``) and

@@ -98,9 +98,13 @@ same global batch):
 - ``state_dict``/``save_checkpoint`` hold whole tensors (rank 0 writes
   the file), so a checkpoint loads onto any other mesh or none.
 
-Model-level parallelism on a mesh is per rank: an ``MoEFFN`` under
-``dp`` routes each rank's tokens with its own capacity and load-balance
-statistics, where the reference's program routes the global batch.
+Inside the step's SPMD region the batch's axes are named
+(``collectives.spmd(batch_axes=, token_axes=)``): ``BatchNorm`` reduces
+its batch statistics over them and an ``MoEFFN`` routes the global batch
+(its capacity, slots and load-balance term), as the reference's mesh
+program computes them on the global batch; under
+``gradient_compression`` both keep each rank's own, as the reference's
+per-shard program does.
 """
 from __future__ import annotations
 
@@ -409,6 +413,26 @@ class CompiledTrainStep:
                      if any(a in ax for spec in specs
                             for ax in _spec_axes_in(spec, self.mesh)))
 
+    def _batch_region(self, n_batch):
+        """``(batch axes, token axes)`` of the step's SPMD region
+        (``collectives.spmd``): the axes over which a layer's batch
+        statistics are the global batch's, and ``(row axes, sequence
+        axes)`` where every split argument is split along its first two
+        dimensions alone, each by one set of axes for all (in the spec's
+        order, the order of the blocks); none under the compressed
+        per-shard reduction."""
+        if self._compression:
+            return (), None
+        split = [_spec_axes_in(spec, self.mesh)
+                 for spec in self._batch_specs(n_batch)]
+        dims = [{axes[d] for axes in split if len(axes) > d and axes[d]}
+                for d in (0, 1)]
+        tokens = None
+        if all(len(d) <= 1 for d in dims) and not any(
+                a for axes in split for a in axes[2:]):
+            tokens = tuple(next(iter(d)) if d else () for d in dims)
+        return self._data_axes(n_batch), tokens
+
     def _batch_specs(self, n_batch):
         specs = self._data_specs or tuple(P("dp") for _ in range(n_batch))
         if len(specs) != n_batch:
@@ -480,9 +504,10 @@ class CompiledTrainStep:
         t_disp = time.perf_counter()
         n = self._n_loss_args
         data_axes = ()
-        region = _coll.spmd(self.mesh) if self._multi else _nullcontext()
+        region = _nullcontext()
         if self._multi:
             data_axes = self._data_axes(len(batch))
+            region = _coll.spmd(self.mesh, *self._batch_region(len(batch)))
             batch = tuple(None if b is None else _block(b, spec, self.mesh)
                           for b, spec in zip(batch,
                                              self._batch_specs(len(batch))))
