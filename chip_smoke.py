@@ -915,10 +915,15 @@ def phase_build(ctx):
     dk/dv instances (``*_tc_kernel``) must hold HGMMA instructions, the
     float32 forward, dq and dk/dv instances (``*_tf32x3_kernel``) HMMA,
     and neither may spill; every other kernel (paged) holds neither."""
+    from concurrent.futures import ThreadPoolExecutor
     from tpu_mx_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
+    # one cuobjdump a library, all at once (each a subprocess)
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        sass = dict(zip(libs, pool.map(mma_counts, libs.values())))
+    sass_secs = time.perf_counter() - t0 - secs
     report, mma, mix, wrong = {}, {}, {}, []
     for name, lib in libs.items():
         log = lib.with_suffix(".log")
@@ -932,7 +937,7 @@ def phase_build(ctx):
         pretty = dict(zip(sorted({k for k, _ in entries}),
                           demangle(sorted({k for k, _ in entries}))))
         report[name] = [f"{pretty[k]}: {l}" for k, l in entries]
-        counts = mma_counts(lib)
+        counts = sass[name]
         mma[name] = {"hgmma_total": sum(c[0] for c in counts.values()),
                      "hmma_total": sum(c[1] for c in counts.values()),
                      "kernels": {k: c[:2] for k, c in counts.items()}}
@@ -958,7 +963,8 @@ def phase_build(ctx):
                     m.group(1, 2) != ("0", "0"):
                 wrong.append(f"{pretty[kernel]}: {line}")
     ok = not wrong
-    emit("build", ok=ok, seconds=secs, ptxas=report, mma=mma,
+    emit("build", ok=ok, seconds=secs, sass_seconds=sass_secs,
+         phase_seconds=time.perf_counter() - t0, ptxas=report, mma=mma,
          mma_wrong=wrong, f32_mix=mix)
     if not ok:
         ctx["failures"].append(f"build: tensor-core instructions where not "
@@ -6005,6 +6011,521 @@ def ops_rest(oc, nd, mx, rng):
     g["library_ms"] = None
 
 
+# the slice of ROADMAP A item 10 (a, b): public configurations that use
+# these operators.  Faster R-CNN's RPN and ROI head as MXNet's
+# example/rcnn ships it with VGG-16 (conv5_3 at 1/16 of a 600 x 1000
+# image), R-FCN's position-sensitive head, Deformable ConvNets' res5
+# deformable convolution and deformable R-FCN pooling, FlowNetC's
+# correlation, an ImageNet spatial transformer
+VISION = dict(feat=(1, 512, 38, 63), image=(600.0, 1000.0), stride=16,
+              scales=(8, 16, 32), ratios=(0.5, 1, 2), pre_nms=6000,
+              post_nms=300, nms=0.7, pooled=7, sample_ratio=2,
+              rfcn_dim=21, rfcn_group=7, trans_std=0.1, sample_per_part=4,
+              flow=(1, 256, 48, 64), flow_disp=20, flow_stride2=2,
+              flow_pad=20, stn=(8, 3, 224, 224), upsample=(1, 256, 38, 63))
+OPS_GRAD_RTOL = 1e-2            # card against CPU gradients, in norm
+OPS_FAMILY_REPS = 5             # cuda_ms medians of the item-10 groups
+OPS_CPU_ROIS = 32               # ROIs the CPU port pools (rows apart)
+LINALG_FAMILY = dict(batch=8, n=1024, rhs=256, eig=512, lq=(512, 1024),
+                     cpu_batch=2)
+SAMPLER_PARAMS = 16             # parameter entries; 2**20 draws each
+
+
+def _fwd_bwd(torch, fn, args, diff, seed=7):
+    """``fn(*args)`` and the gradients of ``args[i]`` (``i`` in
+    ``diff``) from one fixed random head gradient."""
+    xs = [a.detach().requires_grad_(True) if i in diff else a
+          for i, a in enumerate(args)]
+    out = fn(*xs)
+    head = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        seed)).to(out.device)
+    grads = torch.autograd.grad(out, [xs[i] for i in diff], head)
+    return out.detach(), grads
+
+
+def _grad_check(oc, group, name, card, cpu):
+    """Each gradient within OPS_GRAD_RTOL of the CPU port's, in norm."""
+    errs = [float((c.detach().cpu().double() - h.double()).norm()
+                  / max(float(h.double().norm()), 1e-30))
+            for c, h in zip(card, cpu)]
+    ok = all(e <= OPS_GRAD_RTOL for e in errs) and \
+        all(c.device.type == "cuda" for c in card)
+    g = oc.groups[group]
+    g.setdefault("checks", {})[name + "_grad"] = ok
+    g.setdefault("grad_rel_err_in_norm", {})[name] = errs
+    if not ok:
+        oc.failures.append(f"operators {group}: {name} gradient {errs}")
+    return ok
+
+
+def _timed_nms(torch, contrib, run):
+    """``run()`` with ``contrib._nms_keep`` timed by CUDA events (the
+    greedy loop inside ``Proposal``): the median ms over 3 calls."""
+    real, times = contrib._nms_keep, []
+
+    def timed(*a, **k):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = real(*a, **k)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+        return out
+    contrib._nms_keep = timed
+    try:
+        for _ in range(3):
+            run()
+    finally:
+        contrib._nms_keep = real
+    return statistics.median(times)
+
+
+def ops_vision(oc, nd, rng):
+    """The vision family at Faster R-CNN's, R-FCN's, Deformable ConvNets'
+    and FlowNetC's shapes (``VISION``), card against the CPU port: the
+    proposals in full, the ROI operators on the CPU's leading
+    ``OPS_CPU_ROIS`` of the 300 ROIs (forward and gradient), the rest in
+    full with their gradients."""
+    from tpu_mx_torch.ndarray import contrib
+    torch = oc.torch
+    F = torch.nn.functional
+    v = VISION
+    g = oc.groups["vision"] = {"config": {k: list(x) if isinstance(
+        x, tuple) else x for k, x in v.items()}, "names": {},
+        "cpu_rois": OPS_CPU_ROIS}
+    n_a = len(v["scales"]) * len(v["ratios"])
+    _, c, hf, wf = v["feat"]
+    feat = card_draw(torch, rng, v["feat"])
+    cls = card_draw(torch, rng, (1, 2 * n_a, hf, wf), 0.0, 1.0)
+    deltas = card_draw(torch, rng, (1, 4 * n_a, hf, wf)) * 0.1
+    im_info = torch.tensor([[v["image"][0], v["image"][1], 1.0]])
+    prop = dict(rpn_pre_nms_top_n=v["pre_nms"],
+                rpn_post_nms_top_n=v["post_nms"], threshold=v["nms"],
+                scales=v["scales"], ratios=v["ratios"],
+                feature_stride=v["stride"], output_score=True)
+    card_in = (cls.cuda(), deltas.cuda(), im_info.cuda())
+
+    def proposal():
+        return nd.Proposal(*card_in, **prop)
+    ms = cuda_ms(torch, proposal, reps=3, warm=1)
+    nms_ms = _timed_nms(torch, contrib, proposal)
+    rois_c, score_c = proposal()
+    rois_h, score_h = nd.Proposal(cls, deltas, im_info, **prop)
+    ok = oc.check("vision", "Proposal", rois_c, rois_h, OPS_STATS_TOL)
+    ok &= oc.check("vision", "Proposal_score", score_c, score_h,
+                   OPS_STATS_TOL)
+    g["names"]["Proposal"] = dict(ms=ms, nms_ms=nms_ms, ok=ok,
+                                  kept=int((score_h > 0).sum()))
+    rois = rois_h.reshape(-1, 5)             # the same ROIs on both sides
+    k = OPS_CPU_ROIS
+    featc, roisc = feat.cuda(), rois.cuda()
+    psfeat = card_draw(torch, rng, (1, v["rfcn_dim"] * v["rfcn_group"] ** 2,
+                                    hf, wf))
+    trans = card_draw(torch, rng, (v["post_nms"], 2, v["pooled"],
+                                   v["pooled"]))
+    dc_off = card_draw(torch, rng, (1, 18, hf, wf)) * 2.0
+    dc_w = card_draw(torch, rng, (c, c, 3, 3)) / math.sqrt(9 * c)
+    f1 = card_draw(torch, rng, v["flow"])
+    f2 = card_draw(torch, rng, v["flow"])
+    img = card_draw(torch, rng, v["stn"])
+    loc = torch.tensor([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0]]).repeat(
+        v["stn"][0], 1) + 0.05 * card_draw(torch, rng, (v["stn"][0], 6))
+    up = card_draw(torch, rng, v["upsample"])
+    s16 = 1.0 / v["stride"]
+    pk = v["pooled"]
+    cases = [
+        # name, fn, inputs, differentiable inputs, ROIs treated apart,
+        # one PyTorch call computing the same function (or None)
+        ("ROIPooling", lambda x, r: nd.ROIPooling(
+            x, r, pooled_size=(pk, pk), spatial_scale=s16), (feat, rois),
+         (0,), True, None),
+        ("ROIAlign", lambda x, r: nd.ROIAlign(
+            x, r, pooled_size=(pk, pk), spatial_scale=s16,
+            sample_ratio=v["sample_ratio"]), (feat, rois), (0, 1), True,
+         None),
+        ("PSROIPooling", lambda x, r: nd.PSROIPooling(
+            x, r, spatial_scale=s16, output_dim=v["rfcn_dim"],
+            pooled_size=pk, group_size=v["rfcn_group"]), (psfeat, rois),
+         (0,), True, None),
+        ("DeformablePSROIPooling", lambda x, r, t: nd.DeformablePSROIPooling(
+            x, r, t, spatial_scale=s16, output_dim=v["rfcn_dim"],
+            group_size=v["rfcn_group"], pooled_size=pk, part_size=pk,
+            sample_per_part=v["sample_per_part"], trans_std=v["trans_std"]),
+         (psfeat, rois, trans), (0, 2), True, None),
+        ("DeformableConvolution", lambda x, o, w: nd.contrib
+         .DeformableConvolution(x, o, w, kernel=(3, 3), pad=(1, 1),
+                                num_filter=c, no_bias=True),
+         (feat, dc_off, dc_w), (0, 1, 2), False, None),
+        ("Correlation", lambda a, b: nd.Correlation(
+            a, b, kernel_size=1, max_displacement=v["flow_disp"],
+            stride2=v["flow_stride2"], pad_size=v["flow_pad"]), (f1, f2),
+         (0, 1), False, None),
+        ("SpatialTransformer", lambda x, t: nd.SpatialTransformer(
+            x, t, target_shape=v["stn"][2:]), (img, loc), (0, 1), False,
+         lambda x, t: F.grid_sample(x, F.affine_grid(
+             t.reshape(-1, 2, 3), list(x.shape), align_corners=True),
+             align_corners=True)),
+        ("UpSampling", lambda x: nd.UpSampling(x, scale=2), (up,), (0,),
+         False, lambda x: F.interpolate(x, scale_factor=2)),
+        ("BilinearResize2D", lambda x: nd.BilinearResize2D(
+            x, height=hf // 2, width=wf // 2), (up,), (0,), False,
+         lambda x: F.interpolate(x, size=(hf // 2, wf // 2),
+                                 mode="bilinear", antialias=True)),
+    ]
+    for name, fn, args, diff, apart, library in cases:
+        card = tuple(a.cuda() for a in args)
+        ms = cuda_ms(torch, lambda: fn(*card), reps=OPS_FAMILY_REPS)
+        fb_ms = cuda_ms(torch, lambda: _fwd_bwd(torch, fn, card, diff),
+                        reps=OPS_FAMILY_REPS)
+        lib_ms = None if library is None else cuda_ms(
+            torch, lambda: library(*card), reps=OPS_FAMILY_REPS)
+        # rows apart: the CPU's leading ROIs, on the card too for the
+        # gradient (a feature map's gradient sums over every ROI)
+        cut = tuple(a[:k] if apart and a.shape[0] == rois.shape[0] else a
+                    for a in args)
+        got = fn(*card)
+        want = fn(*cut)
+        ok = oc.check("vision", name, got[:k] if apart else got, want,
+                      OPS_STATS_TOL)
+        out_c, g_c = _fwd_bwd(torch, fn, tuple(a.cuda() for a in cut), diff)
+        out_h, g_h = _fwd_bwd(torch, fn, cut, diff)
+        ok &= _grad_check(oc, "vision", name, g_c, g_h)
+        g["names"][name] = dict(ms=ms, fwd_bwd_ms=fb_ms, library_ms=lib_ms,
+                                ok=ok, shape=[list(a.shape) for a in args])
+        torch.cuda.empty_cache()
+    g["ms"] = sum(x["ms"] for x in g["names"].values())
+    g["library_ms"] = None
+
+
+def ops_linalg_family(oc, nd, rng):
+    """``linalg_*`` on 8 SPD float32 matrices of 1024 x 1024 (A·Aᵀ/n + I,
+    drawn on the card): potri of their Cholesky factors, trsm and trmm
+    against 256 columns, inverse, slogdet; syevd at 512, gelqf at 512 x
+    1024.  The CPU port takes the leading ``cpu_batch`` matrices (each
+    matrix apart).  syevd's eigenvalues are held to the CPU port's; its
+    eigenvectors (each sign free, and mixed within close eigenvalues
+    by any float32 solver) by the residual ``max|Uᵀ·diag(λ)·U - A|`` on
+    the card within ``n·eps·max|λ|``; the eigenvalues' distances from
+    float64 (the port's, the CPU port's, cuSOLVER's float32 solver's)
+    are printed."""
+    torch = oc.torch
+    cfg = LINALG_FAMILY
+    b, n, kb = cfg["batch"], cfg["n"], cfg["cpu_batch"]
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.randint(1 << 31)))
+    m = torch.randn((b, n, n), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    spd_c = (m @ m.mT / n + torch.eye(n, device="cuda",
+                                      dtype=torch.float64)).float()
+    low_c = torch.linalg.cholesky(spd_c.double()).float()
+    rhs_c = torch.randn((b, n, cfg["rhs"]), generator=gen, device="cuda")
+    e = cfg["eig"]
+    sym_c = torch.randn((b, e, e), generator=gen, device="cuda")
+    sym_c = (sym_c + sym_c.mT) / 2
+    lq_c = torch.randn((b,) + cfg["lq"], generator=gen, device="cuda")
+    g = oc.groups["linalg_family"] = dict(cfg, names={}, dtype="float32")
+    cases = [
+        ("linalg_potri", nd.linalg_potri, (low_c,), (0,),
+         lambda a: torch.cholesky_inverse(a)),
+        ("linalg_trsm", nd.linalg_trsm, (low_c, rhs_c), (0, 1),
+         lambda a, r: torch.linalg.solve_triangular(a, r, upper=False)),
+        ("linalg_trmm", lambda a, r: nd.linalg_trmm(a, r, alpha=0.5),
+         (low_c, rhs_c), (0, 1), lambda a, r: torch.matmul(a, r)),
+        ("linalg_inverse", nd.linalg_inverse, (spd_c,), (0,),
+         torch.linalg.inv),
+        ("linalg_slogdet", lambda a: nd.linalg_slogdet(a)[1], (spd_c,), (0,),
+         torch.linalg.slogdet),
+        ("linalg_gelqf", lambda a: torch.cat(
+            [x.flatten(1) for x in nd.linalg_gelqf(a)], 1), (lq_c,), (),
+         lambda a: torch.linalg.qr(a.mT)),
+        ("linalg_syevd", lambda a: nd.linalg_syevd(a)[1], (sym_c,), (),
+         lambda a: torch.linalg.eigh(a)),
+    ]
+    for name, fn, args, diff, library in cases:
+        ms = cuda_ms(torch, lambda: fn(*args), reps=OPS_FAMILY_REPS)
+        lib_ms = None if library is None else cuda_ms(
+            torch, lambda: library(*args), reps=OPS_FAMILY_REPS)
+        cut_c = tuple(a[:kb] for a in args)
+        cut_h = tuple(a.cpu() for a in cut_c)
+        ok = oc.check("linalg_family", name, fn(*args)[:kb], fn(*cut_h),
+                      OPS_STATS_TOL)
+        if diff:
+            _, g_c = _fwd_bwd(torch, fn, cut_c, diff)
+            _, g_h = _fwd_bwd(torch, fn, cut_h, diff)
+            ok &= _grad_check(oc, "linalg_family", name, g_c, g_h)
+        g["names"][name] = dict(ms=ms, library_ms=lib_ms, ok=ok)
+    # syevd's eigenvectors (each sign free) by the residual of the
+    # reconstruction on the card, within LAPACK's backward-error scale
+    # n·eps·max|λ|, the CPU port's residual beside it; the eigenvalues'
+    # distance from float64, the port's (float64 inside) and cuSOLVER's
+    # float32 solver's
+    def residual(a):
+        u, lam = nd.linalg_syevd(a)
+        return float((u.mT @ (lam[..., None] * u) - a).abs().max()), \
+            float(lam.abs().max())
+    res_c, lam_max = residual(sym_c)
+    res_h, _ = residual(sym_c[:kb].cpu())
+    bound = e * torch.finfo(torch.float32).eps * lam_max
+    ok = res_c <= bound
+    w64 = torch.linalg.eigvalsh(sym_c.double())
+    g["names"]["linalg_syevd"].update(
+        residual=res_c, cpu_residual=res_h, residual_bound=bound,
+        eig_err_vs_f64=float((nd.linalg_syevd(sym_c)[1].double() - w64)
+                             .abs().max()),
+        library_f32_eig_err_vs_f64=float(
+            (torch.linalg.eigvalsh(sym_c).double() - w64).abs().max()),
+        cpu_eig_err_vs_f64=float((nd.linalg_syevd(sym_c[:kb].cpu())[1]
+                                  .double() - w64[:kb].cpu()).abs().max()),
+        ok=ok and g["names"]["linalg_syevd"]["ok"])
+    g.setdefault("checks", {})["linalg_syevd_residual"] = ok
+    if not ok:
+        oc.failures.append(f"operators linalg_family: syevd residual "
+                           f"{res_c} (bound {bound})")
+    g["ms"] = sum(x["ms"] for x in g["names"].values())
+    g["library_ms"] = None
+    torch.cuda.empty_cache()
+
+
+def _z(d, mean, var):
+    return abs(float(d.double().mean()) - mean) / math.sqrt(var / d.numel())
+
+
+def ops_samplers(oc, nd, mx, rng):
+    """Every sampler of the slice on the card, 2**24 draws each: the
+    ``sample_*`` family with 16 parameter entries (broadcast pairs) and
+    2**20 draws an entry, the two negative-binomial ``random_*`` draws
+    and ``mx.np.random``; each held by support and each mean within 5
+    standard errors (the card's generator is not the CPU's)."""
+    torch = oc.torch
+    n_par, n_each = SAMPLER_PARAMS, OPS_REST // SAMPLER_PARAMS
+    p1 = torch.linspace(0.5, 4.0, n_par, device="cuda")
+    p2 = torch.linspace(0.2, 1.0, n_par, device="cuda")
+    mx.random.seed(0)
+    g = oc.groups["samplers"] = {"draws": OPS_REST, "names": {}}
+    fam = [
+        ("sample_uniform", lambda: nd.sample_uniform(p1 - 3, p1, shape=n_each),
+         (p1 - 3 + p1) / 2, (p1 - p1 + 3) ** 2 / 12, lambda d: True),
+        ("sample_normal", lambda: nd.sample_normal(p1, p2, shape=n_each),
+         p1, p2 ** 2, lambda d: True),
+        ("sample_gamma", lambda: nd.sample_gamma(p1, p2, shape=n_each),
+         p1 * p2, p1 * p2 ** 2, lambda d: bool((d > 0).all())),
+        ("sample_exponential", lambda: nd.sample_exponential(
+            p1, shape=n_each), 1 / p1, 1 / p1 ** 2,
+         lambda d: bool((d >= 0).all())),
+        ("sample_poisson", lambda: nd.sample_poisson(p1, shape=n_each),
+         p1, p1, lambda d: bool(((d >= 0) & (d == d.round())).all())),
+        ("sample_negative_binomial", lambda: nd.sample_negative_binomial(
+            p1, p2 * 0.8 + 0.1, shape=n_each),
+         p1 * (0.9 - p2 * 0.8) / (p2 * 0.8 + 0.1),
+         p1 * (0.9 - p2 * 0.8) / (p2 * 0.8 + 0.1) ** 2,
+         lambda d: bool(((d >= 0) & (d == d.round())).all())),
+        ("sample_generalized_negative_binomial",
+         lambda: nd.sample_generalized_negative_binomial(
+             p1, p2, shape=n_each), p1, p1 + p2 * p1 ** 2,
+         lambda d: bool(((d >= 0) & (d == d.round())).all())),
+    ]
+    for name, fn, mean, var, support in fam:
+        ms = cuda_ms(torch, fn, reps=OPS_FAMILY_REPS)
+        d = fn()
+        z = max(_z(d[i], float(mean[i]), float(var[i]))
+                for i in range(n_par))
+        ok = d.device.type == "cuda" and d.shape == (n_par, n_each) and \
+            support(d) and z <= CHI2_Z
+        g["names"][name] = dict(ms=ms, ok=ok, max_mean_z=z)
+    nb = [("random_negative_binomial", lambda: nd.random_negative_binomial(
+        3, 0.4, shape=(OPS_REST,)), 4.5, 11.25),
+        ("random_generalized_negative_binomial",
+         lambda: nd.random_generalized_negative_binomial(
+             2.0, 0.5, shape=(OPS_REST,)), 2.0, 4.0)]
+    for name, fn, mean, var in nb:
+        ms = cuda_ms(torch, fn, reps=OPS_FAMILY_REPS)
+        d = fn()._data
+        z = _z(d, mean, var)
+        ok = d.device.type == "cuda" and bool((d >= 0).all()) and z <= CHI2_Z
+        g["names"][name] = dict(ms=ms, ok=ok, mean_z=z)
+    r = mx.np.random
+    npr = [
+        ("np.random.uniform", lambda: r.uniform(-1, 3, OPS_REST), 1.0, 4 / 3),
+        ("np.random.normal", lambda: r.normal(2, 0.5, OPS_REST), 2.0, 0.25),
+        ("np.random.randint", lambda: r.randint(3, 10, OPS_REST), 6.0, 4.0),
+        ("np.random.beta", lambda: r.beta(2, 3, OPS_REST), 0.4, 0.04),
+        ("np.random.gamma", lambda: r.gamma(2.5, 2, OPS_REST), 5.0, 10.0),
+        ("np.random.exponential", lambda: r.exponential(1.5, OPS_REST), 1.5,
+         2.25),
+        ("np.random.poisson", lambda: r.poisson(3.5, OPS_REST), 3.5, 3.5),
+        ("np.random.binomial", lambda: r.binomial(10, 0.3, OPS_REST), 3.0,
+         2.1),
+        ("np.random.chisquare", lambda: r.chisquare(3, OPS_REST), 3.0, 6.0),
+        ("np.random.geometric", lambda: r.geometric(0.25, OPS_REST), 4.0,
+         12.0),
+        ("np.random.gumbel", lambda: r.gumbel(1, 2, OPS_REST),
+         1 + 2 * 0.5772156649015329, math.pi ** 2 / 6 * 4),
+        ("np.random.laplace", lambda: r.laplace(-1, 0.5, OPS_REST), -1.0,
+         0.5),
+        ("np.random.logistic", lambda: r.logistic(0.5, 1.5, OPS_REST), 0.5,
+         math.pi ** 2 / 3 * 2.25),
+        ("np.random.lognormal", lambda: r.lognormal(0, 0.5, OPS_REST),
+         math.exp(0.125), (math.exp(0.25) - 1) * math.exp(0.25)),
+        ("np.random.pareto", lambda: r.pareto(5, OPS_REST), 0.25, 5 / 48),
+        ("np.random.power", lambda: r.power(3, OPS_REST), 0.75, 3 / 80),
+        ("np.random.rayleigh", lambda: r.rayleigh(2, OPS_REST),
+         2 * math.sqrt(math.pi / 2), (4 - math.pi) / 2 * 4),
+        ("np.random.weibull", lambda: r.weibull(2, OPS_REST),
+         math.gamma(1.5), 1 - math.gamma(1.5) ** 2),
+    ]
+    for name, fn, mean, var in npr:
+        ms = cuda_ms(torch, fn, reps=OPS_FAMILY_REPS)
+        d = fn()._data
+        z = _z(d, mean, var)
+        ok = d.device.type == "cuda" and d.numel() == OPS_REST and \
+            bool(torch.isfinite(d.double()).all()) and z <= CHI2_Z
+        g["names"][name] = dict(ms=ms, ok=ok, mean_z=z)
+    for name, x in g["names"].items():
+        if not x["ok"]:
+            oc.failures.append(f"operators samplers: {name} ({x})")
+    g["ms"] = sum(x["ms"] for x in g["names"].values())
+    g["library_ms"] = None
+
+
+def ops_contrib_np(oc, nd, mx, rng):
+    """The rest of ``nd.contrib`` and a cut of ``mx.np`` at the repo's
+    model shapes, card against the CPU port, forward and (where they
+    differentiate) gradient: ``boolean_mask`` over BERT's 32 x 512 x 768
+    activations at its 15% masked positions, ``fft``/``ifft`` at 2**20,
+    ``foreach`` and ``while_loop`` over BERT-width states, ``hawkesll``
+    over 256 sequences of 256 events, ``AdaptiveAvgPooling2D`` at
+    ResNet-50's head, ``index_copy`` into BERT's embedding table, the
+    elementwise names and ``mx.np`` on BERT-base's hidden activations
+    (32 x 512 positions of 768), ``count_sketch`` at MCB's 2048 -> 16000
+    over a batch of 32."""
+    torch = oc.torch
+    F = torch.nn.functional
+    C, npm = nd.contrib, mx.np
+    act = card_draw(torch, rng, (32 * 512, 768))
+    x = act
+    masked = torch.from_numpy((rng.rand(32 * 512) < 0.15).astype(
+        np.float32))
+    sig = card_draw(torch, rng, (1 << 20,))
+    sig2 = card_draw(torch, rng, (1 << 21,))
+    seq = card_draw(torch, rng, (128, 32, 768)) * 0.1
+    h0 = card_draw(torch, rng, (32, 768)) * 0.1
+    head = card_draw(torch, rng, (32, 2048, 7, 7))
+    table = card_draw(torch, rng, (30522, 768))
+    rows = torch.from_numpy(rng.choice(30522, 2458, replace=False).astype(
+        np.float32))
+    new = card_draw(torch, rng, (2458, 768))
+    hk = [torch.from_numpy(a) for a in _hawkes_arrays(rng, 256, 32, 256)]
+    pooled = card_draw(torch, rng, (32, 2048))
+    sketch_h = torch.from_numpy(rng.randint(0, 16000, 2048).astype(
+        np.float32))
+    sketch_s = torch.from_numpy(np.sign(rng.randn(2048)).astype(np.float32))
+    spd = card_draw(torch, rng, (512, 512))
+    spd = spd @ spd.T / 512 + torch.eye(512)
+    ints = (act * 100).floor()
+
+    def body(xt, st):
+        s = torch.tanh(xt + st[0])
+        return s, [s]
+
+    def loop_cond(i, s):
+        return i < 48
+
+    def loop_fn(i, s):
+        s2 = torch.tanh(s) * 0.5 + 0.1
+        return s2, [i + 1, s2]
+
+    cases = [
+        # name, fn, inputs, differentiable inputs, library (or None)
+        ("boolean_mask", lambda a, m: C.boolean_mask(a, m), (act, masked),
+         (0,), lambda a, m: a[m != 0]),
+        ("fft", lambda a: C.fft(a), (sig,), (0,),
+         lambda a: torch.view_as_real(torch.fft.fft(a))),
+        ("ifft", lambda a: C.ifft(a), (sig2,), (0,), None),
+        ("foreach", lambda s, h: C.foreach(body, s, [h])[0], (seq, h0),
+         (0, 1), None),
+        ("while_loop", lambda h: C.while_loop(
+            loop_cond, loop_fn, [torch.zeros((1,), device=h.device), h],
+            max_iterations=64)[0], (h0,), (0,), None),
+        ("cond", lambda a: C.cond(a[0, 0] > -100, lambda: a * 2,
+                                  lambda: a), (x,), (0,), None),
+        ("hawkesll", lambda *a: C.hawkesll(*a)[0], tuple(hk),
+         (0, 1, 2, 3, 4, 7), None),
+        ("AdaptiveAvgPooling2D", lambda a: C.AdaptiveAvgPooling2D(
+            a, output_size=1), (head,), (0,),
+         lambda a: F.adaptive_avg_pool2d(a, 1)),
+        ("index_copy", lambda t, r, n: C.index_copy(t, r, n),
+         (table, rows, new), (0, 2),
+         lambda t, r, n: t.index_copy(0, r.long(), n)),
+        ("count_sketch", lambda a, h, s: C.count_sketch(a, h, s,
+                                                         out_dim=16000),
+         (pooled, sketch_h, sketch_s), (0,), None),
+        ("quadratic", lambda a: C.quadratic(a, 0.5, -1.0, 2.0), (x,), (0,),
+         None),
+        ("div_sqrt_dim", lambda a: C.div_sqrt_dim(a), (x,), (0,), None),
+        ("gradientmultiplier", lambda a: C.gradientmultiplier(a, -0.5),
+         (x,), (0,), None),
+        ("arange_like", lambda a: C.arange_like(a, axis=1), (x,), (), None),
+        ("index_array", lambda a: C.index_array(a[:512]), (x,), (), None),
+        ("allclose", lambda a: C.allclose(a, a + 1e-9), (x,), (),
+         lambda a: torch.isclose(a, a + 1e-9).all()),
+        ("np.sum", lambda a: npm.sum(a, axis=1), (x,), (0,), None),
+        ("np.std", lambda a: npm.std(a, axis=0), (x,), (0,), None),
+        ("np.median", lambda a: npm.median(a, axis=1), (x,), (0,), None),
+        ("np.sort", lambda a: npm.sort(a, axis=1), (x,), (0,), None),
+        ("np.cumsum", lambda a: npm.cumsum(a, axis=1), (x,), (0,), None),
+        ("np.where", lambda a: npm.where(a > 0, a, a * 0.1), (x,), (0,),
+         None),
+        ("np.einsum", lambda a: npm.einsum("ij,kj->ik", a[:1024],
+                                           a[1024:2048]), (x,), (0,),
+         lambda a: torch.matmul(a[:1024], a[1024:2048].T)),
+        ("np.histogram", lambda a: npm.histogram(a, bins=64)[0], (x,), (),
+         None),
+        ("np.unique", lambda a: npm.unique(a), (ints,), (), None),
+        ("np.fft.rfft", lambda a: torch.view_as_real(npm.fft.rfft(a)),
+         (sig,), (0,), lambda a: torch.fft.rfft(a)),
+        ("np.linalg.solve", lambda a, b: npm.linalg.solve(a, b[:512, :512]),
+         (spd, x), (0, 1), None),
+        ("np.frexp", lambda a: npm.frexp(a)[0], (x,), (0,),
+         lambda a: torch.frexp(a)),
+    ]
+    g = oc.groups["contrib_np"] = {"names": {}}
+    for name, fn, args, diff, library in cases:
+        card = tuple(a.cuda() for a in args)
+        ms = cuda_ms(torch, lambda: fn(*card), reps=OPS_FAMILY_REPS)
+        lib_ms = None if library is None else cuda_ms(
+            torch, lambda: library(*card), reps=OPS_FAMILY_REPS)
+        tol = OPS_F32_TOL if name in ("boolean_mask", "index_copy",
+                                      "np.sort", "np.where", "np.frexp",
+                                      "arange_like", "index_array",
+                                      "allclose", "np.unique",
+                                      "np.histogram", "cond",
+                                      "gradientmultiplier") \
+            else OPS_STATS_TOL
+        ok = oc.check("contrib_np", name, _tensor(fn(*card)).float(),
+                      _tensor(fn(*args)).float(), tol)
+        if diff:
+            _, g_c = _fwd_bwd(torch, fn, card, diff)
+            _, g_h = _fwd_bwd(torch, fn, args, diff)
+            ok &= _grad_check(oc, "contrib_np", name, g_c, g_h)
+        g["names"][name] = dict(ms=ms, library_ms=lib_ms, ok=ok)
+        torch.cuda.empty_cache()
+    g["ms"] = sum(v["ms"] for v in g["names"].values())
+    g["library_ms"] = None
+
+
+def _hawkes_arrays(rng, n, k, t):
+    """``hawkesll``'s inputs for ``n`` sequences of ``t`` event slots
+    over ``k`` marks (valid lengths t/2..t)."""
+    f32 = np.float32
+    lags = rng.uniform(0.01, 0.5, (n, t)).astype(f32)
+    return [rng.uniform(0.2, 1.0, (n, k)).astype(f32),
+            rng.uniform(0.1, 0.6, k).astype(f32),
+            rng.uniform(0.5, 2.0, k).astype(f32),
+            rng.uniform(0.0, 0.5, (n, k)).astype(f32), lags,
+            rng.randint(0, k, (n, t)).astype(f32),
+            rng.randint(t // 2, t + 1, n).astype(f32),
+            (lags.sum(1) + 1.0).astype(f32)]
+
+
 def _tensor(v):
     """An operator's result as a tensor (creation operators give arrays)."""
     return v._data if hasattr(v, "_data") else v
@@ -6058,7 +6579,13 @@ def phase_operators(ctx):
     same inputs (from ``np.random.RandomState``; the large ones drawn on
     the card by generators it seeds), timed by ``cuda_ms``.  Where an
     operator treats rows apart the CPU computes the leading rows only
-    (``OPS_CPU_ROWS``)."""
+    (``OPS_CPU_ROWS``, ``OPS_CPU_ROIS``).  Then ROADMAP A item 10's
+    families: the vision operators at Faster R-CNN's, R-FCN's,
+    Deformable ConvNets' and FlowNetC's shapes, ``linalg_*`` at 1024,
+    the samplers (2**24 draws each, by distribution), the rest of
+    ``nd.contrib`` and ``mx.np``; forward within 1e-4 of max|ref|,
+    gradients within 1e-2 in norm.  Each group's seconds are
+    ``group_seconds``."""
     import torch
     import tpu_mx_torch as mx
     from tpu_mx_torch import autograd, nd
@@ -6076,7 +6603,9 @@ def phase_operators(ctx):
                       (ops_softmax_output, ()), (ops_ctc, ()),
                       (ops_batch_norm, (autograd,)),
                       (ops_batch_norm_two_pass, (autograd,)),
-                      (ops_rest, (mx,))):
+                      (ops_rest, (mx,)), (ops_vision, ()),
+                      (ops_linalg_family, ()), (ops_samplers, (mx,)),
+                      (ops_contrib_np, (mx,))):
         t1 = time.perf_counter()
         fn(oc, nd, *extra, rng)
         torch.cuda.empty_cache()

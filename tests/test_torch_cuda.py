@@ -1582,3 +1582,24 @@ def test_every_decode_arm_on_the_card_serves_the_cpus_streams(
             ran = pa.paged_attention.launches - launches
             assert (ran == 0) == (paged == "0")
     assert streams[0] == streams[1]
+
+
+def test_float32_syevd_on_the_card_is_as_accurate_as_the_hosts():
+    """``nd.linalg_syevd`` and ``mx.np.linalg.eigh`` of float32 on the
+    card solve in float64 (cuSOLVER's float32 eigensolver is far less
+    accurate): the eigenvalues within 1e-5·max|λ| of float64, the
+    reconstruction within n·eps·max|λ|."""
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import nd
+    g = torch.Generator(device="cuda").manual_seed(1)
+    a = torch.randn((4, 512, 512), generator=g, device="cuda")
+    a = (a + a.mT) / 2
+    w64 = torch.linalg.eigvalsh(a.double())
+    u, lam = nd.linalg_syevd(a)
+    scale = float(w64.abs().max())
+    assert lam.dtype == u.dtype == torch.float32
+    assert float((lam.double() - w64).abs().max()) <= 1e-5 * scale
+    rec = u.mT @ (lam[..., None] * u)
+    assert float((rec - a).abs().max()) <= 512 * 1.2e-7 * scale
+    w, _ = mx.np.linalg.eigh(a)
+    assert float((w.double() - w64).abs().max()) <= 1e-5 * scale

@@ -79,12 +79,6 @@ ALLOWED = {
     ("tpu_mx_torch.gluon.parameter", "Parameter.var"): _ITEM10,
     ("tpu_mx_torch.gluon.utils", "check_sha1"): _ITEM10,
     ("tpu_mx_torch.gluon.utils", "download"): _ITEM10,
-    **{("tpu_mx_torch.ndarray.contrib", n): _ITEM10
-       for n in ("AdaptiveAvgPooling2D", "DeformableConvolution", "allclose",
-                 "arange_like", "boolean_mask", "cond", "count_sketch",
-                 "div_sqrt_dim", "fft", "foreach", "gradientmultiplier",
-                 "hawkesll", "ifft", "index_array", "index_copy",
-                 "quadratic", "while_loop")},
 }
 
 

@@ -42,7 +42,10 @@ The port goes slice by slice:
   ``mx.kvstore`` (``mx.kv``, ``dist_*`` over ``torch.distributed``) and
   elastic fleets (:mod:`tpu_mx_torch.parallel.fleet`,
   :mod:`~tpu_mx_torch.parallel.fleet_obs`, the launcher
-  ``tpu_mx_torch.tools.launch``).
+  ``tpu_mx_torch.tools.launch``);
+- the operator families of ``linalg_ops``, ``sample_ops`` and
+  ``vision_ops``, the rest of ``nd.contrib``, and ``mx.np`` /
+  ``mx.npx`` (:mod:`tpu_mx_torch.numpy`, :mod:`tpu_mx_torch.npx`).
 
 The hand-written Hopper kernels are in :mod:`tpu_mx_torch.kernels`.
 Entry points take ``device=`` and default to ``"cuda"``
@@ -72,9 +75,11 @@ from . import kvstore
 from . import kvstore as kv
 from . import fusion
 from . import engine
+from . import numpy as np
+from . import npx
 
 __all__ = ["MXNetError", "NumericDivergence", "Context", "cpu", "cpu_pinned",
            "current_context", "gpu", "num_gpus", "tpu", "autograd", "gluon",
            "image", "init", "initializer", "io", "metric", "nd", "ndarray",
            "operator", "optimizer", "profiler", "random", "recordio",
-           "kvstore", "kv", "fusion", "engine"]
+           "kvstore", "kv", "fusion", "engine", "np", "npx"]

@@ -21,6 +21,7 @@ keeps its old gradient (``torch.Tensor.grad`` would always accumulate).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import weakref
 
@@ -39,9 +40,24 @@ class _State(threading.local):
         # > 0 inside a HybridBlock's forward: the creation ops return
         # tensors there, as the reference's do inside a functional trace
         self.functional = 0
+        # > 0 while a hybridized HybridBlock's call or a CompiledTrainStep's
+        # forward runs, where the reference traces one program: an
+        # operator whose output shape depends on the data refuses there
+        self.traced = 0
 
 
 _STATE = _State()
+
+
+@contextlib.contextmanager
+def _trace_scope():
+    """The counterpart of the reference's functional trace
+    (``_functional.active()``): :attr:`_State.traced` is raised inside."""
+    _STATE.traced += 1
+    try:
+        yield
+    finally:
+        _STATE.traced -= 1
 
 # every array with an attached gradient buffer, by id (weak: an array
 # that is collected leaves; its id is not reused before that)

@@ -669,6 +669,24 @@ class HybridBlock(Block):
         return self
 
     def _run(self, args, kwargs):
+        if self._active and not kwargs and not autograd._STATE.traced \
+                and self._ready():
+            # the reference's cached (traced) call: its children run
+            # inside the same trace
+            with autograd._trace_scope():
+                return self._run_call(args, kwargs)
+        return self._run_call(args, kwargs)
+
+    def _ready(self):
+        """Every parameter drawn (the reference traces a hybridized
+        block's call from then on; until then it runs eagerly)."""
+        if not self.__dict__.get("_all_drawn"):
+            self.__dict__["_all_drawn"] = all(
+                p._tensor() is not None
+                for p in self.collect_params().values())
+        return self.__dict__["_all_drawn"]
+
+    def _run_call(self, args, kwargs):
         if _holds_array(args) or _holds_array(kwargs.values()):
             with torch.set_grad_enabled(autograd.is_recording()):
                 self.train(autograd.is_training())

@@ -2,8 +2,10 @@
 operators (:mod:`.ops`, exported here as the reference's ``nd.*``
 namespace, ``nd.random`` included), the optimizer update operators
 (:mod:`.optimizer_ops`, ``nd.*_update``), the fused RNN operator
-(:mod:`.rnn_op`, exported as ``RNN`` and ``rnn_param_size``) and the
-detection operators (:mod:`.contrib`).
+(:mod:`.rnn_op`, exported as ``RNN`` and ``rnn_param_size``), the
+``linalg_*``, vision and ``sample_*`` families (:mod:`.linalg_ops`,
+:mod:`.vision_ops`, :mod:`.sample_ops`, in ``ops``) and ``nd.contrib``
+(:mod:`.contrib`).
 
 Every operator takes tensors or arrays: given tensors it returns
 tensors (the port's models call them so), given arrays it returns

@@ -1,10 +1,17 @@
-"""The detection operators of ``tpu_mx/ndarray/contrib.py``, on tensors:
-``box_iou``, ``box_nms``, ``MultiBoxPrior``, ``MultiBoxTarget``,
-``MultiBoxDetection`` and ``bipartite_matching``.
+"""``tpu_mx/ndarray/contrib.py``'s operators, on tensors: the detection
+operators (``box_iou``, ``box_nms``, ``MultiBoxPrior``,
+``MultiBoxTarget``, ``MultiBoxDetection``, ``bipartite_matching``),
+``DeformableConvolution`` (zero-padded bilinear taps into one product),
+the control flow (``foreach``, ``while_loop``, ``cond``: Python loops
+whose predicates are read on the host, under ``hybridize()`` too),
+``boolean_mask`` (refused inside a traced call, as the reference's
+is), and the long tail (``fft``/``ifft`` in the interleaved layout,
+``hawkesll``, ``count_sketch``, ``gradientmultiplier``, ...).
 
-Every output has a fixed shape (invalid entries are -1), as in the
-reference, and none carries a gradient: each operator runs under
-:func:`torch.no_grad`.  ``MultiBoxTarget`` reads nothing back to the
+Every detection output has a fixed shape (invalid entries are -1), as
+in the reference, and none carries a gradient: each detection operator
+runs under :func:`torch.no_grad`; the rest differentiate where the
+reference's do.  ``MultiBoxTarget`` reads nothing back to the
 host, so SSD's training step queues its target generation on the card
 behind the forward.  The greedy NMS of ``box_nms`` and
 ``MultiBoxDetection`` is one loop step per candidate, as in the
@@ -23,6 +30,9 @@ import math
 import numpy as np
 import torch
 
+from .. import autograd
+from ..base import MXNetError
+from .ndarray import NDArray
 from .ops import _op
 
 __all__ = ["box_iou", "box_nms", "MultiBoxPrior", "MultiBoxTarget",
@@ -318,8 +328,314 @@ def bipartite_matching(data, is_ascend=False, threshold=None, topk=-1):
     return row, col
 
 
+# -- deformable convolution (REF contrib/deformable_convolution.cc) ----------
+def _pair2(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def _bilinear_zero(feat, ys, xs):
+    """Bilinear samples of ``feat (N, G, Cg, H, W)`` at ``(ys, xs)`` of
+    shape ``(N, G, L)``, each corner counted only where it is a pixel
+    (zero padding: the deformable convolution's sampler, not the ROI
+    operators' border clamp) → ``(N, G, Cg, L)``."""
+    n, g, cg, H, W = feat.shape
+    flat = feat.reshape(n, g, cg, H * W)
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy1 = ys - y0
+    wx1 = xs - x0
+    out = None
+    for dy, wy in ((0, 1.0 - wy1), (1, wy1)):
+        for dx, wx in ((0, 1.0 - wx1), (1, wx1)):
+            yi = y0.long() + dy
+            xi = x0.long() + dx
+            ok = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+            idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+            v = torch.gather(flat, 3, idx[:, :, None, :].expand(
+                n, g, cg, idx.shape[-1]))
+            term = v * (wy * wx * ok.to(feat.dtype))[:, :, None, :]
+            out = term if out is None else out + term
+    return out
+
+
+def DeformableConvolution(data, offset, weight, bias=None, kernel=None,
+                          stride=(1, 1), dilate=(1, 1), pad=(0, 0),
+                          num_filter=None, num_group=1,
+                          num_deformable_group=1, no_bias=False, **kw):
+    """Deformable convolution v1 (Dai et al. 2017): each tap of each
+    output position reads its input at an offset from ``offset (N,
+    2·dg·kh·kw, Ho, Wo)`` (interleaved ``(dy, dx)`` a tap), sampled
+    bilinearly with zero padding; the ``(N, C·kh·kw, Ho·Wo)`` columns
+    then meet the ``(num_filter, C·kh·kw)`` weight in one product.
+    ``weight (num_filter, C, kh, kw)``; ``num_group`` must be 1, as in
+    the reference."""
+    if num_group != 1:
+        raise ValueError("DeformableConvolution: num_group>1 not supported")
+    kh, kw_ = kernel
+    sh, sw = _pair2(stride)
+    dh, dw = _pair2(dilate)
+    ph, pw = _pair2(pad)
+    dg = num_deformable_group
+    n, c, h, w = data.shape
+    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    wo = (w + 2 * pw - dw * (kw_ - 1) - 1) // sw + 1
+    dev, dt = data.device, data.dtype
+    ys0 = ((torch.arange(ho, device=dev) * sh - ph)[:, None, None, None]
+           + (torch.arange(kh, device=dev) * dh)[None, None, :, None])
+    xs0 = ((torch.arange(wo, device=dev) * sw - pw)[None, :, None, None]
+           + (torch.arange(kw_, device=dev) * dw)[None, None, None, :])
+    o = offset.reshape(n, dg, kh, kw_, 2, ho, wo)
+    dy = o[:, :, :, :, 0].permute(0, 1, 4, 5, 2, 3)      # (N,dg,Ho,Wo,kh,kw)
+    dx = o[:, :, :, :, 1].permute(0, 1, 4, 5, 2, 3)
+    ys = (ys0.to(dt) + dy).reshape(n, dg, -1)
+    xs = (xs0.to(dt) + dx).reshape(n, dg, -1)
+    sampled = _bilinear_zero(data.reshape(n, dg, c // dg, h, w), ys, xs)
+    col = sampled.reshape(n, c, ho, wo, kh, kw_).permute(0, 1, 4, 5, 2, 3) \
+        .reshape(n, c * kh * kw_, ho * wo)
+    out = torch.matmul(weight.reshape(num_filter, c * kh * kw_), col) \
+        .reshape(n, num_filter, ho, wo)
+    if not no_bias and bias is not None:
+        out = out + bias[None, :, None, None]
+    return out
+
+
+def count_sketch(data, h, s, out_dim=None, **kw):
+    """Count sketch (compact bilinear pooling): ``out[:, h[i]] +=
+    s[i]·data[:, i]``, one scatter-add, differentiable in ``data`` and
+    ``s``."""
+    return data.new_zeros((data.shape[0], int(out_dim))).index_add(
+        1, h.reshape(-1).long(), data * s.reshape(-1).to(data.dtype))
+
+
+def boolean_mask(data, index, axis=0, **kw):
+    """The entries of ``data`` along ``axis`` where ``index != 0`` (a host
+    read of ``index``).  Its output's shape depends on the data, so it
+    refuses inside a hybridized block's call or a ``CompiledTrainStep``,
+    as the reference's refuses under its trace."""
+    if autograd._STATE.traced:
+        raise MXNetError(
+            "boolean_mask has a data-dependent output shape and cannot be "
+            "traced into a compiled graph; use where()/SequenceMask-style "
+            "masking inside hybridized blocks")
+    keep = torch.nonzero(index.reshape(-1) != 0).reshape(-1)
+    return data.index_select(axis, keep.to(data.device))
+
+
+# -- control flow (REF control_flow.cc) --------------------------------------
+def _as_state_list(states):
+    single = not isinstance(states, (list, tuple))
+    return ([states] if single else list(states)), single
+
+
+def _truth(v):
+    """A predicate's first entry, read on the host."""
+    if isinstance(v, NDArray):
+        v = v._data
+    if isinstance(v, torch.Tensor):
+        return bool(v.reshape(-1)[0])
+    return bool(np.ravel(np.asarray(v))[0])
+
+
+def foreach(body, data, init_states):
+    """``body(x_t, states) -> (out_t, new_states)`` over the leading axis
+    of ``data`` (an array or a list of arrays sharing it): returns the
+    stacked outputs and the final states, in the form the states came
+    in.  A Python loop whose every operator records, so it is
+    differentiable; under ``hybridize()`` it runs the same loop."""
+    from . import ops as F
+    states, single = _as_state_list(init_states)
+    multi = isinstance(data, (list, tuple))
+    length = (data[0] if multi else data).shape[0]
+    cur = states[0] if single else states
+    outputs = []
+    for t in range(length):
+        out, cur = body([d[t] for d in data] if multi else data[t], cur)
+        outputs.append(out)
+    return F.stack(*outputs, axis=0), cur
+
+
+def while_loop(cond, func, loop_vars, max_iterations):
+    """``while cond(*vars): out, vars = func(*vars)``, at most
+    ``max_iterations`` times (the predicate read on the host each turn).
+    Returns the outputs stacked into a ``(max_iterations, ...)`` buffer
+    whose rows past the trip count are zeros (a loop that never runs
+    still gives the buffer, its row's shape from one ``func`` call whose
+    results are dropped), the final vars, and the trip count."""
+    from . import ops as F
+    lvars, single = _as_state_list(loop_vars)
+    if max_iterations is None or max_iterations <= 0:
+        raise ValueError("while_loop requires a positive max_iterations")
+    cur, outputs = lvars, []
+    while len(outputs) < max_iterations and _truth(cond(*cur)):
+        out, new_vars = func(*cur)
+        cur, _ = _as_state_list(new_vars)
+        outputs.append(out)
+    steps = len(outputs)
+    final = cur[0] if single else cur
+    if not outputs:
+        with autograd.pause(), torch.no_grad():
+            row = func(*cur)[0]
+        t = row._data if isinstance(row, NDArray) else row
+        zeros = t.new_zeros((max_iterations,) + tuple(t.shape))
+        return (NDArray(zeros) if isinstance(row, NDArray) else zeros), \
+            final, 0
+    pad = [F.zeros_like(outputs[0]) for _ in range(max_iterations - steps)]
+    return F.stack(*(outputs + pad), axis=0), final, steps
+
+
+def cond(pred, then_func, else_func):
+    """``then_func()`` if ``pred`` (read on the host) else
+    ``else_func()``."""
+    return then_func() if _truth(pred) else else_func()
+
+
+# -- the long tail (REF contrib/**) ------------------------------------------
+def quadratic(data, a=0.0, b=0.0, c=0.0, **kw):
+    """``a·x² + b·x + c``."""
+    return a * torch.square(data) + b * data + c
+
+
+def arange_like(data, start=0.0, step=1.0, repeat=1, axis=None, **kw):
+    """``start + step·i`` in ``data``'s shape (``axis`` None) or along
+    ``axis``, each value ``repeat`` times; no gradient."""
+    n = data.numel() if axis is None else data.shape[axis]
+    out = torch.arange(n, dtype=data.dtype, device=data.device) * step \
+        + start
+    if repeat != 1:
+        out = out.repeat_interleave(repeat)[:n]
+    return (out.reshape(data.shape) if axis is None else out).detach()
+
+
+def allclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False, **kw):
+    """1.0 where every entry is close, else 0.0 (float32, no host
+    read)."""
+    return torch.isclose(a, b.to(a.dtype), rtol=rtol, atol=atol,
+                         equal_nan=equal_nan).all().float().detach()
+
+
+def div_sqrt_dim(data, **kw):
+    """``data / sqrt(last dim)``, the root taken in ``data``'s type."""
+    return data / torch.sqrt(torch.tensor(float(data.shape[-1]),
+                                          dtype=data.dtype,
+                                          device=data.device))
+
+
+def index_copy(old, index, new, **kw):
+    """``old`` with rows ``index`` (axis 0) replaced by ``new``'s, as a
+    new array."""
+    return old.index_copy(0, index.long().reshape(-1), new.to(old.dtype))
+
+
+def index_array(data, axes=None, **kw):
+    """Each entry's coordinates along ``axes`` (default: all), int32,
+    shape ``data.shape + (len(axes),)``."""
+    axs = tuple(range(data.dim())) if axes is None else tuple(axes)
+    grids = torch.meshgrid(*[torch.arange(s, device=data.device)
+                             for s in data.shape], indexing="ij")
+    return torch.stack([grids[a] for a in axs], dim=-1).int()
+
+
+class _GradientMultiplier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scalar):
+        ctx.scalar = scalar
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scalar, None
+
+
+def gradientmultiplier(data, scalar=1.0, **kw):
+    """The identity, with the gradient scaled by ``scalar`` (``-λ`` makes
+    a gradient-reversal layer)."""
+    return _GradientMultiplier.apply(data, scalar)
+
+
+def fft(data, compute_size=128, **kw):
+    """FFT over the last axis of real ``(..., n)`` data → ``(..., 2n)``
+    float32 with real and imaginary parts interleaved."""
+    f = torch.fft.fft(data.float(), dim=-1)
+    return torch.view_as_real(f).reshape(tuple(data.shape[:-1])
+                                         + (2 * data.shape[-1],))
+
+
+def ifft(data, compute_size=128, **kw):
+    """Inverse FFT of the interleaved ``(..., 2n)`` layout → real
+    ``(..., n)`` float32, unnormalized (``n`` times numpy's ``ifft``), as
+    the reference's cuFFT path."""
+    n = data.shape[-1] // 2
+    z = torch.view_as_complex(data.float().reshape(
+        tuple(data.shape[:-1]) + (n, 2)).contiguous())
+    return torch.fft.ifft(z, dim=-1).real * n
+
+
+def AdaptiveAvgPooling2D(data, output_size=1, **kw):
+    """NCHW adaptive average pooling: bin ``i`` of ``o`` over an axis of
+    ``n`` averages rows ``floor(i·n/o)`` to ``ceil((i+1)·n/o)``, as two
+    averaging matrices around the input."""
+    os_ = (output_size, output_size) if isinstance(output_size, int) \
+        else tuple(output_size)
+
+    def pool_matrix(n_in, n_out):
+        m = np.zeros((n_out, n_in), np.float32)
+        for i in range(n_out):
+            s = int(np.floor(i * n_in / n_out))
+            e = int(np.ceil((i + 1) * n_in / n_out))
+            m[i, s:e] = 1.0 / (e - s)
+        return torch.from_numpy(m).to(device=data.device, dtype=data.dtype)
+
+    return torch.einsum("oh,nchw,pw->ncop",
+                        pool_matrix(data.shape[2], os_[0]), data,
+                        pool_matrix(data.shape[3], os_[1]))
+
+
+def hawkesll(lda, alpha, beta, state, lags, marks, valid_length, max_time,
+             **kw):
+    """Log-likelihood of a multivariate Hawkes process with exponential
+    kernels, and the carried state: ``lda (N, K)`` background rates,
+    ``alpha (K,)``, ``beta (K,)``, ``state (N, K)`` the excitation carried
+    in, ``lags (N, T)`` inter-arrival times, ``marks (N, T)`` event
+    types, ``valid_length (N,)`` events present, ``max_time (N,)`` the
+    window's end from this call's origin.  Returns ``(loglik (N,),
+    new_state (N, K))``, in float32; one step of the recursion an event
+    slot (a loop over T)."""
+    n, k = lda.shape
+    T = lags.shape[1]
+    a, b, mu = alpha.float(), beta.float(), lda.float()
+    s0 = state.float()
+    lg, mk = lags.float(), marks.long()
+    vl, mt = valid_length.long(), max_time.float()
+    rows = torch.arange(n, device=lda.device)
+    tiny = torch.full((), 1e-30, device=lda.device)
+    r, ll, t_last = s0, mu.new_zeros(n), mu.new_zeros(n)
+    hot = torch.nn.functional.one_hot(mk, k).float()          # (N, T, K)
+    for t in range(T):
+        lag, m, valid = lg[:, t], mk[:, t], t < vl
+        r_dec = r * torch.exp(-b * lag[:, None])
+        lam = mu[rows, m] + a[m] * b[m] * r_dec[rows, m]
+        ll = ll + torch.where(valid, torch.log(torch.maximum(lam, tiny)), 0.0)
+        r = torch.where(valid[:, None], r_dec + hot[:, t], r)
+        t_last = t_last + torch.where(valid, lag, 0.0)
+    inside = (torch.arange(T, device=lda.device)[None, :] < vl[:, None])
+    n_k = (hot * inside[..., None].float()).sum(1)
+    tail = torch.exp(-b * torch.maximum(mt - t_last,
+                                        torch.zeros_like(mt))[:, None])
+    comp = (mu * mt[:, None] + a * (s0 + n_k - r * tail)).sum(-1)
+    return ll - comp, r * tail
+
+
+_CONTROL = ("foreach", "while_loop", "cond")
+__all__ += ["DeformableConvolution", "count_sketch", "boolean_mask",
+            *_CONTROL, "quadratic", "arange_like", "allclose",
+            "div_sqrt_dim", "index_copy", "index_array",
+            "gradientmultiplier", "fft", "ifft", "AdaptiveAvgPooling2D",
+            "hawkesll"]
+
 # each operator with the imperative face of ndarray/ops.py: arrays in,
-# arrays out; tensors in, tensors out
+# arrays out; tensors in, tensors out (the control-flow operators take
+# the user's functions and hand them what they were given)
 for _name in __all__:
-    globals()[_name] = _op(globals()[_name])
+    if _name not in _CONTROL:
+        globals()[_name] = _op(globals()[_name])
 del _name

@@ -43,7 +43,8 @@ _NP_DTYPES = {torch.float16: np.float16, torch.float32: np.float32,
               torch.float64: np.float64, torch.int8: np.int8,
               torch.uint8: np.uint8, torch.int16: np.int16,
               torch.int32: np.int32, torch.int64: np.int64,
-              torch.bool: np.bool_}
+              torch.bool: np.bool_, torch.complex64: np.complex64,
+              torch.complex128: np.complex128}
 
 
 def _torch_dtype(dtype):

@@ -39,8 +39,12 @@ creators, ``BlockGrad``, ``identity``, ``add_n``, the reductions,
 fusion on (``engine.bulk()``, :mod:`tpu_mx_torch.fusion`) a call on
 arrays joins the pending segment instead of running.
 
-Not ported yet (ROADMAP A item 10): the families the reference adds
-from ``linalg_ops``, ``vision_ops`` and ``sample_ops``.
+The reference's three operator families of their own modules are
+re-exported here as it re-exports them: ``linalg_*``
+(:mod:`.linalg_ops`, ``torch.linalg``), the vision operators
+(:mod:`.vision_ops`: ROI pooling and alignment, the spatial
+transformer, resizing, ``Proposal``, ``Correlation``) and the
+per-element samplers (:mod:`.sample_ops`, ``sample_*``).
 """
 from __future__ import annotations
 
@@ -1116,6 +1120,12 @@ from .ops_tail import *  # noqa: E402,F401,F403
 from .ctc import CTCLoss, ctc_loss  # noqa: E402,F401
 from .quantized_ops import *  # noqa: E402,F401,F403
 from . import quantized_ops as _quantized_ops  # noqa: E402
+from .linalg_ops import *  # noqa: E402,F401,F403
+from .vision_ops import *  # noqa: E402,F401,F403
+from .sample_ops import *  # noqa: E402,F401,F403
+from . import linalg_ops as _linalg_ops  # noqa: E402
+from . import sample_ops as _sample_ops  # noqa: E402
+from . import vision_ops as _vision_ops  # noqa: E402
 
 for _name in ("randint", "gamma", "exponential", "poisson", "bernoulli"):
     setattr(_RandomNS, _name, staticmethod(globals()["random_" + _name]))
@@ -1126,4 +1136,6 @@ del _name
 __all__ = sorted(n for n, v in globals().items()
                  if not n.startswith("_") and (callable(v) or n == "random")
                  and getattr(v, "__module__", None) == __name__) \
-    + ["CTCLoss", "ctc_loss"] + list(_quantized_ops.__all__)
+    + ["CTCLoss", "ctc_loss"] + list(_quantized_ops.__all__) \
+    + list(_linalg_ops.__all__) + list(_vision_ops.__all__) \
+    + list(_sample_ops.__all__)

@@ -119,6 +119,7 @@ import time
 import numpy as np
 import torch
 
+from .. import autograd
 from .. import device as _device
 from .. import telemetry as _telemetry
 from .. import tracing as _tracing
@@ -570,7 +571,8 @@ class CompiledTrainStep:
         """The mean loss of the (rank's) batch and the gradients of the
         differentiable parameters (zeros for one the loss does not
         read)."""
-        out = self.net(*data_args)
+        with autograd._trace_scope():
+            out = self.net(*data_args)
         if isinstance(out, (tuple, list)):
             from ..gluon.loss import PassThrough
             if not isinstance(self.loss_fn, PassThrough):
