@@ -220,8 +220,10 @@ def test_auto_resume_falls_back_and_refuses_a_half_restore(tmp_path):
         with open(f"{prefix}-0001.params", "r+b") as f:
             f.truncate(64)
         assert elastic.auto_resume(prefix, net=net, trainer=trainer) == 1
-        with pytest.raises(MXNetError, match="A item 10"):
-            elastic.auto_resume(prefix, module=object())
+        # a net's checkpoint holds no symbol: a Module restores none of
+        # its epochs and nothing was changed, so both packages train fresh
+        assert elastic.auto_resume(prefix, module=object()) == 0
+        assert jelastic.auto_resume(prefix, module=object()) == 0
         with pytest.raises(MXNetError, match="net= and/or trainer="):
             elastic.save_checkpoint(prefix, 2)
     assert elastic.auto_resume(str(tmp_path / "none"), net=net) == 0

@@ -1603,3 +1603,31 @@ def test_float32_syevd_on_the_card_is_as_accurate_as_the_hosts():
     assert float((rec - a).abs().max()) <= 512 * 1.2e-7 * scale
     w, _ = mx.np.linalg.eigh(a)
     assert float((w.double() - w64).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_f32_wide_backward_holds_the_twin_within_tol(d):
+    """The float32 dq, dk, dv and d_bias at the wide head dims within TOL
+    of the plain twin on the same inputs (ROADMAP B item 8c: the score
+    products summed a k-step apart): a per-row float32 bias, causal,
+    ragged valid lengths, dropout 0.1, T = 136 (a partial tile)."""
+    g = torch.Generator().manual_seed(d)
+    b, h, t = 2, 2, 136
+    bh, scale, rate = b * h, 1.0 / math.sqrt(d), 0.1
+    q, k, v, do = (torch.randn((bh, t, d), generator=g).cuda()
+                   for _ in range(4))
+    bias = torch.randn((bh, t, t), generator=g).cuda()
+    kv = torch.randint(t // 2, t + 1, (b,), generator=g,
+                       dtype=torch.int32).repeat_interleave(h).cuda()
+    seed = torch.tensor([20261018], dtype=torch.int32, device="cuda")
+    ref, lse = fa.flash_attention_plain(q, k, v, scale, True, kv, rate, seed,
+                                        bias)
+    args = (q, k, v, do, lse, fa.flash_attention_delta(do, ref), scale,
+            True, kv, rate, seed, bias)
+    dq, d_bias = fa.flash_attention_bwd_dq(*args, want_d_bias=True)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    for name, got, w in zip(("dq", "dk", "dv", "d_bias"),
+                            (dq, dk, dv, d_bias), want):
+        err = float((got - w).abs().max())
+        assert err <= TOL, (name, err)

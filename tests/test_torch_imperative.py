@@ -878,7 +878,8 @@ def _user_block(pkg):
     return Scale()
 
 
-def test_user_hybrid_forward_block_and_hybridize_match_the_reference():
+def test_user_hybrid_forward_block_and_hybridize_match_the_reference(
+        tmp_path):
     jb, tb = _user_block(jmx), _user_block(mx)
     assert _names(tb.collect_params()) == \
         [_strip(k) for k in jb.collect_params()]
@@ -896,8 +897,13 @@ def test_user_hybrid_forward_block_and_hybridize_match_the_reference():
     tb.hybridize()
     assert tb._active
     np.testing.assert_array_equal(tb(nd.array(x)).asnumpy(), got)
-    with pytest.raises(MXNetError, match="export"):
-        tb.export("model")
+    # export, once refused, writes the forward of the last call (the
+    # reference's rule), and its import computes the same bits
+    prefix = str(tmp_path / "model")
+    tb.export(prefix)
+    back = gluon.SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                     prefix + "-0000.params.npz")
+    np.testing.assert_array_equal(back(nd.array(x)).asnumpy(), got)
     with pytest.raises(MXNetError, match="optimize_for"):
         tb.optimize_for(nd.array(x))
 

@@ -3,8 +3,8 @@ reference's, on the CPU: ``ResizeIter``, ``MNISTIter``, ``CSVIter``, the
 Python arm of ``ImageRecordIter`` (exact on uint8) and of
 ``ImageDetRecordIter``, and ``NDArrayIter``'s elastic sharding (the
 global sequence the same at world sizes 1, 2 and 4, ``set_shard`` mid
-epoch, a sharded state restored at another world size).  ``LibSVMIter``
-is refused by name.
+epoch, a sharded state restored at another world size), and
+``LibSVMIter`` (once refused by name, now the reference's batches).
 """
 import gzip
 import struct
@@ -282,10 +282,20 @@ def test_set_shard_mid_epoch_and_v2_state_at_another_world_size():
         mx.io.NDArrayIter(data, batch_size=4, num_workers=2, rank=2)
 
 
-def test_libsvm_iter_is_refused_by_name():
-    with pytest.raises(AttributeError, match="ROADMAP A item 10"):
-        mx.io.LibSVMIter
+def test_libsvm_iter_is_refused_by_name(tmp_path):
+    # ported since: the iterator the reference's name gives, batch for
+    # batch the reference's (tests/test_torch_sparse.py holds the rest)
     from tpu_mx_torch.io import io as tio
-    with pytest.raises(AttributeError, match="ROADMAP A item 10"):
-        tio.LibSVMIter
-    assert hasattr(jmx.io, "LibSVMIter")
+    assert mx.io.LibSVMIter is tio.LibSVMIter
+    f = tmp_path / "d.libsvm"
+    f.write_text("1 0:1.5 3:2.0\n0 1:1.0\n1 2:3.0 4:0.5\n")
+    got = list(mx.io.LibSVMIter(data_libsvm=str(f), data_shape=(5,),
+                                batch_size=2))
+    want = list(jmx.io.LibSVMIter(data_libsvm=str(f), data_shape=(5,),
+                                  batch_size=2))
+    assert [b.pad for b in got] == [b.pad for b in want] == [0, 1]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.data[0].asnumpy(),
+                                      w.data[0].asnumpy())
+        np.testing.assert_array_equal(g.label[0].asnumpy(),
+                                      w.label[0].asnumpy())

@@ -64,19 +64,13 @@ ALLOWED = {
     ("tpu_mx_torch.serving.jax_model", "JaxTinyLM"):
         JAX + "the jitted whole-step decode program; the port's fused arm "
         "is TinyLM.decode_step",
-    ("tpu_mx_torch.io.io", "LibSVMIter"):
-        _ITEM10 + ": its CSR batches need ndarray/sparse.py",
-    ("tpu_mx_torch.supervisor", "for_module"):
-        _ITEM10 + ": it wires a Supervisor to a Module (module/)",
-    ("tpu_mx_torch.resume", "ModuleState"):
-        _ITEM10 + ": a Module's state for the capsule's sidecar (module/)",
-    ("tpu_mx_torch.autograd", "get_symbol"): _ITEM10,
+    ("tpu_mx_torch.module.module", "BaseModule.install_monitor"):
+        _item(10, "f") + ": mx.monitor; the port's raises MXNetError "
+        "naming the item",
     ("tpu_mx_torch.base", "Registry"): _ITEM10,
     ("tpu_mx_torch.base", "check"): _ITEM10,
     ("tpu_mx_torch.base", "get_env"): _ITEM10,
     ("tpu_mx_torch.metric", "registry"): _ITEM10 + ": a base.Registry",
-    ("tpu_mx_torch.gluon.block", "SymbolBlock"): _ITEM10,
-    ("tpu_mx_torch.gluon.parameter", "Parameter.var"): _ITEM10,
     ("tpu_mx_torch.gluon.utils", "check_sha1"): _ITEM10,
     ("tpu_mx_torch.gluon.utils", "download"): _ITEM10,
 }
@@ -159,8 +153,13 @@ def test_ndarray_handle_dlpack_and_storage_type():
     assert a.handle is a._data and a.as_nd_ndarray() is a
     assert a.tostype("default") is a
     for stype in ("row_sparse", "csr"):
-        with pytest.raises(mx.MXNetError, match="ROADMAP A item 10"):
-            a.tostype(stype)
+        got, want = a.tostype(stype), jnd.array(X).tostype(stype)
+        assert got.stype == want.stype == stype
+        np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+    with pytest.raises(ValueError, match="unknown storage type"):
+        a.tostype("dense")
+    with pytest.raises(ValueError, match="unknown storage type"):
+        jnd.array(X).tostype("dense")
     back = torch.utils.dlpack.from_dlpack(a.to_dlpack_for_read())
     assert back.data_ptr() == a._data.data_ptr()
     assert a.to_dlpack_for_write is not None

@@ -202,11 +202,14 @@ def test_the_step_reads_a_tensor_loss_once_and_refuses_a_fleet(tmp_path):
         fleet._live_world = None
         telemetry.set_fleet_identity(rank=None, generation=None)
         tracing.reset()
-    with pytest.raises(AttributeError, match="A item 10"):
-        supervisor.for_module
+    # ported since: the Module surfaces (tests/test_torch_module.py runs
+    # them through fit(supervised=))
     from tpu_mx_torch import resume
-    with pytest.raises(AttributeError, match="A item 10"):
-        resume.ModuleState
+    assert callable(supervisor.for_module) and callable(resume.ModuleState)
+    with pytest.raises(MXNetError, match="checkpoint prefix"):
+        supervisor.for_module(object(), {})
+    with pytest.raises(jmx.MXNetError, match="checkpoint prefix"):
+        jsup.for_module(object(), {})
     cfg = supervisor.Supervise(prefix="ck", capsule_interval=2,
                                deadline=5.0)
     ref = jsup.Supervise(prefix="ck", capsule_interval=2, deadline=5.0)

@@ -45,7 +45,12 @@ The port goes slice by slice:
   ``tpu_mx_torch.tools.launch``);
 - the operator families of ``linalg_ops``, ``sample_ops`` and
   ``vision_ops``, the rest of ``nd.contrib``, and ``mx.np`` /
-  ``mx.npx`` (:mod:`tpu_mx_torch.numpy`, :mod:`tpu_mx_torch.npx`).
+  ``mx.npx`` (:mod:`tpu_mx_torch.numpy`, :mod:`tpu_mx_torch.npx`);
+- sparse storage (``nd.sparse``, ``io.LibSVMIter``) and the graph API:
+  ``mx.sym`` with its executors, ``mx.mod`` (``Module``,
+  ``BucketingModule``), ``mx.model``, ``mx.callback``, ``mx.AttrScope``,
+  ``mx.name``, and ``HybridBlock.export`` / ``SymbolBlock.imports``
+  through ``torch.export``.
 
 The hand-written Hopper kernels are in :mod:`tpu_mx_torch.kernels`.
 Entry points take ``device=`` and default to ``"cuda"``
@@ -77,9 +82,21 @@ from . import fusion
 from . import engine
 from . import numpy as np
 from . import npx
+from . import symbol
+from . import symbol as sym
+from . import attribute
+from .attribute import AttrScope
+from . import name
+from . import executor
+from . import module
+from . import module as mod
+from . import model
+from . import callback
 
 __all__ = ["MXNetError", "NumericDivergence", "Context", "cpu", "cpu_pinned",
            "current_context", "gpu", "num_gpus", "tpu", "autograd", "gluon",
            "image", "init", "initializer", "io", "metric", "nd", "ndarray",
            "operator", "optimizer", "profiler", "random", "recordio",
-           "kvstore", "kv", "fusion", "engine", "np", "npx"]
+           "kvstore", "kv", "fusion", "engine", "np", "npx", "symbol", "sym",
+           "attribute", "AttrScope", "name", "executor", "module", "mod",
+           "model", "callback"]

@@ -30,7 +30,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "mark_variables", "backward", "grad", "Function"]
+           "is_training", "mark_variables", "backward", "grad", "Function",
+           "get_symbol"]
 
 
 class _State(threading.local):
@@ -204,6 +205,15 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     res = [NDArray(torch.zeros_like(t) if g is None else g)
            for t, g in zip(ins, got)]
     return res[0] if single else res
+
+
+def get_symbol(x):
+    """Refused, as in the reference (``NotImplementedError``): a recorded
+    graph is not turned into a symbol; ``HybridBlock.export`` writes a
+    block's program."""
+    raise NotImplementedError(
+        "get_symbol: a recorded graph has no symbol; use "
+        "HybridBlock.export()")
 
 
 class Function:

@@ -182,7 +182,11 @@
 //     register, as the float32 kernels do, and dk/dv stages a float32
 //     bias in one stage beside a one-stage ring and reads a 16-bit one
 //     from device memory (dkv_stage_bias); the float32 tiles stay
-//     (150-200 KB, one block an SM).
+//     (150-200 KB, one block an SM);
+//   - the float32 kernels sum each k-step of S and dP apart and add it by
+//     FADD (score_products): along D/8 = 24 or 32 k-steps the tensor
+//     cores' float32 accumulation put d_bias 5x further from float64
+//     than the plain twin.
 // Head dims of 320 and more are refused by name (ROADMAP B item 8b).
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -223,6 +227,61 @@ template <int D, int kKind>
 constexpr size_t tf_smem_bytes() {
   return sizeof(float) * ((2 * kTfRows + 4 * tf_tile<D>()) * (D + 4) +
                           (kKind == 1 ? 4 * tf_tile<D>() : 0));
+}
+
+// The k-steps [k0, k0 + kSteps) of the two score products of a warp's 16
+// rows against a streamed tile's 8 NT rows, both over D: s += A B^T and
+// dp += A2 B2^T, A and A2 the warp's rows (g, g + 8), B and B2 the tile's
+// (8j + g), every row L floats apart; kApart as mma_3xtf32_sum.
+template <int NT, int L, int kSteps, bool kApart>
+__device__ __forceinline__ void score_ksteps(
+    float (&s)[NT][4], float (&dp)[NT][4], const float* a, const float* b,
+    const float* a2, const float* b2, int k0, int g, int t) {
+#pragma unroll
+  for (int kq = 0; kq < kSteps; ++kq) {
+    const int c = 8 * (k0 + kq) + t;  // reduction elements c and c + 4
+    uint32_t ah[4], al[4];
+    split_frag(a[g * L + c], a[(g + 8) * L + c], a[g * L + c + 4],
+               a[(g + 8) * L + c + 4], ah, al);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      mma_3xtf32_sum<kApart>(s[j], ah, al, b[(8 * j + g) * L + c],
+                             b[(8 * j + g) * L + c + 4]);
+    split_frag(a2[g * L + c], a2[(g + 8) * L + c], a2[g * L + c + 4],
+               a2[(g + 8) * L + c + 4], ah, al);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      mma_3xtf32_sum<kApart>(dp[j], ah, al, b2[(8 * j + g) * L + c],
+                             b2[(8 * j + g) * L + c + 4]);
+  }
+}
+
+// The two score products of the float32 dq and dk/dv kernels (S and dP,
+// or their transposes), each a dot product over D.  To D = 128 one
+// unrolled walk of the D/8 k-steps, every product accumulated by the
+// tensor cores.  Above, along D/8 = 24 or 32 k-steps the tensor cores'
+// float32 accumulation (not rounded to nearest) put d_bias 5x further
+// from float64 than the plain twin's float32 (1.12e-4 against 2.1e-5 at
+// D = 256, torch_flash_8c.py): there each k-step's three products are
+// summed apart and added by FADD (mma_3xtf32_sum), and the walk is a loop
+// over runs of kWideKsteps k-steps, unrolled inside a run only.  Unrolled
+// whole, the partial sums took all 255 registers and spilled up to 180
+// bytes; runs of 8 spilled dk/dv at D = 256; runs of 4 spill nothing and
+// take the time the accumulation in the tensor cores took.
+constexpr int kWideKsteps = 4;
+
+template <int D, int NT, int L>
+__device__ __forceinline__ void score_products(
+    float (&s)[NT][4], float (&dp)[NT][4], const float* a, const float* b,
+    const float* a2, const float* b2, int g, int t) {
+  if constexpr (D <= 128) {
+    score_ksteps<NT, L, D / 8, false>(s, dp, a, b, a2, b2, 0, g, t);
+  } else {
+    static_assert((D / 8) % kWideKsteps == 0, "runs must tile D / 8");
+#pragma unroll 1
+    for (int k0 = 0; k0 < D / 8; k0 += kWideKsteps)
+      score_ksteps<NT, L, kWideKsteps, true>(s, dp, a, b, a2, b2, k0, g, t);
+  }
 }
 
 // BT: the bias element type (flash_common.cuh), NoBias without a bias.
@@ -335,25 +394,9 @@ __global__ void __launch_bounds__(kTfThreads, D <= 128 ? 2 : 1)
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DT; ++kk) {
-      const int c = 8 * kk + t;  // reduction elements c and c + 4
-      uint32_t ah[4], al[4];
-      // S = Q K^T: A = the warp's Q rows g and g + 8, B = K row 8j + g
-      split_frag(qw[g * L + c], qw[(g + 8) * L + c], qw[g * L + c + 4],
-                 qw[(g + 8) * L + c + 4], ah, al);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        mma_3xtf32(s[j], ah, al, ks[(8 * j + g) * L + c],
-                   ks[(8 * j + g) * L + c + 4]);
-      // dP = dO V^T
-      split_frag(dow[g * L + c], dow[(g + 8) * L + c], dow[g * L + c + 4],
-                 dow[(g + 8) * L + c + 4], ah, al);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        mma_3xtf32(dp[j], ah, al, vs[(8 * j + g) * L + c],
-                   vs[(8 * j + g) * L + c + 4]);
-    }
+    // S = Q K^T (A = the warp's Q rows g and g + 8, B = K row 8j + g) and
+    // dP = dO V^T
+    score_products<D, NT, L>(s, dp, qw, ks, dow, vs, g, t);
 
     // s <- d_bias = p (z/(1-r) dp - delta); dS is d_bias * scale
 #pragma unroll
@@ -537,25 +580,9 @@ __global__ void __launch_bounds__(kTfThreads, D <= 128 ? 2 : 1)
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DT; ++kk) {
-      const int c = 8 * kk + t;  // reduction elements c and c + 4
-      uint32_t ah[4], al[4];
-      // S^T = K Q^T: A = the warp's K rows g and g + 8, B = Q row 8j + g
-      split_frag(kw[g * L + c], kw[(g + 8) * L + c], kw[g * L + c + 4],
-                 kw[(g + 8) * L + c + 4], ah, al);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        mma_3xtf32(s[j], ah, al, qs[(8 * j + g) * L + c],
-                   qs[(8 * j + g) * L + c + 4]);
-      // dP^T = V dO^T
-      split_frag(vw[g * L + c], vw[(g + 8) * L + c], vw[g * L + c + 4],
-                 vw[(g + 8) * L + c + 4], ah, al);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        mma_3xtf32(dp[j], ah, al, dos[(8 * j + g) * L + c],
-                   dos[(8 * j + g) * L + c + 4]);
-    }
+    // S^T = K Q^T (A = the warp's K rows g and g + 8, B = Q row 8j + g)
+    // and dP^T = V dO^T
+    score_products<D, NT, L>(s, dp, kw, qs, vw, dos, g, t);
 
     // s <- the dropped p^T, dp <- ds^T = p^T o (z/(1-r) dp^T - delta) scale
 #pragma unroll

@@ -240,6 +240,29 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(c, ah, bh0, bh1);
 }
 
+// c += a * b as mma_3xtf32, the three products summed into an accumulator
+// of their own (from zero) that is then added to c by FADD, rounded to
+// nearest.  The tensor cores' float32 accumulation is not rounded to
+// nearest: along a dot product of D/8 k-steps (96 mma.sync into one
+// accumulator at D = 256) its error grows with the running sum's size
+// and its sign does not cancel.  Apart, each chain is 3 products of one
+// 8-column chunk, whose sum is a few units smaller than the running sum.
+// kApart = false is mma_3xtf32.
+template <bool kApart>
+__device__ __forceinline__ void mma_3xtf32_sum(float (&c)[4],
+                                               const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4],
+                                               float b0, float b1) {
+  if constexpr (kApart) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_3xtf32(part, ah, al, b0, b1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] += part[i];
+  } else {
+    mma_3xtf32(c, ah, al, b0, b1);
+  }
+}
+
 // Issue the copy of rows [r0, r0 + R) of a (rows, D) float32 operand into
 // shared memory at `dst`, rows kLd floats apart, 16 bytes a thread, by
 // kThreads threads; rows past `rows` are zero-filled (source size 0,

@@ -18,8 +18,9 @@ durable auto-resume.
    written by the reference loads into the port with the same weights.
 
 ``barrier(fleet=)`` tags the rendezvous with an elastic fleet's
-membership generation (:mod:`tpu_mx_torch.parallel.fleet`); a Module
-(``module=``) is ROADMAP A item 10.
+membership generation (:mod:`tpu_mx_torch.parallel.fleet`);
+``auto_resume(module=)`` restores a Module from its ``mx.model``
+checkpoint.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import os
 import re
 import time as _time
 
-from .base import MXNetError, refuse_unported
+from .base import MXNetError
 from . import checkpoint as _ckpt
 from . import telemetry as _telemetry
 from . import tracing as _tracing
@@ -184,10 +185,9 @@ def _states_loadable(states_path):
 
 
 def auto_resume(prefix, net=None, module=None, trainer=None):
-    """Restore the newest *loadable* checkpoint for a Gluon net + optional
-    Trainer states; returns the epoch to resume FROM (0 if fresh).
-    ``module=`` (a Module) needs ``module/`` (ROADMAP A item 10) and
-    raises.
+    """Restore the newest *loadable* checkpoint for a Gluon net (or a
+    Module: its ``mx.model`` checkpoint) + optional Trainer states;
+    returns the epoch to resume FROM (0 if fresh).
 
     The ``--resume`` contract: a restarted job calls this before the train
     loop and starts at the returned epoch.  An epoch is committed to only
@@ -197,10 +197,9 @@ def auto_resume(prefix, net=None, module=None, trainer=None):
     verified epochs' bytes are already sha256-proven, so the extra read is
     skipped); any failure falls back to the next-newest epoch instead of
     half-restoring or crashing.  If every candidate fails AFTER some
-    attempt already mutated net/trainer state, an MXNetError is
+    attempt already mutated net/module/trainer state, an MXNetError is
     raised — returning 0 ('train fresh') over silently half-restored state
     would be the exact corruption this module exists to prevent."""
-    refuse_unported("elastic.auto_resume", "A item 10", module=(module, None))
     mutated = False
     for epoch, params, status in _screened_checkpoints(prefix):
         _telemetry.counter("elastic.resume_attempts").inc()
@@ -218,6 +217,11 @@ def auto_resume(prefix, net=None, module=None, trainer=None):
         try:
             if net is not None:
                 net.load_parameters(params)
+                mutated = True
+            if module is not None:
+                from .model import load_checkpoint
+                _sym, arg, aux = load_checkpoint(prefix, epoch)
+                module.set_params(arg, aux)
                 mutated = True
         except Exception as e:
             log.warning("epoch %d: params failed to load (%s: %s) — "

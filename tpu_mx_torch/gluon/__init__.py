@@ -13,12 +13,12 @@ imperative blocks (``autograd.record()``, ``loss.backward()``,
 """
 from . import block, loss, model_zoo, nn, parameter, rnn, trainer, utils
 from . import contrib, data
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .trainer import Trainer
 
 __all__ = ["block", "contrib", "data", "loss", "model_zoo", "nn", "parameter", "rnn", "trainer",
-           "utils", "Block", "HybridBlock", "Constant",
+           "utils", "Block", "HybridBlock", "SymbolBlock", "Constant",
            "DeferredInitializationError", "Parameter", "ParameterDict",
            "Trainer"]

@@ -39,8 +39,10 @@ packages both ways.
 ``hybridize()`` keeps the reference's observable contract (the flag; the
 first call resolves deferred shapes; the results are those of the
 unhybridized forward) and runs the same eager forward: capture into a
-CUDA graph is open work (ROADMAP A8), and ``export``/``optimize_for``
-refuse by name.
+CUDA graph is open work (ROADMAP A8), and ``optimize_for`` refuses by
+name.  ``HybridBlock.export`` writes the predict-mode forward through
+``torch.export`` (a ``.pt2`` program beside the reference's ``.params``
+container), and ``SymbolBlock.imports`` runs it.
 """
 from __future__ import annotations
 
@@ -58,11 +60,12 @@ from .. import initializer as _init
 from .. import random as _random
 from ..base import MXNetError, refuse_unported
 from ..context import current_context
+from ..ndarray.ndarray import NDArray
 from ..ndarray.ops import _holds_array, _unwrap, _wrap
 from ..ndarray.traced import TracedArray, plain, traced
 from .parameter import Parameter, ParameterDict, _incomplete
 
-__all__ = ["Block", "HybridBlock", "HookHandle", "as_dtype",
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "HookHandle", "as_dtype",
            "default_generator", "load_numpy", "resolve_remat_policy",
            "REMAT_POLICIES"]
 
@@ -629,10 +632,6 @@ class Block(nn.Module):
                 self(*args)
         return self
 
-    def export(self, path, epoch=0, **kwargs):
-        raise MXNetError("HybridBlock.export is not ported yet (ROADMAP "
-                         "A17: the port has no compiled program to write)")
-
     def optimize_for(self, *args, **kwargs):
         raise MXNetError("HybridBlock.optimize_for is not ported yet "
                          "(ROADMAP A8: hybridize runs the eager forward)")
@@ -669,6 +668,13 @@ class HybridBlock(Block):
         return self
 
     def _run(self, args, kwargs):
+        if not kwargs and args and not autograd._STATE.functional and all(
+                isinstance(a, (NDArray, torch.Tensor, np.ndarray))
+                for a in args):
+            # the input shapes and types of an outermost call, for export
+            # (read without a fusion flush)
+            self.__dict__["_last_input_avals"] = [
+                (tuple(a.shape), a.dtype) for a in args]
         if self._active and not kwargs and not autograd._STATE.traced \
                 and self._ready():
             # the reference's cached (traced) call: its children run
@@ -728,3 +734,172 @@ class HybridBlock(Block):
         program and have no meaning for the eager forward."""
         refuse_unported("HybridBlock.hybridize", "A8", backend=(backend, None))
         super().hybridize(active)
+
+    def export(self, path, epoch=0, example_inputs=None):
+        """Write the block's predict-mode forward as a program and its
+        parameters:
+
+        - ``{path}-symbol.json``: ``format`` (``"tpu_mx_torch-export-v1"``),
+          ``name``, ``params``, ``inputs`` (shape and dtype of each) and
+          ``artifact``, as the reference's, and ``axes``: the parameters
+          the port stores in another order than the reference's shape
+          (``param_file``'s arrays are permuted by them at import);
+        - ``{path}-{epoch:04d}.params.npz``: the parameters under the
+          reference's keys, in its ``nd.save`` container and shapes;
+        - ``{path}-{epoch:04d}.pt2``: the program, ``torch.export``'s
+          ``ExportedProgram`` of the forward at these input shapes (the
+          flash attention forward stays one call of its operator,
+          ``tpu_mx_torch_flash::fwd``, which runs the kernel);
+
+        then the epoch's manifest over the two per-epoch files
+        (:func:`tpu_mx_torch.checkpoint.write_manifest`).  The input
+        shapes are ``example_inputs``' or the last call's; with neither,
+        or when ``torch.export`` cannot trace the forward, it raises
+        :class:`MXNetError` (no other program is written in its place).
+        Load it with :meth:`SymbolBlock.imports`."""
+        import io as _io
+        import json
+        import os
+        from ..checkpoint import atomic_write, write_manifest
+        from ..ndarray.ndarray import save as nd_save
+        params = {k: p for k, p in self._collect_params_with_prefix().items()
+                  if p._tensor() is not None}
+        if example_inputs is not None:
+            examples = [_unwrap(a) if isinstance(a, NDArray)
+                        else torch.as_tensor(a) for a in example_inputs]
+            avals = [(tuple(a.shape), _dtype_name(a.dtype))
+                     for a in examples]
+        elif self.__dict__.get("_last_input_avals") is not None:
+            avals = [(s, _dtype_name(d)) for s, d in self._last_input_avals]
+            examples = None
+        else:
+            raise MXNetError(
+                "export() needs input shapes: call the block once (after "
+                "hybridize()) or pass example_inputs=")
+        dev = next((p._tensor().device for p in params.values()), None) \
+            or _device.resolve(current_context())
+        if examples is None:
+            examples = [torch.zeros(s, dtype=getattr(torch, d)) for s, d
+                        in avals]
+        examples = tuple(a.to(dev) for a in examples)
+        modes = {m: m.training for m in self.modules()}
+        try:
+            self.train(False)
+            with autograd.predict_mode(), torch.no_grad():
+                program = torch.export.export(_Predict(self), examples,
+                                              strict=False)
+        except Exception as e:  # noqa: BLE001 — refused, with the reason
+            raise MXNetError(f"export: torch.export cannot trace "
+                             f"{type(self).__name__}'s forward: "
+                             f"{type(e).__name__}: {e}") from e
+        finally:
+            for m, training in modes.items():
+                m.train(training)
+        nd_save(f"{path}-{epoch:04d}.params.npz",
+                {k: p._ref_view() for k, p in params.items()})
+        buf = _io.BytesIO()
+        torch.export.save(program, buf)
+        art = f"{path}-{epoch:04d}.pt2"
+        with atomic_write(art) as f:
+            f.write(buf.getbuffer())
+        with atomic_write(f"{path}-symbol.json", "w") as f:
+            f.write(json.dumps({
+                "format": EXPORT_FORMAT,
+                "name": self.name,
+                "params": sorted(params),
+                "inputs": [{"shape": list(s), "dtype": d} for s, d in avals],
+                "artifact": os.path.basename(art),
+                "axes": {k: list(p._axes) for k, p in params.items()
+                         if p._axes is not None}}))
+        # the manifest lists the per-epoch files only: the symbol file is
+        # rewritten by every export, so listing it would make every older
+        # epoch corrupt
+        write_manifest(path, epoch, [f"{path}-{epoch:04d}.params.npz", art])
+
+
+EXPORT_FORMAT = "tpu_mx_torch-export-v1"
+
+
+def _dtype_name(dtype):
+    """The name of an element type: numpy's, or torch's where numpy has
+    none (``bfloat16``)."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return np.dtype(dtype).name
+
+
+class _Predict(nn.Module):
+    """The module ``torch.export`` traces: the block's forward on tensors,
+    its outputs as tensors."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, *inputs):
+        return plain(self.net(*inputs))
+
+
+class SymbolBlock(HybridBlock):
+    """A block over a program: :meth:`imports` builds one from an
+    :meth:`HybridBlock.export`, whose forward runs the exported
+    program."""
+
+    def __init__(self, fn, params=None, prefix=None):
+        super().__init__(prefix=prefix)
+        self._fn = fn
+
+    def hybrid_forward(self, F, *args, **params):
+        return self._fn(*args)
+
+    def __call__(self, *args):
+        return self._fn(*args)
+
+    @staticmethod
+    def imports(symbol_file, input_names=None, param_file=None, ctx=None):
+        """The block of an :meth:`HybridBlock.export`: its forward runs the
+        ``.pt2`` program with ``param_file``'s parameters, on the device
+        the program was exported on (or ``ctx``'s), and equals the
+        exporting block's predict-mode forward bit for bit on the same
+        device.  Another format (the reference's StableHLO among them) is
+        refused by name."""
+        import json
+        import os
+        from ..kernels import flash_attention  # noqa: F401 — its operator
+        from ..ndarray.ndarray import load as nd_load
+        with open(symbol_file) as f:
+            manifest = json.load(f)
+        fmt = manifest.get("format")
+        if fmt != EXPORT_FORMAT:
+            raise MXNetError(
+                f"SymbolBlock.imports: unsupported export format {fmt!r} in "
+                f"{symbol_file} (this package reads {EXPORT_FORMAT!r})")
+        if param_file is None:
+            raise MXNetError("param_file is required")
+        art = os.path.join(os.path.dirname(symbol_file) or ".",
+                           manifest["artifact"])
+        with open(art, "rb") as f:
+            program = torch.export.load(f)
+        gm = program.module()
+        if ctx is not None:
+            gm.to(_device.resolve(ctx))
+        state = dict(gm.named_parameters())
+        state.update(gm.named_buffers())
+        axes = manifest.get("axes", {})
+        with torch.no_grad():
+            for k, v in nd_load(param_file, ctx="cpu").items():
+                t = v._data
+                if k in axes:
+                    t = t.permute(axes[k])
+                dst = state[f"net.{k}"]
+                dst.copy_(t.to(dst.dtype))
+
+        def fn(*inputs):
+            out = gm(*[_unwrap(a) if isinstance(a, NDArray) else a
+                       for a in inputs])
+            return _wrap(out) if any(isinstance(a, NDArray)
+                                     for a in inputs) else out
+
+        blk = SymbolBlock(fn)
+        blk._export_manifest = manifest
+        return blk

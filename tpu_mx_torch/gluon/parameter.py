@@ -35,7 +35,7 @@ from .. import autograd
 from .. import device as _device
 from .. import initializer as _init
 from .. import random as _random
-from ..base import MXNetError, refuse_unported
+from ..base import MXNetError
 from ..context import current_context
 from ..ndarray.ndarray import NDArray, _torch_dtype
 
@@ -139,9 +139,8 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        refuse_unported("Parameter", "A17 (sparse storage)",
-                        stype=(stype, "default"),
-                        grad_stype=(grad_stype, "default"))
+        # stype/grad_stype are taken and, as in the reference, change
+        # nothing: a parameter and its gradient are dense
         self.name = name
         self._grad_req = grad_req if differentiable else "null"
         self._shape = tuple(shape) if shape is not None else None
@@ -422,6 +421,11 @@ class Parameter:
                 t.data = t.data.to(dt)
                 if t.grad is not None:
                     t.grad = t.grad.to(dt)
+
+    def var(self):
+        """Refused, as in the reference (``NotImplementedError``)."""
+        raise NotImplementedError("Parameter.var(): a parameter has no "
+                                  "symbolic variable")
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, " \

@@ -1,14 +1,10 @@
 """``mx.io``: the data-iterator protocol, ``NDArrayIter``, the file and
-record iterators and the prefetching iterators (:mod:`.io`)."""
+record iterators (``LibSVMIter`` among them) and the prefetching
+iterators (:mod:`.io`)."""
 from .io import (CSVIter, DataBatch, DataDesc, DataIter, DevicePrefetchIter,
-                 ImageDetRecordIter, ImageRecordIter, MNISTIter, NDArrayIter,
-                 PrefetchingIter, ResizeIter)
+                 ImageDetRecordIter, ImageRecordIter, LibSVMIter, MNISTIter,
+                 NDArrayIter, PrefetchingIter, ResizeIter)
 
 __all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "DevicePrefetchIter", "MNISTIter", "CSVIter",
-           "ImageRecordIter", "ImageDetRecordIter"]
-
-
-def __getattr__(name):
-    from . import io as _io
-    return _io.__getattr__(name)
+           "ImageRecordIter", "ImageDetRecordIter", "LibSVMIter"]

@@ -18,9 +18,8 @@ loads into an iterator of another world size at the same global batch.
 ``MNISTIter`` and ``CSVIter`` are ``NDArrayIter``s over the files.
 A batch's arrays are made on the current context.
 ``state_dict``/``load_state_dict`` snapshot the cursor, the epoch's
-permutation and the shuffle stream.  ``LibSVMIter`` yields sparse
-batches and is not ported yet (ROADMAP A item 10): ``mx.io.LibSVMIter``
-raises an ``AttributeError`` that says so.
+permutation and the shuffle stream.  ``LibSVMIter`` reads LibSVM text
+into CSR batches (:mod:`tpu_mx_torch.ndarray.sparse`).
 
 ``ImageRecordIter`` reads JPEG records through the native pipeline
 (:mod:`tpu_mx_torch.lib`: decode, resize, crop, mirror and batch on the
@@ -98,14 +97,6 @@ def _np_rng_tuple(state):
     tuple ``set_state`` takes."""
     return (str(state[0]), np.asarray(state[1], dtype=np.uint32),
             int(state[2]), int(state[3]), float(state[4]))
-
-
-def __getattr__(name):
-    if name == "LibSVMIter":
-        raise AttributeError(
-            "mx.io.LibSVMIter is not ported yet (ROADMAP A item 10: it "
-            "yields CSR batches through ndarray/sparse.py)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _batch_array(a):
@@ -791,6 +782,126 @@ class CSVIter(NDArrayIter):
         super().__init__(data, label, batch_size=batch_size,
                          last_batch_handle="pad" if round_batch
                          else "discard")
+
+
+class LibSVMIter(DataIter):
+    """LibSVM text (lines of ``label idx:val idx:val ...``) in batches of
+    CSR matrices on the current context, as the reference's; the labels
+    may be LibSVM rows of their own (``label_libsvm``).  The file is
+    parsed once into flat arrays (values, column indices, row offsets),
+    and a batch is one or two slices of them (two where ``round_batch``
+    wraps the last batch to the file's head)."""
+
+    def __init__(self, data_libsvm, data_shape, batch_size,
+                 label_libsvm=None, label_shape=(1,), round_batch=True,
+                 **kwargs):
+        super().__init__(batch_size)
+        self._num_features = int(np.prod(data_shape))
+        self._label_shape = tuple(label_shape)
+        label_dim = int(np.prod(self._label_shape))
+        self._values, self._cols, self._ptr, scalars = self._parse(
+            data_libsvm)
+        n = len(self._ptr) - 1
+        if label_libsvm:
+            lv, lc, lp, _ = self._parse(label_libsvm)
+            if len(lp) - 1 != n:
+                raise MXNetError("label_libsvm row count != data rows")
+            labels = np.zeros((n, label_dim), np.float32)
+            rows = np.repeat(np.arange(n), np.diff(lp))
+            labels[rows, lc] = lv
+            self._labels = labels
+        elif label_dim > 1:
+            self._labels = np.zeros((n, label_dim), np.float32)
+            self._labels[:, 0] = scalars
+        else:
+            self._labels = scalars
+        self.round_batch = round_batch
+        self.reset()
+
+    @staticmethod
+    def _parse(path):
+        """``(values float32, columns int32, row offsets int32, labels
+        float32)`` of a LibSVM file."""
+        values, cols, ptr, labels = [], [], [0], []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                for p in parts[1:]:
+                    k, v = p.split(":")
+                    cols.append(int(k))
+                    values.append(float(v))
+                ptr.append(len(values))
+        return (np.asarray(values, np.float32), np.asarray(cols, np.int32),
+                np.asarray(ptr, np.int64), np.asarray(labels, np.float32))
+
+    def reset(self):
+        self._cursor = 0
+        self._pad = 0
+
+    def state_dict(self):
+        return {"iter": "LibSVMIter", "version": 1,
+                "cursor": int(self._cursor)}
+
+    def load_state_dict(self, state):
+        _check_state(state, "LibSVMIter")
+        self._cursor = int(state["cursor"])
+        self._pad = 0
+
+    def iter_next(self):
+        n = len(self._ptr) - 1
+        if self._cursor >= n:
+            return False
+        end = self._cursor + self.batch_size
+        self._pad = max(0, end - n)
+        if self._pad and not self.round_batch:
+            return False
+        # the batch's rows (cursor + i) % n: at most two runs of rows
+        runs, at, left = [], self._cursor, self.batch_size
+        while left:
+            take = min(left, n - at)
+            runs.append((at, at + take))
+            at, left = 0, left - take
+        self._cursor = min(end, n)
+        spans = [(int(self._ptr[a]), int(self._ptr[b])) for a, b in runs]
+        values = np.concatenate([self._values[a:b] for a, b in spans])
+        cols = np.concatenate([self._cols[a:b] for a, b in spans])
+        indptr = self._ptr[runs[0][0]:runs[0][1] + 1] - spans[0][0]
+        if len(runs) == 2:
+            a, b = runs[1]
+            indptr = np.concatenate([indptr, self._ptr[a + 1:b + 1]
+                                     - spans[1][0] + indptr[-1]])
+        indptr = indptr.astype(np.int32)
+        from ..ndarray import sparse as _sparse
+        self._data_batch = _sparse.csr_matrix(
+            (values, cols, indptr), shape=(self.batch_size,
+                                           self._num_features))
+        lab = np.concatenate([self._labels[a:b] for a, b in runs])
+        if lab.ndim > 1:
+            lab = lab.reshape((self.batch_size,) + self._label_shape)
+        self._label_batch = array(lab)
+        return True
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._num_features))]
+
+    @property
+    def provide_label(self):
+        shp = (self.batch_size,) if int(np.prod(self._label_shape)) == 1 \
+            else (self.batch_size,) + self._label_shape
+        return [DataDesc("softmax_label", shp)]
+
+    def getdata(self):
+        return [self._data_batch]
+
+    def getlabel(self):
+        return [self._label_batch]
+
+    def getpad(self):
+        return self._pad
 
 
 def _pin_batches():

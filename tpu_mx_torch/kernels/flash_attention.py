@@ -503,6 +503,13 @@ _OPS.impl("fwd", lambda q, k, v, bias, kv_valid, seed, scale, causal, rate:
           "CompositeExplicitAutograd")
 
 
+# Its shapes without running it, for tracers that run no kernel
+# (``torch.export``'s fake tensors): ``out`` like q, ``lse`` (BH, T) float32.
+@torch.library.register_fake("tpu_mx_torch_flash::fwd")
+def _forward_fake(q, k, v, bias, kv_valid, seed, scale, causal, rate):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
 def flash_forward_op():
     """The flash forward's operator (``(out, lse)``), as selective
     checkpointing policies name it."""
@@ -599,8 +606,10 @@ def flash_attention(q, k, v, scale=None, causal=False, kv_valid=None,
             x is not None and x.requires_grad for x in (q, k, v, bias)):
         return FlashAttentionFunction.apply(q, k, v, bias, kv_valid,
                                             dropout_seed, scale, causal, rate)
-    return _forward(q, k, v, scale, causal, kv_valid, rate, dropout_seed,
-                    bias)[0]
+    # through the operator, so that a traced program (HybridBlock.export)
+    # keeps the call
+    return flash_forward_op()(q, k, v, bias, kv_valid, dropout_seed, scale,
+                              bool(causal), rate)[0]
 
 
 def _check_bias(bias, bh, t, tk, bias_groups):

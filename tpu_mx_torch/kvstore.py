@@ -315,7 +315,11 @@ class KVStore:
         self.pull(key, out if out is not None else value, priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        self.pull(key, out, priority)  # dense: sparse storage is item 10
+        """The reference's: a dense ``out`` gets the whole value (the
+        store's values are dense, ``row_ids`` selects nothing), and a
+        ``RowSparseNDArray`` ``out`` is refused by ``copyto``
+        (``TypeError``)."""
+        self.pull(key, out, priority)
 
     # -- optimizer offload ----------------------------------------------------
     def set_optimizer(self, optimizer):

@@ -11,14 +11,14 @@ Every operator takes tensors or arrays: given tensors it returns
 tensors (the port's models call them so), given arrays it returns
 arrays and records under ``autograd.record()``.
 """
-from . import contrib, ops, optimizer_ops, rnn_op
+from . import contrib, ops, optimizer_ops, rnn_op, sparse
 from .ndarray import (NDArray, array, concatenate, from_numpy, load, save,
                       waitall)
 from .ops import *  # noqa: F401,F403
 from .optimizer_ops import *  # noqa: F401,F403
 from .rnn_op import RNN, rnn_param_size
 
-__all__ = ["contrib", "ops", "optimizer_ops", "rnn_op", "RNN",
+__all__ = ["contrib", "ops", "optimizer_ops", "rnn_op", "sparse", "RNN",
            "rnn_param_size", "NDArray", "array", "concatenate", "from_numpy",
            "load", "save", "waitall"] + list(ops.__all__) \
     + list(optimizer_ops.__all__)

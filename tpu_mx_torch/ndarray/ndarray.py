@@ -146,7 +146,12 @@ class NDArray:
         """Give the array a zero gradient buffer; :func:`backward` then
         writes (``"write"``) or adds (``"add"``) its gradient there.
         Gradients are dense whatever ``stype`` says, as in the
-        reference."""
+        reference, which warns of a sparse ``stype``."""
+        if stype not in (None, "default"):
+            import warnings
+            warnings.warn(
+                f"attach_grad(stype={stype!r}): gradients are always dense; "
+                "storing dense values", stacklevel=2)
         self._make_leaf()
         self._grad = NDArray(torch.zeros_like(self._data))
         self._grad_req = grad_req
@@ -352,14 +357,12 @@ class NDArray:
         return self
 
     def tostype(self, stype):
-        """The array in storage type ``stype``: ``"default"`` (itself);
-        the sparse types are not ported yet (ROADMAP A item 10)."""
+        """The array in storage type ``stype``: ``"default"`` (itself),
+        ``"csr"`` or ``"row_sparse"`` (:mod:`.sparse`)."""
         if stype == "default":
             return self
-        if stype in ("row_sparse", "csr"):
-            raise MXNetError(f"NDArray.tostype({stype!r}): sparse storage "
-                             "is not ported yet (ROADMAP A item 10)")
-        raise ValueError(f"unknown storage type {stype!r}")
+        from . import sparse
+        return sparse.cast_storage(self, stype)
 
     def to_dlpack_for_read(self):
         """A DLPack capsule of the tensor (shared, not copied)."""

@@ -66,7 +66,11 @@ def _plain(a):
 
 def traced(tree):
     """``tree``'s tensors (in lists, tuples and dicts) as
-    :class:`TracedArray` views."""
+    :class:`TracedArray` views; unchanged while ``torch.export`` traces
+    (``HybridBlock.export``), whose fake tensors take no subclass: a
+    ``hybrid_forward`` that calls jax's methods cannot be exported."""
+    if torch.compiler.is_exporting():
+        return tree
     if type(tree) is torch.Tensor or isinstance(tree, torch.nn.Parameter):
         return tree.as_subclass(TracedArray)
     if type(tree) in (list, tuple):

@@ -36,7 +36,8 @@ iterators have no ``state_dict`` and are refused at construction.
 This build writes ``tpu_mx-capsule-v2`` and reads v1 and v2; with an
 elastic fleet attached (``fleet=``) the ``world`` map records this
 worker's rank and world size in the fleet's adopted epoch and that
-generation.  ``ModuleState`` (a Module's state) is ROADMAP A item 10.
+generation.  ``ModuleState`` carries a Module's weights and optimizer
+states in the step capsule's sidecar.
 
 Telemetry: ``resume.capsules_written{kind}``,
 ``resume.capsule_restore_seconds`` and the ``resume.resume_step_gap``
@@ -63,17 +64,10 @@ from . import tracing as _tracing
 
 __all__ = ["CAPSULE_FORMAT", "CAPSULE_FORMAT_V1", "CAPSULE_FORMATS",
            "CapsuleManager", "encode_state", "decode_state", "capsule_path",
-           "step_capsule_path", "step_state_path", "read_capsule"]
+           "step_capsule_path", "step_state_path", "read_capsule",
+           "ModuleState"]
 
 log = logging.getLogger(__name__)
-
-
-def __getattr__(name):
-    if name == "ModuleState":
-        raise AttributeError(
-            "resume.ModuleState is not ported yet (ROADMAP A item 10: a "
-            "Module's state for the sidecar, and module/ is not ported)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 CAPSULE_FORMAT_V1 = "tpu_mx-capsule-v1"
 #: the format this build WRITES (v2: global-cursor data positions + world map)
@@ -509,3 +503,40 @@ class CapsuleManager:
 def _load_sidecar(path):
     with open(path, "rb") as f:
         return _torch_tree(pickle.load(f))
+
+
+class ModuleState:
+    """``state_dict``/``load_state_dict`` over a bound Module (or
+    BucketingModule), so that the step capsule's sidecar carries its
+    weights and optimizer states through ``module.fit(supervised=)``
+    (``CompiledTrainStep`` speaks the protocol itself)."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def _updater_holder(self):
+        m = self.module
+        if hasattr(m, "_updater_states"):
+            return m
+        return getattr(m, "_curr_module", None)  # a BucketingModule's
+
+    def state_dict(self):
+        arg, aux = self.module.get_params()
+        sd = {"arg": {k: v.asnumpy() for k, v in arg.items()},
+              "aux": {k: v.asnumpy() for k, v in aux.items()}}
+        holder = self._updater_holder()
+        if holder is not None and getattr(holder, "_updater_states", None):
+            sd["updater_states"] = _np_tree(holder._updater_states)
+        return sd
+
+    def load_state_dict(self, sd):
+        self.module.set_params(sd.get("arg") or None, sd.get("aux") or None,
+                               force_init=True)
+        upd = sd.get("updater_states")
+        holder = self._updater_holder()
+        if upd is not None and holder is not None:
+            from .module.module import _to_device
+            # in place: a BucketingModule's buckets share the one dict
+            holder._updater_states.clear()
+            holder._updater_states.update(
+                _to_device(_torch_tree(upd), holder._exec._device))

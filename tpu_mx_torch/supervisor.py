@@ -37,7 +37,7 @@ The sentinel reads the step's loss — on the card a 0-d CUDA tensor —
 inside the watchdog thread: that read is the supervised step's one
 device-to-host synchronization.  With an elastic fleet (``fleet=``) the
 step boundary is also the membership quiesce point; ``for_module``
-needs ``module/`` (ROADMAP A item 10).
+wires a Supervisor to a Module (``module.fit(supervised=)``).
 
 Usage, around a ``CompiledTrainStep``::
 
@@ -72,17 +72,10 @@ from .elastic import WorkerFailure
 
 __all__ = ["Supervisor", "Supervise", "SupervisorResult", "NumericSentinel",
            "NumericDivergence", "DataCorruption", "WatchdogTimeout",
-           "run_with_deadline", "classify", "TRANSIENT_EXCEPTIONS"]
+           "run_with_deadline", "classify", "TRANSIENT_EXCEPTIONS",
+           "for_module"]
 
 log = logging.getLogger(__name__)
-
-
-def __getattr__(name):
-    if name == "for_module":
-        raise AttributeError(
-            "supervisor.for_module is not ported yet (ROADMAP A item 10: "
-            "it wires a Supervisor to a Module, and module/ is not ported)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class NumericDivergence(MXNetError):
@@ -840,9 +833,8 @@ class Supervisor:
 
 class Supervise:
     """Configuration for supervised training through the high-level APIs
-    (the reference's ``module.fit(..., supervised=Supervise(prefix=
-    "ck"))``; the port's Module is ROADMAP A item 10, so the config is
-    carried but nothing in the port reads it yet).
+    (``module.fit(..., supervised=Supervise(prefix="ck"))``, which
+    :func:`for_module` turns into a :class:`Supervisor`).
 
     ``prefix`` names the durable checkpoint prefix rollback resumes from;
     ``keep_last`` applies retention after each save (never pruning the
@@ -862,3 +854,71 @@ class Supervise:
         self.capsule = capsule
         self.capsule_interval = int(capsule_interval)
         self.supervisor_kwargs = supervisor_kwargs
+
+
+def for_module(module, config, train_data=None):
+    """A :class:`Supervisor` wired to a Module's checkpoints: saves go
+    through ``module.save_checkpoint`` (the manifest committed, then
+    retention), rollback through ``elastic.auto_resume(module=...)``.
+    ``BaseModule.fit(supervised=...)`` calls it with its training
+    iterator, whose position a capsule-enabled config snapshots."""
+    import os
+    from . import checkpoint as _ckpt
+    from . import elastic as _elastic
+    if isinstance(config, dict):
+        config = Supervise(**config)
+    if config is True:
+        config = Supervise()
+    if not isinstance(config, Supervise):
+        raise MXNetError(
+            f"supervised= expects a supervisor.Supervise config (or a dict "
+            f"of its kwargs), got {type(config).__name__}")
+    if not config.prefix:
+        raise MXNetError(
+            "Supervise needs a checkpoint prefix: rollback-to-last-good "
+            "is meaningless without a durable checkpoint to roll back to "
+            "(pass supervised=Supervise(prefix='ck'))")
+    sup_kwargs = dict(config.supervisor_kwargs)
+    # the flight recorder rides the checkpoint prefix unless told not to
+    # (blackbox=None through Supervise)
+    sup_kwargs.setdefault("blackbox", config.prefix)
+    sup = Supervisor(**sup_kwargs)
+    if config.capsule or config.capsule_interval:
+        from . import resume as _resume
+        if hasattr(config.capsule, "restore"):  # a manager already built
+            sup.attach_capsule(config.capsule)
+        else:
+            sup.attach_capsule(_resume.CapsuleManager(
+                config.prefix,
+                iters=[train_data] if train_data is not None else [],
+                state=_resume.ModuleState(module),
+                interval=config.capsule_interval))
+
+    def save_fn(epoch):
+        extra = []
+        if sup.capsule is not None:
+            # the capsule before the manifest's commit: it rides the
+            # epoch's manifest and is verified with the checkpoint
+            extra.append(sup.capsule.write_epoch_file(epoch, sup))
+        module.save_checkpoint(
+            config.prefix, epoch,
+            save_optimizer_states=config.save_optimizer_states,
+            extra_files=extra)
+        if config.keep_last:
+            _ckpt.apply_retention(config.prefix, config.keep_last,
+                                  known_verified=epoch)
+
+    def restore_fn():
+        start = _elastic.auto_resume(config.prefix, module=module)
+        if config.save_optimizer_states and start > 0:
+            # the optimizer rolls back with the weights: diverged momentum
+            # kept over restored weights would poison them again
+            states = f"{config.prefix}-{start - 1:04d}.states"
+            loader = getattr(module, "load_optimizer_states", None)
+            if loader is not None and os.path.exists(states):
+                loader(states)
+        return start
+
+    sup.save_fn = save_fn
+    sup.restore_fn = restore_fn
+    return sup
