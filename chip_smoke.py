@@ -462,7 +462,7 @@ line each:
                  time.
 31. ``supervised_train`` — supervised, deterministically resumable
                  training (after ``crossover``): BERT-base at full width
-                 and 6 of its 12 layers (bf16, dropout 0.1, LAMB with
+                 and 5 of its 12 layers (bf16, dropout 0.1, LAMB with
                  float32 masters, batch 32 x 512) through ``CompiledTrainStep`` under
                  ``Supervisor(capsule=CapsuleManager(prefix, iters=[it],
                  state=step, interval=2))`` with
@@ -588,8 +588,37 @@ line each:
                  ``sparse.dot`` against the CPU port and float64,
                  ``retain`` and ``row_sparse_pull`` of a 256 MB table
                  against the CPU port.
-The kvstore, fleet and mesh phases run 6 of BERT-base's 12 layers (the
-script's time).
+38. ``contrib`` — ROADMAP A item 10 (e)-(g): BERT-base (full width,
+                 dropout 0.1, 32 x 512) declared in float32, 1 + 3
+                 imperative LAMB steps, then under ``contrib.amp``
+                 (``init``, ``convert_model``, ``init_trainer``,
+                 ``scale_loss``) 1 + 3 more: the losses finite and
+                 falling, every parameter's dtype as ``convert_model``
+                 promised (LayerNorm float32, the rest bf16), the flash
+                 forward, dq and dk/dv 12 times a step each on bf16
+                 ``wgmma`` with no dense arm, ``has_overflow`` one
+                 device-to-host read over its ~150 gradients in fewer
+                 than half a launch a gradient (foreach), step ms and
+                 peak memory beside the float32 step's; ``Monitor`` over
+                 one amp forward (every layer a stat); a 2-layer amp
+                 BERT's logits within 2e-2 x max|ref| of the CPU port's;
+                 ``train_mnist.py``'s LeNet under ``amp.init("float16")``
+                 for 8 steps, step 6's gradient poisoned with inf (the
+                 step skipped bit-exactly, the scale halved, the warning,
+                 one host read a step); ``Conv2DLSTMCell`` at Moving
+                 MNIST's encoder shape, ``LSTMPCell`` 2048 -> 512,
+                 ``PixelShuffle2D`` x3 at ESPCN's shape and
+                 ``VariationalDropoutCell`` around ``LSTMCell(650)``
+                 against the CPU port (1e-4 x max|ref|) or by their
+                 properties; ResNet-50 v1's stem and first stage through
+                 ``contrib.onnx`` on the card (1e-5 relative);
+                 ``Module.install_monitor`` and ``print_summary`` of the
+                 symbolic PTB LM; ``check_consistency`` over
+                 ``[gpu(0), cpu(0)]``; ``feature_list()``.  Every patched
+                 name restored after it (``amp._deinit()`` in a
+                 ``finally``).
+The kvstore, fleet and mesh phases run 6 of BERT-base's 12 layers,
+supervised_train 5 (the script's time).
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -7579,7 +7608,7 @@ SUP_REPLICAS, SUP_REPLICA_LAYERS = 3, 2
 SUP_BITFLIP_STEP, SUP_BITFLIP_RANK = 3, 2
 SUP_PROFILE_STEPS = 2
 SUP_TIMED_STEPS = 3
-SUP_LAYERS = 6                        # of BERT-base's 12 (the script's time)
+SUP_LAYERS = 5                        # of BERT-base's 12 (the script's time)
 
 SUPERVISED_CHILD = r'''
 import json, sys
@@ -10042,6 +10071,682 @@ def phase_graph(ctx):
             ctx["failures"].append(f"graph check {name} failed")
 
 
+# the contrib phase (ROADMAP A item 10 (e)-(g)): contrib.amp on BERT-base
+# at the bert cell's widths (bf16 products from a float32 model) and on
+# train_mnist.py's LeNet (float16, dynamic loss scaling), the contrib
+# layers at their papers' shapes, ONNX of a ResNet-50 v1 stem and first
+# stage, Monitor, print_summary, check_consistency and feature_list
+CONTRIB_SEED = 25
+CONTRIB_LR = 1e-3            # LAMB, multi_precision: the loss falls in 4
+CONTRIB_TIMED = 3            # amp steps after 1 warm-up (and the f32 step)
+CONTRIB_MON_BATCH = 4        # the monitored BERT forward: 4 x 512
+CONTRIB_PARITY = dict(layers=2, batch=2, seq=128, masked=19)
+# the poisoned step: the scaler starts at 2^16 and halves on the natural
+# overflows of the first steps (4 of them on the card); step 6 comes after
+# a clean step, so its skip is the poison's alone (checked before it)
+CONTRIB_F16_STEPS, CONTRIB_POISON_STEP = 8, 6
+# Shi et al. 2015's Moving-MNIST encoder: 64 x 64 frames in 4 x 4 patches
+CONTRIB_CONVLSTM = dict(batch=16, steps=10, channels=16, size=16, hidden=64,
+                        kernel=5, cpu_rows=2)
+# Sak et al. 2014: 2048 cells projected to 512
+CONTRIB_LSTMP = dict(batch=64, steps=20, input=512, hidden=2048, proj=512,
+                     cpu_rows=8)
+CONTRIB_ESPCN = dict(batch=16, channels=3, factor=3, size=100)  # ESPCN x3
+CONTRIB_VDROP = dict(hidden=650, batch=20, steps=5, rate=0.5)
+CONTRIB_ONNX = dict(batch=32, size=224)
+F32_REL = 1e-4               # float32 parts, card vs CPU port: x max|ref|
+ONNX_RTOL = 1e-5
+
+
+def contrib_bert_steps(torch, net, arrays, steps, amp=None):
+    """``1 + steps`` imperative LAMB steps of ``net`` (``Trainer``, with
+    ``amp.init_trainer``/``scale_loss`` when ``amp`` is given): the
+    losses, the timed steps' ms and the peak memory of the timed steps."""
+    from tpu_mx_torch import autograd, gluon
+    from tpu_mx_torch.models import MLMLoss
+    trainer = gluon.Trainer(net.collect_params(), "lamb",
+                            {"learning_rate": CONTRIB_LR,
+                             "multi_precision": amp is not None})
+    if amp is not None:
+        amp.init_trainer(trainer)
+    loss_fn = MLMLoss()
+    losses, ms = [], []
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(*arrays[:4]), arrays[4])
+        if amp is not None:
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward()
+        else:
+            loss.backward()
+        trainer.step(arrays[0].shape[0])
+        return float(loss.mean().asscalar())
+    losses.append(step())                               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    overflow = None
+    if amp is not None:       # has_overflow over BERT-base's gradients
+        overflow = contrib_overflow_reads(torch, amp, trainer._params,
+                                          launches=True)
+    del trainer
+    return losses, ms, peak, overflow
+
+
+def contrib_overflow_reads(torch, amp, params, launches=False):
+    """``LossScaler.has_overflow(params)`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``: its answer and the
+    synchronizing calls it made (one device-to-host read expected).  With
+    ``launches``, also one call under the profiler: the host's launch
+    and copy API calls (``launches``, gated: the profiler's device
+    activity can miss a short window in a long process, its host calls
+    are there) and the card's executions it saw (``device``).  The old
+    check took two launches a gradient (``isfinite``, ``all``) and a
+    stack; the foreach check takes a few a dtype group."""
+    import warnings
+    from tpu_mx_torch.contrib.amp import amp as amp_mod
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            flag = amp.LossScaler().has_overflow(params)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(m.message) for m in w
+             if "called a synchronizing CUDA operation" in str(m.message)]
+    rec = dict(params=len(params), overflow=flag, syncs=len(syncs))
+    if launches:
+        grads = amp_mod._grads(params)
+        seen = profiled_launches(
+            torch, lambda: amp.LossScaler().has_overflow(params))
+        rec.update(launches=seen["host_total"], device=seen["device"],
+                   host_calls=seen["host_calls"], gradients=len(grads),
+                   dtypes=sorted({str(g.dtype) for g in grads}))
+    return rec
+
+
+def contrib_dtypes_as_promised(torch, net):
+    """Every LayerNorm parameter float32, every other one bfloat16."""
+    from tpu_mx_torch.gluon.nn import LayerNorm
+    norms = {id(p) for m in net.modules() if isinstance(m, LayerNorm)
+             for p in m.parameters()}
+    bad = [n for n, p in net.named_parameters()
+           if p.dtype != (torch.float32 if id(p) in norms
+                          else torch.bfloat16)]
+    return bad, len(norms)
+
+
+def contrib_amp_bert(torch, ctx):
+    """(a) BERT-base declared in float32 (``_bert_once``'s widths, dropout
+    0.1, batch 32 x 512 with ragged valid lengths): 1 + 3 imperative LAMB
+    steps in float32, then ``amp.init()``, ``convert_model`` (LayerNorm
+    stays float32), ``init_trainer`` and ``scale_loss``, 1 + 3 steps whose
+    flash launches and routes are counted; then one monitored amp
+    forward at 4 x 512, and the amp forward of a 2-layer full-width BERT
+    at 2 x 128 against the CPU port's on the same weights."""
+    import importlib
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import nd
+    from tpu_mx_torch.contrib import amp
+    from tpu_mx_torch.contrib.amp import amp as amp_mod
+    from tpu_mx_torch.kernels import flash_attention as fa
+    from tpu_mx_torch.models import BERTModel, bert_base_config
+    from tpu_mx_torch.monitor import Monitor
+    ring = importlib.import_module("tpu_mx_torch.parallel.ring_attention")
+    cfg = bert_base_config(max_len=TRAIN_SEQ)
+    rng = np.random.RandomState(CONTRIB_SEED)
+    valid = rng.randint(TRAIN_VALID[0], TRAIN_VALID[1] + 1, TRAIN_BATCH)
+    batch = bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED, valid, rng)
+    arrays = [nd.array(torch.from_numpy(b).cuda()) for b in batch]
+    net = BERTModel(cfg, dtype="float32", device="cuda",
+                    generator=torch.Generator(device="cuda")
+                    .manual_seed(CONTRIB_SEED))
+    f32_losses, f32_ms, f32_peak, _ = contrib_bert_steps(
+        torch, net, arrays, CONTRIB_TIMED)
+    torch.cuda.empty_cache()
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    rec, checks = {}, {}
+    amp.init()
+    try:
+        amp.convert_model(net)
+        bad, n_norm = contrib_dtypes_as_promised(torch, net)
+        dense0 = ring.dispatch_counts["dense"]
+        reset_port_kernel_launches()
+        for c in counters:
+            c.routes = fa.route_counts()
+        amp_losses, amp_ms, amp_peak, overflow = contrib_bert_steps(
+            torch, net, arrays, CONTRIB_TIMED, amp=amp)
+        launches = port_kernel_launches()
+        routes = {k: dict(c.routes) for k, c in zip(FLASH_KERNELS,
+                                                     counters)}
+        layers, steps = cfg["num_layers"], CONTRIB_TIMED + 1
+        checks.update(
+            amp_finite=all(math.isfinite(v) for v in amp_losses),
+            amp_loss_falls=amp_losses[-1] < amp_losses[0],
+            dtypes_as_promised=not bad and n_norm > 0,
+            flash_12_a_step=all(launches[k] == layers * steps
+                                for k in FLASH_KERNELS),
+            wgmma_route=all(r == dict(fa.route_counts(),
+                                      wgmma=layers * steps)
+                            for r in routes.values()),
+            no_dense_arm=ring.dispatch_counts["dense"] == dense0,
+            has_overflow_one_read=overflow["syncs"] == 1
+            and overflow["overflow"] is False
+            and overflow["params"] == len(list(net.parameters())),
+            has_overflow_fused=0 < overflow["launches"]
+            < overflow["gradients"] // 2)
+        # one monitored forward: every encoder layer records a stat
+        mon = Monitor(interval=1).install(net)
+        mon.tic()
+        with torch.no_grad():
+            net.eval()
+            net(*[a._data[:CONTRIB_MON_BATCH] for a in arrays[:4]])
+        stats = mon.toc()
+        mon.uninstall()
+        names = [n for _, n, _ in stats]
+        checks["monitor_every_layer"] = all(
+            any(f"layers.{i}." in n or n.endswith(f"layers.{i}")
+                for n in names) for i in range(layers)) and all(
+            math.isfinite(v) for _, _, v in stats)
+        rec["monitor"] = dict(stats=len(stats), blocks=len(set(names)),
+                              first=stats[:3])
+        del net
+        torch.cuda.empty_cache()
+        rec["parity"] = contrib_amp_parity(torch, cfg)
+        checks["parity_logits"] = rec["parity"]["ok"]
+    finally:
+        amp_mod._deinit()
+    checks["amp_deinit"] = not getattr(mx.nd.ops.FullyConnected,
+                                       "__amp_wrapped__", False) \
+        and not amp_mod._amp_state["originals"]
+    rec.update(
+        f32=dict(losses=f32_losses, step_ms=f32_ms,
+                 step_ms_median=statistics.median(f32_ms),
+                 peak_memory_bytes=f32_peak),
+        amp=dict(losses=amp_losses, step_ms=amp_ms,
+                 step_ms_median=statistics.median(amp_ms),
+                 peak_memory_bytes=amp_peak, launches=launches,
+                 launches_per_step={k: v / steps
+                                    for k, v in launches.items()},
+                 routes=routes, has_overflow=overflow,
+                 dtypes_off_promise=bad[:5],
+                 layernorms_float32=n_norm),
+        speedup=statistics.median(f32_ms) / statistics.median(amp_ms),
+        memory_ratio=amp_peak / f32_peak,
+        model={**cfg, "declared": "float32", "amp": "bfloat16"},
+        batch=dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, masked=TRAIN_MASKED),
+        optimizer=f"Trainer lamb lr={CONTRIB_LR} (multi_precision under "
+        "amp)")
+    return rec, checks, launches
+
+
+def contrib_amp_parity(torch, base_cfg):
+    """The amp forward (predict mode) of a 2-layer full-width BERT at
+    2 x 128 on the card against the CPU port's, same weights."""
+    from tpu_mx_torch.contrib import amp
+    from tpu_mx_torch.models import BERTModel
+    p = CONTRIB_PARITY
+    cfg = dict(base_cfg, num_layers=p["layers"], max_length=p["seq"])
+    card = BERTModel(cfg, dtype="float32", device="cuda",
+                     generator=torch.Generator(device="cuda")
+                     .manual_seed(CONTRIB_SEED + 1))
+    host = BERTModel(cfg, dtype="float32", device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.RandomState(CONTRIB_SEED + 1)
+    batch = bert_batch(cfg, p["batch"], p["seq"], p["masked"],
+                       (p["seq"], p["seq"] - 31), rng)
+    outs = []
+    for net, dev in ((card, "cuda"), (host, "cpu")):
+        amp.convert_model(net)
+        net.eval()
+        with torch.no_grad():
+            outs.append(net(*[torch.from_numpy(b).to(dev)
+                              for b in batch[:4]]).float().cpu())
+    err = float((outs[0] - outs[1]).abs().max())
+    scale = float(outs[1].abs().max())
+    return dict(ok=err <= BF16_REL * scale and bool(torch.isfinite(
+        outs[0]).all()), max_abs_err=err, max_ref=scale,
+        tolerance=BF16_REL * scale, shape=list(outs[0].shape),
+        config=dict(layers=p["layers"], batch=p["batch"], seq=p["seq"]))
+
+
+def contrib_amp_f16(torch, ctx):
+    """(b) ``train_mnist.py``'s LeNet at its defaults under
+    ``amp.init("float16")`` with dynamic loss scaling, 8 steps: the first
+    steps overflow at the scaler's 2^16 and halve it; at step 6 (its own
+    gradients finite) one gradient is set to inf: the step is skipped
+    (every weight bit-unchanged), the scale halves, the warning is
+    issued, the later losses are finite; ``has_overflow`` reads the card
+    once a step (``LossScaler.host_reads``, and the synchronizing calls
+    ``torch.cuda.set_sync_debug_mode`` reports)."""
+    import warnings
+    from tpu_mx_torch import autograd
+    from tpu_mx_torch.contrib import amp
+    from tpu_mx_torch.contrib.amp import amp as amp_mod
+    x, y = mnist_data(MNIST_BATCH * CONTRIB_F16_STEPS)
+    amp.init("float16")
+    try:
+        net, trainer, loss_fn, it = mnist_recipe(x, y)
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+        losses, scales, skipped, reads, syncs = [], [], {}, [], None
+        for i, b in enumerate(it):
+            if i == CONTRIB_F16_STEPS:
+                break
+            with autograd.record():
+                loss = loss_fn(net(b.data[0]), b.label[0])
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward()
+            if i == CONTRIB_POISON_STEP:
+                clean = not scaler.has_overflow(trainer._params)
+                g = trainer._params[0].grad._data
+                g.view(-1)[0] = float("inf")
+                before = [p.data()._data.clone() for p in trainer._params]
+                scale0 = scaler.loss_scale
+                syncs = contrib_overflow_reads(torch, amp,
+                                               trainer._params)["syncs"]
+            n0 = amp.LossScaler.host_reads
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                trainer.step(b.data[0].shape[0])
+            reads.append(amp.LossScaler.host_reads - n0)
+            if i == CONTRIB_POISON_STEP:
+                skipped = dict(
+                    weights_bit_unchanged=all(
+                        torch.equal(a, p.data()._data)
+                        for a, p in zip(before, trainer._params)),
+                    scale_halved=scaler.loss_scale == scale0 / 2,
+                    clean_before_poison=clean,
+                    warned=any("overflow" in str(m.message) for m in w),
+                    scale_before=scale0, scale_after=scaler.loss_scale)
+            losses.append(float(loss.mean().asscalar()))
+            scales.append(scaler.loss_scale)
+    finally:
+        amp_mod._deinit()
+    checks = dict(
+        poisoned_step_skipped=bool(skipped)
+        and skipped["weights_bit_unchanged"]
+        and skipped["clean_before_poison"],
+        scale_halved=bool(skipped) and skipped["scale_halved"],
+        warned=bool(skipped) and skipped["warned"],
+        later_finite=all(math.isfinite(v)
+                         for v in losses[CONTRIB_POISON_STEP + 1:]),
+        one_host_read_a_step=reads == [1] * CONTRIB_F16_STEPS,
+        one_sync_in_has_overflow=syncs == 1)
+    rec = dict(losses=losses, loss_scales=scales, poisoned=skipped,
+               host_reads_per_step=reads, has_overflow_syncs=syncs,
+               params=len(trainer._params),
+               recipe="lenet(10), sgd lr 0.05 momentum 0.9, batch 128")
+    return rec, checks
+
+
+def contrib_layers(torch, ctx):
+    """(c) The contrib layers at their published shapes on the card, each
+    held to the CPU port on the same weights (the leading rows where the
+    rows are independent)."""
+    import tpu_mx_torch as mx
+    from tpu_mx_torch.gluon import rnn
+    from tpu_mx_torch.gluon.contrib import nn as cnn
+    from tpu_mx_torch.gluon.contrib import rnn as crnn
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 products
+    torch.backends.cudnn.allow_tf32 = False
+    rec, checks = {}, {}
+
+    def pair(build):
+        card = build("cuda", torch.Generator(device="cuda")
+                     .manual_seed(CONTRIB_SEED))
+        host = build("cpu", torch.Generator().manual_seed(0))
+        host.load_state_dict({k: v.cpu()
+                              for k, v in card.state_dict().items()})
+        return card, host
+
+    def steps(cell, xs, states):
+        outs = []
+        with torch.no_grad():
+            for x in xs:
+                out, states = cell(x, states)
+                outs.append(out)
+        return outs
+
+    def held(name, card_outs, host_outs, rows, t_card):
+        a = torch.stack([o[:rows].float().cpu() for o in card_outs])
+        b = torch.stack([o.float() for o in host_outs])
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        rec[name] = dict(max_abs_err=err, max_ref=scale,
+                         tolerance=F32_REL * scale, card_ms=t_card,
+                         cpu_rows=rows, finite=bool(torch.isfinite(a).all()))
+        checks[name] = err <= F32_REL * scale and rec[name]["finite"]
+
+    c = CONTRIB_CONVLSTM
+
+    def convlstm(dev, gen):
+        cell = crnn.Conv2DLSTMCell(c["hidden"], kernel=c["kernel"],
+                                   input_shape=(c["channels"], c["size"],
+                                                c["size"]), generator=gen)
+        return cell.to(dev)
+    card, host = pair(convlstm)
+    g = torch.Generator(device="cuda").manual_seed(CONTRIB_SEED + 2)
+    xs = [torch.rand(c["batch"], c["channels"], c["size"], c["size"],
+                     device="cuda", generator=g) for _ in range(c["steps"])]
+    t0 = time.perf_counter()
+    outs = steps(card, xs, card.begin_state(c["batch"]))
+    torch.cuda.synchronize()
+    t_card = (time.perf_counter() - t0) * 1e3
+    r = c["cpu_rows"]
+    held("conv2d_lstm", outs, steps(host, [x[:r].cpu() for x in xs],
+                                    host.begin_state(r)), r, t_card)
+    rec["conv2d_lstm"]["shape"] = dict(c)
+
+    p = CONTRIB_LSTMP
+
+    def lstmp(dev, gen):
+        return crnn.LSTMPCell(p["hidden"], p["proj"], input_size=p["input"],
+                              generator=gen).to(dev)
+    card, host = pair(lstmp)
+    xs = [torch.randn(p["batch"], p["input"], device="cuda", generator=g)
+          for _ in range(p["steps"])]
+    t0 = time.perf_counter()
+    outs = steps(card, xs, card.begin_state(p["batch"]))
+    torch.cuda.synchronize()
+    t_card = (time.perf_counter() - t0) * 1e3
+    r = p["cpu_rows"]
+    held("lstmp", outs, steps(host, [x[:r].cpu() for x in xs],
+                              host.begin_state(r)), r, t_card)
+    rec["lstmp"]["shape"] = dict(p)
+
+    e = CONTRIB_ESPCN
+    f2 = e["factor"] ** 2
+    x = torch.rand(e["batch"], e["channels"] * f2, e["size"], e["size"],
+                   device="cuda", generator=g)
+    shuffle = cnn.PixelShuffle2D(e["factor"])
+    with mx.gpu(0):
+        out = shuffle(mx.nd.array(x)).asnumpy()
+    want = shuffle(x.cpu()).numpy()
+    rec["pixelshuffle2d"] = dict(
+        input=list(x.shape), output=list(out.shape),
+        ms=cuda_ms(torch, lambda: shuffle(x)))
+    checks["pixelshuffle2d"] = out.shape == (
+        e["batch"], e["channels"], e["size"] * e["factor"],
+        e["size"] * e["factor"]) and np.array_equal(out, want)
+
+    v = CONTRIB_VDROP
+    base = rnn.LSTMCell(v["hidden"], input_size=v["hidden"],
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(CONTRIB_SEED)).cuda()
+    cell = crnn.VariationalDropoutCell(
+        base, drop_inputs=v["rate"], drop_states=v["rate"],
+        drop_outputs=v["rate"], generator=torch.Generator(device="cuda")
+        .manual_seed(CONTRIB_SEED))
+    cell.train()
+
+    def masks():
+        return [cell._mask_in, cell._mask_out] + list(cell._mask_states)
+    xs = [torch.randn(v["batch"], v["hidden"], device="cuda", generator=g)
+          for _ in range(v["steps"])]
+    states, same, drawn = cell.begin_state(v["batch"]), True, []
+    with torch.no_grad():
+        for i, xx in enumerate(xs):
+            out, states = cell(xx, states)
+            if i == 0:
+                first = [m.clone() for m in masks()]
+            same = same and all(torch.equal(a, b)
+                                for a, b in zip(first, masks()))
+            drawn.append(bool(((out == 0) == (first[1] == 0)).all()))
+        cell.reset()
+        cell(xs[0], cell.begin_state(v["batch"]))
+    redrawn = all(not torch.equal(a, b) for a, b in zip(first, masks()))
+    keep = float(torch.cat([(m != 0).float().flatten() for m in first])
+                 .mean())
+    n = sum(m.numel() for m in first)
+    rec["variational_dropout"] = dict(
+        config=dict(v), keep_rate=keep,
+        keep_tolerance=4 * math.sqrt(v["rate"] * (1 - v["rate"]) / n))
+    checks["vdrop_same_mask_every_step"] = same and all(drawn)
+    checks["vdrop_redrawn_after_reset"] = redrawn
+    checks["vdrop_keep_rate"] = abs(keep - (1 - v["rate"])) <= \
+        rec["variational_dropout"]["keep_tolerance"]
+    return rec, checks
+
+
+def contrib_resnet_stage(S):
+    """ResNet-50 v1's stem and first bottleneck stage (64 -> 256
+    channels, three units, the first with the projection shortcut), in
+    inference-mode BatchNorm, as ``mx.sym``."""
+    def bn(x, name):
+        return S.BatchNorm(x, fix_gamma=False, eps=1e-5, name=name)
+
+    def conv(x, filters, kernel, stride, pad, name):
+        return S.Convolution(x, kernel=(kernel, kernel),
+                             stride=(stride, stride), pad=(pad, pad),
+                             num_filter=filters, no_bias=True, name=name)
+    x = S.Variable("data")
+    y = S.Activation(bn(conv(x, 64, 7, 2, 3, "conv0"), "bn0"),
+                     act_type="relu", name="relu0")
+    y = S.Pooling(y, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                  pool_type="max", name="pool0")
+    for u in range(3):
+        pre = f"stage1_unit{u}_"
+        h = S.Activation(bn(conv(y, 64, 1, 1, 0, pre + "conv1"),
+                            pre + "bn1"), act_type="relu", name=pre + "relu1")
+        h = S.Activation(bn(conv(h, 64, 3, 1, 1, pre + "conv2"),
+                            pre + "bn2"), act_type="relu", name=pre + "relu2")
+        h = bn(conv(h, 256, 1, 1, 0, pre + "conv3"), pre + "bn3")
+        short = bn(conv(y, 256, 1, 1, 0, pre + "sc"), pre + "sc_bn") \
+            if u == 0 else y
+        y = S.Activation(S.broadcast_add(h, short, name=pre + "add"),
+                         act_type="relu", name=pre + "relu")
+    return y
+
+
+def contrib_onnx(torch, ctx, work):
+    """(d) The ResNet-50 v1 stem and first stage exported with
+    ``contrib.onnx.export_model`` and imported with ``import_model``, both
+    graphs bound on the card at 32 x 224 x 224: the outputs within 1e-5
+    relative."""
+    import tpu_mx_torch as mx
+    from tpu_mx_torch.contrib import onnx
+    torch.backends.cudnn.allow_tf32 = False
+    o = CONTRIB_ONNX
+    sym = contrib_resnet_stage(mx.sym)
+    shape = (o["batch"], 3, o["size"], o["size"])
+    arg_shapes, out_shapes, aux_shapes = sym.infer_shape(data=shape)
+    rng = np.random.RandomState(CONTRIB_SEED)
+    params = {}
+    for n, s in zip(sym.list_arguments(), arg_shapes):
+        if n != "data":
+            fan = float(np.prod(s[1:])) if len(s) > 1 else 1.0
+            params[n] = (rng.randn(*s) * (np.sqrt(2 / fan) if len(s) > 1
+                                          else 0.1)
+                         + (1.0 if n.endswith("gamma") else 0.0))
+    for n, s in zip(sym.list_auxiliary_states(), aux_shapes):
+        params[n] = rng.uniform(0.5, 1.5, s) if n.endswith("var") \
+            else rng.randn(*s) * 0.1
+    params = {k: mx.nd.array(v.astype(np.float32), ctx=mx.gpu(0))
+              for k, v in params.items()}
+    data = mx.nd.array(rng.rand(*shape).astype(np.float32), ctx=mx.gpu(0))
+    path = os.path.join(work, "resnet50_stage1.onnx")
+    t0 = time.perf_counter()
+    onnx.export_model(sym, params, [shape], path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sym2, arg2, aux2 = onnx.import_model(path)
+    import_s = time.perf_counter() - t0
+    gpu = mx.gpu(0)
+    want = sym.eval(ctx=gpu, data=data, **params)[0]
+    got = sym2.eval(ctx=gpu, data=data, **arg2, **aux2)[0]
+    a, b = got._data, want._data
+    err = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    meta = onnx.get_model_metadata(path)
+    rec = dict(file_bytes=os.path.getsize(path), export_seconds=export_s,
+               import_seconds=import_s, output=list(b.shape),
+               max_abs_err=err, max_ref=scale, rtol=ONNX_RTOL,
+               nodes=len(sym.get_internals().list_outputs()),
+               params=int(sum(v.size for v in params.values())),
+               metadata=meta, imported_on=str(a.device),
+               forward_ms=cuda_ms(torch, lambda: sym2.eval(
+                   ctx=gpu, data=data, **arg2, **aux2), reps=5, warm=1))
+    checks = dict(onnx_outputs=err <= ONNX_RTOL * scale and a.is_cuda,
+                  onnx_shape=tuple(b.shape) == (o["batch"], 256, 56, 56),
+                  onnx_metadata=meta["input_tensor_data"] == ["data"])
+    return rec, checks
+
+
+def contrib_tools(torch, ctx):
+    """(e) ``Module.install_monitor`` on the graph phase's symbolic PTB LM
+    for one batch (the reference's hooks nothing: the monitor records
+    nothing), its ``print_summary``, ``check_consistency`` over
+    ``[gpu(0), cpu(0)]`` at ResNet-50 and BERT-base shapes, and
+    ``runtime.feature_list()``."""
+    import io as _io
+    import contextlib
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import nd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec, checks = {}, {}
+    n, seq = GRAPH_LM["batch"], 35
+    sym, _, _ = lm_sym_gen(mx)(seq)
+    mod = mx.module.Module(sym, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (n, seq))],
+             label_shapes=[("softmax_label", (n, seq))], for_training=False)
+    torch.manual_seed(CONTRIB_SEED)
+    mod.init_params(initializer=mx.init.Uniform(0.1))
+    mon = mx.monitor.Monitor(interval=1)
+    mod.install_monitor(mon)
+    rng = np.random.RandomState(CONTRIB_SEED)
+    ids = np.minimum(rng.zipf(1.3, (n, seq + 1)) - 1,
+                     GRAPH_LM["vocab"] - 1).astype(np.float32)
+    b = mx.io.DataBatch(data=[nd.array(ids[:, :-1], ctx=mx.gpu(0))],
+                        label=[nd.array(ids[:, 1:], ctx=mx.gpu(0))])
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mon.tic()
+        mod.forward(b, is_train=False)
+        mon.toc_print()
+    out = mod.get_outputs()[0]._data
+    checks["install_monitor"] = buf.getvalue() == "" and bool(
+        torch.isfinite(out).all()) and tuple(out.shape) == (
+        n * seq, GRAPH_LM["vocab"])
+    summary = _io.StringIO()
+    with contextlib.redirect_stdout(summary):
+        total = mx.viz.print_summary(sym, shape={"data": (n, seq),
+                                                 "softmax_label": (n, seq)})
+    print(summary.getvalue(), flush=True)
+    size = mx.nd.rnn_param_size("lstm", GRAPH_LM["embed"], GRAPH_LM["hidden"],
+                                GRAPH_LM["layers"])
+    want_total = GRAPH_LM["vocab"] * GRAPH_LM["embed"] + size \
+        + GRAPH_LM["vocab"] * GRAPH_LM["hidden"] + GRAPH_LM["vocab"]
+    checks["print_summary"] = total == want_total
+    rec["print_summary"] = dict(total_params=total, lines=len(
+        summary.getvalue().splitlines()))
+    del mod
+    rng = np.random.RandomState(CONTRIB_SEED + 3)
+    cases = {
+        "convolution_resnet50_conv2": (
+            lambda a: nd.Convolution(a[0], a[1], kernel=(3, 3), pad=(1, 1),
+                                     num_filter=64, no_bias=True),
+            [rng.randn(8, 64, 56, 56), rng.randn(64, 64, 3, 3) * 0.05]),
+        "fullyconnected_bert_ffn1": (
+            lambda a: nd.FullyConnected(a[0], a[1], a[2], num_hidden=3072,
+                                        flatten=False),
+            [rng.randn(4, 128, 768), rng.randn(3072, 768) * 0.03,
+             rng.randn(3072) * 0.1]),
+        "softmax_bert_scores": (
+            lambda a: nd.softmax(a[0], axis=-1),
+            [rng.randn(8, 12, 128, 128) * 3])}
+    consistency = {}
+    for name, (fn, inputs) in cases.items():
+        inputs = [x.astype(np.float32) for x in inputs]
+        t0 = time.perf_counter()
+        # the scale: the largest of the CPU port's output and gradients
+        host = mx.test_utils.check_consistency(fn, inputs,
+                                               ctx_list=[mx.cpu(0)])[0]
+        scale = max(float(np.abs(a).max()) for a in [host[0]] + host[1])
+        try:
+            res = mx.test_utils.check_consistency(
+                fn, inputs, ctx_list=[mx.gpu(0), mx.cpu(0)], rtol=F32_REL,
+                atol=F32_REL * scale)
+            ok = len(res) == 2
+            err = {"output": float(np.abs(res[0][0] - res[1][0]).max()),
+                   "grads": [float(np.abs(a - b).max()) for a, b in
+                             zip(res[0][1], res[1][1])]}
+        except AssertionError as e:
+            ok, err = False, str(e)[:300]
+        consistency[name] = dict(ok=ok, max_abs_err=err, max_ref=scale,
+                                 atol=F32_REL * scale, rtol=F32_REL,
+                                 shapes=[list(x.shape) for x in inputs],
+                                 seconds=time.perf_counter() - t0)
+        checks[f"consistency_{name}"] = ok
+    rec["check_consistency"] = consistency
+    feats = mx.runtime.Features()
+    rec["features"] = {k: f.enabled for k, f in feats.items()}
+    print([repr(f) for f in mx.runtime.feature_list()], flush=True)
+    checks["features"] = all(feats.is_enabled(k) for k in
+                             ("CUDA", "GPU", "NVCC", "KERNELS", "TORCH"))
+    return rec, checks
+
+
+def phase_contrib(ctx):
+    """ROADMAP A item 10 (e)-(g) on the card: (a) :func:`contrib_amp_bert`,
+    (b) :func:`contrib_amp_f16`, (c) :func:`contrib_layers`, (d)
+    :func:`contrib_onnx`, (e) :func:`contrib_tools`.  The launch counts
+    are set to 0 before the phase and read after it; the amp BERT-base
+    part reports its own (its 4 steps)."""
+    import tempfile
+    import torch
+    import tpu_mx_torch as mx
+    from tpu_mx_torch.contrib.amp import amp as amp_mod
+    from tpu_mx_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    total = dict.fromkeys(port_kernel_launches(), 0)
+    checks, seconds, recs = {}, {}, {}
+    original_fc = mx.nd.ops.FullyConnected
+    try:
+        with tempfile.TemporaryDirectory(
+                prefix="contrib-", dir=str(_build.BUILD_DIR.parent)) as work:
+            for part, fn in (("amp_bert", contrib_amp_bert),
+                             ("amp_f16", contrib_amp_f16),
+                             ("layers", contrib_layers),
+                             ("onnx", lambda t, c: contrib_onnx(t, c, work)),
+                             ("tools", contrib_tools)):
+                t1 = time.perf_counter()
+                reset_port_kernel_launches()
+                got = fn(torch, ctx)
+                for name, c in port_kernel_launches().items():
+                    total[name] += c
+                seconds[part] = time.perf_counter() - t1
+                recs[part], part_checks = got[0], got[1]
+                checks.update({f"{part}_{k}": v
+                               for k, v in part_checks.items()})
+                emit(f"contrib_{part}", ok=all(part_checks.values()),
+                     checks=part_checks, seconds=seconds[part],
+                     card=ctx["smi"], **got[0])
+                torch.cuda.empty_cache()
+    finally:
+        amp_mod._deinit()
+    checks["fully_connected_unpatched"] = \
+        mx.nd.ops.FullyConnected is original_fc and \
+        mx.nd.FullyConnected is original_fc
+    ctx["contrib_launches"] = total
+    ctx["contrib"] = dict(amp_step_ms=recs.get("amp_bert", {}).get(
+        "amp", {}).get("step_ms_median"))
+    emit("contrib", ok=all(checks.values()), checks=checks, launches=total,
+         seconds=seconds, phase_seconds=time.perf_counter() - t0,
+         card=ctx["smi"])
+    for name, ok in checks.items():
+        if not ok:
+            ctx["failures"].append(f"contrib check {name} failed")
+
+
 def wide_rows(ctx, name):
     """A kernel's wide instances for the kernels line: each shape's
     numbers from the kernel phase, with the launches of the wide_heads
@@ -10068,7 +10773,7 @@ def later_launches(ctx, name):
                       "moe_example", "operators", "data", "serve_arms",
                       "crossover", "quantize", "estimator",
                       "supervised_train", "fusion", "kvstore", "fleet",
-                      "mesh", "wide_heads", "graph")}
+                      "mesh", "wide_heads", "graph", "contrib")}
 
 
 def main():
@@ -10129,6 +10834,7 @@ def main():
                      ("mesh", phase_mesh),
                      ("wide_heads", phase_wide_heads),
                      ("graph", phase_graph),
+                     ("contrib", phase_contrib),
                      ("rtc", phase_rtc)):
         t_phase = time.perf_counter()
         try:
@@ -10163,7 +10869,7 @@ def main():
                                 "fusion_launches", "kvstore_launches",
                                 "fleet_launches", "mesh_launches",
                                 "wide_kernels", "wide_heads_launches",
-                                "graph_launches"} \
+                                "graph_launches", "contrib_launches"} \
             <= ctx.keys():
         print(f"chip_smoke: FAILED: {ctx['failures']}", file=sys.stderr)
         return 1

@@ -639,17 +639,21 @@ def _bn_batches():
     return [(x, y)] * 3
 
 
-def _ref_bn_step(params, batches, mesh_axes):
-    """The reference's Dense-BatchNorm-Dense step: losses, and its
-    parameters and running statistics after the steps."""
+def _ref_bn_step(params, batches, mesh_axes, sync=False):
+    """The reference's Dense-BatchNorm-Dense step (``sync``: its
+    ``gluon.contrib.nn.SyncBatchNorm`` in BatchNorm's place): losses, and
+    its parameters and running statistics after the steps."""
     import jax
     import tpu_mx as mx
     from tpu_mx import gluon, nd
     from tpu_mx.gluon import nn as jnn
+    from tpu_mx.gluon.contrib import nn as jcnn
     from tpu_mx.parallel import CompiledTrainStep as JStep
     from tpu_mx.parallel import make_mesh as jmake
     net = jnn.HybridSequential()
-    net.add(jnn.Dense(16, in_units=8), jnn.BatchNorm(in_channels=16),
+    norm = jcnn.SyncBatchNorm(in_channels=16, num_devices=2) if sync \
+        else jnn.BatchNorm(in_channels=16)
+    net.add(jnn.Dense(16, in_units=8), norm,
             jnn.Activation("relu"), jnn.Dense(4, in_units=16))
     net.initialize()
     net(nd.ones((2, 8)))
@@ -666,19 +670,22 @@ def _ref_bn_step(params, batches, mesh_axes):
                     for p in net.collect_params().values()]
 
 
-def _rank_bn_step(params, batches, onepass):
+def _rank_bn_step(params, batches, onepass, sync=False):
     import os
     from tpu_mx_torch import optimizer
     from tpu_mx_torch.gluon import loss as gloss
     from tpu_mx_torch.gluon import nn
     from tpu_mx_torch.gluon.block import load_numpy
+    from tpu_mx_torch.gluon.contrib import nn as cnn
     from tpu_mx_torch.parallel import CompiledTrainStep, make_mesh
     mesh = make_mesh(DP2, devices=[0, 1])
     if mesh.coords is None:
         return None
+    norm = cnn.SyncBatchNorm(in_channels=16, num_devices=2,
+                             generator=torch.Generator()) if sync \
+        else nn.BatchNorm(in_channels=16, generator=torch.Generator())
     net = nn.HybridSequential()
-    net.add(nn.Dense(16, in_units=8, generator=torch.Generator()),
-            nn.BatchNorm(in_channels=16, generator=torch.Generator()),
+    net.add(nn.Dense(16, in_units=8, generator=torch.Generator()), norm,
             nn.Activation("relu"),
             nn.Dense(4, in_units=16, generator=torch.Generator()))
     load_numpy(net, params)
@@ -716,6 +723,25 @@ def test_batchnorm_under_dp_normalizes_the_global_batch(pool, monkeypatch,
     batches = _bn_batches()
     want = _ref_bn_step(params, batches, DP2)
     got = pool.run(_rank_bn_step, params, batches, onepass)
+    for g in got[:2]:
+        np.testing.assert_allclose(g["losses"], want[0], rtol=LOSS_RTOL)
+        for a, b in zip(g["values"], want[1]):
+            np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5)
+    assert got[2] is None and got[3] is None
+
+
+def test_sync_batchnorm_under_dp_normalizes_the_global_batch(pool):
+    """``gluon.contrib.nn.SyncBatchNorm`` (``tests/test_contrib_layers.py``'s
+    global-statistics property) on dp=2 against the reference's
+    SyncBatchNorm in its dp=2 mesh program, and against one device: the
+    two halves of the batch differ in scale and shift, so per-rank
+    statistics would part from the global batch's."""
+    params = _bn_params(13)
+    batches = _bn_batches()
+    want = _ref_bn_step(params, batches, DP2, sync=True)
+    one = _ref_bn_step(params, batches, {"dp": 1}, sync=True)
+    got = pool.run(_rank_bn_step, params, batches, "1", True)
+    np.testing.assert_allclose(want[0], one[0], rtol=LOSS_RTOL)
     for g in got[:2]:
         np.testing.assert_allclose(g["losses"], want[0], rtol=LOSS_RTOL)
         for a, b in zip(g["values"], want[1]):

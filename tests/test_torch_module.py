@@ -413,15 +413,25 @@ def test_optimizer_state_roundtrip(tmp_path, writer):
     assert dst is not None
 
 
-def test_install_monitor_waits_for_item_10f():
-    _, mod = _pair(batch=4)
-    with pytest.raises(mx.MXNetError, match=r"ROADMAP A item 10 \(f\)"):
-        mod.install_monitor(object())
+def test_install_monitor_waits_for_item_10f(capsys):
+    """Item 10 (f) is ported: ``install_monitor`` takes an
+    ``mx.monitor.Monitor`` and hooks nothing, as the reference's does
+    (its executors run whole graphs), so ``fit(monitor=)`` records and
+    prints nothing in either package, and trains as without it."""
+    ref, mod = _pair(batch=4)
     x, y = _toy_dataset(n=8)
-    with pytest.raises(mx.MXNetError, match=r"10 \(f\)"):
-        mod.fit(mx.io.NDArrayIter(x, y, batch_size=4,
-                                  label_name="softmax_label"),
-                num_epoch=1, monitor=object())
+    printed = []
+    for m, module in ((jmx, ref), (mx, mod)):
+        mon = m.monitor.Monitor(interval=1)
+        assert module.install_monitor(mon) is None
+        module.fit(m.io.NDArrayIter(x, y, batch_size=4,
+                                    label_name="softmax_label"),
+                   num_epoch=1, monitor=mon,
+                   optimizer_params={"learning_rate": 0.1})
+        assert mon.toc() == []
+        printed.append(capsys.readouterr().out)
+    assert printed[0] == printed[1] == ""
+    _close_params(ref, mod)
     with pytest.raises(AttributeError, match="nothing"):
         mod.nothing
 

@@ -12,8 +12,9 @@ On the CPU, at small sizes, with inputs made from a seed with numpy:
   restore through a JSON round trip);
 - ``SoftmaxCrossEntropyLoss(from_logits=)`` and the losses' block
   arguments;
-- the reference's constructor and entry-point arguments: accepted, and
-  refused by name (``MXNetError``) when set to what the port does not do.
+- the reference's constructor and entry-point arguments: each accepted
+  (every argument once refused by name has since been ported, the last,
+  ``Optimizer(sym=)``, as the reference takes it: read by nothing).
 
 The card side of the dense arm is in ``tests/test_torch_cuda.py``.
 """
@@ -322,7 +323,7 @@ def test_softmax_cross_entropy_from_logits_matches_the_reference(
 
 
 # ---------------------------------------------------------------------------
-# C4: the reference's arguments, accepted and refused by name
+# C4: the reference's arguments, accepted (once refused by name)
 # ---------------------------------------------------------------------------
 def _bert_cfg():
     from tpu_mx_torch.models import bert_base_config
@@ -433,10 +434,6 @@ _PORT = {"BERTModel": _bert, "BERTModel(moe_every=1)": _bert_moe,
          "NDArrayIter": _iter, "NDArrayIter(num_workers=2)": _iter_sharded,
          "Trainer": _trainer, "Optimizer": _optimizer}
 
-# (entry point, argument, a value other than the reference's default)
-_REFUSED = [
-    ("Optimizer", "sym", "net"),
-]
 # arguments refused until their feature was ported, each with a check
 # that the given value took effect
 _ACCEPTED = [
@@ -492,8 +489,10 @@ _ACCEPTED = [
     ("Trainer", "update_on_kvstore", True,
      lambda tr: tr._update_on_kvstore is True),
 ]
-# arguments with no torch meaning: accepted at any value and ignored
+# arguments accepted at any value and ignored: with no torch meaning, or
+# read by nothing in the reference either (``Optimizer(sym=)``)
 _IGNORED = [
+    ("Optimizer", "sym", "net"),
     ("CompiledTrainStep", "donate", False),
     ("PagedKVCache", "storage", "device"),
     ("flash_attention", "block_q", 64), ("flash_attention", "block_k", 32),
@@ -530,15 +529,6 @@ def _port_callable(entry):
             "Optimizer": optimizer.Optimizer}[entry]
 
 
-@pytest.mark.parametrize("entry,arg,value", _REFUSED,
-                         ids=[f"{e}-{a}" for e, a, _ in _REFUSED])
-def test_reference_argument_is_refused_by_name(entry, arg, value):
-    default = _same_default(entry, arg)
-    _PORT[entry](**{arg: default})                 # the default is taken
-    with pytest.raises(MXNetError, match=rf"{arg}=.*ROADMAP"):
-        _PORT[entry](**{arg: value})
-
-
 @pytest.mark.parametrize("entry,arg,value,took", _ACCEPTED,
                          ids=[f"{e}-{a}" for e, a, _, _ in _ACCEPTED])
 def test_reference_argument_once_refused_is_accepted(entry, arg, value,
@@ -555,3 +545,35 @@ def test_reference_argument_without_a_torch_meaning_is_ignored(entry, arg,
     default = _same_default(entry, arg)
     _PORT[entry](**{arg: default})
     _PORT[entry](**{arg: value})
+
+
+def _hyper(opt):
+    return (opt.lr, opt.wd, opt.rescale_grad, opt.clip_gradient,
+            opt.begin_num_update, opt.multi_precision, dict(opt.lr_mult),
+            dict(opt.wd_mult), dict(opt.idx2name))
+
+
+@pytest.mark.parametrize("sym", ["net", "symbol"])
+def test_optimizer_takes_sym_and_ignores_it_as_the_reference_does(sym):
+    """``Optimizer(sym=)`` constructs in both packages (the port refused
+    it until the graph API was ported), and the optimizer built with it
+    has the learning rate, weight decay and multipliers of the one built
+    without it, in each package, and the reference's."""
+    from tpu_mx_torch import optimizer as popt
+    from tpu_mx_torch import symbol as psym
+    import tpu_mx.symbol as jsym
+    kw = dict(learning_rate=0.3, wd=1e-3, rescale_grad=0.5,
+              param_idx2name={0: "fc_weight", 1: "fc_bias"})
+    got = {}
+    for name, opt_mod, sym_mod in (("port", popt, psym),
+                                   ("ref", mx.optimizer, jsym)):
+        s = "net" if sym == "net" else sym_mod.FullyConnected(
+            sym_mod.var("data"), num_hidden=2, name="fc")
+        with_sym = opt_mod.Optimizer(sym=s, **kw)
+        without = opt_mod.Optimizer(**kw)
+        for o in (with_sym, without):
+            o.set_lr_mult({"fc_weight": 2.0})
+            o.set_wd_mult({"fc_bias": 0.0})
+        assert _hyper(with_sym) == _hyper(without)
+        got[name] = _hyper(with_sym)
+    assert got["port"] == got["ref"]

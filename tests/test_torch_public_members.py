@@ -29,12 +29,6 @@ from tpu_mx_torch import gluon, nd
 JAX = "jax-only: "
 
 
-def _item(n, what):
-    return f"ROADMAP A item {n} ({what})"
-
-
-_ITEM10 = _item(10, "graph API and the long tail")
-
 ALLOWED = {
     ("tpu_mx_torch.context", "Context.jax_device"):
         JAX + "the jax Device of a context; the port's is torch_device",
@@ -64,15 +58,6 @@ ALLOWED = {
     ("tpu_mx_torch.serving.jax_model", "JaxTinyLM"):
         JAX + "the jitted whole-step decode program; the port's fused arm "
         "is TinyLM.decode_step",
-    ("tpu_mx_torch.module.module", "BaseModule.install_monitor"):
-        _item(10, "f") + ": mx.monitor; the port's raises MXNetError "
-        "naming the item",
-    ("tpu_mx_torch.base", "Registry"): _ITEM10,
-    ("tpu_mx_torch.base", "check"): _ITEM10,
-    ("tpu_mx_torch.base", "get_env"): _ITEM10,
-    ("tpu_mx_torch.metric", "registry"): _ITEM10 + ": a base.Registry",
-    ("tpu_mx_torch.gluon.utils", "check_sha1"): _ITEM10,
-    ("tpu_mx_torch.gluon.utils", "download"): _ITEM10,
 }
 
 

@@ -329,7 +329,10 @@ C11_CASES = [
      optimizer.lr_scheduler.FactorScheduler(step=2, factor=0.5)),
     ("optimizer", lambda v: optimizer.create("sgd", param_idx2name=v),
      lambda o: o.idx2name == {0: "w"}, {0: "w"}),
-    ("optimizer", lambda v: optimizer.create("sgd", sym=v), None, object()),
+    # taken and read by nothing, as the reference takes it (A item 10)
+    ("optimizer", lambda v: optimizer.create("sgd", sym=v),
+     lambda o: (o.lr, o.wd, o.rescale_grad, o.lr_mult, o.wd_mult)
+     == (0.01, 0.0, 1.0, {}, {}), object()),
     ("optimizer", lambda v: optimizer.create("sgd", begin_num_update=v),
      lambda o: o.num_update == 5, 5),
     ("trainer", lambda v: gluon.Trainer(gluon.nn.Dense(2, in_units=2)

@@ -1,8 +1,9 @@
 """The port's ``mx.sym`` and its executors against the reference's, on the
-CPU: each test of ``tests/test_symbol.py`` (but ``print_summary``/
-``plot_network``, ROADMAP A item 10 (f), and ``util.np_scope``, item 10
-(g)) with the reference beside it on the same seeded inputs, and the
-symbol JSON of each package loaded by the other.
+CPU: each test of ``tests/test_symbol.py`` with the reference beside it
+on the same seeded inputs (``print_summary``/``plot_network`` are held
+in ``tests/test_torch_monitor_viz.py``, ``util.np_scope`` in
+``tests/test_torch_runtime_utils.py``), and the symbol JSON of each
+package loaded by the other.
 
 Tolerances: listings, shapes, JSON and attributes are equal; outputs
 and gradients of the same float32 graph on the same weights within

@@ -50,7 +50,11 @@ The port goes slice by slice:
   ``mx.sym`` with its executors, ``mx.mod`` (``Module``,
   ``BucketingModule``), ``mx.model``, ``mx.callback``, ``mx.AttrScope``,
   ``mx.name``, and ``HybridBlock.export`` / ``SymbolBlock.imports``
-  through ``torch.export``.
+  through ``torch.export``;
+- the long tail: ``gluon.contrib.nn``/``rnn``, ``mx.contrib`` (``amp``,
+  ``text``, ``onnx``, ``tensorrt``, ``quantization``, ``compression``,
+  ``chaos``), ``mx.monitor``, ``mx.viz``, ``mx.runtime``,
+  ``mx.libinfo``, ``mx.test_utils`` and ``mx.util``.
 
 The hand-written Hopper kernels are in :mod:`tpu_mx_torch.kernels`.
 Entry points take ``device=`` and default to ``"cuda"``
@@ -62,6 +66,8 @@ Under the launcher (``python -m tpu_mx_torch.tools.launch``) the import
 joins the workers' ``torch.distributed`` group first
 (:func:`~tpu_mx_torch.base.dist_boot`), as the reference's does.
 """
+__version__ = "0.1.0"
+
 from .base import dist_boot as _dist_boot
 _dist_boot()
 
@@ -92,6 +98,15 @@ from . import module
 from . import module as mod
 from . import model
 from . import callback
+from .optimizer import lr_scheduler
+from . import util
+from . import libinfo
+from . import runtime
+from . import monitor
+from . import visualization
+from . import visualization as viz
+from . import contrib
+from . import test_utils
 
 __all__ = ["MXNetError", "NumericDivergence", "Context", "cpu", "cpu_pinned",
            "current_context", "gpu", "num_gpus", "tpu", "autograd", "gluon",
@@ -99,4 +114,5 @@ __all__ = ["MXNetError", "NumericDivergence", "Context", "cpu", "cpu_pinned",
            "operator", "optimizer", "profiler", "random", "recordio",
            "kvstore", "kv", "fusion", "engine", "np", "npx", "symbol", "sym",
            "attribute", "AttrScope", "name", "executor", "module", "mod",
-           "model", "callback"]
+           "model", "callback", "lr_scheduler", "util", "libinfo", "runtime",
+           "monitor", "visualization", "viz", "contrib", "test_utils"]

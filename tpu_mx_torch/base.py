@@ -1,7 +1,8 @@
 """Framework-level errors of the PyTorch/CUDA port.
 
-Copies of the reference's exception classes and module constants
-(``logger``, ``string_types``, ``numeric_types``; ``tpu_mx/base.py``):
+Copies of the reference's exception classes, module constants and
+helpers (``logger``, ``string_types``, ``numeric_types``, ``check``,
+``get_env``, ``Registry``; ``tpu_mx/base.py``):
 the port never imports ``tpu_mx`` — doing so would boot its distributed
 runtime and import jax — so what it needs lives here under the same
 names.  :class:`NumericDivergence` lives in
@@ -12,9 +13,11 @@ from __future__ import annotations
 
 import logging
 import numbers
+import os
 
-__all__ = ["MXNetError", "NumericDivergence", "refuse_unported",
-           "dist_boot", "backend_for"]
+__all__ = ["Registry", "MXNetError", "NumericDivergence", "check",
+           "get_env", "refuse_unported", "dist_boot", "backend_for",
+           "string_types", "numeric_types"]
 
 logger = logging.getLogger("tpu_mx_torch")
 string_types = (str,)
@@ -23,6 +26,60 @@ numeric_types = (numbers.Number,)
 
 class MXNetError(RuntimeError):
     """Framework-level error (name kept for API familiarity with the reference)."""
+
+
+def check(cond, msg="check failed"):
+    """Raise :class:`MXNetError` with ``msg`` if ``cond`` is false (the
+    reference's ``CHECK``)."""
+    if not cond:
+        raise MXNetError(msg)
+
+
+def get_env(name, default=None, dtype=str):
+    """Environment variable ``name`` as ``dtype`` (``bool`` reads
+    ``1``/``true``/``yes``/``on``), or ``default`` when unset."""
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    if dtype is bool:
+        return val.lower() in ("1", "true", "yes", "on")
+    return dtype(val)
+
+
+class Registry:
+    """A named registry of classes or factories with aliases, looked up
+    without regard to case (the reference's ``base.Registry``, behind
+    ``metric.create``)."""
+
+    def __init__(self, name):
+        self.name = name
+        self._entries = {}
+
+    def register(self, obj=None, *, name=None, aliases=()):
+        """Register ``obj`` under its lower-cased ``__name__`` (or
+        ``name``) and each of ``aliases``; usable bare or with
+        arguments."""
+        def add(o):
+            for key in (name or o.__name__, *aliases):
+                self._entries[key.lower()] = o
+            return o
+        return add(obj) if obj is not None else add
+
+    def get(self, key):
+        k = key.lower()
+        if k not in self._entries:
+            raise KeyError(f"{self.name} registry has no entry '{key}'. "
+                           f"Known: {sorted(self._entries)}")
+        return self._entries[k]
+
+    def create(self, key, *args, **kwargs):
+        return self.get(key)(*args, **kwargs)
+
+    def __contains__(self, key):
+        return key.lower() in self._entries
+
+    def keys(self):
+        return sorted(self._entries)
 
 
 def _is_default(value, default):

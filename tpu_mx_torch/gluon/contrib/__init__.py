@@ -1,6 +1,6 @@
-"""``gluon.contrib``: the Estimator training-loop facade
-(:mod:`.estimator`).  The reference's contrib ``nn`` layers and ``rnn``
-cells are not ported yet (ROADMAP A item 10)."""
-from . import estimator
+"""``gluon.contrib``: the contrib layers (:mod:`.nn`), the contrib
+recurrent cells (:mod:`.rnn`) and the Estimator training-loop facade
+(:mod:`.estimator`)."""
+from . import estimator, nn, rnn
 
-__all__ = ["estimator"]
+__all__ = ["estimator", "nn", "rnn"]

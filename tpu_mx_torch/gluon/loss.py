@@ -14,7 +14,9 @@ all, ``TripletLoss`` and ``CosineEmbeddingLoss`` a value per row);
 ``1/batch``.  ``sample_weight`` multiplies before the mean, then
 ``weight``.  ``CTCLoss`` is the reference's own recursion (not
 ``nd.ctc_loss``'s), and takes neither weight, as the reference's does
-not.
+not.  Where the reference's losses call an operator of ``contrib.amp``'s
+lists through ``F`` (``log_softmax``, ``log``, ``exp``, ``where``), the
+port's call it through ``ops``, so amp casts them alike.
 """
 from __future__ import annotations
 
@@ -95,8 +97,8 @@ class HuberLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         gap = (label.reshape(pred.shape) - pred).abs()
-        loss = torch.where(gap > self._rho, gap - 0.5 * self._rho,
-                           (0.5 / self._rho) * gap.square())
+        loss = ops.where(gap > self._rho, gap - 0.5 * self._rho,
+                         (0.5 / self._rho) * gap.square())
         return self._per_example(_apply_weighting(loss, self._weight,
                                                   sample_weight))
 
@@ -158,8 +160,8 @@ class SigmoidBinaryCrossEntropyLoss(Loss):
             loss = torch.relu(pred) - pred * label + _softrelu_tail(pred)
         else:
             eps = 1e-12
-            loss = -(torch.log(pred + eps) * label
-                     + torch.log(1.0 - pred + eps) * (1.0 - label))
+            loss = -(ops.log(pred + eps) * label
+                     + ops.log(1.0 - pred + eps) * (1.0 - label))
         return self._per_example(_apply_weighting(loss, self._weight,
                                                   sample_weight))
 
@@ -181,7 +183,7 @@ class KLDivLoss(Loss):
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
             pred = ops.log_softmax(pred, axis=self._axis)
-        loss = label * (torch.log(label + 1e-12) - pred)
+        loss = label * (ops.log(label + 1e-12) - pred)
         return self._per_example(_apply_weighting(loss, self._weight,
                                                   sample_weight))
 
@@ -242,14 +244,14 @@ class PoissonNLLLoss(Loss):
     def forward(self, pred, label, sample_weight=None, epsilon=1e-08):
         label = label.reshape(pred.shape)
         if self._from_logits:
-            loss = torch.exp(pred) - label * pred
+            loss = ops.exp(pred) - label * pred
         else:
-            loss = pred - label * torch.log(pred + epsilon)
+            loss = pred - label * ops.log(pred + epsilon)
         if self._compute_full:
-            stirling = label * torch.log(label + epsilon) - label + \
-                0.5 * torch.log(2.0 * 3.14159265358979 * (label + epsilon))
-            loss = loss + torch.where(label <= 1.0,
-                                      torch.zeros_like(stirling), stirling)
+            stirling = label * ops.log(label + epsilon) - label + \
+                0.5 * ops.log(2.0 * 3.14159265358979 * (label + epsilon))
+            loss = loss + ops.where(label <= 1.0,
+                                    torch.zeros_like(stirling), stirling)
         return _apply_weighting(loss, self._weight, sample_weight).mean()
 
 
@@ -286,8 +288,8 @@ class CosineEmbeddingLoss(Loss):
             input2.square().sum(dim=axes).sqrt()
         cos = num / (den + 1e-12)
         label = label.reshape(cos.shape)
-        loss = torch.where(label == 1, 1.0 - cos,
-                           torch.relu(cos - self._margin))
+        loss = ops.where(label == 1, 1.0 - cos,
+                         torch.relu(cos - self._margin))
         return _apply_weighting(loss, self._weight, sample_weight)
 
 

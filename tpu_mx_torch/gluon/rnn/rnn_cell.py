@@ -1,6 +1,7 @@
 """The unfused RNN cells of ``tpu_mx/gluon/rnn/rnn_cell.py``: one step at
 a time, with the reference's API (``state_info``, ``begin_state``,
-``unroll``, ``cell(inputs, states) -> (output, new_states)``).
+``unroll``, ``cell(inputs, states) -> (output, new_states)``); like a
+call, ``unroll`` takes tensors or arrays and answers in kind.
 
 The fused multi-step path is :mod:`.rnn_layer`; these cells are for
 custom per-step control flow.  Parameters (``i2h_weight``,
@@ -13,11 +14,14 @@ zoneout whenever its rates are above 0, as in the reference.
 """
 from __future__ import annotations
 
-import torch
-import torch.nn.functional as F
+import functools
 
+import torch
+
+from ... import autograd
 from ...base import MXNetError
 from ...ndarray import ops
+from ...ndarray.ops import _holds_array, _unwrap, _wrap
 from ..block import HybridBlock, as_dtype, default_generator
 
 __all__ = ["RecurrentCell", "RNNCell", "LSTMCell", "GRUCell",
@@ -34,6 +38,26 @@ def _steps(inputs, length, layout):
         raise ValueError(f"unroll: length {length} for a sequence of "
                          f"{inputs.shape[layout.find('T')]} steps")
     return list(inputs.unbind(layout.find("T")))
+
+
+def _imperative(unroll):
+    """``unroll`` at the imperative boundary, as a block's call is: given
+    arrays (the sequence, the states or the lengths) it runs on their
+    tensors in ``autograd``'s training mode, with a graph only under
+    ``record()``, and returns arrays."""
+    @functools.wraps(unroll)
+    def run(self, length, inputs, begin_state=None, layout="NTC",
+            merge_outputs=None, valid_length=None):
+        if not _holds_array([inputs, begin_state, valid_length]):
+            return unroll(self, length, inputs, begin_state, layout,
+                          merge_outputs, valid_length)
+        with torch.set_grad_enabled(autograd.is_recording()):
+            self.train(autograd.is_training())
+            out, states = unroll(self, length, _unwrap(inputs),
+                                 _unwrap(begin_state), layout,
+                                 merge_outputs, _unwrap(valid_length))
+        return _wrap(out), _wrap(states)
+    return run
 
 
 def _merge(outputs, merge_outputs, axis):
@@ -69,6 +93,7 @@ class RecurrentCell(HybridBlock):
         return [torch.zeros(info["shape"], dtype=dtype, device=device)
                 for info in self.state_info(batch_size)]
 
+    @_imperative
     def unroll(self, length, inputs, begin_state=None, layout="NTC",
                merge_outputs=None, valid_length=None):
         """Step through ``length`` steps of ``inputs`` (a tensor in
@@ -129,15 +154,19 @@ class _GatedCell(RecurrentCell):
                  "__layout__": "NC"}]
 
     def _projections(self, inputs, states):
-        """``(x·Wiᵀ + bi, h·Whᵀ + bh, states)`` in the promoted dtype."""
+        """``(x·Wiᵀ + bi, h·Whᵀ + bh, states)`` in the promoted dtype,
+        each product through ``ops.FullyConnected``, as the reference's
+        cells call ``F.FullyConnected`` (so ``contrib.amp`` casts them
+        alike)."""
         dt = self.i2h_weight.dtype
         for t in (inputs, *states):
             dt = torch.promote_types(dt, t.dtype)
         states = [s.to(dt) for s in states]
-        i2h = F.linear(inputs.to(dt), self.i2h_weight.to(dt),
-                       self.i2h_bias.to(dt))
-        h2h = F.linear(states[0], self.h2h_weight.to(dt),
-                       self.h2h_bias.to(dt))
+        n = self.i2h_weight.shape[0]
+        i2h = ops.FullyConnected(inputs.to(dt), self.i2h_weight.to(dt),
+                                 self.i2h_bias.to(dt), num_hidden=n)
+        h2h = ops.FullyConnected(states[0], self.h2h_weight.to(dt),
+                                 self.h2h_bias.to(dt), num_hidden=n)
         return i2h, h2h, states
 
 
@@ -330,6 +359,7 @@ class BidirectionalCell(RecurrentCell):
         raise MXNetError("BidirectionalCell cannot be stepped one input "
                          "at a time; use unroll()")
 
+    @_imperative
     def unroll(self, length, inputs, begin_state=None, layout="NTC",
                merge_outputs=None, valid_length=None):
         self.reset()

@@ -1,7 +1,9 @@
 """``gluon.utils``, from ``tpu_mx/gluon/utils.py``: ``split_data``,
-``split_and_load`` and ``clip_global_norm``."""
+``split_and_load``, ``clip_global_norm``, ``check_sha1`` and
+``download``."""
 from __future__ import annotations
 
+import hashlib
 import math
 import warnings
 
@@ -10,7 +12,8 @@ import torch
 from ..ndarray import ops
 from ..ndarray.ndarray import NDArray, array
 
-__all__ = ["split_data", "split_and_load", "clip_global_norm"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
+           "download"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -52,3 +55,21 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
             for a in arrays:
                 a._data.mul_(scale)
     return norm
+
+
+def check_sha1(filename, sha1_hash):
+    """True iff the SHA-1 of the file's bytes is ``sha1_hash`` (hex)."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            sha1.update(chunk)
+    return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
+             verify_ssl=True):
+    """Refused for every URL, as the reference refuses it: the port reads
+    no network.  Place the file locally and pass its path instead."""
+    raise RuntimeError(
+        "download() requires network access, which the port does not "
+        "use; place files locally and pass their path instead")

@@ -7,8 +7,9 @@
 As in the reference, ``update(labels, preds)`` reads arrays (or tensors,
 or numpy arrays) back to the host and accumulates in numpy: on the card
 each update waits for the batch it reads.  ``create`` takes an
-instance, a registered name (the reference's names and aliases), a
-list (a composite) or a function (a custom metric).
+instance, a registered name (the reference's names and aliases, in
+``registry``, a :class:`~tpu_mx_torch.base.Registry`), a list (a
+composite) or a function (a custom metric).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, Registry
 from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "F1", "MCC", "MAE",
@@ -26,15 +27,11 @@ __all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "F1", "MCC", "MAE",
            "CompositeEvalMetric", "CustomMetric", "create", "np_fn",
            "np_metric"]
 
-_registry = {}
+registry = Registry("metric")
 
 
-def _register(*names):
-    def do(cls):
-        for n in names:
-            _registry[n] = cls
-        return cls
-    return do
+def _register(name, *aliases):
+    return registry.register(name=name, aliases=aliases)
 
 
 def _as_np(x):
@@ -396,7 +393,8 @@ def create(metric, *args, **kwargs):
     if callable(metric):
         return CustomMetric(metric)
     try:
-        return _registry[metric.lower()](*args, **kwargs)
+        cls = registry.get(metric)
     except (KeyError, AttributeError):
         raise MXNetError(f"metric {metric!r} is not registered; the port "
-                         f"has {sorted(_registry)}") from None
+                         f"has {registry.keys()}") from None
+    return cls(*args, **kwargs)

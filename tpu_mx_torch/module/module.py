@@ -64,15 +64,13 @@ class BaseModule:
         self.params_initialized = False
         self.optimizer_initialized = False
 
-    def __getattr__(self, name):
-        if name == "install_monitor":
-            def install_monitor(monitor):
-                raise MXNetError(
-                    "Module.install_monitor is not ported yet (ROADMAP A "
-                    "item 10 (f): mx.monitor)")
-            return install_monitor
-        raise AttributeError(f"{type(self).__name__!r} object has no "
-                             f"attribute {name!r}")
+    def install_monitor(self, monitor):
+        """Take ``monitor`` (an ``mx.monitor.Monitor``) and hook nothing,
+        as the reference's module does: its executors run whole graphs,
+        with no block to hook, so ``fit(monitor=)``'s ``tic``/
+        ``toc_print`` each batch record and print nothing.  A
+        :class:`~tpu_mx_torch.monitor.Monitor` collects from Gluon blocks
+        (``Monitor.install(block)``)."""
 
     def forward_backward(self, data_batch):
         self.forward(data_batch, is_train=True)

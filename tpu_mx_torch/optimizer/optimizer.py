@@ -33,7 +33,6 @@ import math
 import torch
 
 from .. import random as _random
-from ..base import refuse_unported
 from ..ndarray import ops
 
 __all__ = ["Optimizer", "SGD", "LBSGD", "NAG", "Adam", "AdamW", "RMSProp",
@@ -70,13 +69,14 @@ def create(name, **kwargs):
 
 class Optimizer:
     """Base optimizer: learning rate, weight decay, gradient rescale and
-    clip, mixed-precision flag."""
+    clip, mixed-precision flag.  ``sym`` is taken and read by nothing,
+    as in the reference: the multipliers come from ``set_lr_mult`` /
+    ``set_wd_mult``."""
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None):
-        refuse_unported("Optimizer", "A17 (symbol)", sym=(sym, None))
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler

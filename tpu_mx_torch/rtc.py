@@ -35,8 +35,9 @@ was modelled on::
   or takes :class:`~tpu_mx_torch.ndarray.NDArray` handles (any of the
   inputs) and returns an ``NDArray``, as the reference's does.
 - The source is compiled at the first launch, not at construction, by
-  ``nvcc -cubin`` for ``sm_90a`` into ``build/tpu_mx_torch/rtc/<sha256 of
-  source, options and nvcc version>.cubin`` (reused while it exists); an
+  ``nvcc -cubin`` for ``sm_90a`` into ``RTC_DIR/<sha256 of source,
+  options and nvcc version>.cubin`` (``build/tpu_mx_torch/rtc`` unless
+  ``runtime.set_compilation_cache`` moved it; reused while it exists); an
   ``nvcc`` failure raises :class:`MXNetError` with its log.  The cubin is
   loaded with ``libcuda.so.1``'s module API (``cuModuleLoadData``,
   through :mod:`ctypes`), once per (device, hash), and launched with
