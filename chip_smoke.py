@@ -571,7 +571,15 @@ line each:
                  float16 biases in the four layouts, with d_bias) to the
                  plain versions and, in float32, to a float64 witness:
                  a float32 case passes on ``FLASH_ATOL`` and its bound
-                 both (ROADMAP B item 8c).
+                 both (ROADMAP B item 8c).  Head dims of 320 and more
+                 (ROADMAP B item 8b, the runtime-D instances) alike: the
+                 serve traffic at 8 heads of 512 (4 layers) in the same
+                 three arms, ``parallel.attention`` at bf16 T=2048 D=512
+                 (8 heads, dropout 0.1) and D=320 (12 heads), float32
+                 T=700 D=384 and T=512 D=1024; the kernel phase times
+                 them (with the recompute factor), adds D=320 and 512 to
+                 the bias grid and paged decode at D=320 and 512 (bf16
+                 queries, a float16 pool, a window of 12, H=8).
 37. ``graph`` — sparse storage and the graph API (ROADMAP A item 10
                  (c), (d)): BERT-base (bf16, 32 x 512, predict mode)
                  through ``HybridBlock.export`` and
@@ -617,8 +625,8 @@ line each:
                  ``[gpu(0), cpu(0)]``; ``feature_list()``.  Every patched
                  name restored after it (``amp._deinit()`` in a
                  ``finally``).
-The kvstore, fleet and mesh phases run 6 of BERT-base's 12 layers,
-supervised_train 5 (the script's time).
+The kvstore, fleet and mesh phases run 4 of BERT-base's 12 layers,
+supervised_train 3 (the script's time).
 
 Then the card's ``name, power.limit`` line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -687,6 +695,23 @@ WIDE_GRID_LAYOUTS = ("per_row", "per_head", "shared", "alibi")
 WIDE_PAGED = (("bf16_q", 1, "bfloat16", "float32"),
               ("f16_pool", 1, "float32", "float16"),
               ("window12", WIDE_SPEC_WINDOW, "float32", "float32"))
+# head dims of 320 and more (ROADMAP B item 8b), the runtime-D instances.
+# No model family of the repo has such heads: the serve cell's width
+# (4096) in 8 heads of 512, 4 layers deep, with the wide arms' pools and
+# window; the training attention at B=4, causal with ragged valid
+# lengths in [T/2, T]
+HUGE_SERVE = dict(vocab_size=32000, embed_dim=4096, num_heads=8,
+                  num_layers=4, max_positions=4096, seed=0)
+# (key, dtype name, heads, T, D, dropout)
+HUGE_FLASH = (("bf16_d512", "bfloat16", 8, 2048, 512, 0.1),
+              ("bf16_d320", "bfloat16", 12, 2048, 320, 0.0),
+              ("f32_d384", "float32", 16, 700, 384, 0.0),
+              ("f32_d1024", "float32", 8, 512, 1024, 0.0))
+HUGE_GRID_D = (320, 512)         # the bias grid's runtime-D head dims
+HUGE_PAGED_HEADS = 8
+# (key, window, query dtype, pool dtype, D): paged decode at B=8 H=8
+HUGE_PAGED = (("w12_d320", WIDE_SPEC_WINDOW, "bfloat16", "float16", 320),
+              ("w12_d512", WIDE_SPEC_WINDOW, "bfloat16", "float16", 512))
 
 # the training slice: the reference benchmark's seq-512 BERT leg
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED = 32, 512, 76   # 15% of 512 masked
@@ -698,6 +723,13 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # the route each flash kernel takes per dtype, as the C entry points report
 BF16_ROUTES = dict.fromkeys(FLASH_KERNELS, "wgmma")
 F32_ROUTES = dict.fromkeys(FLASH_KERNELS, "tf32x3")
+# bf16 at head dims of 320 and more: the runtime-D kernels' mma.sync
+BF16_DN_ROUTES = dict.fromkeys(FLASH_KERNELS, "mma")
+
+
+def flash_routes(f32, d):
+    """The routes the flash kernels report for this dtype and head dim."""
+    return F32_ROUTES if f32 else BF16_DN_ROUTES if d > 256 else BF16_ROUTES
 
 # the bias phase: BERT-base's attention width, four float32 bias layouts
 BIAS_LAYOUTS = (("per_head", (1, 12, 512, 512)),
@@ -949,11 +981,12 @@ def mma_counts(lib):
 
 def tensor_core_kind(kernel):
     """Which tensor-core instruction an instance must hold: 0 HGMMA (the
-    bf16 ``*_tc_kernel``s), 1 HMMA (the float32 ``*_tf32x3_kernel``s),
-    None neither."""
+    bf16 ``*_tc_kernel``s), 1 HMMA (the float32 ``*_tf32x3_kernel``s and
+    the runtime-D ``flash_*_dn_kernel``s of both dtypes), None neither."""
     if "_tc_kernel" in kernel:
         return 0
-    if "_tf32x3_kernel" in kernel:
+    if "_tf32x3_kernel" in kernel or ("flash_" in kernel
+                                      and "_dn_kernel" in kernel):
         return 1
     return None
 
@@ -1340,7 +1373,7 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
         recs[name] = dict(
             shape=shape, max_abs_err=e, atol=atol,
             ok=(math.isfinite(e) and e <= atol and also and routes[name]
-                == (F32_ROUTES if f32 else BF16_ROUTES)[name]),
+                == flash_routes(f32, d)[name]),
             ms=ms[name],
             ms_queued=queued[name],
             plain_ms=plain_fwd if fwd else plain_bwd,
@@ -1351,6 +1384,8 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
         if f32:   # the same work at the FFMA rate, beside the bound
             recs[name]["bound_ms_ffma"], recs[name]["bound_by_ffma"] = bound(
                 nbytes[name], flops[name])
+    for name in FLASH_KERNELS:
+        recs[name]["recompute"] = recompute_factor(name, d)
     recs["flash_attention_fwd"]["lse_max_abs_err"] = lse_err
     recs["flash_attention_fwd"]["library_ms_dropout"] = lib_fwd_dropout
     return recs
@@ -1400,11 +1435,30 @@ def flash_train_kernels(torch, fa, gen, ctx, entries, worst):
     ctx["f32_kernels"] = f32
 
 
-def wide_valid(torch, gen, t):
+def wide_valid(torch, gen, t, heads=WIDE_HEADS):
     """Ragged valid lengths in [T/2, T] of the WIDE_BATCH rows, repeated
-    over the WIDE_HEADS heads (the folded rows' kv_valid)."""
+    over the heads (the folded rows' kv_valid)."""
     rows = torch.randint(t // 2, t + 1, (WIDE_BATCH,), generator=gen)
-    return rows.tolist(), rows.repeat_interleave(WIDE_HEADS).tolist()
+    return rows.tolist(), rows.repeat_interleave(heads).tolist()
+
+
+def flash_cases():
+    """``(key, dtype name, heads, T, D, dropout)`` of every wide and huge
+    training-attention case."""
+    return tuple((k, dt, WIDE_HEADS, t, d, r)
+                 for k, dt, t, d, r in WIDE_FLASH) + HUGE_FLASH
+
+
+def recompute_factor(name, d):
+    """The operations a runtime-D kernel does over the single pass's: its
+    blocks own 64 output columns each and recompute the score products
+    (csrc/flash_dn.cuh); 1 below D = 320."""
+    if d <= 256:
+        return 1.0
+    n = d / 64
+    return {"flash_attention_fwd": (n + 1) / 2,
+            "flash_attention_bwd_dq": (2 * n + 1) / 3,
+            "flash_attention_bwd_dkv": (2 * n + 2) / 4}[name]
 
 
 def wide_kernels(torch, fa, pa, gen, ctx):
@@ -1416,11 +1470,10 @@ def wide_kernels(torch, fa, pa, gen, ctx):
     kernel's 8 rows).  Each with its ms, plain ms, bound and SDPA's ms,
     in its own entry of the kernels line (``wide``)."""
     wide = {}
-    bh = WIDE_BATCH * WIDE_HEADS
-    for key, dt, t, d, rate in WIDE_FLASH:
-        _, valid = wide_valid(torch, gen, t)
-        recs = flash_case(torch, fa, gen, bh, t, d, getattr(torch, dt),
-                          True, rate, valid)
+    for key, dt, h, t, d, rate in flash_cases():
+        _, valid = wide_valid(torch, gen, t, h)
+        recs = flash_case(torch, fa, gen, WIDE_BATCH * h, t, d,
+                          getattr(torch, dt), True, rate, valid)
         for name, r in recs.items():
             emit("kernel", name=name, wide=key, **r)
             if not r["ok"]:
@@ -1428,13 +1481,15 @@ def wide_kernels(torch, fa, pa, gen, ctx):
                                        f"{r['max_abs_err']}, route "
                                        f"{r['math_route']}")
             wide.setdefault(name, {})[key] = {k: r[k] for k in (
-                ENTRY_KEYS + ("max_abs_err",))}
+                ENTRY_KEYS + ("max_abs_err", "recompute"))}
         torch.cuda.empty_cache()
-    for key, tq, qd, pd in WIDE_PAGED:
+    for key, tq, qd, pd, h, d in tuple(
+            (k, tq, qd, pd, WIDE_HEADS, 256) for k, tq, qd, pd in WIDE_PAGED) \
+            + tuple((k, tq, qd, pd, HUGE_PAGED_HEADS, d)
+                    for k, tq, qd, pd, d in HUGE_PAGED):
         q, kp, vp, tab, lens, nblk = paged_case(
-            torch, gen, tq, getattr(torch, pd), h=WIDE_HEADS, d=256,
-            q_dtype=qd)
-        scale = 1.0 / 16
+            torch, gen, tq, getattr(torch, pd), h=h, d=d, q_dtype=qd)
+        scale = 1.0 / math.sqrt(d)
         before = dict(pa.paged_attention.routes)
         out = pa.paged_attention(q, kp, vp, tab, lens)
         route = "+".join(r for r, n in pa.paged_attention.routes.items()
@@ -1451,12 +1506,12 @@ def wide_kernels(torch, fa, pa, gen, ctx):
         ms_queued = cuda_ms(torch, call, queued=True)
         plain_ms = cuda_ms(torch, lambda: pa.paged_attention_plain(
             q, kp, vp, tab, lens, scale), reps=5)
-        kv_bytes = sum(nblk) * 16 * WIDE_HEADS * 256 * 2 * kp.element_size()
+        kv_bytes = sum(nblk) * 16 * h * d * 2 * kp.element_size()
         nbytes = (kv_bytes + 2 * q.numel() * q.element_size()
                   + tab.numel() * 4 + lens.numel() * 4)
-        flops = 4 * int(lens.sum()) * WIDE_HEADS * 256 * tq
+        flops = 4 * int(lens.sum()) * h * d * tq
         b_ms, b_by = bound(nbytes, flops)
-        rec = dict(shape=f"B=8 Tq={tq} H={WIDE_HEADS} D=256 BS=16 q={qd} "
+        rec = dict(shape=f"B=8 Tq={tq} H={h} D={d} BS=16 q={qd} "
                          f"pool={pd} lengths={lens.tolist()}",
                    ms=ms, ms_queued=ms_queued, plain_ms=plain_ms,
                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -1645,7 +1700,7 @@ def wide_bias_case(torch, fa, gen, dtype, d, bias_dtype, layout):
     errors["attention_out"] = [e, 0.0, e == 0.0]
     ok = (all(x[2] for x in errors.values())
           and all(n > 0 for n in launches.values())
-          and routes == (F32_ROUTES if f32 else BF16_ROUTES))
+          and routes == flash_routes(f32, d))
     return dict(ok=ok, dtype=str(dtype).split(".")[-1], d=d,
                 bias_dtype=str(bias_dtype).split(".")[-1], layout=layout,
                 bias_shape=list(shape),
@@ -1660,11 +1715,12 @@ def wide_bias_case(torch, fa, gen, dtype, d, bias_dtype, layout):
 
 def wide_bias_grid(torch, fa, gen, ctx):
     """Every wide bias instance against its plain version: q in float32
-    and bf16, D = 192 and 256, a float32, bf16 and float16 bias in each
-    of the four layouts, all with d_bias (:func:`wide_bias_case`)."""
+    and bf16, D = 192 and 256 and the runtime-D instances' 320 and 512, a
+    float32, bf16 and float16 bias in each of the four layouts, all with
+    d_bias (:func:`wide_bias_case`)."""
     recs = []
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (192, 256):
+        for d in (192, 256) + HUGE_GRID_D:
             for bias_dtype in (torch.float32, torch.bfloat16,
                                torch.float16):
                 for layout in WIDE_GRID_LAYOUTS:
@@ -2189,6 +2245,24 @@ def zombies():
             if t.name.startswith("watchdog-")]
 
 
+def report_tools(runs):
+    """The port's report tools (``tpu_mx_torch/tools``) run as scripts
+    with ``--validate``, a user's post-mortem of what a phase wrote:
+    ``runs`` is ``(name, tool, arguments)``; returns each run's exit code
+    and its last line (with its standard error when it failed)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name, tool, args in runs:
+        r = subprocess.run(
+            [sys.executable, os.path.join(here, "tpu_mx_torch", "tools",
+                                          f"{tool}.py"), *args,
+             "--validate"], capture_output=True, text=True, timeout=120)
+        out[name] = dict(rc=r.returncode, said=(
+            r.stdout.strip().splitlines() or [""])[-1][:300],
+            **({"stderr": r.stderr[-1500:]} if r.returncode else {}))
+    return out
+
+
 def phase_serve_recovery(ctx):
     """Serving's robustness and recovery planes at TinyLM width 4096, each
     arm held to a reference run with every plane off: the journal's cost,
@@ -2554,6 +2628,18 @@ def phase_serve_recovery(ctx):
             exhaustion_done=exh["done"],
             exhaustion_forensic=any(r["kind"] == "exhaustion"
                                     for r in recs) and forensic_ok)
+        # the four report tools on what the arms wrote: the watchdog's
+        # black box, the exhaustion's forensics, the telemetry
+        metrics = os.path.join(work, "serve.jsonl")
+        telemetry.flush(metrics)
+        wd_box = tracing.blackbox_path(os.path.join(work, "wd"))
+        out["report_tools"] = report_tools((
+            ("blackbox", "blackbox_report", [wd_box]),
+            ("slo", "slo_report", [metrics, "--box", wd_box]),
+            ("capacity", "capacity_report", [metrics, "--forensics", path]),
+            ("telemetry", "telemetry_report", [metrics])))
+        checks["report_tools_validate"] = all(
+            r["rc"] == 0 for r in out["report_tools"].values())
         near_ref("exhaustion", exh["streams"])
         out["ledger"] = dict(_record(led), audits=len(audits),
                              exhaustion=dict(_record(exh),
@@ -6905,7 +6991,6 @@ def phase_data(ctx):
 
     import tpu_mx_torch as tmx
     from tpu_mx_torch import io, lib
-    from tpu_mx_torch.lib import recordio_cpp
     from tpu_mx_torch.parallel import CompiledTrainStep
 
     t0 = time.perf_counter()
@@ -6921,9 +7006,18 @@ def phase_data(ctx):
         tw = time.perf_counter()
         sets = data_write_sets(cv2, tmp, threads)
         rec = os.path.join(tmp, "train")
-        packed = recordio_cpp.native_im2rec(sets["lst"], sets["root"], rec,
-                                            resize=0, quality=DATA_QUALITY,
-                                            num_thread=threads)
+        # the port's im2rec tool, as a user packs a set (its C++ packer)
+        here = os.path.dirname(os.path.abspath(__file__))
+        tool = subprocess.run(
+            [sys.executable, "-m", "tpu_mx_torch.tools.im2rec", "--native",
+             "--num-thread", str(threads), "--quality", str(DATA_QUALITY),
+             rec, sets["root"]], cwd=here, capture_output=True, text=True,
+            timeout=600)
+        said = re.search(r"packed (\d+) records \(native\)", tool.stdout)
+        packed = int(said.group(1)) if tool.returncode == 0 and said else -1
+        out["im2rec"] = dict(rc=tool.returncode, stdout=tool.stdout[-300:],
+                             **({"stderr": tool.stderr[-2000:]}
+                                if packed < 0 else {}))
         rec += ".rec"
         write_s = time.perf_counter() - tw
         checks["packed_every_image"] = packed == DATA_CLS_IMAGES
@@ -7060,6 +7154,7 @@ def phase_data(ctx):
         checks["no_port_kernel_launched"] = \
             not any(ctx["data_launches"].values())
         out = dict(
+            out,
             host=dict(nproc=os.cpu_count(), threads=threads,
                       opencv=cv2.__version__, libjpeg=jpeg_link,
                       library=os.path.relpath(so), build_seconds=build_s),
@@ -7068,7 +7163,9 @@ def phase_data(ctx):
                       quality=DATA_QUALITY,
                       jpeg_kb_mean=sets["jpeg_bytes_mean"] / 1e3,
                       det_boxes_mean=sets["det_boxes_mean"],
-                      mnist=list(DATA_MNIST), write_seconds=write_s),
+                      mnist=list(DATA_MNIST), write_seconds=write_s,
+                      packed_by="python -m tpu_mx_torch.tools.im2rec "
+                                "--native"),
             iterator=dict(images_per_sec_by_threads=rates,
                           batch=DATA_BATCH, shape=list(DATA_SHAPE),
                           resize=DATA_RESIZE, feed="uint8 NHWC",
@@ -7608,7 +7705,9 @@ SUP_REPLICAS, SUP_REPLICA_LAYERS = 3, 2
 SUP_BITFLIP_STEP, SUP_BITFLIP_RANK = 3, 2
 SUP_PROFILE_STEPS = 2
 SUP_TIMED_STEPS = 3
-SUP_LAYERS = 5                        # of BERT-base's 12 (the script's time)
+# of BERT-base's 12 (the script's time: with the head dims of 320 and
+# more the whole script took 1061.2 s on a slow host at 5)
+SUP_LAYERS = 3
 
 SUPERVISED_CHILD = r'''
 import json, sys
@@ -7725,6 +7824,8 @@ def supervised_child(spec):
                          num_epoch=SUP_EPOCHS)
     if spec["mode"] == "crash":
         raise SystemExit("crash_at_step did not fire")
+    # the run's flight record, for the report tools
+    tracing.dump_blackbox(spec["prefix"], reason=f"{spec['mode']} ended")
     restores = [e["data"] for e in tracing.snapshot()
                 if e["event"] == "resume.capsule_restore"]
     man = {e: checkpoint.read_manifest(spec["prefix"], e)
@@ -7772,8 +7873,9 @@ def supervised_runs(spec, work, timeout=600):
         proc = subprocess.Popen(
             [sys.executable, "-c", SUPERVISED_CHILD, json.dumps(child)],
             cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, env=dict(env, **({"TPUMX_CHAOS": chaos}
-                                        if chaos else {})))
+            text=True, env=dict(env, TPUMX_TELEMETRY=os.path.join(
+                work, f"{name}.telemetry.jsonl"), **({"TPUMX_CHAOS": chaos}
+                                                     if chaos else {})))
         return proc, t0, out, progress
 
     def finish(name, proc, t0, out):
@@ -7987,6 +8089,18 @@ def phase_supervised_train(ctx):
             verify_s=[v["seconds"] for v in a.get("verify", {}).values()])
         out["resume_ms"] = {n: runs[n].get("resume_ms")
                             for n in ("C", "D_resume")}
+        # run C's documents (the resume after the crash) through the
+        # report tools
+        out["report_tools"] = report_tools((
+            ("blackbox", "blackbox_report",
+             [tracing.blackbox_path(os.path.join(work, "b"))]),
+            ("telemetry", "telemetry_report",
+             [os.path.join(work, "C.telemetry.jsonl")]),
+            ("slo", "slo_report", [os.path.join(work, "C.telemetry.jsonl"),
+                                   "--box", tracing.blackbox_path(
+                                       os.path.join(work, "b"))])))
+        checks["report_tools_validate"] = all(
+            r["rc"] == 0 for r in out["report_tools"].values())
 
         # -- in this process: the main path's counts from 0
         reset_port_kernel_launches()
@@ -8144,16 +8258,17 @@ FUSION_SGD = dict(lr=0.01, wd=1e-4)
 # must hold to GRAPH_CACHE_BYTES
 FUSION_LR_SCHEDULE = tuple(0.01 * 0.9 ** k for k in range(1, 7))
 KV_STEPS = 3                     # timed steps an arm (after one warm-up)
-# the kvstore and fleet phases' BERT: BERT-base's width, 6 of its 12
+# the kvstore and fleet phases' BERT: BERT-base's width, 4 of its 12
 # layers (the script's time: with the graph phase the whole script took
-# 1150.5 s on a slow host; the stores' and the fleet's traffic is the
-# parameters', which the embeddings dominate, and their checks compare
-# arms alike)
-KV_LAYERS = 6
+# 1150.5 s on a slow host at 12, and with the head dims of 320 and more
+# 1061.2 s at 6; the stores' and the fleet's traffic is the parameters',
+# which the embeddings dominate, and their checks compare arms alike)
+KV_LAYERS = 4
 KV_DIST_RANK_BATCH = 16          # dist_sync: 16 x 512 a rank, 32 x 512 global
 FLEET_GLOBAL_BATCH = 32          # the churn run's global batch, 32 x 512
 FLEET_STRAGGLER_STEPS = 14
 FLEET_SLOW_SECONDS = 0.3
+FLEET_LEASE = 4.0                # seconds a worker's heartbeat is good for
 CHILD_TIMEOUT = 420
 
 WORKER_CHILD = r'''
@@ -8702,26 +8817,14 @@ def phase_kvstore(ctx):
 
 def fleet_child(spec):
     """One fleet worker under ``python -m tpu_mx_torch.tools.launch
-    --supervise``: the reference's churn worker (``tests/test_fleet.py``:
-    join, admission, the sample-id ledger over a sharded NDArrayIter, the
-    published global cursor for late joiners), and at each step a
-    BERT-base training step (bf16, LAMB, ``CompiledTrainStep``) on this
-    rank's shard of a 32 x 512 global batch on the card.  ``mode``
-    ``straggler`` runs ``FLEET_STRAGGLER_STEPS`` steps and leaves."""
-    import pickle
+    --supervise`` (:func:`fleet_worker`), each step a BERT-base training
+    step (bf16, LAMB, ``CompiledTrainStep``) on this rank's shard of a
+    32 x 512 global batch on the card."""
     import torch
-    import tpu_mx_torch as mx
-    from tpu_mx_torch import checkpoint as ckpt
-    from tpu_mx_torch import optimizer, tracing
-    from tpu_mx_torch.elastic import WorkerFailure
-    from tpu_mx_torch.io import NDArrayIter
+    from tpu_mx_torch import optimizer
     from tpu_mx_torch.models import BERTModel, MLMLoss, bert_base_config
     from tpu_mx_torch.parallel import CompiledTrainStep
-    from tpu_mx_torch.parallel.fleet import Fleet, MembershipChange
 
-    root = spec["root"]
-    member = int(os.environ["TPUMX_FLEET_MEMBER"])
-    t_start = spec["t0"]
     cfg = dict(bert_base_config(max_len=TRAIN_SEQ), num_layers=KV_LAYERS)
     net = BERTModel(cfg, dtype="bfloat16", device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(0))
@@ -8732,13 +8835,63 @@ def fleet_child(spec):
                         FLEET_GLOBAL_BATCH)
     glob = [torch.from_numpy(b).cuda() for b in bert_batch(
         cfg, FLEET_GLOBAL_BATCH, TRAIN_SEQ, TRAIN_MASKED, valid, rng)]
+
+    def train(r, w):
+        lb = FLEET_GLOBAL_BATCH // w
+        return float(step_fn.step(*[b[r * lb:(r + 1) * lb] for b in glob]))
+    return fleet_worker(spec, train)
+
+
+def fleet_worker(spec, train):
+    """The fleet protocol of one worker: the reference's churn worker
+    (``tests/test_fleet.py``: join, admission, the sample-id ledger over a
+    sharded NDArrayIter, the published global cursor for late joiners),
+    calling ``train(rank, world_size)`` (a training step on that shard;
+    returns its loss) at each step.  ``mode`` ``straggler`` runs
+    ``FLEET_STRAGGLER_STEPS`` steps and leaves.  The first ``train`` call
+    is made before the worker joins (ROADMAP C28): a first step pays the
+    card's one-time start-up (the flash kernels' first load, cuBLAS, the
+    optimizer's state: 1.5-2.5 s on an H100 beside a second worker, past
+    the 4 s lease in one whole run), and a member with no record yet is
+    pending, not lost, so no lease runs before the join.  Each worker's
+    ledger ends with the longest gap between two renewals of its lease
+    and the start-up step's ms."""
+    import pickle
+    import tpu_mx_torch as mx
+    from tpu_mx_torch import checkpoint as ckpt
+    from tpu_mx_torch import tracing
+    from tpu_mx_torch.elastic import WorkerFailure
+    from tpu_mx_torch.io import NDArrayIter
+    from tpu_mx_torch.parallel.fleet import Fleet, MembershipChange
+
+    root = spec["root"]
+    member = int(os.environ["TPUMX_FLEET_MEMBER"])
+    t_start = spec["t0"]
     reset_port_kernel_launches()
     with open(os.path.join(root, f"started-{member}.log"), "a") as fh:
         fh.write(f"{os.getpid()} {t_start} {time.time()}\n")
 
     f = Fleet.from_env()
+    # the start-up step, on the shard of the world the epoch on disk
+    # admits (the launch's, or the survivors' after an eviction)
+    ep = f.read_epoch()
+    world = [int(m) for m in ep["world"]] if ep and ep["world"] else [member]
+    t_warm = time.perf_counter()
+    train(world.index(member) if member in world else 0, len(world))
+    startup_ms = (time.perf_counter() - t_warm) * 1e3
+    # every renewal of this worker's lease, with where it happened: the
+    # longest gap between two is what the controller's lease must cover
+    beats, where = [], ["admission"]
+    renew = f.heartbeat
+
+    def heartbeat():
+        renew()
+        beats.append((time.time(), where[0]))
+    f.heartbeat = heartbeat
     f.join()
+    beats.append((time.time(), "join"))
     f.await_admission(timeout=60)
+    where[0] = "sync"
     sync = time.monotonic() + 20
     for m in f.world():
         if m == f.member:
@@ -8768,6 +8921,7 @@ def fleet_child(spec):
     deadline = time.monotonic() + 240
     while time.monotonic() < deadline:
         t0 = time.perf_counter()
+        where[0] = f"before step {step + 1}"
         try:
             f.on_step()
         except MembershipChange:
@@ -8807,7 +8961,7 @@ def fleet_child(spec):
         lb = FLEET_GLOBAL_BATCH // w
         tracing.set_context(epoch=0, step=step)
         t1 = time.perf_counter()
-        loss = float(step_fn.step(*[b[r * lb:(r + 1) * lb] for b in glob]))
+        loss = train(r, w)
         step_ms = (time.perf_counter() - t1) * 1e3
         led.write(json.dumps(
             {"step": step, "gen": f.acked_generation, "rank": r, "world": w,
@@ -8821,6 +8975,12 @@ def fleet_child(spec):
                 pickle.dump({"step": step, "state": it.state_dict()}, fh)
         time.sleep(pace)
     f.leave()
+    gaps = [(b[0] - a[0], a[1]) for a, b in zip(beats, beats[1:])]
+    gap = max(gaps, default=(0.0, None))
+    led.write(json.dumps({"lease": f.lease, "beats": len(beats),
+                          "max_beat_gap_ms": gap[0] * 1e3,
+                          "max_gap_after": gap[1],
+                          "startup_step_ms": startup_ms}) + "\n")
     with open(os.path.join(root, f"launches-{member}-{os.getpid()}.json"),
               "w") as fh:
         json.dump(port_kernel_launches(), fh)
@@ -8842,7 +9002,8 @@ def fleet_run(work, name, chaos):
     r = subprocess.run(
         [sys.executable, "-m", "tpu_mx_torch.tools.launch", "--supervise",
          "-n", "2", "--fleet-dir", fdir, "--max-restarts", "2",
-         "--backoff", "3.0", "--lease", "4.0", "--join-timeout", "120",
+         "--backoff", "3.0", "--lease", str(FLEET_LEASE), "--join-timeout",
+         "120",
          "--env", f"TPUMX_CHAOS={chaos}",
          sys.executable, "-c", WORKER_CHILD, json.dumps(spec)],
         cwd=here, capture_output=True, text=True, timeout=CHILD_TIMEOUT)
@@ -8928,6 +9089,21 @@ def fleet_churn_checks(run):
     return checks, times
 
 
+def fleet_beat_gaps(root):
+    """``{ledger: [ms, where, start-up ms]}``: each finished worker
+    process's longest gap between two renewals of its lease, the point it
+    ended at, and its start-up step (made before it joined)."""
+    import glob as _glob
+    gaps = {}
+    for p in sorted(_glob.glob(os.path.join(root, "ledger-*.jsonl"))):
+        rows = [r for r in _jsonl(p) if "max_beat_gap_ms" in r]
+        if rows:
+            gaps[os.path.basename(p)[len("ledger-"):-len(".jsonl")]] = [
+                rows[-1]["max_beat_gap_ms"], rows[-1]["max_gap_after"],
+                rows[-1]["startup_step_ms"]]
+    return gaps
+
+
 def fleet_kernel_launches(root):
     import glob as _glob
     total = dict.fromkeys(port_kernel_launches(), 0)
@@ -8966,6 +9142,7 @@ def phase_fleet(ctx):
                           "preempt_worker_at_step=3,preempt_rank=1")
         checks, times = fleet_churn_checks(churn)
         out["churn"] = dict(rc=churn["rc"], wall_s=churn["wall_s"], **times,
+                            beat_gaps_ms=fleet_beat_gaps(churn["root"]),
                             **({"stderr": churn["stderr"]}
                                if not all(checks.values()) else {}))
         launches = fleet_kernel_launches(churn["root"])
@@ -8988,13 +9165,18 @@ def phase_fleet(ctx):
              "--validate"], capture_output=True, text=True, timeout=120)
         for k, v in fleet_kernel_launches(slow["root"]).items():
             launches[k] += v
+        gaps = fleet_beat_gaps(slow["root"])
         out["straggler"] = dict(
             rc=slow["rc"], wall_s=slow["wall_s"], signal=sig,
+            beat_gaps_ms=gaps,
             section_valid=valid, report_rc=rep.returncode,
             skew_steps=len(box.get("fleet", {}).get("skew_timeline", [])),
             **({"stderr": slow["stderr"]} if slow["rc"] else {}))
         checks.update({
             "straggler_rc": slow["rc"] == 0,
+            # both workers renewed their leases in time all run long
+            "straggler_beats_within_lease": len(gaps) == 2 and all(
+                g[0] < FLEET_LEASE * 1e3 for g in gaps.values()),
             "straggler_named": bool(sig.get("straggling"))
             and sig.get("rank") == 1
             and sig.get("dominant_phase") == "data_wait",
@@ -9024,8 +9206,8 @@ def phase_fleet(ctx):
 # hidden, vocabulary 30522, T=512), float32, dropout 0; the global batch
 # cut to MESH_BATCH (the phase's time: every arm runs twice, on the two
 # ranks and at world size 1)
-# 6 of BERT-base's 12 layers (the script's time, as KV_LAYERS)
-MESH_LAYERS, MESH_BATCH, MESH_STEPS = 6, 4, 3
+# 4 of BERT-base's 12 layers (the script's time, as KV_LAYERS)
+MESH_LAYERS, MESH_BATCH, MESH_STEPS = 4, 4, 3
 MESH_VALID = (384, 512)
 MESH_PP_MICRO = 4
 MESH_COMPRESSED_CALLS = 4        # accum_steps=2: two applied updates
@@ -9520,16 +9702,16 @@ def wide_logits(torch, model, cpu, prefill, stream, pool, window):
                 window=window, atol=LOGITS_ATOL)
 
 
-def wide_attention_case(torch, fa, gen, key, dt, t, d, rate):
-    """``parallel.attention`` forward and backward at B=4 H=16 (causal,
-    ragged valid lengths) from launch counts at 0, held to the plain
-    forward and backward on the same inputs and dropout seed."""
+def wide_attention_case(torch, fa, gen, key, dt, h, t, d, rate):
+    """``parallel.attention`` forward and backward at B=4 and ``h`` heads
+    (causal, ragged valid lengths) from launch counts at 0, held to the
+    plain forward and backward on the same inputs and dropout seed."""
     from tpu_mx_torch.parallel import attention
     dev, dtype = "cuda", getattr(torch, dt)
-    b, h = WIDE_BATCH, WIDE_HEADS
+    b = WIDE_BATCH
     q, k, v, do = (torch.randn((b, h, t, d), generator=gen).to(dev, dtype)
                    for _ in range(4))
-    rows, valid = wide_valid(torch, gen, t)
+    rows, valid = wide_valid(torch, gen, t, h)
     vl = torch.tensor(rows, dtype=torch.int32, device=dev)
     seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
                          dtype=torch.int32).to(dev)
@@ -9558,7 +9740,7 @@ def wide_attention_case(torch, fa, gen, key, dt, t, d, rate):
         errors[n] = (err(leaf.grad, w), tol(w))
     ok = (all(math.isfinite(e) and e <= a for e, a in errors.values())
           and all(launches[n] == 1 for n in FLASH_KERNELS)
-          and routes == (F32_ROUTES if f32 else BF16_ROUTES))
+          and routes == flash_routes(f32, d))
     return dict(case=key, ok=ok, shape=f"B={b} H={h} T={t} D={d} {dt} "
                 f"causal valid {min(rows)}-{max(rows)} dropout {rate}",
                 launches=launches, routes=routes,
@@ -9566,30 +9748,22 @@ def wide_attention_case(torch, fa, gen, key, dt, t, d, rate):
                 atol={n: a for n, (_, a) in errors.items()})
 
 
-def phase_wide_heads(ctx):
-    """Head dims 192 and 256 on the main paths (ROADMAP B item 8): (a) the
-    serve cell's traffic at Gemma's layout, TinyLM 4096 wide with 16 heads
-    of 256 (2 layers, vocabulary 32000), f32 pool, bf16 pool, and
-    ``TPUMX_SPECULATIVE=12`` (a window past the kernel's 8 rows, walked
-    in chunks) with the f32 pool: each arm's request 0 equal to the CPU
-    port's (or split at a near tie), its prefill logits and one decode
-    step's (the arm's pool and window) within LOGITS_ATOL of the CPU
-    port's, every prefill on the flash kernel
-    (``tf32x3``), every decode on the paged kernel (``split_k``), no
-    dense arm; (b) ``parallel.attention`` forward and backward at B=4,
-    16 heads, causal with ragged valid lengths: bf16 T=2048 D=256 and 192
-    with dropout 0.1, float32 T=700 D=256, each held to its plain twin;
-    (c) at bf16 T=512 D=256 the four bias layouts with ``d_bias``
-    (``bias_case``)."""
-    import torch
-    from tpu_mx_torch.kernels import flash_attention as fa
+def wide_serve(torch, fa, ctx, cfg, tag=""):
+    """The serve cell's traffic at the wide layout ``cfg`` (a TinyLM
+    config), f32 pool, bf16 pool, and ``TPUMX_SPECULATIVE=12`` (a window
+    past the kernel's 8 rows, walked in chunks) with the f32 pool: each
+    arm's request 0 equal to the CPU port's (or split at a near tie), its
+    prefill logits and one decode step's (the arm's pool and window)
+    within LOGITS_ATOL of the CPU port's, every prefill on the flash
+    kernel (``tf32x3``), every decode on the paged kernel (``split_k``),
+    no dense arm.  Returns ``(arms, checks, launches)``, each check's
+    name prefixed with ``tag``."""
     from tpu_mx_torch.serving import TinyLM
-    t0 = time.perf_counter()
-    model = TinyLM(**WIDE_SERVE, device="cuda")
-    cpu = TinyLM.from_numpy(*model.to_numpy(),
-                            num_heads=WIDE_SERVE["num_heads"], device="cpu")
+    model = TinyLM(**cfg, device="cuda")
+    cpu = TinyLM.from_numpy(*model.to_numpy(), num_heads=cfg["num_heads"],
+                            device="cpu")
     prompts = serve_prompts()
-    layers = WIDE_SERVE["num_layers"]
+    layers = cfg["num_layers"]
     total = dict.fromkeys(port_kernel_launches(), 0)
     arms, checks = {}, {}
     # request 0's prefill on the card (its K/V for each arm's decode
@@ -9638,18 +9812,45 @@ def phase_wide_heads(ctx):
             arm_checks["streams_as_f32_pool"] = splits_ok(stream_splits(
                 model, prompts, run["streams"],
                 arms["f32_pool"]["streams"]))
-        checks.update({f"{name}_{k}": v for k, v in arm_checks.items()})
+        checks.update({f"{tag}{name}_{k}": v for k, v in arm_checks.items()})
         arms[name] = run
-        emit("wide_heads_serve", arm=name, ok=all(arm_checks.values()),
+        emit("wide_heads_serve", arm=tag + name, ok=all(arm_checks.values()),
              checks=arm_checks, pool=pool, spec_window=window,
+             heads=cfg["num_heads"], head_dim=model.head_dim,
              stream0_split=split[0], **_record(run))
+    del model, cpu, prefill
+    torch.cuda.empty_cache()
+    return arms, checks, total
+
+
+def phase_wide_heads(ctx):
+    """Head dims 192 and 256 (ROADMAP B item 8) and 320 and more (B item
+    8b, the runtime-D instances) on the main paths: (a) the serve cell's
+    traffic (:func:`wide_serve`) at Gemma's layout, TinyLM 4096 wide with
+    16 heads of 256 (2 layers, vocabulary 32000), and at 8 heads of 512 (4
+    layers); (b) ``parallel.attention`` forward and backward at B=4,
+    causal with ragged valid lengths (:func:`flash_cases`): bf16 T=2048
+    D=256 and 192 with dropout 0.1 and float32 T=700 D=256 at 16 heads,
+    bf16 T=2048 D=512 (8 heads, dropout 0.1) and D=320 (12 heads), float32
+    T=700 D=384 (16 heads) and T=512 D=1024 (8 heads), each held to its
+    plain twin; (c) at bf16 T=512 D=256 the four bias layouts with
+    ``d_bias`` (``bias_case``)."""
+    import torch
+    from tpu_mx_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    arms, checks, total = wide_serve(torch, fa, ctx, WIDE_SERVE)
+    huge_arms, huge_checks, huge_total = wide_serve(torch, fa, ctx,
+                                                    HUGE_SERVE, "d512_")
+    checks.update(huge_checks)
+    for n, c in huge_total.items():
+        total[n] += c
     serve_s = time.perf_counter() - t0
 
     t1 = time.perf_counter()
     gen = torch.Generator().manual_seed(22)
     attn = {}
-    for key, dt, t, d, rate in WIDE_FLASH:
-        rec = wide_attention_case(torch, fa, gen, key, dt, t, d, rate)
+    for key, dt, h, t, d, rate in flash_cases():
+        rec = wide_attention_case(torch, fa, gen, key, dt, h, t, d, rate)
         for n, c in rec["launches"].items():
             total[n] += c
         attn[key] = rec
@@ -9673,9 +9874,11 @@ def phase_wide_heads(ctx):
         emit("wide_heads_bias", layout=name, card=ctx["smi"], **rec)
         torch.cuda.empty_cache()
     ctx["wide_heads_launches"] = total
-    ctx["wide_heads"] = dict(arms=arms, attention=attn, bias=bias)
+    ctx["wide_heads"] = dict(arms=arms, huge_arms=huge_arms, attention=attn,
+                             bias=bias)
     emit("wide_heads", ok=all(checks.values()), checks=checks,
          model={**WIDE_SERVE, "block_size": 16, "num_blocks": 1024},
+         huge_model={**HUGE_SERVE, "block_size": 16, "num_blocks": 1024},
          launches=total, serve_seconds=serve_s,
          attention_seconds=time.perf_counter() - t1,
          seconds=time.perf_counter() - t0, card=ctx["smi"])
@@ -10762,6 +10965,14 @@ def wide_rows(ctx, name):
         else:
             n = wide["attention"][key]["launches"][name]
         rows[key] = dict(rec, launches=n)
+    # the runtime-D instances on the serving path: 8 heads of 512
+    # (float32 prefills; decode with f32 and bf16 pools, windows of 12)
+    if name in ("flash_attention_fwd", "paged_attention"):
+        rows["serve_d512"] = dict(
+            shape="TinyLM 4096 wide, 8 heads of 512, 4 layers, serve "
+                  "traffic: f32_pool, bf16_pool, spec12",
+            launches=sum(a["launches"][name]
+                         for a in wide["huge_arms"].values()))
     return rows
 
 

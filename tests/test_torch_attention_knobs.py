@@ -138,17 +138,16 @@ def test_a_deliberate_dense_choice_is_told_apart(d, dtype, mode, arm,
 
 
 @pytest.mark.parametrize("d,refused", [(192, False), (256, False),
-                                       (320, True), (384, True)])
+                                       (320, False), (384, False),
+                                       (80, True)])
 def test_flash_or_auto_refuse_a_shape_without_an_instance(d, refused):
-    """Head dims 192 and 256 have instances; 320 and more are refused by
-    name (ROADMAP B item 8b), whichever mode asks for the kernel."""
+    """Head dims 192 and 256 have instances, and 320 and more the
+    runtime-D ones: whichever mode asks for the kernel gets it.  A head
+    dim the reference's gate sends dense (80) takes the dense arm."""
     for mode in ("flash", "auto"):
-        if refused:
-            with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
-                ra.attention_arm("cuda", d, torch.float32, mode, 4096)
-        else:
-            assert ra.attention_arm("cuda", d, torch.float32, mode,
-                                    4096) == "flash_kernel"
+        want = "dense" if refused else "flash_kernel"
+        assert ra.attention_arm("cuda", d, torch.float32, mode,
+                                4096) == want
 
 
 def test_each_signature_counts_once_and_a_chosen_dense_does_not_warn(

@@ -829,18 +829,21 @@ def test_attention_dense_arm_on_the_card_matches_the_cpu(d, dtype, caplog):
 
 @pytest.mark.parametrize("d", [320, 384])
 def test_card_refuses_head_dims_the_reference_kernel_takes(d):
-    """The reference's kernel takes these head dims; the port has no
-    instance (ROADMAP B item 8b), and refuses them on the card rather
-    than run its plain version in the kernel's place."""
+    """The reference's kernel takes these head dims, and so do the port's
+    runtime-D instances: ``attention`` and the serving prefill launch the
+    flash kernel on the card (no dense arm), within float32's tolerance
+    of the plain version."""
     from tpu_mx_torch.parallel import attention
     q = torch.randn((1, 2, 128, d), device="cuda")
     launches = fa.flash_attention.launches
-    with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
-        attention(q, q, q)
-    with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
-        sattn.prefill_attention(q[0].transpose(0, 1), q[0].transpose(0, 1),
-                                q[0].transpose(0, 1))
-    assert fa.flash_attention.launches == launches
+    out = attention(q, q, q)
+    qs = q[0].transpose(0, 1)
+    pre = sattn.prefill_attention(qs, qs, qs)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + 2
+    ref, _ = fa.flash_attention_plain(q[0], q[0], q[0], 1.0 / math.sqrt(d))
+    torch.testing.assert_close(out[0], ref, rtol=1e-4, atol=1e-4)
+    assert pre.shape == qs.shape and bool(torch.isfinite(pre).all())
 
 
 def test_serving_at_head_dim_80_takes_the_dense_arms_on_the_card():

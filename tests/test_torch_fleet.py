@@ -634,3 +634,61 @@ def test_supervised_fleet_kill_and_rejoin(tmp_path):
         assert row["mine"] == oracle[row["step"]][4:]
     gen = json.loads(open(os.path.join(fdir, "gen.json")).read())
     assert gen["world"] == [0, 1] and gen["generation"] >= 3
+
+
+# chip_smoke.py's fleet worker with a stand-in training step whose first
+# call outlasts the lease, as the card's first step can (ROADMAP C28)
+_COLD_START_WORKER = textwrap.dedent("""
+    import json, os, sys, time
+    spec = json.loads(sys.argv[1])
+    spec["t0"] = time.time()
+    for k in ("TPUMX_COORDINATOR", "TPUMX_NUM_PROC", "TPUMX_PROC_ID"):
+        os.environ.pop(k, None)
+    sys.path.insert(0, spec["repo"])
+    import chip_smoke
+    import tpu_mx_torch as mx
+    calls = []
+
+    def train(rank, world):
+        time.sleep(spec["cold_seconds"] if not calls else 0.01)
+        calls.append([rank, world])
+        return 1.0
+    with mx.cpu():
+        sys.exit(chip_smoke.fleet_worker(spec, train))
+""")
+
+
+def test_fleet_worker_pays_its_cold_first_step_before_it_joins(tmp_path):
+    """ROADMAP C28: on the card a worker's first training step pays the
+    one-time start-up (the flash kernels' first load, cuBLAS, the
+    optimizer's state), 1.5-2.5 s beside a second worker on an H100; in
+    ``chip_smoke.py``'s fleet phase it ran after the join, between two
+    renewals of the lease, and in one whole run outlasted the 4 s lease
+    of both workers at once (both evicted, world size 0, exit 1).  The
+    phase's worker makes that call before it joins, where no lease runs
+    yet: here a first step of 3 s against a 2 s lease loses no member."""
+    root = tmp_path / "run"
+    root.mkdir()
+    worker = tmp_path / "worker.py"
+    worker.write_text(_COLD_START_WORKER)
+    spec = dict(root=str(root), mode="straggler", repo=REPO,
+                cold_seconds=3.0)
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_mx_torch.tools.launch", "--supervise",
+         "-n", "2", "--fleet-dir", str(tmp_path / "fleet"), "--lease", "2.0",
+         sys.executable, str(worker), json.dumps(spec)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "lost" not in r.stderr, r.stderr[-3000:]
+    for member in (0, 1):
+        ledgers = list(root.glob(f"ledger-{member}-*.jsonl"))
+        assert len(ledgers) == 1               # never evicted, never restarted
+        rows = _read_jsonl(ledgers[0])
+        steps = [row["step"] for row in rows if "gids" in row]
+        # member 1 may start at rank 0's published cursor, a late joiner
+        first = 1 if member == 0 else steps[0]
+        assert steps == list(range(first, 15))
+        assert {row["world"] for row in rows if "gids" in row} == {2}
+        assert rows[-1]["lease"] == 2.0
+        assert rows[-1]["max_beat_gap_ms"] < 2000.0

@@ -39,7 +39,6 @@ from tpu_mx.serving import TinyLM as JTinyLM
 from tpu_mx_torch import random as prandom
 from tpu_mx_torch import telemetry as tel
 from tpu_mx_torch import tracing
-from tpu_mx_torch.base import MXNetError
 from tpu_mx_torch.gluon import loss as tloss
 from tpu_mx_torch.kernels import flash_attention as fa
 from tpu_mx_torch.kernels import paged_attention as pa
@@ -69,8 +68,8 @@ _JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
     ("cuda", 64, torch.float16, "dense"),
     ("cuda", 192, torch.float32, "flash_kernel"),
     ("cuda", 256, torch.bfloat16, "flash_kernel"),
-    ("cuda", 320, torch.float32, None),      # the reference's kernel
-    ("cuda", 384, torch.bfloat16, None),     # takes these: no dense arm
+    ("cuda", 320, torch.float32, "flash_kernel"),    # the runtime-D
+    ("cuda", 384, torch.bfloat16, "flash_kernel"),   # instances
     ("cuda", 192, torch.float16, "dense"),
     ("cpu", 64, torch.float32, "dense"),
     ("cpu", 80, torch.float16, "dense"),
@@ -78,16 +77,12 @@ _JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
 ])
 def test_attention_arm_is_a_function_of_shape_and_dtype(device, d, dtype,
                                                         arm):
-    """``None``: the card refuses the shape by name rather than put the
-    plain version in its kernel's place."""
+    """Head dims of 320 and more take the runtime-D instances on the
+    card, as the reference's gate takes them to its kernel."""
     for _ in range(2):                                   # no state
-        if arm is None:
-            with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
-                ra.attention_arm(device, d, dtype)
-        else:
-            assert ra.attention_arm(device, d, dtype) == arm
-    assert fa.kernel_takes(d, dtype) == (d in fa.HEAD_DIMS
-                                         and dtype != torch.float16)
+        assert ra.attention_arm(device, d, dtype) == arm
+    assert fa.kernel_takes(d, dtype) == (
+        (d in fa.HEAD_DIMS or fa.runtime_d(d)) and dtype != torch.float16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -96,17 +91,12 @@ def test_attention_arm_is_a_function_of_shape_and_dtype(device, d, dtype,
 def test_attention_arm_on_the_card_names_the_reference_arm(d, dtype):
     """At a T the reference's kernel tiles (T % 128 == 0), the arm the
     port takes on the card is, under the reference's name, the arm the
-    reference's gate ``supported()`` picks on its chip, or, where that
-    is its kernel and the port has no instance (head dims of 320 and
-    more), a refusal: never the dense arm in the kernel's place.  (The
-    port also instantiates head dims 16 and 32, which the reference
-    sends dense.)"""
+    reference's gate ``supported()`` picks on its chip, head dims of 320
+    and more included (the runtime-D instances): never the dense arm in
+    the kernel's place.  (The port also instantiates head dims 16 and
+    32, which the reference sends dense.)"""
     want = "pallas_flash" if jfa.supported((2, 2, 128, d), _JDT[dtype],
                                            kv_len=128) else "xla_dense"
-    if want == "pallas_flash" and d not in fa.HEAD_DIMS:
-        with pytest.raises(MXNetError, match="no kernel instance"):
-            ra.attention_arm("cuda", d, dtype)
-        return
     got = REFERENCE_ARMS[ra.attention_arm("cuda", d, dtype)]
     assert got == want
     assert set(REFERENCE_ARMS.values()) <= set(jra.dispatch_counts)
@@ -142,9 +132,10 @@ def test_cpu_dense_arm_counts_and_matches_the_reference(d, dtype):
     assert ra.dispatch_counts == again
 
 
-# the arm on the card (None: refused by name, the reference's kernel gate
-# -- a head dim that is a multiple of 64, a float32 or bfloat16 query --
-# takes the decode); on the CPU a refused decode takes the dense arm
+# the arm on the card (the reference's kernel gate -- a head dim that is
+# a multiple of 64, a float32 or bfloat16 query -- takes the decode, and
+# so does the port's kernel, at 320 and more its runtime-D instance); on
+# the CPU a decode the kernel does not take is dense
 @pytest.mark.parametrize("d,q_dtype,pool,window,arm", [
     (128, torch.float32, torch.float32, 1, "paged"),
     (16, torch.float32, torch.bfloat16, 8, "paged"),
@@ -156,18 +147,13 @@ def test_cpu_dense_arm_counts_and_matches_the_reference(d, dtype):
     (192, torch.float32, torch.float32, 1, "paged"),
     (256, torch.bfloat16, torch.bfloat16, 1, "paged"),
     (256, torch.float32, torch.float32, 12, "paged"),
-    (320, torch.float32, torch.float32, 1, None),
-    (320, torch.bfloat16, torch.float16, 12, None),
+    (320, torch.float32, torch.float32, 1, "paged"),
+    (320, torch.bfloat16, torch.float16, 12, "paged"),
 ])
 def test_decode_arm_is_a_function_of_shape_and_dtype(d, q_dtype, pool,
                                                      window, arm):
-    if arm is None:
-        with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
-            sattn.decode_arm(d, q_dtype, pool, window)
-    else:
-        assert sattn.decode_arm(d, q_dtype, pool, window) == arm
-    assert sattn.decode_arm(d, q_dtype, pool, window, "cpu") == (
-        arm or "dense")
+    assert sattn.decode_arm(d, q_dtype, pool, window) == arm
+    assert sattn.decode_arm(d, q_dtype, pool, window, "cpu") == arm
     assert pa.kernel_takes(d, q_dtype, pool, window) == (arm == "paged")
 
 
@@ -175,14 +161,10 @@ def test_decode_arm_is_a_function_of_shape_and_dtype(d, q_dtype, pool,
     (128, torch.float32, "flash"), (64, torch.bfloat16, "flash"),
     (80, torch.float32, "dense"), (64, torch.float16, "dense"),
     (192, torch.float32, "flash"), (256, torch.bfloat16, "flash"),
-    (320, torch.float32, None), (384, torch.bfloat16, None)])
+    (320, torch.float32, "flash"), (384, torch.bfloat16, "flash")])
 def test_prefill_arm_is_a_function_of_shape_and_dtype(d, dtype, arm):
-    if arm is None:
-        with pytest.raises(MXNetError, match="ROADMAP B item 8b"):
-            sattn.prefill_arm(d, dtype)
-    else:
-        assert sattn.prefill_arm(d, dtype) == arm
-    assert sattn.prefill_arm(d, dtype, "cpu") == (arm or "dense")
+    assert sattn.prefill_arm(d, dtype) == arm
+    assert sattn.prefill_arm(d, dtype, "cpu") == arm
 
 
 def test_dense_decode_arm_equals_the_paged_plain_version():
@@ -213,7 +195,7 @@ def test_dense_decode_arm_equals_the_paged_plain_version():
 @pytest.mark.parametrize("embed_dim,num_heads,kind,env", [
     (160, 2, "dense", "0"),     # D=80: no kernel instance, both dense
     (384, 2, "paged", "1"),     # D=192: both on their paged arm
-    (640, 2, "dense", "0"),     # D=320: no instance, dense on the CPU
+    (640, 2, "paged", "1"),     # D=320: both paged (the runtime-D one)
     (32, 2, "paged", "1"),      # D=16: both on their paged arm
 ])
 def test_serving_counts_the_decode_arm_the_reference_counts(

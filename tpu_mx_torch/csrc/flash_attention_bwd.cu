@@ -187,7 +187,8 @@
 //     FADD (score_products): along D/8 = 24 or 32 k-steps the tensor
 //     cores' float32 accumulation put d_bias 5x further from float64
 //     than the plain twin.
-// Head dims of 320 and more are refused by name (ROADMAP B item 8b).
+// Head dims of 320 and more run the runtime-D kernels of
+// flash_attention_bwd_dn.cu.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 

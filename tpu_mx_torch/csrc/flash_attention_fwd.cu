@@ -112,7 +112,7 @@
 // is read from device memory there (kTcStageBias: no room for two staged
 // bias tiles beside Q and the K/V ring).  The float32 kernel keeps its
 // tiles (150 and 197 KB of shared memory, one block an SM).  Head dims of
-// 320 and more are refused by name (ROADMAP B item 8b).
+// 320 and more run the runtime-D kernels of flash_attention_fwd_dn.cu.
 // The C entry point sends bfloat16 to the wgmma kernel and float32 to the
 // 3xTF32 kernel, and reports which through *route; nothing else falls back.
 #include "flash_common.cuh"

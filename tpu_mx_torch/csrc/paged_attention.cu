@@ -8,7 +8,8 @@
 // table.  Query t of row b sits at position lengths[b] - Tq + t and sees
 // keys at positions < lengths[b] - (Tq - 1 - t).  Queries are float32 or
 // bfloat16 (the output in their type), pools float32, bfloat16 or float16,
-// head dims 16, 32, 64, 128, 192 and 256; the math is float32 throughout.
+// head dims 16, 32, 64, 128, 192 and 256 (320 and more: the runtime-D
+// kernel of paged_attention_dn.cu); the math is float32 throughout.
 // Any window Tq >= 1 is taken: the C entry point walks it in chunks of
 // kTqMax = 8 rows, one split and one merge launch a chunk, each chunk
 // seeing the keys its own rows see (rows [t0, t0 + n) of the window are a

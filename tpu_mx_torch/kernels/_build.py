@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 the checkout's root, then loaded with :mod:`ctypes` — no PyTorch headers
 are compiled, which keeps a build to seconds.  ``<hash>`` covers the
 source (and a ``.cu`` it includes: the units of one head dim,
-``flash_attention_*_d<D>.cu``, include their kernel's source), the
+``flash_attention_*_d<D>.cu``, include their kernel's source; the
+runtime-D units ``*_dn.cu`` take head dims of 320 and more), the
 shared headers (``csrc/*.cuh``), the ``nvcc`` flags and the ``nvcc``
 version, so an edited source rebuilds at its next use and an unchanged
 one is loaded as it is.
@@ -38,7 +39,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_mx_torch"
 SOURCES = ("paged_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_d128", "flash_attention_bwd_d128",
            "flash_attention_fwd_d192", "flash_attention_fwd_d256",
-           "flash_attention_bwd_d192", "flash_attention_bwd_d256")
+           "flash_attention_bwd_d192", "flash_attention_bwd_d256",
+           "flash_attention_fwd_dn", "flash_attention_bwd_dn",
+           "paged_attention_dn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -44,9 +44,13 @@ The kernel is chosen by dtype: bfloat16 runs on the tensor cores
 precision in all three too (``tf32x3``: each operand split into two
 TF32 halves, three products, float32 sums — within float32 rounding of
 the plain version, as the serving path and float32 training need).
-Each wrapper also counts its launches by the route the C entry point
-reports, in ``<wrapper>.routes`` (``{"wgmma": n, "tf32x3": n}``); there
-is no fallback between them.
+Head dims of 320 and more (any multiple of 64) run one runtime-D instance
+a kernel and dtype (``csrc/flash_attention_{fwd,bwd}_dn.cu``): bfloat16
+on ``mma.sync`` (route ``mma``), float32 on ``tf32x3``; its blocks own 64
+output columns each and recompute the scores, streamed over D in
+64-column chunks.  Each wrapper also counts its launches by the route
+the C entry point reports, in ``<wrapper>.routes`` (``{"wgmma": n,
+"tf32x3": n, "mma": n}``); there is no fallback between them.
 
 Gradients flow through :class:`FlashAttentionFunction`, whose backward
 calls the two backward wrappers.  The plain versions
@@ -69,16 +73,20 @@ __all__ = ["flash_attention", "mha_flash_attention", "flash_attention_plain",
            "flash_attention_bwd_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_delta",
            "reduce_d_bias", "kernel_takes", "card_dense_arm",
-           "dropout_keep_mask", "FlashAttentionFunction", "HEAD_DIMS"]
+           "dropout_keep_mask", "FlashAttentionFunction", "HEAD_DIMS",
+           "RUNTIME_D_STEP", "runtime_d"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # the kernels' template instances
+# above them, every multiple of RUNTIME_D_STEP runs the runtime-D instances
+# (``csrc/flash_attention_{fwd,bwd}_dn.cu``, D an argument)
+RUNTIME_D_STEP = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 PLAIN_BLOCK_Q = 128             # query rows per step of the plain versions
 # the kernels a C entry point reports, by index (0 is reserved: the C ABI
 # keeps its numbering)
-ROUTES = {1: "wgmma", 2: "tf32x3"}
+ROUTES = {1: "wgmma", 2: "tf32x3", 3: "mma"}
 
 _M32 = 0xFFFFFFFF
 _ROW_SALT = 0x9E3779B9          # the constants of csrc/flash_common.cuh
@@ -91,8 +99,16 @@ _libs = {}
 _OWN_UNIT = (128, 192, 256)
 
 
+def runtime_d(head_dim):
+    """Whether this head dim runs the runtime-D instances: above
+    :data:`HEAD_DIMS`, a multiple of :data:`RUNTIME_D_STEP` (every head
+    dim the reference's gate takes there)."""
+    return head_dim > HEAD_DIMS[-1] and head_dim % RUNTIME_D_STEP == 0
+
+
 def _lib(name, d):
-    unit = f"{name}_d{d}" if d in _OWN_UNIT else name
+    unit = (f"{name}_d{d}" if d in _OWN_UNIT
+            else f"{name}_dn" if runtime_d(d) else name)
     lib = _libs.get(unit)
     if lib is None:
         lib = _build.load(unit)
@@ -337,9 +353,12 @@ def reduce_d_bias(d_bias, bias):
 # ----------------------------------------------------------------------------
 def kernel_takes(head_dim, dtype):
     """Whether the kernels have an instance for q/k/v of this head dim and
-    dtype (the wrappers raise on the card for anything else; callers with
-    a dense arm dispatch on this, a pure function of shape and dtype)."""
-    return head_dim in HEAD_DIMS and dtype in _DTYPES
+    dtype: :data:`HEAD_DIMS`, or any multiple of 64 above them (the
+    runtime-D instances).  The wrappers raise on the card for anything
+    else; callers with a dense arm dispatch on this, a pure function of
+    shape and dtype."""
+    return (head_dim in HEAD_DIMS or runtime_d(head_dim)) \
+        and dtype in _DTYPES
 
 
 def card_dense_arm(what, head_dim, dtype, detail="", suffix=False):
@@ -348,15 +367,14 @@ def card_dense_arm(what, head_dim, dtype, detail="", suffix=False):
     (``supported()`` of its flash and paged kernels: a head dim that is a
     multiple of 64, float32 or bfloat16) sends the shape dense too, and
     for a ``suffix`` prefill (fewer queries than keys), which the
-    reference's gate sends dense whatever the head dim.  A shape the
-    reference's kernel takes raises instead (head dims 320, 384, ...,
-    which need another design: ROADMAP B item 8b): the port does not put
-    a plain version on the card in a kernel's place."""
+    reference's gate sends dense whatever the head dim.  Every head dim
+    and dtype that gate takes has an instance here, so a call for one
+    raises: what the caller's own kernel refused (a decode's pool type,
+    say) is not put on the card as a plain version in its place."""
     if not suffix and head_dim % 64 == 0 and dtype in _DTYPES:
         raise MXNetError(
-            f"{what}: no kernel instance for head dim {head_dim}, {dtype}"
-            f"{detail}, a shape the reference's kernel takes; the port's "
-            f"instances are head dims {HEAD_DIMS} (ROADMAP B item 8b)")
+            f"{what}: no kernel for head dim {head_dim}, {dtype}{detail}, "
+            f"a shape the reference's kernel takes")
     return "dense"
 
 
@@ -368,9 +386,10 @@ def _check_kernel_operands(what, q, *rest):
         if x.dtype != q.dtype:
             raise MXNetError(f"{what} kernel: operands must share q's dtype "
                              f"{q.dtype}, got {x.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise MXNetError(f"{what} kernel: head_dim {q.shape[-1]} not in "
-                         f"{HEAD_DIMS} (ROADMAP B item 8b)")
+    if not kernel_takes(q.shape[-1], q.dtype):
+        raise MXNetError(f"{what} kernel: head_dim {q.shape[-1]} is neither "
+                         f"in {HEAD_DIMS} nor a multiple of "
+                         f"{RUNTIME_D_STEP} above them")
 
 
 def _tail(q, k, kv_valid, rate, seed, scale, causal):

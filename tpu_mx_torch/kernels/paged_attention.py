@@ -25,8 +25,10 @@ Two versions share that contract:
   takes float32 or bfloat16 queries (the output in their dtype, float32
   math), float32, bfloat16 or float16 pools, head dims
   16/32/64/128/192/256 and any window, walked in chunks of
-  :data:`WINDOW_CHUNK` rows (a split and a merge launch a chunk); a head
-  dim of 320 or more on the card raises (ROADMAP B item 8b);
+  :data:`WINDOW_CHUNK` rows (a split and a merge launch a chunk); head
+  dims of 320 and more (any multiple of 64) run the runtime-D instance
+  (``csrc/paged_attention_dn.cu``: D an argument, the split's queries
+  and scores in shared memory, the same partials and merge);
 - :func:`paged_attention_plain`, the same block walk written in PyTorch,
   run for CPU tensors — and on the card only to check the kernel.  The
   reference's names for it are here too: :func:`window_walk` (the walk
@@ -53,7 +55,7 @@ from .. import device as _device
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_plain", "kernel_takes",
-           "WINDOW_CHUNK", "HEAD_DIMS", "window_walk",
+           "WINDOW_CHUNK", "HEAD_DIMS", "RUNTIME_D_STEP", "window_walk",
            "paged_attention_reference", "DEFAULT_BLOCK_SIZE"]
 
 NEG_INF = -1e30
@@ -63,34 +65,45 @@ NEG_INF = -1e30
 DEFAULT_BLOCK_SIZE = 16
 WINDOW_CHUNK = 8                # kTqMax: the window rows a launch takes
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # the kernel's template instances
+# above them, every multiple of RUNTIME_D_STEP runs the runtime-D instance
+RUNTIME_D_STEP = 64
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SPLIT_KEYS = 64                 # kSplitKeys: the keys of a split
 ROUTES = ("split_k",)           # the kernels the C entry point reports
 
-_lib = None
+_libs = {}
 
 
-def _kernel_lib():
-    global _lib
-    if _lib is None:
-        lib = _build.load("paged_attention")
+def runtime_d(head_dim):
+    """Whether this head dim runs the runtime-D instance: above
+    :data:`HEAD_DIMS`, a multiple of :data:`RUNTIME_D_STEP`."""
+    return head_dim > HEAD_DIMS[-1] and head_dim % RUNTIME_D_STEP == 0
+
+
+def _kernel_lib(head_dim):
+    unit = "paged_attention_dn" if runtime_d(head_dim) else "paged_attention"
+    lib = _libs.get(unit)
+    if lib is None:
+        lib = _build.load(unit)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tmx_paged_attention.argtypes = [
             p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p, p,
             i, p, ctypes.POINTER(i)]
         lib.tmx_paged_attention.restype = i
-        _lib = lib
-    return _lib
+        _libs[unit] = lib
+    return lib
 
 
 def kernel_takes(head_dim, q_dtype, pool_dtype, window=1):
-    """Whether the kernel has an instance for this decode: head dim,
-    query and pool dtypes, window ``Tq`` (the wrapper raises on the card
-    for anything else; the serving decode dispatches on this, a pure
-    function of shape and dtype)."""
-    return (head_dim in HEAD_DIMS and q_dtype in _Q_DTYPES
-            and pool_dtype in _POOL_DTYPES and window >= 1)
+    """Whether the kernel has an instance for this decode: head dim
+    (:data:`HEAD_DIMS`, or a multiple of 64 above them), query and pool
+    dtypes, window ``Tq`` (the wrapper raises on the card for anything
+    else; the serving decode dispatches on this, a pure function of shape
+    and dtype)."""
+    return ((head_dim in HEAD_DIMS or runtime_d(head_dim))
+            and q_dtype in _Q_DTYPES and pool_dtype in _POOL_DTYPES
+            and window >= 1)
 
 
 def _normalize_q(q):
@@ -186,9 +199,10 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, scale):
         raise MXNetError(f"paged_attention kernel: pools must both be "
                          f"float32, bfloat16 or float16, got {k_pool.dtype} "
                          f"/ {v_pool.dtype}")
-    if d not in HEAD_DIMS:
-        raise MXNetError(f"paged_attention kernel: head_dim {d} not in "
-                         f"{HEAD_DIMS} (ROADMAP B item 8b)")
+    if not (d in HEAD_DIMS or runtime_d(d)):
+        raise MXNetError(f"paged_attention kernel: head_dim {d} is neither "
+                         f"in {HEAD_DIMS} nor a multiple of "
+                         f"{RUNTIME_D_STEP} above them")
     q = q.contiguous()
     k_pool = k_pool.contiguous()
     v_pool = v_pool.contiguous()
@@ -198,7 +212,7 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, scale):
         raise MXNetError("paged_attention kernel: pools must start 16-byte "
                          "aligned")
     out = torch.empty_like(q)
-    lib = _kernel_lib()
+    lib = _kernel_lib(d)
     bs, nb = k_pool.shape[1], tables.shape[1]
     # the splits from the table's width, never from the lengths (no read
     # back: the call stays capturable in a CUDA graph); their float32

@@ -35,7 +35,11 @@ import json
 import time
 from fractions import Fraction
 
-from ..base import MXNetError as LedgerError
+try:
+    from ..base import MXNetError as LedgerError
+except ImportError:  # loaded standalone from its file (tools/capacity_report)
+    class LedgerError(Exception):
+        """A capacity-ledger violation (``MXNetError`` in the package)."""
 
 __all__ = ["CapacityLedger", "LedgerError", "FORENSIC_FORMAT",
            "INDEX_HOLDER", "INDEX_TENANT", "UNATTRIBUTED",

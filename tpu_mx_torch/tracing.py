@@ -271,7 +271,9 @@ def _check_payload(event, payload, normalize=False):
     decl = KNOWN_EVENTS.get(event)
     if decl is None:
         raise ValueError(f"unknown event name {event!r} — not in "
-                         "tracing.KNOWN_EVENTS")
+                         "tracing.KNOWN_EVENTS (stable event names are an "
+                         "API; register new events in the catalog + "
+                         "docs/observability.md)")
     for k, v in payload.items():
         if k not in decl:
             raise ValueError(f"{event}: undeclared payload field {k!r} "
@@ -301,7 +303,9 @@ def validate_event(rec):
     name = rec.get("event")
     if name not in KNOWN_EVENTS:
         raise ValueError(f"unknown event name {name!r} — not in "
-                         "tracing.KNOWN_EVENTS")
+                         "tracing.KNOWN_EVENTS (stable event names are an "
+                         "API; register new events in the catalog + "
+                         "docs/observability.md)")
     if not isinstance(rec.get("ts"), (int, float)) \
             or isinstance(rec.get("ts"), bool):
         raise ValueError(f"{name}: missing numeric 'ts'")
