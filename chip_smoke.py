@@ -723,8 +723,11 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # the route each flash kernel takes per dtype, as the C entry points report
 BF16_ROUTES = dict.fromkeys(FLASH_KERNELS, "wgmma")
 F32_ROUTES = dict.fromkeys(FLASH_KERNELS, "tf32x3")
-# bf16 at head dims of 320 and more: the runtime-D kernels' mma.sync
-BF16_DN_ROUTES = dict.fromkeys(FLASH_KERNELS, "mma")
+# bf16 at head dims of 320 and more: the runtime-D forward and dk/dv on
+# wgmma (the split-D design), dq on mma.sync (the column-block design)
+BF16_DN_ROUTES = {"flash_attention_fwd": "wgmma",
+                  "flash_attention_bwd_dq": "mma",
+                  "flash_attention_bwd_dkv": "wgmma"}
 
 
 def flash_routes(f32, d):
@@ -981,9 +984,13 @@ def mma_counts(lib):
 
 def tensor_core_kind(kernel):
     """Which tensor-core instruction an instance must hold: 0 HGMMA (the
-    bf16 ``*_tc_kernel``s), 1 HMMA (the float32 ``*_tf32x3_kernel``s and
-    the runtime-D ``flash_*_dn_kernel``s of both dtypes), None neither."""
-    if "_tc_kernel" in kernel:
+    bf16 ``*_tc_kernel``s and the bf16 runtime-D forward and dk/dv,
+    ``flash_{fwd,dkv}_dn_kernel<__nv_bfloat16, ...>``), 1 HMMA (the
+    float32 ``*_tf32x3_kernel``s, the float32 runtime-D forward and
+    dk/dv, and the runtime-D dq of both dtypes), None neither."""
+    if "_tc_kernel" in kernel or any(
+            f"{name}<__nv_bfloat16" in kernel
+            for name in ("flash_fwd_dn_kernel", "flash_dkv_dn_kernel")):
         return 0
     if "_tf32x3_kernel" in kernel or ("flash_" in kernel
                                       and "_dn_kernel" in kernel):
@@ -1385,7 +1392,7 @@ def flash_case(torch, fa, gen, bh, t, d, dtype, causal, rate, valid):
             recs[name]["bound_ms_ffma"], recs[name]["bound_by_ffma"] = bound(
                 nbytes[name], flops[name])
     for name in FLASH_KERNELS:
-        recs[name]["recompute"] = recompute_factor(name, d)
+        recs[name]["recompute"] = recompute_factor(name, d, dtype)
     recs["flash_attention_fwd"]["lse_max_abs_err"] = lse_err
     recs["flash_attention_fwd"]["library_ms_dropout"] = lib_fwd_dropout
     return recs
@@ -1449,16 +1456,20 @@ def flash_cases():
                  for k, dt, t, d, r in WIDE_FLASH) + HUGE_FLASH
 
 
-def recompute_factor(name, d):
-    """The operations a runtime-D kernel does over the single pass's: its
-    blocks own 64 output columns each and recompute the score products
-    (csrc/flash_dn.cuh); 1 below D = 320."""
+def recompute_factor(name, d, dtype):
+    """The operations a runtime-D kernel does over the single pass's
+    (csrc/flash_dn.cuh); 1 below D = 320.  The forward and dk/dv compute
+    each score product once a pass of clusters over D, so theirs is the
+    number of passes their library launches with (1 up to D = 4096 and
+    2048); the dq kernel's blocks own 64 output columns each and
+    recompute the score products."""
     if d <= 256:
         return 1.0
-    n = d / 64
-    return {"flash_attention_fwd": (n + 1) / 2,
-            "flash_attention_bwd_dq": (2 * n + 1) / 3,
-            "flash_attention_bwd_dkv": (2 * n + 2) / 4}[name]
+    from tpu_mx_torch.kernels import flash_attention as fa
+    if name == "flash_attention_bwd_dq":
+        return (2 * d / 64 + 1) / 3
+    kernel = "fwd" if name == "flash_attention_fwd" else "dkv"
+    return float(fa.kernel_split(d, kernel, dtype)["passes"])
 
 
 def wide_kernels(torch, fa, pa, gen, ctx):
@@ -1522,6 +1533,18 @@ def wide_kernels(torch, fa, pa, gen, ctx):
             ctx["failures"].append(f"paged_attention {rec['shape']}: err "
                                    f"{err}, route {route}")
         wide.setdefault("paged_attention", {})[key] = rec
+    # the split each runtime-D library launches with is the host-side
+    # rule's, which the CPU tests check at every head dim
+    drift = [(kn, str(dt), d) for kn in ("fwd", "dkv")
+             for dt in (torch.bfloat16, torch.float32)
+             for d in range(320, 4609, 64)
+             if fa.kernel_split(d, kn, dt, 2048, 64)
+             != fa.runtime_d_split(d, kn, dt, 2048, 64)]
+    emit("runtime_d_split", ok=not drift, head_dims="320-4608 step 64",
+         drift=drift)
+    if drift:
+        ctx["failures"].append(f"runtime_d_split differs from the "
+                               f"libraries' split at {drift[:4]}")
     ctx["wide_kernels"] = wide
     wide_bias_grid(torch, fa, gen, ctx)
 
@@ -1738,34 +1761,37 @@ def wide_bias_grid(torch, fa, gen, ctx):
 
 def flash_mask_bits(torch, fa, ctx):
     """The forward kernel's dropout mask, read out through its output at
-    BERT's shape, against ``dropout_keep_mask`` bit for bit, and its keep
-    rate: with q = 0 every probability is 1/T, and V one-hot over a chunk
-    of D keys puts each kept key in its own output column."""
-    bh, t, d, rate = TRAIN_BATCH * 12, TRAIN_SEQ, 64, 0.1
+    BERT's shape and, through the runtime-D forward, at D = 512 (bf16,
+    BH = 16, T = 512), against ``dropout_keep_mask`` bit for bit, and its
+    keep rate: with q = 0 every probability is 1/T, and V one-hot over a
+    chunk of D keys puts each kept key in its own output column."""
+    rate = 0.1
     dev = "cuda"
     seed = torch.tensor([20261016], dtype=torch.int32, device=dev)
-    q = torch.zeros((bh, t, d), dtype=torch.bfloat16, device=dev)
     ar = lambda lo, hi, shape: torch.arange(lo, hi, device=dev).reshape(shape)
-    mismatched = kept = 0
-    for c in range(t // d):
-        v = torch.zeros((bh, t, d), dtype=torch.bfloat16, device=dev)
-        v[:, c * d:(c + 1) * d] = torch.eye(d, device=dev)
-        got = fa.flash_attention(q, q, v, dropout_rate=rate,
-                                 dropout_seed=seed) > 0
-        want = fa.dropout_keep_mask(seed, ar(0, bh, (bh, 1, 1)),
-                                    ar(0, t, (1, t, 1)),
-                                    ar(c * d, (c + 1) * d, (1, 1, d)), rate)
-        mismatched += int((got != want).sum())
-        kept += int(want.sum())
-    draws = bh * t * t
-    keep_rate = kept / draws
-    ok = mismatched == 0 and abs(keep_rate - (1 - rate)) <= 0.005
-    emit("dropout_mask", ok=ok, shape=f"BH={bh} T={t} bf16", rate=rate,
-         draws=draws, mismatched_bits=mismatched, keep_rate=keep_rate,
-         keep_rate_tolerance=0.005)
-    if not ok:
-        ctx["failures"].append(f"dropout mask: {mismatched} bits differ, "
-                               f"keep rate {keep_rate}")
+    for bh, t, d in ((TRAIN_BATCH * 12, TRAIN_SEQ, 64), (16, 512, 512)):
+        q = torch.zeros((bh, t, d), dtype=torch.bfloat16, device=dev)
+        mismatched = kept = 0
+        for c in range(t // d):
+            v = torch.zeros((bh, t, d), dtype=torch.bfloat16, device=dev)
+            v[:, c * d:(c + 1) * d] = torch.eye(d, device=dev)
+            got = fa.flash_attention(q, q, v, dropout_rate=rate,
+                                     dropout_seed=seed) > 0
+            want = fa.dropout_keep_mask(seed, ar(0, bh, (bh, 1, 1)),
+                                        ar(0, t, (1, t, 1)),
+                                        ar(c * d, (c + 1) * d, (1, 1, d)),
+                                        rate)
+            mismatched += int((got != want).sum())
+            kept += int(want.sum())
+        draws = bh * t * t
+        keep_rate = kept / draws
+        ok = mismatched == 0 and abs(keep_rate - (1 - rate)) <= 0.005
+        emit("dropout_mask", ok=ok, shape=f"BH={bh} T={t} D={d} bf16",
+             rate=rate, draws=draws, mismatched_bits=mismatched,
+             keep_rate=keep_rate, keep_rate_tolerance=0.005)
+        if not ok:
+            ctx["failures"].append(f"dropout mask D={d}: {mismatched} bits "
+                                   f"differ, keep rate {keep_rate}")
 
 
 def serve_prompts():

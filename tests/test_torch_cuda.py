@@ -92,13 +92,30 @@ def test_paged_kernel_stops_at_the_table_end():
 
 
 def test_paged_kernel_refuses_what_it_does_not_take():
+    """What ``kernel_takes`` says no to, the wrapper refuses by name: a
+    head dim outside the instances and a float16 query (any window is
+    taken, in chunks of ``WINDOW_CHUNK`` rows)."""
     q, kp, vp, tab, lens = _paged(d=64)
+    assert not pa.kernel_takes(48, torch.float32, torch.float32)
     with pytest.raises(MXNetError, match="head_dim"):
         pa.paged_attention(q[..., :48].contiguous(), kp[..., :48],
                            vp[..., :48], tab, lens)
-    with pytest.raises(MXNetError, match="window"):
-        pa.paged_attention(torch.zeros((4, 9, 4, 64), device="cuda"),
-                           kp, vp, tab, torch.full_like(lens, 200))
+    assert not pa.kernel_takes(64, torch.float16, torch.float32)
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        pa.paged_attention(q.half(), kp, vp, tab, lens)
+
+
+def test_paged_kernel_takes_a_window_of_nine():
+    """A window of 9 rows runs as two chunks (8 + 1) and matches the
+    plain version."""
+    assert pa.kernel_takes(64, torch.float32, torch.float32, window=9)
+    q, kp, vp, tab, lens = _paged(d=64, tq=9)
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(q, kp, vp, tab, lens)
+    ref = pa.paged_attention_plain(q, kp, vp, tab, lens, 1 / 8)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -846,6 +863,72 @@ def test_card_refuses_head_dims_the_reference_kernel_takes(d):
     assert pre.shape == qs.shape and bool(torch.isfinite(pre).all())
 
 
+# the kernel phase's tolerances (chip_smoke.py): float32 kernels (3xTF32)
+# against the float32 plain version; bf16 outputs, each rounded once,
+# within BF16_REL of the largest magnitude of the plain version's
+FLASH_ATOL, BF16_REL = 1e-4, 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [320, 448, 576, 1024, 2048, 4096, 4608])
+def test_split_d_forward_and_dkv_match_their_twins(d, dtype):
+    """The runtime-D forward and dk/dv (the split-D design: D over the
+    warpgroups of a cluster, the score products summed from slices)
+    against the plain twins: causal, ragged kv_valid, dropout 0.1 and a
+    bias (one plane a row in bf16, shared in float32).  D = 320 and 448 give
+    uneven slices, 2048 the largest cluster (float32 dk/dv: two passes),
+    4096 bf16 dk/dv in two passes (float32 in four), 4608 the forward in
+    two passes; bf16 runs on wgmma."""
+    bh, t = (3, 200) if d < 2048 else (2, 136)
+    g = torch.Generator().manual_seed(d)
+    q, k, v, do = (torch.randn((bh, t, d), generator=g).to("cuda", dtype)
+                   for _ in range(4))
+    valid = torch.tensor([t, t // 2 + 7, t - 61][:bh], dtype=torch.int32,
+                         device="cuda")
+    seed = torch.tensor([d + 11], dtype=torch.int32, device="cuda")
+    planes = bh if dtype == torch.bfloat16 else 1
+    bias = torch.randn((planes, t, t), generator=g).to("cuda", dtype)
+    scale = 1.0 / math.sqrt(d)
+    opts = dict(causal=True, kv_valid=valid, dropout_rate=0.1,
+                dropout_seed=seed, bias=bias)
+    routes = dict(fa.flash_attention.routes), \
+        dict(fa.flash_attention_bwd_dkv.routes)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **opts)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, scale, True, valid,
+                                            0.1, seed, bias)
+    delta = fa.flash_attention_delta(do, ref)
+    args = (q, k, v, do, ref_lse, delta, scale, True, valid, 0.1, seed, bias)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    route = "tf32x3" if dtype == torch.float32 else "wgmma"
+    assert fa.flash_attention.routes[route] == routes[0][route] + 1
+    assert fa.flash_attention_bwd_dkv.routes[route] == routes[1][route] + 1
+
+    def close(got, ref_t):
+        atol = FLASH_ATOL if dtype == torch.float32 else \
+            BF16_REL * float(ref_t.abs().max())
+        err = float((got.float() - ref_t.float()).abs().max())
+        assert err <= atol, (err, atol)
+    close(out, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=FLASH_ATOL)
+    close(dk, want[1])
+    close(dv, want[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+def test_runtime_d_split_is_the_kernels_own(kernel, dtype):
+    """The split each runtime-D library launches with (its split_d,
+    slice_of and grid, queried) is runtime_d_split's, at every multiple
+    of 64 from 320 to 4608: the host-side rule the CPU tests check is
+    the kernels' own."""
+    for d in range(320, 4609, 64):
+        for rows, bh in ((1, 1), (700, 3), (2048, 65535)):
+            assert fa.kernel_split(d, kernel, dtype, rows, bh) == \
+                fa.runtime_d_split(d, kernel, dtype, rows, bh), (d, rows)
+
+
 def test_serving_at_head_dim_80_takes_the_dense_arms_on_the_card():
     from tpu_mx_torch import telemetry
     from tpu_mx_torch.serving import Server, TinyLM
@@ -881,6 +964,9 @@ def test_serving_features_on_the_card_launch_their_kernels(monkeypatch):
         telemetry.reset()
         srv = Server(TinyLM(**kw, device=dev), num_blocks=64, block_size=8,
                      device=dev, **opts)
+        # the kernel counters count the engine's warm-up launches too:
+        # count from here, the serving work alone
+        pa.paged_attention.windows = {}
         reqs = [srv.submit(p, max_new_tokens=6, request_id=f"c{i}")
                 for i, p in enumerate(prompts)]
         srv.run_until_idle()
@@ -897,7 +983,6 @@ def test_serving_features_on_the_card_launch_their_kernels(monkeypatch):
     assert telemetry.get("serve.prefill_attention", kind="dense").value \
         == 2 * 3
     monkeypatch.setenv("TPUMX_SPECULATIVE", "4")
-    pa.paged_attention.windows = {}
     card = run("cuda")
     steps = telemetry.get("serve.decode_steps").value
     assert pa.paged_attention.windows == {4: 2 * steps}

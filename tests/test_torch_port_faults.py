@@ -559,3 +559,42 @@ def test_optimizer_takes_sym_and_ignores_it_as_the_reference_does(sym):
         assert _hyper(with_sym) == _hyper(without)
         got[name] = _hyper(with_sym)
     assert got["port"] == got["ref"]
+
+
+def _serve_series(snapshot):
+    return {(r["name"], json.dumps(r.get("labels"), sort_keys=True)):
+            r["value"] for r in snapshot if r["name"].startswith("serve.")}
+
+
+def test_engine_warm_up_leaves_the_serve_metrics_untouched(monkeypatch):
+    """C29: the engine's warm-up (on the card, one prefill and one decode
+    step on a scratch cache) is not serving work.  The reference's
+    warm-up (its fused arm's bucket compiles) records no ``serve.*``
+    metric; the port's ``_warm``, called here directly on a CPU engine,
+    adds to none of them either (the kernel wrappers' own counters do
+    count its launches on the card)."""
+    monkeypatch.setenv("TPUMX_PAGED_DECODE", "paged")
+    monkeypatch.setenv("TPUMX_FUSED_DECODE", "1")
+    jtel.reset()
+    ref = JServer(JTinyLM(vocab_size=16, embed_dim=8, num_heads=2,
+                          num_layers=1, seed=0), num_blocks=8)
+    assert ref.engine.fused and ref.engine.jax_model is not None
+    assert _serve_series(jtel.snapshot()) == {}
+    monkeypatch.delenv("TPUMX_FUSED_DECODE")
+    for kind in ("dense", "paged"):
+        monkeypatch.setenv("TPUMX_PAGED_DECODE", kind)
+        tel.reset()
+        eng = _engine()
+        tel.counter("serve.decode_steps").inc(3)
+        tel.counter("serve.decode_attention", kind=kind).inc(2)
+        before = _serve_series(tel.snapshot())
+        eng._warm(2)
+        assert _serve_series(tel.snapshot()) == before
+        assert eng.cache.audit()["used_blocks"] == 0
+    # outside the warm-up the same calls count as before
+    srv = _server()
+    srv.submit([1, 2, 3], max_new_tokens=2)
+    srv.run_until_idle()
+    after = _serve_series(tel.snapshot())
+    assert sum(v for (n, _), v in after.items()
+               if n == "serve.decode_attention") > 2

@@ -2,6 +2,7 @@
 """Time the attention kernels of this tree against other trees', on one card.
 
     python3 torch_flash_ab.py OTHER_TREE [OTHER_TREE ...] [--rounds N]
+                              [--runtime-d]
 
 An OTHER_TREE is another checkout of the repository (for example the
 parent commit, unpacked with ``git archive``).  Each tree's kernels are
@@ -27,6 +28,16 @@ path in the window, ``<name>_queued`` with each call queued behind a
   (float32, the same ``kv_valid``, dropout 0.1: ``*_bert``) and at
   BH=32, T=700, D=128, causal, ``kv_valid`` over 350-700, dropout 0.1
   (``*_t700``).
+
+With ``--runtime-d`` only the runtime-D instances (head dims of 320 and
+more) are built and timed instead:
+
+- the forward at the prefill shapes of ``chip_smoke.py``'s serving arms
+  at 8 heads of 512: float32, BH=8, D=512, causal, T = 77 ... 700 (the
+  serve traffic's prompt lengths; ``fwd_prefill_T<n>``);
+- the forward and dk/dv at ``chip_smoke.py``'s ``HUGE_FLASH`` shapes:
+  B=4, causal, ``kv_valid`` ragged over [T/2, T] by batch row
+  (``fwd_<key>``, ``dkv_<key>``).
 
 Prints one JSON line per run (``tree`` is ``this`` or the other tree's
 path as given) and the card's ``name, power.limit``.
@@ -126,11 +137,46 @@ if hasattr(fa, "flash_attention_bwd_dq"):
 print(json.dumps(res))
 '''
 
+# the runtime-D instances alone (--runtime-d)
+CHILD_DN = r'''
+import json, statistics, torch
+from tpu_mx_torch.kernels import flash_attention as fa
+''' + CHILD[CHILD.index("def cuda_ms"):CHILD.index("g = torch.Generator")] + r'''
+g = torch.Generator().manual_seed(0)
+for t in (77, 150, 233, 310, 401, 499, 587, 700):
+    q, k, v = (torch.randn((8, t, 512), generator=g).cuda() for _ in range(3))
+    timed(f"fwd_prefill_T{t}",
+          lambda: fa.flash_attention(q, k, v, causal=True))
+for key, dt, h, t, d, rate in (("bf16_d512", torch.bfloat16, 8, 2048, 512, 0.1),
+                               ("bf16_d320", torch.bfloat16, 12, 2048, 320, 0.0),
+                               ("f32_d384", torch.float32, 16, 700, 384, 0.0),
+                               ("f32_d1024", torch.float32, 8, 512, 1024, 0.0)):
+    bh = 4 * h
+    q, k, v, do = (torch.randn((bh, t, d), generator=g).to("cuda", dt)
+                   for _ in range(4))
+    kv = torch.randint(t // 2, t + 1, (4,), generator=g,
+                       dtype=torch.int32).repeat_interleave(h).cuda()
+    seed = torch.tensor([7], dtype=torch.int32, device="cuda")
+    opts = dict(causal=True, kv_valid=kv, dropout_rate=rate,
+                dropout_seed=seed)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **opts)
+    args = (q, k, v, do, lse, fa.flash_attention_delta(do, out), d ** -0.5,
+            True, kv, rate, seed)
+    timed(f"fwd_{key}",
+          lambda: fa.flash_attention(q, k, v, return_lse=True, **opts))
+    timed(f"dkv_{key}", lambda: fa.flash_attention_bwd_dkv(*args))
+    del q, k, v, do, out, lse, args
+    torch.cuda.empty_cache()
+print(json.dumps(res))
+'''
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("others", nargs="+", help="paths of the other trees")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--runtime-d", action="store_true",
+                    help="time only the runtime-D instances (D >= 320)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -144,8 +190,10 @@ def main():
         for other in args.others:
             for side in (other, "this", "this", other):
                 cwd = here if side == "this" else os.path.abspath(side)
-                run = subprocess.run([sys.executable, "-c", CHILD], cwd=cwd,
-                                     capture_output=True, text=True)
+                run = subprocess.run(
+                    [sys.executable, "-c",
+                     CHILD_DN if args.runtime_d else CHILD], cwd=cwd,
+                    capture_output=True, text=True)
                 if run.returncode:
                     print(run.stderr[-3000:], file=sys.stderr)
                     return 1

@@ -14,29 +14,36 @@
 // d_bias, dk and dv are written whole (zeros where nothing was computed),
 // as there.
 //
-// Design (flash_dn.cuh says why the templated instances stop at 256):
-//   - dq: grid (ceil(T/64), BH, D/64); 4 warps of 16 query rows; block z
-//     accumulates dQ's columns [64z, 64z + 64) and block z = 0 writes
-//     d_bias.  For each key tile of 64 keys, S = Q K^T and dP = dO V^T are
-//     summed over D in 64-column chunks of Q, K, dO and V streamed through
-//     shared memory (four 64 x 64 tiles), dS is computed on the registers,
-//     then the block's 64 columns of the K tile are copied and dQ += dS K;
-//   - dk/dv: grid (ceil(Tk/64), BH, D/64); 4 warps of 16 key rows; block z
-//     accumulates dK's and dV's columns [64z, 64z + 64).  For each query
-//     tile of 64 queries (from the diagonal when causal), S^T = K Q^T and
-//     dP^T = V dO^T are summed over D in 64-column chunks, the query tile's
-//     lse and delta staged beside them, P^T and dS^T computed on the
-//     registers (the query index is the column), then the block's 64
-//     columns of the dO and Q tiles are copied and dV += P^T dO,
-//     dK += dS^T Q;
-//   - every column block recomputes S and dP: D/64 times the score
-//     products of a kernel that keeps all of dQ (dK, dV) resident.
-// Bound on the H100: operations.  dq does 2*T*Tk*D*BH*(2*D/64 + 1) and
-// dk/dv 2*T*Tk*D*BH*(2*D/64 + 2) against 6 and 8 T*Tk*D*BH for one pass
-// (about half of each under a causal mask): 5.67x and 4.5x at D = 512.
-// bf16 on mma.sync.m16n8k16, float32 on 3xTF32 (flash_dn.cuh).
-// The C entry points send bfloat16 to the mma.sync kernels (route 3) and
-// float32 to the 3xTF32 ones (route 2); nothing else falls back.
+// dq (flash_dn.cuh, design 2, the column-block design): grid (ceil(T/64),
+// BH, D/64); 4 warps of 16 query rows; block z accumulates dQ's columns
+// [64z, 64z + 64) and block z = 0 writes d_bias.  For each key tile of 64
+// keys, S = Q K^T and dP = dO V^T are summed over D in 64-column chunks of
+// Q, K, dO and V streamed through shared memory (four 64 x 64 tiles), dS
+// is computed on the registers, then the block's 64 columns of the K tile
+// are copied and dQ += dS K.  Every column block recomputes S and dP:
+// 2*T*Tk*D*BH*(2*D/64 + 1) operations against 6 T*Tk*D*BH for one pass,
+// 5.67x at D = 512; bf16 on mma.sync.m16n8k16.
+//
+// dk/dv (flash_dn.cuh, design 1, the split-D design): a cluster of blocks
+// (split_d(d, 2, 2): D/256 blocks rounded up, at least 2 and at most 8,
+// each of two warpgroups of up to 128 columns of dK and of dV; passes of
+// clusters beyond D = 2048) owns 64 key rows; grid (cluster x passes x key
+// tiles, BH).  For each query tile of 64 queries (from the diagonal when
+// causal) each warpgroup sums its partial S^T = K Q^T and dP^T = V dO^T
+// over its own 64-column blocks, streamed through its ring; exchange sums
+// them across the cluster; every warpgroup computes P^T and dS^T on the
+// whole tile (the query index is the column; lse and delta read from
+// device memory) and dV += P^T dO, dK += dS^T Q on its own columns.
+// What it does about the column blocks: each score product is done
+// once a pair of tiles ((2 D/64 + 2) / 4 = 4.5x fewer operations at D =
+// 512, 8.5x at 1024), each block reads only its slice of K, V, Q and dO;
+// the ring keeps the next steps' copies in flight; bf16 runs SS wgmma for
+// the score products and RS wgmma (P^T, dS^T from registers) for the
+// output products.  8 T*Tk*D*BH operations (about half causal).
+// float32 runs 3xTF32 mma.sync in both kernels (flash_dn.cuh).
+// The C entry points send bfloat16 to the mma.sync dq kernel (route 3) and
+// the wgmma dk/dv kernel (route 1), float32 to the 3xTF32 ones (route 2);
+// nothing else falls back.
 #include "flash_dn.cuh"
 
 namespace hp = tmx_hopper;
@@ -48,12 +55,6 @@ using namespace tmx_dn;
 template <typename T>
 constexpr size_t dq_smem_bytes() {
   return 4 * tile_bytes<T>();  // Q, dO, K, V chunks
-}
-
-template <typename T>
-constexpr size_t dkv_smem_bytes() {
-  // K, V, Q, dO chunks, then the query tile's lse and delta
-  return 4 * tile_bytes<T>() + 2 * sizeof(float) * kRows;
 }
 
 // T: float or __nv_bfloat16; BT: the bias element type, NoBias without a
@@ -200,8 +201,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, typename BT>
-__global__ void __launch_bounds__(kThreads, 1)
+// kResident (one pass): K and V resident, Q and dO staged once a query
+// tile for both the score and the output products (7-33% less device
+// time than the ring alone: flash_dn.cuh); else, with more than one pass
+// of clusters, every operand streams through the ring.
+template <typename T, typename BT, bool kResident>
+__global__ void __launch_bounds__(kSplitThreads, 1)
     flash_dkv_dn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
@@ -212,113 +217,276 @@ __global__ void __launch_bounds__(kThreads, 1)
                         float scale, int causal, uint32_t threshold,
                         float keep_scale) {
   constexpr bool kBias = kHasBias<BT>;
-  constexpr int L = kLd<T>;
-  extern __shared__ float4 smem_f4[];
-  T* k_s = reinterpret_cast<T*>(smem_f4);  // [64][L] each
-  T* v_s = k_s + kRows * L;
-  T* q_s = v_s + kRows * L;
-  T* do_s = q_s + kRows * L;
-  float* lse_s = reinterpret_cast<float*>(do_s + kRows * L);  // [64]
-  float* dl_s = lse_s + kRows;                                // [64] delta
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr uint32_t kTile = kTileBytes<T>;
+  constexpr int kCap = kDkvCapBlocks<T>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hp::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint8_t* base_g = smem_raw + (base - raw);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const Split sp = split_d(d, kCap, kDkvMinBlocks);
+  const int half = threadIdx.x / kWg, tid = threadIdx.x % kWg;
+  const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // the m16n8 fragment coordinates
-  const int bh = blockIdx.y, k0 = blockIdx.x * kRows, kw0 = k0 + 16 * warp;
-  const int c0 = blockIdx.z * kChunk;  // the block's dK and dV columns
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int w = 2 * rank + half;
+  const int x = blockIdx.x / sp.cluster, pass = x % sp.passes;
+  const int k0 = (x / sp.passes) * kRows;
+  int b0, nb, sb0, snb;  // this warpgroup's blocks of dK, dV; the scores
+  slice_of(d, sp, pass, w, b0, nb);
+  score_slice_of(d, sp, w, sb0, snb);
+  const uint32_t region = dkv_region_bytes<T>(kResident, sp.wgs);
+  const uint32_t mine = base + half * region;
+  // [S^T partial][dP^T partial][owned P^T, dS^T groups], past the tiles
+  const uint32_t part = dkv_tiles<T>(kResident) * kTile;
+  const Exchange ex{base, region, part, sp.wgs, w, rank, tid, false, false, 0};
+
+  const int bh = blockIdx.y;
   const long qoff = static_cast<long>(bh) * tq;
   const long koff = static_cast<long>(bh) * tk;
+  const T* qb = q + qoff * d;
+  const T* dob = dout + qoff * d;
+  const T* kb = k + koff * d;
+  const T* vb = v + koff * d;
   const int valid = valid_keys(kv_valid, bh, tk);
   const bool drop = seed != nullptr;
   // the two key rows of this thread's accumulator registers
-  const int krow[2] = {kw0 + g, kw0 + g + 8};
-  const uint32_t row_key =
-      drop ? dropout_row_key(static_cast<uint32_t>(seed[0]), bh) : 0u;
+  const int krow[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
   const long plane =
       kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
             : 0;
-
   // a key tile wholly past kv_valid runs no query tile and writes zeros
   const int n_qt = k0 < valid ? (tq + kChunk - 1) / kChunk : 0;
   const int qt0 = causal ? k0 / kChunk : 0;
-  const bool keys_in = kw0 < valid;  // the warp holds a valid key
+  auto tile = [&](uint32_t at) {  // a tile as float32 (generic)
+    return reinterpret_cast<const float*>(base_g + (at - base));
+  };
+  auto score = [&](float (&acc)[32], uint32_t a, uint32_t b) {
+    if constexpr (kF32)
+      score_f32(acc, tile(a) + 16 * warp * kLd<float>, tile(b), g, t);
+    else
+      score_bf16(acc, a, b);
+  };
 
-  float dk_acc[8][4], dv_acc[8][4], s[8][4], dp[8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kChunk;
-    const bool skip = !keys_in || (causal && q0 + kChunk - 1 < kw0);
-    zero(s);
-    zero(dp);
-    for (int c = 0; c < d; c += kChunk) {
-      __syncthreads();  // every warp is done with the tiles' last chunk
-      copy_chunk<T>(hp::smem_addr(k_s), k + koff * d, k0, tk, d, c, tid);
-      copy_chunk<T>(hp::smem_addr(v_s), v + koff * d, k0, tk, d, c, tid);
-      copy_chunk<T>(hp::smem_addr(q_s), q + qoff * d, q0, tq, d, c, tid);
-      copy_chunk<T>(hp::smem_addr(do_s), dout + qoff * d, q0, tq, d, c, tid);
-      if (c == 0) {
-        hp::copy_floats(hp::smem_addr(lse_s), lse + qoff + q0, kRows,
-                        tq - q0, tid);
-        hp::copy_floats(hp::smem_addr(dl_s), delta + qoff + q0, kRows,
-                        tq - q0, tid - kRows);
-      }
-      chunk_ready();
-      if (!skip) {
-        // transposed scores: key rows, query columns
-        score_chunk<T>(s, k_s + 16 * warp * L, q_s, g, t);
-        score_chunk<T>(dp, v_s + 16 * warp * L, do_s, g, t);
-      }
+  float dk_acc[kCap][32], dv_acc[kCap][32];
+#pragma unroll
+  for (int b = 0; b < kCap; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[b][i] = dv_acc[b][i] = 0.f;
+  float st[32], dpt[32];  // S^T (later P^T), dP^T (later dS^T)
+
+  // The exchange of dk/dv: every warpgroup writes its partial S^T and
+  // dP^T; the owner of group q (warpgroup q % n) sums both over the n
+  // warpgroups in order, reading them from the cluster, turns the sums
+  // into P^T = exp(S^T scale + bias - lse) (dropped: z/(1-r) p) and
+  // dS^T = p (z/(1-r) dP^T - delta) scale, element by element, and keeps
+  // them beside its partials; then every warpgroup reads every group from
+  // its owner.  So the probabilities are computed once, not by every
+  // warpgroup, and a warpgroup moves about four tiles' bytes however many
+  // share the tile.  Two cluster barriers: a partial is rewritten only
+  // after the next tile's products, once the owners have read it (the
+  // second barrier); the owned groups only after the next tile's first
+  // barrier, once every warpgroup has read them.
+  auto exchange = [&](int q0) {
+    const uint32_t dp_part = part + kPartBytes, res = part + 2 * kPartBytes;
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      ex.store(part, c, st[4 * c], st[4 * c + 1], st[4 * c + 2],
+               st[4 * c + 3]);
+      ex.store(dp_part, c, dpt[4 * c], dpt[4 * c + 1], dpt[4 * c + 2],
+               dpt[4 * c + 3]);
     }
-
-    // s <- the dropped p^T, dp <- ds^T = p^T o (z/(1-r) dp^T - delta) scale
-    if (!skip) {
+    ex.sync();
+    const uint32_t row_key =
+        drop ? dropout_row_key(static_cast<uint32_t>(__ldg(seed)), bh) : 0u;
+    for (int c = w, r = 0; c < kGroups; c += ex.n, ++r) {
+      float sv[4] = {0.f, 0.f, 0.f, 0.f}, dv4[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int u = 0; u < ex.n; ++u) {
+        const float4 a = ex.load(u, part, c), b = ex.load(u, dp_part, c);
+        sv[0] += a.x;
+        sv[1] += a.y;
+        sv[2] += a.z;
+        sv[3] += a.w;
+        dv4[0] += b.x;
+        dv4[1] += b.y;
+        dv4[2] += b.z;
+        dv4[3] += b.w;
+      }
+      // register 4c + i: key row krow[i / 2], query q0 + 8c + 2t + i % 2
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int e = 0; e < 2; ++e) {
+        const int qp = q0 + 8 * c + 2 * t + e;
+        const bool q_in = qp < tq;
+        const float lq = q_in ? __ldg(lse + qoff + qp) : 0.f;
+        const float dlq = q_in ? __ldg(delta + qoff + qp) : 0.f;
+        const uint32_t qkey = drop ? dropout_q_key(row_key, qp) : 0u;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cq = 8 * j + 2 * t + e, qp = q0 + cq;
-          const float lq = lse_s[cq], dlq = dl_s[cq];
-          const uint32_t qkey = drop ? dropout_q_key(row_key, qp) : 0u;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int i = 2 * h + e, kp = krow[h];
-            const bool ok = qp < tq && kp < valid && (!causal || kp <= qp);
-            float x = s[j][i] * scale;
-            if constexpr (kBias)
-              x += ok ? bias_value<BT>(bias.ptr,
-                                       plane + static_cast<long>(qp) * tk + kp)
-                      : 0.f;
-            const float p = ok ? expf(x - lq) : 0.f;
-            float pd = p, gd = dp[j][i];
-            if (drop) {
-              const bool keep = dropout_keep(qkey, kp, threshold);
-              pd = keep ? p * keep_scale : 0.f;
-              gd = keep ? gd * keep_scale : 0.f;
-            }
-            s[j][i] = pd;
-            dp[j][i] = p * (gd - dlq) * scale;
+        for (int h = 0; h < 2; ++h) {
+          const int i = 2 * h + e, kp = krow[h];
+          const bool ok = q_in && kp < valid && (!causal || kp <= qp);
+          float xs = sv[i] * scale;
+          if constexpr (kBias)
+            xs += ok ? bias_value<BT>(bias.ptr,
+                                      plane + static_cast<long>(qp) * tk + kp)
+                     : 0.f;
+          const float p = ok ? expf(xs - lq) : 0.f;
+          float pd = p, gd = dv4[i];
+          if (drop) {
+            const bool keep = dropout_keep(qkey, kp, threshold);
+            pd = keep ? p * keep_scale : 0.f;
+            gd = keep ? gd * keep_scale : 0.f;
           }
+          sv[i] = pd;
+          dv4[i] = p * (gd - dlq) * scale;
+        }
+      }
+      ex.store(res, 2 * r, sv[0], sv[1], sv[2], sv[3]);
+      ex.store(res, 2 * r + 1, dv4[0], dv4[1], dv4[2], dv4[3]);
+    }
+    ex.sync();
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      const int o = c % ex.n, r = c / ex.n;
+      const float4 a = ex.load(o, res, 2 * r), b = ex.load(o, res, 2 * r + 1);
+      st[4 * c] = a.x;
+      st[4 * c + 1] = a.y;
+      st[4 * c + 2] = a.z;
+      st[4 * c + 3] = a.w;
+      dpt[4 * c] = b.x;
+      dpt[4 * c + 1] = b.y;
+      dpt[4 * c + 2] = b.z;
+      dpt[4 * c + 3] = b.w;
+    }
+  };
+  // dK += dS^T Q (Q's tile at q_at), then dV += P^T dO (at d_at), on
+  // block b of this warpgroup's columns; `between` runs between the two
+  // (the resident path's next copy of Q)
+  auto outputs = [&](int b, uint32_t q_at, uint32_t d_at, auto between) {
+    if constexpr (kF32) {
+      out_f32(dk_acc[b], dpt, tile(q_at), g, t);
+      between();
+      out_f32(dv_acc[b], st, tile(d_at), g, t);
+    } else {
+      uint32_t a[4][4];  // dS^T, then P^T, in bf16: the A operand
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hp::to_a_frag(dpt, j, a[j]);
+      out_bf16(dk_acc[b], a, q_at);
+      between();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hp::to_a_frag(st, j, a[j]);
+      out_bf16(dv_acc[b], a, d_at);
+    }
+  };
+
+  if constexpr (kResident) {
+    // [kCap] K, [kCap] V, [kCap] Q, [kCap] dO tiles.  A query tile's Q is
+    // copied once its predecessor's dS^T Q products are done (it lands
+    // during the P^T dO products), its dO once the P^T dO products are
+    // (it lands during the S^T products): two cp.async groups a tile
+    const uint32_t k_at = mine, v_at = mine + kCap * kTile;
+    const uint32_t q_at = v_at + kCap * kTile, do_at = q_at + kCap * kTile;
+    auto stage = [&](uint32_t dst, const T* src, int r0, int rows) {
+      for (int b = 0; b < nb; ++b)
+        copy_block<T>(dst + b * kTile, src, r0, rows, d, (b0 + b) * kChunk,
+                      tid);
+    };
+    if (qt0 < n_qt) {
+      stage(k_at, kb, k0, tk);
+      stage(v_at, vb, k0, tk);
+      stage(q_at, qb, qt0 * kChunk, tq);
+    }
+    hp::cp_async_commit();
+    if (qt0 < n_qt) stage(do_at, dob, qt0 * kChunk, tq);
+    hp::cp_async_commit();
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * kChunk;
+      const bool more = qt + 1 < n_qt;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      landed<T>(1, half);  // K, V and this tile's Q
+      for (int b = 0; b < nb; ++b)
+        score(st, k_at + b * kTile, q_at + b * kTile);
+      landed<T>(0, half);  // this tile's dO
+      for (int b = 0; b < nb; ++b)
+        score(dpt, v_at + b * kTile, do_at + b * kTile);
+      exchange(q0);
+#pragma unroll
+      for (int b = 0; b < kCap; ++b)
+        if (b < nb)
+          outputs(b, q_at + b * kTile, do_at + b * kTile, [&] {
+            if (b + 1 < nb) return;
+            wg_sync(half);  // every dS^T Q product is done
+            if (more) stage(q_at, qb, q0 + kChunk, tq);
+            hp::cp_async_commit();
+          });
+      if (nb == 0) hp::cp_async_commit();
+      wg_sync(half);  // every P^T dO product is done
+      if (more) stage(do_at, dob, q0 + kChunk, tq);
+      hp::cp_async_commit();
+    }
+  } else {
+    // a query tile's stream: (K, Q) for each score block, (V, dO) for
+    // each, then (Q, dO) for each output block
+    const int tpt = 4 * snb + 2 * nb;
+    const int total = max(n_qt - qt0, 0) * tpt;
+    auto issue = [&](int i, uint32_t dst) {
+      if (i >= total) return;
+      const int q0 = (qt0 + i / tpt) * kChunk, s = i % tpt;
+      const bool first = s % 2 == 0;
+      if (s < 4 * snb) {
+        const int c = (sb0 + (s % (2 * snb)) / 2) * kChunk;
+        const bool ds = s >= 2 * snb;  // (V, dO) else (K, Q)
+        if (first)
+          copy_block<T>(dst, ds ? vb : kb, k0, tk, d, c, tid);
+        else
+          copy_block<T>(dst, ds ? dob : qb, q0, tq, d, c, tid);
+      } else {
+        const int c = (b0 + (s - 4 * snb) / 2) * kChunk;
+        copy_block<T>(dst, first ? qb : dob, q0, tq, d, c, tid);
+      }
+    };
+    Ring<T, decltype(issue)> ring{mine, half, 0, issue};
+    ring.start();
+    for (int qt = qt0; qt < n_qt; ++qt) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      for (int b = 0; b < snb; ++b) {
+        const uint32_t a = ring.acquire();
+        score(st, a, ring.acquire());
+      }
+      for (int b = 0; b < snb; ++b) {
+        const uint32_t a = ring.acquire();
+        score(dpt, a, ring.acquire());
+      }
+      exchange(qt * kChunk);
+#pragma unroll
+      for (int b = 0; b < kCap; ++b)
+        if (b < nb) {
+          const uint32_t q_at = ring.acquire();
+          outputs(b, q_at, ring.acquire(), [] {});
         }
     }
-    __syncthreads();  // lse and delta are read; the tiles are free
-    copy_chunk<T>(hp::smem_addr(q_s), q + qoff * d, q0, tq, d, c0, tid);
-    copy_chunk<T>(hp::smem_addr(do_s), dout + qoff * d, q0, tq, d, c0, tid);
-    chunk_ready();
-    if (skip) continue;
-    out_chunk<T>(dv_acc, s, do_s, g, t);
-    out_chunk<T>(dk_acc, dp, q_s, g, t);
   }
+  cluster_sync();  // no block leaves while another reads its shared memory
 
   // key rows past kv_valid (or in a tile that ran no query tile) hold 0
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (krow[h] >= tk) continue;
-    T* krow_o = dk + (koff + krow[h]) * d + c0;
-    T* vrow_o = dv + (koff + krow[h]) * d + c0;
+    T* krow_o = dk + (koff + krow[h]) * d;
+    T* vrow_o = dv + (koff + krow[h]) * d;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      store2(krow_o + 8 * n + 2 * t, dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
-      store2(vrow_o + 8 * n + 2 * t, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+    for (int b = 0; b < kCap; ++b) {
+      if (b >= nb) break;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = (b0 + b) * kChunk + 8 * n + 2 * t;
+        store2(krow_o + c, dk_acc[b][4 * n + 2 * h],
+               dk_acc[b][4 * n + 2 * h + 1]);
+        store2(vrow_o + c, dv_acc[b][4 * n + 2 * h],
+               dv_acc[b][4 * n + 2 * h + 1]);
+      }
     }
   }
 }
@@ -361,17 +529,35 @@ cudaError_t launch(const Args& a) {
         a.delta, static_cast<T*>(a.dq), a.bias, a.d_bias, a.kv_valid, a.seed,
         a.tq, a.tk, a.d, a.scale, a.causal, a.threshold, a.keep_scale);
   } else {
-    constexpr size_t smem = dkv_smem_bytes<T>();
-    auto kernel = flash_dkv_dn_kernel<T, BT>;
-    const cudaError_t err = allow_smem(kernel, smem);
+    const Split sp = split_d(a.d, kDkvCapBlocks<T>, kDkvMinBlocks);
+    const bool resident = sp.passes == 1;
+    const size_t smem = split_smem_bytes(dkv_region_bytes<T>(resident, sp.wgs));
+    auto kernel = resident ? flash_dkv_dn_kernel<T, BT, true>
+                           : flash_dkv_dn_kernel<T, BT, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    kernel<<<dim3((a.tk + kRows - 1) / kRows, a.bh, a.d / kChunk), kThreads,
-             smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim =
+        dim3(static_cast<unsigned>(split_grid_x(sp, a.tk)), a.bh, 1);
+    cfg.blockDim = dim3(kSplitThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = a.stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = sp.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(
+        &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
         a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.bias,
         a.kv_valid, a.seed, a.tq, a.tk, a.d, a.scale, a.causal, a.threshold,
         a.keep_scale);
+    if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
 }
@@ -388,11 +574,22 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// dk/dv's split of head dim d for dtype (0 float32, 1 bfloat16).
+Split dkv_split(int d, int dtype) {
+  return split_d(d,
+                 dtype == 0 ? kDkvCapBlocks<float>
+                            : kDkvCapBlocks<__nv_bfloat16>,
+                 kDkvMinBlocks);
+}
+
 template <int kKind>
 int run(const Args& a, int dtype, const void* out0, const void* out1,
         int* route) {
   if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.bh > 65535 || a.d < kChunk ||
-      a.d % kChunk != 0 || a.d / kChunk > 65535)
+      a.d % kChunk != 0)
+    return cudaErrorInvalidValue;
+  if (kKind == 0 && a.d / kChunk > 65535) return cudaErrorInvalidValue;
+  if (kKind == 1 && split_grid_x(dkv_split(a.d, dtype), a.tk) > 2147483647L)
     return cudaErrorInvalidValue;
   if (a.bias.ptr != nullptr &&
       (a.bias.planes < 1 || a.bh % a.bias.planes != 0 || a.bias.dtype < 0 ||
@@ -402,7 +599,7 @@ int run(const Args& a, int dtype, const void* out0, const void* out1,
   if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
       !aligned16(a.dout) || !aligned16(out0) || !aligned16(out1))
     return cudaErrorInvalidValue;
-  *route = dtype == 0 ? 2 : 3;
+  *route = dtype == 0 ? 2 : kKind == 0 ? 3 : 1;
   return dtype == 0 ? dispatch<kKind, float>(a)
                     : dispatch<kKind, __nv_bfloat16>(a);
 }
@@ -411,7 +608,8 @@ int run(const Args& a, int dtype, const void* out0, const void* out1,
 
 // The C interface of flash_attention_bwd.cu, for any head dim d that is a
 // positive multiple of 64.  dtype: 0 float32 (3xTF32 kernels, *route = 2),
-// 1 bfloat16 (mma.sync kernels, *route = 3).
+// 1 bfloat16 (dq: the mma.sync kernel, *route = 3; dk/dv: the wgmma
+// kernel, *route = 1).
 extern "C" int tmx_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, const void* bias,
@@ -440,6 +638,16 @@ extern "C" int tmx_flash_attention_bwd_dkv(
          tk,      d,       scale,    causal,  threshold,
          keep_scale, static_cast<cudaStream_t>(stream)};
   return run<1>(a, dtype, dk, dv, route);
+}
+
+// The split dk/dv launches with at head dim d for dtype (0 float32, 1
+// bfloat16) and `rows` key rows (write_split in flash_dn.cuh); -1 when d
+// is not a positive multiple of 64 or `n` ints cannot hold it.
+extern "C" int tmx_flash_dkv_dn_split(int d, int dtype, int rows, int* out,
+                                      int n) {
+  if (d < kChunk || d % kChunk != 0 || rows < 1 || (dtype != 0 && dtype != 1))
+    return -1;
+  return write_split(d, dkv_split(d, dtype), rows, out, n);
 }
 
 extern "C" const char* tmx_error_string(int code) {

@@ -1,6 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a) at head dims of 320 and more:
-// one runtime-D instance a dtype, D passed as an argument (any multiple of
-// 64), a translation unit and a library of its own.
+// Flash-attention forward for Hopper (sm_90a) at head dims of 320 and
+// more: one runtime-D instance a dtype, D passed as an argument (any
+// multiple of 64), a translation unit and a library of its own.
 //
 // Replaces, at those head dims, the forward Pallas TPU kernel
 // tpu_mx/kernels/flash_attention.py::_fwd_kernel (launched by _fwd), whose
@@ -9,25 +9,34 @@
 // logsumexp, the masks, dropout and bias of flash_attention_fwd.cu (its
 // header says what each does), computed the same way per score element.
 //
-// Design (flash_dn.cuh says why the templated instances stop at 256):
-//   - grid (ceil(T/64), BH, D/64); 128 threads, 4 warps of 16 query rows;
-//     block z accumulates O's columns [64z, 64z + 64) in 32 float32
-//     registers a thread; block z = 0 writes lse;
-//   - for each key tile of 64 keys (up to kv_valid, to the diagonal when
-//     causal), S = Q K^T is summed over D in 64-column chunks of Q and K
-//     streamed through shared memory (two 64 x 64 tiles), then the online
-//     softmax runs on S's registers as in the templated instances (row max
-//     and sum over the quad by two __shfl_xor_sync, masks, the dropout keep
-//     bit, the bias read from device memory in its own type), then the
-//     block's 64 columns of the V tile are copied and O += P V;
-//   - every column block recomputes S and the statistics: the score
-//     products are done D/64 times (the recompute; PERF.md has its cost).
-// Bound on the H100: operations once T passes a few hundred.  The single
-// pass does 4*T*Tk*D*BH (about half under a causal mask); this design does
-// 2*T*Tk*D*BH*(D/64) + 2*T*Tk*D*BH, 4.5x at D = 512.  bf16 runs
-// mma.sync.m16n8k16 at up to the 989 TFLOP/s rate; float32 three TF32
-// products a product at 495.
-// The C entry point sends bfloat16 to the mma.sync kernel (route 3) and
+// Design: the split-D design of flash_dn.cuh.  A cluster of blocks
+// (split_d(d, 4, 1): D/512 blocks rounded up, each of two warpgroups of
+// up to 256 columns; 1 block up to D = 512, 8 at D = 4096) owns 64 query
+// rows and all of D; grid (cluster x row tiles, BH).  For each key tile
+// of 64 keys (up to kv_valid, to the diagonal when causal):
+//   - each warpgroup sums its partial S = Q K^T over its own 64-column
+//     blocks of Q (bf16: resident) and K (streamed through its ring);
+//   - the exchange sums the partials across the cluster: every
+//     warpgroup holds S, runs the online softmax on it (masks, the
+//     dropout keep bit, the bias read from device memory in its own
+//     type) and O += P V on its own columns of O (V streamed; 128 float32
+//     registers a thread at most);
+//   - global warpgroup 0 writes lse.
+// What it does about the column-block design (flash_dn.cuh, design 2):
+//   1. the scores are no longer recomputed: each score product is done
+//      once a pair of tiles, from slices (4.5x fewer operations at
+//      D = 512, 8.5x at 1024), and each block reads only its own slice
+//      of Q, K and V;
+//   2. copies overlap compute: the ring keeps kRingTiles - 2 tiles'
+//      copies in flight (four bf16, two float32) instead of waiting for
+//      each chunk;
+//   3. bf16 runs SS wgmma m64n64k16 for S and RS wgmma (P from registers)
+//      for P V, not mma.sync; float32 stays 3xTF32 mma.sync, every k-step
+//      summed apart.
+// Bound on the H100: operations once T passes a few hundred, 4*T*Tk*D*BH
+// (about half under a causal mask) at up to the 989 TFLOP/s bf16 rate,
+// three TF32 products a product at 495 in float32.
+// The C entry point sends bfloat16 to the wgmma kernel (route 1) and
 // float32 to the 3xTF32 one (route 2); nothing else falls back.
 #include "flash_dn.cuh"
 
@@ -37,15 +46,10 @@ namespace {
 
 using namespace tmx_dn;
 
-template <typename T>
-constexpr size_t fwd_smem_bytes() {
-  return 2 * tile_bytes<T>();  // the Q (later V) tile and the K tile
-}
-
 // T: float or __nv_bfloat16 (q, k, v and o); BT: the bias element type
 // (flash_common.cuh), NoBias without a bias.
 template <typename T, bool kDrop, typename BT>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kSplitThreads, 1)
     flash_fwd_dn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ o,
                         float* __restrict__ lse,
@@ -54,74 +58,121 @@ __global__ void __launch_bounds__(kThreads, 1)
                         int tk, int d, float scale, int causal,
                         uint32_t threshold, float keep_scale) {
   constexpr bool kBias = kHasBias<BT>;
-  constexpr int L = kLd<T>;
-  extern __shared__ float4 smem_f4[];
-  T* a_s = reinterpret_cast<T*>(smem_f4);  // [64][L]: a Q chunk, a V chunk
-  T* b_s = a_s + kRows * L;                // [64][L]: a K chunk
-  const uint32_t a_a = hp::smem_addr(a_s), b_a = hp::smem_addr(b_s);
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr uint32_t kTile = kTileBytes<T>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hp::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint8_t* base_g = smem_raw + (base - raw);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const Split sp = split_d(d, kFwdCapBlocks, kFwdMinBlocks);
+  const int half = threadIdx.x / kWg, tid = threadIdx.x % kWg;
+  const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // the m16n8 fragment coordinates
-  const int bh = blockIdx.y, q0 = blockIdx.x * kRows, qw0 = q0 + 16 * warp;
-  const int c0 = blockIdx.z * kChunk;  // the block's output columns
-  const int qrow[2] = {qw0 + g, qw0 + g + 8};
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int w = 2 * rank + half;
+  const int x = blockIdx.x / sp.cluster, pass = x % sp.passes;
+  const int q0 = (x / sp.passes) * kRows;
+  int b0, nb, sb0, snb;  // this warpgroup's blocks of O and of the scores
+  slice_of(d, sp, pass, w, b0, nb);
+  score_slice_of(d, sp, w, sb0, snb);
+  const uint32_t region = wg_region_bytes<T>(kFwdTiles<T>, sp.wgs);
+  const uint32_t part = kFwdTiles<T> * kTile;  // within a region
+  // bf16 keeps its Q slice resident (past the ring) when it fits, which
+  // it does up to D = 4096; float32 streams Q beside K
+  const bool q_res = !kF32 && snb <= kFwdCapBlocks;
+  const uint32_t slots = base + half * region;
+  const uint32_t q_at = slots + kRingTiles<T> * kTile;
+  Exchange exchange{base, region, part, sp.wgs, w, rank, tid,
+                    sp.cluster == 1,
+                    exchange_gathers(kFwdTiles<T> * kTile, sp.wgs), 0};
+
+  const int bh = blockIdx.y;
+  const int qrow[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
   const T* qb = q + static_cast<long>(bh) * tq * d;
   const T* kb = k + static_cast<long>(bh) * tk * d;
   const T* vb = v + static_cast<long>(bh) * tk * d;
   const int valid = valid_keys(kv_valid, bh, tk);
-  uint32_t qkey[2] = {0u, 0u};
-  if (kDrop) {
-    const uint32_t row = dropout_row_key(static_cast<uint32_t>(seed[0]), bh);
-    qkey[0] = dropout_q_key(row, qrow[0]);
-    qkey[1] = dropout_q_key(row, qrow[1]);
-  }
   const long plane =
       kBias ? static_cast<long>(bh % bias.planes) * tq * static_cast<long>(tk)
             : 0;
   int n_tiles = (valid + kChunk - 1) / kChunk;
   if (causal) n_tiles = min(n_tiles, (min(q0 + kRows, tq) - 1) / kChunk + 1);
-  const bool rows_in = qw0 < tq;  // the warp holds rows below T
 
-  float acc[8][4], s[8][4];
-  zero(acc);
+  // a key tile's stream: snb K blocks (each after its Q block unless Q is
+  // resident), then nb V blocks
+  const int per = q_res ? 1 : 2, tpt = per * snb + nb;
+  const int total = n_tiles * tpt;
+  auto issue = [&](int i, uint32_t dst) {
+    if (i >= total) return;
+    const int k0 = (i / tpt) * kChunk, s = i % tpt;
+    if (s < per * snb) {
+      const int c = (sb0 + s / per) * kChunk;
+      if (per == 2 && s % 2 == 0)
+        copy_block<T>(dst, qb, q0, tq, d, c, tid);
+      else
+        copy_block<T>(dst, kb, k0, tk, d, c, tid);
+    } else {
+      copy_block<T>(dst, vb, k0, tk, d, (b0 + s - per * snb) * kChunk, tid);
+    }
+  };
+  if (q_res && n_tiles > 0) {  // committed with the ring's first tile
+    for (int b = 0; b < snb; ++b)
+      copy_block<T>(q_at + b * kTile, qb, q0, tq, d, (sb0 + b) * kChunk, tid);
+  }
+  Ring<T, decltype(issue)> ring{slots, half, 0, issue};
+  ring.start();
+  auto tile = [&](uint32_t at) {  // a ring tile as float32 (generic)
+    return reinterpret_cast<const float*>(base_g + (at - base));
+  };
+
+  float acc[kFwdCapBlocks][32];
+#pragma unroll
+  for (int b = 0; b < kFwdCapBlocks; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
+  float s[32];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kChunk;
-    const bool skip = !rows_in || (causal && k0 > qw0 + 15);
-    zero(s);
-    for (int c = 0; c < d; c += kChunk) {
-      __syncthreads();  // every warp is done with the tiles' last chunk
-      copy_chunk<T>(a_a, qb, q0, tq, d, c, tid);
-      copy_chunk<T>(b_a, kb, k0, tk, d, c, tid);
-      chunk_ready();
-      if (!skip) score_chunk<T>(s, a_s + 16 * warp * L, b_s, g, t);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    for (int b = 0; b < snb; ++b) {
+      const uint32_t qt = q_res ? q_at + b * kTile : ring.acquire();
+      const uint32_t kt_at = ring.acquire();
+      if constexpr (kF32)
+        score_f32(s, tile(qt) + 16 * warp * kLd<float>, tile(kt_at), g, t);
+      else
+        score_bf16(s, qt, kt_at);
     }
-    __syncthreads();
-    copy_chunk<T>(a_a, vb, k0, tk, d, c0, tid);
-    chunk_ready();
-    if (skip) continue;
+    exchange(s);
 
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i / 2;
-        const int kp = k0 + 8 * j + 2 * t + (i & 1);
-        const bool ok = kp < valid && (!causal || kp <= qrow[h]);
-        if constexpr (kBias) {
-          const float b =
-              ok && qrow[h] < tq
-                  ? bias_value<BT>(bias.ptr,
-                                   plane + static_cast<long>(qrow[h]) * tk + kp)
-                  : 0.f;
-          s[j][i] = ok ? s[j][i] * scale + b : -INFINITY;
-        } else {
-          s[j][i] = ok ? s[j][i] * scale : kNegInf;
-        }
-        mx[h] = fmaxf(mx[h], s[j][i]);
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) % 2;
+      const int kp = k0 + 8 * (i / 4) + 2 * t + i % 2;
+      const bool ok = kp < valid && (!causal || kp <= qrow[h]);
+      if constexpr (kBias) {
+        const float bv =
+            ok && qrow[h] < tq
+                ? bias_value<BT>(bias.ptr,
+                                 plane + static_cast<long>(qrow[h]) * tk + kp)
+                : 0.f;
+        s[i] = ok ? s[i] * scale + bv : -INFINITY;
+      } else {
+        s[i] = ok ? s[i] * scale : kNegInf;
       }
+      mx[h] = fmaxf(mx[h], s[i]);
+    }
     float alpha[2], mneg[2], sum[2] = {0.f, 0.f};
+    uint32_t qkey[2] = {0u, 0u};  // (hashed again a tile: fewer registers)
+    if (kDrop) {
+      const uint32_t row =
+          dropout_row_key(static_cast<uint32_t>(__ldg(seed)), bh);
+      qkey[0] = dropout_q_key(row, qrow[0]);
+      qkey[1] = dropout_q_key(row, qrow[1]);
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
@@ -132,19 +183,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       m[h] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i / 2;
-        const float p = exp2f(fmaf(s[j][i], kLog2e, mneg[h]));
-        sum[h] += p;  // the normalizer uses the un-dropped probability
-        if (kDrop) {
-          const int kp = k0 + 8 * j + 2 * t + (i & 1);
-          s[j][i] = dropout_keep(qkey[h], kp, threshold) ? p * keep_scale : 0.f;
-        } else {
-          s[j][i] = p;
-        }
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) % 2;
+      const float p = exp2f(fmaf(s[i], kLog2e, mneg[h]));
+      sum[h] += p;  // the normalizer uses the un-dropped probability
+      if (kDrop) {
+        const int kp = k0 + 8 * (i / 4) + 2 * t + i % 2;
+        s[i] = dropout_keep(qkey[h], kp, threshold) ? p * keep_scale : 0.f;
+      } else {
+        s[i] = p;
       }
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
@@ -152,23 +201,40 @@ __global__ void __launch_bounds__(kThreads, 1)
       l[h] = l[h] * alpha[h] + sum[h];
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int b = 0; b < kFwdCapBlocks; ++b)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i / 2];
-    out_chunk<T>(acc, s, a_s, g, t);
-  }
+      for (int i = 0; i < 32; ++i) acc[b][i] *= alpha[(i / 2) % 2];
 
-  if (!rows_in) return;
+    // O += P V on this warpgroup's columns
+    if constexpr (kF32) {
+#pragma unroll
+      for (int b = 0; b < kFwdCapBlocks; ++b)
+        if (b < nb) out_f32(acc[b], s, tile(ring.acquire()), g, t);
+    } else {
+      uint32_t a[4][4];  // P in bf16: the A operand of P V
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hp::to_a_frag(s, j, a[j]);
+#pragma unroll
+      for (int b = 0; b < kFwdCapBlocks; ++b)
+        if (b < nb) out_bf16(acc[b], a, ring.acquire());
+    }
+  }
+  cluster_sync();  // no block leaves while another reads its shared memory
+
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (qrow[h] >= tq) continue;
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
-    T* orow = o + (static_cast<long>(bh) * tq + qrow[h]) * d + c0;
+    T* orow = o + (static_cast<long>(bh) * tq + qrow[h]) * d;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      store2(orow + 8 * n + 2 * t, acc[n][2 * h] * inv,
-             acc[n][2 * h + 1] * inv);
-    if (t == 0 && c0 == 0)
+    for (int b = 0; b < kFwdCapBlocks; ++b) {
+      if (b >= nb) break;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        store2(orow + (b0 + b) * kChunk + 8 * n + 2 * t,
+               acc[b][4 * n + 2 * h] * inv, acc[b][4 * n + 2 * h + 1] * inv);
+    }
+    if (t == 0 && w == 0 && pass == 0)
       lse[static_cast<long>(bh) * tq + qrow[h]] =
           m[h] + logf(fmaxf(l[h], 1e-30f));
   }
@@ -190,20 +256,32 @@ struct Args {
 
 template <typename T, bool kDrop, typename BT>
 cudaError_t launch(const Args& a) {
-  constexpr size_t smem = fwd_smem_bytes<T>();
+  const Split sp = split_d(a.d, kFwdCapBlocks, kFwdMinBlocks);
+  const size_t smem =
+      split_smem_bytes(wg_region_bytes<T>(kFwdTiles<T>, sp.wgs));
   auto kernel = flash_fwd_dn_kernel<T, kDrop, BT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<dim3((a.tq + kRows - 1) / kRows, a.bh, a.d / kChunk), kThreads,
-           smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(split_grid_x(sp, a.tq)), a.bh, 1);
+  cfg.blockDim = dim3(kSplitThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = sp.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.kv_valid,
       a.seed, a.bias, a.tq, a.tk, a.d, a.scale, a.causal, a.threshold,
       a.keep_scale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -229,7 +307,7 @@ bool aligned16(const void* p) {
 
 // The C interface of flash_attention_fwd.cu, for any head dim d that is a
 // positive multiple of 64.  dtype: 0 float32 (3xTF32 kernel, *route = 2),
-// 1 bfloat16 (mma.sync kernel, *route = 3); q, k, v and o 16-byte aligned.
+// 1 bfloat16 (wgmma kernel, *route = 1); q, k, v and o 16-byte aligned.
 extern "C" int tmx_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, float* lse,
                                        const void* bias, int bias_planes,
@@ -239,7 +317,10 @@ extern "C" int tmx_flash_attention_fwd(const void* q, const void* k,
                                        uint32_t threshold, float keep_scale,
                                        int dtype, void* stream, int* route) {
   if (bh < 1 || tq < 1 || tk < 1 || bh > 65535 || d < kChunk ||
-      d % kChunk != 0 || d / kChunk > 65535)
+      d % kChunk != 0)
+    return cudaErrorInvalidValue;
+  if (split_grid_x(split_d(d, kFwdCapBlocks, kFwdMinBlocks), tq) >
+      2147483647L)
     return cudaErrorInvalidValue;
   if (bias != nullptr && (bias_planes < 1 || bh % bias_planes != 0 ||
                           bias_dtype < 0 || bias_dtype > 2))
@@ -251,8 +332,17 @@ extern "C" int tmx_flash_attention_fwd(const void* q, const void* k,
          kv_valid, seed,    {bias, bias_planes, bias_dtype},
          bh,     tq,        tk,         d,     scale,
          causal, threshold, keep_scale, static_cast<cudaStream_t>(stream)};
-  *route = dtype == 0 ? 2 : 3;
+  *route = dtype == 0 ? 2 : 1;
   return dtype == 0 ? dispatch<float>(a) : dispatch<__nv_bfloat16>(a);
+}
+
+// The split the forward launches with at head dim d for `rows` query
+// rows (write_split in flash_dn.cuh: the same for both dtypes); -1 when
+// d is not a positive multiple of 64 or `n` ints cannot hold it.
+extern "C" int tmx_flash_fwd_dn_split(int d, int rows, int* out, int n) {
+  if (d < kChunk || d % kChunk != 0 || rows < 1) return -1;
+  return write_split(d, split_d(d, kFwdCapBlocks, kFwdMinBlocks), rows, out,
+                     n);
 }
 
 extern "C" const char* tmx_error_string(int code) {

@@ -45,12 +45,19 @@ precision in all three too (``tf32x3``: each operand split into two
 TF32 halves, three products, float32 sums — within float32 rounding of
 the plain version, as the serving path and float32 training need).
 Head dims of 320 and more (any multiple of 64) run one runtime-D instance
-a kernel and dtype (``csrc/flash_attention_{fwd,bwd}_dn.cu``): bfloat16
-on ``mma.sync`` (route ``mma``), float32 on ``tf32x3``; its blocks own 64
-output columns each and recompute the scores, streamed over D in
-64-column chunks.  Each wrapper also counts its launches by the route
-the C entry point reports, in ``<wrapper>.routes`` (``{"wgmma": n,
-"tf32x3": n, "mma": n}``); there is no fallback between them.
+a kernel and dtype (``csrc/flash_attention_{fwd,bwd}_dn.cu``).  The
+forward and dk/dv split D over warpgroups and a cluster of blocks
+(:func:`runtime_d_split`) and sum the score products from the slices,
+each computed once: bfloat16 on ``wgmma``, float32 on ``tf32x3``.  The
+bfloat16 forward keeps its slice of Q resident, dk/dv its slices of K
+and V (with one pass of clusters over D); :func:`kernel_split` asks a
+built library for the split its entry point launches with.  The dq
+kernel's blocks own
+64 output columns each and recompute the scores, streamed over D in
+64-column chunks: bfloat16 on ``mma.sync`` (route ``mma``), float32 on
+``tf32x3``.  Each wrapper also counts its launches by the route the C
+entry point reports, in ``<wrapper>.routes`` (``{"wgmma": n, "tf32x3":
+n, "mma": n}``); there is no fallback between them.
 
 Gradients flow through :class:`FlashAttentionFunction`, whose backward
 calls the two backward wrappers.  The plain versions
@@ -74,7 +81,7 @@ __all__ = ["flash_attention", "mha_flash_attention", "flash_attention_plain",
            "flash_attention_bwd_dkv", "flash_attention_delta",
            "reduce_d_bias", "kernel_takes", "card_dense_arm",
            "dropout_keep_mask", "FlashAttentionFunction", "HEAD_DIMS",
-           "RUNTIME_D_STEP", "runtime_d"]
+           "RUNTIME_D_STEP", "runtime_d", "runtime_d_split", "kernel_split"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # the kernels' template instances
@@ -104,6 +111,86 @@ def runtime_d(head_dim):
     :data:`HEAD_DIMS`, a multiple of :data:`RUNTIME_D_STEP` (every head
     dim the reference's gate takes there)."""
     return head_dim > HEAD_DIMS[-1] and head_dim % RUNTIME_D_STEP == 0
+
+
+# the split-D design of the runtime-D forward and dk/dv (csrc/flash_dn.cuh):
+# the most 64-column blocks a consumer warpgroup holds, by kernel and
+# dtype (256 columns of O; 128 each of dK and dV in bfloat16, 64 in
+# float32), the fewest blocks a cluster has, two warpgroups a block, at
+# most DN_CLUSTER_MAX blocks a cluster
+DN_WG_BLOCKS = {("fwd", torch.bfloat16): 4, ("fwd", torch.float32): 4,
+                ("dkv", torch.bfloat16): 2, ("dkv", torch.float32): 1}
+DN_MIN_BLOCKS = {"fwd": 1, "dkv": 2}
+DN_CLUSTER_MAX = 8
+
+
+def runtime_d_split(d, kernel, dtype=torch.bfloat16, rows=1, bh=1):
+    """How the runtime-D ``kernel`` (``"fwd"`` or ``"dkv"``) splits head
+    dim ``d`` over its warpgroups for ``dtype``, as the C entry points
+    split it
+    (``split_d`` and ``slice_of`` in ``csrc/flash_dn.cuh``): ``cluster``
+    blocks of two warpgroups share each 64-row tile's columns, in
+    ``passes`` clusters when one cluster of at most
+    :data:`DN_CLUSTER_MAX` blocks cannot hold them all (each pass
+    recomputes the scores: ``passes`` is the recompute factor);
+    ``slices`` lists each pass's warpgroups' output columns and
+    ``score_slices`` the columns each warpgroup sums the score products
+    over (all of D over a pass's warpgroups), as ``(first column,
+    columns)``; ``grid`` is the launch's for ``rows`` rows (T forward, Tk
+    dk/dv) of ``bh`` heads."""
+    blocks, cap = d // RUNTIME_D_STEP, DN_WG_BLOCKS[kernel, dtype]
+    wgs = -(-blocks // cap)
+    ctas = max(-(-wgs // 2), DN_MIN_BLOCKS[kernel])
+    passes = -(-ctas // DN_CLUSTER_MAX)
+    cluster = -(-ctas // passes)
+    n = 2 * cluster
+
+    def share(s0, count, parts):
+        return [(s0 + i * (count // parts) + min(i, count % parts),
+                 count // parts + (i < count % parts)) for i in range(parts)]
+
+    def cols(shares):
+        return tuple((RUNTIME_D_STEP * b0, RUNTIME_D_STEP * nb)
+                     for b0, nb in shares)
+
+    return {"cluster": cluster, "passes": passes, "warpgroups": n,
+            "slices": tuple(cols(share(p0, pn, n))
+                            for p0, pn in share(0, blocks, passes)),
+            "score_slices": cols(share(0, blocks, n)),
+            "grid": (cluster * passes * -(-rows // 64), bh, 1)}
+
+
+def kernel_split(d, kernel, dtype=torch.bfloat16, rows=1, bh=1):
+    """The split the runtime-D ``kernel``'s C entry point launches with at
+    head dim ``d`` (``"fwd"`` or ``"dkv"``), queried from its library
+    (``tmx_flash_{fwd,dkv}_dn_split``; so it builds it, which needs
+    ``nvcc``), in :func:`runtime_d_split`'s form: the two agree unless
+    the Python rule has drifted from the C one."""
+    if not runtime_d(d):
+        raise MXNetError(f"head dim {d} has no runtime-D instance")
+    blocks = d // RUNTIME_D_STEP
+    cap = 4 + 2 * 2 * DN_CLUSTER_MAX * (blocks + 1)
+    out = (ctypes.c_int * cap)()
+    i = ctypes.c_int
+    tail = [i, ctypes.POINTER(i), i]     # rows, out, its length
+    if kernel == "fwd":     # (d, rows, out, n)
+        query = _lib("flash_attention_fwd", d).tmx_flash_fwd_dn_split
+        query.argtypes, query.restype = [i] + tail, i
+        n = query(d, rows, out, cap)
+    else:                   # (d, dtype, rows, out, n)
+        query = _lib("flash_attention_bwd", d).tmx_flash_dkv_dn_split
+        query.argtypes, query.restype = [i, i] + tail, i
+        n = query(d, _DTYPES[dtype], rows, out, cap)
+    if n < 0:
+        raise MXNetError(f"the {kernel} library refused head dim {d}")
+    cluster, passes, wgs, grid_x = out[:4]
+    pairs = [(RUNTIME_D_STEP * out[i], RUNTIME_D_STEP * out[i + 1])
+             for i in range(4, n, 2)]
+    return {"cluster": cluster, "passes": passes, "warpgroups": wgs,
+            "slices": tuple(tuple(pairs[p * wgs:(p + 1) * wgs])
+                            for p in range(passes)),
+            "score_slices": tuple(pairs[passes * wgs:]),
+            "grid": (grid_x, bh, 1)}
 
 
 def _lib(name, d):

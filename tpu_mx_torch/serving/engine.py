@@ -169,22 +169,25 @@ class EngineCore:
         launches) and one decode step of this engine's arm at ``batch``
         on a scratch cache of this engine's geometry: the kernels are
         built and loaded here, outside any deadline, and the engine's own
-        cache is untouched."""
-        model, bs, k = self.model, self.cache.block_size, self.spec_window
-        length = max(1, min(bs, model.max_positions - k))
-        cache = PagedKVCache(
-            model.num_layers, model.num_heads, model.head_dim,
-            block_size=bs,
-            num_blocks=batch * self.cache.blocks_for(length + k),
-            dtype=self.cache.k_pool.dtype, share_prefix=False,
-            device=model.device)
-        kv = model.prefill([0] * length)
-        ids = [f"warm-{i}" for i in range(batch)]
-        for sid in ids:
-            cache.prefill(sid, kv[0], kv[1])
-            cache.reserve_window(sid, k)
-        self._step(cache, ids, [0] * batch, np.full(batch, length),
-                   k, not self.greedy)
+        cache is untouched.  It is not serving work: the ``serve.*``
+        metrics are left as they were (the reference's warm-up only
+        compiles), while the kernel wrappers count its launches."""
+        with _telemetry.muted("serve."):
+            model, bs, k = self.model, self.cache.block_size, self.spec_window
+            length = max(1, min(bs, model.max_positions - k))
+            cache = PagedKVCache(
+                model.num_layers, model.num_heads, model.head_dim,
+                block_size=bs,
+                num_blocks=batch * self.cache.blocks_for(length + k),
+                dtype=self.cache.k_pool.dtype, share_prefix=False,
+                device=model.device)
+            kv = model.prefill([0] * length)
+            ids = [f"warm-{i}" for i in range(batch)]
+            for sid in ids:
+                cache.prefill(sid, kv[0], kv[1])
+                cache.reserve_window(sid, k)
+            self._step(cache, ids, [0] * batch, np.full(batch, length),
+                       k, not self.greedy)
 
     # -- prefill -------------------------------------------------------------
     def prefill(self, req):

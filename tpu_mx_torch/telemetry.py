@@ -41,7 +41,7 @@ from bisect import bisect_left
 
 __all__ = ["counter", "gauge", "histogram", "span", "get", "series",
            "reset", "snapshot", "flush", "exposition", "validate_record",
-           "set_fleet_identity", "fleet_identity",
+           "set_fleet_identity", "fleet_identity", "muted",
            "configured_path", "Counter", "Gauge", "Histogram",
            "KNOWN_METRICS", "LATENCY_BUCKETS", "SEGMENT_OPS_BUCKETS",
            "SLO_LATENCY_BUCKETS", "WINDOW_SECONDS", "WINDOW_SUBWINDOWS",
@@ -808,7 +808,31 @@ def parse_slo_spec(spec):
     }
 
 
+# name prefixes whose metrics this thread does not record (:func:`muted`)
+_muted = threading.local()
+
+
+class muted:
+    """Context manager: inside it, this thread's metrics whose names
+    start with ``prefix`` are fresh unregistered objects, so their
+    updates reach no series (the serving engine's warm-up is not serving
+    work and leaves the ``serve.*`` series untouched)."""
+
+    def __init__(self, prefix):
+        self.prefix = prefix
+
+    def __enter__(self):
+        _muted.prefixes = getattr(_muted, "prefixes", ()) + (self.prefix,)
+        return self
+
+    def __exit__(self, *exc):
+        _muted.prefixes = _muted.prefixes[:-1]
+        return False
+
+
 def _get_or_make(cls, name, labels, **kw):
+    if any(name.startswith(p) for p in getattr(_muted, "prefixes", ())):
+        return cls(name, _labels_key(labels), **kw)
     key = (name, _labels_key(labels))
     with _lock:
         m = _metrics.get(key)
